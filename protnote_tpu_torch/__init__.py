@@ -1,0 +1,15 @@
+"""protnote_tpu_torch: the PyTorch and CUDA port of protnote_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package ``protnote_tpu`` is the reference; this package mirrors its
+layout module for module, so ``protnote_tpu/<path>`` has its counterpart at
+``protnote_tpu_torch/<path>``.  It imports torch and never jax.  Ported so
+far is the serving path: ProteInfer encoder (eval), projection heads, the
+folded pair scorer with its hand-written CUDA kernel (``csrc/``), the eval
+step, ``ServingEngine`` and ``cli.serve``.  Host-only modules of the JAX
+package that never import jax (``protnote_tpu.data``, and ``ServingStats``,
+``topk_from_probs`` and ``make_http_server`` from ``protnote_tpu.serving``)
+are imported, not copied.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,126 @@
+"""The port stands without jax: importing it (its serving engine and CLI
+included) leaves jax out of ``sys.modules``, no source of the port or of
+chip_smoke.py imports jax, and chip_smoke.py refuses to run without a CUDA
+card instead of falling back to the CPU."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+import jax
+
+from protnote_tpu_torch.models.convert import from_jax_tree, proteinfer_from_tf_pickle
+from protnote_tpu_torch.models.proteinfer import ProteInferConfig
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+MODULES = [
+    "protnote_tpu_torch", "protnote_tpu_torch.serving", "protnote_tpu_torch.cli.serve",
+    "protnote_tpu_torch.train.step", "protnote_tpu_torch.models.convert",
+    "protnote_tpu_torch.ops.pair_scorer", "protnote_tpu_torch.ops.kernels",
+]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in MODULES)
+            + "from protnote_tpu_torch.cli.serve import build_argparser\n"
+            + "build_argparser()\n"
+            + "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_source_of_the_port_imports_jax():
+    sources = list((ROOT / "protnote_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) >= 10
+    pattern = re.compile(r"^\s*(import jax\b|from jax\b|import flax|from flax)", re.M)
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_chip_smoke_needs_a_card():
+    """Without CUDA the smoke run exits non-zero and prints no result line."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=_env(), cwd=ROOT,
+                         timeout=120)
+    if torch.cuda.is_available():  # pragma: no cover - only on the card
+        return
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "no CUDA device" in out.stderr
+
+
+def test_from_jax_tree_drops_optimizer_state():
+    tree = {"trainable": {"protnote": {"k": np.ones((2, 3), np.float32)}},
+            "model_state": {"bns": [{"mean": np.zeros(3, np.float32)}]},
+            "enc_params": None, "opt_state": (np.zeros(1),), "step": np.int32(4)}
+    out = from_jax_tree(tree)
+    assert set(out) == {"trainable", "model_state", "enc_params"}
+    assert out["enc_params"] is None
+    assert isinstance(out["trainable"]["protnote"]["k"], torch.Tensor)
+    assert isinstance(out["model_state"]["bns"], list)
+
+
+def test_tf_pickle_matches_jax_loader(tmp_path):
+    """The port's TF-pickle reader gives the JAX reader's weights, by name
+    from a scrambled pickle and positionally from an unnamed one."""
+    import pickle
+
+    from protnote_tpu.models import convert as jconvert
+    from protnote_tpu.models import proteinfer as jpi
+
+    rng = np.random.default_rng(1)
+    jcfg = jpi.ProteInferConfig(input_channels=4, output_channels=8, kernel_size=3,
+                                num_resnet_blocks=2, num_labels=5)
+    tcfg = ProteInferConfig(input_channels=4, output_channels=8, kernel_size=3,
+                            num_resnet_blocks=2, num_labels=5)
+    entries = [("inferrer/conv1d/kernel:0", rng.normal(size=(3, 4, 8))),
+               ("inferrer/conv1d/bias:0", rng.normal(size=8)),
+               ("inferrer/dense/kernel:0", rng.normal(size=(8, 5))),
+               ("inferrer/dense/bias:0", rng.normal(size=5)),
+               ("inferrer/global_step:0", np.int64(7))]
+    for i in range(2):
+        bn1, bn2, cd, c1 = 2 * i, 2 * i + 1, 1 + 2 * i, 2 + 2 * i
+        for bn, n in ((f"batch_normalization{f'_{bn1}' if bn1 else ''}", 8),
+                      (f"batch_normalization_{bn2}", 4)):
+            entries += [(f"inferrer/{bn}/gamma:0", rng.normal(size=n)),
+                        (f"inferrer/{bn}/beta:0", rng.normal(size=n)),
+                        (f"inferrer/{bn}/moving_mean:0", rng.normal(size=n)),
+                        (f"inferrer/{bn}/moving_variance:0", rng.random(n) + 0.5)]
+        entries += [(f"inferrer/conv1d_{cd}/kernel:0", rng.normal(size=(3, 8, 4))),
+                    (f"inferrer/conv1d_{cd}/bias:0", rng.normal(size=4)),
+                    (f"inferrer/conv1d_{c1}/kernel:0", rng.normal(size=(1, 4, 8))),
+                    (f"inferrer/conv1d_{c1}/bias:0", rng.normal(size=8))]
+    keys = [k for k, _ in entries]
+    rng.shuffle(keys)
+    d = dict(entries)
+    path = tmp_path / "w.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump({k: d[k] for k in keys}, fh)
+    jp, js = jconvert.proteinfer_from_tf_pickle(str(path), jcfg)
+    want = from_jax_tree({"p": jax.tree_util.tree_map(np.asarray, jp),
+                          "s": jax.tree_util.tree_map(np.asarray, js)})
+    tp, ts = proteinfer_from_tf_pickle(str(path), tcfg)
+    for a, b in zip(jax.tree_util.tree_leaves((want["p"], want["s"])),
+                    jax.tree_util.tree_leaves((tp, ts))):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    # unnamed arrays in slot order load positionally
+    values = [np.asarray(c[k]) for c, k, _ in jconvert._proteinfer_slots(jp, js)]
+    pos = tmp_path / "pos.pkl"
+    with open(pos, "wb") as fh:
+        pickle.dump({f"v{i}": v for i, v in enumerate(values)}, fh)
+    tp2, ts2 = proteinfer_from_tf_pickle(str(pos), tcfg)
+    for a, b in zip(jax.tree_util.tree_leaves((tp, ts)),
+                    jax.tree_util.tree_leaves((tp2, ts2))):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)

@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one CUDA card (H100).
+"""Smoke run of the PyTorch port's serving and evaluation paths on one CUDA
+card (H100).
 
     python3 chip_smoke.py
 
 Phases, each printing one line (any failure raises and exits non-zero):
 
 1. device: card name, power limit, CUDA and nvcc versions;
-2. build: compiles ``protnote_tpu_torch/csrc/pair_scorer.cu`` with nvcc;
-3. the pair-scorer kernel against its plain PyTorch version at the full
+2. build: compiles every ``protnote_tpu_torch/csrc/*.cu`` with nvcc, one
+   nvcc per source, all at once, and prints each one's ptxas lines;
+3. the pair-scorer kernel (K1) against its plain PyTorch version at the full
    serving width (32 sequences x 64,204 label rows, d=1024, H=3072, bf16),
    with both times from CUDA events;
 4. serving: a full-width ``ServingEngine`` (ProteInfer 1100 channels x 5
    blocks, 32,102 labels x 2 descriptions) behind the stdlib HTTP server,
    answering /v1/predict and /healthz requests;
 5. serving parity: ``engine.score`` against a forward through the plain
-   pair scorer on the same device tensors.
+   pair scorer on the same device tensors;
+6. the eval-accumulator kernels (K3) against their plain version at full
+   width (32 rows x 32,102 labels x 512 bins, 8 batches with padded rows,
+   a label_mask with zeros and one label-subset batch), with both times;
+7. evaluation: a 256-sequence FASTA -> ``ProteinDataset`` -> ``BucketBatcher``
+   (device label gather) -> ``PrefetchBatcher`` -> the port's
+   ``Trainer.evaluate`` (eval step with K1, then a K3 update per batch, K3
+   finalize), then a second pass over the same batches that feeds each
+   logits tensor to the kernel and to the plain accumulator.
 
-Then one JSON line per kernel with its launches on the serving path, its
-error against the plain version and both times, the card's name and power
-limit, and last the line ``{"ok": true, "device": {...}}``.  Weights and
-label embeddings are random, made from fixed seeds.  There is no CPU path:
-without a CUDA device the script exits non-zero and prints no result.
+Then one JSON line per kernel with its launches on the evaluation path (the
+counts are set to 0 just before ``Trainer.evaluate`` and read just after),
+its error against the plain version and both times, the card's name and
+power limit, and last the line ``{"ok": true, "device": {...}}``.  Weights,
+label embeddings and sequences are random, made from fixed seeds.  There is
+no CPU path: without a CUDA device the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -46,6 +58,21 @@ LABEL_TILE = 512
 # atomics), so an activation can round to the neighbouring bf16 value
 PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
+
+KERNEL_SOURCES = ("pair_scorer", "eval_accumulator")
+
+# K3 (ESTIMATE_MAP evaluation): 512 AUPRC bins, DECISION_TH 0.5.  Kernel and
+# plain version read the same logits; the integer state must agree exactly
+# except for elements within EDGE of a bin edge or of the threshold (two
+# exponentials may differ by an ulp there), whose count is printed; the
+# float32 sums agree to SUM_RTOL, AP to AP_ATOL.
+NUM_BINS = 512
+THRESHOLD = 0.5
+EDGE = 1e-6
+SUM_RTOL = 1e-6
+AP_ATOL = 1e-6
+EVAL_SEQUENCES = 256
+K3_SUBSET, K3_SUBSET_WIDTH = 20000, 20096  # the label-subset (cols) batch
 
 
 def log(phase: str, **fields) -> None:
@@ -94,13 +121,20 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from protnote_tpu_torch.ops.kernels import load_kernel_library
 
-    lib = load_kernel_library("pair_scorer")
-    ptxas = [line.strip() for line in lib.build_log.splitlines()
-             if "registers" in line or "spill" in line]
-    log("build", library=os.path.relpath(lib.path, ROOT),
-        seconds=lib.build_seconds, ptxas=ptxas)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(load_kernel_library, KERNEL_SOURCES))
+    for lib in libs:
+        ptxas = [line.strip() for line in lib.build_log.splitlines()
+                 if "registers" in line or "spill" in line]
+        log("build", library=os.path.relpath(lib.path, ROOT),
+            seconds=lib.build_seconds, ptxas=ptxas)
+    log("build_all", wall_seconds=time.perf_counter() - t0)
 
 
 def random_folded(gen, d: int, hidden: int, n_hidden: int, device):
@@ -177,13 +211,13 @@ def he_scale_linears(tree) -> None:
             he_scale_linears(v)
 
 
-def build_engine():
-    import numpy as np
+def random_models():
+    """Full-width configs (configs/base.yaml, bf16) and seeded random
+    weights, the ProtNote linears He-scaled."""
     import torch
 
     from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
     from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
-    from protnote_tpu_torch.serving import ServingEngine
 
     pi_cfg = ProteInferConfig(compute_dtype=torch.bfloat16)
     pn_cfg = ProtNoteConfig.from_params(
@@ -195,8 +229,25 @@ def build_engine():
     he_scale_linears(pn_params)
     ts = {"trainable": {"protnote": pn_params}, "model_state": pn_state,
           "enc_params": pi_params, "enc_state": pi_state}
+    return pi_cfg, pn_cfg, ts
+
+
+def random_label_matrix():
+    """(32,102 x 2, 1024) float32 label-embedding rows from a fixed seed."""
+    import torch
+
     gen = torch.Generator().manual_seed(2)
-    matrix = torch.randn(NUM_LABELS * K_DESCRIPTIONS, D_LATENT, generator=gen).numpy()
+    return torch.randn(NUM_LABELS * K_DESCRIPTIONS, D_LATENT, generator=gen).numpy()
+
+
+def build_engine():
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.serving import ServingEngine
+
+    pi_cfg, pn_cfg, ts = random_models()
+    matrix = random_label_matrix()
     vocab = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
     t0 = time.perf_counter()
     engine = ServingEngine(ts, pi_cfg, pn_cfg, matrix, vocab, buckets=(512, 1024),
@@ -340,6 +391,239 @@ def phase_parity(engine, rng):
         raise AssertionError(f"engine disagrees with the plain forward: {err}")
 
 
+def edge_elements(logits, valid) -> int:
+    """Valid elements whose probability lies within EDGE of a bin edge
+    k/NUM_BINS or of the threshold (float64, so it does not depend on either
+    float32 exponential)."""
+    import torch
+
+    p = torch.sigmoid(logits.double())
+    near_bin = (p * NUM_BINS - torch.round(p * NUM_BINS)).abs() / NUM_BINS < EDGE
+    near_th = (p - THRESHOLD).abs() < EDGE
+    return int(((near_bin | near_th) & valid).sum())
+
+
+def compare_states(kern, plain, edges: int) -> dict:
+    """Integer state: the sum of |delta| of each field is at most 2 x the
+    edge elements (one element on the other side of an edge moves two
+    counts).  When every integer field agrees, both sides summed the same
+    float32 terms, and the sums must agree to SUM_RTOL."""
+    deltas = {}
+    for k, v in plain.items():
+        if v.dtype.is_floating_point:
+            deltas[k] = abs(float(kern[k]) - float(v))
+        else:
+            deltas[k] = int((kern[k].long() - v.long()).abs().sum())
+            if deltas[k] > 2 * edges:
+                raise AssertionError(f"K3 state {k}: |delta| {deltas[k]} exceeds 2 x "
+                                     f"{edges} edge elements")
+    if all(deltas[k] == 0 for k, v in plain.items() if not v.dtype.is_floating_point):
+        for k, v in plain.items():
+            if v.dtype.is_floating_point and deltas[k] > SUM_RTOL * abs(float(v)):
+                raise AssertionError(f"K3 state {k}: kernel {float(kern[k])} vs plain "
+                                     f"{float(v)} (rtol {SUM_RTOL})")
+    return deltas
+
+
+def int_delta(deltas: dict) -> int:
+    return max(v for k, v in deltas.items() if not k.endswith("_sum"))
+
+
+def k3_batches(gen, dev):
+    """8 full-width batches: 1-3 padded rows each, a label_mask with zeros,
+    and the last batch a K3_SUBSET-label subset padded to K3_SUBSET_WIDTH
+    columns (the cols path).  Logits spread over (-6, 6); about 1%
+    positives."""
+    import torch
+
+    out = []
+    for i in range(8):
+        em = torch.ones(B)
+        em[B - 1 - i % 3 :] = 0
+        if i == 7:
+            li = torch.randperm(NUM_LABELS, generator=gen)[:K3_SUBSET].sort().values.numpy()
+            lm = torch.cat([torch.ones(K3_SUBSET), torch.zeros(K3_SUBSET_WIDTH - K3_SUBSET)])
+        else:
+            li, lm = None, (torch.rand(NUM_LABELS, generator=gen) < 0.98).float()
+        logits = torch.randn(B, lm.numel(), generator=gen) * 2.0
+        targets = (torch.rand(B, lm.numel(), generator=gen) < 0.01).float()
+        out.append(([t.to(dev) for t in (logits, targets, em, lm)], li))
+    return out
+
+
+def phase_k3(card: str):
+    """K3's three entry points at full width against the plain version on
+    the same tensors."""
+    import torch
+
+    from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+
+    dev = torch.device("cuda")
+    batches = k3_batches(torch.Generator().manual_seed(4), dev)
+    kern = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev)
+    plain = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev)
+    edges = 0
+    for (logits, targets, em, lm), li in batches:
+        cols = kern.cols_for(li, logits.shape[1])
+        k3.update_cuda(kern.state, logits, targets, em, lm, cols, THRESHOLD, NUM_BINS)
+        k3.update_reference(plain.state, logits, targets, em, lm, cols, THRESHOLD, NUM_BINS)
+        edges += edge_elements(logits, (em[:, None] > 0) & (lm[None, :] > 0))
+    torch.cuda.synchronize()
+    deltas = compare_states(kern.state, plain.state, edges)
+    # finalize: kernel and plain version on the same histograms
+    ap, npos, out = k3.finalize_cuda(kern.state["hist"], NUM_LABELS, NUM_BINS)
+    ap_p, npos_p, out_p = k3.finalize_reference(kern.state["hist"], NUM_LABELS, NUM_BINS)
+    torch.cuda.synchronize()
+    ap_err = float((ap - ap_p).abs().max())
+    out_err = float((out - out_p).abs().max())
+    if not (torch.isfinite(out).all() and ap_err <= AP_ATOL and out_err <= AP_ATOL
+            and torch.equal(npos, npos_p)):
+        raise AssertionError(f"K3 finalize disagrees: per-label AP {ap_err}, "
+                             f"micro/macro {out_err} (atol {AP_ATOL})")
+    int_err = int_delta(deltas)
+    sum_err = max(deltas["precision_sum"], deltas["recall_sum"])
+    log("k3_check", batches=len(batches), labels=NUM_LABELS, bins=NUM_BINS,
+        edge_elements=edges, state_deltas=deltas, max_ap_err=ap_err,
+        micro_macro=out.tolist(), micro_macro_plain=out_p.tolist())
+
+    # times, on scratch states (CUDA events; warm-up inside cuda_time_ms)
+    (logits, targets, em, lm), _ = batches[0]
+    s_k = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev).state
+    s_p = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev).state
+    row_counts = torch.randint(0, 100, (B, 3), dtype=torch.int32, device=dev)
+    t = {
+        "update": (cuda_time_ms(lambda: k3.update_cuda(
+            s_k, logits, targets, em, lm, None, THRESHOLD, NUM_BINS), 20),
+            cuda_time_ms(lambda: k3.update_reference(
+                s_p, logits, targets, em, lm, None, THRESHOLD, NUM_BINS), 5)),
+        "row_tail": (cuda_time_ms(lambda: k3.row_tail_cuda(s_k, row_counts, em), 50),
+                     cuda_time_ms(lambda: k3.row_tail_reference(s_p, row_counts, em), 20)),
+        "finalize": (cuda_time_ms(lambda: k3.finalize_cuda(
+            kern.state["hist"], NUM_LABELS, NUM_BINS), 10),
+            cuda_time_ms(lambda: k3.finalize_reference(
+                plain.state["hist"], NUM_LABELS, NUM_BINS), 3)),
+    }
+    log("k3_time", **{f"{k}_ms": v[0] for k, v in t.items()},
+        **{f"{k}_plain_ms": v[1] for k, v in t.items()}, card=card)
+    errs = {"update": int_err, "row_tail": sum_err, "finalize": max(ap_err, out_err)}
+    return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1]} for k in t}
+
+
+def eval_dataset(tmp: str):
+    """A 256-sequence FASTA (lengths 100-1000, 1-5 GO labels each) over the
+    full 32,102-label vocabulary, with a random label cache (fixed seeds)."""
+    import numpy as np
+
+    from protnote_tpu.data.dataset import DatasetConfig, ProteinDataset
+    from protnote_tpu.data.fasta import save_to_fasta
+    from protnote_tpu.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu.data.vocab import COMMON_AMINOACIDS
+
+    rng = np.random.default_rng(5)
+    go_ids = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
+    records = [("".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), int(n))), f"seq{i}",
+                [go_ids[j] for j in rng.choice(NUM_LABELS, int(rng.integers(1, 6)),
+                                               replace=False)])
+               for i, n in enumerate(rng.integers(100, 1001, size=EVAL_SEQUENCES))]
+    path = save_to_fasta(records, os.path.join(tmp, "eval.fasta"))
+    types = ["name", "label"]
+    rows = NUM_LABELS * K_DESCRIPTIONS
+    cache = LabelEmbeddingCache(
+        embeddings=random_label_matrix(), ids=np.repeat(np.array(go_ids), K_DESCRIPTIONS),
+        description_types=np.array(types * NUM_LABELS),
+        descriptions=np.array(["description"] * rows),
+        token_counts=np.full(rows, 3, np.int32))
+    cfg = DatasetConfig(dataset_type="test", inference_go_descriptions=tuple(types),
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    vocab = {"amino_acid_vocab": sorted(COMMON_AMINOACIDS), "label_vocab": go_ids}
+    return ProteinDataset(path, cfg, label_embedding_cache=cache, vocabularies=vocab)
+
+
+def phase_eval(card: str, k3_times: dict):
+    """The evaluation path at full width; returns the launches of each
+    kernel in ``Trainer.evaluate``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator, EvalMetrics
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.train.step import batch_to_device_dict
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ds = eval_dataset(tmp)
+        batcher = PrefetchBatcher(BucketBatcher(
+            ds, B, buckets=(256, 512, 1024), return_label_multihots=True,
+            descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True), prefetch=2)
+        data_s = time.perf_counter() - t0
+    pi_cfg, pn_cfg, ts = random_models()
+    trainer = Trainer(ts, pi_cfg, pn_cfg,
+                      TrainerConfig(decision_threshold=THRESHOLD, estimate_map=True),
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ps.LAUNCHES = 0
+    for name in k3.LAUNCHES:
+        k3.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(batcher)["metrics"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"pair_mlp_layer": ps.LAUNCHES,
+                **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"the evaluation path skipped a kernel: {launches}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite metrics: {metrics}")
+    n_batches = len(batcher)
+    batch_ms = sec * 1e3 / n_batches
+    log("eval", sequences=len(ds), batches=n_batches, seconds=sec, data_seconds=data_s,
+        seqs_per_s=len(ds) / sec, batch_ms=batch_ms, launches=launches,
+        k3_update_share=(k3_times["update"]["ms"] / batch_ms), peak_mem_gb=peak,
+        metrics=metrics, card=card)
+
+    # second pass: the same batches' logits into the kernel and the plain
+    # accumulator
+    kern = DeviceEvalAccumulator(ds.num_labels, THRESHOLD, NUM_BINS, device="cuda")
+    plain = DeviceEvalAccumulator(ds.num_labels, THRESHOLD, NUM_BINS, device="cuda")
+    label_matrix = trainer._label_matrix_for(ds)
+    latents, edges = None, 0
+    for batch in batcher:
+        arrays = trainer._place(batch_to_device_dict(batch, trainer.device), label_matrix)
+        if latents is None:
+            latents = trainer._label_latents(arrays)
+        arrays = trainer._swap_in_latents(arrays, latents)
+        logits = trainer._eval_step(trainer.ts, arrays)["logits"]
+        mh, em = arrays["label_multihots"], arrays["example_mask"]
+        lm = torch.ones(logits.shape[1], device=logits.device)
+        cols = kern.cols_for(batch.label_indices, logits.shape[1])
+        kern.update_fn(kern.state, logits, mh, em, lm, cols)
+        k3.update_reference(plain.state, logits, mh, em, lm, cols, THRESHOLD, NUM_BINS)
+        edges += edge_elements(logits, (em[:, None] > 0).expand_as(logits))
+    torch.cuda.synchronize()
+    deltas = compare_states(kern.state, plain.state, edges)
+    got = EvalMetrics(ds.num_labels, THRESHOLD, map_estimate=True)
+    want = EvalMetrics(ds.num_labels, THRESHOLD, map_estimate=True)
+    kern.finalize_into(got)
+    plain.merge_into(want)
+    got, want = got.compute(), want.compute()
+    errs = {k: abs(got[k] - want[k]) for k in want}
+    worst = max(errs.values())
+    log("eval_parity", edge_elements=edges, state_deltas=deltas, max_metric_err=worst,
+        atol=AP_ATOL, map_micro=got["map_micro"], map_macro=got["map_macro"])
+    # metrics within AP_ATOL unless an edge element moved a count
+    if worst > AP_ATOL and int_delta(deltas) == 0:
+        raise AssertionError(f"kernel and plain metrics disagree: {errs}")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -351,16 +635,27 @@ def main() -> None:
     engine, build_s, rng = build_engine()
     log("engine", build_seconds=build_s, labels=NUM_LABELS, label_rows=NUM_LABELS * K_DESCRIPTIONS,
         latents=list(engine.latents.shape), latents_dtype=str(engine.latents.dtype))
-    launches = phase_serving(engine, rng, card)
+    phase_serving(engine, rng, card)
     phase_parity(engine, rng)
+    del engine
+    torch.cuda.empty_cache()
+    k3_times = phase_k3(card)
+    launches = phase_eval(card, k3_times)
     if "jax" in sys.modules:
-        raise AssertionError("the port's serving path imported jax")
+        raise AssertionError("the port's serving or evaluation path imported jax")
+    k3_src = "protnote_tpu_torch/csrc/eval_accumulator.cu"
+    replaces = {"update": "protnote_tpu/evaln/metrics.py:601",
+                "row_tail": "protnote_tpu/evaln/metrics.py:628",
+                "finalize": "protnote_tpu/evaln/metrics.py:732"}
     print(json.dumps({"kernels": [{
         "name": "pair_mlp_layer", "route": "cuda",
         "source": "protnote_tpu_torch/csrc/pair_scorer.cu",
         "replaces": "protnote_tpu/ops/pair_scorer.py:197",
-        "launches": launches, **k1,
-    }]}), flush=True)
+        "launches": launches["pair_mlp_layer"], **k1,
+    }] + [{
+        "name": f"eval_acc_{k}", "route": "cuda", "source": k3_src,
+        "replaces": replaces[k], "launches": launches[f"eval_acc_{k}"], **k3_times[k],
+    } for k in ("update", "row_tail", "finalize")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,234 @@
+"""Evaluate a ProtNote model on test sets with the PyTorch port.
+
+    python -m protnote_tpu_torch.cli.main --test-paths-names TEST_DATA_PATH \\
+        --model-file run.ckpt --override ESTIMATE_MAP True DECISION_TH 0.5
+
+The argument surface of ``protnote_tpu.cli.main``.  Ported is the test-set
+path with all metrics on the device: config, the label-embedding cache,
+``ProteinDataset`` -> ``BucketBatcher`` (device label gather) ->
+``PrefetchBatcher`` (imported from the JAX package's host-only data layer),
+weights from ``--model-file`` (a ``PNTPU1`` ``.ckpt`` of the JAX package or
+a reference ``.pt``), label latents once per evaluation, one eval step plus
+one K3 update per batch, K3 finalize, and the metric dict of
+``EvalMetrics.compute()`` with seqs/s and pairs/s, optionally appended to
+the ``--save-val-test-metrics`` JSON.  The config is read with
+``load_config``/``override_config``/``resolve_paths``: ``get_setup``
+imports jax.
+
+Training, validation, the threshold sweep, the exact host AUPRC, prediction
+and embedding export, GO-DAG normalisation, represented-label slicing, label
+sampling, the text tower, a mesh and int8 raise ``NotImplementedError``
+naming the ROADMAP item that brings them.  The eval loss is not reported:
+the loss functions come with the training slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import logging
+import os
+from typing import Dict, List
+
+from protnote_tpu_torch.train.trainer import SWEEP_LATER
+
+logger = logging.getLogger(__name__)
+
+ROADMAP_TRAINING = ("training and validation come with the training slice "
+                    "(ROADMAP.md queue 1, item 5)")
+ROADMAP_HOST_PATH = ("reads logits back to the host (prediction/embedding export, "
+                     "GO-DAG normalisation, label slicing): not ported yet "
+                     "(ROADMAP.md queue 1, item 2)")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    """The JAX CLI's arguments, plus ``--device``."""
+    ap = argparse.ArgumentParser(description="ProtNote evaluation (PyTorch port)")
+    ap.add_argument("--train-path-name", default=None)
+    ap.add_argument("--validation-path-name", default=None)
+    ap.add_argument("--test-paths-names", nargs="+", default=None)
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--name", default="ProtNoteTPU")
+    ap.add_argument("--override", nargs="*", default=None)
+    ap.add_argument("--model-file", default=None,
+                    help="checkpoint to load (.ckpt of the JAX package, .pt reference)")
+    ap.add_argument("--from-checkpoint", action="store_true")
+    ap.add_argument("--annotations-path-name", default="GO_ANNOTATIONS_PATH")
+    ap.add_argument("--base-label-embedding-name", default="GO_BASE_LABEL_EMBEDDING_PATH")
+    ap.add_argument("--save-prediction-results", action="store_true")
+    ap.add_argument("--save-embeddings", action="store_true")
+    ap.add_argument("--save-val-test-metrics", action="store_true")
+    ap.add_argument("--save-val-test-metrics-file", default="val_test_metrics.json")
+    ap.add_argument("--use-wandb", action="store_true")
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--only-represented-labels", action="store_true")
+    ap.add_argument("--mesh-dp", type=int, default=None)
+    ap.add_argument("--mesh-label", type=int, default=None)
+    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--coordinator-address", default=None)
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the evaluation (default: cuda)")
+    return ap
+
+
+def refuse_unported(args, params: Dict) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not port.
+    ``DECISION_TH null`` alone is ported: as in the JAX CLI, test sets are
+    then scored for AP only; the threshold sweep runs on a validation set."""
+    if args.validation_path_name and params.get("DECISION_TH") is None:
+        raise NotImplementedError(SWEEP_LATER)
+    if args.train_path_name or args.validation_path_name:
+        raise NotImplementedError(ROADMAP_TRAINING)
+    for flag, name in ((args.use_wandb, "--use-wandb"), (args.profile_dir, "--profile-dir"),
+                       (args.from_checkpoint, "--from-checkpoint")):
+        if flag:
+            raise NotImplementedError(f"{name} serves training: {ROADMAP_TRAINING}")
+    for flag, name in ((args.save_prediction_results, "--save-prediction-results"),
+                       (args.save_embeddings, "--save-embeddings"),
+                       (args.only_represented_labels, "--only-represented-labels"),
+                       (params.get("NORMALIZE_PROBABILITIES"), "NORMALIZE_PROBABILITIES")):
+        if flag:
+            raise NotImplementedError(f"{name} {ROADMAP_HOST_PATH}")
+    if not params.get("ESTIMATE_MAP", False):
+        raise NotImplementedError(
+            "ESTIMATE_MAP False (the exact host AUPRC, ExactAUPRC) is not ported yet "
+            "(ROADMAP.md queue 1, item 2); pass --override ESTIMATE_MAP True")
+    if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
+        raise NotImplementedError("the text tower (K8) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 8)")
+    if params.get("PAIR_BACKEND") == "tiled_int8":
+        raise NotImplementedError("the int8 scorer (K2) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 4)")
+    mesh = [v for v in (args.mesh_dp, args.mesh_label) if v not in (None, 1)]
+    if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
+        raise NotImplementedError("meshes and several cards come with the multi-GPU "
+                                  "slice (ROADMAP.md queue 1, item 9)")
+    if not params.get("DEVICE_RESIDENT_LABEL_EMBEDDINGS", True):
+        raise NotImplementedError("DEVICE_RESIDENT_LABEL_EMBEDDINGS False is not ported "
+                                  "(ROADMAP.md queue 1, item 2); the port gathers from "
+                                  "the resident label matrix")
+
+
+def load_setup(args):
+    """-> (config, run_name, log): the JAX ``get_setup`` for test-set roles,
+    without jax: overrides, resolved paths, ``dataset_paths``, the
+    label-embedding paths and a timestamped run name."""
+    from protnote_tpu.core.config import (
+        DEFAULT_CONFIG_PATH,
+        generate_label_embedding_path,
+        label_embedding_index_path,
+        load_config,
+        override_config,
+        resolve_paths,
+        setup_logging,
+    )
+
+    config = load_config(args.config or DEFAULT_CONFIG_PATH)
+    override_config(config, args.override)
+    resolve_paths(config)
+    params, paths = config["params"], config["paths_resolved"]
+    refuse_unported(args, params)
+    timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    run_name = f"{timestamp}_{args.name}"
+    config["dataset_paths"] = (
+        {"test": [paths[name] for name in args.test_paths_names]}
+        if args.test_paths_names else {})
+    config["ANNOTATIONS_PATH"] = paths.get(args.annotations_path_name)
+    base_emb = paths.get(args.base_label_embedding_name)
+    if base_emb is not None:
+        config["LABEL_EMBEDDING_PATH"] = generate_label_embedding_path(params, base_emb)
+        config["LABEL_EMBEDDING_INDEX_PATH"] = label_embedding_index_path(
+            config["LABEL_EMBEDDING_PATH"])
+    log = setup_logging(paths.get("LOG_DIR"), run_name)
+    return config, run_name, log
+
+
+def run(args) -> Dict:
+    from protnote_tpu.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu.data.dataset import DatasetConfig, ProteinDataset
+    from protnote_tpu.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu.data.vocab import generate_vocabularies
+    from protnote_tpu_torch.cli._model_setup import build_models
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    config, run_name, log = load_setup(args)
+    params = config["params"]
+    if args.seed is not None:
+        params["SEED"] = args.seed
+    seed = params["SEED"]
+
+    cache = LabelEmbeddingCache.load(config["LABEL_EMBEDDING_PATH"],
+                                     config["LABEL_EMBEDDING_INDEX_PATH"])
+    vocab_source = params.get("EXTRACT_VOCABULARIES_FROM")
+    vocabularies = None
+    if vocab_source:
+        vocab_path = config["paths_resolved"].get(vocab_source)
+        if not vocab_path or not os.path.exists(vocab_path):
+            raise FileNotFoundError(
+                f"EXTRACT_VOCABULARIES_FROM={vocab_source!r} -> {vocab_path!r} does "
+                "not exist; set the path or override EXTRACT_VOCABULARIES_FROM null "
+                "to derive per-dataset vocabularies deliberately")
+        vocabularies = generate_vocabularies(file_path=vocab_path)
+
+    datasets: Dict[str, List[ProteinDataset]] = {
+        role: [ProteinDataset(p, DatasetConfig.from_params(params, role),
+                              label_embedding_cache=cache, vocabularies=vocabularies,
+                              seed=seed) for p in paths]
+        for role, paths in config["dataset_paths"].items()}
+    if not datasets:
+        raise SystemExit("No datasets selected; pass --test-paths-names")
+    num_aa = len(next(iter(datasets.values()))[0].amino_acid_vocabulary)
+
+    pi_cfg, pn_cfg, ts = build_models(
+        config, cache.dim, num_aa=num_aa, seed=seed, gate_pretrained=True,
+        train_sequence_encoder=params.get("TRAIN_SEQUENCE_ENCODER", False), log=log)
+    trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig.from_params(params),
+                      device=args.device)
+    if args.model_file:
+        trainer.load(args.model_file)
+    else:
+        log.warning("no --model-file: evaluating randomly initialised weights")
+
+    buckets = tuple(params.get("SEQUENCE_BUCKETS",
+                               (256, 512, 1024, 2048, 4096, 8192, 12288)))
+    prefetch_n = int(params.get("PREFETCH_BATCHES", 2) or 0)
+    all_metrics: Dict[str, Dict] = {}
+    tests = datasets.get("test", [])
+    for i, test_ds in enumerate(tests):
+        split = f"test_{i}" if len(tests) > 1 else "test"
+        batcher = BucketBatcher(
+            test_ds, params["TEST_BATCH_SIZE"], buckets=buckets, seed=seed,
+            descriptions_per_label=pn_cfg.inference_descriptions_per_label,
+            device_label_gather=True, tokens_per_batch=params.get("TOKENS_PER_BATCH"))
+        if prefetch_n > 0:
+            batcher = PrefetchBatcher(batcher, prefetch=prefetch_n)
+        res = trainer.evaluate(batcher, data_split_name=split)
+        all_metrics[split] = res["metrics"]
+        log.info("%s metrics: %s", split, json.dumps(res["metrics"], default=float))
+
+    if args.save_val_test_metrics and all_metrics:
+        path = args.save_val_test_metrics_file
+        existing = []
+        if os.path.exists(path):
+            with open(path) as fh:
+                try:
+                    existing = json.load(fh)
+                except json.JSONDecodeError:
+                    existing = []
+        existing.append({"run_name": run_name, "metrics": all_metrics})
+        with open(path, "w") as fh:
+            json.dump(existing, fh, indent=2, default=float)
+    return all_metrics
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    return run(build_argparser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

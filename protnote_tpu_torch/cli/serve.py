@@ -12,61 +12,17 @@ front end:
 
 ProteInfer weights come from the reference TF pickle when the configured file
 exists, else from a seeded random init, as in ``protnote_tpu.cli.serve``;
-ProtNote weights are a seeded random init until the port reads the JAX
-package's checkpoints (``--model-file`` raises until then).
+ProtNote weights are a seeded random init unless ``--model-file`` names a
+``PNTPU1`` checkpoint of the JAX package (``.ckpt``) or a reference ``.pt``
+file (:mod:`protnote_tpu_torch.cli._model_setup`).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import os
 
 logger = logging.getLogger(__name__)
-
-
-def build_models(config: dict, label_dim: int, log=logger):
-    """-> (pi_cfg, pn_cfg, ts): full-size configs from the resolved config
-    sections and the parameter bundle on the CPU (the model half of the JAX
-    ``cli/_model_setup.build_inference_model``, without the Trainer)."""
-    import torch
-
-    from protnote_tpu.cli._model_setup import resolve_label_tile
-    from protnote_tpu_torch.models.convert import proteinfer_from_tf_pickle
-    from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
-    from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
-
-    params = config["params"]
-    esp = config.get("embed_sequences_params", {})
-    mixed = params.get("MIXED_PRECISION", True)
-    pi_cfg = ProteInferConfig(
-        input_channels=esp.get("INPUT_CHANNELS", 20),
-        output_channels=esp.get("OUTPUT_CHANNELS", 1100),
-        kernel_size=esp.get("KERNEL_SIZE", 9),
-        dilation_base=esp.get("DILATION_BASE", 3),
-        num_resnet_blocks=esp.get("NUM_RESNET_BLOCKS", 5),
-        bottleneck_factor=esp.get("BOTTLENECK_FACTOR", 0.5),
-        num_labels=esp.get("PROTEINFER_NUM_GO_LABELS", 32102),
-        compute_dtype=torch.bfloat16 if mixed else None,
-    )
-    pn_cfg = ProtNoteConfig.from_params(
-        params, protein_embedding_dim=pi_cfg.output_channels,
-        label_embedding_dim=label_dim,
-        inference_descriptions_per_label=len(
-            params.get("INFERENCE_GO_DESCRIPTIONS", "name+label").split("+")),
-        label_tile=resolve_label_tile(params),
-        compute_dtype=torch.bfloat16 if mixed else torch.float32,
-    )
-    pi_weights = config.get("paths_resolved", {}).get("PROTEINFER_GO_WEIGHTS_PATH")
-    if pi_weights and os.path.exists(pi_weights):
-        pi_params, pi_state = proteinfer_from_tf_pickle(pi_weights, pi_cfg)
-    else:
-        log.warning("ProteInfer weights unavailable; random init")
-        pi_params, pi_state = init_proteinfer(torch.Generator().manual_seed(0), pi_cfg)
-    pn_params, pn_state = init_protnote(torch.Generator().manual_seed(1), pn_cfg)
-    ts = {"trainable": {"protnote": pn_params}, "model_state": pn_state,
-          "enc_params": pi_params, "enc_state": pi_state}
-    return pi_cfg, pn_cfg, ts
 
 
 def build_engine(args):
@@ -80,11 +36,9 @@ def build_engine(args):
         resolve_paths,
     )
     from protnote_tpu.data.label_cache import LabelEmbeddingCache, LabelEmbeddingView
+    from protnote_tpu_torch.cli._model_setup import build_models, load_model_file
     from protnote_tpu_torch.serving import ServingEngine
 
-    if args.model_file:
-        raise NotImplementedError(
-            "--model-file: the port does not read PNTPU1 checkpoints yet")
     config = resolve_paths(override_config(
         load_config(args.config or DEFAULT_CONFIG_PATH), args.override))
     params = config["params"]
@@ -97,6 +51,8 @@ def build_engine(args):
     label_matrix = view.embeddings[view.first_k_rows(len(descriptions))]
 
     pi_cfg, pn_cfg, ts = build_models(config, cache.dim)
+    if args.model_file:
+        ts, _ = load_model_file(ts, args.model_file, pi_cfg, pn_cfg)
     return ServingEngine(
         ts, pi_cfg, pn_cfg, label_matrix, vocab,
         buckets=tuple(params.get("SEQUENCE_BUCKETS", (256, 512, 1024, 2048, 4096))),
@@ -108,8 +64,7 @@ def build_engine(args):
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model-file", default=None,
-                    help="not supported yet: the port does not read PNTPU1 "
-                         "checkpoints")
+                    help="checkpoint to load (.ckpt of the JAX package, .pt reference)")
     ap.add_argument("--config", default=None)
     ap.add_argument("--override", nargs="*", default=None)
     ap.add_argument("--base-label-embedding-name",

@@ -6,11 +6,15 @@
 * :func:`proteinfer_from_tf_pickle` reads the reference's TF1 ProteInfer
   pickle (``GO_model_weights*.pkl``), as the JAX package's loader of the same
   name does.
+* :func:`load_reference_checkpoint` reads a reference ProtNote ``.pt`` file
+  (``torch.save`` of a ``model_state_dict``, optionally ``module.``-prefixed
+  from DDP) by module name, as the JAX package's loader of the same name.
 
 The port keeps the JAX tree structure and names.  Linear kernels stay
 ``(in, out)``; conv kernels are the one layout change, from JAX's
-``(k, cin, cout)`` to torch's ``(cout, cin, k)``.  Reading the JAX package's
-``PNTPU1`` checkpoints (flax msgpack) is not ported yet.
+``(k, cin, cout)`` to torch's ``(cout, cin, k)``.  The JAX package's
+``PNTPU1`` checkpoints are read by
+:mod:`protnote_tpu_torch.core.checkpoint`.
 """
 
 from __future__ import annotations
@@ -120,3 +124,158 @@ def proteinfer_from_tf_pickle(weights_path: str, cfg) -> Tuple[Params, Params]:
                              f"vs {tuple(container[key].shape)}")
         container[key] = t
     return params, state
+
+
+# ----------------------------------------------------------------------
+# reference torch state dict -> the port's trees
+
+
+def _strip_ddp(sd: Dict[str, Any]) -> Dict[str, Any]:
+    if sd and next(iter(sd)).startswith("module."):
+        return {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def _to_tensor(v: Any) -> torch.Tensor:
+    """A CPU float32 copy: the tree owns its memory, so a later in-place
+    change of the state dict cannot reach it."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32).clone()
+    return torch.tensor(np.asarray(v), dtype=torch.float32)
+
+
+def _group_sequential(sd: Dict[str, Any], prefix: str) -> List[Dict[str, Any]]:
+    """A flat torch Sequential's entries grouped by integer path, in index
+    order (robust to Dropout/ReLU gaps and dropout-wrapper nesting)."""
+    groups: Dict[Tuple[int, ...], Dict[str, Any]] = defaultdict(dict)
+    plen = len(prefix) + 1
+    for key, val in sd.items():
+        if not key.startswith(prefix + "."):
+            continue
+        parts = key[plen:].split(".")
+        idx = tuple(int(p) for p in parts[:-1] if p.isdigit())
+        groups[idx][parts[-1]] = _to_tensor(val)
+    return [groups[k] for k in sorted(groups)]
+
+
+def _classify(groups) -> Tuple[List[Dict], List[Dict]]:
+    """Split sequential groups into (linears, batchnorms)."""
+    linears, bns = [], []
+    for g in groups:
+        if "running_mean" in g:
+            bns.append(g)
+        elif "weight" in g and g["weight"].dim() == 2:
+            linears.append(g)
+    return linears, bns
+
+
+def _assign_linear(dst: Params, g: Dict[str, Any]) -> None:
+    dst["kernel"] = _to_tensor(g["weight"]).T.contiguous().to(dst["kernel"].dtype)
+    if "bias" in dst and "bias" in g:
+        dst["bias"] = _to_tensor(g["bias"]).to(dst["bias"].dtype)
+
+
+def _assign_bn(dst_p: Params, dst_s: Params, g: Dict[str, Any]) -> None:
+    dst_p["scale"] = _to_tensor(g["weight"])
+    dst_p["bias"] = _to_tensor(g["bias"])
+    dst_s["mean"] = _to_tensor(g["running_mean"])
+    dst_s["var"] = _to_tensor(g["running_var"])
+
+
+def proteinfer_from_torch_state_dict(sd: Dict[str, Any], cfg) -> Tuple[Params, Params]:
+    """Reference torch ProteInfer (protein_encoders.py:70-123) -> the port's
+    (params, state).  Torch conv weights are already ``(cout, cin, k)``."""
+    from protnote_tpu_torch.models.proteinfer import init_proteinfer
+
+    sd = _strip_ddp(dict(sd))
+    params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
+
+    def conv(dst: Params, w, b) -> None:
+        w = _to_tensor(w)
+        if tuple(w.shape) != tuple(dst["kernel"].shape):
+            raise ValueError(f"conv kernel shape {tuple(w.shape)} vs "
+                             f"{tuple(dst['kernel'].shape)}")
+        dst["kernel"] = w
+        dst["bias"] = _to_tensor(b)
+
+    def bn(pre: str) -> Dict[str, Any]:
+        return {k: sd[f"{pre}.{k}"] for k in ("weight", "bias", "running_mean",
+                                               "running_var")}
+
+    conv(params["conv1"], sd["conv1.weight"], sd["conv1.bias"])
+    for i, (bp, bs) in enumerate(zip(params["blocks"], state["blocks"])):
+        pre = f"resnet_blocks.{i}"
+        _assign_bn(bp["bn1"], bs["bn1"], bn(f"{pre}.bn_activation_1.0"))
+        conv(bp["conv_dilated"], sd[f"{pre}.masked_conv1.weight"],
+             sd[f"{pre}.masked_conv1.bias"])
+        _assign_bn(bp["bn2"], bs["bn2"], bn(f"{pre}.bn_activation_2.0"))
+        conv(bp["conv_1x1"], sd[f"{pre}.masked_conv2.weight"],
+             sd[f"{pre}.masked_conv2.bias"])
+    _assign_linear(params["output"], {"weight": sd["output_layer.weight"],
+                                      "bias": sd["output_layer.bias"]})
+    return params, state
+
+
+def protnote_from_torch_state_dict(sd: Dict[str, Any], cfg, proteinfer_cfg=None):
+    """Reference torch ProtNote state dict -> ``(params, state, encoder)``:
+    the W_p/W_l projection heads, the output-layer MLP, the optional
+    attention scorer and, when the state dict embeds a ``sequence_encoder``
+    and ``proteinfer_cfg`` is given, the encoder's (params, state) (else
+    ``encoder`` is None).  Counts of linears and batchnorms are checked: an
+    unchecked zip would keep random-init layers silently."""
+    from protnote_tpu_torch.models.fusion import init_protnote
+
+    sd = _strip_ddp(dict(sd))
+    params, state = init_protnote(torch.Generator().manual_seed(0), cfg)
+
+    for head in ("W_p", "W_l"):
+        linears, bns = _classify(_group_sequential(sd, head))
+        if len(linears) != len(params[head]["layers"]):
+            raise ValueError(f"{head}: {len(linears)} linears in checkpoint vs "
+                             f"{len(params[head]['layers'])} expected")
+        for dst, g in zip(params[head]["layers"], linears):
+            _assign_linear(dst, g)
+        if len(bns) != len(params[head]["bns"]):
+            raise ValueError(f"{head}: {len(bns)} batchnorms in checkpoint vs "
+                             f"{len(params[head]['bns'])} expected")
+        for dst_p, dst_s, g in zip(params[head]["bns"], state[head]["bns"], bns):
+            _assign_bn(dst_p, dst_s, g)
+
+    if cfg.feature_fusion.startswith("concatenation"):
+        linears, bns = _classify(_group_sequential(sd, "output_layer"))
+        om_p, om_s = params["output_mlp"], state.get("output_mlp")
+        if len(linears) != len(om_p["layers"]) + 1:
+            raise ValueError(f"output_layer: {len(linears)} linears vs "
+                             f"{len(om_p['layers']) + 1} expected")
+        for dst, g in zip(om_p["layers"], linears[:-1]):
+            _assign_linear(dst, g)
+        _assign_linear(om_p["out"], linears[-1])
+        if om_s is not None:
+            if len(bns) != len(om_p["bns"]):
+                raise ValueError(f"output_layer: {len(bns)} batchnorms in "
+                                 f"checkpoint vs {len(om_p['bns'])} expected")
+            for dst_p, dst_s, g in zip(om_p["bns"], om_s["bns"], bns):
+                _assign_bn(dst_p, dst_s, g)
+
+    if "raw_attn_scorer.weight" in sd and "attn" in params:
+        _assign_linear(params["attn"], {"weight": sd["raw_attn_scorer.weight"],
+                                        "bias": sd["raw_attn_scorer.bias"]})
+
+    encoder = None
+    if proteinfer_cfg is not None and any(k.startswith("sequence_encoder.") for k in sd):
+        enc_sd = {k[len("sequence_encoder."):]: v for k, v in sd.items()
+                  if k.startswith("sequence_encoder.")}
+        encoder = proteinfer_from_torch_state_dict(enc_sd, proteinfer_cfg)
+    return params, state, encoder
+
+
+def load_reference_checkpoint(path: str, cfg, proteinfer_cfg=None):
+    """A reference ``.pt`` file -> ``(params, state, encoder, meta)``.
+
+    The file is a pickle (``torch.save``), read with ``weights_only=False``
+    as the JAX loader reads it: load only files you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model_state_dict", ckpt)
+    params, state, encoder = protnote_from_torch_state_dict(sd, cfg, proteinfer_cfg)
+    meta = {"epoch": ckpt.get("epoch"), "best_val_metric": ckpt.get("best_val_metric")}
+    return params, state, encoder, meta

@@ -36,7 +36,7 @@ from protnote_tpu_torch.ops.pair_scorer import (
 )
 
 _LATER = {
-    "train": "training is ported with the training slice (ROADMAP.md, queue 1 item 8)",
+    "train": "training is ported with the training slice (ROADMAP.md queue 1, item 5)",
     "dense": "PAIR_BACKEND=dense is the training scorer, ported with the training slice",
     "tiled_int8": "PAIR_BACKEND=tiled_int8 is ported with the int8 scorer (K2)",
 }

@@ -39,7 +39,8 @@ class KernelLibrary:
     build_log: str  # nvcc/ptxas output: registers, shared memory, spills
 
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _loaded: Dict[str, KernelLibrary] = {}
 
 
@@ -59,8 +60,11 @@ def nvcc_path() -> str:
 
 
 def load_kernel_library(name: str) -> KernelLibrary:
-    """Build ``csrc/<name>.cu`` if needed, load it, and return it."""
-    with _lock:
+    """Build ``csrc/<name>.cu`` if needed, load it, and return it.  Calls
+    for different names may run at once (each runs its own nvcc)."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"

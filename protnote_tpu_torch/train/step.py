@@ -3,12 +3,15 @@
 Port of the ``label_latents`` fast path of the JAX ``make_eval_step``
 (``protnote_tpu/train/step.py``).  PyTorch runs eagerly, so the step is a
 plain function; the train step, the loss and the other label sources come
-with the training slice of the port.
+with the training slice of the port.  :func:`batch_to_device_dict` moves a
+host batch of the data pipeline to the device.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
+
+import numpy as np
 
 import torch
 
@@ -43,3 +46,28 @@ def make_eval_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig
         return {"logits": logits.float()}
 
     return step
+
+
+def batch_to_device_dict(batch, device) -> Dict[str, torch.Tensor]:
+    """``protnote_tpu.data.batching.Batch`` -> a dict of tensors on
+    ``device`` for the steps: ``example_mask`` and ``label_mask`` as float32,
+    ``label_rows`` as int32, the other arrays in their own dtypes."""
+
+    def put(a, dtype=None) -> torch.Tensor:
+        a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
+        return torch.from_numpy(a).to(device)
+
+    out = {
+        "aa_ids": put(batch.aa_ids),
+        "lengths": put(batch.lengths),
+        "example_mask": put(batch.example_mask, np.float32),
+    }
+    if batch.label_embeddings is not None:
+        out["label_embeddings"] = put(batch.label_embeddings)
+    if batch.label_rows is not None:
+        out["label_rows"] = put(batch.label_rows, np.int32)
+    if batch.label_multihots is not None:
+        out["label_multihots"] = put(batch.label_multihots)
+    if batch.label_mask is not None:
+        out["label_mask"] = put(batch.label_mask, np.float32)
+    return out

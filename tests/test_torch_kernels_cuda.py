@@ -1,7 +1,7 @@
-"""The port's CUDA kernel on the card: the pair scorer against its plain
-PyTorch version, and the serving engine on CUDA against the same engine on
-the CPU.  These need an NVIDIA card (the kernel has no CPU mode) and skip
-without one.  The file imports neither jax nor the repo's conftest fixtures,
+"""The port's CUDA kernels on the card: the pair scorer (K1) and the eval
+accumulator (K3) against their plain PyTorch versions, and the serving
+engine on CUDA against the same engine on the CPU.  These need an NVIDIA
+card (the kernels have no CPU mode) and skip without one.  The file imports neither jax nor the repo's conftest fixtures,
 so on the card's machine it runs as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -9,14 +9,20 @@ so on the card's machine it runs as
 Tolerance 2e-2 on logits and 1e-2 on probabilities: the kernel and the plain
 version round the same activations to bf16, but sum in other orders (the
 logits with atomics), so an activation can land one bf16 step (2^-8) apart.
+K3 on the same logits on both sides: integer state exactly equal (inputs are
+drawn at least 2e-6 from every bin edge and from the threshold, far beyond
+the ulp by which two exponentials can differ), float32 sums to 1e-6
+relative, AP to 1e-6 absolute.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator
 from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
 from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
+from protnote_tpu_torch.ops import eval_accumulator as k3
 from protnote_tpu_torch.ops import pair_scorer as ps
 from protnote_tpu_torch.serving import ServingEngine
 
@@ -86,3 +92,70 @@ def test_serving_engine_on_card_matches_cpu():
     got = on_card.score(seqs)
     assert ps.LAUNCHES > before
     np.testing.assert_allclose(got, on_cpu.score(seqs), atol=1e-2, rtol=0)
+
+
+def _k3_batches(rng, L, nb, th, n):
+    """n batches of 32 rows: padded rows, a label_mask with zeros, and on
+    odd batches a 100-label subset (the cols path) padded to 128 slots."""
+    out = []
+    for i in range(n):
+        em = np.ones(32, np.float32)
+        em[30 - i :] = 0
+        if i % 2:
+            li = np.sort(rng.choice(L, 100, replace=False))
+            lm = np.r_[np.ones(100), np.zeros(28)].astype(np.float32)
+        else:
+            li, lm = None, (rng.random(L) < 0.9).astype(np.float32)
+        p = rng.uniform(1e-3, 1 - 1e-3, size=(32, lm.size))
+        for _ in range(100):
+            bad = (np.abs(p * nb - np.round(p * nb)) / nb < 2e-6) | (np.abs(p - th) < 2e-6)
+            if not bad.any():
+                break
+            p[bad] = rng.uniform(1e-3, 1 - 1e-3, size=int(bad.sum()))
+        lg = np.log(p / (1 - p)).astype(np.float32)
+        tg = (rng.random(lg.shape) < 0.1).astype(np.float32)
+        out.append((lg, tg, em, lm, li))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [512, 100])
+def test_eval_accumulator_matches_plain_on_card(nb):
+    """K3's update (dense and cols paths) and finalize against the plain
+    version on the same tensors, over 1000 labels and 6 batches."""
+    dev = _card()
+    L, th = 1000, 0.4
+    rng = np.random.default_rng(nb)
+    kern = DeviceEvalAccumulator(L, th, num_bins=nb, device=dev)
+    plain = DeviceEvalAccumulator(L, th, num_bins=nb, device=dev)
+    before = dict(k3.LAUNCHES)
+    for lg, tg, em, lm, li in _k3_batches(rng, L, nb, th, 6):
+        args = [torch.from_numpy(a).to(dev) for a in (lg, tg, em, lm)]
+        kern.update(*args, label_indices=li)
+        cols = plain.cols_for(li, lg.shape[1])
+        k3.update_reference(plain.state, *args, cols, th, nb)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["update"] - before["update"] == 6
+    assert k3.LAUNCHES["row_tail"] - before["row_tail"] == 6
+    for k, v in plain.state.items():
+        got = kern.state[k].cpu().numpy()
+        if v.dtype == torch.int32:
+            np.testing.assert_array_equal(got, v.cpu().numpy(), err_msg=k)
+        else:
+            np.testing.assert_allclose(got, v.cpu().numpy(), rtol=1e-6, atol=0, err_msg=k)
+    ap, npos, out = k3.finalize(kern.state["hist"], L, nb)
+    ap_p, npos_p, out_p = k3.finalize_reference(plain.state["hist"], L, nb)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["finalize"] - before["finalize"] == 1
+    np.testing.assert_array_equal(npos.cpu().numpy(), npos_p.cpu().numpy())
+    np.testing.assert_allclose(ap.cpu().numpy(), ap_p.cpu().numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=1e-6, rtol=0)
+    assert 0 < float(out[0]) < 1
+
+
+@pytest.mark.cuda
+def test_eval_accumulator_finalize_empty_on_card():
+    dev = _card()
+    _, _, out = k3.finalize(torch.zeros(2 * 10 * 512, dtype=torch.int32, device=dev),
+                            10, 512)
+    assert torch.isnan(out.cpu()).all()

@@ -22,6 +22,9 @@ MODULES = [
     "protnote_tpu_torch", "protnote_tpu_torch.serving", "protnote_tpu_torch.cli.serve",
     "protnote_tpu_torch.train.step", "protnote_tpu_torch.models.convert",
     "protnote_tpu_torch.ops.pair_scorer", "protnote_tpu_torch.ops.kernels",
+    "protnote_tpu_torch.core.checkpoint", "protnote_tpu_torch.cli._model_setup",
+    "protnote_tpu_torch.cli.main", "protnote_tpu_torch.evaln.metrics",
+    "protnote_tpu_torch.ops.eval_accumulator", "protnote_tpu_torch.train.trainer",
 ]
 
 
@@ -35,6 +38,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n" + "".join(f"import {m}\n" for m in MODULES)
             + "from protnote_tpu_torch.cli.serve import build_argparser\n"
             + "build_argparser()\n"
+            + "from protnote_tpu_torch.cli import main\n"
+            + "main.build_argparser().parse_args(['--test-paths-names', 'X'])\n"
             + "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=_env(), cwd=ROOT, timeout=120)

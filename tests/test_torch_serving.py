@@ -190,6 +190,7 @@ def test_cli_builds_engine_from_config(tmp_path, monkeypatch, rng):
     assert engine.pn_cfg.inference_descriptions_per_label == K
     probs = engine.score(_seqs(rng, 3))
     assert probs.shape == (3, L) and np.all((probs > 0) & (probs < 1))
-    with pytest.raises(NotImplementedError, match="PNTPU1"):
-        tserve.build_engine(tserve.build_argparser().parse_args(["--model-file", "x"]))
+    with pytest.raises(FileNotFoundError, match="--model-file"):
+        tserve.build_engine(tserve.build_argparser().parse_args(
+            ["--config", str(path), "--device", "cpu", "--model-file", "x.ckpt"]))
     assert "jax" in sys.modules  # this test process has it; the port does not

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and evaluation paths on one CUDA
-card (H100).
+"""Smoke run of the PyTorch port's serving, evaluation and training paths on
+one CUDA card (H100).
 
     python3 chip_smoke.py
 
@@ -24,20 +24,37 @@ Phases, each printing one line (any failure raises and exits non-zero):
    (device label gather) -> ``PrefetchBatcher`` -> the port's
    ``Trainer.evaluate`` (eval step with K1, then a K3 update per batch, K3
    finalize), then a second pass over the same batches that feeds each
-   logits tensor to the kernel and to the plain accumulator.
+   logits tensor to the kernel and to the plain accumulator;
+8. the training kernels: at full width with 8 sequences (the reference's
+   per-card batch, where the plain scorer still fits), the decomposed
+   scorer through K4 + K5 against its plain version on the same device
+   tensors (logits, new BN running statistics, the gradients of P_e, L_e
+   and every output-MLP parameter); then K4's forward, K5's forward and
+   K5's backward alone at the training path's 32-sequence shapes
+   (1,027,264 x 3072 pre-activations) against their plain versions (K5's
+   in 512-column slices), with both times;
+9. training: a generated FASTA (352 training and 64 validation sequences
+   over the 32,102-label vocabulary) -> weighted, shuffled ``BucketBatcher``
+   -> ``PrefetchBatcher`` -> the port's ``Trainer.train`` for one epoch at
+   full width and 32 sequences a step (train steps through K4 + K5, FocalLoss,
+   clipped Adam; validation through K1 + K3; checkpoints), each step's loss
+   and time, one ``torch.profiler`` pass for the device idle share and the
+   top kernels, peak memory, and a checkpoint written, restored and scored
+   to the same logits.
 
-Then one JSON line per kernel with its launches on the evaluation path (the
-counts are set to 0 just before ``Trainer.evaluate`` and read just after),
-its error against the plain version and both times, the card's name and
-power limit, and last the line ``{"ok": true, "device": {...}}``.  Weights,
-label embeddings and sequences are random, made from fixed seeds.  There is
-no CPU path: without a CUDA device the script exits non-zero and prints no
+Then one JSON line per kernel with its launches on the training path (the
+counts are set to 0 just before ``Trainer.train`` and read just after), its
+error against the plain version and both times, the card's name and power
+limit, and last the line ``{"ok": true, "device": {...}}``.  Weights, label
+embeddings and sequences are random, made from fixed seeds.  There is no
+CPU path: without a CUDA device the script exits non-zero and prints no
 result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,7 +76,7 @@ LABEL_TILE = 512
 PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
 
-KERNEL_SOURCES = ("pair_scorer", "eval_accumulator")
+KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu")
 
 # K3 (ESTIMATE_MAP evaluation): 512 AUPRC bins, DECISION_TH 0.5.  Kernel and
 # plain version read the same logits; the integer state must agree exactly
@@ -73,6 +90,33 @@ SUM_RTOL = 1e-6
 AP_ATOL = 1e-6
 EVAL_SEQUENCES = 256
 K3_SUBSET, K3_SUBSET_WIDTH = 20000, 20096  # the label-subset (cols) batch
+
+# training (configs/base.yaml): 32 sequences a step, FocalLoss gamma 2, Adam
+# 3e-4 with global-norm clip 1 (WEIGHT_DECAY is unused by Adam), label
+# noising alpha 20, weighted sampling
+TRAIN_B = 32
+TRAIN_SEQUENCES, VAL_SEQUENCES = 352, 64
+TRAIN_PARAMS = {"LOSS_FN": "FocalLoss", "FOCAL_LOSS_GAMMA": 2, "FOCAL_LOSS_ALPHA": -1,
+                "OPTIMIZER": "Adam", "LEARNING_RATE": 3e-4, "WEIGHT_DECAY": 0.001,
+                "CLIP_VALUE": 1}
+NOISING_ALPHA = 20.0
+PROFILE_STEPS = 3
+K45_B = 8  # the reference's per-card batch: the plain scorer still fits
+K5_PLAIN_COLS = 512  # K5's plain version alone at 32 sequences, in column slices
+# K4/K5 tolerances (see PERF.md).  Kernel and plain version round the same
+# bf16 values but sum in other orders (the GEMM, the column reductions), so
+# an element can land one bf16 step (2^-8 relative) apart: each kernel
+# output within 2^-6 of its plain version's largest |value|.  Through the
+# whole scorer such steps add up: logits within 5e-2, new running statistics
+# within 1e-2 and every gradient within 5e-2 of the plain version's largest
+# |value| of that tensor.
+K45_REL_TOL = 2.0 ** -6
+TRAIN_LOGIT_ATOL = 5e-2
+STATS_REL_TOL = 1e-2
+GRAD_REL_TOL = 5e-2
+# a restored checkpoint scores the same logits; K1 adds its row sums with
+# atomics in no fixed order, so two scorings of one weight set agree to ~1e-6
+ROUNDTRIP_ATOL = 1e-4
 
 
 def log(phase: str, **fields) -> None:
@@ -377,7 +421,7 @@ def phase_parity(engine, rng):
         P_f = embed_from_ids(ts["enc_params"], ts["enc_state"],
                              torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda(),
                              engine.pi_cfg)
-        P_e = projection_head_apply(pn["W_p"], state["W_p"], P_f.to(cfg.compute_dtype))
+        P_e, _ = projection_head_apply(pn["W_p"], state["W_p"], P_f.to(cfg.compute_dtype))
         folded = fold_output_mlp(pn["output_mlp"], state["output_mlp"], cfg.feature_fusion,
                                  cfg.latent_dim, dtype=cfg.compute_dtype)
         logits = pair_logits_tiled_reference(folded, P_e, engine.latents, cfg.label_tile,
@@ -510,23 +554,14 @@ def phase_k3(card: str):
     return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1]} for k in t}
 
 
-def eval_dataset(tmp: str):
-    """A 256-sequence FASTA (lengths 100-1000, 1-5 GO labels each) over the
-    full 32,102-label vocabulary, with a random label cache (fixed seeds)."""
+def label_cache():
+    """The full label vocabulary and a random label-embedding cache (two
+    descriptions per label, fixed seed)."""
     import numpy as np
 
-    from protnote_tpu.data.dataset import DatasetConfig, ProteinDataset
-    from protnote_tpu.data.fasta import save_to_fasta
     from protnote_tpu.data.label_cache import LabelEmbeddingCache
-    from protnote_tpu.data.vocab import COMMON_AMINOACIDS
 
-    rng = np.random.default_rng(5)
     go_ids = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
-    records = [("".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), int(n))), f"seq{i}",
-                [go_ids[j] for j in rng.choice(NUM_LABELS, int(rng.integers(1, 6)),
-                                               replace=False)])
-               for i, n in enumerate(rng.integers(100, 1001, size=EVAL_SEQUENCES))]
-    path = save_to_fasta(records, os.path.join(tmp, "eval.fasta"))
     types = ["name", "label"]
     rows = NUM_LABELS * K_DESCRIPTIONS
     cache = LabelEmbeddingCache(
@@ -534,10 +569,37 @@ def eval_dataset(tmp: str):
         description_types=np.array(types * NUM_LABELS),
         descriptions=np.array(["description"] * rows),
         token_counts=np.full(rows, 3, np.int32))
-    cfg = DatasetConfig(dataset_type="test", inference_go_descriptions=tuple(types),
-                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    return go_ids, types, cache
+
+
+def fasta_dataset(tmp: str, name: str, n: int, seed: int, cfg):
+    """An ``n``-sequence FASTA (lengths 100-1000, 1-5 GO labels each) over
+    the full 32,102-label vocabulary, as a ``ProteinDataset`` of role
+    ``cfg``."""
+    import numpy as np
+
+    from protnote_tpu.data.dataset import ProteinDataset
+    from protnote_tpu.data.fasta import save_to_fasta
+    from protnote_tpu.data.vocab import COMMON_AMINOACIDS
+
+    go_ids, _, cache = label_cache()
+    rng = np.random.default_rng(seed)
+    records = [("".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), int(k))), f"seq{i}",
+                [go_ids[j] for j in rng.choice(NUM_LABELS, int(rng.integers(1, 6)),
+                                               replace=False)])
+               for i, k in enumerate(rng.integers(100, 1001, size=n))]
+    path = save_to_fasta(records, os.path.join(tmp, name))
     vocab = {"amino_acid_vocab": sorted(COMMON_AMINOACIDS), "label_vocab": go_ids}
     return ProteinDataset(path, cfg, label_embedding_cache=cache, vocabularies=vocab)
+
+
+def eval_dataset(tmp: str):
+    """The evaluation FASTA (256 sequences, test role)."""
+    from protnote_tpu.data.dataset import DatasetConfig
+
+    cfg = DatasetConfig(dataset_type="test", inference_go_descriptions=("name", "label"),
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    return fasta_dataset(tmp, "eval.fasta", EVAL_SEQUENCES, 5, cfg)
 
 
 def phase_eval(card: str, k3_times: dict):
@@ -624,6 +686,368 @@ def phase_eval(card: str, k3_times: dict):
     return launches
 
 
+def random_output_mlp(dev):
+    """Full-width output-MLP (params, state) on ``dev``: He-scaled kernels,
+    random BN parameters and running statistics (fixed seeds)."""
+    import torch
+
+    from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
+    from protnote_tpu_torch.models.layers import tree_to
+
+    cfg = ProtNoteConfig(latent_dim=D_LATENT, compute_dtype=torch.bfloat16)
+    p, s = init_protnote(torch.Generator().manual_seed(7), cfg)
+    p, s = p["output_mlp"], s["output_mlp"]
+    he_scale_linears(p)
+    gen = torch.Generator().manual_seed(8)
+    for bp, bs in zip(p["bns"], s["bns"]):
+        h = bs["mean"].shape[0]
+        bp["scale"] = 0.5 + torch.rand(h, generator=gen)
+        bp["bias"] = 0.2 * torch.randn(h, generator=gen)
+        bs["mean"] = 0.3 * torch.randn(h, generator=gen)
+        bs["var"] = 0.5 + 1.5 * torch.rand(h, generator=gen)
+    return tree_to(p, dev), tree_to(s, dev)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def phase_train_kernels(card: str):
+    """The whole decomposed scorer (forward and backward) through K4 + K5 at
+    full width with 8 sequences against its plain version on the same
+    device tensors; then each kernel alone at the training path's shapes."""
+    import torch
+
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.optim import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    p, s = random_output_mlp(dev)
+    gen = torch.Generator().manual_seed(9)
+    P_e = torch.randn(K45_B, D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(NUM_LABELS, D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    em = torch.ones(K45_B, device=dev)
+    em[-1] = 0.0
+    lm = (torch.rand(NUM_LABELS, generator=gen) < 0.98).float().to(dev)
+    w = torch.randn(K45_B, NUM_LABELS, generator=gen).to(dev) * em[:, None] * lm[None, :]
+    runs = {}
+    for ref in (False, True):
+        scorer = st.pair_logits_dense_decomposed_reference if ref else \
+            st.pair_logits_dense_decomposed
+        pp = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        Pg, Lg = P_e.clone().requires_grad_(True), L_e.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, new = scorer(pp, s, Pg, Lg, example_mask=em, label_mask=lm)
+        (torch.sigmoid(logits) * w).sum().backward()
+        torch.cuda.synchronize()
+        runs[ref] = (logits.detach(), new, [Pg.grad, Lg.grad] + [t.grad for t in
+                                                                 tree_leaves(pp)],
+                     time.perf_counter() - t0)
+        del pp, Pg, Lg, logits
+        torch.cuda.empty_cache()
+    (lg, new, grads, sec), (lg0, new0, grads0, sec0) = runs[False], runs[True]
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("training logits through K4 + K5 are not all finite")
+    logit_err = float((lg - lg0).abs().max())
+    stats_err = max(rel_err(a[k], b[k]) for a, b in zip(new["bns"], new0["bns"])
+                    for k in ("mean", "var"))
+    grad_errs = [rel_err(a, b) for a, b in zip(grads, grads0)]
+    log("train_kernels_check", batch=K45_B, labels=NUM_LABELS, max_abs_logit_err=logit_err,
+        logit_atol=TRAIN_LOGIT_ATOL, logit_std=float(lg0.std()), max_rel_stats_err=stats_err,
+        stats_rel_tol=STATS_REL_TOL, max_rel_grad_err=max(grad_errs), grad_rel_tol=GRAD_REL_TOL,
+        grads=len(grad_errs), fwd_bwd_s=sec, plain_fwd_bwd_s=sec0, card=card)
+    if not (logit_err <= TRAIN_LOGIT_ATOL and stats_err <= STATS_REL_TOL
+            and max(grad_errs) <= GRAD_REL_TOL):
+        raise AssertionError(f"K4 + K5 disagree with the plain scorer: logits {logit_err}, "
+                             f"stats {stats_err}, gradients {grad_errs}")
+    del runs, grads, grads0
+    torch.cuda.empty_cache()
+    return phase_train_kernels_alone(p, s, card)
+
+
+def delta(got, want) -> tuple:
+    """(max |got - want|, max |want|), in float32 over K5_PLAIN_COLS columns
+    at a time (a float32 copy of a whole (N, H) tensor is 12.6 GB)."""
+    if want.dim() == 2 and want.shape[1] > K5_PLAIN_COLS:
+        parts = [delta(got[:, j:j + K5_PLAIN_COLS], want[:, j:j + K5_PLAIN_COLS])
+                 for j in range(0, want.shape[1], K5_PLAIN_COLS)]
+        return max(d[0] for d in parts), max(d[1] for d in parts)
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def merge_deltas(deltas) -> tuple:
+    """(max |delta|, that over the largest |want|) of tensors compared in
+    parts."""
+    err = max(d[0] for d in deltas)
+    return err, err / max(d[1] for d in deltas)
+
+
+def phase_train_kernels_alone(p, s, card: str):
+    """Each training kernel alone at the shapes the training path gives it
+    (32 sequences: a2 (32, 3072), c2 (32,102, 3072), z (1,027,264, 3072),
+    3.2e9 elements, past 2^31) against its plain version on the same device
+    tensors.  K4's plain version runs whole.  K5's does not fit beside the
+    kernels' tensors, and every column of its work is independent of the
+    others, so it runs on K5_PLAIN_COLS-column slices, each compared with
+    the same columns of the kernels' outputs; its time is one pass over all
+    slices."""
+    import torch
+
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(10)
+    with torch.no_grad():
+        a2 = torch.randn(TRAIN_B, H, generator=gen).to(dev, bf16)
+        c2 = torch.randn(NUM_LABELS, H, generator=gen).to(dev, bf16)
+        W = (torch.randn(H, H, generator=gen) * (2.0 / H) ** 0.5).to(dev, bf16)
+        z = st._pair_hidden_fwd_cuda(a2, c2, W)
+        k4 = [delta(z, st._pair_hidden_fwd_plain(a2, c2, W))]
+        em = torch.ones(TRAIN_B, device=dev)
+        em[-1] = 0.0
+        lm = (torch.rand(NUM_LABELS, generator=gen) < 0.98).float().to(dev)
+        rows = (em[:, None] * lm[None, :]).reshape(-1, 1)
+        n = rows.sum()
+        bn = (p["bns"][1]["scale"], p["bns"][1]["bias"], s["bns"][1]["mean"])
+        f = st._bn_relu_fwd_cuda(z, rows, n, *bn)
+        dy = torch.randn(z.shape, device=dev, dtype=bf16,
+                         generator=torch.Generator(device=dev).manual_seed(11))
+        stats = (f[1], f[3], f[4], f[5])  # mean, istd, inv, shift of the kernel
+        g = st._bn_relu_grads_cuda(z, dy, rows, n, bn[0], *stats)
+        torch.cuda.synchronize()
+        cols = [slice(j, j + K5_PLAIN_COLS) for j in range(0, H, K5_PLAIN_COLS)]
+
+        def fwd_plain(c):
+            return st._bn_relu_fwd_plain(z[:, c], rows, n, *(t[c] for t in bn))
+
+        def bwd_plain(c):
+            return st._bn_relu_grads(z[:, c], dy[:, c], rows, n, bn[0][c],
+                                     *(t[c] for t in stats))
+
+        fwd = {"y": [], "mean": [], "var": []}
+        bwd = {"dz": [], "dscale": [], "dbias": []}
+        for c in cols:
+            y0, mean0, var0 = fwd_plain(c)[:3]
+            fwd["y"].append(delta(f[0][:, c], y0))
+            fwd["mean"].append(delta(f[1][c], mean0))
+            fwd["var"].append(delta(f[2][c], var0))
+            del y0
+            for parts, got, want in zip(bwd.values(), (g[0][:, c], g[1][c], g[2][c]),
+                                        bwd_plain(c)):
+                parts.append(delta(got, want))
+        outs = {"pair_train_hidden": {"z": merge_deltas(k4)},
+                "bn_relu_forward": {k: merge_deltas(v) for k, v in fwd.items()},
+                "bn_relu_backward": {k: merge_deltas(v) for k, v in bwd.items()}}
+        times = {
+            "pair_train_hidden": (cuda_time_ms(lambda: st._pair_hidden_fwd_cuda(a2, c2, W), 3),
+                                  cuda_time_ms(lambda: st._pair_hidden_fwd_plain(a2, c2, W), 3)),
+            "bn_relu_forward": (cuda_time_ms(lambda: st._bn_relu_fwd_cuda(z, rows, n, *bn), 5),
+                                cuda_time_ms(lambda: [fwd_plain(c) for c in cols], 2)),
+            "bn_relu_backward": (cuda_time_ms(lambda: st._bn_relu_grads_cuda(
+                z, dy, rows, n, bn[0], *stats), 5),
+                cuda_time_ms(lambda: [bwd_plain(c) for c in cols], 2)),
+        }
+    rel = {k: max(r for _, r in v.values()) for k, v in outs.items()}
+    # the kernels line's error: the largest |delta| of the (N, H) output
+    abs_errs = {"pair_train_hidden": outs["pair_train_hidden"]["z"][0],
+                "bn_relu_forward": outs["bn_relu_forward"]["y"][0],
+                "bn_relu_backward": outs["bn_relu_backward"]["dz"][0]}
+    log("train_kernels_alone", batch=TRAIN_B, rows=int(z.shape[0]), width=H,
+        elements=z.numel(), k5_plain_cols=K5_PLAIN_COLS,
+        max_abs_errs={k: {o: d[0] for o, d in v.items()} for k, v in outs.items()},
+        rel_errs=rel, rel_tol=K45_REL_TOL, **{f"{k}_ms": v[0] for k, v in times.items()},
+        **{f"{k}_plain_ms": v[1] for k, v in times.items()}, card=card)
+    if max(rel.values()) > K45_REL_TOL:
+        raise AssertionError(f"a training kernel disagrees with its plain version: {outs}")
+    return {k: {"max_abs_err": abs_errs[k], "ms": times[k][0], "plain_ms": times[k][1]}
+            for k in times}
+
+
+def train_datasets(tmp: str):
+    """Training (augmented: one sampled description per label, residue
+    substitution 0.1) and validation datasets over the full vocabulary."""
+    from protnote_tpu.data.dataset import DatasetConfig
+
+    types = ("name", "label")
+    train_cfg = DatasetConfig(dataset_type="train", augment_residue_probability=0.1,
+                              label_augmentation_descriptions=types,
+                              inference_go_descriptions=types,
+                              inference_descriptions_per_label=K_DESCRIPTIONS)
+    val_cfg = DatasetConfig(dataset_type="validation", inference_go_descriptions=types,
+                            inference_descriptions_per_label=K_DESCRIPTIONS)
+    return (fasta_dataset(tmp, "train.fasta", TRAIN_SEQUENCES, 11, train_cfg),
+            fasta_dataset(tmp, "val.fasta", VAL_SEQUENCES, 12, val_cfg))
+
+
+def device_profile(fn, steps: int):
+    """Run ``fn`` ``steps`` times under ``torch.profiler``: (wall s, device
+    busy s, top kernels by device time), busy time the union of the kernels'
+    intervals; (wall, None, []) when the trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        return wall, None, []
+    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
+    for a, b, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+        if cur_e is None or a > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    return wall, busy / 1e6, [(name[:80], us / 1e3 / steps) for name, us in top]
+
+
+def phase_training(card: str):
+    """One epoch of ``Trainer.train`` at full width; returns the launches of
+    every kernel in it."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer, tree_leaves
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_ds, val_ds = train_datasets(tmp)
+        buckets = (256, 512, 1024)
+        weights = train_ds.calculate_sequence_weights(
+            train_ds.calculate_label_weights(power=0.5), "sum")
+        inner = BucketBatcher(train_ds, TRAIN_B, buckets=buckets, shuffle=True, drop_last=True,
+                              seed=42, sequence_weights=weights, device_label_gather=True)
+        train_b = PrefetchBatcher(inner, prefetch=2)
+        val_b = PrefetchBatcher(BucketBatcher(
+            val_ds, TRAIN_B, buckets=buckets, descriptions_per_label=K_DESCRIPTIONS,
+            device_label_gather=True), prefetch=2)
+        data_s = time.perf_counter() - t0
+
+        pi_cfg, pn_cfg, ts = random_models()
+        pn_cfg = dataclasses.replace(pn_cfg, label_embedding_noising_alpha=NOISING_ALPHA)
+        opt = Optimizer(TRAIN_PARAMS)
+        ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"], ts["enc_params"],
+                               ts["enc_state"], opt)
+        loss_fn = get_loss_fn(TRAIN_PARAMS)
+        tcfg = TrainerConfig(num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True,
+                             checkpoint_dir=tmp, run_name="smoke")
+        trainer = Trainer(ts0, pi_cfg, pn_cfg, tcfg, device=dev, loss_fn=loss_fn, optimizer=opt)
+        steps = []
+        step_fn = trainer._train_step
+
+        def timed_step(ts_, batch, gen):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ts_, m = step_fn(ts_, batch, gen)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"]),
+                          int(batch["aa_ids"].shape[0]), int(batch["aa_ids"].shape[1])))
+            return ts_, m
+
+        trainer._train_step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ps.LAUNCHES = 0
+        for counts in (k3.LAUNCHES, st.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        t0 = time.perf_counter()
+        summary = trainer.train(train_b, val_b)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"pair_mlp_layer": ps.LAUNCHES,
+                    **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}, **st.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer._train_step = step_fn
+        losses = [x[1] for x in steps]
+        if not steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"training losses not all finite: {losses}")
+        if any(v <= 0 for v in launches.values()):
+            raise AssertionError(f"the training path skipped a kernel: {launches}")
+        hist = summary["history"][0]
+        warm = [x[0] for x in steps[1:]] or [steps[0][0]]
+        med = statistics.median(warm)
+        log("train", steps=len(steps), sequences_per_step=TRAIN_B, labels=NUM_LABELS,
+            step_losses=losses, grad_norms=[x[2] for x in steps], widths=[x[4] for x in steps],
+            first_step_ms=steps[0][0] * 1e3, median_warm_step_ms=med * 1e3,
+            seqs_per_s=TRAIN_B / med, pairs_per_s=TRAIN_B * NUM_LABELS / med,
+            epoch_s=train_s, data_s=data_s, peak_mem_gb=peak, launches=launches,
+            val_map_micro=hist.get("val_map_micro"), val_loss=hist.get("val_loss"),
+            train_f1_micro=hist.get("f1_micro"), card=card)
+
+        # one profiled pass over a few training batches
+        batches = []
+        inner.set_epoch(1)
+        for batch in inner:
+            batches.append(batch)
+            if len(batches) == PROFILE_STEPS:
+                break
+        matrix = trainer._label_matrix_for(train_ds)
+        placed = [trainer._place(batch_to_device_dict(b, dev), matrix) for b in batches]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        it = iter(placed)
+
+        def one_step():
+            trainer.ts, _ = step_fn(trainer.ts, next(it), gen)
+
+        wall, busy, top = device_profile(one_step, len(placed))
+        log("train_profile", steps=len(placed), wall_ms_per_step=wall * 1e3 / len(placed),
+            device_busy_ms_per_step=None if busy is None else busy * 1e3 / len(placed),
+            idle_share=None if busy is None else 1.0 - busy / wall,
+            top_kernels_ms_per_step=top, card=card)
+
+        # a checkpoint written, restored into a fresh trainer, scored alike
+        trainer.save("roundtrip")
+        restored = Trainer(ts0, pi_cfg, pn_cfg, tcfg, device=dev, loss_fn=loss_fn,
+                           optimizer=Optimizer(TRAIN_PARAMS))
+        restored.load(os.path.join(tmp, "smoke_roundtrip.ckpt"))
+        a = [x for x in tree_leaves(trainer.ts) if isinstance(x, torch.Tensor)]
+        b = [x for x in tree_leaves(restored.ts) if isinstance(x, torch.Tensor)]
+        ints = [(trainer.ts["step"], restored.ts["step"]),
+                (trainer.ts["opt_state"]["count"], restored.ts["opt_state"]["count"])]
+        if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)) or \
+                any(x != y for x, y in ints):
+            raise AssertionError("the restored checkpoint differs from the saved state")
+        vb = next(iter(BucketBatcher(val_ds, TRAIN_B, buckets=buckets,
+                                     descriptions_per_label=K_DESCRIPTIONS,
+                                     device_label_gather=True)))
+        vmatrix = trainer._label_matrix_for(val_ds)
+        arrays = trainer._place(batch_to_device_dict(vb, dev), vmatrix)
+        before = trainer._eval_step(trainer.ts, arrays)["logits"]
+        after = restored._eval_step(restored.ts, arrays)["logits"]
+        err = float((before - after).abs().max())
+        log("train_checkpoint", leaves=len(a), step=int(restored.ts["step"]),
+            max_abs_logit_err=err, atol=ROUNDTRIP_ATOL,
+            bytes=os.path.getsize(os.path.join(tmp, "smoke_roundtrip.ckpt")))
+        if not (bool(torch.isfinite(after).all()) and err <= ROUNDTRIP_ATOL):
+            raise AssertionError(f"restored logits differ by {err}")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -640,13 +1064,25 @@ def main() -> None:
     del engine
     torch.cuda.empty_cache()
     k3_times = phase_k3(card)
-    launches = phase_eval(card, k3_times)
+    phase_eval(card, k3_times)
+    torch.cuda.empty_cache()
+    train_times = phase_train_kernels(card)
+    torch.cuda.empty_cache()
+    launches = phase_training(card)
     if "jax" in sys.modules:
-        raise AssertionError("the port's serving or evaluation path imported jax")
+        raise AssertionError("the port's serving, evaluation or training path imported jax")
     k3_src = "protnote_tpu_torch/csrc/eval_accumulator.cu"
     replaces = {"update": "protnote_tpu/evaln/metrics.py:601",
                 "row_tail": "protnote_tpu/evaln/metrics.py:628",
                 "finalize": "protnote_tpu/evaln/metrics.py:732"}
+    train_kernels = {
+        "pair_train_hidden": ("protnote_tpu_torch/csrc/pair_train.cu",
+                              "protnote_tpu/ops/streaming_train.py:157"),
+        "bn_relu_forward": ("protnote_tpu_torch/csrc/bn_relu.cu",
+                            "protnote_tpu/ops/streaming_train.py:98"),
+        "bn_relu_backward": ("protnote_tpu_torch/csrc/bn_relu.cu",
+                             "protnote_tpu/ops/streaming_train.py:115"),
+    }
     print(json.dumps({"kernels": [{
         "name": "pair_mlp_layer", "route": "cuda",
         "source": "protnote_tpu_torch/csrc/pair_scorer.cu",
@@ -655,7 +1091,10 @@ def main() -> None:
     }] + [{
         "name": f"eval_acc_{k}", "route": "cuda", "source": k3_src,
         "replaces": replaces[k], "launches": launches[f"eval_acc_{k}"], **k3_times[k],
-    } for k in ("update", "row_tail", "finalize")]}), flush=True)
+    } for k in ("update", "row_tail", "finalize")] + [{
+        "name": k, "route": "cuda", "source": src, "replaces": rep,
+        "launches": launches[k], **train_times[k],
+    } for k, (src, rep) in train_kernels.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

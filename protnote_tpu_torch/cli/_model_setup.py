@@ -79,7 +79,7 @@ def build_models(config: dict, label_dim: int, num_aa: int = 0,
     return pi_cfg, pn_cfg, ts
 
 
-def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg
+def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=None
                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """``(ts, meta)``: the bundle ``ts`` with the weights of ``path``.
 
@@ -87,14 +87,24 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg
     embedded ``sequence_encoder`` replaces the encoder (in
     ``trainable["encoder"]`` when that slot exists, as the JAX CLI does).
     Anything else: a ``PNTPU1`` checkpoint restored into ``ts``'s structure
-    (shapes checked, dtypes of ``ts`` kept, optimizer state dropped)."""
-    from protnote_tpu_torch.core.checkpoint import restore_checkpoint
-    from protnote_tpu_torch.models.convert import load_reference_checkpoint
+    (shapes checked, dtypes of ``ts`` kept); when ``ts`` holds ``step`` and
+    ``opt_state``, the checkpoint's (optax's Adam moments and accumulation
+    state) replace them, checked against ``optimizer``'s config."""
+    from protnote_tpu_torch.core.checkpoint import merge_into_template, read_checkpoint
+    from protnote_tpu_torch.models.convert import load_reference_checkpoint, opt_state_from_jax
 
     if not os.path.exists(path):
         raise FileNotFoundError(f"--model-file {path!r} does not exist")
     if not path.endswith(".pt"):
-        return restore_checkpoint(path, ts)
+        stored, meta = read_checkpoint(path)
+        weights = {k: v for k, v in ts.items() if k not in ("opt_state", "step")}
+        out = dict(ts, **merge_into_template(weights, stored))
+        if "step" in ts and "step" in stored:
+            out["step"] = int(stored["step"])
+        if "opt_state" in ts and "opt_state" in stored:
+            out["opt_state"] = opt_state_from_jax(stored["opt_state"], out["trainable"])
+            _check_opt_state(out["opt_state"], optimizer, path)
+        return out, meta
     params, state, encoder, meta = load_reference_checkpoint(path, pn_cfg, pi_cfg)
     ts = dict(ts, trainable=dict(ts["trainable"], protnote=params), model_state=state)
     if encoder is not None:
@@ -105,3 +115,12 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg
             ts["enc_params"] = enc_p
         ts["enc_state"] = enc_s
     return ts, meta
+
+
+def _check_opt_state(state: Dict[str, Any], optimizer, path: str) -> None:
+    if optimizer is None:
+        return
+    if (state["mu"] is not None) != optimizer.adam or \
+            ("mini_step" in state) != (optimizer.accum > 1):
+        raise ValueError(f"{path}: the optimizer state does not fit OPTIMIZER="
+                         f"{optimizer.name}, GRADIENT_ACCUMULATION_STEPS={optimizer.accum}")

@@ -1,7 +1,6 @@
-"""Read the JAX package's ``PNTPU1`` checkpoints into the port.
+"""The JAX package's ``PNTPU1`` checkpoints, read and written by the port.
 
-Port of the restore half of ``protnote_tpu/core/checkpoint.py``.  The file
-is::
+Port of ``protnote_tpu/core/checkpoint.py``.  The file is::
 
     b"PNTPU1\\n"  |  16 ascii digits: meta length  |  JSON meta  |  msgpack tree
 
@@ -20,12 +19,20 @@ Lists and tuples come back as dicts keyed ``"0".."n-1"``;
 port's ``init_*`` functions, with the shape checks of the JAX
 ``_merge_into_template``.  Entries that the template does not hold (the
 optimizer state, ``step``, ``text_params``) are decoded and dropped.
+
+:func:`save_checkpoint` is the writer: :func:`msgpack_pack` encodes a tree
+in flax's state-dict layout (lists as ``{"0": ..}`` maps, arrays as ext 1),
+which the JAX ``restore_checkpoint`` reads.  It writes synchronously to a
+temporary file and renames it into place; the JAX package's asynchronous
+writer is not ported.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
+import tempfile
 import zlib
 from typing import Any, Dict, Optional, Tuple
 
@@ -229,3 +236,131 @@ def restore_checkpoint(path: str, template: Dict[str, Any]
     JAX ``restore_checkpoint`` does."""
     stored, meta = read_checkpoint(path)
     return merge_into_template(template, stored), meta
+
+
+# ----------------------------------------------------------------------
+# writer
+
+
+def _pack_len(out: bytearray, n: int, fix: Optional[Tuple[int, int]], codes) -> None:
+    """A length header: a fix form ``(first byte, max)`` when it fits, else
+    the 8/16/32-bit forms of ``codes`` (None where a form does not exist)."""
+    if fix is not None and n <= fix[1]:
+        out.append(fix[0] | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of {n} entries/bytes is too large")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                 (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+            if v <= limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+    else:
+        for code, fmt, limit in ((0xD0, ">b", 2**7), (0xD1, ">h", 2**15),
+                                 (0xD2, ">i", 2**31), (0xD3, ">q", 2**63)):
+            if v >= -limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_array(out: bytearray, arr) -> None:
+    """flax's ext 1: a packed ``(shape, dtype name, C-order bytes)``."""
+    if isinstance(arr, _BF16Array):
+        shape, name, data = arr.bits.shape, "bfloat16", np.ascontiguousarray(arr.bits).tobytes()
+    else:
+        arr = np.asarray(arr)
+        shape, name, data = arr.shape, arr.dtype.name, np.ascontiguousarray(arr).tobytes()
+    if len(data) > (1 << 30) - (1 << 10):
+        raise ValueError("array leaves over 1 GiB would need flax's chunking")
+    payload = bytearray([0x93])  # a 3-element array
+    _pack(payload, [int(d) for d in shape])
+    _pack(payload, name)
+    _pack(payload, data)
+    _pack_len(out, len(payload), None, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", _EXT_NDARRAY)
+    out += payload
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode()
+        _pack_len(out, len(data), (0xA0, 31), (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), None, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (list, tuple)) and all(
+            not isinstance(v, (dict, list, tuple, np.ndarray, _BF16Array)) for v in obj):
+        _pack_len(out, len(obj), (0x90, 15), (None, 0xDC, 0xDD))  # an array of scalars
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):  # a tree node: flax writes {"0": ..}
+        _pack(out, {str(i): v for i, v in enumerate(obj)})
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), (0x80, 15), (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, str(k))
+            _pack(out, v)
+    elif isinstance(obj, (np.ndarray, np.generic, _BF16Array)):
+        _pack_array(out, obj)
+    else:
+        raise TypeError(f"cannot write a {type(obj).__name__} into a checkpoint")
+
+
+def msgpack_pack(tree: Any) -> bytes:
+    """Encode a checkpoint tree (dicts, lists as ``{"0": ..}`` maps, numpy
+    arrays, Python scalars, None) as msgpack, the inverse of
+    :func:`msgpack_unpack` on what flax writes."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save_checkpoint(path: str, tree: Dict[str, Any], epoch: int,
+                    best_val_metric: Optional[float] = None) -> None:
+    """Write ``tree`` (the JAX train-state layout with numpy leaves, e.g.
+    :func:`~protnote_tpu_torch.models.convert.to_jax_tree`) as a ``PNTPU1``
+    file: magic, 16-digit meta length, JSON meta (``epoch``,
+    ``best_val_metric``, ``checksum_crc32``, ``blob_bytes``), the msgpack
+    blob; atomically, through a temporary file in the same directory."""
+    blob = msgpack_pack(tree)
+    meta = {"epoch": int(epoch),
+            "best_val_metric": None if best_val_metric is None else float(best_val_metric),
+            "checksum_crc32": zlib.crc32(blob), "blob_bytes": len(blob)}
+    meta_blob = json.dumps(meta).encode()
+    directory = os.path.dirname(path) or "."
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(MAGIC)
+            fh.write(f"{len(meta_blob):016d}".encode())
+            fh.write(meta_blob)
+            fh.write(blob)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)

@@ -12,7 +12,7 @@ original.
 and per-label histograms on the device of the logits; its update and
 finalize are the K3 kernels (:mod:`protnote_tpu_torch.ops.eval_accumulator`).
 The exact host AUPRC (``ESTIMATE_MAP: False``, ``ExactAUPRC``) is not ported
-yet (ROADMAP.md queue 1, item 2).
+yet (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from protnote_tpu_torch.ops import eval_accumulator as k3
 
 EXACT_AUPRC_LATER = ("ESTIMATE_MAP: False (the exact host AUPRC, ExactAUPRC) is not "
-                     "ported yet (ROADMAP.md queue 1, item 2); set ESTIMATE_MAP True")
+                     "ported yet (ROADMAP.md queue 1, item 3); set ESTIMATE_MAP True")
 
 
 # ----------------------------------------------------------------------

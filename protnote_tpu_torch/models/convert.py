@@ -1,8 +1,10 @@
 """Weights into the port.
 
 * :func:`from_jax_tree` turns the JAX package's train-state bundle (its
-  pytrees as numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, ts)``)
-  into the port's tensors.
+  pytrees as numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, ts)``,
+  or the tree of a ``PNTPU1`` checkpoint) into the port's tensors, optax's
+  Adam state into the port's optimizer state; :func:`to_jax_tree` is the
+  inverse, for the checkpoint writer.
 * :func:`proteinfer_from_tf_pickle` reads the reference's TF1 ProteInfer
   pickle (``GO_model_weights*.pkl``), as the JAX package's loader of the same
   name does.
@@ -29,9 +31,7 @@ import torch
 
 from protnote_tpu_torch.models.layers import Params
 
-# Train-state entries that inference never reads (the JAX ServingEngine
-# drops the same two).
-_DROPPED = ("opt_state", "step")
+_TRAIN_ONLY = ("opt_state", "step")
 
 
 def _convert(node: Any, key: Optional[str] = None) -> Any:
@@ -51,8 +51,100 @@ def from_jax_tree(numpy_tree: Dict[str, Any]) -> Dict[str, Any]:
     """JAX train-state bundle (``trainable``/``model_state``/``enc_params``/
     ``enc_state``...) as numpy arrays -> the same bundle as CPU tensors.
 
-    ``opt_state`` and ``step`` are dropped."""
-    return {k: _convert(v) for k, v in numpy_tree.items() if k not in _DROPPED}
+    ``step`` becomes an int, ``opt_state`` the port's optimizer state
+    (:func:`opt_state_from_jax`)."""
+    out = {k: _convert(v) for k, v in numpy_tree.items() if k not in _TRAIN_ONLY}
+    if "step" in numpy_tree:
+        out["step"] = int(np.asarray(numpy_tree["step"]))
+    if "opt_state" in numpy_tree:
+        out["opt_state"] = opt_state_from_jax(numpy_tree["opt_state"], out["trainable"])
+    return out
+
+
+def _state_dict(node: Any) -> Any:
+    """flax's ``to_state_dict`` layout: named tuples keyed by field, other
+    tuples and lists keyed "0".."n-1"."""
+    if hasattr(node, "_fields"):
+        return {f: _state_dict(getattr(node, f)) for f in node._fields}
+    if isinstance(node, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(node)}
+    if isinstance(node, dict):
+        return {k: _state_dict(v) for k, v in node.items()}
+    return node
+
+
+def _find(node: Any, fields) -> Optional[Dict[str, Any]]:
+    """The first dict (depth first) that holds every key of ``fields``."""
+    if isinstance(node, dict):
+        if set(fields) <= set(node):
+            return node
+        for v in node.values():
+            found = _find(v, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state: Any, trainable: Dict[str, Any]) -> Dict[str, Any]:
+    """An optax state of ``make_optimizer`` (named tuples, or the
+    state-dict layout of a checkpoint) -> the port's optimizer state
+    (:mod:`protnote_tpu_torch.train.optim`): ``ScaleByAdamState`` gives
+    ``count``, ``mu`` and ``nu`` (trees like ``trainable``), ``MultiStepsState``
+    gives ``mini_step``, ``gradient_step`` and ``acc_grads``.  SGD's state
+    holds no arrays (no moments)."""
+    from protnote_tpu_torch.core.checkpoint import merge_into_template
+    from protnote_tpu_torch.train.optim import MASK_LATER
+
+    sd = _state_dict(opt_state)
+    if _find(sd, ("inner_states",)) is not None:
+        raise NotImplementedError(MASK_LATER)
+    like = lambda tree: merge_into_template(trainable, tree, "/opt_state")  # noqa: E731
+    out: Dict[str, Any] = {"count": 0, "mu": None, "nu": None}
+    adam = _find(sd, ("count", "mu", "nu"))
+    if adam is not None:
+        out.update(count=int(np.asarray(adam["count"])), mu=like(adam["mu"]),
+                   nu=like(adam["nu"]))
+    multi = _find(sd, ("mini_step", "gradient_step", "inner_opt_state", "acc_grads"))
+    if multi is not None:
+        out.update(mini_step=int(np.asarray(multi["mini_step"])),
+                   gradient_step=int(np.asarray(multi["gradient_step"])),
+                   acc_grads=like(multi["acc_grads"]))
+    return out
+
+
+def _to_numpy(node: Any, key: Optional[str] = None) -> Any:
+    if isinstance(node, dict):
+        return {k: _to_numpy(v, k) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_to_numpy(v) for v in node]
+    if not isinstance(node, torch.Tensor):
+        return node
+    t = node.detach().cpu()
+    if key == "kernel" and t.dim() == 3:  # conv: (cout, cin, k) -> (k, cin, cout)
+        t = t.permute(2, 1, 0)
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:
+        from protnote_tpu_torch.core.checkpoint import _BF16Array
+
+        return _BF16Array(t.view(torch.int16).numpy().view(np.uint16))
+    return t.numpy()
+
+
+def to_jax_tree(ts: Dict[str, Any], optimizer=None) -> Dict[str, Any]:
+    """The port's train state -> the JAX train-state tree with numpy leaves
+    (bfloat16 leaves as their bits): conv kernels back to ``(k, cin, cout)``,
+    ``step`` an int32 scalar, ``text_params`` None, and ``opt_state`` in the
+    layout of ``make_optimizer``'s optax state for ``optimizer``'s config
+    (:meth:`~protnote_tpu_torch.train.optim.Optimizer.jax_opt_state`)."""
+    out = {k: _to_numpy(v) for k, v in ts.items() if k not in _TRAIN_ONLY}
+    out.setdefault("text_params", None)
+    if "step" in ts:
+        out["step"] = np.asarray(ts["step"], np.int32)
+    if "opt_state" in ts:
+        if optimizer is None:
+            raise ValueError("writing opt_state needs the optimizer that made it")
+        out["opt_state"] = optimizer.jax_opt_state(ts["opt_state"], _to_numpy)
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -1,28 +1,37 @@
-"""ProtNote fusion model, eval half: projection heads + pairwise scorer.
+"""ProtNote fusion model: projection heads + pairwise scorer.
 
 Port of ``protnote_tpu/models/fusion.py``.  Protein and label embeddings are
-projected by torchvision-style MLP heads (Linear-no-bias -> BN -> ReLU per
-hidden layer, plain Linear last) into a shared latent space, then every
-(sequence, label) pair is scored by the folded concat-MLP
-(:mod:`protnote_tpu_torch.ops.pair_scorer`) or by cosine similarity, and K
-descriptions per label are ensembled (logit of the mean sigmoid).
+projected by torchvision-style MLP heads (Linear-no-bias -> BN -> ReLU
+[-> dropout] per hidden layer, plain Linear last) into a shared latent
+space, then every (sequence, label) pair is scored: in evaluation by the
+folded concat-MLP (:mod:`protnote_tpu_torch.ops.pair_scorer`, K1) or by
+cosine similarity, with K descriptions per label ensembled (logit of the
+mean sigmoid); in training by the decomposed scorer
+(:mod:`protnote_tpu_torch.ops.streaming_train`, K4 + K5) with train-mode
+BatchNorm, after label-embedding noising.
 
-Training (train-mode BatchNorm, dropout, label noising, the dense and
-decomposed training scorers) and the int8 scorer belong to later slices of
-the port and raise ``NotImplementedError`` here.
+Random draws (noising, dropout) come from an explicit ``torch.Generator``
+on the tensors' device.  Left out, each raising ``NotImplementedError``
+that names its ROADMAP item: the materialised dense scorer
+(``PAIR_BACKEND=dense``, ``OUTPUT_MLP_DROPOUT > 0`` in training, training
+without output-MLP BatchNorm or with ``concatenation_prod``), the streamed
+scorer (``TRAIN_STREAMING_LABEL_TILE > 0``), ``GRADIENT_CHECKPOINTING`` and
+the int8 scorer.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from protnote_tpu_torch.models.layers import (
     Params,
     batchnorm_apply,
+    batchnorm_train,
+    dropout as dropout_fn,
     gemm_precision,
     init_batchnorm,
     init_linear,
@@ -34,12 +43,20 @@ from protnote_tpu_torch.ops.pair_scorer import (
     pair_logits_tiled,
     similarity_logits,
 )
+from protnote_tpu_torch.ops.streaming_train import (
+    BN_MOMENTUM,
+    STREAMING_LATER,
+    pair_logits_dense_decomposed,
+)
 
-_LATER = {
-    "train": "training is ported with the training slice (ROADMAP.md queue 1, item 5)",
-    "dense": "PAIR_BACKEND=dense is the training scorer, ported with the training slice",
-    "tiled_int8": "PAIR_BACKEND=tiled_int8 is ported with the int8 scorer (K2)",
-}
+DENSE_LATER = ("the materialised dense pair scorer (PAIR_BACKEND=dense or tiled in "
+               "training, training without output-MLP BatchNorm or with "
+               "concatenation_prod) is not ported: the training slice trains through the "
+               "decomposed scorer (ROADMAP.md queue 1, item 5f)")
+DROPOUT_LATER = ("OUTPUT_MLP_DROPOUT > 0 in training needs the materialised dense "
+                 "scorer, which the training slice does not port (ROADMAP.md queue 1, "
+                 "item 5f)")
+INT8_LATER = "PAIR_BACKEND=tiled_int8 is ported with the int8 scorer (K2, ROADMAP.md queue 1, item 1)"
 
 
 @dataclass(frozen=True)
@@ -59,8 +76,16 @@ class ProtNoteConfig:
     inference_descriptions_per_label: int = 1
     label_tile: int = 512
     compute_dtype: torch.dtype = torch.float32
-    # auto (eval: tiled) | tiled; dense and tiled_int8 raise until ported
+    # auto (eval: tiled, train: decomposed) | tiled; dense and tiled_int8
+    # raise until ported
     pair_backend: str = "auto"
+    # training (the JAX fields of the same names)
+    label_embedding_noising_alpha: float = 0.0
+    dropout: float = 0.0  # OUTPUT_MLP_DROPOUT: heads' hidden layers and the output MLP
+    sequence_embedding_dropout: float = 0.0
+    label_embedding_dropout: float = 0.0
+    gradient_checkpointing: bool = False  # the decomposed scorer's remat: raises
+    train_label_tile: int = 0  # > 0 (the streamed scorer K6) raises in training
 
     @property
     def output_mlp_hidden_dim(self) -> int:
@@ -76,7 +101,8 @@ class ProtNoteConfig:
 
     @classmethod
     def from_params(cls, params: Dict, **overrides) -> "ProtNoteConfig":
-        """The eval keys of the JAX ``ProtNoteConfig.from_params``."""
+        """The keys of the JAX ``ProtNoteConfig.from_params`` that the port
+        reads."""
         bias_prob = params.get("OUTPUT_NEURON_PROBABILITY_BIAS")
         kw = dict(
             protein_embedding_dim=params.get("PROTEIN_EMBEDDING_DIM", 1100),
@@ -100,6 +126,12 @@ class ProtNoteConfig:
                 "LABEL_EMBEDDING_POOLING_METHOD", "mean"
             ),
             pair_backend=params.get("PAIR_BACKEND", None) or "auto",
+            label_embedding_noising_alpha=params.get("LABEL_EMBEDDING_NOISING_ALPHA", 0.0),
+            dropout=params.get("OUTPUT_MLP_DROPOUT", 0.0),
+            sequence_embedding_dropout=params.get("SEQUENCE_EMBEDDING_DROPOUT", 0.0),
+            label_embedding_dropout=params.get("LABEL_EMBEDDING_DROPOUT", 0.0),
+            gradient_checkpointing=params.get("GRADIENT_CHECKPOINTING", False),
+            train_label_tile=params.get("TRAIN_STREAMING_LABEL_TILE", 0) or 0,
         )
         kw.update(overrides)
         allowed = ("auto", "dense", "tiled", "tiled_int8")
@@ -177,16 +209,40 @@ def init_protnote(generator: torch.Generator, cfg: ProtNoteConfig
 # forward pieces
 
 
-def projection_head_apply(p: Params, s: Params, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode projection head: [Linear, BN, ReLU] per hidden layer, plain
-    Linear last, in ``x``'s dtype (BN in float32)."""
+def projection_head_apply(p: Params, s: Params, x: torch.Tensor,
+                          cfg: Optional[ProtNoteConfig] = None, train: bool = False,
+                          input_dropout: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          rows_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
+    """[Linear, BN, ReLU (, dropout)] per hidden layer, plain Linear last,
+    in ``x``'s dtype (BN in float32): ``(h, {"bns": new BN states})``.
+
+    ``train``: BatchNorm on the batch statistics of the rows where
+    ``rows_mask`` (N, 1) is set, input dropout at ``input_dropout`` and
+    hidden dropout at ``cfg.dropout`` with bits from ``generator`` (none
+    without one, as the JAX function draws none without an rng)."""
+    rate = cfg.dropout if cfg is not None else 0.0
+    draw = train and generator is not None
+    if draw and input_dropout > 0:
+        x = dropout_fn(x, input_dropout, generator, train)
     h = x
     n = len(p["layers"])
+    new_bns: List[Params] = []
     for i, lin in enumerate(p["layers"]):
         h = linear(lin, h)
         if i < n - 1:
-            h = torch.relu(batchnorm_apply(p["bns"][i], s["bns"][i], h, BN_EPS))
-    return h
+            if train:
+                h, bs = batchnorm_train(p["bns"][i], s["bns"][i], h, eps=BN_EPS,
+                                        momentum=BN_MOMENTUM, mask=rows_mask)
+            else:
+                h, bs = batchnorm_apply(p["bns"][i], s["bns"][i], h, BN_EPS), s["bns"][i]
+            new_bns.append(bs)
+            h = torch.relu(h)
+            if draw and rate > 0:
+                h = dropout_fn(h, rate, generator, train)
+    if draw and rate > 0:  # the torchvision MLP's trailing dropout
+        h = dropout_fn(h, rate, generator, train)
+    return h, {"bns": new_bns}
 
 
 def additive_attention(p: Params, hidden_states: torch.Tensor,
@@ -198,6 +254,16 @@ def additive_attention(p: Params, hidden_states: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     gemm_precision(hidden_states.dtype)
     return torch.einsum("lt,ltd->ld", w, hidden_states)
+
+
+def noise_label_embeddings(L_f: torch.Tensor, alpha: float,
+                           generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Uniform(-1, 1) noise scaled by alpha / sqrt(d) (reference
+    ProtNote.py:219-240, NEFTune-style), drawn from ``generator``."""
+    scale = alpha / math.sqrt(L_f.shape[-1])
+    noise = torch.rand(L_f.shape, generator=generator, device=L_f.device,
+                       dtype=L_f.dtype) * 2.0 - 1.0
+    return L_f + noise * scale
 
 
 def ensemble_logits(logits: torch.Tensor, k: int, eps: float = 1e-7) -> torch.Tensor:
@@ -222,7 +288,7 @@ def compute_label_latents(params: Params, state: Params,
             raise ValueError("pooling 'all' requires label_attention_mask")
         L_f = additive_attention(params["attn"], L_f, label_attention_mask)
     return projection_head_apply(params["W_l"], state["W_l"],
-                                 L_f.to(cfg.compute_dtype))
+                                 L_f.to(cfg.compute_dtype), cfg)[0]
 
 
 def protnote_forward(
@@ -232,39 +298,73 @@ def protnote_forward(
     label_embeddings: Optional[torch.Tensor],
     cfg: ProtNoteConfig,
     train: bool = False,
+    generator: Optional[torch.Generator] = None,
     label_attention_mask: Optional[torch.Tensor] = None,
+    example_mask: Optional[torch.Tensor] = None,
+    label_mask: Optional[torch.Tensor] = None,
     label_latents: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Score every sequence against every label row: (B, L) logits.
+) -> Tuple[torch.Tensor, Params]:
+    """Score every sequence against every label row: ``((B, L) logits,
+    new_state)``, as the JAX ``protnote_forward``.
 
-    The eval branch of the JAX ``protnote_forward``: with
-    ``cfg.inference_descriptions_per_label`` = K > 1, label rows come in
-    consecutive blocks of K per label and are ensembled.  ``label_latents``
-    (precomputed W_l projections) skips the label tower."""
-    if train:
-        raise NotImplementedError(_LATER["train"])
-    if cfg.pair_backend in ("dense", "tiled_int8"):
-        raise NotImplementedError(_LATER[cfg.pair_backend])
-    P_e = projection_head_apply(params["W_p"], state["W_p"],
-                                sequence_embeddings.to(cfg.compute_dtype))
+    Eval: with ``cfg.inference_descriptions_per_label`` = K > 1 label rows
+    come in consecutive blocks of K per label and are ensembled;
+    ``label_latents`` (precomputed W_l projections) skips the label tower;
+    the state comes back unchanged.  Train: BatchNorm on the masked batch
+    (``example_mask`` (B,), ``label_mask`` (L,)), label noising and dropout
+    from ``generator``, the decomposed scorer (K4 + K5), and the new running
+    statistics in the returned state."""
+    if cfg.pair_backend == "dense":
+        raise NotImplementedError(DENSE_LATER)
+    if cfg.pair_backend == "tiled_int8" and not train:
+        raise NotImplementedError(INT8_LATER)
+    new_state = dict(state)
+    P_e, new_state["W_p"] = projection_head_apply(
+        params["W_p"], state["W_p"], sequence_embeddings.to(cfg.compute_dtype), cfg, train,
+        input_dropout=cfg.sequence_embedding_dropout, generator=generator,
+        rows_mask=None if example_mask is None else example_mask[:, None])
     if label_latents is not None:
+        if train:
+            raise ValueError("label_latents is an eval-only fast path")
         L_e = label_latents.to(cfg.compute_dtype)
     else:
-        L_e = compute_label_latents(params, state, label_embeddings, cfg,
-                                    label_attention_mask)
+        L_f = label_embeddings
+        if cfg.label_embedding_pooling_method == "all":
+            if label_attention_mask is None:
+                raise ValueError("pooling 'all' requires label_attention_mask")
+            L_f = additive_attention(params["attn"], L_f, label_attention_mask)
+        if train and cfg.label_embedding_noising_alpha > 0 and generator is not None:
+            L_f = noise_label_embeddings(L_f, cfg.label_embedding_noising_alpha, generator)
+        L_e, new_state["W_l"] = projection_head_apply(
+            params["W_l"], state["W_l"], L_f.to(cfg.compute_dtype), cfg, train,
+            input_dropout=cfg.label_embedding_dropout, generator=generator,
+            rows_mask=None if label_mask is None else label_mask[:, None])
 
     if cfg.feature_fusion == "similarity":
         logits = similarity_logits(P_e, L_e, cfg.temperature)
     elif cfg.feature_fusion.startswith("concatenation"):
-        folded = fold_output_mlp(params["output_mlp"], state.get("output_mlp"),
-                                 cfg.feature_fusion, cfg.latent_dim,
-                                 dtype=cfg.compute_dtype)
-        logits = pair_logits_tiled(folded, P_e, L_e, label_tile=cfg.label_tile,
-                                   compute_dtype=cfg.compute_dtype)
+        om_state = state.get("output_mlp")
+        if train:
+            if cfg.train_label_tile > 0:
+                raise NotImplementedError(STREAMING_LATER)
+            if cfg.dropout > 0:
+                raise NotImplementedError(DROPOUT_LATER)
+            if (cfg.pair_backend == "tiled" or om_state is None
+                    or cfg.feature_fusion == "concatenation_prod"):
+                raise NotImplementedError(DENSE_LATER)
+            logits, new_state["output_mlp"] = pair_logits_dense_decomposed(
+                params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
+                example_mask=example_mask, label_mask=label_mask,
+                compute_dtype=cfg.compute_dtype, remat=cfg.gradient_checkpointing)
+        else:
+            folded = fold_output_mlp(params["output_mlp"], om_state, cfg.feature_fusion,
+                                     cfg.latent_dim, dtype=cfg.compute_dtype)
+            logits = pair_logits_tiled(folded, P_e, L_e, label_tile=cfg.label_tile,
+                                       compute_dtype=cfg.compute_dtype)
     else:
         raise ValueError(f"feature fusion {cfg.feature_fusion} not implemented")
 
     k = cfg.inference_descriptions_per_label
-    if k > 1:
+    if not train and k > 1:
         logits = ensemble_logits(logits, k)
-    return logits
+    return logits, new_state

@@ -1,15 +1,17 @@
-"""Eval-mode NN primitives with the JAX package's numerics.
+"""NN primitives with the JAX package's numerics.
 
 Port of ``protnote_tpu/models/layers.py``.  Parameters are plain nested dicts
 of tensors with the JAX package's names and layouts (Linear kernels are
 ``(in, out)``), so a JAX parameter tree converts one to one
-(:func:`protnote_tpu_torch.models.convert.from_jax_tree`).  Train-mode
-BatchNorm and dropout belong to the training slice of the port.
+(:func:`protnote_tpu_torch.models.convert.from_jax_tree`).  BatchNorm follows
+torch semantics as the JAX package does: biased batch variance to normalise
+in training, running statistics in eval, and a running update with the
+unbiased batch variance.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -51,6 +53,59 @@ def batchnorm_apply(p: Params, s: Params, x: torch.Tensor, eps: float,
     shape[channel_dim] = -1
     y = x.float() * inv.view(shape) + shift.view(shape)
     return y.to(x.dtype)
+
+
+def batchnorm_train(p: Params, s: Params, x: torch.Tensor, eps: float = 1e-5,
+                    momentum: float = 0.1, reduce_axes: Tuple[int, ...] = (0,),
+                    mask: Optional[torch.Tensor] = None,
+                    count: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
+    """Train-mode BatchNorm over ``reduce_axes`` (channel = last axis):
+    ``(y, new_state)``, the JAX ``batchnorm_apply(train=True)``.
+
+    ``mask`` restricts the statistics to valid positions (it may be of lower
+    rank, e.g. (B, 1, 1) for (B, T, C)).  ``count`` replaces the divisor by
+    the reference's padded position count: its BatchNorm ran over tensors
+    zero-padded to the batch's longest sequence, so the variance gains the
+    ``(count - n_valid) * mean^2`` the zero pads contribute.  Normalisation
+    uses the biased variance; the running update (detached) the unbiased
+    one, ``var * n / max(n - 1, 1)``."""
+    xf = x.float()
+    if mask is not None:
+        m = mask.float()
+        m_full = torch.broadcast_to(m, xf.shape[:-1] + (1,))
+        n_valid = torch.clamp(m_full.sum(dim=reduce_axes), min=1.0)
+        n = n_valid if count is None else torch.as_tensor(count, dtype=torch.float32,
+                                                           device=x.device)
+        mean = (xf * m).sum(dim=reduce_axes) / n
+        var = (((xf - mean) ** 2 * m).sum(dim=reduce_axes) + (n - n_valid) * mean ** 2) / n
+    else:
+        n = 1.0
+        for a in reduce_axes:
+            n = n * x.shape[a]
+        mean = xf.mean(dim=reduce_axes)
+        shape = [1 if i in reduce_axes else d for i, d in enumerate(x.shape)]
+        var = ((xf - mean.reshape(shape)) ** 2).mean(dim=reduce_axes)
+    unbiased = (var * (n / max(n - 1.0, 1.0)) if isinstance(n, float)
+                else var * (n / torch.clamp(n - 1.0, min=1.0))).detach()
+    new_state = {
+        "mean": (1 - momentum) * s["mean"] + momentum * mean.detach().to(s["mean"].dtype),
+        "var": (1 - momentum) * s["var"] + momentum * unbiased.to(s["var"].dtype),
+    }
+    inv = torch.rsqrt(var + eps) * p["scale"].float()
+    shift = p["bias"].float() - mean * inv
+    return (xf * inv + shift).to(x.dtype), new_state
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: keep with probability ``1 - rate`` and scale by its
+    inverse (the JAX ``dropout``), with bits drawn from ``generator`` (on
+    ``x``'s device).  A no-op outside training or at rate 0."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 def fold_batchnorm(p: Params, s: Params, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -139,15 +139,14 @@ def test_port_cli_matches_jax_cli(checkpoint, env, tmp_path, decision_th):
     port_metrics = tmain.run(_args(tmain, _cli_args(checkpoint, overrides=th, extra=[
         "--device", "cpu", "--save-val-test-metrics",
         "--save-val-test-metrics-file", str(out)])))["test"]
-    # the port reports no eval loss (the loss functions are training code)
-    assert set(port_metrics) == set(jax_metrics) - {"loss"}
+    assert set(port_metrics) == set(jax_metrics) and "loss" in port_metrics
     for k in set(port_metrics) - set(RATES):
         assert np.isfinite(port_metrics[k]), k
         assert port_metrics[k] == pytest.approx(jax_metrics[k], abs=1e-6, rel=0), k
     assert port_metrics["seqs_per_sec"] > 0 and port_metrics["pairs_per_sec"] > 0
     assert 0 < port_metrics["map_macro"] < 1
     if decision_th == "null":
-        assert set(port_metrics) == {"map_micro", "map_macro", *RATES}
+        assert set(port_metrics) == {"map_micro", "map_macro", "loss", *RATES}
     else:
         assert 0 < port_metrics["f1_micro"] < 1
     saved = json.loads(out.read_text())
@@ -220,10 +219,11 @@ def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
 
 
 @pytest.mark.parametrize("extra, overrides, match", [
-    (["--validation-path-name", "VAL_DATA_PATH"], [], "training"),
+    (["--train-path-name", "TRAIN_DATA_PATH", "--validation-path-name", "VAL_DATA_PATH"],
+     ["TRAIN_SEQUENCE_ENCODER", "True"], "training"),
     (["--validation-path-name", "VAL_DATA_PATH"], ["DECISION_TH", "null"], "sweep"),
-    (["--train-path-name", "TRAIN_DATA_PATH"], [], "training"),
-    (["--from-checkpoint"], [], "training"),
+    (["--train-path-name", "TRAIN_DATA_PATH"], ["TRAIN_LABEL_SAMPLE_SIZE", "4"], "training"),
+    (["--profile-dir", "prof"], [], "training"),
     (["--save-prediction-results"], [], "ROADMAP"),
     (["--save-embeddings"], [], "ROADMAP"),
     (["--only-represented-labels"], [], "ROADMAP"),

@@ -117,16 +117,17 @@ def test_protnote_forward_eval_matches_jax(fusion, k, dtype):
     want, _ = jfu.protnote_forward(_jax(params), _jax(state), jnp.asarray(seqs),
                                    jnp.asarray(labels), jcfg, train=False)
     t = from_jax_tree({"p": params, "s": state})
-    got = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
-                               torch.from_numpy(labels), tcfg)
+    got, new_state = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
+                                          torch.from_numpy(labels), tcfg)
     assert got.shape == (B, L)
+    assert new_state["output_mlp" if "output_mlp" in t["s"] else "W_p"] is not None
     rtol = 2.0 ** -6 if (fusion, dtype) == ("similarity", "bf16") else 0.0
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                atol=TOL[dtype], rtol=rtol)
     # the latents fast path gives the same logits
     lat = tfu.compute_label_latents(t["p"], t["s"], torch.from_numpy(labels), tcfg)
-    fast = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), None, tcfg,
-                                label_latents=lat)
+    fast, _ = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), None, tcfg,
+                                   label_latents=lat)
     torch.testing.assert_close(fast, got, rtol=0, atol=0)
 
 
@@ -134,12 +135,15 @@ def test_protnote_forward_eval_matches_jax(fusion, k, dtype):
     ("train", "training slice"), ("dense", "training slice"), ("tiled_int8", "int8"),
 ])
 def test_later_slices_raise(what, match):
+    """What the port leaves out: output-MLP dropout in training (it needs
+    the materialised dense scorer), PAIR_BACKEND=dense, the int8 scorer."""
     jcfg, tcfg, params, state = _model()
     seqs, labels = _inputs()
     t = from_jax_tree({"p": params, "s": state})
     kw = {}
     if what == "train":
         kw["train"] = True
+        tcfg = tfu.ProtNoteConfig(**{**tcfg.__dict__, "dropout": 0.1})
     else:
         tcfg = tfu.ProtNoteConfig(**{**tcfg.__dict__, "pair_backend": what})
     with pytest.raises(NotImplementedError, match=match):

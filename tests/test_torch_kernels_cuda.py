@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: the pair scorer (K1) and the eval
-accumulator (K3) against their plain PyTorch versions, and the serving
-engine on CUDA against the same engine on the CPU.  These need an NVIDIA
+"""The port's CUDA kernels on the card: the pair scorer (K1), the eval
+accumulator (K3), the training pair GEMM (K4) and BN+ReLU (K5) against their
+plain PyTorch versions, and the serving engine on CUDA against the same
+engine on the CPU.  These need an NVIDIA
 card (the kernels have no CPU mode) and skip without one.  The file imports neither jax nor the repo's conftest fixtures,
 so on the card's machine it runs as
 
@@ -13,6 +14,11 @@ K3 on the same logits on both sides: integer state exactly equal (inputs are
 drawn at least 2e-6 from every bin edge and from the threshold, far beyond
 the ulp by which two exponentials can differ), float32 sums to 1e-6
 relative, AP to 1e-6 absolute.
+K4 and K5 on the same bf16 inputs on both sides: bf16 outputs to two bf16
+steps (rtol 2^-6, atol 1e-2: the GEMM sums in another order, and the BN
+affine's float32 inverse square root may differ by an ulp), float32 moments
+to 1e-5 relative, the float32 column sums of the backward to 1e-3 relative
+(other summation orders over ~1,500 rows of bf16 products).
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
 from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
 from protnote_tpu_torch.ops import eval_accumulator as k3
 from protnote_tpu_torch.ops import pair_scorer as ps
+from protnote_tpu_torch.ops import streaming_train as st
 from protnote_tpu_torch.serving import ServingEngine
 
 
@@ -159,3 +166,111 @@ def test_eval_accumulator_finalize_empty_on_card():
     _, _, out = k3.finalize(torch.zeros(2 * 10 * 512, dtype=torch.int32, device=dev),
                             10, 512)
     assert torch.isnan(out.cpu()).all()
+
+
+BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-2
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [None, 256])
+def test_pair_train_kernel_matches_plain_on_card(monkeypatch, chunk_rows):
+    """K4's forward on a ragged pair count (5 x 301 rows), in one launch and
+    in label chunks; its backward is the plain one on both sides."""
+    _card()
+    rng = np.random.default_rng(7)
+    a2, c2 = _bf16(rng, 5, 64), _bf16(rng, 301, 64)
+    w = _bf16(rng, 64, 256, scale=0.2)
+    if chunk_rows is not None:  # force several label chunks
+        monkeypatch.setattr(st, "_K4_MAX_ROW_BLOCKS", 1)
+        monkeypatch.setattr(st, "_K4_BLOCK_M", chunk_rows)
+    before = st.LAUNCHES["pair_train_hidden"]
+    got = st.pair_hidden(a2, c2, w)
+    want = st.pair_hidden_reference(a2, c2, w)
+    torch.cuda.synchronize()
+    launches = st.LAUNCHES["pair_train_hidden"] - before
+    assert launches == (1 if chunk_rows is None else -(-301 // (chunk_rows // 5)))
+    assert float(want.float().std()) > 0.3
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_bn_relu_kernels_match_plain_on_card():
+    """K5 forward (y, mean, var) and backward (dz, dscale, dbias) on the
+    same inputs, with masked rows and a running mean far from the batch
+    mean."""
+    _card()
+    rng = np.random.default_rng(8)
+    N, H = 1505, 512
+    z = _bf16(rng, N, H) + 3.0
+    rows = torch.from_numpy((rng.random((N, 1)) < 0.9).astype(np.float32)).cuda()
+    n = rows.sum()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.normal(0, 0.1, H).astype(np.float32)).cuda()
+    running = torch.full((H,), 2.5, device="cuda")
+    dy = _bf16(rng, N, H)
+    outs = {}
+    for ref in (False, True):
+        z_ = z.clone().requires_grad_(True)
+        s_, b_ = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        fn = st.bn_relu_reference if ref else st.bn_relu
+        y, mean, var = fn(z_, rows, n, s_, b_, running)
+        y.backward(dy)
+        outs[ref] = (y, mean, var, z_.grad, s_.grad, b_.grad)
+    torch.cuda.synchronize()
+    (y, mean, var, dz, ds, db), (y0, mean0, var0, dz0, ds0, db0) = outs[False], outs[True]
+    torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=0)
+    torch.testing.assert_close(var, var0, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), y0.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.testing.assert_close(dz.float(), dz0.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    torch.testing.assert_close(ds, ds0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(db, db0, rtol=1e-3, atol=1e-3)
+    assert float((y > 0).float().mean()) > 0.2 and float(dz.float().abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_decomposed_scorer_kernels_match_plain_on_card():
+    """``pair_logits_dense_decomposed`` through K4 + K5 against
+    its plain version on the card: logits, new BN state and gradients."""
+    _card()
+    rng = np.random.default_rng(9)
+    d, H, B, L = 32, 256, 6, 203
+    cfg = ProtNoteConfig(protein_embedding_dim=24, label_embedding_dim=16, latent_dim=d,
+                         projection_head_num_layers=2, output_mlp_num_layers=3,
+                         output_mlp_hidden_dim_scale_factor=H // d)
+    p, s = init_protnote(torch.Generator().manual_seed(3), cfg)
+    p = {k: v for k, v in p["output_mlp"].items()}
+    s = s["output_mlp"]
+    from protnote_tpu_torch.models.layers import tree_to
+
+    p, s = tree_to(p, "cuda"), tree_to(s, "cuda")
+    P_e, L_e = _bf16(rng, B, d), _bf16(rng, L, d)
+    em = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.float32, device="cuda")
+    lm = (torch.arange(L, device="cuda") < 190).float()
+    res = {}
+    for ref in (False, True):
+        leaves = [p["layers"][1]["kernel"], p["bns"][1]["scale"], p["bns"][2]["bias"]]
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        pp = {"layers": [p["layers"][0], {"kernel": leaves[0]}, p["layers"][2]],
+              "bns": [p["bns"][0], {"scale": leaves[1], "bias": p["bns"][1]["bias"]},
+                      {"scale": p["bns"][2]["scale"], "bias": leaves[2]}],
+              "out": p["out"]}
+        Pg, Lg = P_e.clone().requires_grad_(True), L_e.clone().requires_grad_(True)
+        fn = st.pair_logits_dense_decomposed_reference if ref else \
+            st.pair_logits_dense_decomposed
+        logits, new = fn(pp, s, Pg, Lg, example_mask=em, label_mask=lm)
+        (torch.sigmoid(logits) * em[:, None] * lm[None, :]).square().sum().backward()
+        res[ref] = (logits, new, [Pg.grad, Lg.grad] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    (lg, new, grads), (lg0, new0, grads0) = res[False], res[True]
+    torch.testing.assert_close(lg, lg0, rtol=0, atol=3e-2)
+    for a, b in zip(new["bns"], new0["bns"]):
+        torch.testing.assert_close(a["mean"], b["mean"], rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(a["var"], b["var"], rtol=1e-3, atol=1e-4)
+    for a, b in zip(grads, grads0):
+        scale_ = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=5e-2 * scale_)

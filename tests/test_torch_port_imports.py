@@ -25,6 +25,8 @@ MODULES = [
     "protnote_tpu_torch.core.checkpoint", "protnote_tpu_torch.cli._model_setup",
     "protnote_tpu_torch.cli.main", "protnote_tpu_torch.evaln.metrics",
     "protnote_tpu_torch.ops.eval_accumulator", "protnote_tpu_torch.train.trainer",
+    "protnote_tpu_torch.ops.streaming_train", "protnote_tpu_torch.train.losses",
+    "protnote_tpu_torch.train.optim",
 ]
 
 
@@ -67,14 +69,26 @@ def test_chip_smoke_needs_a_card():
 
 
 def test_from_jax_tree_drops_optimizer_state():
+    """``step`` becomes an int and ``opt_state`` the port's optimizer state;
+    an optax state without Adam moments (SGD's) leaves none, and the
+    parameters come back as tensors."""
+    import collections
+
+    Adam = collections.namedtuple("ScaleByAdamState", "count mu nu")
     tree = {"trainable": {"protnote": {"k": np.ones((2, 3), np.float32)}},
             "model_state": {"bns": [{"mean": np.zeros(3, np.float32)}]},
             "enc_params": None, "opt_state": (np.zeros(1),), "step": np.int32(4)}
     out = from_jax_tree(tree)
-    assert set(out) == {"trainable", "model_state", "enc_params"}
+    assert set(out) == {"trainable", "model_state", "enc_params", "opt_state", "step"}
+    assert out["step"] == 4 and out["opt_state"] == {"count": 0, "mu": None, "nu": None}
     assert out["enc_params"] is None
     assert isinstance(out["trainable"]["protnote"]["k"], torch.Tensor)
     assert isinstance(out["model_state"]["bns"], list)
+    moments = {"protnote": {"k": np.full((2, 3), 0.5, np.float32)}}
+    tree["opt_state"] = ((), (Adam(np.int32(7), moments, moments), ()))
+    state = from_jax_tree(tree)["opt_state"]
+    assert state["count"] == 7
+    torch.testing.assert_close(state["nu"]["protnote"]["k"], torch.full((2, 3), 0.5))
 
 
 def test_tf_pickle_matches_jax_loader(tmp_path):

@@ -42,10 +42,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
    top kernels, peak memory, and a checkpoint written, restored and scored
    to the same logits.
 
-Then one JSON line per kernel with its launches on the training path (the
-counts are set to 0 just before ``Trainer.train`` and read just after), its
-error against the plain version and both times, the card's name and power
-limit, and last the line ``{"ok": true, "device": {...}}``.  Weights, label
+10. the int8 pair scorer (K2) alone at the full serving width (the same
+    shapes as phase 3), with static scales from ``calibrate_act_scales``
+    and with dynamic per-row scales, against its plain version on the same
+    device tensors: max |Δlogit|, the carried layer-1 rows of two label
+    chunks compared element by element, the row-scale kernel against its
+    plain version, times from CUDA events beside the 39.2 ms int8 bound,
+    and ``torch._int_mm`` on the same GEMM shapes as the yardstick;
+11. int8 serving: a full-width ``ServingEngine`` with ``PAIR_BACKEND
+    tiled_int8`` calibrated from random sequences (``calibrate_from``),
+    warmed up, then full batches (batch ms, seqs/s, peak memory), its
+    probabilities against a forward through the plain int8 scorer, and the
+    drift from the bf16 engine on the same weights (printed, not gated);
+12. int8 evaluation: ``Trainer.evaluate`` on the phase-7 FASTA with
+    ``tiled_int8``, auto-calibrated (static, K2's layer kernel), then with
+    ``INT8_CALIBRATE`` off (dynamic: the row-scale kernel too): seqs/s, the
+    scales and mAP beside the bf16 pass (random weights: printed only).
+
+Then one JSON line with every kernel: its launches on its path (K1 and K3
+in the training run, whose validation evaluates; K4 and K5 in training; K2
+in the int8 serving and evaluation runs; each count set to 0 just before the
+path and read just after), its error against the plain version, its time,
+the plain version's, the least time the card could take for the same work
+(``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
+over the dense peak of their type) and, where one PyTorch call computes the
+same function, that call's time; then the card's name and power limit, and
+last the line ``{"ok": true, "device": {...}}``.  Weights, label
 embeddings and sequences are random, made from fixed seeds.  There is no
 CPU path: without a CUDA device the script exits non-zero and prints no
 result.
@@ -76,7 +98,18 @@ LABEL_TILE = 512
 PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
 
-KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu")
+KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu", "pair_scorer_int8")
+
+# H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+
+# K2 (int8): the carried layer-1 rows of these label chunks are compared
+# element by element (the first and the ragged last of 126), and must be
+# equal: kernel and plain version round every step alike
+K2_CHUNKS = ((0, LABEL_TILE), (125 * LABEL_TILE, NUM_LABELS * K_DESCRIPTIONS - 125 * LABEL_TILE))
+INT8_SEQUENCES = 32  # calibrate_from's random sequences
 
 # K3 (ESTIMATE_MAP evaluation): 512 AUPRC bins, DECISION_TH 0.5.  Kernel and
 # plain version read the same logits; the integer state must agree exactly
@@ -117,6 +150,14 @@ GRAD_REL_TOL = 5e-2
 # a restored checkpoint scores the same logits; K1 adds its row sums with
 # atomics in no fixed order, so two scorings of one weight set agree to ~1e-6
 ROUNDTRIP_ATOL = 1e-4
+
+
+def bound(nbytes: float = 0.0, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def log(phase: str, **fields) -> None:
@@ -236,7 +277,8 @@ def phase_kernel(card: str):
     flop = 2.0 * 2 * H * H * B * L_e.shape[0]
     log("kernel_time", ms=ms, plain_ms=plain_ms, tflops=flop / ms / 1e9,
         plain_tflops=flop / plain_ms / 1e9, card=card)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(ops=flop),
+            "library_ms": None}
 
 
 def he_scale_linears(tree) -> None:
@@ -399,21 +441,16 @@ def phase_serving(engine, rng, card: str):
     return launches
 
 
-def phase_parity(engine, rng):
-    """engine.score against a forward through the plain pair scorer on the
-    same device tensors (the engine reads logits back in f16)."""
-    import numpy as np
+def plain_probs(engine, seqs):
+    """(n, labels) probabilities of ``seqs`` through a forward with the plain
+    pair scorer (bf16 or int8, as the engine's backend) on the engine's
+    device tensors."""
     import torch
 
     from protnote_tpu_torch.models.fusion import ensemble_logits, projection_head_apply
     from protnote_tpu_torch.models.proteinfer import embed_from_ids
-    from protnote_tpu_torch.ops.pair_scorer import (
-        fold_output_mlp,
-        pair_logits_tiled_reference,
-    )
+    from protnote_tpu_torch.ops import pair_scorer as ps
 
-    seqs = random_sequences(rng, [120, 333, 480, 77])
-    got = engine.score(seqs)
     aa, lengths = engine._assemble(engine._encode(seqs), 512)
     ts, cfg = engine.ts, engine.pn_cfg
     pn, state = ts["trainable"]["protnote"], ts["model_state"]
@@ -422,17 +459,275 @@ def phase_parity(engine, rng):
                              torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda(),
                              engine.pi_cfg)
         P_e, _ = projection_head_apply(pn["W_p"], state["W_p"], P_f.to(cfg.compute_dtype))
-        folded = fold_output_mlp(pn["output_mlp"], state["output_mlp"], cfg.feature_fusion,
-                                 cfg.latent_dim, dtype=cfg.compute_dtype)
-        logits = pair_logits_tiled_reference(folded, P_e, engine.latents, cfg.label_tile,
-                                             cfg.compute_dtype)
+        folded = ps.fold_output_mlp(pn["output_mlp"], state["output_mlp"], cfg.feature_fusion,
+                                    cfg.latent_dim, dtype=cfg.compute_dtype)
+        if cfg.pair_backend == "tiled_int8":
+            logits = ps.pair_logits_tiled_int8_reference(
+                ps.quantize_folded(folded, act_scales=cfg.int8_act_scales), P_e,
+                engine.latents, cfg.label_tile, cfg.compute_dtype)
+        else:
+            logits = ps.pair_logits_tiled_reference(folded, P_e, engine.latents,
+                                                    cfg.label_tile, cfg.compute_dtype)
         want = torch.sigmoid(ensemble_logits(logits, K_DESCRIPTIONS))[: len(seqs)]
-    want = want.float().cpu().numpy()
+    return want.float().cpu().numpy()
+
+
+def phase_parity(engine, rng, name="serving_parity"):
+    """engine.score against a forward through the plain pair scorer on the
+    same device tensors (the engine reads logits back in f16)."""
+    import numpy as np
+
+    seqs = random_sequences(rng, [120, 333, 480, 77])
+    got = engine.score(seqs)
+    want = plain_probs(engine, seqs)
     err = float(np.abs(got - want).max())
-    log("serving_parity", sequences=len(seqs), max_abs_prob_err=err, prob_atol=PROB_ATOL,
+    log(name, sequences=len(seqs), max_abs_prob_err=err, prob_atol=PROB_ATOL,
         prob_std=float(want.std()))
     if not (np.isfinite(got).all() and err <= PROB_ATOL):
         raise AssertionError(f"engine disagrees with the plain forward: {err}")
+    return seqs, got
+
+
+def phase_k2(card: str):
+    """K2 alone at full serving width, static and dynamic scales, against
+    its plain version on the same device tensors; the row-scale kernel
+    alone against ``_row_scales``; ``torch._int_mm`` on the GEMM shapes."""
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    gen = torch.Generator().manual_seed(20)
+    dev = torch.device("cuda")
+    folded = random_folded(gen, D_LATENT, H, 2, dev)
+    P_e = torch.randn(B, D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(NUM_LABELS * K_DESCRIPTIONS, D_LATENT,
+                      generator=gen).to(dev, torch.bfloat16)
+    rows = B * L_e.shape[0]
+    ops = 2.0 * 2 * rows * H * H
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        scales = ps.calibrate_act_scales(folded, P_e, L_e, LABEL_TILE)
+        calib_s = time.perf_counter() - t0
+        qs = {"static": ps.quantize_folded(folded, act_scales=scales),
+              "dynamic": ps.quantize_folded(folded)}
+        for mode, q in qs.items():
+            got = ps.pair_logits_tiled_int8_cuda(q, P_e, L_e, LABEL_TILE)
+            want = ps.pair_logits_tiled_int8_reference(q, P_e, L_e, LABEL_TILE)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"K2 ({mode}) logits are not all finite")
+            err = (got - want).abs().max().item()
+            perr = (torch.sigmoid(got) - torch.sigmoid(want)).abs().max().item()
+            differ = total = 0
+            for l0, nl in K2_CHUNKS:
+                mine = ps.int8_carry_cuda(q, P_e, L_e, l0, nl)
+                theirs = ps.int8_carry_reference(q, P_e, L_e, l0, nl)
+                differ += int((mine != theirs).sum())
+                total += mine.numel()
+            del got, want, mine, theirs
+            ms = cuda_time_ms(lambda: ps.pair_logits_tiled_int8_cuda(q, P_e, L_e, LABEL_TILE), 3)
+            plain_ms = cuda_time_ms(
+                lambda: ps.pair_logits_tiled_int8_reference(q, P_e, L_e, LABEL_TILE), 1)
+            out[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            log("k2_check", mode=mode, shape=[B, L_e.shape[0]], hidden=H,
+                scales=list(q.act_scales or ()), max_abs_logit_err=err, max_abs_prob_err=perr,
+                logit_atol=LOGIT_ATOL, prob_atol=PROB_ATOL, carried=total,
+                carried_differ=differ, ms=ms, plain_ms=plain_ms, tops=ops / ms / 1e9,
+                bound_ms=ops / INT8_OPS * 1e3, calibrate_s=calib_s, card=card)
+            if not (err <= LOGIT_ATOL and perr <= PROB_ATOL and differ == 0):
+                raise AssertionError(f"K2 ({mode}) disagrees with the plain version: logit "
+                                     f"{err}, prob {perr}, {differ} carried values differ")
+        rs = k2_row_scale(qs["dynamic"], P_e, L_e)
+        # the yardstick: the same int8 GEMMs as one library call each, with
+        # W row-major as the plain version holds it and column-major as K2
+        # takes it; the faster counts
+        A = torch.randint(-127, 128, (B * LABEL_TILE, H), dtype=torch.int8, device=dev)
+        Wq = qs["static"].hidden_q[0][0]
+        Wt = Wq.t().contiguous().t()
+        n_products = 2 * -(-L_e.shape[0] // LABEL_TILE)
+        int_mm = {layout: cuda_time_ms(lambda: torch._int_mm(A, w), 20) * n_products
+                  for layout, w in (("row_major", Wq), ("col_major", Wt))}
+        library_ms = min(int_mm.values())
+    log("k2_time", static_ms=out["static"]["ms"], dynamic_ms=out["dynamic"]["ms"],
+        static_plain_ms=out["static"]["plain_ms"], dynamic_plain_ms=out["dynamic"]["plain_ms"],
+        int_mm_ms=int_mm, int_mm_products=n_products, bound_ms=ops / INT8_OPS * 1e3,
+        row_scale_ms=rs["ms"], row_scale_plain_ms=rs["plain_ms"], card=card)
+    layer = {"max_abs_err": max(v["max_abs_err"] for v in out.values()),
+             "ms": out["static"]["ms"], "plain_ms": out["static"]["plain_ms"],
+             **bound(ops=ops, peak=INT8_OPS), "library_ms": library_ms}
+    return {"pair_int8_layer": layer, "pair_int8_row_scale": rs}
+
+
+def k2_row_scale(q, P_e, L_e):
+    """The row-scale kernel alone: against ``_row_scales`` on the same rows
+    of two chunks (layer 1 from a and c, layer 2 from the kernel's bf16
+    carry), and the time of its 2 x 126 launches of a batch."""
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    k = ps._Int8Kernel(q, P_e, L_e, LABEL_TILE, torch.bfloat16)
+    L_rows = L_e.shape[0]
+
+    def launch(l0, nl, src):
+        err = k.scale_fn(k.a.data_ptr(), k.c.data_ptr(), None if src is None else src.data_ptr(),
+                         k.row_scale.data_ptr(), nl, l0, B * nl, H, 8, 1.3, int(src is None),
+                         k.stream)
+        if err != 0:
+            raise RuntimeError(f"pair_int8_row_scale launch failed: CUDA error {err}")
+
+    def plain_first(l0, nl):
+        h = torch.relu(k.a[:, None, :] + k.c[None, l0:l0 + nl, :]).reshape(B * nl, -1)
+        return ps._row_scales(h.to(torch.bfloat16))[:, 0]
+
+    chunks = [(l0, min(LABEL_TILE, L_rows - l0)) for l0 in range(0, L_rows, LABEL_TILE)]
+    err = 0.0
+    with torch.cuda.device(P_e.device):
+        for l0, nl in K2_CHUNKS:
+            launch(l0, nl, None)
+            err = max(err, float((k.row_scale[:B * nl] - plain_first(l0, nl)).abs().max()))
+            carry = ps.int8_carry_cuda(q, P_e, L_e, l0, nl)
+            launch(l0, nl, carry)
+            err = max(err, float((k.row_scale[:B * nl] - ps._row_scales(carry)[:, 0]).abs().max()))
+        work = k.work[0] if k.work else torch.zeros(B * LABEL_TILE, H, dtype=torch.bfloat16,
+                                                       device=P_e.device)
+        work.copy_(ps.int8_carry_cuda(q, P_e, L_e, 0, LABEL_TILE))
+
+        def kernel_pass():
+            for l0, nl in chunks:
+                launch(l0, nl, None)
+                launch(l0, nl, work)
+
+        def plain_pass():
+            for l0, nl in chunks:
+                plain_first(l0, nl)
+                ps._row_scales(work[:B * nl])
+
+        ms = cuda_time_ms(kernel_pass, 3)
+        plain_ms = cuda_time_ms(plain_pass, 1)
+    log("k2_row_scale_check", chunks=len(K2_CHUNKS), max_abs_err=err)
+    if err != 0.0:
+        raise AssertionError(f"the row-scale kernel disagrees with _row_scales: {err}")
+    # bytes the function needs: a and c at every 8th column (layer 1), the
+    # bf16 carry at every 8th column (layer 2), one float32 scale a row out
+    # per layer
+    rows = B * L_rows
+    nbytes = 4.0 * (B + L_rows) * H / 8 + 2.0 * rows * H / 8 + 8.0 * rows
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes=nbytes),
+            "library_ms": None}
+
+
+def reset_int8_launches():
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    for name in ps.INT8_LAUNCHES:
+        ps.INT8_LAUNCHES[name] = 0
+
+
+def phase_int8_serving(engine, rng, drift_seqs, drift_probs, card: str):
+    """A full-width int8 engine on the bf16 engine's weights: calibrated
+    from random sequences, warmed up, full batches; then parity with the
+    plain int8 forward and the drift from the bf16 engine's
+    ``drift_probs`` on ``drift_seqs``.  Returns K2's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    engine8 = ServingEngine(engine.ts, engine.pi_cfg,
+                            dataclasses.replace(engine.pn_cfg, pair_backend="tiled_int8"),
+                            random_label_matrix(), engine.label_vocabulary,
+                            buckets=engine.buckets, max_batch=B, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_int8_launches()
+    t0 = time.perf_counter()
+    engine8.calibrate_from(random_sequences(rng, rng.integers(100, 512, size=INT8_SEQUENCES)))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    scales = engine8.pn_cfg.int8_act_scales
+    if not scales or not all(s > 0 for s in scales):
+        raise AssertionError(f"calibrate_from gave no scales: {scales}")
+    engine8.warmup()
+    full = random_sequences(rng, rng.integers(100, 512, size=B))
+    engine8.score(full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        probs = engine8.score(full)
+    sec = (time.perf_counter() - t0) / reps
+    launches = dict(ps.INT8_LAUNCHES)
+    if launches["pair_int8_layer"] <= 0 or not np.isfinite(probs).all():
+        raise AssertionError(f"int8 serving did not run through K2: {launches}")
+    log("int8_serving", batch=B, bucket=512, scales=list(scales), engine_build_s=build_s,
+        calibrate_s=calib_s, batch_ms=sec * 1e3, seqs_per_s=B / sec,
+        pair_scores_per_s=B * NUM_LABELS * K_DESCRIPTIONS / sec,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, launches=launches, card=card)
+    phase_parity(engine8, rng, "int8_serving_parity")
+    got = engine8.score(drift_seqs)
+    d = got - drift_probs
+    log("int8_drift", sequences=len(drift_seqs), max_abs_prob_drift=float(np.abs(d).max()),
+        rms_prob_drift=float(np.sqrt(np.mean(d ** 2))), prob_std=float(drift_probs.std()))
+    return launches
+
+
+def phase_int8_eval(card: str, bf16_metrics: dict):
+    """``Trainer.evaluate`` with ``tiled_int8`` on the phase-7 FASTA,
+    auto-calibrated (static), then dynamic (``INT8_CALIBRATE`` off).
+    Returns K2's launches over both."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = eval_dataset(tmp)
+    pi_cfg, pn_cfg, ts = random_models()
+    pn8 = dataclasses.replace(pn_cfg, pair_backend="tiled_int8")
+    total = {name: 0 for name in ps.INT8_LAUNCHES}
+    for mode, calibrate in (("static", True), ("dynamic", False)):
+        batcher = PrefetchBatcher(BucketBatcher(
+            ds, B, buckets=(256, 512, 1024), return_label_multihots=True,
+            descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True), prefetch=2)
+        trainer = Trainer(ts, pi_cfg, pn8, TrainerConfig(
+            decision_threshold=THRESHOLD, estimate_map=True, int8_calibrate=calibrate),
+            device="cuda")
+        torch.cuda.synchronize()
+        reset_int8_launches()
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate(batcher)["metrics"]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(ps.INT8_LAUNCHES)
+        ran = launches["pair_int8_layer"] > 0 and (calibrate or launches["pair_int8_row_scale"] > 0)
+        if not ran or (trainer.pn_cfg.int8_act_scales is not None) != calibrate:
+            raise AssertionError(f"int8 evaluation ({mode}) skipped a kernel or the "
+                                 f"calibration: {launches}, {trainer.pn_cfg.int8_act_scales}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite int8 metrics: {metrics}")
+        for name, v in launches.items():
+            total[name] += v
+        log("int8_eval", mode=mode, sequences=len(ds), batches=len(batcher), seconds=sec,
+            seqs_per_s=len(ds) / sec, batch_ms=sec * 1e3 / len(batcher),
+            scales=list(trainer.pn_cfg.int8_act_scales or ()), launches=launches,
+            map_micro=metrics["map_micro"], map_macro=metrics["map_macro"],
+            bf16_map_micro=bf16_metrics["map_micro"], bf16_map_macro=bf16_metrics["map_macro"],
+            loss=metrics.get("loss"), card=card)
+        del trainer, batcher
+        torch.cuda.empty_cache()
+    return total
 
 
 def edge_elements(logits, valid) -> int:
@@ -551,7 +846,17 @@ def phase_k3(card: str):
     log("k3_time", **{f"{k}_ms": v[0] for k, v in t.items()},
         **{f"{k}_plain_ms": v[1] for k, v in t.items()}, card=card)
     errs = {"update": int_err, "row_tail": sum_err, "finalize": max(ap_err, out_err)}
-    return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1]} for k in t}
+    # bytes each entry point must move for the timed batch: the update reads
+    # the logits, targets and masks, reads and writes tp/fp/fn and one
+    # histogram count per valid element; the row tail reads the per-row
+    # counts; finalize reads the histograms and writes per-label AP
+    n_valid = float((em[:, None] * lm[None, :]).sum())
+    nbytes = {"update": 8.0 * logits.numel() + 4 * (B + NUM_LABELS) + 24 * NUM_LABELS
+              + 8 * n_valid + 12 * B,
+              "row_tail": 16.0 * B + 8,
+              "finalize": 4.0 * 2 * NUM_LABELS * NUM_BINS + 8 * NUM_LABELS + 16 * NUM_BINS + 8}
+    return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1],
+                **bound(nbytes=nbytes[k]), "library_ms": None} for k in t}
 
 
 def label_cache():
@@ -559,7 +864,7 @@ def label_cache():
     descriptions per label, fixed seed)."""
     import numpy as np
 
-    from protnote_tpu.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
 
     go_ids = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
     types = ["name", "label"]
@@ -578,9 +883,9 @@ def fasta_dataset(tmp: str, name: str, n: int, seed: int, cfg):
     ``cfg``."""
     import numpy as np
 
-    from protnote_tpu.data.dataset import ProteinDataset
-    from protnote_tpu.data.fasta import save_to_fasta
-    from protnote_tpu.data.vocab import COMMON_AMINOACIDS
+    from protnote_tpu_torch.data.dataset import ProteinDataset
+    from protnote_tpu_torch.data.fasta import save_to_fasta
+    from protnote_tpu_torch.data.vocab import COMMON_AMINOACIDS
 
     go_ids, _, cache = label_cache()
     rng = np.random.default_rng(seed)
@@ -595,7 +900,7 @@ def fasta_dataset(tmp: str, name: str, n: int, seed: int, cfg):
 
 def eval_dataset(tmp: str):
     """The evaluation FASTA (256 sequences, test role)."""
-    from protnote_tpu.data.dataset import DatasetConfig
+    from protnote_tpu_torch.data.dataset import DatasetConfig
 
     cfg = DatasetConfig(dataset_type="test", inference_go_descriptions=("name", "label"),
                         inference_descriptions_per_label=K_DESCRIPTIONS)
@@ -610,7 +915,7 @@ def phase_eval(card: str, k3_times: dict):
     import numpy as np
     import torch
 
-    from protnote_tpu.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
     from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator, EvalMetrics
     from protnote_tpu_torch.ops import eval_accumulator as k3
     from protnote_tpu_torch.ops import pair_scorer as ps
@@ -683,7 +988,7 @@ def phase_eval(card: str, k3_times: dict):
     # metrics within AP_ATOL unless an edge element moved a count
     if worst > AP_ATOL and int_delta(deltas) == 0:
         raise AssertionError(f"kernel and plain metrics disagree: {errs}")
-    return launches
+    return metrics
 
 
 def random_output_mlp(dev):
@@ -851,6 +1156,13 @@ def phase_train_kernels_alone(p, s, card: str):
                 cuda_time_ms(lambda: [bwd_plain(c) for c in cols], 2)),
         }
     rel = {k: max(r for _, r in v.values()) for k, v in outs.items()}
+    N = float(z.shape[0])
+    bounds = {  # bf16 (N, H) tensors in and out, float32 rows and per-column values
+        "pair_train_hidden": bound(nbytes=2.0 * (a2.numel() + c2.numel() + W.numel())
+                                   + 2 * N * H, ops=2.0 * N * H * H),
+        "bn_relu_forward": bound(nbytes=4.0 * N * H + 4 * N + 32 * H),
+        "bn_relu_backward": bound(nbytes=6.0 * N * H + 4 * N + 28 * H),
+    }
     # the kernels line's error: the largest |delta| of the (N, H) output
     abs_errs = {"pair_train_hidden": outs["pair_train_hidden"]["z"][0],
                 "bn_relu_forward": outs["bn_relu_forward"]["y"][0],
@@ -862,14 +1174,14 @@ def phase_train_kernels_alone(p, s, card: str):
         **{f"{k}_plain_ms": v[1] for k, v in times.items()}, card=card)
     if max(rel.values()) > K45_REL_TOL:
         raise AssertionError(f"a training kernel disagrees with its plain version: {outs}")
-    return {k: {"max_abs_err": abs_errs[k], "ms": times[k][0], "plain_ms": times[k][1]}
-            for k in times}
+    return {k: {"max_abs_err": abs_errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+                **bounds[k], "library_ms": None} for k in times}
 
 
 def train_datasets(tmp: str):
     """Training (augmented: one sampled description per label, residue
     substitution 0.1) and validation datasets over the full vocabulary."""
-    from protnote_tpu.data.dataset import DatasetConfig
+    from protnote_tpu_torch.data.dataset import DatasetConfig
 
     types = ("name", "label")
     train_cfg = DatasetConfig(dataset_type="train", augment_residue_probability=0.1,
@@ -923,7 +1235,7 @@ def phase_training(card: str):
 
     import torch
 
-    from protnote_tpu.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
     from protnote_tpu_torch.ops import eval_accumulator as k3
     from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.ops import streaming_train as st
@@ -1056,21 +1368,30 @@ def main() -> None:
     card = card_line()
     phase_build()
     k1 = phase_kernel(card)
+    torch.cuda.empty_cache()
+    k2 = phase_k2(card)
+    torch.cuda.empty_cache()
     engine, build_s, rng = build_engine()
     log("engine", build_seconds=build_s, labels=NUM_LABELS, label_rows=NUM_LABELS * K_DESCRIPTIONS,
         latents=list(engine.latents.shape), latents_dtype=str(engine.latents.dtype))
     phase_serving(engine, rng, card)
-    phase_parity(engine, rng)
+    drift_seqs, drift_probs = phase_parity(engine, rng)
+    int8_launches = phase_int8_serving(engine, rng, drift_seqs, drift_probs, card)
     del engine
     torch.cuda.empty_cache()
     k3_times = phase_k3(card)
-    phase_eval(card, k3_times)
+    bf16_metrics = phase_eval(card, k3_times)
+    torch.cuda.empty_cache()
+    for name, v in phase_int8_eval(card, bf16_metrics).items():
+        int8_launches[name] += v
     torch.cuda.empty_cache()
     train_times = phase_train_kernels(card)
     torch.cuda.empty_cache()
     launches = phase_training(card)
-    if "jax" in sys.modules:
-        raise AssertionError("the port's serving, evaluation or training path imported jax")
+    if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
+                                   for m in sys.modules):
+        raise AssertionError("the port's serving, evaluation or training path imported jax "
+                             "or the JAX package")
     k3_src = "protnote_tpu_torch/csrc/eval_accumulator.cu"
     replaces = {"update": "protnote_tpu/evaln/metrics.py:601",
                 "row_tail": "protnote_tpu/evaln/metrics.py:628",
@@ -1094,7 +1415,10 @@ def main() -> None:
     } for k in ("update", "row_tail", "finalize")] + [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], **train_times[k],
-    } for k, (src, rep) in train_kernels.items()]}), flush=True)
+    } for k, (src, rep) in train_kernels.items()] + [{
+        "name": k, "route": "cuda", "source": "protnote_tpu_torch/csrc/pair_scorer_int8.cu",
+        "replaces": "protnote_tpu/ops/pair_scorer.py:375", "launches": int8_launches[k], **k2[k],
+    } for k in ("pair_int8_layer", "pair_int8_row_scale")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

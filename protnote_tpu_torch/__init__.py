@@ -3,17 +3,13 @@ Hopper (H100).
 
 The JAX package ``protnote_tpu`` is the reference; this package mirrors its
 layout module for module, so ``protnote_tpu/<path>`` has its counterpart at
-``protnote_tpu_torch/<path>``.  It imports torch and never jax.  Ported
-so far are the serving path (ProteInfer encoder in eval mode, projection
-heads, the folded pair scorer with its hand-written CUDA kernel, the eval
-step, ``ServingEngine``, ``cli.serve``) and the test-set evaluation path
-(the ``PNTPU1`` checkpoint reader and reference ``.pt`` loader, the
-on-device eval accumulator with its CUDA kernels, ``Trainer.evaluate``,
-``cli.main``); the kernels live in ``csrc/``.  Host-only modules of the
-JAX package that never import jax (``protnote_tpu.data``, the jax-free
-parts of ``protnote_tpu.core.config``, and ``ServingStats``,
-``topk_from_probs`` and ``make_http_server`` from ``protnote_tpu.serving``)
-are imported, not copied.
+``protnote_tpu_torch/<path>``.  It imports torch and never jax, and
+nothing of ``protnote_tpu``: the host-only modules it needs (the data
+layer, the jax-free config functions, the request side of serving) are
+copied into it.  Ported so far are the serving path (bf16 and int8), the
+test-set evaluation path and training; the hand-written CUDA kernels live
+in ``csrc/`` (K1 bf16 pair scorer, K2 int8 pair scorer, K3 eval
+accumulator, K4 training pair GEMM, K5 BN+ReLU).
 """
 
 __version__ = "0.1.0"

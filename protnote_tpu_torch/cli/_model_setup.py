@@ -20,6 +20,22 @@ import torch
 logger = logging.getLogger(__name__)
 
 
+def resolve_label_tile(params: dict) -> int:
+    """Label tile of the pair scorer (copy of
+    ``protnote_tpu/cli/_model_setup.py:resolve_label_tile``).
+
+    ``LABEL_TILE_SIZE`` is the knob.  The reference's inference lever is
+    ``LABEL_BATCH_SIZE_LIMIT_NO_GRAD`` (the no-grad label chunk, a memory
+    cap): when ``LABEL_TILE_SIZE`` is left at its default 512 and the
+    legacy key is set, its value is honoured rounded down to a multiple of
+    128, and values below 128 clamp up to 128."""
+    tile = params.get("LABEL_TILE_SIZE", 512)
+    legacy = params.get("LABEL_BATCH_SIZE_LIMIT_NO_GRAD")
+    if legacy and tile == 512:
+        tile = max(128, (int(legacy) // 128) * 128)
+    return int(tile)
+
+
 def build_models(config: dict, label_dim: int, num_aa: int = 0,
                  seed: Optional[int] = None, gate_pretrained: bool = False,
                  train_sequence_encoder: bool = False, log=logger):
@@ -34,7 +50,6 @@ def build_models(config: dict, label_dim: int, num_aa: int = 0,
     ``train_sequence_encoder``: the encoder lives in ``trainable["encoder"]``
     (``enc_params`` None), the layout of a checkpoint trained with
     ``TRAIN_SEQUENCE_ENCODER``."""
-    from protnote_tpu.cli._model_setup import resolve_label_tile
     from protnote_tpu_torch.models.convert import proteinfer_from_tf_pickle
     from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
     from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer

@@ -10,21 +10,25 @@ The argument surface of ``protnote_tpu.cli.main``.  Ported are training,
 validation and the test sets with all metrics on the device: config, the
 label-embedding cache, ``ProteinDataset`` -> ``BucketBatcher`` (device label
 gather; for training shuffled, ``drop_last`` and weighted by
-``WEIGHTED_SAMPLING``) -> ``PrefetchBatcher`` (imported from the JAX
-package's host-only data layer), weights from ``--model-file`` (a ``PNTPU1``
+``WEIGHTED_SAMPLING``) -> ``PrefetchBatcher`` (the port's copies of the JAX
+package's host data layer), weights from ``--model-file`` (a ``PNTPU1``
 ``.ckpt`` of either package, or a reference ``.pt``; ``--from-checkpoint``
 resumes its epoch and optimizer state), ``Trainer.train`` (train steps
 through K4 + K5, validation through K1 + K3, checkpoints, the best one
 reloaded), and the metric dict of every test set (``EvalMetrics.compute()``,
 the eval ``loss``, seqs/s and pairs/s), with ``train_summary``, optionally
-appended to the ``--save-val-test-metrics`` JSON.  ``--device cpu`` runs the
-same path with the kernels' plain versions (for tests).  The config is read
-with ``load_config``/``override_config``/``resolve_paths``: ``get_setup``
-imports jax.
+appended to the ``--save-val-test-metrics`` JSON.  ``PAIR_BACKEND
+tiled_int8`` evaluates through the int8 scorer (K2) with static scales
+calibrated on each evaluation's first batch (``INT8_CALIBRATE``, default
+True; ``INT8_ACT_SCALES`` supplies them); training then still runs the
+decomposed scorer.  ``--device cpu`` runs the same path with the kernels'
+plain versions (for tests).  The config is read with
+``load_config``/``override_config``/``resolve_paths`` of
+:mod:`protnote_tpu_torch.core.config`.
 
 The threshold sweep, the exact host AUPRC, prediction and embedding export,
 GO-DAG normalisation, represented-label slicing, label sampling, encoder
-training, the text tower, profiler traces, wandb, a mesh and int8 raise
+training, the text tower, profiler traces, wandb and a mesh raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -117,9 +121,6 @@ def refuse_unported(args, params: Dict) -> None:
     if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
         raise NotImplementedError("the text tower (K8) is not ported yet "
                                   "(ROADMAP.md queue 1, item 8)")
-    if params.get("PAIR_BACKEND") == "tiled_int8":
-        raise NotImplementedError("the int8 scorer (K2) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 1)")
     mesh = [v for v in (args.mesh_dp, args.mesh_label) if v not in (None, 1)]
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "
@@ -134,7 +135,7 @@ def load_setup(args):
     """-> (config, run_name, log): the JAX ``get_setup`` for test-set roles,
     without jax: overrides, resolved paths, ``dataset_paths``, the
     label-embedding paths and a timestamped run name."""
-    from protnote_tpu.core.config import (
+    from protnote_tpu_torch.core.config import (
         DEFAULT_CONFIG_PATH,
         generate_label_embedding_path,
         label_embedding_index_path,
@@ -167,10 +168,10 @@ def load_setup(args):
 
 
 def run(args) -> Dict:
-    from protnote_tpu.data.batching import BucketBatcher, PrefetchBatcher
-    from protnote_tpu.data.dataset import DatasetConfig, ProteinDataset
-    from protnote_tpu.data.label_cache import LabelEmbeddingCache
-    from protnote_tpu.data.vocab import generate_vocabularies
+    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.data.dataset import DatasetConfig, ProteinDataset
+    from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu_torch.data.vocab import generate_vocabularies
     from protnote_tpu_torch.cli._model_setup import build_models
     from protnote_tpu_torch.train.losses import get_loss_fn
     from protnote_tpu_torch.train.optim import Optimizer

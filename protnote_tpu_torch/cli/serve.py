@@ -4,8 +4,8 @@
 
 Loads the label-embedding cache once, builds the port's ``ServingEngine``
 (label latents precomputed once), optionally warms every bucket up
-(--warmup), then serves through the JAX package's engine-agnostic stdlib
-front end:
+(--warmup), then serves through the stdlib front end of
+:mod:`protnote_tpu_torch.serving_http`:
 
     POST /v1/predict  {"sequences": ["MKVL..."], "top_k": 10}
     GET  /healthz
@@ -27,7 +27,7 @@ logger = logging.getLogger(__name__)
 
 def build_engine(args):
     """Config + label cache -> the port's ServingEngine."""
-    from protnote_tpu.core.config import (
+    from protnote_tpu_torch.core.config import (
         DEFAULT_CONFIG_PATH,
         generate_label_embedding_path,
         label_embedding_index_path,
@@ -35,7 +35,7 @@ def build_engine(args):
         override_config,
         resolve_paths,
     )
-    from protnote_tpu.data.label_cache import LabelEmbeddingCache, LabelEmbeddingView
+    from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache, LabelEmbeddingView
     from protnote_tpu_torch.cli._model_setup import build_models, load_model_file
     from protnote_tpu_torch.serving import ServingEngine
 
@@ -53,12 +53,22 @@ def build_engine(args):
     pi_cfg, pn_cfg, ts = build_models(config, cache.dim)
     if args.model_file:
         ts, _ = load_model_file(ts, args.model_file, pi_cfg, pn_cfg)
-    return ServingEngine(
+    engine = ServingEngine(
         ts, pi_cfg, pn_cfg, label_matrix, vocab,
         buckets=tuple(params.get("SEQUENCE_BUCKETS", (256, 512, 1024, 2048, 4096))),
         max_batch=args.max_batch or params.get("TEST_BATCH_SIZE", 32),
         device=args.device,
     )
+    if args.calibration_fasta:
+        # int8 scales from real sequences (warmup refuses to calibrate on
+        # its synthetic motif; see ServingEngine.calibrate_from)
+        from protnote_tpu_torch.data.fasta import read_fasta
+
+        seqs = [r[0] for r in read_fasta(args.calibration_fasta)]
+        if not seqs:
+            raise ValueError(f"{args.calibration_fasta}: no sequences")
+        engine.calibrate_from(seqs)
+    return engine
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -75,6 +85,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--device", default="cuda",
                     help="torch device of the engine (default: cuda)")
+    ap.add_argument("--calibration-fasta", default=None,
+                    help="real sequences for int8 activation-scale calibration at "
+                         "startup (required for --warmup with PAIR_BACKEND=tiled_int8 "
+                         "and no INT8_ACT_SCALES)")
     ap.add_argument("--warmup", action="store_true",
                     help="score every bucket shape once before accepting traffic")
     return ap

@@ -15,8 +15,10 @@ on the tensors' device.  Left out, each raising ``NotImplementedError``
 that names its ROADMAP item: the materialised dense scorer
 (``PAIR_BACKEND=dense``, ``OUTPUT_MLP_DROPOUT > 0`` in training, training
 without output-MLP BatchNorm or with ``concatenation_prod``), the streamed
-scorer (``TRAIN_STREAMING_LABEL_TILE > 0``), ``GRADIENT_CHECKPOINTING`` and
-the int8 scorer.
+scorer (``TRAIN_STREAMING_LABEL_TILE > 0``) and ``GRADIENT_CHECKPOINTING``.
+``PAIR_BACKEND=tiled_int8`` evaluates through the int8 scorer (K2) with the
+config's static activation scales (:func:`calibrate_int8`) or dynamic
+per-row ones, and trains through the decomposed scorer as ``auto`` does.
 """
 
 from __future__ import annotations
@@ -39,8 +41,11 @@ from protnote_tpu_torch.models.layers import (
 )
 from protnote_tpu_torch.ops.pair_scorer import (
     BN_EPS,
+    act_scale_maxes,
     fold_output_mlp,
     pair_logits_tiled,
+    pair_logits_tiled_int8,
+    quantize_folded,
     similarity_logits,
 )
 from protnote_tpu_torch.ops.streaming_train import (
@@ -56,7 +61,6 @@ DENSE_LATER = ("the materialised dense pair scorer (PAIR_BACKEND=dense or tiled 
 DROPOUT_LATER = ("OUTPUT_MLP_DROPOUT > 0 in training needs the materialised dense "
                  "scorer, which the training slice does not port (ROADMAP.md queue 1, "
                  "item 5f)")
-INT8_LATER = "PAIR_BACKEND=tiled_int8 is ported with the int8 scorer (K2, ROADMAP.md queue 1, item 1)"
 
 
 @dataclass(frozen=True)
@@ -76,8 +80,11 @@ class ProtNoteConfig:
     inference_descriptions_per_label: int = 1
     label_tile: int = 512
     compute_dtype: torch.dtype = torch.float32
-    # auto (eval: tiled, train: decomposed) | tiled; dense and tiled_int8
-    # raise until ported
+    # static activation scales of the int8 scorer, one per hidden layer
+    # (INT8_ACT_SCALES, calibrate_int8); None: dynamic per-row scales
+    int8_act_scales: Optional[Tuple[float, ...]] = None
+    # auto (eval: tiled, train: decomposed) | tiled | tiled_int8 (eval: K2,
+    # train: decomposed); dense raises until ported
     pair_backend: str = "auto"
     # training (the JAX fields of the same names)
     label_embedding_noising_alpha: float = 0.0
@@ -132,6 +139,10 @@ class ProtNoteConfig:
             label_embedding_dropout=params.get("LABEL_EMBEDDING_DROPOUT", 0.0),
             gradient_checkpointing=params.get("GRADIENT_CHECKPOINTING", False),
             train_label_tile=params.get("TRAIN_STREAMING_LABEL_TILE", 0) or 0,
+            int8_act_scales=(
+                tuple(float(s) for s in params["INT8_ACT_SCALES"])
+                if params.get("INT8_ACT_SCALES") else None
+            ),
         )
         kw.update(overrides)
         allowed = ("auto", "dense", "tiled", "tiled_int8")
@@ -291,6 +302,40 @@ def compute_label_latents(params: Params, state: Params,
                                  L_f.to(cfg.compute_dtype), cfg)[0]
 
 
+def calibrate_int8_maxes(params: Params, state: Params, sequence_embeddings: torch.Tensor,
+                         cfg: ProtNoteConfig, label_embeddings: Optional[torch.Tensor] = None,
+                         label_latents: Optional[torch.Tensor] = None,
+                         label_attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per hidden layer, the max |GEMM input| over one batch (the sequences
+    through W_p, the labels through W_l unless ``label_latents`` are
+    given): a (num_hidden,) float32 tensor on the device."""
+    P_e, _ = projection_head_apply(params["W_p"], state["W_p"],
+                                   sequence_embeddings.to(cfg.compute_dtype), cfg)
+    if label_latents is None:
+        if label_embeddings is None:
+            raise ValueError("need label_embeddings or label_latents")
+        label_latents = compute_label_latents(params, state, label_embeddings, cfg,
+                                              label_attention_mask)
+    folded = fold_output_mlp(params["output_mlp"], state.get("output_mlp"), cfg.feature_fusion,
+                             cfg.latent_dim, dtype=cfg.compute_dtype)
+    return act_scale_maxes(folded, P_e, label_latents.to(cfg.compute_dtype),
+                           label_tile=cfg.label_tile)
+
+
+def calibrate_int8(params: Params, state: Params, sequence_embeddings: torch.Tensor,
+                   cfg: ProtNoteConfig, label_embeddings: Optional[torch.Tensor] = None,
+                   label_latents: Optional[torch.Tensor] = None,
+                   label_attention_mask: Optional[torch.Tensor] = None,
+                   margin: float = 1.05) -> Tuple[float, ...]:
+    """Static activation scales for ``pair_backend='tiled_int8'`` from one
+    batch: ``max * margin / 127`` per hidden layer, for
+    ``ProtNoteConfig(int8_act_scales=...)`` (config key INT8_ACT_SCALES)."""
+    maxes = calibrate_int8_maxes(params, state, sequence_embeddings, cfg,
+                                 label_embeddings=label_embeddings, label_latents=label_latents,
+                                 label_attention_mask=label_attention_mask)
+    return tuple(float(m) * margin / 127.0 for m in maxes.cpu().tolist())
+
+
 def protnote_forward(
     params: Params,
     state: Params,
@@ -316,8 +361,6 @@ def protnote_forward(
     statistics in the returned state."""
     if cfg.pair_backend == "dense":
         raise NotImplementedError(DENSE_LATER)
-    if cfg.pair_backend == "tiled_int8" and not train:
-        raise NotImplementedError(INT8_LATER)
     new_state = dict(state)
     P_e, new_state["W_p"] = projection_head_apply(
         params["W_p"], state["W_p"], sequence_embeddings.to(cfg.compute_dtype), cfg, train,
@@ -359,8 +402,14 @@ def protnote_forward(
         else:
             folded = fold_output_mlp(params["output_mlp"], om_state, cfg.feature_fusion,
                                      cfg.latent_dim, dtype=cfg.compute_dtype)
-            logits = pair_logits_tiled(folded, P_e, L_e, label_tile=cfg.label_tile,
-                                       compute_dtype=cfg.compute_dtype)
+            if cfg.pair_backend == "tiled_int8":
+                # the weights are quantized on every call, as in JAX
+                logits = pair_logits_tiled_int8(
+                    quantize_folded(folded, act_scales=cfg.int8_act_scales), P_e, L_e,
+                    label_tile=cfg.label_tile, compute_dtype=cfg.compute_dtype)
+            else:
+                logits = pair_logits_tiled(folded, P_e, L_e, label_tile=cfg.label_tile,
+                                           compute_dtype=cfg.compute_dtype)
     else:
         raise ValueError(f"feature fusion {cfg.feature_fusion} not implemented")
 

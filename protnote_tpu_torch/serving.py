@@ -6,16 +6,24 @@ label tower never runs again), and scores ad-hoc sequence lists in
 length buckets at a fixed batch shape.  Logits are read back in float16 and
 the sigmoid runs on the host in float32, as in the JAX engine.
 
-The request-side pieces are engine-agnostic and imported from the JAX
-package's host-only module: ``ServingStats``, :func:`topk_from_probs` and
-:func:`make_http_server` (the stdlib HTTP front end with its cross-request
-``MicroBatcher``, which reads ``engine.pn_cfg.pair_backend`` and
-``engine.stats``).
-That module imports jax only inside the JAX engine's methods.
+Backends: the bf16 tiled scorer (K1) or, with ``PAIR_BACKEND=tiled_int8``,
+the int8 scorer (K2).  Without supplied ``INT8_ACT_SCALES`` the int8 engine
+calibrates static activation scales once, from the first batch it scores or
+from :meth:`ServingEngine.calibrate_from` (margin 1.05, the semantics of
+``Trainer.calibrate_int8``); :meth:`ServingEngine.warmup` refuses to set
+them from its synthetic sequence, and :meth:`ServingEngine.reload` drops
+auto-calibrated scales (they are a function of the weights) but keeps
+supplied ones.
+
+The request side (``ServingStats``, :func:`topk_from_probs`,
+``MicroBatcher``, :func:`make_http_server`) lives in
+:mod:`protnote_tpu_torch.serving_http`; ``make_http_server`` is
+re-exported here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -24,15 +32,16 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from protnote_tpu.data.dataset import make_residue_lut
-from protnote_tpu.data.vocab import COMMON_AMINOACIDS
-from protnote_tpu.serving import (  # noqa: F401  (make_http_server: re-exported)
+from protnote_tpu_torch.data.dataset import make_residue_lut
+from protnote_tpu_torch.data.vocab import COMMON_AMINOACIDS
+from protnote_tpu_torch.models.fusion import calibrate_int8_maxes, compute_label_latents
+from protnote_tpu_torch.models.layers import tree_to
+from protnote_tpu_torch.models.proteinfer import embed_from_ids
+from protnote_tpu_torch.serving_http import (  # noqa: F401  (make_http_server: re-exported)
     ServingStats,
     make_http_server,
     topk_from_probs,
 )
-from protnote_tpu_torch.models.fusion import compute_label_latents
-from protnote_tpu_torch.models.layers import tree_to
 from protnote_tpu_torch.train.step import make_eval_step
 
 logger = logging.getLogger(__name__)
@@ -65,10 +74,6 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError("label-sharded serving over several cards "
                                       "comes with the multi-GPU slice of the port")
-        if pn_cfg.pair_backend not in ("auto", "tiled"):
-            raise NotImplementedError(
-                f"PAIR_BACKEND={pn_cfg.pair_backend!r}: the port serves the "
-                "bf16 tiled scorer only (int8 comes with the int8 slice)")
         self.pi_cfg = pi_cfg
         self.pn_cfg = pn_cfg
         self.device = torch.device(device)
@@ -93,10 +98,17 @@ class ServingEngine:
         self.max_batch = int(max_batch)
         self._label_matrix = torch.as_tensor(np.asarray(label_matrix)).to(self.device)
         self.stats = ServingStats()
+        self._calib_lock = threading.Lock()
         self._model_lock = threading.Lock()  # atomic (ts, latents) hot swap
+        self._int8_scales_supplied = pn_cfg.int8_act_scales is not None
         self._score_step = make_eval_step(pi_cfg, pn_cfg)
         self.ts = self._to_device(ts)
         self.latents = self._compute_latents(self.ts)
+        self._needs_calibration = (pn_cfg.pair_backend == "tiled_int8"
+                                   and pn_cfg.int8_act_scales is None)
+        if self._needs_calibration:
+            logger.info("int8 backend without scales: will calibrate on the "
+                        "first scored batch")
 
     # ---------------- model plumbing ----------------
 
@@ -111,6 +123,23 @@ class ServingEngine:
         return compute_label_latents(ts["trainable"]["protnote"],
                                      ts["model_state"], self._label_matrix,
                                      self.pn_cfg)
+
+    @torch.inference_mode()
+    def _calibrate_int8(self, aa: np.ndarray, lengths: np.ndarray) -> None:
+        """Static activation scales from one batch (max |GEMM input| of each
+        hidden layer x 1.05 / 127), then the score step rebuilt with them."""
+        ts = self.ts
+        enc_params = ts["trainable"].get("encoder", ts["enc_params"])
+        P_f = embed_from_ids(enc_params, ts["enc_state"],
+                             torch.from_numpy(aa).to(self.device),
+                             torch.from_numpy(lengths).to(self.device), self.pi_cfg)
+        maxes = calibrate_int8_maxes(ts["trainable"]["protnote"], ts["model_state"], P_f,
+                                     self.pn_cfg, label_latents=self.latents)
+        scales = tuple(float(m) * 1.05 / 127.0 for m in maxes.cpu().tolist())
+        self.pn_cfg = dataclasses.replace(self.pn_cfg, int8_act_scales=scales)
+        self._score_step = make_eval_step(self.pi_cfg, self.pn_cfg)
+        self._needs_calibration = False
+        logger.info("serving int8 scales calibrated: %s", [round(s, 6) for s in scales])
 
     # ---------------- encoding ----------------
 
@@ -161,10 +190,14 @@ class ServingEngine:
     def _score_bucket(self, encoded: List[np.ndarray], bucket: int) -> np.ndarray:
         n = len(encoded)
         aa, lengths = self._assemble(encoded, bucket)
+        if self._needs_calibration:
+            with self._calib_lock:
+                if self._needs_calibration:  # checked again under the lock
+                    self._calibrate_int8(aa, lengths)
         with self._model_lock:  # (ts, latents) must be from ONE model
-            ts, latents = self.ts, self.latents
+            ts, latents, step = self.ts, self.latents, self._score_step
         t0 = time.perf_counter()
-        logits = self._score_step(ts, {
+        logits = step(ts, {
             "aa_ids": torch.from_numpy(aa).to(self.device),
             "lengths": torch.from_numpy(lengths).to(self.device),
             "label_latents": latents,
@@ -189,17 +222,42 @@ class ServingEngine:
     def reload(self, ts: Dict[str, Any]) -> None:
         """Hot-swap the model weights: latents for the new weights are
         computed first, then ``(ts, latents)`` swap atomically, so in-flight
-        requests finish on the old model."""
+        requests finish on the old model.  Auto-calibrated int8 scales are
+        dropped (the next scored batch recalibrates); supplied
+        ``INT8_ACT_SCALES`` survive."""
         ts = self._to_device(ts)
         latents = self._compute_latents(ts)
-        with self._model_lock:
+        with self._calib_lock, self._model_lock:
+            if (self.pn_cfg.pair_backend == "tiled_int8" and not self._int8_scales_supplied
+                    and self.pn_cfg.int8_act_scales is not None):
+                self.pn_cfg = dataclasses.replace(self.pn_cfg, int8_act_scales=None)
+                self._score_step = make_eval_step(self.pi_cfg, self.pn_cfg)
+                self._needs_calibration = True
             self.ts, self.latents = ts, latents
         logger.info("model hot-reloaded")
+
+    def calibrate_from(self, sequences: Sequence[str]) -> None:
+        """Calibrate static int8 activation scales from real sequences (the
+        first ``max_batch``).  Call before :meth:`warmup` when serving int8
+        without supplied scales (``cli.serve --calibration-fasta``)."""
+        encoded = self._encode(sequences[: self.max_batch])
+        bucket = self._bucket_of(max(len(e) for e in encoded))
+        aa, lengths = self._assemble(encoded, bucket)
+        with self._calib_lock:
+            if self._needs_calibration:
+                self._calibrate_int8(aa, lengths)
 
     def warmup(self) -> None:
         """Score one synthetic sequence per bucket, so the first real request
         does not pay the first-call costs (the kernel build, allocator
-        growth)."""
+        growth).  An int8 engine without scales skips it: the synthetic
+        repeated motif must not set the activation scales (call
+        :meth:`calibrate_from` with real sequences first)."""
+        if self._needs_calibration:
+            logger.warning("int8 scales not calibrated: skipping warmup (the synthetic "
+                           "warmup batch must not set them); pass real sequences via "
+                           "calibrate_from / --calibration-fasta to warm up int8")
+            return
         aas = "ACDEFGHIKLMNPQRSTVWY"
         for bucket in self.buckets:
             self._score_bucket(self._encode([aas * (bucket // len(aas) + 1)]), bucket)

@@ -12,10 +12,16 @@ Port of ``protnote_tpu/train/trainer.py`` for one device:
 * ``evaluate``: the ``ESTIMATE_MAP`` device-accumulator branch.  Per
   evaluation the label-embedding view matrix is uploaded once and projected
   through W_l once (the label latents); per batch the eval step (ProteInfer,
-  heads, the pair scorer K1, the ensemble, the masked loss) is followed by a
-  K3 update on the same device.  ``finalize_into`` then computes AP on the
-  device and reads back only per-label results and counters; ``loss`` is
-  the mean of the per-batch losses.
+  heads, the pair scorer K1 or, with ``PAIR_BACKEND=tiled_int8``, K2, the
+  ensemble, the masked loss) is followed by a K3 update on the same device.
+  ``finalize_into`` then computes AP on the device and reads back only
+  per-label results and counters; ``loss`` is the mean of the per-batch
+  losses.
+* int8: without supplied ``INT8_ACT_SCALES``, ``evaluate`` first calibrates
+  static activation scales on the batcher's first batch
+  (``ensure_int8_calibrated``; ``INT8_CALIBRATE False`` keeps the dynamic
+  per-row scales).  Auto scales are a function of the weights, so a
+  training epoch and ``load`` drop them; supplied ones are kept.
 
 Checkpoints are ``PNTPU1`` files that the JAX ``restore_checkpoint`` reads,
 written synchronously.  Branches of the JAX trainer that need host logits
@@ -27,6 +33,7 @@ profiler traces, wandb, the text tower and meshes raise
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -42,8 +49,9 @@ from protnote_tpu_torch.evaln.metrics import (
     EvalMetrics,
     confusion_metrics,
 )
-from protnote_tpu_torch.models.fusion import compute_label_latents
+from protnote_tpu_torch.models.fusion import calibrate_int8_maxes, compute_label_latents
 from protnote_tpu_torch.models.layers import tree_to
+from protnote_tpu_torch.models.proteinfer import embed_from_ids
 from protnote_tpu_torch.train.step import (
     batch_to_device_dict,
     make_eval_step,
@@ -86,6 +94,10 @@ class TrainerConfig:
     log_every_fraction: float = 0.1
     # per-step non-finite loss/grad check (a host sync every step)
     debug_nan: bool = False
+    # auto-calibrate static int8 activation scales on the first batch of an
+    # evaluation when PAIR_BACKEND=tiled_int8 and no INT8_ACT_SCALES are set
+    # (False keeps the dynamic per-row scales)
+    int8_calibrate: bool = True
 
     @classmethod
     def from_params(cls, params: Dict, **overrides) -> "TrainerConfig":
@@ -97,6 +109,7 @@ class TrainerConfig:
             estimate_map=params.get("ESTIMATE_MAP", False),
             seed=params.get("SEED", 42),
             debug_nan=params.get("DEBUG_NAN", False),
+            int8_calibrate=params.get("INT8_CALIBRATE", True),
         )
         kw.update(overrides)
         return cls(**kw)
@@ -177,6 +190,7 @@ class Trainer:
         self.epoch = 0
         self.best_val_metric = -float("inf")
         self.best_val_loss = float("inf")
+        self._int8_scales_auto = False
 
     # ---------------- device-resident label matrix ----------------
 
@@ -208,6 +222,55 @@ class Trainer:
                                  "no resident label matrix was provided")
             arrays["label_matrix"] = label_matrix
         return arrays
+
+    # ---------------- int8 activation scales ----------------
+
+    def ensure_int8_calibrated(self, batcher) -> None:
+        """Calibrate static int8 activation scales once (first batch) when
+        the int8 backend is active, no scales were supplied and
+        ``int8_calibrate`` is set; no-op otherwise."""
+        if (self.cfg.int8_calibrate and self.pn_cfg.pair_backend == "tiled_int8"
+                and self.pn_cfg.int8_act_scales is None):
+            self.calibrate_int8(batcher)
+
+    @torch.inference_mode()
+    def calibrate_int8(self, batcher, margin: float = 1.05) -> tuple:
+        """Static int8 activation scales from the batcher's first batch (max
+        |GEMM input| of each hidden layer x ``margin`` / 127): recorded in
+        ``self.pn_cfg.int8_act_scales``, the eval step rebuilt with them,
+        and returned."""
+        if self.pn_cfg.pair_backend != "tiled_int8":
+            raise ValueError("calibrate_int8 requires PAIR_BACKEND=tiled_int8")
+        label_matrix = (self._label_matrix_for(batcher.ds)
+                        if getattr(batcher, "device_label_gather", False) else None)
+        batch = next(iter(batcher))
+        arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix)
+        ts = self.ts
+        P_f = embed_from_ids(ts["trainable"].get("encoder", ts["enc_params"]), ts["enc_state"],
+                             arrays["aa_ids"], arrays["lengths"], self.pi_cfg)
+        pn = ts["trainable"]["protnote"]
+        if "label_rows" in arrays:
+            maxes = calibrate_int8_maxes(pn, ts["model_state"], P_f, self.pn_cfg,
+                                         label_latents=self._label_latents(arrays))
+        else:
+            maxes = calibrate_int8_maxes(pn, ts["model_state"], P_f, self.pn_cfg,
+                                         label_embeddings=arrays["label_embeddings"])
+        scales = tuple(float(m) * margin / 127.0 for m in maxes.cpu().tolist())
+        self.pn_cfg = dataclasses.replace(self.pn_cfg, int8_act_scales=scales)
+        self._eval_step = make_eval_step(self.pi_cfg, self.pn_cfg, self.loss_fn)
+        self._int8_scales_auto = True
+        logger.info("int8 static activation scales: %s", [round(s, 6) for s in scales])
+        return scales
+
+    def _invalidate_auto_int8(self) -> None:
+        """Drop auto-calibrated int8 scales (they are a function of the
+        weights) and rebuild the eval step without them; the next
+        ``evaluate`` recalibrates.  Supplied scales are never touched."""
+        if not (self._int8_scales_auto and self.pn_cfg.int8_act_scales is not None):
+            return
+        self.pn_cfg = dataclasses.replace(self.pn_cfg, int8_act_scales=None)
+        self._eval_step = make_eval_step(self.pi_cfg, self.pn_cfg, self.loss_fn)
+        self._int8_scales_auto = False
 
     # ---------------- eval label-latent precompute ----------------
 
@@ -280,6 +343,8 @@ class Trainer:
 
         ts, meta = load_model_file(self.ts, path, self.pi_cfg, self.pn_cfg, self.optimizer)
         self.ts = tree_to(ts, self.device)
+        # restored weights differ from the ones auto scales were calibrated on
+        self._invalidate_auto_int8()
         if from_checkpoint:
             self.starting_epoch = self.epoch = int(meta.get("epoch") or 0) + 1
             if meta.get("best_val_metric") is not None:
@@ -296,6 +361,7 @@ class Trainer:
     def train_one_epoch(self, batcher, generator: torch.Generator) -> Dict[str, float]:
         if self._train_step is None:
             raise ValueError("training needs a loss_fn and an optimizer")
+        self._invalidate_auto_int8()  # training changes the weights the scales came from
         num_batches = max(len(batcher), 1)
         log_every = max(int(num_batches * self.cfg.log_every_fraction), 1)
         losses: List[torch.Tensor] = []
@@ -423,6 +489,7 @@ class Trainer:
                 "(DEVICE_RESIDENT_LABEL_EMBEDDINGS False) are not ported (ROADMAP.md "
                 "queue 1, item 3); the port gathers from the resident label matrix")
 
+        self.ensure_int8_calibrated(batcher)
         metrics = EvalMetrics(num_labels, threshold=self.cfg.decision_threshold,
                               map_estimate=True)
         device_acc = DeviceEvalAccumulator(num_labels, self.cfg.decision_threshold,

@@ -70,23 +70,28 @@ def toy(tmp_path_factory):
 
 @pytest.fixture()
 def env(toy, monkeypatch):
-    """Data/output roots and the small encoder (a patched ``load_config``,
-    which both CLIs read through ``protnote_tpu.core.config``)."""
+    """Data/output roots and the small encoder: a patched ``load_config``
+    in the JAX package's config module and in the port's copy, which the
+    two CLIs read."""
     from protnote_tpu.core import config as cfgmod
+    from protnote_tpu_torch.core import config as tcfgmod
 
     monkeypatch.setenv("PROTNOTE_DATA_DIR", str(toy / "data"))
     monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(toy / "outputs"))
-    orig_load = cfgmod.load_config
+    for mod in (cfgmod, tcfgmod):
+        monkeypatch.setattr(mod, "load_config", _small_loader(mod.load_config))
+    return toy
 
-    def load_small(path=cfgmod.DEFAULT_CONFIG_PATH):
+
+def _small_loader(orig_load):
+    def load_small(path):
         cfg = orig_load(path)
         cfg["embed_sequences_params"].update(
             OUTPUT_CHANNELS=48, KERNEL_SIZE=5, NUM_RESNET_BLOCKS=1,
             PROTEINFER_NUM_GO_LABELS=NUM_LABELS)
         return cfg
 
-    monkeypatch.setattr(cfgmod, "load_config", load_small)
-    return toy
+    return load_small
 
 
 @pytest.fixture()
@@ -151,6 +156,30 @@ def test_port_cli_matches_jax_cli(checkpoint, env, tmp_path, decision_th):
         assert 0 < port_metrics["f1_micro"] < 1
     saved = json.loads(out.read_text())
     assert saved[-1]["metrics"]["test"]["map_micro"] == port_metrics["map_micro"]
+
+
+@pytest.mark.parametrize("calibrate", ["True", "False"])
+def test_port_cli_int8_matches_jax_cli(checkpoint, env, calibrate):
+    """``PAIR_BACKEND tiled_int8`` on the test set: static scales
+    calibrated on the first batch (``INT8_CALIBRATE True``, the default) or
+    dynamic per-row scales.  Metrics to 1e-6, as the bf16 comparison above:
+    the int8 codes on both sides come from the same float32 towers, and the
+    toy logits stay off the bin edges (checked below for the bf16 path)."""
+    import protnote_tpu.cli.main as jmain
+    import protnote_tpu_torch.cli.main as tmain
+
+    int8 = ["PAIR_BACKEND", "tiled_int8", "INT8_CALIBRATE", calibrate]
+    jax_metrics = jmain.run(_args(jmain, _cli_args(checkpoint, overrides=int8)))["test"]
+    port_metrics = tmain.run(_args(tmain, _cli_args(checkpoint, overrides=int8,
+                                                    extra=["--device", "cpu"])))["test"]
+    bf16_metrics = tmain.run(_args(tmain, _cli_args(checkpoint, extra=["--device", "cpu"])))["test"]
+    assert set(port_metrics) == set(jax_metrics)
+    for k in set(port_metrics) - set(RATES):
+        assert np.isfinite(port_metrics[k]), k
+        assert port_metrics[k] == pytest.approx(jax_metrics[k], abs=1e-6, rel=0), k
+    # int8 is close to, but not the same as, the float32 scorer
+    assert port_metrics["loss"] != bf16_metrics["loss"]
+    assert port_metrics["loss"] == pytest.approx(bf16_metrics["loss"], abs=1e-2)
 
 
 def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
@@ -230,7 +259,7 @@ def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
     ([], ["NORMALIZE_PROBABILITIES", "True"], "ROADMAP"),
     ([], ["ESTIMATE_MAP", "False"], "ExactAUPRC"),
     ([], ["LABEL_ENCODER_NUM_TRAINABLE_LAYERS", "1"], "text tower"),
-    ([], ["PAIR_BACKEND", "tiled_int8"], "int8"),
+    ([], ["PAIR_BACKEND", "dense"], "dense"),
     (["--mesh-label", "2"], [], "multi-GPU"),
     ([], ["DEVICE_RESIDENT_LABEL_EMBEDDINGS", "False"], "resident"),
 ])

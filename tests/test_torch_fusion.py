@@ -132,11 +132,11 @@ def test_protnote_forward_eval_matches_jax(fusion, k, dtype):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("train", "training slice"), ("dense", "training slice"), ("tiled_int8", "int8"),
+    ("train", "training slice"), ("dense", "training slice"),
 ])
 def test_later_slices_raise(what, match):
     """What the port leaves out: output-MLP dropout in training (it needs
-    the materialised dense scorer), PAIR_BACKEND=dense, the int8 scorer."""
+    the materialised dense scorer), PAIR_BACKEND=dense."""
     jcfg, tcfg, params, state = _model()
     seqs, labels = _inputs()
     t = from_jax_tree({"p": params, "s": state})
@@ -149,6 +149,42 @@ def test_later_slices_raise(what, match):
     with pytest.raises(NotImplementedError, match=match):
         tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
                              torch.from_numpy(labels), tcfg, **kw)
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_int8_forward_matches_jax(static):
+    """PAIR_BACKEND=tiled_int8 in evaluation: static scales from
+    ``calibrate_int8`` on the same batch (1e-5 relative), then the logits
+    of the whole forward (heads, quantize_folded on every call, the int8
+    scorer with a ragged last tile, the K=2 ensemble) within 1e-4: float32
+    towers that sum in other orders feed the scorer, so a code on a
+    rounding edge may move (none does here)."""
+    jcfg, tcfg, params, state = _model()
+    seqs, labels = _inputs()
+    t = from_jax_tree({"p": params, "s": state})
+    jp, js = _jax(params), _jax(state)
+    jscales = tscales = None
+    if static:
+        jscales = jfu.calibrate_int8(jp, js, jnp.asarray(seqs), jcfg,
+                                     label_embeddings=jnp.asarray(labels))
+        tscales = tfu.calibrate_int8(t["p"], t["s"], torch.from_numpy(seqs), tcfg,
+                                     label_embeddings=torch.from_numpy(labels))
+        np.testing.assert_allclose(tscales, jscales, rtol=1e-5, atol=0)
+    jcfg8 = jfu.ProtNoteConfig(**{**jcfg.__dict__, "pair_backend": "tiled_int8",
+                                  "int8_act_scales": jscales})
+    tcfg8 = tfu.ProtNoteConfig(**{**tcfg.__dict__, "pair_backend": "tiled_int8",
+                                  "int8_act_scales": jscales})
+    want, _ = jfu.protnote_forward(jp, js, jnp.asarray(seqs), jnp.asarray(labels), jcfg8)
+    got, _ = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
+                                  torch.from_numpy(labels), tcfg8)
+    assert got.shape == (B, L)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    bf16, _ = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
+                                   torch.from_numpy(labels), tcfg)
+    assert np.abs(got.numpy() - bf16.numpy()).max() > 0  # the int8 path ran
+    cfg_p = tfu.ProtNoteConfig.from_params({"PAIR_BACKEND": "tiled_int8",
+                                            "INT8_ACT_SCALES": [0.5, 0.25]})
+    assert cfg_p.int8_act_scales == (0.5, 0.25) and cfg_p.pair_backend == "tiled_int8"
 
 
 def test_from_params_matches_jax():

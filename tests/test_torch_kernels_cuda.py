@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: the pair scorer (K1), the eval
-accumulator (K3), the training pair GEMM (K4) and BN+ReLU (K5) against their
-plain PyTorch versions, and the serving engine on CUDA against the same
-engine on the CPU.  These need an NVIDIA
+"""The port's CUDA kernels on the card: the pair scorer (K1), its int8 form
+(K2), the eval accumulator (K3), the training pair GEMM (K4) and BN+ReLU (K5)
+against their plain PyTorch versions, and the serving engine on CUDA against
+the same engine on the CPU.  These need an NVIDIA
 card (the kernels have no CPU mode) and skip without one.  The file imports neither jax nor the repo's conftest fixtures,
 so on the card's machine it runs as
 
@@ -14,6 +14,8 @@ K3 on the same logits on both sides: integer state exactly equal (inputs are
 drawn at least 2e-6 from every bin edge and from the threshold, far beyond
 the ulp by which two exponentials can differ), float32 sums to 1e-6
 relative, AP to 1e-6 absolute.
+K2: the carried layer-1 rows (int8 codes or bf16) exactly equal, the logits
+to 2e-2 (only the w_out dot sums in another order).
 K4 and K5 on the same bf16 inputs on both sides: bf16 outputs to two bf16
 steps (rtol 2^-6, atol 1e-2: the GEMM sums in another order, and the BN
 affine's float32 inverse square root may differ by an ulp), float32 moments
@@ -274,3 +276,58 @@ def test_decomposed_scorer_kernels_match_plain_on_card():
     for a, b in zip(grads, grads0):
         scale_ = float(b.float().abs().max())
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=5e-2 * scale_)
+
+
+def _int8(folded, P_e, L_e, static, label_tile):
+    """The folded MLP quantized for K2, static scales calibrated on the
+    inputs or dynamic."""
+    scales = ps.calibrate_act_scales(folded, P_e, L_e, label_tile) if static else None
+    return ps.quantize_folded(folded, act_scales=scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [256, 1024])
+@pytest.mark.parametrize("n_hidden", [1, 2, 3])
+@pytest.mark.parametrize("static", [True, False])
+def test_int8_kernel_matches_plain_on_card(static, n_hidden, width):
+    """K2, static and dynamic scales, 1-3 hidden layers (every launch mode),
+    width 256 (every column in the row scales) and 1024 (the 1/8 subsample),
+    a ragged last label chunk and a partial last row block: the carried
+    layer-1 rows equal the plain version's bit for bit, the logits within
+    2e-2 (the w_out dot sums in another order, with atomics)."""
+    dev = _card()
+    rng = np.random.default_rng(10 * n_hidden + int(static))
+    folded = _folded(rng, 16, width, n_hidden, dev)
+    P_e = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    L_e = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    q = _int8(folded, P_e, L_e, static, 128)
+    before = dict(ps.INT8_LAUNCHES)
+    got = ps.pair_logits_tiled_int8(q, P_e, L_e, label_tile=128)
+    want = ps.pair_logits_tiled_int8_reference(q, P_e, L_e, label_tile=128)
+    torch.cuda.synchronize()
+    assert ps.INT8_LAUNCHES["pair_int8_layer"] - before["pair_int8_layer"] == 3 * n_hidden
+    scale_launches = ps.INT8_LAUNCHES["pair_int8_row_scale"] - before["pair_int8_row_scale"]
+    assert scale_launches == (0 if static else 3 * n_hidden)
+    assert float(want.std()) > 0.3
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2, rtol=0)
+    if n_hidden >= 2:
+        for l0, nl in ((0, 128), (256, 44)):
+            mine = ps.int8_carry_cuda(q, P_e, L_e, l0, nl)
+            theirs = ps.int8_carry_reference(q, P_e, L_e, l0, nl)
+            torch.cuda.synchronize()
+            assert mine.dtype == theirs.dtype and mine.shape == theirs.shape
+            assert torch.equal(mine, theirs)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_raises_on_what_it_does_not_take():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    folded = _folded(rng, 16, 256, 2, dev)
+    P_e = torch.randn(3, 16, device=dev).to(torch.bfloat16)
+    L_e = torch.randn(40, 16, device=dev).to(torch.bfloat16)
+    q = ps.quantize_folded(folded)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ps.pair_logits_tiled_int8(q, P_e, L_e, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ps.pair_logits_tiled_int8_cuda(q, P_e.cpu(), L_e)

@@ -1,7 +1,8 @@
-"""The port stands without jax: importing it (its serving engine and CLI
-included) leaves jax out of ``sys.modules``, no source of the port or of
-chip_smoke.py imports jax, and chip_smoke.py refuses to run without a CUDA
-card instead of falling back to the CPU."""
+"""The port stands without jax and without the JAX package: importing it (its
+serving engine and CLIs included) leaves jax and every ``protnote_tpu``
+module out of ``sys.modules``, no source of the port or of chip_smoke.py
+imports either, and chip_smoke.py refuses to run without a CUDA card instead
+of falling back to the CPU."""
 
 import os
 import pathlib
@@ -26,8 +27,17 @@ MODULES = [
     "protnote_tpu_torch.cli.main", "protnote_tpu_torch.evaln.metrics",
     "protnote_tpu_torch.ops.eval_accumulator", "protnote_tpu_torch.train.trainer",
     "protnote_tpu_torch.ops.streaming_train", "protnote_tpu_torch.train.losses",
-    "protnote_tpu_torch.train.optim",
+    "protnote_tpu_torch.train.optim", "protnote_tpu_torch.serving_http",
+    "protnote_tpu_torch.core.config", "protnote_tpu_torch.data.batching",
+    "protnote_tpu_torch.data.dataset", "protnote_tpu_torch.data.fasta",
+    "protnote_tpu_torch.data.label_cache", "protnote_tpu_torch.data.vocab",
+    "protnote_tpu_torch.data.blosum",
 ]
+JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import) protnote_tpu(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    return sorted((ROOT / "protnote_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _env():
@@ -49,8 +59,39 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_importing_the_port_loads_nothing_of_the_jax_package():
+    """Every module of the port (found by walking the package, so a new one
+    is covered), the CLIs' argument parsers run, and chip_smoke.py imported:
+    no ``protnote_tpu`` or ``protnote_tpu.*`` entry in ``sys.modules``."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import protnote_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(protnote_tpu_torch.__path__,"
+            " 'protnote_tpu_torch.')]\n"
+            "for n in names: importlib.import_module(n)\n"
+            "from protnote_tpu_torch.cli import main, serve\n"
+            "main.build_argparser().parse_args(['--test-paths-names', 'X'])\n"
+            "serve.build_argparser().parse_args(['--calibration-fasta', 'x.fa'])\n"
+            "import chip_smoke\n"
+            "print(len(names))\n"
+            "print(sorted(m for m in sys.modules if m == 'protnote_tpu'"
+            " or m.startswith('protnote_tpu.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, loaded = out.stdout.strip().splitlines()
+    assert int(count) >= len(MODULES) and loaded == "[]"
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    offenders = [str(p) for p in _port_sources() if JAX_PACKAGE_IMPORT.search(p.read_text())]
+    assert offenders == []
+    assert JAX_PACKAGE_IMPORT.search("    from protnote_tpu.data import fasta")
+    assert JAX_PACKAGE_IMPORT.search("import protnote_tpu")
+    assert not JAX_PACKAGE_IMPORT.search("from protnote_tpu_torch.data import fasta")
+
+
 def test_no_source_of_the_port_imports_jax():
-    sources = list((ROOT / "protnote_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources = _port_sources()
     assert len(sources) >= 10
     pattern = re.compile(r"^\s*(import jax\b|from jax\b|import flax|from flax)", re.M)
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]

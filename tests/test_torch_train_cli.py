@@ -78,21 +78,28 @@ def toy(tmp_path_factory):
 
 @pytest.fixture()
 def env(toy, monkeypatch):
+    """Data/output roots and the small encoder: a patched ``load_config``
+    in the JAX package's config module and in the port's copy, which the
+    two CLIs read."""
     from protnote_tpu.core import config as cfgmod
+    from protnote_tpu_torch.core import config as tcfgmod
 
     monkeypatch.setenv("PROTNOTE_DATA_DIR", str(toy / "data"))
     monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(toy / "outputs"))
-    orig_load = cfgmod.load_config
+    for mod in (cfgmod, tcfgmod):
+        monkeypatch.setattr(mod, "load_config", _small_loader(mod.load_config))
+    return toy
 
-    def load_small(path=cfgmod.DEFAULT_CONFIG_PATH):
+
+def _small_loader(orig_load):
+    def load_small(path):
         cfg = orig_load(path)
         cfg["embed_sequences_params"].update(
             OUTPUT_CHANNELS=48, KERNEL_SIZE=5, NUM_RESNET_BLOCKS=1,
             PROTEINFER_NUM_GO_LABELS=NUM_LABELS)
         return cfg
 
-    monkeypatch.setattr(cfgmod, "load_config", load_small)
-    return toy
+    return load_small
 
 
 def _jax_template(params):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, evaluation and training paths on
-one CUDA card (H100).
+"""Smoke run of the PyTorch port's serving, evaluation, training, int8 and
+label-text-tower paths on one CUDA card (H100).
 
     python3 chip_smoke.py
 
@@ -14,7 +14,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    with both times from CUDA events;
 4. serving: a full-width ``ServingEngine`` (ProteInfer 1100 channels x 5
    blocks, 32,102 labels x 2 descriptions) behind the stdlib HTTP server,
-   answering /v1/predict and /healthz requests;
+   answering /v1/predict and /healthz requests; the ProteInfer encoder
+   alone (cuDNN conv1d and the plain epilogues, K7's chain) at buckets 512
+   and 1024 from CUDA events, with its passes on the serving path;
 5. serving parity: ``engine.score`` against a forward through the plain
    pair scorer on the same device tensors;
 6. the eval-accumulator kernels (K3) against their plain version at full
@@ -57,12 +59,34 @@ Phases, each printing one line (any failure raises and exits non-zero):
 12. int8 evaluation: ``Trainer.evaluate`` on the phase-7 FASTA with
     ``tiled_int8``, auto-calibrated (static, K2's layer kernel), then with
     ``INT8_CALIBRATE`` off (dynamic: the row-scale kernel too): seqs/s, the
-    scales and mAP beside the bf16 pass (random weights: printed only).
+    scales and mAP beside the bf16 pass (random weights: printed only);
+13. the text tower's kernels alone, masked attention (K8a) and residual
+    LayerNorm (K8b), at E5-large width (16 heads of 64, H 1024) against their
+    plain versions on the same device tensors at three shapes: (a) B 128 x
+    T 128, lengths 40-128 (GO descriptions with the E5 instruction), (b)
+    B 32 x T 512, lengths up to 510 (the longest bucket), (c) the BioGPT
+    causal form at B 128 x T 128; each with one all-masked filler row; times
+    from CUDA events beside the bound, the plain version's and the library
+    call's (SDPA with the same additive mask, ``F.layer_norm`` after the bf16
+    add), which the port never calls;
+14. the text tower: E5-large (24 layers, vocab 250,002, bf16, random weights
+    from a seeded CUDA generator) and BioGPT against the plain tower (the
+    plain K8a and K8b) on one chunk of (a) and (c): pooled (mean) embeddings;
+    then 64 chunks of (a), 8,192 rows with one filler row, through
+    ``NativeLabelEncoder.embed_ids`` on pre-tokenized ids: descriptions/s, ms a
+    chunk, peak memory and each kernel's launches; a ``torch.profiler`` pass
+    over 4 chunks for the device idle share and the top kernels;
+15. zero-shot scoring: those 8,192 rows as 4,096 new labels x 2 descriptions
+    behind a full-width ``ServingEngine`` (the earlier phases' random
+    ProtNote weights, label embedding width 1024 = the tower's H), one full
+    batch of 32 sequences through K1: batch ms, K1's launches, and the
+    probabilities against the same chain through the plain tower and the
+    plain pair scorer.
 
 Then one JSON line with every kernel: its launches on its path (K1 and K3
 in the training run, whose validation evaluates; K4 and K5 in training; K2
-in the int8 serving and evaluation runs; each count set to 0 just before the
-path and read just after), its error against the plain version, its time,
+in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
+run; each count set to 0 just before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
 over the dense peak of their type) and, where one PyTorch call computes the
@@ -98,7 +122,8 @@ LABEL_TILE = 512
 PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
 
-KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu", "pair_scorer_int8")
+KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu", "pair_scorer_int8",
+                  "text_attention", "layer_norm")
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -150,6 +175,21 @@ GRAD_REL_TOL = 5e-2
 # a restored checkpoint scores the same logits; K1 adds its row sums with
 # atomics in no fixed order, so two scorings of one weight set agree to ~1e-6
 ROUNDTRIP_ATOL = 1e-4
+
+# the label text tower (E5-large, bf16): the shapes of K8a/K8b alone, (name,
+# batch, tokens, shortest and longest real length, causal)
+K8_SHAPES = (("a", 128, 128, 40, 128, False), ("b", 32, 512, 200, 510, False),
+             ("c", 128, 128, 40, 128, True))
+TOWER_CHUNKS = 64  # 8,192 descriptions = 4,096 new labels x 2
+ZERO_SHOT_LABELS = 4096
+# K8a and K8b against their plain versions on the same bf16 inputs: the sums
+# run in other orders, so a probability or an output can round to the
+# neighbouring bf16 value; within 1e-2 of the plain output's largest |value|
+K8_REL_TOL = 1e-2
+# the whole tower against the plain tower: such one-step differences pass
+# through 24 layers; the pooled (mean) embeddings within 5e-2 of their
+# largest |value|
+TOWER_REL_TOL = 5e-2
 
 
 def bound(nbytes: float = 0.0, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
@@ -369,7 +409,9 @@ def post(url, payload):
 
 
 def phase_serving(engine, rng, card: str):
-    """Drive the engine through the HTTP front end; count K1's launches."""
+    """Drive the engine through the HTTP front end; count K1's launches and
+    the batches (one encoder pass each); then time full batches and the
+    encoder alone."""
     import threading
     import urllib.request
 
@@ -438,13 +480,45 @@ def phase_serving(engine, rng, card: str):
     log("serving_full_batch", batch=B, bucket=512, batch_ms=sec * 1e3,
         seqs_per_s=B / sec, pair_scores_per_s=B * NUM_LABELS * K_DESCRIPTIONS / sec,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, card=card)
+    phase_encoder(engine, full, batches, card)
     return launches
 
 
-def plain_probs(engine, seqs):
+def phase_encoder(engine, seqs, passes: int, card: str):
+    """K7's chain as the port runs it (cuDNN conv1d, bias, mask, eval BN,
+    ReLU, residual, masked mean pool) for one 32-sequence batch at buckets
+    512 and 1024, from CUDA events, beside the bound of the same work: the
+    conv FLOPs over the bf16 peak, or the bytes of the ids, the float32
+    weights read once and the embeddings written, over the memory rate."""
+    import torch
+
+    from protnote_tpu_torch.models.proteinfer import embed_from_ids
+
+    cfg = engine.pi_cfg
+    ts = engine.ts
+    C, Cb, k = cfg.output_channels, cfg.bottleneck_channels, cfg.kernel_size
+    conv = {k: v for k, v in ts["enc_params"].items() if k != "output"}  # not in the embedding
+    weights = sum(t.numel() for t in tensors_of(conv) + tensors_of(ts["enc_state"]))
+    out = {}
+    with torch.inference_mode():
+        for bucket in (512, 1024):
+            aa, lengths = engine._assemble(engine._encode(seqs), bucket)
+            aa, lengths = torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda()
+            ms = cuda_time_ms(lambda: embed_from_ids(ts["enc_params"], ts["enc_state"], aa,
+                                                     lengths, cfg), 10)
+            flop = 2.0 * B * bucket * (cfg.input_channels * C * k
+                                       + cfg.num_resnet_blocks * (C * Cb * k + Cb * C))
+            nbytes = 1.0 * B * bucket + 4.0 * weights + 4.0 * B * C
+            out[bucket] = {"ms": ms, "tflops": flop / ms / 1e9,
+                           **bound(nbytes=nbytes, ops=flop)}
+    log("encoder", batch=B, passes_on_serving_path=passes, buckets=out, card=card)
+    return out
+
+
+def plain_probs(engine, seqs, latents=None):
     """(n, labels) probabilities of ``seqs`` through a forward with the plain
     pair scorer (bf16 or int8, as the engine's backend) on the engine's
-    device tensors."""
+    device tensors (or on ``latents`` in place of the engine's)."""
     import torch
 
     from protnote_tpu_torch.models.fusion import ensemble_logits, projection_head_apply
@@ -461,12 +535,13 @@ def plain_probs(engine, seqs):
         P_e, _ = projection_head_apply(pn["W_p"], state["W_p"], P_f.to(cfg.compute_dtype))
         folded = ps.fold_output_mlp(pn["output_mlp"], state["output_mlp"], cfg.feature_fusion,
                                     cfg.latent_dim, dtype=cfg.compute_dtype)
+        latents = engine.latents if latents is None else latents
         if cfg.pair_backend == "tiled_int8":
             logits = ps.pair_logits_tiled_int8_reference(
                 ps.quantize_folded(folded, act_scales=cfg.int8_act_scales), P_e,
-                engine.latents, cfg.label_tile, cfg.compute_dtype)
+                latents, cfg.label_tile, cfg.compute_dtype)
         else:
-            logits = ps.pair_logits_tiled_reference(folded, P_e, engine.latents,
+            logits = ps.pair_logits_tiled_reference(folded, P_e, latents,
                                                     cfg.label_tile, cfg.compute_dtype)
         want = torch.sigmoid(ensemble_logits(logits, K_DESCRIPTIONS))[: len(seqs)]
     return want.float().cpu().numpy()
@@ -1360,6 +1435,254 @@ def phase_training(card: str):
     return launches
 
 
+def token_batch(gen, batch: int, tokens: int, lo: int, hi: int, vocab: int, pad: int,
+                filler: bool = True):
+    """Random token ids and their mask on the card: lengths lo..hi and, with
+    ``filler``, the last row an all-masked filler row (as a padded chunk
+    carries)."""
+    import torch
+
+    lengths = torch.randint(lo, hi + 1, (batch,), generator=gen)
+    if filler:
+        lengths[-1] = 0
+    mask = (torch.arange(tokens)[None, :] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(3, vocab, (batch, tokens), generator=gen)
+    ids = torch.where(mask > 0, ids, torch.full_like(ids, pad))
+    return ids.cuda(), mask.cuda()
+
+
+def phase_k8(card: str):
+    """K8a and K8b alone at the tower's shapes against their plain versions
+    on the same device tensors; SDPA and ``F.layer_norm`` as yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    nh, hd, Hd = 16, 64, 1024
+    gen = torch.Generator().manual_seed(30)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    out = {}
+    with torch.inference_mode():
+        for name, Bq, T, lo, hi, causal in K8_SHAPES:
+            _, mask = token_batch(gen, Bq, T, lo, hi, 100, 1)
+            q, k, v = (torch.randn(Bq, nh, T, hd, generator=gen).to(dev, bf16) for _ in range(3))
+            got = k8a.masked_attention_cuda(q, k, v, mask, causal)
+            want = k8a.masked_attention_reference(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all())
+            a_err = float((got.float() - want.float()).abs().max())
+            a_rel = a_err / float(want.float().abs().max())
+            keep = (mask > 0)[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+            add_mask = torch.where(keep, 0.0, k8a.MASKED).to(bf16)
+            attn = {"ms": cuda_time_ms(lambda: k8a.masked_attention_cuda(q, k, v, mask, causal),
+                                       20),
+                    "plain_ms": cuda_time_ms(lambda: k8a.masked_attention_reference(
+                        q, k, v, mask, causal), 5),
+                    "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=add_mask), 20),
+                    "max_abs_err": a_err, "rel_err": a_rel, "finite": finite,
+                    **bound(nbytes=4.0 * q.numel() * 2 + 4.0 * mask.numel(),
+                            ops=4.0 * Bq * nh * T * T * hd)}
+            del got, want, q, k, v, add_mask
+            # K8b on the same rows: with the residual (post-LN bert), without
+            # it for the pre-LN gpt form
+            rows = Bq * T
+            x = torch.randn(rows, Hd, generator=gen).to(dev, bf16)
+            r = None if causal else torch.randn(rows, Hd, generator=gen).to(dev, bf16)
+            scale = (0.5 + torch.rand(Hd, generator=gen)).to(dev)
+            bias = (0.1 * torch.randn(Hd, generator=gen)).to(dev)
+            got = k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5)
+            want = k8b.add_layer_norm_reference(x, r, scale, bias, 1e-5)
+            torch.cuda.synchronize()
+            finite = finite and bool(torch.isfinite(got).all())
+            n_err = float((got.float() - want.float()).abs().max())
+            n_rel = n_err / float(want.float().abs().max())
+            sb, bb = scale.to(bf16), bias.to(bf16)
+            norm = {"ms": cuda_time_ms(lambda: k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5),
+                                       20),
+                    "plain_ms": cuda_time_ms(lambda: k8b.add_layer_norm_reference(
+                        x, r, scale, bias, 1e-5), 5),
+                    "library_ms": cuda_time_ms(lambda: F.layer_norm(
+                        x if r is None else x + r, (Hd,), sb, bb, 1e-5), 20),
+                    "max_abs_err": n_err, "rel_err": n_rel,
+                    **bound(nbytes=2.0 * rows * Hd * (2 if r is None else 3) + 8.0 * Hd)}
+            del got, want, x, r
+            out[name] = {"text_attention": attn, "add_layer_norm": norm}
+            log("k8_check", shape=name, batch=Bq, tokens=T, lengths=[lo, hi], causal=causal,
+                heads=nh, head_dim=hd, width=Hd, finite=finite, rel_tol=K8_REL_TOL,
+                text_attention=attn, add_layer_norm=norm, card=card)
+            if not finite or max(a_rel, n_rel) > K8_REL_TOL:
+                raise AssertionError(f"K8 ({name}) disagrees with its plain version: attention "
+                                     f"{a_rel}, LayerNorm {n_rel} (rel tol {K8_REL_TOL}), "
+                                     f"finite {finite}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def random_tower(cfg, seed: int):
+    """A tower of ``cfg`` with random weights from a seeded CUDA generator,
+    on the card, in the encoder's inference layout (bf16 weights, float32
+    LayerNorms)."""
+    import torch
+
+    from protnote_tpu_torch.models.text_transformer import cast_for_inference, init_text_encoder
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cast_for_inference(init_text_encoder(gen, cfg, "cuda"), cfg.dtype)
+
+
+def pooled_err(got, want) -> tuple:
+    """(max |got - want| over the largest |want|, all of got finite)."""
+    import torch
+
+    return (float((got - want).abs().max() / want.abs().max()),
+            bool(torch.isfinite(got).all()))
+
+
+def phase_tower(card: str):
+    """E5-large and BioGPT against the plain tower on one chunk each; then
+    64 chunks of shape (a) through ``NativeLabelEncoder.embed_ids``.  Returns
+    the kernels' launches in that run and the pooled rows of the kernels'
+    tower and of the plain tower."""
+    import torch
+
+    from protnote_tpu_torch.models.label_encoder import NativeLabelEncoder
+    from protnote_tpu_torch.models.text_transformer import (
+        TextEncoderConfig,
+        pool_hidden_states,
+        text_encoder_forward,
+        text_encoder_forward_reference,
+    )
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(32)
+    _, Ba, Ta, lo, hi, _ = K8_SHAPES[0]
+    whole = {}
+    for arch, cfg, seed in (("e5_large", TextEncoderConfig.e5_large(dtype=bf16), 33),
+                            ("biogpt", TextEncoderConfig.biogpt(dtype=bf16), 34)):
+        t0 = time.perf_counter()
+        params = random_tower(cfg, seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ids, mask = token_batch(gen, Ba, Ta, lo, hi, cfg.vocab_size, cfg.pad_token_id)
+        with torch.inference_mode():
+            got = pool_hidden_states(text_encoder_forward(params, ids, mask, cfg), mask, "mean")
+            hidden = text_encoder_forward_reference(params, ids, mask, cfg)
+            want = pool_hidden_states(hidden, mask, "mean")
+        torch.cuda.synchronize()
+        err, finite = pooled_err(got, want)
+        whole[arch] = {"rel_err": err, "finite": finite,
+                       "plain_finite": bool(torch.isfinite(hidden).all()), "init_s": init_s,
+                       "params": sum(t.numel() for t in tensors_of(params))}
+        log("tower_check", arch=arch, batch=Ba, tokens=Ta, layers=cfg.num_layers,
+            width=cfg.hidden_size, vocab=cfg.vocab_size, rel_tol=TOWER_REL_TOL,
+            pooled_std=float(want.std()), **whole[arch], card=card)
+        if not finite or err > TOWER_REL_TOL:
+            raise AssertionError(f"the {arch} tower disagrees with the plain tower: {err} "
+                                 f"(rel tol {TOWER_REL_TOL}), finite {finite}")
+        if arch == "biogpt":
+            del params
+        else:
+            e5_cfg, e5_params = cfg, params
+        del hidden, got, want
+        torch.cuda.empty_cache()
+
+    # descriptions/s: 64 chunks of (a) through the encoder's forward and pool
+    encoder = NativeLabelEncoder(e5_cfg, e5_params, device="cuda")
+    chunks = [token_batch(gen, Ba, Ta, lo, hi, e5_cfg.vocab_size, e5_cfg.pad_token_id,
+                          filler=i == TOWER_CHUNKS - 1)  # one filler row, in the last chunk
+              for i in range(TOWER_CHUNKS)]
+    encoder.embed_ids(*chunks[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k8a.LAUNCHES = 0
+    k8b.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = torch.cat([encoder.embed_ids(ids, mask) for ids, mask in chunks])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"text_attention": k8a.LAUNCHES, "add_layer_norm": k8b.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(v <= 0 for v in launches.values()) or not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"the tower run skipped a kernel or gave non-finite rows: "
+                             f"{launches}")
+    n = rows.shape[0]
+    real_tokens = int(sum(int(m.sum()) for _, m in chunks))
+    log("tower", arch="e5_large", chunks=TOWER_CHUNKS, batch=Ba, tokens=Ta, rows=n,
+        filler_rows=1, real_tokens=real_tokens, seconds=sec, descriptions_per_s=n / sec,
+        ms_per_chunk=sec * 1e3 / TOWER_CHUNKS, peak_mem_gb=peak, launches=launches,
+        launches_per_chunk={k: v / TOWER_CHUNKS for k, v in launches.items()}, card=card)
+    # where a chunk's time goes: one profiled pass over a few chunks
+    wall, busy, top = device_profile(lambda: encoder.embed_ids(*chunks[0]), 4)
+    log("tower_profile", chunks=4, wall_ms_per_chunk=wall * 1e3 / 4,
+        device_busy_ms_per_chunk=None if busy is None else busy * 1e3 / 4,
+        idle_share=None if busy is None else 1.0 - busy / wall,
+        top_kernels_ms_per_chunk=top, card=card)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        plain = torch.cat([pool_hidden_states(text_encoder_forward_reference(
+            encoder.params, ids, mask, e5_cfg), mask, "mean") for ids, mask in chunks])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    err, finite = pooled_err(rows, plain)
+    log("tower_plain", chunks=TOWER_CHUNKS, seconds=plain_s,
+        descriptions_per_s=n / plain_s, rel_err=err, rel_tol=TOWER_REL_TOL, card=card)
+    if err > TOWER_REL_TOL:
+        raise AssertionError(f"the 64-chunk tower run disagrees with the plain tower: {err}")
+    del encoder, e5_params, chunks
+    torch.cuda.empty_cache()
+    return launches, rows, plain
+
+
+def phase_zero_shot(rows, plain_rows, card: str):
+    """The tower's rows as 4,096 new labels x 2 descriptions behind a
+    full-width engine; one full batch through K1 against the plain chain
+    (plain tower rows, plain pair scorer)."""
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.models.fusion import compute_label_latents
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.serving import ServingEngine
+
+    pi_cfg, pn_cfg, ts = random_models()
+    vocab = [f"GO:{9000000 + i:07d}" for i in range(ZERO_SHOT_LABELS)]
+    rows = rows[:ZERO_SHOT_LABELS * K_DESCRIPTIONS]
+    t0 = time.perf_counter()
+    engine = ServingEngine(ts, pi_cfg, pn_cfg, rows.cpu().numpy(), vocab, buckets=(512, 1024),
+                           max_batch=B, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(35)
+    seqs = random_sequences(rng, rng.integers(100, 512, size=B))
+    engine.score(seqs)  # warm-up
+    torch.cuda.synchronize()
+    ps.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = engine.score(seqs)
+    sec = time.perf_counter() - t0
+    launches = ps.LAUNCHES
+    with torch.inference_mode():
+        latents = compute_label_latents(engine.ts["trainable"]["protnote"],
+                                        engine.ts["model_state"],
+                                        plain_rows[:ZERO_SHOT_LABELS * K_DESCRIPTIONS], pn_cfg)
+    want = plain_probs(engine, seqs, latents=latents)
+    err = float(np.abs(got - want).max())
+    log("zero_shot", labels=ZERO_SHOT_LABELS, label_rows=int(rows.shape[0]), batch=B,
+        engine_build_s=build_s, batch_ms=sec * 1e3, seqs_per_s=B / sec, k1_launches=launches,
+        max_abs_prob_err=err, prob_atol=PROB_ATOL, prob_std=float(want.std()),
+        finite=bool(np.isfinite(got).all()), card=card)
+    if launches <= 0 or not np.isfinite(got).all() or err > PROB_ATOL:
+        raise AssertionError(f"zero-shot scoring: K1 launches {launches}, prob err {err} "
+                             f"(atol {PROB_ATOL})")
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -1388,10 +1711,15 @@ def main() -> None:
     train_times = phase_train_kernels(card)
     torch.cuda.empty_cache()
     launches = phase_training(card)
+    torch.cuda.empty_cache()
+    k8_times = phase_k8(card)
+    tower_launches, rows, plain_rows = phase_tower(card)
+    phase_zero_shot(rows, plain_rows, card)
+    del rows, plain_rows
     if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
                                    for m in sys.modules):
-        raise AssertionError("the port's serving, evaluation or training path imported jax "
-                             "or the JAX package")
+        raise AssertionError("the port's serving, evaluation, training or tower path imported "
+                             "jax or the JAX package")
     k3_src = "protnote_tpu_torch/csrc/eval_accumulator.cu"
     replaces = {"update": "protnote_tpu/evaln/metrics.py:601",
                 "row_tail": "protnote_tpu/evaln/metrics.py:628",
@@ -1418,7 +1746,15 @@ def main() -> None:
     } for k, (src, rep) in train_kernels.items()] + [{
         "name": k, "route": "cuda", "source": "protnote_tpu_torch/csrc/pair_scorer_int8.cu",
         "replaces": "protnote_tpu/ops/pair_scorer.py:375", "launches": int8_launches[k], **k2[k],
-    } for k in ("pair_int8_layer", "pair_int8_row_scale")]}), flush=True)
+    } for k in ("pair_int8_layer", "pair_int8_row_scale")] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": tower_launches[k],
+        **{f: k8_times["a"][k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+    } for k, src, rep in (("text_attention", "text_attention",
+                           "protnote_tpu/models/text_transformer.py:167"),
+                          ("add_layer_norm", "layer_norm",
+                           "protnote_tpu/models/text_transformer.py:159"))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

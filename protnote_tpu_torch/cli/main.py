@@ -119,8 +119,9 @@ def refuse_unported(args, params: Dict) -> None:
             "ESTIMATE_MAP False (the exact host AUPRC, ExactAUPRC) is not ported yet "
             "(ROADMAP.md queue 1, item 3); pass --override ESTIMATE_MAP True")
     if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
-        raise NotImplementedError("the text tower (K8) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 8)")
+        raise NotImplementedError("training the text tower (LABEL_ENCODER_NUM_TRAINABLE_"
+                                  "LAYERS) is not ported yet (ROADMAP.md queue 1, item 14); "
+                                  "the port runs the tower for inference only")
     mesh = [v for v in (args.mesh_dp, args.mesh_label) if v not in (None, 1)]
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "

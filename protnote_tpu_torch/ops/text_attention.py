@@ -1,0 +1,132 @@
+"""Masked softmax attention of the label text tower (K8a).
+
+Port of the attention core of ``protnote_tpu/models/text_transformer.py:
+_attention`` (lines 182-190): with q, k, v (B, nh, T, hd) in the compute
+dtype,
+
+    scores = (q . k^T in float32) * float32(1 / sqrt(hd)) + bias
+    probs  = softmax(scores) in float32, rounded to the compute dtype
+    ctx    = (probs . v in float32), rounded to the compute dtype
+
+where ``bias`` is -1e9 on every key whose ``key_mask`` is 0 and, with
+``causal``, on every key after the query (0 elsewhere).  The JAX source
+divides by the constant ``sqrt(hd)``; jitted, XLA compiles that into a
+multiply by its float32 reciprocal, and both versions here multiply.  The
+bias is added to every key rather than leaving masked keys out, so a row
+whose keys are all masked (the filler rows of a padded chunk) gets the
+uniform softmax JAX gives it, not 0/0.
+
+:func:`masked_attention` dispatches on the device: CPU tensors take the
+plain PyTorch version (:func:`masked_attention_reference`), CUDA tensors the
+hand-written kernel of ``csrc/text_attention.cu`` (bf16, hd 64, T <= 512);
+input the kernel does not take raises, and nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from protnote_tpu_torch.models.layers import gemm_precision
+
+MAX_T = 512  # the kernel keeps whole score rows in shared memory
+HEAD_DIM = 64  # the head width of every tower the port loads
+MASKED = -1e9  # the JAX package's additive mask value
+
+# Launches of the kernel since the process started (or since a caller last
+# set it to 0).
+LAUNCHES = 0
+_launch_lock = threading.Lock()
+
+
+def scale_for(head_dim: int) -> float:
+    """``float32(1 / float32(sqrt(head_dim)))``: what jitted XLA multiplies
+    by where the JAX source divides by ``math.sqrt(head_dim)``."""
+    return float(1.0 / torch.tensor(math.sqrt(head_dim), dtype=torch.float32))
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 key_mask: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be (B, nh, T, hd) alike: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, T, _ = q.shape
+    if tuple(key_mask.shape) != (B, T):
+        raise ValueError(f"key_mask {tuple(key_mask.shape)} vs (B, T) = {(B, T)}")
+
+
+def masked_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The JAX attention core in eager PyTorch (ctx in ``q``'s dtype)."""
+    check_inputs(q, k, v, key_mask)
+    T, hd = q.shape[2], q.shape[3]
+    gemm_precision(torch.float32)
+    scale = torch.tensor(scale_for(hd), dtype=torch.float32, device=q.device)
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+    keep = (key_mask > 0)[:, None, None, :]
+    if causal:
+        keep = keep & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    scores = scores + torch.where(keep, 0.0, MASKED).to(torch.float32)
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = (e / e.sum(-1, keepdim=True)).to(q.dtype)
+    return (probs.float() @ v.float()).to(q.dtype)
+
+
+def _lib():
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    lib = load_kernel_library("text_attention").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.masked_attention.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
+    lib.masked_attention.restype = ctypes.c_int
+    return lib
+
+
+def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The kernel's wrapper: checks what the kernel takes, launches it on the
+    current stream and counts the launch."""
+    global LAUNCHES
+    check_inputs(q, k, v, key_mask)
+    B, nh, T, hd = q.shape
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"the attention kernel needs CUDA tensors, not {device}")
+    if T > MAX_T:
+        raise ValueError(f"the attention kernel holds whole score rows in shared memory "
+                         f"and takes at most {MAX_T} tokens (label text is truncated at "
+                         f"510), not {T}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"the attention kernel takes head width {HEAD_DIM}, not {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != device or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16 on {device}, not {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if key_mask.device != device or key_mask.dtype != torch.int32 or \
+            not key_mask.is_contiguous():
+        raise ValueError("key_mask must be a contiguous int32 tensor on the same device")
+    ctx = torch.empty_like(q)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):  # the C launch goes to the thread's device
+        err = _lib().masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      key_mask.data_ptr(), ctx.data_ptr(), B, nh, T, hd,
+                                      int(bool(causal)), scale_for(hd), stream)
+        if err != 0:
+            raise RuntimeError(f"masked_attention launch failed: CUDA error {err}")
+        with _launch_lock:
+            LAUNCHES += 1
+    return ctx
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """``ctx`` (B, nh, T, hd) in ``q``'s dtype on ``q``'s device."""
+    if q.device.type == "cpu":
+        return masked_attention_reference(q, k, v, key_mask, causal)
+    if q.device.type == "cuda":
+        return masked_attention_cuda(q, k, v, key_mask, causal)
+    raise ValueError(f"no attention for device {q.device}")

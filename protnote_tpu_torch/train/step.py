@@ -13,7 +13,8 @@ optimizer, and reports ``loss``, per-label ``tp``/``fp``/``fn`` at
 ``probs > threshold`` (strict, as the JAX train step; the eval accumulator
 uses ``>=``), the gradients' global norm and the example count.  Training
 the encoder (``TRAIN_SEQUENCE_ENCODER``, ``ENCODER_BN_TRAIN_MODE``) and the
-text tower are not ported.
+text tower are not ported; the eval step embeds tokenized label text through
+the (frozen) tower on the fly.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from protnote_tpu_torch.models.fusion import ProtNoteConfig, protnote_forward
 from protnote_tpu_torch.models.proteinfer import ProteInferConfig, embed_from_ids
+from protnote_tpu_torch.models.text_transformer import pool_hidden_states, text_encoder_forward
 from protnote_tpu_torch.train.optim import Optimizer, global_norm, tree_leaves
 
 ENCODER_LATER = ("training the sequence encoder (TRAIN_SEQUENCE_ENCODER, "
@@ -124,7 +126,9 @@ def make_train_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig, loss_fn: C
 
 
 def make_eval_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig,
-                   loss_fn: Optional[Callable] = None
+                   loss_fn: Optional[Callable] = None, text_cfg=None,
+                   pooling_method: str = "mean", lora_alpha: float = 8.0,
+                   lora_rank: int = 4
                    ) -> Callable[[Dict[str, Any], Dict[str, torch.Tensor]],
                                  Dict[str, torch.Tensor]]:
     """Returns ``(params_bundle, batch) -> {"logits": (B, L) float32[,
@@ -134,6 +138,11 @@ def make_eval_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig,
     JAX train-state layout); ``batch`` has ``aa_ids``, ``lengths`` and the
     label side: precomputed ``label_latents`` (L', latent_dim), or label
     rows (``label_embeddings``, or ``label_rows`` with ``label_matrix``).
+    With ``text_cfg`` set and tokenized labels in the batch
+    (``label_input_ids``, ``label_attention_mask``), the label embeddings
+    come from the text tower on the fly: ``trainable["text"]`` or the
+    bundle's ``text_params``, with the adapters of ``trainable["lora"]``,
+    pooled by ``pooling_method`` (zero-shot scoring of new label text).
     With ``loss_fn`` and ``label_multihots`` in the batch, ``loss`` is the
     masked loss of the (ensembled) logits."""
 
@@ -147,8 +156,17 @@ def make_eval_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig,
             logits, _ = protnote_forward(pn, state, P_f, None, pn_cfg,
                                          label_latents=batch["label_latents"])
         else:
-            logits, _ = protnote_forward(pn, state, P_f, _resolve_label_embeddings(batch),
-                                         pn_cfg,
+            if text_cfg is not None and "label_input_ids" in batch:
+                text_params = ts["trainable"].get("text", ts.get("text_params"))
+                hidden = text_encoder_forward(
+                    text_params, batch["label_input_ids"], batch["label_attention_mask"],
+                    text_cfg, lora=ts["trainable"].get("lora"), lora_alpha=lora_alpha,
+                    lora_rank=lora_rank)
+                label_embeddings = pool_hidden_states(hidden, batch["label_attention_mask"],
+                                                      pooling_method)
+            else:
+                label_embeddings = _resolve_label_embeddings(batch)
+            logits, _ = protnote_forward(pn, state, P_f, label_embeddings, pn_cfg,
                                          label_attention_mask=batch.get("label_attention_mask"))
         out = {"logits": logits.float()}
         if loss_fn is not None and batch.get("label_multihots") is not None:

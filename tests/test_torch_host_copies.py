@@ -2,8 +2,11 @@
 originals on the same inputs, on the CPU: ``data/`` (FASTA, vocabularies,
 BLOSUM augmentation, the label-embedding cache and view, datasets, bucketed
 and prefetching batchers), ``core/config.py``, the request side of
-``serving.py`` (``topk_from_probs``, ``MicroBatcher``, the HTTP server) and
-``resolve_label_tile``.  Every comparison is exact: the copies run the same
+``serving.py`` (``topk_from_probs``, ``MicroBatcher``, the HTTP server),
+``resolve_label_tile``, and the label-text helpers of the label tower
+(``remove_obsolete_from_string``, ``E5_INSTRUCTION``, ``MAX_LABEL_TOKENS``,
+the numpy ``pool_hidden_states``, ``HashLabelEncoder``,
+``flatten_annotations``).  Every comparison is exact: the copies run the same
 host code (the port leaves out the native parser, whose numpy path the
 originals keep)."""
 
@@ -17,23 +20,29 @@ import numpy as np
 import pytest
 
 from protnote_tpu.cli import _model_setup as jsetup
+from protnote_tpu.cli import generate_label_embeddings as jgen
 from protnote_tpu.core import config as jconfig
 from protnote_tpu.data import batching as jbatching
+from protnote_tpu.data import annotations as jannotations
 from protnote_tpu.data import blosum as jblosum
 from protnote_tpu.data import dataset as jdataset
 from protnote_tpu.data import fasta as jfasta
 from protnote_tpu.data import label_cache as jcache
 from protnote_tpu.data import vocab as jvocab
+from protnote_tpu.models import label_encoder as jlabel
 from protnote_tpu import serving as jserving
 from protnote_tpu_torch import serving_http as tserving
 from protnote_tpu_torch.cli import _model_setup as tsetup
+from protnote_tpu_torch.cli import generate_label_embeddings as tgen
 from protnote_tpu_torch.core import config as tconfig
 from protnote_tpu_torch.data import batching as tbatching
+from protnote_tpu_torch.data import annotations as tannotations
 from protnote_tpu_torch.data import blosum as tblosum
 from protnote_tpu_torch.data import dataset as tdataset
 from protnote_tpu_torch.data import fasta as tfasta
 from protnote_tpu_torch.data import label_cache as tcache
 from protnote_tpu_torch.data import vocab as tvocab
+from protnote_tpu_torch.models import label_encoder as tlabel
 
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 N_LABELS = 40
@@ -324,3 +333,49 @@ def test_micro_batcher_coalesces_concurrent_requests():
     assert stats.snapshot()["requests"] == 3
     with pytest.raises(RuntimeError, match="closed"):
         mb.submit(["MK"])
+
+
+@pytest.mark.parametrize("text", ["OBSOLETE. kinase activity", "  obsolete kinase", "Obsolete.",
+                                  "kinase, obsolete form", "plain text  ", ""])
+def test_remove_obsolete_from_string(text):
+    assert tannotations._OBSOLETE_PREFIX_RE.pattern == jannotations._OBSOLETE_PREFIX_RE.pattern
+    assert tannotations._OBSOLETE_PREFIX_RE.flags == jannotations._OBSOLETE_PREFIX_RE.flags
+    assert tannotations.remove_obsolete_from_string(text) == \
+        jannotations.remove_obsolete_from_string(text)
+
+
+def test_label_text_constants_and_numpy_pooling():
+    assert tlabel.E5_INSTRUCTION == jlabel.E5_INSTRUCTION
+    assert tlabel.MAX_LABEL_TOKENS == jlabel.MAX_LABEL_TOKENS
+    assert tlabel.NativeLabelEncoder._LEN_BUCKETS == jlabel.JaxLabelEncoder._LEN_BUCKETS
+    rng = np.random.default_rng(0)
+    h = rng.normal(size=(4, 9, 8)).astype(np.float32)
+    mask = np.array([[1] * 9, [1] * 4 + [0] * 5, [1] + [0] * 8, [0] * 9], np.int32)
+    for method in ("mean", "last_token", "all"):
+        for sos in (True, False):
+            np.testing.assert_array_equal(tlabel.pool_hidden_states(h, mask, method, sos),
+                                          jlabel.pool_hidden_states(h, mask, method, sos))
+    with pytest.raises(ValueError):
+        tlabel.pool_hidden_states(h, mask, "max")
+
+
+def test_hash_label_encoder():
+    texts = ["kinase activity", "", "DNA repair of the DNA", "x " * 600]
+    t, j = tlabel.HashLabelEncoder(dim=32), jlabel.HashLabelEncoder(dim=32)
+    assert t.checkpoint == j.checkpoint == "hash" and t.dim == j.dim
+    assert t.token_counts(texts) == j.token_counts(texts)
+    np.testing.assert_array_equal(t.embed(texts), j.embed(texts))
+
+
+def test_flatten_annotations():
+    import pandas as pd
+
+    df = pd.DataFrame(
+        {"name": ["alpha", "beta", None],
+         "label": ["def of alpha", "OBSOLETE. def of beta", float("nan")],
+         "synonym_exact": [["syn1", "syn2"], [], np.array(["s3", ""])]},
+        index=["GO:1", "GO:2", "GO:3"])
+    assert tgen.DESCRIPTION_TYPES == jgen.DESCRIPTION_TYPES
+    assert tgen.flatten_annotations(df) == jgen.flatten_annotations(df)
+    only_names = df[["name"]]
+    assert tgen.flatten_annotations(only_names) == jgen.flatten_annotations(only_names)

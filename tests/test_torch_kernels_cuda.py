@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the pair scorer (K1), its int8 form
-(K2), the eval accumulator (K3), the training pair GEMM (K4) and BN+ReLU (K5)
-against their plain PyTorch versions, and the serving engine on CUDA against
+(K2), the eval accumulator (K3), the training pair GEMM (K4), BN+ReLU (K5),
+the text tower's masked attention (K8a) and residual LayerNorm (K8b) against
+their plain PyTorch versions, and the serving engine on CUDA against
 the same engine on the CPU.  These need an NVIDIA
 card (the kernels have no CPU mode) and skip without one.  The file imports neither jax nor the repo's conftest fixtures,
 so on the card's machine it runs as
@@ -21,6 +22,10 @@ steps (rtol 2^-6, atol 1e-2: the GEMM sums in another order, and the BN
 affine's float32 inverse square root may differ by an ulp), float32 moments
 to 1e-5 relative, the float32 column sums of the backward to 1e-3 relative
 (other summation orders over ~1,500 rows of bf16 products).
+K8a and K8b on the same bf16 inputs on both sides: within 1e-2 of the plain
+output's largest |value| (two bf16 steps: the score and output sums run in
+other orders, so a probability or an output can round to the neighbouring
+bf16 value).
 """
 
 import numpy as np
@@ -31,8 +36,10 @@ from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator
 from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
 from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
 from protnote_tpu_torch.ops import eval_accumulator as k3
+from protnote_tpu_torch.ops import layer_norm as k8b
 from protnote_tpu_torch.ops import pair_scorer as ps
 from protnote_tpu_torch.ops import streaming_train as st
+from protnote_tpu_torch.ops import text_attention as k8a
 from protnote_tpu_torch.serving import ServingEngine
 
 
@@ -331,3 +338,100 @@ def test_int8_kernel_raises_on_what_it_does_not_take():
         ps.pair_logits_tiled_int8(q, P_e, L_e, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         ps.pair_logits_tiled_int8_cuda(q, P_e.cpu(), L_e)
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _attention_inputs(rng, B, nh, T, hd, lengths, dev):
+    def t():
+        return torch.from_numpy(rng.normal(size=(B, nh, T, hd)).astype(np.float32)
+                                * 1.5).to(dev, torch.bfloat16)
+
+    mask = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
+    return t(), t(), t(), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,causal", [(77, False), (77, True), (512, False), (510, True),
+                                      (64, False), (1, False)])
+def test_text_attention_kernel_matches_plain_on_card(T, causal):
+    """K8a: ragged T (not a multiple of the 64-key tile), the causal mask
+    with the key mask, T = 512, and one all-masked row (the filler row of a
+    padded chunk), which must stay finite."""
+    dev = _card()
+    hd = 64
+    rng = np.random.default_rng(T)
+    B = 3
+    lengths = [T, max(T // 2, 1), 0]
+    q, k, v, mask = _attention_inputs(rng, B, 4, T, hd, lengths, dev)
+    before = k8a.LAUNCHES
+    got = k8a.masked_attention(q, k, v, mask, causal)
+    want = k8a.masked_attention_reference(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert k8a.LAUNCHES - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 1e-2
+    # the all-masked row: the uniform softmax over all T keys, as JAX gives it
+    uniform = v[2].float().mean(1, keepdim=True).expand(-1, T, -1)
+    assert _rel_err(got[2], uniform) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_text_attention_kernel_raises_on_what_it_does_not_take():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    q, k, v, mask = _attention_inputs(rng, 1, 2, 513, 64, [513], dev)
+    with pytest.raises(ValueError, match="at most 512"):
+        k8a.masked_attention(q, k, v, mask, False)
+    q, k, v, mask = _attention_inputs(rng, 1, 2, 16, 64, [16], dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k8a.masked_attention(q.float(), k.float(), v.float(), mask, False)
+    with pytest.raises(ValueError, match="int32"):
+        k8a.masked_attention(q, k, v, mask.long(), False)
+    q, k, v, mask = _attention_inputs(rng, 1, 2, 16, 48, [16], dev)
+    with pytest.raises(ValueError, match="head width"):
+        k8a.masked_attention(q, k, v, mask, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1024, 768, 256])
+@pytest.mark.parametrize("residual", [True, False])
+def test_layer_norm_kernel_matches_plain_on_card(H, residual):
+    """K8b with and without the residual add, a row count that is not a
+    multiple of the block's 8 rows, and rows with a large offset (where a
+    one-pass variance would cancel)."""
+    dev = _card()
+    rng = np.random.default_rng(H + int(residual))
+    N = 1000 + 3
+
+    def t(shift=0.0):
+        return torch.from_numpy((rng.normal(size=(N, H)) * 2 + shift).astype(np.float32)
+                                ).to(dev, torch.bfloat16)
+
+    x = t(shift=50.0)
+    r = t() if residual else None
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(size=H).astype(np.float32) * 0.1).to(dev)
+    before = k8b.LAUNCHES
+    got = k8b.add_layer_norm(x, r, scale, bias, 1e-5)
+    want = k8b.add_layer_norm_reference(x, r, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert k8b.LAUNCHES - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_raises_on_what_it_does_not_take():
+    dev = _card()
+    x = torch.zeros(4, 1024, device=dev, dtype=torch.bfloat16)
+    ones = torch.ones(1024, device=dev)
+    with pytest.raises(ValueError, match="multiples of 256"):
+        k8b.add_layer_norm(x[:, :100].contiguous(), None, ones[:100], ones[:100], 1e-5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k8b.add_layer_norm(x.float(), None, ones, ones, 1e-5)
+    with pytest.raises(ValueError, match="float32"):
+        k8b.add_layer_norm(x, None, ones.to(torch.bfloat16), ones, 1e-5)

@@ -31,7 +31,10 @@ MODULES = [
     "protnote_tpu_torch.core.config", "protnote_tpu_torch.data.batching",
     "protnote_tpu_torch.data.dataset", "protnote_tpu_torch.data.fasta",
     "protnote_tpu_torch.data.label_cache", "protnote_tpu_torch.data.vocab",
-    "protnote_tpu_torch.data.blosum",
+    "protnote_tpu_torch.data.blosum", "protnote_tpu_torch.data.annotations",
+    "protnote_tpu_torch.models.text_transformer", "protnote_tpu_torch.models.label_encoder",
+    "protnote_tpu_torch.ops.text_attention", "protnote_tpu_torch.ops.layer_norm",
+    "protnote_tpu_torch.cli.generate_label_embeddings",
 ]
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import) protnote_tpu(\.|\s|$)", re.M)
 
@@ -52,11 +55,24 @@ def test_importing_the_port_loads_no_jax():
             + "build_argparser()\n"
             + "from protnote_tpu_torch.cli import main\n"
             + "main.build_argparser().parse_args(['--test-paths-names', 'X'])\n"
+            + "from protnote_tpu_torch.cli import generate_label_embeddings as g\n"
+            + "g.build_argparser().parse_args(['--backend', 'native'])\n"
             + "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=_env(), cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_port_loads_no_transformers():
+    """``transformers`` is imported only inside the functions that load an
+    HF checkpoint, so the card's machine needs it only for that."""
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in MODULES)
+            + "print('transformers' in sys.modules, 'tokenizers' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False False"
 
 
 def test_importing_the_port_loads_nothing_of_the_jax_package():

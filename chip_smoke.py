@@ -11,7 +11,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    nvcc per source, all at once, and prints each one's ptxas lines;
 3. the pair-scorer kernel (K1) against its plain PyTorch version at the full
    serving width (32 sequences x 64,204 label rows, d=1024, H=3072, bf16),
-   with both times from CUDA events;
+   with both times from CUDA events; then K1 in parts: its ptxas registers,
+   spills and shared memory, each of its four launch modes alone on one
+   chunk (the first layer forms A from a and c, the last takes the dot with
+   w_out), the whole call at three chunk sizes in turns, the float32 side
+   products, and ``gemm_ms``: ``torch.matmul`` on the two H x H products
+   over materialised bf16 activations of the same rows (a yardstick, not the
+   same function);
 4. serving: a full-width ``ServingEngine`` (ProteInfer 1100 channels x 5
    blocks, 32,102 labels x 2 descriptions) behind the stdlib HTTP server,
    answering /v1/predict and /healthz requests; the ProteInfer encoder
@@ -314,11 +320,108 @@ def phase_kernel(card: str):
         ms = cuda_time_ms(lambda: ps.pair_logits_tiled_cuda(folded, P_e, L_e, LABEL_TILE), 3)
         plain_ms = cuda_time_ms(
             lambda: ps.pair_logits_tiled_reference(folded, P_e, L_e, LABEL_TILE), 2)
+        parts = k1_parts(folded, P_e, L_e)
     flop = 2.0 * 2 * H * H * B * L_e.shape[0]
     log("kernel_time", ms=ms, plain_ms=plain_ms, tflops=flop / ms / 1e9,
-        plain_tflops=flop / plain_ms / 1e9, card=card)
+        plain_tflops=flop / plain_ms / 1e9, launches_a_batch=len(parts["plan"].launches()),
+        chunk_labels=parts["plan"].chunk, block_n=parts["plan"].block_n, card=card)
+    log("kernel_parts", **{k: v for k, v in parts.items() if k != "plan"},
+        gemm_tflops=flop / parts["gemm_ms"] / 1e9, card=card)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(ops=flop),
             "library_ms": None}
+
+
+def k1_variants():
+    """Each of K1's compiled variants (column tile, where A comes from, where
+    the epilogue goes): its ptxas registers, barriers and spills, and the
+    dynamic shared memory its launch asks for."""
+    import ctypes
+    import re
+
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    lib = load_kernel_library("pair_scorer")
+    smem = lib.lib.pair_mlp_layer_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    out, name, spills = [], None, None
+    for line in lib.build_log.splitlines():
+        m = re.search(r"pair_mlp_layer_kernelILi(\d+)ELb([01])ELb([01])E", line)
+        if m:
+            name = (int(m.group(1)), m.group(2) == "1", m.group(3) == "1")
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            bn, formed, dot = name
+            out.append({"block_n": bn, "a": "formed" if formed else "read",
+                        "epilogue": "dot" if dot else "store", "ptxas": line.strip(),
+                        "spills": spills, "smem_bytes": smem(bn, int(formed) | 2 * int(dot))})
+            name = None
+    return out
+
+
+def k1_parts(folded, P_e, L_e):
+    """K1 in parts at full width: the first-layer launch (A formed from a and
+    c, bf16 store) and the last-layer launch (A from the workspace, dot with
+    w_out) of one full chunk, each from CUDA events and scaled to the batch's
+    chunks, beside the other two launch modes; the whole call at other chunk
+    sizes; the float32 side products; and the cuBLAS yardstick:
+    ``torch.matmul`` on the two H x H products over materialised bf16
+    activations of the same pair rows (``gemm_ms``, not the same function:
+    no a + c, bias, ReLU or w_out, and the activations in device memory)."""
+    import dataclasses
+
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    # the four launch modes on one full chunk: (A formed | A read) x (store |
+    # dot); three hidden layers give modes 1, 0, 2, one gives mode 3
+    (W1, b1), (W2, b2) = folded.hidden
+    modes = {}
+    for hidden, layers in (([(W1, b1), (W2, b2), (W1, b1)], ((0, 1), (1, 0), (2, 2))),
+                           ([(W1, b1)], ((0, 3),))):
+        k = ps._K1Kernel(dataclasses.replace(folded, hidden=hidden), P_e, L_e, torch.bfloat16)
+        ch = k.plan.chunks[0]
+        logits = k.new_logits()
+        with torch.cuda.device(P_e.device):
+            for i, mode in layers:
+                modes[mode] = cuda_time_ms(lambda: k.launch(ch, i, mode, logits), 20)
+        del k, logits
+    first, last = modes[1], modes[2]
+    plan = ps.launch_plan(B, L_e.shape[0], H, 2,
+                          torch.cuda.get_device_properties(P_e.device).multi_processor_count)
+    rows = B * L_e.shape[0]
+    chunk_rows = B * plan.chunks[0].nl_pad
+    # chunk sizes in turns (A B C C B A), each the mean of its two readings
+    by_chunk, default = {}, ps.TARGET_ROWS
+    try:
+        for target in (8192, 16384, 32768, 32768, 16384, 8192):
+            ps.TARGET_ROWS = target
+            by_chunk.setdefault(target, []).append(cuda_time_ms(
+                lambda: ps.pair_logits_tiled_cuda(folded, P_e, L_e), 3))
+    finally:
+        ps.TARGET_ROWS = default
+    by_chunk = {k: sum(v) / len(v) for k, v in by_chunk.items()}
+    # outside the launches: the float32 per-side products a = P_e @ W1p and
+    # c = L_e @ W1l + b1, which the wrapper computes first (as the JAX path)
+    side_ms = cuda_time_ms(lambda: ps._side_partials(folded, P_e, L_e, torch.bfloat16), 5)
+    # one profiled call: device busy time against the wall, and by kernel
+    wall, busy, top = device_profile(lambda: ps.pair_logits_tiled_cuda(folded, P_e, L_e), 2)
+    profile = {"wall_ms_per_call": wall * 1e3 / 2,
+               "device_busy_ms_per_call": None if busy is None else busy * 1e3 / 2,
+               "top_kernels_ms_per_call": top}
+    x = torch.randn(chunk_rows, H, device=P_e.device).to(torch.bfloat16)
+    W = folded.hidden[0][0].contiguous()
+    product = cuda_time_ms(lambda: torch.matmul(x, W), 20)
+    return {"plan": plan, "variants": k1_variants(), "chunk_rows": chunk_rows,
+            "first_layer_launch_ms": first, "last_layer_launch_ms": last,
+            "launch_ms_by_mode": {"read_store": modes[0], "formed_store": modes[1],
+                                  "read_dot": modes[2], "formed_dot": modes[3]},
+            "first_layer_batch_ms": first * rows / chunk_rows,
+            "last_layer_batch_ms": last * rows / chunk_rows,
+            "ms_by_target_rows": by_chunk, "side_partials_ms": side_ms, "profile": profile,
+            "gemm_product_ms": product,
+            "gemm_ms": 2 * product * rows / chunk_rows}
 
 
 def he_scale_linears(tree) -> None:

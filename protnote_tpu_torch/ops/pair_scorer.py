@@ -147,7 +147,107 @@ def pair_logits_tiled_reference(
 LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_BLOCK_N = 128  # output columns per block (BN in the kernel; a multiple of BK)
+_BLOCK_N = 128  # the width every hidden layer must be a multiple of (K1 and K2)
+BLOCK_M = 128  # K1's pair rows a tile (BM in the kernel)
+# K1's pair rows a launch: a chunk holds this many rows over its B sequences
+# (256 labels at B 32), rounded down to whole row tiles.  At 8,192 rows the
+# bf16 activations between two layers (50 MB at H 3072) mostly stay in L2;
+# on an H100 the serving batch ran ~4% faster than at 16,384 or 32,768 rows
+# (chip_smoke.py, "ms_by_target_rows").
+TARGET_ROWS = 8192
+_H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class ChunkLaunch:
+    """One label chunk of K1: labels ``[l0, l0 + nl)``, padded to ``nl_pad``
+    rows a sequence, so its pair rows are ``r = b * nl_pad + l`` and every
+    128-row tile lies within one sequence."""
+
+    l0: int
+    nl: int
+    nl_pad: int
+    tiles_m: int  # row tiles: B * nl_pad / BLOCK_M
+    tiles_n: int  # column tiles: H / block_n
+    grid: int  # persistent blocks: min(SMs, tiles)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """K1's launch geometry for one call: the column tile, the chunks, and
+    the order of launches (each chunk's hidden layers in turn)."""
+
+    batch: int
+    n_hidden: int
+    block_n: int
+    chunk: int  # labels a chunk (a multiple of BLOCK_M)
+    chunks: Tuple[ChunkLaunch, ...]
+
+    @property
+    def workspace_rows(self) -> int:
+        """Rows of each bf16 activation workspace (the largest chunk's)."""
+        return self.batch * max(ch.nl_pad for ch in self.chunks)
+
+    def launches(self) -> List[Tuple[ChunkLaunch, int, int]]:
+        """(chunk, hidden layer, mode) in launch order; mode bit 0: A formed
+        from ``a`` and ``c`` (the first layer), bit 1: the dot with ``w_out``
+        into the logits (the last layer)."""
+        n = self.n_hidden
+        return [(ch, i, (1 if i == 0 else 0) | (2 if i == n - 1 else 0))
+                for ch in self.chunks for i in range(n)]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_plan(B: int, L: int, H: int, n_hidden: int, num_sms: int = _H100_SMS,
+                target_rows: Optional[int] = None) -> LaunchPlan:
+    """K1's chunks and tiles for B sequences against L label rows at hidden
+    width H.  Pair rows are independent, so the chunk (``target_rows`` pair
+    rows, whole row tiles a sequence) need not be the caller's
+    ``label_tile``: the logits are the same.  The column tile is 256 where H
+    allows it, else 128."""
+    if B <= 0 or L <= 0 or n_hidden <= 0:
+        raise ValueError(f"no launch plan for B {B}, L {L}, {n_hidden} hidden layers")
+    if H % _BLOCK_N:
+        raise ValueError(f"hidden width {H} is not a multiple of {_BLOCK_N}")
+    block_n = 256 if H % 256 == 0 else 128
+    target_rows = TARGET_ROWS if target_rows is None else target_rows
+    chunk = max(BLOCK_M, target_rows // B // BLOCK_M * BLOCK_M)
+    chunk = min(chunk, _round_up(L, BLOCK_M))
+    chunks = []
+    for l0 in range(0, L, chunk):
+        nl = min(chunk, L - l0)
+        nl_pad = _round_up(nl, BLOCK_M)
+        tiles_m, tiles_n = B * nl_pad // BLOCK_M, H // block_n
+        chunks.append(ChunkLaunch(l0, nl, nl_pad, tiles_m, tiles_n,
+                                  min(num_sms, tiles_m * tiles_n)))
+    return LaunchPlan(B, n_hidden, block_n, chunk, tuple(chunks))
+
+
+def pair_logits_plan_reference(folded: FoldedOutputMLP, P_e: torch.Tensor,
+                               L_e: torch.Tensor, plan: LaunchPlan,
+                               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain chain over K1's padded chunk layout: per chunk, rows
+    ``b * nl_pad + l`` with ``c`` rows past ``L`` zero (as TMA fills them),
+    the hidden layers over all padded rows, and only rows ``l < nl`` taken
+    into the (B, L) float32 logits."""
+    if folded.w1_prod is not None:
+        raise ValueError("the padded chunk layout does not take concatenation_prod")
+    B, L = P_e.shape[0], L_e.shape[0]
+    a, c = _side_partials(folded, P_e, L_e, compute_dtype)
+    logits = torch.empty(B, L, dtype=torch.float32, device=P_e.device)
+    for ch in plan.chunks:
+        c_t = c[ch.l0 : ch.l0 + ch.nl_pad]
+        c_t = torch.cat([c_t, c_t.new_zeros(ch.nl_pad - c_t.shape[0], c.shape[1])])
+        h = torch.relu(a[:, None, :] + c_t[None]).reshape(B * ch.nl_pad, -1).to(compute_dtype)
+        for W, b in folded.hidden:
+            h = torch.relu(_f32_product(h, W, compute_dtype) + b.float()).to(compute_dtype)
+        out = _f32_product(h, folded.w_out[:, None], compute_dtype)[:, 0]
+        logits[:, ch.l0 : ch.l0 + ch.nl] = (out.reshape(B, ch.nl_pad)[:, : ch.nl]
+                                            + folded.b_out)
+    return logits
 
 
 def check_kernel_inputs(folded: FoldedOutputMLP, P_e: torch.Tensor,
@@ -180,13 +280,73 @@ def _kernel_fn():
     from protnote_tpu_torch.ops.kernels import load_kernel_library
 
     fn = load_kernel_library("pair_scorer").lib.pair_mlp_layer
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+class _K1Kernel:
+    """The wrapper's per-call state: the per-side products, the weights
+    transposed to K-major (the layout the kernel's TMA loads take, laid out
+    once per call), the launch plan, the workspaces and the C entry point."""
+
+    def __init__(self, folded: FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
+                 compute_dtype: torch.dtype):
+        check_kernel_inputs(folded, P_e, L_e, compute_dtype)
+        device = P_e.device
+        tensors = [P_e, L_e, folded.w1_p, folded.w1_l, folded.b1, folded.w_out,
+                   folded.b_out] + [t for pair in folded.hidden for t in pair]
+        if any(t.device != device for t in tensors) or device.type != "cuda":
+            raise ValueError("the CUDA pair scorer needs every tensor on one CUDA device")
+        self.device = device
+        self.B, self.L = P_e.shape[0], L_e.shape[0]
+        self.H = folded.w1_p.shape[1]
+        a, c = _side_partials(folded, P_e, L_e, compute_dtype)
+        self.a, self.c = a.contiguous(), c.contiguous()
+        self.wt = [W.to(torch.bfloat16).t().contiguous() for W, _ in folded.hidden]
+        self.bias = [b.float().contiguous() for _, b in folded.hidden]
+        self.w_out = folded.w_out.to(torch.bfloat16).contiguous()
+        self.b_out = folded.b_out
+        n = len(self.wt)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        self.plan = launch_plan(self.B, self.L, self.H, n, sms)
+        self.work = [torch.empty(self.plan.workspace_rows, self.H, dtype=torch.bfloat16,
+                                 device=device) for _ in range(min(n - 1, 2))]
+        self.fn = _kernel_fn()
+        self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    def new_logits(self) -> torch.Tensor:
+        """(B, L) float32 logits pre-filled with ``b_out``: the kernel adds
+        into them."""
+        logits = torch.empty(self.B, self.L, dtype=torch.float32, device=self.device)
+        return logits.copy_(self.b_out.float().expand(self.B, self.L))
+
+    def launch(self, ch: ChunkLaunch, i: int, mode: int, logits: torch.Tensor) -> None:
+        """Hidden layer ``i`` of chunk ``ch``: A from ``a``/``c`` or the
+        workspace of layer ``i - 1``, out to the workspace of layer ``i`` or
+        into ``logits``."""
+        global LAUNCHES
+        x_in = None if mode & 1 else self.work[(i - 1) % 2]
+        x_out = None if mode & 2 else self.work[i % 2]
+        err = self.fn(_ptr(self.a), _ptr(self.c), _ptr(x_in), _ptr(self.wt[i]),
+                      _ptr(self.bias[i]), _ptr(x_out), _ptr(self.w_out), _ptr(logits),
+                      self.B, ch.nl, ch.nl_pad, ch.l0, self.L, self.H, self.H,
+                      self.plan.block_n, mode, ch.grid, self.stream)
+        if err != 0:
+            raise RuntimeError(f"pair_mlp_layer launch failed: CUDA error {err}")
+        with _launch_lock:
+            LAUNCHES += 1
+
+    def run(self) -> torch.Tensor:
+        logits = self.new_logits()
+        with torch.cuda.device(self.device):  # the C launch goes to the thread's device
+            for ch, i, mode in self.plan.launches():
+                self.launch(ch, i, mode, logits)
+        return logits
 
 
 def pair_logits_tiled_cuda(
@@ -198,51 +358,14 @@ def pair_logits_tiled_cuda(
 ) -> torch.Tensor:
     """The kernel's wrapper: (B, L) float32 logits for CUDA tensors.
 
-    Per chunk of ``label_tile`` labels it launches one kernel per hidden
-    layer: the first forms ``relu(a[b] + c[l])`` in shared memory as its A
-    operand, the last reduces its activations against ``w_out`` into the
-    logits (pre-filled with ``b_out``), and any layer between reads and
-    writes bf16 activations in a workspace."""
-    global LAUNCHES
-    check_kernel_inputs(folded, P_e, L_e, compute_dtype)
-    device = P_e.device
-    tensors = [P_e, L_e, folded.w1_p, folded.w1_l, folded.b1, folded.w_out,
-               folded.b_out] + [t for pair in folded.hidden for t in pair]
-    if any(t.device != device for t in tensors) or device.type != "cuda":
-        raise ValueError("the CUDA pair scorer needs every tensor on one CUDA device")
-    B = P_e.shape[0]
-    L = L_e.shape[0]
-    H = folded.w1_p.shape[1]
-    a, c = _side_partials(folded, P_e, L_e, compute_dtype)
-    a, c = a.contiguous(), c.contiguous()
-    weights = [W.to(torch.bfloat16).contiguous() for W, _ in folded.hidden]
-    biases = [b.float().contiguous() for _, b in folded.hidden]
-    w_out = folded.w_out.to(torch.bfloat16).contiguous()
-    logits = torch.empty(B, L, dtype=torch.float32, device=device)
-    logits.copy_(folded.b_out.float().expand(B, L))  # the kernel adds into it
-    n = len(weights)
-    tile = min(int(label_tile), L)
-    work = [torch.empty(B * tile, H, dtype=torch.bfloat16, device=device)
-            for _ in range(min(n - 1, 2))]
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):  # the C launch goes to the thread's device
-        for l0 in range(0, L, tile):
-            nl = min(tile, L - l0)
-            x_in = None
-            for i in range(n):
-                last = i == n - 1
-                x_out = None if last else work[i % 2]
-                mode = (1 if i == 0 else 0) | (2 if last else 0)
-                err = fn(_ptr(a), _ptr(c), _ptr(x_in), _ptr(weights[i]),
-                         _ptr(biases[i]), _ptr(x_out), _ptr(w_out), _ptr(logits),
-                         nl, l0, L, B * nl, H, H, mode, stream)
-                if err != 0:
-                    raise RuntimeError(f"pair_mlp_layer launch failed: CUDA error {err}")
-                with _launch_lock:
-                    LAUNCHES += 1
-                x_in = x_out
-    return logits
+    Per label chunk of :func:`launch_plan` (``TARGET_ROWS`` pair rows, not
+    ``label_tile``: pair rows are independent, so the logits are the same)
+    it launches one kernel per hidden layer: the first forms ``relu(a[b] +
+    c[l])`` in registers as its A operand, the last reduces its activations
+    against ``w_out`` into the logits (pre-filled with ``b_out``), and any
+    layer between reads and writes bf16 activations in a workspace."""
+    del label_tile
+    return _K1Kernel(folded, P_e, L_e, compute_dtype).run()
 
 
 def pair_logits_tiled(

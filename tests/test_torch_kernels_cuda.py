@@ -65,22 +65,61 @@ def _folded(rng, d, width, n_hidden, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
 @pytest.mark.parametrize("n_hidden", [1, 2, 3])
-def test_kernel_matches_plain_on_card(n_hidden):
-    """1-3 hidden layers (every launch mode), a ragged last label chunk and
-    a partial last row block."""
+def test_kernel_matches_plain_on_card(monkeypatch, n_hidden, width, batch):
+    """1-3 hidden layers (every launch mode), widths 128 and 384 (128-column
+    tiles), 256 (one 256-column tile) and 512 (two: the first layer in
+    clusters of two blocks), and 128 labels a chunk: 3 chunks of 300 labels,
+    the last ragged (44 labels padded to 128 rows a sequence; at batch 1 a
+    chunk of fewer than 128 pair rows)."""
     dev = _card()
-    rng = np.random.default_rng(n_hidden)
-    folded = _folded(rng, 16, 256, n_hidden, dev)
-    P_e = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    monkeypatch.setattr(ps, "TARGET_ROWS", 128 * batch)
+    rng = np.random.default_rng(100 * n_hidden + width + batch)
+    folded = _folded(rng, 16, width, n_hidden, dev)
+    P_e = torch.from_numpy(rng.normal(size=(batch, 16)).astype(np.float32)).to(dev, torch.bfloat16)
     L_e = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    plan = ps.launch_plan(batch, 300, width, n_hidden)
+    assert [ch.nl for ch in plan.chunks] == [128, 128, 44]
     before = ps.LAUNCHES
     got = ps.pair_logits_tiled(folded, P_e, L_e, label_tile=128)
     want = ps.pair_logits_tiled_reference(folded, P_e, L_e, label_tile=128)
     torch.cuda.synchronize()
-    assert ps.LAUNCHES - before == 3 * n_hidden  # 3 label chunks
+    assert ps.LAUNCHES - before == len(plan.launches())  # 3 chunks x n_hidden
     assert float(want.std()) > 0.3
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_one_chunk_on_card():
+    """The default plan: one chunk of all 300 labels, padded to 384 rows a
+    sequence, 15 row tiles on 12 column tiles of 256."""
+    dev = _card()
+    rng = np.random.default_rng(4)
+    folded = _folded(rng, 16, 3072, 2, dev)
+    P_e = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    L_e = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    before = ps.LAUNCHES
+    got = ps.pair_logits_tiled(folded, P_e, L_e)
+    want = ps.pair_logits_tiled_reference(folded, P_e, L_e)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES - before == 2
+    assert float(want.std()) > 0.3
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_what_it_does_not_take_on_card():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    P_e = torch.zeros(3, 16, device=dev, dtype=torch.bfloat16)
+    L_e = torch.zeros(40, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ps.pair_logits_tiled(_folded(rng, 16, 96, 2, dev), P_e, L_e)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ps.pair_logits_tiled(_folded(rng, 16, 128, 2, dev), P_e, L_e,
+                             compute_dtype=torch.float32)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,7 @@ TOL = {"f32": 1e-5, "bf16": 5e-3}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _output_mlp(rng, fusion, n_layers):
+def _output_mlp(rng, fusion, n_layers, H=H):
     """Random output-MLP params and BN state (numpy, JAX layout), with BN
     statistics far from identity so that folding matters."""
     in_dim = {"concatenation": 2 * D}.get(fusion, 3 * D)
@@ -141,3 +141,93 @@ def test_no_scorer_for_other_devices():
     meta = torch.zeros(B, D, device="meta")
     with pytest.raises(ValueError, match="no pair scorer"):
         tps.pair_logits_tiled(_folded(rng), meta, torch.zeros(L, D, device="meta"))
+
+
+# K1's launch geometry (ops/pair_scorer.py:launch_plan): what the CUDA
+# wrapper launches, checked here on shapes alone
+PLAN_CASES = [  # (B, L, H, target_rows, SMs)
+    (32, 64204, 3072, 16384, 132),  # the serving batch: 126 chunks of 512 labels
+    (32, 64204, 3072, 8192, 132),
+    (1, 37, 128, 16384, 132),  # one chunk of 37 labels padded to 128 rows
+    (5, 300, 384, 640, 132),  # 3 chunks of 128 labels, the last ragged; BN 128
+    (3, 1000, 256, 10**6, 8),  # one chunk, more tiles than blocks
+    (7, 129, 640, 896, 132),  # ragged by one label
+]
+
+
+@pytest.mark.parametrize("B,L,H,target,sms", PLAN_CASES)
+def test_launch_plan_geometry(B, L, H, target, sms):
+    plan = tps.launch_plan(B, L, H, 2, num_sms=sms, target_rows=target)
+    assert plan.block_n == (256 if H % 256 == 0 else 128)
+    assert plan.chunk % tps.BLOCK_M == 0
+    covered = np.zeros(L, np.int64)
+    for ch in plan.chunks:
+        covered[ch.l0 : ch.l0 + ch.nl] += 1
+        assert 0 < ch.nl <= plan.chunk and ch.nl_pad % tps.BLOCK_M == 0
+        assert ch.nl <= ch.nl_pad < ch.nl + tps.BLOCK_M
+        # every 128-row tile of rows b * nl_pad + l lies within one sequence
+        starts = np.arange(ch.tiles_m) * tps.BLOCK_M
+        assert np.array_equal(starts // ch.nl_pad, (starts + tps.BLOCK_M - 1) // ch.nl_pad)
+        assert ch.tiles_m * tps.BLOCK_M == B * ch.nl_pad
+        assert ch.tiles_n * plan.block_n == H
+        assert ch.grid == min(sms, ch.tiles_m * ch.tiles_n)
+    assert (covered == 1).all()  # each label in exactly one chunk
+    assert [ch.l0 for ch in plan.chunks] == sorted(ch.l0 for ch in plan.chunks)
+    assert plan.workspace_rows == B * max(ch.nl_pad for ch in plan.chunks)
+    launches = plan.launches()
+    assert len(launches) == 2 * len(plan.chunks)
+    assert [(i, m) for _, i, m in launches[:2]] == [(0, 1), (1, 2)]
+
+
+def test_launch_plan_serving_batch():
+    """The serving batch: 256 labels a chunk, 251 chunks (the last 204
+    labels, padded to 256), 768 tiles of 128 x 256 on 132 blocks."""
+    plan = tps.launch_plan(32, 64204, 3072, 2)
+    assert plan.chunk == 256 and len(plan.chunks) == 251
+    assert (plan.chunks[-1].nl, plan.chunks[-1].nl_pad) == (204, 256)
+    assert plan.chunks[0].tiles_m * plan.chunks[0].tiles_n == 768
+    assert plan.chunks[0].grid == 132 and len(plan.launches()) == 502
+    assert plan.workspace_rows == 8192
+
+
+@pytest.mark.parametrize("n_hidden,modes", [(1, [3]), (2, [1, 2]), (3, [1, 0, 2])])
+def test_launch_plan_modes(n_hidden, modes):
+    plan = tps.launch_plan(2, 300, 256, n_hidden, target_rows=256)
+    assert len(plan.chunks) == 3
+    assert [m for _, _, m in plan.launches()] == modes * 3
+    assert [i for _, i, _ in plan.launches()] == list(range(n_hidden)) * 3
+
+
+@pytest.mark.parametrize("H", [96, 200])
+def test_launch_plan_refuses_width(H):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tps.launch_plan(2, 10, H, 2)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n_layers", [2, 3, 4])  # 1-3 hidden layers: every launch mode
+def test_plan_layout_matches_jax(n_layers, dtype):
+    """The plain chain over K1's padded chunk layout (rows b * nl_pad + l, c
+    rows past L zero, padded rows left out of the logits) against JAX's
+    ``pair_logits_tiled`` on the same numpy inputs; L is not a multiple of
+    the chunk, so the last chunk is ragged and padded."""
+    width, Lc = 128, 300
+    rng = np.random.default_rng(10 + n_layers)
+    p, s = _output_mlp(rng, "concatenation_diff", n_layers, H=width)
+    P_e = rng.normal(size=(B, D)).astype(np.float32)
+    L_e = rng.normal(size=(Lc, D)).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    (jp, tp), (js, ts) = _pair(p), _pair(s)
+    j_fold = jps.fold_output_mlp(jp, js, "concatenation_diff", D, dtype=jdt)
+    want = np.asarray(jps.pair_logits_tiled(
+        j_fold, jnp.asarray(P_e).astype(jdt), jnp.asarray(L_e).astype(jdt),
+        label_tile=64, compute_dtype=jdt))
+    plan = tps.launch_plan(B, Lc, width, n_layers - 1, target_rows=B * 128)
+    assert [(ch.nl, ch.nl_pad) for ch in plan.chunks] == [(128, 128), (128, 128), (44, 128)]
+    t_fold = tps.fold_output_mlp(tp, ts, "concatenation_diff", D, dtype=tdt)
+    got = tps.pair_logits_plan_reference(
+        t_fold, torch.from_numpy(P_e).to(tdt), torch.from_numpy(L_e).to(tdt), plan,
+        compute_dtype=tdt)
+    assert got.dtype == torch.float32 and got.shape == (B, Lc)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL[dtype], rtol=0)
+    assert np.std(want) > 0.05

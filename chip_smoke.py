@@ -54,9 +54,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
     shapes as phase 3), with static scales from ``calibrate_act_scales``
     and with dynamic per-row scales, against its plain version on the same
     device tensors: max |Δlogit|, the carried layer-1 rows of two label
-    chunks compared element by element, the row-scale kernel against its
-    plain version, times from CUDA events beside the 39.2 ms int8 bound,
-    and ``torch._int_mm`` on the same GEMM shapes as the yardstick;
+    chunks compared element by element, the code pass (layer 1's static
+    codes) and the row-scale pass (dynamic scales and codes) against their
+    plain versions, each launch of one chunk timed alone with its ptxas
+    figures, one profiled call of each mode, times from CUDA events
+    beside the 39.2 ms int8 bound, and ``torch._int_mm`` on the same GEMM
+    shapes as the yardstick;
 11. int8 serving: a full-width ``ServingEngine`` with ``PAIR_BACKEND
     tiled_int8`` calibrated from random sequences (``calibrate_from``),
     warmed up, then full batches (batch ms, seqs/s, peak memory), its
@@ -668,8 +671,9 @@ def phase_parity(engine, rng, name="serving_parity"):
 
 def phase_k2(card: str):
     """K2 alone at full serving width, static and dynamic scales, against
-    its plain version on the same device tensors; the row-scale kernel
-    alone against ``_row_scales``; ``torch._int_mm`` on the GEMM shapes."""
+    its plain version on the same device tensors; its launches in parts;
+    the code pass and the row-scale pass alone against their plain
+    versions; ``torch._int_mm`` on the GEMM shapes."""
     import torch
 
     from protnote_tpu_torch.ops import pair_scorer as ps
@@ -716,6 +720,8 @@ def phase_k2(card: str):
             if not (err <= LOGIT_ATOL and perr <= PROB_ATOL and differ == 0):
                 raise AssertionError(f"K2 ({mode}) disagrees with the plain version: logit "
                                      f"{err}, prob {perr}, {differ} carried values differ")
+        parts = k2_parts(qs, P_e, L_e)
+        codes = k2_codes(qs["static"], P_e, L_e)
         rs = k2_row_scale(qs["dynamic"], P_e, L_e)
         # the yardstick: the same int8 GEMMs as one library call each, with
         # W row-major as the plain version holds it and column-major as K2
@@ -730,68 +736,168 @@ def phase_k2(card: str):
     log("k2_time", static_ms=out["static"]["ms"], dynamic_ms=out["dynamic"]["ms"],
         static_plain_ms=out["static"]["plain_ms"], dynamic_plain_ms=out["dynamic"]["plain_ms"],
         int_mm_ms=int_mm, int_mm_products=n_products, bound_ms=ops / INT8_OPS * 1e3,
+        codes_ms=codes["ms"], codes_plain_ms=codes["plain_ms"],
         row_scale_ms=rs["ms"], row_scale_plain_ms=rs["plain_ms"], card=card)
+    log("k2_parts", **parts, card=card)
     layer = {"max_abs_err": max(v["max_abs_err"] for v in out.values()),
              "ms": out["static"]["ms"], "plain_ms": out["static"]["plain_ms"],
              **bound(ops=ops, peak=INT8_OPS), "library_ms": library_ms}
-    return {"pair_int8_layer": layer, "pair_int8_row_scale": rs}
+    return {"pair_int8_layer": layer, "pair_int8_codes": codes, "pair_int8_row_scale": rs}
 
 
-def k2_row_scale(q, P_e, L_e):
-    """The row-scale kernel alone: against ``_row_scales`` on the same rows
-    of two chunks (layer 1 from a and c, layer 2 from the kernel's bf16
-    carry), and the time of its 2 x 126 launches of a batch."""
+def k2_variants():
+    """Each of K2's compiled GEMM variants (column tile, epilogue, dynamic):
+    its ptxas registers, barriers and spills, and its dynamic shared
+    memory."""
+    import ctypes
+    import re
+
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    lib = load_kernel_library("pair_scorer_int8")
+    smem = lib.lib.pair_int8_layer_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    out, name, spills = [], None, None
+    for line in lib.build_log.splitlines():
+        m = re.search(r"pair_int8_layer_kernelILi(\d+)ELi(\d)ELb([01])E", line)
+        if m:
+            name = (int(m.group(1)), int(m.group(2)), m.group(3) == "1")
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            bn, epi, dyn = name
+            out.append({"block_n": bn, "epilogue": ("codes", "bf16", "dot")[epi],
+                        "dynamic": dyn, "ptxas": line.strip(), "spills": spills,
+                        "smem_bytes": smem(bn, epi)})
+            name = None
+    return out
+
+
+def k2_parts(qs, P_e, L_e):
+    """K2 in parts at full width: each launch of one full chunk alone, from
+    CUDA events (static: the code pass, the GEMM with the code epilogue,
+    the GEMM with the dot; dynamic: the row-scale pass from a and c and
+    from bf16 rows, the GEMM with the bf16 epilogue, the GEMM with the
+    dot), each also scaled to the batch's chunks; and one profiled call of
+    each mode."""
     import torch
 
     from protnote_tpu_torch.ops import pair_scorer as ps
 
-    k = ps._Int8Kernel(q, P_e, L_e, LABEL_TILE, torch.bfloat16)
-    L_rows = L_e.shape[0]
+    launches = {}
+    for mode, q in qs.items():
+        k = ps._Int8Kernel(q, P_e, L_e, torch.bfloat16)
+        ch = k.plan.chunks[0]
+        logits = k.new_logits()
+        with torch.cuda.device(P_e.device):
+            for i in range(2):
+                k.quantize(ch, i if mode == "dynamic" else 0)
+                launches[f"{mode}_{'row_scale' if mode == 'dynamic' else 'codes'}_{i}"] = \
+                    cuda_time_ms(lambda: k.quantize(ch, i if mode == "dynamic" else 0), 20)
+                launches[f"{mode}_layer_{i}"] = cuda_time_ms(lambda: k.layer(ch, i, logits), 20)
+        chunk_rows = B * ch.nl_pad
+        del k, logits
+    launches.pop("static_codes_1")  # the code pass runs for layer 1 only
+    batch = {name: ms * B * L_e.shape[0] / chunk_rows for name, ms in launches.items()}
+    layer_tops = {name: 2.0 * chunk_rows * H * H / ms / 1e9
+                  for name, ms in launches.items() if "layer" in name}
+    # one profiled call of each mode: device busy time against the wall, and
+    # by kernel (the launches above are timed back to back from the host)
+    profile = {}
+    for mode, q in qs.items():
+        wall, busy, top = device_profile(lambda: ps.pair_logits_tiled_int8_cuda(q, P_e, L_e), 1)
+        profile[mode] = {"wall_ms": wall * 1e3,
+                         "device_busy_ms": None if busy is None else busy * 1e3,
+                         "top_kernels_ms": top}
+    return {"variants": k2_variants(), "chunk_rows": chunk_rows, "launch_ms": launches,
+            "batch_ms": batch, "layer_tops": layer_tops, "profile": profile}
 
-    def launch(l0, nl, src):
-        err = k.scale_fn(k.a.data_ptr(), k.c.data_ptr(), None if src is None else src.data_ptr(),
-                         k.row_scale.data_ptr(), nl, l0, B * nl, H, 8, 1.3, int(src is None),
-                         k.stream)
-        if err != 0:
-            raise RuntimeError(f"pair_int8_row_scale launch failed: CUDA error {err}")
 
-    def plain_first(l0, nl):
-        h = torch.relu(k.a[:, None, :] + k.c[None, l0:l0 + nl, :]).reshape(B * nl, -1)
-        return ps._row_scales(h.to(torch.bfloat16))[:, 0]
+def k2_codes(q, P_e, L_e):
+    """Layer 1's static code pass alone: against ``int8_codes_reference``
+    on the first and the ragged last chunk of the plan, element by element,
+    and the time of its launches over a batch's chunks."""
+    import torch
 
-    chunks = [(l0, min(LABEL_TILE, L_rows - l0)) for l0 in range(0, L_rows, LABEL_TILE)]
-    err = 0.0
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    k = ps._Int8Kernel(q, P_e, L_e, torch.bfloat16)
+    s0 = q.act_scales[0]
+    differ, err = 0, 0
     with torch.cuda.device(P_e.device):
-        for l0, nl in K2_CHUNKS:
-            launch(l0, nl, None)
-            err = max(err, float((k.row_scale[:B * nl] - plain_first(l0, nl)).abs().max()))
-            carry = ps.int8_carry_cuda(q, P_e, L_e, l0, nl)
-            launch(l0, nl, carry)
-            err = max(err, float((k.row_scale[:B * nl] - ps._row_scales(carry)[:, 0]).abs().max()))
-        work = k.work[0] if k.work else torch.zeros(B * LABEL_TILE, H, dtype=torch.bfloat16,
-                                                       device=P_e.device)
-        work.copy_(ps.int8_carry_cuda(q, P_e, L_e, 0, LABEL_TILE))
+        for ch in (k.plan.chunks[0], k.plan.chunks[-1]):
+            k.quantize(ch, 0)
+            want = ps.int8_codes_reference(k.a, k.c, ch, s0)
+            got = k.codes[0][:B * ch.nl_pad]
+            differ += int((got != want).sum())
+            err = max(err, int((got.int() - want.int()).abs().max()))
 
         def kernel_pass():
-            for l0, nl in chunks:
-                launch(l0, nl, None)
-                launch(l0, nl, work)
+            for ch in k.plan.chunks:
+                k.quantize(ch, 0)
 
         def plain_pass():
-            for l0, nl in chunks:
-                plain_first(l0, nl)
-                ps._row_scales(work[:B * nl])
+            for ch in k.plan.chunks:
+                ps.int8_codes_reference(k.a, k.c, ch, s0)
 
         ms = cuda_time_ms(kernel_pass, 3)
         plain_ms = cuda_time_ms(plain_pass, 1)
-    log("k2_row_scale_check", chunks=len(K2_CHUNKS), max_abs_err=err)
-    if err != 0.0:
-        raise AssertionError(f"the row-scale kernel disagrees with _row_scales: {err}")
-    # bytes the function needs: a and c at every 8th column (layer 1), the
-    # bf16 carry at every 8th column (layer 2), one float32 scale a row out
+    log("k2_codes_check", chunks=2, codes_differ=differ, max_abs_err=err)
+    if differ or err:
+        raise AssertionError(f"the code pass disagrees with its plain version: {differ} codes, "
+                             f"largest difference {err}")
+    # bytes the function needs: a and c read once, one code a pair element
+    L_rows = L_e.shape[0]
+    nbytes = 4.0 * (B + L_rows) * H + 1.0 * B * L_rows * H
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, **bound(nbytes=nbytes),
+            "library_ms": None}
+
+
+def k2_row_scale(q, P_e, L_e):
+    """The row-scale pass alone: its scales and codes against
+    ``int8_row_scale_reference`` on the first and the ragged last chunk
+    (layer 1 from a and c, layer 2 from the kernel's bf16 carry), and the
+    time of its 2 x chunks launches of a batch."""
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    k = ps._Int8Kernel(q, P_e, L_e, torch.bfloat16)
+    err, differ = 0.0, 0
+    with torch.cuda.device(P_e.device):
+        for ch in (k.plan.chunks[0], k.plan.chunks[-1]):
+            rows = B * ch.nl_pad
+            for i in range(2):
+                k.quantize(ch, i)
+                x = ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16) if i == 0 else k.h[:rows]
+                want_s, want = ps.int8_row_scale_reference(x)
+                err = max(err, float((k.row_scale[:rows] - want_s).abs().max()))
+                differ += int((k.codes[0][:rows] != want).sum())
+                if i == 0:
+                    k.layer(ch, 0, None)  # the bf16 carry layer 2 reads
+
+        def kernel_pass():
+            for ch in k.plan.chunks:
+                k.quantize(ch, 0)
+                k.quantize(ch, 1)
+
+        def plain_pass():
+            for ch in k.plan.chunks:
+                ps.int8_row_scale_reference(ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16))
+                ps.int8_row_scale_reference(k.h[:B * ch.nl_pad])
+
+        ms = cuda_time_ms(kernel_pass, 3)
+        plain_ms = cuda_time_ms(plain_pass, 1)
+    log("k2_row_scale_check", chunks=2, max_abs_err=err, codes_differ=differ)
+    if err != 0.0 or differ:
+        raise AssertionError(f"the row-scale pass disagrees with its plain version: scales "
+                             f"{err}, {differ} codes")
+    # bytes the function needs: a and c (layer 1) and the bf16 carry (layer
+    # 2) read once, one code a pair element and one float32 scale a row out
     # per layer
+    L_rows = L_e.shape[0]
     rows = B * L_rows
-    nbytes = 4.0 * (B + L_rows) * H / 8 + 2.0 * rows * H / 8 + 8.0 * rows
+    nbytes = 4.0 * (B + L_rows) * H + 2.0 * rows * H + 2 * (1.0 * rows * H + 4.0 * rows)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes=nbytes),
             "library_ms": None}
 
@@ -889,7 +995,8 @@ def phase_int8_eval(card: str, bf16_metrics: dict):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         launches = dict(ps.INT8_LAUNCHES)
-        ran = launches["pair_int8_layer"] > 0 and (calibrate or launches["pair_int8_row_scale"] > 0)
+        ran = launches["pair_int8_layer"] > 0 and \
+            launches["pair_int8_codes" if calibrate else "pair_int8_row_scale"] > 0
         if not ran or (trainer.pn_cfg.int8_act_scales is not None) != calibrate:
             raise AssertionError(f"int8 evaluation ({mode}) skipped a kernel or the "
                                  f"calibration: {launches}, {trainer.pn_cfg.int8_act_scales}")
@@ -1849,7 +1956,7 @@ def main() -> None:
     } for k, (src, rep) in train_kernels.items()] + [{
         "name": k, "route": "cuda", "source": "protnote_tpu_torch/csrc/pair_scorer_int8.cu",
         "replaces": "protnote_tpu/ops/pair_scorer.py:375", "launches": int8_launches[k], **k2[k],
-    } for k in ("pair_int8_layer", "pair_int8_row_scale")] + [{
+    } for k in ("pair_int8_layer", "pair_int8_codes", "pair_int8_row_scale")] + [{
         "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
         "replaces": rep, "launches": tower_launches[k],
         **{f: k8_times["a"][k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -1,0 +1,204 @@
+// Hopper (sm_90a) building blocks shared by the port's warp-specialised
+// kernels (pair_scorer.cu, pair_scorer_int8.cu): TMA tensor maps and copies,
+// mbarriers, async-proxy fences, named barriers, wgmma shared-memory
+// descriptors and the wgmma fence/commit/wait instructions; and the
+// shared-memory address, bf16 packing and division helpers.
+// text_attention.cu takes the descriptors, the wgmma instructions, the
+// async-proxy fence and those helpers.  ops/kernels.py hashes every csrc/*.cuh
+// with each source, so an edit here rebuilds every library that includes
+// it.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// 2-D TMA load of the box at (column c0, row c1) into shared memory; rows
+// past the tensor's end arrive as zeros and count toward the bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 2-D TMA store of a shared-memory box to (column c0, row c1), in the
+// thread's bulk group; rows past the tensor's end are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory, made visible to TMA (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier of one warpgroup's 128 threads (ids 1.. ; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_b16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms 1024 bytes apart.  A k-step of 32 bytes (16
+// bf16 or 32 int8) inside the swizzled row advances the start address by 2
+// (16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across a wgmma
+// fence or wait
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// asm operand lists of wgmma accumulators: F for float32, I for int32
+#define F8(d, i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D64(d) F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
+#define D128(d) \
+  D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88), F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
+#define I8(d, i)                                                                        \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+#define I64(d) I8(d, 0), I8(d, 8), I8(d, 16), I8(d, 24), I8(d, 32), I8(d, 40), I8(d, 48), I8(d, 56)
+#define I128(d) \
+  I64(d), I8(d, 64), I8(d, 72), I8(d, 80), I8(d, 88), I8(d, 96), I8(d, 104), I8(d, 112), I8(d, 120)
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a / b rounded to nearest even, given r = 1 / b rounded to nearest (one
+// reciprocal for many quotients): q = a * r is within two ulps of a / b,
+// and each correction q + (a - b q) r, with the remainder exact in an FMA,
+// at least halves the error, so after the second q is a / b correctly
+// rounded (Markstein) -- the value a true division gives, without a
+// reciprocal and a range check per quotient.  Both users keep a / b in the
+// normal range or send it to 0 (a quotient below 2^-126 may differ in its
+// last subnormal bit): K8a's e / l with e in [0, 1], l in [1, 512], and K2's
+// x / s_act, whose code rint(x / s_act) is 0 for any quotient below 0.5.
+__device__ __forceinline__ float div_rn(float a, float b, float r) {
+  float q = __fmul_rn(a, r);
+  q = __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint), so
+// the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (EncodeTiledFn) nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The element types the maps take: float32, bf16 and int8 (TMA moves int8 as
+// its bytes, so it is encoded as UINT8).
+enum class MapType { F32, BF16, S8 };
+
+// a row-major (rows, cols) tensor as a 2-D map with box (box_rows, box_cols)
+bool make_map(CUtensorMap* map, const void* ptr, MapType type, uint64_t rows, uint64_t cols,
+              uint32_t box_rows, uint32_t box_cols, bool swizzle) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const uint64_t elem_bytes = type == MapType::F32 ? 4 : type == MapType::BF16 ? 2 : 1;
+  const CUtensorMapDataType dt = type == MapType::F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : type == MapType::BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                         : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

@@ -56,10 +56,8 @@
 //   the thread's columns, then the quad's, and adds one value a row per
 //   column tile into the logits (12 adds a logit at H 3072).
 
-#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+
 #include <string.h>
 
 #include <type_traits>
@@ -102,114 +100,14 @@ struct Layout {
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// 2-D TMA load of the box at (column c0, row c1) into shared memory; rows
-// past the tensor's end arrive as zeros and count toward the bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// 2-D TMA store of a shared-memory box to (column c0, row c1), in the
-// thread's bulk group; rows past the tensor's end are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group [%0, {%2, %3}], [%1];\n"
-               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// wait until at most N of the thread's bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// generic-proxy writes to shared memory, made visible to TMA (async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// a barrier of one warpgroup's 128 threads (ids 1.. ; 0 is __syncthreads)
-__device__ __forceinline__ void warpgroup_barrier(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row atoms 1024 bytes apart.  A k-step of 16 bf16 (32
-// bytes) inside the swizzled row advances the start address by 2 (16-byte
-// units).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across a wgmma
-// fence or wait
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
+// keeps the compiler from reusing the first layer's A-fragment registers
+// while a wgmma in flight still reads them
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
-
-#define F8(d, i)                                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D64(d) F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
-#define D128(d) \
-  D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88), F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
 
 // wgmma m64nBNk16, bf16 in, f32 accumulators: ss reads A and B through
 // descriptors, rs takes A from registers (four .b32 of two bf16 each, in the
@@ -286,15 +184,6 @@ struct Mma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <int BN, bool PAIR_A, bool DOT_OUT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -498,41 +387,6 @@ pair_mlp_layer_kernel(const __grid_constant__ CUtensorMap tm_w,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint), so
-// the library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return (EncodeTiledFn) nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// a row-major (rows, cols) tensor as a 2-D map with box (box_rows, box_cols)
-bool make_map(CUtensorMap* map, const void* ptr, bool f32, uint64_t rows, uint64_t cols,
-              uint32_t box_rows, uint32_t box_cols, bool swizzle) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * (f32 ? 4 : 2)};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Args {
   CUtensorMap tm_w, tm_x, tm_c, tm_a, tm_o;
   const float* bias;
@@ -590,14 +444,14 @@ extern "C" int pair_mlp_layer(const void* a, const void* c, const void* x_in, co
   Args p;
   memset(&p, 0, sizeof(p));
   const uint64_t M = (uint64_t)B * nl_pad;
-  bool ok = make_map(&p.tm_w, wt, false, N, K, block_n, BK, true);
+  bool ok = make_map(&p.tm_w, wt, MapType::BF16, N, K, block_n, BK, true);
   if (pair_a) {
-    ok = ok && make_map(&p.tm_c, c, true, L, K, BM, 32, true) &&
-         make_map(&p.tm_a, a, true, B, K, 1, BK, false);
+    ok = ok && make_map(&p.tm_c, c, MapType::F32, L, K, BM, 32, true) &&
+         make_map(&p.tm_a, a, MapType::F32, B, K, 1, BK, false);
   } else {
-    ok = ok && make_map(&p.tm_x, x_in, false, M, K, BM, BK, true);
+    ok = ok && make_map(&p.tm_x, x_in, MapType::BF16, M, K, BM, BK, true);
   }
-  if (!(mode & 2)) ok = ok && make_map(&p.tm_o, x_out, false, M, N, 64, 64, true);
+  if (!(mode & 2)) ok = ok && make_map(&p.tm_o, x_out, MapType::BF16, M, N, 64, 64, true);
   if (!ok) return (int)cudaErrorInvalidValue;
   p.bias = static_cast<const float*>(bias);
   p.w_out = static_cast<const __nv_bfloat16*>(w_out);

@@ -3,458 +3,522 @@
 // with int32 accumulators.
 //
 // Replaces the TPU op chain protnote_tpu/ops/pair_scorer.py:375
-// pair_logits_tiled_int8 (with quantize_folded :295 and the scaffold of
-// :197).  For a chunk of labels [l0, l0 + nl) and all B sequences, rows
-// r = b * nl + l are (sequence, label) pairs.  Each hidden layer i computes
+// pair_logits_tiled_int8 (with quantize_folded :295 and the dynamic scales
+// :432-447).  For a chunk of labels [l0, l0 + nl), padded by the caller to
+// nl_pad rows a sequence (a multiple of the 128-row tile, so a tile lies in
+// one sequence; ops/pair_scorer.py:launch_plan, shared with K1), rows
+// r = b * nl_pad + l are (sequence, label) pairs.  Each hidden layer i is
 //
-//   y    = hq_i @ Wq_i                                  (int32, exact)
-//   h    = bf16(relu(y * alpha + bias_i))               (f32 epilogue)
+//   y     = hq_i @ Wq_i                                 (int32, exact)
+//   h     = bf16(relu(y * alpha + bias_i))              (f32 epilogue)
 //   alpha = s_i * s_w[col]                              static scales
 //         = s_act[row] * s_w[col]                       dynamic scales
 //
-// where hq_i, the layer's int8 input codes, come from
-//   layer 1:  clip(rint(bf16(relu(a[b] + c[l0 + l])) * inv_s0), -127, 127)
-//             (static) or clip(rint(... / s_act[row]), -127, 127) (dynamic),
-//             formed in shared memory from the f32 a and c (x1 never
-//             reaches device memory in any type, as in K1);
-//   static:   the previous layer's carried codes clip(rint(h * inv_s_i), 0,
-//             127), written by its epilogue into the chunk workspace (int8);
-//   dynamic:  the previous layer's bf16 h, quantized in shared memory with
-//             the row's scale clip(rint(h / s_act[row]), -127, 127).
+// on int8 codes hq_i that every launch reads from a chunk workspace:
+//   pair_int8_codes (static, layer 1):
+//       clip(rint(bf16(relu(a[b] + c[l0 + l])) * inv_s0), -127, 127);
+//   pair_int8_layer's code epilogue (static, the next layer's input):
+//       clip(rint(h * inv_s_{i+1}), 0, 127);
+//   pair_int8_row_scale (dynamic, before every layer): the row's scale
+//       s_act = max(max |x[r, 0::stride]| * margin, 1e-12) * float32(1 / 127)
+//       over x = bf16(relu(a + c)) (layer 1) or the previous layer's bf16 h,
+//       and the row's codes clip(rint(x / s_act), -127, 127), a correctly
+//       rounded division an element (div_rn: the row's reciprocal and two
+//       FMA corrections; the layer's epilogue stores bf16 h for it).
 // inv_s = float32(1 / s) comes from the caller: the JAX chain divides by the
 // static scales in its source, but they are compile-time constants there,
 // and XLA compiles a division by a constant into a multiply by its float32
-// reciprocal; a division by data (s_act) stays a division.
-// The last layer dots its h with w_out and adds the row sums into the logits
-// (pre-filled with b_out by the caller) with atomics, as K1 does.
-//
-// pair_int8_row_scale computes the dynamic scales, one warp per row:
-// s_act = max(max |x[r, 0::stride]| * margin, 1e-12) * float32(1 / 127) over
-// x = bf16(relu(a + c)) (layer 1) or the bf16 workspace (later layers).
-//
-// Every product, sum and quotient is rounded on its own (__fmul_rn,
-// __fadd_rn, __fdiv_rn, rintf: no FMA contraction, half to even), so the
-// carried codes equal the plain version's (ops/pair_scorer.py,
-// _int8_hidden_reference) bit for bit; only the w_out reduction order and
-// its atomics differ.
+// reciprocal; a division by data (s_act) stays a division.  The last layer
+// dots its h with w_out and adds the row sums into the logits (pre-filled
+// with b_out by the caller) with atomics, as K1 does.  Every product, sum
+// and quotient is rounded on its own (__fmul_rn, __fadd_rn, div_rn,
+// rintf: no FMA contraction, half to even), so the carried codes equal the
+// plain version's (ops/pair_scorer.py, _int8_hidden_reference) bit for bit;
+// only the w_out reduction order and its atomics differ.
 //
 // What bounds it: the hidden H x H GEMMs.  At the full serving width (32
 // sequences x 64,204 label rows, H = 3072, two hidden layers) a batch is
 // 2 x 2 x 2,054,528 x 3072^2 = 77.6 T int8 operations, 39.2 ms at the
-// 1,979 TOPS int8 peak.  This first design is K1's, with int8 tiles: 128 x
-// 128 x 32 block tiles, 8 warps of WMMA s8 16x16x16 products (mma.sync),
-// two blocks per SM, a ring of cp.async stages.  Tiles are stored k-sliced
-// ([k / 16][row][16 bytes]) so that each 16x16 fragment is one contiguous,
-// 256-byte-aligned block and each cp.async chunk lands whole; W comes in
-// column-major (N, K), the layout the s8 products take, laid out once per
-// call by the wrapper.  wgmma for s8, TMA and a persistent schedule are the
-// next steps toward the bound.
+// 1,979 TOPS int8 peak.  The GEMM is K1's mainloop (csrc/pair_scorer.cu) on
+// s8: persistent, one block an SM walking (row tile, column tile) with the
+// column tiles fastest; one producer thread keeps a ring of TMA stages full
+// (full/empty mbarriers, 128-byte swizzle: a 128-byte stage row is 128 int8
+// values, four k-steps of 32); two consumer warpgroups issue
+// wgmma.mma_async m64nBNk32.s32.s8.s8 on 128 x BN tiles (BN 256, or 128
+// when H is an odd multiple of 128) with both operands K-major in shared
+// memory; the producer's warpgroup gives its registers to the consumers.
+// Epilogues run from the accumulator registers: codes or bf16 leave through
+// swizzled shared-memory boxes and TMA stores under the next tile's
+// products, the dot with w_out adds one value a row per column tile.  Layer
+// 1's A operand is a pass of its own (pair_int8_codes), not formed in
+// registers as K1 forms x1: the f32 c tile is 4 bytes for each 1-byte
+// operand value, re-read from L2 for every column tile, and only two such
+// stages fit.  Formed in registers (the register-A s8 wgmma), layer 1 of a
+// chunk of 8,192 rows took 0.49 ms on an H100 80GB HBM3 (700 W) against
+// 0.15 for the code pass and this GEMM; a chunk's codes (8,192 rows x 3072
+// = 25 MB) stay in the 50 MB L2 for the GEMM.
 //
-// Indexing: the largest buffer is a chunk workspace of 16,384 x 3072
-// (50 MB as int8, 100 MB as bf16) and c has 197 M elements, all below
-// 2^31, so 32-bit element indices suffice; pointer offsets are formed in
-// size_t all the same.
+// Indexing: the largest workspace is a chunk of 16,384 x 3072 bf16 (100
+// MB) and c has 197 M elements, all below 2^31, so 32-bit element indices
+// suffice; pointer offsets are formed in size_t all the same.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
+#include <string.h>
 
 namespace {
 
-constexpr int BM = 128;            // pair rows per block
-constexpr int BN = 128;            // output columns per block
-constexpr int BK = 32;             // reduction depth per k-step (bytes of int8)
-constexpr int KS = 16;             // depth of one WMMA s8 product
-constexpr int THREADS = 256;       // 8 warps: 2 (rows) x 4 (columns)
-constexpr int TILE_BYTES = BM * BK;  // an int8 A or B tile, k-sliced
-constexpr int X_LD = BK + 8;       // padded row stride of the bf16 ring tile
-constexpr int CF_LD = BK + 4;      // padded row stride of the f32 c ring tile
-constexpr int E_LD = 16 + 4;       // per-warp int32 epilogue scratch stride
+constexpr int BM = 128;          // pair rows a tile: two consumer warpgroups of 64
+constexpr int BK = 128;          // reduction depth a stage: one 128-byte row of int8
+constexpr int CONSUMERS = 2;     // consumer warpgroups; the producer's is the last
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int SMEM_LIMIT = 232448;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int EPI_BOX = 64 * 128;  // one 64-row x 128-byte box of the output
 
-static_assert(BM == BN, "A and B tiles share TILE_BYTES");
+// Where the epilogue goes.
+enum Epi { E_CODES = 0, E_BF16 = 1, E_DOT = 2 };
 
-// Where the layer's A operand comes from, and where its epilogue goes.
-enum AMode { A_FIRST = 0, A_CODES = 1, A_BF16 = 2 };
-enum EMode { E_CODES = 0, E_BF16 = 1, E_DOT = 2 };
-
-// Shared memory of one variant: a ring of STAGES stages, each an A-side
-// tile (the f32 c tile of layer 1, the bf16 activations, or the int8 codes)
-// and an int8 W tile; the int8 A tile formed per k-step (not for A_CODES);
-// the per-row logit sums.
-template <int AM>
+// Shared memory of one variant: a ring of STAGES stages, each the W^T tile
+// (BN rows of BK int8) and the A tile (128 rows of BK int8 codes); for a
+// store epilogue two output boxes a consumer warpgroup; then the mbarriers.
+// Every tile starts on a 1024-byte swizzle atom.
+template <int BN, bool STORE>
 struct Layout {
-  static constexpr int STAGES = AM == A_FIRST ? 3 : 4;
-  static constexpr int A_BYTES = AM == A_FIRST ? BM * CF_LD * 4
-                                 : AM == A_BF16 ? BM * X_LD * 2 : TILE_BYTES;
-  static constexpr int B_OFF = STAGES * A_BYTES;
-  static constexpr int TILE_OFF = B_OFF + STAGES * TILE_BYTES;
-  static constexpr int SUM_OFF = TILE_OFF + (AM == A_CODES ? 0 : TILE_BYTES);
-  static constexpr int BYTES = SUM_OFF + BM * 4;
-  static_assert(8 * 16 * E_LD * 4 <= B_OFF, "epilogue scratch must fit in the ring");
-  static_assert(2 * (BYTES + 1024) <= 232448, "two blocks must fit an SM");
-  static_assert(A_BYTES % 128 == 0 && TILE_OFF % 128 == 0, "tiles stay aligned");
+  static constexpr int B_BYTES = BN * BK;
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE = B_BYTES + A_BYTES;
+  static constexpr int EPI_BYTES = STORE ? CONSUMERS * 2 * EPI_BOX : 0;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256 - EPI_BYTES) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int EPI_OFF = STAGES * STAGE;
+  static constexpr int BAR_OFF = EPI_OFF + EPI_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;  // + alignment slack
+  static_assert(STAGE % 1024 == 0, "swizzle atoms");
+  static_assert(STAGES >= 3, "the ring needs three stages");
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// wgmma m64nBNk32, s8 x s8 in, s32 accumulators, both operands K-major in
+// shared memory (8-bit wgmma takes no transpose).  scale_d 0 overwrites.
+template <int BN>
+struct Mma8;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+template <>
+struct Mma8<256> {
+  static __device__ __forceinline__ void ss(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p;\n}\n"
+        : I128(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
-// clip(rint(q), lo, 127) as one byte, q = x / s (DIV) or x * s (a
-// constant's reciprocal)
+template <>
+struct Mma8<128> {
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : I64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// clip(rint(q), lo, 127) as one byte: q = x / s correctly rounded (DIV,
+// through s's rounded reciprocal r: div_rn) or x * s (s a constant's
+// reciprocal, r unused)
 template <bool DIV>
-__device__ __forceinline__ uint32_t quantize(float x, float s, float lo) {
-  const float q = fminf(fmaxf(rintf(DIV ? __fdiv_rn(x, s) : __fmul_rn(x, s)), lo), 127.f);
+__device__ __forceinline__ uint32_t quantize(float x, float s, float r, float lo) {
+  const float q = fminf(fmaxf(rintf(DIV ? div_rn(x, s, r) : __fmul_rn(x, s)), lo), 127.f);
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
 // 4 consecutive values -> 4 int8 codes packed little-endian
 template <bool DIV>
-__device__ __forceinline__ uint32_t quantize4(const float* v, float s, float lo) {
-  return quantize<DIV>(v[0], s, lo) | (quantize<DIV>(v[1], s, lo) << 8) |
-         (quantize<DIV>(v[2], s, lo) << 16) | (quantize<DIV>(v[3], s, lo) << 24);
+__device__ __forceinline__ uint32_t quantize4(const float (&v)[4], float s, float r, float lo) {
+  return quantize<DIV>(v[0], s, r, lo) | (quantize<DIV>(v[1], s, r, lo) << 8) |
+         (quantize<DIV>(v[2], s, r, lo) << 16) | (quantize<DIV>(v[3], s, r, lo) << 24);
 }
 
-// 16-byte global->shared copy; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-template <int AM, int EM, bool DYN>
-__global__ void __launch_bounds__(THREADS, 2)
-pair_int8_layer_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                       const void* __restrict__ x_in, const int8_t* __restrict__ wt,
+template <int BN, int EPI, bool DYN>
+__global__ void __launch_bounds__(THREADS, 1)
+pair_int8_layer_kernel(const __grid_constant__ CUtensorMap tm_w,
+                       const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_o,
                        const float* __restrict__ s_w, const float* __restrict__ bias,
-                       const float* __restrict__ row_scale, void* __restrict__ x_out,
+                       const float* __restrict__ row_scale,
                        const __nv_bfloat16* __restrict__ w_out, float* __restrict__ logits,
-                       float s_in, float inv_in, float inv_next, int nl, int l0, int L, int M,
-                       int K, int N) {
-  using Lay = Layout<AM>;
+                       float s_in, float inv_next, int nl, int nl_pad, int l0, int L, int K,
+                       int tiles_n, int tiles) {
+  using Lay = Layout<BN, EPI != E_DOT>;
   constexpr int STAGES = Lay::STAGES;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* row_sum = reinterpret_cast<float*>(smem_raw + Lay::SUM_OFF);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 2;       // 64-row slab of the block tile
-  const int wn = warp & 3;        // 32-column slab of the block tile
-  const int n0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
-
-  // Layer 1 and the dynamic later layers form the int8 A tile each k-step:
-  // thread (f_row, f_slice) quantizes 16 consecutive values of one row,
-  // one k-slice: divided by its row's scale (dynamic) or multiplied by the
-  // reciprocal of the static one.
-  const int f_row = tid >> 1;
-  const int f_slice = tid & 1;
-  const bool f_ok = r0 + f_row < M;
-  float f_q = 1.f;
-  if (AM != A_CODES) f_q = DYN ? (f_ok ? row_scale[r0 + f_row] : 1.f) : inv_in;
-
-  // Layer 1: the ring carries the f32 c rows of the block's pairs (four
-  // 16-byte chunks a thread per k-step); the thread keeps its a row's 16
-  // values in registers one k-step ahead.
-  const float* c_src[4];
-  bool c_ok[4];
-  const float* a_row = a;
-  float4 ra[4];
-  if (AM == A_FIRST) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + (tid >> 3) + 32 * j;
-      c_ok[j] = r < M;
-      c_src[j] = c_ok[j] ? c + (size_t)(l0 + r % nl) * K + (tid & 7) * 4 : c;
-    }
-    if (f_ok) a_row = a + (size_t)((r0 + f_row) / nl) * K + f_slice * KS;
-  }
-  auto load_a_regs = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      ra[i] = f_ok ? *reinterpret_cast<const float4*>(a_row + kt * BK + 4 * i)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  auto a_stage = [&](int s) { return smem_raw + s * Lay::A_BYTES; };
-  auto b_stage = [&](int s) {
-    return reinterpret_cast<int8_t*>(smem_raw + Lay::B_OFF + s * TILE_BYTES);
-  };
-  // cp.async of one k-step's W tile and A-side tile.
-  auto issue_stage = [&](int s, int kt) {
-    const int k0 = kt * BK;
-    if (AM == A_FIRST) {
-      float* dst = reinterpret_cast<float*>(a_stage(s));
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        cp_async16(dst + ((tid >> 3) + 32 * j) * CF_LD + (tid & 7) * 4, c_src[j] + k0, c_ok[j]);
-    } else if (AM == A_BF16) {
-      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(x_in);
-      __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(a_stage(s));
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int idx = tid + i * THREADS;
-        const int row = idx >> 2;
-        const int col = (idx & 3) * 8;
-        const int r = r0 + row;
-        const bool ok = r < M;
-        cp_async16(dst + row * X_LD + col, src + (size_t)(ok ? r : 0) * K + k0 + col, ok);
-      }
-    } else {
-      const int8_t* src = static_cast<const int8_t*>(x_in);
-      const int r = r0 + f_row;
-      cp_async16(a_stage(s) + f_slice * BM * KS + f_row * KS,
-                 src + (size_t)(f_ok ? r : 0) * K + k0 + f_slice * KS, f_ok);
-    }
-    // W tile: column n of the block, one k-slice of 16 bytes a thread
-    const int n = tid >> 1;
-    cp_async16(b_stage(s) + f_slice * BN * KS + n * KS,
-               wt + (size_t)(n0 + n) * K + k0 + f_slice * KS, true);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar0 = base + Lay::BAR_OFF;
+  auto full_bar = [&](int s) { return bar0 + 8u * s; };
+  auto empty_bar = [&](int s) { return bar0 + 8u * (STAGES + s); };
   const int KT = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) issue_stage(s, s);
-    cp_async_commit();
-  }
-  if (AM == A_FIRST) load_a_regs(0);
 
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed and visible; stage kt-1 and the A tile free
-    const int nxt = kt + STAGES - 1;
-    if (nxt < KT) issue_stage(nxt % STAGES, nxt);
-    cp_async_commit();
-    const int8_t* ta;
-    if (AM != A_CODES) {
-      float v[16];
-      if (AM == A_FIRST) {
-        // x1 = bf16(relu(a + c)), formed in f32
-        const float* cs = reinterpret_cast<const float*>(a_stage(cur)) + f_row * CF_LD +
-                          f_slice * KS;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 cv = *reinterpret_cast<const float4*>(cs + 4 * i);
-          v[4 * i] = round_bf16(fmaxf(__fadd_rn(ra[i].x, cv.x), 0.f));
-          v[4 * i + 1] = round_bf16(fmaxf(__fadd_rn(ra[i].y, cv.y), 0.f));
-          v[4 * i + 2] = round_bf16(fmaxf(__fadd_rn(ra[i].z, cv.z), 0.f));
-          v[4 * i + 3] = round_bf16(fmaxf(__fadd_rn(ra[i].w, cv.w), 0.f));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), CONSUMERS * 4);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * BM;
+        const int n0 = (t % tiles_n) * BN;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(empty_bar(s), phase ^ 1u);
+          const uint32_t st = base + s * Lay::STAGE;
+          mbar_expect_tx(full_bar(s), Lay::STAGE);
+          tma_load(st, &tm_w, kt * BK, n0, full_bar(s));
+          tma_load(st + Lay::B_BYTES, &tm_x, kt * BK, m0, full_bar(s));
+          if (++s == STAGES) {
+            s = 0;
+            phase ^= 1u;
+          }
         }
-        if (kt + 1 < KT) load_a_regs(kt + 1);
+      }
+    }
+  } else {
+    // ---- consumers: wgmma on the ring, then the epilogue ------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row (and row + 8)
+    const int q = lane & 3;   // fragment column pair
+    const int row = wg * 64 + warp * 16 + g;  // the thread's first row in the tile
+    const int lr = warp * 16 + g;             // ... of the warpgroup's 64
+    const uint32_t ebuf = base + Lay::EPI_OFF + wg * 2 * EPI_BOX;
+    int boxes = 0;  // output boxes used so far: they alternate
+    int acc[BN / 2];
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * BM;
+      const int n0 = (t % tiles_n) * BN;
+      int prev = -1;
+      for (int kt = 0; kt < KT; ++kt) {
+        // wait for the stage, issue its four products, then retire the
+        // previous stage's and free its slot
+        mbar_wait(full_bar(s), phase);
+        const uint32_t st = base + s * Lay::STAGE;
+        const uint64_t db = smem_desc(st);
+        const uint64_t da = smem_desc(st + Lay::B_BYTES + wg * 64 * BK);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Mma8<BN>::ss(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (prev >= 0 && lane == 0) mbar_arrive(empty_bar(prev));
+        prev = s;
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty_bar(prev));
+
+      // ---- epilogue: dequantize, bias, ReLU, bf16 from the accumulators ---
+      // acc[4j + 0/1]: row, columns 8j + 2q + 0/1; acc[4j + 2/3]: row + 8
+      const int r0 = m0 + row;
+      const float sr0 = DYN ? row_scale[r0] : s_in;
+      const float sr1 = DYN ? row_scale[r0 + 8] : s_in;
+      // h of accumulator pair (4j + 2 hf, 4j + 2 hf + 1)
+      auto hpair = [&](int j, int hf) {
+        const int col = n0 + 8 * j + 2 * q;
+        const float2 sw = *reinterpret_cast<const float2*>(s_w + col);
+        const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+        const float sr = hf ? sr1 : sr0;
+        const float y0 = __int2float_rn(acc[4 * j + 2 * hf]);
+        const float y1 = __int2float_rn(acc[4 * j + 2 * hf + 1]);
+        return make_float2(
+            round_bf16(fmaxf(__fadd_rn(__fmul_rn(y0, __fmul_rn(sr, sw.x)), bv.x), 0.f)),
+            round_bf16(fmaxf(__fadd_rn(__fmul_rn(y1, __fmul_rn(sr, sw.y)), bv.y), 0.f)));
+      };
+      if (EPI == E_DOT) {
+        float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 wv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(w_out + n0 + 8 * j + 2 * q));
+          const float2 h0 = hpair(j, 0), h1 = hpair(j, 1);
+          p0 += h0.x * wv.x + h0.y * wv.y;  // bf16 x bf16 products are exact in f32
+          p1 += h1.x * wv.x + h1.y * wv.y;
+        }
+        p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+        p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+        if (q == 0) {
+          const int b = r0 / nl_pad;
+          const int l = r0 - b * nl_pad;  // the tile lies in one sequence: l + 8 too
+          float* out = logits + (size_t)b * L + l0;
+          if (l < nl) atomicAdd(out + l, p0);
+          if (l + 8 < nl) atomicAdd(out + l + 8, p1);
+        }
       } else {
-        const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(a_stage(cur)) +
-                                  f_row * X_LD + f_slice * KS;
+        // 128-byte-wide column slices of the warpgroup's 64 rows (128 codes
+        // or 64 bf16) go through two alternating boxes in shared memory
+        // (128-byte swizzled, as the output map reads them) and out by TMA;
+        // the stores run on under the next tile's products
+        constexpr int SLICE = EPI == E_CODES ? 128 : 64;  // columns a box
 #pragma unroll
-        for (int e = 0; e < 16; ++e) v[e] = __bfloat162float(xs[e]);
-      }
-      int8_t* tile = reinterpret_cast<int8_t*>(smem_raw + Lay::TILE_OFF);
-      *reinterpret_cast<uint4*>(tile + f_slice * BM * KS + f_row * KS) =
-          make_uint4(quantize4<DYN>(v, f_q, -127.f), quantize4<DYN>(v + 4, f_q, -127.f),
-                     quantize4<DYN>(v + 8, f_q, -127.f), quantize4<DYN>(v + 12, f_q, -127.f));
-      __syncthreads();  // the A tile is complete
-      ta = tile;
-    } else {
-      ta = reinterpret_cast<const int8_t*>(a_stage(cur));
-    }
-    const int8_t* tb = b_stage(cur);
+        for (int part = 0; part < BN / SLICE; ++part) {
+          const uint32_t box = ebuf + (boxes & 1) * EPI_BOX;
+          ++boxes;
+          if (tid == 0) bulk_wait_read<1>();  // the store that last read this box is done
+          warpgroup_barrier(1 + wg);
 #pragma unroll
-    for (int sl = 0; sl < BK / KS; ++sl) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], reinterpret_cast<const signed char*>(
-            ta + sl * BM * KS + (wm * 64 + i * 16) * KS), KS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], reinterpret_cast<const signed char*>(
-            tb + sl * BN * KS + (wn * 32 + j * 16) * KS), KS);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp done with the ring: reuse it as scratch
-
-  // ---- epilogue: dequantize, bias, ReLU, bf16; then codes, bf16 or w_out --
-  int* scratch = reinterpret_cast<int*>(smem_raw) + warp * 16 * E_LD;
-  if (EM == E_DOT) {
-    for (int i = tid; i < BM; i += THREADS) row_sum[i] = 0.f;
-    __syncthreads();
-  }
-  const int er = lane >> 1;         // fragment row handled by this lane
-  const int ec = (lane & 1) * 8;    // first of its 8 fragment columns
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = wm * 64 + i * 16 + er;
-    const int r = r0 + row;
-    const bool ok = r < M;
-    const float s_row = DYN ? (ok ? row_scale[r] : 0.f) : s_in;
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], E_LD, wmma::mem_row_major);
-      __syncwarp();
-      const int col = n0 + wn * 32 + j * 16 + ec;
-      float h[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float y = __int2float_rn(scratch[er * E_LD + ec + e]);
-        const float alpha = __fmul_rn(s_row, s_w[col + e]);
-        h[e] = round_bf16(fmaxf(__fadd_rn(__fmul_rn(y, alpha), bias[col + e]), 0.f));
-      }
-      if (EM == E_DOT) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          part = __fadd_rn(part, __fmul_rn(h[e], __bfloat162float(w_out[col + e])));
-      } else if (ok) {
-        if (EM == E_CODES) {
-          *reinterpret_cast<uint2*>(static_cast<int8_t*>(x_out) + (size_t)r * N + col) =
-              make_uint2(quantize4<false>(h, inv_next, 0.f), quantize4<false>(h + 4, inv_next, 0.f));
-        } else {
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(x_out) + (size_t)r * N + col) =
-              make_uint4(pack_bf16x2(h[0], h[1]), pack_bf16x2(h[2], h[3]),
-                         pack_bf16x2(h[4], h[5]), pack_bf16x2(h[6], h[7]));
+          for (int jj = 0; jj < SLICE / 8; ++jj) {
+            const int j = (SLICE / 8) * part + jj;
+            const float2 h0 = hpair(j, 0), h1 = hpair(j, 1);
+            if (EPI == E_CODES) {
+              // byte 8 jj + 2q of the row: 16-byte chunk jj / 2, swizzled
+              const uint32_t off = ((((jj >> 1) ^ (lr & 7))) << 4) + (jj & 1) * 8 + 2 * q;
+              const float c0[4] = {h0.x, h0.y, h1.x, h1.y};
+              const uint32_t codes = quantize4<false>(c0, inv_next, 0.f, 0.f);
+              st_shared_b16(box + lr * 128 + off, (uint16_t)(codes & 0xffffu));
+              st_shared_b16(box + (lr + 8) * 128 + off, (uint16_t)(codes >> 16));
+            } else {
+              const uint32_t off = ((jj ^ (lr & 7)) << 4) + 4 * q;  // rows lr, lr + 8 alike
+              st_shared(box + lr * 128 + off, pack_bf16x2(h0.x, h0.y));
+              st_shared(box + (lr + 8) * 128 + off, pack_bf16x2(h1.x, h1.y));
+            }
+          }
+          fence_async_smem();
+          warpgroup_barrier(1 + wg);
+          if (tid == 0) {
+            tma_store(&tm_o, box, n0 + SLICE * part, m0 + wg * 64);
+            bulk_commit();
+          }
         }
       }
-      __syncwarp();
     }
-    if (EM == E_DOT) {
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      if ((lane & 1) == 0) atomicAdd(&row_sum[row], part);
-    }
-  }
-  if (EM == E_DOT) {
-    __syncthreads();
-    for (int i = tid; i < BM; i += THREADS) {
-      const int r = r0 + i;
-      if (r < M) {
-        const int b = r / nl;
-        const int l = r - b * nl;
-        atomicAdd(&logits[(size_t)b * L + l0 + l], row_sum[i]);
-      }
-    }
+    if (EPI != E_DOT && tid == 0) bulk_wait_all();  // the last stores leave before the block
   }
 }
 
-// One warp per pair row: the row's dynamic scale.
+// One warp a pair row of the chunk: its int8 codes, and with DYN its scale.
+// x = bf16(relu(a[b] + c[l0 + l])) when FIRST (rows l >= nl, padding, take
+// c = 0), else the row of the bf16 workspace x_in.
+template <bool FIRST, bool DYN>
 __global__ void __launch_bounds__(256)
-pair_int8_row_scale_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                           const __nv_bfloat16* __restrict__ x_in, float* __restrict__ row_scale,
-                           int nl, int l0, int M, int K, int stride, float margin, int first) {
+pair_int8_quantize_kernel(const float* __restrict__ a, const float* __restrict__ c,
+                          const __nv_bfloat16* __restrict__ x_in, float* __restrict__ row_scale,
+                          int8_t* __restrict__ codes, int nl, int nl_pad, int l0, int M, int K,
+                          int stride, float margin, float inv) {
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= M) return;
-  float m = 0.f;
-  if (first) {
-    const float* ar = a + (size_t)(r / nl) * K;
-    const float* cr = c + (size_t)(l0 + r % nl) * K;
-    for (int j = lane * stride; j < K; j += 32 * stride)
-      m = fmaxf(m, round_bf16(fmaxf(__fadd_rn(ar[j], cr[j]), 0.f)));
-  } else {
-    const __nv_bfloat16* xr = x_in + (size_t)r * K;
-    for (int j = lane * stride; j < K; j += 32 * stride)
-      m = fmaxf(m, fabsf(__bfloat162float(xr[j])));
-  }
+  const int b = r / nl_pad;
+  const int l = r - b * nl_pad;
+  const float* ar = a + (size_t)b * K;
+  const float* cr = FIRST && l < nl ? c + (size_t)(l0 + l) * K : nullptr;
+  const __nv_bfloat16* xr = x_in + (size_t)r * K;
+  auto x_at = [&](int j) {
+    if (FIRST) return round_bf16(fmaxf(__fadd_rn(ar[j], cr ? cr[j] : 0.f), 0.f));
+    return __bfloat162float(xr[j]);
+  };
+  float s = inv;
+  if (DYN) {
+    float m = 0.f;
+    for (int j = lane * stride; j < K; j += 32 * stride) m = fmaxf(m, fabsf(x_at(j)));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (lane == 0) row_scale[r] = __fmul_rn(fmaxf(__fmul_rn(m, margin), 1e-12f), __frcp_rn(127.f));
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    s = __fmul_rn(fmaxf(__fmul_rn(m, margin), 1e-12f), __frcp_rn(127.f));
+    if (lane == 0) row_scale[r] = s;
+  }
+  const float rs = DYN ? __frcp_rn(s) : 0.f;
+  int8_t* out = codes + (size_t)r * K;
+  for (int j = 4 * lane; j < K; j += 128) {
+    float v[4];
+    if (FIRST) {
+      const float4 av = *reinterpret_cast<const float4*>(ar + j);
+      const float4 cv = cr ? *reinterpret_cast<const float4*>(cr + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[0] = round_bf16(fmaxf(__fadd_rn(av.x, cv.x), 0.f));
+      v[1] = round_bf16(fmaxf(__fadd_rn(av.y, cv.y), 0.f));
+      v[2] = round_bf16(fmaxf(__fadd_rn(av.z, cv.z), 0.f));
+      v[3] = round_bf16(fmaxf(__fadd_rn(av.w, cv.w), 0.f));
+    } else {
+      const uint2 raw = *reinterpret_cast<const uint2*>(xr + j);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      v[0] = lo.x;
+      v[1] = lo.y;
+      v[2] = hi.x;
+      v[3] = hi.y;
+    }
+    *reinterpret_cast<uint32_t*>(out + j) = quantize4<DYN>(v, s, rs, -127.f);
+  }
 }
 
-template <int AM, int EM, bool DYN>
-cudaError_t launch(dim3 grid, cudaStream_t s, const float* a, const float* c, const void* x_in,
-                   const int8_t* wt, const float* s_w, const float* bias,
-                   const float* row_scale, void* x_out, const __nv_bfloat16* w_out,
-                   float* logits, float s_in, float inv_in, float inv_next, int nl, int l0,
-                   int L, int M, int K, int N) {
-  constexpr int bytes = Layout<AM>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(pair_int8_layer_kernel<AM, EM, DYN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+struct Args {
+  CUtensorMap tm_w, tm_x, tm_o;
+  const float *s_w, *bias, *row_scale;
+  const __nv_bfloat16* w_out;
+  float* logits;
+  float s_in, inv_next;
+  int nl, nl_pad, l0, L, K, tiles_n, tiles, grid;
+};
+
+template <int BN, int EPI, bool DYN>
+cudaError_t launch(const Args& p, cudaStream_t s) {
+  constexpr int bytes = Layout<BN, EPI != E_DOT>::BYTES;
+  auto kernel = pair_int8_layer_kernel<BN, EPI, DYN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  pair_int8_layer_kernel<AM, EM, DYN><<<grid, THREADS, bytes, s>>>(
-      a, c, x_in, wt, s_w, bias, row_scale, x_out, w_out, logits, s_in, inv_in, inv_next, nl,
-      l0, L, M, K, N);
+  kernel<<<p.grid, THREADS, bytes, s>>>(p.tm_w, p.tm_x, p.tm_o, p.s_w, p.bias, p.row_scale,
+                                        p.w_out, p.logits, p.s_in, p.inv_next, p.nl, p.nl_pad,
+                                        p.l0, p.L, p.K, p.tiles_n, p.tiles);
   return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_mode(int mode, const Args& p, cudaStream_t s) {
+  switch (mode) {
+    case E_CODES: return launch<BN, E_CODES, false>(p, s);
+    case E_DOT: return launch<BN, E_DOT, false>(p, s);
+    case E_BF16 | 4: return launch<BN, E_BF16, true>(p, s);
+    case E_DOT | 4: return launch<BN, E_DOT, true>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool FIRST, bool DYN>
+int quantize_rows(const void* a, const void* c, const void* x_in, void* row_scale, void* codes,
+                  int nl, int nl_pad, int l0, int M, int K, int stride, float margin, float inv,
+                  void* stream) {
+  const int rows_per_block = 256 / 32;
+  pair_int8_quantize_kernel<FIRST, DYN><<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
+                                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(c),
+      static_cast<const __nv_bfloat16*>(x_in), static_cast<float*>(row_scale),
+      static_cast<int8_t*>(codes), nl, nl_pad, l0, M, K, stride, margin, inv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode = a | (e << 2) | (dynamic << 4): a is where the A operand comes from
-// (0: formed from a and c, the first hidden layer; 1: int8 codes in x_in;
-// 2: bf16 activations in x_in, quantized with row_scale), e where the
-// epilogue goes (0: int8 codes into x_out, quantized with inv_next = 1 /
-// s_{i+1}; 1: bf16 into x_out; 2: the dot with w_out into the logits, the
-// last layer), and dynamic whether the scales are per row (row_scale) or
-// s_in (layer 1 quantizing with inv_in = 1 / s_in).  Static runs
-// a in {0, 1} with e in {0, 2}; dynamic a in {0, 2} with e in {1, 2}.
-// Returns the CUDA error of the attribute call or the launch (0 on success).
-extern "C" int pair_int8_layer(const void* a, const void* c, const void* x_in, const void* wt,
-                               const void* s_w, const void* bias, const void* row_scale,
-                               void* x_out, const void* w_out, void* logits, float s_in,
-                               float inv_in, float inv_next, int nl, int l0, int L, int M,
-                               int K, int N, int mode, void* stream) {
-  if (M <= 0 || nl <= 0 || K % BK != 0 || N % BN != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
+// One hidden layer of the chain for the label chunk [l0, l0 + nl), padded to
+// nl_pad rows a sequence (a multiple of 128): M = B * nl_pad pair rows.
+//   x_in (M, K) int8: the layer's input codes;
+//   wt (N, K) int8: the layer's Wq transposed (K-major); s_w, bias (N,) f32;
+//   row_scale (M,) f32: the dynamic scales (unused with static ones);
+//   x_out (M, N): int8 codes (quantized with inv_next = 1 / s_{i+1}) or bf16
+//   activations; w_out (N,) bf16; logits (B, L) f32, added into.
+// mode = epilogue | (dynamic << 2): epilogue 0 stores the next layer's codes
+// (static), 1 its bf16 activations (dynamic), 2 takes the dot with w_out into
+// the logits (the last layer); dynamic: alpha is row_scale[row] * s_w[col],
+// else s_in * s_w[col].  block_n (256 or 128) is the column tile, grid the
+// number of persistent blocks (at most one an SM).  Returns a CUDA error (0
+// on success): cudaErrorInvalidValue for shapes the kernel does not take or a
+// tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int pair_int8_layer(const void* x_in, const void* wt, const void* s_w,
+                               const void* bias, const void* row_scale, void* x_out,
+                               const void* w_out, void* logits, float s_in, float inv_next, int B,
+                               int nl, int nl_pad, int l0, int L, int K, int N, int block_n,
+                               int mode, int grid, void* stream) {
+  const int epi = mode & 3;
+  if (B <= 0 || nl <= 0 || nl_pad < nl || nl_pad % BM != 0 || K <= 0 || K % BK != 0 ||
+      (block_n != 128 && block_n != 256) || N <= 0 || N % block_n != 0 || epi > E_DOT ||
+      mode > 7 || grid <= 0)
+    return (int)cudaErrorInvalidValue;
+  Args p;
+  memset(&p, 0, sizeof(p));
+  const uint64_t M = (uint64_t)B * nl_pad;
+  bool ok = make_map(&p.tm_w, wt, MapType::S8, N, K, block_n, BK, true) &&
+            make_map(&p.tm_x, x_in, MapType::S8, M, K, BM, BK, true);
+  if (epi == E_CODES) ok = ok && make_map(&p.tm_o, x_out, MapType::S8, M, N, 64, 128, true);
+  if (epi == E_BF16) ok = ok && make_map(&p.tm_o, x_out, MapType::BF16, M, N, 64, 64, true);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  p.s_w = static_cast<const float*>(s_w);
+  p.bias = static_cast<const float*>(bias);
+  p.row_scale = static_cast<const float*>(row_scale);
+  p.w_out = static_cast<const __nv_bfloat16*>(w_out);
+  p.logits = static_cast<float*>(logits);
+  p.s_in = s_in;
+  p.inv_next = inv_next;
+  p.nl = nl;
+  p.nl_pad = nl_pad;
+  p.l0 = l0;
+  p.L = L;
+  p.K = K;
+  p.tiles_n = N / block_n;
+  p.tiles = (int)(M / BM) * p.tiles_n;
+  p.grid = grid < p.tiles ? grid : p.tiles;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* a_ = static_cast<const float*>(a);
-  const float* c_ = static_cast<const float*>(c);
-  const int8_t* wt_ = static_cast<const int8_t*>(wt);
-  const float* sw_ = static_cast<const float*>(s_w);
-  const float* bias_ = static_cast<const float*>(bias);
-  const float* rs_ = static_cast<const float*>(row_scale);
-  const __nv_bfloat16* wo_ = static_cast<const __nv_bfloat16*>(w_out);
-  float* lg_ = static_cast<float*>(logits);
-#define PAIR_INT8_CASE(AM, EM, DYN)                                                        \
-  case (AM) | ((EM) << 2) | ((DYN) << 4):                                                  \
-    return (int)launch<AM, EM, DYN>(grid, s, a_, c_, x_in, wt_, sw_, bias_, rs_, x_out,   \
-                                    wo_, lg_, s_in, inv_in, inv_next, nl, l0, L, M, K, N);
-  switch (mode) {
-    PAIR_INT8_CASE(A_FIRST, E_CODES, false)
-    PAIR_INT8_CASE(A_FIRST, E_DOT, false)
-    PAIR_INT8_CASE(A_CODES, E_CODES, false)
-    PAIR_INT8_CASE(A_CODES, E_DOT, false)
-    PAIR_INT8_CASE(A_FIRST, E_BF16, true)
-    PAIR_INT8_CASE(A_FIRST, E_DOT, true)
-    PAIR_INT8_CASE(A_BF16, E_BF16, true)
-    PAIR_INT8_CASE(A_BF16, E_DOT, true)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef PAIR_INT8_CASE
+  return (int)(block_n == 256 ? launch_mode<256>(mode, p, s) : launch_mode<128>(mode, p, s));
+}
+
+// Layer 1's codes with the static scale, rows r = b * nl_pad + l of the
+// chunk: clip(rint(bf16(relu(a[b] + c[l0 + l])) * inv_s0), -127, 127) into
+// codes (M, K) int8 (rows l >= nl take c = 0).  a (B, K), c (L, K) f32.
+extern "C" int pair_int8_codes(const void* a, const void* c, void* codes, int nl, int nl_pad,
+                               int l0, int M, int K, float inv_s0, void* stream) {
+  if (M <= 0 || nl <= 0 || nl_pad < nl || K <= 0 || K % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  return quantize_rows<true, false>(a, c, nullptr, nullptr, codes, nl, nl_pad, l0, M, K, 1, 1.f,
+                                    inv_s0, stream);
 }
 
 // Per pair row r of the chunk: row_scale[r] = max(max_j |x[r, j]| * margin,
-// 1e-12) * float32(1 / 127) over j = 0, stride, 2 * stride, ... < K, where x is
-// bf16(relu(a[b] + c[l0 + l])) when first, else the bf16 rows of x_in.
+// 1e-12) * float32(1 / 127) over j = 0, stride, 2 * stride, ... < K, and the
+// row's codes clip(rint(x[r, :] / row_scale[r]), -127, 127) into codes (M, K)
+// int8, where x is bf16(relu(a[b] + c[l0 + l])) when first, else the bf16 rows
+// of x_in.
 extern "C" int pair_int8_row_scale(const void* a, const void* c, const void* x_in,
-                                   void* row_scale, int nl, int l0, int M, int K, int stride,
-                                   float margin, int first, void* stream) {
-  if (M <= 0 || nl <= 0 || K <= 0 || stride <= 0) return (int)cudaErrorInvalidValue;
-  const int rows_per_block = 256 / 32;
-  pair_int8_row_scale_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
-                               reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(c),
-      static_cast<const __nv_bfloat16*>(x_in), static_cast<float*>(row_scale), nl, l0, M, K,
-      stride, margin, first);
-  return (int)cudaGetLastError();
+                                   void* row_scale, void* codes, int nl, int nl_pad, int l0,
+                                   int M, int K, int stride, float margin, int first,
+                                   void* stream) {
+  if (M <= 0 || nl <= 0 || nl_pad < nl || K <= 0 || K % 128 != 0 || stride <= 0)
+    return (int)cudaErrorInvalidValue;
+  return first ? quantize_rows<true, true>(a, c, x_in, row_scale, codes, nl, nl_pad, l0, M, K,
+                                           stride, margin, 0.f, stream)
+               : quantize_rows<false, true>(a, c, x_in, row_scale, codes, nl, nl_pad, l0, M, K,
+                                            stride, margin, 0.f, stream);
+}
+
+// The dynamic shared memory a launch of the given column tile and epilogue
+// asks for (bytes), or -1 for an argument the kernel does not take.
+extern "C" int pair_int8_layer_smem_bytes(int block_n, int epi) {
+  const bool store = epi != E_DOT;
+  if (block_n == 256) return store ? Layout<256, true>::BYTES : Layout<256, false>::BYTES;
+  if (block_n == 128) return store ? Layout<128, true>::BYTES : Layout<128, false>::BYTES;
+  return -1;
 }

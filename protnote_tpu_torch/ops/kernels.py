@@ -4,9 +4,10 @@ Each source ``protnote_tpu_torch/csrc/<name>.cu`` exposes a plain C
 interface.  The first call to :func:`load_kernel_library` compiles it with
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``protnote_tpu_torch/_build/`` (listed in ``.gitignore``), named after a hash
-of the source and the flags so that an edited source is rebuilt, and loads it
-with ``ctypes``.  Nothing is built at import time: the CPU tests import every
-module of the port on machines without ``nvcc``.
+of the source, every shared header ``csrc/*.cuh`` and the flags, so that an
+edited source or header is rebuilt, and loads it with ``ctypes``.  Nothing
+is built at import time: the CPU tests import every module of the port on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,16 @@ def nvcc_path() -> str:
     )
 
 
+def source_digest(name: str) -> str:
+    """The build's name tag: a hash of ``csrc/<name>.cu``, every
+    ``csrc/*.cuh`` (a source may include any of them) and the nvcc flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_kernel_library(name: str) -> KernelLibrary:
     """Build ``csrc/<name>.cu`` if needed, load it, and return it.  Calls
     for different names may run at once (each runs its own nvcc)."""
@@ -68,10 +79,7 @@ def load_kernel_library(name: str) -> KernelLibrary:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}_{digest}.so"
+        out = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
         seconds, log = 0.0, ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

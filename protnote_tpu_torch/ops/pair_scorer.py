@@ -148,7 +148,7 @@ LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _BLOCK_N = 128  # the width every hidden layer must be a multiple of (K1 and K2)
-BLOCK_M = 128  # K1's pair rows a tile (BM in the kernel)
+BLOCK_M = 128  # K1's and K2's pair rows a tile (BM in the kernels)
 # K1's pair rows a launch: a chunk holds this many rows over its B sequences
 # (256 labels at B 32), rounded down to whole row tiles.  At 8,192 rows the
 # bf16 activations between two layers (50 MB at H 3072) mostly stay in L2;
@@ -160,7 +160,7 @@ _H100_SMS = 132
 
 @dataclass(frozen=True)
 class ChunkLaunch:
-    """One label chunk of K1: labels ``[l0, l0 + nl)``, padded to ``nl_pad``
+    """One label chunk of K1 or K2: labels ``[l0, l0 + nl)``, padded to ``nl_pad``
     rows a sequence, so its pair rows are ``r = b * nl_pad + l`` and every
     128-row tile lies within one sequence."""
 
@@ -212,18 +212,36 @@ def launch_plan(B: int, L: int, H: int, n_hidden: int, num_sms: int = _H100_SMS,
         raise ValueError(f"no launch plan for B {B}, L {L}, {n_hidden} hidden layers")
     if H % _BLOCK_N:
         raise ValueError(f"hidden width {H} is not a multiple of {_BLOCK_N}")
-    block_n = 256 if H % 256 == 0 else 128
+    block_n = _block_n(H)
     target_rows = TARGET_ROWS if target_rows is None else target_rows
     chunk = max(BLOCK_M, target_rows // B // BLOCK_M * BLOCK_M)
     chunk = min(chunk, _round_up(L, BLOCK_M))
-    chunks = []
-    for l0 in range(0, L, chunk):
-        nl = min(chunk, L - l0)
-        nl_pad = _round_up(nl, BLOCK_M)
-        tiles_m, tiles_n = B * nl_pad // BLOCK_M, H // block_n
-        chunks.append(ChunkLaunch(l0, nl, nl_pad, tiles_m, tiles_n,
-                                  min(num_sms, tiles_m * tiles_n)))
-    return LaunchPlan(B, n_hidden, block_n, chunk, tuple(chunks))
+    chunks = tuple(_chunk_launch(B, l0, min(chunk, L - l0), H, num_sms)
+                   for l0 in range(0, L, chunk))
+    return LaunchPlan(B, n_hidden, block_n, chunk, chunks)
+
+
+def single_chunk_plan(B: int, H: int, n_hidden: int, l0: int, nl: int,
+                      num_sms: int = _H100_SMS) -> LaunchPlan:
+    """A plan of the one chunk ``[l0, l0 + nl)``, padded to whole row tiles
+    a sequence: K2's carried rows of any chunk."""
+    if B <= 0 or nl <= 0 or l0 < 0 or n_hidden <= 0:
+        raise ValueError(f"no chunk for B {B}, labels [{l0}, {l0 + nl}), {n_hidden} layers")
+    if H % _BLOCK_N:
+        raise ValueError(f"hidden width {H} is not a multiple of {_BLOCK_N}")
+    ch = _chunk_launch(B, l0, nl, H, num_sms)
+    return LaunchPlan(B, n_hidden, _block_n(H), ch.nl_pad, (ch,))
+
+
+def _block_n(H: int) -> int:
+    """The column tile: 256 where H allows it, else 128."""
+    return 256 if H % 256 == 0 else 128
+
+
+def _chunk_launch(B: int, l0: int, nl: int, H: int, num_sms: int) -> ChunkLaunch:
+    nl_pad = _round_up(nl, BLOCK_M)
+    tiles_m, tiles_n = B * nl_pad // BLOCK_M, H // _block_n(H)
+    return ChunkLaunch(l0, nl, nl_pad, tiles_m, tiles_n, min(num_sms, tiles_m * tiles_n))
 
 
 def pair_logits_plan_reference(folded: FoldedOutputMLP, P_e: torch.Tensor,
@@ -579,16 +597,66 @@ def int8_carry_reference(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.T
     return _int8_hidden_reference(q, h, carry_of=0)
 
 
-# Launches of K2's two entry points since the process started (or since a
-# caller last set them to 0): pair_int8_layer once per hidden layer per
-# label chunk; pair_int8_row_scale once before each of those with dynamic
-# scales.
-INT8_LAUNCHES = {"pair_int8_layer": 0, "pair_int8_row_scale": 0}
+def _chunk_inputs(a: torch.Tensor, c: torch.Tensor, ch: ChunkLaunch) -> torch.Tensor:
+    """``relu(a[b] + c[l0 + l])`` in float32 for the rows ``b * nl_pad + l``
+    of a chunk of :func:`launch_plan`; the padding rows ``l >= nl`` take
+    ``c = 0`` (K2's code passes do the same; their logits are dropped)."""
+    B, H = a.shape
+    c_t = torch.cat([c[ch.l0 : ch.l0 + ch.nl], c.new_zeros(ch.nl_pad - ch.nl, H)])
+    return torch.relu(a[:, None, :] + c_t[None]).reshape(B * ch.nl_pad, H)
 
-# pair_int8_layer's mode: where its A operand comes from, where its
-# epilogue goes, and whether the scales are per row (csrc/pair_scorer_int8.cu)
-_A_FIRST, _A_CODES, _A_BF16 = 0, 1, 2
+
+def chunk_rows(x: torch.Tensor, B: int, ch: ChunkLaunch) -> torch.Tensor:
+    """The rows ``l < nl`` of a chunk workspace laid out ``b * nl_pad + l``,
+    as (B * nl, H) in (b, l) order: what a layer carries for the labels
+    ``[l0, l0 + nl)``."""
+    H = x.shape[1]
+    return x[: B * ch.nl_pad].view(B, ch.nl_pad, H)[:, : ch.nl].reshape(B * ch.nl, H)
+
+
+def pair_logits_int8_plan_reference(q: Int8FoldedOutputMLP, P_e: torch.Tensor,
+                                    L_e: torch.Tensor, plan: LaunchPlan,
+                                    compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain int8 chain over K2's padded chunk layout (the launch plan it
+    shares with K1): per chunk, the hidden layers over all ``B * nl_pad``
+    rows, and only rows ``l < nl`` taken into the (B, L) float32 logits.
+    Pair rows are independent, so the logits are those of
+    :func:`pair_logits_tiled_int8_reference`."""
+    B = P_e.shape[0]
+    a, c = _side_partials(q, P_e, L_e, compute_dtype)
+    logits = torch.empty(B, L_e.shape[0], dtype=torch.float32, device=P_e.device)
+    for ch in plan.chunks:
+        h = _int8_hidden_reference(q, _chunk_inputs(a, c, ch))
+        out = _f32_product(h, q.w_out[:, None], compute_dtype)[:, 0]
+        logits[:, ch.l0 : ch.l0 + ch.nl] = out.reshape(B, ch.nl_pad)[:, : ch.nl] + q.b_out
+    return logits
+
+
+def int8_codes_reference(a: torch.Tensor, c: torch.Tensor, ch: ChunkLaunch,
+                         s0: float) -> torch.Tensor:
+    """``pair_int8_codes``' plain version: layer 1's static codes
+    ``clip(rint(bf16(relu(a + c)) * (1 / s0)), -127, 127)`` of a chunk's rows."""
+    h = _chunk_inputs(a, c, ch).to(torch.bfloat16).float()
+    return _codes(h * _inv(s0, a.device), -127)
+
+
+def int8_row_scale_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pair_int8_row_scale``'s plain version on bf16 rows ``x``: the
+    dynamic scales (R,) and the codes ``clip(rint(x / s_act), -127, 127)``."""
+    s_act = _row_scales(x)
+    return s_act[:, 0], _codes(x.float() / s_act, -127)
+
+
+# Launches of K2's entry points since the process started (or since a caller
+# last set them to 0): pair_int8_layer once per hidden layer per label chunk;
+# with static scales pair_int8_codes once per chunk (layer 1's codes), with
+# dynamic ones pair_int8_row_scale before every pair_int8_layer.
+INT8_LAUNCHES = {"pair_int8_layer": 0, "pair_int8_codes": 0, "pair_int8_row_scale": 0}
+
+# pair_int8_layer's epilogue (csrc/pair_scorer_int8.cu), and its mode bit for
+# dynamic scales
 _E_CODES, _E_BF16, _E_DOT = 0, 1, 2
+_DYNAMIC = 4
 
 
 def check_int8_kernel_inputs(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
@@ -615,10 +683,11 @@ def check_int8_kernel_inputs(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: tor
 
 class _Int8Kernel:
     """The wrapper's per-call state: the per-side products, the weights laid
-    out for the kernel, the chunk workspaces and the C entry points."""
+    out for the kernel (K-major, as its TMA loads take them), the launch
+    plan, the chunk workspaces and the C entry points."""
 
     def __init__(self, q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
-                 tile: int, compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, plan: Optional[LaunchPlan] = None):
         from protnote_tpu_torch.ops.kernels import load_kernel_library
 
         check_int8_kernel_inputs(q, P_e, L_e, compute_dtype)
@@ -632,74 +701,114 @@ class _Int8Kernel:
         self.H = q.w1_p.shape[1]
         a, c = _side_partials(q, P_e, L_e, compute_dtype)
         self.a, self.c = a.contiguous(), c.contiguous()
-        # B operand column-major, (N, K): the layout the s8 tensor-core
-        # products take, laid out once per call
         self.wt = [Wq.t().contiguous() for Wq, _, _ in q.hidden_q]
         self.s_w = [s_w.float().contiguous() for _, s_w, _ in q.hidden_q]
         self.bias = [b.float().contiguous() for _, _, b in q.hidden_q]
         self.w_out = q.w_out.to(torch.bfloat16).contiguous()
         self.b_out = q.b_out
         self.static = q.act_scales
-        self.tile = tile
         n = len(q.hidden_q)
-        carry = torch.int8 if self.static is not None else torch.bfloat16
-        self.work = [torch.empty(self.B * tile, self.H, dtype=carry, device=device)
-                     for _ in range(min(n - 1, 2))]
-        self.row_scale = (torch.empty(self.B * tile, dtype=torch.float32, device=device)
-                          if self.static is None else None)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        # K1's chunks: a chunk's int8 codes (8,192 rows x 3072 = 25 MB) stay
+        # in L2 between the code pass and the GEMM
+        self.plan = plan or launch_plan(self.B, self.L, self.H, n, sms)
+        rows, H = self.plan.workspace_rows, self.H
+        # static: each layer's input codes and its output codes alternate;
+        # dynamic: one code workspace and one bf16 workspace
+        n_codes = 2 if self.static is not None and n > 1 else 1
+        self.codes = [torch.empty(rows, H, dtype=torch.int8, device=device)
+                      for _ in range(n_codes)]
+        dyn = self.static is None
+        self.h = (torch.empty(rows, H, dtype=torch.bfloat16, device=device)
+                  if dyn and n > 1 else None)
+        self.row_scale = torch.empty(rows, dtype=torch.float32, device=device) if dyn else None
         lib = load_kernel_library("pair_scorer_int8").lib
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.layer_fn = lib.pair_int8_layer
-        self.layer_fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_float] * 3 + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        self.layer_fn.restype = ctypes.c_int
+        self.layer_fn.argtypes = [p] * 8 + [f] * 2 + [i] * 10 + [p]
+        self.codes_fn = lib.pair_int8_codes
+        self.codes_fn.argtypes = [p] * 3 + [i] * 5 + [f, p]
         self.scale_fn = lib.pair_int8_row_scale
-        self.scale_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        self.scale_fn.restype = ctypes.c_int
+        self.scale_fn.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
+        for fn in (self.layer_fn, self.codes_fn, self.scale_fn):
+            fn.restype = ctypes.c_int
         self.stream = torch.cuda.current_stream(device).cuda_stream
 
-    def chunk(self, l0: int, nl: int, logits: Optional[torch.Tensor],
-              stop_after: Optional[int] = None) -> Optional[torch.Tensor]:
-        """Launch every hidden layer of the label chunk ``[l0, l0 + nl)``
-        (adding its logits into ``logits``); with ``stop_after = i``, stop
-        after layer ``i`` and return the rows it carries."""
-        n, M, H = len(self.wt), self.B * nl, self.H
-        dyn = self.static is None
+    @staticmethod
+    def _counted(name: str, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        with _launch_lock:
+            INT8_LAUNCHES[name] += 1
+
+    def new_logits(self) -> torch.Tensor:
+        """(B, L) float32 logits pre-filled with ``b_out``: the kernel adds
+        into them."""
+        logits = torch.empty(self.B, self.L, dtype=torch.float32, device=self.device)
+        return logits.copy_(self.b_out.float().expand(self.B, self.L))
+
+    def quantize(self, ch: ChunkLaunch, i: int) -> None:
+        """Hidden layer ``i``'s input codes for chunk ``ch`` into
+        ``codes[0]``: layer 1's static codes (``pair_int8_codes``), or the
+        dynamic row scales and codes of ``relu(a + c)`` (layer 1) or of the
+        previous layer's bf16 activations (``pair_int8_row_scale``)."""
+        M, H = self.B * ch.nl_pad, self.H
+        if self.static is not None:
+            err = self.codes_fn(_ptr(self.a), _ptr(self.c), _ptr(self.codes[0]), ch.nl,
+                                ch.nl_pad, ch.l0, M, H, float(_inv(self.static[0], "cpu")),
+                                self.stream)
+            self._counted("pair_int8_codes", err)
+            return
         stride = 8 if H >= 1024 else 1
-        x_in = None
-        for i in range(n):
-            last = i == n - 1
-            x_out = None if last else self.work[i % 2]
-            if dyn:
-                err = self.scale_fn(_ptr(self.a), _ptr(self.c), _ptr(x_in),
-                                    _ptr(self.row_scale), nl, l0, M, H, stride,
-                                    1.3 if stride > 1 else 1.0, int(i == 0), self.stream)
-                if err != 0:
-                    raise RuntimeError(f"pair_int8_row_scale launch failed: CUDA error {err}")
-                with _launch_lock:
-                    INT8_LAUNCHES["pair_int8_row_scale"] += 1
-            a_mode = _A_FIRST if i == 0 else (_A_BF16 if dyn else _A_CODES)
-            e_mode = _E_DOT if last else (_E_BF16 if dyn else _E_CODES)
-            # static: the layer's scale, and the reciprocals of the scales
-            # its input and output codes are quantized with (as XLA runs)
-            s_in = inv_in = inv_next = 0.0
-            if not dyn:
-                s_in, inv_in = self.static[i], float(_inv(self.static[i], "cpu"))
-                if not last:
-                    inv_next = float(_inv(self.static[i + 1], "cpu"))
-            err = self.layer_fn(_ptr(self.a), _ptr(self.c), _ptr(x_in), _ptr(self.wt[i]),
-                                _ptr(self.s_w[i]), _ptr(self.bias[i]), _ptr(self.row_scale),
-                                _ptr(x_out), _ptr(self.w_out), _ptr(logits), s_in, inv_in,
-                                inv_next, nl, l0, self.L, M, H, H,
-                                a_mode | (e_mode << 2) | (int(dyn) << 4), self.stream)
-            if err != 0:
-                raise RuntimeError(f"pair_int8_layer launch failed: CUDA error {err}")
-            with _launch_lock:
-                INT8_LAUNCHES["pair_int8_layer"] += 1
+        err = self.scale_fn(_ptr(self.a), _ptr(self.c), _ptr(None if i == 0 else self.h),
+                            _ptr(self.row_scale), _ptr(self.codes[0]), ch.nl, ch.nl_pad, ch.l0,
+                            M, H, stride, 1.3 if stride > 1 else 1.0, int(i == 0), self.stream)
+        self._counted("pair_int8_row_scale", err)
+
+    def layer(self, ch: ChunkLaunch, i: int, logits: Optional[torch.Tensor]
+              ) -> Optional[torch.Tensor]:
+        """The GEMM of hidden layer ``i`` for chunk ``ch``: its input codes
+        in, the next layer's codes (static) or bf16 activations (dynamic)
+        out, or for the last layer the dot with ``w_out`` into ``logits``.
+        Returns the workspace it wrote (None for the last layer)."""
+        last = i == len(self.wt) - 1
+        if self.static is None:
+            x_in, x_out = self.codes[0], None if last else self.h
+            mode = (_E_DOT if last else _E_BF16) | _DYNAMIC
+            s_in = inv_next = 0.0
+        else:
+            x_in, x_out = self.codes[i % 2], None if last else self.codes[(i + 1) % 2]
+            mode = _E_DOT if last else _E_CODES
+            # the layer's scale, and the reciprocal its output codes are
+            # quantized with (as XLA runs the division by a constant)
+            s_in = self.static[i]
+            inv_next = 0.0 if last else float(_inv(self.static[i + 1], "cpu"))
+        err = self.layer_fn(_ptr(x_in), _ptr(self.wt[i]), _ptr(self.s_w[i]), _ptr(self.bias[i]),
+                            _ptr(self.row_scale), _ptr(x_out), _ptr(self.w_out), _ptr(logits),
+                            s_in, inv_next, self.B, ch.nl, ch.nl_pad, ch.l0, self.L, self.H,
+                            self.H, self.plan.block_n, mode, ch.grid, self.stream)
+        self._counted("pair_int8_layer", err)
+        return x_out
+
+    def chunk(self, ch: ChunkLaunch, logits: Optional[torch.Tensor],
+              stop_after: Optional[int] = None) -> Optional[torch.Tensor]:
+        """Every hidden layer of chunk ``ch`` (adding its logits into
+        ``logits``); with ``stop_after = i``, stop after layer ``i`` and
+        return the (B * nl, H) rows it carries."""
+        for i in range(len(self.wt)):
+            if self.static is None or i == 0:
+                self.quantize(ch, i)
+            x_out = self.layer(ch, i, logits)
             if stop_after == i:
-                return x_out[:M]
-            x_in = x_out
+                return chunk_rows(x_out, self.B, ch)
         return None
+
+    def run(self) -> torch.Tensor:
+        logits = self.new_logits()
+        with torch.cuda.device(self.device):  # the C launch goes to the thread's device
+            for ch in self.plan.chunks:
+                self.chunk(ch, logits)
+        return logits
 
 
 def pair_logits_tiled_int8_cuda(
@@ -711,32 +820,34 @@ def pair_logits_tiled_int8_cuda(
 ) -> torch.Tensor:
     """K2's wrapper: (B, L) float32 logits for CUDA tensors.
 
-    Per chunk of ``label_tile`` labels, one ``pair_int8_layer`` launch per
-    hidden layer (with dynamic scales each preceded by a
-    ``pair_int8_row_scale`` launch): the first forms its int8 codes from
-    ``a``, ``c`` in shared memory, the last reduces against ``w_out`` into
-    the logits (pre-filled with ``b_out``), and a layer between writes its
-    int8 codes (static) or bf16 activations (dynamic) to a chunk
-    workspace."""
-    k = _Int8Kernel(q, P_e, L_e, min(int(label_tile), L_e.shape[0]), compute_dtype)
-    logits = torch.empty(k.B, k.L, dtype=torch.float32, device=k.device)
-    logits.copy_(q.b_out.float().expand(k.B, k.L))  # the kernel adds into it
-    with torch.cuda.device(k.device):  # the C launch goes to the thread's device
-        for l0 in range(0, k.L, k.tile):
-            k.chunk(l0, min(k.tile, k.L - l0), logits)
-    return logits
+    Per label chunk of :func:`launch_plan` (``TARGET_ROWS`` pair rows,
+    not ``label_tile``: pair rows are independent, so the logits are the
+    same): with static scales one ``pair_int8_codes`` launch for layer 1's
+    codes, with dynamic ones a ``pair_int8_row_scale`` launch before every
+    layer; then one ``pair_int8_layer`` launch per hidden layer, whose
+    epilogue writes the next layer's codes (static) or bf16 activations
+    (dynamic) to a chunk workspace, or for the last layer reduces against
+    ``w_out`` into the logits (pre-filled with ``b_out``)."""
+    del label_tile
+    return _Int8Kernel(q, P_e, L_e, compute_dtype).run()
 
 
 def int8_carry_cuda(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
                     l0: int, nl: int, compute_dtype: torch.dtype = torch.bfloat16
                     ) -> torch.Tensor:
-    """:func:`int8_carry_reference` through the kernel: layer 1 of one
-    label chunk, launched alone (its launches count)."""
+    """:func:`int8_carry_reference` through the kernels: layer 1 of the one
+    label chunk ``[l0, l0 + nl)`` (padded to whole row tiles), launched alone
+    (its launches count)."""
     if len(q.hidden_q) < 2:
         raise ValueError("a carry needs at least two hidden layers")
-    k = _Int8Kernel(q, P_e, L_e, nl, compute_dtype)
+    if P_e.device.type != "cuda":
+        raise ValueError("the int8 CUDA pair scorer needs every tensor on one CUDA device")
+    B, H = P_e.shape[0], q.w1_p.shape[1]
+    sms = torch.cuda.get_device_properties(P_e.device).multi_processor_count
+    plan = single_chunk_plan(B, H, len(q.hidden_q), l0, nl, sms)
+    k = _Int8Kernel(q, P_e, L_e, compute_dtype, plan)
     with torch.cuda.device(k.device):
-        return k.chunk(l0, nl, None, stop_after=0).clone()
+        return k.chunk(plan.chunks[0], None, stop_after=0).clone()
 
 
 def pair_logits_tiled_int8(

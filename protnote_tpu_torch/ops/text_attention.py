@@ -32,7 +32,7 @@ import torch
 
 from protnote_tpu_torch.models.layers import gemm_precision
 
-MAX_T = 512  # the kernel keeps whole score rows in shared memory
+MAX_T = 512  # label text is truncated at 510 tokens; the kernel's key bias row holds 512
 HEAD_DIM = 64  # the head width of every tower the port loads
 MASKED = -1e9  # the JAX package's additive mask value
 
@@ -96,9 +96,8 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"the attention kernel needs CUDA tensors, not {device}")
     if T > MAX_T:
-        raise ValueError(f"the attention kernel holds whole score rows in shared memory "
-                         f"and takes at most {MAX_T} tokens (label text is truncated at "
-                         f"510), not {T}")
+        raise ValueError(f"the attention kernel takes at most {MAX_T} tokens (label text "
+                         f"is truncated at 510), not {T}")
     if hd != HEAD_DIM:
         raise ValueError(f"the attention kernel takes head width {HEAD_DIM}, not {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):

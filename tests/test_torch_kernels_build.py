@@ -1,0 +1,52 @@
+"""The name tag of a built kernel library (``ops/kernels.py:source_digest``)
+on the CPU: it covers the source, every shared header ``csrc/*.cuh`` and the
+nvcc flags, so an edit to a header rebuilds every library that may include
+it; and every header a source includes is in ``csrc/``."""
+
+import re
+import shutil
+
+import pytest
+
+from protnote_tpu_torch.ops import kernels
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A copy of ``csrc/`` that the digest reads instead of the package's."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, copy)
+    monkeypatch.setattr(kernels, "CSRC_DIR", copy)
+    return copy
+
+
+@pytest.mark.parametrize("edit", ["source", "header", "new_header", "flags", "other_source"])
+def test_digest_follows_source_headers_and_flags(csrc, monkeypatch, edit):
+    before = kernels.source_digest("pair_scorer")
+    assert before == kernels.source_digest("pair_scorer")  # stable
+    if edit == "source":
+        (csrc / "pair_scorer.cu").write_text((csrc / "pair_scorer.cu").read_text() + "\n// x\n")
+    elif edit == "header":
+        (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n// x\n")
+    elif edit == "new_header":
+        (csrc / "extra.cuh").write_text("#pragma once\n")
+    elif edit == "flags":
+        monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
+    else:
+        (csrc / "layer_norm.cu").write_text((csrc / "layer_norm.cu").read_text() + "\n// x\n")
+    changed = kernels.source_digest("pair_scorer") != before
+    assert changed == (edit != "other_source")
+
+
+def test_included_headers_are_shared_headers():
+    """Every ``#include "..."`` of a source names a ``csrc/*.cuh`` (the
+    digest hashes exactly those), and the Hopper header is shared by the
+    kernels that use TMA and wgmma."""
+    headers = {p.name for p in kernels.CSRC_DIR.glob("*.cuh")}
+    users = set()
+    for src in kernels.CSRC_DIR.glob("*.cu"):
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert name in headers, (src.name, name)
+            if name == "hopper.cuh":
+                users.add(src.stem)
+    assert {"pair_scorer", "pair_scorer_int8", "text_attention"} <= users

@@ -335,13 +335,16 @@ def _int8(folded, P_e, L_e, static, label_tile):
 @pytest.mark.parametrize("width", [256, 1024])
 @pytest.mark.parametrize("n_hidden", [1, 2, 3])
 @pytest.mark.parametrize("static", [True, False])
-def test_int8_kernel_matches_plain_on_card(static, n_hidden, width):
-    """K2, static and dynamic scales, 1-3 hidden layers (every launch mode),
-    width 256 (every column in the row scales) and 1024 (the 1/8 subsample),
-    a ragged last label chunk and a partial last row block: the carried
-    layer-1 rows equal the plain version's bit for bit, the logits within
-    2e-2 (the w_out dot sums in another order, with atomics)."""
+def test_int8_kernel_matches_plain_on_card(monkeypatch, static, n_hidden, width):
+    """K2, static and dynamic scales, 1-3 hidden layers (every epilogue),
+    width 256 (every column in the row scales) and 1024 (the 1/8
+    subsample), on the launch plan with chunks of 128 labels a sequence, the
+    last (44 labels) ending mid-tile: the carried layer-1 rows of three
+    chunks (one starting mid-tile) equal the plain version's bit for bit,
+    the logits within 2e-2 (the w_out dot sums in another order, with
+    atomics)."""
     dev = _card()
+    monkeypatch.setattr(ps, "TARGET_ROWS", 128 * 5)
     rng = np.random.default_rng(10 * n_hidden + int(static))
     folded = _folded(rng, 16, width, n_hidden, dev)
     P_e = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32)).to(dev, torch.bfloat16)
@@ -351,18 +354,55 @@ def test_int8_kernel_matches_plain_on_card(static, n_hidden, width):
     got = ps.pair_logits_tiled_int8(q, P_e, L_e, label_tile=128)
     want = ps.pair_logits_tiled_int8_reference(q, P_e, L_e, label_tile=128)
     torch.cuda.synchronize()
-    assert ps.INT8_LAUNCHES["pair_int8_layer"] - before["pair_int8_layer"] == 3 * n_hidden
-    scale_launches = ps.INT8_LAUNCHES["pair_int8_row_scale"] - before["pair_int8_row_scale"]
-    assert scale_launches == (0 if static else 3 * n_hidden)
+    launched = {k: ps.INT8_LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"pair_int8_layer": 3 * n_hidden, "pair_int8_codes": 3 if static else 0,
+                        "pair_int8_row_scale": 0 if static else 3 * n_hidden}
     assert float(want.std()) > 0.3
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2, rtol=0)
     if n_hidden >= 2:
-        for l0, nl in ((0, 128), (256, 44)):
+        for l0, nl in ((0, 128), (256, 44), (100, 77)):
             mine = ps.int8_carry_cuda(q, P_e, L_e, l0, nl)
             theirs = ps.int8_carry_reference(q, P_e, L_e, l0, nl)
             torch.cuda.synchronize()
             assert mine.dtype == theirs.dtype and mine.shape == theirs.shape
             assert torch.equal(mine, theirs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [256, 1024])
+def test_int8_code_passes_match_plain_on_card(width):
+    """K2's code passes alone on a chunk that ends mid-tile: layer 1's
+    static codes (``pair_int8_codes``) and the dynamic row scales and codes
+    (``pair_int8_row_scale``, from a and c and from bf16 rows) equal their
+    plain versions exactly."""
+    dev = _card()
+    rng = np.random.default_rng(width)
+    folded = _folded(rng, 16, width, 2, dev)
+    P_e = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    L_e = torch.from_numpy(rng.normal(size=(200, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    scales = ps.calibrate_act_scales(folded, P_e, L_e, 128)
+    ch = ps.single_chunk_plan(3, width, 2, 30, 150).chunks[0]
+    rows = 3 * ch.nl_pad
+    x = torch.from_numpy(np.abs(rng.normal(size=(rows, width))).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    for q in (ps.quantize_folded(folded, act_scales=scales), ps.quantize_folded(folded)):
+        plan = ps.single_chunk_plan(3, width, 2, ch.l0, ch.nl)
+        k = ps._Int8Kernel(q, P_e, L_e, torch.bfloat16, plan)
+        with torch.cuda.device(dev):
+            k.quantize(ch, 0)
+        torch.cuda.synchronize()
+        if q.act_scales is not None:
+            want = ps.int8_codes_reference(k.a, k.c, ch, scales[0])
+            assert torch.equal(k.codes[0][:rows], want)
+            continue
+        want_s, want = ps.int8_row_scale_reference(ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16))
+        assert torch.equal(k.codes[0][:rows], want) and torch.equal(k.row_scale[:rows], want_s)
+        k.h[:rows] = x
+        with torch.cuda.device(dev):
+            k.quantize(ch, 1)
+        torch.cuda.synchronize()
+        want_s, want = ps.int8_row_scale_reference(x)
+        assert torch.equal(k.codes[0][:rows], want) and torch.equal(k.row_scale[:rows], want_s)
 
 
 @pytest.mark.cuda
@@ -393,18 +433,20 @@ def _attention_inputs(rng, B, nh, T, hd, lengths, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,causal", [(77, False), (77, True), (512, False), (510, True),
-                                      (64, False), (1, False)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1, 64, 77, 128, 129, 256, 510, 512])
 def test_text_attention_kernel_matches_plain_on_card(T, causal):
-    """K8a: ragged T (not a multiple of the 64-key tile), the causal mask
-    with the key mask, T = 512, and one all-masked row (the filler row of a
-    padded chunk), which must stay finite."""
+    """K8a at T on both sides of its one-pass limit (128) and of its 64-key
+    tiles, up to 512, bidirectional and causal; rows: a full one, a half
+    one, an all-masked filler row (the uniform softmax, finite) and one whose
+    first 70 keys are masked (causal: the rows before its first kept key see
+    every key, and the kernel may skip no tile for them)."""
     dev = _card()
     hd = 64
-    rng = np.random.default_rng(T)
-    B = 3
-    lengths = [T, max(T // 2, 1), 0]
-    q, k, v, mask = _attention_inputs(rng, B, 4, T, hd, lengths, dev)
+    rng = np.random.default_rng(T + 1000 * causal)
+    B = 4
+    q, k, v, mask = _attention_inputs(rng, B, 4, T, hd, [T, max(T // 2, 1), 0, 0], dev)
+    mask[3, min(70, T - 1):] = 1
     before = k8a.LAUNCHES
     got = k8a.masked_attention(q, k, v, mask, causal)
     want = k8a.masked_attention_reference(q, k, v, mask, causal)

@@ -209,6 +209,46 @@ def test_int8_logits_and_carry_match_jax(mode, dtype, H):
         assert np.abs(got.numpy() - want).max() < 1e-2
 
 
+@pytest.mark.parametrize("H", [256, 1024])
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_int8_launch_plan_layout_matches_plain(mode, H):
+    """K2 on K1's launch plan: 300 labels in chunks of 128 a sequence, the
+    last (44 labels) padded to a whole 128-row tile, so it ends mid-tile.
+    The plain chain over the padded layout gives the plain int8 logits (the
+    w_out dot sums over other row counts: 1e-5), and the launch sequence the
+    kernels run on a chunk (layer 1's code pass, or the row-scale pass that
+    also writes the codes; the int32 GEMM; its code or bf16 epilogue), read
+    back through ``chunk_rows`` as the wrapper does, carries exactly
+    ``int8_carry_reference``'s rows."""
+    _, tf = _folded(_weights(H, seed=11), "bf16")
+    P_e, L_e = map(torch.from_numpy, _inputs(seed=12, n_labels=300))
+    scales = tps.calibrate_act_scales(tf, P_e, L_e, 128) if mode == "static" else None
+    tq = tps.quantize_folded(tf, act_scales=scales)
+    plan = tps.launch_plan(B, 300, H, 2, target_rows=128 * B)
+    assert [(ch.l0, ch.nl, ch.nl_pad) for ch in plan.chunks] == \
+        [(0, 128, 128), (128, 128, 128), (256, 44, 128)]
+    want = tps.pair_logits_tiled_int8_reference(tq, P_e, L_e, 128)
+    got = tps.pair_logits_int8_plan_reference(tq, P_e, L_e, plan)
+    assert float(want.std()) > 0.05
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=LOGIT_ATOL, rtol=0)
+
+    a, c = tps._side_partials(tq, P_e, L_e, torch.bfloat16)
+    Wq, s_w, b = tq.hidden_q[0]
+    for ch in plan.chunks + tps.single_chunk_plan(B, H, 2, 100, 77).chunks:
+        if mode == "static":
+            hq = tps.int8_codes_reference(a, c, ch, scales[0])
+            alpha = (tps._f32(scales[0], "cpu") * s_w)[None, :]
+        else:
+            s_act, hq = tps.int8_row_scale_reference(tps._chunk_inputs(a, c, ch).to(torch.bfloat16))
+            alpha = s_act[:, None] * s_w[None, :]
+        assert hq.dtype == torch.int8 and hq.shape == (B * ch.nl_pad, H)
+        h = torch.relu(tps._int_product(hq, Wq).float() * alpha + b).to(torch.bfloat16)
+        carry = tps._codes(h.float() * tps._inv(scales[1], "cpu"), 0) if scales else h
+        mine = tps.chunk_rows(carry, B, ch)
+        theirs = tps.int8_carry_reference(tq, P_e, L_e, ch.l0, ch.nl)
+        assert mine.dtype == theirs.dtype and torch.equal(mine, theirs)
+
+
 def test_static_codes_stay_in_range_and_chain_is_int8():
     """The carried codes of the static chain lie in 0..127 (the carry clip);
     the dynamic carry is bf16."""

@@ -248,6 +248,125 @@ def test_attention_core_all_masked_row_is_uniform():
         torch.testing.assert_close(ctx[1], v[1].mean(1, keepdim=True).expand(-1, 5, -1))
 
 
+def _bf16_round(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _k8a_emulated(q, k, v, mask, causal):
+    """The CUDA K8a's algorithm in float32 numpy (q, k, v (B, nh, T, hd)
+    bf16 values as float32, mask (B, T)): warps of 16 query rows and 64-key
+    tiles; the key tiles a warp skips (before the first kept key, after the
+    last, and causal after the warp's last row, unless a row of the warp
+    has no kept key up to itself); at T <= 128 the scores held for every key
+    (one pass), above it a running max and a rescaled running sum (pass 1)
+    and the probabilities bf16(exp(s - m) / l) from the final m (pass 2),
+    over the tiles any warp of the 64-row warpgroup needs (its wgmma runs
+    for all four warps).  Returns the bf16 context and the tiles visited
+    and skipped."""
+    f32 = np.float32
+    B, nh, T, hd = q.shape
+    scale = f32(k8a.scale_for(hd))
+    nkt = -(-T // 64)
+    ctx = np.zeros(q.shape, f32)
+    visited = skipped = 0
+    for b in range(B):
+        kept = np.nonzero(mask[b] > 0)[0]
+        first, last = (kept[0], kept[-1]) if kept.size else (T, -1)
+        kbias = np.where(mask[b] > 0, f32(0), f32(k8a.MASKED)).astype(f32)
+        def warp_tiles(w0):
+            if (first <= w0) if causal else (first < T):
+                return first // 64, (min(last, w0 + 15) if causal else last) // 64 + 1
+            return 0, nkt
+
+        for h in range(nh):
+            for w0 in range(0, T, 16):
+                rows = np.arange(w0, min(w0 + 16, T))
+                lo, hi = warp_tiles(w0)
+                if T > 128:  # the warpgroup's tiles
+                    group = [warp_tiles(w) for w in range(w0 // 64 * 64, w0 // 64 * 64 + 64, 16)
+                             if w < T]
+                    lo, hi = min(g[0] for g in group), max(g[1] for g in group)
+                visited += hi - lo
+                skipped += nkt - (hi - lo)
+
+                def scores(kt):
+                    keys = np.arange(kt * 64, min(kt * 64 + 64, T))
+                    s = (q[b, h, rows] @ k[b, h, keys].T).astype(f32)
+                    bias = np.broadcast_to(kbias[keys], s.shape).copy()
+                    if causal:
+                        bias[keys[None, :] > rows[:, None]] = f32(k8a.MASKED)
+                    return (s * scale).astype(f32) + bias, keys
+
+                o = np.zeros((rows.size, hd), f32)
+                if T <= 128:
+                    parts = [scores(kt) for kt in range(lo, hi)]
+                    s = np.concatenate([p for p, _ in parts], 1)
+                    e = np.exp(s - s.max(1, keepdims=True))
+                    p = _bf16_round(e / e.sum(1, keepdims=True, dtype=f32))
+                    o = p @ v[b, h, np.concatenate([ks for _, ks in parts])]
+                else:
+                    m = np.full((rows.size, 1), -np.inf, f32)
+                    l_ = np.zeros((rows.size, 1), f32)
+                    for kt in range(lo, hi):
+                        s, _ = scores(kt)
+                        mn = np.maximum(m, s.max(1, keepdims=True))
+                        l_ = l_ * np.exp(m - mn) + np.exp(s - mn).sum(1, keepdims=True, dtype=f32)
+                        m = mn
+                    for kt in range(lo, hi):
+                        s, keys = scores(kt)
+                        o = o + _bf16_round(np.exp(s - m) / l_) @ v[b, h, keys]
+                ctx[b, h, rows] = _bf16_round(o)
+    return ctx, visited, skipped
+
+
+@pytest.mark.parametrize("T,causal", [(77, False), (77, True), (128, True), (200, False),
+                                      (200, True), (1, False)])
+def test_attention_kernel_algorithm_matches_jax(T, causal):
+    """K8a's blocking, tile skipping and one- or two-pass normalisation,
+    emulated in float32 on the CPU, against the JAX ``_attention`` in bf16
+    (its projections made exact: identity and two permutations, no bias).
+    Rows: a full one, a half one, an all-masked filler row (JAX's uniform
+    softmax over every key) and one whose first 70 keys are masked (causal:
+    the rows before its first kept key see every key).  Within 1e-2 of the
+    largest |value| (two bf16 steps: the sums run in other orders, so a
+    probability or an output can round to the neighbouring bf16 value)."""
+    nh, hd = 2, 64
+    H = nh * hd
+    jcfg, _ = _configs("gpt" if causal else "bert", hidden_size=H, num_heads=nh, bf16=True)
+    rng = np.random.default_rng(T + 1000 * causal)
+    x = _bf16_round(rng.normal(size=(4, T, H)) * 1.5)
+    mask = np.zeros((4, T), np.int32)
+    mask[0] = 1
+    mask[1, : max(T // 2, 1)] = 1
+    mask[3, min(70, T - 1):] = 1
+    p1, p2 = rng.permutation(H), rng.permutation(H)
+    eye = np.eye(H, dtype=np.float32)
+    lp = {"q": {"kernel": eye}, "k": {"kernel": eye[:, p1]}, "v": {"kernel": eye[:, p2]},
+          "o": {"kernel": eye}}
+    keep = mask[:, None, None, :] > 0
+    if causal:
+        keep = keep & np.tril(np.ones((T, T), bool))[None, None]
+    bias = np.where(keep, 0.0, -1e9).astype(np.float32)
+    want = np.asarray(jax.jit(functools.partial(
+        jtt._attention, cfg=jcfg, lora_entry=None, lora_scaling=1.0))(
+        jax.tree_util.tree_map(jnp.asarray, lp), jnp.asarray(x, jnp.bfloat16),
+        jnp.asarray(bias)).astype(jnp.float32))
+
+    def heads(y):
+        return y.reshape(4, T, nh, hd).transpose(0, 2, 1, 3)
+
+    got, visited, skipped = _k8a_emulated(heads(x), heads(x[..., p1]), heads(x[..., p2]),
+                                          mask, causal)
+    got = got.transpose(0, 2, 1, 3).reshape(4, T, H)
+    assert np.isfinite(got).all()
+    assert visited > 0 and (skipped > 0) == (T > 64)  # the skips are exercised
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-2 * scale
+    # the filler row: the uniform softmax over all T keys, as JAX gives it
+    np.testing.assert_allclose(got[2], np.broadcast_to(x[2, :, p2].T.mean(0), (T, H)),
+                               atol=1e-2 * scale, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("residual", [True, False])
 def test_layer_norm_matches_jax(dtype, residual):

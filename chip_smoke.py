@@ -40,7 +40,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    and every output-MLP parameter); then K4's forward, K5's forward and
    K5's backward alone at the training path's 32-sequence shapes
    (1,027,264 x 3072 pre-activations) against their plain versions (K5's
-   in 512-column slices), with both times;
+   in 512-column slices), with both times; K4's ptxas registers, spills and
+   shared memory, TFLOP/s and share of its bound, and ``gemm_ms``:
+   ``torch.matmul`` on the materialised bf16 x1 of the same rows (a
+   yardstick, not the same function);
 9. training: a generated FASTA (352 training and 64 validation sequences
    over the 32,102-label vocabulary) -> weighted, shuffled ``BucketBatcher``
    -> ``PrefetchBatcher`` -> the port's ``Trainer.train`` for one epoch at
@@ -77,7 +80,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
     causal form at B 128 x T 128; each with one all-masked filler row; times
     from CUDA events beside the bound, the plain version's and the library
     call's (SDPA with the same additive mask, ``F.layer_norm`` after the bf16
-    add), which the port never calls;
+    add), which the port never calls; for K8b and ``F.layer_norm`` also the
+    device time a call from ``torch.profiler`` and the host time a call;
 14. the text tower: E5-large (24 layers, vocab 250,002, bf16, random weights
     from a seeded CUDA generator) and BioGPT against the plain tower (the
     plain K8a and K8b) on one chunk of (a) and (c): pooled (mean) embeddings;
@@ -334,31 +338,43 @@ def phase_kernel(card: str):
             "library_ms": None}
 
 
+def ptxas_by_kernel(build_log: str, pattern: str) -> list:
+    """(the regex groups of a kernel's mangled name, its ptxas registers
+    line, its spill line) for each kernel of a build log whose name matches
+    ``pattern``."""
+    import re
+
+    out, name, spills = [], None, None
+    for line in build_log.splitlines():
+        m = re.search(pattern, line)
+        if m:
+            name = m.groups()
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            out.append((name, line.strip(), spills))
+            name = None
+    return out
+
+
 def k1_variants():
     """Each of K1's compiled variants (column tile, where A comes from, where
     the epilogue goes): its ptxas registers, barriers and spills, and the
     dynamic shared memory its launch asks for."""
     import ctypes
-    import re
 
     from protnote_tpu_torch.ops.kernels import load_kernel_library
 
     lib = load_kernel_library("pair_scorer")
     smem = lib.lib.pair_mlp_layer_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    out, name, spills = [], None, None
-    for line in lib.build_log.splitlines():
-        m = re.search(r"pair_mlp_layer_kernelILi(\d+)ELb([01])ELb([01])E", line)
-        if m:
-            name = (int(m.group(1)), m.group(2) == "1", m.group(3) == "1")
-        elif name and "spill" in line:
-            spills = line.strip()
-        elif name and "registers" in line:
-            bn, formed, dot = name
-            out.append({"block_n": bn, "a": "formed" if formed else "read",
-                        "epilogue": "dot" if dot else "store", "ptxas": line.strip(),
-                        "spills": spills, "smem_bytes": smem(bn, int(formed) | 2 * int(dot))})
-            name = None
+    out = []
+    for (bn, formed, dot), ptxas, spills in ptxas_by_kernel(
+            lib.build_log, r"pair_mlp_layer_kernelILi(\d+)ELb([01])ELb([01])E"):
+        bn, formed, dot = int(bn), formed == "1", dot == "1"
+        out.append({"block_n": bn, "a": "formed" if formed else "read",
+                    "epilogue": "dot" if dot else "store", "ptxas": ptxas,
+                    "spills": spills, "smem_bytes": smem(bn, int(formed) | 2 * int(dot))})
     return out
 
 
@@ -1396,6 +1412,7 @@ def phase_train_kernels_alone(p, s, card: str):
         W = (torch.randn(H, H, generator=gen) * (2.0 / H) ** 0.5).to(dev, bf16)
         z = st._pair_hidden_fwd_cuda(a2, c2, W)
         k4 = [delta(z, st._pair_hidden_fwd_plain(a2, c2, W))]
+        k4_extra = k4_parts(a2, c2, W)
         em = torch.ones(TRAIN_B, device=dev)
         em[-1] = 0.0
         lm = (torch.rand(NUM_LABELS, generator=gen) < 0.98).float().to(dev)
@@ -1452,6 +1469,12 @@ def phase_train_kernels_alone(p, s, card: str):
     abs_errs = {"pair_train_hidden": outs["pair_train_hidden"]["z"][0],
                 "bn_relu_forward": outs["bn_relu_forward"]["y"][0],
                 "bn_relu_backward": outs["bn_relu_backward"]["dz"][0]}
+    k4_ops = 2.0 * N * H * H
+    k4_extra.update(tflops=k4_ops / times["pair_train_hidden"][0] / 1e9,
+                    gemm_tflops=k4_ops / k4_extra["gemm_ms"] / 1e9,
+                    bound_share=bounds["pair_train_hidden"]["bound_ms"]
+                    / times["pair_train_hidden"][0])
+    log("k4_parts", **k4_extra, card=card)
     log("train_kernels_alone", batch=TRAIN_B, rows=int(z.shape[0]), width=H,
         elements=z.numel(), k5_plain_cols=K5_PLAIN_COLS,
         max_abs_errs={k: {o: d[0] for o, d in v.items()} for k, v in outs.items()},
@@ -1461,6 +1484,35 @@ def phase_train_kernels_alone(p, s, card: str):
         raise AssertionError(f"a training kernel disagrees with its plain version: {outs}")
     return {k: {"max_abs_err": abs_errs[k], "ms": times[k][0], "plain_ms": times[k][1],
                 **bounds[k], "library_ms": None} for k in times}
+
+
+def k4_parts(a2, c2, W) -> dict:
+    """K4's compiled variants (the column tile): ptxas registers, barriers
+    and spills, and the dynamic shared memory a launch asks for; its launch
+    plan; and the yardstick ``gemm_ms``: ``torch.matmul`` on the
+    materialised bf16 x1 = relu(a2[b] + c2[l]) of the same rows times W (not
+    the same function: x1 in device memory, formed outside the timing)."""
+    import ctypes
+
+    import torch
+
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    lib = load_kernel_library("pair_train")
+    smem = lib.lib.pair_train_hidden_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    variants = [{"block_n": int(bn), "ptxas": ptxas, "spills": spills, "smem_bytes": smem(int(bn))}
+                for (bn,), ptxas, spills in ptxas_by_kernel(lib.build_log,
+                                                            r"pair_train_hidden_kernelILi(\d+)E")]
+    plan = st.pair_train_plan(a2.shape[0], c2.shape[0], a2.shape[1], W.shape[1],
+                              torch.cuda.get_device_properties(a2.device).multi_processor_count)
+    x1 = st._pair_x1(a2, c2)
+    gemm = cuda_time_ms(lambda: torch.matmul(x1, W), 3)
+    del x1
+    torch.cuda.empty_cache()
+    return {"variants": variants, "block_n": plan.block_n, "tiles": plan.tiles,
+            "grid": plan.grid, "gemm_ms": gemm}
 
 
 def train_datasets(tmp: str):
@@ -1509,6 +1561,25 @@ def device_profile(fn, steps: int):
     busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     return wall, busy / 1e6, [(name[:80], us / 1e3 / steps) for name, us in top]
+
+
+def device_and_host_ms(fn, reps: int) -> tuple:
+    """(device ms, host ms) a call of ``fn`` over ``reps`` back-to-back
+    calls: the device time is the busy time of a ``torch.profiler`` pass
+    (the union of its kernels' intervals, None without device events), the
+    host time the wall time of enqueueing the calls, with no synchronise
+    between them.  Where the host time exceeds the device time, CUDA events
+    around back-to-back calls time the host."""
+    import torch
+
+    _, busy, _ = device_profile(fn, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return (None if busy is None else busy * 1e3 / reps), host * 1e3 / reps
 
 
 def phase_training(card: str):
@@ -1712,14 +1783,21 @@ def phase_k8(card: str):
             n_err = float((got.float() - want.float()).abs().max())
             n_rel = n_err / float(want.float().abs().max())
             sb, bb = scale.to(bf16), bias.to(bf16)
-            norm = {"ms": cuda_time_ms(lambda: k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5),
-                                       20),
+
+            def kernel():
+                return k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5)
+
+            def library():
+                return F.layer_norm(x if r is None else x + r, (Hd,), sb, bb, 1e-5)
+
+            norm = {"ms": cuda_time_ms(kernel, 20),
                     "plain_ms": cuda_time_ms(lambda: k8b.add_layer_norm_reference(
                         x, r, scale, bias, 1e-5), 5),
-                    "library_ms": cuda_time_ms(lambda: F.layer_norm(
-                        x if r is None else x + r, (Hd,), sb, bb, 1e-5), 20),
+                    "library_ms": cuda_time_ms(library, 20),
                     "max_abs_err": n_err, "rel_err": n_rel,
                     **bound(nbytes=2.0 * rows * Hd * (2 if r is None else 3) + 8.0 * Hd)}
+            for key, fn in (("", kernel), ("library_", library)):
+                norm[f"{key}device_ms"], norm[f"{key}host_ms"] = device_and_host_ms(fn, 20)
             del got, want, x, r
             out[name] = {"text_attention": attn, "add_layer_norm": norm}
             log("k8_check", shape=name, batch=Bq, tokens=T, lengths=[lo, hi], causal=causal,
@@ -1729,8 +1807,20 @@ def phase_k8(card: str):
                 raise AssertionError(f"K8 ({name}) disagrees with its plain version: attention "
                                      f"{a_rel}, LayerNorm {n_rel} (rel tol {K8_REL_TOL}), "
                                      f"finite {finite}")
+    log("k8b_ptxas", **k8b_ptxas(), card=card)
     torch.cuda.empty_cache()
     return out
+
+
+def k8b_ptxas() -> dict:
+    """K8b's ptxas registers and spills at the tower's width (H 1024, four
+    16-byte chunks a lane), with and without the residual."""
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    return {"residual" if residual == "1" else "no_residual": {"ptxas": ptxas, "spills": spills}
+            for (chunks, residual), ptxas, spills in ptxas_by_kernel(
+                load_kernel_library("layer_norm").build_log,
+                r"add_layer_norm_kernelILi(\d+)ELb([01])E") if chunks == "4"}
 
 
 def random_tower(cfg, seed: int):

@@ -20,12 +20,32 @@ against the kept kernels, to find what bounds them.
 Prints one JSON line a measurement (the builds' ptxas lines first), then
 the card's name and power limit.  Times are CUDA events
 (``chip_smoke.cuda_time_ms``).  Without a CUDA device it exits non-zero.
+
+    python3 chip_variants.py --header-against DIR
+
+instead times the kernels that include ``csrc/hopper.cuh`` and are not
+otherwise changed by an edit of it (K1's whole call and K2's static call
+at full serving width, K8a at the three K8 shapes) in the checkout at DIR
+(another commit, unpacked with ``git archive``) and in this one, in turns
+(DIR, this, this, DIR), one process a turn, and prints each turn, the
+change's mean over DIR's, per kernel, and whether each library's
+instructions (``cuobjdump -sass``) are the same in both.
+
+    python3 chip_variants.py --train-against DIR
+
+runs ``chip_smoke.py``'s training phase alone (one epoch at full width,
+32 sequences a step) on DIR's package and on this one, in the same turns,
+and prints the median step, seqs/s, peak memory and idle share of each
+and the change's mean over DIR's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib.util
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -262,9 +282,158 @@ def k2_register_a(libs, card: str) -> dict:
     return out
 
 
+def time_header_users(tree: str) -> None:
+    """One turn of ``--header-against``: K1, K2 (static) and K8a built and
+    timed from the package in ``tree``, with this checkout's
+    ``chip_smoke.py`` helpers; prints one JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+
+    import protnote_tpu_torch
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import text_attention as k8a
+    from protnote_tpu_torch.ops.kernels import load_kernel_library, nvcc_path
+
+    if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
+    names = ("pair_scorer", "pair_scorer_int8", "text_attention")
+    with ThreadPoolExecutor(3) as pool:
+        libs = dict(zip(names, pool.map(load_kernel_library, names)))
+    out = {"tree": tree, "sass": {}}
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    for name, lib in libs.items():
+        # each library's instructions (offset, instruction, encoding) in
+        # order, without the kernels' names, which carry a hash of the
+        # translation unit for symbols of an anonymous namespace
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(lib.path)], capture_output=True,
+                                  text=True, check=True).stdout
+            lines = [x.strip() for x in sass.splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", x)]
+            path = os.path.join(os.path.dirname(str(lib.path)), f"{name}.sass")
+            with open(path, "w") as f:
+                f.write("\n".join(lines))
+            out["sass"][name] = path
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    folded = cs.random_folded(gen, cs.D_LATENT, cs.H, 2, dev)
+    P_e = torch.randn(cs.B, cs.D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(cs.NUM_LABELS * cs.K_DESCRIPTIONS, cs.D_LATENT,
+                      generator=gen).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        out["k1_ms"] = cs.cuda_time_ms(
+            lambda: ps.pair_logits_tiled_cuda(folded, P_e, L_e, cs.LABEL_TILE), 5)
+        q = ps.quantize_folded(folded, act_scales=ps.calibrate_act_scales(
+            folded, P_e, L_e, cs.LABEL_TILE))
+        out["k2_static_ms"] = cs.cuda_time_ms(
+            lambda: ps.pair_logits_tiled_int8_cuda(q, P_e, L_e, cs.LABEL_TILE), 5)
+        del q, folded, P_e, L_e
+        torch.cuda.empty_cache()
+        for shape, Bq, T, lo, hi, causal in cs.K8_SHAPES:
+            _, mask = cs.token_batch(gen, Bq, T, lo, hi, 100, 1)
+            qkv = [torch.randn(Bq, 16, T, 64, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(3)]
+            out[f"k8a_{shape}_ms"] = cs.cuda_time_ms(
+                lambda: k8a.masked_attention_cuda(*qkv, mask, causal), 100)
+    print(json.dumps(out), flush=True)
+
+
+def train_turn(tree: str) -> None:
+    """One turn of ``--train-against``: ``chip_smoke.py``'s training phase
+    (one epoch at full width, 32 sequences a step) alone in a fresh process,
+    on the package in ``tree``; prints its lines, then one JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import protnote_tpu_torch
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
+    names = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_kernel_library, names))
+    cs.phase_training(cs.card_line())
+
+
+def turns(parent: str, flag: str, card: str) -> list:
+    """``chip_variants.py FLAG TREE`` in DIR, this checkout, this, DIR, one
+    process a turn; the JSON lines each printed, by phase (the last line
+    under "turn")."""
+    import chip_smoke as cs
+
+    out = []
+    for tree in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
+                              capture_output=True, text=True, cwd=tree)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the turn in {tree} failed:\n{proc.stdout}{proc.stderr}")
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        out.append({**{x.get("phase", "turn"): x for x in lines}, "tree": tree})
+        cs.log("turn", flag=flag, tree=tree, lines=lines, card=card)
+    return out
+
+
+def mean_over_turns(results: list, parent: str, keys) -> dict:
+    """Each key's mean over DIR's turns and over this checkout's, and the
+    change's mean over DIR's less 1."""
+    mean = {side: {k: sum(r[k] for r in results if (r["tree"] == parent) == (side == "parent"))
+                   / 2 for k in keys} for side in ("parent", "change")}
+    return {"mean": mean,
+            "change_over_parent": {k: mean["change"][k] / mean["parent"][k] - 1 for k in keys}}
+
+
+def header_against(parent: str, card: str) -> None:
+    """``--header-against``: K1, K2 and K8a timed in turns, and each
+    library's instructions compared between DIR and this checkout."""
+    import chip_smoke as cs
+
+    parent = os.path.abspath(parent)
+    results = [r["turn"] for r in turns(parent, "--time-header-users", card)]
+    sass = {}
+    for name, path in results[0]["sass"].items():
+        with open(path) as a, open(results[1]["sass"][name]) as b:
+            pa, pb = a.read().splitlines(), b.read().splitlines()
+        first = next((i for i, (x, y) in enumerate(zip(pa, pb)) if x != y), None)
+        sass[name] = {"instructions": [len(pa), len(pb)], "identical": pa == pb,
+                      "first_difference": None if first is None else [pa[first], pb[first]]}
+    cs.log("header_users", parent=parent, sass=sass, card=card,
+           **mean_over_turns(results, parent, [k for k in results[0] if k.endswith("_ms")]))
+
+
+def train_against(parent: str, card: str) -> None:
+    """``--train-against``: the training phase alone in DIR and in this
+    checkout, in turns: step ms, seqs/s, peak memory, idle share."""
+    import chip_smoke as cs
+
+    parent = os.path.abspath(parent)
+    results = []
+    for r in turns(parent, "--train-turn", card):
+        train, prof = r["train"], r["train_profile"]
+        results.append({"tree": r["tree"], "median_warm_step_ms": train["median_warm_step_ms"],
+                        "seqs_per_s": train["seqs_per_s"], "peak_mem_gb": train["peak_mem_gb"],
+                        "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+                        "idle_share": prof["idle_share"]})
+    cs.log("train_against", parent=parent, turns=results, card=card,
+           **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
+
+
 def main() -> None:
     import tempfile
 
+    if sys.argv[1:2] == ["--time-header-users"]:
+        time_header_users(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--train-turn"]:
+        train_turn(sys.argv[2])
+        return
     sys.path.insert(0, ROOT)
     import torch
 
@@ -274,6 +443,14 @@ def main() -> None:
         print("chip_variants.py: no CUDA device", file=sys.stderr)
         sys.exit(1)
     card = cs.card_line()
+    if sys.argv[1:2] == ["--header-against"]:
+        header_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--train-against"]:
+        train_against(sys.argv[2], card)
+        print(card)
+        return
     with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
         libs = build(build_dir)
         cs.log("ptxas", **{n: log for n, (_, log) in libs.items()})

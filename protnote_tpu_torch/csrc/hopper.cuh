@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialised
-// kernels (pair_scorer.cu, pair_scorer_int8.cu): TMA tensor maps and copies,
+// kernels (pair_scorer.cu, pair_scorer_int8.cu, pair_train.cu): TMA tensor
+// maps (2-D, and 3-D for stores that must not cross a plane) and copies,
 // mbarriers, async-proxy fences, named barriers, wgmma shared-memory
-// descriptors and the wgmma fence/commit/wait instructions; and the
-// shared-memory address, bf16 packing and division helpers.
+// descriptors, the wgmma fence/commit/wait instructions and the bf16
+// m64nNk16 products (Mma); and the shared-memory address, bf16 packing and
+// division helpers.
 // text_attention.cu takes the descriptors, the wgmma instructions, the
 // async-proxy fence and those helpers.  ops/kernels.py hashes every csrc/*.cuh
 // with each source, so an edit here rebuilds every library that includes
@@ -62,6 +64,15 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group [%0, {%2, %3}], [%1];\n"
                ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
                : "memory");
+}
+// 3-D TMA store of a shared-memory box to (c0, c1, c2), innermost first;
+// elements past any dimension's end are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -134,6 +145,91 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #define I128(d) \
   I64(d), I8(d, 64), I8(d, 72), I8(d, 80), I8(d, 88), I8(d, 96), I8(d, 104), I8(d, 112), I8(d, 120)
 
+// keeps the compiler from reusing register-A fragments (four k-steps of
+// four .b32) while a wgmma in flight still reads them
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma m64nBNk16, bf16 in, f32 accumulators: ss reads A and B through
+// descriptors, rs takes A from registers (four .b32 of two bf16 each, in the
+// m16n8k16 A-fragment layout of the thread's warp).  scale_d 0 overwrites.
+template <int BN>
+struct Mma;
+
+template <>
+struct Mma<256> {
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, 0;\n}\n"
+        : D128(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : D128(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : D64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : D64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -182,23 +278,38 @@ EncodeTiledFn encode_tiled() {
 // its bytes, so it is encoded as UINT8).
 enum class MapType { F32, BF16, S8 };
 
-// a row-major (rows, cols) tensor as a 2-D map with box (box_rows, box_cols)
-bool make_map(CUtensorMap* map, const void* ptr, MapType type, uint64_t rows, uint64_t cols,
-              uint32_t box_rows, uint32_t box_cols, bool swizzle) {
+// a row-major (planes, rows, cols) tensor as a map of rank 2 (planes 1,
+// box_planes 1) or 3 with box (box_planes, box_rows, box_cols)
+bool make_map_nd(CUtensorMap* map, const void* ptr, MapType type, uint64_t planes, uint64_t rows,
+                 uint64_t cols, uint32_t box_planes, uint32_t box_rows, uint32_t box_cols,
+                 bool swizzle, int rank) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   const uint64_t elem_bytes = type == MapType::F32 ? 4 : type == MapType::BF16 ? 2 : 1;
   const CUtensorMapDataType dt = type == MapType::F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                  : type == MapType::BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                          : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {cols * elem_bytes, rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {box_cols, box_rows, box_planes};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, dt, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major (rows, cols) tensor as a 2-D map with box (box_rows, box_cols)
+bool make_map(CUtensorMap* map, const void* ptr, MapType type, uint64_t rows, uint64_t cols,
+              uint32_t box_rows, uint32_t box_cols, bool swizzle) {
+  return make_map_nd(map, ptr, type, 1, rows, cols, 1, box_rows, box_cols, swizzle, 2);
+}
+
+// a row-major (planes, rows, cols) tensor as a 3-D map: a box never crosses
+// a plane, and its rows past `rows` are clipped (a store does not write them)
+bool make_map_3d(CUtensorMap* map, const void* ptr, MapType type, uint64_t planes, uint64_t rows,
+                 uint64_t cols, uint32_t box_rows, uint32_t box_cols, bool swizzle) {
+  return make_map_nd(map, ptr, type, planes, rows, cols, 1, box_rows, box_cols, swizzle, 3);
 }
 
 }  // namespace

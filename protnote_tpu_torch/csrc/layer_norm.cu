@@ -12,12 +12,31 @@
 //   y    = bf16(((v - mu) * rsqrt(var + eps)) * scale + bias)
 //
 // every product and sum rounded on its own (no FMA), as the plain PyTorch
-// version computes it.
+// version computes it.  The sums run in this order (the plain version's
+// order differs; tests/test_torch_text_transformer.py emulates this one):
+// lane l holds columns (c * 32 + l) * 8 + e of chunk c < H / 256, e < 8;
+// eight partial sums a lane, p[e] = v[0][e] + v[1][e] + ... over the chunks
+// in order, then ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)), then a
+// butterfly over the lanes (xor 16, 8, 4, 2, 1).
 //
-// What bounds it: bytes.  One warp per row: each lane loads 16 bytes (8
-// bf16) at a time and keeps its H / 32 values in registers, so x and r are
-// read once and y written once, 3 * N * H * 2 bytes with a residual: at
-// 16,384 rows of 1024 that is 101 MB, 0.030 ms at 3.35 TB/s.
+// What bounds it: bytes.  x and r are read once and y written once, 3 * N * H
+// * 2 bytes with a residual: at 16,384 rows of 1024 that is 101 MB, 0.030 ms
+// at 3.35 TB/s (67 MB, 0.020 ms without).  The first design (one warp a row,
+// one row a warp) lost ~0.025 ms a call that did not scale with the bytes:
+// each lane reloaded its 64 scale and bias values for every row, as scalar
+// loads whose 32 lanes touch 1 KB apiece (~512 L1 wavefronts a row, more than
+// the row's own bytes), and every row's load, two serial 32-add chains and
+// store ran one after another.  This design:
+//
+// * Persistent: a grid of SMs x resident blocks, each warp walking rows
+//   with a stride.
+// * The next row's x (and r) are loaded into a second register buffer before
+//   the current row's reductions, so each warp keeps a row in flight.
+// * scale and bias are loaded once a warp as float4 and kept in registers up
+//   to H 1024 (64 a lane); wider rows read them as float4 per row (L1).
+// * Eight independent partial sums a lane in place of one serial chain.
+// * v is kept as packed bf16 (the residual add is rounded to bf16, so v is
+//   exact in it) and widened once a pass.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -25,26 +44,63 @@
 
 namespace {
 
-constexpr int WARPS = 8;  // rows per block
+constexpr int WARPS = 4;       // warps (rows in flight) a block
 constexpr int MAX_CHUNKS = 8;  // 16-byte chunks a lane: H up to 2048
+constexpr int REG_CHUNKS = 4;  // scale and bias in registers up to H 1024
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
+__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+// element e (< 8) of a 16-byte chunk of bf16
+__device__ __forceinline__ float elem(const uint4& u, int e) {
+  const uint32_t w = e < 2 ? u.x : e < 4 ? u.y : e < 6 ? u.z : u.w;
+  return (e & 1) ? hi_bf16(w) : lo_bf16(w);
 }
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  return pack_bf16x2(__fadd_rn(lo_bf16(a), lo_bf16(b)), __fadd_rn(hi_bf16(a), hi_bf16(b)));
+}
+// the lane's eight partial sums in a fixed tree, then over the warp
+__device__ __forceinline__ float row_sum(const float (&p)[8]) {
+  float v = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
+                      __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// scale and bias of the lane's columns: in registers (REGS) or read per row
+template <int CH>
+struct Affine {
+  static constexpr bool REGS = CH <= REG_CHUNKS;
+  float4 s[REGS ? 2 * CH : 1], b[REGS ? 2 * CH : 1];
+  const float4 *sp, *bp;
+  __device__ __forceinline__ Affine(const float* scale, const float* bias, int lane)
+      : sp(reinterpret_cast<const float4*>(scale) + 2 * lane),
+        bp(reinterpret_cast<const float4*>(bias) + 2 * lane) {
+    if constexpr (REGS) {
+#pragma unroll
+      for (int i = 0; i < 2 * CH; ++i) {
+        s[i] = __ldg(sp + 64 * (i >> 1) + (i & 1));
+        b[i] = __ldg(bp + 64 * (i >> 1) + (i & 1));
+      }
+    }
+  }
+  // float4 h (< 2) of chunk c
+  __device__ __forceinline__ float4 scale(int c, int h) const {
+    if constexpr (REGS) return s[2 * c + h];
+    else return __ldg(sp + 64 * c + h);
+  }
+  __device__ __forceinline__ float4 bias(int c, int h) const {
+    if constexpr (REGS) return b[2 * c + h];
+    else return __ldg(bp + 64 * c + h);
+  }
+};
+
+__device__ __forceinline__ float comp(const float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
 }
 
 // CH 16-byte chunks a lane: H = 256 * CH; lane l holds columns
@@ -55,66 +111,114 @@ add_layer_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
                       const float* __restrict__ scale, const float* __restrict__ bias,
                       __nv_bfloat16* __restrict__ y, long long N, float eps) {
   constexpr int H = 256 * CH;
+  constexpr int RC = RESIDUAL ? CH : 1;
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long stride = (long long)gridDim.x * WARPS;
+  long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= N) return;
-  const size_t off = (size_t)row * H;
-  float v[CH][8];
-  float sum = 0.f;
+  const Affine<CH> aff(scale, bias, lane);
+
+  uint4 xc[CH], rc[RC];
+  auto load = [&](long long rw, uint4 (&xd)[CH], uint4 (&rd)[RC]) {
+    const size_t off = (size_t)rw * H + lane * 8;
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int col = (c * 32 + lane) * 8;
-    unpack8(*reinterpret_cast<const uint4*>(x + off + col), v[c]);
-    if (RESIDUAL) {
-      float a[8];
-      unpack8(*reinterpret_cast<const uint4*>(r + off + col), a);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[c][e] = __bfloat162float(__float2bfloat16_rn(__fadd_rn(v[c][e], a[e])));
+    for (int c = 0; c < CH; ++c) {
+      xd[c] = __ldg(reinterpret_cast<const uint4*>(x + off + c * 256));
+      if constexpr (RESIDUAL) rd[c] = __ldg(reinterpret_cast<const uint4*>(r + off + c * 256));
     }
+  };
+  load(row, xc, rc);
+  for (; row < N; row += stride) {
+    const long long next = row + stride;
+    uint4 xn[CH], rn[RC];
+    if (next < N) load(next, xn, rn);  // in flight under this row's work
+
+    if constexpr (RESIDUAL) {  // v = bf16(x + r), in place
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sum = __fadd_rn(sum, v[c][e]);
-  }
-  const float mu = __fdiv_rn(warp_sum(sum), (float)H);
-  float sq = 0.f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c)
+      for (int c = 0; c < CH; ++c)
+        xc[c] = make_uint4(add_bf16x2(xc[c].x, rc[c].x), add_bf16x2(xc[c].y, rc[c].y),
+                           add_bf16x2(xc[c].z, rc[c].z), add_bf16x2(xc[c].w, rc[c].w));
+    }
+    float p[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const float d = __fsub_rn(v[c][e], mu);
-      sq = __fadd_rn(sq, __fmul_rn(d, d));
+      p[e] = elem(xc[0], e);
+#pragma unroll
+      for (int c = 1; c < CH; ++c) p[e] = __fadd_rn(p[e], elem(xc[c], e));
     }
-  const float rs = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)H), eps));
+    const float mu = __fdiv_rn(row_sum(p), (float)H);
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int col = (c * 32 + lane) * 8;
-    float o[8];
+    for (int e = 0; e < 8; ++e) {
+      const float d0 = __fsub_rn(elem(xc[0], e), mu);
+      p[e] = __fmul_rn(d0, d0);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[c][e], mu), rs), scale[col + e]),
-                       bias[col + e]);
-    *reinterpret_cast<uint4*>(y + off + col) =
-        make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]),
-                   pack_bf16x2(o[4], o[5]), pack_bf16x2(o[6], o[7]));
+      for (int c = 1; c < CH; ++c) {
+        const float d = __fsub_rn(elem(xc[c], e), mu);
+        p[e] = __fadd_rn(p[e], __fmul_rn(d, d));
+      }
+    }
+    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(row_sum(p), (float)H), eps));
+    const size_t off = (size_t)row * H + lane * 8;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      float o[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 sv = aff.scale(c, h), bv = aff.bias(c, h);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * h + i;
+          o[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(elem(xc[c], e), mu), rs), comp(sv, i)),
+                           comp(bv, i));
+        }
+      }
+      *reinterpret_cast<uint4*>(y + off + c * 256) =
+          make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]), pack_bf16x2(o[4], o[5]),
+                     pack_bf16x2(o[6], o[7]));
+    }
+    if (next < N) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        xc[c] = xn[c];
+        if constexpr (RESIDUAL) rc[c] = rn[c];
+      }
+    }
   }
+}
+
+template <int CH, bool RESIDUAL>
+cudaError_t launch_variant(const __nv_bfloat16* x, const __nv_bfloat16* r, const float* scale,
+                   const float* bias, __nv_bfloat16* y, long long N, float eps, cudaStream_t s) {
+  auto kernel = add_layer_norm_kernel<CH, RESIDUAL>;
+  static int per_sm = 0;  // resident blocks an SM: one query a variant
+  if (per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32, 0);
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (N + WARPS - 1) / WARPS;
+  const long long full = (long long)per_sm * sms;
+  kernel<<<(unsigned)(blocks < full ? blocks : full), WARPS * 32, 0, s>>>(x, r, scale, bias, y, N,
+                                                                         eps);
+  return cudaGetLastError();
 }
 
 template <int CH>
 cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* r, const float* scale,
                    const float* bias, __nv_bfloat16* y, long long N, float eps, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((N + WARPS - 1) / WARPS);
-  if (r != nullptr)
-    add_layer_norm_kernel<CH, true><<<blocks, WARPS * 32, 0, s>>>(x, r, scale, bias, y, N, eps);
-  else
-    add_layer_norm_kernel<CH, false><<<blocks, WARPS * 32, 0, s>>>(x, r, scale, bias, y, N, eps);
-  return cudaGetLastError();
+  return r != nullptr ? launch_variant<CH, true>(x, r, scale, bias, y, N, eps, s)
+                      : launch_variant<CH, false>(x, r, scale, bias, y, N, eps, s);
 }
 
 }  // namespace
 
 // x, r (or null), y: (N, H) bf16, contiguous, 16-byte aligned; scale, bias:
-// (H,) float32.  H is a multiple of 256, at most 2048.  Returns the CUDA
-// error of the launch (0 on success).
+// (H,) float32, 16-byte aligned.  H is a multiple of 256, at most 2048.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int add_layer_norm(const void* x, const void* r, const void* scale, const void* bias,
                               void* y, long long N, int H, float eps, void* stream) {
   if (N < 1 || H < 256 || H % 256 != 0 || H / 256 > MAX_CHUNKS) return (int)cudaErrorInvalidValue;

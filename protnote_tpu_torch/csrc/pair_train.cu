@@ -3,244 +3,303 @@
 //
 // Replaces the TPU op chain protnote_tpu/ops/streaming_train.py:
 // pair_logits_dense_decomposed (layer 1 decomposed per side, layer 2's
-// GEMM).  For a chunk of labels [l0, l0 + nl) and all B sequences, rows
-// r = b * nl + l of the chunk are (sequence, label) pairs, and
+// GEMM).  For every sequence b < B, label l < L and column n
 //
-//   x1[r] = bf16(relu(f32(a2[b]) + f32(c2[l0 + l])))         (bf16 inputs)
-//   z[b * L + l0 + l] = bf16(x1[r] @ W)                        (f32 accumulate)
+//   x1[b, l] = bf16(relu(f32(a2[b]) + f32(c2[l])))            (bf16 inputs)
+//   z[b * L + l, n] = bf16(sum_k x1[b, l, k] * W[k, n])         (f32 accumulate)
 //
 // a2 = bf16(a * inv1) and c2 = bf16(c * inv1 + shift1) carry the analytic
 // layer-1 BatchNorm already; their sum is rounded to bf16 once, as the JAX
 // path adds two bf16 arrays.  There is no bias (BatchNorm follows) and no
 // ReLU: the epilogue stores the raw pre-activation z, whose masked moments
 // the BN+ReLU kernels (csrc/bn_relu.cu) then reduce.  x1 never reaches device
-// memory: it is formed in shared memory, one k-step at a time.
+// or shared memory.
 //
-// What bounds it: the H x H GEMM, 2 * H^2 FLOP per pair row.  At the default
-// width (H = 3072) and a 32-sequence batch against 32,102 labels that is
-// 19.4 TFLOP, at least 20 ms at the 989 TFLOP/s dense bf16 peak; W (18 MB
-// bf16) stays in the 50 MB L2, and a2/c2 (0.2 MB and 197 MB) are read once
-// per output-column tile.  This first design is the tile GEMM of the
-// inference scorer (csrc/pair_scorer.cu, its first-layer variant): 128 x 128
-// x 32 block tiles, 8 warps of WMMA (mma.sync) bf16 products with f32
-// accumulators, two blocks per SM, a 4-stage cp.async ring that carries the
-// bf16 c2 tile and the W tile, the a2 row in registers one k-step ahead, and
-// a second barrier per k-step behind the formed A tile.  wgmma, TMA and a
-// persistent schedule are the steps toward the bound.
+// What bounds it: the tensor cores.  2 * K * N FLOP a pair row: at the
+// default width (H = 3072) and 32 sequences against 32,102 labels, 19.4
+// TFLOP, 19.6 ms at the 989 TFLOP/s dense bf16 peak; W (18 MB bf16) stays in
+// the 50 MB L2 and c2 (197 MB) is read from device memory once.  The design
+// is the first layer of the inference scorer (csrc/pair_scorer.cu, mode 1):
+//
+// * Persistent and warp-specialised: one block an SM; one producer thread
+//   (its warpgroup down to 40 registers by setmaxnreg) keeps a ring of
+//   TMA-loaded stages full, tracked by full/empty mbarrier pairs, so no
+//   block-wide barrier sits in the mainloop; two consumer warpgroups (232
+//   registers) each issue wgmma.mma_async m64nBNk16 on their 64 rows of a
+//   128 x BN tile (BN = 256, or 128 where N is an odd multiple of 128).
+// * A formed in registers: a stage carries the W^T tile (BN rows of BK = 64
+//   bf16, K-major: the caller transposes W once a call), one 128-byte-swizzled
+//   bf16 c2 box of 128 rows x 64, and the stage's bf16 a2[b] slice; each
+//   consumer thread reads its A-fragment elements from the swizzled c2 box,
+//   adds a2[b] in f32, applies ReLU, packs to bf16 and issues the register-A
+//   wgmma, with two fragment sets so that one stage's products run while the
+//   next stage's fragments are formed.  A bf16 c2 box is half the shared-
+//   memory bytes of the inference scorer's f32 one, and four 48 KB stages fit
+//   beside the epilogue boxes.
+// * Tiles never cross a sequence: a row tile is 128 labels of one sequence b
+//   (rows past L arrive from TMA as zeros), so a2[b] is one slice.  The static
+//   schedule walks label tiles outermost, then sequences, then column tiles
+//   (ops/streaming_train.py:pair_train_plan), so the blocks in flight share one
+//   786 KB c2 tile (read from device memory once, then from L2) and W.
+// * Epilogue from the accumulator registers: the raw f32 sums rounded to
+//   bf16, staged in two 64 x 64 boxes a warpgroup (128-byte swizzled) and
+//   TMA-stored while the next tile's products run.  The store goes through a
+//   3-D tensor map over z viewed as (B, L, N), box (1, 64, 64) at (b, l, n):
+//   TMA clips a box at L, so the last label tile of sequence b (102 labels at
+//   L = 32,102) never writes into sequence b + 1's rows, which a 2-D store at
+//   row b * L + l would do.  z holds 3.16e9 elements at the default shape:
+//   every offset is TMA's, in 64-bit strides.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
+#include <limits.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BM = 128;           // pair rows per block
-constexpr int BN = 128;           // output columns per block
-constexpr int BK = 32;            // reduction depth per k-step
-constexpr int THREADS = 256;      // 8 warps: 2 (rows) x 4 (columns)
-constexpr int STAGES = 4;
-constexpr int A_LD = BK + 8;      // padded shared-memory row strides (bf16)
-constexpr int B_LD = BN + 8;
-constexpr int E_LD = 16 + 4;      // per-warp f32 epilogue scratch stride
+constexpr int BM = 128;          // label rows a tile: two consumer warpgroups of 64
+constexpr int BK = 64;           // reduction depth a stage: one 128-byte row of bf16
+constexpr int CONSUMERS = 2;     // consumer warpgroups; the producer's is the last
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int SMEM_LIMIT = 232448;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 
-// Shared memory: a ring of STAGES stages (the bf16 c2 tile and the bf16 W
-// tile of one k-step), then the formed bf16 A tile.
-constexpr int A_BYTES = BM * A_LD * 2;
-constexpr int B_BYTES = BK * B_LD * 2;
-constexpr int B_OFF = STAGES * A_BYTES;
-constexpr int TILE_OFF = B_OFF + STAGES * B_BYTES;
-constexpr int SMEM_BYTES = TILE_OFF + BM * A_LD * 2;
-static_assert(8 * 16 * E_LD * 4 <= B_OFF, "epilogue scratch must fit in the ring");
-static_assert(2 * (SMEM_BYTES + 1024) <= 232448, "two blocks must fit an SM");
+constexpr int EPI_BOX = 64 * 64 * 2;  // one 64 x 64 bf16 box of z
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Shared memory: a ring of STAGES stages, each the W^T tile (BN rows of BK
+// bf16) and the c2 tile (BM rows of BK bf16, one 128-byte swizzled box); two
+// output boxes a consumer warpgroup; the bf16 a2[b] slice of each stage; then
+// the mbarriers.  Every tile starts on a 1024-byte swizzle atom.
+template <int BN>
+struct Layout {
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int C_BYTES = BM * BK * 2;
+  static constexpr int AROW_BYTES = BK * 2;
+  static constexpr int STAGE = B_BYTES + C_BYTES;
+  static constexpr int TX = STAGE + AROW_BYTES;  // bytes a stage's loads bring
+  static constexpr int EPI_BYTES = CONSUMERS * 2 * EPI_BOX;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256 - EPI_BYTES) / (STAGE + AROW_BYTES);
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int EPI_OFF = STAGES * STAGE;
+  static constexpr int AROW_OFF = EPI_OFF + EPI_BYTES;
+  static constexpr int BAR_OFF = AROW_OFF + STAGES * AROW_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;  // + alignment slack
+  static_assert(STAGE % 1024 == 0, "swizzle atoms");
+  static_assert(STAGES >= 4, "the ring needs four stages");
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+
+// The schedule (ops/streaming_train.py:pair_train_plan mirrors it): tile t is
+// column tile t % tiles_n of sequence (t / tiles_n) % B in label tile
+// t / (tiles_n * B).
+struct Tile {
+  int b, l0, n0;
+};
+template <int BN>
+__device__ __forceinline__ Tile tile_at(int t, int tiles_n, int B) {
+  const int u = t / tiles_n;
+  return {u % B, (u / B) * BM, (t - u * tiles_n) * BN};
 }
 
-// bf16(relu(f32(a) + f32(c))) for two packed bf16 pairs.
-__device__ __forceinline__ uint32_t relu_sum_bf16x2(uint32_t a, uint32_t c) {
-  const __nv_bfloat162 av = *reinterpret_cast<__nv_bfloat162*>(&a);
-  const __nv_bfloat162 cv = *reinterpret_cast<__nv_bfloat162*>(&c);
-  const float lo = __bfloat162float(av.x) + __bfloat162float(cv.x);
-  const float hi = __bfloat162float(av.y) + __bfloat162float(cv.y);
-  return pack_bf16x2(fmaxf(lo, 0.f), fmaxf(hi, 0.f));
-}
-
-// 16-byte global->shared copy; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__global__ void __launch_bounds__(THREADS, 2)
-pair_train_hidden_kernel(const __nv_bfloat16* __restrict__ a2,
-                         const __nv_bfloat16* __restrict__ c2,
-                         const __nv_bfloat16* __restrict__ w,
-                         __nv_bfloat16* __restrict__ z,
-                         int nl, int l0, int L, int M, int K, int N) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 2;       // 64-row slab of the block tile
-  const int wn = warp & 3;        // 32-column slab of the block tile
-  const int n0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
-
-  // The ring carries the c2 rows of the block's pairs (two 16-byte chunks a
-  // thread per k-step); each thread then forms 16 consecutive x1 values of
-  // one row from them and from its a2 row, which it keeps in registers one
-  // k-step ahead.
-  const __nv_bfloat16* c_src[2];
-  bool c_ok[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = tid + j * THREADS;
-    const int r = r0 + (idx >> 2);
-    c_ok[j] = r < M;
-    c_src[j] = c2 + (size_t)(c_ok[j] ? l0 + r % nl : 0) * K + (idx & 3) * 8;
-  }
-  const int pa_row = tid >> 1;
-  const int pa_col = (tid & 1) * 16;
-  const bool a_ok = r0 + pa_row < M;
-  const __nv_bfloat16* a_row = a2 + (size_t)(a_ok ? (r0 + pa_row) / nl : 0) * K + pa_col;
-  uint4 ra[2];
-  auto load_a_regs = [&](int kt) {
-    const uint4* src = reinterpret_cast<const uint4*>(a_row + kt * BK);
-    ra[0] = a_ok ? src[0] : make_uint4(0, 0, 0, 0);
-    ra[1] = a_ok ? src[1] : make_uint4(0, 0, 0, 0);
-  };
-  auto a_stage = [&](int s) {
-    return reinterpret_cast<__nv_bfloat16*>(smem_raw + s * A_BYTES);
-  };
-  auto b_stage = [&](int s) {
-    return reinterpret_cast<__nv_bfloat16*>(smem_raw + B_OFF + s * B_BYTES);
-  };
-  // cp.async of one k-step's c2 tile and W tile.
-  auto issue_stage = [&](int s, int kt) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* da = a_stage(s);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = tid + j * THREADS;
-      cp_async16(da + (idx >> 2) * A_LD + (idx & 3) * 8, c_src[j] + k0, c_ok[j]);
-    }
-    __nv_bfloat16* db = b_stage(s);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * THREADS;
-      const int row = idx >> 4;
-      const int col = (idx & 15) * 8;
-      cp_async16(db + row * B_LD + col, w + (size_t)(k0 + row) * N + n0 + col, true);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+pair_train_hidden_kernel(const __grid_constant__ CUtensorMap tm_w,
+                         const __grid_constant__ CUtensorMap tm_c,
+                         const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_z, int B, int K, int tiles_n,
+                         int tiles) {
+  using Lay = Layout<BN>;
+  constexpr int STAGES = Lay::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar0 = base + Lay::BAR_OFF;
+  auto full_bar = [&](int s) { return bar0 + 8u * s; };
+  auto empty_bar = [&](int s) { return bar0 + 8u * (STAGES + s); };
   const int KT = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) issue_stage(s, s);
-    cp_async_commit();
-  }
-  load_a_regs(0);
 
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_raw + TILE_OFF);
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed and visible; stage kt-1 and the A tile free
-    const int nxt = kt + STAGES - 1;
-    if (nxt < KT) issue_stage(nxt % STAGES, nxt);
-    cp_async_commit();
-    // x1 = bf16(relu(a2 + c2)) into the block's bf16 A tile
-    const uint4* cs = reinterpret_cast<const uint4*>(a_stage(cur) + pa_row * A_LD + pa_col);
-    uint4* dst = reinterpret_cast<uint4*>(tile + pa_row * A_LD + pa_col);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 cv = cs[h];
-      dst[h] = make_uint4(relu_sum_bf16x2(ra[h].x, cv.x), relu_sum_bf16x2(ra[h].y, cv.y),
-                          relu_sum_bf16x2(ra[h].z, cv.z), relu_sum_bf16x2(ra[h].w, cv.w));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), CONSUMERS * 4);  // lane 0 of every consumer warp
     }
-    if (kt + 1 < KT) load_a_regs(kt + 1);
-    __syncthreads();  // the A tile is complete
-    const __nv_bfloat16* tb = b_stage(cur);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], tile + (wm * 64 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], tb + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp done with the ring: reuse it as scratch
+  __syncthreads();
 
-  // ---- epilogue: round to bf16 and store z at its global pair row --------
-  float* scratch = reinterpret_cast<float*>(smem_raw) + warp * 16 * E_LD;
-  const int er = lane >> 1;         // fragment row handled by this lane
-  const int ec = (lane & 1) * 8;    // first of its 8 fragment columns
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + wm * 64 + i * 16 + er;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], E_LD, wmma::mem_row_major);
-      __syncwarp();
-      if (r < M) {
-        const float* v = scratch + er * E_LD + ec;
-        const int b = r / nl;
-        const size_t row = (size_t)b * L + l0 + (r - b * nl);
-        *reinterpret_cast<uint4*>(z + row * N + n0 + wn * 32 + j * 16 + ec) =
-            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                       pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const Tile tl = tile_at<BN>(t, tiles_n, B);
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(empty_bar(s), phase ^ 1u);
+          const uint32_t st = base + s * Lay::STAGE;
+          mbar_expect_tx(full_bar(s), Lay::TX);
+          tma_load(st, &tm_w, kt * BK, tl.n0, full_bar(s));
+          tma_load(st + Lay::B_BYTES, &tm_c, kt * BK, tl.l0, full_bar(s));
+          tma_load(base + Lay::AROW_OFF + s * Lay::AROW_BYTES, &tm_a, kt * BK, tl.b, full_bar(s));
+          if (++s == STAGES) {
+            s = 0;
+            phase ^= 1u;
+          }
+        }
       }
-      __syncwarp();
     }
+  } else {
+    // ---- consumers: wgmma on the ring, then the epilogue ------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row (and row + 8)
+    const int q = lane & 3;   // fragment column pair
+    const int row = wg * 64 + warp * 16 + g;  // the thread's first row in the tile
+    float acc[BN / 2];
+    // A fragments, two sets: one feeds the products in flight while the
+    // other is formed for the next stage
+    uint32_t fa[2][4][4];
+    int s = 0;
+    uint32_t phase = 0;
+    // One stage: wait for its tiles, form A into fa[P], issue its four
+    // products, then retire the previous stage's and free its slot.
+    auto stage = [&](auto parity, int kt, int& prev) {
+      constexpr int P = decltype(parity)::value;
+      mbar_wait(full_bar(s), phase);
+      const uint32_t st = base + s * Lay::STAGE;
+      const uint64_t db = smem_desc(st);
+      // x1 = bf16(relu(a2[b] + c2)) for the thread's A-fragment elements:
+      // rows row, row + 8; columns 2q, 2q + 1 and those + 8 of each 16-wide
+      // k-step, i.e. 16-byte chunk 2 kk + cc of the 128-byte c2 row, whose
+      // place in the row TMA's 128-byte swizzle moves to chunk ^ (row & 7)
+      const unsigned char* cp = smem + s * Lay::STAGE + Lay::B_BYTES;
+      const __nv_bfloat162* arow =
+          reinterpret_cast<const __nv_bfloat162*>(smem + Lay::AROW_OFF + s * Lay::AROW_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int chunk = 2 * kk + cc;
+          const float2 av = __bfloat1622float2(arow[4 * chunk + q]);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int r = row + 8 * rr;
+            const float2 cv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                cp + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * q));
+            fa[P][kk][rr + 2 * cc] = pack_bf16x2(fmaxf(av.x + cv.x, 0.f), fmaxf(av.y + cv.y, 0.f));
+          }
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Mma<BN>::rs(acc, fa[P][kk], db + 2 * kk, kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_acc(acc);
+      // the wgmma reads its register operands while in flight: the set that
+      // fed the previous stage stays live (unreused) until here
+      fence_regs(fa[1 - P]);
+      if (prev >= 0 && lane == 0) mbar_arrive(empty_bar(prev));
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1u;
+      }
+    };
+    const uint32_t ebuf = base + Lay::EPI_OFF + wg * 2 * EPI_BOX;
+    const int lr = warp * 16 + g;  // the thread's first row of the warpgroup's 64
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const Tile tl = tile_at<BN>(t, tiles_n, B);
+      int prev = -1;
+      for (int kt = 0; kt < KT; kt += 2) {  // KT is even: K is a multiple of 128
+        stage(std::integral_constant<int, 0>(), kt, prev);
+        stage(std::integral_constant<int, 1>(), kt + 1, prev);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      fence_regs(fa[1]);
+      if (lane == 0) mbar_arrive(empty_bar(prev));
+
+      // ---- epilogue: the raw sums rounded to bf16 ---------------------------
+      // acc[4j + 0/1]: row, columns 8j + 2q + 0/1; acc[4j + 2/3]: row + 8.
+      // 64-column slices of the warpgroup's 64 rows go through two boxes in
+      // shared memory (128-byte swizzled, as the output map reads them) and
+      // out by TMA at (column, label, sequence); rows past L are clipped
+#pragma unroll
+      for (int part = 0; part < BN / 64; ++part) {
+        const uint32_t box = ebuf + (part & 1) * EPI_BOX;
+        if (tid == 0) bulk_wait_read<1>();  // the store that last read this box is done
+        warpgroup_barrier(1 + wg);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * part + jj;
+          const uint32_t off = ((jj ^ (lr & 7)) << 4) + 4 * q;  // rows lr, lr + 8 alike
+          st_shared(box + lr * 128 + off, pack_bf16x2(acc[4 * j], acc[4 * j + 1]));
+          st_shared(box + (lr + 8) * 128 + off, pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]));
+        }
+        fence_async_smem();
+        warpgroup_barrier(1 + wg);
+        if (tid == 0) {
+          tma_store_3d(&tm_z, box, tl.n0 + 64 * part, tl.l0 + wg * 64, tl.b);
+          bulk_commit();
+        }
+      }
+    }
+    if (tid == 0) bulk_wait_all();  // the last stores leave before the block
   }
+}
+
+template <int BN>
+cudaError_t launch(const CUtensorMap (&maps)[4], int B, int K, int tiles_n, int tiles, int grid,
+                   cudaStream_t s) {
+  constexpr int bytes = Layout<BN>::BYTES;
+  auto kernel = pair_train_hidden_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, bytes, s>>>(maps[0], maps[1], maps[2], maps[3], B, K, tiles_n, tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch: z rows of the labels [l0, l0 + nl) for all B = M / nl
-// sequences.  a2 (B, K), c2 (L, K), w (K, N), z (B * L, N), all bf16 and
-// row-major.  Returns the CUDA error of the attribute call or the launch
-// (0 on success).
-extern "C" int pair_train_hidden(const void* a2, const void* c2, const void* w, void* z,
-                                 int nl, int l0, int L, int M, int K, int N,
-                                 void* stream) {
-  if (M <= 0 || nl <= 0 || M % nl != 0 || l0 < 0 || l0 + nl > L || K % BK != 0 ||
-      N % BN != 0 || (M + BM - 1) / BM > 65535)
+// z (B * L, N) bf16 with rows b * L + l: z = relu(a2[b] + c2[l]) @ W for all
+// B sequences and L labels.  a2 (B, K) and c2 (L, K) bf16; wt (N, K) bf16,
+// W transposed (K-major); all row-major, contiguous and 16-byte aligned.  K
+// is a multiple of 128, N a multiple of block_n (256 or 128); grid is the
+// number of persistent blocks (at most one an SM).  Returns a CUDA error (0
+// on success): cudaErrorInvalidValue for shapes the kernel does not take or
+// a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int pair_train_hidden(const void* a2, const void* c2, const void* wt, void* z, int B,
+                                 int L, int K, int N, int block_n, int grid, void* stream) {
+  if (B <= 0 || L <= 0 || K <= 0 || K % (2 * BK) != 0 || (block_n != 128 && block_n != 256) ||
+      N <= 0 || N % block_n != 0 || grid <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(pair_train_hidden_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  pair_train_hidden_kernel<<<grid, THREADS, SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a2), static_cast<const __nv_bfloat16*>(c2),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(z),
-      nl, l0, L, M, K, N);
-  return (int)cudaGetLastError();
+  const int tiles_n = N / block_n;
+  const uint64_t tiles = (uint64_t)((L + BM - 1) / BM) * B * tiles_n;
+  if (tiles > (uint64_t)INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  const bool ok = make_map(&maps[0], wt, MapType::BF16, N, K, block_n, BK, true) &&
+                  make_map(&maps[1], c2, MapType::BF16, L, K, BM, BK, true) &&
+                  make_map(&maps[2], a2, MapType::BF16, B, K, 1, BK, false) &&
+                  make_map_3d(&maps[3], z, MapType::BF16, B, L, N, 64, 64, true);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int g = grid < (int)tiles ? grid : (int)tiles;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(block_n == 256 ? launch<256>(maps, B, K, tiles_n, (int)tiles, g, s)
+                              : launch<128>(maps, B, K, tiles_n, (int)tiles, g, s));
+}
+
+// The dynamic shared memory a launch of the given column tile asks for
+// (bytes), or -1 for a column tile the kernel does not take.
+extern "C" int pair_train_hidden_smem_bytes(int block_n) {
+  return block_n == 256 ? Layout<256>::BYTES : block_n == 128 ? Layout<128>::BYTES : -1;
 }

@@ -21,7 +21,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -96,3 +96,19 @@ def load_kernel_library(name: str) -> KernelLibrary:
             os.replace(tmp, out)
         _loaded[name] = KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)
         return _loaded[name]
+
+
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def kernel_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of library ``name`` (built at first
+    use), its ctypes signature (``argtypes``, an int result: the CUDA error)
+    set once, when it is first looked up, not on every launch."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_kernel_library(name).lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn

@@ -14,8 +14,9 @@ branches and the final LN.
 :func:`add_layer_norm` dispatches on the device: CPU tensors take the plain
 PyTorch version (:func:`add_layer_norm_reference`), CUDA tensors the
 hand-written kernel of ``csrc/layer_norm.cu`` (bf16, a width that is a
-multiple of 256 up to 2048); input the kernel does not take raises, and
-nothing falls back.
+multiple of 256 up to 2048: persistent warps that walk rows, each with the
+next row's loads in flight, scale and bias kept in registers); input the
+kernel does not take raises, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -47,15 +48,14 @@ def add_layer_norm_reference(x: torch.Tensor, residual: Optional[torch.Tensor],
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def _lib():
-    from protnote_tpu_torch.ops.kernels import load_kernel_library
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_void_p]
 
-    lib = load_kernel_library("layer_norm").lib
-    p = ctypes.c_void_p
-    lib.add_layer_norm.argtypes = [p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                             ctypes.c_float, p]
-    lib.add_layer_norm.restype = ctypes.c_int
-    return lib
+
+def _fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("layer_norm", "add_layer_norm", _ARGS)
 
 
 def add_layer_norm_cuda(x: torch.Tensor, residual: Optional[torch.Tensor],
@@ -79,15 +79,15 @@ def add_layer_norm_cuda(x: torch.Tensor, residual: Optional[torch.Tensor],
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in (("scale", scale), ("bias", bias)):
         if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (H,) \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 ({H},) tensor on {device}")
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 ({H},) "
+                             f"tensor on {device}")
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the C launch goes to the thread's device
-        err = _lib().add_layer_norm(x.data_ptr(),
-                                    None if residual is None else residual.data_ptr(),
-                                    scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                                    x.numel() // H, H, float(eps), stream)
+        err = _fn()(x.data_ptr(), None if residual is None else residual.data_ptr(),
+                    scale.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // H, H,
+                    float(eps), stream)
         if err != 0:
             raise RuntimeError(f"add_layer_norm launch failed: CUDA error {err}")
         with _launch_lock:

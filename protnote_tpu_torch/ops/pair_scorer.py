@@ -147,8 +147,8 @@ def pair_logits_tiled_reference(
 LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_BLOCK_N = 128  # the width every hidden layer must be a multiple of (K1 and K2)
-BLOCK_M = 128  # K1's and K2's pair rows a tile (BM in the kernels)
+_BLOCK_N = 128  # the width every hidden layer must be a multiple of (K1, K2, K4)
+BLOCK_M = 128  # K1's, K2's and K4's pair rows a tile (BM in the kernels)
 # K1's pair rows a launch: a chunk holds this many rows over its B sequences
 # (256 labels at B 32), rounded down to whole row tiles.  At 8,192 rows the
 # bf16 activations between two layers (50 MB at H 3072) mostly stay in L2;

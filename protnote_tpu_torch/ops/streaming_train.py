@@ -12,10 +12,11 @@ masked moments, BN and ReLU.
 Two hand-written kernels carry the (B * L, H) tensors:
 
 * **K4** (:func:`pair_hidden`, ``csrc/pair_train.cu``): ``z2 = x1 @ W2`` with
-  ``x1 = relu(a2[b] + c2[l])`` formed in the GEMM's operand staging, so x1
-  never exists in memory.  Its backward is plain PyTorch inside the
-  ``autograd.Function`` (x1 re-formed, two products, the ReLU gate, f32
-  side sums); a hand-written backward is a ROADMAP item (K4-bwd).
+  ``x1 = relu(a2[b] + c2[l])`` formed in the GEMM's A-operand registers, so
+  x1 never exists in memory; one persistent launch over all pairs, its
+  tiles laid out by :func:`pair_train_plan`.  Its backward is plain PyTorch
+  inside the ``autograd.Function`` (x1 re-formed, two products, the ReLU
+  gate, f32 side sums); a hand-written backward is a ROADMAP item (K4-bwd).
 * **K5** (:func:`bn_relu`, ``csrc/bn_relu.cu``): masked BN + ReLU whose
   residual is only the bf16 pre-activation; forward one moment pass and one
   elementwise pass, backward one pass for ``sum g`` and ``sum g * xhat`` and
@@ -43,12 +44,20 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from protnote_tpu_torch.models.layers import Params, linear
-from protnote_tpu_torch.ops.pair_scorer import BN_EPS, _f32_product
+from protnote_tpu_torch.ops.pair_scorer import (
+    _BLOCK_N,
+    _H100_SMS,
+    BLOCK_M,
+    BN_EPS,
+    _block_n,
+    _f32_product,
+)
 
 BN_MOMENTUM = 0.1  # torch BatchNorm1d default, as the JAX package
 
@@ -169,15 +178,14 @@ def _check_bn_cuda(z: torch.Tensor, rows: torch.Tensor, n: torch.Tensor,
             raise ValueError(f"per-feature tensors must be ({H},) float32")
 
 
-def _bn_lib():
-    from protnote_tpu_torch.ops.kernels import load_kernel_library
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_BN_ARGS = [_P] * 14 + [_LL, _I, _I, _LL, _P]
 
-    lib = load_kernel_library("bn_relu").lib
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.bn_relu_forward.argtypes = [p] * 14 + [ll, i, i, ll, p]
-    lib.bn_relu_backward.argtypes = [p] * 14 + [ll, i, i, ll, p]
-    lib.bn_relu_forward.restype = lib.bn_relu_backward.restype = ctypes.c_int
-    return lib
+
+def _bn_fn(symbol: str):
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("bn_relu", symbol, _BN_ARGS)
 
 
 def _count(name: str) -> None:
@@ -205,7 +213,7 @@ def _bn_relu_fwd_cuda(z, rows, n, scale, bias, running_mean):
     y = torch.empty_like(z)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
-        _raise_on(_bn_lib().bn_relu_forward(
+        _raise_on(_bn_fn("bn_relu_forward")(
             z.data_ptr(), rows.data_ptr(), n.data_ptr(), r.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), part1.data_ptr(), part2.data_ptr(), mean.data_ptr(),
             var.data_ptr(), istd.data_ptr(), inv.data_ptr(), shift.data_ptr(), y.data_ptr(),
@@ -231,7 +239,7 @@ def _bn_relu_grads_cuda(z, dy, rows, n, scale, mean, istd, inv, shift):
     dz = torch.empty_like(z)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
-        _raise_on(_bn_lib().bn_relu_backward(
+        _raise_on(_bn_fn("bn_relu_backward")(
             z.data_ptr(), dy.data_ptr(), rows.data_ptr(), n.data_ptr(), scale_f.data_ptr(),
             mean.data_ptr(), istd.data_ptr(), inv.data_ptr(), shift.data_ptr(),
             part1.data_ptr(), part2.data_ptr(), G1.data_ptr(), G2.data_ptr(), dz.data_ptr(),
@@ -314,8 +322,67 @@ def _pair_hidden_fwd_plain(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) 
     return _pair_x1(a2, c2) @ w
 
 
-_K4_BLOCK_N, _K4_BLOCK_K, _K4_BLOCK_M = 128, 32, 128
-_K4_MAX_ROW_BLOCKS = 65535  # the kernel's grid.y
+_K4_STORE_BOX = 64  # rows and columns of one TMA store box (a warpgroup's rows)
+
+
+@dataclass(frozen=True)
+class PairTrainPlan:
+    """K4's launch geometry (K1's tiles, ``csrc/pair_train.cu``): ``tiles``
+    tiles of ``BLOCK_M`` labels of one sequence x ``block_n`` columns,
+    walked by ``grid`` persistent blocks (block i takes tiles i, i + grid,
+    ...).  Tile t is column tile ``t % tiles_n`` of sequence
+    ``(t // tiles_n) % batch`` in label tile ``t // (tiles_n * batch)``:
+    label tiles outermost, so the blocks in flight share one c2 tile and W
+    in L2 (the kernel's ``tile_at``)."""
+
+    batch: int
+    labels: int
+    width_in: int  # K
+    width_out: int  # N
+    block_n: int
+    tiles_l: int  # label tiles a sequence: ceil(L / BLOCK_M)
+    tiles_n: int  # column tiles: N / block_n
+    grid: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_l * self.batch * self.tiles_n
+
+    def tile(self, t: int) -> Tuple[int, int, int]:
+        """(sequence b, first label l0, first column n0) of tile t."""
+        u, nt = divmod(t, self.tiles_n)
+        lt, b = divmod(u, self.batch)
+        return b, lt * BLOCK_M, nt * self.block_n
+
+    def stores(self, t: int) -> List[Tuple[int, int, int, int, int]]:
+        """The z elements tile t writes, as (b, l_start, l_stop, n_start,
+        n_stop) boxes: one 64 x 64 box for each 64 rows (a warpgroup's) and
+        64 columns, through the 3-D map over z as (B, L, N), which clips rows
+        at L (a box wholly past L writes nothing and is left out)."""
+        b, l0, n0 = self.tile(t)
+        out = []
+        for r0 in range(l0, min(l0 + BLOCK_M, self.labels), _K4_STORE_BOX):
+            for c0 in range(n0, n0 + self.block_n, _K4_STORE_BOX):
+                out.append((b, r0, min(r0 + _K4_STORE_BOX, self.labels), c0,
+                            c0 + _K4_STORE_BOX))
+        return out
+
+
+def pair_train_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairTrainPlan:
+    """K4's plan for a2 (B, K), c2 (L, K) and W (K, N).  The column tile is
+    256 where N allows it, else 128.  Raises for widths the kernel does not
+    take: K and N must be multiples of 128."""
+    if B <= 0 or L <= 0 or num_sms <= 0:
+        raise ValueError(f"no K4 plan for B {B}, L {L} on {num_sms} SMs")
+    if K <= 0 or N <= 0 or K % _BLOCK_N or N % _BLOCK_N:
+        raise ValueError(f"the CUDA pair-train kernel takes widths (in {K}, out {N}) that are "
+                         f"multiples of {_BLOCK_N}")
+    block_n = _block_n(N)
+    tiles_l, tiles_n = -(-L // BLOCK_M), N // block_n
+    if tiles_l * B * tiles_n > 2**31 - 1:
+        raise ValueError(f"B {B} x L {L} x N {N}: more tiles than the kernel counts")
+    return PairTrainPlan(B, L, K, N, block_n, tiles_l, tiles_n,
+                         min(num_sms, tiles_l * B * tiles_n))
 
 
 def _check_pair_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> None:
@@ -324,42 +391,36 @@ def _check_pair_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> Non
     if {a2.dtype, c2.dtype, w.dtype} != {torch.bfloat16}:
         raise ValueError("the CUDA pair-train kernel computes in bfloat16 "
                          f"(MIXED_PRECISION: True), not {a2.dtype}/{c2.dtype}/{w.dtype}")
-    if a2.dim() != 2 or c2.dim() != 2 or a2.shape[1] != c2.shape[1] or \
+    if a2.dim() != 2 or c2.dim() != 2 or w.dim() != 2 or a2.shape[1] != c2.shape[1] or \
             w.shape[0] != a2.shape[1]:
         raise ValueError(f"a2 {tuple(a2.shape)}, c2 {tuple(c2.shape)}, w {tuple(w.shape)} "
                          "must be (B, K), (L, K), (K, N)")
-    if a2.shape[1] % _K4_BLOCK_K or w.shape[1] % _K4_BLOCK_N:
-        raise ValueError(f"widths {tuple(w.shape)} must be multiples of "
-                         f"{_K4_BLOCK_K} (in) and {_K4_BLOCK_N} (out)")
 
 
-def _pair_lib():
-    from protnote_tpu_torch.ops.kernels import load_kernel_library
+def _pair_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
 
-    fn = load_kernel_library("pair_train").lib.pair_train_hidden
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return kernel_function("pair_train", "pair_train_hidden", [_P] * 4 + [_I] * 6 + [_P])
 
 
 def _pair_hidden_fwd_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K4's kernel (``csrc/pair_train.cu``), one launch per label chunk that
-    keeps the grid within 65,535 row blocks (one chunk at the default
-    width)."""
-    a2, c2, w = a2.contiguous(), c2.contiguous(), w.contiguous()
+    """K4's kernel (``csrc/pair_train.cu``), one launch over all pairs.  W is
+    transposed once a call into the K-major layout of the kernel's TMA box
+    (18 MB at H 3072, a few microseconds; W changes every step)."""
+    a2, c2 = a2.contiguous(), c2.contiguous()
     _check_pair_cuda(a2, c2, w)
     B, K = a2.shape
     L, N = c2.shape[0], w.shape[1]
+    plan = pair_train_plan(B, L, K, N,
+                           torch.cuda.get_device_properties(a2.device).multi_processor_count)
+    wt = w.t().contiguous()
     z = torch.empty(B * L, N, dtype=torch.bfloat16, device=a2.device)
-    chunk = max(1, min(L, _K4_MAX_ROW_BLOCKS * _K4_BLOCK_M // B))
-    fn = _pair_lib()
+    fn = _pair_fn()
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     with torch.cuda.device(a2.device):
-        for l0 in range(0, L, chunk):
-            nl = min(chunk, L - l0)
-            _raise_on(fn(a2.data_ptr(), c2.data_ptr(), w.data_ptr(), z.data_ptr(),
-                         nl, l0, L, B * nl, K, N, stream), "pair_train_hidden")
-            _count("pair_train_hidden")
+        _raise_on(fn(a2.data_ptr(), c2.data_ptr(), wt.data_ptr(), z.data_ptr(), B, L, K, N,
+                     plan.block_n, plan.grid, stream), "pair_train_hidden")
+        _count("pair_train_hidden")
     return z
 
 

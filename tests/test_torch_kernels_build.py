@@ -49,4 +49,25 @@ def test_included_headers_are_shared_headers():
             assert name in headers, (src.name, name)
             if name == "hopper.cuh":
                 users.add(src.stem)
-    assert {"pair_scorer", "pair_scorer_int8", "text_attention"} <= users
+    assert {"pair_scorer", "pair_scorer_int8", "pair_train", "text_attention"} <= users
+
+
+def test_kernel_function_sets_its_signature_once(monkeypatch):
+    """``kernel_function`` loads the library and sets the entry point's
+    ctypes signature at the first lookup only; later launches reuse it."""
+    import ctypes
+
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return kernels.KernelLibrary(ctypes.CDLL(None), None, 0.0, "")
+
+    monkeypatch.setattr(kernels, "load_kernel_library", fake_load)
+    monkeypatch.setattr(kernels, "_functions", {})
+    fn = kernels.kernel_function("libc", "abs", [ctypes.c_int])
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    fn.argtypes = [ctypes.c_long]  # a later change would survive: no reset
+    assert kernels.kernel_function("libc", "abs", [ctypes.c_int]) is fn
+    assert fn.argtypes == [ctypes.c_long] and loads == ["libc"]
+    assert fn(-3) == 3

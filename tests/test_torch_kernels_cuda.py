@@ -225,25 +225,50 @@ def _bf16(rng, *shape, scale=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk_rows", [None, 256])
-def test_pair_train_kernel_matches_plain_on_card(monkeypatch, chunk_rows):
-    """K4's forward on a ragged pair count (5 x 301 rows), in one launch and
-    in label chunks; its backward is the plain one on both sides."""
+@pytest.mark.parametrize("K,N", [(128, 256), (256, 384)])
+def test_pair_train_kernel_matches_plain_on_card(K, N):
+    """K4's forward on a ragged pair count (5 sequences x 301 labels, the
+    last label tile of each sequence 45 labels) in one launch, with the
+    256- and the 128-column tile; its backward is the plain one on both
+    sides.  Then the kernel on the first 4 sequences into a z of 5 whose
+    last sequence holds NaN: a store of sequence 3's last tile that crossed
+    into the next sequence's rows (as a 2-D store at row b * L + l would)
+    would overwrite them, whatever order the tiles ran in."""
     _card()
     rng = np.random.default_rng(7)
-    a2, c2 = _bf16(rng, 5, 64), _bf16(rng, 301, 64)
-    w = _bf16(rng, 64, 256, scale=0.2)
-    if chunk_rows is not None:  # force several label chunks
-        monkeypatch.setattr(st, "_K4_MAX_ROW_BLOCKS", 1)
-        monkeypatch.setattr(st, "_K4_BLOCK_M", chunk_rows)
+    B, L = 5, 301
+    a2, c2 = _bf16(rng, B, K), _bf16(rng, L, K)
+    w = _bf16(rng, K, N, scale=0.2)
     before = st.LAUNCHES["pair_train_hidden"]
     got = st.pair_hidden(a2, c2, w)
     want = st.pair_hidden_reference(a2, c2, w)
     torch.cuda.synchronize()
-    launches = st.LAUNCHES["pair_train_hidden"] - before
-    assert launches == (1 if chunk_rows is None else -(-301 // (chunk_rows // 5)))
+    assert st.LAUNCHES["pair_train_hidden"] - before == 1
     assert float(want.float().std()) > 0.3
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+
+    z = torch.full((B * L, N), float("nan"), device="cuda", dtype=torch.bfloat16)
+    wt = w.t().contiguous()
+    plan = st.pair_train_plan(B - 1, L, K, N)
+    err = st._pair_fn()(a2.data_ptr(), c2.data_ptr(), wt.data_ptr(), z.data_ptr(), B - 1, L, K,
+                        N, plan.block_n, plan.grid, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.isnan(z[(B - 1) * L:].float()).all()
+    torch.testing.assert_close(z[:(B - 1) * L].float(), want[:(B - 1) * L].float(),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_pair_train_kernel_raises_on_what_it_does_not_take():
+    dev = _card()
+    a2, c2 = torch.zeros(2, 64, device=dev), torch.zeros(3, 64, device=dev)
+    w = torch.zeros(64, 128, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        st.pair_hidden(a2, c2, w)
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="multiples of 128"):
+        st.pair_hidden(a2.to(bf16), c2.to(bf16), w.to(bf16))
 
 
 @pytest.mark.cuda
@@ -502,6 +527,29 @@ def test_layer_norm_kernel_matches_plain_on_card(H, residual):
     torch.cuda.synchronize()
     assert k8b.LAUNCHES - before == 1
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 512, 768, 1024, 1280, 1536, 1792, 2048])
+@pytest.mark.parametrize("residual", [True, False])
+def test_layer_norm_kernel_walks_rows_on_card(H, residual):
+    """K8b's persistent warps walk 25,349 rows (more than three a warp at
+    any occupancy; odd, so not a multiple of the grid's rows, which are a
+    multiple of its 4-warp blocks), each with the next row's loads in
+    flight; scale and bias in registers up to H 1024, read per row above."""
+    dev = _card()
+    rng = np.random.default_rng(H + 7 * int(residual))
+    N = 25349
+    x = torch.from_numpy((rng.normal(size=(N, H)) * 2 + 20).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    r = _bf16(rng, N, H) if residual else None
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(size=H).astype(np.float32) * 0.1).to(dev)
+    got = k8b.add_layer_norm(x, r, scale, bias, 1e-5)
+    want = k8b.add_layer_norm_reference(x, r, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-2
 
 

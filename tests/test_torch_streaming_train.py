@@ -254,3 +254,106 @@ def test_unported_settings_raise():
         tst.pair_logits_dense_decomposed(t["p"], t["s"], P_e, L_e, remat=True)
     with pytest.raises(NotImplementedError, match="K6"):
         tst.pair_logits_streaming_train(t["p"], t["s"], P_e, L_e)
+
+
+# ----------------------------------------------------------------------
+# K4's launch plan (csrc/pair_train.cu runs its tiles; the card tests in
+# tests/test_torch_kernels_cuda.py hold the kernel to the plain version)
+
+
+def _stored(plan):
+    """How often each z element (b, l, n) is written by the plan's stores."""
+    count = np.zeros((plan.batch, plan.labels, plan.width_out), np.int32)
+    for t in range(plan.tiles):
+        for b, l0, l1, n0, n1 in plan.stores(t):
+            count[b, l0:l1, n0:n1] += 1
+    return count
+
+
+@pytest.mark.parametrize("B,L,K,N", [(5, 301, 128, 256), (5, 301, 256, 384), (1, 64, 128, 128),
+                                     (3, 128, 384, 512), (2, 1, 128, 128), (4, 200, 128, 640)])
+def test_pair_train_plan_writes_every_element_once(B, L, K, N):
+    """Every (b, l, n) of z is written by exactly one tile; a tile covers
+    128 labels of one sequence, and its rows past L are clipped, not
+    stored; the column tile is 256 where N allows it."""
+    plan = tst.pair_train_plan(B, L, K, N, num_sms=7)
+    assert plan.block_n == (256 if N % 256 == 0 else 128)
+    assert plan.tiles == -(-L // 128) * B * (N // plan.block_n)
+    assert plan.grid == min(7, plan.tiles)
+    assert (_stored(plan) == 1).all()
+    for t in range(plan.tiles):
+        b, l0, n0 = plan.tile(t)
+        assert l0 % 128 == 0 and l0 < L and n0 % plan.block_n == 0
+        boxes = plan.stores(t)
+        assert {box[0] for box in boxes} == {b}  # no tile crosses a sequence
+        assert max(box[2] for box in boxes) == min(l0 + 128, L)  # clipped at L
+    # why the store is 3-D: the last label tile of sequence b stored as rows
+    # b * L + l of a 2-D (B * L, N) map would reach past row (b + 1) * L,
+    # into sequence b + 1's first rows, wherever 128 does not divide L
+    last_l0 = (plan.tiles_l - 1) * 128
+    assert (last_l0 + 128 > L) == (L % 128 != 0)
+
+
+def test_pair_train_plan_at_the_training_shape():
+    """B 32 x L 32,102 at H 3072 (the training step's K4 launch): 251 label
+    tiles a sequence, the last holding 102 labels; the tiles map one to one
+    onto (label tile, sequence, column tile) with label tiles outermost, so
+    the 132 blocks in flight share at most two c2 tiles; the clipped stores
+    add up to z's 3.16e9 elements."""
+    B, L, H = 32, 32102, 3072
+    plan = tst.pair_train_plan(B, L, H, H, num_sms=132)
+    assert (plan.block_n, plan.tiles_l, plan.tiles_n, plan.grid) == (256, 251, 12, 132)
+    t = np.arange(plan.tiles)
+    decoded = np.array([plan.tile(int(i)) for i in t])
+    lt, b, nt = decoded[:, 1] // 128, decoded[:, 0], decoded[:, 2] // 256
+    assert (np.diff(lt) >= 0).all() and (np.diff(lt * B + b) >= 0).all()  # label tile first
+    key = (lt * B + b) * plan.tiles_n + nt
+    assert (np.sort(key) == t).all()  # one to one
+    wave = lt.reshape(-1)[: plan.tiles // plan.grid * plan.grid].reshape(-1, plan.grid)
+    assert (wave.max(1) - wave.min(1) <= 1).all()
+    last = plan.stores(plan.tiles - 1)
+    assert {box[1:3] for box in last} == {(32000, 32064), (32064, 32102)}  # 102 labels
+    elements = sum((l1 - l0) * (n1 - n0) for i in range(plan.tiles)
+                   for _, l0, l1, n0, n1 in plan.stores(i))
+    assert elements == B * L * H > 2**31
+
+
+@pytest.mark.parametrize("K,N", [(64, 256), (128, 200), (192, 128), (0, 128)])
+def test_pair_train_plan_refuses_widths(K, N):
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tst.pair_train_plan(5, 301, K, N)
+
+
+def test_pair_train_cuda_wrapper_refuses_cpu_tensors():
+    a2, c2, w = torch.zeros(2, 128), torch.zeros(3, 128), torch.zeros(128, 128)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tst._pair_hidden_fwd_cuda(a2, c2, w)
+
+
+def test_pair_train_plan_layout_matches_jax():
+    """z assembled tile by tile as the kernel does (c2 rows past L read as
+    zeros, each tile's x1 = bf16(relu(a2[b] + c2)) times W with float32
+    sums, rounded to bf16, then stored through the plan's clipped boxes)
+    against the JAX path's layer-2 GEMM ``linear(relu(a2[b] + c2[l]))`` in
+    bf16: within one bf16 step (2^-8 of the largest |value|: the sums run
+    in other orders)."""
+    rng = np.random.default_rng(12)
+    B, L, K, N = 3, 301, 128, 384
+    bf = lambda x: torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    a2, c2 = bf(rng.normal(size=(B, K))), bf(rng.normal(size=(L, K)))
+    w = bf(rng.normal(size=(K, N)) * 0.2)
+    plan = tst.pair_train_plan(B, L, K, N, num_sms=5)
+    z = torch.full((B, L, N), float("nan"))
+    c2_pad = torch.cat([c2.float(), torch.zeros(plan.tiles_l * 128 - L, K)])
+    for t in range(plan.tiles):
+        b, l0, n0 = plan.tile(t)
+        x1 = torch.relu(a2[b].float() + c2_pad[l0:l0 + 128]).to(torch.bfloat16).float()
+        tile = (x1 @ w.float()[:, n0:n0 + plan.block_n]).to(torch.bfloat16).float()
+        for _, s0, s1, m0, m1 in plan.stores(t):
+            z[b, s0:s1, m0:m1] = tile[s0 - l0:s1 - l0, m0 - n0:m1 - n0]
+    j = lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16)  # noqa: E731
+    h = jax.nn.relu(j(a2)[:, None, :] + j(c2)[None, :, :]).reshape(B * L, K)
+    want = np.asarray(jlayers.linear({"kernel": j(w)}, h).astype(jnp.float32)).reshape(B, L, N)
+    got = z.numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()

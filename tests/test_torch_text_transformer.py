@@ -397,6 +397,78 @@ def test_layer_norm_matches_jax(dtype, residual):
         np.testing.assert_allclose(got.float().numpy(), want, atol=2.0 ** -6, rtol=0)
 
 
+def _k8b_emulated(x, r, scale, bias, eps, bf16):
+    """The CUDA K8b's algorithm in float32 numpy (x, r (N, H) values of the
+    compute dtype as float32, r None without the residual): v = x + r
+    (rounded to bf16 in bf16); lane l holds columns (c * 32 + l) * 8 + e of
+    chunk c < H / 256; eight partial sums a lane over the chunks in order,
+    the fixed tree ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)), a
+    butterfly over the 32 lanes; mu and the two-pass variance by true
+    division by H; every product and sum rounded on its own."""
+    f32 = np.float32
+    N, H = x.shape
+    v = x if r is None else (x + r).astype(f32)
+    if bf16:
+        v = _bf16_round(v)
+    lanes = v.reshape(N, H // 256, 32, 8)
+
+    def row_sum(vals):
+        p = vals[:, 0]
+        for c in range(1, vals.shape[1]):
+            p = p + vals[:, c]
+        s = ((p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])) + \
+            ((p[..., 4] + p[..., 5]) + (p[..., 6] + p[..., 7]))
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, np.arange(32) ^ o]
+        assert s.dtype == f32 and (s == s[:, :1]).all()  # every lane holds the sum
+        return s[:, 0]
+
+    mu = row_sum(lanes) / f32(H)
+    d = lanes - mu[:, None, None, None]
+    var = row_sum(d * d) / f32(H)
+    rs = (1.0 / np.sqrt((var + f32(eps)).astype(np.float64))).astype(f32)
+    y = (d * rs[:, None, None, None]) * scale.reshape(-1, 32, 8) + bias.reshape(-1, 32, 8)
+    assert y.dtype == f32
+    y = y.reshape(N, H)
+    return _bf16_round(y) if bf16 else y
+
+
+@pytest.mark.parametrize("H", [256, 768, 1024])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("residual", [True, False])
+def test_layer_norm_kernel_algorithm_matches_jax(H, dtype, residual):
+    """K8b's reduction order (partial sums a lane, a tree, a butterfly over
+    the warp), emulated in float32 on the CPU, against the eager JAX
+    ``_layer_norm(p, x + a)`` on rows with a large common offset.  float32:
+    within 2e-5 of JAX (rows of up to 1024 values near 100 sum to ~1e5,
+    where JAX's own float32 result lies up to 9e-6 from the exact one and
+    the plain K8b's up to 1.2e-5 from JAX's) and within 1e-5 (`TOL`) of the
+    float64 LayerNorm of the same values; bf16: within one
+    bf16 step at the largest |value| (2^-7 of it: a sum in another order
+    can round an output to the neighbouring bf16 value)."""
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    rng = np.random.default_rng(H + 2 * residual)
+    x = (rng.normal(size=(35, H)) * 3 + 100).astype(np.float32)
+    a = rng.normal(size=(35, H)).astype(np.float32)
+    p = {"scale": rng.uniform(0.5, 1.5, H).astype(np.float32),
+         "bias": rng.normal(size=H).astype(np.float32)}
+    jx, ja = jnp.asarray(x).astype(jdt), jnp.asarray(a).astype(jdt)
+    want = np.asarray(jtt._layer_norm(p, jx + ja if residual else jx, 1e-5).astype(jnp.float32))
+    xs, as_ = (np.array(t.astype(jnp.float32)) for t in (jx, ja))
+    got = _k8b_emulated(xs, as_ if residual else None, p["scale"], p["bias"], 1e-5,
+                        dtype == "bf16")
+    assert np.isfinite(got).all()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, atol=2 * TOL, rtol=0)
+        v = (xs + as_ if residual else xs).astype(np.float64)
+        d = v - v.mean(1, keepdims=True)
+        exact = d / np.sqrt((d * d).mean(1, keepdims=True) + 1e-5) * p["scale"] + p["bias"]
+        np.testing.assert_allclose(got, exact, atol=TOL, rtol=0)
+    else:
+        step = 2.0 ** -7 * np.abs(want).max()  # a bf16 step at the largest |value|, or more
+        np.testing.assert_allclose(got, want, atol=step, rtol=0)
+
+
 # ----------------------------------------------------------------------
 # pooling
 

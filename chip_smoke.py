@@ -27,12 +27,29 @@ Phases, each printing one line (any failure raises and exits non-zero):
    pair scorer on the same device tensors;
 6. the eval-accumulator kernels (K3) against their plain version at full
    width (32 rows x 32,102 labels x 512 bins, 8 batches with padded rows,
-   a label_mask with zeros and one label-subset batch), with both times;
+   a label_mask with zeros and one label-subset batch): the update (one
+   launch a batch, its row tail folded in, its scratch left zero) and the
+   finalize, with both times and their ptxas figures;
 7. evaluation: a 256-sequence FASTA -> ``ProteinDataset`` -> ``BucketBatcher``
    (device label gather) -> ``PrefetchBatcher`` -> the port's
    ``Trainer.evaluate`` (eval step with K1, then a K3 update per batch, K3
    finalize), then a second pass over the same batches that feeds each
-   logits tensor to the kernel and to the plain accumulator;
+   logits tensor to the kernel and to the plain accumulator; then
+   7a. the threshold-sweep kernels (K9) against their plain version (the
+   lax.map loop) at full width (8 batches of 32 rows x 32,102 labels
+   padded to 32,256 columns, padded rows, NaN logits), with the CLI's 99
+   thresholds and an unsorted set with a duplicate: counts exact up to the
+   counted (element, threshold) pairs within 1e-6; update and finalize
+   times beside their bounds and the plain version's;
+   7b. ``Trainer.evaluate(threshold_sweep=...)`` on the phase-7 FASTA in
+   turns with the same evaluation without the sweep: seqs/s of both, the
+   chosen threshold, K9's and K3's launches;
+   7c. the exact host AUPRC (``estimate_map=False``) on the same FASTA:
+   seqs/s; a pass by hand split into device, readback and host-update ms a
+   batch, its logits also into K3 and a host histogram (equal up to counted
+   edge elements); the binned estimate must equal the exact computation on
+   the probabilities quantised to its bins (1e-6), and the threshold metrics
+   of the two paths must agree (counts exactly, samplewise sums to 1e-6);
 8. the training kernels: at full width with 8 sequences (the reference's
    per-card batch, where the plain scorer still fits), the decomposed
    scorer through K4 + K5 against its plain version on the same device
@@ -97,7 +114,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
     plain pair scorer.
 
 Then one JSON line with every kernel: its launches on its path (K1 and K3
-in the training run, whose validation evaluates; K4 and K5 in training; K2
+in the training run, whose validation evaluates; K9 in the first sweep
+evaluation of 7b; K4 and K5 in training; K2
 in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
 run; each count set to 0 just before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
@@ -136,7 +154,7 @@ PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
 
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu", "pair_scorer_int8",
-                  "text_attention", "layer_norm")
+                  "text_attention", "layer_norm", "threshold_sweep")
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -161,6 +179,12 @@ SUM_RTOL = 1e-6
 AP_ATOL = 1e-6
 EVAL_SEQUENCES = 256
 K3_SUBSET, K3_SUBSET_WIDTH = 20000, 20096  # the label-subset (cols) batch
+# K9 (the threshold sweep): the CLI's 99 thresholds, and an unsorted set with
+# a duplicate and thresholds outside (0, 1); label columns padded past L.
+# Counts must agree exactly except for (element, threshold) pairs within
+# EDGE of each other, whose count is printed.
+ODD_THRESHOLDS = (0.7, 0.2, 0.5, 0.2, 0.95, 0.05, -0.1, 1.5)
+K9_WIDTH = 32256
 
 # training (configs/base.yaml): 32 sequences a step, FocalLoss gamma 2, Adam
 # 3e-4 with global-norm clip 1 (WEIGHT_DECAY is unused by Adam), label
@@ -988,7 +1012,6 @@ def phase_int8_eval(card: str, bf16_metrics: dict):
     import numpy as np
     import torch
 
-    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
     from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -998,9 +1021,7 @@ def phase_int8_eval(card: str, bf16_metrics: dict):
     pn8 = dataclasses.replace(pn_cfg, pair_backend="tiled_int8")
     total = {name: 0 for name in ps.INT8_LAUNCHES}
     for mode, calibrate in (("static", True), ("dynamic", False)):
-        batcher = PrefetchBatcher(BucketBatcher(
-            ds, B, buckets=(256, 512, 1024), return_label_multihots=True,
-            descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True), prefetch=2)
+        batcher = eval_batcher(ds)
         trainer = Trainer(ts, pi_cfg, pn8, TrainerConfig(
             decision_threshold=THRESHOLD, estimate_map=True, int8_calibrate=calibrate),
             device="cuda")
@@ -1092,12 +1113,14 @@ def k3_batches(gen, dev):
 
 
 def phase_k3(card: str):
-    """K3's three entry points at full width against the plain version on
-    the same tensors."""
+    """K3's two entry points at full width against the plain version on the
+    same tensors: the update (one launch a batch, the row tail folded in)
+    and the finalize (a warp a label)."""
     import torch
 
     from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator
     from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
 
     dev = torch.device("cuda")
     batches = k3_batches(torch.Generator().manual_seed(4), dev)
@@ -1106,11 +1129,13 @@ def phase_k3(card: str):
     edges = 0
     for (logits, targets, em, lm), li in batches:
         cols = kern.cols_for(li, logits.shape[1])
-        k3.update_cuda(kern.state, logits, targets, em, lm, cols, THRESHOLD, NUM_BINS)
+        kern.update_fn(kern.state, logits, targets, em, lm, cols)
         k3.update_reference(plain.state, logits, targets, em, lm, cols, THRESHOLD, NUM_BINS)
         edges += edge_elements(logits, (em[:, None] > 0) & (lm[None, :] > 0))
     torch.cuda.synchronize()
     deltas = compare_states(kern.state, plain.state, edges)
+    if int(kern._scratch.abs().sum()) != 0:
+        raise AssertionError("K3's update left its row-count scratch non-zero")
     # finalize: kernel and plain version on the same histograms
     ap, npos, out = k3.finalize_cuda(kern.state["hist"], NUM_LABELS, NUM_BINS)
     ap_p, npos_p, out_p = k3.finalize_reference(kern.state["hist"], NUM_LABELS, NUM_BINS)
@@ -1122,40 +1147,158 @@ def phase_k3(card: str):
         raise AssertionError(f"K3 finalize disagrees: per-label AP {ap_err}, "
                              f"micro/macro {out_err} (atol {AP_ATOL})")
     int_err = int_delta(deltas)
-    sum_err = max(deltas["precision_sum"], deltas["recall_sum"])
     log("k3_check", batches=len(batches), labels=NUM_LABELS, bins=NUM_BINS,
         edge_elements=edges, state_deltas=deltas, max_ap_err=ap_err,
         micro_macro=out.tolist(), micro_macro_plain=out_p.tolist())
 
-    # times, on scratch states (CUDA events; warm-up inside cuda_time_ms)
+    # times, on scratch states (CUDA events; warm-up inside cuda_time_ms); the
+    # update with the accumulator's kept scratch, as the eval path runs it
     (logits, targets, em, lm), _ = batches[0]
-    s_k = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev).state
+    acc_k = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev)
     s_p = DeviceEvalAccumulator(NUM_LABELS, THRESHOLD, NUM_BINS, device=dev).state
-    row_counts = torch.randint(0, 100, (B, 3), dtype=torch.int32, device=dev)
     t = {
-        "update": (cuda_time_ms(lambda: k3.update_cuda(
-            s_k, logits, targets, em, lm, None, THRESHOLD, NUM_BINS), 20),
+        "update": (cuda_time_ms(lambda: acc_k.update_fn(
+            acc_k.state, logits, targets, em, lm, None), 50),
             cuda_time_ms(lambda: k3.update_reference(
                 s_p, logits, targets, em, lm, None, THRESHOLD, NUM_BINS), 5)),
-        "row_tail": (cuda_time_ms(lambda: k3.row_tail_cuda(s_k, row_counts, em), 50),
-                     cuda_time_ms(lambda: k3.row_tail_reference(s_p, row_counts, em), 20)),
         "finalize": (cuda_time_ms(lambda: k3.finalize_cuda(
-            kern.state["hist"], NUM_LABELS, NUM_BINS), 10),
+            kern.state["hist"], NUM_LABELS, NUM_BINS), 20),
             cuda_time_ms(lambda: k3.finalize_reference(
                 plain.state["hist"], NUM_LABELS, NUM_BINS), 3)),
     }
+    build_log = load_kernel_library("eval_accumulator").build_log
+    ptxas = {k: [r, sp] for (k,), r, sp in ptxas_by_kernel(
+        build_log, r"entry function '\S*?(update_kernel|finalize_labels_kernelILi16E|"
+                   r"finalize_micro_kernel)")}
+    device = device_split({
+        "update": lambda: acc_k.update_fn(acc_k.state, logits, targets, em, lm, None),
+        "finalize": lambda: k3.finalize_cuda(kern.state["hist"], NUM_LABELS, NUM_BINS)})
     log("k3_time", **{f"{k}_ms": v[0] for k, v in t.items()},
-        **{f"{k}_plain_ms": v[1] for k, v in t.items()}, card=card)
-    errs = {"update": int_err, "row_tail": sum_err, "finalize": max(ap_err, out_err)}
+        **{f"{k}_plain_ms": v[1] for k, v in t.items()}, device=device, ptxas=ptxas,
+        card=card)
+    errs = {"update": max(int_err, deltas["precision_sum"], deltas["recall_sum"]),
+            "finalize": max(ap_err, out_err)}
     # bytes each entry point must move for the timed batch: the update reads
-    # the logits, targets and masks, reads and writes tp/fp/fn and one
-    # histogram count per valid element; the row tail reads the per-row
-    # counts; finalize reads the histograms and writes per-label AP
+    # the logits, targets and masks, reads and writes tp/fp/fn, one
+    # histogram count per valid element and the row tail's per-row counts;
+    # finalize reads the histograms and writes per-label AP
     n_valid = float((em[:, None] * lm[None, :]).sum())
     nbytes = {"update": 8.0 * logits.numel() + 4 * (B + NUM_LABELS) + 24 * NUM_LABELS
-              + 8 * n_valid + 12 * B,
-              "row_tail": 16.0 * B + 8,
+              + 8 * n_valid + 12 * B + 16 * B,
               "finalize": 4.0 * 2 * NUM_LABELS * NUM_BINS + 8 * NUM_LABELS + 16 * NUM_BINS + 8}
+    return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1],
+                **bound(nbytes=nbytes[k]), "library_ms": None} for k in t}
+
+
+def device_split(calls: dict, reps: int = 20) -> dict:
+    """For each entry point: its device ms a call (the busy time of a
+    ``torch.profiler`` pass), its host ms a call (enqueueing alone), and
+    each kernel's device ms a call.  Where the host time exceeds the device
+    time, CUDA events around back-to-back calls time the host."""
+    out = {}
+    for name, fn in calls.items():
+        dev_ms, host_ms = device_and_host_ms(fn, reps)
+        _, _, top = device_profile(fn, reps)
+        out[name] = {"device_ms": dev_ms, "host_ms": host_ms, "kernels": top}
+    return out
+
+
+def sweep_thresholds():
+    """The CLI's candidate decision thresholds, 0.01 to 0.99."""
+    import numpy as np
+
+    return np.arange(0.01, 1.0, 0.01, dtype=np.float32)
+
+
+def sweep_edges(logits, valid, thresholds) -> int:
+    """How many (valid element, threshold) pairs lie within EDGE of each
+    other (float64, so it depends on neither float32 exponential): each
+    such pair may move two of that threshold's counts."""
+    import torch
+
+    p = torch.sigmoid(logits.double())[valid]
+    th = torch.as_tensor(thresholds, dtype=torch.float64, device=p.device)
+    return int(sum(int(((p - t).abs() < EDGE).sum()) for t in th))
+
+
+def k9_batches(gen, dev):
+    """8 full-width batches of 32 rows: 1-3 padded rows each, the label
+    columns padded from 32,102 to K9_WIDTH (label padding past L), logits
+    spread over (-6, 6), about 1% positives, two NaN logits a batch."""
+    import torch
+
+    out = []
+    for i in range(8):
+        mask = torch.ones(B)
+        mask[B - 1 - i % 3:] = 0
+        logits = torch.randn(B, K9_WIDTH, generator=gen) * 2.0
+        logits[i, i] = logits[B - 4, NUM_LABELS - 1 - i] = float("nan")
+        labels = (torch.rand(B, K9_WIDTH, generator=gen) < 0.01).float()
+        out.append([t.to(dev) for t in (logits, labels, mask)])
+    return out
+
+
+def phase_k9(card: str):
+    """K9's update and finalize at full width against the plain version
+    (the lax.map loop) on the same tensors, with the CLI's 99 thresholds
+    and an unsorted set with a duplicate; then their times."""
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.ops import threshold_sweep as k9
+
+    dev = torch.device("cuda")
+    batches = k9_batches(torch.Generator().manual_seed(9), dev)
+    checks = {}
+    for name, thresholds in (("cli_99", sweep_thresholds()),
+                             ("unsorted", np.array(ODD_THRESHOLDS, np.float32))):
+        sweep = k9.SweepCounter(thresholds, NUM_LABELS, dev)
+        T = len(thresholds)
+        plain = tuple(torch.zeros(T, NUM_LABELS, dtype=torch.int32, device=dev)
+                      for _ in range(3))
+        edges = 0
+        for logits, labels, mask in batches:
+            sweep.update(logits, labels, mask)
+            k9.count_reference(plain, logits, labels, mask, sweep.thresholds)
+            valid = (mask[:, None] > 0).expand(B, NUM_LABELS)
+            edges += sweep_edges(logits[:, :NUM_LABELS], valid, thresholds)
+        got = sweep.counts()
+        torch.cuda.synchronize()
+        delta = sum(int((g.long() - w.long()).abs().sum()) for g, w in zip(got, plain))
+        checks[name] = {"edge_pairs": edges, "count_delta": delta,
+                        "tp": int(got[0].sum()), "fn": int(got[2].sum())}
+        if delta > 2 * edges or int(got[0].sum()) <= 0:
+            raise AssertionError(f"K9 ({name}) disagrees: sum |delta| {delta} exceeds 2 x "
+                                 f"{edges} edge pairs")
+        if name == "unsorted":  # the duplicate threshold's counts are equal
+            dup = [i for i, v in enumerate(thresholds) if v == thresholds[1]]
+            if not all(torch.equal(c[dup[0]], c[dup[1]]) for c in got):
+                raise AssertionError("K9: a duplicate threshold's counts differ")
+    log("k9_check", batches=len(batches), labels=NUM_LABELS, width=K9_WIDTH, checks=checks)
+
+    sweep = k9.SweepCounter(sweep_thresholds(), NUM_LABELS, dev)
+    logits, labels, mask = batches[0]
+    T = len(sweep.thresholds)
+    plain = tuple(torch.zeros(T, NUM_LABELS, dtype=torch.int32, device=dev) for _ in range(3))
+    t = {"update": (cuda_time_ms(lambda: sweep.update(logits, labels, mask), 50),
+                    cuda_time_ms(lambda: k9.count_reference(
+                        plain, logits, labels, mask, sweep.thresholds), 3)),
+         "finalize": (cuda_time_ms(sweep.counts, 20),
+                      cuda_time_ms(lambda: k9.finalize_reference(
+                          sweep.hist, sweep.order, NUM_LABELS, T), 5))}
+    device = device_split({"update": lambda: sweep.update(logits, labels, mask),
+                           "finalize": sweep.counts})
+    n_valid = float(mask.sum()) * NUM_LABELS
+    state = 4.0 * 2 * (T + 1) * NUM_LABELS
+    nbytes = {"update": 8.0 * B * K9_WIDTH + 4 * B + 4 * T + 8 * n_valid,
+              "finalize": state + 4 * T + 3 * 4.0 * T * NUM_LABELS}
+    xla_bytes = T * 8.0 * B * K9_WIDTH  # lax.map: the batch read once a threshold
+    log("k9_time", **{f"{k}_ms": v[0] for k, v in t.items()},
+        **{f"{k}_plain_ms": v[1] for k, v in t.items()},
+        **{f"{k}_bound_ms": bound(nbytes=nbytes[k])["bound_ms"] for k in t},
+        xla_form_bytes=xla_bytes, xla_form_bound_ms=bound(nbytes=xla_bytes)["bound_ms"],
+        state_mb=state / 1e6, device=device, card=card)
+    errs = {k: float(max(v["count_delta"] for v in checks.values())) for k in t}
     return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1],
                 **bound(nbytes=nbytes[k]), "library_ms": None} for k in t}
 
@@ -1216,7 +1359,6 @@ def phase_eval(card: str, k3_times: dict):
     import numpy as np
     import torch
 
-    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
     from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator, EvalMetrics
     from protnote_tpu_torch.ops import eval_accumulator as k3
     from protnote_tpu_torch.ops import pair_scorer as ps
@@ -1226,9 +1368,7 @@ def phase_eval(card: str, k3_times: dict):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ds = eval_dataset(tmp)
-        batcher = PrefetchBatcher(BucketBatcher(
-            ds, B, buckets=(256, 512, 1024), return_label_multihots=True,
-            descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True), prefetch=2)
+        batcher = eval_batcher(ds)
         data_s = time.perf_counter() - t0
     pi_cfg, pn_cfg, ts = random_models()
     trainer = Trainer(ts, pi_cfg, pn_cfg,
@@ -1290,6 +1430,185 @@ def phase_eval(card: str, k3_times: dict):
     if worst > AP_ATOL and int_delta(deltas) == 0:
         raise AssertionError(f"kernel and plain metrics disagree: {errs}")
     return metrics
+
+
+def eval_batcher(ds):
+    """The evaluation batcher of the eval phases: 32 rows, buckets (256,
+    512, 1024), device label gather, two batches prefetched."""
+    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
+
+    return PrefetchBatcher(BucketBatcher(
+        ds, B, buckets=(256, 512, 1024), return_label_multihots=True,
+        descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True), prefetch=2)
+
+
+def phase_eval_sweep(card: str):
+    """``Trainer.evaluate(threshold_sweep=...)`` on the phase-7 FASTA, bf16:
+    the CLI's 99 thresholds counted by K9 beside K3's metrics, in turns with
+    the same evaluation without the sweep (plain, sweep, sweep, plain).
+    Returns K9's launches in the first sweep pass (set to 0 just before)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import threshold_sweep as k9
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = eval_dataset(tmp)
+    pi_cfg, pn_cfg, ts = random_models()
+    trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig(decision_threshold=THRESHOLD,
+                                                        estimate_map=True), device="cuda")
+    runs, launches, chosen = [], None, None
+    for sweep in (False, True, True, False):
+        batcher = eval_batcher(ds)
+        torch.cuda.synchronize()
+        for counts in (k3.LAUNCHES, k9.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batcher, threshold_sweep=sweep_thresholds() if sweep else None)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        runs.append({"sweep": sweep, "seconds": sec, "seqs_per_s": len(ds) / sec})
+        if sweep and launches is None:
+            launches = {**{f"threshold_sweep_{k}": v for k, v in k9.LAUNCHES.items()},
+                        **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+            chosen = res["threshold"]
+            metrics = res["metrics"]
+    if any(v <= 0 for v in launches.values()) or not np.isfinite(chosen[1]):
+        raise AssertionError(f"the sweep evaluation skipped a kernel: {launches}, {chosen}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite metrics: {metrics}")
+    plain_s = [r["seqs_per_s"] for r in runs if not r["sweep"]]
+    sweep_s = [r["seqs_per_s"] for r in runs if r["sweep"]]
+    log("eval_sweep", sequences=len(ds), batches=len(batcher), runs=runs,
+        seqs_per_s=sum(sweep_s) / 2, seqs_per_s_without=sum(plain_s) / 2,
+        threshold=chosen[0], score=chosen[1], launches=launches,
+        map_micro=metrics["map_micro"], card=card)
+    return launches
+
+
+def bin_quantized_map(probs, targets) -> tuple:
+    """Exact micro and macro AP of the probabilities quantised to the
+    NUM_BINS bins of the binned estimate (ties grouped): what the binned
+    estimate computes, from the host's float32 probabilities."""
+    import numpy as np
+
+    from protnote_tpu_torch.evaln.metrics import average_precision, average_precision_columns
+
+    q = np.clip((probs * NUM_BINS).astype(np.int32), 0, NUM_BINS - 1).astype(np.float32)
+    micro = average_precision(q.reshape(-1), targets.reshape(-1))
+    aps = np.concatenate([average_precision_columns(q[:, s:s + 1024], targets[:, s:s + 1024])
+                          for s in range(0, q.shape[1], 1024)])
+    return micro, float(np.nanmean(aps))
+
+
+def phase_exact_eval(card: str):
+    """``Trainer.evaluate`` with ``estimate_map=False`` (the exact host
+    AUPRC) on the phase-7 FASTA, bf16: seqs/s.  Then one pass of the same
+    loop by hand, split into device (eval step, synchronised), readback and
+    host metric update time a batch, whose logits also feed K3 on the card
+    and a host histogram: the exact mAP beside the binned estimate, which
+    must equal the exact computation on the probabilities quantised to the
+    bins, and the threshold metrics of both paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.evaln.metrics import BinnedAUPRC, DeviceEvalAccumulator, EvalMetrics
+    from protnote_tpu_torch.train.step import batch_to_device_dict
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = eval_dataset(tmp)
+    pi_cfg, pn_cfg, ts = random_models()
+    trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig(decision_threshold=THRESHOLD,
+                                                        estimate_map=False), device="cuda")
+    batcher = eval_batcher(ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = trainer.evaluate(batcher)["metrics"]
+    sec = time.perf_counter() - t0
+
+    L = ds.num_labels
+    host = EvalMetrics(L, THRESHOLD, map_estimate=False)
+    host_hist = BinnedAUPRC(L, NUM_BINS)
+    device = DeviceEvalAccumulator(L, THRESHOLD, NUM_BINS, device="cuda")
+    label_matrix = trainer._label_matrix_for(ds)
+    latents, parts, probs, targets, edges, near_th = None, [], [], [], 0, 0
+    for batch in batcher:
+        arrays = trainer._place(batch_to_device_dict(batch, trainer.device), label_matrix)
+        if latents is None:
+            latents = trainer._label_latents(arrays)
+        arrays = trainer._swap_in_latents(arrays, latents)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer._eval_step(trainer.ts, arrays)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = out["logits"].float().cpu().numpy()[batch.example_mask]
+        t2 = time.perf_counter()
+        p = 1.0 / (1.0 + np.exp(-logits.astype(np.float32)))
+        labels = batch.label_multihots[batch.example_mask]
+        host.update(p, labels)
+        t3 = time.perf_counter()
+        parts.append((t1 - t0, t2 - t1, t3 - t2))
+        device.update(out["logits"], arrays["label_multihots"], arrays["example_mask"])
+        host_hist.update(p, labels)
+        p64 = 1.0 / (1.0 + np.exp(-logits.astype(np.float64)))
+        edges += int((np.abs(p64 * NUM_BINS - np.round(p64 * NUM_BINS)) / NUM_BINS < EDGE).sum())
+        near_th += int((np.abs(p64 - THRESHOLD) < EDGE).sum())
+        probs.append(p)
+        targets.append(labels)
+    t0 = time.perf_counter()
+    got = host.compute()
+    compute_s = time.perf_counter() - t0
+    hist = device.state["hist"].cpu().numpy().reshape(2, L, NUM_BINS)
+    hist_delta = int(np.abs(hist[0] - host_hist.pos).sum() + np.abs(hist[1] - host_hist.neg).sum())
+    counts_delta = sum(int(np.abs(device.state[k].cpu().numpy() - getattr(host.confusion, k)).sum())
+                       for k in ("tp", "fp", "fn"))
+    binned = EvalMetrics(L, THRESHOLD, map_estimate=True)
+    device.finalize_into(binned)
+    binned = binned.compute()
+    q_micro, q_macro = bin_quantized_map(np.concatenate(probs),
+                                         np.concatenate(targets).astype(bool))
+    # the exact mAP differs from the binned estimate only through the bins:
+    # quantised to them, the exact computation gives the binned values
+    bins_err = max(abs(q_micro - binned["map_micro"]), abs(q_macro - binned["map_macro"]))
+    thr_keys = [k for k in binned if k not in ("map_micro", "map_macro")]
+    counted = [k for k in thr_keys if not k.startswith(("precision_s", "recall_s", "f1_s"))]
+    thr_err = {k: abs(got[k] - binned[k]) for k in thr_keys}
+    parts = np.array(parts) * 1e3
+    log("exact_eval", sequences=len(ds), batches=len(batcher), seconds=sec,
+        seqs_per_s=len(ds) / sec, batch_ms=sec * 1e3 / len(batcher),
+        device_ms=float(parts[:, 0].mean()), readback_ms=float(parts[:, 1].mean()),
+        host_update_ms=float(parts[:, 2].mean()), host_compute_s=compute_s,
+        map_micro=exact["map_micro"], map_macro=exact["map_macro"],
+        by_hand_map_micro=got["map_micro"], by_hand_map_macro=got["map_macro"],
+        binned_map_micro=binned["map_micro"], binned_map_macro=binned["map_macro"],
+        quantised_map_micro=q_micro, quantised_map_macro=q_macro, bins_err=bins_err,
+        bin_edge_elements=edges, threshold_edge_elements=near_th, hist_delta=hist_delta,
+        counts_delta=counts_delta, max_threshold_metric_err=max(thr_err.values()), card=card)
+    if not all(np.isfinite(v) for v in exact.values()):
+        raise AssertionError(f"non-finite exact metrics: {exact}")
+    if hist_delta > 2 * edges or counts_delta > 2 * near_th:
+        raise AssertionError(f"K3 and the host disagree beyond the edge elements: "
+                             f"hist {hist_delta} ({edges}), counts {counts_delta} ({near_th})")
+    if hist_delta == 0 and bins_err > AP_ATOL:
+        raise AssertionError(f"exact mAP on the bins {q_micro}, {q_macro} vs the binned "
+                             f"estimate {binned['map_micro']}, {binned['map_macro']}")
+    if counts_delta == 0:
+        # counts-only metrics equal exactly; samplewise sums are float64 on the
+        # host and float32 on the device
+        bad = [k for k in counted if got[k] != binned[k]] + [
+            k for k in thr_keys if k not in counted and thr_err[k] > SUM_RTOL]
+        if bad:
+            raise AssertionError(f"threshold metrics differ from the device path: "
+                                 f"{ {k: (got[k], binned[k]) for k in bad} }")
 
 
 def random_output_mlp(dev):
@@ -2005,6 +2324,12 @@ def main() -> None:
     k3_times = phase_k3(card)
     bf16_metrics = phase_eval(card, k3_times)
     torch.cuda.empty_cache()
+    k9_times = phase_k9(card)
+    torch.cuda.empty_cache()
+    sweep_launches = phase_eval_sweep(card)
+    torch.cuda.empty_cache()
+    phase_exact_eval(card)
+    torch.cuda.empty_cache()
     for name, v in phase_int8_eval(card, bf16_metrics).items():
         int8_launches[name] += v
     torch.cuda.empty_cache()
@@ -2022,7 +2347,6 @@ def main() -> None:
                              "jax or the JAX package")
     k3_src = "protnote_tpu_torch/csrc/eval_accumulator.cu"
     replaces = {"update": "protnote_tpu/evaln/metrics.py:601",
-                "row_tail": "protnote_tpu/evaln/metrics.py:628",
                 "finalize": "protnote_tpu/evaln/metrics.py:732"}
     train_kernels = {
         "pair_train_hidden": ("protnote_tpu_torch/csrc/pair_train.cu",
@@ -2040,7 +2364,12 @@ def main() -> None:
     }] + [{
         "name": f"eval_acc_{k}", "route": "cuda", "source": k3_src,
         "replaces": replaces[k], "launches": launches[f"eval_acc_{k}"], **k3_times[k],
-    } for k in ("update", "row_tail", "finalize")] + [{
+    } for k in ("update", "finalize")] + [{
+        "name": f"threshold_sweep_{k}", "route": "cuda",
+        "source": "protnote_tpu_torch/csrc/threshold_sweep.cu",
+        "replaces": "protnote_tpu/train/trainer.py:1117",
+        "launches": sweep_launches[f"threshold_sweep_{k}"], **k9_times[k],
+    } for k in ("update", "finalize")] + [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], **train_times[k],
     } for k, (src, rep) in train_kernels.items()] + [{

@@ -31,6 +31,22 @@ at full serving width, K8a at the three K8 shapes) in the checkout at DIR
 change's mean over DIR's, per kernel, and whether each library's
 instructions (``cuobjdump -sass``) are the same in both.
 
+    python3 chip_variants.py --k3
+
+builds K3 (``csrc/eval_accumulator.cu``) with parts of its work taken out
+(timing only): the update without its histogram adds, the finalize without
+its micro-AP bin sums (their shared-memory turns and atomic flush); times
+each beside the kept kernels at full width (32 rows x 32,102 labels x 512
+bins, ~1% positives; the finalize on histograms with 0.5% positive counts),
+the list run forward and then backward, calling the C entry points alone.
+
+    python3 chip_variants.py --eval-against DIR
+
+runs ``Trainer.evaluate`` on ``chip_smoke.py``'s 256-sequence FASTA (bf16,
+K1 and K3 on the card; once to warm up, then timed) on DIR's package and on
+this one, in the same turns, and prints seqs/s of each and the change's
+mean over DIR's.
+
     python3 chip_variants.py --train-against DIR
 
 runs ``chip_smoke.py``'s training phase alone (one epoch at full width,
@@ -48,6 +64,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VARIANT_DIR = os.path.join(ROOT, "protnote_tpu_torch", "csrc", "variants")
@@ -120,6 +137,88 @@ K8A_VARIANTS = {
     "compute_only": KV + ["mask", "q"],
     "64_query_blocks": ["warps4"],
 }
+
+
+# text replaced in eval_accumulator.cu: (old, new), each old found exactly once
+K3_SUBS = {
+    "update_no_hist_adds": [(
+        "      atomicAdd(hist + ((size_t)(t ? row : L + row) * nb + bin), 1);\n",
+        "      if (bin < 0) atomicAdd(hist, 1);\n")],
+    "finalize_no_bin_sums": [(
+        "        s_micro[k * 32 + lane] += acc_pos[k];\n"
+        "        s_micro[HALF + k * 32 + lane] += acc_neg[k];\n",
+        "        (void)acc_pos[k]; (void)acc_neg[k];\n"), (
+        "    if (bin >= 0 && s_micro[i]) atomicAdd(&micro[(i / HALF) * nb + bin], s_micro[i]);\n",
+        "    (void)bin;\n")],
+}
+
+
+def k3_variants(build_dir: str, card: str) -> None:
+    """K3's update and finalize, kept and with parts taken out, timed by
+    calling each library's C entry points at full width."""
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import kernels
+
+    base = (kernels.CSRC_DIR / "eval_accumulator.cu").read_text()
+    libs = {}
+    for name, subs in [("kept", [])] + list(K3_SUBS.items()):
+        text = base
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K3 variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"eval_accumulator_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        out = os.path.join(build_dir, f"libeval_accumulator_{name}.so")
+        cs.log("k3_variant_ptxas", variant=name, ptxas=nvcc(src, out))
+        libs[name] = ctypes.CDLL(out)
+        libs[name].eval_acc_update.argtypes = k3._UPDATE_ARGS
+        libs[name].eval_acc_finalize.argtypes = k3._FINALIZE_ARGS
+    L, nb, B = cs.NUM_LABELS, cs.NUM_BINS, cs.B
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    logits = (torch.randn(B, L, generator=gen) * 2).to(dev)
+    targets = (torch.rand(B, L, generator=gen) < 0.01).float().to(dev)
+    em, lm = torch.ones(B, device=dev), torch.ones(L, device=dev)
+    state = k3.init_state(L, nb, dev)
+    scratch = k3.scratch_for(None, B, dev)
+    hist = torch.randint(0, 3, (2 * L * nb,), generator=gen, dtype=torch.int32)
+    hist[: L * nb][torch.rand(L * nb, generator=gen) < 0.995] = 0
+    hist = hist.to(dev)
+    f32 = lambda n: torch.empty(n, device=dev)  # noqa: E731
+    ap, npos, out, block_ap = f32(L), f32(L), f32(2), f32(k3.FINALIZE_BLOCK_CAP)
+    micro = torch.empty(2 * nb, dtype=torch.int64, device=dev)
+    block_n = torch.empty(k3.FINALIZE_BLOCK_CAP, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = ("tp", "fp", "fn", "hist", "precision_sum", "precision_count", "recall_sum",
+             "recall_count", "covered")
+
+    def update(lib):
+        return lambda: lib.eval_acc_update(
+            logits.data_ptr(), targets.data_ptr(), em.data_ptr(), lm.data_ptr(), None, B, L,
+            L, nb, 0.5, *(state[n].data_ptr() for n in names), scratch.data_ptr(),
+            scratch.numel(), stream)
+
+    def finalize(lib):
+        return lambda: lib.eval_acc_finalize(
+            hist.data_ptr(), L, nb, ap.data_ptr(), npos.data_ptr(), micro.data_ptr(),
+            block_ap.data_ptr(), block_n.data_ptr(), k3.FINALIZE_BLOCK_CAP, out.data_ptr(),
+            stream)
+
+    calls = [("update", "kept", update(libs["kept"])),
+             ("update", "no_hist_adds", update(libs["update_no_hist_adds"])),
+             ("finalize", "kept", finalize(libs["kept"])),
+             ("finalize", "no_bin_sums", finalize(libs["finalize_no_bin_sums"]))]
+    times = {(e, v): [] for e, v, _ in calls}
+    for order in (calls, calls[::-1]):
+        for entry, variant, fn in order:
+            times[(entry, variant)].append(cs.cuda_time_ms(fn, 50))
+    for (entry, variant), t in times.items():
+        cs.log("k3_variant", entry=entry, variant=variant, ms=t, card=card)
 
 
 def nvcc(src: str, out: str) -> str:
@@ -363,6 +462,38 @@ def train_turn(tree: str) -> None:
     cs.phase_training(cs.card_line())
 
 
+def eval_turn(tree: str) -> None:
+    """One turn of ``--eval-against``: ``Trainer.evaluate`` on
+    ``chip_smoke.py``'s 256-sequence FASTA (bf16, ``ESTIMATE_MAP``: K1 and
+    K3) in a fresh process on the package in ``tree``, once to warm up and
+    then timed; prints one JSON line."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import protnote_tpu_torch
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = cs.eval_dataset(tmp)
+    pi_cfg, pn_cfg, ts = cs.random_models()
+    trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig(decision_threshold=cs.THRESHOLD,
+                                                        estimate_map=True), device="cuda")
+    trainer.evaluate(cs.eval_batcher(ds))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.evaluate(cs.eval_batcher(ds))["metrics"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    cs.log("eval_turn", seconds=sec, seqs_per_s=len(ds) / sec, map_micro=m["map_micro"])
+
+
 def turns(parent: str, flag: str, card: str) -> list:
     """``chip_variants.py FLAG TREE`` in DIR, this checkout, this, DIR, one
     process a turn; the JSON lines each printed, by phase (the last line
@@ -425,6 +556,18 @@ def train_against(parent: str, card: str) -> None:
            **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
 
 
+def eval_against(parent: str, card: str) -> None:
+    """``--eval-against``: the evaluation alone in DIR and in this checkout,
+    in turns: seqs/s."""
+    import chip_smoke as cs
+
+    parent = os.path.abspath(parent)
+    results = [{"tree": r["tree"], "seqs_per_s": r["eval_turn"]["seqs_per_s"]}
+               for r in turns(parent, "--eval-turn", card)]
+    cs.log("eval_against", parent=parent, turns=results, card=card,
+           **mean_over_turns(results, parent, ["seqs_per_s"]))
+
+
 def main() -> None:
     import tempfile
 
@@ -433,6 +576,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--train-turn"]:
         train_turn(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--eval-turn"]:
+        eval_turn(sys.argv[2])
         return
     sys.path.insert(0, ROOT)
     import torch
@@ -449,6 +595,15 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--train-against"]:
         train_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--eval-against"]:
+        eval_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k3"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k3_variants(build_dir, card)
         print(card)
         return
     with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:

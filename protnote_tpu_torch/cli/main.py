@@ -1,13 +1,12 @@
 """Train and evaluate a ProtNote model with the PyTorch port.
 
     python -m protnote_tpu_torch.cli.main --train-path-name TRAIN_DATA_PATH \\
-        --validation-path-name VAL_DATA_PATH --test-paths-names TEST_DATA_PATH \\
-        --override ESTIMATE_MAP True
-    python -m protnote_tpu_torch.cli.main --test-paths-names TEST_DATA_PATH \\
-        --model-file run.ckpt --override ESTIMATE_MAP True DECISION_TH 0.5
+        --validation-path-name VAL_DATA_PATH --test-paths-names TEST_DATA_PATH
+    python -m protnote_tpu_torch.cli.main --validation-path-name VAL_DATA_PATH \\
+        --test-paths-names TEST_DATA_PATH --model-file run.ckpt --override DECISION_TH null
 
 The argument surface of ``protnote_tpu.cli.main``.  Ported are training,
-validation and the test sets with all metrics on the device: config, the
+validation, the decision-threshold sweep and the test sets: config, the
 label-embedding cache, ``ProteinDataset`` -> ``BucketBatcher`` (device label
 gather; for training shuffled, ``drop_last`` and weighted by
 ``WEIGHTED_SAMPLING``) -> ``PrefetchBatcher`` (the port's copies of the JAX
@@ -15,9 +14,16 @@ package's host data layer), weights from ``--model-file`` (a ``PNTPU1``
 ``.ckpt`` of either package, or a reference ``.pt``; ``--from-checkpoint``
 resumes its epoch and optimizer state), ``Trainer.train`` (train steps
 through K4 + K5, validation through K1 + K3, checkpoints, the best one
-reloaded), and the metric dict of every test set (``EvalMetrics.compute()``,
-the eval ``loss``, seqs/s and pairs/s), with ``train_summary``, optionally
-appended to the ``--save-val-test-metrics`` JSON.  ``PAIR_BACKEND
+reloaded), with ``DECISION_TH null`` and a validation set one validation
+pass that also sweeps 99 thresholds (K9) and sets the test sets' threshold,
+and the metric dict of every test set (``EvalMetrics.compute()``: with
+``ESTIMATE_MAP`` on the device through K3, else on the host with the exact
+AUPRC; the eval ``loss``, seqs/s and pairs/s), with ``train_summary``,
+``decision_threshold`` and ``validation_at_sweep``, optionally appended to
+the ``--save-val-test-metrics`` JSON.  ``--save-prediction-results``,
+``--save-embeddings``, ``--only-represented-labels`` and
+``NORMALIZE_PROBABILITIES`` (with ``PARENTHOOD_LIB_PATH``) take the host
+path, as in the JAX CLI.  ``PAIR_BACKEND
 tiled_int8`` evaluates through the int8 scorer (K2) with static scales
 calibrated on each evaluation's first batch (``INT8_CALIBRATE``, default
 True; ``INT8_ACT_SCALES`` supplies them); training then still runs the
@@ -26,9 +32,8 @@ plain versions (for tests).  The config is read with
 ``load_config``/``override_config``/``resolve_paths`` of
 :mod:`protnote_tpu_torch.core.config`.
 
-The threshold sweep, the exact host AUPRC, prediction and embedding export,
-GO-DAG normalisation, represented-label slicing, label sampling, encoder
-training, the text tower, profiler traces, wandb and a mesh raise
+Label sampling in validation, label embeddings shipped with every batch,
+encoder training, the text tower, profiler traces, wandb and a mesh raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -43,13 +48,10 @@ from typing import Dict, List
 
 import numpy as np
 
-from protnote_tpu_torch.train.trainer import SWEEP_LATER, TRAIN_SUBSET_LATER
+from protnote_tpu_torch.train.trainer import TRAIN_SUBSET_LATER
 
 logger = logging.getLogger(__name__)
 
-ROADMAP_HOST_PATH = ("reads logits back to the host (prediction/embedding export, "
-                     "GO-DAG normalisation, label slicing): not ported yet "
-                     "(ROADMAP.md queue 1, item 3)")
 ROADMAP_TRAINING_EXTRAS = ("{} is not ported for training (ROADMAP.md queue 1, item 5h): "
                            "torch.profiler traces and wandb logging of training runs")
 ROADMAP_ENCODER = ("{} (training the sequence encoder) is not ported (ROADMAP.md queue 1, "
@@ -90,11 +92,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args, params: Dict) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run.
-    ``DECISION_TH null`` alone is ported: as in the JAX CLI, test sets are
-    then scored for AP only; the threshold sweep runs on a validation set."""
-    if args.validation_path_name and params.get("DECISION_TH") is None:
-        raise NotImplementedError(SWEEP_LATER)
+    """Raise ``NotImplementedError`` for what the port does not run."""
     for flag, name in ((args.use_wandb, "--use-wandb"), (args.profile_dir, "--profile-dir")):
         if flag:
             raise NotImplementedError(ROADMAP_TRAINING_EXTRAS.format(name))
@@ -108,16 +106,6 @@ def refuse_unported(args, params: Dict) -> None:
     if args.validation_path_name and params.get("VALIDATION_LABEL_SAMPLE_SIZE"):
         raise NotImplementedError("VALIDATION_LABEL_SAMPLE_SIZE: label-subsampled "
                                   "evaluation is not ported (ROADMAP.md queue 1, item 3)")
-    for flag, name in ((args.save_prediction_results, "--save-prediction-results"),
-                       (args.save_embeddings, "--save-embeddings"),
-                       (args.only_represented_labels, "--only-represented-labels"),
-                       (params.get("NORMALIZE_PROBABILITIES"), "NORMALIZE_PROBABILITIES")):
-        if flag:
-            raise NotImplementedError(f"{name} {ROADMAP_HOST_PATH}")
-    if not params.get("ESTIMATE_MAP", False):
-        raise NotImplementedError(
-            "ESTIMATE_MAP False (the exact host AUPRC, ExactAUPRC) is not ported yet "
-            "(ROADMAP.md queue 1, item 3); pass --override ESTIMATE_MAP True")
     if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
         raise NotImplementedError("training the text tower (LABEL_ENCODER_NUM_TRAINABLE_"
                                   "LAYERS) is not ported yet (ROADMAP.md queue 1, item 14); "
@@ -231,6 +219,7 @@ def run(args) -> Dict:
         ts = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
                               ts["enc_params"], ts["enc_state"], optimizer)
     out_dir = config["paths_resolved"].get("OUTPUT_MODEL_DIR", "outputs/checkpoints")
+    results_dir = config["paths_resolved"].get("RESULTS_DIR", "outputs/results")
     trainer = Trainer(ts, pi_cfg, pn_cfg,
                       TrainerConfig.from_params(params, checkpoint_dir=out_dir,
                                                 run_name=run_name),
@@ -282,12 +271,37 @@ def run(args) -> Dict:
                          for k, v in m.items()} for m in summary["history"]],
         }
 
+    # ---------------- decision threshold ----------------
+    threshold = params.get("DECISION_TH")
+    if threshold is None and "validation" in datasets:
+        # one pass over validation: metrics and the threshold sweep
+        val_batcher = BucketBatcher(
+            datasets["validation"][0], params["VALIDATION_BATCH_SIZE"], buckets=buckets,
+            seed=seed, descriptions_per_label=pn_cfg.inference_descriptions_per_label,
+            device_label_gather=True, tokens_per_batch=tokens_pb)
+        res = trainer.evaluate(val_batcher, data_split_name="validation",
+                               threshold_sweep=np.arange(0.01, 1.0, 0.01, dtype=np.float32))
+        threshold, score = res["threshold"]
+        trainer.cfg.decision_threshold = threshold
+        all_metrics["decision_threshold"] = {"threshold": threshold, "score": score}
+        all_metrics["validation_at_sweep"] = res["metrics"]
+
     # ---------------- test ----------------
+    parenthood = None
+    if params.get("NORMALIZE_PROBABILITIES"):
+        pl_path = config["paths_resolved"].get("PARENTHOOD_LIB_PATH")
+        if pl_path and os.path.exists(pl_path):
+            with open(pl_path) as fh:
+                parenthood = json.load(fh)
     tests = datasets.get("test", [])
     for i, test_ds in enumerate(tests):
         split = f"test_{i}" if len(tests) > 1 else "test"
-        res = trainer.evaluate(eval_batcher(test_ds, params["TEST_BATCH_SIZE"]),
-                               data_split_name=split)
+        res = trainer.evaluate(
+            eval_batcher(test_ds, params["TEST_BATCH_SIZE"]),
+            save_results=args.save_prediction_results, output_dir=results_dir,
+            data_split_name=split, only_represented_labels=args.only_represented_labels,
+            normalize_probabilities=params.get("NORMALIZE_PROBABILITIES", False),
+            parenthood=parenthood, save_embeddings=args.save_embeddings)
         all_metrics[split] = res["metrics"]
         log.info("%s metrics: %s", split, json.dumps(res["metrics"], default=float))
 

@@ -16,11 +16,18 @@ the plain PyTorch versions (:func:`update_reference`,
 ``csrc/eval_accumulator.cu``; input the kernels do not take raises, and
 nothing falls back from one to the other.
 
-Both versions compute the probability as ``1 / (1 + exp(-x))`` in float32,
-bin it as ``clip(int(p * nb), 0, nb - 1)`` and compare ``p >= th``.  The
-exponentials of the CPU, of XLA and of CUDA can differ by an ulp, so an
-element within an ulp of a bin edge or of the threshold may land on the
-other side; the tests draw their inputs away from those edges.
+Both versions compute the probability as ``1 / (1 + exp(-x))`` in float32
+(what XLA makes of ``jax.nn.sigmoid``), bin it as ``clip(int(p * nb), 0,
+nb - 1)`` and compare ``p >= th``.  The exponentials of the CPU, of XLA and
+of CUDA can differ by an ulp, so an element within an ulp of a bin edge or of
+the threshold may land on the other side; the tests draw their inputs away
+from those edges.
+
+The kernel's update is one launch a batch: its last block folds the per-row
+counts into the samplewise sums (:func:`row_tail_reference` is the plain
+version of that tail) through a scratch of ``3 * B + 1`` int32 that must be
+zero and that the launch leaves zero; :class:`~protnote_tpu_torch.evaln.metrics.DeviceEvalAccumulator`
+keeps one (:func:`scratch_for`).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ MAX_BINS = 1024  # the finalize kernel runs one thread per bin
 
 # Launches of each K3 entry point since the process started (or since a
 # caller last set them to 0).
-LAUNCHES = {"update": 0, "row_tail": 0, "finalize": 0}
+LAUNCHES = {"update": 0, "finalize": 0}
 _launch_lock = threading.Lock()
 
 
@@ -187,18 +194,16 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _lib():
-    """The built library with the ctypes signature of each entry point."""
-    from protnote_tpu_torch.ops.kernels import load_kernel_library
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_UPDATE_ARGS = [_P] * 5 + [_I] * 4 + [ctypes.c_float] + [_P] * 10 + [_I, _P]
+_FINALIZE_ARGS = [_P, _I, _I] + [_P] * 5 + [_I, _P, _P]
+FINALIZE_BLOCK_CAP = 2048  # the finalize's label blocks (at most 132 SMs x 8 fit)
 
-    lib = load_kernel_library("eval_accumulator").lib
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.eval_acc_update.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float] + [p] * 6
-    lib.eval_acc_row_tail.argtypes = [p, p, i] + [p] * 6
-    lib.eval_acc_finalize.argtypes = [p, i, i] + [p] * 5
-    for fn in (lib.eval_acc_update, lib.eval_acc_row_tail, lib.eval_acc_finalize):
-        fn.restype = ctypes.c_int
-    return lib
+
+def _fn(symbol: str, argtypes):
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("eval_accumulator", symbol, argtypes)
 
 
 def _check_cuda(name: str, tensors, dtypes) -> torch.device:
@@ -224,55 +229,49 @@ _SUMS = ("precision_sum", "precision_count", "recall_sum", "recall_count", "cove
 _SUM_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32, torch.int32)
 
 
+def scratch_for(scratch: Optional[torch.Tensor], rows: int, device) -> torch.Tensor:
+    """``scratch`` when it is on ``device`` and holds ``3 * rows + 1`` int32,
+    else a new zero one of that size."""
+    if (scratch is None or scratch.device != torch.device(device)
+            or scratch.numel() < 3 * rows + 1):
+        scratch = torch.zeros(3 * rows + 1, dtype=torch.int32, device=device)
+    return scratch
+
+
 def update_cuda(state: State, logits: torch.Tensor, targets: torch.Tensor,
                 example_mask: torch.Tensor, label_mask: torch.Tensor,
                 cols: Optional[torch.Tensor], threshold: float,
-                num_bins: int) -> State:
-    """The kernels' wrapper: the column update, then the row tail."""
+                num_bins: int, scratch: Optional[torch.Tensor] = None) -> State:
+    """The kernel's wrapper: one launch, the row tail folded in.  ``scratch``
+    (see :func:`scratch_for`) is zero and is left zero; without one, a zero
+    scratch is allocated for this call."""
     check_inputs(state, logits, targets, example_mask, label_mask, cols, num_bins)
     f32, i32 = torch.float32, torch.int32
     tensors = [logits, targets, example_mask, label_mask] + [
-        state[n] for n in ("tp", "fp", "fn", "hist")]
-    dtypes = [f32] * 4 + [i32] * 4
+        state[n] for n in ("tp", "fp", "fn", "hist", *_SUMS)]
+    dtypes = [f32] * 4 + [i32] * 4 + list(_SUM_DTYPES)
     if cols is not None:
         tensors, dtypes = tensors + [cols], dtypes + [i32]
     device = _check_cuda("eval_acc_update", tensors, dtypes)
     B, Lb = logits.shape
-    row_counts = torch.zeros(B, 3, dtype=i32, device=device)
+    scratch = scratch_for(scratch, B, device)
+    _check_cuda("eval_acc_update", [scratch], [i32])
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the C launch goes to the thread's device
-        _raise_on(_lib().eval_acc_update(
+        _raise_on(_fn("eval_acc_update", _UPDATE_ARGS)(
             logits.data_ptr(), targets.data_ptr(), example_mask.data_ptr(),
             label_mask.data_ptr(), None if cols is None else cols.data_ptr(),
             B, Lb, state["tp"].shape[0], num_bins, float(threshold),
-            state["tp"].data_ptr(), state["fp"].data_ptr(), state["fn"].data_ptr(),
-            state["hist"].data_ptr(), row_counts.data_ptr(), stream), "eval_acc_update")
+            *(state[n].data_ptr() for n in ("tp", "fp", "fn", "hist", *_SUMS)),
+            scratch.data_ptr(), scratch.numel(), stream), "eval_acc_update")
         _count("update")
-    return row_tail_cuda(state, row_counts, example_mask)
-
-
-def row_tail_cuda(state: State, row_counts: torch.Tensor,
-                  example_mask: torch.Tensor) -> State:
-    """The row-tail kernel's wrapper (:func:`row_tail_reference` on the card)."""
-    B = example_mask.shape[0]
-    if tuple(row_counts.shape) != (B, 3):
-        raise ValueError(f"row_counts {tuple(row_counts.shape)} vs {B} rows")
-    device = _check_cuda("eval_acc_row_tail",
-                         [row_counts, example_mask] + [state[n] for n in _SUMS],
-                         [torch.int32, torch.float32, *_SUM_DTYPES])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        _raise_on(_lib().eval_acc_row_tail(
-            row_counts.data_ptr(), example_mask.data_ptr(), B,
-            *(state[n].data_ptr() for n in _SUMS), stream), "eval_acc_row_tail")
-        _count("row_tail")
     return state
 
 
 def finalize_cuda(hist: torch.Tensor, num_labels: int, num_bins: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The finalize kernels' wrapper (one launch of the C entry point: the
-    per-label pass and the micro/macro tail)."""
+    """The finalize kernels' wrapper (one call of the C entry point: the
+    per-label pass, a warp a label, and the micro/macro tail)."""
     if num_bins > MAX_BINS:
         raise ValueError(f"the finalize kernel takes at most {MAX_BINS} bins")
     if hist.numel() != 2 * num_labels * num_bins:
@@ -282,13 +281,15 @@ def finalize_cuda(hist: torch.Tensor, num_labels: int, num_bins: int
     ap = torch.empty(num_labels, dtype=torch.float32, device=device)
     npos = torch.empty(num_labels, dtype=torch.float32, device=device)
     micro = torch.empty(2 * num_bins, dtype=torch.int64, device=device)
+    block_ap = torch.empty(FINALIZE_BLOCK_CAP, dtype=torch.float32, device=device)
+    block_n = torch.empty(FINALIZE_BLOCK_CAP, dtype=torch.int32, device=device)
     out = torch.empty(2, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        _raise_on(_lib().eval_acc_finalize(hist.data_ptr(), num_labels, num_bins,
-                                        ap.data_ptr(), npos.data_ptr(),
-                                        micro.data_ptr(), out.data_ptr(), stream),
-                  "eval_acc_finalize")
+        _raise_on(_fn("eval_acc_finalize", _FINALIZE_ARGS)(
+            hist.data_ptr(), num_labels, num_bins, ap.data_ptr(), npos.data_ptr(),
+            micro.data_ptr(), block_ap.data_ptr(), block_n.data_ptr(), FINALIZE_BLOCK_CAP,
+            out.data_ptr(), stream), "eval_acc_finalize")
         _count("finalize")
     return ap, npos, out
 
@@ -299,16 +300,18 @@ def finalize_cuda(hist: torch.Tensor, num_labels: int, num_bins: int
 
 def update(state: State, logits: torch.Tensor, targets: torch.Tensor,
            example_mask: torch.Tensor, label_mask: torch.Tensor,
-           cols: Optional[torch.Tensor], threshold: float, num_bins: int) -> State:
+           cols: Optional[torch.Tensor], threshold: float, num_bins: int,
+           scratch: Optional[torch.Tensor] = None) -> State:
     """Add one batch into ``state`` (in place; returns it).  ``cols=None``:
     the batch's columns are state rows 0..Lb-1; else ``cols`` (Lb,) int32
-    names each column's row."""
+    names each column's row.  ``scratch``: the kernel's (:func:`scratch_for`);
+    the plain version needs none."""
     if logits.device.type == "cpu":
         return update_reference(state, logits, targets, example_mask, label_mask,
                                 cols, threshold, num_bins)
     if logits.device.type == "cuda":
         return update_cuda(state, logits, targets, example_mask, label_mask, cols,
-                           threshold, num_bins)
+                           threshold, num_bins, scratch)
     raise ValueError(f"no eval accumulator for device {logits.device}")
 
 

@@ -9,14 +9,21 @@ Port of ``protnote_tpu/train/trainer.py`` for one device:
   every ``epochs_per_validation`` epochs, and the checkpoint policy of the
   reference (best validation metric, best validation loss, every 10 epochs,
   the last epoch), then the best checkpoint reloaded.
-* ``evaluate``: the ``ESTIMATE_MAP`` device-accumulator branch.  Per
-  evaluation the label-embedding view matrix is uploaded once and projected
-  through W_l once (the label latents); per batch the eval step (ProteInfer,
-  heads, the pair scorer K1 or, with ``PAIR_BACKEND=tiled_int8``, K2, the
-  ensemble, the masked loss) is followed by a K3 update on the same device.
-  ``finalize_into`` then computes AP on the device and reads back only
-  per-label results and counters; ``loss`` is the mean of the per-batch
-  losses.
+* ``evaluate``: per evaluation the label-embedding view matrix is uploaded
+  once and projected through W_l once (the label latents); per batch the
+  eval step runs (ProteInfer, heads, the pair scorer K1 or, with
+  ``PAIR_BACKEND=tiled_int8``, K2, the ensemble, the masked loss).  With
+  ``ESTIMATE_MAP`` and no host branch, a K3 update follows on the same
+  device and ``finalize_into`` computes AP there, reading back only
+  per-label results and counters.  Otherwise the logits are read back once
+  a batch into the host ``EvalMetrics`` (exact AUPRC without
+  ``ESTIMATE_MAP``), after GO-DAG normalisation (``normalize_probabilities``)
+  and represented-label slicing, and predictions (``save_results``) and
+  sequence embeddings (``save_embeddings``, every 100 batches) are written.
+  ``threshold_sweep`` adds each batch's device logits to the K9 counters of
+  every candidate threshold on either path, and the best threshold by
+  ``decision_th_metric_name`` comes back in ``result["threshold"]``.
+  ``loss`` is the mean of the per-batch losses.
 * int8: without supplied ``INT8_ACT_SCALES``, ``evaluate`` first calibrates
   static activation scales on the batcher's first batch
   (``ensure_int8_calibrated``; ``INT8_CALIBRATE False`` keeps the dynamic
@@ -24,10 +31,8 @@ Port of ``protnote_tpu/train/trainer.py`` for one device:
   training epoch and ``load`` drop them; supplied ones are kept.
 
 Checkpoints are ``PNTPU1`` files that the JAX ``restore_checkpoint`` reads,
-written synchronously.  Branches of the JAX trainer that need host logits
-(prediction and embedding export, GO-DAG normalisation, represented-label
-slicing, the exact AUPRC), the threshold sweep, label-subsampled batchers,
-profiler traces, wandb, the text tower and meshes raise
+written synchronously.  Label-subsampled batchers, label embeddings shipped
+with every batch, profiler traces, wandb, the text tower and meshes raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -44,14 +49,16 @@ import numpy as np
 import torch
 
 from protnote_tpu_torch.evaln.metrics import (
-    EXACT_AUPRC_LATER,
     DeviceEvalAccumulator,
     EvalMetrics,
     confusion_metrics,
 )
+from protnote_tpu_torch.evaln.go_dag import DagNormalizer
+from protnote_tpu_torch.evaln.results_io import save_evaluation_results
 from protnote_tpu_torch.models.fusion import calibrate_int8_maxes, compute_label_latents
 from protnote_tpu_torch.models.layers import tree_to
 from protnote_tpu_torch.models.proteinfer import embed_from_ids
+from protnote_tpu_torch.ops.threshold_sweep import SweepCounter
 from protnote_tpu_torch.train.step import (
     batch_to_device_dict,
     make_eval_step,
@@ -60,11 +67,6 @@ from protnote_tpu_torch.train.step import (
 
 logger = logging.getLogger(__name__)
 
-HOST_LOGITS_LATER = ("{} reads logits back to the host; the port evaluates on the "
-                     "device only so far (ROADMAP.md queue 1, item 3: prediction/embedding "
-                     "export and the host metric path)")
-SWEEP_LATER = ("the decision-threshold sweep (DECISION_TH null with a validation "
-               "set) is not ported yet (ROADMAP.md queue 1, item 3)")
 SUBSET_LATER = ("label-subsampled or per-batch label layouts (label sampling, "
                 "shuffled/in-batch labels, grid tiles) are not ported yet "
                 "(ROADMAP.md queue 1, item 3)")
@@ -87,6 +89,7 @@ class TrainerConfig:
     epochs_per_validation: int = 1
     decision_threshold: Optional[float] = 0.5
     optimization_metric_name: str = "f1_macro"
+    decision_th_metric_name: str = "f1_macro"
     estimate_map: bool = False
     seed: int = 42
     checkpoint_dir: Optional[str] = None
@@ -98,6 +101,11 @@ class TrainerConfig:
     # evaluation when PAIR_BACKEND=tiled_int8 and no INT8_ACT_SCALES are set
     # (False keeps the dynamic per-row scales)
     int8_calibrate: bool = True
+    # exact-mAP host accumulator: spill score shards to the disk spool past
+    # this many buffered bytes (None = ExactAUPRC's 1 GB default)
+    eval_spill_threshold_bytes: Optional[int] = None
+    eval_spill_dir: Optional[str] = None
+    eval_spill_tile_rows: Optional[int] = None
 
     @classmethod
     def from_params(cls, params: Dict, **overrides) -> "TrainerConfig":
@@ -106,10 +114,14 @@ class TrainerConfig:
             epochs_per_validation=params.get("EPOCHS_PER_VALIDATION", 1),
             decision_threshold=params.get("DECISION_TH", 0.5),
             optimization_metric_name=params.get("OPTIMIZATION_METRIC_NAME", "f1_macro"),
+            decision_th_metric_name=params.get("DECISION_TH_METRIC_NAME", "f1_macro"),
             estimate_map=params.get("ESTIMATE_MAP", False),
             seed=params.get("SEED", 42),
             debug_nan=params.get("DEBUG_NAN", False),
             int8_calibrate=params.get("INT8_CALIBRATE", True),
+            eval_spill_threshold_bytes=params.get("EVAL_SPILL_THRESHOLD_BYTES"),
+            eval_spill_dir=params.get("EVAL_SPILL_DIR"),
+            eval_spill_tile_rows=params.get("EVAL_SPILL_TILE_ROWS"),
         )
         kw.update(overrides)
         return cls(**kw)
@@ -462,26 +474,47 @@ class Trainer:
         compute_metrics: bool = True,
     ) -> Dict[str, Any]:
         """``{"metrics": {...}}`` over every batch of ``batcher``: the
-        ``EvalMetrics.compute()`` dict (binned AUPRC), ``loss`` (the mean of
-        the per-batch masked losses, with a ``loss_fn``) and seqs/s and
-        pairs/s.  The signature is the JAX one; the arguments this slice
-        does not port raise."""
-        for flag, name in ((save_results, "save_results"),
-                           (save_embeddings, "save_embeddings"),
-                           (normalize_probabilities, "normalize_probabilities"),
-                           (only_represented_labels, "only_represented_labels"),
-                           (not compute_metrics, "compute_metrics=False")):
-            if flag:
-                raise NotImplementedError(HOST_LOGITS_LATER.format(name))
-        if threshold_sweep is not None:
-            raise NotImplementedError(SWEEP_LATER)
-        if not self.cfg.estimate_map:
-            raise NotImplementedError(EXACT_AUPRC_LATER)
+        ``EvalMetrics.compute()`` dict, ``loss`` (the mean of the per-batch
+        masked losses, with a ``loss_fn``) and seqs/s and pairs/s; with
+        ``threshold_sweep`` (candidate thresholds) also ``"threshold"``:
+        (the best threshold by ``decision_th_metric_name``, its score);
+        ``"paths"`` and ``"embeddings_path"`` for what ``save_results`` and
+        ``save_embeddings`` wrote.  ``compute_metrics=False`` accumulates
+        no metrics and reads no logits back (the sweep-only pass of
+        :meth:`find_optimal_threshold`).  The JAX signature and refusals."""
         ds = dataset if dataset is not None else batcher.ds
         num_labels = ds.num_labels
+        represented = (np.asarray(ds.represented_vocabulary_mask)
+                       if only_represented_labels else None)
         sample_size = getattr(batcher, "label_sample_size", None)
-        if (sample_size is not None and sample_size < num_labels) or \
-                not self._latents_eligible(batcher):
+        fixed_subset = (sample_size is not None and sample_size < num_labels
+                        and not getattr(batcher, "shuffle_labels", False))
+        varying_subset = (_is_grid(batcher) or getattr(batcher, "in_batch_sampling", False)
+                          or (sample_size is not None and sample_size < num_labels
+                              and getattr(batcher, "shuffle_labels", False)))
+        subset = fixed_subset or varying_subset
+        if subset and represented is not None:
+            raise ValueError("label-subsampled evaluation cannot be combined with "
+                             "--only-represented-labels")
+        if subset and save_results:
+            raise ValueError("label-subsampled evaluation cannot export full-vocabulary "
+                             "prediction results; disable label sampling or save_results")
+        if subset and normalize_probabilities:
+            raise ValueError("label-subsampled evaluation cannot apply GO-DAG probability "
+                             "normalization (the child-index table spans the full "
+                             "vocabulary); disable label sampling or normalization")
+        if varying_subset and not self.cfg.estimate_map:
+            raise ValueError("per-batch-varying label subsets (shuffled/in-batch/grid "
+                             "sampling) require ESTIMATE_MAP=True: exact AUPRC cannot "
+                             "accumulate columns that change every batch")
+        if not compute_metrics and (save_results or save_embeddings
+                                    or normalize_probabilities or represented is not None):
+            raise ValueError("compute_metrics=False is the sweep-only fast path; it "
+                             "cannot export results/embeddings or slice labels")
+        if threshold_sweep is not None and subset:
+            raise ValueError("threshold sweep requires full-vocabulary batches; "
+                             "disable label sampling on the batcher")
+        if subset or not self._latents_eligible(batcher):
             raise NotImplementedError(SUBSET_LATER)
         if not getattr(batcher, "device_label_gather", False):
             raise NotImplementedError(
@@ -490,32 +523,110 @@ class Trainer:
                 "queue 1, item 3); the port gathers from the resident label matrix")
 
         self.ensure_int8_calibrated(batcher)
-        metrics = EvalMetrics(num_labels, threshold=self.cfg.decision_threshold,
-                              map_estimate=True)
-        device_acc = DeviceEvalAccumulator(num_labels, self.cfg.decision_threshold,
-                                           device=self.device)
-        fused = self._fused_eval_step(device_acc)
+        eff_labels = int(represented.sum()) if represented is not None else num_labels
+        metrics = None
+        if compute_metrics:
+            metrics = EvalMetrics(
+                eff_labels, threshold=self.cfg.decision_threshold,
+                map_estimate=self.cfg.estimate_map,
+                spill_threshold_bytes=self.cfg.eval_spill_threshold_bytes,
+                spill_dir=self.cfg.eval_spill_dir,
+                spill_tile_rows=self.cfg.eval_spill_tile_rows)
+        # the device path: metrics accumulate on the device, no logits readback
+        device_acc = None
+        if (compute_metrics and self.cfg.estimate_map and not save_results
+                and not save_embeddings and not normalize_probabilities
+                and represented is None):
+            device_acc = DeviceEvalAccumulator(eff_labels, self.cfg.decision_threshold,
+                                               device=self.device)
+        sweep = None
+        if threshold_sweep is not None:
+            threshold_sweep = np.asarray(threshold_sweep, np.float32)
+            sweep = SweepCounter(threshold_sweep, num_labels, self.device)
+        sweep_updates = 0
+        dag_normalizer = None
+        if normalize_probabilities and parenthood is not None:
+            # one child-table build per evaluation, not per batch
+            dag_normalizer = DagNormalizer(ds.label_vocabulary, parenthood)
+        step = self._fused_eval_step(device_acc) if device_acc is not None else None
+        all_logits, all_labels, all_ids = [], [], []
+        emb_rows, emb_ids = [], []
         label_matrix = self._label_matrix_for(batcher.ds)
         latents = None
         losses: List[torch.Tensor] = []
         self.meter.reset()
-        for batch in batcher:
+        for batch_idx, batch in enumerate(batcher):
             arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix)
-            if "label_multihots" not in arrays:
-                raise ValueError("device evaluation needs label_multihots (build the "
-                                 "batcher with return_label_multihots=True)")
             if latents is None:  # the label layout is batch-invariant here
                 latents = self._label_latents(arrays)
             arrays = self._swap_in_latents(arrays, latents)
-            cols = device_acc.cols_for(batch.label_indices,
-                                       arrays["label_multihots"].shape[1])
-            out, device_acc.state = fused(self.ts, arrays, device_acc.state, cols)
+            if device_acc is not None and "label_multihots" in arrays:
+                cols = device_acc.cols_for(batch.label_indices,
+                                           arrays["label_multihots"].shape[1])
+                out, device_acc.state = step(self.ts, arrays, device_acc.state, cols)
+            else:
+                out = self._eval_step(self.ts, arrays)
             if "loss" in out:
                 losses.append(out["loss"])
-            self.meter.add(self._batch_valid(batch),
-                           self._batch_label_width(batch, num_labels))
-        device_acc.finalize_into(metrics)
-        m = metrics.compute()
+            if sweep is not None and "label_multihots" in arrays:
+                sweep.update(out["logits"], arrays["label_multihots"], arrays["example_mask"])
+                sweep_updates += 1
+            if (device_acc is not None and "label_multihots" in arrays) or not compute_metrics:
+                self.meter.add(self._batch_valid(batch),
+                               self._batch_label_width(batch, num_labels))
+                continue
+            # the host path: the batch's logits cross to the host once
+            if save_embeddings and batch_idx % 100 == 0:
+                with torch.inference_mode():
+                    enc = self.ts["trainable"].get("encoder", self.ts["enc_params"])
+                    emb = embed_from_ids(enc, self.ts["enc_state"], arrays["aa_ids"],
+                                         arrays["lengths"], self.pi_cfg)
+                emb = emb.float().cpu().numpy()
+                keep0 = batch.example_mask
+                emb_rows.append(emb[keep0].astype(np.float16))
+                emb_ids.extend([s for s, k in zip(batch.sequence_ids, keep0) if k])
+            keep = batch.example_mask
+            logits = out["logits"].float().cpu().numpy()[keep]
+            if batch.label_mask is not None:
+                logits = logits[:, batch.label_mask]
+            labels = (batch.label_multihots[keep]
+                      if batch.label_multihots is not None else None)
+            if labels is not None and batch.label_mask is not None:
+                labels = labels[:, batch.label_mask]
+            ids = [s for s, k in zip(batch.sequence_ids, keep) if k]
+            probs = _sigmoid(logits)
+            if dag_normalizer is not None:
+                probs = dag_normalizer(probs)
+            full_labels = labels  # exported labels keep the full vocabulary
+            if represented is not None:
+                probs = probs[:, represented]
+                labels = labels[:, represented] if labels is not None else None
+            if labels is not None:
+                metrics.update(probs, labels)
+            self.meter.add(len(ids), self._batch_label_width(batch, num_labels))
+            if save_results:
+                all_logits.append(logits.astype(np.float16))
+                if full_labels is not None:
+                    all_labels.append(full_labels)
+                all_ids.extend(ids)
+
+        result: Dict[str, Any] = {}
+        if sweep is not None:
+            if sweep_updates == 0:
+                raise ValueError("threshold sweep accumulated zero batches: the batcher "
+                                 "is empty or carries no label_multihots (build it with "
+                                 "return_label_multihots=True)")
+            tp, fp, fn = (x.cpu().numpy().astype(np.int64) for x in sweep.counts())
+            name = self.cfg.decision_th_metric_name
+            scores = [confusion_metrics(tp[i], fp[i], fn[i])[name]
+                      for i in range(len(threshold_sweep))]
+            best = int(np.argmax(scores))
+            logger.info("optimal threshold %.2f (%s=%.4f)", threshold_sweep[best], name,
+                        scores[best])
+            result["threshold"] = (float(threshold_sweep[best]), float(scores[best]))
+        if device_acc is not None:
+            device_acc.finalize_into(metrics)
+        m = metrics.compute() if metrics is not None else {}
         if losses:
             m["loss"] = float(np.mean([float(x) for x in losses]))
             if not np.isfinite(m["loss"]):
@@ -523,7 +634,43 @@ class Trainer:
         m.update(self.meter.rates())
         logger.info("%s: %d sequences evaluated on %s", data_split_name,
                     self.meter.seqs, self.device)
-        return {"metrics": m}
+        result["metrics"] = m
+
+        if save_embeddings and emb_rows:
+            os.makedirs(output_dir or ".", exist_ok=True)
+            emb_path = os.path.join(
+                output_dir or ".",
+                f"{data_split_name}_sequence_embeddings_{self.cfg.run_name}.npz")
+            np.savez_compressed(emb_path, embeddings=np.concatenate(emb_rows, axis=0),
+                                sequence_ids=np.array(emb_ids))
+            result["embeddings_path"] = emb_path
+        if save_results and all_logits:
+            results = {"logits": np.concatenate(all_logits, axis=0), "sequence_ids": all_ids}
+            if all_labels:
+                results["labels"] = np.concatenate(all_labels, axis=0)
+            result["paths"] = save_evaluation_results(
+                results, ds.label_vocabulary, self.cfg.run_name, output_dir or ".",
+                data_split_name)
+        return result
+
+    def find_optimal_threshold(self, batcher, thresholds=None) -> tuple:
+        """Sweep decision thresholds on validation, maximising
+        ``decision_th_metric_name``: one evaluation pass that accumulates
+        only the sweep counters (``evaluate(threshold_sweep=...,
+        compute_metrics=False)``).  Callers that also want the validation
+        metrics call ``evaluate`` with a sweep and read both from one pass."""
+        if thresholds is None:
+            thresholds = np.arange(0.01, 1.0, 0.01, dtype=np.float32)
+        if getattr(batcher, "label_sample_size", None) or getattr(
+                batcher, "in_batch_sampling", False):
+            raise ValueError("find_optimal_threshold requires full-vocabulary batches; "
+                             "disable label sampling on the validation batcher")
+        return self.evaluate(batcher, threshold_sweep=thresholds,
+                             compute_metrics=False)["threshold"]
+
+
+def _sigmoid(x: np.ndarray) -> np.ndarray:
+    return 1.0 / (1.0 + np.exp(-x.astype(np.float32)))
 
 
 def _fmt(m: Dict[str, float]) -> str:

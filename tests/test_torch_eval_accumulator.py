@@ -1,7 +1,9 @@
 """K3, the on-device eval accumulator: the port's plain PyTorch version
 (protnote_tpu_torch/ops/eval_accumulator.py, the CPU path of
-``DeviceEvalAccumulator``) against the JAX ``DeviceEvalAccumulator``, and
-the port's copies of the host metric classes against their JAX originals.
+``DeviceEvalAccumulator``) and a numpy emulation of the CUDA kernels' order
+of work (row groups, a last-block row tail, a warp a label in finalize)
+against the JAX ``DeviceEvalAccumulator``, and the port's copies of the host
+metric classes against their JAX originals.
 
 Logits are drawn so that every probability lies at least 2e-6 from every
 bin edge k/nb and from the threshold: the exponentials of XLA and of torch
@@ -186,5 +188,183 @@ def test_host_copies_match_jax():
         met.update(probs, targets, mask)
     assert tmet.compute("test") == jmet.compute("test")
     assert tm._PrecomputedAUPRC(0.1, 0.2).compute() == jm._PrecomputedAUPRC(0.1, 0.2).compute()
-    with pytest.raises(NotImplementedError, match="ExactAUPRC"):
-        tm.EvalMetrics(L, 0.5, map_estimate=False)
+    # ESTIMATE_MAP False: the exact host AUPRC
+    jmet, tmet = jm.EvalMetrics(L, 0.5), tm.EvalMetrics(L, 0.5)
+    assert isinstance(tmet.auprc, tm.ExactAUPRC)
+    for met in (jmet, tmet):
+        met.update(probs, targets, mask)
+        met.update(probs[:5], targets[:5])
+    assert tmet.compute("test") == jmet.compute("test")
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernels' order of work, emulated in numpy
+
+ROWS_PER_THREAD, UPDATE_THREADS, FINALIZE_WARPS = 4, 256, 8
+f32 = np.float32
+
+
+def _warp_sum_down(v):
+    """Lane 0's result of ``warp_sum`` (shfl_down 16, 8, 4, 2, 1)."""
+    v = v.astype(f32).copy()
+    for o in (16, 8, 4, 2, 1):
+        v[: 32 - o] = v[: 32 - o] + v[o:32]
+    return v[0]
+
+
+def _block_sum(per_thread):
+    """``block_sum`` over a block of len(per_thread) threads (a multiple of
+    32): each warp's tree, then warp 0's tree over the warp sums."""
+    warps = np.array([_warp_sum_down(w) for w in per_thread.reshape(-1, 32)], f32)
+    return _warp_sum_down(np.r_[warps, np.zeros(32 - warps.size, f32)])
+
+
+def _emulated_update(state, lg, tg, em, lm, cols, th, nb):
+    """One ``eval_acc_update`` launch on a numpy copy of the state: every
+    integer count is order-free; the row tail sums thread b % 256's rows in
+    order, then a block sum."""
+    B, Lb = lg.shape
+    L = state["tp"].shape[0]
+    p = f32(1) / (f32(1) + np.exp(-lg.astype(f32)))
+    valid = (em[:, None] > 0) & (lm[None, :] > 0)
+    t = (tg > 0) & valid
+    pred = (p >= f32(th)) & valid
+    rows = np.arange(Lb) if cols is None else np.asarray(cols)
+    rows = np.where(lm > 0, rows, 0)
+    bins = np.clip((p * f32(nb)).astype(np.int32), 0, nb - 1)
+    slot = np.where(t, rows[None, :], L + rows[None, :]) * nb + bins
+    np.add.at(state["hist"], slot[valid], 1)
+    row_counts = np.zeros((B, 3), np.int64)
+    for b0 in range(0, B, ROWS_PER_THREAD):  # a block row group's atomics
+        g = slice(b0, b0 + ROWS_PER_THREAD)
+        for name, hit in (("tp", pred & t), ("fp", pred & ~t), ("fn", ~pred & t)):
+            np.add.at(state[name], rows, hit[g].sum(0).astype(np.int32))
+        for c0 in range(0, Lb, UPDATE_THREADS):  # a block's per-row sums
+            cs = slice(c0, c0 + UPDATE_THREADS)
+            row_counts[g] += np.stack([(pred & t)[g, cs].sum(1), pred[g, cs].sum(1),
+                                       t[g, cs].sum(1)], 1)
+    # the last block's tail
+    ps, rs = np.zeros(UPDATE_THREADS, f32), np.zeros(UPDATE_THREADS, f32)
+    pc = rc = 0
+    for b in range(B):
+        j = b % UPDATE_THREADS
+        tp_row, pred_row, t_row = (f32(v) for v in row_counts[b])
+        if em[b] > 0:
+            if pred_row > 0:
+                ps[j] = ps[j] + tp_row / max(pred_row, f32(1))
+                pc += 1
+            rs[j] = rs[j] + tp_row / max(t_row, f32(1))
+            rc += 1
+    state["precision_sum"] = f32(state["precision_sum"] + _block_sum(ps))
+    state["recall_sum"] = f32(state["recall_sum"] + _block_sum(rs))
+    for name, v in (("precision_count", pc), ("recall_count", rc), ("covered", pc)):
+        state[name] = np.int32(state[name] + v)
+    return state
+
+
+def _ap_terms(tp_i, pos, fp_i, n_pos):
+    tpf, fpf, npf = f32(tp_i), f32(fp_i), f32(n_pos)
+    precision = tpf / np.maximum(tpf + fpf, f32(1))
+    recall = tpf / np.maximum(npf, f32(1))
+    recall_prev = f32(tp_i - pos) / np.maximum(npf, f32(1))
+    return ((recall - recall_prev) * precision).astype(f32)
+
+
+def _emulated_finalize(hist, L, nb, resident=264):
+    """``eval_acc_finalize``: a warp a label (``resident`` blocks of 8 warps
+    fit the card; 264 on an H100), lane j holding PER consecutive bins from
+    the top down, f32 terms summed by the lane then by a butterfly; integer
+    micro sums; each warp's AP sum over its labels in order, each block's
+    over its warps in order; the one-block micro/macro tail."""
+    per = 1
+    while 32 * per < nb:
+        per *= 2
+    h = hist.reshape(2, L, nb)[:, :, ::-1].astype(np.int64)  # top bin first
+    h = np.concatenate([h, np.zeros((2, L, 32 * per - nb), np.int64)], 2)
+    lanes = h.reshape(2, L, 32, per)
+    lane_tot = lanes.sum(3)
+    before = np.cumsum(lane_tot, 2) - lane_tot  # the shuffle scan, exclusive
+    tp_i = before[0][..., None] + np.cumsum(lanes[0], 2)
+    fp_i = before[1][..., None] + np.cumsum(lanes[1], 2)
+    n_pos = lane_tot[0].sum(1)
+    terms = _ap_terms(tp_i, lanes[0], fp_i, n_pos[:, None, None])
+    lane_sum = np.zeros((L, 32), f32)
+    for k in range(per):
+        lane_sum = lane_sum + terms[:, :, k]
+    for o in (16, 8, 4, 2, 1):  # butterfly: every lane ends with one sum
+        lane_sum = lane_sum + lane_sum[:, np.arange(32) ^ o]
+    ap = lane_sum[:, 0]
+    # the tail block: nb threads (a multiple of 32), thread j at bin nb-1-j
+    threads = (nb + 31) // 32 * 32
+    micro = h[:, :, :nb].sum(1)  # per reversed bin, exact
+    mtp, mfp = np.cumsum(micro[0]), np.cumsum(micro[1])
+    mterm = np.zeros(threads, f32)
+    mterm[:nb] = _ap_terms(mtp, micro[0], mfp, mtp[-1])
+    micro_ap = _block_sum(mterm) if mtp[-1] > 0 else f32("nan")
+    blocks = min(-(-L // FINALIZE_WARPS), resident)
+    warps = blocks * FINALIZE_WARPS
+    warp_ap = np.zeros(warps, f32)
+    for l in range(L):
+        if n_pos[l] > 0:
+            warp_ap[l % warps] = warp_ap[l % warps] + ap[l]
+    block_ap = np.zeros(blocks, f32)
+    for b in range(blocks):
+        for w in range(FINALIZE_WARPS):
+            block_ap[b] = block_ap[b] + warp_ap[b * FINALIZE_WARPS + w]
+    s = np.zeros(threads, f32)
+    for b in range(blocks):
+        s[b % threads] = s[b % threads] + block_ap[b]
+    n = int((n_pos > 0).sum())
+    macro = _block_sum(s) / f32(max(n, 1)) if n else f32("nan")
+    return ap, n_pos.astype(f32), np.array([micro_ap, macro], f32)
+
+
+@pytest.mark.parametrize("cols_path, threshold, nb", CASES)
+def test_kernel_order_matches_jax(cols_path, threshold, nb):
+    """The kernels' update (row groups and atomics, the last block's row
+    tail) and finalize (a warp a label) emulated in numpy, against the JAX
+    accumulator on the same batches: integer state exact, float32 sums to
+    1e-6 relative, micro/macro AP to 1e-6."""
+    rng = np.random.default_rng(200 + int(cols_path) * 7 + nb)
+    batches = _batches(rng, nb, 0.5 if threshold is None else threshold, cols_path)
+    ja, ta = _run(batches, threshold, nb)
+    state = {k: v.numpy().copy() for k, v in ta.state.items()}
+    state = {k: np.zeros_like(v) for k, v in state.items()}
+    th = 0.5 if threshold is None else threshold
+    for lg, tg, em, lm, li in batches:
+        cols = ta.cols_for(li, lg.shape[1])
+        _emulated_update(state, lg, tg, em, lm, None if cols is None else cols.numpy(),
+                         th, nb)
+    for k, v in ja.state.items():
+        want = np.asarray(v)
+        if want.dtype == np.int32:
+            np.testing.assert_array_equal(state[k], want, err_msg=k)
+        else:
+            np.testing.assert_allclose(state[k], want, rtol=1e-6, atol=0, err_msg=k)
+    ap, npos, out = _emulated_finalize(state["hist"], L, nb)
+    jmet = jm.EvalMetrics(L, threshold=threshold, map_estimate=True, num_bins=nb)
+    ja.finalize_into(jmet)
+    want = jmet.compute()
+    assert out[0] == pytest.approx(want["map_micro"], abs=1e-6, rel=0)
+    assert out[1] == pytest.approx(want["map_macro"], abs=1e-6, rel=0)
+    ap_p, npos_p, _ = k3.finalize_reference(torch.from_numpy(state["hist"]), L, nb)
+    np.testing.assert_array_equal(npos, npos_p.numpy())
+    np.testing.assert_allclose(ap, ap_p.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("nb", [512, 100])
+def test_kernel_finalize_order_many_labels_a_warp(nb):
+    """The finalize's order with few resident blocks, so each warp walks
+    many labels (and with 100 bins, a lane's last bins past the histogram),
+    against the plain finalize on the same random histograms: per-label AP
+    and micro/macro AP to 1e-6, n_pos exactly."""
+    rng = np.random.default_rng(nb)
+    labels = 3000
+    hist = rng.integers(0, 4, size=2 * labels * nb).astype(np.int32)
+    hist[: labels * nb].reshape(labels, nb)[::5] = 0  # labels with no positives
+    hist[: labels * nb][rng.random(labels * nb) < 0.9] = 0  # positives are rare
+    ap, npos, out = _emulated_finalize(hist, labels, nb, resident=3)
+    ap_p, npos_p, out_p = k3.finalize_reference(torch.from_numpy(hist), labels, nb)
+    np.testing.assert_array_equal(npos, npos_p.numpy())
+    np.testing.assert_allclose(ap, ap_p.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out, out_p.numpy(), atol=1e-6, rtol=0)

@@ -6,9 +6,12 @@ and prefetching batchers), ``core/config.py``, the request side of
 ``resolve_label_tile``, and the label-text helpers of the label tower
 (``remove_obsolete_from_string``, ``E5_INSTRUCTION``, ``MAX_LABEL_TOKENS``,
 the numpy ``pool_hidden_states``, ``HashLabelEncoder``,
-``flatten_annotations``).  Every comparison is exact: the copies run the same
-host code (the port leaves out the native parser, whose numpy path the
-originals keep)."""
+``flatten_annotations``), and the host half of evaluation
+(``average_precision``, ``average_precision_columns``, ``_logit_grid_keys``,
+``_ap_from_dense_hist``, ``ExactAUPRC`` with its disk spool, ``DagNormalizer``,
+``save_evaluation_results`` and ``cli/test_models.TEST_COMMANDS``).  Every
+comparison is exact: the copies run the same host code (the port leaves out
+the native parser, whose numpy path the originals keep)."""
 
 import dataclasses
 import json
@@ -31,6 +34,10 @@ from protnote_tpu.data import label_cache as jcache
 from protnote_tpu.data import vocab as jvocab
 from protnote_tpu.models import label_encoder as jlabel
 from protnote_tpu import serving as jserving
+from protnote_tpu.cli import test_models as jtest_models
+from protnote_tpu.evaln import go_dag as jgo_dag
+from protnote_tpu.evaln import metrics as jmetrics
+from protnote_tpu.evaln import results_io as jresults
 from protnote_tpu_torch import serving_http as tserving
 from protnote_tpu_torch.cli import _model_setup as tsetup
 from protnote_tpu_torch.cli import generate_label_embeddings as tgen
@@ -42,6 +49,10 @@ from protnote_tpu_torch.data import dataset as tdataset
 from protnote_tpu_torch.data import fasta as tfasta
 from protnote_tpu_torch.data import label_cache as tcache
 from protnote_tpu_torch.data import vocab as tvocab
+from protnote_tpu_torch.cli import test_models as ttest_models
+from protnote_tpu_torch.evaln import go_dag as tgo_dag
+from protnote_tpu_torch.evaln import metrics as tmetrics
+from protnote_tpu_torch.evaln import results_io as tresults
 from protnote_tpu_torch.models import label_encoder as tlabel
 
 AAS = "ACDEFGHIKLMNPQRSTVWY"
@@ -379,3 +390,94 @@ def test_flatten_annotations():
     assert tgen.flatten_annotations(df) == jgen.flatten_annotations(df)
     only_names = df[["name"]]
     assert tgen.flatten_annotations(only_names) == jgen.flatten_annotations(only_names)
+
+
+def _scores(rng, n, c):
+    """Probabilities with ties (a coarse grid), a NaN-free (n, c) block,
+    and targets with an all-negative column."""
+    probs = (np.round(rng.random((n, c)) * 50) / 50).astype(np.float32)
+    targets = (rng.random((n, c)) < 0.3).astype(np.float32)
+    targets[:, 1] = 0
+    return probs, targets
+
+
+def test_average_precision_and_logit_grid():
+    rng = np.random.default_rng(5)
+    probs, targets = _scores(rng, 40, 7)
+    for c in range(7):
+        t, j = (m.average_precision(probs[:, c], targets[:, c]) for m in (tmetrics, jmetrics))
+        assert (np.isnan(t) and np.isnan(j)) or t == j
+    np.testing.assert_array_equal(tmetrics.average_precision_columns(probs, targets),
+                                  jmetrics.average_precision_columns(probs, targets))
+    p = np.r_[probs.reshape(-1), 0.0, 1.0, np.nan].astype(np.float32)
+    for bins in (1 << 20, 64):
+        np.testing.assert_array_equal(tmetrics._logit_grid_keys(p, bins),
+                                      jmetrics._logit_grid_keys(p, bins))
+    pos, neg = rng.integers(0, 5, 300), rng.integers(0, 5, 300)
+    assert tmetrics._ap_from_dense_hist(pos, neg) == jmetrics._ap_from_dense_hist(pos, neg)
+    assert np.isnan(tmetrics._ap_from_dense_hist(np.zeros(4), np.ones(4)))
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["in_ram", "spooled"])
+def test_exact_auprc(tmp_path, spill):
+    """Four updates (one masked); ``spill`` forces the disk spool with a
+    16-byte threshold and 8-row tiles, so per-label AP reads the spool."""
+    rng = np.random.default_rng(6)
+    kw = dict(spill_threshold_bytes=16, tile_rows=8, spill_dir=str(tmp_path)) if spill else {}
+    accs = [m.ExactAUPRC(9, macro_chunk=4, **kw) for m in (tmetrics, jmetrics)]
+    for i in range(4):
+        probs, targets = _scores(rng, 11, 9)
+        mask = rng.random(11) < 0.8 if i == 2 else None
+        for acc in accs:
+            acc.update(probs, targets, mask)
+    t, j = accs
+    assert (t._spool is not None) == (j._spool is not None) == spill
+    np.testing.assert_array_equal(t.per_label(), j.per_label())
+    assert t.compute() == j.compute()
+    with pytest.raises(ValueError, match="label subsets"):
+        t.update(probs, targets, label_indices=np.arange(9))
+    metrics = [m.EvalMetrics(9, 0.4, map_estimate=False, spill_threshold_bytes=16,
+                             spill_dir=str(tmp_path), spill_tile_rows=8)
+               for m in (tmetrics, jmetrics)]
+    for met in metrics:
+        met.update(probs, targets)
+        met.update(probs, targets)
+    assert metrics[0].auprc._spool is not None
+    assert metrics[0].compute("x") == metrics[1].compute("x")
+
+
+def test_dag_normalizer():
+    vocab = [f"GO:{i}" for i in range(6)]
+    parenthood = {"GO:3": ["GO:0", "GO:1"], "GO:4": ["GO:0", "GO:1"], "GO:5": ["GO:2"],
+                  "GO:9": ["GO:0"], "GO:1": ["GO:0"]}
+    preds = np.random.default_rng(7).random((5, 6)).astype(np.float32)
+    t, j = tgo_dag.DagNormalizer(vocab, parenthood), jgo_dag.DagNormalizer(vocab, parenthood)
+    np.testing.assert_array_equal(t.offsets, j.offsets)
+    np.testing.assert_array_equal(t.child_idx, j.child_idx)
+    np.testing.assert_array_equal(t(preds), j(preds))
+    np.testing.assert_array_equal(tgo_dag.normalize_confidences(preds, vocab, parenthood),
+                                  jgo_dag.normalize_confidences(preds, vocab, parenthood))
+    assert tgo_dag.reverse_map(parenthood, {"GO:3"}) == jgo_dag.reverse_map(parenthood, {"GO:3"})
+
+
+def test_save_evaluation_results(tmp_path):
+    rng = np.random.default_rng(8)
+    vocab = [f"GO:{i}" for i in range(5)]
+    results = {"logits": rng.normal(size=(4, 5)).astype(np.float16),
+               "labels": (rng.random((4, 5)) < 0.5), "sequence_ids": list("abcd")}
+    paths = {}
+    for name, mod in (("t", tresults), ("j", jresults)):
+        paths[name] = mod.save_evaluation_results(results, vocab, f"run_{name}",
+                                                  str(tmp_path / name), "test")
+    assert {k: v.replace("/t/", "/").replace("run_t", "run")
+            for k, v in paths["t"].items()} == {
+        k: v.replace("/j/", "/").replace("run_j", "run") for k, v in paths["j"].items()}
+    for kind in ("logits", "labels"):
+        got, want = tresults.load_logits(paths["t"][kind]), jresults.load_logits(paths["j"][kind])
+        assert got.equals(want)
+    with pytest.raises(ValueError, match="vocabulary"):
+        tresults.save_evaluation_results(results, vocab[:4], "r", str(tmp_path), "x")
+
+
+def test_test_models_commands():
+    assert ttest_models.TEST_COMMANDS == jtest_models.TEST_COMMANDS

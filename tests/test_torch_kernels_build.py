@@ -1,7 +1,8 @@
 """The name tag of a built kernel library (``ops/kernels.py:source_digest``)
 on the CPU: it covers the source, every shared header ``csrc/*.cuh`` and the
 nvcc flags, so an edit to a header rebuilds every library that may include
-it; and every header a source includes is in ``csrc/``."""
+it (the threshold sweep's with the probability header it shares with the
+eval accumulator); and every header a source includes is in ``csrc/``."""
 
 import re
 import shutil
@@ -38,18 +39,30 @@ def test_digest_follows_source_headers_and_flags(csrc, monkeypatch, edit):
     assert changed == (edit != "other_source")
 
 
+@pytest.mark.parametrize("edit", ["source", "sigmoid_header", "other_source"])
+def test_sweep_digest_follows_its_source_and_the_shared_sigmoid(csrc, edit):
+    """K9's library (``threshold_sweep.cu``) is rebuilt when its source or
+    the probability header it shares with K3 changes, not for K3's source."""
+    before = kernels.source_digest("threshold_sweep")
+    name = {"source": "threshold_sweep.cu", "sigmoid_header": "sigmoid.cuh",
+            "other_source": "eval_accumulator.cu"}[edit]
+    (csrc / name).write_text((csrc / name).read_text() + "\n// x\n")
+    assert (kernels.source_digest("threshold_sweep") != before) == (edit != "other_source")
+
+
 def test_included_headers_are_shared_headers():
     """Every ``#include "..."`` of a source names a ``csrc/*.cuh`` (the
     digest hashes exactly those), and the Hopper header is shared by the
     kernels that use TMA and wgmma."""
     headers = {p.name for p in kernels.CSRC_DIR.glob("*.cuh")}
-    users = set()
+    users = {"hopper.cuh": set(), "sigmoid.cuh": set()}
     for src in kernels.CSRC_DIR.glob("*.cu"):
         for name in re.findall(r'#include "([^"]+)"', src.read_text()):
             assert name in headers, (src.name, name)
-            if name == "hopper.cuh":
-                users.add(src.stem)
-    assert {"pair_scorer", "pair_scorer_int8", "pair_train", "text_attention"} <= users
+            users.setdefault(name, set()).add(src.stem)
+    assert {"pair_scorer", "pair_scorer_int8", "pair_train",
+            "text_attention"} <= users["hopper.cuh"]
+    assert users["sigmoid.cuh"] == {"eval_accumulator", "threshold_sweep"}
 
 
 def test_kernel_function_sets_its_signature_once(monkeypatch):

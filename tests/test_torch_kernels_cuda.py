@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: the pair scorer (K1), its int8 form
-(K2), the eval accumulator (K3), the training pair GEMM (K4), BN+ReLU (K5),
+(K2), the eval accumulator (K3), the threshold-sweep counter (K9), the
+training pair GEMM (K4), BN+ReLU (K5),
 the text tower's masked attention (K8a) and residual LayerNorm (K8b) against
 their plain PyTorch versions, and the serving engine on CUDA against
 the same engine on the CPU.  These need an NVIDIA
@@ -15,6 +16,8 @@ K3 on the same logits on both sides: integer state exactly equal (inputs are
 drawn at least 2e-6 from every bin edge and from the threshold, far beyond
 the ulp by which two exponentials can differ), float32 sums to 1e-6
 relative, AP to 1e-6 absolute.
+K9 on the same logits on both sides (drawn 2e-6 from every threshold):
+counts exactly equal.
 K2: the carried layer-1 rows (int8 codes or bf16) exactly equal, the logits
 to 2e-2 (only the w_out dot sums in another order).
 K4 and K5 on the same bf16 inputs on both sides: bf16 outputs to two bf16
@@ -40,6 +43,7 @@ from protnote_tpu_torch.ops import layer_norm as k8b
 from protnote_tpu_torch.ops import pair_scorer as ps
 from protnote_tpu_torch.ops import streaming_train as st
 from protnote_tpu_torch.ops import text_attention as k8a
+from protnote_tpu_torch.ops import threshold_sweep as k9
 from protnote_tpu_torch.serving import ServingEngine
 
 
@@ -190,8 +194,8 @@ def test_eval_accumulator_matches_plain_on_card(nb):
         cols = plain.cols_for(li, lg.shape[1])
         k3.update_reference(plain.state, *args, cols, th, nb)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES["update"] - before["update"] == 6
-    assert k3.LAUNCHES["row_tail"] - before["row_tail"] == 6
+    assert k3.LAUNCHES["update"] - before["update"] == 6  # the row tail folded in
+    assert kern._scratch is not None and int(kern._scratch.abs().sum()) == 0
     for k, v in plain.state.items():
         got = kern.state[k].cpu().numpy()
         if v.dtype == torch.int32:
@@ -206,6 +210,101 @@ def test_eval_accumulator_matches_plain_on_card(nb):
     np.testing.assert_allclose(ap.cpu().numpy(), ap_p.cpu().numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=1e-6, rtol=0)
     assert 0 < float(out[0]) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 300])
+def test_eval_accumulator_row_tail_on_card(rows):
+    """The last block's row tail at row counts that leave a ragged row group
+    (37) and loop a tail thread over two rows (300), without a kept scratch
+    (the wrapper then allocates one) and twice with one."""
+    dev = _card()
+    L, nb, th = 700, 512, 0.5
+    rng = np.random.default_rng(rows)
+    lg = torch.from_numpy(rng.normal(size=(rows, L)).astype(np.float32) * 2).to(dev)
+    tg = torch.from_numpy((rng.random((rows, L)) < 0.1).astype(np.float32)).to(dev)
+    em = torch.ones(rows, device=dev)
+    em[-1] = 0
+    lm = torch.ones(L, device=dev)
+    states = [k3.init_state(L, nb, dev) for _ in range(3)]
+    scratch = k3.scratch_for(None, rows, dev)
+    for _ in range(2):
+        k3.update_cuda(states[0], lg, tg, em, lm, None, th, nb)
+        k3.update_cuda(states[1], lg, tg, em, lm, None, th, nb, scratch)
+        k3.update_reference(states[2], lg, tg, em, lm, None, th, nb)
+    torch.cuda.synchronize()
+    assert int(scratch.abs().sum()) == 0
+    for k, v in states[2].items():
+        for got in states[:2]:
+            if v.dtype == torch.int32:
+                assert torch.equal(got[k], v), k
+            else:
+                torch.testing.assert_close(got[k], v, rtol=1e-6, atol=0)
+
+
+def _sweep_batches(rng, thresholds, L, width, n):
+    out = []
+    for i in range(n):
+        p = rng.uniform(1e-4, 1 - 1e-4, size=(32, width))
+        for _ in range(100):
+            bad = np.abs(p[..., None] - thresholds).min(-1) < 2e-6
+            if not bad.any():
+                break
+            p[bad] = rng.uniform(1e-4, 1 - 1e-4, size=int(bad.sum()))
+        lg = np.log(p / (1 - p)).astype(np.float32)
+        lg[i, i] = np.nan
+        labels = (rng.random(lg.shape) < 0.1).astype(np.float32)
+        mask = np.ones(32, np.float32)
+        mask[30 - i:] = 0
+        out.append((lg, labels, mask))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresholds", [
+    np.arange(0.01, 1.0, 0.01, dtype=np.float32),
+    np.array([0.7, 0.2, 0.5, 0.2, 0.95, 0.05, -0.1, 1.5], np.float32)],
+    ids=["cli_99", "unsorted_duplicates"])
+def test_threshold_sweep_matches_plain_on_card(thresholds):
+    """K9's update and finalize against the plain version (the lax.map
+    loop) on the same tensors: 1,000 labels padded to 1,024 columns, 5
+    batches with padded rows and a NaN logit each."""
+    dev = _card()
+    L = 1000
+    rng = np.random.default_rng(len(thresholds))
+    sweep = k9.SweepCounter(thresholds, L, dev)
+    T = len(thresholds)
+    plain = tuple(torch.zeros(T, L, dtype=torch.int32, device=dev) for _ in range(3))
+    th = torch.from_numpy(thresholds).to(dev)
+    before = dict(k9.LAUNCHES)
+    for lg, labels, mask in _sweep_batches(rng, thresholds, L, 1024, 5):
+        args = [torch.from_numpy(a).to(dev) for a in (lg, labels, mask)]
+        sweep.update(*args)
+        k9.count_reference(plain, *args, th)
+    got = sweep.counts()
+    torch.cuda.synchronize()
+    assert k9.LAUNCHES["update"] - before["update"] == 5
+    assert k9.LAUNCHES["finalize"] - before["finalize"] == 1
+    for name, g, w in zip(("tp", "fp", "fn"), got, plain):
+        assert torch.equal(g, w), name
+    assert int(got[0].sum()) > 0 and int(got[2].sum()) > 0
+    order = sweep.order.long()
+    for g, w in zip(k9.finalize_reference(sweep.hist, sweep.order, L, T), got):
+        assert torch.equal(g, w)
+    assert torch.equal(sweep.sorted, th[order])
+
+
+@pytest.mark.cuda
+def test_threshold_sweep_raises_on_what_it_does_not_take():
+    dev = _card()
+    with pytest.raises(ValueError, match="1-1024 thresholds"):
+        k9.SweepCounter(np.linspace(0, 1, 1025, dtype=np.float32), 4, dev)
+    sweep = k9.SweepCounter([0.5], 4, dev)
+    ones = lambda *s: torch.ones(*s, device=dev)  # noqa: E731
+    with pytest.raises(ValueError, match="expected contiguous"):
+        sweep.update(ones(2, 4).double(), ones(2, 4), ones(2))
+    with pytest.raises(ValueError, match="columns for"):
+        sweep.update(ones(2, 3), ones(2, 3), ones(2))
 
 
 @pytest.mark.cuda

@@ -35,6 +35,8 @@ MODULES = [
     "protnote_tpu_torch.models.text_transformer", "protnote_tpu_torch.models.label_encoder",
     "protnote_tpu_torch.ops.text_attention", "protnote_tpu_torch.ops.layer_norm",
     "protnote_tpu_torch.cli.generate_label_embeddings",
+    "protnote_tpu_torch.ops.threshold_sweep", "protnote_tpu_torch.evaln.go_dag",
+    "protnote_tpu_torch.evaln.results_io", "protnote_tpu_torch.cli.test_models",
 ]
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import) protnote_tpu(\.|\s|$)", re.M)
 

@@ -22,7 +22,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    blocks, 32,102 labels x 2 descriptions) behind the stdlib HTTP server,
    answering /v1/predict and /healthz requests; the ProteInfer encoder
    alone (cuDNN conv1d and the plain epilogues, K7's chain) at buckets 512
-   and 1024 from CUDA events, with its passes on the serving path;
+   and 1024 from CUDA events, with its passes on the serving path, and its
+   11 cuDNN conv1d calls alone (K7's library time);
 5. serving parity: ``engine.score`` against a forward through the plain
    pair scorer on the same device tensors;
 6. the eval-accumulator kernels (K3) against their plain version at full
@@ -52,23 +53,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
    of the two paths must agree (counts exactly, samplewise sums to 1e-6);
 8. the training kernels: at full width with 8 sequences (the reference's
    per-card batch, where the plain scorer still fits), the decomposed
-   scorer through K4 + K5 against its plain version on the same device
-   tensors (logits, new BN running statistics, the gradients of P_e, L_e
-   and every output-MLP parameter); then K4's forward, K5's forward and
+   scorer through K4, K4-bwd and K5 against its plain version on the same
+   device tensors (logits, new BN running statistics, the gradients of P_e,
+   L_e and every output-MLP parameter); then K4's forward, K5's forward and
    K5's backward alone at the training path's 32-sequence shapes
    (1,027,264 x 3072 pre-activations) against their plain versions (K5's
    in 512-column slices), with both times; K4's ptxas registers, spills and
    shared memory, TFLOP/s and share of its bound, and ``gemm_ms``:
    ``torch.matmul`` on the materialised bf16 x1 of the same rows (a
-   yardstick, not the same function);
+   yardstick, not the same function); then K4-bwd's two kernels (dX with
+   the gate and side sums, dW) alone at the same shapes against the plain
+   backward, which runs whole: their times, TFLOP/s, shares of the 39.2 ms
+   bound, ptxas figures, and cuBLAS on the two bare products over a
+   materialised x1 as the yardstick;
 9. training: a generated FASTA (352 training and 64 validation sequences
    over the 32,102-label vocabulary) -> weighted, shuffled ``BucketBatcher``
    -> ``PrefetchBatcher`` -> the port's ``Trainer.train`` for one epoch at
-   full width and 32 sequences a step (train steps through K4 + K5, FocalLoss,
-   clipped Adam; validation through K1 + K3; checkpoints), each step's loss
-   and time, one ``torch.profiler`` pass for the device idle share and the
-   top kernels, peak memory, and a checkpoint written, restored and scored
-   to the same logits.
+   full width and 32 sequences a step (train steps through K4 + K4-bwd + K5,
+   FocalLoss, clipped Adam; validation through K1 + K3; checkpoints), each
+   step's loss and time, one ``torch.profiler`` pass for the device idle
+   share and the top kernels, peak memory, and a checkpoint written,
+   restored and scored to the same logits; then the same epoch with
+   ``GRADIENT_CHECKPOINTING`` (step ms and peak memory beside the
+   default's), with a shuffled 8,192-label subset and a bf16 Adam first
+   moment (validated on a fixed 8,192-label subset, then evaluated on a
+   shuffled one through K3's ``cols`` path), and with in-batch labels
+   shipped in every batch.
 
 10. the int8 pair scorer (K2) alone at the full serving width (the same
     shapes as phase 3), with static scales from ``calibrate_act_scales``
@@ -115,7 +125,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 Then one JSON line with every kernel: its launches on its path (K1 and K3
 in the training run, whose validation evaluates; K9 in the first sweep
-evaluation of 7b; K4 and K5 in training; K2
+evaluation of 7b; K4, K4-bwd and K5 in training; K2
 in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
 run; each count set to 0 just before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
@@ -153,8 +163,8 @@ LABEL_TILE = 512
 PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
 
-KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "bn_relu", "pair_scorer_int8",
-                  "text_attention", "layer_norm", "threshold_sweep")
+KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
+                  "pair_scorer_int8", "text_attention", "layer_norm", "threshold_sweep")
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -655,10 +665,33 @@ def phase_encoder(engine, seqs, passes: int, card: str):
             flop = 2.0 * B * bucket * (cfg.input_channels * C * k
                                        + cfg.num_resnet_blocks * (C * Cb * k + Cb * C))
             nbytes = 1.0 * B * bucket + 4.0 * weights + 4.0 * B * C
-            out[bucket] = {"ms": ms, "tflops": flop / ms / 1e9,
-                           **bound(nbytes=nbytes, ops=flop)}
+            out[bucket] = {"ms": ms, "tflops": flop / ms / 1e9, "conv_ms": conv_alone_ms(
+                ts["enc_params"], cfg, bucket), **bound(nbytes=nbytes, ops=flop)}
     log("encoder", batch=B, passes_on_serving_path=passes, buckets=out, card=card)
     return out
+
+
+def conv_alone_ms(enc_params, cfg, bucket: int) -> float:
+    """The chain's 11 cuDNN conv1d calls alone (the first conv, then each
+    block's dilated conv and 1 x 1 conv), one pass on bf16 inputs of the
+    shapes a 32-sequence batch gives them at ``bucket``: the library time of
+    K7's row, without the masks, biases, BatchNorms, ReLUs, residuals and
+    pooling around them."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    convs = [(enc_params["conv1"], 1)] + [
+        (conv, d) for i, bp in enumerate(enc_params["blocks"])
+        for conv, d in ((bp["conv_dilated"], cfg.dilation_base ** i), (bp["conv_1x1"], 1))]
+    calls = []
+    for p, dilation in convs:
+        w = p["kernel"].to(torch.bfloat16)
+        x = torch.randn((B, w.shape[1], bucket), device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+        calls.append((x, w, dilation * (w.shape[-1] - 1) // 2, dilation))
+    return cuda_time_ms(lambda: [F.conv1d(x, w, padding=pad, dilation=d)
+                                 for x, w, pad, d in calls], 10)
 
 
 def plain_probs(engine, seqs, latents=None):
@@ -1689,7 +1722,10 @@ def phase_train_kernels(card: str):
                              f"stats {stats_err}, gradients {grad_errs}")
     del runs, grads, grads0
     torch.cuda.empty_cache()
-    return phase_train_kernels_alone(p, s, card)
+    times = phase_train_kernels_alone(p, s, card)
+    torch.cuda.empty_cache()
+    times.update(phase_k4_bwd(card))
+    return times
 
 
 def delta(got, want) -> tuple:
@@ -1802,6 +1838,119 @@ def phase_train_kernels_alone(p, s, card: str):
     if max(rel.values()) > K45_REL_TOL:
         raise AssertionError(f"a training kernel disagrees with its plain version: {outs}")
     return {k: {"max_abs_err": abs_errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+                **bounds[k], "library_ms": None} for k in times}
+
+
+def phase_k4_bwd(card: str) -> dict:
+    """K4-bwd's two kernels alone at the training path's 32-sequence shapes
+    (a2 (32, 3072), c2 (32,102, 3072), W (3072, 3072), dz (1,027,264 x
+    3072) bf16, zero at masked pair rows as K5's backward leaves it) against
+    ``_pair_hidden_backward_plain``, which runs whole: da2, dc2 and dW within
+    ``K45_REL_TOL`` of the plain tensor's largest |value|.  Each kernel timed
+    alone through its entry point (the dX time includes zeroing its f32 da2
+    scratch), the plain version's two halves (dX: x1 formed again, the gate,
+    the product, the sums; dW: x1 formed again and the product), and as a
+    yardstick cuBLAS on the two bare products over a materialised x1 (not
+    the same function: x1, the gate and dx1 in device memory, formed outside
+    the timing); ptxas figures and shared memory of each compiled kernel."""
+    import ctypes
+
+    import torch
+
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        a2 = torch.randn(TRAIN_B, H, generator=gen).to(dev, bf16)
+        c2 = torch.randn(NUM_LABELS, H, generator=gen).to(dev, bf16)
+        W = (torch.randn(H, H, generator=gen) * (2.0 / H) ** 0.5).to(dev, bf16)
+        em = torch.ones(TRAIN_B, device=dev)
+        em[-1] = 0.0
+        lm = (torch.rand(NUM_LABELS, generator=gen) < 0.98).float().to(dev)
+        dz = torch.randn((TRAIN_B * NUM_LABELS, H), device=dev, dtype=bf16,
+                         generator=torch.Generator(device=dev).manual_seed(13))
+        dz.mul_((em[:, None] * lm[None, :]).reshape(-1, 1).to(bf16) * 1e-3)
+        got = st._pair_hidden_backward_cuda(a2, c2, W, dz)
+        torch.cuda.synchronize()
+        want = st._pair_hidden_backward_plain(a2, c2, W, dz)
+        outs = {"da2": delta(got[0], want[0]), "dc2": delta(got[1], want[1]),
+                "dw": delta(got[2], want[2])}
+        del got, want
+        torch.cuda.empty_cache()
+        B_, L_, K_, N_ = TRAIN_B, NUM_LABELS, H, H
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        dxp, dwp = st.pair_dx_plan(B_, L_, K_, N_, sms), st.pair_dw_plan(B_, L_, K_, N_, sms)
+        da2 = torch.zeros(B_, K_, device=dev)
+        dc2 = torch.empty(L_, K_, device=dev, dtype=bf16)
+        part = torch.empty(dwp.splits, K_, N_, device=dev)
+        dw = torch.empty(K_, N_, device=dev, dtype=bf16)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def dx_call():
+            da2.zero_()
+            st._raise_on(st._dx_fn()(dz.data_ptr(), W.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+                                     da2.data_ptr(), dc2.data_ptr(), B_, L_, K_, N_, dxp.grid,
+                                     stream), "pair_train_dx")
+
+        def dw_call():
+            st._raise_on(st._dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(), part.data_ptr(),
+                                     dw.data_ptr(), B_, L_, K_, N_, dwp.block_n, dwp.splits,
+                                     dwp.grid, stream), "pair_train_dw")
+
+        def plain_dx():
+            x1 = st._pair_x1(a2, c2)
+            gate = x1 > 0
+            del x1
+            dx1 = dz @ W.T
+            dx1.mul_(gate)
+            del gate
+            dx1 = dx1.view(B_, L_, -1)
+            return dx1.sum(1), dx1.sum(0)
+
+        def plain_dw():
+            return st._pair_x1(a2, c2).T @ dz
+
+        times = {"pair_train_dx": (cuda_time_ms(dx_call, 3), cuda_time_ms(plain_dx, 2)),
+                 "pair_train_dw": (cuda_time_ms(dw_call, 3), cuda_time_ms(plain_dw, 2))}
+        pair_ms = cuda_time_ms(lambda: st._pair_hidden_backward_cuda(a2, c2, W, dz), 2)
+        plain_pair_ms = cuda_time_ms(lambda: st._pair_hidden_backward_plain(a2, c2, W, dz), 2)
+        x1 = st._pair_x1(a2, c2)
+        gemm = {"pair_train_dx": cuda_time_ms(lambda: torch.matmul(dz, W.t()), 3),
+                "pair_train_dw": cuda_time_ms(lambda: torch.matmul(x1.t(), dz), 3)}
+        del x1
+        torch.cuda.empty_cache()
+    lib = load_kernel_library("pair_train_bwd")
+    smem = lib.lib.pair_train_bwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    variants = [{"kernel": name, "block_n": int(bn or 128), "ptxas": ptxas, "spills": spills,
+                 "smem_bytes": smem(0 if name == "dx" else 1, int(bn or 128))}
+                for (name, bn), ptxas, spills in ptxas_by_kernel(
+                    lib.build_log, r"pair_train_(dx|dw)_kernel(?:ILi(\d+)E)?")]
+    N = float(B_ * L_)
+    ops = 2.0 * N * K_ * N_
+    side = 2.0 * (a2.numel() + c2.numel() + W.numel())
+    bounds = {"pair_train_dx": bound(nbytes=2.0 * N * N_ + side + 2.0 * (da2.numel() + dc2.numel()),
+                                     ops=ops),
+              "pair_train_dw": bound(nbytes=2.0 * N * N_ + side, ops=ops)}
+    rel = {k: v[0] / v[1] for k, v in outs.items()}
+    pair_bound = bounds["pair_train_dx"]["bound_ms"] + bounds["pair_train_dw"]["bound_ms"]
+    log("k4_bwd", batch=TRAIN_B, rows=int(N), width=H, rel_errs=rel, rel_tol=K45_REL_TOL,
+        max_abs_errs={k: v[0] for k, v in outs.items()},
+        **{f"{k}_ms": v[0] for k, v in times.items()},
+        **{f"{k}_plain_ms": v[1] for k, v in times.items()},
+        **{f"{k}_tflops": ops / v[0] / 1e9 for k, v in times.items()},
+        **{f"{k}_bound_share": bounds[k]["bound_ms"] / v[0] for k, v in times.items()},
+        pair_ms=pair_ms, plain_pair_ms=plain_pair_ms, pair_bound_ms=pair_bound,
+        pair_bound_share=pair_bound / pair_ms, pair_tflops=2 * ops / pair_ms / 1e9,
+        cublas_yardstick_ms=gemm, dw_splits=dwp.splits, dx_units=dxp.units,
+        variants=variants, card=card)
+    if max(rel.values()) > K45_REL_TOL:
+        raise AssertionError(f"K4-bwd disagrees with the plain backward: {outs}")
+    err = {"pair_train_dx": max(outs["da2"][0], outs["dc2"][0]),
+           "pair_train_dw": outs["dw"][0]}
+    return {k: {"max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1],
                 **bounds[k], "library_ms": None} for k in times}
 
 
@@ -2032,7 +2181,136 @@ def phase_training(card: str):
             bytes=os.path.getsize(os.path.join(tmp, "smoke_roundtrip.ckpt")))
         if not (bool(torch.isfinite(after).all()) and err <= ROUNDTRIP_ATOL):
             raise AssertionError(f"restored logits differ by {err}")
-    return launches
+    return launches, {"median_warm_step_ms": med * 1e3, "peak_mem_gb": peak}
+
+
+def phase_train_settings(card: str, default: dict) -> None:
+    """The training settings beside the default run of phase 9, each one
+    epoch of ``Trainer.train`` at full width and 32 sequences a step on the
+    same generated FASTA:
+
+    * ``GRADIENT_CHECKPOINTING``: the post-layer-1 block recomputed in the
+      backward; its median step ms and peak memory beside the default's;
+    * a shuffled label subset (``TRAIN_LABEL_SAMPLE_SIZE`` 8192,
+      ``SHUFFLE_LABELS``) with a bfloat16 Adam first moment
+      (``OPTIMIZER_MOMENT_DTYPE``), validated on a fixed 8192-label subset
+      (``VALIDATION_LABEL_SAMPLE_SIZE``); then one ``Trainer.evaluate`` on a
+      shuffled 8192-label subset, which K3 scatters through its ``cols``
+      path;
+    * in-batch sampling (``IN_BATCH_SAMPLING``: each step's labels are its
+      sequences' positives, padded up a doubling series from 8) with the
+      label embeddings shipped in every batch
+      (``DEVICE_RESIDENT_LABEL_EMBEDDINGS False``).
+
+    So K4 and K4-bwd run at 32,102 (phase 9 and the remat run), 8,192 and
+    the in-batch count.  Each run must be finite and launch K4, K4-bwd's two
+    kernels and K5 (K3 for the evaluations); its per-step label counts are
+    printed."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer
+    from protnote_tpu_torch.train.step import init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    buckets = (256, 512, 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = train_datasets(tmp)
+        weights = train_ds.calculate_sequence_weights(
+            train_ds.calculate_label_weights(power=0.5), "sum")
+        pi_cfg, pn_cfg0, ts = random_models()
+        loss_fn = get_loss_fn(TRAIN_PARAMS)
+
+        def batcher(**kw):
+            return BucketBatcher(train_ds, TRAIN_B, buckets=buckets, shuffle=True,
+                                 drop_last=True, seed=42, sequence_weights=weights,
+                                 **dict(dict(device_label_gather=True), **kw))
+
+        def val_batcher(**kw):
+            return BucketBatcher(val_ds, TRAIN_B, buckets=buckets, seed=5,
+                                 descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True,
+                                 **kw)
+
+        def run(name, train_b, val_b=None, remat=False, params=TRAIN_PARAMS):
+            pn_cfg = dataclasses.replace(pn_cfg0, label_embedding_noising_alpha=NOISING_ALPHA,
+                                         gradient_checkpointing=remat)
+            opt = Optimizer(params)
+            ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
+                                   ts["enc_params"], ts["enc_state"], opt)
+            trainer = Trainer(ts0, pi_cfg, pn_cfg, TrainerConfig(
+                num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True), device=dev,
+                loss_fn=loss_fn, optimizer=opt)
+            steps, step_fn = [], trainer._train_step
+
+            def timed_step(ts_, batch, gen):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts_, m = step_fn(ts_, batch, gen)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t, float(m["loss"]),
+                              int(batch["label_multihots"].shape[1])))
+                return ts_, m
+
+            trainer._train_step = timed_step
+            for counts in (k3.LAUNCHES, st.LAUNCHES):
+                for k in counts:
+                    counts[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            summary = trainer.train(train_b, val_b)
+            torch.cuda.synchronize()
+            launches = {**st.LAUNCHES, **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+            losses = [x[1] for x in steps]
+            med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
+            fields = dict(steps=len(steps), label_counts=sorted({x[2] for x in steps}),
+                          step_losses=losses, median_warm_step_ms=med * 1e3,
+                          seqs_per_s=TRAIN_B / med,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                          launches=launches)
+            if val_b is not None:
+                fields["val_map_micro"] = summary["history"][0].get("val_map_micro")
+            needed = ["pair_train_hidden", "pair_train_dx", "pair_train_dw", "bn_relu_forward",
+                      "bn_relu_backward"] + (["eval_acc_update"] if val_b is not None else [])
+            if not steps or not all(math.isfinite(x) for x in losses) or \
+                    any(launches[k] <= 0 for k in needed):
+                raise AssertionError(f"{name}: losses {losses}, launches {launches}")
+            return trainer, fields
+
+        _, remat = run("remat", batcher(), remat=True)
+        log("train_remat", **remat, default_median_warm_step_ms=default["median_warm_step_ms"],
+            default_peak_mem_gb=default["peak_mem_gb"], card=card)
+        trainer, sub = run("subset", batcher(label_sample_size=8192, shuffle_labels=True),
+                           val_batcher(label_sample_size=8192),
+                           params=dict(TRAIN_PARAMS, OPTIMIZER_MOMENT_DTYPE="bfloat16"))
+        mu = trainer.ts["opt_state"]["mu"]["protnote"]["output_mlp"]["layers"][1]["kernel"]
+        if sub["label_counts"] != [8192] or mu.dtype != torch.bfloat16:
+            raise AssertionError(f"subset run: label counts {sub['label_counts']}, mu {mu.dtype}")
+        log("train_label_subset", label_sample_size=8192, shuffle_labels=True,
+            optimizer_moment_dtype=str(mu.dtype), **sub, card=card)
+        for k in k3.LAUNCHES:
+            k3.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = trainer.evaluate(val_batcher(label_sample_size=8192, shuffle_labels=True),
+                               data_split_name="validation")["metrics"]
+        torch.cuda.synchronize()
+        cols = dict(k3.LAUNCHES)
+        if not (cols["update"] > 0 and cols["finalize"] > 0 and
+                math.isfinite(res["map_micro"])):
+            raise AssertionError(f"shuffled-subset evaluation: {cols}, {res}")
+        log("eval_label_subset", label_sample_size=8192, shuffle_labels=True, k3_launches=cols,
+            seconds=time.perf_counter() - t0, map_micro=res["map_micro"], card=card)
+        _, inb = run("in_batch", batcher(in_batch_sampling=True, device_label_gather=False))
+        if max(inb["label_counts"]) >= NUM_LABELS:
+            raise AssertionError(f"in-batch run at the full vocabulary: {inb['label_counts']}")
+        log("train_in_batch", device_resident_label_embeddings=False, **inb, card=card)
 
 
 def token_batch(gen, batch: int, tokens: int, lo: int, hi: int, vocab: int, pad: int,
@@ -2335,7 +2613,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_times = phase_train_kernels(card)
     torch.cuda.empty_cache()
-    launches = phase_training(card)
+    launches, default_run = phase_training(card)
+    torch.cuda.empty_cache()
+    phase_train_settings(card, default_run)
     torch.cuda.empty_cache()
     k8_times = phase_k8(card)
     tower_launches, rows, plain_rows = phase_tower(card)
@@ -2351,6 +2631,10 @@ def main() -> None:
     train_kernels = {
         "pair_train_hidden": ("protnote_tpu_torch/csrc/pair_train.cu",
                               "protnote_tpu/ops/streaming_train.py:157"),
+        "pair_train_dx": ("protnote_tpu_torch/csrc/pair_train_bwd.cu",
+                          "protnote_tpu/ops/streaming_train.py:157"),
+        "pair_train_dw": ("protnote_tpu_torch/csrc/pair_train_bwd.cu",
+                          "protnote_tpu/ops/streaming_train.py:157"),
         "bn_relu_forward": ("protnote_tpu_torch/csrc/bn_relu.cu",
                             "protnote_tpu/ops/streaming_train.py:98"),
         "bn_relu_backward": ("protnote_tpu_torch/csrc/bn_relu.cu",

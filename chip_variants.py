@@ -40,6 +40,18 @@ each beside the kept kernels at full width (32 rows x 32,102 labels x 512
 bins, ~1% positives; the finalize on histograms with 0.5% positive counts),
 the list run forward and then backward, calling the C entry points alone.
 
+    python3 chip_variants.py --k4-bwd
+
+builds K4-bwd (``csrc/pair_train_bwd.cu``) with parts of its work taken
+out (timing only: the results are wrong): dX without its gated epilogue,
+dX without the W tile's loads, dW without the formation of its A
+fragments (constant fragments instead of ``ldmatrix`` + a2 + ReLU), dW
+without the dz tile's loads; and times them beside the kept kernels and
+the kept dW with 128-column tiles and with 11 splits of the pair rows, at
+the training path's 32-sequence shapes (a2 (32, 3072), c2 (32,102, 3072),
+dz (1,027,264 x 3072)), the list run forward and then backward, calling
+the C entry points alone.
+
     python3 chip_variants.py --eval-against DIR
 
 runs ``Trainer.evaluate`` on ``chip_smoke.py``'s 256-sequence FASTA (bf16,
@@ -151,6 +163,106 @@ K3_SUBS = {
         "    if (bin >= 0 && s_micro[i]) atomicAdd(&micro[(i / HALF) * nb + bin], s_micro[i]);\n",
         "    (void)bin;\n")],
 }
+
+
+# text replaced in pair_train_bwd.cu: (old, new), each old found exactly once
+K4BWD_SUBS = {
+    "dx_no_epilogue": [(
+        "        // ---- epilogue: gate, round, sum ------------------------------------\n",
+        "        if (b >= 0) continue;\n")],
+    "dx_no_w_load": [(
+        "            mbar_expect_tx(full_bar(s), Lay::STAGE);\n"
+        "            tma_load_3d(st, &tm_dz, ns * BK, l0, b, full_bar(s));\n"
+        "            tma_load(st + Lay::A_BYTES, &tm_w, ns * BK, k0, full_bar(s));\n",
+        "            mbar_expect_tx(full_bar(s), Lay::A_BYTES);\n"
+        "            tma_load_3d(st, &tm_dz, ns * BK, l0, b, full_bar(s));\n")],
+    "dw_no_a_formation": [(
+        "        ldsm_x4_trans(c, box + kk * 16 * 128 + ld_off);\n",
+        "        c[0] = c[1] = c[2] = c[3] = 0x3f803f80u + kk;\n")],
+    "dw_no_dz_load": [(
+        "          mbar_expect_tx(full_bar(s), Lay::STAGE);\n"
+        "          tma_load(st, &tm_c, m0, l0, full_bar(s));\n",
+        "          mbar_expect_tx(full_bar(s), Lay::X_BYTES);\n"
+        "          tma_load(st, &tm_c, m0, l0, full_bar(s));\n"), (
+        "            tma_load_3d(st + Lay::X_BYTES + i * BOX, &tm_dz, n0 + 64 * i, l0, b, full_bar(s));\n",
+        "            (void)i;\n")],
+}
+
+
+def k4_bwd_variants(build_dir: str, card: str) -> None:
+    """K4-bwd's dX and dW, kept and with parts taken out, timed by calling
+    each library's C entry points at the training path's shapes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    base = (kernels.CSRC_DIR / "pair_train_bwd.cu").read_text()
+    jobs = {}
+    for name, subs in [("kept", [])] + list(K4BWD_SUBS.items()):
+        text = base
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K4-bwd variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"pair_train_bwd_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"libpair_train_bwd_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    libs = {}
+    for name, (_, out) in jobs.items():
+        cs.log("k4_bwd_variant_ptxas", variant=name, ptxas=logs[name])
+        lib = ctypes.CDLL(out)
+        lib.pair_train_dx.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.pair_train_dw.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        libs[name] = lib
+    B, L, H = cs.TRAIN_B, cs.NUM_LABELS, cs.H
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a2 = torch.randn(B, H, device=dev, generator=gen).to(bf16)
+    c2 = torch.randn(L, H, device=dev, generator=gen).to(bf16)
+    w = (torch.randn(H, H, device=dev, generator=gen) * 0.02).to(bf16)
+    dz = (torch.randn(B * L, H, device=dev, generator=gen) * 1e-3).to(bf16)
+    da2 = torch.zeros(B, H, device=dev)
+    dc2 = torch.empty(L, H, device=dev, dtype=bf16)
+    part = torch.empty(11, H, H, device=dev)
+    dw = torch.empty(H, H, device=dev, dtype=bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    dx_grid = st.pair_dx_plan(B, L, H, H, sms).grid
+
+    def dx(lib):
+        return lambda: lib.pair_train_dx(dz.data_ptr(), w.data_ptr(), a2.data_ptr(),
+                                         c2.data_ptr(), da2.data_ptr(), dc2.data_ptr(), B, L, H,
+                                         H, dx_grid, stream)
+
+    def dw_call(lib, block_n=256, splits=1):
+        grid = min(sms, (H // 128) * (H // block_n) * splits)
+        return lambda: lib.pair_train_dw(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(),
+                                         part.data_ptr(), dw.data_ptr(), B, L, H, H, block_n,
+                                         splits, grid, stream)
+
+    calls = [("dx", "kept", dx(libs["kept"])),
+             ("dx", "no_epilogue", dx(libs["dx_no_epilogue"])),
+             ("dx", "no_w_load", dx(libs["dx_no_w_load"])),
+             ("dw", "kept", dw_call(libs["kept"])),
+             ("dw", "block_n_128", dw_call(libs["kept"], block_n=128)),
+             ("dw", "splits_11", dw_call(libs["kept"], splits=11)),
+             ("dw", "no_a_formation", dw_call(libs["dw_no_a_formation"])),
+             ("dw", "no_dz_load", dw_call(libs["dw_no_dz_load"]))]
+    times = {(k, v): [] for k, v, _ in calls}
+    for order in (calls, calls[::-1]):
+        for kernel, variant, fn in order:
+            times[(kernel, variant)].append(cs.cuda_time_ms(fn, 3))
+    ops = 2.0 * B * L * H * H
+    for (kernel, variant), t in times.items():
+        cs.log("k4_bwd_variant", kernel=kernel, variant=variant, ms=t,
+               tflops=[ops / x / 1e9 for x in t], card=card)
 
 
 def k3_variants(build_dir: str, card: str) -> None:
@@ -599,6 +711,11 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--eval-against"]:
         eval_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k4-bwd"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k4_bwd_variants(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--k3"]:

@@ -107,6 +107,7 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
     state) replace them, checked against ``optimizer``'s config."""
     from protnote_tpu_torch.core.checkpoint import merge_into_template, read_checkpoint
     from protnote_tpu_torch.models.convert import load_reference_checkpoint, opt_state_from_jax
+    from protnote_tpu_torch.train.optim import tree_map
 
     if not os.path.exists(path):
         raise FileNotFoundError(f"--model-file {path!r} does not exist")
@@ -119,6 +120,11 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
         if "opt_state" in ts and "opt_state" in stored:
             out["opt_state"] = opt_state_from_jax(stored["opt_state"], out["trainable"])
             _check_opt_state(out["opt_state"], optimizer, path)
+            if optimizer is not None and out["opt_state"]["mu"] is not None:
+                # the restored moments take the template's float32; mu is kept
+                # in OPTIMIZER_MOMENT_DTYPE
+                out["opt_state"]["mu"] = tree_map(lambda t: t.to(optimizer.mu_dtype),
+                                                  out["opt_state"]["mu"])
         return out, meta
     params, state, encoder, meta = load_reference_checkpoint(path, pn_cfg, pi_cfg)
     ts = dict(ts, trainable=dict(ts["trainable"], protnote=params), model_state=state)

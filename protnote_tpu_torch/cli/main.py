@@ -32,8 +32,13 @@ plain versions (for tests).  The config is read with
 ``load_config``/``override_config``/``resolve_paths`` of
 :mod:`protnote_tpu_torch.core.config`.
 
-Label sampling in validation, label embeddings shipped with every batch,
-encoder training, the text tower, profiler traces, wandb and a mesh raise
+Training takes the label layouts of the JAX CLI (``TRAIN_LABEL_SAMPLE_SIZE``,
+``SHUFFLE_LABELS``, ``IN_BATCH_SAMPLING``, ``GRID_SAMPLER``), validation
+during training ``VALIDATION_LABEL_SAMPLE_SIZE``, and every batcher ships
+the label embeddings with each batch when ``DEVICE_RESIDENT_LABEL_EMBEDDINGS``
+is False.  ``GRADIENT_CHECKPOINTING`` and ``OPTIMIZER_MOMENT_DTYPE bfloat16``
+reach the scorer and the optimizer through the config.  Encoder training,
+the text tower, profiler traces, wandb and a mesh raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -47,8 +52,6 @@ import os
 from typing import Dict, List
 
 import numpy as np
-
-from protnote_tpu_torch.train.trainer import TRAIN_SUBSET_LATER
 
 logger = logging.getLogger(__name__)
 
@@ -99,13 +102,6 @@ def refuse_unported(args, params: Dict) -> None:
     for key in ("TRAIN_SEQUENCE_ENCODER", "ENCODER_BN_TRAIN_MODE"):
         if args.train_path_name and params.get(key):
             raise NotImplementedError(ROADMAP_ENCODER.format(key))
-    if args.train_path_name and (
-            params.get("GRID_SAMPLER") or params.get("TRAIN_LABEL_SAMPLE_SIZE")
-            or params.get("SHUFFLE_LABELS") or params.get("IN_BATCH_SAMPLING")):
-        raise NotImplementedError(TRAIN_SUBSET_LATER)
-    if args.validation_path_name and params.get("VALIDATION_LABEL_SAMPLE_SIZE"):
-        raise NotImplementedError("VALIDATION_LABEL_SAMPLE_SIZE: label-subsampled "
-                                  "evaluation is not ported (ROADMAP.md queue 1, item 3)")
     if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
         raise NotImplementedError("training the text tower (LABEL_ENCODER_NUM_TRAINABLE_"
                                   "LAYERS) is not ported yet (ROADMAP.md queue 1, item 14); "
@@ -114,10 +110,6 @@ def refuse_unported(args, params: Dict) -> None:
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "
                                   "slice (ROADMAP.md queue 1, item 9)")
-    if not params.get("DEVICE_RESIDENT_LABEL_EMBEDDINGS", True):
-        raise NotImplementedError("DEVICE_RESIDENT_LABEL_EMBEDDINGS False is not ported "
-                                  "(ROADMAP.md queue 1, item 3); the port gathers from "
-                                  "the resident label matrix")
 
 
 def load_setup(args):
@@ -157,7 +149,7 @@ def load_setup(args):
 
 
 def run(args) -> Dict:
-    from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
+    from protnote_tpu_torch.data.batching import BucketBatcher, GridBatcher, PrefetchBatcher
     from protnote_tpu_torch.data.dataset import DatasetConfig, ProteinDataset
     from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
     from protnote_tpu_torch.data.vocab import generate_vocabularies
@@ -233,15 +225,18 @@ def run(args) -> Dict:
                                (256, 512, 1024, 2048, 4096, 8192, 12288)))
     tokens_pb = params.get("TOKENS_PER_BATCH")
     prefetch_n = int(params.get("PREFETCH_BATCHES", 2) or 0)
+    # label embeddings resident on the device (batches carry row indices), or
+    # shipped with every batch
+    dev_gather = bool(params.get("DEVICE_RESIDENT_LABEL_EMBEDDINGS", True))
 
     def with_prefetch(batcher):
         return PrefetchBatcher(batcher, prefetch=prefetch_n) if prefetch_n > 0 else batcher
 
-    def eval_batcher(ds, batch_size):
-        return with_prefetch(BucketBatcher(
-            ds, batch_size, buckets=buckets, seed=seed,
+    def eval_batcher(ds, batch_size, label_sample_size=None):
+        return BucketBatcher(
+            ds, batch_size, buckets=buckets, seed=seed, label_sample_size=label_sample_size,
             descriptions_per_label=pn_cfg.inference_descriptions_per_label,
-            device_label_gather=True, tokens_per_batch=tokens_pb))
+            device_label_gather=dev_gather, tokens_per_batch=tokens_pb)
 
     # ---------------- train ----------------
     all_metrics: Dict[str, Dict] = {}
@@ -255,14 +250,26 @@ def run(args) -> Dict:
             hi = params.get("SAMPLING_UPPER_CLAMP_BOUND")
             if lo is not None or hi is not None:
                 sequence_weights = np.clip(sequence_weights, lo, hi)
-        train_batcher = with_prefetch(BucketBatcher(
+        grid = params.get("GRID_SAMPLER", False)
+        train_batcher = BucketBatcher(
             train_ds, params["TRAIN_BATCH_SIZE"], buckets=buckets, shuffle=True,
-            drop_last=True, seed=seed, sequence_weights=sequence_weights,
-            device_label_gather=True, tokens_per_batch=tokens_pb))
+            drop_last=True, seed=seed,
+            label_sample_size=None if grid else params.get("TRAIN_LABEL_SAMPLE_SIZE"),
+            shuffle_labels=params.get("SHUFFLE_LABELS", False),
+            in_batch_sampling=params.get("IN_BATCH_SAMPLING", False),
+            sequence_weights=sequence_weights, device_label_gather=dev_gather,
+            tokens_per_batch=tokens_pb)
+        if grid:
+            sample = params.get("TRAIN_LABEL_SAMPLE_SIZE")
+            if not sample:
+                raise SystemExit("GRID_SAMPLER requires TRAIN_LABEL_SAMPLE_SIZE")
+            train_batcher = GridBatcher(train_batcher, labels_batch_size=sample)
+        train_batcher = with_prefetch(train_batcher)
         val_batcher = None
         if "validation" in datasets:
-            val_batcher = eval_batcher(datasets["validation"][0],
-                                       params["VALIDATION_BATCH_SIZE"])
+            val_batcher = with_prefetch(eval_batcher(
+                datasets["validation"][0], params["VALIDATION_BATCH_SIZE"],
+                label_sample_size=params.get("VALIDATION_LABEL_SAMPLE_SIZE")))
         summary = trainer.train(train_batcher, val_batcher)
         all_metrics["train_summary"] = {
             "best_val_metric": summary["best_val_metric"],
@@ -275,10 +282,8 @@ def run(args) -> Dict:
     threshold = params.get("DECISION_TH")
     if threshold is None and "validation" in datasets:
         # one pass over validation: metrics and the threshold sweep
-        val_batcher = BucketBatcher(
-            datasets["validation"][0], params["VALIDATION_BATCH_SIZE"], buckets=buckets,
-            seed=seed, descriptions_per_label=pn_cfg.inference_descriptions_per_label,
-            device_label_gather=True, tokens_per_batch=tokens_pb)
+        val_batcher = eval_batcher(datasets["validation"][0],
+                                   params["VALIDATION_BATCH_SIZE"])
         res = trainer.evaluate(val_batcher, data_split_name="validation",
                                threshold_sweep=np.arange(0.01, 1.0, 0.01, dtype=np.float32))
         threshold, score = res["threshold"]
@@ -297,7 +302,7 @@ def run(args) -> Dict:
     for i, test_ds in enumerate(tests):
         split = f"test_{i}" if len(tests) > 1 else "test"
         res = trainer.evaluate(
-            eval_batcher(test_ds, params["TEST_BATCH_SIZE"]),
+            with_prefetch(eval_batcher(test_ds, params["TEST_BATCH_SIZE"])),
             save_results=args.save_prediction_results, output_dir=results_dir,
             data_split_name=split, only_represented_labels=args.only_represented_labels,
             normalize_probabilities=params.get("NORMALIZE_PROBABILITIES", False),

@@ -1,14 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialised
-// kernels (pair_scorer.cu, pair_scorer_int8.cu, pair_train.cu): TMA tensor
-// maps (2-D, and 3-D for stores that must not cross a plane) and copies,
-// mbarriers, async-proxy fences, named barriers, wgmma shared-memory
-// descriptors, the wgmma fence/commit/wait instructions and the bf16
-// m64nNk16 products (Mma); and the shared-memory address, bf16 packing and
-// division helpers.
+// kernels (pair_scorer.cu, pair_scorer_int8.cu, pair_train.cu,
+// pair_train_bwd.cu): TMA tensor maps (2-D, and 3-D for loads and stores
+// that must not cross a plane) and copies, mbarriers, async-proxy fences,
+// named barriers, the transposed ldmatrix, wgmma shared-memory descriptors,
+// the wgmma fence/commit/wait instructions and the bf16 m64nNk16 products
+// (Mma); and the shared-memory address, bf16 packing and division helpers.
 // text_attention.cu takes the descriptors, the wgmma instructions, the
-// async-proxy fence and those helpers.  ops/kernels.py hashes every csrc/*.cuh
-// with each source, so an edit here rebuilds every library that includes
-// it.
+// async-proxy fence, the transposed ldmatrix and those helpers.
+// ops/kernels.py hashes every csrc/*.cuh with each source, so an edit here
+// rebuilds every library that includes it.
 
 #pragma once
 
@@ -58,6 +58,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// 3-D TMA load of the box at (c0, c1, c2), innermost first; elements past
+// any dimension's end arrive as zeros and count toward the bytes
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // 2-D TMA store of a shared-memory box to (column c0, row c1), in the
 // thread's bulk group; rows past the tensor's end are not written.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
@@ -98,6 +109,14 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
 }
 __device__ __forceinline__ void st_shared_b16(uint32_t addr, uint16_t v) {
   asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lane 8j + r gives
+// the address of row r of matrix j, and the thread receives rows 2q, 2q + 1
+// of column g of each (j = 0..3 into r[0..3]; lane = 4g + q)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:

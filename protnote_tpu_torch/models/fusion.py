@@ -7,15 +7,17 @@ space, then every (sequence, label) pair is scored: in evaluation by the
 folded concat-MLP (:mod:`protnote_tpu_torch.ops.pair_scorer`, K1) or by
 cosine similarity, with K descriptions per label ensembled (logit of the
 mean sigmoid); in training by the decomposed scorer
-(:mod:`protnote_tpu_torch.ops.streaming_train`, K4 + K5) with train-mode
-BatchNorm, after label-embedding noising.
+(:mod:`protnote_tpu_torch.ops.streaming_train`, K4 + K5, K4-bwd in the
+backward) with train-mode BatchNorm, after label-embedding noising;
+``GRADIENT_CHECKPOINTING`` recomputes its post-layer-1 block in the
+backward.
 
 Random draws (noising, dropout) come from an explicit ``torch.Generator``
 on the tensors' device.  Left out, each raising ``NotImplementedError``
 that names its ROADMAP item: the materialised dense scorer
 (``PAIR_BACKEND=dense``, ``OUTPUT_MLP_DROPOUT > 0`` in training, training
 without output-MLP BatchNorm or with ``concatenation_prod``), the streamed
-scorer (``TRAIN_STREAMING_LABEL_TILE > 0``) and ``GRADIENT_CHECKPOINTING``.
+scorer (``TRAIN_STREAMING_LABEL_TILE > 0``).
 ``PAIR_BACKEND=tiled_int8`` evaluates through the int8 scorer (K2) with the
 config's static activation scales (:func:`calibrate_int8`) or dynamic
 per-row ones, and trains through the decomposed scorer as ``auto`` does.
@@ -91,7 +93,7 @@ class ProtNoteConfig:
     dropout: float = 0.0  # OUTPUT_MLP_DROPOUT: heads' hidden layers and the output MLP
     sequence_embedding_dropout: float = 0.0
     label_embedding_dropout: float = 0.0
-    gradient_checkpointing: bool = False  # the decomposed scorer's remat: raises
+    gradient_checkpointing: bool = False  # the decomposed scorer's remat
     train_label_tile: int = 0  # > 0 (the streamed scorer K6) raises in training
 
     @property

@@ -14,9 +14,14 @@ Two hand-written kernels carry the (B * L, H) tensors:
 * **K4** (:func:`pair_hidden`, ``csrc/pair_train.cu``): ``z2 = x1 @ W2`` with
   ``x1 = relu(a2[b] + c2[l])`` formed in the GEMM's A-operand registers, so
   x1 never exists in memory; one persistent launch over all pairs, its
-  tiles laid out by :func:`pair_train_plan`.  Its backward is plain PyTorch
-  inside the ``autograd.Function`` (x1 re-formed, two products, the ReLU
-  gate, f32 side sums); a hand-written backward is a ROADMAP item (K4-bwd).
+  tiles laid out by :func:`pair_train_plan`.
+* **K4-bwd** (``csrc/pair_train_bwd.cu``), the backward of K4 as two
+  kernels: ``pair_train_dx`` computes ``dx1 = bf16(dz @ W2^T)`` gated by
+  ``a2[b] + c2[l] > 0`` and reduces it to ``da2`` and ``dc2`` in its
+  epilogue (:func:`pair_dx_plan`); ``pair_train_dw`` computes
+  ``dW2 = x1^T @ dz`` with x1 formed in its operand staging, the pair rows
+  split into ranges whose f32 partial sums a second pass adds
+  (:func:`pair_dw_plan`).  Neither x1, its gate nor dx1 is stored.
 * **K5** (:func:`bn_relu`, ``csrc/bn_relu.cu``): masked BN + ReLU whose
   residual is only the bf16 pre-activation; forward one moment pass and one
   elementwise pass, backward one pass for ``sum g`` and ``sum g * xhat`` and
@@ -34,6 +39,11 @@ their sum (which is rounded once), every pre-activation is stored in the
 compute dtype with its moments and the affine in float32, and the output
 linear runs in the compute dtype (bias added there) before the cast of the
 logits to float32.
+
+``remat`` (GRADIENT_CHECKPOINTING) recomputes the block after the per-side
+products in the backward, as the JAX path's ``jax.checkpoint(post)``:
+``torch.utils.checkpoint`` around it, so K4 and K5 run again through their
+autograd Functions and only ``a``, ``c`` and the inputs are kept.
 
 The streamed exact-BN scorer (K6, ``pair_logits_streaming_train``) is not
 ported: it exists to bound memory on a 16 GB TPU chip, and an 80 GB card
@@ -64,12 +74,11 @@ BN_MOMENTUM = 0.1  # torch BatchNorm1d default, as the JAX package
 STREAMING_LATER = ("the streamed exact-BN training scorer (K6, "
                    "TRAIN_STREAMING_LABEL_TILE > 0) is not ported (ROADMAP.md queue 1, "
                    "item 6); the decomposed scorer trains the default width on one card")
-CHECKPOINTING_LATER = ("GRADIENT_CHECKPOINTING is not ported (ROADMAP.md queue 1, item "
-                       "5e): the decomposed scorer keeps bf16 pre-activations only")
 
 # Launches of each kernel entry point since the process started (or since a
 # caller last set them to 0).
-LAUNCHES = {"pair_train_hidden": 0, "bn_relu_forward": 0, "bn_relu_backward": 0}
+LAUNCHES = {"pair_train_hidden": 0, "pair_train_dx": 0, "pair_train_dw": 0,
+            "bn_relu_forward": 0, "bn_relu_backward": 0}
 _launch_lock = threading.Lock()
 
 
@@ -301,10 +310,10 @@ def _pair_x1(a2: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
     return torch.relu(a2[:, None, :] + c2[None, :, :]).reshape(B * L, -1)
 
 
-def _pair_hidden_backward(a2, c2, w, dz):
+def _pair_hidden_backward_plain(a2, c2, w, dz):
     """K4's backward in plain PyTorch: ``(da2, dc2, dw)`` in the compute
     dtype.  x1 is formed again; the gate ``x1 > 0`` is the ReLU's
-    ``pre > 0``."""
+    ``pre > 0``; dx1 is rounded to the compute dtype before its sums."""
     B, L = a2.shape[0], c2.shape[0]
     x1 = _pair_x1(a2, c2)
     dw = x1.T @ dz
@@ -424,34 +433,207 @@ def _pair_hidden_fwd_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -
     return z
 
 
+# ----------------------------------------------------------------------
+# K4-bwd: dX with the gate and side sums, and dW with x1 formed on chip
+
+_DX_COLS = 128  # input columns of a dX tile (csrc/pair_train_bwd.cu DX_BN)
+_DW_ROWS = 64  # pair rows of a dW K-block (one sequence's)
+_DW_MAX_SPLITS = 32
+
+
+@dataclass(frozen=True)
+class PairDxPlan:
+    """The dX kernel's schedule (``pair_train_dx``): ``units`` (label tile,
+    column tile) pairs, label tiles outermost, walked by ``grid``
+    persistent blocks (block i takes units i, i + grid, ...).  A unit is
+    ``BLOCK_M`` labels x 128 input columns; its block runs the tile of
+    every sequence b = 0 .. B-1 in turn, reducing over N in 64-column
+    stages, adds each tile's gated column sums into da2 and stores the
+    unit's dc2 once (rows past L are neither loaded nor stored)."""
+
+    batch: int
+    labels: int
+    width_in: int  # K
+    width_out: int  # N
+    tiles_l: int
+    tiles_k: int
+    grid: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles_l * self.tiles_k
+
+    def unit(self, u: int) -> Tuple[int, int]:
+        """(first label l0, first input column k0) of unit u."""
+        lt, kt = divmod(u, self.tiles_k)
+        return lt * BLOCK_M, kt * _DX_COLS
+
+
+def pair_dx_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairDxPlan:
+    """The dX kernel's plan for a2 (B, K), c2 (L, K), W (K, N) and dz (B * L,
+    N).  Raises for widths it does not take: K a multiple of 128, N of 64."""
+    if B <= 0 or L <= 0 or num_sms <= 0:
+        raise ValueError(f"no K4-bwd plan for B {B}, L {L} on {num_sms} SMs")
+    if K <= 0 or N <= 0 or K % _DX_COLS or N % _DW_ROWS:
+        raise ValueError(f"the CUDA pair-train backward takes widths (in {K}, out {N}) that "
+                         f"are multiples of {_BLOCK_N}")
+    tiles_l, tiles_k = -(-L // BLOCK_M), K // _DX_COLS
+    if tiles_l * tiles_k > 2**31 - 1:
+        raise ValueError(f"L {L} x K {K}: more units than the kernel counts")
+    return PairDxPlan(B, L, K, N, tiles_l, tiles_k, min(num_sms, tiles_l * tiles_k))
+
+
+@dataclass(frozen=True)
+class PairDwPlan:
+    """The dW kernel's schedule (``pair_train_dw``): ``items`` (split,
+    output tile) pairs walked by ``grid`` persistent blocks.  An output tile
+    is ``BLOCK_M`` rows (input columns k) x ``block_n`` (256, or 128 where N
+    is an odd multiple of 128) columns (output columns n); its reduction over the B * L pair rows runs in K-blocks of
+    64 rows of one sequence (``kblocks`` = B * ceil(L / 64)), and split s
+    takes K-blocks ``split_range(s)``, writing f32 partial sums that a
+    second pass adds.  ``splits`` is the smallest count whose items fill one
+    wave of the card's SMs (at most 32, at most the K-blocks): at the
+    training shape 288 tiles already do, so 1 (more splits, which leave
+    fewer SMs idle in the last wave, were no faster on an H100:
+    ``chip_variants.py --k4-bwd``)."""
+
+    batch: int
+    labels: int
+    width_in: int  # K
+    width_out: int  # N
+    block_n: int
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    grid: int
+
+    @property
+    def lblocks(self) -> int:
+        return -(-self.labels // _DW_ROWS)
+
+    @property
+    def kblocks(self) -> int:
+        return self.batch * self.lblocks
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def items(self) -> int:
+        return self.splits * self.tiles
+
+    def item(self, t: int) -> Tuple[int, int, int]:
+        """(split, first input column m0, first output column n0) of item t."""
+        sp, r = divmod(t, self.tiles)
+        mt, nt = divmod(r, self.tiles_n)
+        return sp, mt * BLOCK_M, nt * self.block_n
+
+    def split_range(self, sp: int) -> Tuple[int, int]:
+        """The K-blocks [kb0, kb1) of split sp (the kernel's split_begin)."""
+        return (sp * self.kblocks // self.splits, (sp + 1) * self.kblocks // self.splits)
+
+    def kblock(self, kb: int) -> Tuple[int, int]:
+        """(sequence b, first label l0) of K-block kb."""
+        b, lb = divmod(kb, self.lblocks)
+        return b, lb * _DW_ROWS
+
+
+def pair_dw_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairDwPlan:
+    """The dW kernel's plan for a2 (B, K), c2 (L, K) and dz (B * L, N): the
+    column tile is 256 where N allows it, else 128 (narrower tiles fill the
+    last wave better but ran slower on an H100: ``chip_variants.py
+    --k4-bwd``).  Raises for widths it does not take: K and N multiples of
+    128."""
+    if B <= 0 or L <= 0 or num_sms <= 0:
+        raise ValueError(f"no K4-bwd plan for B {B}, L {L} on {num_sms} SMs")
+    if K <= 0 or N <= 0 or K % _BLOCK_N or N % _BLOCK_N:
+        raise ValueError(f"the CUDA pair-train backward takes widths (in {K}, out {N}) that "
+                         f"are multiples of {_BLOCK_N}")
+    block_n = _block_n(N)
+    tiles_m, tiles_n = K // BLOCK_M, N // block_n
+    kblocks = B * -(-L // _DW_ROWS)
+    if kblocks > 2**31 - 1 or tiles_m * tiles_n > 2**31 - 1:
+        raise ValueError(f"B {B} x L {L}: more K-blocks than the kernel counts")
+    splits = min(-(-num_sms // (tiles_m * tiles_n)), _DW_MAX_SPLITS, kblocks)
+    items = splits * tiles_m * tiles_n
+    return PairDwPlan(B, L, K, N, block_n, tiles_m, tiles_n, splits, min(num_sms, items))
+
+
+def _dx_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_train_bwd", "pair_train_dx", [_P] * 6 + [_I] * 5 + [_P])
+
+
+def _dw_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_train_bwd", "pair_train_dw", [_P] * 5 + [_I] * 7 + [_P])
+
+
+def _pair_hidden_backward_cuda(a2, c2, w, dz):
+    """K4-bwd's two kernels (``csrc/pair_train_bwd.cu``): ``(da2, dc2, dw)``
+    in bfloat16 as :func:`_pair_hidden_backward_plain`.  da2 is summed in a
+    zeroed float32 (B, K) scratch, dW in ``splits`` float32 (K, N) partial
+    sums."""
+    a2, c2, dz = a2.contiguous(), c2.contiguous(), dz.contiguous()
+    w = w.contiguous()
+    _check_pair_cuda(a2, c2, w)
+    B, K = a2.shape
+    L, N = c2.shape[0], w.shape[1]
+    if tuple(dz.shape) != (B * L, N) or dz.dtype != torch.bfloat16 or dz.device != a2.device:
+        raise ValueError(f"dz {tuple(dz.shape)} {dz.dtype} does not match z ({B * L}, {N}) "
+                         "bfloat16 on the inputs' device")
+    sms = torch.cuda.get_device_properties(a2.device).multi_processor_count
+    dx_plan = pair_dx_plan(B, L, K, N, sms)
+    dw_plan = pair_dw_plan(B, L, K, N, sms)
+    da2 = torch.zeros(B, K, dtype=torch.float32, device=a2.device)
+    dc2 = torch.empty(L, K, dtype=torch.bfloat16, device=a2.device)
+    partial = torch.empty(dw_plan.splits, K, N, dtype=torch.float32, device=a2.device)
+    dw = torch.empty(K, N, dtype=torch.bfloat16, device=a2.device)
+    stream = torch.cuda.current_stream(a2.device).cuda_stream
+    with torch.cuda.device(a2.device):
+        _raise_on(_dx_fn()(dz.data_ptr(), w.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+                           da2.data_ptr(), dc2.data_ptr(), B, L, K, N, dx_plan.grid, stream),
+                  "pair_train_dx")
+        _count("pair_train_dx")
+        _raise_on(_dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(), partial.data_ptr(),
+                           dw.data_ptr(), B, L, K, N, dw_plan.block_n, dw_plan.splits,
+                           dw_plan.grid, stream), "pair_train_dw")
+        _count("pair_train_dw")
+    return da2.to(torch.bfloat16), dc2, dw
+
+
 class _PairHidden(torch.autograd.Function):
-    """``z = relu(a2[b] + c2[l]) @ w`` (B * L, H2) by ``fwd`` (the plain or
-    the kernel forward); the backward is :func:`_pair_hidden_backward`."""
+    """``z = relu(a2[b] + c2[l]) @ w`` (B * L, H2) by ``fwd``, its gradients
+    by ``bwd`` (the plain or the kernel implementations)."""
 
     @staticmethod
-    def forward(ctx, a2, c2, w, fwd):
+    def forward(ctx, a2, c2, w, fwd, bwd):
         ctx.save_for_backward(a2, c2, w)
+        ctx.bwd = bwd
         return fwd(a2, c2, w)
 
     @staticmethod
     def backward(ctx, dz):
-        return (*_pair_hidden_backward(*ctx.saved_tensors, dz.contiguous()), None)
+        return (*ctx.bwd(*ctx.saved_tensors, dz.contiguous()), None, None)
 
 
 def pair_hidden(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``relu(a2[b] + c2[l]) @ w`` over all pairs, (B * L, H2) with rows
     ``b * L + l``, in the compute dtype.  CPU tensors take the plain
-    version, CUDA tensors the kernel."""
+    version, CUDA tensors the kernels (K4 forward, K4-bwd backward)."""
     if a2.device.type == "cpu":
         return pair_hidden_reference(a2, c2, w)
     if a2.device.type == "cuda":
-        return _PairHidden.apply(a2, c2, w, _pair_hidden_fwd_cuda)
+        return _PairHidden.apply(a2, c2, w, _pair_hidden_fwd_cuda, _pair_hidden_backward_cuda)
     raise ValueError(f"no pair-train scorer for device {a2.device}")
 
 
 def pair_hidden_reference(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """:func:`pair_hidden` through its plain version, on any device."""
-    return _PairHidden.apply(a2, c2, w, _pair_hidden_fwd_plain)
+    return _PairHidden.apply(a2, c2, w, _pair_hidden_fwd_plain, _pair_hidden_backward_plain)
 
 
 # ----------------------------------------------------------------------
@@ -475,7 +657,8 @@ def pair_logits_dense_decomposed(
 
     ``TRAIN_FUSED_BN_VJP`` is ignored: its two JAX settings compute one
     function, and the port always runs K5's two-pass backward.  ``remat``
-    (GRADIENT_CHECKPOINTING) raises."""
+    (GRADIENT_CHECKPOINTING) recomputes everything after the per-side
+    products in the backward."""
     return _decomposed(p, s, P_e, L_e, feature_fusion, example_mask, label_mask,
                        compute_dtype, remat, pair_hidden, bn_relu)
 
@@ -499,8 +682,6 @@ def pair_logits_dense_decomposed_reference(
 
 def _decomposed(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, compute_dtype,
                 remat, hidden_fn, bn_relu_fn):
-    if remat:
-        raise NotImplementedError(CHECKPOINTING_LATER)
     if feature_fusion not in ("concatenation", "concatenation_diff"):
         raise ValueError(f"decomposed path does not support {feature_fusion}")
     if s is None:
@@ -524,29 +705,40 @@ def _decomposed(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, comput
         c = c + layers[0]["bias"].float()
     rows = (em[:, None] * lm[None, :]).reshape(B * L, 1)
 
-    # analytic layer-1 statistics from the per-side tensors (float32)
-    mean_a, var_a, n_b = _masked_moments(a, em[:, None])
-    mean_c, var_c, n_l = _masked_moments(c, lm[:, None])
-    mean1, var1, n_pairs = mean_a + mean_c, var_a + var_c, n_b * n_l
-    inv1, shift1 = _affine(bns[0]["scale"], bns[0]["bias"], mean1, var1)
-    new_bns = [_update_running(s["bns"][0], mean1, var1, n_pairs)]
-    # the affine distributed to the sides before the broadcast
-    a2 = (a * inv1).to(compute_dtype)
-    c2 = (c * inv1 + shift1).to(compute_dtype)
-    if len(layers) == 1:
-        h = _pair_x1(a2, c2)
-    for i in range(1, len(layers)):
-        if i == 1:
-            z = hidden_fn(a2, c2, layers[1]["kernel"].to(compute_dtype))
-            if "bias" in layers[1]:
-                z = z + layers[1]["bias"].to(compute_dtype)
-        else:
-            z = linear(layers[i], h)
-        h, mean_i, var_i = bn_relu_fn(z, rows, n_pairs, bns[i]["scale"], bns[i]["bias"],
-                                      s["bns"][i]["mean"])
-        new_bns.append(_update_running(s["bns"][i], mean_i, var_i, n_pairs))
-    out = linear(p["out"], h)[..., 0].float()
-    return out.reshape(B, L), {"bns": new_bns}
+    def post(a, c):
+        # analytic layer-1 statistics from the per-side tensors (float32)
+        mean_a, var_a, n_b = _masked_moments(a, em[:, None])
+        mean_c, var_c, n_l = _masked_moments(c, lm[:, None])
+        mean1, var1, n_pairs = mean_a + mean_c, var_a + var_c, n_b * n_l
+        inv1, shift1 = _affine(bns[0]["scale"], bns[0]["bias"], mean1, var1)
+        new_bns = [_update_running(s["bns"][0], mean1, var1, n_pairs)]
+        # the affine distributed to the sides before the broadcast
+        a2 = (a * inv1).to(compute_dtype)
+        c2 = (c * inv1 + shift1).to(compute_dtype)
+        if len(layers) == 1:
+            h = _pair_x1(a2, c2)
+        for i in range(1, len(layers)):
+            if i == 1:
+                z = hidden_fn(a2, c2, layers[1]["kernel"].to(compute_dtype))
+                if "bias" in layers[1]:
+                    z = z + layers[1]["bias"].to(compute_dtype)
+            else:
+                z = linear(layers[i], h)
+            h, mean_i, var_i = bn_relu_fn(z, rows, n_pairs, bns[i]["scale"], bns[i]["bias"],
+                                          s["bns"][i]["mean"])
+            new_bns.append(_update_running(s["bns"][i], mean_i, var_i, n_pairs))
+        out = linear(p["out"], h)[..., 0].float()
+        return out.reshape(B, L), new_bns
+
+    if remat:
+        # the recomputation in the backward rebuilds the saved tensors only:
+        # the logits and running statistics are the first forward's
+        from torch.utils.checkpoint import checkpoint
+
+        logits, new_bns = checkpoint(post, a, c, use_reentrant=False)
+    else:
+        logits, new_bns = post(a, c)
+    return logits, {"bns": new_bns}
 
 
 def pair_logits_streaming_train(*args, **kwargs):

@@ -11,7 +11,14 @@ applies the same arithmetic in place on the parameter tensors:
   ``||g|| + 1e-6`` instead.)
 * **Adam**: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``,
   ``u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)`` with eps = 1e-8
-  outside the square root; **AdamW** adds ``wd * p`` to ``u``; **SGD** is
+  outside the square root; **AdamW** adds ``wd * p`` to ``u``.
+  ``OPTIMIZER_MOMENT_DTYPE: bfloat16`` stores mu in bf16 as optax's
+  ``mu_dtype`` does, with the arithmetic of the JAX train step, where XLA
+  compiles the update: b1 is rounded to bf16 (JAX rounds a Python scalar to
+  the array's dtype), ``b1 * mu`` and its sum with ``(1 - b1) g`` are f32
+  and feed ``u``, and mu is rounded to bf16 only when it is stored; nu stays
+  f32.  (Eager optax also rounds the product ``b1 * mu`` to bf16; XLA's
+  fusion does not.)  **SGD** is
   ``u = g`` (plus ``wd * p`` before it when WEIGHT_DECAY is set: the
   reference's L2 decay, after clipping).  Then ``p += -lr * u``.
 * **accumulation** over k steps: the running mean of the k gradients, then
@@ -33,10 +40,9 @@ import torch
 
 Tree = Any
 
-MOMENT_DTYPE_LATER = ("OPTIMIZER_MOMENT_DTYPE (a bfloat16 Adam first moment) is not "
-                      "ported (ROADMAP.md queue 1, item 5g); leave it null")
-MASK_LATER = ("a trainable mask comes with the trainable label encoder (K8, ROADMAP.md "
-              "queue 1, item 8); its optax multi_transform state is not read")
+MASK_LATER = ("a trainable mask comes with training the label tower (K8a-bwd, K8b-bwd, "
+              "ROADMAP.md queue 1, item 14); its optax multi_transform state is not read")
+MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam / optax.adamw defaults
 
@@ -71,8 +77,10 @@ class Optimizer:
         self.name = params_cfg.get("OPTIMIZER", "Adam")
         if self.name not in ("Adam", "AdamW", "SGD"):
             raise ValueError(f"Unknown optimizer {self.name}")
-        if params_cfg.get("OPTIMIZER_MOMENT_DTYPE"):
-            raise NotImplementedError(MOMENT_DTYPE_LATER)
+        mu_dtype = params_cfg.get("OPTIMIZER_MOMENT_DTYPE")
+        if mu_dtype and str(mu_dtype) not in MOMENT_DTYPES:
+            raise ValueError(f"OPTIMIZER_MOMENT_DTYPE {mu_dtype!r}: one of {sorted(MOMENT_DTYPES)}")
+        self.mu_dtype = MOMENT_DTYPES[str(mu_dtype)] if mu_dtype else torch.float32
         self.lr = float(params_cfg.get("LEARNING_RATE", 3e-4))
         self.wd = float(params_cfg.get("WEIGHT_DECAY", 0.0) or 0.0)
         clip = params_cfg.get("CLIP_VALUE")
@@ -88,7 +96,7 @@ class Optimizer:
         zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
         state: Dict[str, Any] = {"count": 0, "mu": None, "nu": None}
         if self.adam:
-            state["mu"] = tree_map(zeros, trainable)
+            state["mu"] = tree_map(lambda t: torch.zeros_like(t, dtype=self.mu_dtype), trainable)
             state["nu"] = tree_map(zeros, trainable)
         if self.accum > 1:
             state.update(mini_step=0, gradient_step=0, acc_grads=tree_map(zeros, trainable))
@@ -132,9 +140,13 @@ class Optimizer:
                 continue
             if self.adam:
                 mu, nu = mus[i], nus[i]
-                mu.copy_((1 - B1) * x + B1 * mu)
+                # b1 in the moment dtype (bf16 with OPTIMIZER_MOMENT_DTYPE), the
+                # new moment in f32, rounded to the moment dtype when stored
+                b1 = float(torch.tensor(B1, dtype=self.mu_dtype))
+                m = (1 - B1) * x + b1 * mu.float()
+                mu.copy_(m.to(self.mu_dtype))
                 nu.copy_((1 - B2) * (x * x) + B2 * nu)
-                u = (mu / bc1.to(mu.device)) / (torch.sqrt(nu / bc2.to(nu.device)) + EPS)
+                u = (m / bc1.to(m.device)) / (torch.sqrt(nu / bc2.to(nu.device)) + EPS)
                 if self.name == "AdamW":
                     u = u + self.wd * p
             else:

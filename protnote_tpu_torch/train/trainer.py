@@ -4,8 +4,8 @@ Port of ``protnote_tpu/train/trainer.py`` for one device:
 
 * ``train``/``train_one_epoch``: the epoch loop over the bucketed batcher,
   one train step per batch (frozen encoder, heads, the decomposed scorer
-  K4 + K5, the loss, autograd, the optimizer), full-vocabulary tp/fp/fn
-  summed on the device (:class:`TrainConfusionAccumulator`), validation
+  K4 + K5 and K4-bwd, the loss, autograd, the optimizer), tp/fp/fn summed
+  into full-vocabulary totals on the device (:class:`TrainConfusionAccumulator`), validation
   every ``epochs_per_validation`` epochs, and the checkpoint policy of the
   reference (best validation metric, best validation loss, every 10 epochs,
   the last epoch), then the best checkpoint reloaded.
@@ -30,10 +30,18 @@ Port of ``protnote_tpu/train/trainer.py`` for one device:
   per-row scales).  Auto scales are a function of the weights, so a
   training epoch and ``load`` drop them; supplied ones are kept.
 
+Label layouts: training batches may carry a label subset (fixed, shuffled,
+in-batch or grid sampling): the train step runs K4 and K4-bwd at the batch's
+label count and the epoch's tp/fp/fn are scatter-added at its
+``label_indices``.  Evaluation takes a fixed subset (metrics over the sampled
+prefix) or, with ``ESTIMATE_MAP``, a varying one (K3 scatters through its
+``cols`` path), and label embeddings shipped with every batch
+(``DEVICE_RESIDENT_LABEL_EMBEDDINGS False``), which the eval step projects
+batch by batch, as the JAX trainer does.
+
 Checkpoints are ``PNTPU1`` files that the JAX ``restore_checkpoint`` reads,
-written synchronously.  Label-subsampled batchers, label embeddings shipped
-with every batch, profiler traces, wandb, the text tower and meshes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+written synchronously.  Profiler traces, wandb, the text tower and meshes
+are not ported; the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -66,14 +74,6 @@ from protnote_tpu_torch.train.step import (
 )
 
 logger = logging.getLogger(__name__)
-
-SUBSET_LATER = ("label-subsampled or per-batch label layouts (label sampling, "
-                "shuffled/in-batch labels, grid tiles) are not ported yet "
-                "(ROADMAP.md queue 1, item 3)")
-TRAIN_SUBSET_LATER = ("label-subset training batches (TRAIN_LABEL_SAMPLE_SIZE, "
-                      "SHUFFLE_LABELS, IN_BATCH_SAMPLING, GRID_SAMPLER) are not ported "
-                      "(ROADMAP.md queue 1, item 5c)")
-
 
 def _is_grid(batcher) -> bool:
     """Grid-batcher detection by its signature attribute (a PrefetchBatcher
@@ -148,23 +148,43 @@ class ThroughputMeter:
 
 
 class TrainConfusionAccumulator:
-    """Sums the train step's per-label tp/fp/fn over an epoch on the device
-    (the full-vocabulary path of the JAX accumulator; label-subset batches
-    raise)."""
+    """Sums the train step's per-column tp/fp/fn into full-vocabulary totals
+    on the device, as the JAX accumulator: full-vocabulary batches add
+    column-wise; a label-subset batch (fixed, shuffled, in-batch or grid
+    sampling) is scatter-added at its ``label_indices`` (``index_add_``),
+    after the totals so far are promoted to full width."""
 
     def __init__(self, num_labels: int):
         self.num_labels = num_labels
         self.tp = self.fp = self.fn = None
 
     def update(self, metrics: Dict[str, Any], label_indices=None) -> None:
-        if label_indices is not None and len(label_indices) != self.num_labels:
-            raise NotImplementedError(TRAIN_SUBSET_LATER)
-        if self.tp is None:
-            self.tp, self.fp, self.fn = (metrics[k].clone() for k in ("tp", "fp", "fn"))
+        counts = [metrics[k] for k in ("tp", "fp", "fn")]
+        full = label_indices is None or len(label_indices) == self.num_labels
+        if full and self.tp is None:
+            self.tp, self.fp, self.fn = (c.clone() for c in counts)
             return
-        self.tp += metrics["tp"]
-        self.fp += metrics["fp"]
-        self.fn += metrics["fn"]
+        if full and self.tp.shape == counts[0].shape:
+            for acc, c in zip((self.tp, self.fp, self.fn), counts):
+                acc += c
+            return
+        # subset or mixed widths: promote to full-vocabulary totals, folding
+        # in the full-width counts summed so far
+        if self.tp is None or self.tp.shape[0] != self.num_labels:
+            dev = counts[0].device
+            base = [torch.zeros(self.num_labels, dtype=torch.int32, device=dev)
+                    for _ in range(3)]
+            if self.tp is not None:
+                w = min(self.tp.shape[0], self.num_labels)
+                for b, acc in zip(base, (self.tp, self.fp, self.fn)):
+                    b[:w] += acc[:w].to(torch.int32)
+            self.tp, self.fp, self.fn = base
+        cols = torch.as_tensor(
+            np.asarray(label_indices if label_indices is not None
+                       else np.arange(self.num_labels), np.int64), device=self.tp.device)
+        n = cols.shape[0]
+        for acc, c in zip((self.tp, self.fp, self.fn), counts):
+            acc.index_add_(0, cols, c[:n].to(torch.int32))
 
     def compute(self) -> Dict[str, float]:
         if self.tp is None:
@@ -514,16 +534,14 @@ class Trainer:
         if threshold_sweep is not None and subset:
             raise ValueError("threshold sweep requires full-vocabulary batches; "
                              "disable label sampling on the batcher")
-        if subset or not self._latents_eligible(batcher):
-            raise NotImplementedError(SUBSET_LATER)
-        if not getattr(batcher, "device_label_gather", False):
-            raise NotImplementedError(
-                "label embeddings shipped with every batch "
-                "(DEVICE_RESIDENT_LABEL_EMBEDDINGS False) are not ported (ROADMAP.md "
-                "queue 1, item 3); the port gathers from the resident label matrix")
 
         self.ensure_int8_calibrated(batcher)
-        eff_labels = int(represented.sum()) if represented is not None else num_labels
+        if fixed_subset:  # a constant column layout: metrics cover the sampled prefix
+            eff_labels = int(sample_size)
+        elif represented is not None:
+            eff_labels = int(represented.sum())
+        else:
+            eff_labels = num_labels
         metrics = None
         if compute_metrics:
             metrics = EvalMetrics(
@@ -551,15 +569,22 @@ class Trainer:
         step = self._fused_eval_step(device_acc) if device_acc is not None else None
         all_logits, all_labels, all_ids = [], [], []
         emb_rows, emb_ids = [], []
-        label_matrix = self._label_matrix_for(batcher.ds)
+        label_matrix = (self._label_matrix_for(batcher.ds)
+                        if getattr(batcher, "device_label_gather", False) else None)
+        # a batch-invariant label layout gathered from the resident matrix is
+        # projected through W_l once; otherwise (per-batch subsets, label
+        # embeddings shipped with every batch) the eval step projects each
+        # batch's rows
+        latents_ok = self._latents_eligible(batcher)
         latents = None
         losses: List[torch.Tensor] = []
         self.meter.reset()
         for batch_idx, batch in enumerate(batcher):
             arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix)
-            if latents is None:  # the label layout is batch-invariant here
-                latents = self._label_latents(arrays)
-            arrays = self._swap_in_latents(arrays, latents)
+            if latents_ok and "label_rows" in arrays:
+                if latents is None:
+                    latents = self._label_latents(arrays)
+                arrays = self._swap_in_latents(arrays, latents)
             if device_acc is not None and "label_multihots" in arrays:
                 cols = device_acc.cols_for(batch.label_indices,
                                            arrays["label_multihots"].shape[1])
@@ -602,7 +627,8 @@ class Trainer:
                 probs = probs[:, represented]
                 labels = labels[:, represented] if labels is not None else None
             if labels is not None:
-                metrics.update(probs, labels)
+                metrics.update(probs, labels,
+                               label_indices=batch.label_indices if varying_subset else None)
             self.meter.add(len(ids), self._batch_label_width(batch, num_labels))
             if save_results:
                 all_logits.append(logits.astype(np.float16))

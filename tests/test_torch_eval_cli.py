@@ -258,6 +258,54 @@ def test_find_optimal_threshold_matches_jax(checkpoint, env):
         assert 0 < got[1] <= 1
 
 
+EVAL_LAYOUTS = {
+    # (batcher arguments, GridBatcher tile, ESTIMATE_MAP)
+    "fixed_device": (dict(label_sample_size=4), None, True),
+    "fixed_host": (dict(label_sample_size=4), None, False),
+    "shuffled": (dict(label_sample_size=4, shuffle_labels=True), None, True),
+    "in_batch": (dict(in_batch_sampling=True), None, True),
+    "grid": ({}, 4, True),
+    "shipped_device": (dict(device_label_gather=False), None, True),
+    "shipped_host": (dict(device_label_gather=False), None, False),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(EVAL_LAYOUTS))
+def test_subset_evaluation_matches_jax(checkpoint, env, layout):
+    """``Trainer.evaluate`` on the validation split through label-subset
+    batchers (a fixed sampled prefix on the device and on the host; shuffled,
+    in-batch and grid subsets that change every batch, which K3 scatters
+    through its ``cols`` path) and with the label embeddings shipped in
+    every batch (``DEVICE_RESIDENT_LABEL_EMBEDDINGS False``): the metric
+    dicts of the JAX and the port's trainers on the same batches."""
+    from protnote_tpu.data.batching import BucketBatcher, GridBatcher
+    from protnote_tpu.data.dataset import DatasetConfig, ProteinDataset
+
+    config, port, jtr, cache = _trainers(checkpoint)
+    kwargs, tile, estimate = EVAL_LAYOUTS[layout]
+    port.cfg.estimate_map = jtr.cfg.estimate_map = estimate
+    ds = ProteinDataset(config["dataset_paths"]["validation"][0],
+                        DatasetConfig.from_params(config["params"], "validation"),
+                        label_embedding_cache=cache)
+    kwargs = dict(dict(device_label_gather=True), **kwargs)
+
+    def batcher():
+        b = BucketBatcher(ds, 4, buckets=(128,), descriptions_per_label=2, seed=3, **kwargs)
+        return GridBatcher(b, tile) if tile else b
+
+    got = port.evaluate(batcher(), data_split_name="validation")["metrics"]
+    want = jtr.evaluate(batcher(), data_split_name="validation")["metrics"]
+    assert set(got) == set(want) and "map_macro" in got
+    for k, v in want.items():
+        if not k.endswith(RATES):
+            assert got[k] == pytest.approx(v, abs=1e-6, rel=0), k
+    widths = {len(b.label_indices) for b in batcher()}
+    if layout.startswith(("fixed", "shuffled", "grid")):
+        assert max(widths) == 4 < ds.num_labels
+    if layout == "in_batch":
+        assert len(widths) > 1  # the label count changes from batch to batch
+
+
 def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
     """The same checkpoint through both trainers' eval steps on every test
     and validation batch: logits to 1e-5, and no probability near a bin
@@ -302,14 +350,10 @@ def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
 @pytest.mark.parametrize("extra, overrides, match", [
     (["--train-path-name", "TRAIN_DATA_PATH", "--validation-path-name", "VAL_DATA_PATH"],
      ["TRAIN_SEQUENCE_ENCODER", "True"], "training"),
-    (["--train-path-name", "TRAIN_DATA_PATH"], ["TRAIN_LABEL_SAMPLE_SIZE", "4"], "training"),
     (["--profile-dir", "prof"], [], "training"),
     ([], ["LABEL_ENCODER_NUM_TRAINABLE_LAYERS", "1"], "text tower"),
     ([], ["PAIR_BACKEND", "dense"], "dense"),
     (["--mesh-label", "2"], [], "multi-GPU"),
-    (["--validation-path-name", "VAL_DATA_PATH", "--train-path-name", "TRAIN_DATA_PATH"],
-     ["VALIDATION_LABEL_SAMPLE_SIZE", "4"], "label-subsampled"),
-    ([], ["DEVICE_RESIDENT_LABEL_EMBEDDINGS", "False"], "resident"),
 ])
 def test_unported_branches_raise(checkpoint, env, extra, overrides, match):
     import protnote_tpu_torch.cli.main as tmain
@@ -321,8 +365,8 @@ def test_unported_branches_raise(checkpoint, env, extra, overrides, match):
 
 
 def test_unported_evaluate_arguments_raise(checkpoint, env):
-    """Label-subsampled batchers raise with their ROADMAP item; the
-    combinations the JAX ``evaluate`` refuses raise its ``ValueError``s."""
+    """The combinations the JAX ``evaluate`` refuses raise its
+    ``ValueError``s."""
     import protnote_tpu_torch.cli.main as tmain
     from protnote_tpu_torch.cli._model_setup import build_models
     from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -335,8 +379,6 @@ def test_unported_evaluate_arguments_raise(checkpoint, env):
     pi_cfg, pn_cfg, ts = build_models(config, 32, num_aa=20)
     tr = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig(estimate_map=True), device="cpu")
     fake = type("B", (), {"ds": _Ds(), "label_sample_size": 4})()
-    with pytest.raises(NotImplementedError, match="label-subsampled"):
-        tr.evaluate(fake)
     with pytest.raises(ValueError, match="threshold sweep requires full-vocabulary"):
         tr.evaluate(fake, threshold_sweep=np.array([0.5], np.float32))
     with pytest.raises(ValueError, match="cannot export full-vocabulary"):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: the pair scorer (K1), its int8 form
 (K2), the eval accumulator (K3), the threshold-sweep counter (K9), the
-training pair GEMM (K4), BN+ReLU (K5),
+training pair GEMM (K4) and its backward (K4-bwd), BN+ReLU (K5),
 the text tower's masked attention (K8a) and residual LayerNorm (K8b) against
 their plain PyTorch versions, and the serving engine on CUDA against
 the same engine on the CPU.  These need an NVIDIA
@@ -25,6 +25,10 @@ steps (rtol 2^-6, atol 1e-2: the GEMM sums in another order, and the BN
 affine's float32 inverse square root may differ by an ulp), float32 moments
 to 1e-5 relative, the float32 column sums of the backward to 1e-3 relative
 (other summation orders over ~1,500 rows of bf16 products).
+K4-bwd on the same bf16 inputs on both sides: da2, dc2 and dW each within
+1e-2 of the plain output's largest |value| (both round dx1 to bf16 before
+its sums, but the products and the sums run in other orders, so an element
+of dx1 or of an output can land one bf16 step apart).
 K8a and K8b on the same bf16 inputs on both sides: within 1e-2 of the plain
 output's largest |value| (two bf16 steps: the score and output sums run in
 other orders, so a probability or an output can round to the neighbouring
@@ -368,6 +372,76 @@ def test_pair_train_kernel_raises_on_what_it_does_not_take():
     bf16 = torch.bfloat16
     with pytest.raises(ValueError, match="multiples of 128"):
         st.pair_hidden(a2.to(bf16), c2.to(bf16), w.to(bf16))
+
+
+K4_BWD_REL_TOL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,K,N", [(5, 301, 128, 256), (1, 301, 256, 384), (3, 1, 128, 128),
+                                     (4, 200, 384, 512), (2, 130, 256, 128)])
+def test_pair_train_backward_kernels_match_plain_on_card(B, L, K, N):
+    """K4-bwd's two kernels through ``pair_hidden``'s backward (one launch
+    each) against the plain backward: L not a multiple of 64 or 128 (the
+    last label tile of each sequence ragged), one sequence, one label, the
+    256- and the 128-column dW tile."""
+    _card()
+    rng = np.random.default_rng(17)
+    a2, c2 = _bf16(rng, B, K), _bf16(rng, L, K)
+    w = _bf16(rng, K, N, scale=0.2)
+    dz = _bf16(rng, B * L, N)
+    leaves = [t.clone().requires_grad_(True) for t in (a2, c2, w)]
+    before = dict(st.LAUNCHES)
+    st.pair_hidden(*leaves).backward(dz)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["pair_train_dx"] - before["pair_train_dx"] == 1
+    assert st.LAUNCHES["pair_train_dw"] - before["pair_train_dw"] == 1
+    want = st._pair_hidden_backward_plain(a2, c2, w, dz)
+    for got, ref in zip((t.grad for t in leaves), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert float(ref.float().abs().max()) > 0
+        err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+        assert err <= K4_BWD_REL_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n", [128, 256])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_pair_train_dw_column_tiles_on_card(block_n, splits):
+    """The dW kernel with each of its column tiles and with split pair rows
+    (f32 partial sums added by the second pass), through its entry point,
+    against the plain backward's dW."""
+    _card()
+    rng = np.random.default_rng(19)
+    B, L, K, N = 2, 130, 256, 768
+    a2, c2 = _bf16(rng, B, K), _bf16(rng, L, K)
+    w = _bf16(rng, K, N, scale=0.2)
+    dz = _bf16(rng, B * L, N)
+    part = torch.empty(splits, K, N, device="cuda")
+    dw = torch.empty(K, N, device="cuda", dtype=torch.bfloat16)
+    err = st._dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(), part.data_ptr(),
+                      dw.data_ptr(), B, L, K, N, block_n, splits, 7,
+                      torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = st._pair_hidden_backward_plain(a2, c2, w, dz)[2].float()
+    assert float((dw.float() - want).abs().max() / want.abs().max()) <= K4_BWD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_pair_train_backward_kernels_raise_on_what_they_do_not_take():
+    dev = _card()
+    bf16 = torch.bfloat16
+    a2, c2 = torch.zeros(2, 128, device=dev, dtype=bf16), torch.zeros(3, 128, device=dev,
+                                                                        dtype=bf16)
+    w = torch.zeros(128, 128, device=dev, dtype=bf16)
+    with pytest.raises(ValueError, match="does not match"):
+        st._pair_hidden_backward_cuda(a2, c2, w, torch.zeros(5, 128, device=dev, dtype=bf16))
+    with pytest.raises(ValueError, match="does not match"):
+        st._pair_hidden_backward_cuda(a2, c2, w, torch.zeros(6, 128, device=dev))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        st._pair_hidden_backward_cuda(a2[:, :64].contiguous(), c2[:, :64].contiguous(), w[:64],
+                                      torch.zeros(6, 128, device=dev, dtype=bf16))
 
 
 @pytest.mark.cuda

@@ -6,7 +6,13 @@ optimizer state against optax's in the checkpoint layout, and an optax state
 converted mid-run (``from_jax_tree``) and stepped on by both.
 
 Tolerance 1e-5 absolute on parameters and moments (float32; optax and the
-port round ``1 - b^t`` and the moment updates in their own orders).
+port round ``1 - b^t`` and the moment updates in their own orders).  With
+``OPTIMIZER_MOMENT_DTYPE: bfloat16`` (optax's ``mu_dtype``) the chain runs
+under ``jax.jit``, as in the JAX train step (XLA keeps ``b1 * mu`` in f32,
+where eager optax rounds it to bf16), and the bf16 first moment is held to
+optax's within one bf16 step on at most 1% of its elements (the f32 sums
+may differ in their last bit and round to the neighbouring bf16 value),
+parameters and the f32 second moment to 1e-5.
 """
 
 import numpy as np
@@ -39,12 +45,13 @@ def _grads(n, scale, seed=1):
         for _ in range(n)]
 
 
-def _run_jax(cfg, grads, mask=None, params=None, state=None):
+def _run_jax(cfg, grads, mask=None, params=None, state=None, jit=False):
     tx = make_optimizer(cfg, trainable_mask=mask)
     params = jax.tree_util.tree_map(jnp.asarray, params if params is not None else _params())
     state = tx.init(params) if state is None else state
+    update = jax.jit(tx.update) if jit else tx.update
     for g in grads:
-        upd, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, params)
+        upd, state = update(jax.tree_util.tree_map(jnp.asarray, g), state, params)
         params = optax.apply_updates(params, upd)
     return jax.tree_util.tree_map(np.asarray, params), state
 
@@ -150,8 +157,59 @@ def _adam_state(state):
 
 
 def test_moment_dtype_and_unknown_optimizer_raise():
-    with pytest.raises(NotImplementedError, match="OPTIMIZER_MOMENT_DTYPE"):
-        Optimizer({"OPTIMIZER_MOMENT_DTYPE": "bfloat16"})
+    with pytest.raises(ValueError, match="OPTIMIZER_MOMENT_DTYPE"):
+        Optimizer({"OPTIMIZER_MOMENT_DTYPE": "float16"})
     with pytest.raises(ValueError, match="Unknown optimizer"):
         Optimizer({"OPTIMIZER": "Lion"})
     assert len(tree_leaves(_params())) == 3
+
+
+def _bf16_np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("case", ["adam_clip_binds", "adam_no_clip", "adamw", "adam_accum2"])
+def test_bf16_first_moment_matches_optax(case):
+    """``OPTIMIZER_MOMENT_DTYPE: bfloat16``: 6 updates against optax's
+    ``mu_dtype=bfloat16`` under ``jax.jit`` (b1 rounded to bf16, the update
+    from the f32 moment, mu rounded when stored; nu f32)."""
+    cfg, scale = CASES[case]
+    cfg = dict(cfg, OPTIMIZER_MOMENT_DTYPE="bfloat16")
+    grads = _grads(6, scale)
+    want, jstate = _run_jax(cfg, grads, jit=True)
+    got, state, _ = _run_port(cfg, grads)
+    _close(got, want)
+    jadam = _adam_state(jstate)
+    mus = tree_leaves(state["mu"])
+    assert all(m.dtype == torch.bfloat16 for m in mus)
+    assert all(np.asarray(m).dtype == jnp.bfloat16 for m in jax.tree_util.tree_leaves(jadam.mu))
+    a = np.concatenate([_bf16_np(m).ravel() for m in mus])
+    b = np.concatenate([np.asarray(m, np.float32).ravel()
+                        for m in jax.tree_util.tree_leaves(jadam.mu)])
+    off = a != b
+    assert off.mean() <= 0.01
+    np.testing.assert_allclose(a, b, rtol=2.0 ** -7, atol=0)
+    _close(jax.tree_util.tree_map(lambda t: t.numpy(), state["nu"]), jadam.nu)
+    # the f32 first moment differs: the bf16 rounding is really taken
+    f32, _, _ = _run_port(CASES[case][0], grads)
+    assert any(not np.array_equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(got),
+                                                        jax.tree_util.tree_leaves(f32)))
+
+
+def test_bf16_first_moment_converts_and_continues():
+    """3 optax updates with a bf16 mu, the state through ``from_jax_tree``
+    (restored moments are float32 like the template) and the load path's
+    cast back to the moment dtype, then 3 more updates on each side."""
+    cfg = dict(CASES["adam_clip_binds"][0], OPTIMIZER_MOMENT_DTYPE="bfloat16")
+    grads = _grads(6, 3.0)
+    mid, jstate = _run_jax(cfg, grads[:3], jit=True)
+    want, _ = _run_jax(cfg, grads[3:], params=mid, state=jstate, jit=True)
+    f32 = lambda t: np.asarray(t, np.float32)  # noqa: E731
+    ts = from_jax_tree({"trainable": mid, "opt_state": jax.tree_util.tree_map(f32, jstate),
+                        "step": np.int32(3)})
+    opt = Optimizer(cfg)
+    state = dict(ts["opt_state"], mu=jax.tree_util.tree_map(
+        lambda t: t.to(opt.mu_dtype), ts["opt_state"]["mu"]))
+    got, state, _ = _run_port(cfg, grads[3:], params=jax.tree_util.tree_map(
+        lambda t: t.numpy(), ts["trainable"]), state=state)
+    _close(got, want)

@@ -69,14 +69,14 @@ def _loss_weights(seed=2):
     return np.random.default_rng(seed).normal(size=(B, L)).astype(np.float32)
 
 
-def _jax_run(p, s, P_e, L_e, em, lm, fusion, fused, dtype=jnp.float32):
+def _jax_run(p, s, P_e, L_e, em, lm, fusion, fused, dtype=jnp.float32, remat=False):
     w = jnp.asarray(_loss_weights()) * jnp.asarray(em)[:, None] * jnp.asarray(lm)[None, :]
 
     def f(p_, P_, L_):
         lg, new = jst.pair_logits_dense_decomposed(
             p_, jax.tree_util.tree_map(jnp.asarray, s), P_, L_, fusion,
             example_mask=jnp.asarray(em), label_mask=jnp.asarray(lm), compute_dtype=dtype,
-            fused_bn_vjp=fused)
+            remat=remat, fused_bn_vjp=fused)
         return jnp.sum(jax.nn.sigmoid(lg) * w), (lg, new)
 
     (_, (lg, new)), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
@@ -84,7 +84,7 @@ def _jax_run(p, s, P_e, L_e, em, lm, fusion, fused, dtype=jnp.float32):
     return jax.tree_util.tree_map(np.asarray, (lg, new, grads))
 
 
-def _port_run(p, s, P_e, L_e, em, lm, fusion, dtype=torch.float32):
+def _port_run(p, s, P_e, L_e, em, lm, fusion, dtype=torch.float32, remat=False):
     t = from_jax_tree({"p": p, "s": s})
     leaves = []
 
@@ -97,7 +97,7 @@ def _port_run(p, s, P_e, L_e, em, lm, fusion, dtype=torch.float32):
     Pg, Lg = track(torch.from_numpy(P_e)), track(torch.from_numpy(L_e))
     lg, new = tst.pair_logits_dense_decomposed(
         tp, t["s"], Pg, Lg, fusion, example_mask=torch.from_numpy(em),
-        label_mask=torch.from_numpy(lm), compute_dtype=dtype)
+        label_mask=torch.from_numpy(lm), compute_dtype=dtype, remat=remat)
     w = torch.from_numpy(_loss_weights()) * torch.from_numpy(em)[:, None] * \
         torch.from_numpy(lm)[None, :]
     (torch.sigmoid(lg) * w).sum().backward()
@@ -134,6 +134,49 @@ def test_decomposed_bf16_matches_jax():
     got_lg, _, _ = _port_run(p, s, P_e, L_e, em, lm, "concatenation", torch.bfloat16)
     valid = (em[:, None] * lm[None, :]) > 0
     np.testing.assert_allclose(got_lg[valid], want_lg[valid], atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("fusion", ["concatenation", "concatenation_diff"])
+def test_remat_matches_jax(fusion):
+    """GRADIENT_CHECKPOINTING: the port's ``remat=True`` (torch.utils.checkpoint
+    around the post-layer-1 block) against the JAX ``remat=True``
+    (``jax.checkpoint(post)``): logits, new running statistics and every
+    gradient, float32."""
+    p, s = _weights(fusion)
+    P_e, L_e, em, lm = _inputs()
+    want_lg, want_new, want_g = _jax_run(p, s, P_e, L_e, em, lm, fusion, False, remat=True)
+    got_lg, got_new, got_g = _port_run(p, s, P_e, L_e, em, lm, fusion, remat=True)
+    np.testing.assert_allclose(got_lg, want_lg, atol=TOL, rtol=0)
+    for a, b in zip(jax.tree_util.tree_leaves(got_new), jax.tree_util.tree_leaves(want_new)):
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=0)
+    got_leaves, want_leaves = (jax.tree_util.tree_leaves(g) for g in (got_g, want_g))
+    assert len(got_leaves) == len(want_leaves) == 13
+    for a, b in zip(got_leaves, want_leaves):
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=0)
+
+
+def test_remat_bf16_matches_jax():
+    p, s = _weights()
+    P_e, L_e, em, lm = _inputs()
+    want_lg, _, _ = _jax_run(p, s, P_e, L_e, em, lm, "concatenation", False, jnp.bfloat16,
+                             remat=True)
+    got_lg, _, _ = _port_run(p, s, P_e, L_e, em, lm, "concatenation", torch.bfloat16,
+                             remat=True)
+    valid = (em[:, None] * lm[None, :]) > 0
+    np.testing.assert_allclose(got_lg[valid], want_lg[valid], atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_equals_no_remat_on_cpu(dtype):
+    """The recomputation runs the same plain functions on the same inputs:
+    logits, running statistics and gradients come out bit for bit equal;
+    the running statistics are the first forward's."""
+    p, s = _weights()
+    P_e, L_e, em, lm = _inputs()
+    runs = [_port_run(p, s, P_e, L_e, em, lm, "concatenation", dtype, remat=r)
+            for r in (False, True)]
+    for a, b in zip(jax.tree_util.tree_leaves(runs[0]), jax.tree_util.tree_leaves(runs[1])):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_bn_relu_function_matches_jax():
@@ -250,8 +293,6 @@ def test_unported_settings_raise():
     p, s = _weights()
     t = from_jax_tree({"p": p, "s": s})
     P_e, L_e, _, _ = (torch.from_numpy(a) for a in _inputs())
-    with pytest.raises(NotImplementedError, match="GRADIENT_CHECKPOINTING"):
-        tst.pair_logits_dense_decomposed(t["p"], t["s"], P_e, L_e, remat=True)
     with pytest.raises(NotImplementedError, match="K6"):
         tst.pair_logits_streaming_train(t["p"], t["s"], P_e, L_e)
 
@@ -357,3 +398,123 @@ def test_pair_train_plan_layout_matches_jax():
     got = z.numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()
+
+
+# ----------------------------------------------------------------------
+# K4-bwd's launch plans (csrc/pair_train_bwd.cu runs their walks; the card
+# tests hold the kernels to the plain backward)
+
+_BWD_SHAPES = [(5, 301, 128, 256), (1, 301, 256, 384), (3, 1, 128, 128), (2, 64, 128, 256),
+               (4, 200, 384, 512), (1, 1, 128, 128), (2, 130, 256, 128), (2, 70, 128, 1536)]
+
+
+def _bwd_inputs(B, L, K, N, seed=13):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, K)), rng.normal(size=(L, K)), rng.normal(size=(K, N)),
+            rng.normal(size=(B * L, N)))
+
+
+@pytest.mark.parametrize("B,L,K,N", _BWD_SHAPES)
+def test_pair_dx_plan_walk_matches_plain_backward(B, L, K, N):
+    """The dX kernel's walk emulated in float64: every unit (128 labels x 128
+    input columns) runs its tile of each sequence in turn, gates
+    ``dz @ W^T`` by ``a2[b] + c2[l] > 0``, adds the tile's column sums into
+    da2 and stores its dc2 once, rows past L left out.  Every dc2 element is
+    written once, every dx1 element summed into da2 once, and da2 and dc2
+    equal the plain backward's in float64."""
+    a2, c2, w, dz = _bwd_inputs(B, L, K, N)
+    plan = tst.pair_dx_plan(B, L, K, N, num_sms=7)
+    assert plan.units == -(-L // 128) * (K // 128) and plan.grid == min(7, plan.units)
+    dz3 = dz.reshape(B, L, N)
+    da2, dc2 = np.zeros((B, K)), np.full((L, K), np.nan)
+    writes, summed = np.zeros((L, K), int), np.zeros((B, L, K), int)
+    blocks = {i: list(range(i, plan.units, plan.grid)) for i in range(plan.grid)}
+    for units in blocks.values():
+        for u in units:
+            l0, k0 = plan.unit(u)
+            assert l0 % 128 == 0 and l0 < L and k0 % 128 == 0 and k0 < K
+            r, c = slice(l0, min(l0 + 128, L)), slice(k0, k0 + 128)
+            dc = 0.0
+            for b in range(B):
+                dx1 = np.where(a2[b, c] + c2[r, c] > 0, dz3[b, r] @ w[c].T, 0.0)
+                dc = dc + dx1
+                da2[b, c] += dx1.sum(0)
+                summed[b, r, c] += 1
+            dc2[r, c] = dc
+            writes[r, c] += 1
+    assert (writes == 1).all() and (summed == 1).all()
+    want = tst._pair_hidden_backward_plain(*(torch.from_numpy(x) for x in (a2, c2, w, dz)))
+    np.testing.assert_allclose(da2, want[0].numpy(), rtol=1e-12, atol=1e-10)
+    np.testing.assert_allclose(dc2, want[1].numpy(), rtol=1e-12, atol=1e-10)
+
+
+@pytest.mark.parametrize("B,L,K,N", _BWD_SHAPES)
+def test_pair_dw_plan_walk_matches_plain_backward(B, L, K, N):
+    """The dW kernel's walk emulated in float64: each item (split, 128 x
+    block_n output tile) forms x1 = relu(a2[b] + c2) for the K-blocks of its
+    split (64 rows of one sequence; c2 rows past L read as zeros, where dz
+    is zero too) and writes its partial sums once; the splits partition the
+    K-blocks, so every pair row is summed into each output tile once, and
+    the sum of the partials equals the plain backward's dW in float64."""
+    a2, c2, w, dz = _bwd_inputs(B, L, K, N)
+    plan = tst.pair_dw_plan(B, L, K, N, num_sms=7)
+    assert plan.block_n == (256 if N % 256 == 0 else 128)
+    assert plan.kblocks == B * -(-L // 64) and 1 <= plan.splits <= min(32, plan.kblocks)
+    ranges = [plan.split_range(sp) for sp in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.kblocks
+    assert all(r0[1] == r1[0] for r0, r1 in zip(ranges, ranges[1:]))
+    pad = -(-L // 64) * 64
+    dz3 = np.concatenate([dz.reshape(B, L, N), np.zeros((B, pad - L, N))], 1)
+    c2p = np.concatenate([c2, np.zeros((pad - L, K))])
+    partial = np.full((plan.splits, K, N), np.nan)
+    writes = np.zeros((plan.splits, K, N), int)
+    used = np.zeros((plan.tiles, B, pad), int)
+    for t in range(plan.items):
+        sp, m0, n0 = plan.item(t)
+        m, n = slice(m0, m0 + 128), slice(n0, n0 + plan.block_n)
+        acc = np.zeros((128, plan.block_n))
+        for kb in range(*plan.split_range(sp)):
+            b, l0 = plan.kblock(kb)
+            assert l0 % 64 == 0 and l0 < L  # a K-block never crosses a sequence
+            x1 = np.maximum(a2[b, m] + c2p[l0:l0 + 64, m], 0.0)
+            acc += x1.T @ dz3[b, l0:l0 + 64, n]
+            used[t % plan.tiles, b, l0:l0 + 64] += 1
+        partial[sp, m, n] = acc
+        writes[sp, m, n] += 1
+    assert (writes == 1).all() and (used == 1).all()
+    want = tst._pair_hidden_backward_plain(*(torch.from_numpy(x) for x in (a2, c2, w, dz)))
+    np.testing.assert_allclose(partial.sum(0), want[2].numpy(), rtol=1e-12, atol=1e-9)
+
+
+def test_pair_bwd_plans_at_the_training_shape():
+    """B 32 x L 32,102 at H 3072: dX walks 251 label tiles x 24 column tiles
+    (6,024 units, 45.6 a block); dW's 288 tiles of 128 x 256 fill a wave of
+    132 SMs, so one split walks all 16,064 K-blocks.  With fewer tiles the
+    pair rows are split until a wave is full, in ranges that differ by at
+    most one K-block."""
+    B, L, H = 32, 32102, 3072
+    dx = tst.pair_dx_plan(B, L, H, H, num_sms=132)
+    assert (dx.tiles_l, dx.tiles_k, dx.units, dx.grid) == (251, 24, 6024, 132)
+    dw = tst.pair_dw_plan(B, L, H, H, num_sms=132)
+    assert (dw.block_n, dw.tiles, dw.kblocks, dw.splits, dw.items) == (256, 288, 16064, 1, 288)
+    assert dw.split_range(0) == (0, 16064)
+    assert dw.kblock(dw.kblocks - 1) == (31, 32064)  # the last 38 labels of the last sequence
+    small = tst.pair_dw_plan(B, L, 512, 512, num_sms=132)  # 8 tiles of 128 x 256
+    assert (small.block_n, small.splits, small.items) == (256, 17, 136)
+    sizes = {b - a for a, b in (small.split_range(s) for s in range(small.splits))}
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("K,N", [(64, 256), (128, 200), (192, 128), (0, 128)])
+def test_pair_bwd_plans_refuse_widths(K, N):
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tst.pair_dw_plan(5, 301, K, N)
+    if K % 128:
+        with pytest.raises(ValueError, match="multiples of 128"):
+            tst.pair_dx_plan(5, 301, K, N)
+
+
+def test_pair_bwd_cuda_wrapper_refuses_cpu_tensors():
+    a2, c2, w = (torch.zeros(s, dtype=torch.bfloat16) for s in ((2, 128), (3, 128), (128, 128)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tst._pair_hidden_backward_cuda(a2, c2, w, torch.zeros(6, 128, dtype=torch.bfloat16))

@@ -17,6 +17,26 @@ within that of the decision threshold or an AUPRC bin edge (none does on
 this fixture), and only float32 sums of the counts differ.  The port's
 ``last_epoch`` checkpoint restores in the JAX ``restore_checkpoint``, and
 the JAX CLI evaluates it to the port's metrics.
+
+The training settings of the JAX CLI run through both CLIs the same way:
+label-subset training (fixed, shuffled, in-batch and grid layouts, where
+the scorer runs at each batch's label count), a validation label subset (on
+the device through K3's ``cols`` path and on the host), label embeddings
+shipped with every batch, ``GRADIENT_CHECKPOINTING`` and a bfloat16 Adam
+first moment: histories and test metrics as above, and the trainable
+parameters and Adam moments of both last checkpoints to 1e-5 absolute and
+1e-4 relative.  The two sides' float32 parameters differ in their last bits
+after a few steps, and Adam magnifies that where a gradient is near its
+eps (it divides two tiny moments): on this fixture one parameter in a
+thousand moves by ~1e-5.  The in-batch layout trains one epoch: its sixth
+step's loss (~0.6) came out 1.1e-4 apart on the two sides after five steps
+that agreed to 4e-6, with the same label sets (a probe on this fixture).
+With the bfloat16 first moment, an f32 moment whose last bit differs can
+round to the neighbouring bf16 value (tests/test_torch_optim.py), which
+moves its parameter by up to LEARNING_RATE x 2^-8 = 1.2e-5 a step: there
+parameters and moments to 1e-4 absolute.
+``TrainConfusionAccumulator`` is held to the JAX accumulator exactly
+(integer counts).
 """
 
 import json
@@ -132,9 +152,9 @@ def start(env):
     return str(path), params
 
 
-def _run(module, name, extra):
+def _run(module, name, extra, overrides=()):
     args = module.build_argparser().parse_args(
-        ["--name", name, *extra, "--override", *OVERRIDES])
+        ["--name", name, *extra, "--override", *OVERRIDES, *overrides])
     return module.run(args)
 
 
@@ -213,3 +233,82 @@ def test_from_checkpoint_resumes_with_moments(start, env):
     _assert_metrics_close(got["train_summary"]["history"][0],
                           want["train_summary"]["history"][0])
     _assert_metrics_close(got["test"], want["test"])
+
+
+SETTINGS = {
+    "fixed": ["TRAIN_LABEL_SAMPLE_SIZE", "4"],
+    "shuffled": ["TRAIN_LABEL_SAMPLE_SIZE", "4", "SHUFFLE_LABELS", "True"],
+    "in_batch": ["IN_BATCH_SAMPLING", "True", "NUM_EPOCHS", "1"],
+    "grid": ["GRID_SAMPLER", "True", "TRAIN_LABEL_SAMPLE_SIZE", "4"],
+    "val_subset": ["VALIDATION_LABEL_SAMPLE_SIZE", "4"],
+    "val_subset_host": ["VALIDATION_LABEL_SAMPLE_SIZE", "4", "ESTIMATE_MAP", "False"],
+    "shipped": ["DEVICE_RESIDENT_LABEL_EMBEDDINGS", "False"],
+    "remat": ["GRADIENT_CHECKPOINTING", "True"],
+    "bf16_moment": ["OPTIMIZER_MOMENT_DTYPE", "bfloat16"],
+}
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_training_settings_match_jax_cli(start, env, setting):
+    """2 epochs from one checkpoint with one training setting on both CLIs:
+    the histories (train loss and F1s from the scatter-added counts, the
+    validation metrics), the test metrics, and the trainable parameters and
+    Adam moments of the two last checkpoints."""
+    import protnote_tpu.cli.main as jmain
+    import protnote_tpu_torch.cli.main as tmain
+    from protnote_tpu.core.checkpoint import restore_checkpoint
+
+    ckpt, params = start
+    roles = ["--train-path-name", "TRAIN_DATA_PATH", "--validation-path-name",
+             "VAL_DATA_PATH", "--test-paths-names", "TEST_DATA_PATH", "--model-file", ckpt]
+    overrides = SETTINGS[setting]
+    want = _run(jmain, f"jax{setting}", roles, overrides)
+    got = _run(tmain, f"port{setting}", roles + ["--device", "cpu"], overrides)
+    assert len(got["train_summary"]["history"]) == (1 if setting == "in_batch" else 2)
+    for g, w in zip(got["train_summary"]["history"], want["train_summary"]["history"]):
+        _assert_metrics_close(g, w)
+    _assert_metrics_close(got["test"], want["test"])
+    pn, pi, init_pn, init_pi, init_ts, make_opt = _jax_template(params)
+    template = init_ts(*init_pn(jax.random.PRNGKey(0), pn), *init_pi(jax.random.PRNGKey(0), pi),
+                       make_opt(params))
+    out = env / "outputs" / "checkpoints"
+    trees = [restore_checkpoint(str(next(out.glob(f"*_{name}{setting}_last_epoch.ckpt"))),
+                                template)[0] for name in ("port", "jax")]
+    atol = 1e-4 if setting == "bf16_moment" else 1e-5
+    for key in ("trainable", "opt_state"):
+        a, b = (jax.tree_util.tree_leaves(t[key]) for t in trees)
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(np.asarray(x, np.float32), np.asarray(y, np.float32),
+                                       atol=atol, rtol=1e-4)
+
+
+def test_train_confusion_accumulator_matches_jax():
+    """Full-width, subset (with padded slots past its labels) and again
+    full-width batches: the port's totals equal the JAX accumulator's,
+    including the promotion of the full-width totals summed before the
+    first subset, and a run that starts with a subset."""
+    import jax.numpy as jnp
+    import torch
+
+    from protnote_tpu.train.trainer import TrainConfusionAccumulator as JaxAcc
+    from protnote_tpu_torch.train.trainer import TrainConfusionAccumulator as PortAcc
+
+    rng = np.random.default_rng(5)
+    L = 12
+
+    def counts(width):
+        return {k: rng.integers(0, 5, width).astype(np.int32) for k in ("tp", "fp", "fn")}
+
+    sub_a = np.array([3, 7, 1, 11])
+    sub_b = np.array([0, 5, 7, 2, 9])
+    for seq in ([(L, None), (6, sub_a), (L, None), (8, sub_b), (L, np.arange(L))],
+                [(5, sub_b), (L, None), (4, sub_a)]):
+        jacc, tacc = JaxAcc(L), PortAcc(L)
+        for width, idx in seq:
+            m = counts(width)
+            jacc.update({k: jnp.asarray(v) for k, v in m.items()}, idx)
+            tacc.update({k: torch.from_numpy(v) for k, v in m.items()}, idx)
+        for k in ("tp", "fp", "fn"):
+            np.testing.assert_array_equal(getattr(tacc, k).numpy(), np.asarray(getattr(jacc, k)))
+        assert tacc.compute() == pytest.approx(jacc.compute(), abs=0)

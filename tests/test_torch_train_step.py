@@ -202,7 +202,6 @@ def test_unported_training_settings_raise():
     _, tpi_cfg, _, tpn = _configs()
     batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
     for change, match in (({"train_label_tile": 8}, "K6"),
-                          ({"gradient_checkpointing": True}, "GRADIENT_CHECKPOINTING"),
                           ({"pair_backend": "tiled"}, "dense"),
                           ({"dropout": 0.1}, "OUTPUT_MLP_DROPOUT")):
         cfg = dataclasses.replace(tpn, **change)

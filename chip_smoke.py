@@ -121,13 +121,36 @@ Phases, each printing one line (any failure raises and exits non-zero):
     ProtNote weights, label embedding width 1024 = the tower's H), one full
     batch of 32 sequences through K1: batch ms, K1's launches, and the
     probabilities against the same chain through the plain tower and the
-    plain pair scorer.
+    plain pair scorer;
+16. the tower's backward kernels alone, K8a-bwd (``csrc/text_attention_bwd.cu``)
+    and K8b-bwd (``csrc/layer_norm.cu``), at phase 13's three shapes against
+    their plain backward: dq, dk, dv, dx, dscale and dbias each within 2^-6
+    of the plain tensor's largest |value|, K8b-bwd the same bits twice; CUDA
+    event times, ``torch.profiler`` device times, and the backward of SDPA
+    and of ``F.layer_norm`` after a bf16 add as yardsticks;
+17. training the tower at full width through ``Trainer.train``: 32 sequences
+    a step with in-batch label sampling, every description row given random
+    token ids of 16-128 tokens padded to 128; E5-large (24 layers, float32
+    master weights, bf16 compute) with LoRA (rank 4, alpha 8) on its last 2
+    layers for 9 steps, then with the whole tower trainable and its last 2
+    layers unfrozen (so the backward runs through all 24 layers) for 9
+    steps, and BioGPT with LoRA for 3 steps (K8a-bwd causal); each run's
+    step times, seqs/s, descriptions/s, peak memory, the launches of every
+    kernel, a validation pass through the tower on a 1,024-label subset, the
+    idle share of 3 profiled steps, and one step's gradients: the tower
+    alone under one fixed cotangent on its pooled output, each trained leaf
+    (the LoRA adapters or the unfrozen layers) through the kernels within
+    5e-2 of the plain chain's (L2) and of the plain backward's on the
+    kernels' forward (largest |value|), and the whole step's ``grad_norm``
+    within 5e-2 of the plain chain's.
 
 Then one JSON line with every kernel: its launches on its path (K1 and K3
 in the training run, whose validation evaluates; K9 in the first sweep
 evaluation of 7b; K4, K4-bwd and K5 in training; K2
 in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
-run; each count set to 0 just before the path and read just after), its error against the plain version, its time,
+run; K8a-bwd and K8b-bwd summed over the three tower-training runs, each
+of their calls two kernel launches, both counted; each count set to 0 just
+before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
 over the dense peak of their type) and, where one PyTorch call computes the
@@ -164,7 +187,8 @@ PROB_ATOL = 1e-2
 LOGIT_ATOL = 5e-2
 
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
-                  "pair_scorer_int8", "text_attention", "layer_norm", "threshold_sweep")
+                  "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
+                  "threshold_sweep")
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -237,6 +261,14 @@ K8_REL_TOL = 1e-2
 # through 24 layers; the pooled (mean) embeddings within 5e-2 of their
 # largest |value|
 TOWER_REL_TOL = 5e-2
+# training the tower (phase 17): 32 sequences a step with in-batch label
+# sampling (~128 descriptions), random token ids of 16-128 tokens padded to
+# 128; LoRA rank 4, alpha 8, or the whole tower with the last 2 layers
+# unfrozen; validation on a 1,024-label subset
+TOWER_TRAIN_LENGTHS = (16, 128)
+TOWER_TRAIN_LAYERS = 2
+TOWER_LORA_RANK, TOWER_LORA_ALPHA = 4, 8.0
+TOWER_VAL_LABELS = 1024
 
 
 def bound(nbytes: float = 0.0, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
@@ -2580,6 +2612,485 @@ def phase_zero_shot(rows, plain_rows, card: str):
                              f"(atol {PROB_ATOL})")
 
 
+def phase_k8_bwd(card: str):
+    """K8a-bwd and K8b-bwd alone at phase 13's shapes against their plain
+    backward on the same device tensors; the backward of SDPA and of
+    ``F.layer_norm`` after a bf16 add as yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    nh, hd, Hd = 16, 64, 1024
+    gen = torch.Generator().manual_seed(40)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    out = {}
+    for name, Bq, T, lo, hi, causal in K8_SHAPES:
+        _, mask = token_batch(gen, Bq, T, lo, hi, 100, 1)
+        q, k, v, g = (torch.randn(Bq, nh, T, hd, generator=gen).to(dev, bf16) for _ in range(4))
+        got = k8a.masked_attention_backward_cuda(q, k, v, mask, causal, g)
+        want = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+        torch.cuda.synchronize()
+        errs = {n: rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        a_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        del got, want
+        keep = (mask > 0)[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        add_mask = torch.where(keep, 0.0, k8a.MASKED).to(bf16)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        ctx = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=add_mask)
+
+        def kernel():
+            return k8a.masked_attention_backward_cuda(q, k, v, mask, causal, g)
+
+        def library():
+            return torch.autograd.grad(ctx, (ql, kl, vl), g, retain_graph=True)
+
+        frac = 0.5 if causal else 1.0  # the products a causal row needs
+        attn = {"ms": cuda_time_ms(kernel, 10),
+                "plain_ms": cuda_time_ms(lambda: k8a.masked_attention_backward_reference(
+                    q, k, v, mask, causal, g), 3),
+                "library_ms": cuda_time_ms(library, 10), "max_abs_err": a_err, "rel_err": errs,
+                "finite": finite,
+                **bound(nbytes=7.0 * q.numel() * 2 + 4.0 * mask.numel(),
+                        ops=10.0 * Bq * nh * T * T * hd * frac)}
+        attn["device_ms"], attn["host_ms"] = device_and_host_ms(kernel, 10)
+        del ctx, ql, kl, vl, add_mask, q, k, v, g
+        torch.cuda.empty_cache()
+        rows = Bq * T
+        x = torch.randn(rows, Hd, generator=gen).to(dev, bf16)
+        r = None if causal else torch.randn(rows, Hd, generator=gen).to(dev, bf16)
+        gy = torch.randn(rows, Hd, generator=gen).to(dev, bf16)
+        scale = (0.5 + torch.rand(Hd, generator=gen)).to(dev)
+        bias = (0.1 * torch.randn(Hd, generator=gen)).to(dev)
+        stats = torch.empty(rows, 2, device=dev)
+        k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5, stats)
+        got = k8b.add_layer_norm_backward_cuda(x, r, scale, stats, gy)
+        _, plain_stats = k8b._reference_with_stats(x, r, scale, bias, 1e-5)
+        want = k8b.add_layer_norm_backward_reference(x, r, scale, plain_stats, gy)
+        torch.cuda.synchronize()
+        n_errs = {n: rel(a, b) for n, a, b in zip(("dx", "dscale", "dbias"), got, want)}
+        n_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        finite = finite and all(bool(torch.isfinite(a).all()) for a in got)
+        again = k8b.add_layer_norm_backward_cuda(x, r, scale, stats, gy)
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, want, again
+        xl = x.detach().clone().requires_grad_(True)
+        rl = None if r is None else r.detach().clone().requires_grad_(True)
+        sb = scale.to(bf16).requires_grad_(True)
+        bb = bias.to(bf16).requires_grad_(True)
+        y = F.layer_norm(xl if rl is None else xl + rl, (Hd,), sb, bb, 1e-5)
+        wrt = [t for t in (xl, rl, sb, bb) if t is not None]
+
+        def n_kernel():
+            return k8b.add_layer_norm_backward_cuda(x, r, scale, stats, gy)
+
+        def n_library():
+            return torch.autograd.grad(y, wrt, gy, retain_graph=True)
+
+        norm = {"ms": cuda_time_ms(n_kernel, 20),
+                "plain_ms": cuda_time_ms(lambda: k8b.add_layer_norm_backward_reference(
+                    x, r, scale, stats, gy), 5),
+                "library_ms": cuda_time_ms(n_library, 20), "max_abs_err": n_err,
+                "rel_err": n_errs, "deterministic": deterministic,
+                **bound(nbytes=2.0 * rows * Hd * (3 if r is None else 4) + 8.0 * rows
+                        + 12.0 * Hd)}
+        for key, fn in (("", n_kernel), ("library_", n_library)):
+            norm[f"{key}device_ms"], norm[f"{key}host_ms"] = device_and_host_ms(fn, 20)
+        del x, r, gy, y, xl, rl, stats, plain_stats
+        torch.cuda.empty_cache()
+        out[name] = {"text_attention_bwd": attn, "add_layer_norm_bwd": norm}
+        log("k8_bwd_check", shape=name, batch=Bq, tokens=T, lengths=[lo, hi], causal=causal,
+            heads=nh, head_dim=hd, width=Hd, finite=finite, rel_tol=K45_REL_TOL,
+            text_attention_bwd=attn, add_layer_norm_bwd=norm, card=card)
+        worst = max(list(errs.values()) + list(n_errs.values()))
+        if not finite or not deterministic or worst > K45_REL_TOL:
+            raise AssertionError(f"K8 backward ({name}) disagrees with its plain version: "
+                                 f"{errs} {n_errs} (rel tol {K45_REL_TOL}), finite {finite}, "
+                                 f"deterministic {deterministic}")
+    return out
+
+
+class FirstBatches:
+    """The first ``n`` batches of ``batcher`` each epoch (other attributes
+    are the batcher's): a training run of a fixed number of steps."""
+
+    def __init__(self, batcher, n: int):
+        self.batcher, self.n = batcher, n
+
+    def __iter__(self):
+        for i, batch in enumerate(self.batcher):
+            if i == self.n:
+                break
+            yield batch
+
+    def __len__(self) -> int:
+        return min(self.n, len(self.batcher))
+
+    def __getattr__(self, name):
+        return getattr(self.batcher, name)
+
+
+def tower_token_table(gen, rows: int, vocab: int, pad: int):
+    """Random token ids for every description row of the label cache:
+    lengths 16-128, padded to 128 (int32 numpy, as the CLI tokenizes
+    ``cache.descriptions``)."""
+    import torch
+
+    lengths = torch.randint(TOWER_TRAIN_LENGTHS[0], TOWER_TRAIN_LENGTHS[1] + 1, (rows,),
+                            generator=gen)
+    mask = (torch.arange(TOWER_TRAIN_LENGTHS[1])[None, :] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(3, vocab, (rows, TOWER_TRAIN_LENGTHS[1]), generator=gen)
+    ids = torch.where(mask > 0, ids, torch.full_like(ids, pad)).to(torch.int32)
+    return ids.numpy(), mask.numpy()
+
+
+def phase_tower_training(card: str):
+    """Training the label tower at full width through ``Trainer.train``:
+    E5-large with LoRA and with the last two layers unfrozen, BioGPT with
+    LoRA (K8a-bwd causal); per run the steps' times, rates, peak memory, a
+    profiled idle share, the kernels' launches and a validation pass through
+    the tower; one step's gradients through the kernels against the plain
+    chain.  Returns the backward kernels' launches over the three runs."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.models.text_transformer import (
+        TextEncoderConfig,
+        init_lora,
+        init_text_encoder,
+        text_encoder_forward_reference,
+        trainable_mask,
+    )
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.ops import text_attention as k8a
+    from protnote_tpu_torch.train import step as step_mod
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer, tree_leaves, tree_map
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    buckets = (256, 512, 1024)
+    totals = {"text_attention_bwd": 0, "add_layer_norm_bwd": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = train_datasets(tmp)
+        weights = train_ds.calculate_sequence_weights(
+            train_ds.calculate_label_weights(power=0.5), "sum")
+        pi_cfg, pn_cfg, ts = random_models()
+        loss_fn = get_loss_fn(TRAIN_PARAMS)
+        gen = torch.Generator().manual_seed(41)
+        rows = NUM_LABELS * K_DESCRIPTIONS
+
+        def train_batcher():
+            return BucketBatcher(train_ds, TRAIN_B, buckets=buckets, shuffle=True,
+                                 drop_last=True, seed=42, sequence_weights=weights,
+                                 in_batch_sampling=True, device_label_gather=True)
+
+        def val_batcher():
+            return BucketBatcher(val_ds, TRAIN_B, buckets=buckets, seed=5,
+                                 label_sample_size=TOWER_VAL_LABELS,
+                                 descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True)
+
+        def run(name, cfg, seed, lora: bool, steps_n: int):
+            t0 = time.perf_counter()
+            text = init_text_encoder(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                                     "cuda")  # float32 master weights
+            adapters, mask = None, None
+            if lora:
+                adapters = init_lora(torch.Generator(device="cuda").manual_seed(seed + 1), cfg,
+                                     rank=TOWER_LORA_RANK, last_n_layers=TOWER_TRAIN_LAYERS,
+                                     device="cuda")
+                for entry in adapters.values():  # B non-zero: A gets a gradient from step 1
+                    for t in entry.values():
+                        t["B"] = 1e-3 * torch.randn(t["B"].shape, generator=gen).to(dev)
+            else:
+                mask = {"protnote": tree_map(lambda _: True, ts["trainable"]["protnote"]),
+                        "text": trainable_mask(text, cfg, TOWER_TRAIN_LAYERS)}
+            opt = Optimizer(TRAIN_PARAMS, trainable_mask=mask)
+            ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
+                                   ts["enc_params"], ts["enc_state"], opt, text_params=text,
+                                   train_label_encoder=not lora, lora_params=adapters)
+            tokens = tower_token_table(gen, rows, cfg.vocab_size, cfg.pad_token_id)
+            trainer = Trainer(ts0, pi_cfg, pn_cfg, TrainerConfig(
+                num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True), device=dev,
+                loss_fn=loss_fn, optimizer=opt, text_cfg=cfg, label_tokens=tokens,
+                pooling_method="mean", lora_alpha=TOWER_LORA_ALPHA, lora_rank=TOWER_LORA_RANK)
+            setup_s = time.perf_counter() - t0
+            steps, step_fn = [], trainer._train_step
+
+            def timed_step(ts_, batch, g):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts_, m = step_fn(ts_, batch, g)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"]),
+                              int(batch["label_input_ids"].shape[0])))
+                return ts_, m
+
+            trainer._train_step = timed_step
+            k8a.LAUNCHES = k8a.BWD_LAUNCHES = k8b.LAUNCHES = k8b.BWD_LAUNCHES = 0
+            for k in st.LAUNCHES:
+                st.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary = trainer.train(FirstBatches(train_batcher(), steps_n), val_batcher())
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {"text_attention": k8a.LAUNCHES, "text_attention_bwd": k8a.BWD_LAUNCHES,
+                        "add_layer_norm": k8b.LAUNCHES, "add_layer_norm_bwd": k8b.BWD_LAUNCHES,
+                        **st.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            trainer._train_step = step_fn
+            losses = [x[1] for x in steps]
+            med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
+            descs = statistics.median([x[3] for x in steps])
+            hist = summary["history"][0]
+            if len(steps) != steps_n or not all(math.isfinite(x) for x in losses) or \
+                    any(v <= 0 for v in launches.values()) or \
+                    not math.isfinite(hist.get("val_map_micro", float("nan"))):
+                raise AssertionError(f"tower training {name}: losses {losses}, launches "
+                                     f"{launches}, history {hist}")
+            totals["text_attention_bwd"] += launches["text_attention_bwd"]
+            totals["add_layer_norm_bwd"] += launches["add_layer_norm_bwd"]
+
+            # three profiled steps, and one step's gradients against the plain chain
+            inner = train_batcher()
+            inner.set_epoch(1)
+            batches = []
+            for batch in inner:
+                batches.append(batch)
+                if len(batches) == PROFILE_STEPS:
+                    break
+            matrix = trainer._label_matrix_for(train_ds)
+            placed = [trainer._place(batch_to_device_dict(b, dev), matrix, b) for b in batches]
+            g_prof = torch.Generator(device=dev).manual_seed(1)
+            it = iter(placed)
+
+            def one_step():
+                trainer.ts, _ = step_fn(trainer.ts, next(it), g_prof)
+
+            wall, busy, top = device_profile(one_step, len(placed))
+            grads = tower_grad_check(trainer, placed[0], cfg, lora, step_mod,
+                                     text_encoder_forward_reference)
+            fields = dict(arch=cfg.arch, layers=cfg.num_layers, width=cfg.hidden_size,
+                          lora=lora, lora_rank=TOWER_LORA_RANK if lora else None,
+                          trained_layers=TOWER_TRAIN_LAYERS, steps=len(steps),
+                          sequences_per_step=TRAIN_B, descriptions_per_step=[x[3] for x in steps],
+                          tokens=TOWER_TRAIN_LENGTHS, step_losses=losses,
+                          grad_norms=[x[2] for x in steps], first_step_ms=steps[0][0] * 1e3,
+                          median_warm_step_ms=med * 1e3, seqs_per_s=TRAIN_B / med,
+                          descriptions_per_s=descs / med, peak_mem_gb=peak, setup_s=setup_s,
+                          run_s=run_s, launches=launches,
+                          val_labels=TOWER_VAL_LABELS, val_map_micro=hist.get("val_map_micro"),
+                          val_loss=hist.get("val_loss"),
+                          profile_wall_ms_per_step=wall * 1e3 / len(placed),
+                          profile_device_busy_ms_per_step=None if busy is None
+                          else busy * 1e3 / len(placed),
+                          idle_share=None if busy is None else 1.0 - busy / wall,
+                          top_kernels_ms_per_step=top, grad_check=grads)
+            log("tower_train", run=name, **fields, card=card)
+            del trainer, ts0, text, adapters, placed, batches
+            torch.cuda.empty_cache()
+
+        run("e5_large_lora", TextEncoderConfig.e5_large(dtype=bf16), 42, True, 9)
+        run("e5_large_last2", TextEncoderConfig.e5_large(dtype=bf16), 43, False, 9)
+        run("biogpt_lora", TextEncoderConfig.biogpt(dtype=bf16), 44, True, 3)
+    return totals
+
+
+def tower_grad_check(trainer, batch, cfg, lora: bool, step_mod, plain_forward) -> dict:
+    """One step's gradients on the run's weights and one batch of its label
+    text, through the kernels and through the plain chain:
+
+    * the tower alone, the scorer left out: one fixed cotangent on the
+      pooled label embeddings through ``text_encoder_forward`` (K8a, K8b and
+      their backward kernels) and through the plain forward with plain
+      autograd, gradients reaching every leaf that trains (as in the step,
+      so with the whole tower trainable the backward runs through all its
+      layers).  Each trained leaf (LoRA A and B, or the unfrozen layers)
+      through the kernels within GRAD_REL_TOL of the plain chain's in L2
+      (|kernels - plain| / |plain|), and within GRAD_REL_TOL of the largest
+      |value| of the same chain's with the plain backward (K8a-bwd's and
+      K8b-bwd's plain versions on the kernels' forward);
+    * the whole train step (a keeper optimizer that updates nothing):
+      ``grad_norm`` within GRAD_REL_TOL of the plain chain's.
+
+    Logged, not held: all trained leaves' L2 distance to float32's, for
+    the tower alone and for the whole step (the scorer's part is the
+    difference between the two).
+
+    Why L2 across the forward: in the E5 runs the q and k leaves'
+    gradients lie 4-5% (L2) from float32's in both bf16 chains, and as far
+    with the attention core alone in float32, while the other leaves lie
+    within 1.3%; single elements of them move by up to 6-8% between any
+    two bf16 chains (read on an H100 with this check).  Logged beside: the
+    largest elementwise difference, and the L2 distance of each chain to
+    the plain chain in float32 (the kernels, the plain chain, the plain
+    chain with its attention core in float32), the q and k leaves apart
+    from the rest.
+
+    The key bias has a zero gradient in exact arithmetic (a softmax does not
+    see a constant added to a row of scores): its values are float32 noise,
+    held below 1e-3 of the largest gradient on both sides and left out of
+    the comparisons."""
+    import dataclasses
+
+    import torch
+
+    from protnote_tpu_torch.models.text_transformer import pool_hidden_states
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import text_attention as k8a
+    from protnote_tpu_torch.train.optim import tree_leaves
+    from protnote_tpu_torch.train.step import make_train_step
+
+    class KeepGrads:
+        def update(self, grads, trainable, state):
+            self.grads = grads
+            return state
+
+    def named(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in named(tree[k], f"{path}/{k}")]
+        if isinstance(tree, list):
+            return [x for i, v in enumerate(tree) for x in named(v, f"{path}/{i}")]
+        return [(path, tree)]
+
+    def plain_ln_backward(x, r, scale, stats, g):
+        return k8b.add_layer_norm_backward_reference(x, r, scale,
+                                                     stats.reshape(*x.shape[:-1], 2), g)
+
+    plain_core = k8a.masked_attention_reference
+
+    def f32_core(q, k, v, key_mask, causal):
+        return plain_core(q.float(), k.float(), v.float(), key_mask, causal).to(q.dtype)
+
+    def patched(patch, fn):
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patch]
+        for mod, name, f in patch:
+            setattr(mod, name, f)
+        try:
+            return fn()
+        finally:
+            for mod, name, f in saved:
+                setattr(mod, name, f)
+
+    trainable, kw = trainer.ts["trainable"], trainer._tower_kwargs
+    text_params = trainable.get("text", trainer.ts.get("text_params"))
+    adapters = trainable.get("lora")
+    wrt = tree_leaves(trainable["lora" if lora else "text"])
+    sub = adapters if lora else text_params["layers"][cfg.num_layers - TOWER_TRAIN_LAYERS:]
+    names = {id(t): n for n, t in named(sub)}
+    ids, am = batch["label_input_ids"], batch["label_attention_mask"]
+    cot = torch.randn(ids.shape[0], cfg.hidden_size, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def tower_grads(forward, text_cfg):
+        for t in wrt:
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                hidden = forward(text_params, ids, am, text_cfg, lora=adapters,
+                                 lora_alpha=kw["lora_alpha"], lora_rank=kw["lora_rank"])
+                pooled = pool_hidden_states(hidden, am, kw["pooling_method"])
+                grads = torch.autograd.grad((pooled.float() * cot).sum(), wrt)
+        finally:
+            for t in wrt:
+                t.requires_grad_(False)
+        return {names[id(t)]: g.float() for t, g in zip(wrt, grads) if id(t) in names}
+
+    bf16_cfg = kw["text_cfg"]
+    tower = {
+        "kernels": tower_grads(step_mod.text_encoder_forward, bf16_cfg),
+        "plain": tower_grads(plain_forward, bf16_cfg),
+        "plain_backward": patched(
+            [(k8a, "masked_attention_backward_cuda", k8a.masked_attention_backward_reference),
+             (k8b, "add_layer_norm_backward_cuda", plain_ln_backward)],
+            lambda: tower_grads(step_mod.text_encoder_forward, bf16_cfg)),
+        "plain_f32": tower_grads(plain_forward,
+                                 dataclasses.replace(bf16_cfg, dtype=torch.float32)),
+        "plain_f32_core": patched([(k8a, "masked_attention_reference", f32_core)],
+                                  lambda: tower_grads(plain_forward, bf16_cfg)),
+    }
+    kernels, plain = tower["kernels"], tower["plain"]
+    scale = max(float(g.abs().max()) for g in plain.values())
+    noise = {n: max(float(kernels[n].abs().max()), float(plain[n].abs().max())) / scale
+             for n in kernels if n.endswith("/k/bias")}
+    kept = [n for n in kernels if n not in noise]
+
+    def max_rel(side: str, ref: str) -> dict:
+        return {n: float((tower[side][n] - tower[ref][n]).abs().max()
+                         / tower[ref][n].abs().max()) for n in kept}
+
+    def l2_rel(side: str, ref: str) -> dict:
+        return {n: float((tower[side][n] - tower[ref][n]).norm() / tower[ref][n].norm())
+                for n in kept}
+
+    def worst(errs: dict) -> list:
+        n = max(errs, key=errs.get)
+        return [errs[n], n]
+
+    def qk_split(errs: dict) -> dict:
+        qk = [v for n, v in errs.items() if n.split("/")[-2] in ("q", "k")]
+        return {"q_k": max(qk, default=None),
+                "other": max(v for n, v in errs.items() if n.split("/")[-2] not in ("q", "k"))}
+
+    l2_errs, bwd_errs = l2_rel("kernels", "plain"), max_rel("kernels", "plain_backward")
+
+    norms, step_grads = {}, {}
+    to_plain = [(step_mod, "text_encoder_forward", plain_forward)]
+    for side, patch, text_cfg in (("kernels", [], bf16_cfg), ("plain", to_plain, bf16_cfg),
+                                  ("plain_f32", to_plain,
+                                   dataclasses.replace(bf16_cfg, dtype=torch.float32))):
+        keep = KeepGrads()
+        step = make_train_step(trainer.pi_cfg, trainer.pn_cfg, trainer.loss_fn, keep,
+                               decision_threshold=THRESHOLD, **dict(kw, text_cfg=text_cfg))
+        _, m = patched(patch, lambda: step(trainer.ts, batch,
+                                           torch.Generator(device="cuda").manual_seed(7)))
+        norms[side] = float(m["grad_norm"])
+        step_grads[side] = {names[id(t)]: g.float() for t, g in
+                            zip(tree_leaves(trainer.ts["trainable"]), keep.grads)
+                            if id(t) in names}
+        del keep
+    norm_err = abs(norms["kernels"] - norms["plain"]) / norms["plain"]
+
+    def l2_all(grads: dict, ref: dict) -> float:
+        num = sum(float(((grads[n] - ref[n]) ** 2).sum()) for n in kept)
+        return (num / sum(float((ref[n] ** 2).sum()) for n in kept)) ** 0.5
+
+    result = {"leaves": len(kept), "l2_rel_err_vs_plain": worst(l2_errs),
+              "max_rel_err_vs_plain": worst(max_rel("kernels", "plain")),
+              "max_rel_err_vs_plain_backward": worst(bwd_errs),
+              "l2_rel_err_to_f32": {side: qk_split(l2_rel(side, "plain_f32"))
+                                    for side in ("kernels", "plain", "plain_f32_core")},
+              "all_leaves_l2_rel_err_to_f32": {
+                  "tower": {side: l2_all(tower[side], tower["plain_f32"])
+                            for side in ("kernels", "plain")},
+                  "step": {side: l2_all(step_grads[side], step_grads["plain_f32"])
+                           for side in ("kernels", "plain")}},
+              "zero_gradient_leaves": len(noise),
+              "zero_gradient_max_share": max(noise.values()) if noise else None,
+              "grad_norm": norms, "grad_norm_rel_err": norm_err, "rel_tol": GRAD_REL_TOL}
+    if (max(list(l2_errs.values()) + list(bwd_errs.values()) + [norm_err]) > GRAD_REL_TOL
+            or max(noise.values(), default=0.0) > 1e-3 or not math.isfinite(norm_err)):
+        raise AssertionError(f"tower gradients through the kernels disagree with the plain "
+                             f"chain: {result}")
+    return result
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -2621,6 +3132,9 @@ def main() -> None:
     tower_launches, rows, plain_rows = phase_tower(card)
     phase_zero_shot(rows, plain_rows, card)
     del rows, plain_rows
+    torch.cuda.empty_cache()
+    k8_bwd_times = phase_k8_bwd(card)
+    bwd_launches = phase_tower_training(card)
     if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
                                    for m in sys.modules):
         raise AssertionError("the port's serving, evaluation, training or tower path imported "
@@ -2667,6 +3181,14 @@ def main() -> None:
     } for k, src, rep in (("text_attention", "text_attention",
                            "protnote_tpu/models/text_transformer.py:167"),
                           ("add_layer_norm", "layer_norm",
+                           "protnote_tpu/models/text_transformer.py:159"))] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": bwd_launches[k],
+        **{f: k8_bwd_times["a"][k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+    } for k, src, rep in (("text_attention_bwd", "text_attention_bwd",
+                           "protnote_tpu/models/text_transformer.py:182"),
+                          ("add_layer_norm_bwd", "layer_norm",
                            "protnote_tpu/models/text_transformer.py:159"))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,19 @@ Training takes the label layouts of the JAX CLI (``TRAIN_LABEL_SAMPLE_SIZE``,
 during training ``VALIDATION_LABEL_SAMPLE_SIZE``, and every batcher ships
 the label embeddings with each batch when ``DEVICE_RESIDENT_LABEL_EMBEDDINGS``
 is False.  ``GRADIENT_CHECKPOINTING`` and ``OPTIMIZER_MOMENT_DTYPE bfloat16``
-reach the scorer and the optimizer through the config.  Encoder training,
-the text tower, profiler traces, wandb and a mesh raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+reach the scorer and the optimizer through the config.
+
+``LABEL_ENCODER_NUM_TRAINABLE_LAYERS`` > 0 embeds the label text through
+the tower of ``LABEL_ENCODER_CHECKPOINT`` (local files, as the JAX CLI) in
+every step: with ``LORA`` the adapters of the last n layers train
+(``LORA_RANK``, ``LORA_ALPHA``) and the tower stays frozen; without it the
+whole tower joins the trainable tree and the optimizer's trainable mask
+updates its last n layers only (the clip still sees every gradient).  The
+tower computes in float32 on the CPU (as the JAX CLI trains it) and in
+bfloat16 on the card under ``MIXED_PRECISION`` (its kernels take bf16);
+its weights stay float32.  Encoder training, profiler traces, wandb and a
+mesh raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -102,10 +112,6 @@ def refuse_unported(args, params: Dict) -> None:
     for key in ("TRAIN_SEQUENCE_ENCODER", "ENCODER_BN_TRAIN_MODE"):
         if args.train_path_name and params.get(key):
             raise NotImplementedError(ROADMAP_ENCODER.format(key))
-    if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
-        raise NotImplementedError("training the text tower (LABEL_ENCODER_NUM_TRAINABLE_"
-                                  "LAYERS) is not ported yet (ROADMAP.md queue 1, item 14); "
-                                  "the port runs the tower for inference only")
     mesh = [v for v in (args.mesh_dp, args.mesh_label) if v not in (None, 1)]
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "
@@ -146,6 +152,46 @@ def load_setup(args):
             config["LABEL_EMBEDDING_PATH"])
     log = setup_logging(paths.get("LOG_DIR"), run_name)
     return config, run_name, log
+
+
+def build_label_tower(params: Dict, cache, pn_params, device, seed: int):
+    """The trainable label tower of ``LABEL_ENCODER_NUM_TRAINABLE_LAYERS``
+    (the JAX ``cli/main.py:216-267``): ``(text_cfg, text_params,
+    lora_params, label_tokens, trainable_mask)``, the weights float32 on the
+    CPU, ``label_tokens`` the tokenized ``cache.descriptions``."""
+    import dataclasses
+
+    import torch
+
+    from protnote_tpu_torch.models.label_encoder import (
+        load_pretrained_tower,
+        tokenize_descriptions,
+    )
+    from protnote_tpu_torch.models.text_transformer import init_lora, trainable_mask
+    from protnote_tpu_torch.train.optim import tree_map
+
+    n_layers = int(params["LABEL_ENCODER_NUM_TRAINABLE_LAYERS"])
+    checkpoint = params["LABEL_ENCODER_CHECKPOINT"]
+    try:
+        text_cfg, text_params, tokenizer = load_pretrained_tower(checkpoint)
+    except Exception as e:
+        raise SystemExit(f"LABEL_ENCODER_NUM_TRAINABLE_LAYERS={n_layers} requires the "
+                         f"{checkpoint!r} weights locally (pre-seed the HF cache in offline "
+                         f"environments): {e}") from e
+    if device.type == "cuda":
+        if not params.get("MIXED_PRECISION", True):
+            raise ValueError("the label tower's kernels (K8a, K8b and their backward) take "
+                             "bfloat16: train it on the card with MIXED_PRECISION True")
+        text_cfg = dataclasses.replace(text_cfg, dtype=torch.bfloat16)
+    label_tokens = tokenize_descriptions(tokenizer, cache.descriptions)
+    lora_params = mask = None
+    if params.get("LORA", False):
+        lora_params = init_lora(torch.Generator().manual_seed(seed + 2), text_cfg,
+                                rank=params.get("LORA_RANK", 4), last_n_layers=n_layers)
+    else:
+        mask = {"protnote": tree_map(lambda _: True, pn_params),
+                "text": trainable_mask(text_params, text_cfg, n_layers)}
+    return text_cfg, text_params, lora_params, label_tokens, mask
 
 
 def run(args) -> Dict:
@@ -205,17 +251,34 @@ def run(args) -> Dict:
         label_counts = torch.as_tensor(train_ds.calculate_label_counts()).to(device)
     loss_fn = get_loss_fn(params, label_weights=label_weights, label_counts=label_counts,
                           bce_pos_weight=params.get("BCE_POS_WEIGHT"))
+    # ---------------- the trainable label tower ----------------
+    text_cfg = text_params = lora_params = label_tokens = mask = None
+    if (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
+        text_cfg, text_params, lora_params, label_tokens, mask = build_label_tower(
+            params, cache, ts["trainable"]["protnote"], device, seed)
+    tower = dict(text_params=text_params, train_label_encoder=mask is not None,
+                 lora_params=lora_params)
     optimizer = None
     if train_ds is not None:
-        optimizer = Optimizer(params)
+        optimizer = Optimizer(params, trainable_mask=mask)
         ts = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
-                              ts["enc_params"], ts["enc_state"], optimizer)
+                              ts["enc_params"], ts["enc_state"], optimizer, **tower)
+    elif text_cfg is not None:  # evaluation through the tower: the same layout
+        if mask is not None:
+            ts["trainable"]["text"] = text_params
+        if lora_params is not None:
+            ts["trainable"]["lora"] = lora_params
+        ts["text_params"] = None if mask is not None else text_params
     out_dir = config["paths_resolved"].get("OUTPUT_MODEL_DIR", "outputs/checkpoints")
     results_dir = config["paths_resolved"].get("RESULTS_DIR", "outputs/results")
     trainer = Trainer(ts, pi_cfg, pn_cfg,
                       TrainerConfig.from_params(params, checkpoint_dir=out_dir,
                                                 run_name=run_name),
-                      device=device, loss_fn=loss_fn, optimizer=optimizer)
+                      device=device, loss_fn=loss_fn, optimizer=optimizer,
+                      text_cfg=text_cfg, label_tokens=label_tokens,
+                      pooling_method=params.get("LABEL_EMBEDDING_POOLING_METHOD", "mean"),
+                      lora_alpha=params.get("LORA_ALPHA", 8),
+                      lora_rank=params.get("LORA_RANK", 4))
     if args.model_file:
         trainer.load(args.model_file, from_checkpoint=args.from_checkpoint)
     elif train_ds is None:

@@ -17,8 +17,12 @@ viewed as ``torch.bfloat16``.
 Lists and tuples come back as dicts keyed ``"0".."n-1"``;
 :func:`restore_checkpoint` rebuilds them against a template tree from the
 port's ``init_*`` functions, with the shape checks of the JAX
-``_merge_into_template``.  Entries that the template does not hold (the
-optimizer state, ``step``, ``text_params``) are decoded and dropped.
+``_merge_into_template``.  Entries that the template does not hold are
+decoded and dropped; a template of a run with the label tower holds its
+trees (``trainable["text"]`` or ``trainable["lora"]``, the frozen
+``text_params``), and ``opt_state`` (a trainable mask's ``multi_transform``
+state included) is read by
+:func:`~protnote_tpu_torch.models.convert.opt_state_from_jax`.
 
 :func:`save_checkpoint` is the writer: :func:`msgpack_pack` encodes a tree
 in flax's state-dict layout (lists as ``{"0": ..}`` maps, arrays as ext 1),

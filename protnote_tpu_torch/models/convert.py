@@ -89,16 +89,18 @@ def opt_state_from_jax(opt_state: Any, trainable: Dict[str, Any]) -> Dict[str, A
     """An optax state of ``make_optimizer`` (named tuples, or the
     state-dict layout of a checkpoint) -> the port's optimizer state
     (:mod:`protnote_tpu_torch.train.optim`): ``ScaleByAdamState`` gives
-    ``count``, ``mu`` and ``nu`` (trees like ``trainable``), ``MultiStepsState``
-    gives ``mini_step``, ``gradient_step`` and ``acc_grads``.  SGD's state
-    holds no arrays (no moments)."""
+    ``count``, ``mu`` and ``nu`` (trees like ``trainable``; under a
+    trainable mask's ``PartitionState`` its ``MaskedNode`` leaves become
+    None), ``MultiStepsState`` gives ``mini_step``, ``gradient_step`` and
+    ``acc_grads``.  SGD's state holds no arrays (no moments)."""
     from protnote_tpu_torch.core.checkpoint import merge_into_template
-    from protnote_tpu_torch.train.optim import MASK_LATER
 
     sd = _state_dict(opt_state)
-    if _find(sd, ("inner_states",)) is not None:
-        raise NotImplementedError(MASK_LATER)
-    like = lambda tree: merge_into_template(trainable, tree, "/opt_state")  # noqa: E731
+
+    def like(tree: Any) -> Any:
+        template, stored = _masked_pair(trainable, tree)
+        return merge_into_template(template, stored, "/opt_state")
+
     out: Dict[str, Any] = {"count": 0, "mu": None, "nu": None}
     adam = _find(sd, ("count", "mu", "nu"))
     if adam is not None:
@@ -110,6 +112,24 @@ def opt_state_from_jax(opt_state: Any, trainable: Dict[str, Any]) -> Dict[str, A
                    gradient_step=int(np.asarray(multi["gradient_step"])),
                    acc_grads=like(multi["acc_grads"]))
     return out
+
+
+def _masked_pair(template: Any, stored: Any) -> Tuple[Any, Any]:
+    """``(template, stored)`` with None on both sides where ``stored`` holds
+    optax's ``MaskedNode`` (an empty map in the state-dict layout, whose
+    lists are maps keyed "0".."n-1"): the moments of a trainable mask's
+    frozen leaves (``multi_transform``)."""
+    if isinstance(stored, dict) and not stored and not isinstance(template, (dict, list, tuple)):
+        return None, None
+    if isinstance(template, dict) and isinstance(stored, dict):
+        pairs = {k: _masked_pair(v, stored[k]) for k, v in template.items() if k in stored}
+        return ({k: pairs[k][0] if k in pairs else v for k, v in template.items()},
+                {k: p[1] for k, p in pairs.items()})
+    if isinstance(template, (list, tuple)) and isinstance(stored, dict) \
+            and len(stored) == len(template):
+        pairs = [_masked_pair(t, stored[str(i)]) for i, t in enumerate(template)]
+        return type(template)(p[0] for p in pairs), {str(i): p[1] for i, p in enumerate(pairs)}
+    return template, stored  # merge_into_template checks the rest
 
 
 def _to_numpy(node: Any, key: Optional[str] = None) -> Any:

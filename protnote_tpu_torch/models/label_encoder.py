@@ -209,17 +209,10 @@ class NativeLabelEncoder:
         """Tokenizer, config and weights of an HF checkpoint (read through
         ``transformers``).  ``dtype`` None: bfloat16 on the card, float32
         elsewhere."""
-        from transformers import AutoConfig, AutoModel, AutoTokenizer
-
         device = torch.device(device)
         if dtype is None:
             dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        tokenizer = AutoTokenizer.from_pretrained(checkpoint, local_files_only=local_files_only)
-        hf_cfg = AutoConfig.from_pretrained(checkpoint, local_files_only=local_files_only)
-        model = AutoModel.from_pretrained(checkpoint, local_files_only=local_files_only)
-        cfg = config_from_hf(hf_cfg, dtype=dtype)
-        params = from_hf_state_dict(model.state_dict(), cfg)
-        del model
+        cfg, params, tokenizer = load_pretrained_tower(checkpoint, dtype, local_files_only)
         return cls(cfg, params, tokenizer, device=device, pooling_method=pooling_method,
                    checkpoint=checkpoint)
 
@@ -267,6 +260,31 @@ class NativeLabelEncoder:
             pooled = self.embed_ids(ids, mask, account_for_sos)
             out.append(pooled.float().cpu().numpy()[:n])
         return np.concatenate(out, axis=0)
+
+
+def load_pretrained_tower(checkpoint: str, dtype: torch.dtype = torch.float32,
+                          local_files_only: bool = True):
+    """``(cfg, params, tokenizer)`` of an HF checkpoint: the tower's config
+    with compute dtype ``dtype``, its float32 parameter tree on the CPU (the
+    master weights a training run keeps) and the HF tokenizer."""
+    from transformers import AutoConfig, AutoModel, AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(checkpoint, local_files_only=local_files_only)
+    hf_cfg = AutoConfig.from_pretrained(checkpoint, local_files_only=local_files_only)
+    model = AutoModel.from_pretrained(checkpoint, local_files_only=local_files_only)
+    cfg = config_from_hf(hf_cfg, dtype=dtype)
+    params = from_hf_state_dict(model.state_dict(), cfg)
+    del model
+    return cfg, params, tokenizer
+
+
+def tokenize_descriptions(tokenizer, descriptions: Sequence[str]):
+    """``(ids, attention)`` int32 (M, Tk) of every description, padded to
+    the longest and truncated at :data:`MAX_LABEL_TOKENS` (the JAX CLI's
+    ``label_tokens``)."""
+    toks = tokenizer(list(descriptions), padding="longest", truncation=True,
+                     max_length=MAX_LABEL_TOKENS, return_tensors="np")
+    return toks["input_ids"].astype(np.int32), toks["attention_mask"].astype(np.int32)
 
 
 def build_label_encoder(checkpoint: str, pooling_method: str = "mean",

@@ -1,7 +1,7 @@
 """Text encoders of the label tower: E5 (XLM-RoBERTa) and BioGPT.
 
-Port of ``protnote_tpu/models/text_transformer.py`` (inference; training the
-tower is a later slice).  Parameters are plain nested dicts with the JAX
+Port of ``protnote_tpu/models/text_transformer.py``, for inference and
+training.  Parameters are plain nested dicts with the JAX
 tree's names and layouts: ``word_embeddings``, ``position_embeddings`` (+2
 rows for gpt), ``token_type_embeddings`` and ``embeddings_ln`` (bert) or
 ``final_ln`` (gpt), and ``layers[i]`` with ``q``, ``k``, ``v``, ``o``,
@@ -22,6 +22,13 @@ with its residual add where there is one, in
 :mod:`protnote_tpu_torch.ops.layer_norm` (K8b): their CUDA kernels on the
 card, their plain versions on the CPU.  :func:`text_encoder_forward_reference`
 runs the plain versions on any device.
+
+Training: when a parameter of the tree or of the LoRA adapters requires a
+gradient, K8a and K8b run as ``autograd.Function``s whose backward is K8a-bwd
+and K8b-bwd (their plain versions on the CPU).  The training tree stays
+float32 (the master weights); the forward casts each weight to the compute
+dtype at use, as the JAX forward does (:func:`cast_for_inference` is for
+inference only).  :func:`trainable_mask` is the JAX last-n-layer policy.
 """
 
 from __future__ import annotations
@@ -146,7 +153,8 @@ def cast_for_inference(params: Params, dtype: torch.dtype) -> Params:
 
 
 # ----------------------------------------------------------------------
-# LoRA (loralib semantics: y += x @ A^T @ B^T * alpha / r), forward only
+# LoRA (loralib semantics: y += x @ A^T @ B^T * alpha / r); A and B train
+# through autograd like any parameter of the tree
 
 LORA_TARGETS = ("q", "k", "v", "o", "fc1", "fc2")
 
@@ -302,6 +310,26 @@ def pool_hidden_states(last_hidden: torch.Tensor, attention_mask: torch.Tensor,
     if method == "all":
         return last_hidden
     raise ValueError(method)
+
+
+# ----------------------------------------------------------------------
+# trainable partition (the JAX trainable_mask, reference
+# biogpt_train_last_n_layers, models.py:32-50)
+
+
+def trainable_mask(params: Params, cfg: TextEncoderConfig, last_n_layers: int) -> Params:
+    """A bool tree like ``params``: True on every leaf of the last
+    ``last_n_layers`` layers, False on the embeddings, their LayerNorm, the
+    final LN and the earlier layers."""
+    start = max(cfg.num_layers - last_n_layers, 0)
+
+    def layer(li: int, lp: Params) -> Params:
+        on = li >= start
+        return _tree_map(lambda _: on, lp)
+
+    out = _tree_map(lambda _: False, {k: v for k, v in params.items() if k != "layers"})
+    out["layers"] = [layer(li, lp) for li, lp in enumerate(params["layers"])]
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -20,6 +20,27 @@ uniform softmax JAX gives it, not 0/0.
 plain PyTorch version (:func:`masked_attention_reference`), CUDA tensors the
 hand-written kernel of ``csrc/text_attention.cu`` (bf16, hd 64, T <= 512);
 input the kernel does not take raises, and nothing falls back.
+
+**Backward (K8a-bwd).**  When a gradient is wanted (the tower trains),
+:func:`masked_attention` goes through an ``autograd.Function`` whose
+backward is the VJP JAX derives from the same core.  Its rounding points,
+read from ``jax.make_jaxpr`` of ``jax.vjp`` of the core at bfloat16 on the
+CPU::
+
+    h   = (q . k in f32) * scale + bias,  m = max h,  y = exp(h - m),  z = sum y
+    dV  = bf16(bf16(y / z)^T . f32(dctx))          the forward's bf16 P
+    dP  = bf16(f32(dctx) . v^T)                    rounded to bf16, used as f32
+    D   = sum((dP * z^-2) * y)
+    dS  = ((dP / z) + (-D)) * y * scale            float32, never rounded
+    dQ  = bf16(dS . k),  dK = bf16(dS^T . q)       f32 sums of f32 x bf16
+
+(JAX divides dS by sqrt(hd) = 8.0, a multiply by 1/8 exactly.)
+:func:`masked_attention_backward_reference` is that chain in plain PyTorch;
+on CUDA tensors :func:`masked_attention_backward_cuda` launches the two
+kernels of ``csrc/text_attention_bwd.cu``, which recompute h from q and k
+(no score row is kept by the forward, whose launch is unchanged) and take
+m, z and D themselves.  A row whose keys are all masked has y = 1 on every
+key: the gradient of JAX's uniform softmax, not NaN.
 """
 
 from __future__ import annotations
@@ -37,8 +58,10 @@ HEAD_DIM = 64  # the head width of every tower the port loads
 MASKED = -1e9  # the JAX package's additive mask value
 
 # Launches of the kernel since the process started (or since a caller last
-# set it to 0).
+# set it to 0); BWD_LAUNCHES counts the backward kernels' launches (two a
+# call: dQ, then dK and dV).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 
@@ -85,13 +108,11 @@ def _lib():
     return lib
 
 
-def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
-    """The kernel's wrapper: checks what the kernel takes, launches it on the
-    current stream and counts the launch."""
-    global LAUNCHES
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                key_mask: torch.Tensor) -> None:
+    """What the forward and backward kernels take; raises on anything else."""
     check_inputs(q, k, v, key_mask)
-    B, nh, T, hd = q.shape
+    T, hd = q.shape[2], q.shape[3]
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"the attention kernel needs CUDA tensors, not {device}")
@@ -108,6 +129,16 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_mask.device != device or key_mask.dtype != torch.int32 or \
             not key_mask.is_contiguous():
         raise ValueError("key_mask must be a contiguous int32 tensor on the same device")
+
+
+def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The kernel's wrapper: checks what the kernel takes, launches it on the
+    current stream and counts the launch."""
+    global LAUNCHES
+    _check_cuda(q, k, v, key_mask)
+    B, nh, T, hd = q.shape
+    device = q.device
     ctx = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the C launch goes to the thread's device
@@ -121,11 +152,102 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
-    """``ctx`` (B, nh, T, hd) in ``q``'s dtype on ``q``'s device."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor,
+             causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return masked_attention_reference(q, k, v, key_mask, causal)
     if q.device.type == "cuda":
         return masked_attention_cuda(q, k, v, key_mask, causal)
     raise ValueError(f"no attention for device {q.device}")
+
+
+def masked_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        key_mask: torch.Tensor, causal: bool,
+                                        dctx: torch.Tensor):
+    """``(dq, dk, dv)`` in the inputs' dtypes: the JAX VJP of the attention
+    core in eager PyTorch, rounded where JAX rounds (module docstring)."""
+    check_inputs(q, k, v, key_mask)
+    T, hd = q.shape[2], q.shape[3]
+    gemm_precision(torch.float32)
+    scale = torch.tensor(scale_for(hd), dtype=torch.float32, device=q.device)
+    keep = (key_mask > 0)[:, None, None, :]
+    if causal:
+        keep = keep & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    h = (q.float() @ k.float().transpose(-1, -2)) * scale
+    h = h + torch.where(keep, 0.0, MASKED).to(torch.float32)
+    y = torch.exp(h - h.amax(-1, keepdim=True))
+    z = y.sum(-1, keepdim=True)
+    p = (y / z).to(q.dtype).float()
+    g = dctx.float()
+    dv = (p.transpose(-1, -2) @ g).to(v.dtype)
+    dp = (g @ v.float().transpose(-1, -2)).to(q.dtype).float()
+    d = ((dp * (1.0 / (z * z))) * y).sum(-1, keepdim=True)
+    ds = ((dp / z) + (-d)) * y * scale
+    return (ds @ k.float()).to(q.dtype), (ds.transpose(-1, -2) @ q.float()).to(k.dtype), dv
+
+
+def masked_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor):
+    """The backward kernels' wrapper: ``(dq, dk, dv)`` bf16 from the two
+    launches of ``csrc/text_attention_bwd.cu`` on the current stream; counts
+    both in ``BWD_LAUNCHES``."""
+    global BWD_LAUNCHES
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    _check_cuda(q, k, v, key_mask)
+    if dctx.shape != q.shape or dctx.dtype != torch.bfloat16 or dctx.device != q.device \
+            or not dctx.is_contiguous() or dctx.data_ptr() % 16:
+        raise ValueError("dctx must be a contiguous bfloat16 tensor shaped like q")
+    B, nh, T, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(3, B * nh * T, dtype=torch.float32, device=q.device)
+    fn = kernel_function("text_attention_bwd", "masked_attention_backward", _BWD_ARGS)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):  # the C launch goes to the thread's device
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dctx.data_ptr(), key_mask.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, nh, T, hd,
+                 int(bool(causal)), scale_for(hd), stream)
+        if err != 0:
+            raise RuntimeError(f"masked_attention_backward launch failed: CUDA error {err}")
+        with _launch_lock:
+            BWD_LAUNCHES += 2  # attn_bwd_dq and attn_bwd_dkdv
+    return dq, dk, dv
+
+
+_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def masked_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor):
+    """``(dq, dk, dv)``: the plain version on CPU tensors, the kernels on
+    CUDA tensors."""
+    if q.device.type == "cpu":
+        return masked_attention_backward_reference(q, k, v, key_mask, causal, dctx)
+    if q.device.type == "cuda":
+        return masked_attention_backward_cuda(q, k, v, key_mask, causal, dctx)
+    raise ValueError(f"no attention backward for device {q.device}")
+
+
+class _MaskedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal):
+        ctx.save_for_backward(q, k, v, key_mask)
+        ctx.causal = causal
+        return _forward(q, k, v, key_mask, causal)
+
+    @staticmethod
+    def backward(ctx, dctx):
+        q, k, v, key_mask = ctx.saved_tensors
+        dq, dk, dv = masked_attention_backward(q, k, v, key_mask, ctx.causal,
+                                               dctx.contiguous())
+        return dq, dk, dv, None, None
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """``ctx`` (B, nh, T, hd) in ``q``'s dtype on ``q``'s device; through
+    the autograd Function (K8a-bwd on the way back) when a gradient is
+    wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _MaskedAttention.apply(q, k, v, key_mask, causal)
+    return _forward(q, k, v, key_mask, causal)

@@ -25,11 +25,21 @@ applies the same arithmetic in place on the parameter tensors:
   one update of the inner chain (clip included) and a reset; the steps in
   between leave the parameters and the moments alone.
 
+A **trainable mask** (a bool tree like the trainable tree; the JAX CLI
+builds one for the label tower's last-n-layer unfreezing) has the
+semantics of ``optax.multi_transform({"train": base, "freeze":
+set_to_zero()})`` after the clip: the clip (and ``grad_norm``) runs over
+**every** gradient, frozen ones included; Adam updates only the masked
+leaves and keeps moments only for them (optax's ``MaskedNode`` elsewhere);
+frozen leaves get a zero update, so their bits do not change.
+
 The state is a dict: ``count`` (updates applied), ``mu``/``nu`` (trees
-shaped like the trainable tree; None for SGD) and, with accumulation,
-``mini_step``, ``gradient_step`` and ``acc_grads``.  :meth:`Optimizer.jax_opt_state`
-writes it in the layout of the JAX train state's ``opt_state``;
-:func:`protnote_tpu_torch.models.convert.from_jax_tree` reads that layout.
+shaped like the trainable tree, None at frozen leaves; None for SGD) and,
+with accumulation, ``mini_step``, ``gradient_step`` and ``acc_grads``.
+:meth:`Optimizer.jax_opt_state` writes it in the layout of the JAX train
+state's ``opt_state`` (with a mask, the ``PartitionState`` of
+``multi_transform``); :func:`protnote_tpu_torch.models.convert.from_jax_tree`
+reads that layout.
 """
 
 from __future__ import annotations
@@ -40,21 +50,20 @@ import torch
 
 Tree = Any
 
-MASK_LATER = ("a trainable mask comes with training the label tower (K8a-bwd, K8b-bwd, "
-              "ROADMAP.md queue 1, item 14); its optax multi_transform state is not read")
 MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam / optax.adamw defaults
 
 
-def tree_leaves(tree: Tree) -> List[Any]:
+def tree_leaves(tree: Tree, keep_none: bool = False) -> List[Any]:
     """Leaves in a fixed order: dict keys sorted (as jax.tree_util does),
-    lists in order; None is no leaf."""
+    lists in order; None is no leaf (or, with ``keep_none``, a leaf, so a
+    masked moment tree lines up with its parameters)."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], keep_none)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [] if tree is None else [tree]
+        return [x for v in tree for x in tree_leaves(v, keep_none)]
+    return [tree] if keep_none or tree is not None else []
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
@@ -92,12 +101,19 @@ class Optimizer:
     def adam(self) -> bool:
         return self.name in ("Adam", "AdamW")
 
+    def _masked(self, fn: Callable, trainable: Tree) -> Tree:
+        """``fn`` of each trained leaf, None at frozen ones."""
+        if self.trainable_mask is None:
+            return tree_map(fn, trainable)
+        return tree_map(lambda t, m: fn(t) if m else None, trainable, self.trainable_mask)
+
     def init(self, trainable: Tree) -> Dict[str, Any]:
         zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
         state: Dict[str, Any] = {"count": 0, "mu": None, "nu": None}
         if self.adam:
-            state["mu"] = tree_map(lambda t: torch.zeros_like(t, dtype=self.mu_dtype), trainable)
-            state["nu"] = tree_map(zeros, trainable)
+            state["mu"] = self._masked(lambda t: torch.zeros_like(t, dtype=self.mu_dtype),
+                                       trainable)
+            state["nu"] = self._masked(zeros, trainable)
         if self.accum > 1:
             state.update(mini_step=0, gradient_step=0, acc_grads=tree_map(zeros, trainable))
         return state
@@ -134,7 +150,8 @@ class Optimizer:
         if self.adam:
             bc1 = 1 - torch.tensor(B1, dtype=torch.float32) ** t
             bc2 = 1 - torch.tensor(B2, dtype=torch.float32) ** t
-            mus, nus = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+            mus = tree_leaves(state["mu"], keep_none=True)
+            nus = tree_leaves(state["nu"], keep_none=True)
         for i, (p, x) in enumerate(zip(params, g)):
             if not train[i]:
                 continue
@@ -163,18 +180,27 @@ class Optimizer:
         tensors (the JAX tree layout) to numpy."""
         import numpy as np
 
-        if self.trainable_mask is not None:
-            raise NotImplementedError(MASK_LATER)
         empty: Dict[str, Any] = {}
+
+        def moments(node: Tree) -> Tree:  # optax's MaskedNode is an empty map
+            if isinstance(node, dict):
+                return {k: moments(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [moments(v) for v in node]
+            return {} if node is None else node
+
         if self.adam:
             adam = {"count": np.asarray(state["count"], np.int32),
-                    "mu": to_numpy(state["mu"]), "nu": to_numpy(state["nu"])}
+                    "mu": moments(to_numpy(state["mu"])), "nu": moments(to_numpy(state["nu"]))}
             base = ({"0": adam, "1": empty} if self.name == "Adam"
                     else {"0": adam, "1": empty, "2": empty})
         else:
             base = {"0": empty, "1": empty}  # sgd: identity, scale_by_learning_rate
             if self.wd:
                 base = {"0": empty, "1": base}  # add_decayed_weights first
+        if self.trainable_mask is not None:  # multi_transform's PartitionState
+            base = {"inner_states": {"freeze": {"inner_state": empty},
+                                     "train": {"inner_state": base}}}
         inner = {"0": empty, "1": base} if self.clip is not None else {"0": base}
         if self.accum == 1:
             return inner

@@ -12,9 +12,14 @@ True)`` (heads, the decomposed scorer K4 + K5), the loss, autograd and the
 optimizer, and reports ``loss``, per-label ``tp``/``fp``/``fn`` at
 ``probs > threshold`` (strict, as the JAX train step; the eval accumulator
 uses ``>=``), the gradients' global norm and the example count.  Training
-the encoder (``TRAIN_SEQUENCE_ENCODER``, ``ENCODER_BN_TRAIN_MODE``) and the
-text tower are not ported; the eval step embeds tokenized label text through
-the (frozen) tower on the fly.
+the encoder (``TRAIN_SEQUENCE_ENCODER``, ``ENCODER_BN_TRAIN_MODE``) is not
+ported.  With ``text_cfg`` and tokenized labels in the batch
+(``label_input_ids``, ``label_attention_mask``), both steps embed the label
+text through the tower on the fly (JAX ``step.py:128-146, 240-255``): the
+train step backpropagates into ``trainable["text"]`` (the last-n-layer
+unfreezing, with the optimizer's trainable mask) and ``trainable["lora"]``
+(the adapters) through K8a-bwd and K8b-bwd, and detaches the pooled
+embeddings when nothing of the tower trains.
 """
 
 from __future__ import annotations
@@ -35,15 +40,24 @@ ENCODER_LATER = ("training the sequence encoder (TRAIN_SEQUENCE_ENCODER, "
 
 
 def init_train_state(pn_params, pn_state, enc_params, enc_state, optimizer: Optimizer,
-                     train_sequence_encoder: bool = False) -> Dict[str, Any]:
+                     train_sequence_encoder: bool = False, text_params=None,
+                     train_label_encoder: bool = False, lora_params=None) -> Dict[str, Any]:
     """The JAX ``init_train_state`` layout: ``trainable`` (the ProtNote
-    parameters), ``model_state``, the frozen encoder, ``opt_state`` and
+    parameters; the label tower's ``text`` with ``train_label_encoder``, its
+    ``lora`` adapters when given), ``model_state``, the frozen encoder,
+    ``text_params`` (the frozen tower, or None), ``opt_state`` and
     ``step``."""
     if train_sequence_encoder:
         raise NotImplementedError(ENCODER_LATER)
     trainable = {"protnote": pn_params}
+    if text_params is not None and train_label_encoder:
+        trainable["text"] = text_params
+    if lora_params is not None:
+        trainable["lora"] = lora_params
     return {"trainable": trainable, "model_state": pn_state, "enc_params": enc_params,
-            "enc_state": enc_state, "opt_state": optimizer.init(trainable), "step": 0}
+            "enc_state": enc_state,
+            "text_params": None if (text_params is None or train_label_encoder) else text_params,
+            "opt_state": optimizer.init(trainable), "step": 0}
 
 
 def _resolve_label_embeddings(batch: Dict[str, Any]) -> torch.Tensor:
@@ -71,28 +85,53 @@ def _frozen_embeddings(ts: Dict[str, Any], batch: Dict[str, torch.Tensor],
                               batch["lengths"], pi_cfg)
 
 
+def _tower_embeddings(ts: Dict[str, Any], batch: Dict[str, torch.Tensor], text_cfg,
+                      pooling_method: str, lora_alpha: float, lora_rank: int) -> torch.Tensor:
+    """The batch's label embeddings from its tokenized label text: the
+    trainable tower (or the frozen ``text_params``) with the adapters of
+    ``trainable["lora"]``, pooled by ``pooling_method``."""
+    text_params = ts["trainable"].get("text", ts.get("text_params"))
+    hidden = text_encoder_forward(text_params, batch["label_input_ids"],
+                                  batch["label_attention_mask"], text_cfg,
+                                  lora=ts["trainable"].get("lora"), lora_alpha=lora_alpha,
+                                  lora_rank=lora_rank)
+    return pool_hidden_states(hidden, batch["label_attention_mask"], pooling_method)
+
+
 def make_train_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig, loss_fn: Callable,
-                    optimizer: Optimizer, decision_threshold: float = 0.5):
+                    optimizer: Optimizer, decision_threshold: float = 0.5, text_cfg=None,
+                    pooling_method: str = "mean", lora_alpha: float = 8.0,
+                    lora_rank: int = 4):
     """Returns ``(train_state, batch, generator) -> (train_state, metrics)``.
 
     ``batch`` has ``aa_ids`` (B, T), ``lengths`` (B,), ``example_mask`` (B,),
     ``label_multihots`` (B, L), the label rows (``label_embeddings`` (L, D),
     or ``label_rows`` with the resident ``label_matrix``) and optionally
     ``label_mask`` (L,), all on one device; ``generator`` (on that device)
-    draws the label noise and dropout."""
+    draws the label noise and dropout.  With ``text_cfg`` and
+    ``label_input_ids``/``label_attention_mask`` (L, Tk) in the batch, the
+    label embeddings come from the text tower instead, and gradients reach
+    ``trainable["text"]`` and ``trainable["lora"]``."""
 
     def step(ts: Dict[str, Any], batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator]):
         labels = batch["label_multihots"]
         mask = _pair_mask(batch["example_mask"], labels.shape[1], batch.get("label_mask"))
         P_f = _frozen_embeddings(ts, batch, pi_cfg)
-        label_embeddings = _resolve_label_embeddings(batch)
         trainable = ts["trainable"]
+        tower = text_cfg is not None and "label_input_ids" in batch
         leaves = tree_leaves(trainable)
         for t in leaves:
             t.requires_grad_(True)
         try:
             with torch.enable_grad():
+                if tower:
+                    label_embeddings = _tower_embeddings(ts, batch, text_cfg, pooling_method,
+                                                         lora_alpha, lora_rank)
+                    if "text" not in trainable and "lora" not in trainable:
+                        label_embeddings = label_embeddings.detach()
+                else:
+                    label_embeddings = _resolve_label_embeddings(batch)
                 logits, model_state = protnote_forward(
                     trainable["protnote"], ts["model_state"], P_f, label_embeddings, pn_cfg,
                     train=True, generator=generator, example_mask=batch["example_mask"],
@@ -157,13 +196,8 @@ def make_eval_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig,
                                          label_latents=batch["label_latents"])
         else:
             if text_cfg is not None and "label_input_ids" in batch:
-                text_params = ts["trainable"].get("text", ts.get("text_params"))
-                hidden = text_encoder_forward(
-                    text_params, batch["label_input_ids"], batch["label_attention_mask"],
-                    text_cfg, lora=ts["trainable"].get("lora"), lora_alpha=lora_alpha,
-                    lora_rank=lora_rank)
-                label_embeddings = pool_hidden_states(hidden, batch["label_attention_mask"],
-                                                      pooling_method)
+                label_embeddings = _tower_embeddings(ts, batch, text_cfg, pooling_method,
+                                                     lora_alpha, lora_rank)
             else:
                 label_embeddings = _resolve_label_embeddings(batch)
             logits, _ = protnote_forward(pn, state, P_f, label_embeddings, pn_cfg,

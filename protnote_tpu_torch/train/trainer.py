@@ -39,9 +39,15 @@ prefix) or, with ``ESTIMATE_MAP``, a varying one (K3 scatters through its
 (``DEVICE_RESIDENT_LABEL_EMBEDDINGS False``), which the eval step projects
 batch by batch, as the JAX trainer does.
 
+The label text tower (``text_cfg`` with ``label_tokens``, the tokenized
+descriptions of the label cache): each batch's description rows
+(``label_description_indices``) pick their token rows, and both steps embed
+them through the tower (training it where ``trainable`` holds ``text`` or
+``lora``); evaluation then projects every batch's labels itself.
+
 Checkpoints are ``PNTPU1`` files that the JAX ``restore_checkpoint`` reads,
-written synchronously.  Profiler traces, wandb, the text tower and meshes
-are not ported; the CLI refuses them.
+written synchronously.  Profiler traces, wandb and meshes are not ported;
+the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -202,20 +208,25 @@ class Trainer:
 
     def __init__(self, train_state: Dict[str, Any], pi_cfg, pn_cfg,
                  config: TrainerConfig, device="cuda", loss_fn: Optional[Callable] = None,
-                 optimizer=None):
+                 optimizer=None, text_cfg=None, label_tokens: Optional[tuple] = None,
+                 pooling_method: str = "mean", lora_alpha: float = 8.0, lora_rank: int = 4):
         self.device = torch.device(device)
         self.pi_cfg = pi_cfg
         self.pn_cfg = pn_cfg
         self.cfg = config
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.text_cfg = text_cfg
+        self.label_tokens = label_tokens  # (ids (M, Tk), attention (M, Tk)) int32
+        self._tower_kwargs = dict(text_cfg=text_cfg, pooling_method=pooling_method,
+                                  lora_alpha=lora_alpha, lora_rank=lora_rank)
         self.ts = tree_to(train_state, self.device)
-        self._eval_step = make_eval_step(pi_cfg, pn_cfg, loss_fn)
+        self._eval_step = self._make_eval_step()
         self._train_step = None
         if loss_fn is not None and optimizer is not None:
             self._train_step = make_train_step(
                 pi_cfg, pn_cfg, loss_fn, optimizer,
-                decision_threshold=config.decision_threshold or 0.5)
+                decision_threshold=config.decision_threshold or 0.5, **self._tower_kwargs)
         self.meter = ThroughputMeter()
         self._label_matrices: Dict[int, Any] = {}
         self.starting_epoch = 0
@@ -244,10 +255,20 @@ class Trainer:
             self._label_matrices.pop(next(iter(self._label_matrices)))
         return self._label_matrices[key][1]
 
-    def _place(self, arrays: Dict[str, Any],
-               label_matrix: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    def _make_eval_step(self):
+        return make_eval_step(self.pi_cfg, self.pn_cfg, self.loss_fn, **self._tower_kwargs)
+
+    def _place(self, arrays: Dict[str, Any], label_matrix: Optional[torch.Tensor] = None,
+               batch=None) -> Dict[str, Any]:
         """Attach the resident label matrix to a batch that carries
-        ``label_rows`` (the JAX ``_place`` without a mesh)."""
+        ``label_rows``, and with the text tower the token rows of its
+        descriptions (the JAX ``_place`` without a mesh)."""
+        if (self.text_cfg is not None and self.label_tokens is not None and batch is not None
+                and batch.label_description_indices is not None):
+            ids, attn = self.label_tokens
+            idx = batch.label_description_indices
+            arrays["label_input_ids"] = torch.from_numpy(ids[idx]).to(self.device)
+            arrays["label_attention_mask"] = torch.from_numpy(attn[idx]).to(self.device)
         if "label_rows" in arrays:
             if label_matrix is None:
                 raise ValueError("batch carries label_rows (device_label_gather) but "
@@ -276,7 +297,7 @@ class Trainer:
         label_matrix = (self._label_matrix_for(batcher.ds)
                         if getattr(batcher, "device_label_gather", False) else None)
         batch = next(iter(batcher))
-        arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix)
+        arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix, batch)
         ts = self.ts
         P_f = embed_from_ids(ts["trainable"].get("encoder", ts["enc_params"]), ts["enc_state"],
                              arrays["aa_ids"], arrays["lengths"], self.pi_cfg)
@@ -289,7 +310,7 @@ class Trainer:
                                          label_embeddings=arrays["label_embeddings"])
         scales = tuple(float(m) * margin / 127.0 for m in maxes.cpu().tolist())
         self.pn_cfg = dataclasses.replace(self.pn_cfg, int8_act_scales=scales)
-        self._eval_step = make_eval_step(self.pi_cfg, self.pn_cfg, self.loss_fn)
+        self._eval_step = self._make_eval_step()
         self._int8_scales_auto = True
         logger.info("int8 static activation scales: %s", [round(s, 6) for s in scales])
         return scales
@@ -301,18 +322,19 @@ class Trainer:
         if not (self._int8_scales_auto and self.pn_cfg.int8_act_scales is not None):
             return
         self.pn_cfg = dataclasses.replace(self.pn_cfg, int8_act_scales=None)
-        self._eval_step = make_eval_step(self.pi_cfg, self.pn_cfg, self.loss_fn)
+        self._eval_step = self._make_eval_step()
         self._int8_scales_auto = False
 
     # ---------------- eval label-latent precompute ----------------
 
     def _latents_eligible(self, batcher) -> bool:
         """The label layout is batch-invariant iff no per-batch label
-        re-selection happens: then W_l projects the matrix once per
-        evaluation."""
+        re-selection happens and no text tower embeds the labels: then W_l
+        projects the matrix once per evaluation."""
         ds = batcher.ds
         return (
-            self.pn_cfg.label_embedding_pooling_method != "all"
+            self.text_cfg is None
+            and self.pn_cfg.label_embedding_pooling_method != "all"
             and not _is_grid(batcher)
             and not getattr(batcher, "shuffle_labels", False)
             and not getattr(batcher, "in_batch_sampling", False)
@@ -403,7 +425,7 @@ class Trainer:
         label_matrix = (self._label_matrix_for(batcher.ds)
                         if getattr(batcher, "device_label_gather", False) else None)
         for i, batch in enumerate(batcher):
-            arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix)
+            arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix, batch)
             self.ts, metrics = self._train_step(self.ts, arrays, generator)
             if i == 0 and self.epoch == self.starting_epoch and self.device.type == "cuda":
                 logger.info("device memory after the first step: %.2f GB allocated, "
@@ -580,7 +602,7 @@ class Trainer:
         losses: List[torch.Tensor] = []
         self.meter.reset()
         for batch_idx, batch in enumerate(batcher):
-            arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix)
+            arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix, batch)
             if latents_ok and "label_rows" in arrays:
                 if latents is None:
                     latents = self._label_latents(arrays)

@@ -351,7 +351,7 @@ def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
     (["--train-path-name", "TRAIN_DATA_PATH", "--validation-path-name", "VAL_DATA_PATH"],
      ["TRAIN_SEQUENCE_ENCODER", "True"], "training"),
     (["--profile-dir", "prof"], [], "training"),
-    ([], ["LABEL_ENCODER_NUM_TRAINABLE_LAYERS", "1"], "text tower"),
+    (["--use-wandb"], [], "training"),
     ([], ["PAIR_BACKEND", "dense"], "dense"),
     (["--mesh-label", "2"], [], "multi-GPU"),
 ])

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: the pair scorer (K1), its int8 form
 (K2), the eval accumulator (K3), the threshold-sweep counter (K9), the
 training pair GEMM (K4) and its backward (K4-bwd), BN+ReLU (K5),
-the text tower's masked attention (K8a) and residual LayerNorm (K8b) against
+the text tower's masked attention (K8a) and residual LayerNorm (K8b) and
+their backward (K8a-bwd, K8b-bwd) against
 their plain PyTorch versions, and the serving engine on CUDA against
 the same engine on the CPU.  These need an NVIDIA
 card (the kernels have no CPU mode) and skip without one.  The file imports neither jax nor the repo's conftest fixtures,
@@ -33,6 +34,10 @@ K8a and K8b on the same bf16 inputs on both sides: within 1e-2 of the plain
 output's largest |value| (two bf16 steps: the score and output sums run in
 other orders, so a probability or an output can round to the neighbouring
 bf16 value).
+K8a-bwd and K8b-bwd on the same bf16 inputs: each gradient within 2^-6 of
+the plain gradient's largest |value| (dP and the outputs are rounded to bf16
+from sums in other orders); K8b-bwd's dscale and dbias to 1e-3, and the same
+bits on a second call.
 """
 
 import numpy as np
@@ -737,3 +742,115 @@ def test_layer_norm_kernel_raises_on_what_it_does_not_take():
         k8b.add_layer_norm(x.float(), None, ones, ones, 1e-5)
     with pytest.raises(ValueError, match="float32"):
         k8b.add_layer_norm(x, None, ones.to(torch.bfloat16), ones, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1, 16, 77, 128, 200, 512])
+def test_text_attention_backward_kernels_match_plain_on_card(T, causal):
+    """K8a-bwd (its two kernels) against the plain backward at T from 1 to
+    512, bidirectional and causal; rows: a full one, a half one, an
+    all-masked filler row (JAX's uniform-softmax gradient, finite) and one
+    whose first 70 keys are masked.  dq, dk and dv within 2^-6 of the plain
+    output's largest |value| (dP is rounded to bf16 on both sides from f32
+    sums in other orders, so it can land a bf16 step apart; dS and the
+    outputs carry that step)."""
+    dev = _card()
+    rng = np.random.default_rng(3 * T + causal)
+    q, k, v, mask = _attention_inputs(rng, 4, 4, T, 64, [T, max(T // 2, 1), 0, 0], dev)
+    mask[3, min(70, T - 1):] = 1
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    before = k8a.BWD_LAUNCHES
+    got = k8a.masked_attention_backward(q, k, v, mask, causal, g)
+    want = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+    torch.cuda.synchronize()
+    assert k8a.BWD_LAUNCHES - before == 2  # dQ, then dK and dV
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        # (at T 1 dq and dk are exactly 0: one key, so dS = 0)
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(b.float().abs().max()), name
+
+
+@pytest.mark.cuda
+def test_text_attention_autograd_runs_the_backward_kernels_on_card():
+    """With a gradient wanted, ``masked_attention`` launches K8a and, on the
+    way back, K8a-bwd's two kernels once each."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    q, k, v, mask = _attention_inputs(rng, 2, 2, 40, 64, [40, 9], dev)
+    q.requires_grad_(True)
+    before = (k8a.LAUNCHES, k8a.BWD_LAUNCHES)
+    out = k8a.masked_attention(q, k, v, mask, False)
+    (dq,) = torch.autograd.grad(out.float().sum(), [q])
+    torch.cuda.synchronize()
+    assert (k8a.LAUNCHES - before[0], k8a.BWD_LAUNCHES - before[1]) == (1, 2)
+    want = k8a.masked_attention_backward_reference(q.detach(), k, v, mask, False,
+                                                   torch.ones_like(out))[0]
+    assert _rel_err(dq, want) <= 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 1024, 2048])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("N", [3, 25349])
+def test_layer_norm_backward_kernels_match_plain_on_card(H, residual, N):
+    """K8b-bwd from the forward kernel's saved mu and rstd: dx within 2^-6
+    of the plain dx's largest |value| (one bf16 step of an output rounded
+    once), dscale and dbias (float32 sums over the rows, in blocks, then in
+    block order) to 1e-3 of theirs; the same bits on a second call (no
+    float atomics)."""
+    dev = _card()
+    rng = np.random.default_rng(H + 5 * int(residual) + N)
+    x = torch.from_numpy((rng.normal(size=(N, H)) * 2 + 20).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    r = _bf16(rng, N, H) if residual else None
+    g = _bf16(rng, N, H)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(size=H).astype(np.float32) * 0.1).to(dev)
+    stats = torch.empty(N, 2, device=dev)
+    k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5, stats)
+    _, want_stats = k8b._reference_with_stats(x, r, scale, bias, 1e-5)
+    assert _rel_err(stats, want_stats) <= 1e-5
+    before = k8b.BWD_LAUNCHES
+    got = k8b.add_layer_norm_backward(x, r, scale, stats, g)
+    again = k8b.add_layer_norm_backward(x, r, scale, stats, g)
+    want = k8b.add_layer_norm_backward_reference(x, r, scale, want_stats, g)
+    torch.cuda.synchronize()
+    assert k8b.BWD_LAUNCHES - before == 4  # two calls, each the rows and the reduction
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    assert _rel_err(got[0], want[0]) <= 2.0 ** -6
+    assert _rel_err(got[1], want[1]) <= 1e-3 and _rel_err(got[2], want[2]) <= 1e-3
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_layer_norm_autograd_runs_the_backward_kernels_on_card():
+    dev = _card()
+    rng = np.random.default_rng(5)
+    x = _bf16(rng, 64, 1024).requires_grad_(True)
+    r = _bf16(rng, 64, 1024)
+    scale = torch.ones(1024, device=dev, requires_grad=True)
+    bias = torch.zeros(1024, device=dev, requires_grad=True)
+    before = (k8b.LAUNCHES, k8b.BWD_LAUNCHES)
+    y = k8b.add_layer_norm(x, r, scale, bias, 1e-5)
+    dx, ds, db = torch.autograd.grad(y.float().sum(), [x, scale, bias])
+    torch.cuda.synchronize()
+    assert (k8b.LAUNCHES - before[0], k8b.BWD_LAUNCHES - before[1]) == (1, 2)
+    assert ds.dtype == db.dtype == torch.float32
+    assert float(db.sub(64.0).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_backward_kernels_raise_on_what_they_do_not_take():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    q, k, v, mask = _attention_inputs(rng, 1, 2, 16, 64, [16], dev)
+    with pytest.raises(ValueError, match="dctx"):
+        k8a.masked_attention_backward(q, k, v, mask, False, q.float())
+    x = torch.zeros(4, 1024, device=dev, dtype=torch.bfloat16)
+    ones = torch.ones(1024, device=dev)
+    with pytest.raises(ValueError, match="stats"):
+        k8b.add_layer_norm_backward(x, None, ones, torch.zeros(3, 2, device=dev), x)

@@ -28,9 +28,9 @@ parameters and Adam moments of both last checkpoints to 1e-5 absolute and
 1e-4 relative.  The two sides' float32 parameters differ in their last bits
 after a few steps, and Adam magnifies that where a gradient is near its
 eps (it divides two tiny moments): on this fixture one parameter in a
-thousand moves by ~1e-5.  The in-batch layout trains one epoch: its sixth
-step's loss (~0.6) came out 1.1e-4 apart on the two sides after five steps
-that agreed to 4e-6, with the same label sets (a probe on this fixture).
+thousand moves by ~1e-5.  The in-batch layout trains one epoch, for a
+reason that ``test_in_batch_step_matches_jax_from_one_state`` pins down:
+its fifth step is at a ReLU gate's edge, see there.
 With the bfloat16 first moment, an f32 moment whose last bit differs can
 round to the neighbouring bf16 value (tests/test_torch_optim.py), which
 moves its parameter by up to LEARNING_RATE x 2^-8 = 1.2e-5 a step: there
@@ -281,6 +281,134 @@ def test_training_settings_match_jax_cli(start, env, setting):
         for x, y in zip(a, b):
             np.testing.assert_allclose(np.asarray(x, np.float32), np.asarray(y, np.float32),
                                        atol=atol, rtol=1e-4)
+
+
+def _copy_tree(tree):
+    return jax.tree_util.tree_map(lambda x: np.array(x, copy=True), tree)
+
+
+def test_in_batch_step_matches_jax_from_one_state(start, env, monkeypatch):
+    """The sixth in-batch step from one state, on both sides: loss, every
+    gradient and every update to 1e-5.
+
+    The JAX CLI trains the in-batch setting 2 epochs (6 steps of 8
+    sequences) while its train step records the state and the placed batch
+    before each step and the state after it.  The state before step 6 is
+    converted with ``from_jax_tree``; the port's step runs from it with a
+    recording optimizer (its gradients) and with the real one (its
+    update, against the JAX CLI's recorded update), and the JAX step runs
+    from it once more with an optax transform that keeps the gradients.
+
+    Why the in-batch setting trains one epoch in
+    ``test_training_settings_match_jax_cli``: on this fixture the fifth step
+    (epoch 2, its second batch: 6 labels padded to 8) has a pre-activation
+    of the output MLP's first BN + ReLU at 1.43e-6 from zero, and the two
+    sides round it to opposite signs (-1.4305115e-6 in eager JAX,
+    +1.4305115e-6 in the port; its inputs z, inv and shift are float32 sums
+    taken in other orders).  The flipped gate moves that step's gradients by
+    up to 1.6e-2 (the loss agrees to 4e-7), Adam carries the difference into
+    the sixth step's loss (1.1e-4).  The same step run from one state
+    agrees to ~1e-6 on every other step, padded or not; the padded columns
+    change neither side's gradients (a probe on this fixture, 1e-6).  The
+    step below is the sixth: its gates sit clear of zero."""
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    import protnote_tpu.cli.main as jmain
+    import protnote_tpu.train.trainer as jtrainer
+    from protnote_tpu.train.losses import get_loss_fn as jax_loss
+    from protnote_tpu.train.step import make_train_step as jax_train_step
+    from protnote_tpu_torch.models import fusion as tfu
+    from protnote_tpu_torch.models import proteinfer as tpi
+    from protnote_tpu_torch.models.convert import from_jax_tree
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer, tree_leaves
+    from protnote_tpu_torch.train.step import make_train_step
+
+    record = []
+    orig = jtrainer.make_train_step
+
+    def recording_step(*args, **kw):
+        step = orig(*args, **kw)
+
+        def run(ts, arrays, rng):
+            before = _copy_tree((ts, arrays, rng))  # the step donates ts
+            new_ts, metrics = step(ts, arrays, rng)
+            record.append((before, _copy_tree((new_ts, metrics))))
+            return new_ts, metrics
+
+        return run
+
+    monkeypatch.setattr(jtrainer, "make_train_step", recording_step)
+    ckpt, params = start
+    _run(jmain, "jaxsteps", ["--train-path-name", "TRAIN_DATA_PATH", "--model-file", ckpt],
+         ["IN_BATCH_SAMPLING", "True"])
+    assert len(record) == 6
+    (ts, arrays, rng), (jax_next, jax_metrics) = record[5]
+    assert arrays["label_multihots"].shape[1] < NUM_LABELS  # an in-batch label subset
+
+    # the JAX gradients, from an optax transform that stores them
+    def keep_grads():
+        return optax.GradientTransformation(
+            lambda p: {"g": jax.tree_util.tree_map(jnp.zeros_like, p)},
+            lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), {"g": g}))
+
+    pn, pi, *_ = _jax_template(params)
+    tx = keep_grads()
+    jstep = jax_train_step(pi, pn, jax_loss(params), tx, donate=False)
+    jts = dict(ts, opt_state=tx.init(ts["trainable"]))
+    out, _ = jstep(jax.tree_util.tree_map(jnp.asarray, jts),
+                   {k: jnp.asarray(v) for k, v in arrays.items()}, jnp.asarray(rng))
+    jax_grads = _leaves(out["opt_state"]["g"])
+
+    tpn = tfu.ProtNoteConfig.from_params(params, protein_embedding_dim=48,
+                                         label_embedding_dim=32,
+                                         inference_descriptions_per_label=2,
+                                         compute_dtype=torch.float32)
+    tpi_cfg = tpi.ProteInferConfig(input_channels=20, output_channels=48, kernel_size=5,
+                                   num_resnet_blocks=1, num_labels=NUM_LABELS)
+
+    def batch():
+        out = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+        for k in ("example_mask", "label_mask"):
+            if k in out:
+                out[k] = out[k].float()
+        return out
+
+    class KeepGrads:
+        def update(self, grads, trainable, state):
+            self.grads = [g.numpy() for g in grads]
+            return state
+
+    keep = KeepGrads()
+    _, port_metrics = make_train_step(tpi_cfg, tpn, get_loss_fn(params), keep)(
+        from_jax_tree(ts), batch(), None)
+    assert float(port_metrics["loss"]) == pytest.approx(float(jax_metrics["loss"]),
+                                                        abs=1e-5, rel=0)
+    assert float(port_metrics["grad_norm"]) == pytest.approx(float(jax_metrics["grad_norm"]),
+                                                             abs=1e-5, rel=0)
+    assert len(keep.grads) == len(jax_grads) > 0
+    for g, w in zip(keep.grads, jax_grads):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+    opt = Optimizer(params)
+    port_ts = from_jax_tree(ts)
+    before = [t.clone() for t in tree_leaves(port_ts["trainable"])]
+    port_next, _ = make_train_step(tpi_cfg, tpn, get_loss_fn(params), opt)(
+        port_ts, batch(), None)
+    jax_before, jax_after = _leaves(ts["trainable"]), _leaves(jax_next["trainable"])
+    for p0, p1, w0, w1 in zip(before, tree_leaves(port_next["trainable"]), jax_before,
+                              jax_after):
+        np.testing.assert_allclose((p1 - p0).numpy(), w1 - w0, atol=1e-5, rtol=0)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [np.asarray(tree)]
 
 
 def test_train_confusion_accumulator_matches_jax():

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, evaluation, training, int8 and
-label-text-tower paths on one CUDA card (H100).
+"""Smoke run of the PyTorch port's serving, evaluation, training, int8,
+label-text-tower and encoder-training paths on one CUDA card (H100).
 
     python3 chip_smoke.py
 
@@ -20,10 +20,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    same function);
 4. serving: a full-width ``ServingEngine`` (ProteInfer 1100 channels x 5
    blocks, 32,102 labels x 2 descriptions) behind the stdlib HTTP server,
-   answering /v1/predict and /healthz requests; the ProteInfer encoder
-   alone (cuDNN conv1d and the plain epilogues, K7's chain) at buckets 512
-   and 1024 from CUDA events, with its passes on the serving path, and its
-   11 cuDNN conv1d calls alone (K7's library time);
+   answering /v1/predict and /healthz requests (K7's forward launches
+   counted); the ProteInfer encoder alone (K7: 11 ``masked_conv_forward``
+   launches and the pool) at buckets 512 and 1024 from CUDA events beside
+   the plain chain (the cuDNN conv1d chain of K7's ``*_reference``
+   functions), the pooled embeddings against it, the 11 conv launches alone
+   on their recorded inputs against the plain convs, the 11 cuDNN conv1d
+   calls alone (K7's library time) and the pool alone;
 5. serving parity: ``engine.score`` against a forward through the plain
    pair scorer on the same device tensors;
 6. the eval-accumulator kernels (K3) against their plain version at full
@@ -142,14 +145,33 @@ Phases, each printing one line (any failure raises and exits non-zero):
     (the LoRA adapters or the unfrozen layers) through the kernels within
     5e-2 of the plain chain's (L2) and of the plain backward's on the
     kernels' forward (largest |value|), and the whole step's ``grad_norm``
-    within 5e-2 of the plain chain's.
+    within 5e-2 of the plain chain's;
+18. K7's backward kernels alone at full width (32 sequences at bucket 512):
+    ``masked_conv_dx`` on the 10 block convs, ``masked_conv_dw`` (dW and
+    dbias) on all 11 and the train-mode masked BN + ReLU forward and
+    backward on the 10 BatchNorms, against the plain chain's autograd
+    (within 2^-6 of each tensor's largest |value|), their times beside the
+    bound, the plain versions' and cuDNN's conv backward;
+19. training the encoder through ``Trainer.train`` at full width, 32
+    sequences a step at bucket 512: ``TRAIN_SEQUENCE_ENCODER`` for 9 steps
+    (step ms, seqs/s, peak memory, K7's launches, a validation pass), 3
+    profiled steps (idle share, top kernels), the encoder's gradients under
+    one fixed cotangent leaf by leaf within 5e-2 (L2) of the plain chain's
+    and its new running statistics within 1e-2, a PNTPU1 checkpoint with
+    ``trainable["encoder"]`` round-tripped, 2 steps at bucket 1024 (the
+    peak there); then ``ENCODER_BN_TRAIN_MODE`` for 3 steps (the running
+    statistics move, the weights do not).
 
-Then one JSON line with every kernel: its launches on its path (K1 and K3
+The serving, evaluation and training paths each assert K7's forward
+launches (and none of its training kernels).  Then one JSON line with
+every kernel: its launches on its path (K1 and K3
 in the training run, whose validation evaluates; K9 in the first sweep
 evaluation of 7b; K4, K4-bwd and K5 in training; K2
 in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
 run; K8a-bwd and K8b-bwd summed over the three tower-training runs, each
-of their calls two kernel launches, both counted; each count set to 0 just
+of their calls two kernel launches, both counted; K7's forward and pool
+in the training run, its backward and BN kernels in phase 19's
+``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; each count set to 0 just
 before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
@@ -188,7 +210,7 @@ LOGIT_ATOL = 5e-2
 
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
-                  "threshold_sweep")
+                  "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn")
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -269,6 +291,23 @@ TOWER_TRAIN_LENGTHS = (16, 128)
 TOWER_TRAIN_LAYERS = 2
 TOWER_LORA_RANK, TOWER_LORA_ALPHA = 4, 8.0
 TOWER_VAL_LABELS = 1024
+# K7 (the encoder's masked dilated conv chain): each kernel against its
+# plain version on the same bf16 inputs within 2^-6 of the plain output's
+# largest |value| (K45_REL_TOL: the conv sums in another order and the bias
+# and the residual round again; the backward rounds each gradient once from
+# a float32 sum in another order), the pool and the BN's running statistics
+# to 1e-5, dscale and dbias to 1e-3 (float32 sums over 16,384 rows in other
+# orders); the pooled embeddings of the whole chain, where such bf16 steps
+# pass through 11 convs and 10 BatchNorms, within 5e-2 of their largest
+# |value|
+K7_FORWARD = ("masked_conv_fwd", "masked_mean_pool")
+KERNEL_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+K7_POOLED_REL_TOL = 5e-2
+K7_F32_REL_TOL = 1e-5
+K7_SUMS_REL_TOL = 1e-3
+# training the encoder (TRAIN_SEQUENCE_ENCODER): 32 sequences a step at
+# bucket 512; the peak memory also at 1024
+ENCODER_TRAIN_STEPS, ENCODER_BN_STEPS, ENCODER_1024_STEPS = 9, 3, 2
 
 
 def bound(nbytes: float = 0.0, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
@@ -606,6 +645,7 @@ def phase_serving(engine, rng, card: str):
     import numpy as np
     import torch
 
+    from protnote_tpu_torch.ops import masked_conv as k7
     from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.serving import make_http_server
 
@@ -624,6 +664,7 @@ def phase_serving(engine, rng, card: str):
     url = f"http://127.0.0.1:{server.server_address[1]}"
     stats0 = engine.stats.snapshot()
     ps.LAUNCHES = 0
+    reset_k7_launches()
     try:
         latencies = []
         for seqs in requests:
@@ -638,6 +679,7 @@ def phase_serving(engine, rng, card: str):
         with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
         launches = ps.LAUNCHES
+        k7_launches = dict(k7.LAUNCHES)
     finally:
         batcher.close()
         server.shutdown()
@@ -649,10 +691,11 @@ def phase_serving(engine, rng, card: str):
         raise AssertionError(f"bad /healthz: {health}")
     if launches <= 0:
         raise AssertionError("the serving path never launched the K1 kernel")
+    check_k7_forward(k7_launches, "serving")
     batches = health["batches"] - stats0["batches"]
     n_seqs = sum(len(r) for r in requests)
     log("serving", requests=len(requests), sequences=n_seqs, batches=batches,
-        k1_launches=launches, request_ms=latencies,
+        k1_launches=launches, k7_launches=k7_launches, request_ms=latencies,
         batch_ms=(health["total_device_ms"] - stats0["total_device_ms"]) / batches,
         device=str(engine.device), card=card)
 
@@ -668,38 +711,156 @@ def phase_serving(engine, rng, card: str):
     log("serving_full_batch", batch=B, bucket=512, batch_ms=sec * 1e3,
         seqs_per_s=B / sec, pair_scores_per_s=B * NUM_LABELS * K_DESCRIPTIONS / sec,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, card=card)
-    phase_encoder(engine, full, batches, card)
-    return launches
+    return phase_encoder(engine, full, batches, card)
+
+
+def reset_k7_launches() -> None:
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    for name in k7.LAUNCHES:
+        k7.LAUNCHES[name] = 0
+
+
+def check_k7_forward(launches: dict, path: str) -> None:
+    """The path ran K7's forward kernels, and no backward one."""
+    if any(launches[k] <= 0 for k in K7_FORWARD):
+        raise AssertionError(f"the {path} path skipped K7's forward: {launches}")
+    if any(v for k, v in launches.items() if k not in K7_FORWARD):
+        raise AssertionError(f"the {path} path launched a K7 training kernel: {launches}")
+
+
+def conv_rows(lengths, T: int, taps: int, dilation: int) -> int:
+    """The (output row, tap) pairs a masked conv needs for these lengths:
+    valid output rows whose shifted input row is valid too (the work
+    without the taps and rows that only read the zero padding)."""
+    half, n = (taps - 1) // 2, 0
+    for length in lengths:
+        L = min(max(int(length), 0), T)
+        for j in range(taps):
+            s = dilation * (j - half)
+            n += max(0, min(L, L - s) - max(0, -s))
+    return n
+
+
+def k7_convs(params, cfg):
+    """(name, parameters, dilation) of the chain's 11 convs in order."""
+    out = [("conv1", params["conv1"], 1)]
+    for i, bp in enumerate(params["blocks"]):
+        out += [(f"block{i}_dilated", bp["conv_dilated"], cfg.dilation_base ** i),
+                (f"block{i}_1x1", bp["conv_1x1"], 1)]
+    return out
+
+
+def k7_flops(lengths, T: int, params, cfg, skip_conv1: bool = False) -> float:
+    """The bf16 products of the chain's convs for these lengths (2 x C_in x
+    C_out a needed (row, tap) pair)."""
+    return sum(2.0 * p["kernel"].shape[1] * p["kernel"].shape[2]
+               * conv_rows(lengths, T, p["kernel"].shape[0], d)
+               for name, p, d in k7_convs(params, cfg) if not (skip_conv1 and name == "conv1"))
+
+
+def k7_eval_calls(params, state, onehot, lengths, cfg):
+    """The eval chain through K7's kernels, recording the arguments of each
+    ``masked_conv_forward`` call: ``(calls, the last block's output)``."""
+    from protnote_tpu_torch.models.proteinfer import proteinfer_embed
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    calls, kernel = [], k7.masked_conv_cuda
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    k7.masked_conv_cuda = record
+    try:
+        proteinfer_embed(params, state, onehot, lengths, cfg)
+    finally:
+        k7.masked_conv_cuda = kernel
+    if len(calls) != 1 + 2 * cfg.num_resnet_blocks:
+        raise AssertionError(f"the eval chain made {len(calls)} conv calls")
+    return calls, kernel(*calls[-1])
+
+
+def rel_max(got, want) -> tuple:
+    """(max |got - want|, that over the largest |want|)."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
 
 
 def phase_encoder(engine, seqs, passes: int, card: str):
-    """K7's chain as the port runs it (cuDNN conv1d, bias, mask, eval BN,
-    ReLU, residual, masked mean pool) for one 32-sequence batch at buckets
-    512 and 1024, from CUDA events, beside the bound of the same work: the
-    conv FLOPs over the bf16 peak, or the bytes of the ids, the float32
-    weights read once and the embeddings written, over the memory rate."""
+    """K7's forward chain as the port runs it (``embed_from_ids``: 11
+    ``masked_conv_forward`` launches with the eval-mode BN + ReLU prologue
+    and the bias/mask/residual epilogue, then ``masked_mean_pool``) for one
+    32-sequence batch at buckets 512 and 1024, beside the plain chain (the
+    cuDNN conv1d chain of the ``*_reference`` functions), its pooled
+    embeddings against the plain chain's; then the 11 conv launches alone on
+    their recorded inputs against the plain convs on the same inputs and the
+    11 cuDNN conv1d calls alone (the library time), and the pool alone.
+    Bounds: the convs' products for these lengths (taps and rows that only
+    read padding left out) over the bf16 peak, and the padded count beside
+    it; the pool's bytes over the memory rate."""
+    import numpy as np
     import torch
 
-    from protnote_tpu_torch.models.proteinfer import embed_from_ids
+    from protnote_tpu_torch.models.proteinfer import (
+        embed_from_ids,
+        one_hot_sequences,
+        proteinfer_embed_reference,
+    )
+    from protnote_tpu_torch.ops import masked_conv as k7
 
-    cfg = engine.pi_cfg
-    ts = engine.ts
+    cfg, ts = engine.pi_cfg, engine.ts
+    params, state = ts["enc_params"], ts["enc_state"]
     C, Cb, k = cfg.output_channels, cfg.bottleneck_channels, cfg.kernel_size
-    conv = {k: v for k, v in ts["enc_params"].items() if k != "output"}  # not in the embedding
-    weights = sum(t.numel() for t in tensors_of(conv) + tensors_of(ts["enc_state"]))
     out = {}
     with torch.inference_mode():
         for bucket in (512, 1024):
-            aa, lengths = engine._assemble(engine._encode(seqs), bucket)
-            aa, lengths = torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda()
-            ms = cuda_time_ms(lambda: embed_from_ids(ts["enc_params"], ts["enc_state"], aa,
-                                                     lengths, cfg), 10)
-            flop = 2.0 * B * bucket * (cfg.input_channels * C * k
-                                       + cfg.num_resnet_blocks * (C * Cb * k + Cb * C))
-            nbytes = 1.0 * B * bucket + 4.0 * weights + 4.0 * B * C
-            out[bucket] = {"ms": ms, "tflops": flop / ms / 1e9, "conv_ms": conv_alone_ms(
-                ts["enc_params"], cfg, bucket), **bound(nbytes=nbytes, ops=flop)}
-    log("encoder", batch=B, passes_on_serving_path=passes, buckets=out, card=card)
+            aa, lens = engine._assemble(engine._encode(seqs), bucket)
+            aa, lengths = torch.from_numpy(aa).cuda(), torch.from_numpy(lens).cuda()
+            onehot = one_hot_sequences(aa, cfg.input_channels, torch.bfloat16)
+            ms = cuda_time_ms(lambda: embed_from_ids(params, state, aa, lengths, cfg), 10)
+            plain_ms = cuda_time_ms(lambda: proteinfer_embed_reference(
+                params, state, onehot, lengths, cfg), 10)
+            got, _ = embed_from_ids(params, state, aa, lengths, cfg)
+            want, _ = proteinfer_embed_reference(params, state, onehot, lengths, cfg)
+            pooled_err, pooled_rel = rel_max(got, want)
+            calls, feats = k7_eval_calls(params, state, onehot, lengths, cfg)
+            conv_errs = [rel_max(k7.masked_conv_cuda(*c), k7.masked_conv_reference(*c))
+                         for c in calls]
+            conv_ms = cuda_time_ms(lambda: [k7.masked_conv_cuda(*c) for c in calls], 10)
+            conv_plain_ms = cuda_time_ms(lambda: [k7.masked_conv_reference(*c) for c in calls],
+                                         10)
+            pool_err = rel_max(k7.masked_mean_pool_cuda(feats, lengths),
+                               k7.masked_mean_pool_reference(feats, lengths))
+            pool_ms = cuda_time_ms(lambda: k7.masked_mean_pool_cuda(feats, lengths), 20)
+            pool_plain_ms = cuda_time_ms(lambda: k7.masked_mean_pool_reference(feats, lengths),
+                                         20)
+            flop = k7_flops(lens, bucket, params, cfg)
+            flop_padded = 2.0 * B * bucket * (cfg.input_channels * C * k
+                                              + cfg.num_resnet_blocks * (C * Cb * k + Cb * C))
+            valid = int(np.minimum(lens, bucket).sum())
+            conv = {"max_abs_err": max(e for e, _ in conv_errs),
+                    "max_rel_err": max(r for _, r in conv_errs), "ms": conv_ms,
+                    "plain_ms": conv_plain_ms, **bound(ops=flop),
+                    "library_ms": conv_alone_ms(params, cfg, bucket),
+                    "tflops": flop / conv_ms / 1e9}
+            pool = {"max_abs_err": pool_err[0], "ms": pool_ms, "plain_ms": pool_plain_ms,
+                    **bound(nbytes=2.0 * valid * C + 4.0 * B + 4.0 * B * C),
+                    "library_ms": None}
+            out[bucket] = {"chain_ms": ms, "chain_plain_ms": plain_ms,
+                           "pooled_max_abs_err": pooled_err, "pooled_rel_err": pooled_rel,
+                           "chain_bound_ms": bound(ops=flop)["bound_ms"],
+                           "padded_bound_ms": bound(ops=flop_padded)["bound_ms"],
+                           "valid_rows": valid, "masked_conv_fwd": conv,
+                           "masked_mean_pool": pool}
+            if pooled_rel > K7_POOLED_REL_TOL or conv["max_rel_err"] > K45_REL_TOL \
+                    or pool_err[1] > K7_F32_REL_TOL:
+                raise AssertionError(f"K7's forward disagrees with its plain version at "
+                                     f"bucket {bucket}: {out[bucket]}")
+    log("encoder", batch=B, passes_on_serving_path=passes, buckets=out,
+        rel_tol={"pooled": K7_POOLED_REL_TOL, "conv": K45_REL_TOL, "pool": K7_F32_REL_TOL},
+        card=card)
     return out
 
 
@@ -707,18 +868,15 @@ def conv_alone_ms(enc_params, cfg, bucket: int) -> float:
     """The chain's 11 cuDNN conv1d calls alone (the first conv, then each
     block's dilated conv and 1 x 1 conv), one pass on bf16 inputs of the
     shapes a 32-sequence batch gives them at ``bucket``: the library time of
-    K7's row, without the masks, biases, BatchNorms, ReLUs, residuals and
-    pooling around them."""
+    K7's forward, without the masks, biases, BatchNorms, ReLUs, residuals and
+    pooling around them.  The port never calls it."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(14)
-    convs = [(enc_params["conv1"], 1)] + [
-        (conv, d) for i, bp in enumerate(enc_params["blocks"])
-        for conv, d in ((bp["conv_dilated"], cfg.dilation_base ** i), (bp["conv_1x1"], 1))]
     calls = []
-    for p, dilation in convs:
-        w = p["kernel"].to(torch.bfloat16)
+    for _, p, dilation in k7_convs(enc_params, cfg):
+        w = p["kernel"].permute(2, 1, 0).contiguous().to(torch.bfloat16)  # (cout, cin, k)
         x = torch.randn((B, w.shape[1], bucket), device="cuda", dtype=torch.bfloat16,
                         generator=gen)
         calls.append((x, w, dilation * (w.shape[-1] - 1) // 2, dilation))
@@ -740,9 +898,9 @@ def plain_probs(engine, seqs, latents=None):
     ts, cfg = engine.ts, engine.pn_cfg
     pn, state = ts["trainable"]["protnote"], ts["model_state"]
     with torch.inference_mode():
-        P_f = embed_from_ids(ts["enc_params"], ts["enc_state"],
-                             torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda(),
-                             engine.pi_cfg)
+        P_f, _ = embed_from_ids(ts["enc_params"], ts["enc_state"],
+                                torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda(),
+                                engine.pi_cfg)
         P_e, _ = projection_head_apply(pn["W_p"], state["W_p"], P_f.to(cfg.compute_dtype))
         folded = ps.fold_output_mlp(pn["output_mlp"], state["output_mlp"], cfg.feature_fusion,
                                     cfg.latent_dim, dtype=cfg.compute_dtype)
@@ -1426,6 +1584,7 @@ def phase_eval(card: str, k3_times: dict):
 
     from protnote_tpu_torch.evaln.metrics import DeviceEvalAccumulator, EvalMetrics
     from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import masked_conv as k7
     from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.train.step import batch_to_device_dict
     from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1444,12 +1603,15 @@ def phase_eval(card: str, k3_times: dict):
     ps.LAUNCHES = 0
     for name in k3.LAUNCHES:
         k3.LAUNCHES[name] = 0
+    reset_k7_launches()
     t0 = time.perf_counter()
     metrics = trainer.evaluate(batcher)["metrics"]
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    check_k7_forward(k7.LAUNCHES, "evaluation")
     launches = {"pair_mlp_layer": ps.LAUNCHES,
-                **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+                **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()},
+                **{k: k7.LAUNCHES[k] for k in K7_FORWARD}}
     peak = torch.cuda.max_memory_allocated() / 2**30
     if any(v <= 0 for v in launches.values()):
         raise AssertionError(f"the evaluation path skipped a kernel: {launches}")
@@ -2093,6 +2255,7 @@ def phase_training(card: str):
 
     from protnote_tpu_torch.data.batching import BucketBatcher, PrefetchBatcher
     from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import masked_conv as k7
     from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.ops import streaming_train as st
     from protnote_tpu_torch.train.losses import get_loss_fn
@@ -2143,12 +2306,15 @@ def phase_training(card: str):
         for counts in (k3.LAUNCHES, st.LAUNCHES):
             for name in counts:
                 counts[name] = 0
+        reset_k7_launches()
         t0 = time.perf_counter()
         summary = trainer.train(train_b, val_b)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        check_k7_forward(k7.LAUNCHES, "training")
         launches = {"pair_mlp_layer": ps.LAUNCHES,
-                    **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}, **st.LAUNCHES}
+                    **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}, **st.LAUNCHES,
+                    **{k: k7.LAUNCHES[k] for k in K7_FORWARD}}
         peak = torch.cuda.max_memory_allocated() / 2**30
         trainer._train_step = step_fn
         losses = [x[1] for x in steps]
@@ -3091,6 +3257,383 @@ def tower_grad_check(trainer, batch, cfg, lora: bool, step_mod, plain_forward) -
     return result
 
 
+def k7_lengths(rng, T: int):
+    """32 sequence lengths at bucket ``T``: the serving batch's 100-``T``,
+    with one sequence of 30 (every dilation-81 tap but the centre reads only
+    padding there)."""
+    import numpy as np
+
+    lens = rng.integers(100, T + 1, size=B).astype(np.int32)
+    lens[-1] = 30
+    return lens
+
+
+def phase_k7_bwd(card: str) -> dict:
+    """K7's backward kernels alone at full width (1,100 channels, 5 blocks,
+    32 sequences at bucket 512, lengths 30-512) on random bf16 activations
+    and cotangents: ``masked_conv_dx`` on the 10 block convs,
+    ``masked_conv_dw`` (dW and dbias) on all 11, and the train-mode masked
+    BN + ReLU (K7-BN) forward and backward on the 10 BatchNorms (1,100 and
+    550 channels, one row dropped by the example mask), each against the
+    plain chain's autograd on the same tensors.  Times are of the whole
+    chain's calls from CUDA events, beside the plain versions' (the backward
+    alone, on a retained graph) and, for the convs, cuDNN's conv backward on
+    the same shapes (``torch.nn.grad.conv1d_input`` / ``conv1d_weight``, the
+    library time, which the port never calls); bounds are the convs'
+    products for these lengths over the bf16 peak and the BN's bytes (each
+    input read once, each output written once) over the memory rate."""
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.models.layers import tree_to
+    from protnote_tpu_torch.models.proteinfer import (
+        BN_EPS,
+        BN_MOMENTUM,
+        ProteInferConfig,
+        init_proteinfer,
+        one_hot_sequences,
+    )
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev, bf16, T = torch.device("cuda"), torch.bfloat16, 512
+    cfg = ProteInferConfig(compute_dtype=bf16)
+    params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
+    params, state = tree_to(params, dev), tree_to(state, dev)
+    rng = np.random.default_rng(17)
+    lens = k7_lengths(rng, T)
+    lengths = torch.from_numpy(lens).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def act(c, shift=0.0):
+        return (torch.randn(B, T, c, generator=gen, device=dev) + shift).to(bf16)
+
+    ids = torch.from_numpy(rng.integers(0, 21, (B, T))).to(dev)
+    convs = []
+    for name, p, d in k7_convs(params, cfg):
+        w, b = p["kernel"].to(bf16).contiguous(), p["bias"].to(bf16)
+        x = (one_hot_sequences(ids, cfg.input_channels, bf16) if name == "conv1"
+             else torch.relu(act(w.shape[1])))
+        convs.append((name, x, w, b, d, act(w.shape[2])))
+    out, errs = {}, {"dx": [], "dw": [], "db": []}
+    plain_dx, plain_dw, lib_dx, lib_dw = [], [], [], []
+    for name, x, w, b, d, dy in convs:
+        xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = k7.masked_conv_reference(xg, wg, bg, lengths, d)
+        taps, pad = w.shape[0], d * (w.shape[0] - 1) // 2
+        w_t, x_t, dy_t = (t.permute(*perm).contiguous() for t, perm in
+                          ((w, (2, 1, 0)), (x, (0, 2, 1)), (dy, (0, 2, 1))))
+        gw, gb = torch.autograd.grad(y, [wg, bg], dy, retain_graph=True)
+        dw, db = k7.masked_conv_dw_cuda(x, dy, lengths, taps, d)
+        errs["dw"].append(rel_max(dw, gw))
+        errs["db"].append(rel_max(db, gb))
+        plain_dw.append(lambda y=y, wg=wg, bg=bg, dy=dy: torch.autograd.grad(
+            y, [wg, bg], dy, retain_graph=True))
+        lib_dw.append(lambda x_t=x_t, w_t=w_t, dy_t=dy_t, pad=pad, d=d: torch.nn.grad.conv1d_weight(
+            x_t, w_t.shape, dy_t, padding=pad, dilation=d))
+        if name != "conv1":
+            (gx,) = torch.autograd.grad(y, [xg], dy, retain_graph=True)
+            errs["dx"].append(rel_max(k7.masked_conv_dx_cuda(dy, w, lengths, d), gx))
+            plain_dx.append(lambda y=y, xg=xg, dy=dy: torch.autograd.grad(
+                y, [xg], dy, retain_graph=True))
+            lib_dx.append(lambda x_t=x_t, w_t=w_t, dy_t=dy_t, pad=pad, d=d:
+                          torch.nn.grad.conv1d_input(x_t.shape, w_t, dy_t, padding=pad,
+                                                     dilation=d))
+    dx_calls = [(dy, w, d) for name, _, w, _, d, dy in convs if name != "conv1"]
+    dx_ms = cuda_time_ms(lambda: [k7.masked_conv_dx_cuda(dy, w, lengths, d)
+                                  for dy, w, d in dx_calls], 5)
+    dw_ms = cuda_time_ms(lambda: [k7.masked_conv_dw_cuda(x, dy, lengths, w.shape[0], d)
+                                  for _, x, w, _, d, dy in convs], 5)
+    flop_dx = k7_flops(lens, T, params, cfg, skip_conv1=True)
+    flop_dw = k7_flops(lens, T, params, cfg)
+    for key, ms, plain, lib, flop, names in (
+            ("masked_conv_dx", dx_ms, plain_dx, lib_dx, flop_dx, ("dx",)),
+            ("masked_conv_dw", dw_ms, plain_dw, lib_dw, flop_dw, ("dw", "db"))):
+        worst = max(r for n in names for _, r in errs[n])
+        out[key] = {"max_abs_err": max(e for n in names for e, _ in errs[n]),
+                    "max_rel_err": worst, "ms": ms,
+                    "plain_ms": cuda_time_ms(lambda: [f() for f in plain], 3),
+                    **bound(ops=flop), "library_ms": cuda_time_ms(lambda: [f() for f in lib], 3),
+                    "tflops": flop / ms / 1e9, "calls": len(plain)}
+        if worst > K45_REL_TOL:
+            raise AssertionError(f"{key} disagrees with the plain backward: {errs}")
+    del plain_dx, plain_dw, lib_dx, lib_dw, convs
+    torch.cuda.empty_cache()
+
+    # K7-BN: the 10 BatchNorms of a training step
+    em = torch.ones(B, device=dev)
+    em[3] = 0.0
+    bns = [(bp[n], bs[n]) for bp, bs in zip(params["blocks"], state["blocks"])
+           for n in ("bn1", "bn2")]
+    items, errs = [], {"y": [], "stats": [], "dx": [], "sums": []}
+    for p, s in bns:
+        C = p["scale"].shape[0]
+        x, g = act(C, 0.3), act(C)
+        y, mean, var, stats, counts = k7.masked_bn_relu_forward_cuda(
+            x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
+        xg = x.clone().requires_grad_(True)
+        pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        y0, new0 = k7.masked_bn_relu_reference(xg, pg, s, lengths, em, BN_EPS, BN_MOMENTUM)
+        dx0, ds0, db0 = torch.autograd.grad(y0, [xg, pg["scale"], pg["bias"]], g,
+                                            retain_graph=True)
+        dx, ds, db = k7.masked_bn_relu_backward_cuda(x, y, g, p["scale"], stats, counts,
+                                                     lengths, em)
+        errs["y"].append(rel_max(y, y0))
+        errs["stats"] += [rel_max(mean, new0["mean"]), rel_max(var, new0["var"])]
+        errs["dx"].append(rel_max(dx, dx0))
+        errs["sums"] += [rel_max(ds, ds0), rel_max(db, db0)]
+        items.append((p, s, x, g, y, stats, counts, xg, pg, y0))
+    fwd_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_forward_cuda(
+        x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
+        for p, s, x, *_ in items], 5)
+    fwd_plain_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_reference(
+        x, p, s, lengths, em, BN_EPS, BN_MOMENTUM) for p, s, x, *_ in items], 3)
+    bwd_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_backward_cuda(
+        x, y, g, p["scale"], stats, counts, lengths, em)
+        for p, s, x, g, y, stats, counts, *_ in items], 5)
+    bwd_plain_ms = cuda_time_ms(lambda: [torch.autograd.grad(
+        y0, [xg, pg["scale"], pg["bias"]], g, retain_graph=True)
+        for p, s, x, g, y, stats, counts, xg, pg, y0 in items], 3)
+    elems = sum(B * T * p["scale"].shape[0] for p, _ in bns)
+    worst = {k: max(r for _, r in v) for k, v in errs.items()}
+    out["masked_bn_relu_fwd"] = {
+        "max_abs_err": max(e for e, _ in errs["y"]), "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms, **bound(nbytes=2.0 * 2 * elems), "library_ms": None,
+        "max_rel_err": worst["y"], "stats_rel_err": worst["stats"], "calls": len(items)}
+    out["masked_bn_relu_bwd"] = {
+        "max_abs_err": max(e for e, _ in errs["dx"]), "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        **bound(nbytes=4.0 * 2 * elems), "library_ms": None, "max_rel_err": worst["dx"],
+        "sums_rel_err": worst["sums"], "calls": len(items)}
+    if worst["y"] > K45_REL_TOL or worst["dx"] > K45_REL_TOL or \
+            worst["stats"] > K7_F32_REL_TOL or worst["sums"] > K7_SUMS_REL_TOL:
+        raise AssertionError(f"K7-BN disagrees with its plain version: {worst}")
+    log("k7_bwd", batch=B, bucket=T, lengths=[int(n) for n in lens], kernels=out,
+        rel_tol={"outputs": K45_REL_TOL, "stats": K7_F32_REL_TOL, "sums": K7_SUMS_REL_TOL},
+        card=card)
+    del items
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_grad_check(trainer, batch, cfg) -> dict:
+    """One batch through the trainable encoder (``trainable["encoder"]``,
+    float32 masters, bf16 compute) with train-mode BatchNorm, through K7's
+    kernels and through the plain chain, under one fixed cotangent on the
+    pooled embeddings: each trained leaf's gradient through the kernels
+    within GRAD_REL_TOL of the plain chain's in L2, and the new running
+    statistics within STATS_REL_TOL of the plain chain's largest |value|."""
+    import torch
+
+    from protnote_tpu_torch.models.proteinfer import (
+        embed_from_ids,
+        one_hot_sequences,
+        proteinfer_embed_reference,
+    )
+    from protnote_tpu_torch.train.optim import tree_leaves
+
+    enc, state = trainer.ts["trainable"]["encoder"], trainer.ts["enc_state"]
+    named = [(f"{name}.{k}", p[k]) for name, p, _ in k7_convs(enc, cfg) for k in ("kernel", "bias")]
+    named += [(f"block{i}.{n}.{k}", bp[n][k]) for i, bp in enumerate(enc["blocks"])
+              for n in ("bn1", "bn2") for k in ("scale", "bias")]
+    leaves = [t for _, t in named]
+    aa, lengths, em = batch["aa_ids"], batch["lengths"], batch["example_mask"]
+    onehot = one_hot_sequences(aa, cfg.input_channels, torch.bfloat16)
+    cot = torch.randn(aa.shape[0], cfg.output_channels,
+                      generator=torch.Generator(device=aa.device).manual_seed(7), device=aa.device)
+    runs = {}
+    for plain in (False, True):
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            if plain:
+                P, new = proteinfer_embed_reference(enc, state, onehot, lengths, cfg, True, em)
+            else:
+                P, new = embed_from_ids(enc, state, aa, lengths, cfg, train=True, example_mask=em)
+            runs[plain] = (torch.autograd.grad((P * cot).sum(), leaves), new)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+    (gk, new_k), (gp, new_p) = runs[False], runs[True]
+    rel = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for (name, _), a, b in zip(named, gk, gp)}
+    stats = max(rel_max(a, b)[1] for a, b in zip(tree_leaves(new_k), tree_leaves(new_p)))
+    worst = max(rel.values())
+    if worst > GRAD_REL_TOL or stats > STATS_REL_TOL:
+        raise AssertionError(f"the encoder's gradients or statistics through K7 differ from "
+                             f"the plain chain's: {rel}, stats {stats}")
+    return {"leaves": len(named), "max_leaf_rel_l2": worst,
+            "worst_leaf": max(rel, key=rel.get), "stats_rel_err": stats,
+            "leaf_rel_l2": {k: round(v, 6) for k, v in rel.items()}}
+
+
+def phase_encoder_training(card: str) -> dict:
+    """Training the encoder at full width through ``Trainer.train``: with
+    ``train_sequence_encoder`` (TRAIN_SEQUENCE_ENCODER) 9 steps of 32
+    sequences at bucket 512 (step times, seqs/s, peak memory, every kernel's
+    launches, a validation pass), 3 profiled steps (idle share, top
+    kernels), the encoder's gradients and running statistics against the
+    plain chain (:func:`encoder_grad_check`), a PNTPU1 checkpoint with
+    ``trainable["encoder"]`` written, restored and compared leaf by leaf,
+    and 2 steps at bucket 1024 for the peak memory there; then with
+    ``encoder_bn_train_mode`` (ENCODER_BN_TRAIN_MODE) alone, the encoder
+    frozen: 3 steps, its running statistics moved and its weights not.
+    Returns the first run's launches of K7's kernels."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer, tree_leaves
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = train_datasets(tmp)
+        weights = train_ds.calculate_sequence_weights(
+            train_ds.calculate_label_weights(power=0.5), "sum")
+        pi_cfg, pn_cfg, ts = random_models()
+        loss_fn = get_loss_fn(TRAIN_PARAMS)
+
+        def batcher(ds, bucket, train):
+            if train:
+                return BucketBatcher(ds, TRAIN_B, buckets=(bucket,), shuffle=True,
+                                     drop_last=True, seed=42, sequence_weights=weights,
+                                     device_label_gather=True)
+            return BucketBatcher(ds, TRAIN_B, buckets=(bucket,),
+                                 descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True)
+
+        def make(train_encoder: bool, bn_train: bool):
+            opt = Optimizer(TRAIN_PARAMS)
+            ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
+                                   ts["enc_params"], ts["enc_state"], opt,
+                                   train_sequence_encoder=train_encoder)
+            tcfg = TrainerConfig(num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True,
+                                 checkpoint_dir=tmp, run_name="encoder")
+            return ts0, tcfg, Trainer(ts0, pi_cfg, pn_cfg, tcfg, device=dev, loss_fn=loss_fn,
+                                      optimizer=opt, train_sequence_encoder=train_encoder,
+                                      encoder_bn_train_mode=bn_train)
+
+        def run(name, trainer, bucket, steps_n, validate):
+            steps, step_fn = [], trainer._train_step
+
+            def timed_step(ts_, batch, g):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts_, m = step_fn(ts_, batch, g)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"]),
+                              int(batch["aa_ids"].shape[1])))
+                return ts_, m
+
+            trainer._train_step = timed_step
+            reset_k7_launches()
+            for k in st.LAUNCHES:
+                st.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary = trainer.train(FirstBatches(batcher(train_ds, bucket, True), steps_n),
+                                    batcher(val_ds, bucket, False) if validate else None)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            trainer._train_step = step_fn
+            launches = {**k7.LAUNCHES, **st.LAUNCHES}
+            losses = [x[1] for x in steps]
+            med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
+            hist = summary["history"][0]
+            fields = dict(steps=len(steps), sequences_per_step=TRAIN_B, bucket=bucket,
+                          widths=sorted({x[3] for x in steps}), step_losses=losses,
+                          grad_norms=[x[2] for x in steps], first_step_ms=steps[0][0] * 1e3,
+                          median_warm_step_ms=med * 1e3, seqs_per_s=TRAIN_B / med,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, run_s=run_s,
+                          launches=launches, val_map_micro=hist.get("val_map_micro"),
+                          val_loss=hist.get("val_loss"))
+            if len(steps) != steps_n or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"encoder training {name}: {fields}")
+            return fields
+
+        # TRAIN_SEQUENCE_ENCODER at bucket 512
+        ts0, tcfg, trainer = make(True, False)
+        fields = run("train_sequence_encoder", trainer, 512, ENCODER_TRAIN_STEPS, True)
+        if any(v <= 0 for v in fields["launches"].values()):
+            raise AssertionError(f"encoder training skipped a kernel: {fields['launches']}")
+        result = {k: fields["launches"][k] for k in k7.LAUNCHES}
+        inner = batcher(train_ds, 512, True)
+        inner.set_epoch(1)
+        batches = []
+        for b in inner:
+            batches.append(b)
+            if len(batches) == PROFILE_STEPS:
+                break
+        matrix = trainer._label_matrix_for(train_ds)
+        placed = [trainer._place(batch_to_device_dict(b, dev), matrix) for b in batches]
+        g_prof = torch.Generator(device=dev).manual_seed(1)
+        it = iter(placed)
+        step_fn = trainer._train_step
+
+        def one_step():
+            trainer.ts, _ = step_fn(trainer.ts, next(it), g_prof)
+
+        wall, busy, top = device_profile(one_step, len(placed))
+        fields.update(profile_wall_ms_per_step=wall * 1e3 / len(placed),
+                      profile_device_busy_ms_per_step=None if busy is None
+                      else busy * 1e3 / len(placed),
+                      idle_share=None if busy is None else 1.0 - busy / wall,
+                      top_kernels_ms_per_step=top,
+                      grad_check=encoder_grad_check(trainer, placed[0], pi_cfg))
+        log("encoder_train", run="train_sequence_encoder", **fields, card=card)
+
+        # a checkpoint with trainable["encoder"], restored into a fresh trainer
+        trainer.save("roundtrip")
+        _, _, restored = make(True, False)
+        restored.load(os.path.join(tmp, "encoder_roundtrip.ckpt"))
+        a = [x for x in tree_leaves(trainer.ts) if isinstance(x, torch.Tensor)]
+        b = [x for x in tree_leaves(restored.ts) if isinstance(x, torch.Tensor)]
+        moved = float((trainer.ts["trainable"]["encoder"]["conv1"]["kernel"]
+                       - ts["enc_params"]["conv1"]["kernel"].to(dev)).abs().max())
+        if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)) or \
+                restored.ts["enc_params"] is not None or moved == 0.0:
+            raise AssertionError("the encoder checkpoint did not round-trip "
+                                 f"(leaves {len(a)} vs {len(b)}, conv1 moved {moved})")
+        log("encoder_checkpoint", leaves=len(a), encoder_leaves=len(tree_leaves(
+            restored.ts["trainable"]["encoder"])), conv1_moved=moved,
+            bytes=os.path.getsize(os.path.join(tmp, "encoder_roundtrip.ckpt")))
+        del trainer, restored, placed, batches, a, b
+        torch.cuda.empty_cache()
+
+        # the peak memory at bucket 1024
+        _, _, trainer = make(True, False)
+        log("encoder_train", run="train_sequence_encoder_1024",
+            **run("train_sequence_encoder_1024", trainer, 1024, ENCODER_1024_STEPS, False),
+            card=card)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ENCODER_BN_TRAIN_MODE: the encoder frozen, its BatchNorm on batch statistics
+        _, _, trainer = make(False, True)
+        fields = run("encoder_bn_train_mode", trainer, 512, ENCODER_BN_STEPS, True)
+        launches = fields["launches"]
+        state0 = tree_leaves(ts["enc_state"])
+        moved = max(float((x - y.to(dev)).abs().max())
+                    for x, y in zip(tree_leaves(trainer.ts["enc_state"]), state0))
+        frozen = all(torch.equal(x, y.to(dev)) for x, y in zip(
+            tree_leaves(trainer.ts["enc_params"]), tree_leaves(ts["enc_params"])))
+        if launches["masked_bn_relu_fwd"] <= 0 or moved == 0.0 or not frozen or any(
+                launches[k] for k in ("masked_conv_dx", "masked_conv_dw", "masked_bn_relu_bwd")):
+            raise AssertionError(f"ENCODER_BN_TRAIN_MODE: launches {launches}, running "
+                                 f"statistics moved {moved}, weights frozen {frozen}")
+        log("encoder_train", run="encoder_bn_train_mode", **fields, stats_moved=moved,
+            card=card)
+        del trainer
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -3105,7 +3648,7 @@ def main() -> None:
     engine, build_s, rng = build_engine()
     log("engine", build_seconds=build_s, labels=NUM_LABELS, label_rows=NUM_LABELS * K_DESCRIPTIONS,
         latents=list(engine.latents.shape), latents_dtype=str(engine.latents.dtype))
-    phase_serving(engine, rng, card)
+    k7_fwd = phase_serving(engine, rng, card)[512]
     drift_seqs, drift_probs = phase_parity(engine, rng)
     int8_launches = phase_int8_serving(engine, rng, drift_seqs, drift_probs, card)
     del engine
@@ -3135,6 +3678,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     k8_bwd_times = phase_k8_bwd(card)
     bwd_launches = phase_tower_training(card)
+    torch.cuda.empty_cache()
+    k7_bwd = phase_k7_bwd(card)
+    torch.cuda.empty_cache()
+    encoder_launches = phase_encoder_training(card)
     if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
                                    for m in sys.modules):
         raise AssertionError("the port's serving, evaluation, training or tower path imported "
@@ -3189,7 +3736,22 @@ def main() -> None:
     } for k, src, rep in (("text_attention_bwd", "text_attention_bwd",
                            "protnote_tpu/models/text_transformer.py:182"),
                           ("add_layer_norm_bwd", "layer_norm",
-                           "protnote_tpu/models/text_transformer.py:159"))]}), flush=True)
+                           "protnote_tpu/models/text_transformer.py:159"))] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": runs[k], **{f: times[k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep, times, runs in (
+        ("masked_conv_fwd", "masked_conv", "protnote_tpu/models/proteinfer.py:127", k7_fwd,
+         launches),
+        ("masked_mean_pool", "masked_conv", "protnote_tpu/models/proteinfer.py:147", k7_fwd,
+         launches),
+        ("masked_conv_dx", "masked_conv_bwd", "protnote_tpu/models/proteinfer.py:127", k7_bwd,
+         encoder_launches),
+        ("masked_conv_dw", "masked_conv_bwd", "protnote_tpu/models/proteinfer.py:127", k7_bwd,
+         encoder_launches),
+        ("masked_bn_relu_fwd", "masked_bn", "protnote_tpu/models/layers.py:102", k7_bwd,
+         encoder_launches),
+        ("masked_bn_relu_bwd", "masked_bn", "protnote_tpu/models/layers.py:102", k7_bwd,
+         encoder_launches))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

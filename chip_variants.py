@@ -52,6 +52,17 @@ the training path's 32-sequence shapes (a2 (32, 3072), c2 (32,102, 3072),
 dz (1,027,264 x 3072)), the list run forward and then backward, calling
 the C entry points alone.
 
+    python3 chip_variants.py --k7
+
+times each of K7's conv shapes alone at the training and serving path's
+width (32 sequences at bucket 512, ``chip_smoke.k7_lengths``): the first
+conv (one-hot 20 -> 1,100 channels), a block's dilated conv (1,100 -> 550,
+9 taps) at dilations 1, 9 and 81, and its 1 x 1 conv (550 -> 1,100), each
+as ``masked_conv_forward`` without and with the eval BN prologue and with
+the residual, ``masked_conv_dx`` and ``masked_conv_dw``, beside cuDNN's
+conv1d on the same shape; with the TFLOP/s of the forward on the products
+these lengths need.
+
     python3 chip_variants.py --eval-against DIR
 
 runs ``Trainer.evaluate`` on ``chip_smoke.py``'s 256-sequence FASTA (bf16,
@@ -680,6 +691,44 @@ def eval_against(parent: str, card: str) -> None:
            **mean_over_turns(results, parent, ["seqs_per_s"]))
 
 
+def k7_shapes(card: str) -> None:
+    """``--k7``: each K7 conv shape alone, the kept kernels' entry points."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev, bf16, B, T = torch.device("cuda"), torch.bfloat16, cs.B, 512
+    lens = cs.k7_lengths(np.random.default_rng(3), T)
+    lengths = torch.from_numpy(lens).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(bf16)
+
+    for name, cin, cout, taps, d in (("conv1", 20, 1100, 9, 1), ("dilated_1", 1100, 550, 9, 1),
+                                     ("dilated_9", 1100, 550, 9, 9),
+                                     ("dilated_81", 1100, 550, 9, 81), ("1x1", 550, 1100, 1, 1)):
+        x, w, b, res, dy = (rnd(B, T, cin), rnd(taps, cin, cout, scale=0.05), rnd(cout),
+                            rnd(B, T, cout), rnd(B, T, cout))
+        bn = (torch.rand(cin, device=dev) + 0.5, 0.1 * torch.randn(cin, device=dev))
+        x_t, w_t = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        ms = {
+            "fwd": cs.cuda_time_ms(lambda: k7.masked_conv_cuda(x, w, b, lengths, d), 20),
+            "fwd_bn": cs.cuda_time_ms(lambda: k7.masked_conv_cuda(x, w, b, lengths, d, bn), 20),
+            "fwd_residual": cs.cuda_time_ms(
+                lambda: k7.masked_conv_cuda(x, w, b, lengths, d, None, res), 20),
+            "dx": cs.cuda_time_ms(lambda: k7.masked_conv_dx_cuda(dy, w, lengths, d), 20),
+            "dw": cs.cuda_time_ms(lambda: k7.masked_conv_dw_cuda(x, dy, lengths, taps, d), 20),
+            "cudnn_conv1d": cs.cuda_time_ms(lambda: F.conv1d(
+                x_t, w_t, padding=d * (taps - 1) // 2, dilation=d), 20)}
+        flop = 2.0 * cin * cout * cs.conv_rows(lens, T, taps, d)
+        cs.log("k7_shape", shape=name, cin=cin, cout=cout, taps=taps, dilation=d, ms=ms,
+               fwd_tflops=flop / ms["fwd"] / 1e9, card=card)
+
+
 def main() -> None:
     import tempfile
 
@@ -716,6 +765,10 @@ def main() -> None:
     if sys.argv[1:2] == ["--k4-bwd"]:
         with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
             k4_bwd_variants(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k7"]:
+        k7_shapes(card)
         print(card)
         return
     if sys.argv[1:2] == ["--k3"]:

@@ -47,9 +47,11 @@ whole tower joins the trainable tree and the optimizer's trainable mask
 updates its last n layers only (the clip still sees every gradient).  The
 tower computes in float32 on the CPU (as the JAX CLI trains it) and in
 bfloat16 on the card under ``MIXED_PRECISION`` (its kernels take bf16);
-its weights stay float32.  Encoder training, profiler traces, wandb and a
-mesh raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+its weights stay float32.  ``TRAIN_SEQUENCE_ENCODER`` trains the ProteInfer
+encoder (``trainable["encoder"]``, through K7's backward kernels on the
+card) and ``ENCODER_BN_TRAIN_MODE`` runs the frozen encoder's BatchNorm on
+batch statistics, as the JAX CLI does.  Profiler traces, wandb and a mesh
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ logger = logging.getLogger(__name__)
 
 ROADMAP_TRAINING_EXTRAS = ("{} is not ported for training (ROADMAP.md queue 1, item 5h): "
                            "torch.profiler traces and wandb logging of training runs")
-ROADMAP_ENCODER = ("{} (training the sequence encoder) is not ported (ROADMAP.md queue 1, "
-                   "item 5d)")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -109,9 +109,6 @@ def refuse_unported(args, params: Dict) -> None:
     for flag, name in ((args.use_wandb, "--use-wandb"), (args.profile_dir, "--profile-dir")):
         if flag:
             raise NotImplementedError(ROADMAP_TRAINING_EXTRAS.format(name))
-    for key in ("TRAIN_SEQUENCE_ENCODER", "ENCODER_BN_TRAIN_MODE"):
-        if args.train_path_name and params.get(key):
-            raise NotImplementedError(ROADMAP_ENCODER.format(key))
     mesh = [v for v in (args.mesh_dp, args.mesh_label) if v not in (None, 1)]
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "
@@ -235,9 +232,10 @@ def run(args) -> Dict:
         raise SystemExit("No datasets selected; pass --train-path-name or --test-paths-names")
     num_aa = len(next(iter(datasets.values()))[0].amino_acid_vocabulary)
 
+    train_encoder = bool(params.get("TRAIN_SEQUENCE_ENCODER", False))
     pi_cfg, pn_cfg, ts = build_models(
         config, cache.dim, num_aa=num_aa, seed=seed, gate_pretrained=True,
-        train_sequence_encoder=params.get("TRAIN_SEQUENCE_ENCODER", False), log=log)
+        train_sequence_encoder=train_encoder, log=log)
     device = torch.device(args.device)
 
     # ---------------- loss / optimizer / trainer ----------------
@@ -262,7 +260,8 @@ def run(args) -> Dict:
     if train_ds is not None:
         optimizer = Optimizer(params, trainable_mask=mask)
         ts = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
-                              ts["enc_params"], ts["enc_state"], optimizer, **tower)
+                              ts["trainable"].get("encoder", ts["enc_params"]), ts["enc_state"],
+                              optimizer, train_sequence_encoder=train_encoder, **tower)
     elif text_cfg is not None:  # evaluation through the tower: the same layout
         if mask is not None:
             ts["trainable"]["text"] = text_params
@@ -278,7 +277,9 @@ def run(args) -> Dict:
                       text_cfg=text_cfg, label_tokens=label_tokens,
                       pooling_method=params.get("LABEL_EMBEDDING_POOLING_METHOD", "mean"),
                       lora_alpha=params.get("LORA_ALPHA", 8),
-                      lora_rank=params.get("LORA_RANK", 4))
+                      lora_rank=params.get("LORA_RANK", 4),
+                      train_sequence_encoder=train_encoder,
+                      encoder_bn_train_mode=bool(params.get("ENCODER_BN_TRAIN_MODE", False)))
     if args.model_file:
         trainer.load(args.model_file, from_checkpoint=args.from_checkpoint)
     elif train_ds is None:

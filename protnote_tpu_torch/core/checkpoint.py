@@ -177,17 +177,14 @@ def read_checkpoint(path: str) -> Tuple[Any, Dict[str, Any]]:
     return msgpack_unpack(blob), meta
 
 
-def _leaf(stored: Any, template: torch.Tensor, key: Optional[str],
-          path: str) -> torch.Tensor:
+def _leaf(stored: Any, template: torch.Tensor, path: str) -> torch.Tensor:
     if isinstance(stored, dict) and "__msgpack_chunked_array__" in stored:
         raise ValueError(f"{path}: chunked (> 1 GiB) leaves are not read; no "
                          "ProtNote parameter is that large")
     if isinstance(stored, _BF16Array):
         t = stored.to_tensor()
-        if key == "kernel" and t.dim() == 3:  # conv: (k, cin, cout) -> (cout, cin, k)
-            t = t.permute(2, 1, 0).contiguous()
     elif isinstance(stored, (np.ndarray, np.generic, int, float, bool)):
-        t = _convert(np.asarray(stored), key)
+        t = _convert(np.asarray(stored))
     else:
         raise ValueError(f"checkpoint leaf at {path!r} is a {type(stored).__name__}, "
                          "not an array")
@@ -197,18 +194,17 @@ def _leaf(stored: Any, template: torch.Tensor, key: Optional[str],
     return t.to(template.dtype)
 
 
-def merge_into_template(template: Any, stored: Any, path: str = "",
-                        key: Optional[str] = None) -> Any:
+def merge_into_template(template: Any, stored: Any, path: str = "") -> Any:
     """Overlay stored leaves onto the port's ``template`` tree: dict keys
     only on one side are tolerated (the template's value stays), lists are
     rebuilt from ``{"0": ..}`` dicts with a length check, and each leaf must
-    have the template's shape (conv kernels after the layout change).  A
+    have the template's shape.  A
     ``None`` slot of the template (``enc_params`` when the encoder is
     trainable) must be ``None`` in the checkpoint too."""
     if isinstance(template, dict):
         if not isinstance(stored, dict):
             raise ValueError(f"checkpoint structure mismatch at {path!r}")
-        return {k: (merge_into_template(v, stored[k], f"{path}/{k}", k)
+        return {k: (merge_into_template(v, stored[k], f"{path}/{k}")
                     if k in stored else v)
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
@@ -229,7 +225,7 @@ def merge_into_template(template: Any, stored: Any, path: str = "",
             raise ValueError(f"checkpoint structure mismatch at {path!r}: the "
                              "template holds nothing there")
         return None
-    return _leaf(stored, template, key, path)
+    return _leaf(stored, template, path)
 
 
 def restore_checkpoint(path: str, template: Dict[str, Any]

@@ -12,10 +12,10 @@
   (``torch.save`` of a ``model_state_dict``, optionally ``module.``-prefixed
   from DDP) by module name, as the JAX package's loader of the same name.
 
-The port keeps the JAX tree structure and names.  Linear kernels stay
-``(in, out)``; conv kernels are the one layout change, from JAX's
-``(k, cin, cout)`` to torch's ``(cout, cin, k)``.  The JAX package's
-``PNTPU1`` checkpoints are read by
+The port keeps the JAX tree structure, names and layouts: Linear kernels
+``(in, out)``, conv kernels ``(k, cin, cout)`` (the layout K7's kernels
+read; a reference torch conv weight ``(cout, cin, k)`` is transposed once,
+at load).  The JAX package's ``PNTPU1`` checkpoints are read by
 :mod:`protnote_tpu_torch.core.checkpoint`.
 """
 
@@ -34,17 +34,14 @@ from protnote_tpu_torch.models.layers import Params
 _TRAIN_ONLY = ("opt_state", "step")
 
 
-def _convert(node: Any, key: Optional[str] = None) -> Any:
+def _convert(node: Any) -> Any:
     if isinstance(node, dict):
-        return {k: _convert(v, k) for k, v in node.items()}
+        return {k: _convert(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return type(node)(_convert(v) for v in node)
     if node is None:
         return None
-    arr = np.array(node)  # a copy: the tensor owns its memory
-    if key == "kernel" and arr.ndim == 3:  # conv: (k, cin, cout) -> (cout, cin, k)
-        arr = np.ascontiguousarray(arr.transpose(2, 1, 0))
-    return torch.from_numpy(arr)
+    return torch.from_numpy(np.array(node))  # a copy: the tensor owns its memory
 
 
 def from_jax_tree(numpy_tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -132,17 +129,14 @@ def _masked_pair(template: Any, stored: Any) -> Tuple[Any, Any]:
     return template, stored  # merge_into_template checks the rest
 
 
-def _to_numpy(node: Any, key: Optional[str] = None) -> Any:
+def _to_numpy(node: Any) -> Any:
     if isinstance(node, dict):
-        return {k: _to_numpy(v, k) for k, v in node.items()}
+        return {k: _to_numpy(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_to_numpy(v) for v in node]
     if not isinstance(node, torch.Tensor):
         return node
-    t = node.detach().cpu()
-    if key == "kernel" and t.dim() == 3:  # conv: (cout, cin, k) -> (k, cin, cout)
-        t = t.permute(2, 1, 0)
-    t = t.contiguous()
+    t = node.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         from protnote_tpu_torch.core.checkpoint import _BF16Array
 
@@ -152,8 +146,7 @@ def _to_numpy(node: Any, key: Optional[str] = None) -> Any:
 
 def to_jax_tree(ts: Dict[str, Any], optimizer=None) -> Dict[str, Any]:
     """The port's train state -> the JAX train-state tree with numpy leaves
-    (bfloat16 leaves as their bits): conv kernels back to ``(k, cin, cout)``,
-    ``step`` an int32 scalar, ``text_params`` None, and ``opt_state`` in the
+    (bfloat16 leaves as their bits): ``step`` an int32 scalar, ``text_params`` None, and ``opt_state`` in the
     layout of ``make_optimizer``'s optax state for ``optimizer``'s config
     (:meth:`~protnote_tpu_torch.train.optim.Optimizer.jax_opt_state`)."""
     out = {k: _to_numpy(v) for k, v in ts.items() if k not in _TRAIN_ONLY}
@@ -211,7 +204,8 @@ def _order_tf_values_by_name(tf_weights: Dict[str, np.ndarray],
 def proteinfer_from_tf_pickle(weights_path: str, cfg) -> Tuple[Params, Params]:
     """Reference TF1 pickle -> the port's ProteInfer (params, state) on the
     CPU: variables matched by name, else in the pickle's order (the
-    reference's positional zip).  TF kernels are in the JAX layout."""
+    reference's positional zip).  TF kernels are in the JAX layout, the
+    port's."""
     from protnote_tpu_torch.models.proteinfer import init_proteinfer
 
     with open(weights_path, "rb") as fh:
@@ -230,7 +224,7 @@ def proteinfer_from_tf_pickle(weights_path: str, cfg) -> Tuple[Params, Params]:
     if len(values) != len(slots):
         raise ValueError(f"TF pickle has {len(values)} arrays; expected {len(slots)}")
     for (container, key), arr in zip(slots, values):
-        t = _convert(np.asarray(arr, dtype=np.float32), key)
+        t = _convert(np.asarray(arr, dtype=np.float32))
         if tuple(t.shape) != tuple(container[key].shape):
             raise ValueError(f"shape mismatch for {key}: {tuple(np.shape(arr))} "
                              f"vs {tuple(container[key].shape)}")
@@ -296,14 +290,15 @@ def _assign_bn(dst_p: Params, dst_s: Params, g: Dict[str, Any]) -> None:
 
 def proteinfer_from_torch_state_dict(sd: Dict[str, Any], cfg) -> Tuple[Params, Params]:
     """Reference torch ProteInfer (protein_encoders.py:70-123) -> the port's
-    (params, state).  Torch conv weights are already ``(cout, cin, k)``."""
+    (params, state); torch conv weights ``(cout, cin, k)`` become the JAX
+    layout ``(k, cin, cout)``."""
     from protnote_tpu_torch.models.proteinfer import init_proteinfer
 
     sd = _strip_ddp(dict(sd))
     params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
 
     def conv(dst: Params, w, b) -> None:
-        w = _to_tensor(w)
+        w = _to_tensor(w).permute(2, 1, 0).contiguous()
         if tuple(w.shape) != tuple(dst["kernel"].shape):
             raise ValueError(f"conv kernel shape {tuple(w.shape)} vs "
                              f"{tuple(dst['kernel'].shape)}")

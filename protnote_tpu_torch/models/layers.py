@@ -43,12 +43,18 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def bn_affine(p: Params, s: Params, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode BatchNorm as float32 ``(inv, shift)``: ``inv = rsqrt(var +
+    eps) * scale``, ``shift = bias - mean * inv``."""
+    inv = torch.rsqrt(s["var"].float() + eps) * p["scale"].float()
+    return inv, p["bias"].float() - s["mean"].float() * inv
+
+
 def batchnorm_apply(p: Params, s: Params, x: torch.Tensor, eps: float,
                     channel_dim: int = -1) -> torch.Tensor:
     """Eval-mode BatchNorm from running statistics, computed in float32 and
     cast back to ``x``'s dtype (JAX ``batchnorm_apply(train=False)``)."""
-    inv = torch.rsqrt(s["var"].float() + eps) * p["scale"].float()
-    shift = p["bias"].float() - s["mean"].float() * inv
+    inv, shift = bn_affine(p, s, eps)
     shape = [1] * x.dim()
     shape[channel_dim] = -1
     y = x.float() * inv.view(shape) + shift.view(shape)

@@ -1,37 +1,42 @@
-"""ProteInfer dilated-CNN protein encoder, eval mode.
+"""ProteInfer dilated-CNN protein encoder.
 
 Port of ``protnote_tpu/models/proteinfer.py``: a masked conv stem, N ResNet-v2
 bottleneck blocks with exponentially dilated masked convs (dilation base^i),
 padding re-zeroed around every conv, and masked mean pooling over the true
-sequence length into an ``output_channels``-dim embedding.
+sequence length into an ``output_channels``-dim embedding, with eval-mode or
+train-mode (batch statistics) BatchNorm.
 
-The public functions keep the JAX layouts (one-hot ``(B, T, C)``, mask
-``(B, T, 1)``) so the tests compare like with like; the conv stack runs in
-torch's ``(B, C, T)`` layout, and conv kernels are stored as torch's
-``(cout, cin, k)`` (:func:`protnote_tpu_torch.models.convert.from_jax_tree`
-transposes the JAX ``(k, cin, cout)``).  Train-mode BatchNorm belongs to the
-training slice of the port.
+The JAX layouts are kept throughout: channel-last activations ``(B, T, C)``
+and conv kernels ``(k, cin, cout)``, the layout K7's kernels
+(:mod:`protnote_tpu_torch.ops.masked_conv`) read.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from protnote_tpu_torch.models.layers import (
     Params,
-    batchnorm_apply,
-    gemm_precision,
+    bn_affine,
     init_batchnorm,
     init_linear,
     uniform,
 )
+from protnote_tpu_torch.ops.masked_conv import (
+    masked_bn_relu_reference,
+    masked_bn_relu_train,
+    masked_conv,
+    masked_conv_reference,
+    masked_mean_pool,
+    masked_mean_pool_reference,
+)
 
 BN_EPS = 1e-3  # reference: BatchNorm1d(eps=0.001, momentum=0.01)
+BN_MOMENTUM = 0.01
 
 
 @dataclass(frozen=True)
@@ -60,9 +65,9 @@ class ProteInferConfig:
 
 def _init_conv(generator: torch.Generator, k: int, cin: int, cout: int) -> Params:
     """Torch Conv1d default init (kaiming uniform, fan_in = cin*k), kernel
-    in torch's ``(cout, cin, k)`` layout."""
+    in the JAX ``(k, cin, cout)`` layout."""
     bound = 1.0 / math.sqrt(cin * k)
-    return {"kernel": uniform((cout, cin, k), bound, generator),
+    return {"kernel": uniform((k, cin, cout), bound, generator),
             "bias": uniform((cout,), bound, generator)}
 
 
@@ -89,12 +94,6 @@ def init_proteinfer(generator: torch.Generator, cfg: ProteInferConfig
     return params, {"blocks": blocks_state}
 
 
-def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
-    """(B, T, 1) float mask of valid positions."""
-    pos = torch.arange(max_len, device=lengths.device)[None, :]
-    return (pos < lengths[:, None]).float()[..., None]
-
-
 def one_hot_sequences(aa_ids: torch.Tensor, num_aa: int,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, T) int ids -> (B, T, num_aa); any id outside [0, num_aa) (the pad
@@ -105,47 +104,69 @@ def one_hot_sequences(aa_ids: torch.Tensor, num_aa: int,
     return (aa_ids.long()[..., None] == classes).to(dtype)
 
 
-def _masked_conv(p: Params, x: torch.Tensor, mask: torch.Tensor,
-                 dilation: int) -> torch.Tensor:
-    """'same'-padded dilated conv with padding zeroed before and after
-    (reference MaskedConv1D).  ``x`` (B, C, T), ``mask`` (B, 1, T).
-
-    The bias is added after the conv, in the compute dtype, as the JAX code
-    does: ``conv1d(bias=...)`` would add it before the bf16 rounding."""
-    gemm_precision(x.dtype)
-    x = x * mask.to(x.dtype)
-    k = p["kernel"].shape[-1]
-    y = F.conv1d(x, p["kernel"].to(x.dtype), padding=dilation * (k - 1) // 2,
-                 dilation=dilation)
-    y = y + p["bias"].to(y.dtype)[None, :, None]
-    return y * mask.to(y.dtype)
+def _chain(params: Params, state: Params, x: torch.Tensor, lengths: torch.Tensor,
+           cfg: ProteInferConfig, train: bool, example_mask: Optional[torch.Tensor],
+           conv: Callable, bn_relu_train: Callable, pool: Callable
+           ) -> Tuple[torch.Tensor, Params]:
+    """The encoder on the one-hot ``x`` with the given masked conv, train-mode
+    BN + ReLU and pool."""
+    feats = conv(x, params["conv1"], lengths, 1)
+    new_blocks = []
+    for i, (bp, bs) in enumerate(zip(params["blocks"], state["blocks"])):
+        dilation = cfg.dilation_base ** i
+        if train:
+            out, bn1 = bn_relu_train(feats, bp["bn1"], bs["bn1"], lengths, example_mask,
+                                     BN_EPS, BN_MOMENTUM)
+            out = conv(out, bp["conv_dilated"], lengths, dilation)
+            out, bn2 = bn_relu_train(out, bp["bn2"], bs["bn2"], lengths, example_mask, BN_EPS,
+                                     BN_MOMENTUM)
+            feats = conv(out, bp["conv_1x1"], lengths, 1, residual=feats)
+            new_blocks.append({"bn1": bn1, "bn2": bn2})
+        else:
+            out = conv(feats, bp["conv_dilated"], lengths, dilation,
+                       bn=bn_affine(bp["bn1"], bs["bn1"], BN_EPS))
+            feats = conv(out, bp["conv_1x1"], lengths, 1,
+                         bn=bn_affine(bp["bn2"], bs["bn2"], BN_EPS), residual=feats)
+    return pool(feats, lengths), ({"blocks": new_blocks} if train else state)
 
 
 def proteinfer_embed(params: Params, state: Params, aa_onehot: torch.Tensor,
-                     lengths: torch.Tensor, cfg: ProteInferConfig) -> torch.Tensor:
-    """Masked dilated CNN -> (B, output_channels) float32 embedding, with
-    eval-mode BatchNorm (running statistics).  ``aa_onehot`` is (B, T, C_in)."""
-    x = aa_onehot.to(cfg.runtime_dtype).transpose(1, 2)  # (B, C, T)
-    mask = length_mask(lengths, x.shape[2]).transpose(1, 2)  # (B, 1, T)
-    feats = _masked_conv(params["conv1"], x, mask, dilation=1)
-    for i, (bp, bs) in enumerate(zip(params["blocks"], state["blocks"])):
-        out = torch.relu(batchnorm_apply(bp["bn1"], bs["bn1"], feats, BN_EPS,
-                                         channel_dim=1))
-        out = _masked_conv(bp["conv_dilated"], out, mask,
-                           dilation=cfg.dilation_base ** i)
-        out = torch.relu(batchnorm_apply(bp["bn2"], bs["bn2"], out, BN_EPS,
-                                         channel_dim=1))
-        out = _masked_conv(bp["conv_1x1"], out, mask, dilation=1)
-        feats = feats + out  # residual in the compute dtype
-    feats = feats * mask.to(feats.dtype)
-    # clamp: a zero-length row would give 0/0 = NaN
-    denom = torch.clamp(lengths[:, None].float(), min=1.0)
-    return feats.float().sum(dim=2) / denom
+                     lengths: torch.Tensor, cfg: ProteInferConfig, train: bool = False,
+                     example_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
+    """Masked dilated CNN -> ``((B, output_channels) float32 embedding,
+    state)``.  ``aa_onehot`` is (B, T, C_in).
+
+    Eval mode uses the running statistics (the state comes back as given).
+    ``train=True`` runs each BatchNorm on batch statistics under the JAX count
+    rule (valid positions of the rows ``example_mask`` keeps, divided by
+    rows x the longest valid length; :func:`ops.masked_conv.bn_mask_and_count`)
+    and returns the new ``{"blocks": [{"bn1", "bn2"}]}`` running statistics.
+    CUDA tensors run K7's kernels (the BN + ReLU of eval mode fused into the
+    next conv's input), CPU tensors their plain versions."""
+    return _chain(params, state, aa_onehot.to(cfg.runtime_dtype), lengths, cfg, train,
+                  example_mask, masked_conv, masked_bn_relu_train, masked_mean_pool)
 
 
-def embed_from_ids(params: Params, state: Params, aa_ids: torch.Tensor,
-                   lengths: torch.Tensor, cfg: ProteInferConfig) -> torch.Tensor:
-    """Int residue ids (B, T) -> (B, output_channels) embedding (one-hot on
-    the ids' device)."""
+def _conv_reference(x, p, lengths, dilation, bn=None, residual=None):
+    return masked_conv_reference(x, p["kernel"], p["bias"], lengths, dilation, bn, residual)
+
+
+def proteinfer_embed_reference(params: Params, state: Params, aa_onehot: torch.Tensor,
+                               lengths: torch.Tensor, cfg: ProteInferConfig, train: bool = False,
+                               example_mask: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, Params]:
+    """:func:`proteinfer_embed` through K7's plain versions on any device:
+    the yardstick the kernels are held to on the card."""
+    return _chain(params, state, aa_onehot.to(cfg.runtime_dtype), lengths, cfg, train,
+                  example_mask, _conv_reference, masked_bn_relu_reference,
+                  masked_mean_pool_reference)
+
+
+def embed_from_ids(params: Params, state: Params, aa_ids: torch.Tensor, lengths: torch.Tensor,
+                   cfg: ProteInferConfig, train: bool = False,
+                   example_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
+    """Int residue ids (B, T) -> ``(embedding (B, output_channels), state)``
+    (one-hot on the ids' device); ``train``/``example_mask`` as
+    :func:`proteinfer_embed`."""
     onehot = one_hot_sequences(aa_ids, cfg.input_channels, dtype=cfg.runtime_dtype)
-    return proteinfer_embed(params, state, onehot, lengths, cfg)
+    return proteinfer_embed(params, state, onehot, lengths, cfg, train, example_mask)

@@ -130,9 +130,9 @@ class ServingEngine:
         hidden layer x 1.05 / 127), then the score step rebuilt with them."""
         ts = self.ts
         enc_params = ts["trainable"].get("encoder", ts["enc_params"])
-        P_f = embed_from_ids(enc_params, ts["enc_state"],
-                             torch.from_numpy(aa).to(self.device),
-                             torch.from_numpy(lengths).to(self.device), self.pi_cfg)
+        P_f, _ = embed_from_ids(enc_params, ts["enc_state"],
+                                torch.from_numpy(aa).to(self.device),
+                                torch.from_numpy(lengths).to(self.device), self.pi_cfg)
         maxes = calibrate_int8_maxes(ts["trainable"]["protnote"], ts["model_state"], P_f,
                                      self.pn_cfg, label_latents=self.latents)
         scales = tuple(float(m) * 1.05 / 127.0 for m in maxes.cpu().tolist())

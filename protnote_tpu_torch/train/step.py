@@ -6,14 +6,19 @@ returns the new train state (model state, optimizer state, step) with its
 metrics.  :func:`batch_to_device_dict` moves a host batch of the data
 pipeline to the device.
 
-The train step runs the frozen encoder under ``torch.no_grad`` in eval-mode
-BatchNorm, gathers the label matrix rows, runs ``protnote_forward(train=
-True)`` (heads, the decomposed scorer K4 + K5), the loss, autograd and the
-optimizer, and reports ``loss``, per-label ``tp``/``fp``/``fn`` at
-``probs > threshold`` (strict, as the JAX train step; the eval accumulator
-uses ``>=``), the gradients' global norm and the example count.  Training
-the encoder (``TRAIN_SEQUENCE_ENCODER``, ``ENCODER_BN_TRAIN_MODE``) is not
-ported.  With ``text_cfg`` and tokenized labels in the batch
+The train step runs the ProteInfer encoder (K7), gathers the label matrix
+rows, runs ``protnote_forward(train=True)`` (heads, the decomposed scorer
+K4 + K5), the loss, autograd and the optimizer, and reports ``loss``,
+per-label ``tp``/``fp``/``fn`` at ``probs > threshold`` (strict, as the JAX
+train step; the eval accumulator uses ``>=``), the gradients' global norm
+and the example count.  The encoder is frozen under ``torch.no_grad`` in
+eval-mode BatchNorm by default; ``encoder_bn_train_mode``
+(``ENCODER_BN_TRAIN_MODE``) keeps it frozen but runs its BatchNorm on batch
+statistics, as the reference's ``model.train()`` does, and
+``train_sequence_encoder`` (``TRAIN_SEQUENCE_ENCODER``) trains
+``trainable["encoder"]`` through K7's backward kernels; with either, the
+new running statistics come back in ``enc_state``.  With ``text_cfg`` and
+tokenized labels in the batch
 (``label_input_ids``, ``label_attention_mask``), both steps embed the label
 text through the tower on the fly (JAX ``step.py:128-146, 240-255``): the
 train step backpropagates into ``trainable["text"]`` (the last-n-layer
@@ -35,27 +40,24 @@ from protnote_tpu_torch.models.proteinfer import ProteInferConfig, embed_from_id
 from protnote_tpu_torch.models.text_transformer import pool_hidden_states, text_encoder_forward
 from protnote_tpu_torch.train.optim import Optimizer, global_norm, tree_leaves
 
-ENCODER_LATER = ("training the sequence encoder (TRAIN_SEQUENCE_ENCODER, "
-                 "ENCODER_BN_TRAIN_MODE) is not ported (ROADMAP.md queue 1, item 5d)")
-
-
 def init_train_state(pn_params, pn_state, enc_params, enc_state, optimizer: Optimizer,
                      train_sequence_encoder: bool = False, text_params=None,
                      train_label_encoder: bool = False, lora_params=None) -> Dict[str, Any]:
     """The JAX ``init_train_state`` layout: ``trainable`` (the ProtNote
-    parameters; the label tower's ``text`` with ``train_label_encoder``, its
-    ``lora`` adapters when given), ``model_state``, the frozen encoder,
-    ``text_params`` (the frozen tower, or None), ``opt_state`` and
-    ``step``."""
-    if train_sequence_encoder:
-        raise NotImplementedError(ENCODER_LATER)
+    parameters; the encoder with ``train_sequence_encoder``; the label
+    tower's ``text`` with ``train_label_encoder``, its ``lora`` adapters when
+    given), ``model_state``, the frozen encoder (None when it trains),
+    ``enc_state``, ``text_params`` (the frozen tower, or None), ``opt_state``
+    and ``step``."""
     trainable = {"protnote": pn_params}
+    if train_sequence_encoder:
+        trainable["encoder"] = enc_params
     if text_params is not None and train_label_encoder:
         trainable["text"] = text_params
     if lora_params is not None:
         trainable["lora"] = lora_params
-    return {"trainable": trainable, "model_state": pn_state, "enc_params": enc_params,
-            "enc_state": enc_state,
+    return {"trainable": trainable, "model_state": pn_state,
+            "enc_params": None if train_sequence_encoder else enc_params, "enc_state": enc_state,
             "text_params": None if (text_params is None or train_label_encoder) else text_params,
             "opt_state": optimizer.init(trainable), "step": 0}
 
@@ -76,13 +78,13 @@ def _pair_mask(example_mask: torch.Tensor, num_labels: int,
     return m
 
 
-def _frozen_embeddings(ts: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                       pi_cfg: ProteInferConfig) -> torch.Tensor:
-    if "encoder" in ts["trainable"]:
-        raise NotImplementedError(ENCODER_LATER)
-    with torch.no_grad():
-        return embed_from_ids(ts["enc_params"], ts["enc_state"], batch["aa_ids"],
-                              batch["lengths"], pi_cfg)
+def _encoder_embeddings(ts: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                        pi_cfg: ProteInferConfig, train: bool):
+    """``(P_f, enc_state)`` of the batch: the encoder of ``trainable`` (or
+    the frozen one), with train-mode BatchNorm when ``train``."""
+    return embed_from_ids(ts["trainable"].get("encoder", ts["enc_params"]), ts["enc_state"],
+                          batch["aa_ids"], batch["lengths"], pi_cfg, train=train,
+                          example_mask=batch["example_mask"])
 
 
 def _tower_embeddings(ts: Dict[str, Any], batch: Dict[str, torch.Tensor], text_cfg,
@@ -101,7 +103,8 @@ def _tower_embeddings(ts: Dict[str, Any], batch: Dict[str, torch.Tensor], text_c
 def make_train_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig, loss_fn: Callable,
                     optimizer: Optimizer, decision_threshold: float = 0.5, text_cfg=None,
                     pooling_method: str = "mean", lora_alpha: float = 8.0,
-                    lora_rank: int = 4):
+                    lora_rank: int = 4, train_sequence_encoder: bool = False,
+                    encoder_bn_train_mode: bool = False):
     """Returns ``(train_state, batch, generator) -> (train_state, metrics)``.
 
     ``batch`` has ``aa_ids`` (B, T), ``lengths`` (B,), ``example_mask`` (B,),
@@ -111,13 +114,22 @@ def make_train_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig, loss_fn: C
     draws the label noise and dropout.  With ``text_cfg`` and
     ``label_input_ids``/``label_attention_mask`` (L, Tk) in the batch, the
     label embeddings come from the text tower instead, and gradients reach
-    ``trainable["text"]`` and ``trainable["lora"]``."""
+    ``trainable["text"]`` and ``trainable["lora"]``.  With
+    ``train_sequence_encoder`` or ``encoder_bn_train_mode`` the encoder's
+    BatchNorm runs on batch statistics (the JAX count rule over the rows
+    ``example_mask`` keeps) and the new ``enc_state`` is returned; only
+    ``train_sequence_encoder`` lets gradients reach ``trainable["encoder"]``
+    (with ``encoder_bn_train_mode`` alone the encoder runs under
+    ``no_grad``, as JAX's ``stop_gradient``)."""
+    enc_train = train_sequence_encoder or encoder_bn_train_mode
 
     def step(ts: Dict[str, Any], batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator]):
         labels = batch["label_multihots"]
         mask = _pair_mask(batch["example_mask"], labels.shape[1], batch.get("label_mask"))
-        P_f = _frozen_embeddings(ts, batch, pi_cfg)
+        if not train_sequence_encoder:
+            with torch.no_grad():
+                P_f, enc_state = _encoder_embeddings(ts, batch, pi_cfg, enc_train)
         trainable = ts["trainable"]
         tower = text_cfg is not None and "label_input_ids" in batch
         leaves = tree_leaves(trainable)
@@ -125,6 +137,8 @@ def make_train_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig, loss_fn: C
             t.requires_grad_(True)
         try:
             with torch.enable_grad():
+                if train_sequence_encoder:
+                    P_f, enc_state = _encoder_embeddings(ts, batch, pi_cfg, True)
                 if tower:
                     label_embeddings = _tower_embeddings(ts, batch, text_cfg, pooling_method,
                                                          lora_alpha, lora_rank)
@@ -158,7 +172,8 @@ def make_train_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig, loss_fn: C
                 "grad_norm": grad_norm,
                 "examples": batch["example_mask"].sum(),
             }
-        new_ts = dict(ts, model_state=model_state, opt_state=opt_state, step=ts["step"] + 1)
+        new_ts = dict(ts, model_state=model_state, opt_state=opt_state, step=ts["step"] + 1,
+                      enc_state=enc_state if enc_train else ts["enc_state"])
         return new_ts, metrics
 
     return step
@@ -188,8 +203,8 @@ def make_eval_step(pi_cfg: ProteInferConfig, pn_cfg: ProtNoteConfig,
     @torch.inference_mode()
     def step(ts: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         enc_params = ts["trainable"].get("encoder", ts["enc_params"])
-        P_f = embed_from_ids(enc_params, ts["enc_state"], batch["aa_ids"],
-                             batch["lengths"], pi_cfg)
+        P_f, _ = embed_from_ids(enc_params, ts["enc_state"], batch["aa_ids"],
+                                batch["lengths"], pi_cfg)
         pn, state = ts["trainable"]["protnote"], ts["model_state"]
         if "label_latents" in batch:
             logits, _ = protnote_forward(pn, state, P_f, None, pn_cfg,

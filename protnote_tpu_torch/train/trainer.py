@@ -3,8 +3,10 @@
 Port of ``protnote_tpu/train/trainer.py`` for one device:
 
 * ``train``/``train_one_epoch``: the epoch loop over the bucketed batcher,
-  one train step per batch (frozen encoder, heads, the decomposed scorer
-  K4 + K5 and K4-bwd, the loss, autograd, the optimizer), tp/fp/fn summed
+  one train step per batch (the encoder K7, frozen unless
+  ``train_sequence_encoder``, with batch-statistics BatchNorm under either
+  that or ``encoder_bn_train_mode``; heads, the decomposed scorer K4 + K5
+  and K4-bwd, the loss, autograd, the optimizer), tp/fp/fn summed
   into full-vocabulary totals on the device (:class:`TrainConfusionAccumulator`), validation
   every ``epochs_per_validation`` epochs, and the checkpoint policy of the
   reference (best validation metric, best validation loss, every 10 epochs,
@@ -209,7 +211,8 @@ class Trainer:
     def __init__(self, train_state: Dict[str, Any], pi_cfg, pn_cfg,
                  config: TrainerConfig, device="cuda", loss_fn: Optional[Callable] = None,
                  optimizer=None, text_cfg=None, label_tokens: Optional[tuple] = None,
-                 pooling_method: str = "mean", lora_alpha: float = 8.0, lora_rank: int = 4):
+                 pooling_method: str = "mean", lora_alpha: float = 8.0, lora_rank: int = 4,
+                 train_sequence_encoder: bool = False, encoder_bn_train_mode: bool = False):
         self.device = torch.device(device)
         self.pi_cfg = pi_cfg
         self.pn_cfg = pn_cfg
@@ -226,7 +229,9 @@ class Trainer:
         if loss_fn is not None and optimizer is not None:
             self._train_step = make_train_step(
                 pi_cfg, pn_cfg, loss_fn, optimizer,
-                decision_threshold=config.decision_threshold or 0.5, **self._tower_kwargs)
+                decision_threshold=config.decision_threshold or 0.5,
+                train_sequence_encoder=train_sequence_encoder,
+                encoder_bn_train_mode=encoder_bn_train_mode, **self._tower_kwargs)
         self.meter = ThroughputMeter()
         self._label_matrices: Dict[int, Any] = {}
         self.starting_epoch = 0
@@ -299,8 +304,9 @@ class Trainer:
         batch = next(iter(batcher))
         arrays = self._place(batch_to_device_dict(batch, self.device), label_matrix, batch)
         ts = self.ts
-        P_f = embed_from_ids(ts["trainable"].get("encoder", ts["enc_params"]), ts["enc_state"],
-                             arrays["aa_ids"], arrays["lengths"], self.pi_cfg)
+        P_f, _ = embed_from_ids(ts["trainable"].get("encoder", ts["enc_params"]),
+                                ts["enc_state"], arrays["aa_ids"], arrays["lengths"],
+                                self.pi_cfg)
         pn = ts["trainable"]["protnote"]
         if "label_rows" in arrays:
             maxes = calibrate_int8_maxes(pn, ts["model_state"], P_f, self.pn_cfg,
@@ -626,8 +632,8 @@ class Trainer:
             if save_embeddings and batch_idx % 100 == 0:
                 with torch.inference_mode():
                     enc = self.ts["trainable"].get("encoder", self.ts["enc_params"])
-                    emb = embed_from_ids(enc, self.ts["enc_state"], arrays["aa_ids"],
-                                         arrays["lengths"], self.pi_cfg)
+                    emb, _ = embed_from_ids(enc, self.ts["enc_state"], arrays["aa_ids"],
+                                            arrays["lengths"], self.pi_cfg)
                 emb = emb.float().cpu().numpy()
                 keep0 = batch.example_mask
                 emb_rows.append(emb[keep0].astype(np.float16))

@@ -310,3 +310,69 @@ def test_serve_cli_loads_model_file(tmp_path, monkeypatch, rng):
     # the checkpoint's weights, not the seeded init
     got = engine.ts["trainable"]["protnote"]["W_l"]["layers"][0]["kernel"].numpy()
     np.testing.assert_array_equal(got, np.asarray(pn_p["W_l"]["layers"][0]["kernel"]))
+
+
+def _jax_encoder_state():
+    """A JAX state that trains the encoder (``trainable["encoder"]``,
+    ``enc_params`` None) with nonzero Adam moments and step."""
+    pi_p, pi_s = init_proteinfer(jax.random.PRNGKey(0), ProteInferConfig(**PI))
+    pn_p, pn_s = init_protnote(jax.random.PRNGKey(1), ProtNoteConfig(**PN))
+    pi_s = jax.tree_util.tree_map(lambda x: x + 0.125, pi_s)  # trained running statistics
+    ts = init_train_state(pn_p, pn_s, pi_p, pi_s,
+                          make_optimizer({"OPTIMIZER": "Adam", "LEARNING_RATE": 1e-3}),
+                          train_sequence_encoder=True)
+    rng = np.random.default_rng(3)
+
+    def moved(x):
+        x = np.asarray(x)
+        if x.dtype == np.float32:
+            return x + rng.uniform(0.01, 0.1, x.shape).astype(np.float32)
+        return x + 3
+    return dict(jax.tree_util.tree_map(moved, ts))
+
+
+def _port_encoder_template():
+    from protnote_tpu_torch.train.optim import Optimizer
+    from protnote_tpu_torch.train.step import init_train_state as port_init
+
+    gen = torch.Generator().manual_seed(9)
+    pi_p, pi_s = tpi.init_proteinfer(gen, tpi.ProteInferConfig(**PI))
+    pn_p, pn_s = tfu.init_protnote(gen, tfu.ProtNoteConfig(**PN))
+    opt = Optimizer({"OPTIMIZER": "Adam", "LEARNING_RATE": 1e-3})
+    return port_init(pn_p, pn_s, pi_p, pi_s, opt, train_sequence_encoder=True), opt
+
+
+def test_encoder_checkpoint_reads_and_writes_both_ways(tmp_path):
+    """A checkpoint of a run that trains the encoder: the JAX one read by the
+    port's ``load_model_file`` (encoder weights, running statistics, Adam
+    moments and step, ``enc_params`` None) equals ``from_jax_tree`` of the
+    JAX restore; the port's written back by ``save_checkpoint`` restores in
+    JAX to the original."""
+    from protnote_tpu_torch.cli._model_setup import load_model_file
+
+    ts = _jax_encoder_state()
+    path = str(tmp_path / "jax.ckpt")
+    save_checkpoint(path, ts, epoch=1)
+    jts, _ = jax_restore(path, dict(init_train_state(
+        *init_protnote(jax.random.PRNGKey(5), ProtNoteConfig(**PN)),
+        *init_proteinfer(jax.random.PRNGKey(6), ProteInferConfig(**PI)),
+        make_optimizer({"OPTIMIZER": "Adam", "LEARNING_RATE": 1e-3}),
+        train_sequence_encoder=True)))
+    want = from_jax_tree(jax.tree_util.tree_map(np.asarray, jts))
+    template, opt = _port_encoder_template()
+    got, _ = load_model_file(template, path, None, None, opt)
+    assert got["enc_params"] is None and want["enc_params"] is None
+    assert got["step"] == want["step"] == 3
+    keys = ("trainable", "enc_state", "model_state")
+    _assert_trees_equal({k: got[k] for k in keys}, {k: want[k] for k in keys})
+    for key in ("mu", "nu"):
+        _assert_trees_equal(got["opt_state"][key], want["opt_state"][key])
+    assert got["opt_state"]["count"] == want["opt_state"]["count"]
+    assert float(got["opt_state"]["mu"]["encoder"]["conv1"]["kernel"].abs().min()) > 0
+
+    back = str(tmp_path / "port.ckpt")
+    tckpt.save_checkpoint(back, tconvert.to_jax_tree(got, opt), epoch=1)
+    again, _ = jax_restore(back, jts)
+    for a, b in zip(jax.tree_util.tree_leaves(again), jax.tree_util.tree_leaves(jts)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert again["enc_params"] is None and "encoder" in again["trainable"]

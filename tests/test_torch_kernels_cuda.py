@@ -2,7 +2,9 @@
 (K2), the eval accumulator (K3), the threshold-sweep counter (K9), the
 training pair GEMM (K4) and its backward (K4-bwd), BN+ReLU (K5),
 the text tower's masked attention (K8a) and residual LayerNorm (K8b) and
-their backward (K8a-bwd, K8b-bwd) against
+their backward (K8a-bwd, K8b-bwd), and the encoder's masked dilated conv
+chain (K7: the conv, its dX and dW, the train-mode masked BN + ReLU, the
+pool) against
 their plain PyTorch versions, and the serving engine on CUDA against
 the same engine on the CPU.  These need an NVIDIA
 card (the kernels have no CPU mode) and skip without one.  The file imports neither jax nor the repo's conftest fixtures,
@@ -38,6 +40,14 @@ K8a-bwd and K8b-bwd on the same bf16 inputs: each gradient within 2^-6 of
 the plain gradient's largest |value| (dP and the outputs are rounded to bf16
 from sums in other orders); K8b-bwd's dscale and dbias to 1e-3, and the same
 bits on a second call.
+K7 on the same bf16 inputs: the conv's output to two bf16 steps (rtol 2^-6,
+atol 1e-2: the conv sums in another order, then the bias and the residual
+are rounded again), its masked rows exactly 0 (or the residual); dX, dW,
+dbias and the BN's dx within 2^-6 of the plain gradient's largest |value|
+(each rounded to bf16 from a float32 sum in another order), the BN's
+running statistics to 1e-5 and dscale/dbias to 1e-3 of their largest
+|value|; the pool to 1e-5; the encoder (3 blocks at 112 channels) through K7
+within 5e-2 of the plain chain's largest pooled |value|.
 """
 
 import numpy as np
@@ -854,3 +864,217 @@ def test_backward_kernels_raise_on_what_they_do_not_take():
     ones = torch.ones(1024, device=dev)
     with pytest.raises(ValueError, match="stats"):
         k8b.add_layer_norm_backward(x, None, ones, torch.zeros(3, 2, device=dev), x)
+
+
+# ----------------------------------------------------------------------
+# K7: the encoder's masked dilated conv chain
+
+K7_LENGTHS = (200, 131, 40, 7, 0)
+
+
+def _k7_conv(rng, taps, cin, cout, dev):
+    bound = 1.0 / np.sqrt(cin * taps)
+    return {"kernel": torch.from_numpy(rng.uniform(-bound, bound, (taps, cin, cout))
+                                       .astype(np.float32)).to(dev),
+            "bias": torch.from_numpy(rng.uniform(-0.3, 0.3, cout).astype(np.float32)).to(dev)}
+
+
+def _k7_lengths(T, dev):
+    return torch.tensor([min(n, T) for n in K7_LENGTHS], dtype=torch.int32, device=dev)
+
+
+def _within(got, want, rel, name=""):
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * scale, f"{name}: max |diff| {err} > {rel} x {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [40, 200, 512])
+@pytest.mark.parametrize("dilation,taps,cin,cout,prologue", [
+    (1, 9, 21, 110, False),   # conv1: an odd one-hot width
+    (3, 9, 110, 56, True),    # a block's dilated conv
+    (81, 9, 110, 56, True),   # taps beyond every sequence at T 40 and 200
+    (1, 1, 56, 110, True),    # the 1 x 1 conv, with the residual
+])
+def test_masked_conv_kernel_matches_plain_on_card(T, dilation, taps, cin, cout, prologue):
+    """``masked_conv_forward`` against ``masked_conv_reference`` on the same
+    bf16 tensors (5 sequences, lengths 200..0): the eval-mode BN prologue,
+    the residual add, masked rows exactly 0 (or the residual)."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    rng = np.random.default_rng(dilation * 10 + taps + T)
+    p = _k7_conv(rng, taps, cin, cout, dev)
+    x = _bf16(rng, len(K7_LENGTHS), T, cin)
+    lengths = _k7_lengths(T, dev)
+    bn = residual = None
+    if prologue:
+        bn = (torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.normal(0, 0.5, cin).astype(np.float32)).to(dev))
+    if taps == 1:
+        residual = _bf16(rng, len(K7_LENGTHS), T, cout)
+    w, b = p["kernel"].to(torch.bfloat16), p["bias"].to(torch.bfloat16)
+    before = k7.LAUNCHES["masked_conv_fwd"]
+    got = k7.masked_conv_cuda(x, w, b, lengths, dilation, bn, residual)
+    want = k7.masked_conv_reference(x, w, b, lengths, dilation, bn, residual)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_conv_fwd"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    pad = torch.arange(T, device=dev)[None, :] >= lengths[:, None].long()
+    tail = got[pad].float()
+    assert torch.equal(tail, torch.zeros_like(tail) if residual is None
+                       else residual[pad].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [40, 512])
+@pytest.mark.parametrize("dilation,taps,cin,cout", [(1, 9, 21, 110), (27, 9, 110, 56),
+                                                     (1, 1, 56, 110)])
+def test_masked_conv_backward_kernels_match_plain_on_card(T, dilation, taps, cin, cout):
+    """``masked_conv_dx`` and ``masked_conv_dw`` (dW and dbias) against the
+    plain chain's autograd on the same bf16 tensors, a cotangent nonzero on
+    padded rows too (the output mask must stop it): each within 2^-6 of the
+    plain gradient's largest |value|; dW the same bits on a second call."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    rng = np.random.default_rng(dilation + taps + T)
+    p = _k7_conv(rng, taps, cin, cout, dev)
+    x, dy = _bf16(rng, len(K7_LENGTHS), T, cin), _bf16(rng, len(K7_LENGTHS), T, cout)
+    lengths = _k7_lengths(T, dev)
+    w = p["kernel"].to(torch.bfloat16).requires_grad_(True)
+    b = p["bias"].to(torch.bfloat16).requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    k7.masked_conv_reference(xr, w, b, lengths, dilation).backward(dy)
+    dx = k7.masked_conv_dx_cuda(dy, w.detach(), lengths, dilation)
+    dw, db = k7.masked_conv_dw_cuda(x, dy, lengths, taps, dilation)
+    dw2, _ = k7.masked_conv_dw_cuda(x, dy, lengths, taps, dilation)
+    torch.cuda.synchronize()
+    _within(dx, xr.grad, 2.0 ** -6, "dx")
+    _within(dw, w.grad, 2.0 ** -6, "dw")
+    _within(db, b.grad, 2.0 ** -6, "db")
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("example_mask", [False, True])
+def test_masked_bn_relu_kernels_match_plain_on_card(example_mask):
+    """K7-BN's forward (output, new running statistics) and backward (dx,
+    dscale, dbias) against the plain ``batchnorm_train`` + ReLU under
+    autograd, with the count rule's dropped rows."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    T, C = 200, 110
+    lengths = _k7_lengths(T, dev)
+    em = (torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0], device=dev) if example_mask else None)
+    x = (_bf16(rng, len(K7_LENGTHS), T, C) + 0.5)
+    g = _bf16(rng, len(K7_LENGTHS), T, C)
+    p = {"scale": torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev),
+         "bias": torch.from_numpy(rng.normal(0, 0.3, C).astype(np.float32)).to(dev)}
+    s = {"mean": torch.full((C,), 0.2, device=dev), "var": torch.full((C,), 1.5, device=dev)}
+    outs = {}
+    for plain in (True, False):
+        xg = x.clone().requires_grad_(True)
+        pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        fn = k7.masked_bn_relu_reference if plain else k7.masked_bn_relu_train
+        y, new = fn(xg, pg, s, lengths, em, 1e-3, 0.01)
+        y.backward(g)
+        outs[plain] = (y.detach(), new, xg.grad, pg["scale"].grad, pg["bias"].grad)
+    torch.cuda.synchronize()
+    (y, new, dx, ds, db), (y0, new0, dx0, ds0, db0) = outs[False], outs[True]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    for k in ("mean", "var"):
+        torch.testing.assert_close(new[k], new0[k], rtol=1e-5, atol=1e-6)
+    _within(dx, dx0, 2.0 ** -6, "dx")
+    _within(ds, ds0, 1e-3, "dscale")
+    _within(db, db0, 1e-3, "dbias")
+    assert float((y > 0).float().mean()) > 0.3
+
+
+@pytest.mark.cuda
+def test_masked_mean_pool_kernel_matches_plain_on_card():
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    feats = _bf16(rng, len(K7_LENGTHS), 512, 110)
+    lengths = _k7_lengths(512, dev)
+    got = k7.masked_mean_pool_cuda(feats, lengths)
+    want = k7.masked_mean_pool_reference(feats, lengths)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert float(got[-1].abs().max()) == 0.0  # length 0: 0, not NaN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_encoder_runs_no_cudnn_conv_on_card(monkeypatch, train):
+    """``embed_from_ids`` on CUDA tensors with ``F.conv1d`` patched to raise:
+    the eval path (and with ``train`` the train-mode path under autograd)
+    runs through K7 alone, its launches rise, and the embeddings match the
+    plain chain computed before the patch."""
+    import torch.nn.functional as F
+
+    from protnote_tpu_torch.models import proteinfer as tpi
+    from protnote_tpu_torch.models.layers import tree_to
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    cfg = ProteInferConfig(output_channels=112, num_resnet_blocks=3,
+                           compute_dtype=torch.bfloat16)
+    params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
+    params, state = tree_to(params, dev), tree_to(state, dev)
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, 21, (5, 200))).to(dev)
+    lengths = _k7_lengths(200, dev)
+    em = torch.tensor([1.0, 1.0, 1.0, 0.0, 1.0], device=dev)
+    onehot = tpi.one_hot_sequences(ids, cfg.input_channels, torch.bfloat16)
+    want, _ = tpi.proteinfer_embed_reference(params, state, onehot, lengths, cfg, train, em)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cuDNN conv1d on the card's path")
+
+    monkeypatch.setattr(F, "conv1d", refuse)
+    for k in k7.LAUNCHES:
+        k7.LAUNCHES[k] = 0
+    convs = [params["conv1"]] + [bp[k] for bp in params["blocks"]
+                                 for k in ("conv_dilated", "conv_1x1")]
+    leaves = [conv[k] for conv in convs for k in ("kernel", "bias")]
+    for t in leaves:
+        t.requires_grad_(train)
+    got, new_state = tpi.embed_from_ids(params, state, ids, lengths, cfg, train=train,
+                                        example_mask=em)
+    if train:
+        grads = torch.autograd.grad(got.sum(), leaves)
+        assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_conv_fwd"] == 7 and k7.LAUNCHES["masked_mean_pool"] == 1
+    if train:
+        assert k7.LAUNCHES["masked_bn_relu_fwd"] == 6 and k7.LAUNCHES["masked_conv_dw"] == 7
+        assert k7.LAUNCHES["masked_conv_dx"] == 6 and k7.LAUNCHES["masked_bn_relu_bwd"] == 6
+        assert len(new_state["blocks"]) == 3
+    _within(got.detach(), want, 5e-2, "pooled")
+
+
+@pytest.mark.cuda
+def test_masked_conv_kernels_raise_on_what_they_do_not_take():
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    x = torch.zeros(2, 16, 8, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 8, 6, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(6, device=dev, dtype=torch.bfloat16)
+    lengths = torch.tensor([16, 3], device=dev)
+    with pytest.raises(ValueError, match="kernel"):
+        k7.masked_conv_cuda(x, w.float(), b, lengths, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.masked_conv_cuda(x.transpose(0, 1).contiguous().transpose(0, 1), w, b, lengths, 1)
+    with pytest.raises(ValueError, match="MIXED_PRECISION"):
+        k7.masked_conv(x.float(), {"kernel": w.float(), "bias": b.float()}, lengths, 1)
+    ones = torch.ones(7, device=dev)
+    with pytest.raises(ValueError, match="even"):
+        k7.masked_bn_relu_train(torch.zeros(2, 16, 7, device=dev, dtype=torch.bfloat16),
+                                {"scale": ones, "bias": ones}, {"mean": ones, "var": ones},
+                                lengths, None, 1e-3, 0.01)

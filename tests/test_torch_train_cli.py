@@ -37,6 +37,10 @@ moves its parameter by up to LEARNING_RATE x 2^-8 = 1.2e-5 a step: there
 parameters and moments to 1e-4 absolute.
 ``TrainConfusionAccumulator`` is held to the JAX accumulator exactly
 (integer counts).
+Training the encoder (``TRAIN_SEQUENCE_ENCODER``) and the encoder's
+train-mode BatchNorm (``ENCODER_BN_TRAIN_MODE``) run through both CLIs the
+same way (histories and test metrics), and each CLI evaluates the other's
+last checkpoint to the metrics the other gives it.
 """
 
 import json
@@ -281,6 +285,71 @@ def test_training_settings_match_jax_cli(start, env, setting):
         for x, y in zip(a, b):
             np.testing.assert_allclose(np.asarray(x, np.float32), np.asarray(y, np.float32),
                                        atol=atol, rtol=1e-4)
+
+
+# Training the encoder runs with SGD: with Adam, the last block's 1 x 1 conv
+# bias (whose gradient is zero in exact arithmetic, the W_p head's
+# train-mode BatchNorm taking the shift of every pooled embedding out) takes
+# a random walk of up to a learning rate a step from float32 noise on each
+# side, and the eval-mode BatchNorm of validation does not take two
+# different walks out (validation loss 0.3028 against 0.3004 after one
+# epoch, training losses equal to 1e-6).  Adam on the encoder is held to
+# JAX step by step in tests/test_torch_train_step.py.
+ENCODER_SETTINGS = {
+    "train_sequence_encoder": ["TRAIN_SEQUENCE_ENCODER", "True", "OPTIMIZER", "SGD",
+                               "LEARNING_RATE", "0.1"],
+    "encoder_bn_train_mode": ["ENCODER_BN_TRAIN_MODE", "True"],
+}
+
+
+@pytest.fixture()
+def start_encoder(env, start):
+    """The state of ``start`` in the layout of a run that trains the
+    encoder with SGD (``trainable["encoder"]``, ``enc_params`` None), saved
+    by the JAX ``save_checkpoint``."""
+    from protnote_tpu.core.checkpoint import restore_checkpoint, save_checkpoint
+
+    ckpt, params = start
+    pn, pi, init_pn, init_pi, init_ts, make_opt = _jax_template(params)
+    template = init_ts(*init_pn(jax.random.PRNGKey(0), pn), *init_pi(jax.random.PRNGKey(0), pi),
+                       make_opt(params))
+    tree, _ = restore_checkpoint(ckpt, template)
+    path = env / "outputs" / "start_encoder.ckpt"
+    sgd = make_opt(dict(params, OPTIMIZER="SGD"))
+    save_checkpoint(str(path), init_ts(tree["trainable"]["protnote"], tree["model_state"],
+                                       tree["enc_params"], tree["enc_state"], sgd,
+                                       train_sequence_encoder=True), epoch=0)
+    return str(path), params
+
+
+@pytest.mark.parametrize("setting", sorted(ENCODER_SETTINGS))
+def test_encoder_settings_match_jax_cli(start, start_encoder, env, setting):
+    """2 epochs through both CLIs with ``TRAIN_SEQUENCE_ENCODER`` (from a
+    checkpoint with ``trainable["encoder"]``) or ``ENCODER_BN_TRAIN_MODE``:
+    the histories and test metrics agree; each CLI evaluates the other's
+    last checkpoint (the encoder's weights, running statistics and moments
+    in the other package's layout) to the metrics the other CLI gives it."""
+    import protnote_tpu.cli.main as jmain
+    import protnote_tpu_torch.cli.main as tmain
+
+    ckpt = (start_encoder if setting == "train_sequence_encoder" else start)[0]
+    roles = ["--train-path-name", "TRAIN_DATA_PATH", "--validation-path-name",
+             "VAL_DATA_PATH", "--test-paths-names", "TEST_DATA_PATH", "--model-file", ckpt]
+    overrides = ENCODER_SETTINGS[setting]
+    want = _run(jmain, f"jax{setting}", roles, overrides)
+    got = _run(tmain, f"port{setting}", roles + ["--device", "cpu"], overrides)
+    assert len(got["train_summary"]["history"]) == 2
+    for g, w in zip(got["train_summary"]["history"], want["train_summary"]["history"]):
+        _assert_metrics_close(g, w)
+    _assert_metrics_close(got["test"], want["test"])
+    out = env / "outputs" / "checkpoints"
+    for name in ("port", "jax"):
+        last = str(next(out.glob(f"*_{name}{setting}_last_epoch.ckpt")))
+        test_only = ["--test-paths-names", "TEST_DATA_PATH", "--model-file", last]
+        _assert_metrics_close(
+            _run(tmain, f"porteval{name}{setting}", test_only + ["--device", "cpu"],
+                 overrides)["test"],
+            _run(jmain, f"jaxeval{name}{setting}", test_only, overrides)["test"])
 
 
 def _copy_tree(tree):

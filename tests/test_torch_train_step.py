@@ -58,7 +58,7 @@ def _configs(bf16=False):
     return jpi_cfg, tpi_cfg, jpn, tpn
 
 
-def _jax_state(seed=0):
+def _jax_state(seed=0, train_sequence_encoder=False):
     jpi_cfg, _, jpn, _ = _configs()
     pi_p, pi_s = jpi.init_proteinfer(jax.random.PRNGKey(seed), jpi_cfg)
     pn_p, pn_s = jfu.init_protnote(jax.random.PRNGKey(seed + 1), jpn)
@@ -72,7 +72,8 @@ def _jax_state(seed=0):
         for lin in pn_p[head]["layers"] + [pn_p[head].get("out", {})]:
             if "kernel" in lin:
                 lin["kernel"] = lin["kernel"] * np.float32(6 ** 0.5)
-    return jax_init_state(pn_p, pn_s, pi_p, pi_s, make_optimizer(PARAMS))
+    return jax_init_state(pn_p, pn_s, pi_p, pi_s, make_optimizer(PARAMS),
+                          train_sequence_encoder=train_sequence_encoder)
 
 
 def _batches(n, seed=2):
@@ -139,6 +140,63 @@ def test_three_steps_match_jax_f32():
     assert len(got) == len(want) and int(tts["step"]) == int(jts["step"]) == 3
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, atol=TOL, rtol=0)
+
+
+# The last block's 1 x 1 conv bias gets a gradient that is zero in exact
+# arithmetic: it shifts every pooled embedding alike, and the W_p head's
+# train-mode BatchNorm takes the shift out.  Each side's gradient there is
+# float32 noise of ~1e-8, which Adam scales into a step of up to the
+# learning rate with either sign, so that leaf is held to Adam's bound, and
+# each step starts from the JAX side's state (a pooled embedding shifted by
+# that noise rounds the scorer's pre-activations differently, and one ReLU
+# gate at float32's edge then moves the next steps' gradients by ~1%).
+_NOISE_BIAS = "['trainable']['encoder']['blocks'][0]['conv_1x1']['bias']"
+
+
+@pytest.mark.parametrize("flag", ["train_sequence_encoder", "encoder_bn_train_mode"])
+def test_encoder_training_settings_match_jax(flag):
+    """Three steps with the encoder's BatchNorm on batch statistics (the
+    count rule over the rows each batch's example mask keeps: one or two
+    filler rows a batch), trained (``train_sequence_encoder``: the encoder
+    in ``trainable["encoder"]``) or frozen (``encoder_bn_train_mode``), each
+    from the JAX step's state: loss, grad_norm, every parameter (the
+    encoder's updates included), the new ``enc_state`` and the Adam moments
+    at 1e-5."""
+    train = flag == "train_sequence_encoder"
+    jpi_cfg, tpi_cfg, jpn, tpn = _configs()
+    jstep = jax_train_step(jpi_cfg, jpn, jax_loss(PARAMS), make_optimizer(PARAMS),
+                           donate=False, **{flag: True})
+    opt = Optimizer(PARAMS)
+    tstep = make_train_step(tpi_cfg, tpn, get_loss_fn(PARAMS), opt, **{flag: True})
+    jts = jts0 = _jax_state(train_sequence_encoder=train)
+    for batch in _batches(3):
+        start = jax.tree_util.tree_map(np.asarray, jts)
+        tts, tm = tstep(from_jax_tree(start), {k: torch.from_numpy(v) for k, v in batch.items()},
+                        None)
+        jts, jm = jstep(jts, {k: jnp.asarray(v) for k, v in batch.items()},
+                        jax.random.PRNGKey(0))
+        np.testing.assert_allclose(tm["loss"].numpy(), jm["loss"], atol=TOL, rtol=0)
+        np.testing.assert_allclose(tm["grad_norm"].numpy(), jm["grad_norm"], atol=TOL, rtol=0)
+        got, want = to_jax_tree(tts, opt), jax.tree_util.tree_map(np.asarray, jts)
+        assert ("encoder" in tts["trainable"]) == train and (tts["enc_params"] is None) == train
+        for key in ("trainable", "model_state", "enc_state", "opt_state"):
+            flat = jax.tree_util.tree_flatten_with_path(want[key])[0]
+            paths = [f"['{key}']" + jax.tree_util.keystr(p) for p, _ in flat]
+            a, b, a0 = _leaves(got[key]), _leaves(want[key]), _leaves(start[key])
+            assert len(a) == len(b) == len(paths) >= 4
+            assert (_NOISE_BIAS in paths) == (train and key == "trainable")
+            for path, x, y, x0 in zip(paths, a, b, a0):
+                if path == _NOISE_BIAS:
+                    lr = PARAMS["LEARNING_RATE"]
+                    assert np.abs(x - x0).max() <= lr and np.abs(y - x0).max() <= lr
+                    continue
+                np.testing.assert_allclose(x, y, atol=TOL, rtol=0, err_msg=path)
+    moved = [np.abs(np.asarray(a) - b).max() for a, b in zip(
+        _leaves(jax.tree_util.tree_map(np.asarray, jts["enc_state"])), _leaves(jts0["enc_state"]))]
+    assert min(moved) > 0  # every running statistic moved
+    enc0 = _leaves(jts0["trainable"]["encoder"] if train else jts0["enc_params"])
+    enc = _leaves(jts["trainable"]["encoder"] if train else jts["enc_params"])
+    assert any(np.abs(np.asarray(a) - b).max() > 0 for a, b in zip(enc, enc0)) == train
 
 
 def test_one_step_matches_jax_bf16():

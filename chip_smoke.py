@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, evaluation, training, int8,
-label-text-tower and encoder-training paths on one CUDA card (H100).
+label-text-tower, encoder-training and streamed-training paths on one CUDA
+card (H100).
 
     python3 chip_smoke.py
 
@@ -160,7 +161,21 @@ Phases, each printing one line (any failure raises and exits non-zero):
     and its new running statistics within 1e-2, a PNTPU1 checkpoint with
     ``trainable["encoder"]`` round-tripped, 2 steps at bucket 1024 (the
     peak there); then ``ENCODER_BN_TRAIN_MODE`` for 3 steps (the running
-    statistics move, the weights do not).
+    statistics move, the weights do not);
+20. the streamed exact-BN training scorer (``TRAIN_STREAMING_LABEL_TILE
+    2048``): (a) K6's six kernels (``csrc/streamed_bn.cu``: the tile's
+    shifted moments, the fixed affine + ReLU and the fused head, each with
+    its backward) alone on one tile of 32 sequences (65,536 x 3072) against
+    their plain versions, with their times beside the bound and the plain
+    version's; (b) the streamed scorer at 32 sequences x 32,102 labels, z1
+    cache by the rule and off, against the decomposed scorer through K4 +
+    K5 (logits, running statistics, every gradient) and against its own
+    plain version; (c) ``Trainer.train`` with the tile for 9 steps at 32
+    sequences and a validation pass beside the decomposed step's 9, K4,
+    K4-bwd and K6 launched as often as ``streamed_launches`` says and K5
+    never, 3 profiled steps, one step of each scorer under the memory
+    history (the largest allocations live at its peak, by source line),
+    and 2 steps of 128 sequences with the cache off and 2 by the rule.
 
 The serving, evaluation and training paths each assert K7's forward
 launches (and none of its training kernels).  Then one JSON line with
@@ -171,7 +186,8 @@ in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
 run; K8a-bwd and K8b-bwd summed over the three tower-training runs, each
 of their calls two kernel launches, both counted; K7's forward and pool
 in the training run, its backward and BN kernels in phase 19's
-``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; each count set to 0 just
+``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
+32-sequence streamed run; each count set to 0 just
 before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
@@ -210,12 +226,14 @@ LOGIT_ATOL = 5e-2
 
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
-                  "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn")
+                  "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
+                  "streamed_bn")
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores
 
 # K2 (int8): the carried layer-1 rows of these label chunks are compared
 # element by element (the first and the ragged last of 126), and must be
@@ -308,6 +326,21 @@ K7_SUMS_REL_TOL = 1e-3
 # training the encoder (TRAIN_SEQUENCE_ENCODER): 32 sequences a step at
 # bucket 512; the peak memory also at 1024
 ENCODER_TRAIN_STEPS, ENCODER_BN_STEPS, ENCODER_1024_STEPS = 9, 3, 2
+# the streamed scorer (TRAIN_STREAMING_LABEL_TILE, K6): the default tile of
+# 2,048 labels; its kernels alone on one tile of 32 sequences; the scorer
+# against the decomposed one at 32 sequences; 9 training steps at 32
+# sequences (the decomposed step beside it), 2 at 128 with the z1 cache off
+# and 2 with the rule's choice.  K6's float32 sums (moments, dinv, dshift,
+# logits, db) within 1e-3 of the plain version's largest |value| (float32
+# sums in other orders over 65,536 rows), its bf16 outputs within 2^-6
+STREAM_TILE = 2048
+STREAM_STEPS, STREAM_BIG_B, STREAM_BIG_STEPS = 9, 128, 2
+K6_SUMS_REL_TOL = 1e-3
+K6_KERNELS = ("stream_moments", "stream_moments_backward", "affine_relu",
+              "affine_relu_backward", "stream_head", "stream_head_backward")
+DECOMPOSED_KERNELS = ("pair_train_hidden", "pair_train_dx", "pair_train_dw", "bn_relu_forward",
+                      "bn_relu_backward")
+MEMORY_TOP = 12  # the largest allocations printed at a step's peak
 
 
 def bound(nbytes: float = 0.0, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
@@ -719,6 +752,17 @@ def reset_k7_launches() -> None:
 
     for name in k7.LAUNCHES:
         k7.LAUNCHES[name] = 0
+
+
+def decomposed_launches() -> dict:
+    """The launches of the decomposed scorer's kernels (K4, K4-bwd, K5)
+    since the counts were set to 0; raises if the run launched a K6 kernel
+    (the streamed scorer is off on those paths)."""
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    if any(st.LAUNCHES.get(k, 0) for k in K6_KERNELS):  # 0 in a tree without K6
+        raise AssertionError(f"a decomposed-scorer run launched K6: {st.LAUNCHES}")
+    return {k: st.LAUNCHES[k] for k in DECOMPOSED_KERNELS}
 
 
 def check_k7_forward(launches: dict, path: str) -> None:
@@ -2313,8 +2357,8 @@ def phase_training(card: str):
         train_s = time.perf_counter() - t0
         check_k7_forward(k7.LAUNCHES, "training")
         launches = {"pair_mlp_layer": ps.LAUNCHES,
-                    **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}, **st.LAUNCHES,
-                    **{k: k7.LAUNCHES[k] for k in K7_FORWARD}}
+                    **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()},
+                    **decomposed_launches(), **{k: k7.LAUNCHES[k] for k in K7_FORWARD}}
         peak = torch.cuda.max_memory_allocated() / 2**30
         trainer._train_step = step_fn
         losses = [x[1] for x in steps]
@@ -2465,7 +2509,8 @@ def phase_train_settings(card: str, default: dict) -> None:
             torch.cuda.reset_peak_memory_stats()
             summary = trainer.train(train_b, val_b)
             torch.cuda.synchronize()
-            launches = {**st.LAUNCHES, **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+            launches = {**decomposed_launches(),
+                        **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
             losses = [x[1] for x in steps]
             med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
             fields = dict(steps=len(steps), label_counts=sorted({x[2] for x in steps}),
@@ -3018,7 +3063,7 @@ def phase_tower_training(card: str):
             run_s = time.perf_counter() - t0
             launches = {"text_attention": k8a.LAUNCHES, "text_attention_bwd": k8a.BWD_LAUNCHES,
                         "add_layer_norm": k8b.LAUNCHES, "add_layer_norm_bwd": k8b.BWD_LAUNCHES,
-                        **st.LAUNCHES}
+                        **decomposed_launches()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             trainer._train_step = step_fn
             losses = [x[1] for x in steps]
@@ -3542,7 +3587,7 @@ def phase_encoder_training(card: str) -> dict:
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             trainer._train_step = step_fn
-            launches = {**k7.LAUNCHES, **st.LAUNCHES}
+            launches = {**k7.LAUNCHES, **decomposed_launches()}
             losses = [x[1] for x in steps]
             med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
             hist = summary["history"][0]
@@ -3634,6 +3679,386 @@ def phase_encoder_training(card: str) -> dict:
     return result
 
 
+def phase_k6(card: str) -> dict:
+    """Phase 20a: each K6 kernel alone at the streamed path's shape (32
+    sequences x a 2,048-label tile = 65,536 pair rows, H 3072), on random
+    bf16 pre-activations around the running mean with a masked sequence and
+    masked labels, against its plain version on the same device tensors:
+    bf16 outputs (y, dz, dw) within 2^-6 of the plain output's largest
+    |value|, the float32 sums (moments, dinv, dshift, logits, db) within
+    1e-3; CUDA-event times beside the bound and the plain version's.  No
+    single PyTorch call computes any of the six functions (``batch_norm``
+    takes its own or the running statistics and no pair mask, and none
+    fuses the ReLU, the rounding or the output dot), so ``library_ms`` is
+    None."""
+    import torch
+
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    N = TRAIN_B * STREAM_TILE
+    g = torch.Generator(device=dev).manual_seed(13)
+    with torch.no_grad():
+        r = 0.3 * torch.randn(H, device=dev, generator=g)
+        z = (torch.randn(N, H, device=dev, generator=g) + r).to(bf16)
+        em = torch.ones(TRAIN_B, device=dev)
+        em[-1] = 0.0
+        lm = (torch.rand(STREAM_TILE, device=dev, generator=g) < 0.98).float()
+        rows = (em[:, None] * lm[None, :]).reshape(N, 1)
+        inv = 0.5 + torch.rand(H, device=dev, generator=g)
+        shift = 0.3 * torch.randn(H, device=dev, generator=g)
+        w = (torch.randn(H, device=dev, generator=g) * (6.0 / H) ** 0.5).to(bf16)
+        b = torch.tensor(0.1, device=dev)
+        dy = torch.randn(N, H, device=dev, generator=g).to(bf16)
+        g1 = torch.randn(H, device=dev, generator=g) / N
+        g2 = torch.randn(H, device=dev, generator=g) / N
+        dout = torch.randn(N, device=dev, generator=g) * 1e-2
+        calls = {
+            "stream_moments": (lambda: st._stream_moments_cuda(z, rows, r),
+                               lambda: st._stream_moments_plain(z, rows, r), ("s1", "s2")),
+            "stream_moments_backward": (
+                lambda: (st._stream_moments_grad_cuda(z, rows, r, g1, g2),),
+                lambda: (st._stream_moments_grad_plain(z, rows, r, g1, g2),), ("dz",)),
+            "affine_relu": (lambda: (st._affine_relu_cuda(z, inv, shift),),
+                            lambda: (st._affine_relu_plain(z, inv, shift),), ("y",)),
+            "affine_relu_backward": (lambda: st._affine_relu_grads_cuda(z, dy, inv, shift),
+                                     lambda: st._affine_relu_grads_plain(z, dy, inv, shift),
+                                     ("dz", "dinv", "dshift")),
+            "stream_head": (lambda: (st._stream_head_cuda(z, inv, shift, w, b),),
+                            lambda: (st._stream_head_plain(z, inv, shift, w, b),), ("logits",)),
+            "stream_head_backward": (lambda: st._stream_head_grads_cuda(z, inv, shift, w, dout),
+                                     lambda: st._stream_head_grads_plain(z, inv, shift, w, dout),
+                                     ("dz", "dinv", "dshift", "dw", "db")),
+        }
+        errs, rel, times = {}, {}, {}
+        for name, (kern, plain, outs) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            errs[name] = {o: delta(a, b_) for o, a, b_ in zip(outs, got, want)}
+            rel[name] = {o: d[0] / max(d[1], 1e-30) for o, d in errs[name].items()}
+            tols = {o: K45_REL_TOL if a.dtype == bf16 else K6_SUMS_REL_TOL
+                    for o, a in zip(outs, got)}
+            if any(rel[name][o] > tols[o] for o in outs):
+                raise AssertionError(f"{name} disagrees with its plain version: {errs[name]}")
+            del got, want
+            times[name] = (cuda_time_ms(kern, 20), cuda_time_ms(plain, 3))
+    nh = float(N) * H
+    f32 = {  # bytes: each input read once, each output written once; f32 operations
+        "stream_moments": bound(2 * nh + 4 * N + 12 * H, 5 * nh, F32_FLOPS),
+        "stream_moments_backward": bound(4 * nh + 4 * N + 12 * H, 4 * nh, F32_FLOPS),
+        "affine_relu": bound(4 * nh + 8 * H, 3 * nh, F32_FLOPS),
+        "affine_relu_backward": bound(6 * nh + 16 * H, 6 * nh, F32_FLOPS),
+        "stream_head": bound(2 * nh + 4 * N + 10 * H, 5 * nh, F32_FLOPS),
+        "stream_head_backward": bound(4 * nh + 4 * N + 18 * H + 4, 11 * nh, F32_FLOPS),
+    }
+    log("k6_kernels_alone", rows=N, width=H, tile=STREAM_TILE,
+        max_abs_errs={k: {o: d[0] for o, d in v.items()} for k, v in errs.items()},
+        rel_errs=rel, bf16_rel_tol=K45_REL_TOL, sums_rel_tol=K6_SUMS_REL_TOL,
+        ms={k: v[0] for k, v in times.items()}, plain_ms={k: v[1] for k, v in times.items()},
+        bound_ms={k: v["bound_ms"] for k, v in f32.items()},
+        library="none: no single PyTorch call computes these functions", card=card)
+    first = {k: next(iter(v.values()))[0] for k, v in errs.items()}  # the main output's
+    return {k: {"max_abs_err": first[k], "ms": times[k][0], "plain_ms": times[k][1], **f32[k],
+                "library_ms": None} for k in calls}
+
+
+def phase_streamed_scorer(card: str) -> None:
+    """Phase 20b: the streamed scorer at full width (32 sequences x 32,102
+    labels, tile 2,048, ``random_output_mlp``), with the z1 cache by the
+    rule (on at this size) and off, against the decomposed scorer through
+    K4 + K5 on the same device tensors under one fixed cotangent: logits
+    within 5e-2, new running statistics within 1e-2 and every gradient
+    (P_e, L_e, each output-MLP leaf) within 5e-2 of its largest |value|;
+    and ``pair_logits_streaming_train_reference`` (the plain versions of K4
+    and K6) against the kernels at the same tolerances.  Each run's
+    forward + backward seconds and peak memory are printed."""
+    import torch
+
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.optim import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    p, s = random_output_mlp(dev)
+    gen = torch.Generator().manual_seed(14)
+    P_e = torch.randn(TRAIN_B, D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(NUM_LABELS, D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    em = torch.ones(TRAIN_B, device=dev)
+    em[-1] = 0.0
+    lm = (torch.rand(NUM_LABELS, generator=gen) < 0.98).float().to(dev)
+    w = torch.randn(TRAIN_B, NUM_LABELS, generator=gen).to(dev) * em[:, None] * lm[None, :]
+    scorers = {
+        "decomposed": (st.pair_logits_dense_decomposed, {}),
+        "streamed_cache_auto": (st.pair_logits_streaming_train, {"label_tile": STREAM_TILE}),
+        "streamed_cache_off": (st.pair_logits_streaming_train,
+                               {"label_tile": STREAM_TILE, "cache_first": False}),
+        "streamed_plain": (st.pair_logits_streaming_train_reference,
+                           {"label_tile": STREAM_TILE}),
+    }
+    runs, fields = {}, {}
+    for name, (scorer, kw) in scorers.items():
+        seconds = []
+        for _ in range(2):  # the first call's time, then a warm one's
+            pp = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+            Pg, Lg = P_e.clone().requires_grad_(True), L_e.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, new = scorer(pp, s, Pg, Lg, example_mask=em, label_mask=lm, **kw)
+            (torch.sigmoid(logits) * w).sum().backward()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            runs[name] = (logits.detach(), new, [Pg.grad, Lg.grad] + [t.grad for t in
+                                                                     tree_leaves(pp)])
+            del pp, Pg, Lg, logits
+        fields[name] = {"fwd_bwd_s": seconds,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        torch.cuda.empty_cache()
+    checks = {}
+    for name, ref in (("streamed_cache_auto", "decomposed"), ("streamed_cache_off", "decomposed"),
+                      ("streamed_plain", "streamed_cache_auto")):
+        (lg, new, grads), (lg0, new0, grads0) = runs[name], runs[ref]
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{name}: logits not all finite")
+        checks[f"{name}_vs_{ref}"] = {
+            "max_abs_logit_err": float((lg - lg0).abs().max()),
+            "max_rel_stats_err": max(rel_err(a[k], b[k]) for a, b in zip(new["bns"], new0["bns"])
+                                     for k in ("mean", "var")),
+            "max_rel_grad_err": max(rel_err(a, b) for a, b in zip(grads, grads0)),
+            "grads": len(grads)}
+    log("streamed_scorer_check", batch=TRAIN_B, labels=NUM_LABELS, tile=STREAM_TILE,
+        checks=checks, logit_atol=TRAIN_LOGIT_ATOL, stats_rel_tol=STATS_REL_TOL,
+        grad_rel_tol=GRAD_REL_TOL, logit_std=float(runs["decomposed"][0].std()), runs=fields,
+        card=card)
+    for name, c in checks.items():
+        if not (c["max_abs_logit_err"] <= TRAIN_LOGIT_ATOL
+                and c["max_rel_stats_err"] <= STATS_REL_TOL
+                and c["max_rel_grad_err"] <= GRAD_REL_TOL and c["grads"] == 13):
+            raise AssertionError(f"the streamed scorer disagrees ({name}): {c}")
+
+
+def memory_split(fn, run: str, card: str) -> dict:
+    """Run ``fn`` (one training step) once under
+    ``torch.cuda.memory._record_memory_history`` and print what sets its
+    peak: the memory resident before it (parameters, moments, the label
+    matrix), the step's own allocations at their peak, and the largest of
+    those live at that moment, grouped by the port's source line that
+    allocated them (its innermost frame under ``protnote_tpu_torch/``, and
+    that frame's caller there)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # allocation stacks only: a free's stack taken while torch.utils.checkpoint
+    # stops its recomputation (an exception in flight) breaks the step
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=500000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+
+    def replay(stop=None):
+        live, cur, peak, at = {}, 0, 0, 0
+        for i, ev in enumerate(trace[:stop]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                cur += ev["size"]
+            elif ev["action"] == "free_requested":
+                live.pop(ev["addr"], None)
+                cur -= ev["size"]  # also frees of tensors made before the step
+            if cur > peak:
+                peak, at = cur, i + 1
+        return live, peak, at
+
+    _, peak, at = replay()
+    live, _, _ = replay(at)
+
+    def site(ev):
+        mine = [f for f in ev.get("frames", []) if "protnote_tpu_torch" in f["filename"]
+                or f["filename"].endswith("chip_smoke.py")]
+        return " <- ".join(f"{os.path.relpath(f['filename'], ROOT)}:{f['line']} {f['name']}"
+                           for f in mine[:2]) or "(no Python frame: made by the autograd engine)"
+
+    groups = {}
+    for ev in live.values():
+        key = site(ev)
+        size, n = groups.get(key, (0, 0))
+        groups[key] = (size + ev["size"], n + 1)
+    top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:MEMORY_TOP]
+    fields = {"resident_before_gb": base / 2**30, "step_peak_gb": (base + peak) / 2**30,
+              "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "live_at_peak_gb": sum(e["size"] for e in live.values()) / 2**30,
+              "events": len(trace),
+              "top": [{"site": k, "gb": v[0] / 2**30, "allocations": v[1]} for k, v in top]}
+    log("memory_split", run=run, **fields, card=card)
+    return fields
+
+
+def phase_streamed_training(card: str) -> dict:
+    """Phase 20c: training through ``Trainer.train`` with
+    ``TRAIN_STREAMING_LABEL_TILE 2048`` at full width: 9 steps of 32
+    sequences with a validation pass (step ms, seqs/s, peak memory, every
+    kernel's launches: K4, K4-bwd and K6 held to ``streamed_launches`` a
+    step, K5's 0), the decomposed step's 9 steps beside it, 3 profiled
+    streamed steps (idle share, top kernels), one decomposed and one
+    streamed step under the memory history (:func:`memory_split`), and 2
+    steps of 128 sequences with ``TRAIN_STREAMING_CACHE False`` and 2 with
+    the rule's choice (the peak of each).  Returns the 32-sequence streamed
+    run's launches."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    buckets = (256, 512, 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = train_datasets(tmp)
+        weights = train_ds.calculate_sequence_weights(
+            train_ds.calculate_label_weights(power=0.5), "sum")
+        pi_cfg, pn_cfg, ts = random_models()
+        pn_cfg = dataclasses.replace(pn_cfg, label_embedding_noising_alpha=NOISING_ALPHA)
+        stream_cfg = dataclasses.replace(pn_cfg, train_label_tile=STREAM_TILE)
+        loss_fn = get_loss_fn(TRAIN_PARAMS)
+        val_b = BucketBatcher(val_ds, TRAIN_B, buckets=buckets,
+                              descriptions_per_label=K_DESCRIPTIONS, device_label_gather=True)
+
+        def batcher(batch, bucket_set):
+            return BucketBatcher(train_ds, batch, buckets=bucket_set, shuffle=True,
+                                 drop_last=True, seed=42, sequence_weights=weights,
+                                 device_label_gather=True)
+
+        def run(name, cfg, batch, bucket_set, steps_n, validate):
+            opt = Optimizer(TRAIN_PARAMS)
+            ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
+                                   ts["enc_params"], ts["enc_state"], opt)
+            tcfg = TrainerConfig(num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True,
+                                 checkpoint_dir=None, run_name="streamed")
+            trainer = Trainer(ts0, pi_cfg, cfg, tcfg, device=dev, loss_fn=loss_fn, optimizer=opt)
+            steps, step_fn = [], trainer._train_step
+
+            def timed_step(ts_, b, g):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts_, m = step_fn(ts_, b, g)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"])))
+                return ts_, m
+
+            trainer._train_step = timed_step
+            ps.LAUNCHES = 0
+            for counts in (k3.LAUNCHES, st.LAUNCHES):
+                for k in counts:
+                    counts[k] = 0
+            reset_k7_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary = trainer.train(FirstBatches(batcher(batch, bucket_set), steps_n),
+                                    val_b if validate else None)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            trainer._train_step = step_fn
+            check_k7_forward(k7.LAUNCHES, name)
+            launches = {"pair_mlp_layer": ps.LAUNCHES,
+                        **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}, **st.LAUNCHES,
+                        **{k: k7.LAUNCHES[k] for k in K7_FORWARD}}
+            losses = [x[1] for x in steps]
+            med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
+            hist = summary["history"][0]
+            fields = dict(steps=len(steps), sequences_per_step=batch, labels=NUM_LABELS,
+                          tile=cfg.train_label_tile, cache=cfg.train_streaming_cache,
+                          step_losses=losses, grad_norms=[x[2] for x in steps],
+                          first_step_ms=steps[0][0] * 1e3, median_warm_step_ms=med * 1e3,
+                          seqs_per_s=batch / med,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, run_s=run_s,
+                          launches=launches, val_map_micro=hist.get("val_map_micro"),
+                          val_loss=hist.get("val_loss"))
+            if len(steps) != steps_n or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"streamed training {name}: {fields}")
+            return trainer, fields
+
+        def placed_batches(trainer, batch, bucket_set, n):
+            inner = batcher(batch, bucket_set)
+            inner.set_epoch(1)
+            matrix = trainer._label_matrix_for(train_ds)
+            out = []
+            for b in inner:
+                out.append(trainer._place(batch_to_device_dict(b, dev), matrix))
+                if len(out) == n:
+                    break
+            return out
+
+        dec, dec_fields = run("decomposed", pn_cfg, TRAIN_B, buckets, STREAM_STEPS, False)
+        log("streamed_train", run="decomposed", **dec_fields, card=card)
+        trainer, fields = run("streamed", stream_cfg, TRAIN_B, buckets, STREAM_STEPS, True)
+        cache = st.streaming_cache_first(TRAIN_B, -(-NUM_LABELS // STREAM_TILE) * STREAM_TILE,
+                                         STREAM_TILE, H, 2, 3, dev)
+        per_step = st.streamed_launches(3, -(-NUM_LABELS // STREAM_TILE), cache)
+        want = {k: v * STREAM_STEPS for k, v in per_step.items()}
+        got = {k: fields["launches"][k] for k in want}
+        if got != want or fields["launches"]["pair_mlp_layer"] <= 0:
+            raise AssertionError(f"streamed training launched {got}, the schedule says {want}")
+
+        placed = placed_batches(trainer, TRAIN_B, buckets, PROFILE_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        it = iter(placed)
+
+        def one_step():
+            trainer.ts, _ = trainer._train_step(trainer.ts, next(it), gen)
+
+        wall, busy, top = device_profile(one_step, len(placed))
+        fields.update(cache_by_rule=cache, launches_per_step=per_step,
+                      decomposed_median_warm_step_ms=dec_fields["median_warm_step_ms"],
+                      decomposed_peak_mem_gb=dec_fields["peak_mem_gb"],
+                      profile_wall_ms_per_step=wall * 1e3 / len(placed),
+                      profile_device_busy_ms_per_step=None if busy is None
+                      else busy * 1e3 / len(placed),
+                      idle_share=None if busy is None else 1.0 - busy / wall,
+                      top_kernels_ms_per_step=top)
+        log("streamed_train", run="streamed", **fields, card=card)
+
+        # what sets each step's peak: one step of each under the memory history
+        for name, tr in (("decomposed", dec), ("streamed", trainer)):
+            b0 = placed[0]
+
+            def step_once(tr=tr, b0=b0):
+                tr.ts, _ = tr._train_step(tr.ts, b0, gen)
+
+            memory_split(step_once, name, card)
+        launches = fields["launches"]
+        del dec, trainer, placed, it
+        torch.cuda.empty_cache()
+
+        # 128 sequences a step: the cache off, then by the rule
+        for name, cache_first in (("streamed_128_cache_off", False),
+                                  ("streamed_128_cache_auto", None)):
+            cfg = dataclasses.replace(stream_cfg, train_streaming_cache=cache_first)
+            tr, f = run(name, cfg, STREAM_BIG_B, (1024,), STREAM_BIG_STEPS, False)
+            f["cache_by_rule"] = st.streaming_cache_first(
+                STREAM_BIG_B, -(-NUM_LABELS // STREAM_TILE) * STREAM_TILE, STREAM_TILE, H, 2, 3,
+                dev) if cache_first is None else False
+            log("streamed_train", run=name, **f, card=card)
+            del tr
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -3682,6 +4107,12 @@ def main() -> None:
     k7_bwd = phase_k7_bwd(card)
     torch.cuda.empty_cache()
     encoder_launches = phase_encoder_training(card)
+    torch.cuda.empty_cache()
+    k6_times = phase_k6(card)
+    torch.cuda.empty_cache()
+    phase_streamed_scorer(card)
+    torch.cuda.empty_cache()
+    stream_launches = phase_streamed_training(card)
     if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
                                    for m in sys.modules):
         raise AssertionError("the port's serving, evaluation, training or tower path imported "
@@ -3751,7 +4182,11 @@ def main() -> None:
         ("masked_bn_relu_fwd", "masked_bn", "protnote_tpu/models/layers.py:102", k7_bwd,
          encoder_launches),
         ("masked_bn_relu_bwd", "masked_bn", "protnote_tpu/models/layers.py:102", k7_bwd,
-         encoder_launches))]}), flush=True)
+         encoder_launches))] + [{
+        "name": k, "route": "cuda", "source": "protnote_tpu_torch/csrc/streamed_bn.cu",
+        "replaces": "protnote_tpu/ops/streaming_train.py:270", "launches": stream_launches[k],
+        **{f: k6_times[k][f] for f in KERNEL_FIELDS},
+    } for k in K6_KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,111 +32,15 @@
 // the reductions keep their sums in registers and write one partial per
 // row chunk (no atomics, so the sums are reproducible), and the elementwise
 // passes keep each thread's per-column values in registers while it walks
-// down the rows.
+// down the rows.  The moment pass, the fixed-order column sums and the
+// elementwise affine + ReLU live in bn_columns.cuh, which the streamed
+// scorer's kernels (streamed_bn.cu) share.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <algorithm>
+#include "bn_columns.cuh"
 
 namespace {
 
 constexpr float EPS = 1e-5f;      // BN_EPS of the JAX package
-constexpr int VEC = 8;            // bf16 per 16-byte access
-constexpr int COLS = 32 * VEC;    // columns per block: one warp-row of 16-byte loads
-constexpr int RED_WARPS = 8;      // warps of a reduction block, each on its own rows
-constexpr int EW_THREADS = 128;  // elementwise block: 128 threads x 8 columns
-constexpr int EW_ROW_BLOCKS = 1024;  // elementwise grid rows; each block loops over rows
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    w[i] = *reinterpret_cast<uint32_t*>(&v);
-  }
-  return u;
-}
-
-// The forward's pre-activation f32(z) * inv + shift, rounded in two steps.
-__device__ __forceinline__ float affine(float z, float inv, float shift) {
-  return __fadd_rn(__fmul_rn(z, inv), shift);
-}
-
-// Adds a block's per-warp column sums (RED_WARPS x COLS, two arrays) into
-// partial row `chunk` of out0/out1 (each (chunks, H)).
-__device__ __forceinline__ void block_column_sums(float (*s0)[COLS], float (*s1)[COLS],
-                                                  const float* a0, const float* a1,
-                                                  float* out0, float* out1, int chunk,
-                                                  int c0, int H) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    s0[warp][lane * VEC + e] = a0[e];
-    s1[warp][lane * VEC + e] = a1[e];
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < COLS; c += blockDim.x) {
-    float t0 = 0.f, t1 = 0.f;
-#pragma unroll
-    for (int w = 0; w < RED_WARPS; ++w) {
-      t0 = __fadd_rn(t0, s0[w][c]);
-      t1 = __fadd_rn(t1, s1[w][c]);
-    }
-    out0[(size_t)chunk * H + c0 + c] = t0;
-    out1[(size_t)chunk * H + c0 + c] = t1;
-  }
-}
-
-// Forward pass 1: per row chunk, column sums of rows * zc and rows * zc^2.
-__global__ void __launch_bounds__(RED_WARPS * 32)
-bn_moments_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ rows,
-                  const float* __restrict__ shift_r, float* __restrict__ part1,
-                  float* __restrict__ part2, long long N, int H, long long rows_per_chunk) {
-  __shared__ float s0[RED_WARPS][COLS];
-  __shared__ float s1[RED_WARPS][COLS];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * COLS;
-  const int col = c0 + lane * VEC;
-  const long long first = (long long)blockIdx.y * rows_per_chunk;
-  const long long last = min(first + rows_per_chunk, N);
-  float r[VEC], a1[VEC], a2[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    r[e] = shift_r[col + e];
-    a1[e] = 0.f;
-    a2[e] = 0.f;
-  }
-#pragma unroll 4
-  for (long long i = first + warp; i < last; i += RED_WARPS) {
-    const uint4 u = *reinterpret_cast<const uint4*>(z + i * H + col);
-    const float m = rows[i];
-    float f[VEC];
-    unpack8(u, f);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float zc = __fsub_rn(f[e], r[e]);
-      const float zm = __fmul_rn(zc, m);
-      a1[e] = __fadd_rn(a1[e], zm);
-      a2[e] = __fadd_rn(a2[e], __fmul_rn(zm, zc));
-    }
-  }
-  block_column_sums(s0, s1, a1, a2, part1, part2, blockIdx.y, c0, H);
-}
 
 // Forward tail: one thread per column adds the chunks in order.
 __global__ void bn_moments_tail_kernel(const float* __restrict__ part1,
@@ -169,34 +73,6 @@ __global__ void bn_moments_tail_kernel(const float* __restrict__ part1,
   shift[c] = __fsub_rn(bias[c], __fmul_rn(m, iv));
 }
 
-// Forward pass 2: y = bf16(relu(f32(z) * inv + shift)).  Each thread owns 8
-// columns, keeps their affine in registers and walks down the rows.
-__global__ void __launch_bounds__(EW_THREADS)
-bn_relu_apply_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ inv,
-                     const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
-                     long long N, int H) {
-  const int vpr = H / VEC;
-  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
-  if (cv >= vpr) return;
-  float iv[VEC], sh[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    iv[e] = inv[cv * VEC + e];
-    sh[e] = shift[cv * VEC + e];
-  }
-  const uint4* zv = reinterpret_cast<const uint4*>(z);
-  uint4* yv = reinterpret_cast<uint4*>(y);
-#pragma unroll 4
-  for (long long r = blockIdx.x; r < N; r += gridDim.x) {
-    const long long v = r * vpr + cv;
-    float f[VEC];
-    unpack8(zv[v], f);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) f[e] = fmaxf(affine(f[e], iv[e], sh[e]), 0.f);
-    yv[v] = pack8(f);
-  }
-}
-
 // Backward pass 1: per row chunk, column sums of g and g * xhat.
 __global__ void __launch_bounds__(RED_WARPS * 32)
 bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
@@ -204,23 +80,22 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
                     const float* __restrict__ inv, const float* __restrict__ shift,
                     float* __restrict__ part1, float* __restrict__ part2, long long N, int H,
                     long long rows_per_chunk) {
-  __shared__ float s0[RED_WARPS][COLS];
-  __shared__ float s1[RED_WARPS][COLS];
+  __shared__ float s[2][RED_WARPS][COLS];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.x * COLS;
   const int col = c0 + lane * VEC;
   const long long first = (long long)blockIdx.y * rows_per_chunk;
   const long long last = min(first + rows_per_chunk, N);
-  float mu[VEC], is[VEC], iv[VEC], sh[VEC], g1[VEC], g2[VEC];
+  float mu[VEC], is[VEC], iv[VEC], sh[VEC], g[2][VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
     mu[e] = mean[col + e];
     is[e] = istd[col + e];
     iv[e] = inv[col + e];
     sh[e] = shift[col + e];
-    g1[e] = 0.f;
-    g2[e] = 0.f;
+    g[0][e] = 0.f;
+    g[1][e] = 0.f;
   }
 #pragma unroll 4
   for (long long i = first + warp; i < last; i += RED_WARPS) {
@@ -229,29 +104,14 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
     unpack8(*reinterpret_cast<const uint4*>(dy + i * H + col), df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      const float g = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;
+      const float ge = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;
       const float xhat = __fmul_rn(__fsub_rn(zf[e], mu[e]), is[e]);
-      g1[e] = __fadd_rn(g1[e], g);
-      g2[e] = __fadd_rn(g2[e], __fmul_rn(g, xhat));
+      g[0][e] = __fadd_rn(g[0][e], ge);
+      g[1][e] = __fadd_rn(g[1][e], __fmul_rn(ge, xhat));
     }
   }
-  block_column_sums(s0, s1, g1, g2, part1, part2, blockIdx.y, c0, H);
-}
-
-// Backward tail: G1 (dbias) and G2 (dscale) per column, chunks in order.
-__global__ void bn_grad_sums_tail_kernel(const float* __restrict__ part1,
-                                         const float* __restrict__ part2, int chunks,
-                                         float* __restrict__ G1, float* __restrict__ G2,
-                                         int H) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= H) return;
-  float t1 = 0.f, t2 = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    t1 = __fadd_rn(t1, part1[(size_t)k * H + c]);
-    t2 = __fadd_rn(t2, part2[(size_t)k * H + c]);
-  }
-  G1[c] = t1;
-  G2[c] = t2;
+  float* const out[2] = {part1, part2};
+  block_column_sums<2>(s, g, out, blockIdx.y, c0, H);
 }
 
 // Backward pass 2: dz = bf16(istd * scale * (g - rows / n * (G1 + G2 * xhat))).
@@ -302,19 +162,6 @@ bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __re
   }
 }
 
-dim3 elementwise_grid(long long N, int H) {
-  const int vpr = H / VEC;
-  return dim3((unsigned)std::min(N, (long long)EW_ROW_BLOCKS),
-              (unsigned)((vpr + EW_THREADS - 1) / EW_THREADS));
-}
-
-int elementwise_threads(int H) { return std::min(EW_THREADS, H / VEC); }
-
-bool shapes_ok(long long N, int H, int chunks, long long rows_per_chunk) {
-  return N > 0 && H > 0 && H % COLS == 0 && chunks > 0 && chunks <= 65535 &&
-         rows_per_chunk > 0 && (long long)chunks * rows_per_chunk >= N;
-}
-
 }  // namespace
 
 // Forward: moments, the affine, and y.  part1/part2 are (chunks, H) f32
@@ -328,7 +175,7 @@ extern "C" int bn_relu_forward(const void* z, const void* rows, const void* n,
                                int H, int chunks, long long rows_per_chunk, void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  bn_moments_kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+  moments_kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(rows),
       static_cast<const float*>(running_mean), static_cast<float*>(part1),
       static_cast<float*>(part2), N, H, rows_per_chunk);
@@ -342,7 +189,7 @@ extern "C" int bn_relu_forward(const void* z, const void* rows, const void* n,
       static_cast<float*>(inv), static_cast<float*>(shift), H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bn_relu_apply_kernel<<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
+  affine_relu_kernel<<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
       static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(inv),
       static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(y), N, H);
   return (int)cudaGetLastError();
@@ -365,9 +212,10 @@ extern "C" int bn_relu_backward(const void* z, const void* dy, const void* rows,
       static_cast<float*>(part1), static_cast<float*>(part2), N, H, rows_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bn_grad_sums_tail_kernel<<<(H + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part1), static_cast<const float*>(part2), chunks,
-      static_cast<float*>(G1), static_cast<float*>(G2), H);
+  column_sums_tail_kernel<2><<<(H + 255) / 256, 256, 0, s>>>(
+      ChunkSums<2>{{static_cast<const float*>(part1), static_cast<const float*>(part2)},
+                   {static_cast<float*>(G1), static_cast<float*>(G2)}},
+      chunks, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bn_relu_dz_kernel<<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(

@@ -10,14 +10,17 @@ mean sigmoid); in training by the decomposed scorer
 (:mod:`protnote_tpu_torch.ops.streaming_train`, K4 + K5, K4-bwd in the
 backward) with train-mode BatchNorm, after label-embedding noising;
 ``GRADIENT_CHECKPOINTING`` recomputes its post-layer-1 block in the
-backward.
+backward.  ``TRAIN_STREAMING_LABEL_TILE > 0`` trains through the streamed
+scorer instead (K4, K4-bwd and K6 over label tiles, the same function in
+O(B * tile * H) memory; ``TRAIN_STREAMING_CACHE`` keeps the first hidden
+GEMM's output), also with ``PAIR_BACKEND`` tiled or tiled_int8, as the JAX
+dispatch does.
 
 Random draws (noising, dropout) come from an explicit ``torch.Generator``
 on the tensors' device.  Left out, each raising ``NotImplementedError``
 that names its ROADMAP item: the materialised dense scorer
 (``PAIR_BACKEND=dense``, ``OUTPUT_MLP_DROPOUT > 0`` in training, training
-without output-MLP BatchNorm or with ``concatenation_prod``), the streamed
-scorer (``TRAIN_STREAMING_LABEL_TILE > 0``).
+without output-MLP BatchNorm or with ``concatenation_prod``).
 ``PAIR_BACKEND=tiled_int8`` evaluates through the int8 scorer (K2) with the
 config's static activation scales (:func:`calibrate_int8`) or dynamic
 per-row ones, and trains through the decomposed scorer as ``auto`` does.
@@ -52,17 +55,20 @@ from protnote_tpu_torch.ops.pair_scorer import (
 )
 from protnote_tpu_torch.ops.streaming_train import (
     BN_MOMENTUM,
-    STREAMING_LATER,
     pair_logits_dense_decomposed,
+    pair_logits_streaming_train,
 )
 
-DENSE_LATER = ("the materialised dense pair scorer (PAIR_BACKEND=dense or tiled in "
-               "training, training without output-MLP BatchNorm or with "
+DENSE_LATER = ("the materialised dense pair scorer (PAIR_BACKEND=dense, tiled in training "
+               "without TRAIN_STREAMING_LABEL_TILE, training without output-MLP BatchNorm or with "
                "concatenation_prod) is not ported: the training slice trains through the "
                "decomposed scorer (ROADMAP.md queue 1, item 5f)")
 DROPOUT_LATER = ("OUTPUT_MLP_DROPOUT > 0 in training needs the materialised dense "
                  "scorer, which the training slice does not port (ROADMAP.md queue 1, "
                  "item 5f)")
+FUSED_BN_VJP_WITH_TILE = ("TRAIN_FUSED_BN_VJP applies to the decomposed dense training path "
+                          "only; the streamed scorer (TRAIN_STREAMING_LABEL_TILE > 0) has its "
+                          "own tiled BN handling — unset one of the two")
 
 
 @dataclass(frozen=True)
@@ -85,8 +91,10 @@ class ProtNoteConfig:
     # static activation scales of the int8 scorer, one per hidden layer
     # (INT8_ACT_SCALES, calibrate_int8); None: dynamic per-row scales
     int8_act_scales: Optional[Tuple[float, ...]] = None
-    # auto (eval: tiled, train: decomposed) | tiled | tiled_int8 (eval: K2,
-    # train: decomposed); dense raises until ported
+    # auto (eval: tiled, train: decomposed) | tiled (trains only with a
+    # streaming tile) | tiled_int8 (eval: K2, train: decomposed); with
+    # train_label_tile every backend but dense trains streamed; dense raises
+    # until ported
     pair_backend: str = "auto"
     # training (the JAX fields of the same names)
     label_embedding_noising_alpha: float = 0.0
@@ -94,7 +102,11 @@ class ProtNoteConfig:
     sequence_embedding_dropout: float = 0.0
     label_embedding_dropout: float = 0.0
     gradient_checkpointing: bool = False  # the decomposed scorer's remat
-    train_label_tile: int = 0  # > 0 (the streamed scorer K6) raises in training
+    train_label_tile: int = 0  # > 0: the streamed scorer (K6) over tiles of this many labels
+    train_streaming_cache: Optional[bool] = None  # its z1 cache: None decides by memory
+    # read only to refuse it beside a tile, as the JAX dispatch does: the
+    # decomposed scorer always runs K5's two-pass backward
+    train_fused_bn_vjp: bool = False
 
     @property
     def output_mlp_hidden_dim(self) -> int:
@@ -141,6 +153,8 @@ class ProtNoteConfig:
             label_embedding_dropout=params.get("LABEL_EMBEDDING_DROPOUT", 0.0),
             gradient_checkpointing=params.get("GRADIENT_CHECKPOINTING", False),
             train_label_tile=params.get("TRAIN_STREAMING_LABEL_TILE", 0) or 0,
+            train_streaming_cache=params.get("TRAIN_STREAMING_CACHE", None),
+            train_fused_bn_vjp=params.get("TRAIN_FUSED_BN_VJP", False),
             int8_act_scales=(
                 tuple(float(s) for s in params["INT8_ACT_SCALES"])
                 if params.get("INT8_ACT_SCALES") else None
@@ -359,7 +373,8 @@ def protnote_forward(
     ``label_latents`` (precomputed W_l projections) skips the label tower;
     the state comes back unchanged.  Train: BatchNorm on the masked batch
     (``example_mask`` (B,), ``label_mask`` (L,)), label noising and dropout
-    from ``generator``, the decomposed scorer (K4 + K5), and the new running
+    from ``generator``, the decomposed scorer (K4 + K5) or, with
+    ``cfg.train_label_tile``, the streamed one (K4 + K6), and the new running
     statistics in the returned state."""
     if cfg.pair_backend == "dense":
         raise NotImplementedError(DENSE_LATER)
@@ -390,17 +405,28 @@ def protnote_forward(
     elif cfg.feature_fusion.startswith("concatenation"):
         om_state = state.get("output_mlp")
         if train:
-            if cfg.train_label_tile > 0:
-                raise NotImplementedError(STREAMING_LATER)
+            # the JAX dispatch: the streamed scorer first (any backend but
+            # dense), then the decomposed one (auto, tiled_int8); the rest
+            # is the materialised scorer
             if cfg.dropout > 0:
                 raise NotImplementedError(DROPOUT_LATER)
-            if (cfg.pair_backend == "tiled" or om_state is None
-                    or cfg.feature_fusion == "concatenation_prod"):
+            if om_state is None or cfg.feature_fusion == "concatenation_prod":
                 raise NotImplementedError(DENSE_LATER)
-            logits, new_state["output_mlp"] = pair_logits_dense_decomposed(
-                params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
-                example_mask=example_mask, label_mask=label_mask,
-                compute_dtype=cfg.compute_dtype, remat=cfg.gradient_checkpointing)
+            if cfg.train_label_tile > 0:
+                if cfg.train_fused_bn_vjp:
+                    raise ValueError(FUSED_BN_VJP_WITH_TILE)
+                logits, new_state["output_mlp"] = pair_logits_streaming_train(
+                    params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
+                    example_mask=example_mask, label_mask=label_mask,
+                    label_tile=cfg.train_label_tile, compute_dtype=cfg.compute_dtype,
+                    cache_first=cfg.train_streaming_cache)
+            elif cfg.pair_backend == "tiled":
+                raise NotImplementedError(DENSE_LATER)
+            else:
+                logits, new_state["output_mlp"] = pair_logits_dense_decomposed(
+                    params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
+                    example_mask=example_mask, label_mask=label_mask,
+                    compute_dtype=cfg.compute_dtype, remat=cfg.gradient_checkpointing)
         else:
             folded = fold_output_mlp(params["output_mlp"], om_state, cfg.feature_fusion,
                                      cfg.latent_dim, dtype=cfg.compute_dtype)

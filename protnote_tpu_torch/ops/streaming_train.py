@@ -28,6 +28,23 @@ Two hand-written kernels carry the (B * L, H) tensors:
   one for ``dz`` (the JAX ``_bn_relu`` custom VJP).  It serves every layer
   after the first.
 
+The streamed scorer (:func:`pair_logits_streaming_train`,
+``TRAIN_STREAMING_LABEL_TILE``) computes the same function in O(B * tile *
+H) memory: the labels are cut into tiles and each later layer's statistics
+are summed over one sweep of every tile, each tile under
+``torch.utils.checkpoint`` so that the backward recomputes it.  Three
+kernel families of ``csrc/streamed_bn.cu`` (K6) carry a tile's (B * tile,
+H) tensors beside K4 and K4-bwd:
+
+* :func:`stream_moments`: the tile's masked shifted column sums ``sum
+  rows * (z - r)`` and ``sum rows * (z - r)^2``; backward ``dz = rows * (g1
+  + 2 * g2 * (z - r))``;
+* :func:`affine_relu`: ``relu(f32(z) * inv + shift)`` with an affine that
+  earlier sweeps took; backward ``dz``, ``dinv``, ``dshift`` in one sweep;
+* :func:`stream_head`: the last layer's affine + ReLU fused with the output
+  matvec, so the last activations are never stored; backward ``dz``,
+  ``dinv``, ``dshift``, ``dw_out``, ``db_out`` in one sweep.
+
 Each kernel has its plain PyTorch version beside it.  For tensors on the CPU
 the wrappers run the plain version; for CUDA tensors they launch the kernel
 or raise (no fallback).  The ``*_reference`` functions run the plain
@@ -44,10 +61,6 @@ logits to float32.
 products in the backward, as the JAX path's ``jax.checkpoint(post)``:
 ``torch.utils.checkpoint`` around it, so K4 and K5 run again through their
 autograd Functions and only ``a``, ``c`` and the inputs are kept.
-
-The streamed exact-BN scorer (K6, ``pair_logits_streaming_train``) is not
-ported: it exists to bound memory on a 16 GB TPU chip, and an 80 GB card
-trains the default width without it.
 """
 
 from __future__ import annotations
@@ -71,14 +84,12 @@ from protnote_tpu_torch.ops.pair_scorer import (
 
 BN_MOMENTUM = 0.1  # torch BatchNorm1d default, as the JAX package
 
-STREAMING_LATER = ("the streamed exact-BN training scorer (K6, "
-                   "TRAIN_STREAMING_LABEL_TILE > 0) is not ported (ROADMAP.md queue 1, "
-                   "item 6); the decomposed scorer trains the default width on one card")
-
 # Launches of each kernel entry point since the process started (or since a
 # caller last set them to 0).
 LAUNCHES = {"pair_train_hidden": 0, "pair_train_dx": 0, "pair_train_dw": 0,
-            "bn_relu_forward": 0, "bn_relu_backward": 0}
+            "bn_relu_forward": 0, "bn_relu_backward": 0,
+            "stream_moments": 0, "stream_moments_backward": 0, "affine_relu": 0,
+            "affine_relu_backward": 0, "stream_head": 0, "stream_head_backward": 0}
 _launch_lock = threading.Lock()
 
 
@@ -166,21 +177,27 @@ def _chunks(N: int) -> Tuple[int, int]:
 _BN_COLS = 256  # columns per reduction block (csrc/bn_relu.cu COLS)
 
 
-def _check_bn_cuda(z: torch.Tensor, rows: torch.Tensor, n: torch.Tensor,
+def _check_bn_cuda(z: torch.Tensor, rows: Optional[torch.Tensor], n: Optional[torch.Tensor],
                    vectors) -> None:
+    """The inputs that K5's and K6's column kernels take: (N, H) bf16 ``z``
+    with H a multiple of 256, ``rows`` (N, 1) and ``n`` one value where the
+    kernel reads them, (H,) float32 ``vectors``, all contiguous on z's CUDA
+    device."""
     if z.device.type != "cuda":
-        raise ValueError(f"the CUDA BN+ReLU kernels need CUDA tensors, not {z.device}")
+        raise ValueError(f"the CUDA BN kernels need CUDA tensors, not {z.device}")
     if z.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA BN+ReLU kernels take bfloat16 pre-activations, not "
+        raise ValueError(f"the CUDA BN kernels take bfloat16 pre-activations, not "
                          f"{z.dtype} (MIXED_PRECISION: True)")
     if z.dim() != 2 or z.shape[1] % _BN_COLS:
         raise ValueError(f"pre-activations {tuple(z.shape)}: the width must be a "
                          f"multiple of {_BN_COLS}")
     N, H = z.shape
-    if tuple(rows.shape) != (N, 1) or rows.dtype != torch.float32 or n.numel() != 1:
-        raise ValueError("rows must be (N, 1) float32 and n one float32 value")
+    if rows is not None and (tuple(rows.shape) != (N, 1) or rows.dtype != torch.float32):
+        raise ValueError("rows must be (N, 1) float32")
+    if n is not None and n.numel() != 1:
+        raise ValueError("n must be one float32 value")
     for t in (z, rows, n, *vectors):
-        if t.device != z.device or not t.is_contiguous():
+        if t is not None and (t.device != z.device or not t.is_contiguous()):
             raise ValueError("every tensor must be contiguous on the pre-activations' device")
     for t in vectors:
         if tuple(t.shape) != (H,) or t.dtype != torch.float32:
@@ -637,7 +654,339 @@ def pair_hidden_reference(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -
 
 
 # ----------------------------------------------------------------------
+# K6: the streamed scorer's passes over one label tile
+
+
+def _stream_moments_plain(z, rows, r):
+    """K6's ``stream_moments`` in plain PyTorch: ``(sum rows * zc, sum rows *
+    zc^2)`` over the rows, ``zc = f32(z) - r`` (the JAX sweeps' per-tile
+    sums, before the division by the pair count)."""
+    zc = z.float() - r
+    zm = zc * rows
+    return zm.sum(0), (zm * zc).sum(0)
+
+
+def _stream_moments_grad_plain(z, rows, r, g1, g2):
+    """Its backward: ``dz = rows * (g1 + 2 * g2 * zc)`` in z's dtype."""
+    return (rows * (g1 + 2 * g2 * (z.float() - r))).to(z.dtype)
+
+
+def _affine_relu_plain(z, inv, shift):
+    """K6's ``affine_relu`` in plain PyTorch: ``relu(f32(z) * inv + shift)``
+    in z's dtype."""
+    return torch.relu(z.float() * inv + shift).to(z.dtype)
+
+
+def _affine_relu_grads_plain(z, dy, inv, shift):
+    """Its backward: ``(dz, dinv, dshift)``; the gate is the forward
+    expression."""
+    zf = z.float()
+    g = torch.where(zf * inv + shift > 0, dy.float(), 0.0)
+    return (g * inv).to(z.dtype), (g * zf).sum(0), g.sum(0)
+
+
+def _stream_head_plain(z, inv, shift, w, b):
+    """K6's ``stream_head`` in plain PyTorch: ``h @ w`` with ``h =
+    relu(f32(z) * inv + shift)`` in z's dtype, the products summed in
+    float32 (w in z's dtype), plus ``b``: (N,) float32."""
+    h = torch.relu(z.float() * inv + shift).to(z.dtype)
+    return h.float() @ w.float() + b
+
+
+def _stream_head_grads_plain(z, inv, shift, w, dout):
+    """Its backward at JAX's cast points (the transpose of a bf16 dot with a
+    float32 result): ``dh = (dout * w)`` rounded to z's dtype, ``dz = g *
+    inv`` with g the gated dh, ``dw = dout @ h`` rounded to w's dtype, ``db
+    = sum dout``: ``(dz, dinv, dshift, dw, db)``."""
+    zf = z.float()
+    x = zf * inv + shift
+    h = torch.relu(x).to(z.dtype)
+    dh = (dout[:, None] * w.float()).to(z.dtype)
+    g = torch.where(x > 0, dh.float(), 0.0)
+    return ((g * inv).to(z.dtype), (g * zf).sum(0), g.sum(0), (dout @ h.float()).to(w.dtype),
+            dout.sum())
+
+
+# the ctypes signatures of csrc/streamed_bn.cu's entry points (pointers,
+# then N, H and for the reductions their row chunks, then the stream)
+_K6_REDUCE = [_LL, _I, _I, _LL, _P]
+K6_SIGNATURES = {
+    "stream_moments": [_P] * 7 + _K6_REDUCE,
+    "stream_moments_backward": [_P] * 6 + [_LL, _I, _P],
+    "affine_relu": [_P] * 4 + [_LL, _I, _P],
+    "affine_relu_backward": [_P] * 9 + _K6_REDUCE,
+    "stream_head": [_P] * 6 + [_LL, _I, _P],
+    "stream_head_backward": [_P] * 11 + _K6_REDUCE,
+}
+
+
+def _launch_k6(symbol: str, z: torch.Tensor, *args) -> None:
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    fn = kernel_function("streamed_bn", symbol, K6_SIGNATURES[symbol])
+    with torch.cuda.device(z.device):
+        _raise_on(fn(*args, torch.cuda.current_stream(z.device).cuda_stream), symbol)
+        _count(symbol)
+
+
+def _stream_moments_cuda(z, rows, r):
+    """``stream_moments`` (``csrc/streamed_bn.cu``): the plain version's sums,
+    added per row chunk and then over the chunks in a fixed order."""
+    z, r = z.contiguous(), r.float().contiguous()
+    _check_bn_cuda(z, rows, None, (r,))
+    N, H = z.shape
+    chunks, per = _chunks(N)
+    f32 = dict(dtype=torch.float32, device=z.device)
+    part = torch.empty(2, chunks, H, **f32)
+    s1, s2 = torch.empty(H, **f32), torch.empty(H, **f32)
+    _launch_k6("stream_moments", z, z.data_ptr(),
+               rows.data_ptr(), r.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+               s1.data_ptr(), s2.data_ptr(), N, H, chunks, per)
+    return s1, s2
+
+
+def _stream_moments_grad_cuda(z, rows, r, g1, g2):
+    """``stream_moments_backward``: dz as :func:`_stream_moments_grad_plain`."""
+    g1, g2, r = (t.float().contiguous() for t in (g1, g2, r))
+    _check_bn_cuda(z, rows, None, (r, g1, g2))
+    N, H = z.shape
+    dz = torch.empty_like(z)
+    _launch_k6("stream_moments_backward", z, z.data_ptr(),
+               rows.data_ptr(), r.data_ptr(), g1.data_ptr(), g2.data_ptr(), dz.data_ptr(), N, H)
+    return dz
+
+
+def _affine_relu_cuda(z, inv, shift):
+    """``affine_relu``: y as :func:`_affine_relu_plain`."""
+    z, inv, shift = z.contiguous(), inv.contiguous(), shift.contiguous()
+    _check_bn_cuda(z, None, None, (inv, shift))
+    N, H = z.shape
+    y = torch.empty_like(z)
+    _launch_k6("affine_relu", z, z.data_ptr(), inv.data_ptr(),
+               shift.data_ptr(), y.data_ptr(), N, H)
+    return y
+
+
+def _affine_relu_grads_cuda(z, dy, inv, shift):
+    """``affine_relu_backward``: ``(dz, dinv, dshift)`` in one sweep over z
+    and dy, the sums in a fixed order."""
+    dy = dy.to(z.dtype).contiguous()
+    _check_bn_cuda(z, None, None, (inv, shift))
+    if dy.shape != z.shape or dy.device != z.device:
+        raise ValueError(f"dy {tuple(dy.shape)} does not match z {tuple(z.shape)}")
+    N, H = z.shape
+    chunks, per = _chunks(N)
+    f32 = dict(dtype=torch.float32, device=z.device)
+    part = torch.empty(2, chunks, H, **f32)
+    dinv, dshift = torch.empty(H, **f32), torch.empty(H, **f32)
+    dz = torch.empty_like(z)
+    _launch_k6("affine_relu_backward", z, z.data_ptr(),
+               dy.data_ptr(), inv.data_ptr(), shift.data_ptr(), dz.data_ptr(),
+               part[0].data_ptr(), part[1].data_ptr(), dinv.data_ptr(), dshift.data_ptr(), N, H,
+               chunks, per)
+    return dz, dinv, dshift
+
+
+def _check_head(z, w, b: Optional[torch.Tensor] = None) -> None:
+    if w.dtype != torch.bfloat16 or tuple(w.shape) != (z.shape[1],) or w.device != z.device:
+        raise ValueError(f"the head takes w ({z.shape[1]},) bfloat16 on z's device, not "
+                         f"{tuple(w.shape)} {w.dtype}")
+    if b is not None and (b.numel() != 1 or b.dtype != torch.float32 or b.device != z.device):
+        raise ValueError(f"the head takes one float32 b on z's device, not {b.dtype}")
+
+
+def _stream_head_cuda(z, inv, shift, w, b):
+    """``stream_head``: logits (N,) float32 as :func:`_stream_head_plain`, a
+    warp a row."""
+    z, w, b = z.contiguous(), w.contiguous(), b.reshape(1).contiguous()
+    _check_bn_cuda(z, None, None, (inv, shift))
+    _check_head(z, w, b)
+    N, H = z.shape
+    out = torch.empty(N, dtype=torch.float32, device=z.device)
+    _launch_k6("stream_head", z, z.data_ptr(), inv.data_ptr(),
+               shift.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H)
+    return out
+
+
+def _stream_head_grads_cuda(z, inv, shift, w, dout):
+    """``stream_head_backward``: ``(dz, dinv, dshift, dw, db)`` as
+    :func:`_stream_head_grads_plain`, one sweep over z; dw's float32 sum is
+    rounded to bfloat16 here."""
+    w, dout = w.contiguous(), dout.float().contiguous()
+    _check_bn_cuda(z, None, None, (inv, shift))
+    _check_head(z, w)
+    N, H = z.shape
+    if tuple(dout.shape) != (N,) or dout.device != z.device:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match z's {N} rows")
+    chunks, per = _chunks(N)
+    f32 = dict(dtype=torch.float32, device=z.device)
+    part = torch.empty(3, chunks, H, **f32)
+    dinv, dshift, dw = (torch.empty(H, **f32) for _ in range(3))
+    db = torch.empty((), **f32)
+    dz = torch.empty_like(z)
+    _launch_k6("stream_head_backward", z, z.data_ptr(),
+               inv.data_ptr(), shift.data_ptr(), w.data_ptr(), dout.data_ptr(), dz.data_ptr(),
+               part.data_ptr(), dinv.data_ptr(), dshift.data_ptr(), dw.data_ptr(), db.data_ptr(),
+               N, H, chunks, per)
+    return dz, dinv, dshift, dw.to(w.dtype), db
+
+
+class _StreamMoments(torch.autograd.Function):
+    """``(s1, s2)`` of one tile by ``fwd``, dz by ``bwd`` (the plain or the
+    kernel implementations); the rows and the shift carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, z, rows, r, fwd, bwd):
+        z = z.contiguous()
+        ctx.save_for_backward(z, rows, r)
+        ctx.bwd = bwd
+        return fwd(z, rows, r)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        return ctx.bwd(*ctx.saved_tensors, g1, g2), None, None, None, None
+
+
+class _AffineRelu(torch.autograd.Function):
+    """``relu(f32(z) * inv + shift)`` by ``fwd``; ``(dz, dinv, dshift)`` by
+    ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, z, inv, shift, fwd, bwd):
+        z = z.contiguous()
+        ctx.save_for_backward(z, inv, shift)
+        ctx.bwd = bwd
+        return fwd(z, inv, shift)
+
+    @staticmethod
+    def backward(ctx, dy):
+        z, inv, shift = ctx.saved_tensors
+        return (*ctx.bwd(z, dy, inv, shift), None, None)
+
+
+class _StreamHead(torch.autograd.Function):
+    """The head's logits by ``fwd``; ``(dz, dinv, dshift, dw, db)`` by
+    ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, z, inv, shift, w, b, fwd, bwd):
+        z = z.contiguous()
+        ctx.save_for_backward(z, inv, shift, w)
+        ctx.bwd = bwd
+        ctx.b_shape = b.shape
+        return fwd(z, inv, shift, w, b)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dz, dinv, dshift, dw, db = ctx.bwd(*ctx.saved_tensors, dout.contiguous())
+        return dz, dinv, dshift, dw, db.reshape(ctx.b_shape), None, None
+
+
+def _k6_device(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} for device {t.device}")
+    return t.device.type == "cuda"
+
+
+def stream_moments(z: torch.Tensor, rows: torch.Tensor, r: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One tile's masked shifted column sums ``(sum rows * (z - r), sum rows
+    * (z - r)^2)`` (float32, (H,)) of (N, H) pre-activations; ``rows`` (N,
+    1) float32, ``r`` the detached running mean.  CPU tensors take the plain
+    version, CUDA tensors the kernels."""
+    if _k6_device(z, "streamed moments"):
+        return _StreamMoments.apply(z, rows, r, _stream_moments_cuda, _stream_moments_grad_cuda)
+    return stream_moments_reference(z, rows, r)
+
+
+def stream_moments_reference(z, rows, r):
+    """:func:`stream_moments` through its plain version, on any device."""
+    return _StreamMoments.apply(z, rows, r, _stream_moments_plain, _stream_moments_grad_plain)
+
+
+def affine_relu(z: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``relu(f32(z) * inv + shift)`` in z's dtype, with a fixed (float32,
+    (H,)) affine.  CPU tensors take the plain version, CUDA tensors the
+    kernels."""
+    if _k6_device(z, "affine + ReLU"):
+        return _AffineRelu.apply(z, inv, shift, _affine_relu_cuda, _affine_relu_grads_cuda)
+    return affine_relu_reference(z, inv, shift)
+
+
+def affine_relu_reference(z, inv, shift):
+    """:func:`affine_relu` through its plain version, on any device."""
+    return _AffineRelu.apply(z, inv, shift, _affine_relu_plain, _affine_relu_grads_plain)
+
+
+def stream_head(z: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """``relu(f32(z) * inv + shift) @ w + b`` as (N,) float32 logits, the
+    activations rounded to z's dtype and the products summed in float32 (w
+    (H,) in z's dtype, b a float32 scalar).  CPU tensors take the plain
+    version, CUDA tensors the kernels."""
+    if _k6_device(z, "streamed head"):
+        return _StreamHead.apply(z, inv, shift, w, b, _stream_head_cuda, _stream_head_grads_cuda)
+    return stream_head_reference(z, inv, shift, w, b)
+
+
+def stream_head_reference(z, inv, shift, w, b):
+    """:func:`stream_head` through its plain version, on any device."""
+    return _StreamHead.apply(z, inv, shift, w, b, _stream_head_plain, _stream_head_grads_plain)
+
+
+# ----------------------------------------------------------------------
 # the decomposed training scorer
+
+
+def _side_products(first: Params, P_e: torch.Tensor, L_e: torch.Tensor,
+                   feature_fusion: str, compute_dtype: torch.dtype
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first layer decomposed: ``a = P_e @ W1_p`` (B, H) and ``c = L_e @
+    W1_l (+ b1)`` (L, H), float32 products of operands in the compute
+    dtype."""
+    d = P_e.shape[1]
+    W1 = first["kernel"].float()
+    w1_p, w1_l = W1[:d], W1[d : 2 * d]
+    if feature_fusion == "concatenation_diff":
+        w1_x = W1[2 * d : 3 * d]
+        w1_p = w1_p + w1_x
+        w1_l = w1_l - w1_x
+    a = _f32_product(P_e, w1_p, compute_dtype)
+    c = _f32_product(L_e, w1_l, compute_dtype)
+    if "bias" in first:
+        c = c + first["bias"].float()
+    return a, c
+
+
+def _first_layer_bn(a, c, em, lm, p_bn: Params, s_bn: Params, compute_dtype):
+    """The first layer's analytic BN statistics over the masked product set,
+    distributed to the sides: ``(a2, c2, n_pairs, new running
+    statistics)``."""
+    mean_a, var_a, n_b = _masked_moments(a, em[:, None])
+    mean_c, var_c, n_l = _masked_moments(c, lm[:, None])
+    mean1, var1, n_pairs = mean_a + mean_c, var_a + var_c, n_b * n_l
+    inv1, shift1 = _affine(p_bn["scale"], p_bn["bias"], mean1, var1)
+    # the affine distributed to the sides before the broadcast
+    a2 = (a * inv1).to(compute_dtype)
+    c2 = (c * inv1 + shift1).to(compute_dtype)
+    return a2, c2, n_pairs, _update_running(s_bn, mean1, var1, n_pairs)
+
+
+def _masks(B: int, L: int, example_mask, label_mask, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    em = (torch.ones(B, device=dev) if example_mask is None else example_mask).float()
+    lm = (torch.ones(L, device=dev) if label_mask is None else label_mask).float()
+    return em, lm
+
+
+def _first_hidden(a2, c2, layer: Params, compute_dtype, hidden_fn):
+    """The first hidden GEMM ``relu(a2[b] + c2[l]) @ W (+ bias)`` through
+    ``hidden_fn`` (K4 or its plain version)."""
+    z = hidden_fn(a2, c2, layer["kernel"].to(compute_dtype))
+    if "bias" in layer:
+        z = z + layer["bias"].to(compute_dtype)
+    return z
 
 
 def pair_logits_dense_decomposed(
@@ -686,42 +1035,21 @@ def _decomposed(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, comput
         raise ValueError(f"decomposed path does not support {feature_fusion}")
     if s is None:
         raise ValueError("decomposed path requires BatchNorm state")
-    B, d = P_e.shape
-    L = L_e.shape[0]
-    dev = P_e.device
-    em = (torch.ones(B, device=dev) if example_mask is None else example_mask).float()
-    lm = (torch.ones(L, device=dev) if label_mask is None else label_mask).float()
-
+    B, L = P_e.shape[0], L_e.shape[0]
+    em, lm = _masks(B, L, example_mask, label_mask, P_e.device)
     layers, bns = p["layers"], p["bns"]
-    W1 = layers[0]["kernel"].float()
-    w1_p, w1_l = W1[:d], W1[d : 2 * d]
-    if feature_fusion == "concatenation_diff":
-        w1_x = W1[2 * d : 3 * d]
-        w1_p = w1_p + w1_x
-        w1_l = w1_l - w1_x
-    a = _f32_product(P_e, w1_p, compute_dtype)
-    c = _f32_product(L_e, w1_l, compute_dtype)
-    if "bias" in layers[0]:
-        c = c + layers[0]["bias"].float()
+    a, c = _side_products(layers[0], P_e, L_e, feature_fusion, compute_dtype)
     rows = (em[:, None] * lm[None, :]).reshape(B * L, 1)
 
     def post(a, c):
-        # analytic layer-1 statistics from the per-side tensors (float32)
-        mean_a, var_a, n_b = _masked_moments(a, em[:, None])
-        mean_c, var_c, n_l = _masked_moments(c, lm[:, None])
-        mean1, var1, n_pairs = mean_a + mean_c, var_a + var_c, n_b * n_l
-        inv1, shift1 = _affine(bns[0]["scale"], bns[0]["bias"], mean1, var1)
-        new_bns = [_update_running(s["bns"][0], mean1, var1, n_pairs)]
-        # the affine distributed to the sides before the broadcast
-        a2 = (a * inv1).to(compute_dtype)
-        c2 = (c * inv1 + shift1).to(compute_dtype)
+        a2, c2, n_pairs, bn0 = _first_layer_bn(a, c, em, lm, bns[0], s["bns"][0],
+                                               compute_dtype)
+        new_bns = [bn0]
         if len(layers) == 1:
             h = _pair_x1(a2, c2)
         for i in range(1, len(layers)):
             if i == 1:
-                z = hidden_fn(a2, c2, layers[1]["kernel"].to(compute_dtype))
-                if "bias" in layers[1]:
-                    z = z + layers[1]["bias"].to(compute_dtype)
+                z = _first_hidden(a2, c2, layers[1], compute_dtype, hidden_fn)
             else:
                 z = linear(layers[i], h)
             h, mean_i, var_i = bn_relu_fn(z, rows, n_pairs, bns[i]["scale"], bns[i]["bias"],
@@ -741,6 +1069,214 @@ def _decomposed(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, comput
     return logits, {"bns": new_bns}
 
 
-def pair_logits_streaming_train(*args, **kwargs):
-    """K6 is not ported; see :data:`STREAMING_LATER`."""
-    raise NotImplementedError(STREAMING_LATER)
+# ----------------------------------------------------------------------
+# the streamed training scorer (K6)
+
+CPU_CACHE_BUDGET = 15.2e9  # the JAX rule's budget where the device reports no limit
+CACHE_HEADROOM = 0.55e9  # kept free of the card's memory by the cache rule
+
+
+def streaming_cache_first(batch: int, labels: int, label_tile: int, width: int,
+                          itemsize: int, n_layers: int, device: torch.device) -> bool:
+    """The JAX rule for ``cache_first=None``: keep z1 when it and its
+    gradient (``2 * z1``) plus four tiles of transients fit the budget: the
+    card's memory less 0.55 GB, or 15.2 GB where there is no card (the CPU).
+    ``labels`` is the count padded to whole tiles."""
+    if n_layers < 2:
+        return False
+    z1_bytes = batch * labels * width * itemsize
+    tile_bytes = batch * label_tile * width * itemsize
+    budget = CPU_CACHE_BUDGET
+    if device.type == "cuda":
+        budget = torch.cuda.get_device_properties(device).total_memory - CACHE_HEADROOM
+    return 2 * z1_bytes + 4 * tile_bytes <= budget
+
+
+def streamed_launches(n_layers: int, num_tiles: int, cache_first: bool) -> Dict[str, int]:
+    """The kernel launches of one forward and backward of the streamed
+    scorer, from its schedule: each tile's forward runs once in the forward
+    and once more when the backward recomputes it, and each kernel's
+    backward runs once for each forward call.  Per tile: sweep A (with the
+    cache) one K4 and one moment sum; the statistics sweep of hidden layer
+    li its pre-activation (K4 unless it starts from z1, li - 1 affines and
+    products) and one moment sum; the loss pass every layer again (from z1
+    when no sweep used it) and the head."""
+    cache = cache_first and n_layers > 1
+    k4 = moments = affine = 0
+    if cache:
+        k4, moments = 1, 1
+    first = 2 if cache else 1
+    for li in range(first, n_layers):
+        k4 += 0 if cache and li == first else 1
+        affine += li - 1
+        moments += 1
+    if n_layers > 1:
+        k4 += 0 if cache and n_layers == 2 else 1
+        affine += n_layers - 2
+    calls = {"pair_train_hidden": k4, "stream_moments": moments, "affine_relu": affine,
+             "stream_head": 1}
+    out = {k: 2 * v * num_tiles for k, v in calls.items()}
+    out.update({f"{k}_backward": v * num_tiles for k, v in calls.items()
+                if k != "pair_train_hidden"})
+    out.update(pair_train_dx=k4 * num_tiles, pair_train_dw=k4 * num_tiles, bn_relu_forward=0,
+               bn_relu_backward=0)
+    return out
+
+
+def pair_logits_streaming_train(
+    p: Params,
+    s: Params,
+    P_e: torch.Tensor,  # (B, d)
+    L_e: torch.Tensor,  # (L, d)
+    feature_fusion: str = "concatenation",
+    example_mask: Optional[torch.Tensor] = None,  # (B,)
+    label_mask: Optional[torch.Tensor] = None,  # (L,)
+    label_tile: int = 2048,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    cache_first: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Dict[str, list]]:
+    """The function of :func:`pair_logits_dense_decomposed` (train-mode BN
+    over every masked pair) with (B * ``label_tile``, H) tensors only:
+    ``((B, L) float32 logits, {"bns": new running statistics})``, through
+    K4, K4-bwd and K6 (their plain versions for CPU tensors).
+
+    The labels are padded to whole tiles (padded labels carry no weight in
+    the statistics and are sliced off the logits).  For each hidden layer
+    after the first, one sweep over the tiles recomputes the forward up to
+    its pre-activation and sums its shifted moments; the loss pass then
+    recomputes each tile through every layer with the streamed affines and
+    ends in the fused head.  Each tile runs under ``torch.utils.checkpoint``,
+    so the backward runs the sweeps in reverse and recomputes each tile.
+    ``cache_first`` keeps the first hidden GEMM's output z1 (B * L, H) for
+    its one later consumer, the next sweep (the layer-3 statistics, or the
+    loss pass at depth 2), at the cost of z1 and its gradient; ``None``
+    decides by :func:`streaming_cache_first`."""
+    return _streaming(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, label_tile,
+                      compute_dtype, cache_first,
+                      (pair_hidden, stream_moments, affine_relu, stream_head))
+
+
+def pair_logits_streaming_train_reference(
+    p: Params,
+    s: Params,
+    P_e: torch.Tensor,
+    L_e: torch.Tensor,
+    feature_fusion: str = "concatenation",
+    example_mask: Optional[torch.Tensor] = None,
+    label_mask: Optional[torch.Tensor] = None,
+    label_tile: int = 2048,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    cache_first: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Dict[str, list]]:
+    """:func:`pair_logits_streaming_train` through the plain versions of K4
+    and K6, on any device."""
+    return _streaming(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, label_tile,
+                      compute_dtype, cache_first,
+                      (pair_hidden_reference, stream_moments_reference, affine_relu_reference,
+                       stream_head_reference))
+
+
+def _streaming(p, s, P_e, L_e, feature_fusion, example_mask, label_mask, label_tile,
+               compute_dtype, cache_first, ops):
+    from torch.utils.checkpoint import checkpoint
+
+    if feature_fusion not in ("concatenation", "concatenation_diff"):
+        raise ValueError(f"streaming path does not support {feature_fusion}")
+    if s is None:
+        raise ValueError("streaming path requires BatchNorm state")
+    if label_tile <= 0:
+        raise ValueError(f"label_tile must be positive, not {label_tile}")
+    hidden_fn, moments_fn, affine_fn, head_fn = ops
+    B, L = P_e.shape[0], L_e.shape[0]
+    dev = P_e.device
+    em, lm = _masks(B, L, example_mask, label_mask, dev)
+    layers, bns = p["layers"], p["bns"]
+    n_layers = len(layers)
+    a, c = _side_products(layers[0], P_e, L_e, feature_fusion, compute_dtype)
+    a2, c2, n_pairs, bn0 = _first_layer_bn(a, c, em, lm, bns[0], s["bns"][0], compute_dtype)
+    new_bns = [bn0]
+    # every tile of every sweep reads a2 and c2: their per-tile gradients (in
+    # the compute dtype, from K4-bwd) are added in float32 and rounded once,
+    # where JAX's scan adds them in bf16 (the forward reads the same values)
+    a2, c2 = a2.float(), c2.float()
+
+    num_tiles = -(-L // label_tile)
+    Lp = num_tiles * label_tile
+    c_tiles = torch.nn.functional.pad(c2, (0, 0, 0, Lp - L)).split(label_tile)
+    lm_tiles = torch.nn.functional.pad(lm, (0, Lp - L)).split(label_tile)
+    if cache_first is None:
+        cache_first = streaming_cache_first(
+            B, Lp, label_tile, layers[1]["kernel"].shape[1] if n_layers > 1 else 0,
+            torch.empty((), dtype=compute_dtype).element_size(), n_layers, dev)
+    cache_first = bool(cache_first) and n_layers > 1
+    # affines[k]: the streamed (inv, shift) of hidden layer k + 1's BatchNorm
+    affines: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def rows_of(lm_t):
+        return (em[:, None] * lm_t[None, :]).reshape(B * label_tile, 1)
+
+    def pre(li, c_t, z1_t=None):
+        """Hidden layer li's pre-activation on one tile, from c2's tile or
+        restarted from the cached z1 tile."""
+        if li == 1:
+            if z1_t is not None:
+                return z1_t
+            return _first_hidden(a2.to(compute_dtype), c_t.to(compute_dtype), layers[1],
+                                 compute_dtype, hidden_fn)
+        return linear(layers[li], affine_fn(pre(li - 1, c_t, z1_t), *affines[li - 2]))
+
+    running = {li: s["bns"][li]["mean"].detach().float() for li in range(1, n_layers)}
+
+    def finish(li, s_sum, s_sq):
+        s1 = s_sum / n_pairs
+        mean = s1 + running[li]
+        var = torch.clamp(s_sq / n_pairs - s1 * s1, min=0.0)
+        affines.append(_affine(bns[li]["scale"], bns[li]["bias"], mean, var))
+        new_bns.append(_update_running(s["bns"][li], mean, var, n_pairs))
+
+    z1_tiles = None
+    if cache_first:
+        # sweep A: z1 of every tile kept, with its statistics
+        def sweep_a(c_t, lm_t):
+            z = pre(1, c_t)
+            return (*moments_fn(z, rows_of(lm_t), running[1]), z)
+
+        sums, z1_tiles = [0.0, 0.0], []
+        for c_t, lm_t in zip(c_tiles, lm_tiles):
+            ds, dq, z = checkpoint(sweep_a, c_t, lm_t, use_reentrant=False)
+            sums = [sums[0] + ds, sums[1] + dq]
+            z1_tiles.append(z)
+        finish(1, *sums)
+
+    z1_spent = False
+    for li in range(2 if cache_first else 1, n_layers):
+        use_z1 = z1_tiles is not None and not z1_spent
+
+        def stat_tile(x_t, lm_t, li=li, use_z1=use_z1):
+            z = pre(li, None, x_t) if use_z1 else pre(li, x_t)
+            return moments_fn(z, rows_of(lm_t), running[li])
+
+        sums = [0.0, 0.0]
+        for x_t, lm_t in zip(z1_tiles if use_z1 else c_tiles, lm_tiles):
+            ds, dq = checkpoint(stat_tile, x_t, lm_t, use_reentrant=False)
+            sums = [sums[0] + ds, sums[1] + dq]
+        z1_spent = z1_spent or use_z1
+        finish(li, *sums)
+
+    # the loss pass: every layer recomputed, the last affine fused into the head
+    loss_from_z1 = z1_tiles is not None and not z1_spent
+    w_out, b_out = p["out"]["kernel"][:, 0], p["out"]["bias"][0].float()
+
+    def logit_tile(x_t):
+        w = w_out.float().to(compute_dtype)
+        if n_layers == 1:
+            x1 = a2.to(compute_dtype)[:, None, :] + x_t.to(compute_dtype)[None, :, :]
+            z = x1.reshape(B * label_tile, -1)
+            inv = torch.ones(z.shape[1], device=dev)
+            return head_fn(z, inv, torch.zeros_like(inv), w, b_out).reshape(B, label_tile)
+        z = pre(n_layers - 1, None, x_t) if loss_from_z1 else pre(n_layers - 1, x_t)
+        return head_fn(z, *affines[-1], w, b_out).reshape(B, label_tile)
+
+    tiles = [checkpoint(logit_tile, x_t, use_reentrant=False)
+             for x_t in (z1_tiles if loss_from_z1 else c_tiles)]
+    return torch.cat(tiles, dim=1)[:, :L], {"bns": new_bns}

@@ -348,9 +348,6 @@ def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
 
 
 @pytest.mark.parametrize("extra, overrides, match", [
-    # training on the fixture's test FASTA: K6 raises at the first step
-    (["--train-path-name", "TEST_DATA_PATH", "--validation-path-name", "VAL_DATA_PATH"],
-     ["TRAIN_STREAMING_LABEL_TILE", "8", "TRAIN_BATCH_SIZE", "4"], "K6"),
     (["--profile-dir", "prof"], [], "training"),
     (["--use-wandb"], [], "training"),
     ([], ["PAIR_BACKEND", "dense"], "dense"),

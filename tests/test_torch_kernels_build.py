@@ -63,6 +63,29 @@ def test_included_headers_are_shared_headers():
     assert {"pair_scorer", "pair_scorer_int8", "pair_train",
             "text_attention"} <= users["hopper.cuh"]
     assert users["sigmoid.cuh"] == {"eval_accumulator", "threshold_sweep"}
+    assert users["bn_columns.cuh"] == {"bn_relu", "streamed_bn"}
+
+
+def test_streamed_bn_signatures_match_the_c_entry_points():
+    """The ctypes signatures of K6's wrappers (``K6_SIGNATURES``) against the
+    ``extern "C"`` prototypes of ``csrc/streamed_bn.cu``, parameter by
+    parameter: a pointer is ``c_void_p``, ``long long`` ``c_longlong``, an
+    int ``c_int`` (ctypes would pass a pointer given as an int cut to 32
+    bits).  The kernels run only on a card, so this is checked here."""
+    import ctypes
+
+    from protnote_tpu_torch.ops.streaming_train import K6_SIGNATURES
+
+    src = (kernels.CSRC_DIR / "streamed_bn.cu").read_text()
+    protos = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    assert set(protos) == set(K6_SIGNATURES)
+    kinds = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong, "int": ctypes.c_int}
+    for name, params in protos.items():
+        types = []
+        for param in params.split(","):
+            decl = " ".join(param.replace("const ", "").split()[:-1])
+            types.append(kinds[decl.replace(" *", "*")])
+        assert types == K6_SIGNATURES[name], name
 
 
 def test_kernel_function_sets_its_signature_once(monkeypatch):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the pair scorer (K1), its int8 form
 (K2), the eval accumulator (K3), the threshold-sweep counter (K9), the
-training pair GEMM (K4) and its backward (K4-bwd), BN+ReLU (K5),
+training pair GEMM (K4) and its backward (K4-bwd), BN+ReLU (K5), the
+streamed scorer's tile passes (K6: moments, affine + ReLU, the head),
 the text tower's masked attention (K8a) and residual LayerNorm (K8b) and
 their backward (K8a-bwd, K8b-bwd), and the encoder's masked dilated conv
 chain (K7: the conv, its dX and dW, the train-mode masked BN + ReLU, the
@@ -28,6 +29,12 @@ steps (rtol 2^-6, atol 1e-2: the GEMM sums in another order, and the BN
 affine's float32 inverse square root may differ by an ulp), float32 moments
 to 1e-5 relative, the float32 column sums of the backward to 1e-3 relative
 (other summation orders over ~1,500 rows of bf16 products).
+K6 on the same bf16 inputs: bf16 outputs (y, dz) to two bf16 steps (rtol
+2^-6, atol 1e-2), the float32 column sums (moments, dinv, dshift, dw) and
+the logits and db to 1e-3 of their largest |value| (other summation orders
+over ~1,500 rows); the streamed scorer through K4 + K6 against its plain
+version at the decomposed scorer's tolerances (logits 3e-2, running
+statistics 1e-3, gradients 5e-2 of their largest |value|).
 K4-bwd on the same bf16 inputs on both sides: da2, dc2 and dW each within
 1e-2 of the plain output's largest |value| (both round dx1 to bf16 before
 its sums, but the products and the sums run in other orders, so an element
@@ -528,6 +535,111 @@ def test_decomposed_scorer_kernels_match_plain_on_card():
         res[ref] = (logits, new, [Pg.grad, Lg.grad] + [t.grad for t in leaves])
     torch.cuda.synchronize()
     (lg, new, grads), (lg0, new0, grads0) = res[False], res[True]
+    torch.testing.assert_close(lg, lg0, rtol=0, atol=3e-2)
+    for a, b in zip(new["bns"], new0["bns"]):
+        torch.testing.assert_close(a["mean"], b["mean"], rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(a["var"], b["var"], rtol=1e-3, atol=1e-4)
+    for a, b in zip(grads, grads0):
+        scale_ = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=5e-2 * scale_)
+
+
+def _close_sums(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    scale_ = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * max(scale_, 1e-6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1505, 8])
+def test_streamed_bn_kernels_match_plain_on_card(N):
+    """K6's three functions, forward and backward through autograd, on the
+    same inputs as their plain versions: masked rows, a shift far from the
+    mean, a quarter of the gates shut; the sums the same bits twice."""
+    _card()
+    rng = np.random.default_rng(10)
+    H = 512
+    z = _bf16(rng, N, H) + 1.0
+    rows = torch.from_numpy((rng.random((N, 1)) < 0.9).astype(np.float32)).cuda()
+    vec = lambda lo, hi: torch.from_numpy(rng.uniform(lo, hi, H).astype(np.float32)).cuda()  # noqa
+    r, inv, shift = vec(2.0, 3.0), vec(0.5, 1.5), vec(-1.2, 0.2)
+    w = _bf16(rng, 1, H)[0]
+    b = torch.tensor(0.3, device="cuda")
+    cts = [torch.from_numpy(rng.normal(size=(H,)).astype(np.float32)).cuda() for _ in range(2)]
+    dy, dout = _bf16(rng, N, H), torch.from_numpy(rng.normal(size=N).astype(np.float32)).cuda()
+    outs = {}
+    for ref in (False, True):
+        sfx = "_reference" if ref else ""
+        leaves = [t.clone().requires_grad_(True) for t in (z, inv, shift, w, b)]
+        s1, s2 = getattr(st, "stream_moments" + sfx)(leaves[0], rows, r)
+        y = getattr(st, "affine_relu" + sfx)(leaves[0], leaves[1], leaves[2])
+        logits = getattr(st, "stream_head" + sfx)(*leaves)
+        torch.autograd.backward((s1, s2, y, logits), (cts[0], cts[1], dy, dout))
+        outs[ref] = [s1, s2, y, logits] + [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    again = st._stream_moments_cuda(z, rows, r)
+    assert torch.equal(again[0], outs[False][0]) and torch.equal(again[1], outs[False][1])
+    for k, (a, b_) in enumerate(zip(outs[False], outs[True])):
+        if a.dtype == torch.bfloat16:  # y, dz, dw
+            torch.testing.assert_close(a.float(), b_.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        else:
+            _close_sums(a, b_)
+    assert float((outs[False][2] > 0).float().mean()) > 0.2
+
+
+@pytest.mark.cuda
+def test_streamed_bn_kernels_raise_on_what_they_do_not_take():
+    _card()
+    z = torch.zeros(4, 200, dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros(200, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 256"):
+        st._affine_relu_cuda(z, v, v)
+    z = torch.zeros(4, 256, device="cuda")
+    v = torch.zeros(256, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        st._affine_relu_cuda(z, v, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", [False, True])
+def test_streamed_scorer_kernels_match_plain_on_card(cache):
+    """``pair_logits_streaming_train`` through K4 + K6 against its plain
+    version (tiles of 64 over 203 labels, a masked sequence and masked
+    labels): logits, new BN state and gradients; the kernels launched."""
+    _card()
+    rng = np.random.default_rng(11)
+    d, H, B, L = 32, 256, 6, 203
+    cfg = ProtNoteConfig(protein_embedding_dim=24, label_embedding_dim=16, latent_dim=d,
+                         projection_head_num_layers=2, output_mlp_num_layers=3,
+                         output_mlp_hidden_dim_scale_factor=H // d)
+    p, s = init_protnote(torch.Generator().manual_seed(3), cfg)
+    from protnote_tpu_torch.models.layers import tree_to
+    from protnote_tpu_torch.train.optim import tree_leaves, tree_map
+
+    p, s = tree_to(p["output_mlp"], "cuda"), tree_to(s["output_mlp"], "cuda")
+    P_e, L_e = _bf16(rng, B, d), _bf16(rng, L, d)
+    em = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.float32, device="cuda")
+    lm = (torch.arange(L, device="cuda") < 190).float()
+    res = {}
+    for ref in (False, True):
+        for k in st.LAUNCHES:
+            st.LAUNCHES[k] = 0
+        pp = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        Pg, Lg = P_e.clone().requires_grad_(True), L_e.clone().requires_grad_(True)
+        fn = st.pair_logits_streaming_train_reference if ref else st.pair_logits_streaming_train
+        logits, new = fn(pp, s, Pg, Lg, example_mask=em, label_mask=lm, label_tile=64,
+                         cache_first=cache)
+        (torch.sigmoid(logits) * em[:, None] * lm[None, :]).square().sum().backward()
+        res[ref] = (logits, new, [Pg.grad, Lg.grad] + [t.grad for t in tree_leaves(pp)],
+                    dict(st.LAUNCHES))
+    torch.cuda.synchronize()
+    (lg, new, grads, launches), (lg0, new0, grads0, launches0) = res[False], res[True]
+    assert not any(launches0.values())
+    assert all(launches[k] > 0 for k in ("pair_train_hidden", "pair_train_dx", "stream_moments",
+                                         "stream_moments_backward", "affine_relu",
+                                         "affine_relu_backward", "stream_head",
+                                         "stream_head_backward"))
+    assert launches["bn_relu_forward"] == launches["bn_relu_backward"] == 0
     torch.testing.assert_close(lg, lg0, rtol=0, atol=3e-2)
     for a, b in zip(new["bns"], new0["bns"]):
         torch.testing.assert_close(a["mean"], b["mean"], rtol=1e-3, atol=1e-4)

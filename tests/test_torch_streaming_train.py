@@ -1,9 +1,11 @@
-"""The port's training scorer (protnote_tpu_torch/ops/streaming_train.py) and
+"""The port's training scorers (protnote_tpu_torch/ops/streaming_train.py) and
 train-mode BatchNorm (models/layers.py) against the JAX package on the CPU.
 
 The same numpy inputs and JAX-initialised weights (random BatchNorm
 parameters and running statistics, He-scaled linears) go through the JAX
-function and the port's plain versions of K4 and K5.
+function and the port's plain versions of K4, K5 and K6: the decomposed
+scorer and the streamed one (``pair_logits_streaming_train``, 21 labels in
+tiles of 8, so the last tile is ragged, with masked sequences and labels).
 
 Tolerances:
 * float32: 1e-5 absolute on logits, new running statistics and gradients
@@ -11,9 +13,19 @@ Tolerances:
   two sides sum in other orders, and the port's K5 backward is the JAX
   custom VJP's formula where JAX's unfused setting differentiates the
   composition (the same function).
-* bfloat16: logits to 3e-2 absolute (both sides round a2, c2, x1 and every
-  pre-activation to bf16 at the same points, but a sum in another order can
-  land one bf16 step (2^-8 relative) away and move what follows).
+* bfloat16, decomposed: logits to 3e-2 absolute (both sides round a2, c2,
+  x1 and every pre-activation to bf16 at the same points, but a sum in
+  another order can land one bf16 step (2^-8 relative) away and move what
+  follows).
+* bfloat16, streamed: against the JAX function under ``jax.disable_jit``.
+  Compiled, XLA on the CPU fuses the scan body and drops the bf16 roundings
+  between fused operations (its gradients then lie 5-40% of their largest
+  |value| from eager JAX's on these tiny widths); eager, JAX rounds where
+  the port does, except that the port adds the per-tile gradients of a2
+  and c2 in float32 and JAX's scan adds them in bf16.  Logits to 1e-3
+  absolute, new running statistics to 1e-5, every gradient within 2^-6 of
+  its largest |value| (a sum in another order lands one bf16 step away and
+  moves what follows).
 """
 
 import numpy as np
@@ -289,12 +301,327 @@ def test_dropout_keeps_scale_and_rate():
     assert tlayers.dropout(x, 0.25, gen, train=False) is x
 
 
-def test_unported_settings_raise():
-    p, s = _weights()
+# ----------------------------------------------------------------------
+# the streamed scorer (K6's plain versions around K4's)
+
+TILE = 8  # 21 labels: tiles of 8, 8 and 5 real labels + 3 padded
+
+
+def _depth(p, s, depth):
+    """The output MLP cut to ``depth`` hidden layers."""
+    return (dict(p, layers=p["layers"][:depth], bns=p["bns"][:depth]),
+            dict(s, bns=s["bns"][:depth]))
+
+
+def _jax_stream(p, s, P_e, L_e, em, lm, fusion, cache, dtype=jnp.float32):
+    w = jnp.asarray(_loss_weights()) * jnp.asarray(em)[:, None] * jnp.asarray(lm)[None, :]
+
+    def f(p_, P_, L_):
+        lg, new = jst.pair_logits_streaming_train(
+            p_, jax.tree_util.tree_map(jnp.asarray, s), P_, L_, fusion,
+            example_mask=jnp.asarray(em), label_mask=jnp.asarray(lm), label_tile=TILE,
+            compute_dtype=dtype, cache_first=cache)
+        return jnp.sum(jax.nn.sigmoid(lg) * w), (lg, new)
+
+    (_, (lg, new)), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(P_e), jnp.asarray(L_e))
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), (lg, new, grads))
+
+
+def _port_stream(p, s, P_e, L_e, em, lm, fusion, cache, dtype=torch.float32):
     t = from_jax_tree({"p": p, "s": s})
-    P_e, L_e, _, _ = (torch.from_numpy(a) for a in _inputs())
-    with pytest.raises(NotImplementedError, match="K6"):
-        tst.pair_logits_streaming_train(t["p"], t["s"], P_e, L_e)
+    tp = jax.tree_util.tree_map(lambda x: x.clone().requires_grad_(True), t["p"])
+    Pg = torch.from_numpy(P_e).requires_grad_(True)
+    Lg = torch.from_numpy(L_e).requires_grad_(True)
+    lg, new = tst.pair_logits_streaming_train(
+        tp, t["s"], Pg, Lg, fusion, example_mask=torch.from_numpy(em),
+        label_mask=torch.from_numpy(lm), label_tile=TILE, compute_dtype=dtype,
+        cache_first=cache)
+    w = torch.from_numpy(_loss_weights()) * torch.from_numpy(em)[:, None] * \
+        torch.from_numpy(lm)[None, :]
+    (torch.sigmoid(lg) * w).sum().backward()
+    grads = (jax.tree_util.tree_map(lambda x: x.grad.float().numpy(), tp),
+             Pg.grad.float().numpy(), Lg.grad.float().numpy())
+    return lg.detach().float().numpy(), jax.tree_util.tree_map(
+        lambda x: x.float().numpy(), new), grads
+
+
+def _assert_runs_close(got, want, depth, atol):
+    """Logits, every new running statistic and every gradient leaf (P_e,
+    L_e, and the output MLP's: two BN parameters a hidden layer, its kernel,
+    the output kernel and bias)."""
+    assert got[0].shape == (B, L) and float(np.std(want[0])) > 0.5
+    new = list(zip(jax.tree_util.tree_leaves(got[1]), jax.tree_util.tree_leaves(want[1])))
+    grads = list(zip(jax.tree_util.tree_leaves(got[2]), jax.tree_util.tree_leaves(want[2])))
+    assert len(new) == 2 * depth and len(grads) == 3 * depth + 4
+    for a, b in [(got[0], want[0])] + new + grads:
+        np.testing.assert_allclose(a, b, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("fusion,depth,cache", [
+    ("concatenation", depth, cache) for depth in (1, 2, 3) for cache in (False, True, None)
+] + [("concatenation_diff", 3, False), ("concatenation_diff", 3, True)])
+def test_streaming_matches_jax(fusion, depth, cache):
+    """``pair_logits_streaming_train`` against the JAX function in float32:
+    logits, new running statistics and the gradients of P_e, L_e and every
+    output-MLP leaf, with the z1 cache off, on and decided by the rule (on
+    for these sizes; at depth 1 there is no hidden GEMM to cache), both
+    fusions, a masked sequence and masked labels, and a ragged last tile."""
+    p, s = _depth(*_weights(fusion), depth)
+    P_e, L_e, em, lm = _inputs()
+    _assert_runs_close(_port_stream(p, s, P_e, L_e, em, lm, fusion, cache),
+                       _jax_stream(p, s, P_e, L_e, em, lm, fusion, cache), depth, TOL)
+
+
+@pytest.mark.parametrize("cache", [False, True])
+def test_streaming_bf16_matches_eager_jax(cache):
+    """bfloat16 against the JAX function run eagerly (see the module
+    docstring): logits 1e-3, running statistics 1e-5, gradients 2^-6 of
+    each leaf's largest |value|."""
+    p, s = _weights()
+    P_e, L_e, em, lm = _inputs()
+    got = _port_stream(p, s, P_e, L_e, em, lm, "concatenation", cache, torch.bfloat16)
+    with jax.disable_jit():
+        want = _jax_stream(p, s, P_e, L_e, em, lm, "concatenation", cache, jnp.bfloat16)
+    valid = (em[:, None] * lm[None, :]) > 0
+    np.testing.assert_allclose(got[0][valid], want[0][valid], atol=1e-3, rtol=0)
+    for a, b in zip(jax.tree_util.tree_leaves(got[1]), jax.tree_util.tree_leaves(want[1])):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    leaves = list(zip(jax.tree_util.tree_leaves(got[2]), jax.tree_util.tree_leaves(want[2])))
+    assert len(leaves) == 13
+    for a, b in leaves:
+        assert np.abs(a - b).max() <= 2.0 ** -6 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_streaming_matches_decomposed(depth):
+    """The port's streamed scorer against its decomposed one (the same
+    function, the statistics summed tile by tile), float32, cache on: the
+    same leaves at 1e-5."""
+    p, s = _depth(*_weights(), depth)
+    P_e, L_e, em, lm = _inputs()
+    got = _port_stream(p, s, P_e, L_e, em, lm, "concatenation", True)
+    want = _port_run(p, s, P_e, L_e, em, lm, "concatenation")
+    _assert_runs_close(got, want, depth, TOL)
+
+
+def _k6_case(name, dtype=torch.float32, seed=21):
+    """Inputs of one K6 function: (plain function, its inputs, the indices
+    of the differentiable ones).  Pre-activations ~N(1, 1) so that about a
+    quarter of the gates are shut; padded rows have rows = 0."""
+    rng = np.random.default_rng(seed)
+    N, H = 40, 16
+    z = torch.from_numpy((rng.normal(size=(N, H)) + 1.0).astype(np.float32)).to(dtype)
+    vec = lambda lo, hi: torch.from_numpy(rng.uniform(lo, hi, H).astype(np.float32))  # noqa: E731
+    if name == "stream_moments":
+        rows = torch.from_numpy((rng.random((N, 1)) < 0.8).astype(np.float32))
+        return tst.stream_moments_reference, (z, rows, vec(0.5, 1.5)), (0,)
+    if name == "affine_relu":
+        return tst.affine_relu_reference, (z, vec(0.5, 1.5), vec(-1.2, 0.2)), (0, 1, 2)
+    w = torch.from_numpy(rng.normal(size=H).astype(np.float32)).to(dtype)
+    return (tst.stream_head_reference, (z, vec(0.5, 1.5), vec(-1.2, 0.2), w,
+                                        torch.tensor(0.3)), (0, 1, 2, 3, 4))
+
+
+def _plain_autograd(name, args):
+    """The K6 function written out in plain differentiable torch."""
+    if name == "stream_moments":
+        z, rows, r = args
+        zc = z.float() - r
+        return (zc * rows).sum(0), (zc * rows * zc).sum(0)
+    if name == "affine_relu":
+        z, inv, shift = args
+        return (torch.relu(z.float() * inv + shift).to(z.dtype),)
+    z, inv, shift, w, b = args
+    return (torch.relu(z.float() * inv + shift) @ w.float() + b,)
+
+
+@pytest.mark.parametrize("name", ["stream_moments", "affine_relu", "stream_head"])
+def test_k6_plain_backward_matches_autograd(name):
+    """Each K6 function's hand-written (plain) backward against
+    ``torch.autograd`` of its forward written out, float32, one cotangent on
+    every output."""
+    fn, args, diff = _k6_case(name)
+    outs = {}
+    for which, run in (("hand", fn), ("auto", lambda *a: _plain_autograd(name, a))):
+        leaves = [a.clone().requires_grad_(i in diff) for i, a in enumerate(args)]
+        out = run(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        cts = [torch.from_numpy(np.random.default_rng(22 + k).normal(size=o.shape).astype(
+            np.float32)) for k, o in enumerate(out)]
+        torch.autograd.backward(out, cts)
+        outs[which] = [o.detach() for o in out] + [leaves[i].grad for i in diff]
+    for a, b in zip(outs["hand"], outs["auto"]):
+        torch.testing.assert_close(a, b, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["stream_moments", "affine_relu", "stream_head"])
+def test_k6_plain_bf16_matches_jax_vjp(name):
+    """Each K6 plain version in bfloat16 against ``jax.vjp`` of the JAX
+    expressions it replaces, at their cast points (``_shifted_moments``'
+    sums; ``relu(f32(z) * inv + shift).astype(bf16)``; the head's
+    ``jnp.dot(h, w_bf16, preferred_element_type=f32) + b_out``, whose
+    transpose rounds dh and dw to bf16): outputs and gradients within 1e-5
+    absolute or one bf16 step (2^-8) of the value."""
+    fn, args, diff = _k6_case(name, torch.bfloat16)
+    j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16 if t.dtype == torch.bfloat16
+                              else jnp.float32)  # noqa: E731
+    jargs = [j(a) for a in args]
+
+    def jax_fn(*d):
+        a = list(jargs)
+        for i, x in zip(diff, d):
+            a[i] = x
+        if name == "stream_moments":
+            zc = a[0].astype(jnp.float32) - a[2]
+            zm = zc * a[1]
+            return jnp.sum(zm, axis=0), jnp.sum(zm * zc, axis=0)
+        h = jax.nn.relu(a[0].astype(jnp.float32) * a[1] + a[2]).astype(a[0].dtype)
+        if name == "affine_relu":
+            return (h,)
+        return (jnp.dot(h, a[3], preferred_element_type=jnp.float32) + a[4],)
+
+    with jax.disable_jit():
+        want, vjp = jax.vjp(jax_fn, *[jargs[i] for i in diff])
+    leaves = [a.clone().requires_grad_(i in diff) for i, a in enumerate(args)]
+    got = fn(*leaves)
+    got = got if isinstance(got, tuple) else (got,)
+    cts = [np.random.default_rng(23 + k).normal(size=o.shape).astype(np.float32)
+           for k, o in enumerate(got)]
+    torch.autograd.backward(got, [torch.from_numpy(c).to(o.dtype) for c, o in zip(cts, got)])
+    want_grads = vjp(tuple(jnp.asarray(c, w.dtype) for c, w in zip(cts, want)))
+    pairs = list(zip(got, want)) + [(leaves[i].grad, g) for i, g in zip(diff, want_grads)]
+    for a, b in pairs:
+        a = a.detach().float().numpy()
+        b = np.asarray(b, np.float32)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("depth,cache", [(d, c) for d in (1, 2, 3) for c in (False, True)])
+def test_streamed_launches_follow_the_schedule(monkeypatch, depth, cache):
+    """One forward and backward of the streamed scorer calls each kernel's
+    plain version as often as ``streamed_launches`` says the kernels launch
+    (the count that the card's run holds its launches to): the forward of
+    every tile twice (the backward's recomputation), each backward once a
+    forward call, K5 never.  At the default depth and tile (3 hidden layers,
+    16 tiles) that is 16 H x H GEMM passes with the cache and 20 without."""
+    counts = {k: 0 for k in tst.LAUNCHES}
+    names = {"_pair_hidden_fwd_plain": ["pair_train_hidden"],
+             "_pair_hidden_backward_plain": ["pair_train_dx", "pair_train_dw"],
+             "_stream_moments_plain": ["stream_moments"],
+             "_stream_moments_grad_plain": ["stream_moments_backward"],
+             "_affine_relu_plain": ["affine_relu"],
+             "_affine_relu_grads_plain": ["affine_relu_backward"],
+             "_stream_head_plain": ["stream_head"],
+             "_stream_head_grads_plain": ["stream_head_backward"],
+             "_bn_relu_fwd_plain": ["bn_relu_forward"], "_bn_relu_grads": ["bn_relu_backward"]}
+
+    def counted(fn, keys):
+        def run(*args):
+            for k in keys:
+                counts[k] += 1
+            return fn(*args)
+        return run
+
+    for attr, keys in names.items():
+        monkeypatch.setattr(tst, attr, counted(getattr(tst, attr), keys))
+    p, s = _depth(*_weights(), depth)
+    P_e, L_e, em, lm = _inputs()
+    _port_stream(p, s, P_e, L_e, em, lm, "concatenation", cache)
+    assert counts == tst.streamed_launches(depth, -(-L // TILE), cache)
+    full = {c: tst.streamed_launches(3, 16, c) for c in (False, True)}
+    passes = {c: (n["pair_train_hidden"] + n["affine_relu"] + 2 * (
+        n["pair_train_dx"] + n["affine_relu_backward"])) // 16 for c, n in full.items()}
+    assert passes == {True: 16, False: 20}
+
+
+def test_streaming_cache_rule():
+    """``cache_first=None`` keeps z1 when ``2 * z1 + 4 tiles`` fit the budget:
+    15.2 GB without a card (the JAX package's boundary on a 16 GB chip: 32
+    sequences x 32,768 padded labels at H 3072 in bf16 fit with tiles of
+    2,048 and not of 4,096), and never at depth 1."""
+    cpu = torch.device("cpu")
+    rule = tst.streaming_cache_first
+    assert rule(32, 32768, 2048, 3072, 2, 3, cpu)
+    assert not rule(32, 32768, 4096, 3072, 2, 3, cpu)
+    assert not rule(128, 32768, 2048, 3072, 2, 3, cpu)
+    assert not rule(32, 32768, 2048, 3072, 2, 1, cpu)
+    z1 = 32 * 32768 * 3072 * 2
+    assert 2 * z1 + 4 * 32 * 2048 * 3072 * 2 <= tst.CPU_CACHE_BUDGET < 2 * z1 + 4 * z1 // 8
+
+
+def test_k6_cuda_wrappers_refuse_cpu_tensors():
+    z, v = torch.zeros(4, 256, dtype=torch.bfloat16), torch.zeros(256)
+    rows = torch.ones(4, 1)
+    for call in (lambda: tst._stream_moments_cuda(z, rows, v),
+                 lambda: tst._affine_relu_cuda(z, v, v),
+                 lambda: tst._stream_head_cuda(z, v, v, z[0], torch.zeros(())),
+                 lambda: tst._stream_head_grads_cuda(z, v, v, z[0], torch.zeros(4))):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+
+
+def _forward_configs(**change):
+    """A small JAX ``ProtNoteConfig`` and the port's with the same fields."""
+    from protnote_tpu_torch.models.fusion import ProtNoteConfig
+
+    fields = dict(protein_embedding_dim=20, label_embedding_dim=20, latent_dim=D,
+                  projection_head_num_layers=2, output_mlp_num_layers=3,
+                  output_mlp_hidden_dim_scale_factor=H_SCALE, train_label_tile=TILE, **change)
+    return JaxConfig(**fields), ProtNoteConfig(**fields)
+
+
+@pytest.mark.parametrize("backend", ["auto", "tiled", "tiled_int8"])
+def test_protnote_forward_streams_like_jax(backend):
+    """``protnote_forward(train=True)`` with ``train_label_tile``: every
+    backend but dense trains through the streamed scorer, as the JAX
+    dispatch does (``tiled`` raises without a tile); logits and new state
+    against the JAX ``protnote_forward`` in float32."""
+    from protnote_tpu.models.fusion import protnote_forward as jax_forward
+    from protnote_tpu_torch.models.fusion import protnote_forward
+
+    jcfg, tcfg = _forward_configs(pair_backend=backend)
+    params, state = jax_init(jax.random.PRNGKey(3), jcfg)
+    rng = np.random.default_rng(24)
+    seqs = rng.normal(size=(B, 20)).astype(np.float32)
+    labels = rng.normal(size=(L, 20)).astype(np.float32)
+    _, _, em, lm = _inputs()
+    want = jax_forward(params, state, jnp.asarray(seqs), jnp.asarray(labels), jcfg, train=True,
+                       example_mask=jnp.asarray(em), label_mask=jnp.asarray(lm))
+    t = from_jax_tree({"p": jax.tree_util.tree_map(np.asarray, params),
+                       "s": jax.tree_util.tree_map(np.asarray, state)})
+    got = protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), torch.from_numpy(labels), tcfg,
+                           train=True, example_mask=torch.from_numpy(em),
+                           label_mask=torch.from_numpy(lm))
+    a, b = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(a) == len(b) == 1 + 2 * (1 + 1 + 3)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("change,error,match", [
+    ({"dropout": 0.1}, NotImplementedError, "OUTPUT_MLP_DROPOUT"),
+    ({"train_fused_bn_vjp": True}, ValueError, "TRAIN_FUSED_BN_VJP"),
+])
+def test_streaming_dispatch_refusals(change, error, match):
+    """With a tile: dropout falls through to the materialised scorer in
+    JAX, which the port does not have; ``TRAIN_FUSED_BN_VJP`` raises JAX's
+    ``ValueError`` on both sides."""
+    from protnote_tpu.models.fusion import protnote_forward as jax_forward
+    from protnote_tpu_torch.models.fusion import protnote_forward
+
+    jcfg, tcfg = _forward_configs(**change)
+    params, state = jax_init(jax.random.PRNGKey(3), jcfg)
+    seqs, labels = np.ones((B, 20), np.float32), np.ones((L, 20), np.float32)
+    if error is ValueError:
+        with pytest.raises(ValueError, match=match):
+            jax_forward(params, state, jnp.asarray(seqs), jnp.asarray(labels), jcfg, train=True)
+    t = from_jax_tree({"p": jax.tree_util.tree_map(np.asarray, params),
+                       "s": jax.tree_util.tree_map(np.asarray, state)})
+    with pytest.raises(error, match=match):
+        protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), torch.from_numpy(labels), tcfg,
+                         train=True, generator=torch.Generator().manual_seed(0))
 
 
 # ----------------------------------------------------------------------
@@ -503,6 +830,25 @@ def test_pair_bwd_plans_at_the_training_shape():
     assert (small.block_n, small.splits, small.items) == (256, 17, 136)
     sizes = {b - a for a, b in (small.split_range(s) for s in range(small.splits))}
     assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("B", [32, 128])
+def test_pair_plans_at_the_streamed_tile(B):
+    """The streamed scorer runs K4 and K4-bwd on one label tile at a time,
+    each padded to the default 2,048 labels (the last of 32,102 holds 1,382
+    real ones and 666 padded), so every launch takes L 2,048 whole: K4 16
+    label tiles x B sequences x 12 column tiles, dX 16 x 24 units, dW one
+    split of 288 output tiles over B x 32 K-blocks, each plan filling the
+    132 SMs."""
+    H, tile = 3072, 2048
+    assert 32102 - 15 * tile == 1382 and -(-32102 // tile) == 16
+    k4 = tst.pair_train_plan(B, tile, H, H, num_sms=132)
+    assert (k4.tiles_l, k4.tiles_n, k4.block_n, k4.grid) == (16, 12, 256, 132)
+    assert k4.tiles == 16 * B * 12 and not tile % 128
+    dx = tst.pair_dx_plan(B, tile, H, H, num_sms=132)
+    assert (dx.tiles_l, dx.tiles_k, dx.units, dx.grid) == (16, 24, 384, 132)
+    dw = tst.pair_dw_plan(B, tile, H, H, num_sms=132)
+    assert (dw.tiles, dw.splits, dw.kblocks, dw.grid) == (288, 1, B * 32, 132)
 
 
 @pytest.mark.parametrize("K,N", [(64, 256), (128, 200), (192, 128), (0, 128)])

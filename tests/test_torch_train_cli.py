@@ -22,8 +22,11 @@ The training settings of the JAX CLI run through both CLIs the same way:
 label-subset training (fixed, shuffled, in-batch and grid layouts, where
 the scorer runs at each batch's label count), a validation label subset (on
 the device through K3's ``cols`` path and on the host), label embeddings
-shipped with every batch, ``GRADIENT_CHECKPOINTING`` and a bfloat16 Adam
-first moment: histories and test metrics as above, and the trainable
+shipped with every batch, ``GRADIENT_CHECKPOINTING``, a bfloat16 Adam
+first moment and the streamed scorer (``TRAIN_STREAMING_LABEL_TILE 8``
+over the 10 labels, so the second tile is ragged; with the z1 cache; and
+with 4-label subsets, one padded tile): histories and test metrics as
+above, and the trainable
 parameters and Adam moments of both last checkpoints to 1e-5 absolute and
 1e-4 relative.  The two sides' float32 parameters differ in their last bits
 after a few steps, and Adam magnifies that where a gradient is near its
@@ -47,6 +50,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -249,17 +253,23 @@ SETTINGS = {
     "shipped": ["DEVICE_RESIDENT_LABEL_EMBEDDINGS", "False"],
     "remat": ["GRADIENT_CHECKPOINTING", "True"],
     "bf16_moment": ["OPTIMIZER_MOMENT_DTYPE", "bfloat16"],
+    "streaming": ["TRAIN_STREAMING_LABEL_TILE", "8"],
+    "streaming_cached": ["TRAIN_STREAMING_LABEL_TILE", "8", "TRAIN_STREAMING_CACHE", "True"],
+    "streaming_subset": ["TRAIN_STREAMING_LABEL_TILE", "8", "TRAIN_LABEL_SAMPLE_SIZE", "4"],
 }
 
 
 @pytest.mark.parametrize("setting", sorted(SETTINGS))
-def test_training_settings_match_jax_cli(start, env, setting):
+def test_training_settings_match_jax_cli(start, env, setting, monkeypatch):
     """2 epochs from one checkpoint with one training setting on both CLIs:
     the histories (train loss and F1s from the scatter-added counts, the
     validation metrics), the test metrics, and the trainable parameters and
-    Adam moments of the two last checkpoints."""
+    Adam moments of the two last checkpoints.  The streaming settings train
+    every step of the port through the streamed scorer, with the cache as
+    set."""
     import protnote_tpu.cli.main as jmain
     import protnote_tpu_torch.cli.main as tmain
+    import protnote_tpu_torch.ops.streaming_train as tst
     from protnote_tpu.core.checkpoint import restore_checkpoint
 
     ckpt, params = start
@@ -267,7 +277,14 @@ def test_training_settings_match_jax_cli(start, env, setting):
              "VAL_DATA_PATH", "--test-paths-names", "TEST_DATA_PATH", "--model-file", ckpt]
     overrides = SETTINGS[setting]
     want = _run(jmain, f"jax{setting}", roles, overrides)
+    streamed, scorer = [], tst._streaming
+    monkeypatch.setattr(tst, "_streaming", lambda *a: streamed.append(a[7:10]) or scorer(*a))
     got = _run(tmain, f"port{setting}", roles + ["--device", "cpu"], overrides)
+    if setting.startswith("streaming"):  # 2 epochs of 3 batches of the 24 sequences
+        cache = True if setting == "streaming_cached" else None
+        assert streamed == [(8, torch.float32, cache)] * (2 * 24 // 8)
+    else:
+        assert not streamed
     assert len(got["train_summary"]["history"]) == (1 if setting == "in_batch" else 2)
     for g, w in zip(got["train_summary"]["history"], want["train_summary"]["history"]):
         _assert_metrics_close(g, w)

@@ -50,11 +50,15 @@ PN = dict(protein_embedding_dim=24, label_embedding_dim=D, latent_dim=8,
           output_mlp_num_layers=3, output_mlp_hidden_dim_scale_factor=2)
 
 
-def _configs(bf16=False):
+def _configs(bf16=False, **change):
+    """Both packages' configs; ``change``: ProtNoteConfig fields of the same
+    name on both sides."""
     jpi_cfg = jpi.ProteInferConfig(**PI)
     tpi_cfg = tpi.ProteInferConfig(**PI)
-    jpn = jfu.ProtNoteConfig(**PN, compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
-    tpn = tfu.ProtNoteConfig(**PN, compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+    jpn = jfu.ProtNoteConfig(**PN, **change,
+                             compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    tpn = tfu.ProtNoteConfig(**PN, **change,
+                             compute_dtype=torch.bfloat16 if bf16 else torch.float32)
     return jpi_cfg, tpi_cfg, jpn, tpn
 
 
@@ -101,10 +105,10 @@ def _leaves(tree):
     return [] if tree is None else [np.asarray(tree)]
 
 
-def _run_both(jts, batches, bf16=False):
+def _run_both(jts, batches, bf16=False, **change):
     """Steps on both sides from the same state; returns the metrics of each
     step on each side and the final states (the port's as a JAX tree)."""
-    jpi_cfg, tpi_cfg, jpn, tpn = _configs(bf16)
+    jpi_cfg, tpi_cfg, jpn, tpn = _configs(bf16, **change)
     jstep = jax_train_step(jpi_cfg, jpn, jax_loss(PARAMS), make_optimizer(PARAMS),
                            donate=False)
     opt = Optimizer(PARAMS)
@@ -122,7 +126,23 @@ def _run_both(jts, batches, bf16=False):
 
 
 def test_three_steps_match_jax_f32():
-    metrics, jts, tts = _run_both(_jax_state(), _batches(3))
+    _assert_steps_close(*_run_both(_jax_state(), _batches(3)))
+
+
+@pytest.mark.parametrize("cache", [False, True])
+def test_streaming_steps_match_jax(cache):
+    """Three steps through the streamed scorer (``train_label_tile`` 4 over
+    13 labels, 2 of them masked: the last tile holds one label and three
+    padded ones), with the z1 cache off and on: the checks of
+    ``test_three_steps_match_jax_f32``."""
+    _assert_steps_close(*_run_both(_jax_state(), _batches(3), train_label_tile=4,
+                                   train_streaming_cache=cache))
+
+
+def _assert_steps_close(metrics, jts, tts):
+    """Losses, gradient norms (the clip binding), tp/fp/fn exactly, and the
+    trainable parameters, running statistics and Adam moments after three
+    steps, float32."""
     for jm, tm in metrics:
         np.testing.assert_allclose(tm["loss"], jm["loss"], atol=TOL, rtol=0)
         np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], atol=TOL, rtol=0)
@@ -259,8 +279,7 @@ def test_unported_training_settings_raise():
     jts = _jax_state()
     _, tpi_cfg, _, tpn = _configs()
     batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
-    for change, match in (({"train_label_tile": 8}, "K6"),
-                          ({"pair_backend": "tiled"}, "dense"),
+    for change, match in (({"pair_backend": "tiled"}, "dense"),
                           ({"dropout": 0.1}, "OUTPUT_MLP_DROPOUT")):
         cfg = dataclasses.replace(tpn, **change)
         step = make_train_step(tpi_cfg, cfg, get_loss_fn(PARAMS), Optimizer(PARAMS))

@@ -23,11 +23,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    blocks, 32,102 labels x 2 descriptions) behind the stdlib HTTP server,
    answering /v1/predict and /healthz requests (K7's forward launches
    counted); the ProteInfer encoder alone (K7: 11 ``masked_conv_forward``
-   launches and the pool) at buckets 512 and 1024 from CUDA events beside
-   the plain chain (the cuDNN conv1d chain of K7's ``*_reference``
-   functions), the pooled embeddings against it, the 11 conv launches alone
-   on their recorded inputs against the plain convs, the 11 cuDNN conv1d
-   calls alone (K7's library time) and the pool alone;
+   launches on TMA + wgmma and the pool) at buckets 512 and 1024 from CUDA
+   events (with a new lengths tensor a call, and with one kept) beside the
+   plain chain (the cuDNN conv1d chain of K7's ``*_reference`` functions),
+   the pooled embeddings against it, the 11 conv launches alone on their
+   recorded inputs against the plain convs, the 11 cuDNN conv1d calls alone
+   (K7's library time) and the pool alone; TFLOP/s, share of the bound and
+   the conv kernels' ptxas registers and spills;
 5. serving parity: ``engine.score`` against a forward through the plain
    pair scorer on the same device tensors;
 6. the eval-accumulator kernels (K3) against their plain version at full
@@ -152,7 +154,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
     dbias) on all 11 and the train-mode masked BN + ReLU forward and
     backward on the 10 BatchNorms, against the plain chain's autograd
     (within 2^-6 of each tensor's largest |value|), their times beside the
-    bound, the plain versions' and cuDNN's conv backward;
+    bound, the plain versions' and cuDNN's conv backward (dX also without
+    its dy copy and weight re-layout), TFLOP/s, share of the bound, ptxas;
 19. training the encoder through ``Trainer.train`` at full width, 32
     sequences a step at bucket 512: ``TRAIN_SEQUENCE_ENCODER`` for 9 steps
     (step ms, seqs/s, peak memory, K7's launches, a validation pass), 3
@@ -805,15 +808,17 @@ def k7_flops(lengths, T: int, params, cfg, skip_conv1: bool = False) -> float:
 
 def k7_eval_calls(params, state, onehot, lengths, cfg):
     """The eval chain through K7's kernels, recording the arguments of each
-    ``masked_conv_forward`` call: ``(calls, the last block's output)``."""
+    ``masked_conv_forward`` call (positional: those of the plain version;
+    keyword: the cached weight layout): ``(calls, the last block's
+    output)``."""
     from protnote_tpu_torch.models.proteinfer import proteinfer_embed
     from protnote_tpu_torch.ops import masked_conv as k7
 
     calls, kernel = [], k7.masked_conv_cuda
 
-    def record(*args):
-        calls.append(args)
-        return kernel(*args)
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return kernel(*args, **kwargs)
 
     k7.masked_conv_cuda = record
     try:
@@ -822,7 +827,17 @@ def k7_eval_calls(params, state, onehot, lengths, cfg):
         k7.masked_conv_cuda = kernel
     if len(calls) != 1 + 2 * cfg.num_resnet_blocks:
         raise AssertionError(f"the eval chain made {len(calls)} conv calls")
-    return calls, kernel(*calls[-1])
+    args, kwargs = calls[-1]
+    return calls, kernel(*args, **kwargs)
+
+
+def k7_ptxas(library: str) -> dict:
+    """The ptxas registers and spills of the conv mainloop's modes (0 the
+    forward, 1 with the BN prologue, 2 dX) in a library's build log."""
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    return {f"mode{m}": [regs, spills] for (m,), regs, spills in ptxas_by_kernel(
+        load_kernel_library(library).build_log, r"conv_tma_kernelILi(\d)E")}
 
 
 def rel_max(got, want) -> tuple:
@@ -841,9 +856,12 @@ def phase_encoder(engine, seqs, passes: int, card: str):
     embeddings against the plain chain's; then the 11 conv launches alone on
     their recorded inputs against the plain convs on the same inputs and the
     11 cuDNN conv1d calls alone (the library time), and the pool alone.
-    Bounds: the convs' products for these lengths (taps and rows that only
-    read padding left out) over the bf16 peak, and the padded count beside
-    it; the pool's bytes over the memory rate."""
+    The chain is timed with a new lengths tensor a call (the lengths' read-
+    back and the tile plans in the time, as a serving batch pays them) and
+    with one kept (plans built once).  Bounds: the convs' products for these
+    lengths (taps and rows that only read padding left out) over the bf16
+    peak, and the padded count beside it; the pool's bytes over the memory
+    rate.  The conv mainloop's ptxas registers and spills beside."""
     import numpy as np
     import torch
 
@@ -863,18 +881,21 @@ def phase_encoder(engine, seqs, passes: int, card: str):
             aa, lens = engine._assemble(engine._encode(seqs), bucket)
             aa, lengths = torch.from_numpy(aa).cuda(), torch.from_numpy(lens).cuda()
             onehot = one_hot_sequences(aa, cfg.input_channels, torch.bfloat16)
-            ms = cuda_time_ms(lambda: embed_from_ids(params, state, aa, lengths, cfg), 10)
+            # a new lengths tensor a call, as a serving batch brings: the
+            # read-back of the lengths and the tile plans are in the time
+            ms = cuda_time_ms(lambda: embed_from_ids(params, state, aa, lengths.clone(), cfg), 10)
+            cached_ms = cuda_time_ms(lambda: embed_from_ids(params, state, aa, lengths, cfg), 10)
             plain_ms = cuda_time_ms(lambda: proteinfer_embed_reference(
                 params, state, onehot, lengths, cfg), 10)
             got, _ = embed_from_ids(params, state, aa, lengths, cfg)
             want, _ = proteinfer_embed_reference(params, state, onehot, lengths, cfg)
             pooled_err, pooled_rel = rel_max(got, want)
             calls, feats = k7_eval_calls(params, state, onehot, lengths, cfg)
-            conv_errs = [rel_max(k7.masked_conv_cuda(*c), k7.masked_conv_reference(*c))
-                         for c in calls]
-            conv_ms = cuda_time_ms(lambda: [k7.masked_conv_cuda(*c) for c in calls], 10)
-            conv_plain_ms = cuda_time_ms(lambda: [k7.masked_conv_reference(*c) for c in calls],
-                                         10)
+            conv_errs = [rel_max(k7.masked_conv_cuda(*a, **kw), k7.masked_conv_reference(*a))
+                         for a, kw in calls]
+            conv_ms = cuda_time_ms(lambda: [k7.masked_conv_cuda(*a, **kw) for a, kw in calls], 10)
+            conv_plain_ms = cuda_time_ms(
+                lambda: [k7.masked_conv_reference(*a) for a, _ in calls], 10)
             pool_err = rel_max(k7.masked_mean_pool_cuda(feats, lengths),
                                k7.masked_mean_pool_reference(feats, lengths))
             pool_ms = cuda_time_ms(lambda: k7.masked_mean_pool_cuda(feats, lengths), 20)
@@ -889,10 +910,12 @@ def phase_encoder(engine, seqs, passes: int, card: str):
                     "plain_ms": conv_plain_ms, **bound(ops=flop),
                     "library_ms": conv_alone_ms(params, cfg, bucket),
                     "tflops": flop / conv_ms / 1e9}
+            conv["share_of_bound"] = conv["bound_ms"] / conv_ms
             pool = {"max_abs_err": pool_err[0], "ms": pool_ms, "plain_ms": pool_plain_ms,
                     **bound(nbytes=2.0 * valid * C + 4.0 * B + 4.0 * B * C),
                     "library_ms": None}
-            out[bucket] = {"chain_ms": ms, "chain_plain_ms": plain_ms,
+            out[bucket] = {"chain_ms": ms, "chain_cached_plans_ms": cached_ms,
+                           "chain_plain_ms": plain_ms,
                            "pooled_max_abs_err": pooled_err, "pooled_rel_err": pooled_rel,
                            "chain_bound_ms": bound(ops=flop)["bound_ms"],
                            "padded_bound_ms": bound(ops=flop_padded)["bound_ms"],
@@ -904,7 +927,7 @@ def phase_encoder(engine, seqs, passes: int, card: str):
                                      f"bucket {bucket}: {out[bucket]}")
     log("encoder", batch=B, passes_on_serving_path=passes, buckets=out,
         rel_tol={"pooled": K7_POOLED_REL_TOL, "conv": K45_REL_TOL, "pool": K7_F32_REL_TOL},
-        card=card)
+        ptxas=k7_ptxas("masked_conv"), card=card)
     return out
 
 
@@ -3386,6 +3409,13 @@ def phase_k7_bwd(card: str) -> dict:
     dx_calls = [(dy, w, d) for name, _, w, _, d, dy in convs if name != "conv1"]
     dx_ms = cuda_time_ms(lambda: [k7.masked_conv_dx_cuda(dy, w, lengths, d)
                                   for dy, w, d in dx_calls], 5)
+    # the kernel alone: dy already at the padded pitch, W already re-laid
+    # (the wrapper copies dy and re-lays W at every call, as training does)
+    dx_kernel_calls = [(k7.pad_pitch(dy), w, d, k7.conv_weight_layout(w, dx=True))
+                       for dy, w, d in dx_calls]
+    dx_kernel_ms = cuda_time_ms(lambda: [k7.masked_conv_dx_cuda(dy, w, lengths, d, layout=lay)
+                                         for dy, w, d, lay in dx_kernel_calls], 5)
+    del dx_kernel_calls
     dw_ms = cuda_time_ms(lambda: [k7.masked_conv_dw_cuda(x, dy, lengths, w.shape[0], d)
                                   for _, x, w, _, d, dy in convs], 5)
     flop_dx = k7_flops(lens, T, params, cfg, skip_conv1=True)
@@ -3399,6 +3429,7 @@ def phase_k7_bwd(card: str) -> dict:
                     "plain_ms": cuda_time_ms(lambda: [f() for f in plain], 3),
                     **bound(ops=flop), "library_ms": cuda_time_ms(lambda: [f() for f in lib], 3),
                     "tflops": flop / ms / 1e9, "calls": len(plain)}
+        out[key]["share_of_bound"] = out[key]["bound_ms"] / ms
         if worst > K45_REL_TOL:
             raise AssertionError(f"{key} disagrees with the plain backward: {errs}")
     del plain_dx, plain_dw, lib_dx, lib_dw, convs
@@ -3451,7 +3482,9 @@ def phase_k7_bwd(card: str) -> dict:
     if worst["y"] > K45_REL_TOL or worst["dx"] > K45_REL_TOL or \
             worst["stats"] > K7_F32_REL_TOL or worst["sums"] > K7_SUMS_REL_TOL:
         raise AssertionError(f"K7-BN disagrees with its plain version: {worst}")
+    out["masked_conv_dx"]["kernel_only_ms"] = dx_kernel_ms
     log("k7_bwd", batch=B, bucket=T, lengths=[int(n) for n in lens], kernels=out,
+        ptxas=k7_ptxas("masked_conv_bwd"),
         rel_tol={"outputs": K45_REL_TOL, "stats": K7_F32_REL_TOL, "sums": K7_SUMS_REL_TOL},
         card=card)
     del items

@@ -60,8 +60,10 @@ conv (one-hot 20 -> 1,100 channels), a block's dilated conv (1,100 -> 550,
 9 taps) at dilations 1, 9 and 81, and its 1 x 1 conv (550 -> 1,100), each
 as ``masked_conv_forward`` without and with the eval BN prologue and with
 the residual, ``masked_conv_dx`` and ``masked_conv_dw``, beside cuDNN's
-conv1d on the same shape; with the TFLOP/s of the forward on the products
-these lengths need.
+conv1d and its backward data on the same shape; inputs at the chain's
+padded pitch and the weights re-laid once (the kernels alone); with the
+TFLOP/s of the forward (with and without the prologue) and of dX on the
+products these lengths need; and each wrapper's host time a call.
 
     python3 chip_variants.py --eval-against DIR
 
@@ -691,6 +693,21 @@ def eval_against(parent: str, card: str) -> None:
            **mean_over_turns(results, parent, ["seqs_per_s"]))
 
 
+def host_time_us(fn, reps: int = 20) -> float:
+    """The host's time a call of ``fn`` (microseconds), the card's queue
+    drained before and after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def k7_shapes(card: str) -> None:
     """``--k7``: each K7 conv shape alone, the kept kernels' entry points."""
     import numpy as np
@@ -711,22 +728,40 @@ def k7_shapes(card: str) -> None:
     for name, cin, cout, taps, d in (("conv1", 20, 1100, 9, 1), ("dilated_1", 1100, 550, 9, 1),
                                      ("dilated_9", 1100, 550, 9, 9),
                                      ("dilated_81", 1100, 550, 9, 81), ("1x1", 550, 1100, 1, 1)):
-        x, w, b, res, dy = (rnd(B, T, cin), rnd(taps, cin, cout, scale=0.05), rnd(cout),
-                            rnd(B, T, cout), rnd(B, T, cout))
+        x, w, b, res, dy = (k7.pad_pitch(rnd(B, T, cin)), rnd(taps, cin, cout, scale=0.05),
+                            rnd(cout), k7.pad_pitch(rnd(B, T, cout)), k7.pad_pitch(rnd(B, T, cout)))
+        fwd, bwd = k7.conv_weight_layout(w, dx=False), k7.conv_weight_layout(w, dx=True)
         bn = (torch.rand(cin, device=dev) + 0.5, 0.1 * torch.randn(cin, device=dev))
         x_t, w_t = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        dy_t, pad = dy.transpose(1, 2).contiguous(), d * (taps - 1) // 2
         ms = {
-            "fwd": cs.cuda_time_ms(lambda: k7.masked_conv_cuda(x, w, b, lengths, d), 20),
-            "fwd_bn": cs.cuda_time_ms(lambda: k7.masked_conv_cuda(x, w, b, lengths, d, bn), 20),
+            "fwd": cs.cuda_time_ms(lambda: k7.masked_conv_cuda(x, w, b, lengths, d,
+                                                               layout=fwd), 20),
+            "fwd_bn": cs.cuda_time_ms(lambda: k7.masked_conv_cuda(x, w, b, lengths, d, bn,
+                                                                  layout=fwd), 20),
             "fwd_residual": cs.cuda_time_ms(
-                lambda: k7.masked_conv_cuda(x, w, b, lengths, d, None, res), 20),
-            "dx": cs.cuda_time_ms(lambda: k7.masked_conv_dx_cuda(dy, w, lengths, d), 20),
+                lambda: k7.masked_conv_cuda(x, w, b, lengths, d, None, res, layout=fwd), 20),
+            "dx": cs.cuda_time_ms(lambda: k7.masked_conv_dx_cuda(dy, w, lengths, d,
+                                                                 layout=bwd), 20),
             "dw": cs.cuda_time_ms(lambda: k7.masked_conv_dw_cuda(x, dy, lengths, taps, d), 20),
-            "cudnn_conv1d": cs.cuda_time_ms(lambda: F.conv1d(
-                x_t, w_t, padding=d * (taps - 1) // 2, dilation=d), 20)}
+            "cudnn_conv1d": cs.cuda_time_ms(lambda: F.conv1d(x_t, w_t, padding=pad,
+                                                             dilation=d), 20),
+            "cudnn_backward_data": cs.cuda_time_ms(lambda: torch.nn.grad.conv1d_input(
+                x_t.shape, w_t, dy_t, padding=pad, dilation=d), 20)}
+        # the wrappers' host time a call (no synchronisation between calls):
+        # with the cached layout as evaluation runs it, and re-laying W (and
+        # copying a contiguous dy to the pitch) at every call as training does
+        dy_flat = dy.contiguous()
+        host_us = {k: host_time_us(f) for k, f in (
+            ("fwd_bn", lambda: k7.masked_conv_cuda(x, w, b, lengths, d, bn, layout=fwd)),
+            ("fwd_relaid", lambda: k7.masked_conv_cuda(x, w, b, lengths, d)),
+            ("dx_relaid_dy_copied", lambda: k7.masked_conv_dx_cuda(dy_flat, w, lengths, d)))}
         flop = 2.0 * cin * cout * cs.conv_rows(lens, T, taps, d)
         cs.log("k7_shape", shape=name, cin=cin, cout=cout, taps=taps, dilation=d, ms=ms,
-               fwd_tflops=flop / ms["fwd"] / 1e9, card=card)
+               fwd_tflops=flop / ms["fwd"] / 1e9, fwd_bn_tflops=flop / ms["fwd_bn"] / 1e9,
+               dx_tflops=flop / ms["dx"] / 1e9, host_us=host_us, card=card)
+    cs.log("k7_ptxas", forward=cs.k7_ptxas("masked_conv"),
+           backward=cs.k7_ptxas("masked_conv_bwd"), card=card)
 
 
 def main() -> None:

@@ -5,6 +5,8 @@
 // named barriers, the transposed ldmatrix, wgmma shared-memory descriptors,
 // the wgmma fence/commit/wait instructions and the bf16 m64nNk16 products
 // (Mma); and the shared-memory address, bf16 packing and division helpers.
+// masked_conv.cuh (K7's conv and its dX) takes the pitched 3-D map and the
+// register-A Mma<184>.
 // text_attention.cu takes the descriptors, the wgmma instructions, the
 // async-proxy fence, the transposed ldmatrix and those helpers.
 // ops/kernels.py hashes every csrc/*.cuh with each source, so an edit here
@@ -157,6 +159,8 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #define D64(d) F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
 #define D128(d) \
   D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88), F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
+#define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define D92(d) D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F4(d, 88)
 #define I8(d, i)                                                                        \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
       "+r"(d[i + 6]), "+r"(d[i + 7])
@@ -249,6 +253,28 @@ struct Mma<128> {
   }
 };
 
+// N = 184 (23 column groups of 8: 552 = 3 x 184, 1104 = 6 x 184), register A
+// only (K7's conv, csrc/masked_conv.cuh)
+template <>
+struct Mma<184> {
+  static __device__ __forceinline__ void rs(float (&d)[92], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %97, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n184k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91}, "
+        "{%92, %93, %94, %95}, %96, p, 1, 1, 0;\n}\n"
+        : D92(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -314,6 +340,25 @@ bool make_map_nd(CUtensorMap* map, const void* ptr, MapType type, uint64_t plane
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, dt, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (planes, rows, cols) bf16 tensor whose rows lie `pitch` elements apart
+// (pitch >= cols, a multiple of 8: TMA's strides are multiples of 16 bytes)
+// as a 3-D map with box (1, box_rows, box_cols): columns past `cols`, rows
+// outside [0, rows) and whole boxes of another plane arrive as zeros
+bool make_map_pitched(CUtensorMap* map, const void* ptr, uint64_t planes, uint64_t rows,
+                      uint64_t cols, uint64_t pitch, uint32_t box_rows, uint32_t box_cols,
+                      bool swizzle) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {pitch * 2, rows * pitch * 2};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

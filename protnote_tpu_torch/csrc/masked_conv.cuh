@@ -1,75 +1,78 @@
-// K7's implicit-GEMM mainloop and column sums, shared by the masked dilated
-// conv's forward (masked_conv.cu) and backward (masked_conv_bwd.cu).
+// K7's conv mainloop on TMA + wgmma, shared by the masked dilated conv's
+// forward (masked_conv.cu) and its input gradient (masked_conv_bwd.cu), and
+// the per-sequence column sums of the pool and of dbias.
 //
-// Activations are channel-last bf16 rows, (B * T, C) with row b * T + t, and
-// a conv kernel is the JAX layout (taps, C_in, C_out).  Position t of
+// Activations are channel-last bf16 (B, T, C) whose rows lie `pitch`
+// elements apart (pitch >= C; the chain rounds it up to a multiple of 8, so
+// that a row starts on 16 bytes and TMA can read it).  Position t of
 // sequence b is valid when t < min(lengths[b], T); an invalid position reads
-// as zero (the `x * mask` in front of every masked conv) and the "same"
+// as zero (the `x * mask` in front of every masked conv), and the "same"
 // padding outside [0, T) is zero too.
 //
-// The GEMM is mma.sync m16n8k16 (bf16 in, f32 accumulate) on 128 x 128
-// block tiles with a depth of 32, eight warps of 32 x 64.  Each step of the
-// K loop loads its next tiles from device memory into registers (4-byte bf16
-// pairs, so any even channel count is aligned, and odd counts load each
-// value alone), runs the current tiles from shared memory, then stores the
-// registers into the other of two shared-memory buffers.  ldmatrix (.trans
-// where a tile is stored with its K dimension as rows) forms the fragments;
-// rows are padded by 8 bf16 (16 bytes), which keeps the eight row addresses
-// of each 8 x 8 matrix on distinct banks.
+// The conv is an implicit GEMM: rows are the positions (b, t), N the output
+// channels, and K runs over (tap j, 64-channel chunk), A's rows read at
+// t + step * (j - half) (step = dilation, or -dilation for dX).  A tile is
+// BM = 128 positions of one sequence x BN = 184 columns (552 = 3 x 184 and
+// 1104 = 6 x 184: the encoder's widths rounded up to 8 have no ragged tile).
+//
+// * Persistent and warp-specialised, as K1 and K4: one block an SM walks the
+//   tiles of a host-built plan (ops/masked_conv.py:conv_tile_plan: the tiles
+//   whose first row is valid, the most taps first) with stride gridDim.x.  One
+//   producer thread keeps a ring of STAGES stages full by TMA, tracked by
+//   full/empty mbarriers, with no block-wide barrier in the mainloop; two
+//   consumer warpgroups issue wgmma m64n184k16 on their 64 rows of the tile.
+// * A stage is one 128-byte-swizzled box of the activations (64 channels x
+//   128 rows of sequence b, through a 3-D map (C, T, B): channels past C and
+//   rows outside [0, T) arrive as zeros, and no box reaches into another
+//   sequence) and the re-laid weights' tile (184 rows of 64 channels,
+//   K-major, zero-padded: ops/masked_conv.py:conv_weight_layout).
+// * A is formed in registers: ldmatrix reads the thread's fragment from the
+//   swizzled box; the forward's optional prologue applies eval-mode BN and
+//   ReLU, relu(bf16(x * inv + shift)); rows whose shifted position lies
+//   outside [0, length) are set to 0 (relu(shift) is not 0, nor is a
+//   train-mode BN output or dy past the length); then the register-A wgmma.
+//   Two fragment sets: one stage's are formed while the last stage's
+//   products still read the other.
+// * Skips: a tile's taps whose shifted rows all lie outside the valid range,
+//   and row tiles that start at or past the length (not in the plan: after
+//   its tiles each block writes such rows, zeros or the residual).
+// * The epilogue stores from the accumulators at the output's pitch,
+//   clipped at N and T: the forward's bf16(acc), + bias rounded again, the
+//   output mask, + residual rounded a third time; dX's mask * bf16(acc).
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <limits.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace k7 {
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int THREADS = 256;          // eight warps: 4 along M x 2 along N
-constexpr int MT = 2, NT = 8;         // a warp's m16 and n8 tiles (32 x 64)
-constexpr int LD_MK = BK + 8;         // a [128][32] tile's row pitch
-constexpr int LD_KN = BN + 8;         // a [32][128] tile's row pitch
-constexpr int TILE_MK = BM * LD_MK;   // bf16 elements
-constexpr int TILE_KN = BK * LD_KN;
-constexpr int LOADS = BM * BK / 2 / THREADS;  // bf16 pairs a thread loads a tile: 8
-constexpr int SUM_WARPS = 8;          // warps of a column-sum block, each on its own rows
-constexpr int SUM_COLS = 64;          // columns of a column-sum block: a lane's pair
+constexpr int BM = 128;  // positions of a tile: two consumer warpgroups of 64
+constexpr int BN = 184;  // columns of a tile
+constexpr int BK = 64;   // channels of a K step: one 128-byte row of bf16
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int SMEM_LIMIT = 232448;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int A_BYTES = BM * BK * 2;  // the activation box
+constexpr int B_BYTES = BN * BK * 2;  // the weight tile
+constexpr int STAGE = A_BYTES + B_BYTES;
+constexpr int STAGES = 5;
+constexpr int BAR_OFF = STAGES * STAGE;         // then the full and empty mbarriers
+constexpr int BN_OFF = BAR_OFF + 2 * STAGES * 8;  // then the prologue's inv[k_pad], shift[k_pad]
+static_assert(A_BYTES % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
+constexpr int SUM_WARPS = 8;   // warps of a column-sum block, each on its own rows
+constexpr int SUM_COLS = 64;   // columns of a column-sum block: a lane's pair
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+enum Mode { FWD = 0, FWD_BN = 1, DX = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// The bf16 pair at columns (c, c + 1) of a row of width C, zero past C.
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* row, int c, int C) {
-  if ((C & 1) == 0) return c < C ? __ldg(reinterpret_cast<const unsigned int*>(row + c)) : 0u;
-  const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
-  const uint32_t lo = c < C ? __ldg(h + c) : 0u;
-  const uint32_t hi = c + 1 < C ? __ldg(h + c + 1) : 0u;
-  return lo | (hi << 16);
 }
 
 __device__ __forceinline__ float2 unpack(uint32_t v) {
@@ -77,15 +80,23 @@ __device__ __forceinline__ float2 unpack(uint32_t v) {
   return __bfloat1622float2(h);
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// The bf16 pair at columns (c, c + 1) of a row of width C, zero past C.  c
+// is even; `even` says the row starts on 4 bytes (an even pitch), and then
+// a whole pair is one 4-byte load.
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* row, int c, int C, bool even) {
+  if (even && c + 1 < C) return __ldg(reinterpret_cast<const unsigned int*>(row + c));
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+  const uint32_t lo = c < C ? __ldg(h + c) : 0u;
+  const uint32_t hi = c + 1 < C ? __ldg(h + c + 1) : 0u;
+  return lo | (hi << 16);
 }
 
-// Stores the pair at columns (c, c + 1) of a row of width C, up to C.
-__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int C, uint32_t v) {
-  if ((C & 1) == 0) {
-    if (c < C) *reinterpret_cast<uint32_t*>(row + c) = v;
+// Stores the pair at columns (c, c + 1) of a row of width C, up to C (c and
+// `even` as load_pair's).
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int C, uint32_t v,
+                                           bool even) {
+  if (even && c + 1 < C) {
+    *reinterpret_cast<uint32_t*>(row + c) = v;
     return;
   }
   unsigned short* h = reinterpret_cast<unsigned short*>(row);
@@ -93,230 +104,345 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int C, uin
   if (c + 1 < C) h[c + 1] = static_cast<unsigned short>(v >> 16);
 }
 
-__device__ __forceinline__ void store_smem(__nv_bfloat16* tile, int idx, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(tile + idx) = v;
-}
-
-// One BK-deep step of the block tile: acc += A * B from shared memory.
-// A is [BM][LD_MK] (M rows, K contiguous) or, with A_KM, [BK][LD_KN] (K
-// rows, M contiguous); B is [BK][LD_KN] (K rows, N contiguous) or, with
-// B_NK, [BN][LD_MK] (N rows, K contiguous).
-template <bool A_KM, bool B_NK>
-__device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4], const __nv_bfloat16* As,
-                                         const __nv_bfloat16* Bs, int warp_m, int warp_n,
-                                         int lane) {
-  const int q = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const int m0 = warp_m * 32 + mi * 16;
-      if (A_KM)
-        ldsm_x4_trans(a[mi], As + (kk + r + (q >> 1) * 8) * LD_KN + m0 + (q & 1) * 8);
-      else
-        ldsm_x4(a[mi], As + (m0 + (lane & 15)) * LD_MK + kk + (lane >> 4) * 8);
-    }
-#pragma unroll
-    for (int nj = 0; nj < NT; nj += 2) {
-      const int n0 = warp_n * 64 + nj * 8;
-      uint32_t b[4];
-      if (B_NK)
-        ldsm_x4(b, Bs + (n0 + r + (q >> 1) * 8) * LD_MK + kk + (q & 1) * 8);
-      else
-        ldsm_x4_trans(b, Bs + (kk + r + (q & 1) * 8) * LD_KN + n0 + (q >> 1) * 8);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        mma_bf16(acc[mi][nj], a[mi], b[0], b[1]);
-        mma_bf16(acc[mi][nj + 1], a[mi], b[2], b[3]);
-      }
-    }
-  }
+// four 8 x 8 bf16 matrices from shared memory: lane 8i + r gives the address
+// of row r of matrix i, and the thread (lane 4g + q) receives columns 2q,
+// 2q + 1 of row g of each (i = 0..3 into r[0..3])
+__device__ __forceinline__ void ldsm_frag(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
 __device__ __forceinline__ int valid_length(const int* lengths, int b, int T) {
   return min(max(lengths[b], 0), T);
 }
 
-// The conv over output rows (the forward, or with DX the input gradient).
-// Output row t of sequence b reads input row t + sign * dilation * (j - half)
-// under tap j (sign +1 forward, -1 for dX); K runs over (tap, channel chunk).
-//   forward: X (B*T, KC) the conv input, W (taps, KC, N); the input prologue
-//     relu(bf16(x * bn_inv + bn_shift)) when bn_inv is set (eval-mode BN and
-//     ReLU in front of the mask); the epilogue bf16(acc), + bias rounded
-//     again, the output mask, + residual rounded a third time.
-//   dX: X (B*T, KC) the cotangent of the conv output (KC = C_out), W (taps,
-//     N, KC) with N = C_in; the epilogue bf16(acc) and the input mask.
-template <bool DX>
-__global__ void __launch_bounds__(THREADS)
-conv_rows_kernel(const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ W,
-                 const __nv_bfloat16* __restrict__ bias, const float* __restrict__ bn_inv,
-                 const float* __restrict__ bn_shift, const __nv_bfloat16* __restrict__ residual,
-                 const int* __restrict__ lengths, __nv_bfloat16* __restrict__ Y, int T, int KC,
-                 int N, int taps, int dilation) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][TILE_MK];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][DX ? TILE_MK : TILE_KN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp & 3, warp_n = warp >> 2;
-  const int mtiles = (T + BM - 1) / BM;
-  const int b = blockIdx.y / mtiles;
-  const int t0 = (blockIdx.y % mtiles) * BM;
-  const int n0 = blockIdx.x * BN;
-  const int L = valid_length(lengths, b, T);
-  const int half = (taps - 1) / 2;
-  const int step = DX ? -dilation : dilation;
-  // taps that read at least one valid row for a valid output row of the tile
-  int jlo = taps, jhi = -1;
-  if (t0 < L) {
-    for (int j = 0; j < taps; ++j) {
+struct ConvArgs {
+  const __nv_bfloat16* bias;      // (N,), the forward
+  const float* bn_inv;            // (K,): the prologue's inv and shift (FWD_BN)
+  const float* bn_shift;
+  const __nv_bfloat16* residual;  // (B, T) rows at res_pitch, or null (the forward)
+  const int* lengths;             // (B,)
+  const int* plan;                // tile codes (b * mtiles + row tile) * ntiles + column tile
+  __nv_bfloat16* y;               // (B, T) rows at y_pitch
+  int B, T, K, N, k_pad, n_pad, taps, dilation, y_pitch, res_pitch, tiles, mtiles, ntiles;
+};
+
+struct ConvTile {
+  int b, t0, n0, L, jlo, jhi;  // taps jlo..jhi read a valid row (none: jhi < jlo)
+};
+
+// Tile `code` of the plan and its taps: those whose shifted rows meet
+// [0, L) for the tile's rows (ops/masked_conv.py:conv_tile_plan counts them).
+template <bool DXM>
+__device__ __forceinline__ ConvTile conv_tile(const ConvArgs& a, int code) {
+  ConvTile tl;
+  const int u = code / a.ntiles;
+  tl.n0 = (code - u * a.ntiles) * BN;
+  tl.b = u / a.mtiles;
+  tl.t0 = (u - tl.b * a.mtiles) * BM;
+  tl.L = valid_length(a.lengths, tl.b, a.T);
+  const int half = (a.taps - 1) / 2;
+  const int step = DXM ? -a.dilation : a.dilation;
+  tl.jlo = a.taps;
+  tl.jhi = -1;
+  if (tl.t0 < tl.L) {
+    for (int j = 0; j < a.taps; ++j) {
       const int s = step * (j - half);
-      if (t0 + s < L && t0 + BM + s > 0) {
-        jlo = min(jlo, j);
-        jhi = max(jhi, j);
+      if (tl.t0 + s < tl.L && tl.t0 + BM + s > 0) {
+        tl.jlo = min(tl.jlo, j);
+        tl.jhi = max(tl.jhi, j);
       }
     }
   }
-  const int chunks = (KC + BK - 1) / BK;
-  const int iters = jhi >= jlo ? (jhi - jlo + 1) * chunks : 0;
-  const __nv_bfloat16* Xb = X + static_cast<size_t>(b) * T * KC;
+  return tl;
+}
 
-  uint32_t ra[LOADS], rb[LOADS];
-  // Every A load of a thread reads the same channel pair of its chunk (rows
-  // tid / 16 + 16 i), so the BN prologue's inv and shift are read once a
-  // step; every B load the same column pair.  The prologue runs when the
-  // registers are stored, after the step's products, so that the loads'
-  // latency stays hidden behind them.
-  const bool prologue = !DX && bn_inv != nullptr;
-  float2 inv = make_float2(0.f, 0.f), shift = inv;
-  uint32_t valid = 0u;  // bit i: A row i read a valid position
-  bool lo_ok = false, hi_ok = false;
-  auto load = [&](int it) {
-    const int j = jlo + it / chunks;
-    const int c0 = (it % chunks) * BK;
-    const int s = step * (j - half);
-    const int c = c0 + 2 * (tid & 15);
-    lo_ok = c < KC;
-    hi_ok = c + 1 < KC;
-    if (prologue) {
-      inv = shift = make_float2(0.f, 0.f);
-      if (lo_ok) inv.x = bn_inv[c], shift.x = bn_shift[c];
-      if (hi_ok) inv.y = bn_inv[c + 1], shift.y = bn_shift[c + 1];
-    }
-    valid = 0u;
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int src = t0 + (tid >> 4) + 16 * i + s;
-      uint32_t v = 0u;
-      if (src >= 0 && src < L) {
-        v = load_pair(Xb + static_cast<size_t>(src) * KC, c, KC);
-        valid |= 1u << i;
-      }
-      ra[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      if (DX) {  // [BN output channels][BK K channels] from W[j][n0 + row][c0 + ...]
-        const int row = n0 + (tid >> 4) + 16 * i;
-        rb[i] = row < N ? load_pair(W + (static_cast<size_t>(j) * N + row) * KC, c, KC) : 0u;
-      } else {  // [BK K channels][BN output channels] from W[j][c0 + row][n0 + ...]
-        const int row = c0 + (tid >> 6) + 4 * i;
-        rb[i] = row < KC ? load_pair(W + (static_cast<size_t>(j) * KC + row) * N,
-                                     n0 + 2 * (tid & 63), N)
-                         : 0u;
-      }
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int w = tid + i * THREADS;
-      uint32_t v = ra[i];
-      if (prologue && (valid >> i & 1u)) {  // relu(bf16(x * inv + shift)), then the mask
-        const float2 f = unpack(v);
-        __nv_bfloat162 h = __floats2bfloat162_rn(__fadd_rn(__fmul_rn(f.x, inv.x), shift.x),
-                                                 __fadd_rn(__fmul_rn(f.y, inv.y), shift.y));
-        h = __hmax2(h, __float2bfloat162_rn(0.f));  // ReLU of the bf16 values: exact
-        v = *reinterpret_cast<uint32_t*>(&h);
-        if (!hi_ok) v = lo_ok ? v & 0xffffu : 0u;  // channels past C_in stay 0
-      }
-      store_smem(As[buf], (w >> 4) * LD_MK + 2 * (w & 15), v);
-      if (DX)
-        store_smem(Bs[buf], (w >> 4) * LD_MK + 2 * (w & 15), rb[i]);
-      else
-        store_smem(Bs[buf], (w >> 6) * LD_KN + 2 * (w & 63), rb[i]);
-    }
-  };
+// The conv over output rows: MODE FWD (x, W^T), FWD_BN (with the eval-mode
+// BN + ReLU prologue) or DX (dy, W; the shifts negated).  tm_x maps the
+// input (K, T, B) at its pitch, box (64, 128, 1); tm_w the re-laid weights
+// (taps * n_pad, k_pad), box (184, 64).
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_tma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                const ConvArgs a) {
+  constexpr bool DXM = MODE == DX;
+  constexpr bool PRO = MODE == FWD_BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar0 = base + BAR_OFF;
+  auto full_bar = [&](int s) { return bar0 + 8u * s; };
+  auto empty_bar = [&](int s) { return bar0 + 8u * (STAGES + s); };
+  const int chunks = a.k_pad / BK;
+  const int half = (a.taps - 1) / 2;
+  const int step = DXM ? -a.dilation : a.dilation;
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  if (iters > 0) {
-    load(0);
-    store(0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), CONSUMERS * 4);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // the prologue's inv[k_pad] and shift[k_pad], 0 past K (a padding channel
+  // reads relu(bf16(0 * 0 + 0)) = 0)
+  float* s_bn = reinterpret_cast<float*>(smem + BN_OFF);
+  if (PRO)
+    for (int i = threadIdx.x; i < a.k_pad; i += THREADS) {
+      s_bn[i] = i < a.K ? a.bn_inv[i] : 0.f;
+      s_bn[a.k_pad + i] = i < a.K ? a.bn_shift[i] : 0.f;
+    }
   __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < iters) load(it + 1);
-    mma_step<false, DX>(acc, As[cur], Bs[cur], warp_m, warp_n, lane);
-    if (it + 1 < iters) store(cur ^ 1);
-    __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const ConvTile tl = conv_tile<DXM>(a, a.plan[t]);
+        for (int j = tl.jlo; j <= tl.jhi; ++j) {
+          const int src = tl.t0 + step * (j - half);
+          for (int c = 0; c < chunks; ++c) {
+            mbar_wait(empty_bar(s), phase ^ 1u);
+            const uint32_t st = base + s * STAGE;
+            mbar_expect_tx(full_bar(s), STAGE);
+            tma_load_3d(st, &tm_x, c * BK, src, tl.b, full_bar(s));
+            tma_load(st + A_BYTES, &tm_w, c * BK, j * a.n_pad + tl.n0, full_bar(s));
+            if (++s == STAGES) {
+              s = 0;
+              phase ^= 1u;
+            }
+          }
+        }
+      }
+    }
+    return;
   }
 
-  const int g = lane >> 2, qd = lane & 3;
+  // ---- consumers: wgmma on the ring, then the epilogue --------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int q = lane & 3;   // fragment column pair
+  const int row = wg * 64 + warp * 16 + g;  // the thread's first row of the tile
+  // the row whose 16 bytes this lane addresses for ldmatrix, and its chunk
+  // offset: matrices (rows 0-7 | 8-15) x (channels 0-7 | 8-15) of a k-step
+  const int lrow = wg * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lhi = lane >> 4;
+  float acc[BN / 2];
+  uint32_t fa[2][4][4];
+  int s = 0;
+  uint32_t phase = 0;
+  // One stage: wait for its boxes, form A into fa[P] (prologue, row mask),
+  // issue its four products, then retire the previous stage's and free its
+  // slot.  `shift` is the tap's row offset, c0 the chunk's first channel.
+  auto stage = [&](auto parity, bool first, int t0, int L, int shift, int c0, int& prev) {
+    constexpr int P = decltype(parity)::value;
+    mbar_wait(full_bar(s), phase);
+    const uint32_t st = base + s * STAGE;
+    const uint64_t db = smem_desc(st + A_BYTES);
+    const int src = t0 + row + shift;
+    const bool v0 = src >= 0 && src < L;
+    const bool v1 = src + 8 >= 0 && src + 8 < L;
+    const uint32_t abox = st + lrow * 128;
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm_frag(fa[P][kk], abox + (((2 * kk + lhi) ^ (lane & 7)) << 4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t v = fa[P][kk][i];
+        if (PRO) {  // relu(bf16(x * inv + shift)) of channels ch, ch + 1
+          const int ch = c0 + kk * 16 + (i >> 1) * 8 + 2 * q;
+          const float2 f = unpack(v);
+          const float2 iv = *reinterpret_cast<const float2*>(s_bn + ch);
+          const float2 sh = *reinterpret_cast<const float2*>(s_bn + a.k_pad + ch);
+          __nv_bfloat162 h = __floats2bfloat162_rn(__fadd_rn(__fmul_rn(f.x, iv.x), sh.x),
+                                                   __fadd_rn(__fmul_rn(f.y, iv.y), sh.y));
+          h = __hmax2(h, __float2bfloat162_rn(0.f));  // ReLU of the bf16 values: exact
+          v = *reinterpret_cast<uint32_t*>(&h);
+        }
+        fa[P][kk][i] = ((i & 1) ? v1 : v0) ? v : 0u;
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Mma<BN>::rs(acc, fa[P][kk], db + 2 * kk, !first || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    fence_acc(acc);
+    fence_regs(fa[1 - P]);
+    if (prev >= 0 && lane == 0) mbar_arrive(empty_bar(prev));
+    prev = s;
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1u;
+    }
+  };
+
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const ConvTile tl = conv_tile<DXM>(a, a.plan[t]);
+    const int steps = (tl.jhi - tl.jlo + 1) * chunks;  // >= chunks: the centre tap reads row t
+    int prev = -1, j = tl.jlo, c = 0;
+    auto next = [&]() {
+      if (++c == chunks) {
+        c = 0;
+        ++j;
+      }
+    };
+    int it = 0;
+    for (; it + 1 < steps; it += 2) {
+      stage(std::integral_constant<int, 0>(), it == 0, tl.t0, tl.L, step * (j - half), c * BK,
+            prev);
+      next();
+      stage(std::integral_constant<int, 1>(), false, tl.t0, tl.L, step * (j - half), c * BK,
+            prev);
+      next();
+    }
+    if (it < steps)
+      stage(std::integral_constant<int, 0>(), it == 0, tl.t0, tl.L, step * (j - half), c * BK,
+            prev);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_regs(fa[0]);
+    fence_regs(fa[1]);
+    if (lane == 0) mbar_arrive(empty_bar(prev));
+
+    // ---- epilogue: acc[4jn + 0/1] is row `row`, columns 8 jn + 2q + 0/1;
+    // acc[4jn + 2/3] row + 8.  A row's bias and residual pairs are loaded
+    // before its stores: y aliases neither, but the compiler cannot know,
+    // and loads between the stores would wait for each other --------------
+    const bool y_even = (a.y_pitch & 1) == 0, r_even = (a.res_pitch & 1) == 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int t = t0 + warp_m * 32 + mi * 16 + g + h * 8;
-      if (t >= T) continue;
-      const size_t row = static_cast<size_t>(b) * T + t;
+      const int tt = tl.t0 + row + 8 * h;
+      if (tt >= a.T) continue;
+      const size_t pos = static_cast<size_t>(tl.b) * a.T + tt;
+      __nv_bfloat16* yrow = a.y + pos * a.y_pitch;
+      const __nv_bfloat16* rrow = a.residual != nullptr ? a.residual + pos * a.res_pitch : nullptr;
+      const bool live = tt < tl.L;
+      uint32_t bias_v[BN / 8], res_v[BN / 8];
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int n = n0 + warp_n * 64 + ni * 8 + 2 * qd;
-        if (n >= N) continue;
-        float v0 = bf16_round(acc[mi][ni][2 * h]), v1 = bf16_round(acc[mi][ni][2 * h + 1]);
-        if (!DX) {
-          const float2 bb = unpack(load_pair(bias, n, N));
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const int n = tl.n0 + 8 * jn + 2 * q;
+        bias_v[jn] = !DXM && n < a.N ? load_pair(a.bias, n, a.N, true) : 0u;
+        res_v[jn] = !DXM && rrow != nullptr && n < a.N ? load_pair(rrow, n, a.N, r_even) : 0u;
+      }
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const int n = tl.n0 + 8 * jn + 2 * q;
+        if (n >= a.N) continue;
+        float v0 = bf16_round(acc[4 * jn + 2 * h]), v1 = bf16_round(acc[4 * jn + 2 * h + 1]);
+        if (!DXM) {
+          const float2 bb = unpack(bias_v[jn]);
           v0 = bf16_round(v0 + bb.x);
           v1 = bf16_round(v1 + bb.y);
         }
-        if (t >= L) v0 = v1 = 0.f;
-        if (!DX && residual != nullptr) {
-          const float2 rr = unpack(load_pair(residual + row * N, n, N));
+        if (!live) v0 = v1 = 0.f;
+        if (!DXM && rrow != nullptr) {
+          const float2 rr = unpack(res_v[jn]);
           v0 = rr.x + v0;
           v1 = rr.y + v1;
         }
-        store_pair(Y + row * N, n, N, pack(v0, v1));
+        store_pair(yrow, n, a.N, pack_bf16x2(v0, v1), y_even);
       }
+    }
+  }
+
+  // ---- rows of the row tiles that start at or past the length: zeros, or
+  // the residual (residual + 0 is the residual), a warp a row, eight pairs
+  // a lane loaded before they are stored ---------------------------------------
+  constexpr int TAIL = 8;
+  const int cw = threadIdx.x / 32;  // 0 .. 4 * CONSUMERS - 1
+  const long long warps = static_cast<long long>(gridDim.x) * 4 * CONSUMERS;
+  const long long rows = static_cast<long long>(a.B) * a.T;
+  const bool y_even = (a.y_pitch & 1) == 0, r_even = (a.res_pitch & 1) == 0;
+  for (long long r = static_cast<long long>(blockIdx.x) * 4 * CONSUMERS + cw; r < rows;
+       r += warps) {
+    const int b = static_cast<int>(r / a.T);
+    const int tt = static_cast<int>(r - static_cast<long long>(b) * a.T);
+    const int L = valid_length(a.lengths, b, a.T);
+    if (tt < min((L + BM - 1) / BM * BM, a.T)) continue;
+    __nv_bfloat16* yrow = a.y + r * a.y_pitch;
+    const __nv_bfloat16* rrow =
+        !DXM && a.residual != nullptr ? a.residual + r * a.res_pitch : nullptr;
+    for (int n0 = 2 * lane; n0 < a.N; n0 += 64 * TAIL) {
+      uint32_t v[TAIL];
+#pragma unroll
+      for (int u = 0; u < TAIL; ++u) {
+        const int n = n0 + 64 * u;
+        v[u] = rrow != nullptr && n < a.N ? load_pair(rrow, n, a.N, r_even) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < TAIL; ++u) store_pair(yrow, n0 + 64 * u, a.N, v[u], y_even);
     }
   }
 }
 
+// Checks a launch's shapes and pointers, encodes its two tensor maps and
+// launches; cudaErrorInvalidValue for what the kernel does not take: an
+// input pitch that is not a multiple of 8 or below K, an input or weight
+// pointer off 16 bytes, paddings other than K rounded up to 64 and N to 184.
+inline int conv_launch(int mode, const void* x, int x_pitch, const void* w, ConvArgs a, int grid,
+                       void* stream) {
+  if (a.B <= 0 || a.T <= 0 || a.K <= 0 || a.N <= 0 || a.taps <= 0 || a.dilation <= 0 ||
+      x_pitch < a.K || x_pitch % 8 != 0 || a.y_pitch < a.N ||
+      (a.residual != nullptr && a.res_pitch < a.N) ||
+      a.k_pad != (a.K + BK - 1) / BK * BK || a.n_pad != (a.N + BN - 1) / BN * BN ||
+      a.tiles < 0 || (a.tiles > 0 && a.plan == nullptr) || grid <= 0 ||
+      (mode == FWD_BN && (a.bn_inv == nullptr || a.bn_shift == nullptr)) ||
+      (mode != DX && a.bias == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      static_cast<long long>(a.taps) * a.n_pad > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = 1024 + BN_OFF + (mode == FWD_BN ? 8 * a.k_pad : 0);
+  if (bytes > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  a.mtiles = (a.T + BM - 1) / BM;
+  a.ntiles = a.n_pad / BN;
+  CUtensorMap tm_x, tm_w;
+  memset(&tm_x, 0, sizeof(tm_x));
+  memset(&tm_w, 0, sizeof(tm_w));
+  if (!make_map_pitched(&tm_x, x, a.B, a.T, a.K, x_pitch, BM, BK, true) ||
+      !make_map(&tm_w, w, MapType::BF16, static_cast<uint64_t>(a.taps) * a.n_pad, a.k_pad, BN, BK,
+                true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  auto kernel = mode == FWD ? conv_tma_kernel<FWD>
+                : mode == FWD_BN ? conv_tma_kernel<FWD_BN> : conv_tma_kernel<DX>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, bytes, s>>>(tm_x, tm_w, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Column sums over the valid rows of each sequence, in a fixed order: block
-// (column group, b) sums rows t < min(lengths[b], T) of sequence b, each
-// warp every SUM_WARPS-th row, then the warps in order.  POOL writes
-// sum / max(lengths[b], 1) (the masked mean pool, float32 (B, C)), else the
-// sums themselves (a partial row b of a (B, C) buffer).
+// (column group, b) sums rows t < min(lengths[b], T) of sequence b (rows
+// `pitch` elements apart), each warp every SUM_WARPS-th row, then the warps
+// in order.  POOL writes sum / max(lengths[b], 1) (the masked mean pool,
+// float32 (B, C)), else the sums themselves (a partial row b of a (B, C)
+// buffer).
 template <bool POOL>
 __global__ void __launch_bounds__(SUM_WARPS * 32)
 seq_col_sums_kernel(const __nv_bfloat16* __restrict__ X, const int* __restrict__ lengths,
-                    float* __restrict__ out, int T, int C) {
+                    float* __restrict__ out, int T, int C, int pitch) {
   __shared__ float s0[SUM_WARPS][32], s1[SUM_WARPS][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
   const int c = blockIdx.x * SUM_COLS + 2 * lane;
   const int L = valid_length(lengths, b, T);
-  const __nv_bfloat16* Xb = X + static_cast<size_t>(b) * T * C;
+  const __nv_bfloat16* Xb = X + static_cast<size_t>(b) * T * pitch;
+  const bool even = (pitch & 1) == 0;
   float a0 = 0.f, a1 = 0.f;
   if (c < C) {
 #pragma unroll 4
     for (int t = warp; t < L; t += SUM_WARPS) {
-      const float2 f = unpack(load_pair(Xb + static_cast<size_t>(t) * C, c, C));
+      const float2 f = unpack(load_pair(Xb + static_cast<size_t>(t) * pitch, c, C, even));
       a0 += f.x;
       a1 += f.y;
     }
@@ -340,10 +466,6 @@ seq_col_sums_kernel(const __nv_bfloat16* __restrict__ X, const int* __restrict__
   float* o = out + static_cast<size_t>(b) * C;
   o[c] = a0;
   if (c + 1 < C) o[c + 1] = a1;
-}
-
-inline unsigned conv_rows_grid_y(int B, int T) {
-  return static_cast<unsigned>(B) * static_cast<unsigned>((T + BM - 1) / BM);
 }
 
 }  // namespace k7

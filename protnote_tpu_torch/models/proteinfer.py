@@ -8,7 +8,10 @@ train-mode (batch statistics) BatchNorm.
 
 The JAX layouts are kept throughout: channel-last activations ``(B, T, C)``
 and conv kernels ``(k, cin, cout)``, the layout K7's kernels
-(:mod:`protnote_tpu_torch.ops.masked_conv`) read.
+(:mod:`protnote_tpu_torch.ops.masked_conv`) read.  :func:`proteinfer_embed`
+keeps its activations in buffers whose rows lie a multiple of 8 channels
+apart (1,100 -> 1,104, 550 -> 552, the one-hot's 20 -> 24: ``row_pitch``),
+which the conv kernels read through TMA, as strided ``(B, T, C)`` tensors.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from protnote_tpu_torch.ops.masked_conv import (
     masked_conv_reference,
     masked_mean_pool,
     masked_mean_pool_reference,
+    row_pitch,
 )
 
 BN_EPS = 1e-3  # reference: BatchNorm1d(eps=0.001, momentum=0.01)
@@ -99,9 +103,11 @@ def one_hot_sequences(aa_ids: torch.Tensor, num_aa: int,
     """(B, T) int ids -> (B, T, num_aa); any id outside [0, num_aa) (the pad
     id, = num_aa) gives an all-zero row, as ``jax.nn.one_hot`` does.
     ``F.one_hot`` would raise on such ids, so the rows are compared with
-    the class range explicitly."""
-    classes = torch.arange(num_aa, device=aa_ids.device)
-    return (aa_ids.long()[..., None] == classes).to(dtype)
+    the class range explicitly.  The rows lie ``row_pitch(num_aa)`` apart
+    (a view of a wider one-hot whose extra columns are 0)."""
+    hot = aa_ids.long()[..., None] == torch.arange(row_pitch(num_aa), device=aa_ids.device)
+    hot[..., num_aa:] = False
+    return hot.to(dtype)[..., :num_aa]
 
 
 def _chain(params: Params, state: Params, x: torch.Tensor, lengths: torch.Tensor,
@@ -142,8 +148,12 @@ def proteinfer_embed(params: Params, state: Params, aa_onehot: torch.Tensor,
     rows x the longest valid length; :func:`ops.masked_conv.bn_mask_and_count`)
     and returns the new ``{"blocks": [{"bn1", "bn2"}]}`` running statistics.
     CUDA tensors run K7's kernels (the BN + ReLU of eval mode fused into the
-    next conv's input), CPU tensors their plain versions."""
-    return _chain(params, state, aa_onehot.to(cfg.runtime_dtype), lengths, cfg, train,
+    next conv's input), CPU tensors their plain versions; on both every conv
+    writes its output at a padded row pitch (:func:`masked_conv`).  The
+    lengths go to the one-hot's device as int32 once, so that the convs
+    share their read-back and plans."""
+    x = aa_onehot.to(cfg.runtime_dtype)
+    return _chain(params, state, x, lengths.to(device=x.device, dtype=torch.int32), cfg, train,
                   example_mask, masked_conv, masked_bn_relu_train, masked_mean_pool)
 
 

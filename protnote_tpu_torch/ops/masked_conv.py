@@ -17,14 +17,28 @@ masked mean pool of the last block's output over ``max(length, 1)``.
 Three hand-written CUDA sources carry it on the card (bf16 only):
 
 * ``csrc/masked_conv.cu``: ``masked_conv_forward``, an implicit GEMM on
-  mma.sync with the BN prologue and the bias/mask/residual epilogue, and
-  ``masked_mean_pool``;
+  TMA + wgmma (``csrc/masked_conv.cuh``: persistent, warp-specialised, A
+  formed in registers) with the BN prologue and the bias/mask/residual
+  epilogue, and ``masked_mean_pool``;
 * ``csrc/masked_conv_bwd.cu``: ``masked_conv_dx`` (the transposed dilated
-  conv, masks on both sides) and ``masked_conv_dw`` (dW a tap and dbias,
-  split over sequences and summed in a fixed order);
+  conv on the forward's mainloop, masks on both sides) and
+  ``masked_conv_dw`` (dW a tap and dbias, split over sequences and summed in
+  a fixed order);
 * ``csrc/masked_bn.cu``: the train-mode masked BN + ReLU of the JAX
   ``batchnorm_apply(train=True, reduce_axes=(0, 1), mask, count)`` with its
   count rule (:func:`bn_mask_and_count`), forward and backward.
+
+The conv kernels read their input through TMA, which takes rows that start
+on 16 bytes: an activation is a strided ``(B, T, C)`` tensor whose rows lie
+:func:`row_pitch` (C rounded up to 8) channels apart (:func:`padded_empty`,
+:func:`pad_pitch`; 1,100 -> 1,104, 550 -> 552, the one-hot's 20 -> 24).  The
+chain keeps its activations so; a wrapper copies an input of another pitch
+into such a buffer (the copy is part of its time), and the forward writes
+its output at that pitch.  The weights are re-laid once a version
+(:func:`conv_weight_layout`, cached on the parameter tensor by
+:func:`weight_layout`; re-laid every call under autograd), and each call
+runs the tiles of a plan built on the host from the lengths
+(:func:`conv_tile_plan`; the lengths are read back once a tensor).
 
 :func:`masked_conv`, :func:`masked_bn_relu_train` and
 :func:`masked_mean_pool` dispatch on the device: CPU tensors take the plain
@@ -44,10 +58,12 @@ its transposed convs would with the cotangent cast to bf16.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -119,16 +135,151 @@ def masked_bn_relu_reference(x: torch.Tensor, p: Params, s: Params, lengths: tor
     """``(relu(BN(x)), new_state)`` with train-mode masked BatchNorm over
     (B, T) under the count rule: the plain ``batchnorm_train``."""
     mask, count = bn_mask_and_count(lengths, example_mask, x.shape[1])
-    y, new_state = batchnorm_train(p, s, x, eps, momentum, reduce_axes=(0, 1), mask=mask,
-                                   count=count)
+    # the moments' float32 sums follow the memory layout: sum a row-major
+    # copy, so that the same values at any row pitch give the same bits
+    y, new_state = batchnorm_train(p, s, x.contiguous(), eps, momentum, reduce_axes=(0, 1),
+                                   mask=mask, count=count)
     return torch.relu(y), new_state
 
 
 def masked_mean_pool_reference(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """(B, C) float32: the sum of the valid rows over ``max(length, 1)``."""
+    """(B, C) float32: the sum of the valid rows over ``max(length, 1)``,
+    summed in a row-major copy (the same bits at any row pitch)."""
+    feats = feats.contiguous()
     mask = valid_mask(lengths, feats.shape[1]).to(feats.dtype)
     denom = torch.clamp(lengths[:, None].float(), min=1.0)
     return (feats * mask).float().sum(dim=1) / denom
+
+
+# ----------------------------------------------------------------------
+# the conv kernels' layouts and plan
+
+BLOCK_M = 128  # positions of a conv tile (csrc/masked_conv.cuh BM)
+BLOCK_N = 184  # columns of a conv tile (BN): 552 = 3 x 184, 1104 = 6 x 184
+BLOCK_K = 64  # channels of a K step (BK): one 128-byte swizzled row
+PITCH_CHANNELS = 8  # a row pitch is a multiple of 8 bf16 channels: 16 bytes
+
+
+def row_pitch(channels: int) -> int:
+    """The row pitch of a ``channels``-wide activation: rounded up to 8."""
+    return -(-channels // PITCH_CHANNELS) * PITCH_CHANNELS
+
+
+def padded_empty(B: int, T: int, C: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """An uninitialised ``(B, T, C)`` tensor whose rows lie :func:`row_pitch`
+    (C) elements apart (strided, not a view: its padding channels are never
+    read or written)."""
+    P = row_pitch(C)
+    return torch.empty_strided((B, T, C), (T * P, P, 1), dtype=dtype, device=device)
+
+
+def pitch_of(x: torch.Tensor) -> Optional[int]:
+    """The row pitch of a ``(B, T, C)`` tensor whose channels are contiguous
+    and whose rows lie one pitch apart (a contiguous tensor: C), else None."""
+    B, T, C = x.shape
+    sb, st, sc = x.stride()
+    if (sc != 1 and C > 1) or st < C or (B > 1 and sb != T * st):
+        return None
+    return st
+
+
+def pad_pitch(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where its rows already lie a multiple of 8 channels apart
+    (and start on 16 bytes), else a copy at :func:`row_pitch` (C)."""
+    p = pitch_of(x)
+    if p is not None and p % PITCH_CHANNELS == 0 and x.data_ptr() % 16 == 0:
+        return x
+    out = padded_empty(*x.shape, dtype=x.dtype, device=x.device)
+    out.copy_(x)
+    return out
+
+
+def conv_weight_layout(kernel: torch.Tensor, dx: bool) -> torch.Tensor:
+    """The conv kernels' B operand from a JAX-layout kernel (taps, C_in,
+    C_out): ``(taps, n_pad, k_pad)`` with K contiguous, zero-padded to N
+    rounded up to 184 and K to 64 -- W[j] transposed for the forward (N =
+    C_out, K = C_in), W[j] itself for dX (N = C_in, K = C_out)."""
+    taps, cin, cout = kernel.shape
+    n, k = (cin, cout) if dx else (cout, cin)
+    return F.pad(kernel if dx else kernel.transpose(1, 2),
+                 (0, -(-k // BLOCK_K) * BLOCK_K - k, 0, -(-n // BLOCK_N) * BLOCK_N - n))
+
+
+def _version(t: torch.Tensor) -> int:
+    """``t``'s version counter; 0 for an inference tensor, which keeps none
+    (it can be written in place only inside inference mode)."""
+    return 0 if t.is_inference() else t._version
+
+
+def _cached(t: torch.Tensor, key, make):
+    """``make()``, kept on the tensor ``t`` under ``key`` for t's storage and
+    version: an in-place update (an optimizer step) or a new tensor makes it
+    again."""
+    cache = getattr(t, "_k7_cache", None)
+    if cache is None:
+        cache = t._k7_cache = {}
+    stamp = (t.data_ptr(), _version(t))
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = cache[key] = (stamp, make())
+    return hit[1]
+
+
+def weight_layout(kernel: torch.Tensor, dtype: torch.dtype, dx: bool) -> torch.Tensor:
+    """:func:`conv_weight_layout` of ``kernel`` cast to ``dtype``, cached on
+    the kernel tensor (:func:`_cached`)."""
+    return _cached(kernel, ("layout", dx, dtype),
+                   lambda: conv_weight_layout(kernel.detach().to(dtype), dx))
+
+
+def conv_tile_plan(lengths, T: int, taps: int, dilation: int, n: int, dx: bool) -> np.ndarray:
+    """The conv kernels' schedule: int32 tile codes ``(b * mtiles + row tile)
+    * ntiles + column tile`` (``mtiles`` = ceil(T / 128), ``ntiles`` =
+    ceil(n / 184)) of every tile whose first row is valid (t0 < min(L, T)),
+    the most taps first (ties in code order).  A tile runs the taps whose
+    shifted rows meet [0, L) for its rows [t0, t0 + 128) (the kernel's
+    ``conv_tile``).  The persistent blocks take tiles i, i + grid, ...; the
+    rows of the other row tiles are written after them (zeros, or the
+    residual)."""
+    lens = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, T)
+    mtiles, ntiles = -(-T // BLOCK_M), -(-n // BLOCK_N)
+    step = -dilation if dx else dilation
+    t0 = np.arange(mtiles)[None, :, None] * BLOCK_M
+    s = step * (np.arange(taps) - (taps - 1) // 2)[None, None, :]
+    L = lens[:, None, None]
+    hit = (t0 < L) & (t0 + s < L) & (t0 + BLOCK_M + s > 0)  # (B, mtiles, taps)
+    j = np.arange(taps)
+    jlo = np.where(hit, j, taps).min(axis=2)
+    jhi = np.where(hit, j, -1).max(axis=2)
+    count = np.maximum(jhi - jlo + 1, 0).reshape(-1)  # taps a row tile runs
+    rows = np.flatnonzero(count > 0)
+    order = rows[np.argsort(-count[rows], kind="stable")]
+    codes = (order[:, None] * ntiles + np.arange(ntiles)[None, :]).reshape(-1)
+    return codes.astype(np.int32)
+
+
+def _plan_on(lengths: torch.Tensor, T: int, taps: int, dilation: int, n: int, dx: bool,
+             device) -> torch.Tensor:
+    """:func:`conv_tile_plan` as an int32 tensor on ``device`` (its length in
+    ``.tiles``), kept on the lengths tensor (:func:`_cached`): a chain's 11
+    convs share 7 plans and one read-back of the lengths to the host."""
+    def make():
+        host = (lengths if lengths.device.type == "cpu"
+                else _cached(lengths, "host", lambda: lengths.cpu()))
+        codes = torch.from_numpy(conv_tile_plan(host.numpy(), T, taps, dilation, n, dx))
+        plan = (codes.pin_memory().to(device, non_blocking=True) if len(codes)
+                else torch.zeros(1, dtype=torch.int32, device=device))
+        plan.tiles = len(codes)
+        return plan
+
+    return _cached(lengths, ("plan", T, taps, dilation, n, dx, str(device)), make)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device) -> int:
+    """The conv kernels' grid: one persistent block an SM (those left without
+    a tile write the rows past the lengths)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ----------------------------------------------------------------------
@@ -136,10 +287,10 @@ def masked_mean_pool_reference(feats: torch.Tensor, lengths: torch.Tensor) -> to
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGS = {
-    ("masked_conv", "masked_conv_forward"): [_P] * 8 + [_I] * 6 + [_P],
-    ("masked_conv", "masked_mean_pool"): [_P] * 3 + [_I] * 3 + [_P],
-    ("masked_conv_bwd", "masked_conv_dx"): [_P] * 4 + [_I] * 6 + [_P],
-    ("masked_conv_bwd", "masked_conv_dw"): [_P] * 7 + [_I] * 7 + [_P],
+    ("masked_conv", "masked_conv_forward"): [_P] * 9 + [_I] * 13 + [_P],
+    ("masked_conv", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
+    ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
+    ("masked_conv_bwd", "masked_conv_dw"): [_P] * 7 + [_I] * 9 + [_P],
     ("masked_bn", "masked_bn_relu_forward"): [_P] * 7 + [_F] * 3 + [_P] * 6 + [_I] * 4
                                              + [_LL, _P],
     ("masked_bn", "masked_bn_relu_backward"): [_P] * 14 + [_I] * 4 + [_LL, _P],
@@ -175,6 +326,19 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 4-byte aligned")
 
 
+def _rows(name: str, t: torch.Tensor, shape, device) -> Tuple[torch.Tensor, int]:
+    """``(t, its row pitch)`` for a bf16 ``(B, T, C)`` activation read row by
+    row (contiguous channels, rows one pitch apart, 4-byte aligned), else a
+    contiguous copy and C."""
+    if t.device != device or t.dtype != torch.bfloat16 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be bf16 {tuple(shape)} on {device}, not {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    p = pitch_of(t)
+    if p is None or t.data_ptr() % 4:
+        t, p = t.contiguous(), t.shape[2]
+    return t, p
+
+
 def _lengths_on(lengths: torch.Tensor, device) -> torch.Tensor:
     return lengths.to(device=device, dtype=torch.int32).contiguous()
 
@@ -186,59 +350,84 @@ def _ptr(t: Optional[torch.Tensor]):
 def masked_conv_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                      lengths: torch.Tensor, dilation: int,
                      bn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``masked_conv_forward``: bf16 ``x`` (B, T, C_in), ``kernel`` (taps,
-    C_in, C_out), ``bias`` (C_out,), optional float32 ``bn`` (inv, shift)
-    (C_in,) and bf16 ``residual`` (B, T, C_out); returns (B, T, C_out)."""
+                     residual: Optional[torch.Tensor] = None,
+                     layout: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``masked_conv_forward``: bf16 ``x`` (B, T, C_in) at any row pitch (one
+    that is not a multiple of 8 is copied into a padded buffer first),
+    ``kernel`` (taps, C_in, C_out) bf16 (or only its shape, with ``layout``
+    its :func:`conv_weight_layout`), ``bias`` (C_out,), optional float32
+    ``bn`` (inv, shift) (C_in,) and bf16 ``residual`` (B, T, C_out); returns
+    (B, T, C_out) at :func:`row_pitch` (C_out)."""
     if x.device.type != "cuda":
         raise ValueError(f"masked_conv_forward needs CUDA tensors, not {x.device}")
+    dev, bf16 = x.device, torch.bfloat16
     B, T, cin = x.shape
     taps, cout = kernel.shape[0], kernel.shape[2]
-    bf16 = torch.bfloat16
-    _check("x", x, (B, T, cin), bf16, x.device)
-    _check("kernel", kernel, (taps, cin, cout), bf16, x.device)
-    _check("bias", bias, (cout,), bf16, x.device)
+    if x.dtype != bf16:
+        raise ValueError(f"x must be bf16, not {x.dtype}")
+    if tuple(kernel.shape) != (taps, cin, cout):
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not take x {tuple(x.shape)}")
+    if layout is None:
+        _check("kernel", kernel, (taps, cin, cout), bf16, dev)
+        layout = conv_weight_layout(kernel, dx=False)
+    n_pad, k_pad = -(-cout // BLOCK_N) * BLOCK_N, -(-cin // BLOCK_K) * BLOCK_K
+    _check("weight layout", layout, (taps, n_pad, k_pad), bf16, dev)
+    _check("bias", bias, (cout,), bf16, dev)
+    xp = pad_pitch(x)
+    inv, shift = bn if bn is not None else (None, None)
     if bn is not None:
         for name, t in zip(("bn inv", "bn shift"), bn):
-            _check(name, t, (cin,), torch.float32, x.device)
+            _check(name, t, (cin,), torch.float32, dev)
+    res_pitch = 0
     if residual is not None:
-        _check("residual", residual, (B, T, cout), bf16, x.device)
-    lengths = _lengths_on(lengths, x.device)
-    y = torch.empty(B, T, cout, dtype=bf16, device=x.device)
-    inv, shift = bn if bn is not None else (None, None)
-    _launch("masked_conv", "masked_conv_forward", "masked_conv_fwd", x.device, x.data_ptr(),
-            kernel.data_ptr(), bias.data_ptr(), _ptr(inv), _ptr(shift), _ptr(residual),
-            lengths.data_ptr(), y.data_ptr(), B, T, cin, cout, taps, dilation)
+        residual, res_pitch = _rows("residual", residual, (B, T, cout), dev)
+    plan = _plan_on(lengths, T, taps, dilation, cout, False, dev)
+    lengths = _lengths_on(lengths, dev)
+    y = padded_empty(B, T, cout, bf16, dev)
+    _launch("masked_conv", "masked_conv_forward", "masked_conv_fwd", dev, xp.data_ptr(),
+            layout.data_ptr(), bias.data_ptr(), _ptr(inv), _ptr(shift), _ptr(residual),
+            lengths.data_ptr(), plan.data_ptr(), y.data_ptr(), B, T, cin, cout, xp.stride(1),
+            y.stride(1), res_pitch, k_pad, n_pad, taps, dilation, plan.tiles, _num_sms(dev))
     return y
 
 
 def masked_mean_pool_cuda(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """``masked_mean_pool``: bf16 (B, T, C) -> float32 (B, C)."""
+    """``masked_mean_pool``: bf16 (B, T, C) at any row pitch -> float32 (B,
+    C)."""
     if feats.device.type != "cuda":
         raise ValueError(f"masked_mean_pool needs CUDA tensors, not {feats.device}")
     B, T, C = feats.shape
-    _check("feats", feats, (B, T, C), torch.bfloat16, feats.device)
+    feats, pitch = _rows("feats", feats, (B, T, C), feats.device)
     lengths = _lengths_on(lengths, feats.device)
     out = torch.empty(B, C, dtype=torch.float32, device=feats.device)
     _launch("masked_conv", "masked_mean_pool", "masked_mean_pool", feats.device,
-            feats.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, T, C)
+            feats.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, T, C, pitch)
     return out
 
 
 def masked_conv_dx_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: torch.Tensor,
-                        dilation: int) -> torch.Tensor:
-    """``masked_conv_dx``: the input gradient (B, T, C_in) bf16 of a masked
-    conv from its output gradient ``dy`` (B, T, C_out)."""
+                        dilation: int, layout: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``masked_conv_dx``: the input gradient (B, T, C_in) bf16, contiguous,
+    of a masked conv from its output gradient ``dy`` (B, T, C_out) (copied
+    into a buffer at :func:`row_pitch` (C_out) unless it is at such a pitch)
+    and ``kernel`` (taps, C_in, C_out) (or ``layout``, its dX layout)."""
+    dev = dy.device
     B, T, cout = dy.shape
     taps, cin = kernel.shape[0], kernel.shape[1]
-    _check("dy", dy, (B, T, cout), torch.bfloat16, dy.device)
-    _check("kernel", kernel, (taps, cin, cout), torch.bfloat16, dy.device)
-    lengths = _lengths_on(lengths, dy.device)
-    dx = torch.empty(B, T, cin, dtype=torch.bfloat16, device=dy.device)
-    _launch("masked_conv_bwd", "masked_conv_dx", "masked_conv_dx", dy.device, dy.data_ptr(),
-            kernel.data_ptr(), lengths.data_ptr(), dx.data_ptr(), B, T, cin, cout, taps,
-            dilation)
+    if dy.dtype != torch.bfloat16:
+        raise ValueError(f"dy must be bf16, not {dy.dtype}")
+    if layout is None:
+        _check("kernel", kernel, (taps, cin, cout), torch.bfloat16, dev)
+        layout = conv_weight_layout(kernel, dx=True)
+    n_pad, k_pad = -(-cin // BLOCK_N) * BLOCK_N, -(-cout // BLOCK_K) * BLOCK_K
+    _check("weight layout", layout, (taps, n_pad, k_pad), torch.bfloat16, dev)
+    dyp = pad_pitch(dy)
+    plan = _plan_on(lengths, T, taps, dilation, cin, True, dev)
+    lengths = _lengths_on(lengths, dev)
+    dx = torch.empty(B, T, cin, dtype=torch.bfloat16, device=dev)
+    _launch("masked_conv_bwd", "masked_conv_dx", "masked_conv_dx", dev, dyp.data_ptr(),
+            layout.data_ptr(), lengths.data_ptr(), plan.data_ptr(), dx.data_ptr(), B, T, cin,
+            cout, dyp.stride(1), cin, k_pad, n_pad, taps, dilation, plan.tiles, _num_sms(dev))
     return dx
 
 
@@ -252,11 +441,12 @@ def dw_splits(B: int, taps: int, cin: int, cout: int) -> int:
 def masked_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Tensor,
                         taps: int, dilation: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``masked_conv_dw``: ``(dW (taps, C_in, C_out), dbias (C_out,))`` bf16
-    from the conv's input ``x`` (B, T, C_in) and output gradient ``dy``."""
+    from the conv's input ``x`` (B, T, C_in) and output gradient ``dy``,
+    each at any row pitch."""
     B, T, cin = x.shape
     cout = dy.shape[2]
-    _check("x", x, (B, T, cin), torch.bfloat16, x.device)
-    _check("dy", dy, (B, T, cout), torch.bfloat16, x.device)
+    x, x_pitch = _rows("x", x, (B, T, cin), x.device)
+    dy, dy_pitch = _rows("dy", dy, (B, T, cout), x.device)
     lengths = _lengths_on(lengths, x.device)
     splits = dw_splits(B, taps, cin, cout)
     partial = torch.empty(splits, taps, cin, cout, dtype=torch.float32, device=x.device)
@@ -264,9 +454,9 @@ def masked_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Tensor
     dw = torch.empty(taps, cin, cout, dtype=torch.bfloat16, device=x.device)
     db = torch.empty(cout, dtype=torch.bfloat16, device=x.device)
     _launch("masked_conv_bwd", "masked_conv_dw", "masked_conv_dw", x.device, x.data_ptr(),
-            dy.data_ptr(),
-            lengths.data_ptr(), partial.data_ptr(), bias_part.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), B, T, cin, cout, taps, dilation, splits)
+            dy.data_ptr(), lengths.data_ptr(), partial.data_ptr(), bias_part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), B, T, cin, cout, x_pitch, dy_pitch, taps, dilation,
+            splits)
     return dw, db
 
 
@@ -344,6 +534,8 @@ def masked_bn_relu_backward_cuda(x: torch.Tensor, y: torch.Tensor, dy: torch.Ten
 
 
 class _MaskedConv(torch.autograd.Function):
+    # The weights are re-laid at every call (they change every step): for the
+    # forward here, for dX in the backward.
     @staticmethod
     def forward(ctx, x, kernel, bias, residual, lengths, dilation):
         ctx.save_for_backward(x, kernel, lengths)
@@ -353,7 +545,6 @@ class _MaskedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, kernel, lengths = ctx.saved_tensors
-        g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = masked_conv_dx_cuda(g, kernel, lengths, ctx.dilation)
@@ -409,20 +600,26 @@ def masked_conv(x: torch.Tensor, p: Params, lengths: torch.Tensor, dilation: int
     """One masked conv of the encoder with the parameters ``p`` (``kernel``
     (taps, C_in, C_out), ``bias``), in ``x``'s dtype: the plain version on
     the CPU, ``masked_conv_forward`` on the card (its backward kernels when a
-    gradient is wanted).  ``bn`` is eval mode only."""
+    gradient is wanted; without, the weights' layout cached on the kernel
+    tensor).  ``bn`` is eval mode only.  The result's rows lie
+    :func:`row_pitch` (C_out) apart on both (the CPU copies the plain
+    version's); on the card pass ``lengths`` as an int32 tensor there, the
+    same tensor to every conv of a chain, so that its plans are built
+    once."""
     if x.device.type == "cpu":
-        return masked_conv_reference(x, p["kernel"], p["bias"], lengths, dilation, bn, residual)
+        return pad_pitch(masked_conv_reference(x, p["kernel"], p["bias"], lengths, dilation, bn,
+                                               residual))
     if x.device.type != "cuda":
         raise ValueError(f"no masked conv for device {x.device}")
     check_compute_dtype(x.dtype)
-    kernel, bias = p["kernel"].to(x.dtype), p["bias"].to(x.dtype)
-    if _wants_grad(x, kernel, bias, residual):
+    if _wants_grad(x, p["kernel"], p["bias"], residual):
         if bn is not None:
             raise ValueError("the conv's BatchNorm prologue is eval mode: no gradient")
-        return _MaskedConv.apply(x.contiguous(), kernel.contiguous(), bias, residual,
-                                 _lengths_on(lengths, x.device), dilation)
-    return masked_conv_cuda(x.contiguous(), kernel.contiguous(), bias, lengths, dilation, bn,
-                            residual)
+        return _MaskedConv.apply(x, p["kernel"].to(x.dtype).contiguous(), p["bias"].to(x.dtype),
+                                 residual, lengths, dilation)
+    bias = _cached(p["bias"], ("cast", x.dtype), lambda: p["bias"].detach().to(x.dtype))
+    return masked_conv_cuda(x, p["kernel"], bias, lengths, dilation, bn, residual,
+                            layout=weight_layout(p["kernel"], x.dtype, dx=False))
 
 
 def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.Tensor,
@@ -456,5 +653,5 @@ def masked_mean_pool(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor
         raise ValueError(f"no masked pool for device {feats.device}")
     check_compute_dtype(feats.dtype)
     if _wants_grad(feats):
-        return _MaskedPool.apply(feats.contiguous(), _lengths_on(lengths, feats.device))
-    return masked_mean_pool_cuda(feats.contiguous(), lengths)
+        return _MaskedPool.apply(feats, _lengths_on(lengths, feats.device))
+    return masked_mean_pool_cuda(feats, lengths)

@@ -1008,11 +1008,16 @@ def _within(got, want, rel, name=""):
     (3, 9, 110, 56, True),    # a block's dilated conv
     (81, 9, 110, 56, True),   # taps beyond every sequence at T 40 and 200
     (1, 1, 56, 110, True),    # the 1 x 1 conv, with the residual
+    (1, 9, 20, 1100, False),  # the full widths: conv1 on the one-hot
+    (81, 9, 1100, 550, True),  # the last block's dilated conv
+    (1, 1, 550, 1100, True),  # a 1 x 1 conv with the residual
 ])
 def test_masked_conv_kernel_matches_plain_on_card(T, dilation, taps, cin, cout, prologue):
     """``masked_conv_forward`` against ``masked_conv_reference`` on the same
     bf16 tensors (5 sequences, lengths 200..0): the eval-mode BN prologue,
-    the residual add, masked rows exactly 0 (or the residual)."""
+    the residual add, masked rows exactly 0 (or the residual).  The inputs
+    are contiguous, so a width that is not a multiple of 8 goes through the
+    wrapper's copy to a padded pitch; the output comes at that pitch."""
     from protnote_tpu_torch.ops import masked_conv as k7
 
     dev = _card()
@@ -1032,6 +1037,7 @@ def test_masked_conv_kernel_matches_plain_on_card(T, dilation, taps, cin, cout, 
     want = k7.masked_conv_reference(x, w, b, lengths, dilation, bn, residual)
     torch.cuda.synchronize()
     assert k7.LAUNCHES["masked_conv_fwd"] == before + 1
+    assert got.stride(1) == k7.row_pitch(cout)
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
     pad = torch.arange(T, device=dev)[None, :] >= lengths[:, None].long()
     tail = got[pad].float()
@@ -1042,7 +1048,8 @@ def test_masked_conv_kernel_matches_plain_on_card(T, dilation, taps, cin, cout, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [40, 512])
 @pytest.mark.parametrize("dilation,taps,cin,cout", [(1, 9, 21, 110), (27, 9, 110, 56),
-                                                     (1, 1, 56, 110)])
+                                                     (1, 1, 56, 110), (81, 9, 1100, 550),
+                                                     (1, 1, 550, 1100)])
 def test_masked_conv_backward_kernels_match_plain_on_card(T, dilation, taps, cin, cout):
     """``masked_conv_dx`` and ``masked_conv_dw`` (dW and dbias) against the
     plain chain's autograd on the same bf16 tensors, a cotangent nonzero on
@@ -1181,8 +1188,9 @@ def test_masked_conv_kernels_raise_on_what_they_do_not_take():
     lengths = torch.tensor([16, 3], device=dev)
     with pytest.raises(ValueError, match="kernel"):
         k7.masked_conv_cuda(x, w.float(), b, lengths, 1)
-    with pytest.raises(ValueError, match="contiguous"):
-        k7.masked_conv_cuda(x.transpose(0, 1).contiguous().transpose(0, 1), w, b, lengths, 1)
+    with pytest.raises(ValueError, match="contiguous"):  # x at any pitch is copied; a bias not
+        k7.masked_conv_cuda(x, w, torch.zeros(12, device=dev, dtype=torch.bfloat16)[::2],
+                            lengths, 1)
     with pytest.raises(ValueError, match="MIXED_PRECISION"):
         k7.masked_conv(x.float(), {"kernel": w.float(), "bias": b.float()}, lengths, 1)
     ones = torch.ones(7, device=dev)
@@ -1190,3 +1198,87 @@ def test_masked_conv_kernels_raise_on_what_they_do_not_take():
         k7.masked_bn_relu_train(torch.zeros(2, 16, 7, device=dev, dtype=torch.bfloat16),
                                 {"scale": ones, "bias": ones}, {"mean": ones, "var": ones},
                                 lengths, None, 1e-3, 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation,taps,cin,cout,prologue", [
+    (81, 9, 1100, 550, True), (1, 1, 550, 1100, True), (1, 9, 20, 1100, False)])
+def test_masked_conv_padded_pitch_inputs_on_card(dilation, taps, cin, cout, prologue):
+    """The chain's own layout: x and the residual at the padded pitch (a
+    view of a wider buffer whose extra channels hold garbage the kernel must
+    not read), lengths T, 0, 1, T - 1 and 129 at T 300 (< 324, the reach of
+    the dilation-81 taps): the same bits as from contiguous inputs, and the
+    plain version's values; dX from a padded dy against the plain autograd."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    T = 300
+    rng = np.random.default_rng(dilation + cin)
+    p = _k7_conv(rng, taps, cin, cout, dev)
+    lengths = torch.tensor([T, 0, 1, T - 1, 129], dtype=torch.int32, device=dev)
+
+    def padded(c):
+        """(contiguous, the same values at the padded pitch)"""
+        wide = _bf16(rng, 5, T, k7.row_pitch(c), scale=1e4)  # the padding holds garbage
+        view = wide[..., :c]
+        view.copy_(_bf16(rng, 5, T, c))
+        return view.contiguous(), view
+
+    x, x_pad = padded(cin)
+    assert x_pad.stride(1) == k7.row_pitch(cin) and k7.pad_pitch(x_pad) is x_pad
+    residual, res_pad = padded(cout)
+    if taps != 1:
+        residual = res_pad = None
+    bn = None
+    if prologue:
+        bn = (torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.normal(0, 0.5, cin).astype(np.float32)).to(dev))
+    w, b = p["kernel"].to(torch.bfloat16), p["bias"].to(torch.bfloat16)
+    got = k7.masked_conv_cuda(x_pad, w, b, lengths, dilation, bn, res_pad)
+    again = k7.masked_conv_cuda(x, w, b, lengths, dilation, bn, residual)
+    want = k7.masked_conv_reference(x, w, b, lengths, dilation, bn, residual)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+    dy, dy_pad = padded(cout)
+    wg, xr = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    k7.masked_conv_reference(xr, wg, b, lengths, dilation).backward(dy)
+    dx = k7.masked_conv_dx_cuda(dy_pad, w, lengths, dilation)
+    assert torch.equal(dx, k7.masked_conv_dx_cuda(dy, w, lengths, dilation))
+    _within(dx, xr.grad, 2.0 ** -6, "dx")
+
+
+@pytest.mark.cuda
+def test_conv_entry_points_raise_on_a_pitch_off_16_bytes():
+    """The C entry points themselves refuse an input pitch that is not a
+    multiple of 8 channels (TMA reads rows that start on 16 bytes): CUDA's
+    invalid-value error, raised by the launch helper, and no launch
+    counted."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    B, T, cin, cout, taps = 2, 64, 21, 16, 3
+    x = torch.zeros(B, T, cin, device=dev, dtype=torch.bfloat16)
+    w = k7.conv_weight_layout(torch.zeros(taps, cin, cout, device=dev, dtype=torch.bfloat16),
+                              dx=False)
+    wdx = k7.conv_weight_layout(torch.zeros(taps, cin, cout, device=dev, dtype=torch.bfloat16),
+                                dx=True)
+    b = torch.zeros(cout, device=dev, dtype=torch.bfloat16)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    plan = torch.from_numpy(k7.conv_tile_plan(lengths.cpu().numpy(), T, taps, 1, cout,
+                                              False)).to(dev)
+    y = torch.empty(B, T, 16, device=dev, dtype=torch.bfloat16)
+    before = dict(k7.LAUNCHES)
+    with pytest.raises(RuntimeError, match="masked_conv_forward launch failed"):
+        k7._launch("masked_conv", "masked_conv_forward", "masked_conv_fwd", dev, x.data_ptr(),
+                   w.data_ptr(), b.data_ptr(), None, None, None, lengths.data_ptr(),
+                   plan.data_ptr(),
+                   y.data_ptr(), B, T, cin, cout, cin, 16, 0, w.shape[2], w.shape[1], taps, 1,
+                   len(plan), 1)
+    dy = torch.zeros(B, T, cout + 2, device=dev, dtype=torch.bfloat16)  # pitch 18
+    dx = torch.empty(B, T, cin, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="masked_conv_dx launch failed"):
+        k7._launch("masked_conv_bwd", "masked_conv_dx", "masked_conv_dx", dev, dy.data_ptr(),
+                   wdx.data_ptr(), lengths.data_ptr(), plan.data_ptr(), dx.data_ptr(), B, T,
+                   cin, cout, cout + 2, cin, wdx.shape[2], wdx.shape[1], taps, 1, len(plan), 1)
+    assert k7.LAUNCHES == before

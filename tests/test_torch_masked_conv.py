@@ -198,28 +198,54 @@ def test_plain_backward_bf16_rounds_like_the_transposed_convs(dilation):
 # the kernels' order of work, emulated in numpy
 
 
-def _emulate_conv_rows(x, w, lengths, dilation, dx=False, bm=16):
-    """``conv_rows_kernel``'s loops in float64: output tiles of ``bm`` rows
-    a sequence, the taps whose shifted rows meet the valid range (the rest
-    skipped), zero outside [0, length); the output mask last.  ``dx``: the
-    transposed conv (shifts negated, W read as (taps, N, K))."""
-    Bn, Tn, _ = x.shape
+def _tap_range(L, t0, taps, dilation, dx):
+    """The kernel's tap rule (``conv_tile``): the taps whose shifted rows
+    meet [0, L) for the tile's rows [t0, t0 + 128), none (jhi < jlo) for a
+    tile past the length."""
+    half, step = (taps - 1) // 2, (-dilation if dx else dilation)
+    js = [j for j in range(taps) if t0 < L and t0 + step * (j - half) < L
+          and t0 + k7.BLOCK_M + step * (j - half) > 0]
+    return (js[0], js[-1]) if js else (taps, -1)
+
+
+def _emulate_conv_rows(x, w, lengths, dilation, dx=False):
+    """``conv_tma_kernel``'s loops in float64: the tiles of
+    ``conv_tile_plan`` (128 rows of one sequence x 184 columns, the most
+    taps first), each over the taps of the kernel's rule (the rest skipped)
+    and K in 64-channel steps of the input, zero-padded to the weight
+    layout's depth (the TMA box's zero fill), against the re-laid,
+    zero-padded weights of ``conv_weight_layout``; rows read outside
+    [0, length) are zero, the output mask last; rows of the tiles not in the
+    plan stay 0 (the kernel's tail).  ``dx``: the transposed conv (shifts
+    negated, the dX layout).  Each output element is written by one tile."""
+    bm, bk = k7.BLOCK_M, k7.BLOCK_K
+    Bn, Tn, kc = x.shape
     taps = w.shape[0]
     half, step = (taps - 1) // 2, (-dilation if dx else dilation)
-    n_out = w.shape[1] if dx else w.shape[2]
-    y = np.zeros((Bn, Tn, n_out))
-    for b in range(Bn):
+    layout = k7.conv_weight_layout(torch.from_numpy(w), dx).double().numpy()
+    n_out, k_pad = (w.shape[1] if dx else w.shape[2]), layout.shape[2]
+    xp = np.zeros((Bn, Tn, k_pad))
+    xp[..., :kc] = x
+    y = np.zeros((Bn, Tn, layout.shape[1]))
+    written = np.zeros(y.shape, np.int64)
+    mtiles, ntiles = -(-Tn // bm), layout.shape[1] // k7.BLOCK_N
+    for code in k7.conv_tile_plan(lengths, Tn, taps, dilation, n_out, dx):
+        u, nt = divmod(int(code), ntiles)
+        b, mt = divmod(u, mtiles)
+        t0, cols = mt * bm, slice(nt * k7.BLOCK_N, (nt + 1) * k7.BLOCK_N)
         L = min(max(int(lengths[b]), 0), Tn)
-        for t0 in range(0, Tn, bm):
-            js = [j for j in range(taps) if t0 < L and t0 + step * (j - half) < L
-                  and t0 + bm + step * (j - half) > 0]
-            for t in range(t0, min(t0 + bm, Tn)):
-                for j in js:
-                    src = t + step * (j - half)
-                    if 0 <= src < L:
-                        y[b, t] += x[b, src] @ (w[j].T if dx else w[j])
-            y[b, t0:t0 + bm][np.arange(t0, min(t0 + bm, Tn)) >= L] = 0.0
-    return y
+        jlo, jhi = _tap_range(L, t0, taps, dilation, dx)
+        rows = np.arange(t0, min(t0 + bm, Tn))
+        for j in range(jlo, jhi + 1):
+            src = rows + step * (j - half)
+            ok = (src >= 0) & (src < L)
+            for c0 in range(0, k_pad, bk):
+                a = np.where(ok[:, None], xp[b, np.clip(src, 0, Tn - 1), c0:c0 + bk], 0.0)
+                y[b, rows, cols] += a @ layout[j, cols, c0:c0 + bk].T
+        y[b, rows[rows >= L], cols] = 0.0
+        written[b, rows, cols] += 1
+    assert written.max() <= 1
+    return y[..., :n_out]
 
 
 def _emulate_dw(x, g, lengths, taps, dilation, splits, bk=8):

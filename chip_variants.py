@@ -60,10 +60,45 @@ conv (one-hot 20 -> 1,100 channels), a block's dilated conv (1,100 -> 550,
 9 taps) at dilations 1, 9 and 81, and its 1 x 1 conv (550 -> 1,100), each
 as ``masked_conv_forward`` without and with the eval BN prologue and with
 the residual, ``masked_conv_dx`` and ``masked_conv_dw``, beside cuDNN's
-conv1d and its backward data on the same shape; inputs at the chain's
-padded pitch and the weights re-laid once (the kernels alone); with the
-TFLOP/s of the forward (with and without the prologue) and of dX on the
-products these lengths need; and each wrapper's host time a call.
+conv1d, its backward data and its backward filter on the same shape;
+inputs at the chain's padded pitch and the weights re-laid once (the
+kernels alone); with the TFLOP/s of the forward (with and without the
+prologue), of dX and of dW on the products these lengths need, dW's
+splits and the bytes of its float32 partials; and each wrapper's host
+time a call.  Then dW (``csrc/masked_conv_bwd.cu``) built with parts of its
+work taken out (timing only: the results are wrong): without the x boxes'
+loads, without the dy boxes' loads, without forming A (constant fragments
+instead of ``ldmatrix.trans``), without the position mask, and with every
+step's count read as 64; each timed beside the kept kernel on the dilated
+shapes, in turns, through the C entry point.
+
+    python3 chip_variants.py --k8a-bwd
+
+times K8a-bwd at ``chip_smoke.py``'s shapes (a) 128 x 128 and (c) causal
+128 x 128: the one-pass kernel (the port's at T <= 128), the two-kernel
+form on the same tensors (``two_kernel_backward_cuda``), SDPA's backward
+with the same additive mask, and the one-pass kernel built with parts of
+its work taken out (timing only: without its four TMA loads, without its
+three TMA output stores, without expf and the divisions), in turns over 7
+rounds (medians; SDPA's time is noisy from run to run), each against the
+plain backward, with ptxas's registers and spills.
+
+    python3 chip_variants.py --qk-noise
+
+finds where the bf16 noise of the tower's q and k gradients enters:
+E5-large (24 layers, random weights) with LoRA (rank 4, alpha 8) on its
+last 2 layers, 128 descriptions of 16-128 tokens padded to 128, one fixed
+cotangent on the pooled embeddings, as ``chip_smoke.py``'s tower-gradient
+check; the chain rebuilt in float32 arithmetic with a bf16 rounding (of
+the value, and of its gradient on the way back) at each rounding point of
+the bf16 chain (the embeddings stay float32), and each point raised to
+float32 alone: the frozen weights, the q/k/v projections, the LoRA deltas,
+P, dP, the attention output, the output projection, the residual adds, the
+LayerNorm outputs and the FFN, then all of them, and all but one (that
+point the only one rounded).  Prints
+the q and k leaves' and the other leaves' L2 distance to the float32 chain
+for each, beside the plain bf16 chain and the kernels' chain (with the
+one-pass K8a-bwd and with the two-kernel form).
 
     python3 chip_variants.py --eval-against DIR
 
@@ -176,6 +211,96 @@ K3_SUBS = {
         "    if (bin >= 0 && s_micro[i]) atomicAdd(&micro[(i / HALF) * nb + bin], s_micro[i]);\n",
         "    (void)bin;\n")],
 }
+
+
+# text replaced in masked_conv_bwd.cu (dW): (old, new), each old found exactly once
+K7_DW_SUBS = {
+    "no_x_load": [(
+        "          mbar_expect_tx(full_bar(s), DW_STAGE);\n"
+        "          tma_load_3d(st, &tm_x, w.m0, t0 + w.s, b, full_bar(s));\n"
+        "          tma_load_3d(st + DW_BOX, &tm_x, w.m0 + 64, t0 + w.s, b, full_bar(s));\n",
+        "          mbar_expect_tx(full_bar(s), DW_STAGE - DW_X_BYTES);\n")],
+    "no_dy_load": [(
+        "          mbar_expect_tx(full_bar(s), DW_STAGE);\n",
+        "          mbar_expect_tx(full_bar(s), DW_X_BYTES);\n"), (
+        "            tma_load_3d(st + DW_X_BYTES + i * DW_BOX, &tm_dy, w.n0 + 64 * i, t0, b, full_bar(s));\n",
+        "            (void)i;\n")],
+    "no_a_formation": [(
+        "        ldsm_x4_trans(c, box + kk * 16 * 128 + ld_off);\n",
+        "        c[0] = c[1] = c[2] = c[3] = 0x3f803f80u + kk;\n")],
+    "no_mask": [("          fa[P][kk][i] = c[i] & keep;\n",
+                 "          fa[P][kk][i] = c[i];\n          (void)keep;\n")],
+    "no_step_read": [("      const int rows = a.steps[2 * k + 1] >> 16;\n",
+                      "      const int rows = 64;\n")],
+}
+
+
+def k7_dw_variants(build_dir: str, card: str) -> None:
+    """dW kept and with parts taken out, on the dilated shapes at 32 x 512,
+    in turns, through each library's C entry point."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    base = (kernels.CSRC_DIR / "masked_conv_bwd.cu").read_text()
+    jobs = {}
+    for name, subs in [("kept", [])] + list(K7_DW_SUBS.items()):
+        text = base
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K7 dW variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"masked_conv_bwd_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"libmasked_conv_bwd_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    fns = {}
+    for name, (_, out) in jobs.items():
+        cs.log("k7_dw_variant_ptxas", variant=name, ptxas=logs[name])
+        fn = ctypes.CDLL(out).masked_conv_dw
+        fn.argtypes = k7._ARGS[("masked_conv_bwd", "masked_conv_dw")]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    dev, bf16, B, T = torch.device("cuda"), torch.bfloat16, cs.B, 512
+    lengths = torch.from_numpy(cs.k7_lengths(np.random.default_rng(3), T)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stream = torch.cuda.current_stream().cuda_stream
+    for d in (1, 9, 81):
+        taps, cin, cout = 9, 1100, 550
+        x = k7.pad_pitch(torch.randn(B, T, cin, generator=gen, device=dev).to(bf16))
+        dy = k7.pad_pitch(torch.randn(B, T, cout, generator=gen, device=dev).to(bf16))
+        plan = k7._dw_plan_on(lengths, T, taps, d, cin, cout, dev)
+        bias_part = torch.empty(B, cout, device=dev)
+        dw = torch.empty(taps, cin, cout, device=dev, dtype=bf16)
+        db = torch.empty(cout, device=dev, dtype=bf16)
+
+        def call(fn):
+            def run():
+                err = fn(x.data_ptr(), dy.data_ptr(), lengths.data_ptr(), plan.data_ptr(), None,
+                         bias_part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, T, cin, cout,
+                         x.stride(1), dy.stride(1), taps, d, plan.splits, plan.items,
+                         k7._num_sms(dev), stream)
+                if err != 0:
+                    raise RuntimeError(f"masked_conv_dw variant: CUDA error {err}")
+            return run
+
+        runs = {name: call(fn) for name, fn in fns.items()}
+        times = {name: [] for name in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                times[name].append(cs.cuda_time_ms(runs[name], 20))
+        flop = 2.0 * cin * cout * cs.conv_rows(lengths.cpu().numpy(), T, taps, d)
+        cs.log("k7_dw_variants", dilation=d, ms=times,
+               tflops={n: flop / (sum(t) / len(t)) / 1e9 for n, t in times.items()}, card=card)
+        del x, dy, dw
+        torch.cuda.empty_cache()
 
 
 # text replaced in pair_train_bwd.cu: (old, new), each old found exactly once
@@ -747,7 +872,9 @@ def k7_shapes(card: str) -> None:
             "cudnn_conv1d": cs.cuda_time_ms(lambda: F.conv1d(x_t, w_t, padding=pad,
                                                              dilation=d), 20),
             "cudnn_backward_data": cs.cuda_time_ms(lambda: torch.nn.grad.conv1d_input(
-                x_t.shape, w_t, dy_t, padding=pad, dilation=d), 20)}
+                x_t.shape, w_t, dy_t, padding=pad, dilation=d), 20),
+            "cudnn_backward_filter": cs.cuda_time_ms(lambda: torch.nn.grad.conv1d_weight(
+                x_t, w_t.shape, dy_t, padding=pad, dilation=d), 20)}
         # the wrappers' host time a call (no synchronisation between calls):
         # with the cached layout as evaluation runs it, and re-laying W (and
         # copying a contiguous dy to the pitch) at every call as training does
@@ -757,11 +884,278 @@ def k7_shapes(card: str) -> None:
             ("fwd_relaid", lambda: k7.masked_conv_cuda(x, w, b, lengths, d)),
             ("dx_relaid_dy_copied", lambda: k7.masked_conv_dx_cuda(dy_flat, w, lengths, d)))}
         flop = 2.0 * cin * cout * cs.conv_rows(lens, T, taps, d)
+        plan = k7._dw_plan_on(lengths, T, taps, d, cin, cout, dev)
         cs.log("k7_shape", shape=name, cin=cin, cout=cout, taps=taps, dilation=d, ms=ms,
                fwd_tflops=flop / ms["fwd"] / 1e9, fwd_bn_tflops=flop / ms["fwd_bn"] / 1e9,
-               dx_tflops=flop / ms["dx"] / 1e9, host_us=host_us, card=card)
+               dx_tflops=flop / ms["dx"] / 1e9, dw_tflops=flop / ms["dw"] / 1e9,
+               dw_splits=plan.splits, dw_items=plan.items,
+               dw_partial_bytes=4 * plan.splits * taps * cin * cout if plan.splits > 1 else 0,
+               host_us=host_us, card=card)
     cs.log("k7_ptxas", forward=cs.k7_ptxas("masked_conv"),
            backward=cs.k7_ptxas("masked_conv_bwd"), card=card)
+
+
+# text replaced in text_attention_bwd.cu (the one-pass kernel): (old, new),
+# each old found exactly once
+K8A_BWD_SUBS = {
+    "no_loads": [(
+        "    mbar_expect_tx(bar, 4 * OP_TILE);\n"
+        "    tma_load_3d(base + OP_Q, &tm_q, 0, 0, bh, bar);\n"
+        "    tma_load_3d(base + OP_K, &tm_k, 0, 0, bh, bar);\n"
+        "    tma_load_3d(base + OP_V, &tm_v, 0, 0, bh, bar);\n"
+        "    tma_load_3d(base + OP_G, &tm_g, 0, 0, bh, bar);\n",
+        "    mbar_expect_tx(bar, 0);\n")],
+    "no_stores": [(
+        "    tma_store_3d(&tm_dq, out_q, 0, wg * 64, bh);\n"
+        "    tma_store_3d(&tm_dv, out_v, 0, wg * 64, bh);\n"
+        "    tma_store_3d(&tm_dk, out_k, 0, wg * 64, bh);\n",
+        "    (void)out_k;\n")],
+    "no_exp_div": [(
+        "    s[i] = expf(__fsub_rn(s[i], m[(i >> 1) & 1]));  // y\n",
+        "    s[i] = __fsub_rn(s[i], m[(i >> 1) & 1]);  // y\n"), (
+        "                pack_bf16x2(div_rn(s[i], z[h], rz[h]), div_rn(s[i + 1], z[h], rz[h])));\n",
+        "                pack_bf16x2(__fmul_rn(s[i], rz[h]), __fmul_rn(s[i + 1], rz[h])));\n"), (
+        "__fadd_rn(div_rn(dp[i + e], z[h], rz[h]), -D[h])",
+        "__fadd_rn(__fmul_rn(dp[i + e], rz[h]), -D[h])")],
+}
+
+
+def k8a_bwd_turns(build_dir: str, card: str) -> None:
+    """``--k8a-bwd``: the one-pass kernel, the two-kernel form, SDPA's
+    backward and the one-pass kernel with parts taken out, in turns at (a)
+    and (c)."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    lib = kernels.load_kernel_library("text_attention_bwd")
+    ptxas = [x.strip() for x in lib.build_log.splitlines() if "registers" in x or "spill" in x]
+    base = (kernels.CSRC_DIR / "text_attention_bwd.cu").read_text()
+    jobs = {}
+    for name, subs in K8A_BWD_SUBS.items():
+        text = base
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K8a-bwd variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"text_attention_bwd_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"libtext_attention_bwd_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda j: nvcc(*j), jobs.values()))
+    variants = {}
+    for name, (_, out) in jobs.items():
+        fn = ctypes.CDLL(out).masked_attention_backward
+        fn.argtypes = k8a._BWD_ARGS
+        fn.restype = ctypes.c_int
+        variants[name] = fn
+    nh, hd, rounds = 16, 64, 7
+    gen = torch.Generator().manual_seed(40)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    for shape, Bq, T, lo, hi, causal in cs.K8_SHAPES:
+        if T > k8a.ONE_PASS_T:
+            continue
+        _, mask = cs.token_batch(gen, Bq, T, lo, hi, 100, 1)
+        q, k, v, g = (torch.randn(Bq, nh, T, hd, generator=gen).to(dev, bf16) for _ in range(4))
+        keep = (mask > 0)[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        add_mask = torch.where(keep, 0.0, k8a.MASKED).to(bf16)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        ctx = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=add_mask)
+        want = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+        outs = [torch.empty_like(q) for _ in range(3)]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def variant(fn):
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), mask.data_ptr(),
+                         *(o.data_ptr() for o in outs), None, Bq, nh, T, hd, int(causal),
+                         k8a.scale_for(hd), stream)
+                if err != 0:
+                    raise RuntimeError(f"K8a-bwd variant: CUDA error {err}")
+                return outs
+            return call
+
+        run = {"one_pass": lambda: k8a.masked_attention_backward_cuda(q, k, v, mask, causal, g),
+               "two_kernels": lambda: k8a.two_kernel_backward_cuda(q, k, v, mask, causal, g),
+               "sdpa_backward": lambda: torch.autograd.grad(ctx, (ql, kl, vl), g,
+                                                            retain_graph=True),
+               **{f"one_pass_{n}": variant(fn) for n, fn in variants.items()}}
+        rel = {}
+        for name in ("one_pass", "two_kernels", "sdpa_backward"):
+            got = run[name]()
+            rel[name] = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                            for a, b in zip(got, want))
+        readings = {name: [] for name in run}
+        for _ in range(rounds):
+            for name, fn in run.items():
+                readings[name].append(cs.cuda_time_ms(fn, 20))
+        med = {n: statistics.median(r) for n, r in readings.items()}
+        cs.log("k8a_bwd_turns", shape=shape, batch=Bq, tokens=T, causal=causal, rel_err=rel,
+               median_ms=med, readings=readings,
+               one_pass_over_sdpa=med["one_pass"] / med["sdpa_backward"],
+               bound_ms=cs.bound(nbytes=7.0 * q.numel() * 2 + 4.0 * mask.numel(),
+                                 ops=10.0 * Bq * nh * T * T * hd * (0.5 if causal else 1.0)),
+               ptxas=ptxas, card=card)
+        del q, k, v, g, ql, kl, vl, ctx, want, add_mask
+        torch.cuda.empty_cache()
+
+
+# the rounding points of the tower's bf16 chain that --qk-noise raises one
+# at a time ("probs" rounds P, "dprobs" its gradient dP)
+QK_POINTS = ("weights", "qkv", "lora", "probs", "dprobs", "ctx", "o_proj", "residual", "ln",
+             "ffn")
+
+
+def qk_noise(card: str) -> None:
+    """``--qk-noise``: the q and k LoRA leaves' L2 distance to the float32
+    chain with each bf16 rounding point of the tower raised alone."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.models import text_transformer as tt
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    cfg = tt.TextEncoderConfig.e5_large(dtype=bf16)
+    text = tt.init_text_encoder(torch.Generator(device="cuda").manual_seed(42), cfg, "cuda")
+    lora = tt.init_lora(torch.Generator(device="cuda").manual_seed(43), cfg,
+                        rank=cs.TOWER_LORA_RANK, last_n_layers=cs.TOWER_TRAIN_LAYERS,
+                        device="cuda")
+    gen = torch.Generator().manual_seed(41)
+    for entry in lora.values():  # B non-zero, as chip_smoke.py's tower runs
+        for t in entry.values():
+            t["B"] = 1e-3 * torch.randn(t["B"].shape, generator=gen).to(dev)
+    ids, am = cs.tower_token_table(gen, 128, cfg.vocab_size, cfg.pad_token_id)
+    ids, am = torch.from_numpy(ids).to(dev), torch.from_numpy(am).to(dev)
+    cot = torch.randn(ids.shape[0], cfg.hidden_size, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    leaves = [(f"/{li}/{t}/{ab}", lora[li][t][ab]) for li in sorted(lora)
+              for t in sorted(lora[li]) for ab in ("A", "B")]
+    alpha, rank = cs.TOWER_LORA_ALPHA, cs.TOWER_LORA_RANK
+
+    def grads(forward, text_cfg):
+        for _, t in leaves:
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                hidden = forward(text, ids, am, text_cfg, lora=lora, lora_alpha=alpha,
+                                 lora_rank=rank)
+                pooled = tt.pool_hidden_states(hidden, am, "mean")
+                out = torch.autograd.grad((pooled.float() * cot).sum(), [t for _, t in leaves])
+        finally:
+            for _, t in leaves:
+                t.requires_grad_(False)
+        return {n: g.float() for (n, _), g in zip(leaves, out)}
+
+    class Round(torch.autograd.Function):
+        """bf16 rounding of a float32 value (``fwd``) and of its gradient
+        (``bwd``), as a bf16 tensor of the chain has both."""
+
+        @staticmethod
+        def forward(ctx, t, fwd, bwd):
+            ctx.bwd = bwd
+            return t.to(bf16).float() if fwd else t.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return (g.to(bf16).float() if ctx.bwd else g), None, None
+
+    def rounded_forward(raised):
+        """``text_encoder_forward_reference``'s chain in float32 arithmetic
+        with the bf16 chain's roundings, but those of ``raised``."""
+        def r(point, t):
+            return Round.apply(t, point not in raised, point not in raised)
+
+        def project(lp, name, x, lora_entry, scaling):
+            point = "qkv" if name in ("q", "k", "v") else "o_proj" if name == "o" else "ffn"
+            if name == "fc2":
+                x = r("ffn", x)  # the GELU's output
+            w = Round.apply(lp[name]["kernel"], "weights" not in raised, False)
+            y = r(point, x @ w)
+            if "bias" in lp[name]:
+                y = r(point, y + Round.apply(lp[name]["bias"], "weights" not in raised, False))
+            if lora_entry is not None and name in lora_entry:
+                a, b = (r("lora", lora_entry[name][n]) for n in ("A", "B"))
+                d = r("lora", r("lora", x @ a.T) @ b.T)
+                y = r(point, y + r("lora", d * scaling))
+            return y
+
+        def core(q, k, v, key_mask, causal):
+            T, hd = q.shape[2], q.shape[3]
+            keep = (key_mask > 0)[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+            scores = (q @ k.transpose(-1, -2)) * k8a.scale_for(hd) + torch.where(
+                keep, 0.0, k8a.MASKED)
+            e = torch.exp(scores - scores.amax(-1, keepdim=True))
+            p = Round.apply(e / e.sum(-1, keepdim=True), "probs" not in raised,
+                            "dprobs" not in raised)
+            return r("ctx", p @ v)
+
+        def norm(x, residual, scale, bias, eps):
+            if residual is not None:
+                x = r("residual", x + residual)
+            mu = x.mean(-1, keepdim=True)
+            rs = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + eps)
+            return r("ln", (x - mu) * rs * scale + bias)
+
+        def forward(params, input_ids, attention_mask, text_cfg, lora, lora_alpha, lora_rank):
+            saved = tt._project
+            tt._project = project
+            try:
+                return tt._forward(params, input_ids, attention_mask,
+                                   dataclasses.replace(text_cfg, dtype=f32), lora, lora_alpha,
+                                   lora_rank, core, norm)
+            finally:
+                tt._project = saved
+        return forward
+
+    ref = grads(tt.text_encoder_forward_reference, dataclasses.replace(cfg, dtype=f32))
+
+    def l2(got):
+        def err(names):
+            num = sum(float(((got[n] - ref[n]) ** 2).sum()) for n in names)
+            return (num / sum(float((ref[n] ** 2).sum()) for n in names)) ** 0.5
+        qk = [n for n in ref if n.split("/")[-2] in ("q", "k")]
+        other = [n for n in ref if n not in qk]
+        return {"q_k": err(qk), "other": err(other),
+                "q_k_worst_leaf": max(err([n]) for n in qk)}
+
+    two = k8a.two_kernel_backward_cuda
+    chains = {"plain_bf16": grads(tt.text_encoder_forward_reference, cfg),
+              "kernels": grads(tt.text_encoder_forward, cfg)}
+    saved = k8a.masked_attention_backward_cuda
+    k8a.masked_attention_backward_cuda = two
+    try:
+        chains["kernels_two_kernel_bwd"] = grads(tt.text_encoder_forward, cfg)
+    finally:
+        k8a.masked_attention_backward_cuda = saved
+    out = {name: l2(g) for name, g in chains.items()}
+    # what chip_smoke.py's check holds within 5e-2: the worst leaf's L2
+    # distance of the kernels' chain to the plain bf16 chain
+    plain = chains["plain_bf16"]
+    out["kernels_vs_plain_bf16_worst_leaf"] = {
+        key: max(float((chains[key][n] - plain[n]).norm() / plain[n].norm()) for n in ref)
+        for key in ("kernels", "kernels_two_kernel_bwd")}
+    # each point raised alone, and each point the only one left rounded
+    rounded = {"none": (), "all": QK_POINTS, **{p: (p,) for p in QK_POINTS},
+               **{f"all_but_{p}": tuple(x for x in QK_POINTS if x != p) for p in QK_POINTS}}
+    for name, raised in rounded.items():
+        out[f"raised_{name}"] = l2(grads(rounded_forward(set(raised)), cfg))
+        cs.log("qk_noise_point", raised=name, **out[f"raised_{name}"], card=card)
+    cs.log("qk_noise", leaves=len(ref), descriptions=int(ids.shape[0]), tokens=int(ids.shape[1]),
+           results=out, card=card)
 
 
 def main() -> None:
@@ -804,6 +1198,17 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--k7"]:
         k7_shapes(card)
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k7_dw_variants(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k8a-bwd"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k8a_bwd_turns(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--qk-noise"]:
+        qk_noise(card)
         print(card)
         return
     if sys.argv[1:2] == ["--k3"]:

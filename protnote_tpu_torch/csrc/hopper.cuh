@@ -6,9 +6,12 @@
 // the wgmma fence/commit/wait instructions and the bf16 m64nNk16 products
 // (Mma); and the shared-memory address, bf16 packing and division helpers.
 // masked_conv.cuh (K7's conv and its dX) takes the pitched 3-D map and the
-// register-A Mma<184>.
-// text_attention.cu takes the descriptors, the wgmma instructions, the
-// async-proxy fence, the transposed ldmatrix and those helpers.
+// register-A Mma<184>; K4-bwd's and K7-bwd's dW (pair_train_bwd.cu,
+// masked_conv_bwd.cu) the MN-major descriptor and the register-A products
+// with B transposed (MmaRsT).
+// text_attention.cu and text_attention_bwd.cu take the descriptors, the
+// wgmma instructions, the async-proxy fence, the transposed ldmatrix and
+// those helpers.
 // ops/kernels.py hashes every csrc/*.cuh with each source, so an edit here
 // rebuilds every library that includes it.
 
@@ -130,6 +133,15 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
+// wgmma shared-memory descriptor of an MN-major tile with 128-byte swizzle
+// (the layout TMA writes for boxes of 64 bf16 columns): 8-row groups along
+// the reduction 1024 bytes apart (stride byte offset), 64-column blocks
+// along N `lbo` bytes apart (leading byte offset: the next box).
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -161,6 +173,7 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
   D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88), F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
 #define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define D92(d) D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F4(d, 88)
+#define D96(d) D64(d), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88)
 #define I8(d, i)                                                                        \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
       "+r"(d[i + 6]), "+r"(d[i + 7])
@@ -271,6 +284,74 @@ struct Mma<184> {
         " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91}, "
         "{%92, %93, %94, %95}, %96, p, 1, 1, 0;\n}\n"
         : D92(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// wgmma m64nBNk16, bf16 in, f32 accumulators, A from registers (four .b32
+// of two bf16 each, in the m16n8k16 A-fragment layout of the thread's warp),
+// B through the descriptor of an MN-major tile (the transpose bit set).
+// scale_d 0 overwrites.
+template <int BN>
+struct MmaRsT;
+
+template <>
+struct MmaRsT<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : D128(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// N = 192: three 64-column boxes (550 -> 3 x 192, 1100 -> 6 x 192)
+template <>
+struct MmaRsT<192> {
+  static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : D96(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaRsT<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : D64(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };

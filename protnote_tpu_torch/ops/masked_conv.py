@@ -22,8 +22,8 @@ Three hand-written CUDA sources carry it on the card (bf16 only):
   epilogue, and ``masked_mean_pool``;
 * ``csrc/masked_conv_bwd.cu``: ``masked_conv_dx`` (the transposed dilated
   conv on the forward's mainloop, masks on both sides) and
-  ``masked_conv_dw`` (dW a tap and dbias, split over sequences and summed in
-  a fixed order);
+  ``masked_conv_dw`` (dW a tap on TMA + wgmma over the K steps of a
+  host-built plan, :func:`dw_step_plan`, summed in a fixed order; dbias);
 * ``csrc/masked_bn.cu``: the train-mode masked BN + ReLU of the JAX
   ``batchnorm_apply(train=True, reduce_axes=(0, 1), mask, count)`` with its
   count rule (:func:`bn_mask_and_count`), forward and backward.
@@ -38,7 +38,8 @@ its output at that pitch.  The weights are re-laid once a version
 (:func:`conv_weight_layout`, cached on the parameter tensor by
 :func:`weight_layout`; re-laid every call under autograd), and each call
 runs the tiles of a plan built on the host from the lengths
-(:func:`conv_tile_plan`; the lengths are read back once a tensor).
+(:func:`conv_tile_plan`, and for dW :func:`dw_step_plan`; the lengths are
+read back once a tensor).
 
 :func:`masked_conv`, :func:`masked_bn_relu_train` and
 :func:`masked_mean_pool` dispatch on the device: CPU tensors take the plain
@@ -76,7 +77,6 @@ LAUNCHES = {"masked_conv_fwd": 0, "masked_mean_pool": 0, "masked_conv_dx": 0,
 _launch_lock = threading.Lock()
 
 _H100_SMS = 132
-_DW_TILE = 128  # masked_conv_dw's C_in x C_out block tile
 _BN_MIN_CHUNK_ROWS = 256  # rows of a BN column-sum chunk, at least
 _BN_MAX_CHUNKS = 128
 
@@ -275,6 +275,92 @@ def _plan_on(lengths: torch.Tensor, T: int, taps: int, dilation: int, n: int, dx
     return _cached(lengths, ("plan", T, taps, dilation, n, dx, str(device)), make)
 
 
+DW_BLOCK_M = 128  # input channels of a dW tile (csrc/masked_conv_bwd.cu DW_BM)
+DW_BLOCK_N = 192  # output channels of a dW tile (DW_BN): 550 -> 3 x 192, 1100 -> 6 x 192
+DW_STEP = 64  # positions of a dW K step (DW_BK), all of one sequence
+
+
+def dw_tiles(taps: int, cin: int, cout: int) -> int:
+    """dW's output tiles: one a (tap, row tile, column tile)."""
+    return taps * -(-cin // DW_BLOCK_M) * -(-cout // DW_BLOCK_N)
+
+
+def dw_splits(taps: int, cin: int, cout: int, sms: int = _H100_SMS) -> int:
+    """How many ranges ``masked_conv_dw`` cuts each tap's K steps into: the
+    most that keep its work items within one wave of ``sms`` blocks, at
+    least one (a step's full width: 9 x 1,100 x 550 has 243 tiles, 1;
+    1 x 550 x 1,100 has 30, 4; conv1's 9 x 20 x 1,100 has 54, 2).  Each
+    split past the first costs float32 partials of the whole dW."""
+    return max(1, sms // dw_tiles(taps, cin, cout))
+
+
+def dw_step_plan(lengths, T: int, taps: int, dilation: int, cin: int, cout: int,
+                 sms: int = _H100_SMS) -> Tuple[np.ndarray, int, int]:
+    """``masked_conv_dw``'s schedule: ``(plan, splits, n_items)``, plan an
+    int32 array of
+
+    * ``n_items`` item codes ``((j * splits + sp) * mtiles + mt) * ntiles +
+      nt`` (tap j, split sp, row tile mt of 128 input channels, column tile
+      nt of 192 output channels), the most K steps first (ties in code
+      order), every other wave of ``sms`` items reversed: the persistent
+      blocks take items i, i + sms, ..., so a block with a long first item
+      gets a short second one;
+    * ``taps * splits + 1`` offsets: the steps of (j, sp) are
+      ``[offsets[j * splits + sp], offsets[j * splits + sp + 1])``;
+    * the steps, two words each: ``b`` and ``t0 | rows << 16``.
+
+    Tap j (shift s = dilation * (j - (taps - 1) // 2)) needs the positions t
+    of sequence b with t < L and 0 <= t + s < L, i.e. [max(0, -s), min(L, L
+    - s)); its steps cover them in (b, t) order, 64 positions at most and
+    never two sequences a step (``rows`` of them valid from t0), and split
+    sp takes steps [floor(sp n / splits), floor((sp + 1) n / splits)) of the
+    tap's n."""
+    lens = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, T)
+    if T > 0xFFFF:
+        raise ValueError(f"dW's plan packs a position in 16 bits: T {T} is too long")
+    splits = dw_splits(taps, cin, cout, sms)
+    mtiles, ntiles = -(-cin // DW_BLOCK_M), -(-cout // DW_BLOCK_N)
+    shift = dilation * (np.arange(taps) - (taps - 1) // 2)
+    lo = np.maximum(0, -shift)[:, None]  # (taps, 1)
+    hi = np.minimum(lens[None, :], lens[None, :] - shift[:, None])  # (taps, B)
+    n = np.maximum(0, -(-(hi - lo) // DW_STEP)).reshape(-1)  # steps of each (tap, sequence)
+    pair = np.repeat(np.arange(n.size), n)  # each step's (tap, sequence)
+    t0 = np.repeat(lo, len(lens), axis=1).reshape(-1)[pair] + DW_STEP * (
+        np.arange(pair.size) - np.repeat(np.cumsum(n) - n, n))
+    rows = np.minimum(DW_STEP, hi.reshape(-1)[pair] - t0)
+    steps = np.stack([pair % len(lens), t0 | (rows << 16)], axis=1)
+    counts = n.reshape(taps, -1).sum(axis=1)  # steps of each tap
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    offsets = np.concatenate([
+        (starts[:-1, None] + np.arange(splits)[None, :] * counts[:, None] // splits).reshape(-1),
+        starts[-1:]])
+    work = np.diff(offsets)  # steps of each (j, sp)
+    order = np.argsort(-work, kind="stable")
+    tiles = np.arange(mtiles * ntiles)
+    items = (order[:, None] * (mtiles * ntiles) + tiles[None, :]).reshape(-1)
+    for w0 in range(sms, len(items), 2 * sms):
+        items[w0:w0 + sms] = items[w0:w0 + sms][::-1].copy()
+    plan = np.concatenate([items, offsets, steps.reshape(-1)])
+    return plan.astype(np.int32), splits, len(items)
+
+
+def _dw_plan_on(lengths: torch.Tensor, T: int, taps: int, dilation: int, cin: int, cout: int,
+                device) -> torch.Tensor:
+    """:func:`dw_step_plan` as an int32 tensor on ``device`` (``.splits``,
+    ``.items``), kept on the lengths tensor as :func:`_plan_on` keeps the
+    conv plans (the same read-back of the lengths)."""
+    def make():
+        host = (lengths if lengths.device.type == "cpu"
+                else _cached(lengths, "host", lambda: lengths.cpu()))
+        plan, splits, items = dw_step_plan(host.numpy(), T, taps, dilation, cin, cout,
+                                           _num_sms(device))
+        out = torch.from_numpy(plan).pin_memory().to(device, non_blocking=True)
+        out.splits, out.items = splits, items
+        return out
+
+    return _cached(lengths, ("dw_plan", T, taps, dilation, cin, cout, str(device)), make)
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(device) -> int:
     """The conv kernels' grid: one persistent block an SM (those left without
@@ -290,7 +376,7 @@ _ARGS = {
     ("masked_conv", "masked_conv_forward"): [_P] * 9 + [_I] * 13 + [_P],
     ("masked_conv", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
-    ("masked_conv_bwd", "masked_conv_dw"): [_P] * 7 + [_I] * 9 + [_P],
+    ("masked_conv_bwd", "masked_conv_dw"): [_P] * 8 + [_I] * 11 + [_P],
     ("masked_bn", "masked_bn_relu_forward"): [_P] * 7 + [_F] * 3 + [_P] * 6 + [_I] * 4
                                              + [_LL, _P],
     ("masked_bn", "masked_bn_relu_backward"): [_P] * 14 + [_I] * 4 + [_LL, _P],
@@ -431,32 +517,34 @@ def masked_conv_dx_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: torch.T
     return dx
 
 
-def dw_splits(B: int, taps: int, cin: int, cout: int) -> int:
-    """Sequence ranges of ``masked_conv_dw``: enough blocks for four of them
-    an SM, at most one range a sequence."""
-    tiles = taps * math.ceil(cin / _DW_TILE) * math.ceil(cout / _DW_TILE)
-    return max(1, min(B, math.ceil(4 * _H100_SMS / tiles)))
-
-
 def masked_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Tensor,
                         taps: int, dilation: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``masked_conv_dw``: ``(dW (taps, C_in, C_out), dbias (C_out,))`` bf16
     from the conv's input ``x`` (B, T, C_in) and output gradient ``dy``,
-    each at any row pitch."""
+    each at any row pitch (one that is not a multiple of 8 is copied into a
+    padded buffer first); the K steps of :func:`dw_step_plan`, kept on the
+    lengths tensor."""
     B, T, cin = x.shape
     cout = dy.shape[2]
-    x, x_pitch = _rows("x", x, (B, T, cin), x.device)
-    dy, dy_pitch = _rows("dy", dy, (B, T, cout), x.device)
-    lengths = _lengths_on(lengths, x.device)
-    splits = dw_splits(B, taps, cin, cout)
-    partial = torch.empty(splits, taps, cin, cout, dtype=torch.float32, device=x.device)
-    bias_part = torch.empty(B, cout, dtype=torch.float32, device=x.device)
-    dw = torch.empty(taps, cin, cout, dtype=torch.bfloat16, device=x.device)
-    db = torch.empty(cout, dtype=torch.bfloat16, device=x.device)
-    _launch("masked_conv_bwd", "masked_conv_dw", "masked_conv_dw", x.device, x.data_ptr(),
-            dy.data_ptr(), lengths.data_ptr(), partial.data_ptr(), bias_part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), B, T, cin, cout, x_pitch, dy_pitch, taps, dilation,
-            splits)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"masked_conv_dw needs CUDA tensors, not {dev}")
+    for name, t, c in (("x", x, cin), ("dy", dy, cout)):
+        if t.device != dev or t.dtype != torch.bfloat16 or tuple(t.shape) != (B, T, c):
+            raise ValueError(f"{name} must be bf16 {(B, T, c)} on {dev}, not {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    xp, dyp = pad_pitch(x), pad_pitch(dy)
+    plan = _dw_plan_on(lengths, T, taps, dilation, cin, cout, dev)
+    lengths = _lengths_on(lengths, dev)
+    partial = (torch.empty(plan.splits, taps, cin, cout, dtype=torch.float32, device=dev)
+               if plan.splits > 1 else None)
+    bias_part = torch.empty(B, cout, dtype=torch.float32, device=dev)
+    dw = torch.empty(taps, cin, cout, dtype=torch.bfloat16, device=dev)
+    db = torch.empty(cout, dtype=torch.bfloat16, device=dev)
+    _launch("masked_conv_bwd", "masked_conv_dw", "masked_conv_dw", dev, xp.data_ptr(),
+            dyp.data_ptr(), lengths.data_ptr(), plan.data_ptr(), _ptr(partial),
+            bias_part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, T, cin, cout, xp.stride(1),
+            dyp.stride(1), taps, dilation, plan.splits, plan.items, _num_sms(dev))
     return dw, db
 
 
@@ -535,9 +623,12 @@ def masked_bn_relu_backward_cuda(x: torch.Tensor, y: torch.Tensor, dy: torch.Ten
 
 class _MaskedConv(torch.autograd.Function):
     # The weights are re-laid at every call (they change every step): for the
-    # forward here, for dX in the backward.
+    # forward here, for dX in the backward.  The input is saved at the padded
+    # pitch (the copy the forward reads anyway) and dy is copied to it once,
+    # for dX and dW, which both read them through TMA.
     @staticmethod
     def forward(ctx, x, kernel, bias, residual, lengths, dilation):
+        x = pad_pitch(x)
         ctx.save_for_backward(x, kernel, lengths)
         ctx.dilation = dilation
         return masked_conv_cuda(x, kernel, bias, lengths, dilation, residual=residual)
@@ -546,10 +637,11 @@ class _MaskedConv(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel, lengths = ctx.saved_tensors
         dx = dw = db = None
+        dy = pad_pitch(g)
         if ctx.needs_input_grad[0]:
-            dx = masked_conv_dx_cuda(g, kernel, lengths, ctx.dilation)
+            dx = masked_conv_dx_cuda(dy, kernel, lengths, ctx.dilation)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw, db = masked_conv_dw_cuda(x, g, lengths, kernel.shape[0], ctx.dilation)
+            dw, db = masked_conv_dw_cuda(x, dy, lengths, kernel.shape[0], ctx.dilation)
         return dx, dw, db, (g if ctx.needs_input_grad[3] else None), None, None
 
 

@@ -36,11 +36,14 @@ CPU::
 
 (JAX divides dS by sqrt(hd) = 8.0, a multiply by 1/8 exactly.)
 :func:`masked_attention_backward_reference` is that chain in plain PyTorch;
-on CUDA tensors :func:`masked_attention_backward_cuda` launches the two
-kernels of ``csrc/text_attention_bwd.cu``, which recompute h from q and k
-(no score row is kept by the forward, whose launch is unchanged) and take
-m, z and D themselves.  A row whose keys are all masked has y = 1 on every
-key: the gradient of JAX's uniform softmax, not NaN.
+on CUDA tensors :func:`masked_attention_backward_cuda` launches
+``csrc/text_attention_bwd.cu``, which recomputes h from q and k (no score
+row is kept by the forward, whose launch is unchanged) and takes m, z and D
+itself: at T <= :data:`ONE_PASS_T` (every path that trains the tower pads
+its descriptions to 128 tokens) one wgmma kernel a call with a (b, h)'s
+whole score matrix in the block, above it two mma.sync kernels
+(:func:`backward_launches`, by shape only).  A row whose keys are all masked
+has y = 1 on every key: the gradient of JAX's uniform softmax, not NaN.
 """
 
 from __future__ import annotations
@@ -55,11 +58,12 @@ from protnote_tpu_torch.models.layers import gemm_precision
 
 MAX_T = 512  # label text is truncated at 510 tokens; the kernel's key bias row holds 512
 HEAD_DIM = 64  # the head width of every tower the port loads
+ONE_PASS_T = 128  # the backward's one-pass kernel takes T up to here
 MASKED = -1e9  # the JAX package's additive mask value
 
 # Launches of the kernel since the process started (or since a caller last
-# set it to 0); BWD_LAUNCHES counts the backward kernels' launches (two a
-# call: dQ, then dK and dV).
+# set it to 0); BWD_LAUNCHES counts the backward kernels' launches
+# (:func:`backward_launches` a call).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
@@ -69,6 +73,12 @@ def scale_for(head_dim: int) -> float:
     """``float32(1 / float32(sqrt(head_dim)))``: what jitted XLA multiplies
     by where the JAX source divides by ``math.sqrt(head_dim)``."""
     return float(1.0 / torch.tensor(math.sqrt(head_dim), dtype=torch.float32))
+
+
+def backward_launches(T: int) -> int:
+    """Kernel launches of one backward call at T tokens: the one-pass kernel
+    up to :data:`ONE_PASS_T`, two above (dQ, then dK and dV)."""
+    return 1 if T <= ONE_PASS_T else 2
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -186,12 +196,11 @@ def masked_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: tor
     return (ds @ k.float()).to(q.dtype), (ds.transpose(-1, -2) @ q.float()).to(k.dtype), dv
 
 
-def masked_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                   key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor):
-    """The backward kernels' wrapper: ``(dq, dk, dv)`` bf16 from the two
-    launches of ``csrc/text_attention_bwd.cu`` on the current stream; counts
-    both in ``BWD_LAUNCHES``."""
-    global BWD_LAUNCHES
+def _backward_launch(symbol: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor, stats: bool):
+    """``(dq, dk, dv)`` bf16 from the entry point ``symbol`` of
+    ``csrc/text_attention_bwd.cu`` on the current stream (``stats``: with the
+    two-kernel form's per-row scratch)."""
     from protnote_tpu_torch.ops.kernels import kernel_function
 
     _check_cuda(q, k, v, key_mask)
@@ -200,18 +209,41 @@ def masked_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
         raise ValueError("dctx must be a contiguous bfloat16 tensor shaped like q")
     B, nh, T, hd = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty(3, B * nh * T, dtype=torch.float32, device=q.device)
-    fn = kernel_function("text_attention_bwd", "masked_attention_backward", _BWD_ARGS)
+    scratch = torch.empty(3, B * nh * T, dtype=torch.float32, device=q.device) if stats else None
+    fn = kernel_function("text_attention_bwd", symbol, _BWD_ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the C launch goes to the thread's device
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dctx.data_ptr(), key_mask.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, nh, T, hd,
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, nh, T, hd,
                  int(bool(causal)), scale_for(hd), stream)
-        if err != 0:
-            raise RuntimeError(f"masked_attention_backward launch failed: CUDA error {err}")
-        with _launch_lock:
-            BWD_LAUNCHES += 2  # attn_bwd_dq and attn_bwd_dkdv
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     return dq, dk, dv
+
+
+def masked_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor):
+    """The backward kernels' wrapper: ``(dq, dk, dv)`` bf16, the form chosen
+    by T alone (:func:`backward_launches`), its launches counted in
+    ``BWD_LAUNCHES``."""
+    global BWD_LAUNCHES
+    T = q.shape[2]
+    out = _backward_launch("masked_attention_backward", q, k, v, key_mask, causal, dctx,
+                           stats=backward_launches(T) == 2)
+    with _launch_lock:
+        BWD_LAUNCHES += backward_launches(T)
+    return out
+
+
+def two_kernel_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor):
+    """The two-kernel form at any T <= 512, uncounted: what the card tests
+    and ``chip_variants.py`` compare the one-pass kernel with at T <= 128.
+    The port's paths reach the two kernels only through
+    :func:`masked_attention_backward_cuda` above 128 tokens."""
+    return _backward_launch("masked_attention_backward_two_kernels", q, k, v, key_mask, causal,
+                            dctx, stats=True)
 
 
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]

@@ -870,10 +870,11 @@ def test_layer_norm_kernel_raises_on_what_it_does_not_take():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("T", [1, 16, 77, 128, 200, 512])
 def test_text_attention_backward_kernels_match_plain_on_card(T, causal):
-    """K8a-bwd (its two kernels) against the plain backward at T from 1 to
-    512, bidirectional and causal; rows: a full one, a half one, an
-    all-masked filler row (JAX's uniform-softmax gradient, finite) and one
-    whose first 70 keys are masked.  dq, dk and dv within 2^-6 of the plain
+    """K8a-bwd (the one-pass kernel up to T 128, the two kernels above)
+    against the plain backward at T from 1 to 512, bidirectional and causal;
+    rows: a full one, a half one, an all-masked filler row (JAX's
+    uniform-softmax gradient, finite) and one whose first 70 keys are
+    masked.  dq, dk and dv within 2^-6 of the plain
     output's largest |value| (dP is rounded to bf16 on both sides from f32
     sums in other orders, so it can land a bf16 step apart; dS and the
     outputs carry that step)."""
@@ -886,7 +887,7 @@ def test_text_attention_backward_kernels_match_plain_on_card(T, causal):
     got = k8a.masked_attention_backward(q, k, v, mask, causal, g)
     want = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
     torch.cuda.synchronize()
-    assert k8a.BWD_LAUNCHES - before == 2  # dQ, then dK and dV
+    assert k8a.BWD_LAUNCHES - before == k8a.backward_launches(T)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.bfloat16 and a.shape == q.shape, name
         assert bool(torch.isfinite(a).all()), name
@@ -896,9 +897,42 @@ def test_text_attention_backward_kernels_match_plain_on_card(T, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [16, 64, 100, 128])
+def test_text_attention_one_pass_backward_matches_two_kernels_on_card(T, causal):
+    """The one-pass kernel (one launch) at the T the tower trains at and
+    below, against the plain backward and against the two-kernel form on
+    the same tensors: 8 rows of lengths T, T / 2, 1, 0 (all-masked filler
+    rows), two more all-masked ones and two whose first keys are masked;
+    each gradient within 2^-6 of the plain gradient's largest |value|,
+    finite, and the same bits on a second call."""
+    dev = _card()
+    rng = np.random.default_rng(7 * T + causal)
+    lengths = [T, max(T // 2, 1), 1, 0, 0, 0, T, T]
+    q, k, v, mask = _attention_inputs(rng, 8, 3, T, 64, lengths, dev)
+    mask[6, : T // 3] = 0
+    mask[7, : T - 1] = 0
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    before = k8a.BWD_LAUNCHES
+    got = k8a.masked_attention_backward(q, k, v, mask, causal, g)
+    again = k8a.masked_attention_backward(q, k, v, mask, causal, g)
+    two = k8a.two_kernel_backward_cuda(q, k, v, mask, causal, g)
+    want = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+    torch.cuda.synchronize()
+    assert k8a.BWD_LAUNCHES - before == 2  # one a call; the two-kernel form is not counted
+    for name, a, a2, t2, b in zip(("dq", "dk", "dv"), got, again, two, want):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, a2), name
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2.0 ** -6 * scale, name
+        assert float((t2.float() - b.float()).abs().max()) <= 2.0 ** -6 * scale, name
+
+
+@pytest.mark.cuda
 def test_text_attention_autograd_runs_the_backward_kernels_on_card():
     """With a gradient wanted, ``masked_attention`` launches K8a and, on the
-    way back, K8a-bwd's two kernels once each."""
+    way back, K8a-bwd (at T 40 its one-pass kernel) once each."""
     dev = _card()
     rng = np.random.default_rng(11)
     q, k, v, mask = _attention_inputs(rng, 2, 2, 40, 64, [40, 9], dev)
@@ -907,7 +941,7 @@ def test_text_attention_autograd_runs_the_backward_kernels_on_card():
     out = k8a.masked_attention(q, k, v, mask, False)
     (dq,) = torch.autograd.grad(out.float().sum(), [q])
     torch.cuda.synchronize()
-    assert (k8a.LAUNCHES - before[0], k8a.BWD_LAUNCHES - before[1]) == (1, 2)
+    assert (k8a.LAUNCHES - before[0], k8a.BWD_LAUNCHES - before[1]) == (1, 1)
     want = k8a.masked_attention_backward_reference(q.detach(), k, v, mask, False,
                                                    torch.ones_like(out))[0]
     assert _rel_err(dq, want) <= 2.0 ** -6
@@ -1074,6 +1108,46 @@ def test_masked_conv_backward_kernels_match_plain_on_card(T, dilation, taps, cin
     _within(dw, w.grad, 2.0 ** -6, "dw")
     _within(db, b.grad, 2.0 ** -6, "db")
     assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 300])
+@pytest.mark.parametrize("dilation,taps,cin,cout", [(1, 9, 20, 1100), (81, 9, 1100, 550),
+                                                     (3, 9, 1100, 550), (1, 1, 550, 1100),
+                                                     (2, 5, 70, 130)])
+def test_masked_conv_dw_matches_plain_and_cudnn_on_card(T, dilation, taps, cin, cout):
+    """``masked_conv_dw`` on its TMA + wgmma kernel at ragged lengths (T, 0,
+    1, T - 1, 129 clipped to T, 37) with the full widths' split counts (1, 2
+    and 4 splits) and an odd shape: dW and dbias within 2^-6 of the plain
+    autograd's largest |value| and of cuDNN's backward filter on the masked
+    tensors (``torch.nn.grad.conv1d_weight``, the library's yardstick), the
+    same bits on a second call, from contiguous inputs (copied to the
+    padded pitch) and from padded ones alike."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    rng = np.random.default_rng(dilation + taps + cin + T)
+    p = _k7_conv(rng, taps, cin, cout, dev)
+    lengths = torch.tensor([min(n, T) for n in (T, 0, 1, T - 1, 129, 37)], dtype=torch.int32,
+                           device=dev)
+    x, dy = _bf16(rng, 6, T, cin), _bf16(rng, 6, T, cout)
+    w = p["kernel"].to(torch.bfloat16).requires_grad_(True)
+    b = p["bias"].to(torch.bfloat16).requires_grad_(True)
+    k7.masked_conv_reference(x, w, b, lengths, dilation).backward(dy)
+    before = k7.LAUNCHES["masked_conv_dw"]
+    dw, db = k7.masked_conv_dw_cuda(x, dy, lengths, taps, dilation)
+    dw2, db2 = k7.masked_conv_dw_cuda(k7.pad_pitch(x), k7.pad_pitch(dy), lengths, taps, dilation)
+    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).to(torch.bfloat16)[..., None]
+    lib = torch.nn.grad.conv1d_weight((x * mask).transpose(1, 2).float(), (cout, cin, taps),
+                                      (dy * mask).transpose(1, 2).float(),
+                                      padding=dilation * (taps - 1) // 2, dilation=dilation)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_conv_dw"] == before + 2
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert bool(torch.isfinite(dw.float()).all())
+    _within(dw, w.grad, 2.0 ** -6, "dw")
+    _within(db, b.grad, 2.0 ** -6, "db")
+    _within(dw, lib.permute(2, 1, 0), 2.0 ** -6, "dw vs cuDNN")
 
 
 @pytest.mark.cuda

@@ -248,31 +248,37 @@ def _emulate_conv_rows(x, w, lengths, dilation, dx=False):
     return y[..., :n_out]
 
 
-def _emulate_dw(x, g, lengths, taps, dilation, splits, bk=8):
-    """``conv_dw_kernel``'s loops in float64: sequences split into ranges,
-    each tap over the positions [max(0, -s), min(L, L - s)) in chunks of
-    ``bk``, then the splits' partial sums added in order; dbias from each
-    sequence's column sums over its valid rows, added in sequence order."""
+def _emulate_dw(x, g, lengths, taps, dilation, sms):
+    """``conv_dw_kernel``'s loops in float64 over the plan of
+    ``k7.dw_step_plan`` (``sms`` sets its split count): each tap's K steps,
+    64 positions of one sequence whose rows past the step's valid count are
+    zero, summed into the float32 partial of their split, then the splits'
+    partials added in order; dbias from each sequence's column sums over
+    its valid rows, added in sequence order."""
     Bn, Tn, cin = x.shape
     half = (taps - 1) // 2
+    plan, splits, n_items = k7.dw_step_plan(lengths, Tn, taps, dilation, cin, g.shape[2], sms)
+    offsets = plan[n_items:n_items + taps * splits + 1]
+    steps = plan[n_items + taps * splits + 1:].reshape(-1, 2)
     partial = np.zeros((splits, taps, cin, g.shape[2]))
-    for sp in range(splits):
-        for j in range(taps):
-            s = dilation * (j - half)
-            for b in range(Bn * sp // splits, Bn * (sp + 1) // splits):
-                L = min(max(int(lengths[b]), 0), Tn)
-                lo, hi = max(0, -s), min(L, L - s)
-                for c0 in range(lo, hi, bk):
-                    t = np.arange(c0, min(c0 + bk, hi))
-                    partial[sp, j] += x[b, t + s].T @ g[b, t]
+    for j in range(taps):
+        s = dilation * (j - half)
+        for sp in range(splits):
+            for b, w in steps[offsets[j * splits + sp]:offsets[j * splits + sp + 1]]:
+                t0, rows = int(w) & 0xFFFF, int(w) >> 16
+                t = np.arange(t0, t0 + k7.DW_STEP)
+                ok = (t - t0 < rows)[:, None]
+                xs = np.where(ok, x[b, np.clip(t + s, 0, Tn - 1)], 0.0)
+                gs = np.where(ok, g[b, np.clip(t, 0, Tn - 1)], 0.0)
+                partial[sp, j] += xs.T @ gs
     db = sum(g[b, :min(max(int(lengths[b]), 0), Tn)].sum(0) for b in range(Bn))
-    return partial.sum(0), db
+    return partial.sum(0), db, splits
 
 
 @pytest.mark.parametrize("dilation", DILATIONS)
 def test_kernel_algorithm_matches_jax(dilation):
-    """Forward, dX and dW (two and three sequence splits) through the
-    kernels' tile, tap and split ranges against JAX in float32."""
+    """Forward, dX and dW (one, two and three splits of each tap's K steps)
+    through the kernels' tile, tap and step ranges against JAX in float32."""
     rng = np.random.default_rng(30 + dilation)
     p, x, g = _conv_params(rng), _x(rng), _x(rng, COUT)
     want_y, vjp = jax.vjp(lambda x, w, b: _jax_conv({"kernel": w, "bias": b}, x, dilation),
@@ -282,17 +288,18 @@ def test_kernel_algorithm_matches_jax(dilation):
     y = _emulate_conv_rows(x, p["kernel"], LENGTHS, dilation) + p["bias"] * mask
     _close(y, want_y, F32_REL, "y")
     _close(_emulate_conv_rows(g, p["kernel"], LENGTHS, dilation, dx=True), dx_w, F32_REL, "dx")
-    for splits in (2, 3):
-        dw, db = _emulate_dw(x, g, LENGTHS, TAPS, dilation, splits)
+    for sms, splits in ((9, 1), (18, 2), (27, 3)):  # 9 tiles: one a tap
+        dw, db, got_splits = _emulate_dw(x, g, LENGTHS, TAPS, dilation, sms)
+        assert got_splits == splits
         _close(dw, dw_w, F32_REL, "dw")
         _close(db, db_w, F32_REL, "db")
 
 
 def test_launch_plans_cover_the_work():
-    # dW: four blocks an SM at full width, no more splits than sequences
-    assert k7.dw_splits(32, 9, 1100, 550) == 2
-    assert k7.dw_splits(32, 1, 550, 1100) == 12
-    assert k7.dw_splits(4, 1, 16, 16) == 4
+    # dW: the most splits that keep the items within one wave, at least one
+    assert k7.dw_splits(9, 1100, 550) == 1  # 243 tiles
+    assert k7.dw_splits(1, 550, 1100) == 4  # 30 tiles
+    assert k7.dw_splits(1, 16, 16) == 132
     for rows in (1, 255, 256, 16384, 32768, 1 << 20):
         chunks, per = k7.bn_chunks(rows)
         assert chunks * per >= rows > (chunks - 1) * per and per >= 256

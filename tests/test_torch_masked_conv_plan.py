@@ -1,9 +1,9 @@
 """What surrounds K7's TMA + wgmma conv kernels (protnote_tpu_torch/ops/
 masked_conv.py), on the CPU: the padded row pitch of the chain's
 activations, the weights re-laid for the kernels' B operand, the tile plan,
-the kernel's order of work at its own 128 x 184 tile, and the encoder chain
-run on padded-pitch buffers against the contiguous chain and JAX's
-``proteinfer_embed``.
+dW's K-step plan (``dw_step_plan``) and split counts, the kernel's order of
+work at its own 128 x 184 tile, and the encoder chain run on padded-pitch
+buffers against the contiguous chain and JAX's ``proteinfer_embed``.
 
 Inputs are drawn with numpy from fixed seeds.  Tolerances:
 * layouts, pitches and plans: exact (they move or count, nothing is summed);
@@ -148,7 +148,140 @@ def test_tile_plan_skips_the_dilation_81_taps_beyond_a_short_sequence():
 
 
 # ----------------------------------------------------------------------
-# the kernels' order of work at their own tile
+# dW's K-step plan
+
+
+def _dw_parts(plan, n_items, taps, splits):
+    """(items, offsets, steps (n, 2)) of a ``dw_step_plan``."""
+    offsets = plan[n_items:n_items + taps * splits + 1]
+    return plan[:n_items], offsets, plan[n_items + taps * splits + 1:].reshape(-1, 2)
+
+
+@pytest.mark.parametrize("lengths", [[0, 0], [1, 0, 1], [300, 300], [300, 1, 0, 129, 257, 40],
+                                     [64, 65, 128, 63, 330]])
+@pytest.mark.parametrize("taps,dilation,cin,cout,sms", [
+    (9, 1, 20, 1100, 132), (9, 81, 1100, 550, 132), (9, 27, 1100, 550, 132),
+    (1, 1, 550, 1100, 132), (9, 3, 70, 130, 40), (5, 2, 64, 64, 25)])
+def test_dw_plan_covers_each_valid_position_once_in_split_order(lengths, taps, dilation, cin,
+                                                                cout, sms):
+    """Tap j (shift s) needs every (b, t) with t < L and 0 <= t + s < L: the
+    plan's steps of that tap, read split after split, list each exactly once
+    in (b, t) order; a step holds 1-64 positions of one sequence; the splits
+    of a tap differ by at most one step.  Lengths 0, 1, T and past T."""
+    T = 300
+    plan, splits, n_items = k7.dw_step_plan(np.asarray(lengths, np.int32), T, taps, dilation,
+                                            cin, cout, sms)
+    assert plan.dtype == np.int32 and splits == k7.dw_splits(taps, cin, cout, sms)
+    items, offsets, steps = _dw_parts(plan, n_items, taps, splits)
+    assert offsets[0] == 0 and offsets[-1] == len(steps) and (np.diff(offsets) >= 0).all()
+    half = (taps - 1) // 2
+    for j in range(taps):
+        s = dilation * (j - half)
+        want = [(b, t) for b, n in enumerate(lengths) for L in [min(n, T)]
+                for t in range(max(0, -s), min(L, L - s))]
+        got, counts = [], []
+        for sp in range(splits):
+            seg = steps[offsets[j * splits + sp]:offsets[j * splits + sp + 1]]
+            counts.append(len(seg))
+            for b, w in seg:
+                t0, rows = int(w) & 0xFFFF, int(w) >> 16
+                assert 1 <= rows <= k7.DW_STEP  # one sequence a step, 64 positions at most
+                got += [(int(b), t) for t in range(t0, t0 + rows)]
+        assert got == want, j
+        assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("sms", [132, 40, 7])
+def test_dw_plan_items_cover_every_tile_once_longest_first_by_waves(sms):
+    """Each (tap, split, row tile, column tile) is one item; the items run
+    the most K steps first, every other wave of ``sms`` items reversed (the
+    persistent blocks take items i, i + sms, ...)."""
+    lengths = np.array([300, 1, 0, 129, 257, 40, 300, 77], np.int32)
+    taps, cin, cout = 9, 1100, 550
+    plan, splits, n_items = k7.dw_step_plan(lengths, 300, taps, 81, cin, cout, sms)
+    items, offsets, _ = _dw_parts(plan, n_items, taps, splits)
+    tiles = -(-cin // k7.DW_BLOCK_M) * -(-cout // k7.DW_BLOCK_N)
+    assert n_items == taps * splits * tiles == len(items)
+    assert sorted(items.tolist()) == list(range(n_items))
+    work = np.diff(offsets)[items // tiles]
+    for w0 in range(sms, n_items, 2 * sms):
+        work[w0:w0 + sms] = work[w0:w0 + sms][::-1].copy()
+    assert (np.diff(work) <= 0).all()
+
+
+def test_dw_split_counts_of_a_full_width_step():
+    """The 11 convs of a step at the default widths: conv1 (9 taps, 20 ->
+    1,100), five dilated convs (9 taps, 1,100 -> 550) and five 1 x 1 convs
+    (550 -> 1,100) on an H100's 132 SMs: 54, 243 and 30 tiles, so 2, 1 and
+    4 splits (243 tiles fill 1.84 waves already; float32 partials only where
+    the items would leave most of the card idle)."""
+    cfg = tpi.ProteInferConfig()
+    cb = cfg.bottleneck_channels
+    shapes = ([(cfg.kernel_size, cfg.input_channels, cfg.output_channels)]
+              + [(cfg.kernel_size, cfg.output_channels, cb)] * cfg.num_resnet_blocks
+              + [(1, cb, cfg.output_channels)] * cfg.num_resnet_blocks)
+    assert len(shapes) == 11
+    assert [k7.dw_tiles(*sh) for sh in shapes] == [54] + [243] * 5 + [30] * 5
+    assert [k7.dw_splits(*sh) for sh in shapes] == [2] + [1] * 5 + [4] * 5
+    lens = np.full(32, 512, np.int32)
+    for taps, cin, cout in shapes[:2] + shapes[-1:]:
+        _, splits, n_items = k7.dw_step_plan(lens, 512, taps, 3, cin, cout)
+        assert n_items == splits * k7.dw_tiles(taps, cin, cout)
+
+
+def test_dw_plan_refuses_positions_past_16_bits():
+    with pytest.raises(ValueError, match="16 bits"):
+        k7.dw_step_plan(np.array([5], np.int32), 70000, 1, 1, 8, 8)
+
+
+def test_dw_kernel_algorithm_at_the_kernel_tile_matches_jax():
+    """``conv_dw_kernel``'s order of work emulated in float64 at its own
+    tile (128 input x 192 output channels; 200 and 230 channels: two row and
+    two column tiles, the second zero-padded, a warpgroup past C_in issuing
+    nothing) over the plan's K steps (64 positions, those past the step's
+    valid count zeroed), each item's partial added in split order, against
+    JAX's vjp in float32: T 300, lengths T, 0, 1, T - 1, 129, dilation 81
+    (the outer taps reach past every sequence), two splits."""
+    T, cin, cout, taps, dilation = 300, 200, 230, 9, 81
+    lengths = np.array([T, 0, 1, T - 1, 129], np.int32)
+    rng = np.random.default_rng(5)
+    bound = 1.0 / np.sqrt(cin * taps)
+    w = rng.uniform(-bound, bound, (taps, cin, cout)).astype(np.float32)
+    bias = rng.uniform(-0.3, 0.3, cout).astype(np.float32)
+    x = rng.normal(size=(5, T, cin)).astype(np.float32)
+    g = rng.normal(size=(5, T, cout)).astype(np.float32)
+    mask = jpi.length_mask(jnp.asarray(lengths), T)
+    _, vjp = jax.vjp(lambda w: jpi._masked_conv(
+        {"kernel": w, "bias": jnp.asarray(bias)}, jnp.asarray(x), mask, dilation), jnp.asarray(w))
+    (want,) = vjp(jnp.asarray(g))
+    tiles = k7.dw_tiles(taps, cin, cout)
+    sms = 2 * tiles  # two splits
+    plan, splits, n_items = k7.dw_step_plan(lengths, T, taps, dilation, cin, cout, sms)
+    assert splits == 2
+    items, offsets, steps = _dw_parts(plan, n_items, taps, splits)
+    bm, bn, mt_n, nt_n = k7.DW_BLOCK_M, k7.DW_BLOCK_N, -(-cin // 128), -(-cout // 192)
+    xp = np.zeros((5, T, mt_n * bm))
+    xp[..., :cin] = x
+    gp = np.zeros((5, T, nt_n * bn))
+    gp[..., :cout] = g
+    partial = np.zeros((splits, taps, mt_n * bm, nt_n * bn))
+    written = np.zeros(partial.shape, np.int64)
+    for code in items:
+        u, nt = divmod(int(code), nt_n)
+        v, mt = divmod(u, mt_n)
+        j, sp = divmod(v, splits)
+        s = dilation * (j - (taps - 1) // 2)
+        rows_m, cols_n = slice(mt * bm, (mt + 1) * bm), slice(nt * bn, (nt + 1) * bn)
+        for b, word in steps[offsets[v]:offsets[v + 1]]:
+            t0, rows = int(word) & 0xFFFF, int(word) >> 16
+            t = np.arange(t0, t0 + k7.DW_STEP)
+            ok = (t - t0 < rows)[:, None]
+            # the select, not a multiply
+            a = np.where(ok, xp[b, np.clip(t + s, 0, T - 1), rows_m], 0.0)
+            partial[sp, j, rows_m, cols_n] += a.T @ gp[b, np.clip(t, 0, T - 1), cols_n]
+        written[sp, j, rows_m, cols_n] += 1
+    assert (written == 1).all()
+    _close(partial.sum(0)[:, :cin, :cout], want, name="dw")
 
 
 @pytest.mark.parametrize("dilation", [1, 27, 81])

@@ -190,6 +190,82 @@ def test_attention_backward_kernel_algorithm_matches_eager_jax_bf16(T, causal):
         assert np.abs(a - b).max() <= BF16_TOL * np.abs(b).max(), name
 
 
+def _k8a_bwd_one_pass_emulated(q, k, v, mask, causal, g):
+    """The one-pass kernel's arithmetic (``csrc/text_attention_bwd.cu``
+    ``attn_bwd_one_pass``, T <= 128) in float32 numpy: a (b, h) padded to
+    128 queries and keys (the TMA boxes' zero rows; key bias -inf past T),
+    each row's max, y, z and D over the whole row with no running rescale,
+    D = sum((dP * (1 / z^2)) * y), P = bf16(y / z), dS split into bf16 hi
+    and lo for dQ = dS K and dK = dS^T Q.  The products sum in numpy's
+    order, not the tensor cores'."""
+    B, nh, T, hd = q.shape
+    n = k8a.ONE_PASS_T
+    scale = np.float32(1.0 / np.float32(np.sqrt(hd)))
+
+    def pad(a):
+        return np.concatenate([a, np.zeros((B, nh, n - T, hd), np.float32)], axis=2)
+
+    qp, kp, vp, gp = (pad(t) for t in (q, k, v, g))
+    key = np.arange(n)
+    kbias = np.where(key[None, :] >= T, np.float32(-np.inf),
+                     np.where(np.pad(mask, ((0, 0), (0, n - T))) > 0, np.float32(0),
+                              np.float32(-1e9)))[:, None, None, :]
+    if causal:
+        later = key[None, None, None, :] > key[None, None, :, None]
+        kbias = np.where(later, np.minimum(kbias, np.float32(-1e9)), kbias)
+    h = (qp @ np.swapaxes(kp, -1, -2)).astype(np.float32) * scale + kbias
+    y = np.exp(h - h.max(-1, keepdims=True)).astype(np.float32)
+    z = y.sum(-1, keepdims=True)
+    dp = _bf16_np(gp @ np.swapaxes(vp, -1, -2))
+    D = ((dp * (np.float32(1) / (z * z))) * y).sum(-1, keepdims=True)
+    ds = ((dp / z) + (-D)) * y * scale
+    hi = _bf16_np(ds)
+    lo = _bf16_np(ds - hi)
+    p = _bf16_np(y / z)
+    dq = _bf16_np(hi @ kp + lo @ kp)
+    dk = _bf16_np(np.swapaxes(hi, -1, -2) @ qp + np.swapaxes(lo, -1, -2) @ qp)
+    dv = _bf16_np(np.swapaxes(p, -1, -2) @ gp)
+    assert np.isfinite(dq).all() and np.isfinite(dk).all() and np.isfinite(dv).all()
+    return dq[:, :, :T], dk[:, :, :T], dv[:, :, :T]
+
+
+@pytest.mark.parametrize("T,causal", [(16, False), (16, True), (77, True), (100, False),
+                                      (128, False), (128, True)])
+def test_attention_backward_one_pass_algorithm_matches_eager_jax_bf16(T, causal):
+    """K8a-bwd's one-pass arithmetic (whole-row statistics, dS as hi + lo,
+    rows padded to 128), emulated on the CPU, against the eager JAX VJP in
+    bf16: 2^-6 of each gradient's largest |value| (the plain version's
+    tolerance above), an all-masked row and a masked prefix included."""
+    q, k, v, g, mask, bias = _attention_inputs(T, causal, seed=13 * T + causal)
+    q, k, v, g = (_bf16(t) for t in (q, k, v, g))
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda a, b, c: _jax_core(a, b, c, jnp.asarray(bias)),
+                         *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+        want = [np.asarray(x.astype(jnp.float32)) for x in vjp(jnp.asarray(g, jnp.bfloat16))]
+    got = _k8a_bwd_one_pass_emulated(q, k, v, mask, causal, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert np.abs(a - b).max() <= BF16_TOL * np.abs(b).max(), name
+
+
+def test_attention_backward_form_is_chosen_by_tokens_alone():
+    """One launch (the one-pass kernel) a backward call up to 128 tokens,
+    where every path that trains the tower runs it; two (dQ, then dK and
+    dV) above.  On CPU tensors the plain version runs and nothing is
+    counted."""
+    assert k8a.ONE_PASS_T == 128
+    assert [k8a.backward_launches(T) for T in (1, 16, 100, 128, 129, 200, 512)] == \
+        [1, 1, 1, 1, 2, 2, 2]
+    q, k, v, g, mask, _ = _attention_inputs(20, False, seed=2)
+    before = k8a.BWD_LAUNCHES
+    got = k8a.masked_attention_backward(*(torch.from_numpy(t) for t in (q, k, v, mask)), False,
+                                        torch.from_numpy(g))
+    want = k8a.masked_attention_backward_reference(
+        *(torch.from_numpy(t) for t in (q, k, v, mask)), False, torch.from_numpy(g))
+    assert k8a.BWD_LAUNCHES == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_attention_backward_all_masked_row_is_uniform_softmax_gradient():
     """A row whose keys are all masked: JAX's softmax is uniform over every
     key, and so is its gradient (finite, dV gets 1/T of its dctx)."""

@@ -2114,13 +2114,16 @@ def phase_k4_bwd(card: str) -> dict:
     (a2 (32, 3072), c2 (32,102, 3072), W (3072, 3072), dz (1,027,264 x
     3072) bf16, zero at masked pair rows as K5's backward leaves it) against
     ``_pair_hidden_backward_plain``, which runs whole: da2, dc2 and dW within
-    ``K45_REL_TOL`` of the plain tensor's largest |value|.  Each kernel timed
-    alone through its entry point (the dX time includes zeroing its f32 da2
-    scratch), the plain version's two halves (dX: x1 formed again, the gate,
-    the product, the sums; dW: x1 formed again and the product), and as a
-    yardstick cuBLAS on the two bare products over a materialised x1 (not
-    the same function: x1, the gate and dx1 in device memory, formed outside
-    the timing); ptxas figures and shared memory of each compiled kernel."""
+    ``K45_REL_TOL`` of the plain tensor's largest |value|, and the same bits
+    from a second call.  Each kernel timed alone on its plan (with the f32
+    scratch it allocates and its second, summing kernel), also at 32 x 8,192
+    (label subsets) and 32 x 2,048 (the streamed tile); the plain version's
+    two halves (dX: x1 formed again, the gate, the product, the sums; dW: x1
+    formed again and the product), and as a yardstick cuBLAS on the two bare
+    products over a materialised x1 (not the same function: x1, the gate and
+    dx1 in device memory, formed outside the timing); the bytes each
+    kernel's stages bring into shared memory for a kFLOP; ptxas figures and
+    shared memory of each compiled kernel."""
     import ctypes
 
     import torch
@@ -2141,7 +2144,11 @@ def phase_k4_bwd(card: str) -> dict:
                          generator=torch.Generator(device=dev).manual_seed(13))
         dz.mul_((em[:, None] * lm[None, :]).reshape(-1, 1).to(bf16) * 1e-3)
         got = st._pair_hidden_backward_cuda(a2, c2, W, dz)
+        again = st._pair_hidden_backward_cuda(a2, c2, W, dz)
         torch.cuda.synchronize()
+        same_bits = {k: bool(torch.equal(x, y)) for k, x, y in zip(("da2", "dc2", "dw"), got,
+                                                                    again)}
+        del again
         want = st._pair_hidden_backward_plain(a2, c2, W, dz)
         outs = {"da2": delta(got[0], want[0]), "dc2": delta(got[1], want[1]),
                 "dw": delta(got[2], want[2])}
@@ -2149,23 +2156,15 @@ def phase_k4_bwd(card: str) -> dict:
         torch.cuda.empty_cache()
         B_, L_, K_, N_ = TRAIN_B, NUM_LABELS, H, H
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        dxp, dwp = st.pair_dx_plan(B_, L_, K_, N_, sms), st.pair_dw_plan(B_, L_, K_, N_, sms)
-        da2 = torch.zeros(B_, K_, device=dev)
-        dc2 = torch.empty(L_, K_, device=dev, dtype=bf16)
-        part = torch.empty(dwp.splits, K_, N_, device=dev)
-        dw = torch.empty(K_, N_, device=dev, dtype=bf16)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
-        def dx_call():
-            da2.zero_()
-            st._raise_on(st._dx_fn()(dz.data_ptr(), W.data_ptr(), a2.data_ptr(), c2.data_ptr(),
-                                     da2.data_ptr(), dc2.data_ptr(), B_, L_, K_, N_, dxp.grid,
-                                     stream), "pair_train_dx")
+        def calls(c2_, dz_):
+            dxp = st.pair_dx_plan(B_, c2_.shape[0], K_, N_, sms)
+            dwp = st.pair_dw_plan(B_, c2_.shape[0], K_, N_, sms)
+            return (dxp, dwp, lambda: st._pair_dx_cuda(a2, c2_, W, dz_, dxp, stream),
+                    lambda: st._pair_dw_cuda(a2, c2_, dz_, dwp, stream))
 
-        def dw_call():
-            st._raise_on(st._dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(), part.data_ptr(),
-                                     dw.data_ptr(), B_, L_, K_, N_, dwp.block_n, dwp.splits,
-                                     dwp.grid, stream), "pair_train_dw")
+        dxp, dwp, dx_call, dw_call = calls(c2, dz)
 
         def plain_dx():
             x1 = st._pair_x1(a2, c2)
@@ -2189,33 +2188,47 @@ def phase_k4_bwd(card: str) -> dict:
                 "pair_train_dw": cuda_time_ms(lambda: torch.matmul(x1.t(), dz), 3)}
         del x1
         torch.cuda.empty_cache()
+        by_shape = {}
+        for labels in (8192, 2048):  # label subsets; the streamed tile
+            dz_l = dz.view(B_, L_, N_)[:, :labels].reshape(B_ * labels, N_)
+            _, _, dx_l, dw_l = calls(c2[:labels], dz_l)
+            by_shape[f"{B_}x{labels}"] = {"pair_train_dx": cuda_time_ms(dx_l, 5),
+                                          "pair_train_dw": cuda_time_ms(dw_l, 5)}
+            del dz_l
+            torch.cuda.empty_cache()
     lib = load_kernel_library("pair_train_bwd")
     smem = lib.lib.pair_train_bwd_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    variants = [{"kernel": name, "block_n": int(bn or 128), "ptxas": ptxas, "spills": spills,
-                 "smem_bytes": smem(0 if name == "dx" else 1, int(bn or 128))}
+    variants = [{"kernel": name, "block_n": int(bn or 256), "ptxas": ptxas, "spills": spills,
+                 "smem_bytes": smem(0 if name == "dx" else 1, int(bn or 256))}
                 for (name, bn), ptxas, spills in ptxas_by_kernel(
                     lib.build_log, r"pair_train_(dx|dw)_kernel(?:ILi(\d+)E)?")]
     N = float(B_ * L_)
     ops = 2.0 * N * K_ * N_
     side = 2.0 * (a2.numel() + c2.numel() + W.numel())
-    bounds = {"pair_train_dx": bound(nbytes=2.0 * N * N_ + side + 2.0 * (da2.numel() + dc2.numel()),
+    bounds = {"pair_train_dx": bound(nbytes=2.0 * N * N_ + side + 2.0 * (a2.numel() + c2.numel()),
                                      ops=ops),
               "pair_train_dw": bound(nbytes=2.0 * N * N_ + side, ops=ops)}
     rel = {k: v[0] / v[1] for k, v in outs.items()}
     pair_bound = bounds["pair_train_dx"]["bound_ms"] + bounds["pair_train_dw"]["bound_ms"]
     log("k4_bwd", batch=TRAIN_B, rows=int(N), width=H, rel_errs=rel, rel_tol=K45_REL_TOL,
-        max_abs_errs={k: v[0] for k, v in outs.items()},
+        max_abs_errs={k: v[0] for k, v in outs.items()}, same_bits=same_bits,
         **{f"{k}_ms": v[0] for k, v in times.items()},
         **{f"{k}_plain_ms": v[1] for k, v in times.items()},
         **{f"{k}_tflops": ops / v[0] / 1e9 for k, v in times.items()},
         **{f"{k}_bound_share": bounds[k]["bound_ms"] / v[0] for k, v in times.items()},
         pair_ms=pair_ms, plain_pair_ms=plain_pair_ms, pair_bound_ms=pair_bound,
         pair_bound_share=pair_bound / pair_ms, pair_tflops=2 * ops / pair_ms / 1e9,
-        cublas_yardstick_ms=gemm, dw_splits=dwp.splits, dx_units=dxp.units,
+        cublas_yardstick_ms=gemm, ms_by_shape=by_shape,
+        smem_bytes_per_kflop={"pair_train_dx": dxp.smem_bytes_per_kflop,
+                              "pair_train_dw": dwp.smem_bytes_per_kflop},
+        dx_plan={"ranges": dxp.ranges, "groups": dxp.groups, "grid": dxp.grid},
+        dw_plan={"full": dwp.full, "pieces": dwp.pieces, "items": dwp.items, "grid": dwp.grid},
         variants=variants, card=card)
     if max(rel.values()) > K45_REL_TOL:
         raise AssertionError(f"K4-bwd disagrees with the plain backward: {outs}")
+    if not all(same_bits.values()):
+        raise AssertionError(f"K4-bwd gave other bits on a second call: {same_bits}")
     err = {"pair_train_dx": max(outs["da2"][0], outs["dc2"][0]),
            "pair_train_dw": outs["dw"][0]}
     return {k: {"max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1],

@@ -42,15 +42,21 @@ the list run forward and then backward, calling the C entry points alone.
 
     python3 chip_variants.py --k4-bwd
 
-builds K4-bwd (``csrc/pair_train_bwd.cu``) with parts of its work taken
-out (timing only: the results are wrong): dX without its gated epilogue,
-dX without the W tile's loads, dW without the formation of its A
-fragments (constant fragments instead of ``ldmatrix`` + a2 + ReLU), dW
-without the dz tile's loads; and times them beside the kept kernels and
-the kept dW with 128-column tiles and with 11 splits of the pair rows, at
-the training path's 32-sequence shapes (a2 (32, 3072), c2 (32,102, 3072),
-dz (1,027,264 x 3072)), the list run forward and then backward, calling
-the C entry points alone.
+times K4-bwd (``csrc/pair_train_bwd.cu``) against its first design
+(``csrc/variants/pair_train_bwd_v1.cu``: 128 x 128 dX units with f32
+atomics, a c2 box every dW step, whole dW tiles in 2.18 waves) in turns
+(kept, first, first, kept) at B x L = 32 x 32,102 (the default step), 32 x
+8,192 (label subsets), 32 x 2,048 and 128 x 2,048 (the streamed tile), 32 x
+300 (in-batch labels),
+width 3072; then builds the kept source with parts of its work taken out
+or one design choice changed (timing only: the results are wrong): dX
+with nothing after its gate (no dc2 or da2 sums), without dc2's
+shared-memory sum, without da2's column sums, without the W box's loads,
+with two stages; dW without forming its A fragments (the c2 fragments fed
+as they are), without the dz boxes' loads, and with every tile whole (no
+pieces); each timed
+twice at 32 x 32,102 beside the kept kernels (the list run forward and
+then backward), calling the C entry points alone.
 
     python3 chip_variants.py --k7
 
@@ -305,31 +311,53 @@ def k7_dw_variants(build_dir: str, card: str) -> None:
 
 # text replaced in pair_train_bwd.cu: (old, new), each old found exactly once
 K4BWD_SUBS = {
+    # (the gate's wait and release stay: the helper warps wait for them)
     "dx_no_epilogue": [(
-        "        // ---- epilogue: gate, round, sum ------------------------------------\n",
+        "        // ---- dc2: the sum over the sequences, in a fixed order ---------------\n",
         "        if (b >= 0) continue;\n")],
     "dx_no_w_load": [(
-        "            mbar_expect_tx(full_bar(s), Lay::STAGE);\n"
-        "            tma_load_3d(st, &tm_dz, ns * BK, l0, b, full_bar(s));\n"
-        "            tma_load(st + Lay::A_BYTES, &tm_w, ns * BK, k0, full_bar(s));\n",
-        "            mbar_expect_tx(full_bar(s), Lay::A_BYTES);\n"
-        "            tma_load_3d(st, &tm_dz, ns * BK, l0, b, full_bar(s));\n")],
+        "            mbar_expect_tx(full_bar(s), Lay::STAGE);\n",
+        "            mbar_expect_tx(full_bar(s), 2 * Lay::A_BYTES);\n"), (
+        "            tma_load(st + 2 * Lay::A_BYTES, &tm_w, ns * BK, k0, full_bar(s));\n",
+        "")],
+    "dx_no_dc_sum": [(
+        "          if (!write) {\n"
+        "            const float2 o = slot;\n"
+        "            v = make_float2(o.x + v.x, o.y + v.y);\n"
+        "          }\n"
+        "          if (!out) {\n"
+        "            slot = v;\n"
+        "          } else if",
+        "          (void)slot;\n"
+        "          (void)write;\n"
+        "          if (!out) {\n"
+        "          } else if")],
+    "dx_no_column_sums": [(
+        "        // ---- da2: the tile's column sums ------------------------------------\n",
+        "        if (b >= 0) continue;\n")],
+    "dx_2_stages": [("  static constexpr int STAGES = 3;\n", "  static constexpr int STAGES = 2;\n")],
     "dw_no_a_formation": [(
-        "        ldsm_x4_trans(c, box + kk * 16 * 128 + ld_off);\n",
-        "        c[0] = c[1] = c[2] = c[3] = 0x3f803f80u + kk;\n")],
+        "          fa[kk][i] = pack_bf16x2(fmaxf(a + v.x, 0.f), fmaxf(a + v.y, 0.f));\n",
+        "          fa[kk][i] = cf[kk][i];\n          (void)a;\n          (void)v;\n")],
     "dw_no_dz_load": [(
-        "          mbar_expect_tx(full_bar(s), Lay::STAGE);\n"
-        "          tma_load(st, &tm_c, m0, l0, full_bar(s));\n",
-        "          mbar_expect_tx(full_bar(s), Lay::X_BYTES);\n"
-        "          tma_load(st, &tm_c, m0, l0, full_bar(s));\n"), (
-        "            tma_load_3d(st + Lay::X_BYTES + i * BOX, &tm_dz, n0 + 64 * i, l0, b, full_bar(s));\n",
-        "            (void)i;\n")],
+        "            mbar_expect_tx(full_bar(s), Lay::D_BYTES);\n"
+        "#pragma unroll\n"
+        "            for (int i = 0; i < BN / 64; ++i)\n"
+        "              tma_load_3d(st + i * BOX, &tm_dz, it.n0 + 64 * i, lb * 64, b, full_bar(s));\n",
+        "            mbar_arrive(full_bar(s));\n"
+        "            (void)st;\n")],
 }
+# (B, L) at which the kept kernels and the first design's are timed in turns
+K4BWD_SHAPES = [(32, 32102), (32, 8192), (32, 2048), (128, 2048), (32, 300)]
 
 
 def k4_bwd_variants(build_dir: str, card: str) -> None:
-    """K4-bwd's dX and dW, kept and with parts taken out, timed by calling
-    each library's C entry points at the training path's shapes."""
+    """K4-bwd's dX and dW: the kept kernels and the first design's
+    (``csrc/variants/pair_train_bwd_v1.cu``) in turns (kept, first, first,
+    kept) at each of ``K4BWD_SHAPES``; then, at 32 x 32,102, the kept
+    kernels with parts taken out or one design choice changed, and dW with
+    every tile whole (no pieces), each timed twice (the list forward, then
+    backward); all through the libraries' C entry points."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -339,7 +367,8 @@ def k4_bwd_variants(build_dir: str, card: str) -> None:
     from protnote_tpu_torch.ops import streaming_train as st
 
     base = (kernels.CSRC_DIR / "pair_train_bwd.cu").read_text()
-    jobs = {}
+    jobs = {"first_design": (os.path.join(VARIANT_DIR, "pair_train_bwd_v1.cu"),
+                             os.path.join(build_dir, "libpair_train_bwd_v1.so"))}
     for name, subs in [("kept", [])] + list(K4BWD_SUBS.items()):
         text = base
         for old, new in subs:
@@ -352,53 +381,105 @@ def k4_bwd_variants(build_dir: str, card: str) -> None:
         jobs[name] = (src, os.path.join(build_dir, f"libpair_train_bwd_{name}.so"))
     with ThreadPoolExecutor(len(jobs)) as ex:
         logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    P, I = ctypes.c_void_p, ctypes.c_int
     libs = {}
     for name, (_, out) in jobs.items():
         cs.log("k4_bwd_variant_ptxas", variant=name, ptxas=logs[name])
         lib = ctypes.CDLL(out)
-        lib.pair_train_dx.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.pair_train_dw.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        if name == "first_design":
+            lib.pair_train_dx.argtypes = [P] * 6 + [I] * 5 + [P]
+            lib.pair_train_dw.argtypes = [P] * 5 + [I] * 7 + [P]
+        else:
+            lib.pair_train_dx.argtypes = [P] * 8 + [I] * 6 + [P]
+            lib.pair_train_dw.argtypes = [P] * 5 + [I] * 8 + [P]
         libs[name] = lib
-    B, L, H = cs.TRAIN_B, cs.NUM_LABELS, cs.H
+    H = cs.H
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a2 = torch.randn(B, H, device=dev, generator=gen).to(bf16)
-    c2 = torch.randn(L, H, device=dev, generator=gen).to(bf16)
-    w = (torch.randn(H, H, device=dev, generator=gen) * 0.02).to(bf16)
-    dz = (torch.randn(B * L, H, device=dev, generator=gen) * 1e-3).to(bf16)
-    da2 = torch.zeros(B, H, device=dev)
-    dc2 = torch.empty(L, H, device=dev, dtype=bf16)
-    part = torch.empty(11, H, H, device=dev)
-    dw = torch.empty(H, H, device=dev, dtype=bf16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    dx_grid = st.pair_dx_plan(B, L, H, H, sms).grid
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = (torch.randn(H, H, device=dev, generator=gen) * 0.02).to(bf16)
+    dw = torch.empty(H, H, device=dev, dtype=bf16)
 
-    def dx(lib):
-        return lambda: lib.pair_train_dx(dz.data_ptr(), w.data_ptr(), a2.data_ptr(),
-                                         c2.data_ptr(), da2.data_ptr(), dc2.data_ptr(), B, L, H,
-                                         H, dx_grid, stream)
+    def shape_calls(B, L):
+        a2 = torch.randn(B, H, device=dev, generator=gen).to(bf16)
+        c2 = torch.randn(L, H, device=dev, generator=gen).to(bf16)
+        dz = (torch.randn(B * L, H, device=dev, generator=gen) * 1e-3).to(bf16)
+        dxp, dwp = st.pair_dx_plan(B, L, H, H, sms), st.pair_dw_plan(B, L, H, H, sms)
+        f32 = dict(device=dev, dtype=torch.float32)
+        da2_part = torch.empty(dxp.ranges, B, H, **f32)
+        dc2_part = torch.empty(dxp.groups, L, H, **f32) if dxp.groups > 1 else None
+        da2, dc2 = torch.empty(B, H, device=dev, dtype=bf16), torch.empty(L, H, device=dev,
+                                                                           dtype=bf16)
+        slots = torch.empty(max(1, dwp.tail * dwp.pieces), 128, dwp.block_n, **f32)
+        da2_f32, part_v1 = torch.zeros(B, H, **f32), torch.empty(1, H, H, **f32)
+        v1_dx_grid = min(sms, -(-L // 128) * (H // 128))
 
-    def dw_call(lib, block_n=256, splits=1):
-        grid = min(sms, (H // 128) * (H // block_n) * splits)
-        return lambda: lib.pair_train_dw(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(),
-                                         part.data_ptr(), dw.data_ptr(), B, L, H, H, block_n,
-                                         splits, grid, stream)
+        def dx(lib):
+            def run():
+                if lib is libs["first_design"]:
+                    da2_f32.zero_()
+                    err = lib.pair_train_dx(dz.data_ptr(), w.data_ptr(), a2.data_ptr(),
+                                            c2.data_ptr(), da2_f32.data_ptr(), dc2.data_ptr(), B,
+                                            L, H, H, v1_dx_grid, stream)
+                else:
+                    err = lib.pair_train_dx(dz.data_ptr(), w.data_ptr(), a2.data_ptr(),
+                                            c2.data_ptr(), da2_part.data_ptr(),
+                                            None if dc2_part is None else dc2_part.data_ptr(),
+                                            da2.data_ptr(), dc2.data_ptr(), B, L, H, H,
+                                            dxp.ranges, dxp.groups, stream)
+                if err != 0:
+                    raise RuntimeError(f"pair_train_dx variant: CUDA error {err}")
+            return run
 
-    calls = [("dx", "kept", dx(libs["kept"])),
-             ("dx", "no_epilogue", dx(libs["dx_no_epilogue"])),
-             ("dx", "no_w_load", dx(libs["dx_no_w_load"])),
-             ("dw", "kept", dw_call(libs["kept"])),
-             ("dw", "block_n_128", dw_call(libs["kept"], block_n=128)),
-             ("dw", "splits_11", dw_call(libs["kept"], splits=11)),
-             ("dw", "no_a_formation", dw_call(libs["dw_no_a_formation"])),
-             ("dw", "no_dz_load", dw_call(libs["dw_no_dz_load"]))]
-    times = {(k, v): [] for k, v, _ in calls}
-    for order in (calls, calls[::-1]):
-        for kernel, variant, fn in order:
-            times[(kernel, variant)].append(cs.cuda_time_ms(fn, 3))
+        def dw_call(lib, pieces=None):
+            def run():
+                if lib is libs["first_design"]:
+                    err = lib.pair_train_dw(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(),
+                                            part_v1.data_ptr(), dw.data_ptr(), B, L, H, H, 256,
+                                            1, min(sms, 288), stream)
+                else:
+                    err = lib.pair_train_dw(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(),
+                                            slots.data_ptr(), dw.data_ptr(), B, L, H, H,
+                                            dwp.block_n, dwp.full,
+                                            dwp.pieces if pieces is None else pieces, dwp.grid,
+                                            stream)
+                if err != 0:
+                    raise RuntimeError(f"pair_train_dw variant: CUDA error {err}")
+            return run
+
+        return dx, dw_call
+
+    def turns(calls, reps):
+        times = {(k, v): [] for k, v, _ in calls}
+        for order in (calls, calls[::-1]):
+            for kernel, variant, fn in order:
+                times[(kernel, variant)].append(cs.cuda_time_ms(fn, reps))
+        return times
+
+    for B, L in K4BWD_SHAPES:
+        dx, dw_call = shape_calls(B, L)
+        reps = max(3, int(3 * 32 * 32102 / (B * L)))
+        times = turns([("dx", "kept", dx(libs["kept"])),
+                       ("dx", "first_design", dx(libs["first_design"])),
+                       ("dw", "kept", dw_call(libs["kept"])),
+                       ("dw", "first_design", dw_call(libs["first_design"]))], reps)
+        ops = 2.0 * B * L * H * H
+        for (kernel, variant), t in times.items():
+            cs.log("k4_bwd_turns", batch=B, labels=L, kernel=kernel, variant=variant, ms=t,
+                   tflops=[ops / x / 1e9 for x in t], card=card)
+        del dx, dw_call
+        torch.cuda.empty_cache()
+    B, L = cs.TRAIN_B, cs.NUM_LABELS
+    dx, dw_call = shape_calls(B, L)
+    calls = [("dx", "kept", dx(libs["kept"]))]
+    calls += [("dx", name[3:], dx(libs[name])) for name in K4BWD_SUBS if name.startswith("dx_")]
+    calls += [("dw", "kept", dw_call(libs["kept"])),
+              ("dw", "tiles_whole", dw_call(libs["kept"], pieces=1))]
+    calls += [("dw", name[3:], dw_call(libs[name])) for name in K4BWD_SUBS
+              if name.startswith("dw_")]
     ops = 2.0 * B * L * H * H
-    for (kernel, variant), t in times.items():
+    for (kernel, variant), t in turns(calls, 3).items():
         cs.log("k4_bwd_variant", kernel=kernel, variant=variant, ms=t,
                tflops=[ops / x / 1e9 for x in t], card=card)
 

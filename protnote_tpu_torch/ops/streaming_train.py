@@ -453,37 +453,68 @@ def _pair_hidden_fwd_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -
 # ----------------------------------------------------------------------
 # K4-bwd: dX with the gate and side sums, and dW with x1 formed on chip
 
-_DX_COLS = 128  # input columns of a dX tile (csrc/pair_train_bwd.cu DX_BN)
-_DW_ROWS = 64  # pair rows of a dW K-block (one sequence's)
-_DW_MAX_SPLITS = 32
+_DX_LABELS = 64  # labels of a dX tile: each consumer warpgroup's rows, one sequence each
+_DX_COLS = 256  # input columns of a dX tile (csrc/pair_train_bwd.cu DX_BN)
+_DX_STAGE_BYTES = 2 * _DX_LABELS * 64 * 2 + _DX_COLS * 64 * 2  # two dz boxes + the W box
+_DW_ROWS = 64  # labels of a dW label block
+_DW_C_BYTES = 2 * 64 * 64 * 2  # a label block's c2: two 64 x 64 boxes
+
+
+def _part(i: int, n: int, parts: int) -> int:
+    """The first of n things in part i of ``parts`` (the kernels'
+    ``part_begin``): parts differ in size by at most one."""
+    return i * n // parts
 
 
 @dataclass(frozen=True)
 class PairDxPlan:
-    """The dX kernel's schedule (``pair_train_dx``): ``units`` (label tile,
-    column tile) pairs, label tiles outermost, walked by ``grid``
-    persistent blocks (block i takes units i, i + grid, ...).  A unit is
-    ``BLOCK_M`` labels x 128 input columns; its block runs the tile of
-    every sequence b = 0 .. B-1 in turn, reducing over N in 64-column
-    stages, adds each tile's gated column sums into da2 and stores the
-    unit's dc2 once (rows past L are neither loaded nor stored)."""
+    """The dX kernel's schedule (``pair_train_dx``): ``grid`` = tiles_k x
+    ranges x groups blocks, one launch.  Block i owns column tile ``i %
+    tiles_k`` (256 input columns), a contiguous range of 64-label tiles
+    (``ranges`` ranges) and a contiguous range of sequence pairs (``groups``
+    groups of the ceil(B / 2) pairs (2p, 2p + 1)); it walks its label tiles
+    in order and, in each, its pairs in order, warpgroup 0 on sequence 2p
+    and warpgroup 1 on 2p + 1 (2p + 1 = B, for odd B, is zeros).  Each pair
+    reduces over N in 64-column stages; dc2's f32 sum over the pairs stays in
+    shared memory and is stored once a unit (as bf16, or as the group's f32
+    partial when groups > 1), da2's column sums are added in label-tile
+    order into the block's row of a (ranges, B, K) f32 scratch, and a second
+    kernel adds the ranges (and the groups) in order.  The ranges are as
+    many as the column tiles leave SMs for (11 at K 3072 on 132 SMs), so the
+    blocks of one range read the same dz rows at once; groups split the
+    pairs only where label tiles are too few to fill the card (small L)."""
 
     batch: int
     labels: int
     width_in: int  # K
     width_out: int  # N
-    tiles_l: int
-    tiles_k: int
-    grid: int
+    tiles_l: int  # ceil(L / 64)
+    tiles_k: int  # ceil(K / 256): the last holds 128 real columns when K / 128 is odd
+    ranges: int
+    groups: int
 
     @property
-    def units(self) -> int:
-        return self.tiles_l * self.tiles_k
+    def pairs(self) -> int:
+        return -(-self.batch // 2)
 
-    def unit(self, u: int) -> Tuple[int, int]:
-        """(first label l0, first input column k0) of unit u."""
-        lt, kt = divmod(u, self.tiles_k)
-        return lt * BLOCK_M, kt * _DX_COLS
+    @property
+    def grid(self) -> int:
+        return self.tiles_k * self.ranges * self.groups
+
+    def block(self, i: int) -> Tuple[int, int, Tuple[int, int], Tuple[int, int]]:
+        """(label range r, first input column k0, label tiles [lt0, lt1),
+        pairs [p0, p1)) of block i (group i // (tiles_k * ranges))."""
+        kt, r = i % self.tiles_k, (i // self.tiles_k) % self.ranges
+        g = i // (self.tiles_k * self.ranges)
+        return (r, kt * _DX_COLS, (_part(r, self.tiles_l, self.ranges),
+                                   _part(r + 1, self.tiles_l, self.ranges)),
+                (_part(g, self.pairs, self.groups), _part(g + 1, self.pairs, self.groups)))
+
+    @property
+    def smem_bytes_per_kflop(self) -> float:
+        """Bytes a stage brings into shared memory for each kFLOP of its
+        products (the padded tile's: 2 x 64 labels x 256 columns x 64)."""
+        return _DX_STAGE_BYTES / (2.0 * 2 * _DX_LABELS * _DX_COLS * 64 / 1e3)
 
 
 def pair_dx_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairDxPlan:
@@ -491,28 +522,31 @@ def pair_dx_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> Pa
     N).  Raises for widths it does not take: K a multiple of 128, N of 64."""
     if B <= 0 or L <= 0 or num_sms <= 0:
         raise ValueError(f"no K4-bwd plan for B {B}, L {L} on {num_sms} SMs")
-    if K <= 0 or N <= 0 or K % _DX_COLS or N % _DW_ROWS:
+    if K <= 0 or N <= 0 or K % _BLOCK_N or N % _DW_ROWS:
         raise ValueError(f"the CUDA pair-train backward takes widths (in {K}, out {N}) that "
                          f"are multiples of {_BLOCK_N}")
-    tiles_l, tiles_k = -(-L // BLOCK_M), K // _DX_COLS
-    if tiles_l * tiles_k > 2**31 - 1:
-        raise ValueError(f"L {L} x K {K}: more units than the kernel counts")
-    return PairDxPlan(B, L, K, N, tiles_l, tiles_k, min(num_sms, tiles_l * tiles_k))
+    tiles_l, tiles_k = -(-L // _DX_LABELS), -(-K // _DX_COLS)
+    ranges = min(tiles_l, max(1, num_sms // tiles_k))
+    groups = min(-(-B // 2), max(1, num_sms // (tiles_k * ranges)))
+    if tiles_k * ranges * groups > 2**31 - 1:
+        raise ValueError(f"L {L} x K {K}: more blocks than the kernel counts")
+    return PairDxPlan(B, L, K, N, tiles_l, tiles_k, ranges, groups)
 
 
 @dataclass(frozen=True)
 class PairDwPlan:
-    """The dW kernel's schedule (``pair_train_dw``): ``items`` (split,
-    output tile) pairs walked by ``grid`` persistent blocks.  An output tile
-    is ``BLOCK_M`` rows (input columns k) x ``block_n`` (256, or 128 where N
-    is an odd multiple of 128) columns (output columns n); its reduction over the B * L pair rows runs in K-blocks of
-    64 rows of one sequence (``kblocks`` = B * ceil(L / 64)), and split s
-    takes K-blocks ``split_range(s)``, writing f32 partial sums that a
-    second pass adds.  ``splits`` is the smallest count whose items fill one
-    wave of the card's SMs (at most 32, at most the K-blocks): at the
-    training shape 288 tiles already do, so 1 (more splits, which leave
-    fewer SMs idle in the last wave, were no faster on an H100:
-    ``chip_variants.py --k4-bwd``)."""
+    """The dW kernel's schedule (``pair_train_dw``): ``items`` work items
+    walked by ``grid`` persistent blocks (block i takes items i, i + grid,
+    ...).  An output tile is 128 rows (input columns k) x ``block_n`` (256,
+    or 128 where N is an odd multiple of 128) columns (output columns n); its
+    reduction runs over 64-label blocks (``lblocks`` = ceil(L / 64)), label
+    block outermost and every sequence inside it.  Tiles 0 .. full-1 (the
+    whole waves of the card's SMs) are items 0 .. full-1, each the whole
+    reduction, stored as bf16; each of the other ``tail`` tiles is cut into
+    ``pieces`` ranges of label blocks, item full + p * tail + t being range p
+    of tile full + t, written as f32 partial sums to slot p * tail + t, which
+    a second pass adds in range order.  Ordering the pieces range first keeps
+    the blocks in flight on the same dz rows."""
 
     batch: int
     labels: int
@@ -521,7 +555,8 @@ class PairDwPlan:
     block_n: int
     tiles_m: int
     tiles_n: int
-    splits: int
+    full: int
+    pieces: int
     grid: int
 
     @property
@@ -529,39 +564,53 @@ class PairDwPlan:
         return -(-self.labels // _DW_ROWS)
 
     @property
-    def kblocks(self) -> int:
-        return self.batch * self.lblocks
-
-    @property
     def tiles(self) -> int:
         return self.tiles_m * self.tiles_n
 
     @property
+    def tail(self) -> int:
+        return self.tiles - self.full
+
+    @property
     def items(self) -> int:
-        return self.splits * self.tiles
+        return self.full + self.tail * self.pieces
 
-    def item(self, t: int) -> Tuple[int, int, int]:
-        """(split, first input column m0, first output column n0) of item t."""
-        sp, r = divmod(t, self.tiles)
-        mt, nt = divmod(r, self.tiles_n)
-        return sp, mt * BLOCK_M, nt * self.block_n
+    @property
+    def slots(self) -> int:
+        """f32 partial tiles the pieces write (0 when every tile is whole)."""
+        return self.tail * self.pieces if self.pieces > 1 else 0
 
-    def split_range(self, sp: int) -> Tuple[int, int]:
-        """The K-blocks [kb0, kb1) of split sp (the kernel's split_begin)."""
-        return (sp * self.kblocks // self.splits, (sp + 1) * self.kblocks // self.splits)
+    def item(self, t: int) -> Tuple[int, int, int, int, Optional[int]]:
+        """(first input column m0, first output column n0, label blocks
+        [lb0, lb1), partial slot or None for a whole tile) of item t."""
+        tile, lb0, lb1, slot = t, 0, self.lblocks, None
+        if t >= self.full:
+            p, tt = divmod(t - self.full, self.tail)
+            tile = self.full + tt
+            if self.pieces > 1:
+                lb0, lb1 = _part(p, self.lblocks, self.pieces), _part(p + 1, self.lblocks,
+                                                                    self.pieces)
+                slot = t - self.full
+        mt, nt = divmod(tile, self.tiles_n)
+        return mt * BLOCK_M, nt * self.block_n, lb0, lb1, slot
 
-    def kblock(self, kb: int) -> Tuple[int, int]:
-        """(sequence b, first label l0) of K-block kb."""
-        b, lb = divmod(kb, self.lblocks)
-        return b, lb * _DW_ROWS
+    @property
+    def smem_bytes_per_kflop(self) -> float:
+        """Bytes the stages bring into shared memory for each kFLOP of the
+        products (the padded label blocks'): the dz boxes of every step and a
+        label block's c2 once for its B steps."""
+        step_flop = 2.0 * BLOCK_M * self.block_n * _DW_ROWS
+        return (self.block_n * _DW_ROWS * 2 + _DW_C_BYTES / self.batch) / (step_flop / 1e3)
 
 
 def pair_dw_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairDwPlan:
     """The dW kernel's plan for a2 (B, K), c2 (L, K) and dz (B * L, N): the
-    column tile is 256 where N allows it, else 128 (narrower tiles fill the
-    last wave better but ran slower on an H100: ``chip_variants.py
-    --k4-bwd``).  Raises for widths it does not take: K and N multiples of
-    128."""
+    column tile is 256 where N allows it, else 128.  The whole waves run
+    whole; the last wave's ``tail`` tiles are cut into as many label-block
+    ranges as fill the SMs that they leave (at the training shape 288 tiles
+    on 132 SMs: 264 whole, 24 x 5 pieces in one wave, 2.2 tile times a block
+    where whole tiles take 3).  Raises for widths it does not take: K and N
+    multiples of 128."""
     if B <= 0 or L <= 0 or num_sms <= 0:
         raise ValueError(f"no K4-bwd plan for B {B}, L {L} on {num_sms} SMs")
     if K <= 0 or N <= 0 or K % _BLOCK_N or N % _BLOCK_N:
@@ -569,31 +618,64 @@ def pair_dw_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> Pa
                          f"are multiples of {_BLOCK_N}")
     block_n = _block_n(N)
     tiles_m, tiles_n = K // BLOCK_M, N // block_n
-    kblocks = B * -(-L // _DW_ROWS)
-    if kblocks > 2**31 - 1 or tiles_m * tiles_n > 2**31 - 1:
-        raise ValueError(f"B {B} x L {L}: more K-blocks than the kernel counts")
-    splits = min(-(-num_sms // (tiles_m * tiles_n)), _DW_MAX_SPLITS, kblocks)
-    items = splits * tiles_m * tiles_n
-    return PairDwPlan(B, L, K, N, block_n, tiles_m, tiles_n, splits, min(num_sms, items))
+    tiles, lblocks = tiles_m * tiles_n, -(-L // _DW_ROWS)
+    full = tiles // num_sms * num_sms
+    tail = tiles - full
+    pieces = max(1, min(num_sms // tail, lblocks)) if tail else 1
+    items = full + tail * pieces
+    if items > 2**31 - 1 or lblocks * B > 2**31 - 1:
+        raise ValueError(f"B {B} x L {L}: more work items than the kernel counts")
+    return PairDwPlan(B, L, K, N, block_n, tiles_m, tiles_n, full, pieces, min(num_sms, items))
 
 
 def _dx_fn():
     from protnote_tpu_torch.ops.kernels import kernel_function
 
-    return kernel_function("pair_train_bwd", "pair_train_dx", [_P] * 6 + [_I] * 5 + [_P])
+    return kernel_function("pair_train_bwd", "pair_train_dx", [_P] * 8 + [_I] * 6 + [_P])
 
 
 def _dw_fn():
     from protnote_tpu_torch.ops.kernels import kernel_function
 
-    return kernel_function("pair_train_bwd", "pair_train_dw", [_P] * 5 + [_I] * 7 + [_P])
+    return kernel_function("pair_train_bwd", "pair_train_dw", [_P] * 5 + [_I] * 8 + [_P])
+
+
+def _pair_dx_cuda(a2, c2, w, dz, plan: PairDxPlan, stream: int):
+    """The dX kernel on its plan: (da2, dc2) bf16, with the float32 scratch
+    its sums need."""
+    B, K = a2.shape
+    L = c2.shape[0]
+    f32 = dict(dtype=torch.float32, device=a2.device)
+    da2_part = torch.empty(plan.ranges, B, K, **f32)
+    dc2_part = torch.empty(plan.groups, L, K, **f32) if plan.groups > 1 else None
+    da2 = torch.empty(B, K, dtype=torch.bfloat16, device=a2.device)
+    dc2 = torch.empty(L, K, dtype=torch.bfloat16, device=a2.device)
+    _raise_on(_dx_fn()(dz.data_ptr(), w.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+                       da2_part.data_ptr(), None if dc2_part is None else dc2_part.data_ptr(),
+                       da2.data_ptr(), dc2.data_ptr(), B, L, K, plan.width_out, plan.ranges,
+                       plan.groups, stream), "pair_train_dx")
+    return da2, dc2
+
+
+def _pair_dw_cuda(a2, c2, dz, plan: PairDwPlan, stream: int):
+    """The dW kernel on its plan: dW bf16, with the float32 slots of its
+    pieces."""
+    B, K = a2.shape
+    L, N = c2.shape[0], plan.width_out
+    partial = (torch.empty(plan.slots, BLOCK_M, plan.block_n, dtype=torch.float32,
+                           device=a2.device) if plan.slots else None)
+    dw = torch.empty(K, N, dtype=torch.bfloat16, device=a2.device)
+    _raise_on(_dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(),
+                       None if partial is None else partial.data_ptr(), dw.data_ptr(), B, L, K,
+                       N, plan.block_n, plan.full, plan.pieces, plan.grid, stream),
+              "pair_train_dw")
+    return dw
 
 
 def _pair_hidden_backward_cuda(a2, c2, w, dz):
     """K4-bwd's two kernels (``csrc/pair_train_bwd.cu``): ``(da2, dc2, dw)``
-    in bfloat16 as :func:`_pair_hidden_backward_plain`.  da2 is summed in a
-    zeroed float32 (B, K) scratch, dW in ``splits`` float32 (K, N) partial
-    sums."""
+    in bfloat16 as :func:`_pair_hidden_backward_plain`, each sum in a fixed
+    order (the same bits every call)."""
     a2, c2, dz = a2.contiguous(), c2.contiguous(), dz.contiguous()
     w = w.contiguous()
     _check_pair_cuda(a2, c2, w)
@@ -605,21 +687,13 @@ def _pair_hidden_backward_cuda(a2, c2, w, dz):
     sms = torch.cuda.get_device_properties(a2.device).multi_processor_count
     dx_plan = pair_dx_plan(B, L, K, N, sms)
     dw_plan = pair_dw_plan(B, L, K, N, sms)
-    da2 = torch.zeros(B, K, dtype=torch.float32, device=a2.device)
-    dc2 = torch.empty(L, K, dtype=torch.bfloat16, device=a2.device)
-    partial = torch.empty(dw_plan.splits, K, N, dtype=torch.float32, device=a2.device)
-    dw = torch.empty(K, N, dtype=torch.bfloat16, device=a2.device)
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     with torch.cuda.device(a2.device):
-        _raise_on(_dx_fn()(dz.data_ptr(), w.data_ptr(), a2.data_ptr(), c2.data_ptr(),
-                           da2.data_ptr(), dc2.data_ptr(), B, L, K, N, dx_plan.grid, stream),
-                  "pair_train_dx")
+        da2, dc2 = _pair_dx_cuda(a2, c2, w, dz, dx_plan, stream)
         _count("pair_train_dx")
-        _raise_on(_dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(), partial.data_ptr(),
-                           dw.data_ptr(), B, L, K, N, dw_plan.block_n, dw_plan.splits,
-                           dw_plan.grid, stream), "pair_train_dw")
+        dw = _pair_dw_cuda(a2, c2, dz, dw_plan, stream)
         _count("pair_train_dw")
-    return da2.to(torch.bfloat16), dc2, dw
+    return da2, dc2, dw
 
 
 class _PairHidden(torch.autograd.Function):

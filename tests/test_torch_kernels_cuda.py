@@ -401,12 +401,16 @@ K4_BWD_REL_TOL = 1e-2
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,K,N", [(5, 301, 128, 256), (1, 301, 256, 384), (3, 1, 128, 128),
-                                     (4, 200, 384, 512), (2, 130, 256, 128)])
+                                     (4, 200, 384, 512), (2, 130, 256, 128), (7, 301, 384, 256),
+                                     (32, 40, 512, 256), (32, 2048, 3072, 3072)])
 def test_pair_train_backward_kernels_match_plain_on_card(B, L, K, N):
     """K4-bwd's two kernels through ``pair_hidden``'s backward (one launch
-    each) against the plain backward: L not a multiple of 64 or 128 (the
-    last label tile of each sequence ragged), one sequence, one label, the
-    256- and the 128-column dW tile."""
+    each) against the plain backward: L not a multiple of 64 (the last label
+    tile of each sequence ragged), one sequence, an odd B (the last pair's
+    second sequence past B), one label, K an odd multiple of 128 (a half
+    column tile), the 256- and the 128-column dW tile, small L (the pairs
+    split into groups) and the streamed scorer's tile at full width; a
+    second call gives the same bits."""
     _card()
     rng = np.random.default_rng(17)
     a2, c2 = _bf16(rng, B, K), _bf16(rng, L, K)
@@ -424,25 +428,31 @@ def test_pair_train_backward_kernels_match_plain_on_card(B, L, K, N):
         assert float(ref.float().abs().max()) > 0
         err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
         assert err <= K4_BWD_REL_TOL, err
+    again = st._pair_hidden_backward_cuda(a2, c2, w, dz)
+    for got, second in zip((t.grad for t in leaves), again):
+        assert torch.equal(got, second)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("block_n", [128, 256])
-@pytest.mark.parametrize("splits", [1, 3])
-def test_pair_train_dw_column_tiles_on_card(block_n, splits):
-    """The dW kernel with each of its column tiles and with split pair rows
-    (f32 partial sums added by the second pass), through its entry point,
-    against the plain backward's dW."""
+@pytest.mark.parametrize("pieces", [1, 3])
+def test_pair_train_dw_column_tiles_on_card(block_n, pieces):
+    """The dW kernel with each of its column tiles, through its entry point:
+    every tile whole, and two tiles whole with the others cut into 3 ranges
+    of label blocks (f32 slots added by the second pass), against the plain
+    backward's dW."""
     _card()
     rng = np.random.default_rng(19)
     B, L, K, N = 2, 130, 256, 768
     a2, c2 = _bf16(rng, B, K), _bf16(rng, L, K)
     w = _bf16(rng, K, N, scale=0.2)
     dz = _bf16(rng, B * L, N)
-    part = torch.empty(splits, K, N, device="cuda")
+    tiles = (K // 128) * (N // block_n)
+    full = 0 if pieces == 1 else 2
+    part = torch.empty(max(1, (tiles - full) * pieces), 128, block_n, device="cuda")
     dw = torch.empty(K, N, device="cuda", dtype=torch.bfloat16)
     err = st._dw_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(), part.data_ptr(),
-                      dw.data_ptr(), B, L, K, N, block_n, splits, 7,
+                      dw.data_ptr(), B, L, K, N, block_n, full, pieces, 7,
                       torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0

@@ -732,7 +732,8 @@ def test_pair_train_plan_layout_matches_jax():
 # tests hold the kernels to the plain backward)
 
 _BWD_SHAPES = [(5, 301, 128, 256), (1, 301, 256, 384), (3, 1, 128, 128), (2, 64, 128, 256),
-               (4, 200, 384, 512), (1, 1, 128, 128), (2, 130, 256, 128), (2, 70, 128, 1536)]
+               (4, 200, 384, 512), (1, 1, 128, 128), (2, 130, 256, 128), (2, 70, 128, 1536),
+               (7, 301, 384, 256), (32, 40, 256, 128)]
 
 
 def _bwd_inputs(B, L, K, N, seed=13):
@@ -741,95 +742,199 @@ def _bwd_inputs(B, L, K, N, seed=13):
             rng.normal(size=(B * L, N)))
 
 
+def _dx_walk(plan, a2, c2, w, dz):
+    """The dX kernel's walk in float64: every block takes its label tiles in
+    order and, in each, its sequence pairs in order (warpgroup 0 on 2p,
+    warpgroup 1 on 2p + 1, which past B is all zeros); dc2's sum over the
+    pairs is stored once a unit (the group's partial when groups > 1), each
+    tile's column sums are written (first label tile) or added into the
+    block's row of the (ranges, B, K) scratch, and a second pass adds the
+    ranges, and the groups, in order.  Returns (da2, dc2, counts): how often
+    each dc2 partial element was stored, each dx1 element summed, each da2
+    scratch element written and added."""
+    B, L, K, N = plan.batch, plan.labels, plan.width_in, plan.width_out
+    dz3 = dz.reshape(B, L, N)
+    da2_part = np.full((plan.ranges, B, K), np.nan)
+    dc2_part = np.full((plan.groups, L, K), np.nan)
+    stored = np.zeros((plan.groups, L, K), int)
+    summed = np.zeros((B, L, K), int)
+    firsts, adds = np.zeros((plan.ranges, B, K), int), np.zeros((plan.ranges, B, K), int)
+    for i in range(plan.grid):
+        r, k0, (lt0, lt1), (p0, p1) = plan.block(i)
+        g = i // (plan.tiles_k * plan.ranges)
+        assert k0 % 256 == 0 and k0 < K and 0 <= lt0 < lt1 <= plan.tiles_l
+        assert 0 <= p0 < p1 <= plan.pairs
+        c = slice(k0, min(k0 + 256, K))
+        for lt in range(lt0, lt1):
+            rows = slice(lt * 64, min(lt * 64 + 64, L))
+            dc = None
+            for p in range(p0, p1):
+                for b in (2 * p, 2 * p + 1):  # warpgroup 0, then 1: b order
+                    if b >= B:
+                        assert b == B and B % 2 == 1  # the zeros past B
+                        continue
+                    dx1 = np.where(a2[b, c] + c2[rows, c] > 0, dz3[b, rows] @ w[c].T, 0.0)
+                    dc = dx1 if dc is None else dc + dx1
+                    summed[b, rows, c] += 1
+                    if lt == lt0:
+                        da2_part[r, b, c] = dx1.sum(0)
+                        firsts[r, b, c] += 1
+                    else:
+                        da2_part[r, b, c] += dx1.sum(0)
+                        adds[r, b, c] += 1
+            dc2_part[g, rows, c] = dc
+            stored[g, rows, c] += 1
+    da2 = da2_part[0].copy()
+    for r in range(1, plan.ranges):
+        da2 += da2_part[r]
+    dc2 = dc2_part[0].copy()
+    for g in range(1, plan.groups):
+        dc2 += dc2_part[g]
+    return da2, dc2, (stored, summed, firsts, adds)
+
+
 @pytest.mark.parametrize("B,L,K,N", _BWD_SHAPES)
 def test_pair_dx_plan_walk_matches_plain_backward(B, L, K, N):
-    """The dX kernel's walk emulated in float64: every unit (128 labels x 128
-    input columns) runs its tile of each sequence in turn, gates
-    ``dz @ W^T`` by ``a2[b] + c2[l] > 0``, adds the tile's column sums into
-    da2 and stores its dc2 once, rows past L left out.  Every dc2 element is
-    written once, every dx1 element summed into da2 once, and da2 and dc2
+    """The dX kernel's walk (64 labels x 256 input columns a tile, the
+    sequences two at a time, label ranges and pair groups over the blocks)
+    emulated in float64: every dc2 partial element is stored once, every
+    dx1 element summed once, every da2 scratch element written once and
+    added to once for each later label tile of its range, and da2 and dc2
     equal the plain backward's in float64."""
     a2, c2, w, dz = _bwd_inputs(B, L, K, N)
     plan = tst.pair_dx_plan(B, L, K, N, num_sms=7)
-    assert plan.units == -(-L // 128) * (K // 128) and plan.grid == min(7, plan.units)
-    dz3 = dz.reshape(B, L, N)
-    da2, dc2 = np.zeros((B, K)), np.full((L, K), np.nan)
-    writes, summed = np.zeros((L, K), int), np.zeros((B, L, K), int)
-    blocks = {i: list(range(i, plan.units, plan.grid)) for i in range(plan.grid)}
-    for units in blocks.values():
-        for u in units:
-            l0, k0 = plan.unit(u)
-            assert l0 % 128 == 0 and l0 < L and k0 % 128 == 0 and k0 < K
-            r, c = slice(l0, min(l0 + 128, L)), slice(k0, k0 + 128)
-            dc = 0.0
-            for b in range(B):
-                dx1 = np.where(a2[b, c] + c2[r, c] > 0, dz3[b, r] @ w[c].T, 0.0)
-                dc = dc + dx1
-                da2[b, c] += dx1.sum(0)
-                summed[b, r, c] += 1
-            dc2[r, c] = dc
-            writes[r, c] += 1
-    assert (writes == 1).all() and (summed == 1).all()
+    assert plan.tiles_l == -(-L // 64) and plan.tiles_k == -(-K // 256)
+    assert plan.ranges == min(plan.tiles_l, max(1, 7 // plan.tiles_k))
+    da2, dc2, (stored, summed, firsts, adds) = _dx_walk(plan, a2, c2, w, dz)
+    assert (stored == 1).all() and (summed == 1).all() and (firsts == 1).all()
+    for r in range(plan.ranges):
+        lt0, lt1 = plan.block(r * plan.tiles_k)[2]
+        assert (adds[r] == lt1 - lt0 - 1).all()
     want = tst._pair_hidden_backward_plain(*(torch.from_numpy(x) for x in (a2, c2, w, dz)))
     np.testing.assert_allclose(da2, want[0].numpy(), rtol=1e-12, atol=1e-10)
     np.testing.assert_allclose(dc2, want[1].numpy(), rtol=1e-12, atol=1e-10)
 
 
+def _dw_walk(plan, a2, c2, dz):
+    """The dW kernel's walk in float64: block i takes items i, i + grid, ...;
+    an item forms x1 = relu(a2[b] + c2) for each label block of its range
+    (outermost) and each sequence (c2 rows past L read as zeros, where dz is
+    zero too) and stores its tile as dW (whole) or its f32 slot (a piece);
+    a second pass adds each pieced tile's slots in range order.  Returns
+    (dW, counts): how often each dW element was stored by an item, each
+    slot element written, and each (tile, sequence, label) summed."""
+    B, L, K, N = plan.batch, plan.labels, plan.width_in, plan.width_out
+    pad = plan.lblocks * 64
+    dz3 = np.concatenate([dz.reshape(B, L, N), np.zeros((B, pad - L, N))], 1)
+    c2p = np.concatenate([c2, np.zeros((pad - L, K))])
+    dw = np.full((K, N), np.nan)
+    partial = np.full((max(plan.slots, 1), 128, plan.block_n), np.nan)
+    stored = np.zeros((K, N), int)
+    written = np.zeros(partial.shape, int)
+    used = np.zeros((plan.tiles, B, pad), int)
+    for i in range(plan.grid):
+        for t in range(i, plan.items, plan.grid):
+            m0, n0, lb0, lb1, slot = plan.item(t)
+            assert 0 <= lb0 < lb1 <= plan.lblocks
+            m, n = slice(m0, m0 + 128), slice(n0, n0 + plan.block_n)
+            acc = np.zeros((128, plan.block_n))
+            for lb in range(lb0, lb1):  # label block outermost, every sequence inside it
+                rows = slice(lb * 64, lb * 64 + 64)
+                for b in range(B):
+                    acc += np.maximum(a2[b, m] + c2p[rows, m], 0.0).T @ dz3[b, rows, n]
+                    used[(m0 // 128) * plan.tiles_n + n0 // plan.block_n, b, rows] += 1
+            if slot is None:
+                dw[m, n] = acc
+                stored[m, n] += 1
+            else:
+                partial[slot] = acc
+                written[slot] += 1
+    for tt in range(plan.tail if plan.slots else 0):
+        tile = plan.full + tt
+        m0, n0 = (tile // plan.tiles_n) * 128, (tile % plan.tiles_n) * plan.block_n
+        total = partial[tt].copy()
+        for p in range(1, plan.pieces):
+            total += partial[p * plan.tail + tt]
+        dw[m0:m0 + 128, n0:n0 + plan.block_n] = total
+        stored[m0:m0 + 128, n0:n0 + plan.block_n] += 1
+    return dw, (stored, written, used)
+
+
 @pytest.mark.parametrize("B,L,K,N", _BWD_SHAPES)
 def test_pair_dw_plan_walk_matches_plain_backward(B, L, K, N):
-    """The dW kernel's walk emulated in float64: each item (split, 128 x
-    block_n output tile) forms x1 = relu(a2[b] + c2) for the K-blocks of its
-    split (64 rows of one sequence; c2 rows past L read as zeros, where dz
-    is zero too) and writes its partial sums once; the splits partition the
-    K-blocks, so every pair row is summed into each output tile once, and
-    the sum of the partials equals the plain backward's dW in float64."""
+    """The dW kernel's walk (128 x block_n tiles, label blocks outermost,
+    whole waves whole and the last wave's tiles in pieces) emulated in
+    float64: every dW element is stored once, every slot written once, every
+    pair row summed into each output tile once, and dW equals the plain
+    backward's in float64."""
     a2, c2, w, dz = _bwd_inputs(B, L, K, N)
     plan = tst.pair_dw_plan(B, L, K, N, num_sms=7)
     assert plan.block_n == (256 if N % 256 == 0 else 128)
-    assert plan.kblocks == B * -(-L // 64) and 1 <= plan.splits <= min(32, plan.kblocks)
-    ranges = [plan.split_range(sp) for sp in range(plan.splits)]
-    assert ranges[0][0] == 0 and ranges[-1][1] == plan.kblocks
-    assert all(r0[1] == r1[0] for r0, r1 in zip(ranges, ranges[1:]))
-    pad = -(-L // 64) * 64
-    dz3 = np.concatenate([dz.reshape(B, L, N), np.zeros((B, pad - L, N))], 1)
-    c2p = np.concatenate([c2, np.zeros((pad - L, K))])
-    partial = np.full((plan.splits, K, N), np.nan)
-    writes = np.zeros((plan.splits, K, N), int)
-    used = np.zeros((plan.tiles, B, pad), int)
-    for t in range(plan.items):
-        sp, m0, n0 = plan.item(t)
-        m, n = slice(m0, m0 + 128), slice(n0, n0 + plan.block_n)
-        acc = np.zeros((128, plan.block_n))
-        for kb in range(*plan.split_range(sp)):
-            b, l0 = plan.kblock(kb)
-            assert l0 % 64 == 0 and l0 < L  # a K-block never crosses a sequence
-            x1 = np.maximum(a2[b, m] + c2p[l0:l0 + 64, m], 0.0)
-            acc += x1.T @ dz3[b, l0:l0 + 64, n]
-            used[t % plan.tiles, b, l0:l0 + 64] += 1
-        partial[sp, m, n] = acc
-        writes[sp, m, n] += 1
-    assert (writes == 1).all() and (used == 1).all()
+    assert plan.full % 7 == 0 and 0 <= plan.tail < 7
+    assert 1 <= plan.pieces <= plan.lblocks and plan.grid == min(7, plan.items)
+    dw, (stored, written, used) = _dw_walk(plan, a2, c2, dz)
+    assert (stored == 1).all() and (used == 1).all()
+    assert plan.slots == 0 or (written == 1).all()
     want = tst._pair_hidden_backward_plain(*(torch.from_numpy(x) for x in (a2, c2, w, dz)))
-    np.testing.assert_allclose(partial.sum(0), want[2].numpy(), rtol=1e-12, atol=1e-9)
+    np.testing.assert_allclose(dw, want[2].numpy(), rtol=1e-12, atol=1e-9)
 
 
-def test_pair_bwd_plans_at_the_training_shape():
-    """B 32 x L 32,102 at H 3072: dX walks 251 label tiles x 24 column tiles
-    (6,024 units, 45.6 a block); dW's 288 tiles of 128 x 256 fill a wave of
-    132 SMs, so one split walks all 16,064 K-blocks.  With fewer tiles the
-    pair rows are split until a wave is full, in ranges that differ by at
-    most one K-block."""
-    B, L, H = 32, 32102, 3072
+# (B, L) of every path that runs K4-bwd at H 3072: the default step, remat and
+# encoder training; label subsets; the streamed tile at 32 and 128
+# sequences; in-batch labels; a ragged L, one sequence, one label, odd B
+_BWD_PATH_SHAPES = [(32, 32102), (32, 8192), (32, 2048), (128, 2048), (32, 300), (32, 40),
+                    (5, 301), (1, 32102), (32, 1), (31, 2048)]
+
+
+@pytest.mark.parametrize("B,L", _BWD_PATH_SHAPES)
+def test_pair_bwd_plans_at_the_training_shape(B, L):
+    """At H 3072 on 132 SMs, both plans cover the work of every path's shape
+    exactly once: dX's blocks partition (label tile, column tile, pair) and
+    its da2 scratch rows, dW's items every (tile, label block).  At B 32 x L
+    32,102 dX runs 12 column tiles x 11 label ranges of 45-46 tiles (132
+    blocks) and dW 264 whole tiles and 24 x 5 pieces (one wave each);
+    groups split the pairs only at small L."""
+    H = 3072
     dx = tst.pair_dx_plan(B, L, H, H, num_sms=132)
-    assert (dx.tiles_l, dx.tiles_k, dx.units, dx.grid) == (251, 24, 6024, 132)
-    dw = tst.pair_dw_plan(B, L, H, H, num_sms=132)
-    assert (dw.block_n, dw.tiles, dw.kblocks, dw.splits, dw.items) == (256, 288, 16064, 1, 288)
-    assert dw.split_range(0) == (0, 16064)
-    assert dw.kblock(dw.kblocks - 1) == (31, 32064)  # the last 38 labels of the last sequence
-    small = tst.pair_dw_plan(B, L, 512, 512, num_sms=132)  # 8 tiles of 128 x 256
-    assert (small.block_n, small.splits, small.items) == (256, 17, 136)
-    sizes = {b - a for a, b in (small.split_range(s) for s in range(small.splits))}
+    assert dx.grid <= 132 and dx.tiles_k == 12
+    cover = np.zeros((dx.tiles_l, dx.tiles_k, dx.pairs), int)
+    rows = np.zeros((dx.ranges, B), int)
+    for i in range(dx.grid):
+        r, k0, (lt0, lt1), (p0, p1) = dx.block(i)
+        cover[lt0:lt1, k0 // 256, p0:p1] += 1
+        rows[r, [b for p in range(p0, p1) for b in (2 * p, 2 * p + 1) if b < B]] += 1
+    assert (cover == 1).all()
+    assert (rows == dx.tiles_k).all()  # each (range, b) row: once a column tile
+    sizes = {dx.block(i)[2][1] - dx.block(i)[2][0] for i in range(dx.grid)}
     assert max(sizes) - min(sizes) <= 1
+    dw = tst.pair_dw_plan(B, L, H, H, num_sms=132)
+    assert (dw.block_n, dw.tiles, dw.full, dw.tail) == (256, 288, 264, 24)
+    assert dw.pieces == min(5, dw.lblocks) and dw.grid == 132
+    work = np.zeros((dw.tiles, dw.lblocks), int)
+    for t in range(dw.items):
+        m0, n0, lb0, lb1, slot = dw.item(t)
+        work[(m0 // 128) * dw.tiles_n + n0 // 256, lb0:lb1] += 1
+        assert (slot is None) == (t < dw.full or dw.pieces == 1)
+    assert (work == 1).all()
+    if (B, L) == (32, 32102):
+        assert (dx.tiles_l, dx.ranges, dx.groups, dx.grid) == (502, 11, 1, 132)
+        assert sizes == {45, 46}
+        assert (dw.pieces, dw.items, dw.slots) == (5, 384, 120)
+        assert dw.item(264) == (22 * 128, 0, 0, 100, 0)  # range 0 of the first pieced tile
+    if L <= 320:  # in-batch labels: few label tiles, the pairs split over more SMs
+        assert dx.groups == min(dx.pairs, 132 // (12 * dx.ranges))
+        assert dx.grid > 12 * dx.tiles_l or dx.groups == dx.pairs
+
+
+def test_pair_bwd_smem_bytes_per_kflop():
+    """What each stage brings into shared memory for a kFLOP: dX 11.7 bytes
+    (the first design's 128 x 128 tile: 15.6), dW 7.8 and a 64-label
+    block's c2 once for its B steps (the first design's: 11.7)."""
+    H = 3072
+    assert tst.pair_dx_plan(32, 32102, H, H).smem_bytes_per_kflop == pytest.approx(11.71875)
+    dw = tst.pair_dw_plan(32, 32102, H, H)
+    assert dw.smem_bytes_per_kflop == pytest.approx((32768 + 16384 / 32) / 4194.304)
+    assert 7.8 < dw.smem_bytes_per_kflop < 8.0
 
 
 @pytest.mark.parametrize("B", [32, 128])
@@ -837,18 +942,21 @@ def test_pair_plans_at_the_streamed_tile(B):
     """The streamed scorer runs K4 and K4-bwd on one label tile at a time,
     each padded to the default 2,048 labels (the last of 32,102 holds 1,382
     real ones and 666 padded), so every launch takes L 2,048 whole: K4 16
-    label tiles x B sequences x 12 column tiles, dX 16 x 24 units, dW one
-    split of 288 output tiles over B x 32 K-blocks, each plan filling the
-    132 SMs."""
+    label tiles x B sequences x 12 column tiles; dX 32 label tiles of 64 in
+    11 ranges of 2-3 x 12 column tiles, the B / 2 pairs in one group; dW
+    264 whole tiles of B x 32 label steps and 24 x 5 pieces of 6-7 label
+    blocks; each plan filling the 132 SMs."""
     H, tile = 3072, 2048
     assert 32102 - 15 * tile == 1382 and -(-32102 // tile) == 16
     k4 = tst.pair_train_plan(B, tile, H, H, num_sms=132)
     assert (k4.tiles_l, k4.tiles_n, k4.block_n, k4.grid) == (16, 12, 256, 132)
     assert k4.tiles == 16 * B * 12 and not tile % 128
     dx = tst.pair_dx_plan(B, tile, H, H, num_sms=132)
-    assert (dx.tiles_l, dx.tiles_k, dx.units, dx.grid) == (16, 24, 384, 132)
+    assert (dx.tiles_l, dx.tiles_k, dx.ranges, dx.groups, dx.grid) == (32, 12, 11, 1, 132)
+    assert {dx.block(i)[2][1] - dx.block(i)[2][0] for i in range(132)} == {2, 3}
     dw = tst.pair_dw_plan(B, tile, H, H, num_sms=132)
-    assert (dw.tiles, dw.splits, dw.kblocks, dw.grid) == (288, 1, B * 32, 132)
+    assert (dw.tiles, dw.full, dw.pieces, dw.lblocks, dw.grid) == (288, 264, 5, 32, 132)
+    assert {dw.item(t)[3] - dw.item(t)[2] for t in range(264, dw.items)} == {6, 7}
 
 
 @pytest.mark.parametrize("K,N", [(64, 256), (128, 200), (192, 128), (0, 128)])

@@ -3388,21 +3388,20 @@ def phase_k7_bwd(card: str) -> dict:
     and cotangents: ``masked_conv_dx`` on the 10 block convs,
     ``masked_conv_dw`` (dW and dbias) on all 11, and the train-mode masked
     BN + ReLU (K7-BN) forward and backward on the 10 BatchNorms (1,100 and
-    550 channels, one row dropped by the example mask), each against the
-    plain chain's autograd on the same tensors.  Times are of the whole
-    chain's calls from CUDA events, beside the plain versions' (the backward
-    alone, on a retained graph) and, for the convs, cuDNN's conv backward on
-    the same shapes (``torch.nn.grad.conv1d_input`` / ``conv1d_weight``, the
-    library time, which the port never calls); bounds are the convs'
-    products for these lengths over the bf16 peak and the BN's bytes (each
-    input read once, each output written once) over the memory rate."""
+    550 channels, one row dropped by the example mask; :func:`k7_bn`), each
+    against the plain chain's autograd on the same tensors.  Times are of
+    the whole chain's calls from CUDA events, beside the plain versions'
+    (the backward alone, on a retained graph) and, for the convs, cuDNN's
+    conv backward on the same shapes (``torch.nn.grad.conv1d_input`` /
+    ``conv1d_weight``, the library time, which the port never calls);
+    bounds are the convs' products for these lengths over the bf16 peak and
+    the BN's bytes (each input read once, each output written once) over
+    the memory rate."""
     import numpy as np
     import torch
 
     from protnote_tpu_torch.models.layers import tree_to
     from protnote_tpu_torch.models.proteinfer import (
-        BN_EPS,
-        BN_MOMENTUM,
         ProteInferConfig,
         init_proteinfer,
         one_hot_sequences,
@@ -3500,60 +3499,164 @@ def phase_k7_bwd(card: str) -> dict:
     del plain_dx, plain_dw, lib_dx, lib_dw, convs
     torch.cuda.empty_cache()
 
-    # K7-BN: the 10 BatchNorms of a training step
-    em = torch.ones(B, device=dev)
-    em[3] = 0.0
-    bns = [(bp[n], bs[n]) for bp, bs in zip(params["blocks"], state["blocks"])
-           for n in ("bn1", "bn2")]
-    items, errs = [], {"y": [], "stats": [], "dx": [], "sums": []}
-    for p, s in bns:
-        C = p["scale"].shape[0]
-        x, g = act(C, 0.3), act(C)
-        y, mean, var, stats, counts = k7.masked_bn_relu_forward_cuda(
-            x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
-        xg = x.clone().requires_grad_(True)
-        pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
-        y0, new0 = k7.masked_bn_relu_reference(xg, pg, s, lengths, em, BN_EPS, BN_MOMENTUM)
-        dx0, ds0, db0 = torch.autograd.grad(y0, [xg, pg["scale"], pg["bias"]], g,
-                                            retain_graph=True)
-        dx, ds, db = k7.masked_bn_relu_backward_cuda(x, y, g, p["scale"], stats, counts,
-                                                     lengths, em)
-        errs["y"].append(rel_max(y, y0))
-        errs["stats"] += [rel_max(mean, new0["mean"]), rel_max(var, new0["var"])]
-        errs["dx"].append(rel_max(dx, dx0))
-        errs["sums"] += [rel_max(ds, ds0), rel_max(db, db0)]
-        items.append((p, s, x, g, y, stats, counts, xg, pg, y0))
-    fwd_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_forward_cuda(
-        x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
-        for p, s, x, *_ in items], 5)
-    fwd_plain_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_reference(
-        x, p, s, lengths, em, BN_EPS, BN_MOMENTUM) for p, s, x, *_ in items], 3)
-    bwd_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_backward_cuda(
-        x, y, g, p["scale"], stats, counts, lengths, em)
-        for p, s, x, g, y, stats, counts, *_ in items], 5)
-    bwd_plain_ms = cuda_time_ms(lambda: [torch.autograd.grad(
-        y0, [xg, pg["scale"], pg["bias"]], g, retain_graph=True)
-        for p, s, x, g, y, stats, counts, xg, pg, y0 in items], 3)
-    elems = sum(B * T * p["scale"].shape[0] for p, _ in bns)
-    worst = {k: max(r for _, r in v) for k, v in errs.items()}
-    out["masked_bn_relu_fwd"] = {
-        "max_abs_err": max(e for e, _ in errs["y"]), "ms": fwd_ms,
-        "plain_ms": fwd_plain_ms, **bound(nbytes=2.0 * 2 * elems), "library_ms": None,
-        "max_rel_err": worst["y"], "stats_rel_err": worst["stats"], "calls": len(items)}
-    out["masked_bn_relu_bwd"] = {
-        "max_abs_err": max(e for e, _ in errs["dx"]), "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-        **bound(nbytes=4.0 * 2 * elems), "library_ms": None, "max_rel_err": worst["dx"],
-        "sums_rel_err": worst["sums"], "calls": len(items)}
-    if worst["y"] > K45_REL_TOL or worst["dx"] > K45_REL_TOL or \
-            worst["stats"] > K7_F32_REL_TOL or worst["sums"] > K7_SUMS_REL_TOL:
-        raise AssertionError(f"K7-BN disagrees with its plain version: {worst}")
+    out.update(k7_bn(card, params, state, lengths, act))
     out["masked_conv_dx"]["kernel_only_ms"] = dx_kernel_ms
     log("k7_bwd", batch=B, bucket=T, lengths=[int(n) for n in lens], kernels=out,
         ptxas=k7_ptxas("masked_conv_bwd"),
         rel_tol={"outputs": K45_REL_TOL, "stats": K7_F32_REL_TOL, "sums": K7_SUMS_REL_TOL},
         card=card)
-    del items
     torch.cuda.empty_cache()
+    return out
+
+
+def bn_ptxas() -> dict:
+    """The ptxas registers and spills of K7-BN's four kernels."""
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    return {name: [regs, spills] for (name,), regs, spills in ptxas_by_kernel(
+        load_kernel_library("masked_bn").build_log,
+        r"(bn_stats_kernel|bn_apply_kernel|bn_grad_sums_kernel|bn_dx_kernel)")}
+
+
+def copies_in(fn, batch: int, widths) -> dict:
+    """The ``aten::copy_`` calls of one call of ``fn`` (``torch.profiler``
+    with shapes): all of them, and those whose first input is a ``(batch,
+    T, C)`` activation with C in ``widths``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies = [e for e in prof.events() if e.name == "aten::copy_"]
+    acts = [e for e in copies if e.input_shapes and len(e.input_shapes[0]) == 3
+            and e.input_shapes[0][0] == batch and e.input_shapes[0][2] in widths]
+    return {"all": len(copies), "activations": len(acts)}
+
+
+def padding_channels(t):
+    """The padding channels of a ``(B, T, C)`` tensor at ``row_pitch(C)``:
+    a ``(B, T, row_pitch(C) - C)`` view of its buffer."""
+    import torch
+
+    from protnote_tpu_torch.ops.masked_conv import row_pitch
+
+    Bt, Tt, C = t.shape
+    P = row_pitch(C)
+    return torch.as_strided(t, (Bt, Tt, P - C), (Tt * P, P, 1), t.storage_offset() + C)
+
+
+def k7_bn(card: str, params, state, lengths, act) -> dict:
+    """K7-BN, the train-mode masked BN + ReLU (``masked_bn_relu_forward`` /
+    ``_backward``), on the 10 BatchNorms of an encoder training step (1,100
+    and 550 channels, 32 sequences at bucket 512, one row dropped by the
+    example mask): x and dy at the convs' padded pitch, as training passes
+    them (their padding channels uninitialised), each against the plain
+    chain's autograd on the same tensors (y and dx within 2^-6 of the
+    largest |value|, the running statistics within 1e-5, dscale and dbias
+    within 1e-3); the same bits on a second call; y's and dx's padding
+    channels 0; the kernels a wrapper call launches (counted in the C
+    library, ``bn_kernels_launched``).
+    Times of a step's 10 calls: CUDA events around back-to-back calls, the
+    device and host time of each (``device_and_host_ms``), and from
+    contiguous inputs (which the wrappers copy to the pitch first).  Bounds:
+    the bytes the function needs over the memory rate, the forward x read
+    and y written, the backward x and dy read and dx written (3 tensors: the
+    ReLU's gate is recomputed from x, y is not read)."""
+    import torch
+
+    from protnote_tpu_torch.models.proteinfer import BN_EPS, BN_MOMENTUM
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = torch.device("cuda")
+    em = torch.ones(B, device=dev)
+    em[3] = 0.0
+    bns = [(bp[n], bs[n]) for bp, bs in zip(params["blocks"], state["blocks"])
+           for n in ("bn1", "bn2")]
+    items, errs = [], {"y": [], "stats": [], "dx": [], "sums": []}
+    same_bits, padding_zero = True, True
+    for p, s in bns:
+        C = p["scale"].shape[0]
+        x, g = k7.pad_pitch(act(C, 0.3)), k7.pad_pitch(act(C))
+        fwd = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                             lengths, em, BN_EPS, BN_MOMENTUM)
+        y, mean, var, stats, counts = fwd
+        xg = x.clone().requires_grad_(True)
+        pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        y0, new0 = k7.masked_bn_relu_reference(xg, pg, s, lengths, em, BN_EPS, BN_MOMENTUM)
+        dx0, ds0, db0 = torch.autograd.grad(y0, [xg, pg["scale"], pg["bias"]], g,
+                                            retain_graph=True)
+        bwd = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+        dx, ds, db = bwd
+        fwd2 = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                              lengths, em, BN_EPS, BN_MOMENTUM)
+        bwd2 = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+        same_bits = same_bits and all(torch.equal(a, b) for a, b in zip(fwd + bwd, fwd2 + bwd2))
+        padding_zero = padding_zero and all(bool((padding_channels(t) == 0).all())
+                                            for t in (y, dx))
+        errs["y"].append(rel_max(y, y0))
+        errs["stats"] += [rel_max(mean, new0["mean"]), rel_max(var, new0["var"])]
+        errs["dx"].append(rel_max(dx, dx0))
+        errs["sums"] += [rel_max(ds, ds0), rel_max(db, db0)]
+        items.append((p, s, x, g, stats, counts, xg, pg, y0))
+        del fwd2, bwd2
+    flat = [(x.contiguous(), g.contiguous()) for _, _, x, g, *_ in items]
+
+    def fwd_calls(inputs):
+        return lambda: [k7.masked_bn_relu_forward_cuda(
+            x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
+            for (p, s, *_), (x, _) in zip(items, inputs)]
+
+    def bwd_calls(inputs):
+        return lambda: [k7.masked_bn_relu_backward_cuda(
+            x, g, p["scale"], stats, counts, lengths, em)
+            for (p, s, _, _, stats, counts, *_), (x, g) in zip(items, inputs)]
+
+    pitched = [(x, g) for _, _, x, g, *_ in items]
+    times = {}
+    for key, calls in (("fwd", fwd_calls), ("bwd", bwd_calls)):
+        run = calls(pitched)
+        launched = k7.bn_kernels_launched()
+        run()
+        torch.cuda.synchronize()
+        launched = (k7.bn_kernels_launched() - launched) / len(items)
+        times[key] = {"ms": cuda_time_ms(run, 5),
+                      "contiguous_ms": cuda_time_ms(calls(flat), 5),
+                      "launches_per_call": launched, "calls": len(items)}
+        times[key]["device_ms"], times[key]["host_ms"] = device_and_host_ms(run, 5)
+    fwd_plain_ms = cuda_time_ms(lambda: [k7.masked_bn_relu_reference(
+        x, p, s, lengths, em, BN_EPS, BN_MOMENTUM) for p, s, x, *_ in items], 3)
+    bwd_plain_ms = cuda_time_ms(lambda: [torch.autograd.grad(
+        y0, [xg, pg["scale"], pg["bias"]], g, retain_graph=True)
+        for p, s, x, g, stats, counts, xg, pg, y0 in items], 3)
+    elems = sum(B * x.shape[1] * p["scale"].shape[0] for p, _, x, *_ in items)
+    worst = {k: max(r for _, r in v) for k, v in errs.items()}
+    out = {"masked_bn_relu_fwd": {
+        "max_abs_err": max(e for e, _ in errs["y"]), "plain_ms": fwd_plain_ms,
+        **bound(nbytes=2.0 * 2 * elems), "library_ms": None, "max_rel_err": worst["y"],
+        "stats_rel_err": worst["stats"], **times["fwd"]},
+        "masked_bn_relu_bwd": {
+        "max_abs_err": max(e for e, _ in errs["dx"]), "plain_ms": bwd_plain_ms,
+        **bound(nbytes=2.0 * 3 * elems), "library_ms": None, "max_rel_err": worst["dx"],
+        "sums_rel_err": worst["sums"], **times["bwd"]}}
+    for k in out.values():
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+        k["device_share_of_bound"] = (None if k["device_ms"] is None
+                                      else k["bound_ms"] / k["device_ms"])
+    log("k7_bn", batch=B, bucket=x.shape[1], kernels=out, same_bits=same_bits,
+        padding_zero=padding_zero, pitches=sorted({x.stride(1) for _, _, x, *_ in items}),
+        ptxas=bn_ptxas(),
+        rel_tol={"outputs": K45_REL_TOL, "stats": K7_F32_REL_TOL, "sums": K7_SUMS_REL_TOL},
+        card=card)
+    if worst["y"] > K45_REL_TOL or worst["dx"] > K45_REL_TOL or \
+            worst["stats"] > K7_F32_REL_TOL or worst["sums"] > K7_SUMS_REL_TOL:
+        raise AssertionError(f"K7-BN disagrees with its plain version: {worst}")
+    if not same_bits or not padding_zero:
+        raise AssertionError(f"K7-BN: same bits {same_bits}, padding channels 0 {padding_zero}")
+    if any(out[k]["launches_per_call"] != 2 for k in out):
+        raise AssertionError(f"K7-BN launches a call: {out}")
+    del items, flat, pitched
     return out
 
 
@@ -3619,7 +3722,11 @@ def phase_encoder_training(card: str) -> dict:
     and 2 steps at bucket 1024 for the peak memory there; then with
     ``encoder_bn_train_mode`` (ENCODER_BN_TRAIN_MODE) alone, the encoder
     frozen: 3 steps, its running statistics moved and its weights not.
-    Returns the first run's launches of K7's kernels."""
+    The ``aten::copy_`` calls of one step are counted by ``torch.profiler``
+    (all of them, and those of the chain's (B, T, C) activations).  Returns
+    the first run's launches of K7's kernels and a summary (step ms, seqs/s,
+    peaks at 512 and 1024, idle share, copies a step, the
+    ENCODER_BN_TRAIN_MODE step)."""
     import statistics
     import tempfile
 
@@ -3711,7 +3818,7 @@ def phase_encoder_training(card: str) -> dict:
         batches = []
         for b in inner:
             batches.append(b)
-            if len(batches) == PROFILE_STEPS:
+            if len(batches) == PROFILE_STEPS + 1:
                 break
         matrix = trainer._label_matrix_for(train_ds)
         placed = [trainer._place(batch_to_device_dict(b, dev), matrix) for b in batches]
@@ -3722,7 +3829,11 @@ def phase_encoder_training(card: str) -> dict:
         def one_step():
             trainer.ts, _ = step_fn(trainer.ts, next(it), g_prof)
 
-        wall, busy, top = device_profile(one_step, len(placed))
+        wall, busy, top = device_profile(one_step, PROFILE_STEPS)
+        fields.update(copies_per_step=copies_in(one_step, TRAIN_B,
+                                                {pi_cfg.output_channels,
+                                                 pi_cfg.bottleneck_channels}))
+        placed = placed[:PROFILE_STEPS]
         fields.update(profile_wall_ms_per_step=wall * 1e3 / len(placed),
                       profile_device_busy_ms_per_step=None if busy is None
                       else busy * 1e3 / len(placed),
@@ -3730,6 +3841,9 @@ def phase_encoder_training(card: str) -> dict:
                       top_kernels_ms_per_step=top,
                       grad_check=encoder_grad_check(trainer, placed[0], pi_cfg))
         log("encoder_train", run="train_sequence_encoder", **fields, card=card)
+        summary = {k: fields[k] for k in ("median_warm_step_ms", "seqs_per_s", "peak_mem_gb",
+                                          "idle_share", "copies_per_step")}
+        summary["grad_check_worst"] = fields["grad_check"]["max_leaf_rel_l2"]
 
         # a checkpoint with trainable["encoder"], restored into a fresh trainer
         trainer.save("roundtrip")
@@ -3751,9 +3865,9 @@ def phase_encoder_training(card: str) -> dict:
 
         # the peak memory at bucket 1024
         _, _, trainer = make(True, False)
-        log("encoder_train", run="train_sequence_encoder_1024",
-            **run("train_sequence_encoder_1024", trainer, 1024, ENCODER_1024_STEPS, False),
-            card=card)
+        fields = run("train_sequence_encoder_1024", trainer, 1024, ENCODER_1024_STEPS, False)
+        summary["peak_mem_gb_1024"] = fields["peak_mem_gb"]
+        log("encoder_train", run="train_sequence_encoder_1024", **fields, card=card)
         del trainer
         torch.cuda.empty_cache()
 
@@ -3772,9 +3886,10 @@ def phase_encoder_training(card: str) -> dict:
                                  f"statistics moved {moved}, weights frozen {frozen}")
         log("encoder_train", run="encoder_bn_train_mode", **fields, stats_moved=moved,
             card=card)
+        summary["bn_train_mode_step_ms"] = fields["median_warm_step_ms"]
         del trainer
         torch.cuda.empty_cache()
-    return result
+    return result, summary
 
 
 def phase_k6(card: str) -> dict:
@@ -4204,7 +4319,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     k7_bwd = phase_k7_bwd(card)
     torch.cuda.empty_cache()
-    encoder_launches = phase_encoder_training(card)
+    encoder_launches, _ = phase_encoder_training(card)
     torch.cuda.empty_cache()
     k6_times = phase_k6(card)
     torch.cuda.empty_cache()

@@ -78,6 +78,38 @@ instead of ``ldmatrix.trans``), without the position mask, and with every
 step's count read as 64; each timed beside the kept kernel on the dilated
 shapes, in turns, through the C entry point.
 
+    python3 chip_variants.py --k7-bn
+
+times K7-BN (``csrc/masked_bn.cu``: two launches a direction) against its
+cooperative design (``csrc/variants/masked_bn_cooperative.cu``: one
+cooperative launch a direction, the rows read for the sums kept in shared
+memory across a grid barrier) and its first design
+(``csrc/variants/masked_bn_v1.cu``: six launches a forward, three a
+backward, contiguous rows) in turns on the 10 BatchNorms of an encoder
+training step (1,100 and 550 channels, 32 sequences at bucket 512,
+``chip_smoke.k7_lengths``, one row dropped by the example mask): the first
+design on contiguous inputs, the others at the convs' padded pitch, each
+with its scratch made once and called through its C entry points, by CUDA
+events and as device time (the busy time of a ``torch.profiler`` pass, and
+each kernel's); then the kept source with parts of its work taken out or
+one choice changed (timing only where the results are wrong;
+``K7BN_SUBS``: without the loads, the second kernel, dx's order, or on
+128-channel slices), on 1 and 3 blocks an SM and on the
+1,100- and 550-channel BatchNorms alone, each timed twice (the list
+forward, then backward).  Where the host enqueues slower than the card
+runs, the event times are the host's: read the device times.  Last, K7's
+masked mean pool on the 32 x 512 x 1,100 features by events and as device
+and host time.
+
+    python3 chip_variants.py --encoder-train-against DIR
+
+runs ``chip_smoke.py``'s encoder-training phase alone (TRAIN_SEQUENCE_ENCODER
+at buckets 512 and 1,024, then ENCODER_BN_TRAIN_MODE) on DIR's package and
+on this one, in the same turns, and prints each turn's median step,
+seqs/s, peak memory at both buckets, idle share, ``aten::copy_`` calls a
+step (all, and of (B, T, C) activations), the gradient check's worst leaf
+and the ENCODER_BN_TRAIN_MODE step, and the change's mean over DIR's.
+
     python3 chip_variants.py --k8a-bwd
 
 times K8a-bwd at ``chip_smoke.py``'s shapes (a) 128 x 128 and (c) causal
@@ -307,6 +339,338 @@ def k7_dw_variants(build_dir: str, card: str) -> None:
                tflops={n: flop / (sum(t) / len(t)) / 1e9 for n, t in times.items()}, card=card)
         del x, dy, dw
         torch.cuda.empty_cache()
+
+
+# the sums kernel's pipelined loop, and the same loop without the next
+# rows' loads in flight
+OLD_SUMS_LOOP = """    constexpr int U = 4;
+    uint4 vx[U], vg[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      load_rows(x, x_pitch, dy, dy_pitch, c0, r0 + rl + u * ROW_LANES, r1, vx[u], vg[u]);
+    for (int r = r0 + rl; r < r1; r += U * ROW_LANES) {
+      uint4 nx[U], ng[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        load_rows(x, x_pitch, dy, dy_pitch, c0, r + (U + u) * ROW_LANES, r1, nx[u], ng[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {"""
+PLAIN_SUMS_LOOP = """    constexpr int U = {U};
+    for (int r = r0 + rl; r < r1; r += U * ROW_LANES) {
+      uint4 vx[U], vg[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        load_rows(x, x_pitch, dy, dy_pitch, c0, r + u * ROW_LANES, r1, vx[u], vg[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {"""
+OLD_SUMS_TAIL = """#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        vx[u] = nx[u];
+        vg[u] = ng[u];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    G[i] = rows_of_warp(G[i]);"""
+NEW_SUMS_TAIL = """    }
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    G[i] = rows_of_warp(G[i]);"""
+# text replaced in masked_bn.cu: (old, new), each old found exactly once
+K7BN_SUBS = {
+    "fwd_no_stats_loads": [(
+        "        vn[u] = pn[u] != nullptr ? load8(pn[u]) : make_uint4(0, 0, 0, 0);\n",
+        "        vn[u] = make_uint4(j, c0, 0, 0);\n")],
+    "fwd_no_apply_loads": [(
+        "    if (active && row < r1) v[u] = load8(x + static_cast<size_t>(row) * x_pitch + c0);\n",
+        "    if (active && row < r1) v[u] = make_uint4(row, c0, 0, 0);\n"), (
+        "        v[u] = load8(x + static_cast<size_t>(r + u * ROW_LANES) * x_pitch + c0);\n",
+        "        v[u] = make_uint4(r + u, c0, 0, 0);\n")],
+    "fwd_no_apply": [("  bn_apply_kernel<<<", "  if (apply_rows < 0) bn_apply_kernel<<<")],
+    "bwd_no_loads": [(
+        "    vx = load8(x + static_cast<size_t>(row) * x_pitch + c0);\n"
+        "    vg = load8(dy + static_cast<size_t>(row) * dy_pitch + c0);\n",
+        "    vx = make_uint4(row, c0, 0, 0);\n"
+        "    vg = make_uint4(c0, row, 0, 0);\n")],
+    "bwd_no_dx": [("  bn_dx_kernel<<<", "  if (apply_rows < 0) bn_dx_kernel<<<")],
+    "bwd_dx_rows_in_order": [(
+        "  const int k = blockIdx.y % sum_chunks, run = blockIdx.y / sum_chunks;\n",
+        "  const int runs_ = (sum_rows + rows_per_block - 1) / rows_per_block;\n"
+        "  const int k = blockIdx.y / runs_, run = runs_ - 1 - blockIdx.y % runs_;\n")],
+    # 128-channel slices: a row's 256 bytes a half-warp
+    "slices_128": [("constexpr int LANES = 8; ", "constexpr int LANES = 16; "),
+                   ("constexpr int TAIL = 8; ", "constexpr int TAIL = 16; ")],
+    # 2 rows in flight a thread and 3 blocks an SM (72 registers)
+    "fwd_stats_2_rows": [("    constexpr int U = 4;\n    const __nv_bfloat16* p[U];\n",
+                          "    constexpr int U = 2;\n    const __nv_bfloat16* p[U];\n")],
+    "fwd_apply_4_rows": [("  constexpr int U = 8;\n  uint4 v[U];\n",
+                          "  constexpr int U = 4;\n  uint4 v[U];\n")],
+    # loads that evict first; stores that do
+    "ldcs": [("  return __ldg(reinterpret_cast<const uint4*>(p));",
+              "  return __ldcs(reinterpret_cast<const uint4*>(p));")],
+    "stcs": [("      *reinterpret_cast<uint4*>(y + static_cast<size_t>(r + u * ROW_LANES) * y_pitch + c0) =\n"
+              "          pack8(f);",
+              "      __stcs(reinterpret_cast<uint4*>(y + static_cast<size_t>(r + u * ROW_LANES) * y_pitch"
+              " + c0),\n          pack8(f));"),
+             ("        *reinterpret_cast<uint4*>(dx + static_cast<size_t>(row) * dx_pitch + c0) = pack8(f);",
+              "        __stcs(reinterpret_cast<uint4*>(dx + static_cast<size_t>(row) * dx_pitch + c0),"
+              " pack8(f));")],
+    # the sums without the next rows' loads in flight: 8 rows a thread at
+    # once, or 4 at three blocks an SM
+    "bwd_sums_8_rows_at_once": [(OLD_SUMS_LOOP, PLAIN_SUMS_LOOP.replace("{U}", "8")),
+                                (OLD_SUMS_TAIL, NEW_SUMS_TAIL)],
+    "bwd_sums_3_blocks": [(OLD_SUMS_LOOP, PLAIN_SUMS_LOOP.replace("{U}", "4")),
+                          (OLD_SUMS_TAIL, NEW_SUMS_TAIL),
+                          ("__launch_bounds__(THREADS)\nbn_grad_sums_kernel(",
+                           "__launch_bounds__(THREADS, 3)\nbn_grad_sums_kernel(")],
+}
+# the grids of the variants that change them: a slice's channels, the
+# statistics' and sums' blocks an SM
+K7BN_SLICE_WIDTH = {"slices_128": 128}
+K7BN_PER_SM = {"fwd_stats_2_rows": 3, "bwd_sums_3_blocks": 3}
+
+
+def k7_bn_variants(build_dir: str, card: str) -> None:
+    """K7-BN: the kept kernels (two launches a direction), the cooperative
+    design and the first design in turns on a step's 10 BatchNorms, then
+    the kept source with parts taken out or one choice changed and on other
+    grids; all through the libraries' C entry points."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.models.layers import tree_to
+    from protnote_tpu_torch.models.proteinfer import (BN_EPS, BN_MOMENTUM, ProteInferConfig,
+                                                      init_proteinfer)
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    base = (kernels.CSRC_DIR / "masked_bn.cu").read_text()
+    jobs = {"first_design": (os.path.join(VARIANT_DIR, "masked_bn_v1.cu"),
+                             os.path.join(build_dir, "libmasked_bn_v1.so")),
+            "cooperative": (os.path.join(VARIANT_DIR, "masked_bn_cooperative.cu"),
+                            os.path.join(build_dir, "libmasked_bn_cooperative.so")),
+            "tails": (os.path.join(VARIANT_DIR, "masked_bn_tails.cu"),
+                      os.path.join(build_dir, "libmasked_bn_tails.so"))}
+    for name, subs in [("kept", [])] + list(K7BN_SUBS.items()):
+        text = base
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K7-BN variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"masked_bn_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"libmasked_bn_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    libs = {}
+    for name, (_, out) in jobs.items():
+        cs.log("k7_bn_variant_ptxas", variant=name, ptxas=logs[name])
+        lib = ctypes.CDLL(out)
+        if name == "first_design":
+            lib.masked_bn_relu_forward.argtypes = [P] * 7 + [F] * 3 + [P] * 6 + [I] * 4 + [LL, P]
+            lib.masked_bn_relu_backward.argtypes = [P] * 14 + [I] * 4 + [LL, P]
+        elif name == "cooperative":
+            lib.masked_bn_relu_forward.argtypes = [P, I] + [P] * 6 + [F] * 3 + [P] * 8 + [I] * 4 + [P]
+            lib.masked_bn_relu_backward.argtypes = [P, I, P, I] + [P] * 10 + [I] * 4 + [P]
+        elif name == "tails":
+            lib.masked_bn_relu_forward.argtypes = [P, I] + [P] * 6 + [F] * 3 + [P] * 8 + [I] * 5 + [P]
+            lib.masked_bn_relu_backward.argtypes = [P, I, P, I] + [P] * 11 + [I] * 5 + [P]
+        else:
+            lib.masked_bn_relu_forward.argtypes = k7._ARGS[("masked_bn", "masked_bn_relu_forward")]
+            lib.masked_bn_relu_backward.argtypes = k7._ARGS[("masked_bn",
+                                                             "masked_bn_relu_backward")]
+        libs[name] = lib
+    dev, bf16, f32, B, T = torch.device("cuda"), torch.bfloat16, torch.float32, cs.B, 512
+    sms = k7._num_sms(dev)
+    cfg = ProteInferConfig(compute_dtype=bf16)
+    params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
+    params, state = tree_to(params, dev), tree_to(state, dev)
+    lengths = torch.from_numpy(cs.k7_lengths(np.random.default_rng(17), T)).to(dev)
+    em = torch.ones(B, device=dev)
+    em[3] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(18)
+    stream = torch.cuda.current_stream().cuda_stream
+    # each library's done counters (the cooperative design's barrier counters)
+    counters = {name: torch.zeros(128, dtype=torch.int32, device=dev) for name in libs}
+    bns = []
+    for bp, bs in zip(params["blocks"], state["blocks"]):
+        for n in ("bn1", "bn2"):
+            p, s_ = bp[n], bs[n]
+            C = p["scale"].shape[0]
+            x = (torch.randn(B, T, C, generator=gen, device=dev) + 0.3).to(bf16)
+            g = torch.randn(B, T, C, generator=gen, device=dev).to(bf16)
+            plan = k7.bn_plan(B * T, C, sms)
+            v1_per = max(256, -(-B * T // 128))
+            bns.append({
+                "C": C, "p": p, "s": s_, "plan": plan,
+                "xp": k7.pad_pitch(x), "gp": k7.pad_pitch(g), "xc": x, "gc": g,
+                "yp": k7.padded_empty(B, T, C, bf16, dev), "yc": torch.empty_like(x),
+                "dxp": k7.padded_empty(B, T, C, bf16, dev), "dxc": torch.empty_like(x),
+                # stats, running statistics, counts, chunk_n and part (32
+                # chunks at most; the backward's part and coef after them)
+                "scratch": torch.empty(7 * C + 2 + 32 * (plan.slices + 2 * C) + 4 * C
+                                       + 64 * C, dtype=f32, device=dev),
+                "v1": (-(-B * T // v1_per), v1_per),
+                # stats, running statistics, counts, part and part2 (128
+                # chunks at most each), coef, dscale, dbias
+                "v1_scratch": torch.empty(7 * C + 2 + 2 * 128 * C + 4 * C, dtype=f32,
+                                          device=dev)})
+
+    def chunks_of(name, plan, C, per_sm):
+        width = K7BN_SLICE_WIDTH.get(name, k7.BN_SLICE)
+        per_sm = per_sm or K7BN_PER_SM.get(name)
+        if per_sm is None and width == k7.BN_SLICE:
+            return plan.stat_chunks
+        return max(1, min(k7.BN_MAX_CHUNKS, (per_sm or 2) * sms // -(-C // width)))
+
+    def fwd(name, per_sm=None, only=None):
+        lib = libs[name]
+
+        def run():
+            for b in bns:
+                if only is not None and b["C"] != only:
+                    continue
+                C, p, s_, plan, sc = b["C"], b["p"], b["s"], b["plan"], b["scratch"]
+                chunks = chunks_of(name, plan, C, per_sm)
+                common = (p["scale"].data_ptr(), p["bias"].data_ptr(), s_["mean"].data_ptr(),
+                          s_["var"].data_ptr(), BN_MOMENTUM, 1.0 - BN_MOMENTUM, BN_EPS)
+                if name == "first_design":
+                    v1_chunks, per = b["v1"]
+                    v = b["v1_scratch"]
+                    err = lib.masked_bn_relu_forward(
+                        b["xc"].data_ptr(), lengths.data_ptr(), em.data_ptr(), *common,
+                        v[7 * C + 2:].data_ptr(), v[7 * C:].data_ptr(), v.data_ptr(),
+                        v[5 * C:].data_ptr(), v[6 * C:].data_ptr(), b["yc"].data_ptr(), B, T, C,
+                        v1_chunks, per, stream)
+                else:
+                    pre = (b["xp"].data_ptr(), b["xp"].stride(1), lengths.data_ptr(),
+                           em.data_ptr(), *common, sc[7 * C + 2 + chunks * plan.slices:].data_ptr(),
+                           sc[7 * C + 2:].data_ptr(), sc[7 * C:].data_ptr(), sc.data_ptr(),
+                           sc[5 * C:].data_ptr(), sc[6 * C:].data_ptr())
+                    y_args = (b["yp"].data_ptr(), B, T, C, chunks)
+                    if name == "cooperative":
+                        err = lib.masked_bn_relu_forward(*pre, counters[name].data_ptr(), *y_args,
+                                                         stream)
+                    elif name == "tails":
+                        err = lib.masked_bn_relu_forward(*pre, counters[name].data_ptr(), *y_args,
+                                                         plan.apply_rows, stream)
+                    else:
+                        err = lib.masked_bn_relu_forward(*pre, *y_args, plan.apply_rows, stream)
+                if err != 0:
+                    raise RuntimeError(f"masked_bn_relu_forward {name}: CUDA error {err}")
+        return run
+
+    def bwd(name, per_sm=None, only=None):
+        lib = libs[name]
+
+        def run():
+            for b in bns:
+                if only is not None and b["C"] != only:
+                    continue
+                C, p, plan, sc = b["C"], b["p"], b["plan"], b["scratch"]
+                rows = -(-B * T // chunks_of(name, plan, C, per_sm))
+                out = sc[7 * C + 2 + 32 * (plan.slices + 2 * C):]  # dscale, dbias, coef, part
+                if name == "first_design":
+                    chunks, per = b["v1"]
+                    v = b["v1_scratch"]
+                    part, tail = v[7 * C + 2:], v[7 * C + 2 + 256 * C:]
+                    err = lib.masked_bn_relu_backward(
+                        b["xc"].data_ptr(), b["yc"].data_ptr(), b["gc"].data_ptr(),
+                        lengths.data_ptr(), em.data_ptr(), p["scale"].data_ptr(), v.data_ptr(),
+                        v[7 * C:].data_ptr(), part.data_ptr(), part[chunks * C:].data_ptr(),
+                        tail.data_ptr(), tail[2 * C:].data_ptr(), tail[3 * C:].data_ptr(),
+                        b["dxc"].data_ptr(), B, T, C, chunks, per, stream)
+                elif name == "cooperative":
+                    err = lib.masked_bn_relu_backward(
+                        b["xp"].data_ptr(), b["xp"].stride(1), b["gp"].data_ptr(),
+                        b["gp"].stride(1), lengths.data_ptr(), em.data_ptr(),
+                        p["scale"].data_ptr(), sc.data_ptr(), sc[7 * C:].data_ptr(),
+                        out[4 * C:].data_ptr(), out.data_ptr(), out[C:].data_ptr(),
+                        counters[name][64:].data_ptr(), b["dxp"].data_ptr(), B, T, C, rows,
+                        stream)
+                elif name == "tails":
+                    err = lib.masked_bn_relu_backward(
+                        b["xp"].data_ptr(), b["xp"].stride(1), b["gp"].data_ptr(),
+                        b["gp"].stride(1), lengths.data_ptr(), em.data_ptr(),
+                        p["scale"].data_ptr(), sc.data_ptr(), sc[7 * C:].data_ptr(),
+                        out[4 * C:].data_ptr(), out[2 * C:].data_ptr(), out.data_ptr(),
+                        out[C:].data_ptr(), counters[name][64:].data_ptr(),
+                        b["dxp"].data_ptr(), B, T, C, rows, plan.apply_rows, stream)
+                else:
+                    err = lib.masked_bn_relu_backward(
+                        b["xp"].data_ptr(), b["xp"].stride(1), b["gp"].data_ptr(),
+                        b["gp"].stride(1), lengths.data_ptr(), em.data_ptr(),
+                        p["scale"].data_ptr(), sc.data_ptr(), sc[7 * C:].data_ptr(),
+                        out[4 * C:].data_ptr(), out.data_ptr(), out[C:].data_ptr(),
+                        b["dxp"].data_ptr(), B, T, C, rows, plan.apply_rows, stream)
+                if err != 0:
+                    raise RuntimeError(f"masked_bn_relu_backward {name}: CUDA error {err}")
+        return run
+
+    # the statistics each backward reads: the kept forward's (the first
+    # design's from its own forward, in its scratch)
+    fwd("kept")()
+    fwd("first_design")()
+    torch.cuda.synchronize()
+    elems = sum(B * T * b["C"] for b in bns)
+    bounds = {"fwd": cs.bound(nbytes=2.0 * 2 * elems)["bound_ms"],
+              "bwd": cs.bound(nbytes=2.0 * 3 * elems)["bound_ms"]}
+
+    def turns(calls, reps):
+        """Each call's CUDA-event time and device time (the busy time of a
+        ``torch.profiler`` pass, and each kernel's), the list forward and
+        then backward."""
+        times = {(k, v): {"ms": [], "device_ms": []} for k, v, _ in calls}
+        for order in (calls, calls[::-1]):
+            for kernel, variant, fn in order:
+                t = times[(kernel, variant)]
+                t["ms"].append(cs.cuda_time_ms(fn, reps))
+                _, busy, top = cs.device_profile(fn, reps)
+                t["device_ms"].append(None if busy is None else busy * 1e3 / reps)
+                t["kernels_ms"] = [(re.sub(r"^.*::|\(.*$", "", name.replace("(anonymous namespace)::", "")), ms)
+                                   for name, ms in top]
+        return times
+
+    designs = [(d, n) for d in ("fwd", "bwd")
+               for n in ("kept", "tails", "cooperative", "first_design")]
+    first = [(d, n, (fwd if d == "fwd" else bwd)(n)) for d, n in designs]
+    for (kernel, variant), t in turns(first, 20).items():
+        cs.log("k7_bn_turns", kernel=kernel, variant=variant, **t, bound_ms=bounds[kernel],
+               device_share_of_bound=[bounds[kernel] / x for x in t["device_ms"] if x],
+               calls=len(bns), card=card)
+    for kernel, variant, fn in first:
+        device, host = cs.device_and_host_ms(fn, 10)
+        cs.log("k7_bn_host", kernel=kernel, variant=variant, device_ms=device, host_ms=host,
+               card=card)
+    both = [n for n in K7BN_SUBS if not n.startswith(("fwd_", "bwd_"))]
+    calls = [("fwd", "kept", fwd("kept"))]
+    calls += [("fwd", n[4:], fwd(n)) for n in K7BN_SUBS if n.startswith("fwd_")]
+    calls += [("fwd", n, fwd(n)) for n in both]
+    calls += [("fwd", f"{k}_blocks_an_sm", fwd("kept", k)) for k in (1, 3)]
+    calls += [("fwd", f"kept_{c}_channels", fwd("kept", only=c)) for c in (1100, 550)]
+    calls += [("bwd", "kept", bwd("kept"))]
+    calls += [("bwd", n[4:], bwd(n)) for n in K7BN_SUBS if n.startswith("bwd_")]
+    calls += [("bwd", n, bwd(n)) for n in both]
+    calls += [("bwd", f"{k}_blocks_an_sm", bwd("kept", k)) for k in (1, 3)]
+    calls += [("bwd", f"kept_{c}_channels", bwd("kept", only=c)) for c in (1100, 550)]
+    for (kernel, variant), t in turns(calls, 10).items():
+        cs.log("k7_bn_variant", kernel=kernel, variant=variant, **t, bound_ms=bounds[kernel],
+               card=card)
+    # K7's masked mean pool beside them (phase 4 times it by events only):
+    # the last block's 32 x 512 x 1,100 features at the padded pitch
+    feats = k7.pad_pitch(torch.randn(B, T, 1100, generator=gen, device=dev).to(bf16))
+    pool = lambda: k7.masked_mean_pool_cuda(feats, lengths)  # noqa: E731
+    device, host = cs.device_and_host_ms(pool, 20)
+    valid = int(lengths.clamp(max=T).sum())  # the rows it reads, as phase 4's bound counts
+    cs.log("k7_pool", ms=cs.cuda_time_ms(pool, 20), device_ms=device, host_ms=host,
+           **cs.bound(nbytes=2.0 * valid * 1100 + 4.0 * B + 4.0 * B * 1100), card=card)
 
 
 # text replaced in pair_train_bwd.cu: (old, new), each old found exactly once
@@ -793,6 +1157,31 @@ def train_turn(tree: str) -> None:
     cs.phase_training(cs.card_line())
 
 
+def encoder_train_turn(tree: str) -> None:
+    """One turn of ``--encoder-train-against``: ``chip_smoke.py``'s
+    encoder-training phase alone in a fresh process, on the package in
+    ``tree``; prints its lines, then one JSON line (phase ``encoder_turn``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import protnote_tpu_torch
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
+    names = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
+             "masked_conv", "masked_conv_bwd", "masked_bn")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_kernel_library, names))
+    _, summary = cs.phase_encoder_training(cs.card_line())
+    copies = summary.pop("copies_per_step")
+    cs.log("encoder_turn", **summary, copies_all=copies["all"],
+           copies_activations=copies["activations"])
+
+
 def eval_turn(tree: str) -> None:
     """One turn of ``--eval-against``: ``Trainer.evaluate`` on
     ``chip_smoke.py``'s 256-sequence FASTA (bf16, ``ESTIMATE_MAP``: K1 and
@@ -884,6 +1273,19 @@ def train_against(parent: str, card: str) -> None:
                         "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
                         "idle_share": prof["idle_share"]})
     cs.log("train_against", parent=parent, turns=results, card=card,
+           **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
+
+
+def encoder_train_against(parent: str, card: str) -> None:
+    """``--encoder-train-against``: the encoder-training phase alone in DIR
+    and in this checkout, in turns."""
+    import chip_smoke as cs
+
+    parent = os.path.abspath(parent)
+    results = [{"tree": r["tree"], **{k: v for k, v in r["encoder_turn"].items()
+                                      if k not in ("phase", "card")}}
+               for r in turns(parent, "--encoder-train-turn", card)]
+    cs.log("encoder_train_against", parent=parent, turns=results, card=card,
            **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
 
 
@@ -1251,6 +1653,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--eval-turn"]:
         eval_turn(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--encoder-train-turn"]:
+        encoder_train_turn(sys.argv[2])
+        return
     sys.path.insert(0, ROOT)
     import torch
 
@@ -1270,6 +1675,15 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--eval-against"]:
         eval_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--encoder-train-against"]:
+        encoder_train_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k7-bn"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k7_bn_variants(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--k4-bwd"]:

@@ -26,15 +26,17 @@ Three hand-written CUDA sources carry it on the card (bf16 only):
   host-built plan, :func:`dw_step_plan`, summed in a fixed order; dbias);
 * ``csrc/masked_bn.cu``: the train-mode masked BN + ReLU of the JAX
   ``batchnorm_apply(train=True, reduce_axes=(0, 1), mask, count)`` with its
-  count rule (:func:`bn_mask_and_count`), forward and backward.
+  count rule (:func:`bn_mask_and_count`), forward and backward, two
+  launches each on the grids of :func:`bn_plan`.
 
 The conv kernels read their input through TMA, which takes rows that start
 on 16 bytes: an activation is a strided ``(B, T, C)`` tensor whose rows lie
 :func:`row_pitch` (C rounded up to 8) channels apart (:func:`padded_empty`,
 :func:`pad_pitch`; 1,100 -> 1,104, 550 -> 552, the one-hot's 20 -> 24).  The
 chain keeps its activations so; a wrapper copies an input of another pitch
-into such a buffer (the copy is part of its time), and the forward writes
-its output at that pitch.  The weights are re-laid once a version
+into such a buffer (the copy is part of its time), and the conv, its dX and
+the BatchNorm's forward and backward write their outputs at that pitch, so
+that the next kernel reads them as they are.  The weights are re-laid once a version
 (:func:`conv_weight_layout`, cached on the parameter tensor by
 :func:`weight_layout`; re-laid every call under autograd), and each call
 runs the tiles of a plan built on the host from the lengths
@@ -62,7 +64,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,8 +79,6 @@ LAUNCHES = {"masked_conv_fwd": 0, "masked_mean_pool": 0, "masked_conv_dx": 0,
 _launch_lock = threading.Lock()
 
 _H100_SMS = 132
-_BN_MIN_CHUNK_ROWS = 256  # rows of a BN column-sum chunk, at least
-_BN_MAX_CHUNKS = 128
 
 
 # ----------------------------------------------------------------------
@@ -167,10 +167,12 @@ def row_pitch(channels: int) -> int:
 
 def padded_empty(B: int, T: int, C: int, dtype: torch.dtype, device) -> torch.Tensor:
     """An uninitialised ``(B, T, C)`` tensor whose rows lie :func:`row_pitch`
-    (C) elements apart (strided, not a view: its padding channels are never
-    read or written)."""
+    (C) elements apart (strided, not a view), on a storage of ``B * T *
+    row_pitch(C)`` elements: it holds the last row's padding channels too,
+    which the BN kernels read and write with the row's last 16 bytes."""
     P = row_pitch(C)
-    return torch.empty_strided((B, T, C), (T * P, P, 1), dtype=dtype, device=device)
+    storage = torch.empty(B * T * P, dtype=dtype, device=device).untyped_storage()
+    return torch.empty(0, dtype=dtype, device=device).set_(storage, 0, (B, T, C), (T * P, P, 1))
 
 
 def pitch_of(x: torch.Tensor) -> Optional[int]:
@@ -377,9 +379,10 @@ _ARGS = {
     ("masked_conv", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
     ("masked_conv_bwd", "masked_conv_dw"): [_P] * 8 + [_I] * 11 + [_P],
-    ("masked_bn", "masked_bn_relu_forward"): [_P] * 7 + [_F] * 3 + [_P] * 6 + [_I] * 4
-                                             + [_LL, _P],
-    ("masked_bn", "masked_bn_relu_backward"): [_P] * 14 + [_I] * 4 + [_LL, _P],
+    ("masked_bn", "masked_bn_relu_forward"): [_P, _I] + [_P] * 6 + [_F] * 3 + [_P] * 7
+                                             + [_I] * 5 + [_P],
+    ("masked_bn", "masked_bn_relu_backward"): [_P, _I, _P, _I] + [_P] * 9 + [_I] * 5 + [_P],
+    ("masked_bn", "masked_bn_kernels_launched"): [],
 }
 
 
@@ -426,6 +429,8 @@ def _rows(name: str, t: torch.Tensor, shape, device) -> Tuple[torch.Tensor, int]
 
 
 def _lengths_on(lengths: torch.Tensor, device) -> torch.Tensor:
+    if lengths.dtype == torch.int32 and lengths.device == device and lengths.is_contiguous():
+        return lengths
     return lengths.to(device=device, dtype=torch.int32).contiguous()
 
 
@@ -493,10 +498,12 @@ def masked_mean_pool_cuda(feats: torch.Tensor, lengths: torch.Tensor) -> torch.T
 
 def masked_conv_dx_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: torch.Tensor,
                         dilation: int, layout: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``masked_conv_dx``: the input gradient (B, T, C_in) bf16, contiguous,
-    of a masked conv from its output gradient ``dy`` (B, T, C_out) (copied
-    into a buffer at :func:`row_pitch` (C_out) unless it is at such a pitch)
-    and ``kernel`` (taps, C_in, C_out) (or ``layout``, its dX layout)."""
+    """``masked_conv_dx``: the input gradient (B, T, C_in) bf16 at
+    :func:`row_pitch` (C_in) (its padding channels not written), where the
+    BatchNorm's backward reads it, of a masked conv from its output gradient
+    ``dy`` (B, T, C_out) (copied into a buffer at :func:`row_pitch` (C_out)
+    unless it is at such a pitch) and ``kernel`` (taps, C_in, C_out) (or
+    ``layout``, its dX layout)."""
     dev = dy.device
     B, T, cout = dy.shape
     taps, cin = kernel.shape[0], kernel.shape[1]
@@ -510,10 +517,11 @@ def masked_conv_dx_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: torch.T
     dyp = pad_pitch(dy)
     plan = _plan_on(lengths, T, taps, dilation, cin, True, dev)
     lengths = _lengths_on(lengths, dev)
-    dx = torch.empty(B, T, cin, dtype=torch.bfloat16, device=dev)
+    dx = padded_empty(B, T, cin, torch.bfloat16, dev)
     _launch("masked_conv_bwd", "masked_conv_dx", "masked_conv_dx", dev, dyp.data_ptr(),
             layout.data_ptr(), lengths.data_ptr(), plan.data_ptr(), dx.data_ptr(), B, T, cin,
-            cout, dyp.stride(1), cin, k_pad, n_pad, taps, dilation, plan.tiles, _num_sms(dev))
+            cout, dyp.stride(1), dx.stride(1), k_pad, n_pad, taps, dilation, plan.tiles,
+            _num_sms(dev))
     return dx
 
 
@@ -548,72 +556,167 @@ def masked_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Tensor
     return dw, db
 
 
-def bn_chunks(rows: int) -> Tuple[int, int]:
-    """``(chunks, rows_per_chunk)`` of the BN kernels' column sums."""
-    per = max(_BN_MIN_CHUNK_ROWS, math.ceil(rows / _BN_MAX_CHUNKS))
-    return math.ceil(rows / per), per
+BN_SLICE = 64  # channels of a BN block's column slice (csrc/masked_bn.cu GROUP)
+BN_MAX_B = 1024  # sequences of the statistics kernel's table (MAX_B)
+BN_SUM_BLOCKS_PER_SM = 2  # the statistics' and gradient sums' blocks an SM
+BN_MAX_CHUNKS = 32  # chunks a block combines (csrc/masked_bn.cu SPLIT * TAIL)
+BN_APPLY_ROWS = 256  # rows of an apply or dx block
+
+
+class BNPlan(NamedTuple):
+    """The K7-BN kernels' grids for R rows of C channels: ``slices`` column
+    slices of 64 channels (blockIdx.x of every kernel); the statistics'
+    ``stat_chunks`` equal runs of the valid rows (split on the card, where
+    the lengths are); the gradient sums' chunks of ``sum_rows`` rows
+    (``sum_chunks`` of them); the apply's ``apply_chunks`` of
+    ``apply_rows`` rows, dx's ``apply_rows`` a block from the end of each
+    sums chunk."""
+    slices: int
+    stat_chunks: int
+    sum_rows: int
+    sum_chunks: int
+    apply_rows: int
+    apply_chunks: int
+
+
+def chunk_ranges(n: int, chunks: int) -> list:
+    """``[start, end)`` of each of ``chunks`` runs over ``n`` rows, as the
+    kernels cut them: ``per = ceil(n / chunks)`` rows a run, the last runs
+    empty where ``chunks * per`` passes ``n``."""
+    per = -(-n // chunks)
+    return [(min(k * per, n), min(k * per + per, n)) for k in range(chunks)]
+
+
+@functools.lru_cache(maxsize=None)
+def bn_plan(rows: int, channels: int, sms: int = _H100_SMS) -> BNPlan:
+    """The grids of ``masked_bn_relu_forward`` / ``_backward`` (see
+    :class:`BNPlan`): about ``BN_SUM_BLOCKS_PER_SM`` blocks an SM for the
+    passes whose chunks the next kernel's blocks combine (the fewer chunks,
+    the less each block reads; ``BN_MAX_CHUNKS`` at most), ``BN_APPLY_ROWS``
+    rows a block for the elementwise passes."""
+    slices = -(-channels // BN_SLICE)
+    chunks = max(1, min(BN_MAX_CHUNKS, BN_SUM_BLOCKS_PER_SM * sms // slices))
+    sum_rows = max(1, -(-rows // chunks))
+    return BNPlan(slices, chunks, sum_rows, -(-rows // sum_rows), BN_APPLY_ROWS,
+                  -(-rows // BN_APPLY_ROWS))
 
 
 def _em_on(example_mask: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
-    if example_mask is None:
-        return None
+    if example_mask is None or (example_mask.dtype == torch.float32
+                                and example_mask.device == device
+                                and example_mask.is_contiguous()):
+        return example_mask
     return example_mask.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _bn_activation(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
+    """A bf16 ``(B, T, C)`` activation as the BN kernels read it: ``t``
+    itself at a pitch of 8 channels with rows on 16 bytes whose storage
+    holds the last row's padding (the chain's, :func:`padded_empty`), else a
+    copy at :func:`row_pitch` (C)."""
+    if t.device != device or t.dtype != torch.bfloat16 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be bf16 {tuple(shape)} on {device}, not {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    t = pad_pitch(t)
+    B, T, C = t.shape
+    if t.storage_offset() + (B * T - 1) * t.stride(1) + row_pitch(C) > \
+            t.untyped_storage().nbytes() // t.element_size():
+        # a pitch of 8 whose storage ends at the last row's C-th channel
+        out = padded_empty(B, T, C, t.dtype, t.device)
+        out.copy_(t)
+        t = out
+    return t
+
+
+def _bn_shape(B: int, C: int) -> None:
+    if B > BN_MAX_B:
+        raise ValueError(f"the BN kernels take at most {BN_MAX_B} sequences, not {B}")
+
+
+def _f32_vector(name: str, t: torch.Tensor, C: int, device) -> torch.Tensor:
+    """A (C,) float32 contiguous vector on ``device``: ``t`` itself where it
+    is one (the wrappers' common case, checked without a copy), else its
+    cast."""
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.detach().to(torch.float32).contiguous()
+    if t.shape != (C,) or t.device != device:
+        raise ValueError(f"{name} must be ({C},) on {device}, not {tuple(t.shape)} on {t.device}")
+    return t
+
+
+def bn_kernels_launched() -> int:
+    """The kernels ``masked_bn_relu_forward`` and ``_backward`` have launched
+    in this process, counted in the C library (two a call)."""
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    key = ("masked_bn", "masked_bn_kernels_launched")
+    return kernel_function(*key, _ARGS[key])()
 
 
 def masked_bn_relu_forward_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                 run_mean: torch.Tensor, run_var: torch.Tensor,
                                 lengths: torch.Tensor, example_mask: Optional[torch.Tensor],
                                 eps: float, momentum: float):
-    """``masked_bn_relu_forward``: ``(y, new_mean, new_var, stats, counts)``
-    with ``stats`` (5, C) = mean, var, rstd, inv, shift and ``counts`` (2,)
-    = n, n_valid (float32), for the backward."""
+    """``masked_bn_relu_forward``: ``(y, new_mean, new_var, stats, counts)``,
+    y bf16 at :func:`row_pitch` (C) (padding channels 0), ``stats`` (5, C) =
+    mean, var, rstd, inv, shift and ``counts`` (2,) = n, n_valid (float32),
+    for the backward.  x at any row pitch (copied unless the pitch is a
+    multiple of 8).  The statistics, running statistics, counts and the
+    statistics kernel's partials share one allocation (the first four are
+    views of it); two launches."""
     B, T, C = x.shape
-    dev, f32 = x.device, torch.float32
-    _check("x", x, (B, T, C), torch.bfloat16, dev)
-    if C % 2:
-        raise ValueError(f"the BN kernels take an even channel count, not {C}")
-    vec = [t.detach().to(f32).contiguous() for t in (scale, bias, run_mean, run_var)]
-    for name, t in zip(("scale", "bias", "running mean", "running var"), vec):
-        _check(name, t, (C,), f32, dev)
+    dev = x.device
+    _bn_shape(B, C)
+    xp = _bn_activation("x", x, (B, T, C), dev)
+    vec = [_f32_vector(n, t, C, dev) for n, t in (("scale", scale), ("bias", bias),
+                                                  ("running mean", run_mean),
+                                                  ("running var", run_var))]
     lengths = _lengths_on(lengths, dev)
     em = _em_on(example_mask, dev)
-    chunks, per = bn_chunks(B * T)
-    part = torch.empty(chunks, C, dtype=f32, device=dev)
-    counts = torch.empty(2, dtype=f32, device=dev)
-    stats = torch.empty(5, C, dtype=f32, device=dev)
-    new_mean, new_var = torch.empty(C, dtype=f32, device=dev), torch.empty(C, dtype=f32, device=dev)
-    y = torch.empty_like(x)
-    _launch("masked_bn", "masked_bn_relu_forward", "masked_bn_relu_fwd", dev, x.data_ptr(),
-            lengths.data_ptr(), _ptr(em), *[t.data_ptr() for t in vec], float(momentum),
-            float(1.0 - momentum), float(eps), part.data_ptr(), counts.data_ptr(),
-            stats.data_ptr(), new_mean.data_ptr(), new_var.data_ptr(), y.data_ptr(), B, T, C,
-            chunks, per)
-    return y, new_mean, new_var, stats, counts
+    plan = bn_plan(B * T, C, _num_sms(dev))
+    k = plan.stat_chunks
+    scratch = torch.empty(7 * C + 2 + k * (plan.slices + 2 * C), dtype=torch.float32, device=dev)
+    stats, new_mean, new_var, counts, _ = scratch.split_with_sizes(
+        (5 * C, C, C, 2, k * (plan.slices + 2 * C)))
+    base = scratch.data_ptr()
+    chunk_n = base + 4 * (7 * C + 2)  # (slices, chunks), then part (chunks, 2, C)
+    y = padded_empty(B, T, C, torch.bfloat16, dev)
+    _launch("masked_bn", "masked_bn_relu_forward", "masked_bn_relu_fwd", dev, xp.data_ptr(),
+            xp.stride(1), lengths.data_ptr(), _ptr(em), *[t.data_ptr() for t in vec],
+            float(momentum), float(1.0 - momentum), float(eps), chunk_n + 4 * k * plan.slices,
+            chunk_n, counts.data_ptr(), base, new_mean.data_ptr(), new_var.data_ptr(),
+            y.data_ptr(), B, T, C, k, plan.apply_rows)
+    return y, new_mean, new_var, stats.view(5, C), counts
 
 
-def masked_bn_relu_backward_cuda(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
-                                 scale: torch.Tensor, stats: torch.Tensor,
-                                 counts: torch.Tensor, lengths: torch.Tensor,
-                                 example_mask: Optional[torch.Tensor]):
-    """``masked_bn_relu_backward``: ``(dx bf16, dscale, dbias float32)``."""
+def masked_bn_relu_backward_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                                 stats: torch.Tensor, counts: torch.Tensor,
+                                 lengths: torch.Tensor, example_mask: Optional[torch.Tensor]):
+    """``masked_bn_relu_backward``: ``(dx bf16 at`` :func:`row_pitch` ``(C),
+    dscale, dbias float32)`` from x and dy at any row pitch (each copied
+    unless its pitch is a multiple of 8) and the forward's ``stats`` and
+    ``counts``; the ReLU's gate is recomputed from x, y is not read.  dscale,
+    dbias and the gradient sums' partials share one allocation; two
+    launches."""
     B, T, C = x.shape
-    dev, f32 = x.device, torch.float32
-    for name, t in (("x", x), ("y", y), ("dy", dy)):
-        _check(name, t, (B, T, C), torch.bfloat16, dev)
-    scale = scale.detach().to(f32).contiguous()
-    _check("scale", scale, (C,), f32, dev)
+    dev = x.device
+    _bn_shape(B, C)
+    xp = _bn_activation("x", x, (B, T, C), dev)
+    dyp = _bn_activation("dy", dy, (B, T, C), dev)
+    scale = _f32_vector("scale", scale, C, dev)
+    _check("stats", stats, (5, C), torch.float32, dev)
+    _check("counts", counts, (2,), torch.float32, dev)
     lengths = _lengths_on(lengths, dev)
     em = _em_on(example_mask, dev)
-    chunks, per = bn_chunks(B * T)
-    part, part2 = (torch.empty(chunks, C, dtype=f32, device=dev) for _ in range(2))
-    coef = torch.empty(2, C, dtype=f32, device=dev)
-    dscale, dbias = torch.empty(C, dtype=f32, device=dev), torch.empty(C, dtype=f32, device=dev)
-    dx = torch.empty_like(x)
-    _launch("masked_bn", "masked_bn_relu_backward", "masked_bn_relu_bwd", dev, x.data_ptr(),
-            y.data_ptr(), dy.data_ptr(), lengths.data_ptr(), _ptr(em), scale.data_ptr(),
-            stats.data_ptr(), counts.data_ptr(), part.data_ptr(), part2.data_ptr(),
-            coef.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dx.data_ptr(), B, T, C,
-            chunks, per)
+    plan = bn_plan(B * T, C, _num_sms(dev))
+    scratch = torch.empty((2 + 2 * plan.sum_chunks) * C, dtype=torch.float32, device=dev)
+    dscale, dbias, _ = scratch.split_with_sizes((C, C, 2 * plan.sum_chunks * C))
+    base = scratch.data_ptr()  # dscale, dbias, part (chunks, 2, C)
+    dx = padded_empty(B, T, C, torch.bfloat16, dev)
+    _launch("masked_bn", "masked_bn_relu_backward", "masked_bn_relu_bwd", dev, xp.data_ptr(),
+            xp.stride(1), dyp.data_ptr(), dyp.stride(1), lengths.data_ptr(), _ptr(em),
+            scale.data_ptr(), stats.data_ptr(), counts.data_ptr(), base + 8 * C, base,
+            base + 4 * C, dx.data_ptr(), B, T, C, plan.sum_rows, plan.apply_rows)
     return dx, dscale, dbias
 
 
@@ -646,19 +749,23 @@ class _MaskedConv(torch.autograd.Function):
 
 
 class _MaskedBNRelu(torch.autograd.Function):
+    # x is saved as the kernels read it (the chain's conv output is, with
+    # no copy); y is not saved: the backward recomputes the ReLU's gate
+    # from x.
     @staticmethod
     def forward(ctx, x, scale, bias, run_mean, run_var, lengths, example_mask, eps, momentum):
+        x = _bn_activation("x", x, x.shape, x.device)
         y, new_mean, new_var, stats, counts = masked_bn_relu_forward_cuda(
             x, scale, bias, run_mean, run_var, lengths, example_mask, eps, momentum)
-        ctx.save_for_backward(x, y, scale, stats, counts, lengths, example_mask)
+        ctx.save_for_backward(x, scale, stats, counts, lengths, example_mask)
         ctx.mark_non_differentiable(new_mean, new_var)
         return y, new_mean, new_var
 
     @staticmethod
     def backward(ctx, g, _mean, _var):
-        x, y, scale, stats, counts, lengths, example_mask = ctx.saved_tensors
-        dx, dscale, dbias = masked_bn_relu_backward_cuda(x, y, g.contiguous(), scale, stats,
-                                                         counts, lengths, example_mask)
+        x, scale, stats, counts, lengths, example_mask = ctx.saved_tensors
+        dx, dscale, dbias = masked_bn_relu_backward_cuda(x, g, scale, stats, counts, lengths,
+                                                         example_mask)
         return dx, dscale, dbias, None, None, None, None, None, None
 
 
@@ -718,21 +825,23 @@ def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.T
                          example_mask: Optional[torch.Tensor], eps: float,
                          momentum: float) -> Tuple[torch.Tensor, Params]:
     """``(relu(BN(x)), new_state)``, train-mode masked BN under the count
-    rule: the plain version on the CPU, the K7-BN kernels on the card."""
+    rule: the plain version on the CPU, the K7-BN kernels on the card.  x at
+    any row pitch; the result's rows lie :func:`row_pitch` (C) apart on both
+    (the CPU copies the plain version's), where the next conv reads them."""
     if x.device.type == "cpu":
-        return masked_bn_relu_reference(x, p, s, lengths, example_mask, eps, momentum)
+        y, new_state = masked_bn_relu_reference(x, p, s, lengths, example_mask, eps, momentum)
+        return pad_pitch(y), new_state
     if x.device.type != "cuda":
         raise ValueError(f"no masked BatchNorm for device {x.device}")
     check_compute_dtype(x.dtype)
     lengths = _lengths_on(lengths, x.device)
     em = _em_on(example_mask, x.device)
     if _wants_grad(x, p["scale"], p["bias"]):
-        y, mean, var = _MaskedBNRelu.apply(x.contiguous(), p["scale"], p["bias"], s["mean"],
-                                           s["var"], lengths, em, eps, momentum)
+        y, mean, var = _MaskedBNRelu.apply(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                           lengths, em, eps, momentum)
     else:
         y, mean, var, _, _ = masked_bn_relu_forward_cuda(
-            x.contiguous(), p["scale"], p["bias"], s["mean"], s["var"], lengths, em, eps,
-            momentum)
+            x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, eps, momentum)
     return y, {"mean": mean.to(s["mean"].dtype), "var": var.to(s["var"].dtype)}
 
 

@@ -1160,27 +1160,54 @@ def test_masked_conv_dw_matches_plain_and_cudnn_on_card(T, dilation, taps, cin, 
     _within(dw, lib.permute(2, 1, 0), 2.0 ** -6, "dw vs cuDNN")
 
 
+def _padding(t, C):
+    """The padding channels of a (B, T, C) tensor at row_pitch(C)."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    Bt, Tt, _ = t.shape
+    P = k7.row_pitch(C)
+    return torch.as_strided(t, (Bt, Tt, P - C), (Tt * P, P, 1), t.storage_offset() + C)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("example_mask", [False, True])
-def test_masked_bn_relu_kernels_match_plain_on_card(example_mask):
+@pytest.mark.parametrize("C", [1100, 550])
+@pytest.mark.parametrize("padded", [True, False])
+def test_masked_bn_relu_kernels_match_plain_on_card(example_mask, C, padded):
     """K7-BN's forward (output, new running statistics) and backward (dx,
     dscale, dbias) against the plain ``batchnorm_train`` + ReLU under
-    autograd, with the count rule's dropped rows."""
+    autograd, with the count rule's dropped rows, a length-0 and a
+    full-length row, on inputs at the convs' padded pitch (1,104 / 552: views
+    of wider buffers whose padding channels hold NaN, which must not reach a
+    sum) and contiguous (which the wrappers copy to that pitch); y and dx at
+    ``row_pitch(C)`` with zero padding channels, the same bits on a second
+    call, two kernels a wrapper call (counted in the C library)."""
     from protnote_tpu_torch.ops import masked_conv as k7
 
     dev = _card()
-    rng = np.random.default_rng(9)
-    T, C = 200, 110
+    rng = np.random.default_rng(9 + C)
+    T = 200
     lengths = _k7_lengths(T, dev)
+    assert int(lengths.max()) == T and int(lengths.min()) == 0
     em = (torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0], device=dev) if example_mask else None)
-    x = (_bf16(rng, len(K7_LENGTHS), T, C) + 0.5)
-    g = _bf16(rng, len(K7_LENGTHS), T, C)
+
+    def act(shift=0.0):
+        t = _bf16(rng, len(K7_LENGTHS), T, C) + shift
+        if not padded:
+            return t
+        wide = torch.full((len(K7_LENGTHS), T, k7.row_pitch(C)), float("nan"), device=dev,
+                          dtype=torch.bfloat16)
+        wide[..., :C] = t
+        return wide[..., :C]
+
+    x, g = act(0.5), act()
+    assert (k7.pitch_of(x) == k7.row_pitch(C)) == padded
     p = {"scale": torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev),
          "bias": torch.from_numpy(rng.normal(0, 0.3, C).astype(np.float32)).to(dev)}
     s = {"mean": torch.full((C,), 0.2, device=dev), "var": torch.full((C,), 1.5, device=dev)}
     outs = {}
     for plain in (True, False):
-        xg = x.clone().requires_grad_(True)
+        xg = x.detach().requires_grad_(True)  # x's own layout
         pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
         fn = k7.masked_bn_relu_reference if plain else k7.masked_bn_relu_train
         y, new = fn(xg, pg, s, lengths, em, 1e-3, 0.01)
@@ -1195,6 +1222,29 @@ def test_masked_bn_relu_kernels_match_plain_on_card(example_mask):
     _within(ds, ds0, 1e-3, "dscale")
     _within(db, db0, 1e-3, "dbias")
     assert float((y > 0).float().mean()) > 0.3
+    assert bool(torch.isfinite(dx.float()).all())
+
+    fwd = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                         lengths, em, 1e-3, 0.01)
+    y1, _, _, stats, counts = fwd
+    bwd = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+    fwd2 = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                          lengths, em, 1e-3, 0.01)
+    bwd2 = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fwd + bwd, fwd2 + bwd2))
+    for t in (y1, bwd[0]):
+        assert k7.pitch_of(t) == k7.row_pitch(C)
+        assert bool((_padding(t, C) == 0).all())
+    assert torch.equal(y1, y)
+    before, kernels = dict(k7.LAUNCHES), k7.bn_kernels_launched()
+    k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em,
+                                   1e-3, 0.01)
+    k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+    torch.cuda.synchronize()
+    assert k7.bn_kernels_launched() - kernels == 4  # two a wrapper call, counted in C
+    assert k7.LAUNCHES["masked_bn_relu_fwd"] == before["masked_bn_relu_fwd"] + 1
+    assert k7.LAUNCHES["masked_bn_relu_bwd"] == before["masked_bn_relu_bwd"] + 1
 
 
 @pytest.mark.cuda
@@ -1262,6 +1312,94 @@ def test_encoder_runs_no_cudnn_conv_on_card(monkeypatch, train):
 
 
 @pytest.mark.cuda
+def test_encoder_chain_makes_no_copies_around_the_batchnorms_on_card(monkeypatch):
+    """One training step's encoder chain (3 blocks at 110 channels, the
+    bottleneck 55: pitches 112 and 56) under autograd: every BatchNorm reads
+    the conv output it follows and its cotangent (the next conv's dX) as they
+    are, and the conv after it reads its y, its dX its dx (bn2) as they are;
+    no ``aten::copy_`` of a (B, T, C) activation in the forward, and in the
+    backward only the conv_1x1s' copies of their summed (contiguous)
+    cotangent, one a block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from protnote_tpu_torch.models import proteinfer as tpi
+    from protnote_tpu_torch.models.layers import tree_to
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    cfg = ProteInferConfig(output_channels=110, num_resnet_blocks=3,
+                           compute_dtype=torch.bfloat16)
+    params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
+    params, state = tree_to(params, dev), tree_to(state, dev)
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, 21, (5, 200))).to(dev)
+    lengths = _k7_lengths(200, dev)
+    leaves = [t for bp in params["blocks"] for part in bp.values() for t in part.values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    seen = {"conv_out": set(), "conv_in": set(), "dx_out": set(), "dy_in": set(),
+            "bn_x": [], "bn_y": [], "bn_g": [], "bn_dx": []}
+    calls = {name: getattr(k7, name) for name in (
+        "masked_conv_cuda", "masked_conv_dx_cuda", "masked_conv_dw_cuda",
+        "masked_bn_relu_forward_cuda", "masked_bn_relu_backward_cuda")}
+
+    def conv(x, *args, **kwargs):
+        seen["conv_in"].add(x.data_ptr())
+        y = calls["masked_conv_cuda"](x, *args, **kwargs)
+        seen["conv_out"].add(y.data_ptr())
+        return y
+
+    def conv_dx(dy, *args, **kwargs):
+        seen["dy_in"].add(dy.data_ptr())
+        dx = calls["masked_conv_dx_cuda"](dy, *args, **kwargs)
+        seen["dx_out"].add(dx.data_ptr())
+        return dx
+
+    def conv_dw(x, dy, *args, **kwargs):
+        seen["dy_in"].add(dy.data_ptr())
+        return calls["masked_conv_dw_cuda"](x, dy, *args, **kwargs)
+
+    def bn_fwd(x, *args):
+        out = calls["masked_bn_relu_forward_cuda"](x, *args)
+        seen["bn_x"].append(x.data_ptr())
+        seen["bn_y"].append(out[0].data_ptr())
+        return out
+
+    def bn_bwd(x, dy, *args):
+        out = calls["masked_bn_relu_backward_cuda"](x, dy, *args)
+        seen["bn_g"].append(dy.data_ptr())
+        seen["bn_dx"].append(out[0].data_ptr())
+        return out
+
+    for name, fn in (("masked_conv_cuda", conv), ("masked_conv_dx_cuda", conv_dx),
+                     ("masked_conv_dw_cuda", conv_dw), ("masked_bn_relu_forward_cuda", bn_fwd),
+                     ("masked_bn_relu_backward_cuda", bn_bwd)):
+        monkeypatch.setattr(k7, name, fn)
+
+    def copies(prof):
+        return sorted(e.input_shapes[0][2] for e in prof.events()
+                      if e.name == "aten::copy_" and e.input_shapes
+                      and len(e.input_shapes[0]) == 3 and tuple(e.input_shapes[0][:2]) == (5, 200)
+                      and e.input_shapes[0][2] in (110, 55))  # not the one-hot's cast
+
+    shapes = dict(activities=[ProfilerActivity.CPU], record_shapes=True)
+    with profile(**shapes) as fwd_prof:
+        got, _ = tpi.embed_from_ids(params, state, ids, lengths, cfg, train=True)
+        torch.cuda.synchronize()
+    with profile(**shapes) as bwd_prof:
+        grads = torch.autograd.grad(got.sum(), leaves)
+        torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert len(seen["bn_x"]) == len(seen["bn_g"]) == 6
+    assert set(seen["bn_x"]) <= seen["conv_out"]  # the conv output as it is
+    assert set(seen["bn_y"]) <= seen["conv_in"]  # read by the next conv as it is
+    assert set(seen["bn_g"]) <= seen["dx_out"]  # the next conv's dX as it is
+    assert set(seen["bn_dx"][::2]) <= seen["dy_in"]  # bn2's dx: conv_dilated's dy
+    assert copies(fwd_prof) == []
+    assert copies(bwd_prof) == [110] * 3  # conv_1x1's summed cotangent, one a block
+
+
+@pytest.mark.cuda
 def test_masked_conv_kernels_raise_on_what_they_do_not_take():
     from protnote_tpu_torch.ops import masked_conv as k7
 
@@ -1278,10 +1416,15 @@ def test_masked_conv_kernels_raise_on_what_they_do_not_take():
     with pytest.raises(ValueError, match="MIXED_PRECISION"):
         k7.masked_conv(x.float(), {"kernel": w.float(), "bias": b.float()}, lengths, 1)
     ones = torch.ones(7, device=dev)
-    with pytest.raises(ValueError, match="even"):
+    with pytest.raises(ValueError, match="scale"):  # any C; a scale of another width raises
         k7.masked_bn_relu_train(torch.zeros(2, 16, 7, device=dev, dtype=torch.bfloat16),
+                                {"scale": torch.ones(6, device=dev), "bias": ones},
+                                {"mean": ones, "var": ones}, lengths, None, 1e-3, 0.01)
+    with pytest.raises(ValueError, match="sequences"):
+        k7.masked_bn_relu_train(torch.zeros(k7.BN_MAX_B + 1, 2, 7, device=dev,
+                                            dtype=torch.bfloat16),
                                 {"scale": ones, "bias": ones}, {"mean": ones, "var": ones},
-                                lengths, None, 1e-3, 0.01)
+                                torch.ones(k7.BN_MAX_B + 1, device=dev), None, 1e-3, 0.01)
 
 
 @pytest.mark.cuda

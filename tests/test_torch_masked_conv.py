@@ -300,9 +300,17 @@ def test_launch_plans_cover_the_work():
     assert k7.dw_splits(9, 1100, 550) == 1  # 243 tiles
     assert k7.dw_splits(1, 550, 1100) == 4  # 30 tiles
     assert k7.dw_splits(1, 16, 16) == 132
+    # K7-BN: the gradient sums' and the apply's chunks cover the rows, none
+    # empty; the statistics' and sums' grids about two blocks an SM, at most
+    # 32 chunks (what a tail adds)
     for rows in (1, 255, 256, 16384, 32768, 1 << 20):
-        chunks, per = k7.bn_chunks(rows)
-        assert chunks * per >= rows > (chunks - 1) * per and per >= 256
+        for c in (110, 550, 1100):
+            plan = k7.bn_plan(rows, c)
+            assert plan.slices == -(-c // 64)
+            for chunks, per in ((plan.sum_chunks, plan.sum_rows),
+                                (plan.apply_chunks, plan.apply_rows)):
+                assert chunks * per >= rows > (chunks - 1) * per
+            assert plan.stat_chunks == min(32, 2 * 132 // plan.slices) >= plan.sum_chunks
 
 
 # ----------------------------------------------------------------------

@@ -333,9 +333,9 @@ def _encoder(n_blocks=2, seed=0):
 
 @pytest.mark.parametrize("train", [False, True])
 def test_chain_on_padded_pitch_buffers_matches_contiguous_chain_and_jax(monkeypatch, train):
-    """``embed_from_ids`` on the CPU keeps the one-hot and every conv output
-    at a row pitch of 24 (20 channels; 10 in the bottleneck: 16), which the
-    convs read; its embedding (and in train mode the new running
+    """``embed_from_ids`` on the CPU keeps the one-hot, every conv output and
+    in train mode every BN output at a row pitch of 24 (20 channels; 10 in
+    the bottleneck: 16), which the convs read; its embedding (and in train mode the new running
     statistics) equals the contiguous plain chain's bit for bit and JAX's
     ``proteinfer_embed`` within 1e-5."""
     cfg, tcfg, enc, state = _encoder()
@@ -360,10 +360,11 @@ def test_chain_on_padded_pitch_buffers_matches_contiguous_chain_and_jax(monkeypa
     monkeypatch.setattr(k7, "masked_conv_reference", spy)
     got, got_state = tpi.embed_from_ids(tree["p"], tree["s"], torch.from_numpy(ids),
                                         torch.from_numpy(lengths), tcfg, train)
-    # eval: the one-hot, then each block's input (20 channels) and bottleneck
-    # (10) at pitches 24 and 16; train: the BN outputs in front of the block
-    # convs are contiguous (on the card the conv copies them to the pitch)
-    assert [p for _, p in pitches] == ([24, 20, 10, 20, 10] if train else [24, 24, 16, 24, 16])
+    # the one-hot, then each block's input (20 channels) and bottleneck (10)
+    # at pitches 24 and 16: in eval mode the conv outputs, in train mode the
+    # BN outputs in front of the block convs (on the card the BN kernels
+    # write them so, and the convs read them without a copy)
+    assert [p for _, p in pitches] == [24, 24, 16, 24, 16]
     assert torch.equal(got, plain)
     _close(got.numpy(), want, name="pooled")
     if train:

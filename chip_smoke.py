@@ -91,11 +91,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
     and with dynamic per-row scales, against its plain version on the same
     device tensors: max |Δlogit|, the carried layer-1 rows of two label
     chunks compared element by element, the code pass (layer 1's static
-    codes) and the row-scale pass (dynamic scales and codes) against their
-    plain versions, each launch of one chunk timed alone with its ptxas
-    figures, one profiled call of each mode, times from CUDA events
-    beside the 39.2 ms int8 bound, and ``torch._int_mm`` on the same GEMM
-    shapes as the yardstick;
+    codes) and the row-scale pass (dynamic scales and codes, its first form
+    from a and c and its later form from the bf16 carry) against their
+    plain versions on the first and the ragged last chunk, each pass over a
+    batch's chunks by CUDA events, as device time (``torch.profiler``) and
+    as the host's time a launch, each form beside its own bytes bound;
+    each launch of one chunk timed alone with its ptxas figures, one
+    profiled call of each mode (the device time of each pass and of the
+    GEMM's launches a batch), times from CUDA events beside the 39.2 ms
+    int8 bound, and ``torch._int_mm`` on the same GEMM shapes as the
+    yardstick;
 11. int8 serving: a full-width ``ServingEngine`` with ``PAIR_BACKEND
     tiled_int8`` calibrated from random sequences (``calibrate_from``),
     warmed up, then full batches (batch ms, seqs/s, peak memory), its
@@ -1058,8 +1063,8 @@ def phase_k2(card: str):
                 raise AssertionError(f"K2 ({mode}) disagrees with the plain version: logit "
                                      f"{err}, prob {perr}, {differ} carried values differ")
         parts = k2_parts(qs, P_e, L_e)
-        codes = k2_codes(qs["static"], P_e, L_e)
-        rs = k2_row_scale(qs["dynamic"], P_e, L_e)
+        codes = k2_codes(qs["static"], P_e, L_e, card)
+        rs = k2_row_scale(qs["dynamic"], P_e, L_e, card)
         # the yardstick: the same int8 GEMMs as one library call each, with
         # W row-major as the plain version holds it and column-major as K2
         # takes it; the faster counts
@@ -1110,13 +1115,24 @@ def k2_variants():
     return out
 
 
+# K2's kernels by name, and the pass each belongs to (k2_parts' device time)
+K2_KERNEL_PASSES = {"pair_int8_first_codes_kernel<false": "codes",
+                    "pair_int8_first_scale_kernel": "row_scale_first",
+                    "pair_int8_first_codes_kernel<true": "row_scale_first",
+                    "pair_int8_later_kernel": "row_scale_later",
+                    "pair_int8_layer_kernel": "layer"}
+
+
 def k2_parts(qs, P_e, L_e):
     """K2 in parts at full width: each launch of one full chunk alone, from
     CUDA events (static: the code pass, the GEMM with the code epilogue,
     the GEMM with the dot; dynamic: the row-scale pass from a and c and
     from bf16 rows, the GEMM with the bf16 epilogue, the GEMM with the
-    dot), each also scaled to the batch's chunks; and one profiled call of
-    each mode."""
+    dot), each also scaled to the batch's chunks (the dynamic layer 1 on
+    the second chunk; the first chunk's launch also makes every chunk's
+    layer-1 scales: ``dynamic_first_scales``, that launch, and once a batch
+    its excess over the second chunk's); and one profiled call of each
+    mode."""
     import torch
 
     from protnote_tpu_torch.ops import pair_scorer as ps
@@ -1127,33 +1143,53 @@ def k2_parts(qs, P_e, L_e):
         ch = k.plan.chunks[0]
         logits = k.new_logits()
         with torch.cuda.device(P_e.device):
+            if mode == "dynamic":
+                launches["dynamic_first_scales"] = cuda_time_ms(lambda: k.quantize(ch, 0), 20)
             for i in range(2):
-                k.quantize(ch, i if mode == "dynamic" else 0)
+                qc = k.plan.chunks[1] if mode == "dynamic" and i == 0 else ch
+                k.quantize(qc, i if mode == "dynamic" else 0)
                 launches[f"{mode}_{'row_scale' if mode == 'dynamic' else 'codes'}_{i}"] = \
-                    cuda_time_ms(lambda: k.quantize(ch, i if mode == "dynamic" else 0), 20)
+                    cuda_time_ms(lambda: k.quantize(qc, i if mode == "dynamic" else 0), 20)
                 launches[f"{mode}_layer_{i}"] = cuda_time_ms(lambda: k.layer(ch, i, logits), 20)
         chunk_rows = B * ch.nl_pad
         del k, logits
     launches.pop("static_codes_1")  # the code pass runs for layer 1 only
     batch = {name: ms * B * L_e.shape[0] / chunk_rows for name, ms in launches.items()}
+    batch["dynamic_first_scales"] = (launches["dynamic_first_scales"]
+                                     - launches["dynamic_row_scale_0"])
     layer_tops = {name: 2.0 * chunk_rows * H * H / ms / 1e9
                   for name, ms in launches.items() if "layer" in name}
     # one profiled call of each mode: device busy time against the wall, and
-    # by kernel (the launches above are timed back to back from the host)
-    profile = {}
+    # by kernel (the launches above are timed back to back from the host);
+    # the device time a batch of each code pass and of the GEMM's launches
+    profile, passes = {}, {}
     for mode, q in qs.items():
         wall, busy, top = device_profile(lambda: ps.pair_logits_tiled_int8_cuda(q, P_e, L_e), 1)
         profile[mode] = {"wall_ms": wall * 1e3,
                          "device_busy_ms": None if busy is None else busy * 1e3,
                          "top_kernels_ms": top}
+        for name, ms in top:
+            part = next((v for k, v in K2_KERNEL_PASSES.items() if k in name), None)
+            if part:
+                key = f"{mode}_{part}"
+                passes[key] = passes.get(key, 0.0) + ms
     return {"variants": k2_variants(), "chunk_rows": chunk_rows, "launch_ms": launches,
-            "batch_ms": batch, "layer_tops": layer_tops, "profile": profile}
+            "batch_ms": batch, "layer_tops": layer_tops, "device_ms_a_batch": passes,
+            "profile": profile}
 
 
-def k2_codes(q, P_e, L_e):
+def pass_times(fn, launches: int) -> dict:
+    """A pass of ``launches`` launches: CUDA events and device time
+    (``torch.profiler`` busy time) a pass, the host's time a launch."""
+    device, host = device_and_host_ms(fn, 2)
+    return {"ms": cuda_time_ms(fn, 3), "device_ms": device, "host_ms_a_launch": host / launches}
+
+
+def k2_codes(q, P_e, L_e, card: str):
     """Layer 1's static code pass alone: against ``int8_codes_reference``
     on the first and the ragged last chunk of the plan, element by element,
-    and the time of its launches over a batch's chunks."""
+    and the time of its launches over a batch's chunks (events, device time,
+    the host's time a launch)."""
     import torch
 
     from protnote_tpu_torch.ops import pair_scorer as ps
@@ -1163,6 +1199,7 @@ def k2_codes(q, P_e, L_e):
     differ, err = 0, 0
     with torch.cuda.device(P_e.device):
         for ch in (k.plan.chunks[0], k.plan.chunks[-1]):
+            k.codes[0].fill_(99)
             k.quantize(ch, 0)
             want = ps.int8_codes_reference(k.a, k.c, ch, s0)
             got = k.codes[0][:B * ch.nl_pad]
@@ -1177,24 +1214,27 @@ def k2_codes(q, P_e, L_e):
             for ch in k.plan.chunks:
                 ps.int8_codes_reference(k.a, k.c, ch, s0)
 
-        ms = cuda_time_ms(kernel_pass, 3)
+        times = pass_times(kernel_pass, len(k.plan.chunks))
         plain_ms = cuda_time_ms(plain_pass, 1)
-    log("k2_codes_check", chunks=2, codes_differ=differ, max_abs_err=err)
-    if differ or err:
-        raise AssertionError(f"the code pass disagrees with its plain version: {differ} codes, "
-                             f"largest difference {err}")
     # bytes the function needs: a and c read once, one code a pair element
     L_rows = L_e.shape[0]
     nbytes = 4.0 * (B + L_rows) * H + 1.0 * B * L_rows * H
-    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, **bound(nbytes=nbytes),
-            "library_ms": None}
+    log("k2_codes_check", chunks=2, codes_differ=differ, max_abs_err=err,
+        launches=len(k.plan.chunks), **times, plain_ms=plain_ms, **bound(nbytes=nbytes), card=card)
+    if differ or err:
+        raise AssertionError(f"the code pass disagrees with its plain version: {differ} codes, "
+                             f"largest difference {err}")
+    return {"max_abs_err": float(err), "ms": times["ms"], "plain_ms": plain_ms,
+            **bound(nbytes=nbytes), "library_ms": None}
 
 
-def k2_row_scale(q, P_e, L_e):
+def k2_row_scale(q, P_e, L_e, card: str):
     """The row-scale pass alone: its scales and codes against
     ``int8_row_scale_reference`` on the first and the ragged last chunk
     (layer 1 from a and c, layer 2 from the kernel's bf16 carry), and the
-    time of its 2 x chunks launches of a batch."""
+    time of its 2 x chunks launches of a batch; then each form apart (events,
+    device time, the host's time a launch), each beside its own bytes
+    bound."""
     import torch
 
     from protnote_tpu_torch.ops import pair_scorer as ps
@@ -1205,37 +1245,46 @@ def k2_row_scale(q, P_e, L_e):
         for ch in (k.plan.chunks[0], k.plan.chunks[-1]):
             rows = B * ch.nl_pad
             for i in range(2):
+                k.codes[0].fill_(99)
                 k.quantize(ch, i)
                 x = ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16) if i == 0 else k.h[:rows]
                 want_s, want = ps.int8_row_scale_reference(x)
-                err = max(err, float((k.row_scale[:rows] - want_s).abs().max()))
+                err = max(err, float((k.scales_of(ch, i) - want_s).abs().max()))
                 differ += int((k.codes[0][:rows] != want).sum())
                 if i == 0:
                     k.layer(ch, 0, None)  # the bf16 carry layer 2 reads
 
-        def kernel_pass():
+        def kernel_pass(forms=(0, 1)):
             for ch in k.plan.chunks:
-                k.quantize(ch, 0)
-                k.quantize(ch, 1)
+                for i in forms:
+                    k.quantize(ch, i)
 
         def plain_pass():
             for ch in k.plan.chunks:
                 ps.int8_row_scale_reference(ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16))
                 ps.int8_row_scale_reference(k.h[:B * ch.nl_pad])
 
-        ms = cuda_time_ms(kernel_pass, 3)
+        n = len(k.plan.chunks)
+        times = pass_times(kernel_pass, 2 * n)
+        forms = {form: pass_times(lambda: kernel_pass((i,)), n)
+                 for i, form in enumerate(("first", "later"))}
         plain_ms = cuda_time_ms(plain_pass, 1)
-    log("k2_row_scale_check", chunks=2, max_abs_err=err, codes_differ=differ)
-    if err != 0.0 or differ:
-        raise AssertionError(f"the row-scale pass disagrees with its plain version: scales "
-                             f"{err}, {differ} codes")
     # bytes the function needs: a and c (layer 1) and the bf16 carry (layer
     # 2) read once, one code a pair element and one float32 scale a row out
     # per layer
     L_rows = L_e.shape[0]
     rows = B * L_rows
-    nbytes = 4.0 * (B + L_rows) * H + 2.0 * rows * H + 2 * (1.0 * rows * H + 4.0 * rows)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(nbytes=nbytes),
+    out_bytes = 1.0 * rows * H + 4.0 * rows
+    form_bytes = {"first": 4.0 * (B + L_rows) * H + out_bytes, "later": 2.0 * rows * H + out_bytes}
+    for form, t in forms.items():
+        t.update(bound(nbytes=form_bytes[form]))
+    nbytes = sum(form_bytes.values())
+    log("k2_row_scale_check", chunks=2, max_abs_err=err, codes_differ=differ, launches=2 * n,
+        **times, plain_ms=plain_ms, **bound(nbytes=nbytes), forms=forms, card=card)
+    if err != 0.0 or differ:
+        raise AssertionError(f"the row-scale pass disagrees with its plain version: scales "
+                             f"{err}, {differ} codes")
+    return {"max_abs_err": err, "ms": times["ms"], "plain_ms": plain_ms, **bound(nbytes=nbytes),
             "library_ms": None}
 
 

@@ -31,6 +31,25 @@ at full serving width, K8a at the three K8 shapes) in the checkout at DIR
 change's mean over DIR's, per kernel, and whether each library's
 instructions (``cuobjdump -sass``) are the same in both.
 
+    python3 chip_variants.py --k2-codes
+
+times K2's code passes (``csrc/pair_scorer_int8.cu``: layer 1's static
+codes, the dynamic form from a and c, the later form from the bf16 carry)
+against their first design (``csrc/variants/k2_codes_v1.cu``: one warp a
+pair row, through its own entry points and its wrapper's per-launch work)
+in turns (kept, first, first, kept) on a batch's chunks at the full serving
+width (32 x 64,204 rows, H 3072), by CUDA events and as device time beside
+each pass's bytes bound, after checking that both give the same bits on the
+first and the last chunk; the host's time a launch of each wrapper; the
+kept source with parts taken out or one choice changed (timing only where
+the results are wrong; ``K2CODES_SUBS``): without the loads, the stores or
+the division, with div_rn's two corrections, without the scale kernel,
+the scale kernel alone (whole, without its sums, empty), two sequences an
+iteration, 40 registers, streaming stores; other
+tilings of layer 1's codes kernel (``K2CODES_PLANS``); and K2's whole call,
+static and dynamic, with the kept passes and with the first design's, in
+turns, with the GEMM's (``pair_int8_layer``) device time beside.
+
     python3 chip_variants.py --k3
 
 builds K3 (``csrc/eval_accumulator.cu``) with parts of its work taken out
@@ -846,6 +865,298 @@ def k4_bwd_variants(build_dir: str, card: str) -> None:
     for (kernel, variant), t in turns(calls, 3).items():
         cs.log("k4_bwd_variant", kernel=kernel, variant=variant, ms=t,
                tflops=[ops / x / 1e9 for x in t], card=card)
+
+
+# text replaced in pair_scorer_int8.cu's code passes: (old, new), each old
+# found exactly once (timing only: the results are wrong)
+K2CODES_SUBS = {
+    # layer 1's codes kernel: a's slice and c made from indices, not loaded
+    "first_no_loads": [(
+        "        __ldg(reinterpret_cast<const float4*>(a + (size_t)(b0 + b) * K + k0) + j);\n",
+        "        make_float4(f * 1e-3f, j * 1e-2f, b0 * 1e-3f, k0 * 1e-4f);\n"), (
+        "    cv[k] = l < nl ? __ldg(reinterpret_cast<const float4*>(c + (size_t)(l0 + l) * K + col) + k)\n"
+        "                   : make_float4(0.f, 0.f, 0.f, 0.f);\n",
+        "    cv[k] = make_float4(l * 1e-3f, k * 1e-2f, col * 1e-4f, nl * 1e-5f);\n")],
+    # ... its 16-byte stores (a store that never happens in their place)
+    "first_no_stores": [(
+        "    *reinterpret_cast<uint4*>(codes + r * K + col) = make_uint4(w[0], w[1], w[2], w[3]);\n",
+        "    if ((w[0] & w[1] & w[2] & w[3]) == 0x12345678u)\n"
+        "      *reinterpret_cast<uint4*>(codes + r * K + col) = make_uint4(w[0], w[1], w[2], w[3]);\n")],
+    # ... a multiply by the row's reciprocal for the division (dynamic)
+    "first_no_division": [(
+        "        auto q = [&](float x) { return DYN ? div_bf16(x, s, rs) : __fmul_rn(x, s); };\n",
+        "        auto q = [&](float x) { return __fmul_rn(x, DYN ? rs : s); };\n")],
+    # ... the division with div_rn's two corrections (the first design's)
+    "first_two_corrections": [(
+        "        auto q = [&](float x) { return DYN ? div_bf16(x, s, rs) : __fmul_rn(x, s); };\n",
+        "        auto q = [&](float x) { return DYN ? div_rn(x, s, rs) : __fmul_rn(x, s); };\n")],
+    # layer 1's dynamic form without its scale kernel (the max sweep)
+    "first_no_max_sweep": [(
+        "    pair_int8_first_scale_kernel<<<grid, 256, smem, s>>>(\n",
+        "    if (grid < 0) pair_int8_first_scale_kernel<<<grid, 256, smem, s>>>(\n")],
+    # layer 1's dynamic form: its scale kernel alone (no codes kernel)
+    "first_scale_only": [(
+        "  return first_codes<true, true>(a, c, row_scale, codes, p, B, nl, nl_pad, l0, K, 0.f, s);\n",
+        "  return 0;\n")],
+    # ... its scale kernel alone without its sums, and empty (the floor)
+    "first_scale_only_no_compute": [(
+        "  return first_codes<true, true>(a, c, row_scale, codes, p, B, nl, nl_pad, l0, K, 0.f, s);\n",
+        "  return 0;\n"), (
+        "      if (mine) {\n        for (int i4 = q; i4 < n4; i4 += parts) {\n",
+        "      if (mine && n4 < 0) {\n        for (int i4 = q; i4 < n4; i4 += parts) {\n")],
+    "first_scale_only_empty": [(
+        "  return first_codes<true, true>(a, c, row_scale, codes, p, B, nl, nl_pad, l0, K, 0.f, s);\n",
+        "  return 0;\n"), (
+        "  extern __shared__ float4 samples[];\n  __shared__ float part_max[256];\n",
+        "  extern __shared__ float4 samples[];\n  __shared__ float part_max[256];\n"
+        "  if (K > 0) {\n    if (threadIdx.x == 0 && B < 0) scales[blockIdx.x] = margin;\n"
+        "    return;\n  }\n")],
+    # ... its scale kernel without c's loads, or without a's
+    "first_scale_no_c_loads": [(
+        "          cp_async4(smem_u32(reinterpret_cast<float*>(c_s + lf * SCALE_PITCH4) + i),\n"
+        "                    c + (valid ? (size_t)(label0 + lg + lf) * K + (size_t)(r0 + i) * stride : 0),\n"
+        "                    valid);\n",
+        "          reinterpret_cast<float*>(c_s + lf * SCALE_PITCH4)[i] = valid ? lf * 1e-3f + i * 1e-4f : 0.f;\n")],
+    "first_scale_no_a_loads": [(
+        "            cp_async16(smem_u32(a_s + bf * SCALE_PITCH4 + i4),\n"
+        "                       reinterpret_cast<const float4*>(a_sub + (size_t)(b0 + bf) * ns + r0) + i4);\n",
+        "            a_s[bf * SCALE_PITCH4 + i4] = make_float4(bf * 1e-3f, i4 * 1e-4f, b0 * 1e-2f, r0 * 1e-5f);\n")],
+    # layer 1's codes kernel two sequences an iteration
+    "first_unroll_2": [("  __syncthreads();\n  for (int b = sg; b < bt; b += p.seq_groups) {\n",
+                        "  __syncthreads();\n#pragma unroll 2\n"
+                        "  for (int b = sg; b < bt; b += p.seq_groups) {\n")],
+    # the later layers' division with div_rn's two corrections
+    "later_two_corrections": [(
+        "  auto q = [&](float x) { return DIV ? div_bf16(x, s, r) : __fmul_rn(x, s); };\n",
+        "  auto q = [&](float x) { return DIV ? div_rn(x, s, r) : __fmul_rn(x, s); };\n")],
+    # layer 1's codes kernel held to 40 registers (6 blocks an SM)
+    "first_6_blocks": [(
+        "template <bool DYN, bool POS>\n__global__ void __launch_bounds__(CODE_THREADS)\n",
+        "template <bool DYN, bool POS>\n__global__ void __launch_bounds__(CODE_THREADS, 6)\n")],
+    # ... the codes' stores streaming (evict-first) in the codes kernel
+    "first_streaming_stores": [(
+        "    *reinterpret_cast<uint4*>(codes + r * K + col) = make_uint4(w[0], w[1], w[2], w[3]);\n",
+        "    __stcs(reinterpret_cast<uint4*>(codes + r * K + col), make_uint4(w[0], w[1], w[2], w[3]));\n")],
+    # the later layers' kernel: the row made from indices, not loaded
+    "later_no_loads": [(
+        "      v[k] = i < nv ? __ldg(xr + i) : make_uint4(0u, 0u, 0u, 0u);\n",
+        "      v[k] = make_uint4(i * 0x10001u + r, i ^ r, 0x3f803f80u + i, (r << 4) + k);\n")],
+    # ... its stores
+    "later_no_stores": [(
+        "      if (i < nv)\n"
+        "        out[i] = make_uint2(",
+        "      if (i < nv) {\n"
+        "        const uint2 o = make_uint2("), (
+        "                            codes4<true>(lo(v[k].z), hi(v[k].z), lo(v[k].w), hi(v[k].w), s, rs));\n",
+        "                            codes4<true>(lo(v[k].z), hi(v[k].z), lo(v[k].w), hi(v[k].w), s, rs));\n"
+        "        if ((o.x & o.y) == 0x12345678u) out[i] = o;\n"
+        "      }\n")],
+    # ... its maximum (a scale from the row index in its place)
+    "later_no_max_sweep": [(
+        "  mb = __reduce_max_sync(0xffffffffu, mb);\n",
+        "  mb = 0x3f80u + (r & 7);\n")],
+}
+
+
+# other tilings of layer 1's codes kernel timed by --k2-codes: (units,
+# labels, sequence groups), units * labels * groups = 256
+K2CODES_PLANS = ((2, 64, 2), (1, 64, 4), (4, 16, 4), (8, 16, 2))
+
+
+def k2_codes_variants(build_dir: str, card: str) -> None:
+    """K2's code passes: the kept kernels against the first design
+    (``csrc/variants/k2_codes_v1.cu``, through its own entry points and its
+    wrapper's per-launch work, copied here) in turns on a batch's chunks at
+    the full serving width, each by CUDA events and as device time, with
+    the host's time a launch of each wrapper; the kept source with parts
+    taken out (``K2CODES_SUBS``); and K2 whole, static and dynamic, with
+    the kept passes and with the first design's, in turns (kept, first,
+    first, kept), with the GEMM's device time in each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    base = (kernels.CSRC_DIR / "pair_scorer_int8.cu").read_text()
+    jobs = {"first_design": (os.path.join(VARIANT_DIR, "k2_codes_v1.cu"),
+                             os.path.join(build_dir, "libk2_codes_v1.so"))}
+    for name, subs in K2CODES_SUBS.items():
+        text = base
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K2 code-pass variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"pair_scorer_int8_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"libpair_scorer_int8_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = {}
+    for name, (_, out) in jobs.items():
+        cs.log("k2_codes_variant_ptxas", variant=name, ptxas=logs[name])
+        lib = ctypes.CDLL(out)
+        if name == "first_design":
+            lib.pair_int8_codes.argtypes = [P] * 3 + [I] * 5 + [F, P]
+            lib.pair_int8_row_scale.argtypes = [P] * 5 + [I] * 6 + [F, I, P]
+        else:
+            lib.pair_int8_codes.argtypes = [P] * 3 + [I] * 5 + [F] + [I] * 4 + [P]
+            lib.pair_int8_row_scale.argtypes = [P] * 6 + [I] * 6 + [F] + [I] * 7 + [P]
+        lib.pair_int8_codes.restype = lib.pair_int8_row_scale.restype = ctypes.c_int
+        libs[name] = lib
+    first = libs["first_design"]
+    kept = kernels.load_kernel_library("pair_scorer_int8").lib
+
+    def first_design_quantize(k):
+        """The first design's wrapper as it was: its scale's reciprocal
+        made on the CPU, the stride and margin, and the arguments, every
+        launch."""
+        def quantize(ch, i):
+            M, H = k.B * ch.nl_pad, k.H
+            if k.static is not None:
+                err = first.pair_int8_codes(
+                    ps._ptr(k.a), ps._ptr(k.c), ps._ptr(k.codes[0]), ch.nl, ch.nl_pad, ch.l0,
+                    M, H, float(ps._inv(k.static[0], "cpu")), k.stream)
+            else:
+                stride = 8 if H >= 1024 else 1
+                err = first.pair_int8_row_scale(
+                    ps._ptr(k.a), ps._ptr(k.c), ps._ptr(None if i == 0 else k.h),
+                    k.scale_ptrs[ch][i > 0], ps._ptr(k.codes[0]), ch.nl, ch.nl_pad, ch.l0, M, H,
+                    stride, 1.3 if stride > 1 else 1.0, int(i == 0), k.stream)
+            if err != 0:
+                raise RuntimeError(f"first design's code pass: CUDA error {err}")
+        return quantize
+
+    gen = torch.Generator().manual_seed(20)
+    dev = torch.device("cuda")
+    folded = cs.random_folded(gen, cs.D_LATENT, cs.H, 2, dev)
+    P_e = torch.randn(cs.B, cs.D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(cs.NUM_LABELS * cs.K_DESCRIPTIONS, cs.D_LATENT,
+                      generator=gen).to(dev, torch.bfloat16)
+    with torch.inference_mode(), torch.cuda.device(dev):
+        scales = ps.calibrate_act_scales(folded, P_e, L_e, cs.LABEL_TILE)
+        qs = {"static": ps.quantize_folded(folded, act_scales=scales),
+              "dynamic": ps.quantize_folded(folded)}
+        ks = {m: ps._Int8Kernel(q, P_e, L_e, torch.bfloat16) for m, q in qs.items()}
+        olds = {m: first_design_quantize(k) for m, k in ks.items()}
+        chunks = ks["static"].plan.chunks
+        rows = cs.B * L_e.shape[0]
+        out_bytes = 1.0 * rows * cs.H + 4.0 * rows
+        bounds = {"codes": cs.bound(nbytes=4.0 * (cs.B + L_e.shape[0]) * cs.H + 1.0 * rows * cs.H),
+                  "first": cs.bound(nbytes=4.0 * (cs.B + L_e.shape[0]) * cs.H + out_bytes),
+                  "later": cs.bound(nbytes=2.0 * rows * cs.H + out_bytes)}
+        # the bf16 carry the later form reads: the kept layer 1's, chunk 0
+        kd = ks["dynamic"]
+        kd.quantize(chunks[0], 0)
+        kd.layer(chunks[0], 0, None)
+        # the same bits from both designs on the first and the last chunk
+        differ = {}
+        for mode, i, form in (("static", 0, "codes"), ("dynamic", 0, "first"),
+                              ("dynamic", 1, "later")):
+            k, n = ks[mode], 0
+            for ch in (chunks[0], chunks[-1]) if i == 0 else (chunks[0],):
+                r = cs.B * ch.nl_pad
+                k.quantize(ch, i)
+                scales = k.scales_of(ch, i)
+                mine = k.codes[0][:r].clone(), None if scales is None else scales.clone()
+                olds[mode](ch, i)  # into the same places
+                n += int((mine[0] != k.codes[0][:r]).sum())
+                if mine[1] is not None:
+                    n += int((mine[1] != scales).sum())
+            differ[form] = n
+        cs.log("k2_codes_same_bits", differ=differ, card=card)
+        if any(differ.values()):
+            raise AssertionError(f"the kept code passes and the first design differ: {differ}")
+
+        def batch(quantize, i):
+            def run():
+                for ch in chunks:
+                    quantize(ch, i)
+            return run
+
+        def variant(name, mode, first_layer, plan=None):
+            lib = libs[name] if name != "kept" else kept
+            fn = getattr(lib, "pair_int8_codes" if mode == "static" else "pair_int8_row_scale")
+            args = [ks[mode]._quantize[ch, first_layer][2] for ch in chunks]
+            if plan is not None:  # units, labels, sequence groups (then seq_tile, ...)
+                at = 9 if mode == "static" else 14
+                args = [a[:at] + tuple(plan) + a[at + 3:] for a in args]
+
+            def run():
+                for a in args:
+                    if fn(*a) != 0:
+                        raise RuntimeError(f"K2 code-pass variant {name} failed")
+            return run
+
+        passes = (("codes", "static", 0), ("first", "dynamic", 0), ("later", "dynamic", 1))
+        calls = []
+        for form, mode, i in passes:
+            calls += [(form, "kept", batch(ks[mode].quantize, i)),
+                      (form, "first_design", batch(olds[mode], i))]
+        times = {(f, v): {"ms": [], "device_ms": []} for f, v, _ in calls}
+        for order in (calls, calls[::-1]):
+            for form, name, fn in order:
+                times[(form, name)]["ms"].append(cs.cuda_time_ms(fn, 3))
+                _, busy, _ = cs.device_profile(fn, 2)
+                times[(form, name)]["device_ms"].append(None if busy is None else busy * 1e3 / 2)
+        for (form, name), t in times.items():
+            cs.log("k2_codes_turns", form=form, variant=name, **t, launches=len(chunks),
+                   **bounds[form], card=card)
+        # the host's time a launch of each wrapper (layer 1's dynamic form on
+        # the second chunk: the first chunk's launch also makes every chunk's
+        # scales)
+        for form, mode, i in passes:
+            ch = chunks[1] if form == "first" else chunks[0]
+            for name, quantize in (("kept", ks[mode].quantize), ("first_design", olds[mode])):
+                device, host = cs.device_and_host_ms(lambda: quantize(ch, i), 20)
+                cs.log("k2_codes_host", form=form, variant=name, device_ms_a_launch=device,
+                       host_ms_a_launch=host, card=card)
+        # the kept source with parts taken out, on a batch's chunks
+        calls = [(form, "kept", batch(ks[mode].quantize, i)) for form, mode, i in passes]
+        for name in K2CODES_SUBS:
+            for form, mode, i in passes:
+                if (name.startswith("first") and form == "later") or \
+                        (name.startswith("later") and form != "later") or \
+                        (name.startswith(("first_no_division", "first_no_max_sweep",
+                                          "first_scale")) and form != "first"):
+                    continue
+                calls.append((form, name, variant(name, mode, i == 0)))
+        # other tilings of layer 1's codes kernel (units, labels, sequence
+        # groups)
+        for units, labels, groups in K2CODES_PLANS:
+            for form, mode, i in passes[:2]:
+                calls.append((form, f"plan_{units}_{labels}_{groups}",
+                              variant("kept", mode, True, (units, labels, groups))))
+        times = {(f, v): [] for f, v, _ in calls}
+        for order in (calls, calls[::-1]):
+            for form, name, fn in order:
+                _, busy, _ = cs.device_profile(fn, 2)
+                times[(form, name)].append(None if busy is None else busy * 1e3 / 2)
+        for (form, name), t in times.items():
+            cs.log("k2_codes_variant", form=form, variant=name, device_ms=t, card=card)
+        # K2 whole with the kept passes and with the first design's
+        calls = []
+        for mode, k in ks.items():
+            with_first = ps._Int8Kernel(qs[mode], P_e, L_e, torch.bfloat16)
+            with_first.quantize = first_design_quantize(with_first)
+            calls += [(mode, "kept", k.run), (mode, "first_design", with_first.run)]
+        whole = {(m, v): {"ms": [], "device_ms": [], "layer_device_ms": [], "passes_device_ms": []}
+                 for m, v, _ in calls}
+        for order in (calls, calls[::-1]):
+            for mode, name, fn in order:
+                t = whole[(mode, name)]
+                t["ms"].append(cs.cuda_time_ms(fn, 3))
+                _, busy, top = cs.device_profile(fn, 1)
+                t["device_ms"].append(None if busy is None else busy * 1e3)
+                t["layer_device_ms"].append(sum(ms for n, ms in top if "pair_int8_layer" in n))
+                t["passes_device_ms"].append(sum(ms for n, ms in top if "quantize" in n or
+                                                 "first_" in n or "later_" in n))
+        for (mode, name), t in whole.items():
+            cs.log("k2_whole_turns", mode=mode, variant=name, **t, card=card)
 
 
 def k3_variants(build_dir: str, card: str) -> None:
@@ -1704,6 +2015,11 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--qk-noise"]:
         qk_noise(card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k2-codes"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k2_codes_variants(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--k3"]:

@@ -3,8 +3,8 @@
 // with int32 accumulators.
 //
 // Replaces the TPU op chain protnote_tpu/ops/pair_scorer.py:375
-// pair_logits_tiled_int8 (with quantize_folded :295 and the dynamic scales
-// :432-447).  For a chunk of labels [l0, l0 + nl), padded by the caller to
+// pair_logits_tiled_int8 (with quantize_folded :295, layer 1's static codes
+// :407-409 and the dynamic scales and codes :441-450).  For a chunk of labels [l0, l0 + nl), padded by the caller to
 // nl_pad rows a sequence (a multiple of the 128-row tile, so a tile lies in
 // one sequence; ops/pair_scorer.py:launch_plan, shared with K1), rows
 // r = b * nl_pad + l are (sequence, label) pairs.  Each hidden layer i is
@@ -23,16 +23,19 @@
 //       s_act = max(max |x[r, 0::stride]| * margin, 1e-12) * float32(1 / 127)
 //       over x = bf16(relu(a + c)) (layer 1) or the previous layer's bf16 h,
 //       and the row's codes clip(rint(x / s_act), -127, 127), a correctly
-//       rounded division an element (div_rn: the row's reciprocal and two
-//       FMA corrections; the layer's epilogue stores bf16 h for it).
+//       rounded division an element (div_bf16: the row's reciprocal and one
+//       FMA correction, exact for a bf16 x; the layer's epilogue stores bf16
+//       h for it).
+// The code passes are kernels of their own, below the GEMM ("the code
+// passes").
 // inv_s = float32(1 / s) comes from the caller: the JAX chain divides by the
 // static scales in its source, but they are compile-time constants there,
 // and XLA compiles a division by a constant into a multiply by its float32
 // reciprocal; a division by data (s_act) stays a division.  The last layer
 // dots its h with w_out and adds the row sums into the logits (pre-filled
 // with b_out by the caller) with atomics, as K1 does.  Every product, sum
-// and quotient is rounded on its own (__fmul_rn, __fadd_rn, div_rn,
-// rintf: no FMA contraction, half to even), so the carried codes equal the
+// and quotient is rounded on its own (__fmul_rn, __fadd_rn, the quotient
+// correctly rounded, half to even: no FMA contraction), so the carried codes equal the
 // plain version's (ops/pair_scorer.py, _int8_hidden_reference) bit for bit;
 // only the w_out reduction order and its atomics differ.
 //
@@ -55,8 +58,9 @@
 // operand value, re-read from L2 for every column tile, and only two such
 // stages fit.  Formed in registers (the register-A s8 wgmma), layer 1 of a
 // chunk of 8,192 rows took 0.49 ms on an H100 80GB HBM3 (700 W) against
-// 0.15 for the code pass and this GEMM; a chunk's codes (8,192 rows x 3072
-// = 25 MB) stay in the 50 MB L2 for the GEMM.
+// 0.15 for the first design's code pass and this GEMM; a chunk's codes
+// (8,192 rows x 3072 = 25 MB) stay in the 50 MB L2 for the GEMM, so the
+// code passes store them with the default (write-back) policy.
 //
 // Indexing: the largest workspace is a chunk of 16,384 x 3072 bf16 (100
 // MB) and c has 197 M elements, all below 2^31, so 32-bit element indices
@@ -334,57 +338,361 @@ pair_int8_layer_kernel(const __grid_constant__ CUtensorMap tm_w,
   }
 }
 
-// One warp a pair row of the chunk: its int8 codes, and with DYN its scale.
-// x = bf16(relu(a[b] + c[l0 + l])) when FIRST (rows l >= nl, padding, take
-// c = 0), else the row of the bf16 workspace x_in.
-template <bool FIRST, bool DYN>
+// ---- the code passes -------------------------------------------------------
+// Layer 1's static codes (pair_int8_codes) and the dynamic row scales and
+// codes (pair_int8_row_scale) that pair_int8_layer reads.  What bounds them
+// is the bytes: a chunk's 25 MB of codes out (8,192 rows x 3072) against
+// 3.1 MB of c (layer 1) or 50 MB of bf16 h (the later layers) in; and,
+// nearly as close, the arithmetic of each code.  The first design (one warp
+// a pair row, csrc/variants/k2_codes_v1.cu) read a row of a and of c for
+// every pair row, ~200 MB from L2 a chunk, read a later layer's rows twice,
+// and spent rintf, the int cast and the bf16 round of each element on the
+// card's slower conversion pipe.  Here:
+// - a code is rounded by a float add: q clipped to +-127, plus 1.5 * 2^23,
+//   lands where the float spacing is 1, so the sum is rounded half to even
+//   and its low byte is rint(q) as an int8 (code_byte); byte permutes (and,
+//   for quotients >= 0, multiply-adds) pack four;
+// - layer 1's codes come from work items of (sequence tile x label group x
+//   64-column slice) (ops/pair_scorer.py:code_plan): the slice of a for the
+//   tile's sequences in shared memory, each thread's c slice of its label in
+//   registers, so a leaves L2 once a label group and c once a sequence tile;
+//   16 codes a thread, a 16-byte store;
+// - layer 1's dynamic scales come first, every chunk's in one launch of a
+//   kernel of their own: a row's maximum over the columns 0::stride of
+//   bf16(relu(a + c)) is bf16(max(0, max(a + c))) (relu and the bf16
+//   rounding are monotone); persistent blocks keep a's sampled columns
+//   (compacted by the caller) in shared memory and walk the labels, c's
+//   samples read in place (each of its sectors once);
+// - a later layer's row is read once: one warp a row, a row of up to 3072
+//   bf16 (twelve 16-byte vectors a lane) held in registers; at stride 8 the
+//   sampled columns are each vector's first element; the maximum of |x| is
+//   an integer maximum of the bf16 bits; then the codes, 8 a lane a store.
+//   A wider row is read twice (once for its maximum).
+// Every step rounds as the plain version does (__fadd_rn, the bf16 round,
+// the division correctly rounded, half to even, the clip), so the codes and
+// scales are its bits.
+
+constexpr float ROUND_MAGIC = 12582912.f;  // 1.5 * 2^23
+constexpr int CODE_THREADS = 256;
+constexpr int SCALE_ROWS = 64;      // pair rows a block of the layer-1 scale kernel, at most
+constexpr int SCALE_ROUND = 384;    // sampled columns staged a round
+constexpr int SCALE_PITCH4 = SCALE_ROUND / 4 + 1;  // a staged row of samples, float4s (padded)
+constexpr int ROW_VECS = 12;        // 16-byte vectors of a later layer's row a lane holds
+constexpr int ROW_STAGE = 8;        // row scales a thread of the codes kernel stages, at most
+
+// clip(rint(q), -127, 127) in the low byte of the returned word
+__device__ __forceinline__ uint32_t code_byte(float q) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, -127.f), 127.f), ROUND_MAGIC));
+}
+
+// the low bytes of four words, little-endian
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                   uint32_t w3) {
+  return __byte_perm(__byte_perm(w0, w1, 0x0040), __byte_perm(w2, w3, 0x0040), 0x5410);
+}
+
+// x / s correctly rounded for a bf16 x (8 significant bits), given r =
+// float32(1 / s): q = x r and one correction, q + fma(-q, s, x) r (div_rn
+// takes two).  Before its last rounding the corrected value is within 2^-22
+// of an ulp of x / s, so it can round elsewhere only where x / s lies that
+// close to a float midpoint; at the midpoints beside every half-integer up
+// to 127.5 (where a code could change) it is the correctly rounded quotient
+// for every bf16 significand and every s that puts x / s near them
+// (tests/test_torch_int8_code_plan.py checks them all in exact arithmetic),
+// so the codes are those of the true division.
+__device__ __forceinline__ float div_bf16(float x, float s, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, s, x), r, q);
+}
+
+// the codes of four values: x * s (s a constant's reciprocal) or x / s
+// (DIV: div_bf16 through s's rounded reciprocal r; x bf16)
+template <bool DIV>
+__device__ __forceinline__ uint32_t codes4(float x0, float x1, float x2, float x3, float s,
+                                           float r) {
+  auto q = [&](float x) { return DIV ? div_bf16(x, s, r) : __fmul_rn(x, s); };
+  return pack_low_bytes(code_byte(q(x0)), code_byte(q(x1)), code_byte(q(x2)), code_byte(q(x3)));
+}
+
+// the codes of four values q >= 0 (or NaN): only the upper clip can bind,
+// and each word's second byte is 0, so two multiply-adds pack a pair and one
+// byte permute the four
+__device__ __forceinline__ uint32_t codes4_pos(float q0, float q1, float q2, float q3) {
+  auto word = [](float q) { return __float_as_uint(__fadd_rn(fminf(q, 127.f), ROUND_MAGIC)); };
+  return __byte_perm(word(q1) * 256u + word(q0), word(q3) * 256u + word(q2), 0x5410);
+}
+
+// bf16(relu(a + c)) of two columns, as floats: POS rounds and takes the
+// ReLU in one convert (the same value: rounding keeps the sign)
+template <bool POS>
+__device__ __forceinline__ float2 relu_bf16x2(float a0, float c0, float a1, float c1) {
+  uint32_t w;
+  if (POS) {
+    asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(w) : "f"(__fadd_rn(a1, c1)), "f"(__fadd_rn(a0, c0)));
+  } else {
+    w = pack_bf16x2(fmaxf(__fadd_rn(a0, c0), 0.f), fmaxf(__fadd_rn(a1, c1), 0.f));
+  }
+  return make_float2(__uint_as_float(w * 65536u), __uint_as_float(w & 0xffff0000u));
+}
+
+// labels a block of the layer-1 scale kernel (ops/pair_scorer.py:scale_labels)
+__host__ __device__ __forceinline__ int scale_labels(int seq_tile) {
+  return seq_tile < SCALE_ROWS ? SCALE_ROWS / seq_tile : 1;
+}
+
+// its dynamic shared memory: a's samples of the tile, c's of the labels
+__host__ __device__ __forceinline__ int scale_smem_bytes(int seq_tile) {
+  return 16 * SCALE_PITCH4 * (seq_tile + scale_labels(seq_tile));
+}
+
+// a row's dynamic scale from the maximum m of |x| over its sampled columns
+__device__ __forceinline__ float row_scale_of(float m, float margin) {
+  return __fmul_rn(fmaxf(__fmul_rn(m, margin), 1e-12f), __frcp_rn(127.f));
+}
+
+// asynchronous copies to shared memory: 4 or 16 bytes, zeros where !valid;
+// a block's copies are all in flight before it waits for them
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The tiling of layer 1's codes kernel (ops/pair_scorer.py:code_plan):
+// block i is the work item (sequence tile t, label group g, slice s) with
+// i = (t * label_groups + g) * slices + s; its thread (u, li, sg) = (tid %
+// units, tid / units % labels, tid / (units * labels)) codes the columns
+// [16 (s units + u), + 16) of label g labels + li for the tile's sequences
+// sg, sg + seq_groups, ...
+struct CodePlan {
+  int units, labels, seq_groups, seq_tile, label_groups, seq_tiles, slices;
+};
+
+// Layer 1's codes of a chunk's rows r = b * nl_pad + l: clip(rint(x * inv),
+// -127, 127) (static) or clip(rint(x / row_scale[r]), -127, 127) (DYN), x =
+// bf16(relu(a[b] + c[l0 + l])) and c = 0 for the padding rows l >= nl.  POS:
+// every quotient is >= 0 (x >= 0, and inv or the row's scale > 0 and
+// finite), so the lower clip cannot bind (the dynamic scales always are).
+template <bool DYN, bool POS>
+__global__ void __launch_bounds__(CODE_THREADS)
+pair_int8_first_codes_kernel(const float* __restrict__ a, const float* __restrict__ c,
+                             const float* __restrict__ row_scale, int8_t* __restrict__ codes,
+                             const CodePlan p, int B, int nl, int nl_pad, int l0, int K,
+                             float inv) {
+  // a_s [b][k][u]: unit u's k-th float4 of the tile's sequence b; DYN: then
+  // the scale and its reciprocal of the block's rows, [b][label]
+  extern __shared__ float4 a_s[];
+  const int slice = blockIdx.x % p.slices;
+  const int item = blockIdx.x / p.slices;
+  const int b0 = item / p.label_groups * p.seq_tile;
+  const int bt = min(p.seq_tile, B - b0);
+  const int k0 = slice * 16 * p.units;
+  const int u = threadIdx.x % p.units;
+  const int li = threadIdx.x / p.units % p.labels;
+  const int sg = threadIdx.x / (p.units * p.labels);
+  const int l = item % p.label_groups * p.labels + li;
+  const int col = k0 + 16 * u;
+  float4 cv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    cv[k] = l < nl ? __ldg(reinterpret_cast<const float4*>(c + (size_t)(l0 + l) * K + col) + k)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int w4 = 4 * p.units;  // float4s of a slice row
+  for (int f = threadIdx.x; f < bt * w4; f += CODE_THREADS) {
+    const int b = f / w4, j = f - b * w4;
+    a_s[(4 * b + (j & 3)) * p.units + (j >> 2)] =
+        __ldg(reinterpret_cast<const float4*>(a + (size_t)(b0 + b) * K + k0) + j);
+  }
+  float* s_s = reinterpret_cast<float*>(a_s + p.seq_tile * w4);
+  float* r_s = s_s + p.seq_tile * p.labels;
+  if (DYN) {
+    // the rows' scales, all loads in flight at once (seq_tile * labels <=
+    // ROW_STAGE * CODE_THREADS), then their reciprocals
+    const int lg = item % p.label_groups * p.labels;
+    float sv[ROW_STAGE];
+#pragma unroll
+    for (int k = 0; k < ROW_STAGE; ++k) {
+      const int f = threadIdx.x + k * CODE_THREADS;
+      const int b = f / p.labels;
+      sv[k] = b < bt ? row_scale[(size_t)(b0 + b) * nl_pad + lg + f % p.labels] : 1.f;
+    }
+#pragma unroll
+    for (int k = 0; k < ROW_STAGE; ++k) {
+      const int f = threadIdx.x + k * CODE_THREADS;
+      if (f < bt * p.labels) {
+        s_s[f] = sv[k];
+        r_s[f] = __frcp_rn(sv[k]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int b = sg; b < bt; b += p.seq_groups) {
+    const size_t r = (size_t)(b0 + b) * nl_pad + l;
+    const float s = DYN ? s_s[b * p.labels + li] : inv;
+    const float rs = DYN ? r_s[b * p.labels + li] : 0.f;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 av = a_s[(4 * b + k) * p.units + u];
+      const float2 x01 = relu_bf16x2<POS>(av.x, cv[k].x, av.y, cv[k].y);
+      const float2 x23 = relu_bf16x2<POS>(av.z, cv[k].z, av.w, cv[k].w);
+      if (POS) {
+        auto q = [&](float x) { return DYN ? div_bf16(x, s, rs) : __fmul_rn(x, s); };
+        w[k] = codes4_pos(q(x01.x), q(x01.y), q(x23.x), q(x23.y));
+      } else {
+        w[k] = codes4<DYN>(x01.x, x01.y, x23.x, x23.y, s, rs);
+      }
+    }
+    *reinterpret_cast<uint4*>(codes + r * K + col) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Layer 1's dynamic scales of every chunk of a call, one launch: for the
+// labels [label0, label0 + n_labels) in chunks of `chunk` labels (the last
+// ragged), each padded to whole 128-row tiles, the padded label lam (chunk k
+// = lam / chunk, l = lam - k chunk) of sequence b has its row at B k chunk +
+// b nl_pad_k + l of `scales`, and its scale from bf16(max(0, max_i (a[b, i]
+// + c[label0 + lam, i]))) over i = 0, stride, ... < K (c = 0 for lam >=
+// n_labels).  A work item is a sequence tile (code_plan's) x
+// scale_labels(seq_tile) padded labels: at most SCALE_ROWS rows, each split
+// over `parts` threads that walk its sampled columns four at a time, in
+// rounds of SCALE_ROUND columns staged in shared memory (a's from a_sub =
+// a[:, ::stride], contiguous; c's read in place, each sector once), then
+// combined in a fixed order.  The blocks are persistent: a's samples of the
+// tile stay staged across a block's items, which is what a launch a chunk
+// could not do (128 blocks a chunk each staging the same 48 KB from L2).
 __global__ void __launch_bounds__(256)
-pair_int8_quantize_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                          const __nv_bfloat16* __restrict__ x_in, float* __restrict__ row_scale,
-                          int8_t* __restrict__ codes, int nl, int nl_pad, int l0, int M, int K,
-                          int stride, float margin, float inv) {
+pair_int8_first_scale_kernel(const float* __restrict__ a_sub, const float* __restrict__ c,
+                             float* __restrict__ scales, int B, int label0, int n_labels,
+                             int chunk, int lam_end, int K, int stride, float margin,
+                             int seq_tile) {
+  extern __shared__ float4 samples[];
+  __shared__ float part_max[256];
+  const int lgs = scale_labels(seq_tile);
+  const int groups = (lam_end + lgs - 1) / lgs;
+  const int items = (B + seq_tile - 1) / seq_tile * groups;
+  const int rows = seq_tile * lgs;
+  const int parts = 256 / rows;
+  const int ns = K / stride;
+  const bool one_round = ns <= SCALE_ROUND;
+  // [sequence][SCALE_PITCH4], then [label][SCALE_PITCH4]: a row's staging
+  // stores are contiguous, and the lanes' reads (consecutive sequences or
+  // labels, one float4) fall on distinct banks
+  float4* a_s = samples;
+  float4* c_s = samples + SCALE_PITCH4 * seq_tile;
+  const int t = threadIdx.x;
+  const int rho = t % rows, q = t / rows;
+  const int b = rho % seq_tile, li = rho / seq_tile;
+  int staged = -1;  // the sequence tile whose samples a_s holds (one round)
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int tile = item / groups;
+    const int b0 = tile * seq_tile;
+    const int bt = min(seq_tile, B - b0);
+    const int lg = item % groups * lgs;
+    const int lam = lg + li;
+    const bool mine = q < parts && b < bt && lam < lam_end;
+    float m = 0.f;
+    for (int r0 = 0; r0 < ns; r0 += SCALE_ROUND) {
+      const int n4 = min(SCALE_ROUND, ns - r0) / 4;
+      // (constant divisors: the index arithmetic is a multiply and a shift)
+      for (int f = t; f < lgs * SCALE_ROUND; f += 256) {
+        const int lf = f / SCALE_ROUND, i = f % SCALE_ROUND;
+        const bool valid = lg + lf < n_labels;
+        if (i < 4 * n4)
+          cp_async4(smem_u32(reinterpret_cast<float*>(c_s + lf * SCALE_PITCH4) + i),
+                    c + (valid ? (size_t)(label0 + lg + lf) * K + (size_t)(r0 + i) * stride : 0),
+                    valid);
+      }
+      if (!one_round || tile != staged) {
+        for (int f = t; f < bt * (SCALE_ROUND / 4); f += 256) {
+          const int bf = f / (SCALE_ROUND / 4), i4 = f % (SCALE_ROUND / 4);
+          if (i4 < n4)
+            cp_async16(smem_u32(a_s + bf * SCALE_PITCH4 + i4),
+                       reinterpret_cast<const float4*>(a_sub + (size_t)(b0 + bf) * ns + r0) + i4);
+        }
+        staged = tile;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (mine) {
+        for (int i4 = q; i4 < n4; i4 += parts) {
+          const float4 av = a_s[b * SCALE_PITCH4 + i4];
+          const float4 cv = c_s[li * SCALE_PITCH4 + i4];
+          m = fmaxf(m, fmaxf(fmaxf(__fadd_rn(av.x, cv.x), __fadd_rn(av.y, cv.y)),
+                             fmaxf(__fadd_rn(av.z, cv.z), __fadd_rn(av.w, cv.w))));
+        }
+      }
+      __syncthreads();
+    }
+    part_max[t] = m;
+    __syncthreads();
+    if (t < rows && mine) {
+      for (int p = 1; p < parts; ++p) m = fmaxf(m, part_max[p * rows + t]);
+      const int k = lam / chunk, l = lam - k * chunk;
+      const int nl_pad = min(chunk, lam_end - k * chunk);
+      scales[(size_t)B * k * chunk + (size_t)(b0 + b) * nl_pad + l] =
+          row_scale_of(round_bf16(m), margin);
+    }
+  }
+}
+
+// A later layer's dynamic scales and codes: one warp a row r of the bf16
+// workspace x_in, row_scale[r] from max |x[r, 0::STRIDE]| and the codes
+// clip(rint(x / row_scale[r]), -127, 127).
+template <int STRIDE>
+__global__ void __launch_bounds__(256)
+pair_int8_later_kernel(const __nv_bfloat16* __restrict__ x_in, float* __restrict__ row_scale,
+                       int8_t* __restrict__ codes, int M, int K, float margin) {
+  constexpr int PIECE = 32 * ROW_VECS;
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= M) return;
-  const int b = r / nl_pad;
-  const int l = r - b * nl_pad;
-  const float* ar = a + (size_t)b * K;
-  const float* cr = FIRST && l < nl ? c + (size_t)(l0 + l) * K : nullptr;
-  const __nv_bfloat16* xr = x_in + (size_t)r * K;
-  auto x_at = [&](int j) {
-    if (FIRST) return round_bf16(fmaxf(__fadd_rn(ar[j], cr ? cr[j] : 0.f), 0.f));
-    return __bfloat162float(xr[j]);
-  };
-  float s = inv;
-  if (DYN) {
-    float m = 0.f;
-    for (int j = lane * stride; j < K; j += 32 * stride) m = fmaxf(m, fabsf(x_at(j)));
+  const uint4* xr = reinterpret_cast<const uint4*>(x_in + (size_t)r * K);
+  uint2* out = reinterpret_cast<uint2*>(codes + (size_t)r * K);
+  const int nv = K / 8;
+  uint4 v[ROW_VECS];
+  auto load = [&](int p0) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    s = __fmul_rn(fmaxf(__fmul_rn(m, margin), 1e-12f), __frcp_rn(127.f));
-    if (lane == 0) row_scale[r] = s;
-  }
-  const float rs = DYN ? __frcp_rn(s) : 0.f;
-  int8_t* out = codes + (size_t)r * K;
-  for (int j = 4 * lane; j < K; j += 128) {
-    float v[4];
-    if (FIRST) {
-      const float4 av = *reinterpret_cast<const float4*>(ar + j);
-      const float4 cv = cr ? *reinterpret_cast<const float4*>(cr + j) : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[0] = round_bf16(fmaxf(__fadd_rn(av.x, cv.x), 0.f));
-      v[1] = round_bf16(fmaxf(__fadd_rn(av.y, cv.y), 0.f));
-      v[2] = round_bf16(fmaxf(__fadd_rn(av.z, cv.z), 0.f));
-      v[3] = round_bf16(fmaxf(__fadd_rn(av.w, cv.w), 0.f));
-    } else {
-      const uint2 raw = *reinterpret_cast<const uint2*>(xr + j);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      v[0] = lo.x;
-      v[1] = lo.y;
-      v[2] = hi.x;
-      v[3] = hi.y;
+    for (int k = 0; k < ROW_VECS; ++k) {
+      const int i = p0 + lane + 32 * k;
+      v[k] = i < nv ? __ldg(xr + i) : make_uint4(0u, 0u, 0u, 0u);
     }
-    *reinterpret_cast<uint32_t*>(out + j) = quantize4<DYN>(v, s, rs, -127.f);
+  };
+  // |x| as bf16 bits, sign cleared: their integer order is the values'
+  uint32_t mb = 0;
+  for (int p0 = 0; p0 < nv; p0 += PIECE) {
+    load(p0);
+#pragma unroll
+    for (int k = 0; k < ROW_VECS; ++k) {
+      if (STRIDE == 8) {
+        mb = max(mb, v[k].x & 0x7fffu);  // column 8 i: the vector's first element
+      } else {
+        const uint32_t w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mb = max(mb, max(w[e] & 0x7fffu, (w[e] >> 16) & 0x7fffu));
+      }
+    }
+  }
+  mb = __reduce_max_sync(0xffffffffu, mb);
+  const float s = row_scale_of(__uint_as_float(mb << 16), margin);
+  if (lane == 0) row_scale[r] = s;
+  const float rs = __frcp_rn(s);
+  auto lo = [](uint32_t w) { return __uint_as_float(w << 16); };
+  auto hi = [](uint32_t w) { return __uint_as_float(w & 0xffff0000u); };
+  for (int p0 = 0; p0 < nv; p0 += PIECE) {
+    if (nv > PIECE) load(p0);  // a row wider than the registers: its second read
+#pragma unroll
+    for (int k = 0; k < ROW_VECS; ++k) {
+      const int i = p0 + lane + 32 * k;
+      if (i < nv)
+        out[i] = make_uint2(codes4<true>(lo(v[k].x), hi(v[k].x), lo(v[k].y), hi(v[k].y), s, rs),
+                            codes4<true>(lo(v[k].z), hi(v[k].z), lo(v[k].w), hi(v[k].w), s, rs));
+    }
   }
 }
 
@@ -420,16 +728,35 @@ cudaError_t launch_mode(int mode, const Args& p, cudaStream_t s) {
   }
 }
 
-template <bool FIRST, bool DYN>
-int quantize_rows(const void* a, const void* c, const void* x_in, void* row_scale, void* codes,
-                  int nl, int nl_pad, int l0, int M, int K, int stride, float margin, float inv,
-                  void* stream) {
-  const int rows_per_block = 256 / 32;
-  pair_int8_quantize_kernel<FIRST, DYN><<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
-                                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(c),
-      static_cast<const __nv_bfloat16*>(x_in), static_cast<float*>(row_scale),
-      static_cast<int8_t*>(codes), nl, nl_pad, l0, M, K, stride, margin, inv);
+// The code plan of a chunk from code_plan's four choices; false for a plan
+// the kernel does not take.
+bool make_code_plan(CodePlan* p, int B, int nl_pad, int K, int units, int labels, int seq_groups,
+                    int seq_tile) {
+  if (units <= 0 || labels <= 0 || seq_groups <= 0 || seq_tile <= 0 ||
+      units * labels * seq_groups != CODE_THREADS || nl_pad % labels != 0 ||
+      K % (16 * units) != 0 || seq_tile * 64 * units > 40 * 1024 ||
+      seq_tile * labels > ROW_STAGE * CODE_THREADS)
+    return false;
+  p->units = units;
+  p->labels = labels;
+  p->seq_groups = seq_groups;
+  p->seq_tile = seq_tile;
+  p->label_groups = nl_pad / labels;
+  p->seq_tiles = (B + seq_tile - 1) / seq_tile;
+  p->slices = K / (16 * units);
+  return (int64_t)p->seq_tiles * p->label_groups * p->slices < (1ll << 31);
+}
+
+template <bool DYN, bool POS>
+int first_codes(const void* a, const void* c, const void* row_scale, void* codes,
+                const CodePlan& p, int B, int nl, int nl_pad, int l0, int K, float inv,
+                cudaStream_t s) {
+  const int smem = p.seq_tile * 64 * p.units + (DYN ? 8 * p.seq_tile * p.labels : 0);
+  pair_int8_first_codes_kernel<DYN, POS>
+      <<<p.seq_tiles * p.label_groups * p.slices, CODE_THREADS, smem, s>>>(
+          static_cast<const float*>(a), static_cast<const float*>(c),
+          static_cast<const float*>(row_scale), static_cast<int8_t*>(codes), p, B, nl, nl_pad,
+          l0, K, inv);
   return (int)cudaGetLastError();
 }
 
@@ -487,31 +814,88 @@ extern "C" int pair_int8_layer(const void* x_in, const void* wt, const void* s_w
 }
 
 // Layer 1's codes with the static scale, rows r = b * nl_pad + l of the
-// chunk: clip(rint(bf16(relu(a[b] + c[l0 + l])) * inv_s0), -127, 127) into
-// codes (M, K) int8 (rows l >= nl take c = 0).  a (B, K), c (L, K) f32.
-extern "C" int pair_int8_codes(const void* a, const void* c, void* codes, int nl, int nl_pad,
-                               int l0, int M, int K, float inv_s0, void* stream) {
-  if (M <= 0 || nl <= 0 || nl_pad < nl || K <= 0 || K % 128 != 0)
+// chunk (b < B, l < nl_pad): clip(rint(bf16(relu(a[b] + c[l0 + l])) *
+// inv_s0), -127, 127) into codes (B * nl_pad, K) int8 (rows l >= nl take c =
+// 0).  a (B, K), c (L, K) f32.  units, labels, seq_groups, seq_tile: the
+// tiling (ops/pair_scorer.py:code_plan).  Returns a CUDA error (0 on
+// success), cudaErrorInvalidValue for what the kernel does not take.
+extern "C" int pair_int8_codes(const void* a, const void* c, void* codes, int B, int nl,
+                               int nl_pad, int l0, int K, float inv_s0, int units, int labels,
+                               int seq_groups, int seq_tile, void* stream) {
+  CodePlan p;
+  if (B <= 0 || nl <= 0 || nl_pad < nl || K <= 0 || K % 128 != 0 ||
+      !make_code_plan(&p, B, nl_pad, K, units, labels, seq_groups, seq_tile))
     return (int)cudaErrorInvalidValue;
-  return quantize_rows<true, false>(a, c, nullptr, nullptr, codes, nl, nl_pad, l0, M, K, 1, 1.f,
-                                    inv_s0, stream);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (inv_s0 > 0.f && inv_s0 <= 3.4e38f)  // every quotient >= 0: the lower clip is moot
+    return first_codes<false, true>(a, c, nullptr, codes, p, B, nl, nl_pad, l0, K, inv_s0, s);
+  return first_codes<false, false>(a, c, nullptr, codes, p, B, nl, nl_pad, l0, K, inv_s0, s);
 }
 
-// Per pair row r of the chunk: row_scale[r] = max(max_j |x[r, j]| * margin,
-// 1e-12) * float32(1 / 127) over j = 0, stride, 2 * stride, ... < K, and the
-// row's codes clip(rint(x[r, :] / row_scale[r]), -127, 127) into codes (M, K)
-// int8, where x is bf16(relu(a[b] + c[l0 + l])) when first, else the bf16 rows
-// of x_in.
-extern "C" int pair_int8_row_scale(const void* a, const void* c, const void* x_in,
-                                   void* row_scale, void* codes, int nl, int nl_pad, int l0,
-                                   int M, int K, int stride, float margin, int first,
-                                   void* stream) {
-  if (M <= 0 || nl <= 0 || nl_pad < nl || K <= 0 || K % 128 != 0 || stride <= 0)
+// Per pair row r = b * nl_pad + l of the chunk: row_scale[r] = max(max_j
+// |x[r, j]| * margin, 1e-12) * float32(1 / 127) over j = 0, stride, ... < K
+// (stride 1 or 8), and the row's codes clip(rint(x[r, :] / row_scale[r]),
+// -127, 127) into codes (B * nl_pad, K) int8.  first = 0: x is the bf16 rows
+// of x_in, one kernel (a, a_sub, c and the other arguments unused).  Layer 1
+// (x = bf16(relu(a[b] + c[l0 + l])), rows l >= nl take c = 0): the scales of
+// every chunk of the call come from one launch of the scale kernel, which
+// first = 2 makes before this chunk's codes (the call's first chunk, l0 its
+// first label: labels [l0, l0 + n_labels) in chunks of `chunk`, row_scale
+// the call's buffer of their rows, this chunk's first), and first = 1 reads
+// (row_scale this chunk's rows of that buffer); then the codes kernel on
+// code_plan's tiling (units, labels, seq_groups, seq_tile).  a_sub is
+// a[:, ::stride], contiguous.
+extern "C" int pair_int8_row_scale(const void* a, const void* a_sub, const void* c,
+                                   const void* x_in, void* row_scale, void* codes, int B, int nl,
+                                   int nl_pad, int l0, int K, int stride, float margin,
+                                   int first, int units, int labels, int seq_groups,
+                                   int seq_tile, int n_labels, int chunk, void* stream) {
+  if (B <= 0 || nl <= 0 || nl_pad < nl || K <= 0 || K % 128 != 0 ||
+      (stride != 1 && stride != 8) || first < 0 || first > 2)
     return (int)cudaErrorInvalidValue;
-  return first ? quantize_rows<true, true>(a, c, x_in, row_scale, codes, nl, nl_pad, l0, M, K,
-                                           stride, margin, 0.f, stream)
-               : quantize_rows<false, true>(a, c, x_in, row_scale, codes, nl, nl_pad, l0, M, K,
-                                            stride, margin, 0.f, stream);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * nl_pad;
+  if (!first) {
+    const int grid = (M + 7) / 8;  // a warp a row
+    if (stride == 8)
+      pair_int8_later_kernel<8><<<grid, 256, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x_in), static_cast<float*>(row_scale),
+          static_cast<int8_t*>(codes), M, K, margin);
+    else
+      pair_int8_later_kernel<1><<<grid, 256, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x_in), static_cast<float*>(row_scale),
+          static_cast<int8_t*>(codes), M, K, margin);
+    return (int)cudaGetLastError();
+  }
+  CodePlan p;
+  if (!make_code_plan(&p, B, nl_pad, K, units, labels, seq_groups, seq_tile))
+    return (int)cudaErrorInvalidValue;
+  if (first == 2) {
+    if (n_labels < nl || chunk < nl_pad || chunk % 128 != 0) return (int)cudaErrorInvalidValue;
+    const int n_chunks = (n_labels + chunk - 1) / chunk;
+    const int last = n_labels - (n_chunks - 1) * chunk;
+    const int lam_end = (n_chunks - 1) * chunk + (last + 127) / 128 * 128;
+    const int lgs = scale_labels(seq_tile);
+    const int items = (B + seq_tile - 1) / seq_tile * ((lam_end + lgs - 1) / lgs);
+    const int smem = scale_smem_bytes(seq_tile);
+    cudaError_t err = cudaFuncSetAttribute(pair_int8_first_scale_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_int8_first_scale_kernel,
+                                                          256, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = min(items, sms * max(per_sm, 1));
+    pair_int8_first_scale_kernel<<<grid, 256, smem, s>>>(
+        static_cast<const float*>(a_sub), static_cast<const float*>(c),
+        static_cast<float*>(row_scale), B, l0, n_labels, chunk, lam_end, K, stride, margin,
+        seq_tile);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return first_codes<true, true>(a, c, row_scale, codes, p, B, nl, nl_pad, l0, K, 0.f, s);
 }
 
 // The dynamic shared memory a launch of the given column tile and epilogue

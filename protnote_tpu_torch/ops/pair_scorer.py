@@ -650,8 +650,73 @@ def int8_row_scale_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
 # Launches of K2's entry points since the process started (or since a caller
 # last set them to 0): pair_int8_layer once per hidden layer per label chunk;
 # with static scales pair_int8_codes once per chunk (layer 1's codes), with
-# dynamic ones pair_int8_row_scale before every pair_int8_layer.
+# dynamic ones pair_int8_row_scale before every pair_int8_layer (for layer 1
+# two kernels a launch: the scales, then the codes).
 INT8_LAUNCHES = {"pair_int8_layer": 0, "pair_int8_codes": 0, "pair_int8_row_scale": 0}
+
+CODE_THREADS = 256  # threads a block of layer 1's codes kernel
+CODE_UNIT = 16  # columns a thread codes at once: one 16-byte store
+CODE_SLICE_UNITS = 4  # units a block's column slice: 64 columns
+CODE_SEQ_TILE = 32  # sequences a tile at most
+SCALE_ROWS = 64  # pair rows a block of layer 1's scale kernel at most
+SCALE_ROUND = 384  # sampled columns it stages a round
+
+
+@dataclass(frozen=True)
+class CodePlan:
+    """The tiling of layer 1's codes kernel over a chunk of ``B`` sequences
+    x ``nl_pad`` label rows x ``K`` columns (``csrc/pair_scorer_int8.cu``,
+    ``CodePlan``): block ``i = (t * label_groups + g) * slices + s`` codes
+    sequence tile ``t`` (``seq_tile`` sequences, the last may be short),
+    label group ``g`` (``labels`` rows) and column slice ``s`` (``units``
+    16-column units); its thread ``(u, li, sg) = (tid % units, tid // units %
+    labels, tid // (units * labels))`` holds the ``c`` slice of label ``g *
+    labels + li``, unit ``u`` in registers and codes it against the tile's
+    sequences ``sg, sg + seq_groups, ...`` (``a``'s slice for the tile in
+    shared memory)."""
+
+    units: int
+    labels: int
+    seq_groups: int
+    seq_tile: int
+    label_groups: int
+    seq_tiles: int
+    slices: int
+
+    @property
+    def grid(self) -> int:
+        return self.seq_tiles * self.label_groups * self.slices
+
+    @property
+    def args(self) -> Tuple[int, int, int, int]:
+        """What the C entry points take: the rest follows from them."""
+        return self.units, self.labels, self.seq_groups, self.seq_tile
+
+
+def scale_labels(seq_tile: int) -> int:
+    """Labels a block of layer 1's scale kernel takes: its rows are
+    ``code_plan``'s sequence tile x these labels, at most ``SCALE_ROWS``,
+    and each row is split over ``256 // rows`` threads."""
+    return SCALE_ROWS // seq_tile if seq_tile < SCALE_ROWS else 1
+
+
+def code_plan(B: int, nl_pad: int, K: int) -> CodePlan:
+    """Layer 1's code tiling of a chunk: sequence tiles of at most 32, as
+    even as they come; each thread reuses its ``c`` slice for half of the
+    tile's sequences (all of a tile of 1), so a block holds 32 labels (64
+    for a tile of 1); 64-column slices (a block writes 64 bytes of a row;
+    32 and 16 were slower on an H100), so a chunk of 8,192 rows at K 3072 is
+    384 blocks, one wave of 2-3 blocks an SM.  ``a`` then leaves L2 once a
+    label group and ``c`` once a sequence tile."""
+    if B <= 0 or nl_pad <= 0 or nl_pad % BLOCK_M or K % _BLOCK_N:
+        raise ValueError(f"no code plan for B {B}, {nl_pad} padded labels, width {K}")
+    seq_tiles = -(-B // CODE_SEQ_TILE)
+    seq_tile = -(-B // seq_tiles)
+    seq_groups = 2 if seq_tile >= 2 else 1
+    units = CODE_SLICE_UNITS
+    labels = CODE_THREADS // (units * seq_groups)
+    return CodePlan(units, labels, seq_groups, seq_tile, nl_pad // labels, seq_tiles,
+                    K // (CODE_UNIT * units))
 
 # pair_int8_layer's epilogue (csrc/pair_scorer_int8.cu), and its mode bit for
 # dynamic scales
@@ -707,6 +772,9 @@ class _Int8Kernel:
         self.w_out = q.w_out.to(torch.bfloat16).contiguous()
         self.b_out = q.b_out
         self.static = q.act_scales
+        # the dynamic scales' sampled columns and margin (_row_scales' rule)
+        self.stride = 8 if self.H >= 1024 else 1
+        self.margin = 1.3 if self.stride > 1 else 1.0
         n = len(q.hidden_q)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         # K1's chunks: a chunk's int8 codes (8,192 rows x 3072 = 25 MB) stay
@@ -722,17 +790,63 @@ class _Int8Kernel:
         self.h = (torch.empty(rows, H, dtype=torch.bfloat16, device=device)
                   if dyn and n > 1 else None)
         self.row_scale = torch.empty(rows, dtype=torch.float32, device=device) if dyn else None
+        # layer 1's dynamic scales: a's sampled columns, contiguous, and the
+        # scales of every chunk's rows (one launch writes them all; chunk k's
+        # rows start at B * (l0_k - l0_0))
+        self.a_sub = self.a[:, ::self.stride].contiguous() if dyn else None
+        first = self.plan.chunks[0]
+        self.scales1 = torch.empty(self.B * sum(ch.nl_pad for ch in self.plan.chunks),
+                                   dtype=torch.float32, device=device) if dyn else None
+        # the reciprocals the static codes are quantized with (as XLA runs
+        # the division by a constant), one a layer
+        self.inv = None if dyn else [float(_inv(s, "cpu")) for s in self.static]
         lib = load_kernel_library("pair_scorer_int8").lib
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.layer_fn = lib.pair_int8_layer
         self.layer_fn.argtypes = [p] * 8 + [f] * 2 + [i] * 10 + [p]
         self.codes_fn = lib.pair_int8_codes
-        self.codes_fn.argtypes = [p] * 3 + [i] * 5 + [f, p]
+        self.codes_fn.argtypes = [p] * 3 + [i] * 5 + [f] + [i] * 4 + [p]
         self.scale_fn = lib.pair_int8_row_scale
-        self.scale_fn.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
+        self.scale_fn.argtypes = [p] * 6 + [i] * 6 + [f] + [i] * 7 + [p]
         for fn in (self.layer_fn, self.codes_fn, self.scale_fn):
             fn.restype = ctypes.c_int
         self.stream = torch.cuda.current_stream(device).cuda_stream
+        # the addresses of the dynamic scales each chunk's layer 1 and later
+        # layers read, and every launch's arguments of the code passes (entry
+        # point, count name, arguments) by (chunk, first layer): made once
+        self.scale_ptrs = {ch: (_ptr(self.scales_of(ch, 0)), _ptr(self.scales_of(ch, 1)))
+                           for ch in self.plan.chunks}
+        self._quantize = {}
+        ptrs, plans = (_ptr(self.a), _ptr(self.c)), {}
+        last = self.plan.chunks[-1]
+        n_labels = last.l0 + last.nl - first.l0
+        for ch in self.plan.chunks:
+            if ch.nl_pad not in plans:
+                plans[ch.nl_pad] = code_plan(self.B, ch.nl_pad, H).args
+            plan = plans[ch.nl_pad]
+            if not dyn:
+                self._quantize[ch, True] = (self.codes_fn, "pair_int8_codes", (
+                    *ptrs, _ptr(self.codes[0]), self.B, ch.nl, ch.nl_pad, ch.l0, H,
+                    self.inv[0], *plan, self.stream))
+                continue
+            # layer 1: the first chunk's launch also makes every chunk's scales
+            mode = 2 if ch is first else 1
+            for layer1 in (True, False):
+                self._quantize[ch, layer1] = (self.scale_fn, "pair_int8_row_scale", (
+                    ptrs[0], _ptr(self.a_sub), ptrs[1], None if layer1 else _ptr(self.h),
+                    self.scale_ptrs[ch][not layer1], _ptr(self.codes[0]), self.B,
+                    ch.nl, ch.nl_pad, ch.l0, H, self.stride, self.margin,
+                    mode if layer1 else 0, *plan, n_labels, self.plan.chunk, self.stream))
+
+    def scales_of(self, ch: ChunkLaunch, i: int) -> Optional[torch.Tensor]:
+        """The dynamic row scales hidden layer ``i`` of chunk ``ch`` reads
+        (``B * nl_pad`` rows; None with static scales)."""
+        if self.static is not None:
+            return None
+        if i > 0:
+            return self.row_scale[: self.B * ch.nl_pad]
+        start = self.B * (ch.l0 - self.plan.chunks[0].l0)
+        return self.scales1[start : start + self.B * ch.nl_pad]
 
     @staticmethod
     def _counted(name: str, err: int) -> None:
@@ -751,19 +865,11 @@ class _Int8Kernel:
         """Hidden layer ``i``'s input codes for chunk ``ch`` into
         ``codes[0]``: layer 1's static codes (``pair_int8_codes``), or the
         dynamic row scales and codes of ``relu(a + c)`` (layer 1) or of the
-        previous layer's bf16 activations (``pair_int8_row_scale``)."""
-        M, H = self.B * ch.nl_pad, self.H
-        if self.static is not None:
-            err = self.codes_fn(_ptr(self.a), _ptr(self.c), _ptr(self.codes[0]), ch.nl,
-                                ch.nl_pad, ch.l0, M, H, float(_inv(self.static[0], "cpu")),
-                                self.stream)
-            self._counted("pair_int8_codes", err)
-            return
-        stride = 8 if H >= 1024 else 1
-        err = self.scale_fn(_ptr(self.a), _ptr(self.c), _ptr(None if i == 0 else self.h),
-                            _ptr(self.row_scale), _ptr(self.codes[0]), ch.nl, ch.nl_pad, ch.l0,
-                            M, H, stride, 1.3 if stride > 1 else 1.0, int(i == 0), self.stream)
-        self._counted("pair_int8_row_scale", err)
+        previous layer's bf16 activations (``pair_int8_row_scale``).  With
+        dynamic scales, the plan's first chunk's layer 1 comes first: its
+        launch makes every chunk's layer-1 scales."""
+        fn, name, args = self._quantize[ch, i == 0 or self.static is not None]
+        self._counted(name, fn(*args))
 
     def layer(self, ch: ChunkLaunch, i: int, logits: Optional[torch.Tensor]
               ) -> Optional[torch.Tensor]:
@@ -782,9 +888,9 @@ class _Int8Kernel:
             # the layer's scale, and the reciprocal its output codes are
             # quantized with (as XLA runs the division by a constant)
             s_in = self.static[i]
-            inv_next = 0.0 if last else float(_inv(self.static[i + 1], "cpu"))
+            inv_next = 0.0 if last else self.inv[i + 1]
         err = self.layer_fn(_ptr(x_in), _ptr(self.wt[i]), _ptr(self.s_w[i]), _ptr(self.bias[i]),
-                            _ptr(self.row_scale), _ptr(x_out), _ptr(self.w_out), _ptr(logits),
+                            self.scale_ptrs[ch][i > 0], _ptr(x_out), _ptr(self.w_out), _ptr(logits),
                             s_in, inv_next, self.B, ch.nl, ch.nl_pad, ch.l0, self.L, self.H,
                             self.H, self.plan.block_n, mode, ch.grid, self.stream)
         self._counted("pair_int8_layer", err)

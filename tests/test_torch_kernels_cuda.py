@@ -704,25 +704,32 @@ def test_int8_kernel_matches_plain_on_card(monkeypatch, static, n_hidden, width)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [256, 1024])
-def test_int8_code_passes_match_plain_on_card(width):
-    """K2's code passes alone on a chunk that ends mid-tile: layer 1's
-    static codes (``pair_int8_codes``) and the dynamic row scales and codes
-    (``pair_int8_row_scale``, from a and c and from bf16 rows) equal their
-    plain versions exactly."""
+@pytest.mark.parametrize("width", [128, 384, 768, 1024, 3072, 4096])
+@pytest.mark.parametrize("batch", [1, 5, 32, 65, 256])
+def test_int8_code_passes_match_plain_on_card(batch, width):
+    """K2's code passes alone on a chunk that ends mid-tile (labels [30,
+    180), padded to 256), at B 1 to 256 (sequence tiles of at most 32) and H
+    128 to 4096 (stride 1 below 1024; at 768 and 4096 the scale kernel
+    stages its sampled columns in two rounds, and at 4096 a later layer's
+    row is read twice): layer 1's static codes
+    (``pair_int8_codes``) and the dynamic row scales and codes
+    (``pair_int8_row_scale``, from a and c and from bf16 rows of both signs)
+    equal their plain versions exactly, and the padding rows are written."""
     dev = _card()
-    rng = np.random.default_rng(width)
+    rng = np.random.default_rng(width + batch)
     folded = _folded(rng, 16, width, 2, dev)
-    P_e = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32)).to(dev, torch.bfloat16)
+    P_e = torch.from_numpy(rng.normal(size=(batch, 16)).astype(np.float32)).to(
+        dev, torch.bfloat16)
     L_e = torch.from_numpy(rng.normal(size=(200, 16)).astype(np.float32)).to(dev, torch.bfloat16)
     scales = ps.calibrate_act_scales(folded, P_e, L_e, 128)
-    ch = ps.single_chunk_plan(3, width, 2, 30, 150).chunks[0]
-    rows = 3 * ch.nl_pad
-    x = torch.from_numpy(np.abs(rng.normal(size=(rows, width))).astype(np.float32)).to(
-        dev, torch.bfloat16)
+    plan = ps.single_chunk_plan(batch, width, 2, 30, 150)
+    ch = plan.chunks[0]
+    rows = batch * ch.nl_pad
+    gen = torch.Generator(device=dev).manual_seed(width + batch)
+    x = torch.randn(rows, width, generator=gen, device=dev).to(torch.bfloat16)
     for q in (ps.quantize_folded(folded, act_scales=scales), ps.quantize_folded(folded)):
-        plan = ps.single_chunk_plan(3, width, 2, ch.l0, ch.nl)
         k = ps._Int8Kernel(q, P_e, L_e, torch.bfloat16, plan)
+        k.codes[0].fill_(99)
         with torch.cuda.device(dev):
             k.quantize(ch, 0)
         torch.cuda.synchronize()
@@ -730,14 +737,16 @@ def test_int8_code_passes_match_plain_on_card(width):
             want = ps.int8_codes_reference(k.a, k.c, ch, scales[0])
             assert torch.equal(k.codes[0][:rows], want)
             continue
-        want_s, want = ps.int8_row_scale_reference(ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16))
-        assert torch.equal(k.codes[0][:rows], want) and torch.equal(k.row_scale[:rows], want_s)
+        x1 = ps._chunk_inputs(k.a, k.c, ch).to(torch.bfloat16)
+        want_s, want = ps.int8_row_scale_reference(x1)
+        assert torch.equal(k.codes[0][:rows], want) and torch.equal(k.scales_of(ch, 0), want_s)
         k.h[:rows] = x
+        k.codes[0].fill_(99)
         with torch.cuda.device(dev):
             k.quantize(ch, 1)
         torch.cuda.synchronize()
         want_s, want = ps.int8_row_scale_reference(x)
-        assert torch.equal(k.codes[0][:rows], want) and torch.equal(k.row_scale[:rows], want_s)
+        assert torch.equal(k.codes[0][:rows], want) and torch.equal(k.scales_of(ch, 1), want_s)
 
 
 @pytest.mark.cuda

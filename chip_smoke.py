@@ -9,7 +9,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 1. device: card name, power limit, CUDA and nvcc versions;
 2. build: compiles every ``protnote_tpu_torch/csrc/*.cu`` with nvcc, one
-   nvcc per source, all at once, and prints each one's ptxas lines;
+   nvcc per source, all at once (and K9's first update,
+   ``csrc/variants/threshold_sweep_v1.cu``, that phase 7 compares with),
+   and prints each one's ptxas lines;
 3. the pair-scorer kernel (K1) against its plain PyTorch version at the full
    serving width (32 sequences x 64,204 label rows, d=1024, H=3072, bf16),
    with both times from CUDA events; then K1 in parts: its ptxas registers,
@@ -28,8 +30,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    plain chain (the cuDNN conv1d chain of K7's ``*_reference`` functions),
    the pooled embeddings against it, the 11 conv launches alone on their
    recorded inputs against the plain convs, the 11 cuDNN conv1d calls alone
-   (K7's library time) and the pool alone; TFLOP/s, share of the bound and
-   the conv kernels' ptxas registers and spills;
+   (K7's library time) and the pool alone (events, device and host time,
+   the same bits twice, a contiguous input too); TFLOP/s, share of the
+   bound and the conv kernels' ptxas registers and spills;
 5. serving parity: ``engine.score`` against a forward through the plain
    pair scorer on the same device tensors;
 6. the eval-accumulator kernels (K3) against their plain version at full
@@ -46,11 +49,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
    lax.map loop) at full width (8 batches of 32 rows x 32,102 labels
    padded to 32,256 columns, padded rows, NaN logits), with the CLI's 99
    thresholds and an unsorted set with a duplicate: counts exact up to the
-   counted (element, threshold) pairs within 1e-6; update and finalize
-   times beside their bounds and the plain version's;
+   counted (element, threshold) pairs within 1e-6, the update's histogram
+   equal to its first design's after every batch; update and finalize
+   times beside their bounds and the plain version's, the first design's
+   update beside, and the share of the batch's (slot, column) keys that
+   repeat;
    7b. ``Trainer.evaluate(threshold_sweep=...)`` on the phase-7 FASTA in
    turns with the same evaluation without the sweep: seqs/s of both, the
-   chosen threshold, K9's and K3's launches;
+   chosen threshold, K9's and K3's launches; then K9's update and its first
+   design on the first batch of logits that evaluation gave the sweep
+   (histograms equal, device times, repeated keys);
    7c. the exact host AUPRC (``estimate_map=False``) on the same FASTA:
    seqs/s; a pass by hand split into device, readback and host-update ms a
    batch, its logits also into K3 and a host histogram (equal up to counted
@@ -165,7 +173,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
     their times beside the bound, the plain versions' and cuDNN's conv
     backward (dX also without its dy copy and weight re-layout; dW on x and
     dy at the padded pitch, as training passes them, and from contiguous
-    tensors, which it copies), TFLOP/s, share of the bound, ptxas;
+    tensors, which it copies), TFLOP/s, share of the bound, ptxas; the
+    pool's transpose (``masked_mean_pool_backward``) bit for bit against the
+    plain transpose, its padding channels 0, the same bits twice, by
+    events, device and host time beside its bytes bound;
 19. training the encoder through ``Trainer.train`` at full width, 32
     sequences a step at bucket 512: ``TRAIN_SEQUENCE_ENCODER`` for 9 steps
     (step ms, seqs/s, peak memory, K7's launches, a validation pass), 3
@@ -174,7 +185,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
     and its new running statistics within 1e-2, a PNTPU1 checkpoint with
     ``trainable["encoder"]`` round-tripped, 2 steps at bucket 1024 (the
     peak there); then ``ENCODER_BN_TRAIN_MODE`` for 3 steps (the running
-    statistics move, the weights do not);
+    statistics move, the weights do not); the pool's backward kernel runs
+    once a step, its device ms a step beside its bound;
 20. the streamed exact-BN training scorer (``TRAIN_STREAMING_LABEL_TILE
     2048``): (a) K6's six kernels (``csrc/streamed_bn.cu``: the tile's
     shifted moments, the fixed affine + ReLU and the fused head, each with
@@ -241,7 +253,10 @@ LOGIT_ATOL = 5e-2
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
                   "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
-                  "streamed_bn")
+                  "streamed_bn", "masked_pool")
+# first designs that a phase holds a redesigned kernel against
+# (csrc/variants/): K9's update, whose histogram must be the same
+FIRST_DESIGNS = ("threshold_sweep_v1",)
 
 # H100 SXM dense peaks for the bounds (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -411,15 +426,69 @@ def phase_device():
         python=sys.version.split()[0], count=torch.cuda.device_count())
 
 
+def first_design(name: str):
+    """``csrc/variants/<name>.cu`` built with the port's nvcc flags into
+    ``_build/`` (once a source and flag set) and loaded: a kernel's first
+    design, for a phase that compares the kept kernel with it."""
+    import ctypes
+    import hashlib
+
+    from protnote_tpu_torch.ops import kernels
+
+    src = kernels.CSRC_DIR / "variants" / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes() + " ".join(kernels.NVCC_FLAGS).encode())
+    for header in sorted(kernels.CSRC_DIR.glob("*.cuh")):
+        tag.update(header.read_bytes())
+    out = kernels.BUILD_DIR / f"lib{name}_{tag.hexdigest()[:16]}.so"
+    if not out.exists():
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I",
+                               str(kernels.CSRC_DIR), "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def sweep_first_design():
+    """K9's first update (``csrc/variants/threshold_sweep_v1.cu``): its C
+    entry point, ``fn(hist, sweep, logits, labels, mask)`` adding one batch
+    into ``hist`` with the sorted thresholds of ``sweep`` (a
+    ``SweepCounter``) on the current stream."""
+    import ctypes
+
+    import torch
+
+    lib = first_design("threshold_sweep_v1")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.threshold_sweep_update.argtypes = [P] * 4 + [I] * 4 + [P, P]
+
+    def update(hist, sweep, logits, labels, mask):
+        B, Lb = logits.shape
+        err = lib.threshold_sweep_update(logits.data_ptr(), labels.data_ptr(), mask.data_ptr(),
+                                         sweep.sorted.data_ptr(), B, Lb, sweep.num_labels,
+                                         sweep.sorted.shape[0], hist.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K9's first update: CUDA error {err}")
+    return update
+
+
 def phase_build():
-    """One nvcc per source, all started together."""
+    """One nvcc per source (and per first design a phase compares with),
+    all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from protnote_tpu_torch.ops.kernels import load_kernel_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + len(FIRST_DESIGNS)) as pool:
+        firsts = [pool.submit(first_design, name) for name in FIRST_DESIGNS]
         libs = list(pool.map(load_kernel_library, KERNEL_SOURCES))
+        for f in firsts:
+            f.result()
     for lib in libs:
         ptxas = [line.strip() for line in lib.build_log.splitlines()
                  if "registers" in line or "spill" in line]
@@ -913,6 +982,16 @@ def phase_encoder(engine, seqs, passes: int, card: str):
             pool_ms = cuda_time_ms(lambda: k7.masked_mean_pool_cuda(feats, lengths), 20)
             pool_plain_ms = cuda_time_ms(lambda: k7.masked_mean_pool_reference(feats, lengths),
                                          20)
+            pool_device_ms, pool_host_ms = device_and_host_ms(
+                lambda: k7.masked_mean_pool_cuda(feats, lengths), 20)
+            flat = feats.contiguous()  # rows 2,200 bytes apart: 8-byte loads
+            pool_contiguous_ms = cuda_time_ms(lambda: k7.masked_mean_pool_cuda(flat, lengths), 20)
+            pool_err = max(pool_err, rel_max(k7.masked_mean_pool_cuda(flat, lengths),
+                                             k7.masked_mean_pool_reference(feats, lengths)),
+                           key=lambda e: e[1])
+            del flat
+            pool_again = k7.masked_mean_pool_cuda(feats, lengths)
+            pool_same_bits = torch.equal(k7.masked_mean_pool_cuda(feats, lengths), pool_again)
             flop = k7_flops(lens, bucket, params, cfg)
             flop_padded = 2.0 * B * bucket * (cfg.input_channels * C * k
                                               + cfg.num_resnet_blocks * (C * Cb * k + Cb * C))
@@ -925,7 +1004,11 @@ def phase_encoder(engine, seqs, passes: int, card: str):
             conv["share_of_bound"] = conv["bound_ms"] / conv_ms
             pool = {"max_abs_err": pool_err[0], "ms": pool_ms, "plain_ms": pool_plain_ms,
                     **bound(nbytes=2.0 * valid * C + 4.0 * B + 4.0 * B * C),
-                    "library_ms": None}
+                    "library_ms": None, "device_ms": pool_device_ms,
+                    "host_ms": pool_host_ms, "same_bits": pool_same_bits,
+                    "pitch": feats.stride(1), "contiguous_input_ms": pool_contiguous_ms}
+            pool["device_share_of_bound"] = (None if pool_device_ms is None
+                                             else pool["bound_ms"] / pool_device_ms)
             out[bucket] = {"chain_ms": ms, "chain_cached_plans_ms": cached_ms,
                            "chain_plain_ms": plain_ms,
                            "pooled_max_abs_err": pooled_err, "pooled_rel_err": pooled_rel,
@@ -934,7 +1017,7 @@ def phase_encoder(engine, seqs, passes: int, card: str):
                            "valid_rows": valid, "masked_conv_fwd": conv,
                            "masked_mean_pool": pool}
             if pooled_rel > K7_POOLED_REL_TOL or conv["max_rel_err"] > K45_REL_TOL \
-                    or pool_err[1] > K7_F32_REL_TOL:
+                    or pool_err[1] > K7_F32_REL_TOL or not pool_same_bits:
                 raise AssertionError(f"K7's forward disagrees with its plain version at "
                                      f"bucket {bucket}: {out[bucket]}")
     log("encoder", batch=B, passes_on_serving_path=passes, buckets=out,
@@ -1544,6 +1627,8 @@ def device_split(calls: dict, reps: int = 20) -> dict:
     out = {}
     for name, fn in calls.items():
         dev_ms, host_ms = device_and_host_ms(fn, reps)
+        if dev_ms is None:  # a trace that caught no device event: once more
+            dev_ms, host_ms = device_and_host_ms(fn, reps)
         _, _, top = device_profile(fn, reps)
         out[name] = {"device_ms": dev_ms, "host_ms": host_ms, "kernels": top}
     return out
@@ -1565,6 +1650,31 @@ def sweep_edges(logits, valid, thresholds) -> int:
     p = torch.sigmoid(logits.double())[valid]
     th = torch.as_tensor(thresholds, dtype=torch.float64, device=p.device)
     return int(sum(int(((p - t).abs() < EDGE).sum()) for t in th))
+
+
+def sweep_keys(sweep, logits, labels, mask) -> dict:
+    """How the update's adds fall on one batch: its valid elements, the
+    distinct (slot, column) keys among them (the L2 reductions of the kept
+    update, which counts a block's rows in shared memory first) and the
+    share of elements whose key repeats within the batch (the first
+    design's adds that queue on an address another element of the batch
+    also adds to).  Slots as the kernel forms them, from torch's sigmoid
+    (an element within an ulp of a threshold may move)."""
+    import torch
+
+    L, T = sweep.num_labels, sweep.sorted.shape[0]
+    x = logits[:, :L].float()
+    p = 1.0 / (1.0 + torch.exp(-x))
+    k = torch.searchsorted(sweep.sorted, p.contiguous(), right=True)
+    k = torch.where(torch.isnan(p), torch.zeros_like(k), k)
+    slot = torch.where(labels[:, :L] > 0, 0, T + 1) + k
+    valid = (mask[:, None] > 0).expand_as(slot)
+    cols = torch.arange(L, device=slot.device).expand_as(slot)
+    keys = (slot * L + cols)[valid]
+    n, distinct = int(keys.numel()), int(torch.unique(keys).numel())
+    return {"valid_elements": n, "distinct_keys": distinct,
+            "repeat_share": 1.0 - distinct / max(n, 1),
+            "slot0_neg_share": float(((slot == T + 1) & valid).sum()) / max(n, 1)}
 
 
 def k9_batches(gen, dev):
@@ -1595,6 +1705,7 @@ def phase_k9(card: str):
 
     dev = torch.device("cuda")
     batches = k9_batches(torch.Generator().manual_seed(9), dev)
+    first_update = sweep_first_design()
     checks = {}
     for name, thresholds in (("cli_99", sweep_thresholds()),
                              ("unsorted", np.array(ODD_THRESHOLDS, np.float32))):
@@ -1602,9 +1713,16 @@ def phase_k9(card: str):
         T = len(thresholds)
         plain = tuple(torch.zeros(T, NUM_LABELS, dtype=torch.int32, device=dev)
                       for _ in range(3))
+        first_hist = torch.zeros_like(sweep.hist)
         edges = 0
-        for logits, labels, mask in batches:
+        for i, (logits, labels, mask) in enumerate(batches):
             sweep.update(logits, labels, mask)
+            first_update(first_hist, sweep, logits, labels, mask)
+            if i % 2:  # the ring flushed after two batches' codes
+                sweep.flush()
+                if not torch.equal(sweep.hist, first_hist):
+                    raise AssertionError(f"K9 ({name}): the update's histogram differs from "
+                                         f"the first design's after batch {i}")
             k9.count_reference(plain, logits, labels, mask, sweep.thresholds)
             valid = (mask[:, None] > 0).expand(B, NUM_LABELS)
             edges += sweep_edges(logits[:, :NUM_LABELS], valid, thresholds)
@@ -1612,7 +1730,8 @@ def phase_k9(card: str):
         torch.cuda.synchronize()
         delta = sum(int((g.long() - w.long()).abs().sum()) for g, w in zip(got, plain))
         checks[name] = {"edge_pairs": edges, "count_delta": delta,
-                        "tp": int(got[0].sum()), "fn": int(got[2].sum())}
+                        "tp": int(got[0].sum()), "fn": int(got[2].sum()),
+                        "same_histogram_as_first_design": True}
         if delta > 2 * edges or int(got[0].sum()) <= 0:
             raise AssertionError(f"K9 ({name}) disagrees: sum |delta| {delta} exceeds 2 x "
                                  f"{edges} edge pairs")
@@ -1625,26 +1744,64 @@ def phase_k9(card: str):
     sweep = k9.SweepCounter(sweep_thresholds(), NUM_LABELS, dev)
     logits, labels, mask = batches[0]
     T = len(sweep.thresholds)
+    ring = k9.RING_ROWS // B  # the batches a flush counts
+
+    def cycle():  # a ring's batches and their flush: the update's cost a batch x ring
+        for _ in range(ring):
+            sweep.update(logits, labels, mask)
+        sweep.flush()
+
+    # the flush alone on a full ring (adding the same rows again), against
+    # the plain flush on the same codes
+    for _ in range(ring):
+        sweep.update(logits, labels, mask)
+    rows, codes = sweep.pending, sweep.codes
+
+    def flush_again():
+        k9._flush(codes.data_ptr(), rows, NUM_LABELS, sweep.pitch, T, sweep.hist.data_ptr(),
+                  sweep.index)
+
+    before = sweep.hist.clone()
+    flush_again()
+    if not torch.equal(sweep.hist, k9.flush_reference(before, codes[:rows], NUM_LABELS)):
+        raise AssertionError("K9's flush differs from the plain flush on the same codes")
     plain = tuple(torch.zeros(T, NUM_LABELS, dtype=torch.int32, device=dev) for _ in range(3))
-    t = {"update": (cuda_time_ms(lambda: sweep.update(logits, labels, mask), 50),
+    t = {"update": (cuda_time_ms(cycle, 10) / ring,
                     cuda_time_ms(lambda: k9.count_reference(
                         plain, logits, labels, mask, sweep.thresholds), 3)),
+         "flush": (cuda_time_ms(flush_again, 20),
+                   cuda_time_ms(lambda: k9.flush_reference(before, codes[:rows], NUM_LABELS),
+                                5)),
          "finalize": (cuda_time_ms(sweep.counts, 20),
                       cuda_time_ms(lambda: k9.finalize_reference(
                           sweep.hist, sweep.order, NUM_LABELS, T), 5))}
-    device = device_split({"update": lambda: sweep.update(logits, labels, mask),
-                           "finalize": sweep.counts})
+    first_hist = torch.zeros_like(sweep.hist)
+    first_ms = cuda_time_ms(lambda: first_update(first_hist, sweep, logits, labels, mask), 50)
+    device = device_split({"update_ring_cycle": cycle, "flush": flush_again,
+                           "update_first_design": lambda: first_update(
+                               first_hist, sweep, logits, labels, mask),
+                           "finalize": sweep.counts}, reps=10)
+    device["update"] = {k: None if v is None else (v / ring if k != "kernels" else v)
+                        for k, v in device["update_ring_cycle"].items()}
     n_valid = float(mask.sum()) * NUM_LABELS
     state = 4.0 * 2 * (T + 1) * NUM_LABELS
+    keys = sweep_keys(sweep, logits, labels, mask)
     nbytes = {"update": 8.0 * B * K9_WIDTH + 4 * B + 4 * T + 8 * n_valid,
+              # the ring's codes read once, each distinct (slot, column) key
+              # of its rows (those of the one batch, repeated) read and written
+              "flush": 2.0 * rows * NUM_LABELS + 8.0 * keys["distinct_keys"],
               "finalize": state + 4 * T + 3 * 4.0 * T * NUM_LABELS}
     xla_bytes = T * 8.0 * B * K9_WIDTH  # lax.map: the batch read once a threshold
-    log("k9_time", **{f"{k}_ms": v[0] for k, v in t.items()},
+    log("k9_time", **{f"{k}_ms": v[0] for k, v in t.items()}, update_first_design_ms=first_ms,
+        update_keys=keys, ring_batches=ring, update_device_share_of_bound=(
+            None if device["update"]["device_ms"] is None
+            else bound(nbytes=nbytes["update"])["bound_ms"] / device["update"]["device_ms"]),
         **{f"{k}_plain_ms": v[1] for k, v in t.items()},
         **{f"{k}_bound_ms": bound(nbytes=nbytes[k])["bound_ms"] for k in t},
         xla_form_bytes=xla_bytes, xla_form_bound_ms=bound(nbytes=xla_bytes)["bound_ms"],
         state_mb=state / 1e6, device=device, card=card)
     errs = {k: float(max(v["count_delta"] for v in checks.values())) for k in t}
+    errs["flush"] = 0.0  # equal to the plain flush above
     return {k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1],
                 **bound(nbytes=nbytes[k]), "library_ms": None} for k in t}
 
@@ -1796,7 +1953,11 @@ def phase_eval_sweep(card: str):
     """``Trainer.evaluate(threshold_sweep=...)`` on the phase-7 FASTA, bf16:
     the CLI's 99 thresholds counted by K9 beside K3's metrics, in turns with
     the same evaluation without the sweep (plain, sweep, sweep, plain).
-    Returns K9's launches in the first sweep pass (set to 0 just before)."""
+    Then K9's update alone on the first batch of logits that evaluation
+    gave it (the model on random weights): the kept update and the first
+    design, their histograms equal, their device times, and how the batch's
+    adds fall (:func:`sweep_keys`).  Returns K9's launches in the first
+    sweep pass (set to 0 just before)."""
     import tempfile
 
     import numpy as np
@@ -1811,25 +1972,68 @@ def phase_eval_sweep(card: str):
     pi_cfg, pn_cfg, ts = random_models()
     trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig(decision_threshold=THRESHOLD,
                                                         estimate_map=True), device="cuda")
-    runs, launches, chosen = [], None, None
-    for sweep in (False, True, True, False):
-        batcher = eval_batcher(ds)
-        torch.cuda.synchronize()
-        for counts in (k3.LAUNCHES, k9.LAUNCHES):
-            for name in counts:
-                counts[name] = 0
-        t0 = time.perf_counter()
-        res = trainer.evaluate(batcher, threshold_sweep=sweep_thresholds() if sweep else None)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        runs.append({"sweep": sweep, "seconds": sec, "seqs_per_s": len(ds) / sec})
-        if sweep and launches is None:
-            launches = {**{f"threshold_sweep_{k}": v for k, v in k9.LAUNCHES.items()},
-                        **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
-            chosen = res["threshold"]
-            metrics = res["metrics"]
+    runs, launches, chosen, seen = [], None, None, []
+    update = k9.SweepCounter.update
+
+    def keep_first(counter, logits, labels, mask):  # the first batch the sweep counts
+        if not seen:
+            seen.append((logits.clone(), labels.clone(), mask.clone(), counter.num_labels))
+        return update(counter, logits, labels, mask)
+
+    k9.SweepCounter.update = keep_first
+    try:
+        for sweep in (False, True, True, False):
+            batcher = eval_batcher(ds)
+            torch.cuda.synchronize()
+            for counts in (k3.LAUNCHES, k9.LAUNCHES):
+                for name in counts:
+                    counts[name] = 0
+            t0 = time.perf_counter()
+            res = trainer.evaluate(batcher, threshold_sweep=sweep_thresholds() if sweep else None)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            runs.append({"sweep": sweep, "seconds": sec, "seqs_per_s": len(ds) / sec})
+            if sweep and launches is None:
+                launches = {**{f"threshold_sweep_{k}": v for k, v in k9.LAUNCHES.items()},
+                            **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+                chosen = res["threshold"]
+                metrics = res["metrics"]
+    finally:
+        k9.SweepCounter.update = update
     if any(v <= 0 for v in launches.values()) or not np.isfinite(chosen[1]):
         raise AssertionError(f"the sweep evaluation skipped a kernel: {launches}, {chosen}")
+    logits, labels, mask, num_labels = seen[0]
+    counter = k9.SweepCounter(sweep_thresholds(), num_labels, "cuda")
+    first_update, first_hist = sweep_first_design(), torch.zeros_like(counter.hist)
+    counter.update(logits, labels, mask)
+    counter.flush()
+    first_update(first_hist, counter, logits, labels, mask)
+    if not torch.equal(counter.hist, first_hist):
+        raise AssertionError("K9 on the evaluation's logits: the update's histogram differs "
+                             "from the first design's")
+    n_valid = float((mask > 0).sum()) * num_labels
+    nbytes = 8.0 * logits.numel() + 4 * logits.shape[0] + 4 * 99 + 8 * n_valid
+    ring = k9.RING_ROWS // logits.shape[0]
+
+    def cycle():  # a ring's batches and their flush
+        for _ in range(ring):
+            counter.update(logits, labels, mask)
+        counter.flush()
+
+    device = device_split({"update_ring_cycle": cycle,
+                           "update_first_design": lambda: first_update(
+                               first_hist, counter, logits, labels, mask)}, reps=10)
+    device["update"] = {k: None if v is None else (v / ring if k != "kernels" else v)
+                        for k, v in device["update_ring_cycle"].items()}
+    log("k9_eval_logits", shape=list(logits.shape), keys=sweep_keys(counter, logits, labels, mask),
+        logit_quantiles=[float(q) for q in torch.quantile(
+            logits[mask > 0].float().flatten()[:1 << 24],
+            torch.tensor([0.01, 0.5, 0.99], device=logits.device))],
+        same_histogram_as_first_design=True,
+        ring_batches=ring, update_ms=cuda_time_ms(cycle, 10) / ring,
+        update_first_design_ms=cuda_time_ms(
+            lambda: first_update(first_hist, counter, logits, labels, mask), 50),
+        **bound(nbytes=nbytes), device=device, card=card)
     if not all(np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics: {metrics}")
     plain_s = [r["seqs_per_s"] for r in runs if not r["sweep"]]
@@ -2329,10 +2533,12 @@ def train_datasets(tmp: str):
             fasta_dataset(tmp, "val.fasta", VAL_SEQUENCES, 12, val_cfg))
 
 
-def device_profile(fn, steps: int):
+def device_profile(fn, steps: int, keep=()):
     """Run ``fn`` ``steps`` times under ``torch.profiler``: (wall s, device
-    busy s, top kernels by device time), busy time the union of the kernels'
-    intervals; (wall, None, []) when the trace holds no device events."""
+    busy s, top kernels by device time, ms a step), busy time the union of
+    the kernels' intervals, and after the top ones every other kernel whose
+    name holds a string of ``keep``; (wall, None, []) when the trace holds
+    no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2357,7 +2563,8 @@ def device_profile(fn, steps: int):
         else:
             cur_e = max(cur_e, b)
     busy += cur_e - cur_s
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = ranked[:14] + [kv for kv in ranked[14:] if any(k in kv[0] for k in keep)]
     return wall, busy / 1e6, [(name[:80], us / 1e3 / steps) for name, us in top]
 
 
@@ -3549,12 +3756,52 @@ def phase_k7_bwd(card: str) -> dict:
     torch.cuda.empty_cache()
 
     out.update(k7_bn(card, params, state, lengths, act))
+    out["masked_mean_pool_bwd"] = k7_pool_backward(lengths, T, cfg.output_channels, gen)
     out["masked_conv_dx"]["kernel_only_ms"] = dx_kernel_ms
     log("k7_bwd", batch=B, bucket=T, lengths=[int(n) for n in lens], kernels=out,
         ptxas=k7_ptxas("masked_conv_bwd"),
         rel_tol={"outputs": K45_REL_TOL, "stats": K7_F32_REL_TOL, "sums": K7_SUMS_REL_TOL},
         card=card)
     torch.cuda.empty_cache()
+    return out
+
+
+def k7_pool_backward(lengths, T: int, C: int, gen) -> dict:
+    """The pool's transpose (``masked_mean_pool_backward``) at 32 sequences
+    x ``T`` x ``C`` against ``masked_mean_pool_backward_reference`` on the
+    same float32 cotangent: bit for bit (signed zeros included), its
+    padding channels 0, the same bits on a second call; events, device and
+    host ms beside the plain version's (alone, and with the copy to the
+    padded pitch that the last conv's backward made of its contiguous
+    result) and the bound: the cotangent read once, every row of the padded
+    gradient written once."""
+    import torch
+
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = lengths.device
+    g = torch.randn(B, C, generator=gen, device=dev)
+    got = k7.masked_mean_pool_backward_cuda(g, lengths, T)
+    again = k7.masked_mean_pool_backward_cuda(g, lengths, T)
+    want = k7.masked_mean_pool_backward_reference(g, lengths, T, torch.bfloat16)
+    bits = lambda t: t.contiguous().view(torch.int16)  # noqa: E731
+    equal = torch.equal(bits(got), bits(want))
+    pad_zero = not bool(padding_channels(got).view(torch.int16).any())
+    same = torch.equal(bits(got), bits(again)) and torch.equal(bits(padding_channels(got)),
+                                                               bits(padding_channels(again)))
+    if not (equal and pad_zero and same):
+        raise AssertionError(f"masked_mean_pool_backward: bit-equal {equal}, padding zero "
+                             f"{pad_zero}, same bits twice {same}")
+    kernel = lambda: k7.masked_mean_pool_backward_cuda(g, lengths, T)  # noqa: E731
+    plain = lambda: k7.masked_mean_pool_backward_reference(g, lengths, T,  # noqa: E731
+                                                           torch.bfloat16)
+    device_ms, host_ms = device_and_host_ms(kernel, 20)
+    out = {"max_abs_err": 0.0, "ms": cuda_time_ms(kernel, 20), "plain_ms": cuda_time_ms(plain, 20),
+           "plain_with_copy_ms": cuda_time_ms(lambda: k7.pad_pitch(plain()), 20),
+           **bound(nbytes=4.0 * B * C + 4.0 * B + 2.0 * B * T * got.stride(1)),
+           "library_ms": None, "device_ms": device_ms, "host_ms": host_ms,
+           "bit_equal": equal, "padding_zero": pad_zero, "same_bits": same}
+    out["device_share_of_bound"] = None if device_ms is None else out["bound_ms"] / device_ms
     return out
 
 
@@ -3878,7 +4125,17 @@ def phase_encoder_training(card: str) -> dict:
         def one_step():
             trainer.ts, _ = step_fn(trainer.ts, next(it), g_prof)
 
-        wall, busy, top = device_profile(one_step, PROFILE_STEPS)
+        wall, busy, top = device_profile(one_step, PROFILE_STEPS, keep=("pool_",))
+        pool_bwd = [ms for name, ms in top if "pool_backward_kernel" in name]
+        fields.update(pool_bwd_launches_per_step=fields["launches"]["masked_mean_pool_bwd"]
+                      / fields["steps"],
+                      pool_bwd_device_ms_per_step=sum(pool_bwd) if pool_bwd else None,
+                      pool_bwd_bound_ms=bound(nbytes=4.0 * TRAIN_B * pi_cfg.output_channels
+                                              + 2.0 * TRAIN_B * 512
+                                              * k7.row_pitch(pi_cfg.output_channels))["bound_ms"])
+        if fields["pool_bwd_launches_per_step"] != 1:
+            raise AssertionError(f"encoder training: the pool's backward kernel ran "
+                                 f"{fields['pool_bwd_launches_per_step']} times a step")
         fields.update(copies_per_step=copies_in(one_step, TRAIN_B,
                                                 {pi_cfg.output_channels,
                                                  pi_cfg.bottleneck_channels}))
@@ -3891,7 +4148,8 @@ def phase_encoder_training(card: str) -> dict:
                       grad_check=encoder_grad_check(trainer, placed[0], pi_cfg))
         log("encoder_train", run="train_sequence_encoder", **fields, card=card)
         summary = {k: fields[k] for k in ("median_warm_step_ms", "seqs_per_s", "peak_mem_gb",
-                                          "idle_share", "copies_per_step")}
+                                          "idle_share", "copies_per_step",
+                                          "pool_bwd_device_ms_per_step")}
         summary["grad_check_worst"] = fields["grad_check"]["max_leaf_rel_l2"]
 
         # a checkpoint with trainable["encoder"], restored into a fresh trainer
@@ -3930,7 +4188,8 @@ def phase_encoder_training(card: str) -> dict:
         frozen = all(torch.equal(x, y.to(dev)) for x, y in zip(
             tree_leaves(trainer.ts["enc_params"]), tree_leaves(ts["enc_params"])))
         if launches["masked_bn_relu_fwd"] <= 0 or moved == 0.0 or not frozen or any(
-                launches[k] for k in ("masked_conv_dx", "masked_conv_dw", "masked_bn_relu_bwd")):
+                launches[k] for k in ("masked_conv_dx", "masked_conv_dw", "masked_bn_relu_bwd",
+                                      "masked_mean_pool_bwd")):
             raise AssertionError(f"ENCODER_BN_TRAIN_MODE: launches {launches}, running "
                                  f"statistics moved {moved}, weights frozen {frozen}")
         log("encoder_train", run="encoder_bn_train_mode", **fields, stats_moved=moved,
@@ -4407,7 +4666,7 @@ def main() -> None:
         "source": "protnote_tpu_torch/csrc/threshold_sweep.cu",
         "replaces": "protnote_tpu/train/trainer.py:1117",
         "launches": sweep_launches[f"threshold_sweep_{k}"], **k9_times[k],
-    } for k in ("update", "finalize")] + [{
+    } for k in ("update", "flush", "finalize")] + [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], **train_times[k],
     } for k, (src, rep) in train_kernels.items()] + [{
@@ -4435,8 +4694,10 @@ def main() -> None:
     } for k, src, rep, times, runs in (
         ("masked_conv_fwd", "masked_conv", "protnote_tpu/models/proteinfer.py:127", k7_fwd,
          launches),
-        ("masked_mean_pool", "masked_conv", "protnote_tpu/models/proteinfer.py:147", k7_fwd,
+        ("masked_mean_pool", "masked_pool", "protnote_tpu/models/proteinfer.py:147", k7_fwd,
          launches),
+        ("masked_mean_pool_bwd", "masked_pool", "protnote_tpu/models/proteinfer.py:212", k7_bwd,
+         encoder_launches),
         ("masked_conv_dx", "masked_conv_bwd", "protnote_tpu/models/proteinfer.py:127", k7_bwd,
          encoder_launches),
         ("masked_conv_dw", "masked_conv_bwd", "protnote_tpu/models/proteinfer.py:127", k7_bwd,

@@ -116,9 +116,43 @@ one choice changed (timing only where the results are wrong;
 128-channel slices), on 1 and 3 blocks an SM and on the
 1,100- and 550-channel BatchNorms alone, each timed twice (the list
 forward, then backward).  Where the host enqueues slower than the card
-runs, the event times are the host's: read the device times.  Last, K7's
-masked mean pool on the 32 x 512 x 1,100 features by events and as device
-and host time.
+runs, the event times are the host's: read the device times.
+
+    python3 chip_variants.py --k7-pool
+
+times K7's masked mean pool (``csrc/masked_pool.cu``: one launch, a block
+a sequence's valid rows over 128 channels, 64 rows at once with 4 loads in
+flight a thread) against its first design
+(``csrc/variants/masked_pool_v1.cu``: a block a 64-column group of one
+sequence, 8 warps of 4-byte pairs) and its runs form
+(``csrc/variants/masked_pool_runs.cu``: a block a run of 32 valid rows over
+every channel, then a launch adding each sequence's runs) in turns at 32
+sequences x 1,100 channels, buckets 512 and 1,024
+(``chip_smoke.k7_lengths``), on the padded pitch and on a contiguous input,
+by CUDA events and device time; then the kept source with parts taken out
+or one choice changed (``K7POOL_SUBS``: without the loads, 2 or 8 loads in
+flight, 256 or 512 threads, 256-channel groups, evict-first loads); the
+pool's backward kernel against the plain
+transpose (alone, and with the copy to the padded pitch the last conv's
+backward used to make), with 64 rows a block and streaming stores; each
+wrapper's host time a call.
+
+    python3 chip_variants.py --k9-update
+
+measures what bounds K9's update: the kept update (a batch's uint16 slot
+codes into a ring; a flush of 8 batches' codes, a block's 128 columns
+counted in shared-memory bytes over every row, then one add a distinct
+(slot, column)) and its first design (``csrc/variants/threshold_sweep_v1.cu``:
+one L2 atomic an element) in turns on phase 7a's spread batch and on a
+batch whose logits lie below the least threshold, at 99 and 1,024
+thresholds, after checking that both give the same histogram; the time a
+batch (the codes and an eighth of the flush) and the aggregation alone (a
+flush every batch); the first design without its adds and with each add
+sent to its own address (coalesced, and scattered over the slots:
+``K9V1_SUBS``); the kept kernels with parts taken out (``K9_SUBS``: the
+flush without its L2 adds or its shared counts, the codes by a binary
+search over all thresholds or with their loads and stores alone); each
+batch's share of repeated (slot, column) keys; the host time a call.
 
     python3 chip_variants.py --encoder-train-against DIR
 
@@ -682,14 +716,6 @@ def k7_bn_variants(build_dir: str, card: str) -> None:
     for (kernel, variant), t in turns(calls, 10).items():
         cs.log("k7_bn_variant", kernel=kernel, variant=variant, **t, bound_ms=bounds[kernel],
                card=card)
-    # K7's masked mean pool beside them (phase 4 times it by events only):
-    # the last block's 32 x 512 x 1,100 features at the padded pitch
-    feats = k7.pad_pitch(torch.randn(B, T, 1100, generator=gen, device=dev).to(bf16))
-    pool = lambda: k7.masked_mean_pool_cuda(feats, lengths)  # noqa: E731
-    device, host = cs.device_and_host_ms(pool, 20)
-    valid = int(lengths.clamp(max=T).sum())  # the rows it reads, as phase 4's bound counts
-    cs.log("k7_pool", ms=cs.cuda_time_ms(pool, 20), device_ms=device, host_ms=host,
-           **cs.bound(nbytes=2.0 * valid * 1100 + 4.0 * B + 4.0 * B * 1100), card=card)
 
 
 # text replaced in pair_train_bwd.cu: (old, new), each old found exactly once
@@ -1225,6 +1251,326 @@ def k3_variants(build_dir: str, card: str) -> None:
             times[(entry, variant)].append(cs.cuda_time_ms(fn, 50))
     for (entry, variant), t in times.items():
         cs.log("k3_variant", entry=entry, variant=variant, ms=t, card=card)
+
+# text replaced in masked_pool.cu: (old, new), each old found exactly once
+K7POOL_SUBS = {
+    "no_loads": [(
+        "        if (r < L) v[u] = n == LANE_CHANNELS ? load8<A>(p + static_cast<size_t>(r) * pitch)\n"
+        "                                             : load_tail(p + static_cast<size_t>(r) * pitch, n);\n",
+        "        if (r < L) v[u] = make_uint4(r, c0, 0, 0);\n")],
+    "in_flight_2": [("constexpr int IN_FLIGHT = 4; ", "constexpr int IN_FLIGHT = 2; ")],
+    "in_flight_8": [("constexpr int IN_FLIGHT = 4; ", "constexpr int IN_FLIGHT = 8; ")],
+    # 16 or 32 row slots a block
+    "threads_256": [("constexpr int POOL_THREADS = 1024; ", "constexpr int POOL_THREADS = 256; "),
+                    ("__launch_bounds__(POOL_THREADS, 1)", "__launch_bounds__(POOL_THREADS, 6)")],
+    "threads_512": [("constexpr int POOL_THREADS = 1024; ", "constexpr int POOL_THREADS = 512; "),
+                    ("__launch_bounds__(POOL_THREADS, 1)", "__launch_bounds__(POOL_THREADS, 3)")],
+    # 256-channel groups: 5 blocks a sequence, 16 row slots
+    "group_256": [("constexpr int GROUP_CHANNELS = 128; ", "constexpr int GROUP_CHANNELS = 256; ")],
+    "ldcs": [("    return __ldg(reinterpret_cast<const uint4*>(p));",
+              "    return __ldcs(reinterpret_cast<const uint4*>(p));")],
+    "bwd_rows_64": [("constexpr int BWD_ROWS = 32; ", "constexpr int BWD_ROWS = 64; ")],
+    "bwd_stcs": [("    if (r0 + u < T) o[static_cast<size_t>(u) * step] = r0 + u < L ? val : zero;",
+                  "    if (r0 + u < T) __stcs(o + static_cast<size_t>(u) * step, r0 + u < L ? val : zero);")],
+}
+K7POOL_RUN = 32  # rows of a run of the runs form (csrc/variants/masked_pool_runs.cu RUN)
+
+
+def build_subs(build_dir: str, stem: str, base: str, subs: dict, extra: dict) -> dict:
+    """The kept source ``base`` as ``kept`` and with each entry of ``subs``
+    (exact text, found once) replaced, plus ``extra`` {name: source path},
+    one nvcc each, all at once: {name: CDLL}, ptxas lines logged."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke as cs
+
+    jobs = {name: (path, os.path.join(build_dir, f"lib{stem}_{name}.so"))
+            for name, path in extra.items()}
+    for name, pairs in [("kept", [])] + list(subs.items()):
+        text = base
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{stem} variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"{stem}_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"lib{stem}_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    for name in jobs:
+        cs.log(f"{stem}_variant_ptxas", variant=name, ptxas=logs[name])
+    return {name: ctypes.CDLL(out) for name, (_, out) in jobs.items()}
+
+
+def timed_turns(calls, reps: int) -> dict:
+    """Each call's CUDA-event ms and device ms (the busy time of a
+    ``torch.profiler`` pass) over ``reps`` calls, in turns: the list
+    forward, then backward; with each call's per-kernel device ms."""
+    import chip_smoke as cs
+
+    out = {name: {"ms": [], "device_ms": []} for name, _ in calls}
+    for order in (calls, calls[::-1]):
+        for name, fn in order:
+            out[name]["ms"].append(cs.cuda_time_ms(fn, reps))
+            _, busy, top = cs.device_profile(fn, reps)
+            out[name]["device_ms"].append(None if busy is None else busy * 1e3 / reps)
+            out[name]["kernels_ms"] = [(re.sub(r"^.*::|\(.*$", "", n.replace(
+                "(anonymous namespace)::", "")), ms) for n, ms in top]
+    return out
+
+
+def k7_pool_variants(build_dir: str, card: str) -> None:
+    """``--k7-pool``: K7's masked mean pool (one launch, a block a
+    sequence's 128 channels) against its first design
+    (``csrc/variants/masked_pool_v1.cu``) and its runs form
+    (``csrc/variants/masked_pool_runs.cu``: a block a run of 32 rows, then
+    a launch adding the runs) in turns at 32 sequences
+    x 1,100 channels, buckets 512 and 1,024 (``chip_smoke.k7_lengths``),
+    the input at the padded pitch and contiguous; then the kept source with
+    parts taken out or one choice changed; the pool's backward against the
+    plain transpose (with and without its copy to the padded pitch); the
+    host time a call of each wrapper."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    libs = build_subs(build_dir, "masked_pool", (kernels.CSRC_DIR / "masked_pool.cu").read_text(),
+                      K7POOL_SUBS, {"first_design": os.path.join(VARIANT_DIR, "masked_pool_v1.cu"),
+                                    "runs": os.path.join(VARIANT_DIR, "masked_pool_runs.cu")})
+    for name, lib in libs.items():
+        lib.masked_mean_pool.argtypes = k7._ARGS[("masked_pool", "masked_mean_pool")]
+        if name == "runs":  # the scratch before the output
+            lib.masked_mean_pool.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+                [ctypes.c_void_p]
+        elif name != "first_design":
+            lib.masked_mean_pool_backward.argtypes = k7._ARGS[("masked_pool",
+                                                               "masked_mean_pool_backward")]
+    dev, B, C = torch.device("cuda"), cs.B, 1100
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for T in (512, 1024):
+        lengths = torch.from_numpy(cs.k7_lengths(np.random.default_rng(17), T)).to(dev)
+        padded = k7.pad_pitch(torch.randn(B, T, C, generator=gen, device=dev).to(torch.bfloat16))
+        flat = padded.contiguous()
+        want = k7.masked_mean_pool_reference(padded, lengths)
+        out = torch.empty(B, C, device=dev)
+        part = torch.empty(B * -(-T // K7POOL_RUN) * k7.row_pitch(C), device=dev)
+
+        def pool(name, x):
+            lib = libs[name]
+            if name == "runs":
+                return lambda: lib.masked_mean_pool(x.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+                                                    out.data_ptr(), B, T, C, x.stride(1), stream)
+            return lambda: lib.masked_mean_pool(x.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                                                B, T, C, x.stride(1), stream)
+
+        errs = {}
+        for name in ("kept", "first_design", "runs", "in_flight_2", "in_flight_8",
+                     "threads_256", "threads_512", "group_256", "ldcs"):
+            for form, x in (("padded", padded), ("contiguous", flat)):
+                if pool(name, x)() != 0:
+                    raise RuntimeError(f"masked_mean_pool {name}: launch failed")
+                torch.cuda.synchronize()
+                errs[f"{name}_{form}"] = cs.rel_max(out, want)[1]
+        if max(errs.values()) > cs.K7_F32_REL_TOL:
+            raise AssertionError(f"K7 pool variants disagree with the plain pool: {errs}")
+        valid = int(lengths.clamp(max=T).sum())
+        bound = cs.bound(nbytes=2.0 * valid * C + 4.0 * B + 4.0 * B * C)["bound_ms"]
+        first = [("kept", pool("kept", padded)), ("first_design", pool("first_design", padded)),
+                 ("runs", pool("runs", padded)),
+                 ("kept_contiguous", pool("kept", flat)),
+                 ("first_design_contiguous", pool("first_design", flat))]
+        for name, t in timed_turns(first, 20).items():
+            cs.log("k7_pool_turns", bucket=T, variant=name, **t, bound_ms=bound,
+                   device_share_of_bound=[bound / x for x in t["device_ms"] if x],
+                   rel_err=errs.get(name if "contiguous" in name else f"{name}_padded"), card=card)
+        parts = [("kept", pool("kept", padded))] + [
+            (n, pool(n, padded)) for n in K7POOL_SUBS if not n.startswith("bwd_")]
+        for name, t in timed_turns(parts, 20).items():
+            cs.log("k7_pool_variant", bucket=T, variant=name, **t, bound_ms=bound, card=card)
+        host = {"kept_wrapper": host_time_us(lambda: k7.masked_mean_pool_cuda(padded, lengths)),
+                "kept_c_call": host_time_us(pool("kept", padded)),
+                "output_alloc": host_time_us(lambda: padded.new_empty((B, C),
+                                                                      dtype=torch.float32)),
+                "first_design_c_call": host_time_us(pool("first_design", padded))}
+        cs.log("k7_pool_host_us", bucket=T, **host, card=card)
+        # the backward: the kept kernel and its variants against the plain transpose
+        g = torch.randn(B, C, generator=gen, device=dev)
+        dx = k7.padded_empty(B, T, C, torch.bfloat16, dev)
+        ref = k7.masked_mean_pool_backward_reference(g, lengths, T, torch.bfloat16)
+
+        def bwd(name):
+            lib = libs[name]
+            return lambda: lib.masked_mean_pool_backward(g.data_ptr(), lengths.data_ptr(),
+                                                         dx.data_ptr(), B, T, C, dx.stride(1),
+                                                         stream)
+
+        for name in ("kept", "bwd_rows_64", "bwd_stcs"):
+            if bwd(name)() != 0:
+                raise RuntimeError(f"masked_mean_pool_backward {name}: launch failed")
+            torch.cuda.synchronize()
+            if not torch.equal(dx.contiguous().view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError(f"the pool's backward ({name}) differs from the plain one")
+        plain = lambda: k7.masked_mean_pool_backward_reference(  # noqa: E731
+            g, lengths, T, torch.bfloat16)
+        bwd_bound = cs.bound(nbytes=4.0 * B * C + 4.0 * B + 2.0 * B * T * dx.stride(1))["bound_ms"]
+        calls = [("kept", bwd("kept")), ("plain", plain),
+                 ("plain_with_copy", lambda: k7.pad_pitch(plain())),
+                 ("bwd_rows_64", bwd("bwd_rows_64")), ("bwd_stcs", bwd("bwd_stcs"))]
+        for name, t in timed_turns(calls, 20).items():
+            cs.log("k7_pool_bwd", bucket=T, variant=name, **t, bound_ms=bwd_bound, card=card)
+        cs.log("k7_pool_bwd_host_us", bucket=T, kept_wrapper=host_time_us(
+            lambda: k7.masked_mean_pool_backward_cuda(g, lengths, T)), card=card)
+
+
+# text replaced in csrc/variants/threshold_sweep_v1.cu (the first update)
+# and in threshold_sweep.cu (the kept one): (old, new), each found once
+K9V1_ADD = "    atomicAdd(hist + ((size_t)slot * L + c), 1);\n"
+K9V1_SUBS = {
+    # k is still computed (the add is kept behind a test it never passes)
+    "v1_no_adds": [(K9V1_ADD, "    if (slot < 0) atomicAdd(hist + ((size_t)slot * L + c), 1);\n")],
+    # every element's add to its own word: row b's slot row, a warp's 32
+    # columns on one 128-byte line
+    "v1_distinct_coalesced": [(K9V1_ADD, "    atomicAdd(hist + ((size_t)((b0 + r) % (2 * (T + 1))) "
+                                         "* L + c), slot | 1);\n")],
+    # every element's add to its own word, a warp's 32 columns on 32 slot
+    # rows (37 b + c mod 2 (T + 1): distinct for b < 2 (T + 1))
+    "v1_distinct_scattered": [(K9V1_ADD, "    atomicAdd(hist + ((size_t)(((b0 + r) * 37 + c) % "
+                                         "(2 * (T + 1))) * L + c), slot | 1);\n")],
+}
+K9_RING = 8  # batches of 32 rows a ring flush counts (ops/threshold_sweep.py RING_ROWS)
+K9_SUBS = {
+    # the flush without its L2 adds (the counts in shared memory still made)
+    "flush_no_adds": [("        if (n != 0 && blockIdx.x * COLS + 32 * j + lane < L) "
+                       "atomicAdd(row + 32 * j, n);",
+                       "        if (n == 999) atomicAdd(row + 32 * j, n);")],
+    # the flush without its shared-memory counts (nothing left to add)
+    "flush_no_counts": [("      if (slot >= 0 && slot < slots) atomicAdd(s_cnt + slot * 32 + lane, one);",
+                         "      if (slot == -7) atomicAdd(s_cnt + slot * 32 + lane, one);")],
+    # k by a binary search over all T thresholds, without the bucket table
+    "codes_binary_search": [("threshold_count(s_th, s_tab, prob_of(x[j]))",
+                             "count_at_or_below(s_th, T, prob_of(x[j]))")],
+    # the codes kernel with the loads and stores alone (no sigmoid, no search)
+    "codes_loads_only": [("(y[j] > 0.0f ? 0 : T + 1) + threshold_count(s_th, s_tab, prob_of(x[j]));",
+                          "(y[j] > 0.0f ? 0 : T + 1) + (x[j] > 7.0f);")],
+}
+
+
+def k9_update_variants(build_dir: str, card: str) -> None:
+    """``--k9-update``: K9's update (a batch's slot codes into the ring, and
+    a flush of the ring's 8 batches into the histogram) against its first
+    design (``csrc/variants/threshold_sweep_v1.cu``: one L2 atomic an
+    element) in turns on phase 7a's synthetic batch (32 x 32,256, logits
+    N(0, 4)) and on a batch whose logits lie mostly below the least
+    threshold (N(-8, 4), as a trained model's negatives), at 99 and 1,024
+    thresholds, after checking that both give the same histogram; the
+    aggregation alone (the codes and a flush every batch); the first design
+    without its adds and with every add sent to a distinct address; the
+    kept kernels with parts taken out; the share of repeated (slot, column)
+    keys of each batch; the host time a call."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import threshold_sweep as k9
+
+    v1_base = open(os.path.join(VARIANT_DIR, "threshold_sweep_v1.cu")).read()
+    v1_libs = build_subs(build_dir, "threshold_sweep_v1", v1_base, K9V1_SUBS, {})
+    libs = build_subs(build_dir, "threshold_sweep",
+                      (kernels.CSRC_DIR / "threshold_sweep.cu").read_text(), K9_SUBS, {})
+    for lib in v1_libs.values():
+        lib.threshold_sweep_update.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p] * 2
+    for lib in libs.values():
+        lib.threshold_sweep_codes.argtypes = k9._CODES_ARGS
+        lib.threshold_sweep_flush.argtypes = k9._FLUSH_ARGS
+    dev, B, L = torch.device("cuda"), cs.B, cs.NUM_LABELS
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(9)
+    spread = cs.k9_batches(gen, dev)[0]
+    low = [t.clone() for t in spread]
+    low[0] = (torch.randn(B, cs.K9_WIDTH, generator=gen) * 2.0 - 8.0).to(dev)
+    pitch = k9.code_pitch(L)
+    codes = torch.empty(K9_RING * B, pitch, dtype=torch.int16, device=dev)
+    for T, thresholds in ((99, cs.sweep_thresholds()),
+                          (1024, np.sort(np.random.default_rng(3).uniform(0, 1, 1024))
+                           .astype(np.float32))):
+        sweep = k9.SweepCounter(thresholds, L, dev)
+        srt, size = sweep.sorted, k9.flush_plan(T)[0]
+        hist = torch.zeros_like(sweep.hist)
+
+        def first(lib, batch):
+            logits, labels, mask = batch
+            return lambda: lib.threshold_sweep_update(
+                logits.data_ptr(), labels.data_ptr(), mask.data_ptr(), srt.data_ptr(), B,
+                logits.shape[1], L, T, hist.data_ptr(), stream)
+
+        def codes_of(lib, batch, row=0):
+            logits, labels, mask = batch
+            return lambda: lib.threshold_sweep_codes(
+                logits.data_ptr(), labels.data_ptr(), mask.data_ptr(), srt.data_ptr(), B,
+                logits.shape[1], L, T, pitch, codes[row * B].data_ptr(), stream)
+
+        def flush_of(lib, rows):
+            return lambda: lib.threshold_sweep_flush(codes.data_ptr(), rows, L, pitch, T, size,
+                                                     hist.data_ptr(), stream)
+
+        for bname, batch in (("spread", spread), ("low", low)):
+            hist.zero_()
+            if first(v1_libs["kept"], batch)() != 0:
+                raise RuntimeError("the first update: launch failed")
+            torch.cuda.synchronize()
+            want = hist.clone()
+            hist.zero_()
+            for i in range(K9_RING):
+                if codes_of(libs["kept"], batch, i)() != 0:
+                    raise RuntimeError("threshold_sweep_codes: launch failed")
+            if flush_of(libs["kept"], K9_RING * B)() != 0:
+                raise RuntimeError("threshold_sweep_flush: launch failed")
+            torch.cuda.synchronize()
+            if not torch.equal(hist, want * K9_RING):
+                raise AssertionError(f"K9 ({bname}, T {T}): the ring's histogram differs from "
+                                     f"the first design's")
+            logits, labels, mask = batch
+            n_valid = float((mask > 0).sum()) * L
+            bound = cs.bound(nbytes=8.0 * logits.numel() + 4 * B + 4 * T + 8 * n_valid)["bound_ms"]
+            kept = [("codes", codes_of(libs["kept"], batch)),
+                    (f"flush_{K9_RING}_batches", flush_of(libs["kept"], K9_RING * B)),
+                    ("flush_1_batch", flush_of(libs["kept"], B)),
+                    ("first_design", first(v1_libs["kept"], batch))]
+            t = timed_turns(kept, 50)
+            dev_ms = {k: min(x for x in v["device_ms"] if x) for k, v in t.items()}
+            a_batch = dev_ms["codes"] + dev_ms[f"flush_{K9_RING}_batches"] / K9_RING
+            cs.log("k9_update_turns", batch=bname, thresholds=T, **t, bound_ms=bound,
+                   device_ms_a_batch=a_batch, device_share_of_bound=bound / a_batch,
+                   aggregation_alone_device_ms=dev_ms["codes"] + dev_ms["flush_1_batch"],
+                   keys=cs.sweep_keys(sweep, logits, labels, mask), same_histogram=True,
+                   card=card)
+            if T != 99:  # the parts at the CLI's 99 thresholds only
+                continue
+            parts = [("codes", codes_of(libs["kept"], batch)),
+                     ("codes_binary_search", codes_of(libs["codes_binary_search"], batch)),
+                     ("codes_loads_only", codes_of(libs["codes_loads_only"], batch)),
+                     (f"flush_{K9_RING}_batches", flush_of(libs["kept"], K9_RING * B)),
+                     ("flush_no_adds", flush_of(libs["flush_no_adds"], K9_RING * B)),
+                     ("flush_no_counts", flush_of(libs["flush_no_counts"], K9_RING * B)),
+                     ("first_design", first(v1_libs["kept"], batch))] + \
+                [(n, first(v1_libs[n], batch)) for n in K9V1_SUBS]
+            for name, tt in timed_turns(parts, 50).items():
+                cs.log("k9_update_variant", batch=bname, thresholds=T, variant=name, **tt,
+                       bound_ms=bound, card=card)
+        logits, labels, mask = spread
+        cs.log("k9_update_host_us", thresholds=T,
+               kept_counter=host_time_us(lambda: sweep.update(logits, labels, mask)),
+               kept_codes_c_call=host_time_us(codes_of(libs["kept"], spread)),
+               kept_update_cuda=host_time_us(lambda: k9.update_cuda(
+                   sweep.hist, sweep.sorted, logits, labels, mask, L)),
+               first_design_c_call=host_time_us(first(v1_libs["kept"], spread)), card=card)
 
 
 def nvcc(src: str, out: str) -> str:
@@ -2020,6 +2366,16 @@ def main() -> None:
     if sys.argv[1:2] == ["--k2-codes"]:
         with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
             k2_codes_variants(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k7-pool"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k7_pool_variants(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k9-update"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k9_update_variants(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--k3"]:

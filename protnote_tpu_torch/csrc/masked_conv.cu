@@ -1,11 +1,11 @@
 // K7's forward for Hopper (sm_90a): the ProteInfer encoder's masked dilated
-// conv and its masked mean pool.
+// conv (its masked mean pool is csrc/masked_pool.cu).
 //
 // Replaces the TPU op chain protnote_tpu/models/proteinfer.py:_masked_conv
 // (line 127) as proteinfer_embed (line 147) chains it: `x * mask`, a "same"
 // dilated conv with float32 accumulation rounded to bf16, `+ bias` in bf16,
 // `* mask`, eval-mode BatchNorm + ReLU in front of the block convs, the
-// residual add, and the masked mean pool.
+// residual add.
 //
 // masked_conv_forward is an implicit GEMM on TMA + wgmma (masked_conv.cuh):
 // rows are the (b, t) positions, K is taps x C_in, N is C_out, and A's rows
@@ -37,9 +37,6 @@
 // Next: apply BN + ReLU once, in the epilogue of the conv that produces
 // the input, as a second output.
 
-// masked_mean_pool: the float32 column sums of each sequence's valid rows in
-// a fixed order, divided by max(length, 1) (a row of length 0 gives 0).
-
 #include "masked_conv.cuh"
 
 // y (B, T) rows at y_pitch, bf16, from x (B, T) rows at x_pitch (a multiple
@@ -65,16 +62,4 @@ extern "C" int masked_conv_forward(const void* x, const void* wt, const void* bi
   a.dilation = dilation, a.y_pitch = y_pitch, a.res_pitch = res_pitch, a.tiles = tiles;
   const bool prologue = bn_inv != nullptr || bn_shift != nullptr;
   return k7::conv_launch(prologue ? k7::FWD_BN : k7::FWD, x, x_pitch, wt, a, grid, stream);
-}
-
-// out (B, C) float32 from x (B, T) rows at `pitch`.
-extern "C" int masked_mean_pool(const void* x, const void* lengths, void* out, int B, int T,
-                                int C, int pitch, void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || pitch < C) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((C + k7::SUM_COLS - 1) / k7::SUM_COLS, B);
-  k7::seq_col_sums_kernel<true><<<grid, k7::SUM_WARPS * 32, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(lengths),
-      static_cast<float*>(out), T, C, pitch);
-  return static_cast<int>(cudaGetLastError());
 }

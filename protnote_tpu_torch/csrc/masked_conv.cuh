@@ -1,6 +1,7 @@
 // K7's conv mainloop on TMA + wgmma, shared by the masked dilated conv's
 // forward (masked_conv.cu) and its input gradient (masked_conv_bwd.cu), and
-// the per-sequence column sums of the pool and of dbias.
+// the per-sequence column sums of dbias (and of the pool's first design,
+// variants/masked_pool_v1.cu; the pool is masked_pool.cu).
 //
 // Activations are channel-last bf16 (B, T, C) whose rows lie `pitch`
 // elements apart (pitch >= C; the chain rounds it up to a multiple of 8, so

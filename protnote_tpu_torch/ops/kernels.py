@@ -23,6 +23,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
@@ -112,3 +114,19 @@ def kernel_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFunc
         fn.restype = ctypes.c_int
         _functions[(name, symbol)] = fn
     return fn
+
+
+def call_on_stream(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C entry point called with the raw handle of
+    the current stream of ``device`` (a ``torch.device`` or its index), the
+    thread's device switched only where it is another (the launch goes to
+    the thread's device).  The handle comes from
+    ``torch._C._cuda_getCurrentRawStream``, which builds no Python stream
+    object: a launch's host time is mostly such lookups."""
+    idx = device if isinstance(device, int) else device.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if torch._C._cuda_getDevice() == idx:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))

@@ -14,12 +14,16 @@ before the mask)
 and followed by a residual add in the compute dtype.  The embedding is the
 masked mean pool of the last block's output over ``max(length, 1)``.
 
-Three hand-written CUDA sources carry it on the card (bf16 only):
+Four hand-written CUDA sources carry it on the card (bf16 only):
 
 * ``csrc/masked_conv.cu``: ``masked_conv_forward``, an implicit GEMM on
   TMA + wgmma (``csrc/masked_conv.cuh``: persistent, warp-specialised, A
   formed in registers) with the BN prologue and the bias/mask/residual
-  epilogue, and ``masked_mean_pool``;
+  epilogue;
+* ``csrc/masked_pool.cu``: ``masked_mean_pool`` (a block a sequence's
+  valid rows over 128 channels, 64 rows at once; :func:`pool_plan`) and its
+  transpose ``masked_mean_pool_backward``, which writes the gradient at the
+  padded pitch the last conv's backward reads;
 * ``csrc/masked_conv_bwd.cu``: ``masked_conv_dx`` (the transposed dilated
   conv on the forward's mainloop, masks on both sides) and
   ``masked_conv_dw`` (dW a tap on TMA + wgmma over the K steps of a
@@ -71,11 +75,13 @@ import torch
 import torch.nn.functional as F
 
 from protnote_tpu_torch.models.layers import Params, batchnorm_train, gemm_precision
+from protnote_tpu_torch.ops.kernels import call_on_stream, kernel_function
 
 # Launches of each kernel entry point since the process started (or since a
 # caller last set them to 0); one a call of its wrapper.
 LAUNCHES = {"masked_conv_fwd": 0, "masked_mean_pool": 0, "masked_conv_dx": 0,
-            "masked_conv_dw": 0, "masked_bn_relu_fwd": 0, "masked_bn_relu_bwd": 0}
+            "masked_conv_dw": 0, "masked_bn_relu_fwd": 0, "masked_bn_relu_bwd": 0,
+            "masked_mean_pool_bwd": 0}
 _launch_lock = threading.Lock()
 
 _H100_SMS = 132
@@ -149,6 +155,16 @@ def masked_mean_pool_reference(feats: torch.Tensor, lengths: torch.Tensor) -> to
     mask = valid_mask(lengths, feats.shape[1]).to(feats.dtype)
     denom = torch.clamp(lengths[:, None].float(), min=1.0)
     return (feats * mask).float().sum(dim=1) / denom
+
+
+def masked_mean_pool_backward_reference(g: torch.Tensor, lengths: torch.Tensor, T: int,
+                                        dtype: torch.dtype) -> torch.Tensor:
+    """The pool's transpose: (B, T, C) ``dtype``, ``bf16(g / max(length,
+    1))`` on the valid rows and that value times 0 past them (the JAX vjp
+    of ``feats * mask``, the cast to float32 and the division)."""
+    mask = valid_mask(lengths, T).to(dtype)
+    denom = torch.clamp(lengths[:, None].float(), min=1.0)
+    return (g / denom).to(dtype)[:, None, :] * mask
 
 
 # ----------------------------------------------------------------------
@@ -373,10 +389,47 @@ def _num_sms(device) -> int:
 # ----------------------------------------------------------------------
 # the kernels' wrappers
 
+POOL_LANE = 8  # channels of a pool thread (csrc/masked_pool.cu LANE_CHANNELS): 16 bytes
+POOL_GROUP_CHANNELS = 128  # channels of a pool block (GROUP_CHANNELS)
+POOL_THREADS = 1024  # threads of a pool block (POOL_THREADS): 64 row slots of 16 lanes
+POOL_IN_FLIGHT = 4  # rows a pool thread loads before their adds (IN_FLIGHT)
+POOL_BWD_ROWS = 32  # rows of a pool backward block (BWD_ROWS)
+POOL_BWD_GROUPS = 4  # row groups of a pool backward block (GROUPS): 8 consecutive rows each
+POOL_MAX_CHANNELS = 1280  # the backward's widest row: 160 lanes of 8 (MAX_LANES)
+
+
+class PoolPlan(NamedTuple):
+    """``masked_mean_pool``'s launch for (B, T, C) at ``pitch``: grid
+    (``groups``, B) blocks of ``POOL_THREADS``, thread i the row slot i //
+    ``lanes`` (rows slot, slot + ``slots``, ... below the length) and the
+    lane i % ``lanes`` (channels ``128 group + 8 lane`` to ``+ 7``, those
+    below C); ``width`` the channels a load reads at once (8: 16 bytes).
+    The backward: (ceil(T / 32), B) blocks of ``bwd_threads``, its lanes
+    covering the padded pitch."""
+    groups: int
+    lanes: int
+    slots: int
+    width: int
+    bwd_threads: int
+
+
+def pool_plan(T: int, C: int, pitch: int, base: int = 0) -> PoolPlan:
+    """The pool kernels' launch (see :class:`PoolPlan`): the kernel's own
+    arithmetic, for the CPU tests.  ``base`` is the input's address (its
+    alignment picks the load width)."""
+    width = POOL_LANE
+    while width > 1 and (pitch % width or base % (2 * width)):
+        width //= 2
+    lanes = POOL_GROUP_CHANNELS // POOL_LANE
+    return PoolPlan(-(-C // POOL_GROUP_CHANNELS), lanes, POOL_THREADS // lanes, width,
+                    -(-POOL_BWD_GROUPS * row_pitch(C) // POOL_LANE // 32) * 32)
+
+
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGS = {
     ("masked_conv", "masked_conv_forward"): [_P] * 9 + [_I] * 13 + [_P],
-    ("masked_conv", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
+    ("masked_pool", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
+    ("masked_pool", "masked_mean_pool_backward"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
     ("masked_conv_bwd", "masked_conv_dw"): [_P] * 8 + [_I] * 11 + [_P],
     ("masked_bn", "masked_bn_relu_forward"): [_P, _I] + [_P] * 6 + [_F] * 3 + [_P] * 7
@@ -389,11 +442,8 @@ _ARGS = {
 def _launch(library: str, symbol: str, counter: str, device: torch.device, *args) -> None:
     """Call a C entry point on ``device``'s current stream, raise on its CUDA
     error, count the launch."""
-    from protnote_tpu_torch.ops.kernels import kernel_function
-
-    fn = kernel_function(library, symbol, _ARGS[(library, symbol)])
-    with torch.cuda.device(device):  # the C launch goes to the thread's device
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    err = call_on_stream(device, kernel_function(library, symbol, _ARGS[(library, symbol)]),
+                         *args)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     with _launch_lock:
@@ -483,17 +533,47 @@ def masked_conv_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 def masked_mean_pool_cuda(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """``masked_mean_pool``: bf16 (B, T, C) at any row pitch -> float32 (B,
-    C)."""
-    if feats.device.type != "cuda":
+    """``masked_mean_pool``: bf16 (B, T, C) at any row pitch (16-byte loads
+    where it is a multiple of 8 channels, narrower ones otherwise; a tensor
+    whose channels are not contiguous is copied) -> float32 (B, C).  One
+    launch, no scratch, no read-back of the lengths."""
+    idx = feats.get_device()  # an int (-1 on the CPU): no device object on the hot path
+    if idx < 0:
         raise ValueError(f"masked_mean_pool needs CUDA tensors, not {feats.device}")
+    if feats.dtype != torch.bfloat16 or feats.dim() != 3:
+        raise ValueError(f"feats must be bf16 (B, T, C), not {feats.dtype} {tuple(feats.shape)}")
     B, T, C = feats.shape
-    feats, pitch = _rows("feats", feats, (B, T, C), feats.device)
-    lengths = _lengths_on(lengths, feats.device)
-    out = torch.empty(B, C, dtype=torch.float32, device=feats.device)
-    _launch("masked_conv", "masked_mean_pool", "masked_mean_pool", feats.device,
-            feats.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, T, C, pitch)
+    sb, pitch, sc = feats.stride()  # pitch_of's rule, inline: this is the hot path
+    if (sc != 1 and C > 1) or pitch < C or (B > 1 and sb != T * pitch):
+        feats, pitch = feats.contiguous(), C
+    if lengths.dtype != torch.int32 or lengths.get_device() != idx or \
+            not lengths.is_contiguous():
+        lengths = _lengths_on(lengths, feats.device)
+    out = feats.new_empty((B, C), dtype=torch.float32)
+    _launch("masked_pool", "masked_mean_pool", "masked_mean_pool", idx, feats.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, T, C, pitch)
     return out
+
+
+def masked_mean_pool_backward_cuda(g: torch.Tensor, lengths: torch.Tensor,
+                                   T: int) -> torch.Tensor:
+    """``masked_mean_pool_backward``: the pool's transpose (B, T, C) bf16 at
+    :func:`row_pitch` (C), padding channels 0, from float32 ``g`` (B, C),
+    every row written once (the last conv's backward reads it as it is)."""
+    dev = g.device
+    if dev.type != "cuda" or g.dtype != torch.float32 or g.dim() != 2:
+        raise ValueError(f"g must be float32 (B, C) on the card, not {g.dtype} "
+                         f"{tuple(g.shape)} on {dev}")
+    if not g.is_contiguous():
+        g = g.contiguous()
+    B, C = g.shape
+    if row_pitch(C) > POOL_MAX_CHANNELS:
+        raise ValueError(f"the pool kernels take at most {POOL_MAX_CHANNELS} channels, not {C}")
+    dx = padded_empty(B, T, C, torch.bfloat16, dev)
+    _launch("masked_pool", "masked_mean_pool_backward", "masked_mean_pool_bwd", dev,
+            g.data_ptr(), _lengths_on(lengths, dev).data_ptr(), dx.data_ptr(), B, T, C,
+            dx.stride(1))
+    return dx
 
 
 def masked_conv_dx_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: torch.Tensor,
@@ -770,19 +850,23 @@ class _MaskedBNRelu(torch.autograd.Function):
 
 
 class _MaskedPool(torch.autograd.Function):
+    # The pool and its transpose: the kernels on the card, the plain
+    # versions on the CPU.  On the card the gradient comes at the padded
+    # pitch, which the last conv's backward takes without a copy.
     @staticmethod
     def forward(ctx, feats, lengths):
         ctx.save_for_backward(lengths)
-        ctx.shape, ctx.dtype = feats.shape, feats.dtype
+        ctx.T, ctx.dtype = feats.shape[1], feats.dtype
+        if feats.device.type == "cpu":
+            return masked_mean_pool_reference(feats, lengths)
         return masked_mean_pool_cuda(feats, lengths)
 
     @staticmethod
     def backward(ctx, g):
-        # the pool's transpose: bf16(g / max(length, 1)) on the valid rows
         (lengths,) = ctx.saved_tensors
-        mask = valid_mask(lengths, ctx.shape[1]).to(ctx.dtype)
-        denom = torch.clamp(lengths[:, None].float(), min=1.0)
-        return (g / denom).to(ctx.dtype)[:, None, :] * mask, None
+        if g.device.type == "cpu":
+            return masked_mean_pool_backward_reference(g, lengths, ctx.T, ctx.dtype), None
+        return masked_mean_pool_backward_cuda(g, lengths, ctx.T), None
 
 
 # ----------------------------------------------------------------------
@@ -847,8 +931,12 @@ def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.T
 
 def masked_mean_pool(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, C) float32 masked mean pool: the plain version on the CPU,
-    ``masked_mean_pool`` on the card."""
+    ``masked_mean_pool`` on the card; when a gradient is wanted, through
+    :class:`_MaskedPool` (the plain transpose on the CPU,
+    ``masked_mean_pool_backward`` on the card)."""
     if feats.device.type == "cpu":
+        if _wants_grad(feats):
+            return _MaskedPool.apply(feats, lengths)
         return masked_mean_pool_reference(feats, lengths)
     if feats.device.type != "cuda":
         raise ValueError(f"no masked pool for device {feats.device}")

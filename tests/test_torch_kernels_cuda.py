@@ -53,7 +53,8 @@ are rounded again), its masked rows exactly 0 (or the residual); dX, dW,
 dbias and the BN's dx within 2^-6 of the plain gradient's largest |value|
 (each rounded to bf16 from a float32 sum in another order), the BN's
 running statistics to 1e-5 and dscale/dbias to 1e-3 of their largest
-|value|; the pool to 1e-5; the encoder (3 blocks at 112 channels) through K7
+|value|; the pool to 1e-5 (its transpose bit for bit); the encoder (3 blocks at
+112 channels) through K7
 within 5e-2 of the plain chain's largest pooled |value|.
 """
 
@@ -286,15 +287,47 @@ def _sweep_batches(rng, thresholds, L, width, n):
     return out
 
 
+def _sweep_first_design(tmp_path):
+    """K9's first update (``csrc/variants/threshold_sweep_v1.cu``), built
+    with the port's nvcc flags: ``fn(hist, sweep, logits, labels, mask)``."""
+    import ctypes
+    import subprocess
+
+    from protnote_tpu_torch.ops import kernels
+
+    out = tmp_path / "libthreshold_sweep_v1.so"
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC_DIR), "-o",
+                    str(out), str(kernels.CSRC_DIR / "variants" / "threshold_sweep_v1.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.threshold_sweep_update.argtypes = [P] * 4 + [I] * 4 + [P, P]
+
+    def update(hist, sweep, logits, labels, mask):
+        B, Lb = logits.shape
+        assert lib.threshold_sweep_update(
+            logits.data_ptr(), labels.data_ptr(), mask.data_ptr(), sweep.sorted.data_ptr(), B, Lb,
+            sweep.num_labels, sweep.sorted.shape[0], hist.data_ptr(),
+            torch.cuda.current_stream().cuda_stream) == 0
+    return update
+
+
+_T1024 = np.sort(np.random.default_rng(4).uniform(0, 1, 1024)).astype(np.float32)
+_T1024[500] = _T1024[501]  # a duplicate
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("thresholds", [
     np.arange(0.01, 1.0, 0.01, dtype=np.float32),
-    np.array([0.7, 0.2, 0.5, 0.2, 0.95, 0.05, -0.1, 1.5], np.float32)],
-    ids=["cli_99", "unsorted_duplicates"])
-def test_threshold_sweep_matches_plain_on_card(thresholds):
+    np.array([0.7, 0.2, 0.5, 0.2, 0.95, 0.05, -0.1, 1.5], np.float32), _T1024],
+    ids=["cli_99", "unsorted_duplicates", "t1024"])
+def test_threshold_sweep_matches_plain_on_card(thresholds, tmp_path):
     """K9's update and finalize against the plain version (the lax.map
     loop) on the same tensors: 1,000 labels padded to 1,024 columns, 5
-    batches with padded rows and a NaN logit each."""
+    batches with padded rows and a NaN logit each; the histogram equal to
+    the first design's (one atomic add an element) after a flush of three
+    batches' codes mid-evaluation and after the last two, at 99, 8 unsorted
+    and 1,024 thresholds (three slot ranges)."""
     dev = _card()
     L = 1000
     rng = np.random.default_rng(len(thresholds))
@@ -302,14 +335,21 @@ def test_threshold_sweep_matches_plain_on_card(thresholds):
     T = len(thresholds)
     plain = tuple(torch.zeros(T, L, dtype=torch.int32, device=dev) for _ in range(3))
     th = torch.from_numpy(thresholds).to(dev)
+    first_update, first_hist = _sweep_first_design(tmp_path), torch.zeros_like(sweep.hist)
     before = dict(k9.LAUNCHES)
-    for lg, labels, mask in _sweep_batches(rng, thresholds, L, 1024, 5):
+    for i, (lg, labels, mask) in enumerate(_sweep_batches(rng, thresholds, L, 1024, 5)):
         args = [torch.from_numpy(a).to(dev) for a in (lg, labels, mask)]
         sweep.update(*args)
+        first_update(first_hist, sweep, *args)
+        if i == 2:  # three batches' codes flushed at once, mid-evaluation
+            sweep.flush()
+            assert torch.equal(sweep.hist, first_hist)
         k9.count_reference(plain, *args, th)
-    got = sweep.counts()
+    got = sweep.counts()  # flushes the last two batches' codes
     torch.cuda.synchronize()
+    assert torch.equal(sweep.hist, first_hist)
     assert k9.LAUNCHES["update"] - before["update"] == 5
+    assert k9.LAUNCHES["flush"] - before["flush"] == 2
     assert k9.LAUNCHES["finalize"] - before["finalize"] == 1
     for name, g, w in zip(("tp", "fp", "fn"), got, plain):
         assert torch.equal(g, w), name
@@ -1257,17 +1297,61 @@ def test_masked_bn_relu_kernels_match_plain_on_card(example_mask, C, padded):
 
 
 @pytest.mark.cuda
-def test_masked_mean_pool_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("layout", ["padded", "contiguous"])
+@pytest.mark.parametrize("C", [110, 1100])
+@pytest.mark.parametrize("T", [512, 1024])
+def test_masked_mean_pool_kernel_matches_plain_on_card(T, C, layout):
+    """The pool at buckets 512 and 1,024 on an input at the padded pitch
+    (16-byte loads) and a contiguous one (8 or 4 bytes a load): within 1e-5
+    of the plain pool, the same bits on a second call, 0 for length 0."""
     from protnote_tpu_torch.ops import masked_conv as k7
 
     dev = _card()
     rng = np.random.default_rng(11)
-    feats = _bf16(rng, len(K7_LENGTHS), 512, 110)
-    lengths = _k7_lengths(512, dev)
+    feats = _bf16(rng, len(K7_LENGTHS), T, C)
+    if layout == "padded":
+        feats = k7.pad_pitch(feats)
+        assert feats.stride(1) == k7.row_pitch(C) != C or C % 8 == 0
+    lengths = torch.tensor([T, 300, 40, 7, 0], dtype=torch.int32, device=dev)
+    before = k7.LAUNCHES["masked_mean_pool"]
     got = k7.masked_mean_pool_cuda(feats, lengths)
+    again = k7.masked_mean_pool_cuda(feats, lengths)
     want = k7.masked_mean_pool_reference(feats, lengths)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_mean_pool"] == before + 2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, again)
     assert float(got[-1].abs().max()) == 0.0  # length 0: 0, not NaN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [110, 1100])
+@pytest.mark.parametrize("T", [7, 512])
+def test_masked_mean_pool_backward_kernel_matches_plain_on_card(T, C):
+    """``masked_mean_pool_backward`` bit for bit against
+    ``masked_mean_pool_backward_reference`` (signed zeros included), its
+    padding channels 0, at the padded pitch; and the pool's autograd on the
+    card launches it once and gives the same bits."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    g = torch.from_numpy(np.random.default_rng(12).normal(size=(5, C)).astype(np.float32)).to(dev)
+    lengths = torch.tensor([T, min(T, 300), 4, T + 3, 0], dtype=torch.int32, device=dev)
+    before = k7.LAUNCHES["masked_mean_pool_bwd"]
+    got = k7.masked_mean_pool_backward_cuda(g, lengths, T)
+    want = k7.masked_mean_pool_backward_reference(g, lengths, T, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_mean_pool_bwd"] == before + 1
+    assert got.stride() == (T * k7.row_pitch(C), k7.row_pitch(C), 1)
+    assert torch.equal(got.contiguous().view(torch.int16), want.view(torch.int16))
+    P = k7.row_pitch(C)
+    pad = torch.as_strided(got, (5, T, P - C), (T * P, P, 1), got.storage_offset() + C)
+    assert not pad.view(torch.int16).any()
+    feats = _bf16(np.random.default_rng(13), 5, T, C).requires_grad_(True)
+    (dx,) = torch.autograd.grad(k7.masked_mean_pool(feats, lengths), [feats], g)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_mean_pool_bwd"] == before + 2
+    assert torch.equal(dx.contiguous().view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -1328,7 +1412,8 @@ def test_encoder_chain_makes_no_copies_around_the_batchnorms_on_card(monkeypatch
     are, and the conv after it reads its y, its dX its dx (bn2) as they are;
     no ``aten::copy_`` of a (B, T, C) activation in the forward, and in the
     backward only the conv_1x1s' copies of their summed (contiguous)
-    cotangent, one a block."""
+    cotangent, one a block but the last, whose cotangent the pool's backward
+    kernel writes at the padded pitch."""
     from torch.profiler import ProfilerActivity, profile
 
     from protnote_tpu_torch.models import proteinfer as tpi
@@ -1405,7 +1490,9 @@ def test_encoder_chain_makes_no_copies_around_the_batchnorms_on_card(monkeypatch
     assert set(seen["bn_g"]) <= seen["dx_out"]  # the next conv's dX as it is
     assert set(seen["bn_dx"][::2]) <= seen["dy_in"]  # bn2's dx: conv_dilated's dy
     assert copies(fwd_prof) == []
-    assert copies(bwd_prof) == [110] * 3  # conv_1x1's summed cotangent, one a block
+    # the summed (contiguous) cotangent of blocks 1-2's conv_1x1; the last
+    # block's comes from the pool's backward kernel at the padded pitch
+    assert copies(bwd_prof) == [110] * 2
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, evaluation, training, int8,
-label-text-tower, encoder-training and streamed-training paths on one CUDA
-card (H100).
+"""Smoke run of the PyTorch port's serving, inference-CLI, evaluation,
+training, int8, label-text-tower, encoder-training and streamed-training
+paths on one CUDA card (H100).
 
     python3 chip_smoke.py
 
@@ -200,7 +200,34 @@ Phases, each printing one line (any failure raises and exits non-zero):
     K4-bwd and K6 launched as often as ``streamed_launches`` says and K5
     never, 3 profiled steps, one step of each scorer under the memory
     history (the largest allocations live at its peak, by source line),
-    and 2 steps of 128 sequences with the cache off and 2 by the rule.
+    and 2 steps of 128 sequences with the cache off and 2 by the rule;
+21. (run after phase 11) K7 in float32 (``k7_f32``): the 11 convs of a
+    float32 full-width encoder (``masked_conv_forward_f32``, the eval BN
+    prologue, the residual) and the float32 pool, each against its plain
+    version on its recorded inputs (cuDNN with TF32 off: 1e-5 of each
+    tensor's largest |value|; the pool 1e-5; the same bits twice), the
+    chain's pooled embedding within 1e-4; each conv shape's time beside
+    its bound (the products these lengths need over 67 TFLOP/s), the plain
+    conv's and cuDNN's float32 conv1d (TF32 off, never called by the port);
+22. ``cli/predict.py`` (``predict``): the default config with a 32,102 x 2
+    label-embedding cache file and a 256-sequence FASTA, through
+    ``build_predictor`` and the scoring generator, bf16 (K7 + K1) and
+    ``PAIR_BACKEND tiled_int8`` (K7 + K2, calibrated on the first batch,
+    timed apart): the CLI's seqs/s (``predict.main``'s window, scoring and
+    writing the parquet shards, which are read back) where pandas and a
+    parquet engine import (an import probe, on an earlier line); the
+    scoring alone, seqs/s and pair-scores/s; the launches; the first
+    batch's logits within 5e-2 of the plain chain's;
+23. ``cli/test_proteinfer.py`` (``test_proteinfer``): ``main`` on a
+    256-sequence labelled FASTA with a random float32 encoder and 32,102-label
+    head, through K7's float32 kernels only, and its seqs/s; a 32-sequence
+    batch's forward and its head's ms.
+Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
+``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
+doubled (those leaves doubled, the others and nothing else the same, the
+latents changed, the probabilities moved by more than 5e-4), then one of
+the engine's own weights (every weight and label latent the same bits, the
+probabilities within 5e-4).
 
 The serving, evaluation and training paths each assert K7's forward
 launches (and none of its training kernels).  Then one JSON line with
@@ -211,7 +238,8 @@ in the int8 serving and evaluation runs; K8a and K8b in the 64-chunk tower
 run; K8a-bwd and K8b-bwd summed over the three tower-training runs, each
 K8b-bwd call two kernel launches and each K8a-bwd call at 128 tokens one,
 all counted; K7's forward and pool
-in the training run, its backward and BN kernels in phase 19's
+in the training run, its float32 forward and pool in phase 23's
+``test_proteinfer`` run, its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
 32-sequence streamed run; each count set to 0 just
 before the path and read just after), its error against the plain version, its time,
@@ -253,7 +281,7 @@ LOGIT_ATOL = 5e-2
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
                   "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
-                  "streamed_bn", "masked_pool")
+                  "streamed_bn", "masked_pool", "masked_conv_f32")
 # first designs that a phase holds a redesigned kernel against
 # (csrc/variants/): K9's update, whose histogram must be the same
 FIRST_DESIGNS = ("threshold_sweep_v1",)
@@ -315,6 +343,12 @@ GRAD_REL_TOL = 5e-2
 # a restored checkpoint scores the same logits; K1 adds its row sums with
 # atomics in no fixed order, so two scorings of one weight set agree to ~1e-6
 ROUNDTRIP_ATOL = 1e-4
+# a hot reload of the same weights: every weight and label latent the same
+# bits, and the served probabilities within two float16 steps of a logit
+# through the sigmoid (the engine reads logits back in float16, and K1's
+# atomics can move a logit across a float16 rounding point: a step moves a
+# probability by at most max |x| sigmoid'(x) 2^-10 ~ 2.2e-4)
+RELOAD_PROB_ATOL = 5e-4
 
 # the label text tower (E5-large, bf16): the shapes of K8a/K8b alone, (name,
 # batch, tokens, shortest and longest real length, causal)
@@ -349,9 +383,15 @@ TOWER_VAL_LABELS = 1024
 # pass through 11 convs and 10 BatchNorms, within 5e-2 of their largest
 # |value|
 K7_FORWARD = ("masked_conv_fwd", "masked_mean_pool")
+K7_F32 = ("masked_conv_fwd_f32", "masked_mean_pool_f32")  # eval mode, test_proteinfer's path
 KERNEL_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K7_POOLED_REL_TOL = 5e-2
 K7_F32_REL_TOL = 1e-5
+# K7 in float32 (phase k7_f32): each conv within 1e-5 of its tensor's largest
+# |value| (the same float32 arithmetic, the sums in another order), the pool
+# 1e-5, the chain's pooled embedding, where such differences pass through 11
+# convs, 1e-4
+K7_F32_CHAIN_REL_TOL = 1e-4
 K7_SUMS_REL_TOL = 1e-3
 # training the encoder (TRAIN_SEQUENCE_ENCODER): 32 sequences a step at
 # bucket 512; the peak memory also at 1024
@@ -741,6 +781,19 @@ def tensors_of(tree):
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+def named_tensors(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a nested dict/list tree."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in named_tensors(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in named_tensors(sub, f"{prefix}/{i}").items()}
+    return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+
+
 def post(url, payload):
     import urllib.request
 
@@ -756,15 +809,21 @@ def phase_serving(engine, rng, card: str):
     """Drive the engine through the HTTP front end; count K1's launches and
     the batches (one encoder pass each); then time full batches and the
     encoder alone."""
+    import tempfile
     import threading
     import urllib.request
 
     import numpy as np
     import torch
 
+    from protnote_tpu_torch.cli.serve import make_reload_fn
+    from protnote_tpu_torch.core.checkpoint import save_checkpoint
+    from protnote_tpu_torch.models.convert import to_jax_tree
     from protnote_tpu_torch.ops import masked_conv as k7
     from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.serving import make_http_server
+    from protnote_tpu_torch.train.optim import tree_map
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     torch.cuda.reset_peak_memory_stats()
     placed = tensors_of(engine.ts) + [engine.latents]
@@ -775,7 +834,21 @@ def phase_serving(engine, rng, card: str):
     requests = [random_sequences(rng, [300]),
                 random_sequences(rng, [50, 200, 511, 700, 1500]),
                 random_sequences(rng, [900])]
-    server, batcher = make_http_server(engine, port=0, host="127.0.0.1")
+    # hot reload as cli/serve.py wires it: Trainer.load, then engine.reload;
+    # first weights with W_l doubled (the latents and scores must move), then
+    # the engine's own (the same bits again)
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(tmp.name, "engine.ckpt")
+    save_checkpoint(ckpt, to_jax_tree(engine.ts), epoch=0)
+    pn = engine.ts["trainable"]["protnote"]
+    doubled = dict(engine.ts, trainable=dict(
+        engine.ts["trainable"], protnote=dict(pn, W_l=tree_map(lambda t: t * 2, pn["W_l"]))))
+    ckpt_doubled = os.path.join(tmp.name, "doubled.ckpt")
+    save_checkpoint(ckpt_doubled, to_jax_tree(doubled), epoch=0)
+    del pn, doubled
+    trainer = Trainer(engine.ts, engine.pi_cfg, engine.pn_cfg, TrainerConfig(), device="cuda")
+    server, batcher = make_http_server(engine, port=0, host="127.0.0.1",
+                                       reload_fn=make_reload_fn(engine, trainer))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -797,11 +870,28 @@ def phase_serving(engine, rng, card: str):
             health = json.loads(resp.read())
         launches = ps.LAUNCHES
         k7_launches = dict(k7.LAUNCHES)
+        before = engine.score(requests[1])
+        old_leaves, old_latents = named_tensors(engine.ts), engine.latents
+        doubled_body, _ = post(url + "/v1/reload", {"model_file": ckpt_doubled})
+        doubled_err = float(np.abs(engine.score(requests[1]) - before).max())
+        new_leaves = named_tensors(engine.ts)
+        doubled_moved = not torch.equal(engine.latents, old_latents) and all(
+            torch.equal(new_leaves[k], v * 2 if k.startswith("/trainable/protnote/W_l/") else v)
+            for k, v in old_leaves.items())
+        t0 = time.perf_counter()
+        reload_body, _ = post(url + "/v1/reload", {"model_file": ckpt})
+        reload_s = time.perf_counter() - t0
+        reload_err = float(np.abs(engine.score(requests[1]) - before).max())
+        new_leaves = named_tensors(engine.ts)
+        same_bits = torch.equal(engine.latents, old_latents) and new_leaves.keys() == \
+            old_leaves.keys() and all(torch.equal(new_leaves[k], v) for k, v in old_leaves.items())
+        del old_leaves, old_latents, new_leaves
     finally:
         batcher.close()
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+        tmp.cleanup()
     if thread.is_alive():
         raise AssertionError("HTTP server thread did not stop")
     if health.get("status") != "ok" or health.get("labels") != NUM_LABELS:
@@ -809,10 +899,22 @@ def phase_serving(engine, rng, card: str):
     if launches <= 0:
         raise AssertionError("the serving path never launched the K1 kernel")
     check_k7_forward(k7_launches, "serving")
+    if doubled_body.get("status") != "reloaded" or not doubled_moved or \
+            not doubled_err > RELOAD_PROB_ATOL:
+        raise AssertionError(f"/v1/reload of weights with W_l doubled did not swap them in: "
+                             f"{doubled_body}, leaves and latents moved {doubled_moved}, "
+                             f"max |dprob| {doubled_err}")
+    if reload_body.get("status") != "reloaded" or not same_bits or \
+            not reload_err <= RELOAD_PROB_ATOL:
+        raise AssertionError(f"/v1/reload of the same weights changed the model: "
+                             f"{reload_body}, same bits {same_bits}, max |dprob| {reload_err}")
     batches = health["batches"] - stats0["batches"]
     n_seqs = sum(len(r) for r in requests)
     log("serving", requests=len(requests), sequences=n_seqs, batches=batches,
         k1_launches=launches, k7_launches=k7_launches, request_ms=latencies,
+        reload={"seconds": reload_s, "same_bits": same_bits, "max_abs_prob_err": reload_err,
+                "atol": RELOAD_PROB_ATOL, "doubled_W_l_moved": doubled_moved,
+                "doubled_W_l_max_abs_prob_change": doubled_err},
         batch_ms=(health["total_device_ms"] - stats0["total_device_ms"]) / batches,
         device=str(engine.device), card=card)
 
@@ -887,25 +989,26 @@ def k7_flops(lengths, T: int, params, cfg, skip_conv1: bool = False) -> float:
                for name, p, d in k7_convs(params, cfg) if not (skip_conv1 and name == "conv1"))
 
 
-def k7_eval_calls(params, state, onehot, lengths, cfg):
+def k7_eval_calls(params, state, onehot, lengths, cfg, wrapper: str = "masked_conv_cuda"):
     """The eval chain through K7's kernels, recording the arguments of each
-    ``masked_conv_forward`` call (positional: those of the plain version;
-    keyword: the cached weight layout): ``(calls, the last block's
-    output)``."""
+    call of the conv ``wrapper`` (``masked_conv_cuda``, or
+    ``masked_conv_f32_cuda`` for a float32 chain; positional: those of the
+    plain version; keyword: the cached weight layout): ``(calls, the last
+    block's output)``."""
     from protnote_tpu_torch.models.proteinfer import proteinfer_embed
     from protnote_tpu_torch.ops import masked_conv as k7
 
-    calls, kernel = [], k7.masked_conv_cuda
+    calls, kernel = [], getattr(k7, wrapper)
 
     def record(*args, **kwargs):
         calls.append((args, kwargs))
         return kernel(*args, **kwargs)
 
-    k7.masked_conv_cuda = record
+    setattr(k7, wrapper, record)
     try:
         proteinfer_embed(params, state, onehot, lengths, cfg)
     finally:
-        k7.masked_conv_cuda = kernel
+        setattr(k7, wrapper, kernel)
     if len(calls) != 1 + 2 * cfg.num_resnet_blocks:
         raise AssertionError(f"the eval chain made {len(calls)} conv calls")
     args, kwargs = calls[-1]
@@ -1046,27 +1149,384 @@ def conv_alone_ms(enc_params, cfg, bucket: int) -> float:
                                  for x, w, pad, d in calls], 10)
 
 
-def plain_probs(engine, seqs, latents=None):
-    """(n, labels) probabilities of ``seqs`` through a forward with the plain
-    pair scorer (bf16 or int8, as the engine's backend) on the engine's
-    device tensors (or on ``latents`` in place of the engine's)."""
+def random_f32_encoder(seed: int):
+    """The default encoder (1,100 channels x 5 blocks, 32,102-label head) in
+    float32 (no compute dtype, as the JAX ``test_proteinfer``), seeded random
+    weights and BatchNorm statistics, on the card."""
+    import torch
+
+    from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
+    from protnote_tpu_torch.train.optim import tree_map
+
+    cfg = ProteInferConfig()
+    gen = torch.Generator().manual_seed(seed)
+    params, state = init_proteinfer(gen, cfg)
+    for bp, bs in zip(params["blocks"], state["blocks"]):
+        for bn in ("bn1", "bn2"):
+            n = bs[bn]["mean"].shape[0]
+            bp[bn]["scale"] = 0.5 + torch.rand(n, generator=gen)
+            bp[bn]["bias"] = 0.5 * torch.randn(n, generator=gen)
+            bs[bn]["mean"] = 0.5 * torch.randn(n, generator=gen)
+            bs[bn]["var"] = 0.5 + torch.rand(n, generator=gen)
+    return cfg, tree_map(lambda t: t.cuda(), params), tree_map(lambda t: t.cuda(), state)
+
+
+def random_batch(rng, lens, T: int):
+    """(ids (B, T) int64 with the pad id 20 past each length, lengths int32)
+    on the card."""
+    import numpy as np
+    import torch
+
+    aa = rng.integers(0, 20, size=(len(lens), T))
+    aa[np.arange(T)[None, :] >= np.asarray(lens)[:, None]] = 20
+    return (torch.from_numpy(aa).cuda(),
+            torch.from_numpy(np.asarray(lens, np.int32)).cuda())
+
+
+def phase_k7_f32(card: str) -> dict:
+    """K7's float32 forward (``masked_conv_forward_f32``, ``csrc/
+    masked_conv_f32.cu``, and ``masked_mean_pool_f32``) at full width, 32
+    sequences at bucket 512: each of the chain's 11 conv calls (the stem 9
+    taps x 20 -> 1,100, the dilated 9 taps x 1,100 -> 550 at dilations 1, 3,
+    9, 27, 81 with the eval BN prologue, the 1 x 1 550 -> 1,100 with the
+    prologue and the residual) and the pool, each against its plain version
+    on the recorded inputs (the conv through cuDNN with TF32 off: 1e-5 of
+    the tensor's largest |value|, only the order of the float32 sums
+    differs; the pool 1e-5), and the chain's pooled embedding against the
+    plain chain's (1e-4).  Times by CUDA events: each conv shape, the 11
+    together beside the plain convs and cuDNN's float32 conv1d alone (TF32
+    off; the library time, never called by the port), TFLOP/s and share of
+    the bound (the products these lengths need over the 67 TFLOP/s float32
+    peak); the pool beside its bytes bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.models.proteinfer import (
+        one_hot_sequences,
+        proteinfer_embed,
+        proteinfer_embed_reference,
+    )
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    cfg, params, state = random_f32_encoder(20)
+    T = 512
+    lens = k7_lengths(np.random.default_rng(21), T)
+    aa, lengths = random_batch(np.random.default_rng(22), lens, T)
+    gemm_precision(torch.float32)
+    C = cfg.output_channels
+    with torch.inference_mode():
+        onehot = one_hot_sequences(aa, cfg.input_channels, torch.float32)
+        calls, feats = k7_eval_calls(params, state, onehot, lengths, cfg, "masked_conv_f32_cuda")
+        shapes = []
+        for (name, p, dilation), (args, kw) in zip(k7_convs(params, cfg), calls):
+            got = k7.masked_conv_f32_cuda(*args, **kw)
+            again = k7.masked_conv_f32_cuda(*args, **kw)
+            err, rel = rel_max(got, k7.masked_conv_reference(*args))
+            taps, cin, cout = p["kernel"].shape
+            flop = 2.0 * cin * cout * conv_rows(lens, T, taps, dilation)
+            x = args[0].contiguous().transpose(1, 2)  # (B, C_in, T) for cuDNN
+            w = p["kernel"].permute(2, 1, 0).contiguous()
+            pad = dilation * (taps - 1) // 2
+            ms = cuda_time_ms(lambda: k7.masked_conv_f32_cuda(*args, **kw), 5)
+            shapes.append({
+                "conv": name, "taps": taps, "dilation": dilation, "cin": cin, "cout": cout,
+                "prologue": args[5] is not None, "residual": args[6] is not None,
+                "max_abs_err": err, "max_rel_err": rel, "same_bits": torch.equal(got, again),
+                "ms": ms, "plain_ms": cuda_time_ms(lambda: k7.masked_conv_reference(*args), 5),
+                "library_ms": cuda_time_ms(
+                    lambda: F.conv1d(x, w, padding=pad, dilation=dilation), 5),
+                **bound(nbytes=4.0 * (x.numel() + w.numel() + B * T * cout), ops=flop,
+                        peak=F32_FLOPS),
+                "tflops": flop / ms / 1e9})
+        flop = sum(2.0 * s["cin"] * s["cout"] * conv_rows(lens, T, s["taps"], s["dilation"])
+                   for s in shapes)
+        conv = {"max_abs_err": max(s["max_abs_err"] for s in shapes),
+                "max_rel_err": max(s["max_rel_err"] for s in shapes),
+                "ms": cuda_time_ms(lambda: [k7.masked_conv_f32_cuda(*a, **kw)
+                                            for a, kw in calls], 3),
+                "plain_ms": cuda_time_ms(lambda: [k7.masked_conv_reference(*a)
+                                                  for a, _ in calls], 3),
+                "library_ms": sum(s["library_ms"] for s in shapes), **bound(ops=flop,
+                                                                            peak=F32_FLOPS),
+                "tflops": None}
+        conv["tflops"] = flop / conv["ms"] / 1e9
+        conv["share_of_bound"] = conv["bound_ms"] / conv["ms"]
+        pool_got = k7.masked_mean_pool_cuda(feats, lengths)
+        pool_err = rel_max(pool_got, k7.masked_mean_pool_reference(feats, lengths))
+        valid = int(np.minimum(lens, T).sum())
+        pool = {"max_abs_err": pool_err[0], "max_rel_err": pool_err[1],
+                "same_bits": torch.equal(pool_got, k7.masked_mean_pool_cuda(feats, lengths)),
+                "ms": cuda_time_ms(lambda: k7.masked_mean_pool_cuda(feats, lengths), 20),
+                "plain_ms": cuda_time_ms(
+                    lambda: k7.masked_mean_pool_reference(feats, lengths), 20),
+                **bound(nbytes=4.0 * valid * C + 4.0 * B + 4.0 * B * C), "library_ms": None}
+        pool["device_ms"], pool["host_ms"] = device_and_host_ms(
+            lambda: k7.masked_mean_pool_cuda(feats, lengths), 20)
+        got, _ = proteinfer_embed(params, state, onehot, lengths, cfg)
+        want, _ = proteinfer_embed_reference(params, state, onehot, lengths, cfg)
+        chain_err = rel_max(got, want)
+        chain_ms = cuda_time_ms(lambda: proteinfer_embed(params, state, onehot, lengths, cfg), 3)
+        chain_plain_ms = cuda_time_ms(
+            lambda: proteinfer_embed_reference(params, state, onehot, lengths, cfg), 3)
+    out = {"masked_conv_fwd_f32": conv, "masked_mean_pool_f32": pool}
+    log("k7_f32", batch=B, bucket=T, valid_rows=valid, shapes=shapes, **out,
+        chain={"ms": chain_ms, "plain_ms": chain_plain_ms, "max_abs_err": chain_err[0],
+               "max_rel_err": chain_err[1]},
+        rel_tol={"conv": K7_F32_REL_TOL, "pool": K7_F32_REL_TOL, "chain": K7_F32_CHAIN_REL_TOL},
+        ptxas=ptxas_by_kernel(load_kernel_library("masked_conv_f32").build_log,
+                              r"(conv_f32_kernel)"), card=card)
+    bad = [s["conv"] for s in shapes if s["max_rel_err"] > K7_F32_REL_TOL or not s["same_bits"]]
+    if bad or pool_err[1] > K7_F32_REL_TOL or not pool["same_bits"] \
+            or chain_err[1] > K7_F32_CHAIN_REL_TOL:
+        raise AssertionError(f"K7's float32 forward disagrees with its plain version: convs "
+                             f"{bad}, pool {pool_err}, chain {chain_err}")
+    return out
+
+
+def protnote_env(root: str):
+    """``PROTNOTE_DATA_DIR`` / ``PROTNOTE_OUTPUT_DIR`` pointed at a temporary
+    tree for the CLIs' ``get_setup``, restored on exit."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"PROTNOTE_DATA_DIR": os.path.join(root, "data"),
+                                        "PROTNOTE_OUTPUT_DIR": os.path.join(root, "outputs")})
+
+
+def write_fasta(path: str, n: int, seed: int, labeled: bool):
+    """An ``n``-sequence FASTA (lengths 100-1000) over the full vocabulary:
+    1-5 GO labels a sequence where ``labeled``, else every other sequence
+    unlabeled."""
+    import numpy as np
+
+    from protnote_tpu_torch.data.fasta import save_to_fasta
+
+    go_ids = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
+    rng = np.random.default_rng(seed)
+    records = [("".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), int(k))), f"seq{i}",
+                [go_ids[j] for j in rng.choice(NUM_LABELS, int(rng.integers(1, 6)),
+                                               replace=False)]
+                if labeled or i % 2 else [])
+               for i, k in enumerate(rng.integers(100, 1001, size=n))]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return save_to_fasta(records, path)
+
+
+def parquet_engine() -> str:
+    """The parquet engine pandas would write with (``pyarrow`` or
+    ``fastparquet``), or "" when pandas or both are missing: an import
+    probe, nothing is written to find out."""
+    import importlib.util
+
+    if importlib.util.find_spec("pandas") is None:
+        return ""
+    return next((m for m in ("pyarrow", "fastparquet") if importlib.util.find_spec(m)), "")
+
+
+def phase_predict(card: str) -> dict:
+    """``cli/predict.py`` at full width: the default config, 32,102 labels x
+    2 descriptions in a label-embedding cache file, a 256-sequence FASTA
+    (half of it unlabeled) through ``build_predictor`` (the CLI's config,
+    dataset, ``build_inference_model`` and batcher) and the scoring
+    generator, bf16 (K7 + K1) and ``PAIR_BACKEND tiled_int8`` (K7 + K2,
+    scales calibrated on the first batch, timed apart).  Where pandas and a
+    parquet engine import, ``predict.main``'s window first: scoring and
+    writing the shards (32,102 columns a frame), the CLI's seqs/s, and the
+    shards read back.  Then the scoring alone, timed to the last batch's
+    read-back, a second pass (warm).  The first batch's
+    logits against the plain chain's (``proteinfer_embed_reference`` + the
+    plain pair scorer) within K1's 5e-2."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.cli import predict
+    from protnote_tpu_torch.core.config import (
+        generate_label_embedding_path,
+        load_config,
+        resolve_paths,
+    )
+    from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.train.step import batch_to_device_dict
+
+    engine = parquet_engine()
+    log("predict_shards", parquet_engine=engine or None,
+        shards="written and read back" if engine else "not written: the scores are consumed")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, protnote_env(tmp):
+        config = resolve_paths(load_config())
+        emb_path = generate_label_embedding_path(
+            config["params"], config["paths_resolved"]["GO_BASE_LABEL_EMBEDDING_PATH"])
+        _, _, cache = label_cache()
+        LabelEmbeddingCache.save(emb_path, cache.embeddings, cache.ids, cache.description_types,
+                                 cache.descriptions, cache.token_counts)
+        del cache
+        fasta = write_fasta(os.path.join(tmp, "query.fasta"), EVAL_SEQUENCES, 31, labeled=False)
+        for backend in ("auto", "tiled_int8"):
+            out_dir = os.path.join(tmp, f"shards_{backend}")
+            args = predict.build_argparser().parse_args(
+                ["--fasta", fasta, "--name", f"smoke_{backend}", "--output-dir", out_dir,
+                 "--rows-per-shard", "128", "--override", "PAIR_BACKEND", backend])
+            t0 = time.perf_counter()
+            _, run_name, _, ds, trainer, batcher, label_matrix, vocab = \
+                predict.build_predictor(args)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            ps.LAUNCHES = 0
+            reset_int8_launches()
+            reset_k7_launches()
+            t0 = time.perf_counter()
+            trainer.ensure_int8_calibrated(batcher)
+            torch.cuda.synchronize()
+            calibrate_s = time.perf_counter() - t0
+            cli_s = None
+            if engine:  # predict.main's window: scoring and writing the shards
+                t0 = time.perf_counter()
+                cli_written = predict.write_shards(
+                    predict.score_batches(trainer, batcher, label_matrix), vocab, out_dir,
+                    run_name, 128)
+                cli_s = time.perf_counter() - t0
+            t0 = time.perf_counter()  # the scoring alone
+            written = sum(len(ids) for _, ids, _ in
+                          predict.score_batches(trainer, batcher, label_matrix))
+            sec = time.perf_counter() - t0  # the generator reads every batch back
+            if engine and cli_written != written:
+                raise AssertionError(f"write_shards wrote {cli_written} rows of {written}")
+            launches = {"pair_mlp_layer": ps.LAUNCHES, **ps.INT8_LAUNCHES,
+                        **{k: k7.LAUNCHES[k] for k in K7_FORWARD}}
+            check_k7_forward(dict(k7.LAUNCHES), f"predict ({backend})")
+            scorer = ("pair_int8_layer",) if backend == "tiled_int8" else ("pair_mlp_layer",)
+            if written != EVAL_SEQUENCES or any(launches[k] <= 0 for k in scorer):
+                raise AssertionError(f"predict ({backend}) scored {written} sequences, "
+                                     f"launches {launches}")
+            shards = None
+            if engine:
+                import pandas as pd
+
+                frames = [pd.read_parquet(os.path.join(out_dir, f))
+                          for f in sorted(os.listdir(out_dir))]
+                shards = [list(f.shape) for f in frames]
+                ids = [i for f in frames for i in f.index]
+                if sorted(ids) != sorted(ds.sequence_ids) or any(
+                        list(f.columns) != vocab or not np.isfinite(f.to_numpy()).all()
+                        for f in frames):
+                    raise AssertionError(f"predict ({backend}) shards wrong: {shards}")
+                del frames
+            batch = next(iter(batcher))
+            arrays = trainer._place(batch_to_device_dict(batch, trainer.device), label_matrix,
+                                    batch)
+            latents = trainer._label_latents(arrays)
+            got = trainer._eval_step(trainer.ts, trainer._swap_in_latents(arrays, latents))
+            want = plain_logits(trainer.ts, trainer.pi_cfg, trainer.pn_cfg, arrays["aa_ids"],
+                                arrays["lengths"], latents, plain_encoder=True)
+            keep = arrays["example_mask"] > 0
+            err = float((got["logits"][keep] - want[keep]).abs().max())
+            out[backend] = {"sequences": written, "batches": len(batcher),
+                            "cli_seconds": cli_s,
+                            "cli_seqs_per_s": written / cli_s if cli_s else None,
+                            "scoring_seconds": sec, "scoring_seqs_per_s": written / sec,
+                            "scoring_pair_scores_per_s": written * ds.num_labels / sec,
+                            "build_seconds": build_s, "calibrate_seconds": calibrate_s,
+                            "launches": launches, "shards": shards,
+                            "max_abs_logit_err": err, "atol": LOGIT_ATOL,
+                            "scales": trainer.pn_cfg.int8_act_scales}
+            log("predict", backend=backend, labels=ds.num_labels, **out[backend], card=card)
+            if not err <= LOGIT_ATOL:
+                raise AssertionError(f"predict ({backend}) logits disagree with the plain "
+                                     f"chain: {err}")
+            del trainer, batcher, label_matrix, latents, got, want, arrays
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_test_proteinfer(card: str) -> dict:
+    """``cli/test_proteinfer.py`` at full width (1,100 channels x 5 blocks,
+    a 32,102-label head, float32 as the JAX CLI): ``main`` on a
+    256-sequence labelled FASTA (random weights), its K7 launches counted
+    (the float32 kernels, none of the bf16 ones) and its seqs/s (the whole
+    call: config, weights, batches, host metrics); then the float32 forward
+    of a 32-sequence batch at bucket 512 (a per-layer rate) and its head alone (the float32
+    ``(32, 1,100) x (1,100, 32,102)`` product, TF32 off) by CUDA events."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.cli import test_proteinfer
+    from protnote_tpu_torch.core.config import load_config, resolve_paths
+    from protnote_tpu_torch.models.layers import linear
+    from protnote_tpu_torch.models.proteinfer import (
+        one_hot_sequences,
+        proteinfer_embed,
+        proteinfer_forward,
+    )
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    with tempfile.TemporaryDirectory() as tmp, protnote_env(tmp):
+        paths = resolve_paths(load_config())["paths_resolved"]
+        write_fasta(paths["TEST_DATA_PATH"], EVAL_SEQUENCES, 32, labeled=True)
+        reset_k7_launches()
+        t0 = time.perf_counter()
+        metrics = test_proteinfer.main(["--batch-size", str(B)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(k7.LAUNCHES)
+    if any((v > 0) != (k in K7_F32) for k, v in launches.items()):
+        raise AssertionError(f"test_proteinfer did not run K7's float32 kernels alone: {launches}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"test_proteinfer metrics not finite: {metrics}")
+    cfg, params, state = random_f32_encoder(33)
+    lens = k7_lengths(np.random.default_rng(34), 512)
+    aa, lengths = random_batch(np.random.default_rng(35), lens, 512)
+    with torch.inference_mode():
+        onehot = one_hot_sequences(aa, cfg.input_channels)
+        batch_ms = cuda_time_ms(lambda: proteinfer_forward(params, state, onehot, lengths, cfg), 3)
+        emb, _ = proteinfer_embed(params, state, onehot, lengths, cfg)
+        head_ms = cuda_time_ms(lambda: linear(params["output"], emb), 10)
+    head_flop = 2.0 * B * cfg.output_channels * cfg.num_labels
+    out = {"cli_seconds": cli_s, "sequences": EVAL_SEQUENCES,
+           "cli_seqs_per_s": EVAL_SEQUENCES / cli_s, "launches": launches,
+           "batch_ms": batch_ms, "forward_seqs_per_s": B / batch_ms * 1e3, "head_ms": head_ms,
+           **{f"head_{k}": v for k, v in bound(
+               nbytes=4.0 * (emb.numel() + params["output"]["kernel"].numel()
+                             + B * cfg.num_labels), ops=head_flop, peak=F32_FLOPS).items()},
+           "map_micro": metrics.get("map_micro"), "map_macro": metrics.get("map_macro")}
+    log("test_proteinfer", batch=B, bucket=512, labels=cfg.num_labels, **out, card=card)
+    return out
+
+
+def plain_logits(ts, pi_cfg, cfg, aa, lengths, latents, plain_encoder: bool = False):
+    """(B, labels) ensembled float32 logits of the ids ``aa`` through a
+    forward with the plain pair scorer (bf16 or int8, as ``cfg``'s backend)
+    on ``latents``; the encoder through K7's kernels, or with
+    ``plain_encoder`` through its plain chain (``proteinfer_embed_reference``)."""
     import torch
 
     from protnote_tpu_torch.models.fusion import ensemble_logits, projection_head_apply
-    from protnote_tpu_torch.models.proteinfer import embed_from_ids
+    from protnote_tpu_torch.models.proteinfer import (
+        embed_from_ids,
+        one_hot_sequences,
+        proteinfer_embed_reference,
+    )
     from protnote_tpu_torch.ops import pair_scorer as ps
 
-    aa, lengths = engine._assemble(engine._encode(seqs), 512)
-    ts, cfg = engine.ts, engine.pn_cfg
     pn, state = ts["trainable"]["protnote"], ts["model_state"]
     with torch.inference_mode():
-        P_f, _ = embed_from_ids(ts["enc_params"], ts["enc_state"],
-                                torch.from_numpy(aa).cuda(), torch.from_numpy(lengths).cuda(),
-                                engine.pi_cfg)
+        if plain_encoder:
+            P_f, _ = proteinfer_embed_reference(
+                ts["enc_params"], ts["enc_state"],
+                one_hot_sequences(aa, pi_cfg.input_channels, pi_cfg.runtime_dtype), lengths,
+                pi_cfg)
+        else:
+            P_f, _ = embed_from_ids(ts["enc_params"], ts["enc_state"], aa, lengths, pi_cfg)
         P_e, _ = projection_head_apply(pn["W_p"], state["W_p"], P_f.to(cfg.compute_dtype))
         folded = ps.fold_output_mlp(pn["output_mlp"], state["output_mlp"], cfg.feature_fusion,
                                     cfg.latent_dim, dtype=cfg.compute_dtype)
-        latents = engine.latents if latents is None else latents
         if cfg.pair_backend == "tiled_int8":
             logits = ps.pair_logits_tiled_int8_reference(
                 ps.quantize_folded(folded, act_scales=cfg.int8_act_scales), P_e,
@@ -1074,8 +1534,20 @@ def plain_probs(engine, seqs, latents=None):
         else:
             logits = ps.pair_logits_tiled_reference(folded, P_e, latents,
                                                     cfg.label_tile, cfg.compute_dtype)
-        want = torch.sigmoid(ensemble_logits(logits, K_DESCRIPTIONS))[: len(seqs)]
-    return want.float().cpu().numpy()
+        return ensemble_logits(logits, cfg.inference_descriptions_per_label).float()
+
+
+def plain_probs(engine, seqs, latents=None):
+    """(n, labels) probabilities of ``seqs`` through a forward with the plain
+    pair scorer (bf16 or int8, as the engine's backend) on the engine's
+    device tensors (or on ``latents`` in place of the engine's)."""
+    import torch
+
+    aa, lengths = engine._assemble(engine._encode(seqs), 512)
+    logits = plain_logits(engine.ts, engine.pi_cfg, engine.pn_cfg, torch.from_numpy(aa).cuda(),
+                          torch.from_numpy(lengths).cuda(),
+                          engine.latents if latents is None else latents)
+    return torch.sigmoid(logits[: len(seqs)]).cpu().numpy()
 
 
 def phase_parity(engine, rng, name="serving_parity"):
@@ -1828,19 +2300,11 @@ def fasta_dataset(tmp: str, name: str, n: int, seed: int, cfg):
     """An ``n``-sequence FASTA (lengths 100-1000, 1-5 GO labels each) over
     the full 32,102-label vocabulary, as a ``ProteinDataset`` of role
     ``cfg``."""
-    import numpy as np
-
     from protnote_tpu_torch.data.dataset import ProteinDataset
-    from protnote_tpu_torch.data.fasta import save_to_fasta
     from protnote_tpu_torch.data.vocab import COMMON_AMINOACIDS
 
     go_ids, _, cache = label_cache()
-    rng = np.random.default_rng(seed)
-    records = [("".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), int(k))), f"seq{i}",
-                [go_ids[j] for j in rng.choice(NUM_LABELS, int(rng.integers(1, 6)),
-                                               replace=False)])
-               for i, k in enumerate(rng.integers(100, 1001, size=n))]
-    path = save_to_fasta(records, os.path.join(tmp, name))
+    path = write_fasta(os.path.join(tmp, name), n, seed, labeled=True)
     vocab = {"amino_acid_vocab": sorted(COMMON_AMINOACIDS), "label_vocab": go_ids}
     return ProteinDataset(path, cfg, label_embedding_cache=cache, vocabularies=vocab)
 
@@ -4106,8 +4570,9 @@ def phase_encoder_training(card: str) -> dict:
         # TRAIN_SEQUENCE_ENCODER at bucket 512
         ts0, tcfg, trainer = make(True, False)
         fields = run("train_sequence_encoder", trainer, 512, ENCODER_TRAIN_STEPS, True)
-        if any(v <= 0 for v in fields["launches"].values()):
-            raise AssertionError(f"encoder training skipped a kernel: {fields['launches']}")
+        if any((v > 0) == (k in K7_F32) for k, v in fields["launches"].items()):
+            raise AssertionError(f"encoder training skipped a kernel or ran a float32 one: "
+                                 f"{fields['launches']}")
         result = {k: fields["launches"][k] for k in k7.LAUNCHES}
         inner = batcher(train_ds, 512, True)
         inner.set_epoch(1)
@@ -4599,6 +5064,12 @@ def main() -> None:
     int8_launches = phase_int8_serving(engine, rng, drift_seqs, drift_probs, card)
     del engine
     torch.cuda.empty_cache()
+    k7_f32 = phase_k7_f32(card)
+    torch.cuda.empty_cache()
+    phase_predict(card)
+    torch.cuda.empty_cache()
+    f32_launches = phase_test_proteinfer(card)["launches"]
+    torch.cuda.empty_cache()
     k3_times = phase_k3(card)
     bf16_metrics = phase_eval(card, k3_times)
     torch.cuda.empty_cache()
@@ -4636,8 +5107,8 @@ def main() -> None:
     stream_launches = phase_streamed_training(card)
     if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
                                    for m in sys.modules):
-        raise AssertionError("the port's serving, evaluation, training or tower path imported "
-                             "jax or the JAX package")
+        raise AssertionError("the port's serving, inference CLIs, evaluation, training or "
+                             "tower path imported jax or the JAX package")
     k3_src = "protnote_tpu_torch/csrc/eval_accumulator.cu"
     replaces = {"update": "protnote_tpu/evaln/metrics.py:601",
                 "finalize": "protnote_tpu/evaln/metrics.py:732"}
@@ -4705,7 +5176,11 @@ def main() -> None:
         ("masked_bn_relu_fwd", "masked_bn", "protnote_tpu/models/layers.py:102", k7_bwd,
          encoder_launches),
         ("masked_bn_relu_bwd", "masked_bn", "protnote_tpu/models/layers.py:102", k7_bwd,
-         encoder_launches))] + [{
+         encoder_launches),
+        ("masked_conv_fwd_f32", "masked_conv_f32", "protnote_tpu/models/proteinfer.py:127",
+         k7_f32, f32_launches),
+        ("masked_mean_pool_f32", "masked_pool", "protnote_tpu/models/proteinfer.py:208", k7_f32,
+         f32_launches))] + [{
         "name": k, "route": "cuda", "source": "protnote_tpu_torch/csrc/streamed_bn.cu",
         "replaces": "protnote_tpu/ops/streaming_train.py:270", "launches": stream_launches[k],
         **{f: k6_times[k][f] for f in KERNEL_FIELDS},

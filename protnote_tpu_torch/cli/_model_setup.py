@@ -1,5 +1,5 @@
 """Model construction shared by the port's CLIs (``cli/main.py``,
-``cli/serve.py``).
+``cli/serve.py``, ``cli/predict.py``).
 
 Port of the model half of ``protnote_tpu/cli/_model_setup.py`` and of
 ``cli/main.py:160-198,316-335``: full-size configs from the resolved config
@@ -36,6 +36,25 @@ def resolve_label_tile(params: dict) -> int:
     return int(tile)
 
 
+def proteinfer_config(esp: dict, input_channels: Optional[int] = None,
+                      compute_dtype=None):
+    """The ProteInfer config of ``embed_sequences_params`` ``esp``:
+    ``input_channels`` None takes ``INPUT_CHANNELS``; ``compute_dtype``
+    None computes in float32."""
+    from protnote_tpu_torch.models.proteinfer import ProteInferConfig
+
+    return ProteInferConfig(
+        input_channels=input_channels or esp.get("INPUT_CHANNELS", 20),
+        output_channels=esp.get("OUTPUT_CHANNELS", 1100),
+        kernel_size=esp.get("KERNEL_SIZE", 9),
+        dilation_base=esp.get("DILATION_BASE", 3),
+        num_resnet_blocks=esp.get("NUM_RESNET_BLOCKS", 5),
+        bottleneck_factor=esp.get("BOTTLENECK_FACTOR", 0.5),
+        num_labels=esp.get("PROTEINFER_NUM_GO_LABELS", 32102),
+        compute_dtype=compute_dtype,
+    )
+
+
 def build_models(config: dict, label_dim: int, num_aa: int = 0,
                  seed: Optional[int] = None, gate_pretrained: bool = False,
                  train_sequence_encoder: bool = False, log=logger):
@@ -52,21 +71,13 @@ def build_models(config: dict, label_dim: int, num_aa: int = 0,
     ``TRAIN_SEQUENCE_ENCODER``."""
     from protnote_tpu_torch.models.convert import proteinfer_from_tf_pickle
     from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
-    from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
+    from protnote_tpu_torch.models.proteinfer import init_proteinfer
 
     params = config["params"]
     esp = config.get("embed_sequences_params", {})
     mixed = params.get("MIXED_PRECISION", True)
-    pi_cfg = ProteInferConfig(
-        input_channels=max(esp.get("INPUT_CHANNELS", 20), num_aa),
-        output_channels=esp.get("OUTPUT_CHANNELS", 1100),
-        kernel_size=esp.get("KERNEL_SIZE", 9),
-        dilation_base=esp.get("DILATION_BASE", 3),
-        num_resnet_blocks=esp.get("NUM_RESNET_BLOCKS", 5),
-        bottleneck_factor=esp.get("BOTTLENECK_FACTOR", 0.5),
-        num_labels=esp.get("PROTEINFER_NUM_GO_LABELS", 32102),
-        compute_dtype=torch.bfloat16 if mixed else None,
-    )
+    pi_cfg = proteinfer_config(esp, max(esp.get("INPUT_CHANNELS", 20), num_aa),
+                               torch.bfloat16 if mixed else None)
     pn_cfg = ProtNoteConfig.from_params(
         params, protein_embedding_dim=pi_cfg.output_channels,
         label_embedding_dim=label_dim,
@@ -136,6 +147,29 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
             ts["enc_params"] = enc_p
         ts["enc_state"] = enc_s
     return ts, meta
+
+
+def build_inference_model(config: dict, params: dict, paths: dict, cache, run_name: str,
+                          model_file: Optional[str], mesh, log, loss_fn=None,
+                          device="cuda") -> Tuple:
+    """``(pi_cfg, pn_cfg, trainer)`` for inference, as the JAX
+    ``build_inference_model``: full-size configs from the resolved config,
+    ProteInfer weights from the TF pickle when present (a seeded random init
+    otherwise), ProtNote from ``model_file`` when given (through
+    ``Trainer.load``), the trainer on ``device``.  ``paths`` is read through
+    ``config``; a label mesh raises (the multi-GPU slice)."""
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    if mesh is not None:
+        raise NotImplementedError("label-sharded inference over several cards comes with "
+                                  "the multi-GPU slice (ROADMAP.md queue 1, item 9)")
+    pi_cfg, pn_cfg, ts = build_models(config, cache.dim, log=log)
+    trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig.from_params(params, run_name=run_name),
+                      device=device, loss_fn=loss_fn,
+                      encoder_bn_train_mode=bool(params.get("ENCODER_BN_TRAIN_MODE", False)))
+    if model_file:
+        trainer.load(model_file)
+    return pi_cfg, trainer.pn_cfg, trainer
 
 
 def _check_opt_state(state: Dict[str, Any], optimizer, path: str) -> None:

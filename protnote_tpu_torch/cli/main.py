@@ -57,7 +57,6 @@ raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 from __future__ import annotations
 
 import argparse
-import datetime
 import json
 import logging
 import os
@@ -116,38 +115,21 @@ def refuse_unported(args, params: Dict) -> None:
 
 
 def load_setup(args):
-    """-> (config, run_name, log): the JAX ``get_setup`` for test-set roles,
-    without jax: overrides, resolved paths, ``dataset_paths``, the
-    label-embedding paths and a timestamped run name."""
-    from protnote_tpu_torch.core.config import (
-        DEFAULT_CONFIG_PATH,
-        generate_label_embedding_path,
-        label_embedding_index_path,
-        load_config,
-        override_config,
-        resolve_paths,
-        setup_logging,
-    )
+    """-> (config, run_name, log): ``core/config.py:get_setup`` on the
+    CLI's arguments, then ``refuse_unported`` on the resolved params."""
+    from protnote_tpu_torch.core.config import DEFAULT_CONFIG_PATH, get_setup
 
-    config = load_config(args.config or DEFAULT_CONFIG_PATH)
-    override_config(config, args.override)
-    resolve_paths(config)
-    params, paths = config["params"], config["paths_resolved"]
-    refuse_unported(args, params)
-    timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    run_name = f"{timestamp}_{args.name}"
-    roles = {"train": [args.train_path_name] if args.train_path_name else [],
-             "validation": [args.validation_path_name] if args.validation_path_name else [],
-             "test": args.test_paths_names or []}
-    config["dataset_paths"] = {role: [paths[name] for name in names]
-                               for role, names in roles.items() if names}
-    config["ANNOTATIONS_PATH"] = paths.get(args.annotations_path_name)
-    base_emb = paths.get(args.base_label_embedding_name)
-    if base_emb is not None:
-        config["LABEL_EMBEDDING_PATH"] = generate_label_embedding_path(params, base_emb)
-        config["LABEL_EMBEDDING_INDEX_PATH"] = label_embedding_index_path(
-            config["LABEL_EMBEDDING_PATH"])
-    log = setup_logging(paths.get("LOG_DIR"), run_name)
+    config, run_name, log = get_setup(
+        config_path=args.config or DEFAULT_CONFIG_PATH,
+        run_name=args.name,
+        overrides=args.override,
+        train_path_name=args.train_path_name,
+        val_path_name=args.validation_path_name,
+        test_paths_names=args.test_paths_names,
+        annotations_path_name=args.annotations_path_name,
+        base_label_embedding_name=args.base_label_embedding_name,
+    )
+    refuse_unported(args, config["params"])
     return config, run_name, log
 
 

@@ -340,16 +340,18 @@ def msgpack_pack(tree: Any) -> bytes:
 
 
 def save_checkpoint(path: str, tree: Dict[str, Any], epoch: int,
-                    best_val_metric: Optional[float] = None) -> None:
+                    best_val_metric: Optional[float] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
     """Write ``tree`` (the JAX train-state layout with numpy leaves, e.g.
     :func:`~protnote_tpu_torch.models.convert.to_jax_tree`) as a ``PNTPU1``
     file: magic, 16-digit meta length, JSON meta (``epoch``,
-    ``best_val_metric``, ``checksum_crc32``, ``blob_bytes``), the msgpack
-    blob; atomically, through a temporary file in the same directory."""
+    ``best_val_metric``, the keys of ``extra``, ``checksum_crc32``,
+    ``blob_bytes``), the msgpack blob; atomically, through a temporary file
+    in the same directory."""
     blob = msgpack_pack(tree)
     meta = {"epoch": int(epoch),
             "best_val_metric": None if best_val_metric is None else float(best_val_metric),
-            "checksum_crc32": zlib.crc32(blob), "blob_bytes": len(blob)}
+            **(extra or {}), "checksum_crc32": zlib.crc32(blob), "blob_bytes": len(blob)}
     meta_blob = json.dumps(meta).encode()
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)

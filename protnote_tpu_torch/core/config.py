@@ -4,20 +4,21 @@ Copy for the port, which imports nothing of the JAX package: one YAML with
 three sections (``params``, ``embed_sequences_params``, ``paths``), CLI
 ``--override KEY VALUE ...`` pairs coerced with ``ast.literal_eval``, and
 derived label-embedding cache paths keyed by encoder nickname + pooling
-method.  ``get_setup`` is left out (it imports jax); the port's CLIs call
-:func:`load_config`, :func:`override_config`, :func:`resolve_paths` and
-:func:`setup_logging` themselves.  ``DEFAULT_CONFIG_PATH`` is the repo's
-``configs/base.yaml``, the file the JAX package reads.
+method, and :func:`get_setup`, the JAX ``get_setup`` for one process (its
+broadcast of the run name across processes belongs to the multi-GPU slice).
+``DEFAULT_CONFIG_PATH`` is the repo's ``configs/base.yaml``, the file the
+JAX package reads.
 """
 
 from __future__ import annotations
 
 import ast
+import datetime
 import logging
 import os
 import sys
 from pathlib import Path
-from typing import Any, Dict, Iterable, Mapping, Optional
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 DEFAULT_CONFIG_PATH = Path(__file__).resolve().parent.parent.parent / "configs" / "base.yaml"
 
@@ -153,3 +154,55 @@ def setup_logging(log_dir: Optional[str], run_name: str, is_master: bool = True)
             fh.setFormatter(fmt)
             logger.addHandler(fh)
     return logger
+
+
+def get_setup(
+    config_path: os.PathLike | str = DEFAULT_CONFIG_PATH,
+    run_name: str = "run",
+    overrides: Optional[Iterable[str]] = None,
+    train_path_name: Optional[str] = None,
+    val_path_name: Optional[str] = None,
+    test_paths_names: Optional[Iterable[str]] = None,
+    annotations_path_name: str = "GO_ANNOTATIONS_PATH",
+    base_label_embedding_name: str = "GO_BASE_LABEL_EMBEDDING_PATH",
+    is_master: bool = True,
+) -> Tuple[Config, str, logging.Logger]:
+    """Load + override config, resolve paths, derive run artifacts:
+    ``(config, timestamped_run_name, logger)``, as the JAX ``get_setup``.
+
+    One process: where ``torch.distributed`` runs several, every process
+    must agree on the run name (the JAX package broadcasts process 0's
+    timestamp), which comes with the multi-GPU slice and raises here."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError("get_setup across several processes comes with the "
+                                  "multi-GPU slice (ROADMAP.md queue 1, item 9)")
+    config = load_config(config_path)
+    override_config(config, overrides)
+    resolve_paths(config)
+
+    params = config["params"]
+    paths = config["paths_resolved"]
+    timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    full_run_name = f"{timestamp}_{run_name}"
+
+    # Dataset-role selection by config key name (reference contract).
+    dataset_paths = {}
+    if train_path_name:
+        dataset_paths["train"] = [paths[train_path_name]]
+    if val_path_name:
+        dataset_paths["validation"] = [paths[val_path_name]]
+    if test_paths_names:
+        dataset_paths["test"] = [paths[name] for name in test_paths_names]
+    config["dataset_paths"] = dataset_paths
+    config["ANNOTATIONS_PATH"] = paths.get(annotations_path_name)
+
+    base_emb = paths.get(base_label_embedding_name)
+    if base_emb is not None:
+        config["LABEL_EMBEDDING_PATH"] = generate_label_embedding_path(params, base_emb)
+        config["LABEL_EMBEDDING_INDEX_PATH"] = label_embedding_index_path(
+            config["LABEL_EMBEDDING_PATH"])
+
+    logger = setup_logging(paths.get("LOG_DIR"), full_run_name, is_master=is_master)
+    return config, full_run_name, logger

@@ -33,6 +33,13 @@
 // every sum is fixed by T and the lengths alone: the same input gives the
 // same bits on every call and every card.
 //
+// masked_mean_pool_f32, one launch: the same pool on float32 activations
+// (the encoder computing in float32, csrc/masked_conv_f32.cu), a 16-byte
+// load now 4 channels: block (group, b), a warp one row's 128 channels (32
+// lanes of 4), 32 row slots x IN_FLIGHT rows in flight, then the slots added
+// in order and divided (__fdiv_rn).  Bound by bytes: the valid rows read
+// once (41 MB for 32 sequences at bucket 512, 0.012 ms).
+//
 // masked_mean_pool_backward, one launch: block (row chunk, b) writes
 // BWD_ROWS rows of sequence b at the padded pitch (a multiple of 8
 // channels), a thread 8 channels with one 16-byte store a row:
@@ -151,6 +158,61 @@ pool_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ lengths
   out[static_cast<size_t>(b) * C + c] = __fdiv_rn(sum, fmaxf(static_cast<float>(lengths[b]), 1.f));
 }
 
+constexpr int F32_LANE_CHANNELS = 4;  // channels a thread of the float32 pool: 16 bytes
+constexpr int F32_ROW_LANES = GROUP_CHANNELS / F32_LANE_CHANNELS;  // a warp a row
+constexpr int F32_ROW_SLOTS = POOL_THREADS / F32_ROW_LANES;        // rows at once: 32
+
+// Block (group, b) of the float32 pool: thread i the row slot i / 32 and the
+// lane i % 32 (channels 128 group + 4 lane, + 4); A = 4: one 16-byte load a
+// row, A = 1: four 4-byte loads.
+template <int A>
+__global__ void __launch_bounds__(POOL_THREADS, 1)
+pool_f32_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                float* __restrict__ out, int T, int C, int pitch) {
+  __shared__ float4 s_acc[F32_ROW_SLOTS][F32_ROW_LANES];
+  const int b = blockIdx.y;
+  const int slot = threadIdx.x / F32_ROW_LANES, lane = threadIdx.x % F32_ROW_LANES;
+  const int c0 = blockIdx.x * GROUP_CHANNELS + lane * F32_LANE_CHANNELS;
+  const int n = min(F32_LANE_CHANNELS, C - c0);  // channels of this lane (<= 0 past C)
+  const int L = valid_length(lengths, b, T);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) {
+    const float* p = x + static_cast<size_t>(b) * T * pitch + c0;
+    for (int r0 = slot; r0 < L; r0 += F32_ROW_SLOTS * IN_FLIGHT) {
+      float4 v[IN_FLIGHT];
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        const int r = r0 + u * F32_ROW_SLOTS;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r >= L) continue;
+        const float* q = p + static_cast<size_t>(r) * pitch;
+        if (A == 4 && n == F32_LANE_CHANNELS) {
+          v[u] = __ldg(reinterpret_cast<const float4*>(q));
+        } else {
+          v[u].x = __ldg(q);
+          if (n > 1) v[u].y = __ldg(q + 1);
+          if (n > 2) v[u].z = __ldg(q + 2);
+          if (n > 3) v[u].w = __ldg(q + 3);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        if (r0 + u * F32_ROW_SLOTS >= L) continue;
+        acc.x += v[u].x, acc.y += v[u].y, acc.z += v[u].z, acc.w += v[u].w;
+      }
+    }
+  }
+  s_acc[slot][lane] = acc;
+  __syncthreads();
+  const int c = blockIdx.x * GROUP_CHANNELS + threadIdx.x;
+  if (threadIdx.x >= GROUP_CHANNELS || c >= C) return;
+  const float* s_flat = reinterpret_cast<const float*>(s_acc);
+  float sum = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < F32_ROW_SLOTS; ++r) sum += s_flat[r * GROUP_CHANNELS + threadIdx.x];
+  out[static_cast<size_t>(b) * C + c] = __fdiv_rn(sum, fmaxf(static_cast<float>(lengths[b]), 1.f));
+}
+
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
@@ -216,6 +278,24 @@ extern "C" int masked_mean_pool(const void* x, const void* lengths, void* out, i
     case 2: pool_kernel<2><<<grid, POOL_THREADS, 0, s>>>(xb, len, o, T, C, pitch); break;
     default: pool_kernel<1><<<grid, POOL_THREADS, 0, s>>>(xb, len, o, T, C, pitch);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (B, C) float32 from x (B, T, C) float32 rows at `pitch` (>= C; any
+// base on 4 bytes) and lengths (B,) int32.  One launch; returns a CUDA error.
+extern "C" int masked_mean_pool_f32(const void* x, const void* lengths, void* out, int B,
+                                    int T, int C, int pitch, void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || C <= 0 || pitch < C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 grid((C + GROUP_CHANNELS - 1) / GROUP_CHANNELS, B);
+  const auto* xf = static_cast<const float*>(x);
+  const int* len = static_cast<const int*>(lengths);
+  float* o = static_cast<float*>(out);
+  if (pitch % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    pool_f32_kernel<4><<<grid, POOL_THREADS, 0, s>>>(xf, len, o, T, C, pitch);
+  else
+    pool_f32_kernel<1><<<grid, POOL_THREADS, 0, s>>>(xf, len, o, T, C, pitch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,6 +27,7 @@ from protnote_tpu_torch.models.layers import (
     bn_affine,
     init_batchnorm,
     init_linear,
+    linear,
     uniform,
 )
 from protnote_tpu_torch.ops.masked_conv import (
@@ -170,6 +171,25 @@ def proteinfer_embed_reference(params: Params, state: Params, aa_onehot: torch.T
     return _chain(params, state, aa_onehot.to(cfg.runtime_dtype), lengths, cfg, train,
                   example_mask, _conv_reference, masked_bn_relu_reference,
                   masked_mean_pool_reference)
+
+
+def proteinfer_forward(params: Params, state: Params, aa_onehot: torch.Tensor,
+                       lengths: torch.Tensor, cfg: ProteInferConfig, train: bool = False
+                       ) -> Tuple[torch.Tensor, Params]:
+    """Embedding + classifier head -> ``((B, num_labels) logits, state)``
+    (the JAX ``proteinfer_forward``).  The head is a plain float32 product
+    (``linear``: TF32 off) on the float32 embedding whatever the encoder's
+    compute dtype, as JAX leaves it to XLA."""
+    emb, new_state = proteinfer_embed(params, state, aa_onehot, lengths, cfg, train)
+    return linear(params["output"], emb), new_state
+
+
+def proteinfer_forward_reference(params: Params, state: Params, aa_onehot: torch.Tensor,
+                                 lengths: torch.Tensor, cfg: ProteInferConfig,
+                                 train: bool = False) -> Tuple[torch.Tensor, Params]:
+    """:func:`proteinfer_forward` through K7's plain versions on any device."""
+    emb, new_state = proteinfer_embed_reference(params, state, aa_onehot, lengths, cfg, train)
+    return linear(params["output"], emb), new_state
 
 
 def embed_from_ids(params: Params, state: Params, aa_ids: torch.Tensor, lengths: torch.Tensor,

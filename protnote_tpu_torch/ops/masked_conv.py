@@ -14,16 +14,22 @@ before the mask)
 and followed by a residual add in the compute dtype.  The embedding is the
 masked mean pool of the last block's output over ``max(length, 1)``.
 
-Four hand-written CUDA sources carry it on the card (bf16 only):
+Five hand-written CUDA sources carry it on the card (bf16; the eval
+forward also in float32):
 
 * ``csrc/masked_conv.cu``: ``masked_conv_forward``, an implicit GEMM on
   TMA + wgmma (``csrc/masked_conv.cuh``: persistent, warp-specialised, A
   formed in registers) with the BN prologue and the bias/mask/residual
   epilogue;
+* ``csrc/masked_conv_f32.cu``: ``masked_conv_forward_f32``, the same conv
+  in float32 on the FMA pipe (128 x 128 tiles of the host plan, 16-channel
+  K steps staged in shared memory, an 8 x 8 register tile a thread), for an
+  encoder that computes in float32 as JAX does at ``Precision.HIGHEST``;
 * ``csrc/masked_pool.cu``: ``masked_mean_pool`` (a block a sequence's
-  valid rows over 128 channels, 64 rows at once; :func:`pool_plan`) and its
-  transpose ``masked_mean_pool_backward``, which writes the gradient at the
-  padded pitch the last conv's backward reads;
+  valid rows over 128 channels, 64 rows at once; :func:`pool_plan`), its
+  float32 form ``masked_mean_pool_f32`` and its transpose
+  ``masked_mean_pool_backward``, which writes the gradient at the padded
+  pitch the last conv's backward reads;
 * ``csrc/masked_conv_bwd.cu``: ``masked_conv_dx`` (the transposed dilated
   conv on the forward's mainloop, masks on both sides) and
   ``masked_conv_dw`` (dW a tap on TMA + wgmma over the K steps of a
@@ -51,8 +57,10 @@ read back once a tensor).
 :func:`masked_mean_pool` dispatch on the device: CPU tensors take the plain
 PyTorch versions (the ``*_reference`` functions, which also run on the card
 as the yardstick), CUDA tensors the kernels, through ``autograd.Function``s
-when a gradient is wanted.  A CUDA call in another dtype than bfloat16
-raises; nothing falls back to cuDNN.
+when a gradient is wanted.  On the card the forward takes bfloat16 or
+float32 (eval mode: a float32 gradient or train-mode BatchNorm raises,
+ROADMAP.md queue 1 item 5i) and any other dtype raises; nothing falls back
+to cuDNN.
 
 Rounding points in the backward: each gradient is rounded to bf16 once,
 after its float32 sum (dX, dW and dbias of a conv; dx of the BN), and the
@@ -81,7 +89,7 @@ from protnote_tpu_torch.ops.kernels import call_on_stream, kernel_function
 # caller last set them to 0); one a call of its wrapper.
 LAUNCHES = {"masked_conv_fwd": 0, "masked_mean_pool": 0, "masked_conv_dx": 0,
             "masked_conv_dw": 0, "masked_bn_relu_fwd": 0, "masked_bn_relu_bwd": 0,
-            "masked_mean_pool_bwd": 0}
+            "masked_mean_pool_bwd": 0, "masked_conv_fwd_f32": 0, "masked_mean_pool_f32": 0}
 _launch_lock = threading.Lock()
 
 _H100_SMS = 132
@@ -174,6 +182,10 @@ BLOCK_M = 128  # positions of a conv tile (csrc/masked_conv.cuh BM)
 BLOCK_N = 184  # columns of a conv tile (BN): 552 = 3 x 184, 1104 = 6 x 184
 BLOCK_K = 64  # channels of a K step (BK): one 128-byte swizzled row
 PITCH_CHANNELS = 8  # a row pitch is a multiple of 8 bf16 channels: 16 bytes
+F32_BLOCK_M = 128  # positions of a float32 conv tile (csrc/masked_conv_f32.cu BM)
+F32_BLOCK_N = 128  # columns of a float32 conv tile (BN)
+F32_BLOCK_K = 16  # channels of a float32 K step (BK)
+F32_FILL_BLOCKS = 132  # the most blocks writing the rows a float32 plan skips
 
 
 def row_pitch(channels: int) -> int:
@@ -223,6 +235,15 @@ def conv_weight_layout(kernel: torch.Tensor, dx: bool) -> torch.Tensor:
                  (0, -(-k // BLOCK_K) * BLOCK_K - k, 0, -(-n // BLOCK_N) * BLOCK_N - n))
 
 
+def conv_weight_layout_f32(kernel: torch.Tensor) -> torch.Tensor:
+    """The float32 conv kernel's B operand from a JAX-layout kernel (taps,
+    C_in, C_out): ``(taps, k_pad, n_pad)`` float32, W[j] as it is (C_out
+    contiguous), zero-padded to C_in rounded up to 16 and C_out to 128."""
+    taps, cin, cout = kernel.shape
+    return F.pad(kernel.float(), (0, -(-cout // F32_BLOCK_N) * F32_BLOCK_N - cout,
+                                  0, -(-cin // F32_BLOCK_K) * F32_BLOCK_K - cin)).contiguous()
+
+
 def _version(t: torch.Tensor) -> int:
     """``t``'s version counter; 0 for an inference tensor, which keeps none
     (it can be written in place only inside inference mode)."""
@@ -244,28 +265,33 @@ def _cached(t: torch.Tensor, key, make):
 
 
 def weight_layout(kernel: torch.Tensor, dtype: torch.dtype, dx: bool) -> torch.Tensor:
-    """:func:`conv_weight_layout` of ``kernel`` cast to ``dtype``, cached on
-    the kernel tensor (:func:`_cached`)."""
+    """:func:`conv_weight_layout` of ``kernel`` cast to ``dtype`` (for float32
+    :func:`conv_weight_layout_f32`), cached on the kernel tensor
+    (:func:`_cached`)."""
+    if dtype == torch.float32:
+        return _cached(kernel, ("layout_f32",), lambda: conv_weight_layout_f32(kernel.detach()))
     return _cached(kernel, ("layout", dx, dtype),
                    lambda: conv_weight_layout(kernel.detach().to(dtype), dx))
 
 
-def conv_tile_plan(lengths, T: int, taps: int, dilation: int, n: int, dx: bool) -> np.ndarray:
+def conv_tile_plan(lengths, T: int, taps: int, dilation: int, n: int, dx: bool,
+                   bm: int = BLOCK_M, bn: int = BLOCK_N) -> np.ndarray:
     """The conv kernels' schedule: int32 tile codes ``(b * mtiles + row tile)
-    * ntiles + column tile`` (``mtiles`` = ceil(T / 128), ``ntiles`` =
-    ceil(n / 184)) of every tile whose first row is valid (t0 < min(L, T)),
-    the most taps first (ties in code order).  A tile runs the taps whose
-    shifted rows meet [0, L) for its rows [t0, t0 + 128) (the kernel's
-    ``conv_tile``).  The persistent blocks take tiles i, i + grid, ...; the
-    rows of the other row tiles are written after them (zeros, or the
-    residual)."""
+    * ntiles + column tile`` (``mtiles`` = ceil(T / bm), ``ntiles`` =
+    ceil(n / bn); bf16 tiles 128 x 184, float32 tiles 128 x 128) of every
+    tile whose first row is valid (t0 < min(L, T)), the most taps first
+    (ties in code order).  A tile runs the taps whose shifted rows meet [0,
+    L) for its rows [t0, t0 + bm) (the kernels' tap range).  The bf16
+    kernel's persistent blocks take tiles i, i + grid, ...; the float32
+    kernel runs a block a tile.  The rows of the other row tiles are written
+    besides (zeros, or the residual)."""
     lens = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, T)
-    mtiles, ntiles = -(-T // BLOCK_M), -(-n // BLOCK_N)
+    mtiles, ntiles = -(-T // bm), -(-n // bn)
     step = -dilation if dx else dilation
-    t0 = np.arange(mtiles)[None, :, None] * BLOCK_M
+    t0 = np.arange(mtiles)[None, :, None] * bm
     s = step * (np.arange(taps) - (taps - 1) // 2)[None, None, :]
     L = lens[:, None, None]
-    hit = (t0 < L) & (t0 + s < L) & (t0 + BLOCK_M + s > 0)  # (B, mtiles, taps)
+    hit = (t0 < L) & (t0 + s < L) & (t0 + bm + s > 0)  # (B, mtiles, taps)
     j = np.arange(taps)
     jlo = np.where(hit, j, taps).min(axis=2)
     jhi = np.where(hit, j, -1).max(axis=2)
@@ -276,21 +302,30 @@ def conv_tile_plan(lengths, T: int, taps: int, dilation: int, n: int, dx: bool) 
     return codes.astype(np.int32)
 
 
+def skipped_rows(lengths, T: int, bm: int = BLOCK_M) -> int:
+    """The rows of the row tiles a plan leaves out: each sequence's rows from
+    its length rounded up to ``bm`` to T."""
+    lens = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, T)
+    return int(np.sum(T - np.minimum(T, -(-lens // bm) * bm)))
+
+
 def _plan_on(lengths: torch.Tensor, T: int, taps: int, dilation: int, n: int, dx: bool,
-             device) -> torch.Tensor:
+             device, bm: int = BLOCK_M, bn: int = BLOCK_N) -> torch.Tensor:
     """:func:`conv_tile_plan` as an int32 tensor on ``device`` (its length in
-    ``.tiles``), kept on the lengths tensor (:func:`_cached`): a chain's 11
-    convs share 7 plans and one read-back of the lengths to the host."""
+    ``.tiles``, the rows it leaves out in ``.skipped``), kept on the lengths
+    tensor (:func:`_cached`): a chain's 11 convs share 7 plans and one
+    read-back of the lengths to the host."""
     def make():
         host = (lengths if lengths.device.type == "cpu"
                 else _cached(lengths, "host", lambda: lengths.cpu()))
-        codes = torch.from_numpy(conv_tile_plan(host.numpy(), T, taps, dilation, n, dx))
+        codes = torch.from_numpy(conv_tile_plan(host.numpy(), T, taps, dilation, n, dx, bm, bn))
         plan = (codes.pin_memory().to(device, non_blocking=True) if len(codes)
                 else torch.zeros(1, dtype=torch.int32, device=device))
         plan.tiles = len(codes)
+        plan.skipped = skipped_rows(host.numpy(), T, bm)
         return plan
 
-    return _cached(lengths, ("plan", T, taps, dilation, n, dx, str(device)), make)
+    return _cached(lengths, ("plan", T, taps, dilation, n, dx, bm, bn, str(device)), make)
 
 
 DW_BLOCK_M = 128  # input channels of a dW tile (csrc/masked_conv_bwd.cu DW_BM)
@@ -428,7 +463,9 @@ def pool_plan(T: int, C: int, pitch: int, base: int = 0) -> PoolPlan:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGS = {
     ("masked_conv", "masked_conv_forward"): [_P] * 9 + [_I] * 13 + [_P],
+    ("masked_conv_f32", "masked_conv_forward_f32"): [_P] * 9 + [_I] * 13 + [_P],
     ("masked_pool", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
+    ("masked_pool", "masked_mean_pool_f32"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_pool", "masked_mean_pool_backward"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
     ("masked_conv_bwd", "masked_conv_dw"): [_P] * 8 + [_I] * 11 + [_P],
@@ -450,11 +487,22 @@ def _launch(library: str, symbol: str, counter: str, device: torch.device, *args
         LAUNCHES[counter] += 1
 
 
-def check_compute_dtype(dtype: torch.dtype) -> None:
-    """The kernels compute in bfloat16; any other dtype on the card raises."""
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA encoder kernels (K7) compute in bfloat16, not {dtype} "
-                         "(MIXED_PRECISION: True)")
+FLOAT32_GRADIENTS = ("the CUDA encoder kernels (K7) run float32 in eval mode only: a float32 "
+                     "gradient or train-mode BatchNorm of the encoder on the card comes with "
+                     "ROADMAP.md queue 1, item 5i (float32 training of the encoder on the "
+                     "card); train it with MIXED_PRECISION True")
+
+
+def check_compute_dtype(dtype: torch.dtype, grad: bool = False) -> None:
+    """What the card's K7 kernels take: bfloat16, and float32 without a
+    gradient (``grad``: a gradient, or train-mode BatchNorm, is wanted);
+    float32 with one raises ``NotImplementedError``, any other dtype
+    ``ValueError``."""
+    if dtype == torch.float32 and grad:
+        raise NotImplementedError(FLOAT32_GRADIENTS)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA encoder kernels (K7) compute in bfloat16 or float32, "
+                         f"not {dtype}")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -532,16 +580,73 @@ def masked_conv_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def masked_conv_f32_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                         lengths: torch.Tensor, dilation: int,
+                         bn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         residual: Optional[torch.Tensor] = None,
+                         layout: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``masked_conv_forward_f32``: :func:`masked_conv_cuda` in float32 on
+    the FMA pipe.  ``x`` (B, T, C_in) at any row pitch (one that is not a
+    multiple of 8 channels is copied into a padded buffer first), ``kernel``
+    (taps, C_in, C_out) (or only its shape, with ``layout`` its
+    :func:`conv_weight_layout_f32`), ``bias`` (C_out,), optional ``bn``
+    (inv, shift) (C_in,) and ``residual`` (B, T, C_out), all float32;
+    returns (B, T, C_out) at :func:`row_pitch` (C_out).  One launch: a block
+    a tile of the 128 x 128 plan, and up to 132 blocks for the rows it
+    skips."""
+    if x.device.type != "cuda":
+        raise ValueError(f"masked_conv_forward_f32 needs CUDA tensors, not {x.device}")
+    dev, f32 = x.device, torch.float32
+    B, T, cin = x.shape
+    taps, cout = kernel.shape[0], kernel.shape[2]
+    if x.dtype != f32:
+        raise ValueError(f"x must be float32, not {x.dtype}")
+    if tuple(kernel.shape) != (taps, cin, cout):
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not take x {tuple(x.shape)}")
+    if layout is None:
+        _check("kernel", kernel, (taps, cin, cout), f32, dev)
+        layout = conv_weight_layout_f32(kernel)
+    k_pad = -(-cin // F32_BLOCK_K) * F32_BLOCK_K
+    n_pad = -(-cout // F32_BLOCK_N) * F32_BLOCK_N
+    _check("weight layout", layout, (taps, k_pad, n_pad), f32, dev)
+    _check("bias", bias, (cout,), f32, dev)
+    xp = pad_pitch(x)
+    inv, shift = bn if bn is not None else (None, None)
+    if bn is not None:
+        for name, t in zip(("bn inv", "bn shift"), bn):
+            _check(name, t, (cin,), f32, dev)
+    res_pitch = 0
+    if residual is not None:
+        if residual.device != dev or residual.dtype != f32 or \
+                tuple(residual.shape) != (B, T, cout):
+            raise ValueError(f"residual must be float32 {(B, T, cout)} on {dev}, not "
+                             f"{residual.dtype} {tuple(residual.shape)} on {residual.device}")
+        residual = pad_pitch(residual)
+        res_pitch = residual.stride(1)
+    plan = _plan_on(lengths, T, taps, dilation, cout, False, dev, F32_BLOCK_M, F32_BLOCK_N)
+    fill = min(F32_FILL_BLOCKS, -(-plan.skipped * -(-cout // 4) // 256))
+    lengths = _lengths_on(lengths, dev)
+    y = padded_empty(B, T, cout, f32, dev)
+    _launch("masked_conv_f32", "masked_conv_forward_f32", "masked_conv_fwd_f32", dev,
+            xp.data_ptr(), layout.data_ptr(), bias.data_ptr(), _ptr(inv), _ptr(shift),
+            _ptr(residual), lengths.data_ptr(), plan.data_ptr(), y.data_ptr(), B, T, cin, cout,
+            xp.stride(1), y.stride(1), res_pitch, k_pad, n_pad, taps, dilation, plan.tiles,
+            fill)
+    return y
+
+
 def masked_mean_pool_cuda(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """``masked_mean_pool``: bf16 (B, T, C) at any row pitch (16-byte loads
-    where it is a multiple of 8 channels, narrower ones otherwise; a tensor
-    whose channels are not contiguous is copied) -> float32 (B, C).  One
-    launch, no scratch, no read-back of the lengths."""
+    """``masked_mean_pool`` (bf16) or ``masked_mean_pool_f32`` (float32):
+    (B, T, C) at any row pitch (16-byte loads where it is a multiple of 8
+    channels, narrower ones otherwise; a tensor whose channels are not
+    contiguous is copied) -> float32 (B, C).  One launch, no scratch, no
+    read-back of the lengths."""
     idx = feats.get_device()  # an int (-1 on the CPU): no device object on the hot path
     if idx < 0:
         raise ValueError(f"masked_mean_pool needs CUDA tensors, not {feats.device}")
-    if feats.dtype != torch.bfloat16 or feats.dim() != 3:
-        raise ValueError(f"feats must be bf16 (B, T, C), not {feats.dtype} {tuple(feats.shape)}")
+    if feats.dtype not in (torch.bfloat16, torch.float32) or feats.dim() != 3:
+        raise ValueError(f"feats must be bf16 or float32 (B, T, C), not {feats.dtype} "
+                         f"{tuple(feats.shape)}")
     B, T, C = feats.shape
     sb, pitch, sc = feats.stride()  # pitch_of's rule, inline: this is the hot path
     if (sc != 1 and C > 1) or pitch < C or (B > 1 and sb != T * pitch):
@@ -550,8 +655,9 @@ def masked_mean_pool_cuda(feats: torch.Tensor, lengths: torch.Tensor) -> torch.T
             not lengths.is_contiguous():
         lengths = _lengths_on(lengths, feats.device)
     out = feats.new_empty((B, C), dtype=torch.float32)
-    _launch("masked_pool", "masked_mean_pool", "masked_mean_pool", idx, feats.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, T, C, pitch)
+    name = "masked_mean_pool" if feats.dtype == torch.bfloat16 else "masked_mean_pool_f32"
+    _launch("masked_pool", name, name, idx, feats.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, T, C, pitch)
     return out
 
 
@@ -884,7 +990,8 @@ def masked_conv(x: torch.Tensor, p: Params, lengths: torch.Tensor, dilation: int
     (taps, C_in, C_out), ``bias``), in ``x``'s dtype: the plain version on
     the CPU, ``masked_conv_forward`` on the card (its backward kernels when a
     gradient is wanted; without, the weights' layout cached on the kernel
-    tensor).  ``bn`` is eval mode only.  The result's rows lie
+    tensor), ``masked_conv_forward_f32`` for float32 ``x`` (no gradient).
+    ``bn`` is eval mode only.  The result's rows lie
     :func:`row_pitch` (C_out) apart on both (the CPU copies the plain
     version's); on the card pass ``lengths`` as an int32 tensor there, the
     same tensor to every conv of a chain, so that its plans are built
@@ -894,8 +1001,13 @@ def masked_conv(x: torch.Tensor, p: Params, lengths: torch.Tensor, dilation: int
                                                residual))
     if x.device.type != "cuda":
         raise ValueError(f"no masked conv for device {x.device}")
-    check_compute_dtype(x.dtype)
-    if _wants_grad(x, p["kernel"], p["bias"], residual):
+    grad = _wants_grad(x, p["kernel"], p["bias"], residual)
+    check_compute_dtype(x.dtype, grad)
+    if x.dtype == torch.float32:
+        bias = _cached(p["bias"], ("cast", x.dtype), lambda: p["bias"].detach().float())
+        return masked_conv_f32_cuda(x, p["kernel"], bias, lengths, dilation, bn, residual,
+                                    layout=weight_layout(p["kernel"], x.dtype, dx=False))
+    if grad:
         if bn is not None:
             raise ValueError("the conv's BatchNorm prologue is eval mode: no gradient")
         return _MaskedConv.apply(x, p["kernel"].to(x.dtype).contiguous(), p["bias"].to(x.dtype),
@@ -917,7 +1029,7 @@ def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.T
         return pad_pitch(y), new_state
     if x.device.type != "cuda":
         raise ValueError(f"no masked BatchNorm for device {x.device}")
-    check_compute_dtype(x.dtype)
+    check_compute_dtype(x.dtype, grad=True)
     lengths = _lengths_on(lengths, x.device)
     em = _em_on(example_mask, x.device)
     if _wants_grad(x, p["scale"], p["bias"]):
@@ -931,7 +1043,8 @@ def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.T
 
 def masked_mean_pool(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, C) float32 masked mean pool: the plain version on the CPU,
-    ``masked_mean_pool`` on the card; when a gradient is wanted, through
+    ``masked_mean_pool`` (``masked_mean_pool_f32`` for float32, no gradient)
+    on the card; when a gradient is wanted, through
     :class:`_MaskedPool` (the plain transpose on the CPU,
     ``masked_mean_pool_backward`` on the card)."""
     if feats.device.type == "cpu":
@@ -940,7 +1053,7 @@ def masked_mean_pool(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor
         return masked_mean_pool_reference(feats, lengths)
     if feats.device.type != "cuda":
         raise ValueError(f"no masked pool for device {feats.device}")
-    check_compute_dtype(feats.dtype)
+    check_compute_dtype(feats.dtype, _wants_grad(feats))
     if _wants_grad(feats):
         return _MaskedPool.apply(feats, _lengths_on(lengths, feats.device))
     return masked_mean_pool_cuda(feats, lengths)

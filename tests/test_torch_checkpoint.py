@@ -302,7 +302,7 @@ def test_serve_cli_loads_model_file(tmp_path, monkeypatch, rng):
     args = tserve.build_argparser().parse_args(
         ["--config", str(cfg_path), "--device", "cpu", "--max-batch", "2",
          "--model-file", ckpt, "--override", "MIXED_PRECISION", "False"])
-    engine = tserve.build_engine(args)
+    engine, _ = tserve.build_engine(args)
     seqs = ["".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)) for n in (9, 30, 50)]
     want = JaxEngine(ts, jpi, jpn, matrix, [f"GO:{i:07d}" for i in range(L)],
                      buckets=(32, 64), max_batch=2).score(seqs)

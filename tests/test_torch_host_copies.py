@@ -235,6 +235,25 @@ def test_config_functions(tmp_path, monkeypatch):
     assert (tmp_path / "logs" / "run.log").exists()
 
 
+@pytest.mark.parametrize("roles", [
+    {}, {"train_path_name": "TRAIN_DATA_PATH", "val_path_name": "VAL_DATA_PATH",
+         "test_paths_names": ["TEST_DATA_PATH", "TEST_DATA_PATH_ZERO_SHOT"],
+         "annotations_path_name": "GO_ANNOTATIONS_2019_UPDATED_PATH"}])
+def test_get_setup(tmp_path, monkeypatch, roles):
+    """The port's one-process ``get_setup``: the JAX one's config (dataset
+    roles, annotations and label-embedding paths) and a run name
+    ``<timestamp>_<name>``."""
+    monkeypatch.setenv("PROTNOTE_DATA_DIR", str(tmp_path / "d"))
+    monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(tmp_path / "o"))
+    over = ["LABEL_ENCODER_CHECKPOINT", "intfloat/e5-large-v2", "DECISION_TH", "null"]
+    t, t_name, t_log = tconfig.get_setup(run_name="x", overrides=over, **roles)
+    j, j_name, _ = jconfig.get_setup(run_name="x", overrides=over, **roles)
+    assert dict(t) == dict(j)
+    assert t_name.endswith("_x") and len(t_name) == len(j_name)
+    assert t["LABEL_EMBEDDING_PATH"].endswith("_E5_mean.npz")
+    assert t_log.name == f"protnote_tpu_torch.{t_name}"
+
+
 @pytest.mark.parametrize("params", [
     {}, {"LABEL_TILE_SIZE": 256}, {"LABEL_BATCH_SIZE_LIMIT_NO_GRAD": 1000},
     {"LABEL_BATCH_SIZE_LIMIT_NO_GRAD": 50}, {"LABEL_TILE_SIZE": 1024,

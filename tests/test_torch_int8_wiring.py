@@ -268,12 +268,12 @@ def test_serve_cli_calibration_fasta(files, tmp_path, monkeypatch):
     monkeypatch.setenv("PROTNOTE_DATA_DIR", str(tmp_path))
     base = ["--config", str(path), "--device", "cpu", "--max-batch", "2", "--override",
             "MIXED_PRECISION", "False", "PAIR_BACKEND", "tiled_int8"]
-    engine = tserve.build_engine(tserve.build_argparser().parse_args(
+    engine, _ = tserve.build_engine(tserve.build_argparser().parse_args(
         base + ["--calibration-fasta", str(files / "eval.fasta")]))
     assert engine.pn_cfg.int8_act_scales is not None and not engine._needs_calibration
     probs = engine.score(_seqs(np.random.default_rng(1), 3))
     assert probs.shape == (3, N_LABELS) and np.all((probs > 0) & (probs < 1))
-    lazy = tserve.build_engine(tserve.build_argparser().parse_args(base))
+    lazy, _ = tserve.build_engine(tserve.build_argparser().parse_args(base))
     assert lazy._needs_calibration
     empty = tmp_path / "empty.fasta"
     empty.write_text("")

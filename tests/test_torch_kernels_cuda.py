@@ -56,6 +56,11 @@ running statistics to 1e-5 and dscale/dbias to 1e-3 of their largest
 |value|; the pool to 1e-5 (its transpose bit for bit); the encoder (3 blocks at
 112 channels) through K7
 within 5e-2 of the plain chain's largest pooled |value|.
+K7 in float32 (eval mode) on the same float32 inputs: the conv within 1e-5
+of the plain conv's largest |value| (cuDNN with TF32 off; only the order of
+the float32 sums differs), masked rows exactly 0 (or the residual), the same
+bits on a second call; the pool to 1e-5; the encoder with its float32 head
+within 1e-4 of the plain chain's largest |value|.
 """
 
 import numpy as np
@@ -1509,8 +1514,17 @@ def test_masked_conv_kernels_raise_on_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):  # x at any pitch is copied; a bias not
         k7.masked_conv_cuda(x, w, torch.zeros(12, device=dev, dtype=torch.bfloat16)[::2],
                             lengths, 1)
-    with pytest.raises(ValueError, match="MIXED_PRECISION"):
-        k7.masked_conv(x.float(), {"kernel": w.float(), "bias": b.float()}, lengths, 1)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        k7.masked_conv(x.half(), {"kernel": w.half(), "bias": b.half()}, lengths, 1)
+    with pytest.raises(NotImplementedError, match="item 5i"):  # float32 is eval mode only
+        k7.masked_conv(x.float(), {"kernel": w.float().requires_grad_(), "bias": b.float()},
+                       lengths, 1)
+    with pytest.raises(NotImplementedError, match="item 5i"):
+        k7.masked_bn_relu_train(torch.zeros(2, 16, 6, device=dev),
+                                {"scale": torch.ones(6, device=dev),
+                                 "bias": torch.ones(6, device=dev)},
+                                {"mean": torch.ones(6, device=dev),
+                                 "var": torch.ones(6, device=dev)}, lengths, None, 1e-3, 0.01)
     ones = torch.ones(7, device=dev)
     with pytest.raises(ValueError, match="scale"):  # any C; a scale of another width raises
         k7.masked_bn_relu_train(torch.zeros(2, 16, 7, device=dev, dtype=torch.bfloat16),
@@ -1605,3 +1619,106 @@ def test_conv_entry_points_raise_on_a_pitch_off_16_bytes():
                    wdx.data_ptr(), lengths.data_ptr(), plan.data_ptr(), dx.data_ptr(), B, T,
                    cin, cout, cout + 2, cin, wdx.shape[2], wdx.shape[1], taps, 1, len(plan), 1)
     assert k7.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [40, 300, 512])
+@pytest.mark.parametrize("dilation,taps,cin,cout,prologue", [
+    (1, 9, 20, 1100, False),   # conv1 on the one-hot
+    (1, 9, 1100, 550, True),   # the dilated convs, with the eval BN prologue
+    (81, 9, 1100, 550, True),  # taps beyond every sequence at T 40 and 300
+    (1, 1, 550, 1100, True),   # the 1 x 1 conv, with the residual
+    (3, 9, 21, 110, True),     # widths off 4 and 16 channels
+])
+def test_masked_conv_f32_kernel_matches_plain_on_card(T, dilation, taps, cin, cout, prologue):
+    """``masked_conv_forward_f32`` against ``masked_conv_reference`` in
+    float32 (TF32 off) on the same tensors (5 sequences, lengths 200..0):
+    within 1e-5 of the largest |value|, masked rows exactly 0 (or the
+    residual), the same bits on a second call, one launch a call."""
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    gemm_precision(torch.float32)
+    rng = np.random.default_rng(dilation * 10 + taps + T + cin)
+    p = _k7_conv(rng, taps, cin, cout, dev)
+    x = torch.from_numpy(rng.normal(size=(len(K7_LENGTHS), T, cin)).astype(np.float32)).to(dev)
+    lengths = _k7_lengths(T, dev)
+    bn = residual = None
+    if prologue:
+        bn = (torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.normal(0, 0.5, cin).astype(np.float32)).to(dev))
+    if taps == 1:
+        residual = torch.from_numpy(
+            rng.normal(size=(len(K7_LENGTHS), T, cout)).astype(np.float32)).to(dev)
+    before = k7.LAUNCHES["masked_conv_fwd_f32"]
+    got = k7.masked_conv_f32_cuda(x, p["kernel"], p["bias"], lengths, dilation, bn, residual)
+    again = k7.masked_conv_f32_cuda(x, p["kernel"], p["bias"], lengths, dilation, bn, residual)
+    want = k7.masked_conv_reference(x, p["kernel"], p["bias"], lengths, dilation, bn, residual)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_conv_fwd_f32"] == before + 2
+    assert got.dtype == torch.float32 and got.stride(1) == k7.row_pitch(cout)
+    _within(got, want, 1e-5, "y")
+    assert torch.equal(got, again)
+    pad = torch.arange(T, device=dev)[None, :] >= lengths[:, None].long()
+    tail = got[pad]
+    assert torch.equal(tail.abs(), torch.zeros_like(tail) if residual is None
+                       else residual[pad].abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padded", "contiguous"])
+@pytest.mark.parametrize("C", [110, 550, 1100])
+@pytest.mark.parametrize("T", [512, 1024])
+def test_masked_mean_pool_f32_kernel_matches_plain_on_card(T, C, layout):
+    """``masked_mean_pool_f32`` on float32 activations at the padded pitch
+    (16-byte loads) and contiguous (4-byte loads where C is not a multiple
+    of 4): within 1e-5 of the plain pool, the same bits twice, 0 for length
+    0."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    rng = np.random.default_rng(13)
+    feats = torch.from_numpy(rng.normal(size=(5, T, C)).astype(np.float32)).to(dev)
+    if layout == "padded":
+        feats = k7.pad_pitch(feats)
+    lengths = torch.tensor([T, 300, 40, 7, 0], dtype=torch.int32, device=dev)
+    before = k7.LAUNCHES["masked_mean_pool_f32"]
+    got = k7.masked_mean_pool_cuda(feats, lengths)
+    again = k7.masked_mean_pool_cuda(feats, lengths)
+    want = k7.masked_mean_pool_reference(feats, lengths)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_mean_pool_f32"] == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, again)
+    assert float(got[-1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_proteinfer_forward_f32_runs_the_f32_kernels_on_card():
+    """The float32 encoder and head (``proteinfer_forward``, 3 blocks at 112
+    channels) through the float32 kernels against the plain chain: within
+    1e-4 of the largest |logit|; every conv and the pool launched."""
+    from protnote_tpu_torch.models import proteinfer as tpi
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.train.optim import tree_map
+
+    dev = _card()
+    cfg = ProteInferConfig(output_channels=112, num_resnet_blocks=3, num_labels=300)
+    params, state = init_proteinfer(torch.Generator().manual_seed(4), cfg)
+    params, state = tree_map(lambda t: t.to(dev), params), tree_map(lambda t: t.to(dev), state)
+    rng = np.random.default_rng(4)
+    lens = np.array([512, 300, 77, 1, 0], np.int32)
+    aa = rng.integers(0, 20, size=(5, 512))
+    aa[np.arange(512)[None, :] >= lens[:, None]] = 20
+    aa, lengths = torch.from_numpy(aa).to(dev), torch.from_numpy(lens).to(dev)
+    onehot = tpi.one_hot_sequences(aa, 20)
+    before = dict(k7.LAUNCHES)
+    with torch.inference_mode():
+        got, _ = tpi.proteinfer_forward(params, state, onehot, lengths, cfg)
+        want, _ = tpi.proteinfer_forward_reference(params, state, onehot, lengths, cfg)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_conv_fwd_f32"] - before["masked_conv_fwd_f32"] == 7
+    assert k7.LAUNCHES["masked_mean_pool_f32"] - before["masked_mean_pool_f32"] == 1
+    assert k7.LAUNCHES["masked_conv_fwd"] == before["masked_conv_fwd"]
+    _within(got, want, 1e-4, "logits")

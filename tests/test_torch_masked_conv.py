@@ -422,18 +422,27 @@ def test_masked_mean_pool_matches_jax():
 
 @pytest.mark.parametrize("call", ["conv", "bn", "pool"])
 def test_cuda_call_in_float32_raises(call):
-    """A CUDA tensor in another dtype than bfloat16 raises and names
-    MIXED_PRECISION before anything runs; nothing falls back to cuDNN.  The
-    tensor is a stub: only its device and dtype are read."""
-    stub = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
+    """A float32 CUDA tensor that wants a gradient (train-mode BatchNorm
+    always does) raises and names ROADMAP item 5i before anything runs: the
+    card's float32 kernels are eval mode only.  Another dtype than bfloat16
+    and float32 raises too; nothing falls back to cuDNN.  The tensor is a
+    stub: only its device, dtype and ``requires_grad`` are read."""
     rng = np.random.default_rng(0)
     lengths = torch.from_numpy(LENGTHS)
     p = {k: _t(v) for k, v in _conv_params(rng).items()}
     bp, bs = (jax.tree_util.tree_map(_t, t) for t in _bn_params(rng, CIN))
-    with pytest.raises(ValueError, match="MIXED_PRECISION"):
+
+    def run(stub):
         if call == "conv":
             k7.masked_conv(stub, p, lengths, 3)
         elif call == "bn":
             k7.masked_bn_relu_train(stub, bp, bs, lengths, None, EPS, MOMENTUM)
         else:
             k7.masked_mean_pool(stub, lengths)
+
+    with pytest.raises(NotImplementedError, match="item 5i"):
+        run(types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
+                                  requires_grad=True))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        run(types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float16,
+                                  requires_grad=False))

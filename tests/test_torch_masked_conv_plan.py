@@ -309,6 +309,92 @@ def test_kernel_algorithm_at_the_kernel_tile_matches_jax(dilation):
     _close(_emulate_conv_rows(g, w, lengths, dilation, dx=True), want_dx, name="dx")
 
 
+def _emulate_f32_kernel(x, w, bias, lengths, dilation, bn=None, residual=None):
+    """``conv_f32_kernel``'s loops (csrc/masked_conv_f32.cu) in float64: the
+    first blocks write the rows of the row tiles the plan skips (0, or the
+    residual); each tile of ``conv_tile_plan`` at 128 x 128 runs the taps
+    of the kernel's rule in order, K in 16-channel steps of the re-laid,
+    zero-padded weights (``conv_weight_layout_f32``), the prologue relu(x *
+    inv + shift) on each loaded value, zero outside [0, length) and past
+    C_in; then ``(acc + bias) * mask (+ residual)`` for its rows below T and
+    columns below C_out.  Returns the output and how often each element
+    was written."""
+    B, T, cin = x.shape
+    taps, _, cout = w.shape
+    bm, bn_ = k7.F32_BLOCK_M, k7.F32_BLOCK_N
+    lay = k7.conv_weight_layout_f32(torch.from_numpy(w)).double().numpy()
+    k_pad = lay.shape[1]
+    a = np.zeros((B, T, k_pad))
+    a[..., :cin] = x if bn is None else np.maximum(
+        np.float32(x) * bn[0].astype(np.float32) + bn[1].astype(np.float32), 0)
+    y = np.zeros((B, T, cout))
+    written = np.zeros(y.shape, np.int64)
+    lens = np.clip(lengths, 0, T)
+    for b, L in enumerate(lens):
+        lo = -(-int(L) // bm) * bm
+        y[b, lo:] = 0.0 if residual is None else residual[b, lo:]
+        written[b, lo:] += 1
+    mtiles, ntiles = -(-T // bm), -(-cout // bn_)
+    half = (taps - 1) // 2
+    plan = k7.conv_tile_plan(lengths, T, taps, dilation, cout, False, bm, bn_)
+    for code in plan:
+        nt, mt, b = code % ntiles, (code // ntiles) % mtiles, code // ntiles // mtiles
+        t0, n0, L = mt * bm, nt * bn_, int(lens[b])
+        js = [j for j in range(taps)
+              if t0 + dilation * (j - half) < L and t0 + bm + dilation * (j - half) > 0]
+        assert js and js == list(range(js[0], js[-1] + 1))
+        rows = np.arange(t0, t0 + bm)
+        acc = np.zeros((bm, bn_))
+        for j in js:
+            src = rows + dilation * (j - half)
+            ok = (src >= 0) & (src < L)
+            for k0 in range(0, k_pad, 16):
+                tile = np.where(ok[:, None], a[b, np.clip(src, 0, T - 1), k0:k0 + 16], 0.0)
+                acc += tile @ lay[j, k0:k0 + 16, n0:n0 + bn_]
+        keep_r, keep_c = rows < T, np.arange(n0, n0 + bn_) < cout
+        out = (acc + np.pad(bias, (0, ntiles * bn_ - cout))[n0:n0 + bn_]) \
+            * (rows < L)[:, None]
+        r, c = rows[keep_r], np.arange(n0, n0 + bn_)[keep_c]
+        y[b, r[:, None], c[None, :]] = out[keep_r][:, keep_c] + (
+            0.0 if residual is None else residual[b, r[:, None], c[None, :]])
+        written[b, r[:, None], c[None, :]] += 1
+    return y, written
+
+
+@pytest.mark.parametrize("dilation,taps,cin,cout,prologue", [
+    (1, 9, 20, 150, False), (27, 9, 150, 72, True), (81, 9, 150, 72, True),
+    (1, 1, 72, 150, True)])
+def test_f32_kernel_algorithm_matches_the_plain_conv(dilation, taps, cin, cout, prologue):
+    """The float32 kernel's order of work (:func:`_emulate_f32_kernel`) at
+    its 128 x 128 tile against the plain float32 conv: T 300 (a ragged row
+    tile), lengths T, 200, 129, 128, 1 and 0; every element written exactly
+    once (the plan's tiles and the fill blocks), within 1e-5 of the largest
+    |value| (only the order of the sums differs)."""
+    T = 300
+    lengths = np.array([T, 200, 129, 128, 1, 0], np.int32)
+    rng = np.random.default_rng(dilation * 7 + cin)
+    bound = 1.0 / np.sqrt(cin * taps)
+    w = rng.uniform(-bound, bound, (taps, cin, cout)).astype(np.float32)
+    bias = rng.uniform(-0.3, 0.3, cout).astype(np.float32)
+    x = rng.normal(size=(len(lengths), T, cin)).astype(np.float32)
+    bn = residual = None
+    if prologue:
+        bn = (rng.uniform(0.5, 1.5, cin).astype(np.float32),
+              rng.normal(0, 0.5, cin).astype(np.float32))
+    if taps == 1:
+        residual = rng.normal(size=(len(lengths), T, cout)).astype(np.float32)
+    y, written = _emulate_f32_kernel(x, w, bias, lengths, dilation, bn, residual)
+    assert (written == 1).all()
+    t = torch.from_numpy
+    want = k7.masked_conv_reference(
+        t(x), t(w), t(bias), t(lengths), dilation, None if bn is None else (t(bn[0]), t(bn[1])),
+        None if residual is None else t(residual))
+    _close(y, want.numpy(), name="y")
+    fill = min(k7.F32_FILL_BLOCKS,
+               -(-k7.skipped_rows(lengths, T, 128) * -(-cout // 4) // 256))
+    assert fill == min(132, -(-(0 + 44 + 44 + 172 + 172 + 300) * -(-cout // 4) // 256))
+
+
 # ----------------------------------------------------------------------
 # the chain on padded-pitch buffers
 

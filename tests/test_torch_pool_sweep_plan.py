@@ -408,10 +408,13 @@ def _prototypes(source: str) -> dict:
 
 @pytest.mark.parametrize("source,tables", [
     ("masked_pool.cu", {n: k7._ARGS[("masked_pool", n)]
-                        for n in ("masked_mean_pool", "masked_mean_pool_backward")}),
+                        for n in ("masked_mean_pool", "masked_mean_pool_backward",
+                                  "masked_mean_pool_f32")}),
     ("threshold_sweep.cu", {"threshold_sweep_codes": k9._CODES_ARGS,
                             "threshold_sweep_flush": k9._FLUSH_ARGS,
                             "threshold_sweep_finalize": k9._FINALIZE_ARGS}),
+    ("masked_conv_f32.cu", {"masked_conv_forward_f32":
+                            k7._ARGS[("masked_conv_f32", "masked_conv_forward_f32")]}),
 ])
 def test_wrapper_signatures_match_the_c_entry_points(source, tables):
     """Each ctypes table against its ``extern "C"`` prototype, parameter by

@@ -37,7 +37,19 @@ MODULES = [
     "protnote_tpu_torch.cli.generate_label_embeddings",
     "protnote_tpu_torch.ops.threshold_sweep", "protnote_tpu_torch.evaln.go_dag",
     "protnote_tpu_torch.evaln.results_io", "protnote_tpu_torch.cli.test_models",
+    "protnote_tpu_torch.cli.predict", "protnote_tpu_torch.cli.test_proteinfer",
+    "protnote_tpu_torch.cli.convert_checkpoint",
+    "protnote_tpu_torch.cli.calculate_supervised_metrics", "protnote_tpu_torch.evaln.analysis",
 ]
+# the argument parsers of the inference CLIs, with arguments each requires
+PARSERS = (
+    "from protnote_tpu_torch.cli import predict, test_proteinfer, convert_checkpoint\n"
+    "predict.build_argparser().parse_args(['--fasta', 'x.fa', '--mesh-label', '1'])\n"
+    "test_proteinfer.build_argparser().parse_args(['--only-represented-labels'])\n"
+    "convert_checkpoint.build_argparser().parse_args(['protnote', '--input', 'a.pt',"
+    " '--output', 'b.ckpt'])\n"
+    "serve.build_argparser().parse_args(['--name', 'x', '--annotations-path-name', 'Y'])\n"
+)
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import) protnote_tpu(\.|\s|$)", re.M)
 
 
@@ -59,6 +71,7 @@ def test_importing_the_port_loads_no_jax():
             + "main.build_argparser().parse_args(['--test-paths-names', 'X'])\n"
             + "from protnote_tpu_torch.cli import generate_label_embeddings as g\n"
             + "g.build_argparser().parse_args(['--backend', 'native'])\n"
+            + "from protnote_tpu_torch.cli import serve\n" + PARSERS
             + "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=_env(), cwd=ROOT, timeout=120)
@@ -89,6 +102,7 @@ def test_importing_the_port_loads_nothing_of_the_jax_package():
             "from protnote_tpu_torch.cli import main, serve\n"
             "main.build_argparser().parse_args(['--test-paths-names', 'X'])\n"
             "serve.build_argparser().parse_args(['--calibration-fasta', 'x.fa'])\n"
+            + PARSERS +
             "import chip_smoke\n"
             "print(len(names))\n"
             "print(sorted(m for m in sys.modules if m == 'protnote_tpu'"

@@ -187,7 +187,7 @@ def test_cli_builds_engine_from_config(tmp_path, monkeypatch, rng):
     args = tserve.build_argparser().parse_args(
         ["--config", str(path), "--device", "cpu", "--max-batch", "2",
          "--override", "MIXED_PRECISION", "False"])
-    engine = tserve.build_engine(args)
+    engine, _ = tserve.build_engine(args)
     assert engine.pn_cfg.compute_dtype == torch.float32
     assert engine.pn_cfg.inference_descriptions_per_label == K
     probs = engine.score(_seqs(rng, 3))

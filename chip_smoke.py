@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, inference-CLI, evaluation,
-training, int8, label-text-tower, encoder-training and streamed-training
-paths on one CUDA card (H100).
+training, int8, label-text-tower, encoder-training, streamed-training and
+dense-scorer paths on one CUDA card (H100).
 
     python3 chip_smoke.py
 
@@ -221,7 +221,30 @@ Phases, each printing one line (any failure raises and exits non-zero):
 23. ``cli/test_proteinfer.py`` (``test_proteinfer``): ``main`` on a
     256-sequence labelled FASTA with a random float32 encoder and 32,102-label
     head, through K7's float32 kernels only, and its seqs/s; a 32-sequence
-    batch's forward and its head's ms.
+    batch's forward and its head's ms;
+24. the dense scorer's kernels alone at full width (``dense_*``: 32
+    sequences x 32,102 labels, d 1024, H 3072) against their plain versions
+    (``ops/dense_scorer.py``): K5's centred BN + ReLU + dropout and its bias
+    form, forward and backward (``csrc/bn_relu.cu``; 2^-6 of each tensor's
+    largest |value|, the plain version in column slices, its backward on
+    the kernel's statistics), their keep mask bit for bit against the
+    plain hash over all 3.2e9 elements; ``pair_first_add`` (the same bits),
+    ``pair_train_prod`` and ``pair_train_dw_prod`` (2^-6; cuBLAS on the
+    materialised prod rows beside), ``pair_side_sums`` plain and weighted
+    (1e-3, the same bits twice); K1's prod and zero-hidden forms at the
+    serving width (``pair_mlp_head``; |dlogit| 5e-2);
+25. dense training (``dense_train_*``): ``Trainer.train`` with
+    ``PAIR_BACKEND dense`` and ``OUTPUT_MLP_DROPOUT`` 0.1 at 32 sequences
+    against 32,102 labels, then with ``concatenation_prod``, without
+    output-MLP BatchNorm and with ``GRADIENT_CHECKPOINTING``: step ms,
+    seqs/s, peak memory, launches against ``dense_launches``, a profile of
+    two steps (idle share, kernel ms by name);
+26. dense evaluation (``dense_eval``): ``Trainer.evaluate`` with
+    ``PAIR_BACKEND dense`` on phase 7's FASTA, seqs/s, launches, a batch's
+    logits against the plain dense scorer's;
+27. dense serving (``dense_serving_*``): ``ServingEngine`` with
+    ``concatenation_prod`` and with ``OUTPUT_MLP_NUM_LAYERS 1`` against the
+    plain forward, batch ms and launches.
 Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
 ``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
 doubled (those leaves doubled, the others and nothing else the same, the
@@ -241,7 +264,8 @@ all counted; K7's forward and pool
 in the training run, its float32 forward and pool in phase 23's
 ``test_proteinfer`` run, its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
-32-sequence streamed run; each count set to 0 just
+32-sequence streamed run; the dense scorer's kernels summed over phases
+25-27's runs; each count set to 0 just
 before the path and read just after), its error against the plain version, its time,
 the plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
@@ -281,7 +305,7 @@ LOGIT_ATOL = 5e-2
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
                   "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
-                  "streamed_bn", "masked_pool", "masked_conv_f32")
+                  "streamed_bn", "masked_pool", "masked_conv_f32", "pair_dense")
 # first designs that a phase holds a redesigned kernel against
 # (csrc/variants/): K9's update, whose histogram must be the same
 FIRST_DESIGNS = ("threshold_sweep_v1",)
@@ -411,6 +435,12 @@ K6_KERNELS = ("stream_moments", "stream_moments_backward", "affine_relu",
 DECOMPOSED_KERNELS = ("pair_train_hidden", "pair_train_dx", "pair_train_dw", "bn_relu_forward",
                       "bn_relu_backward")
 MEMORY_TOP = 12  # the largest allocations printed at a step's peak
+DENSE_RATE = 0.1  # OUTPUT_MLP_DROPOUT of the dense runs
+DENSE_PLAIN_COLS = 256  # the dense K5 forms' plain versions, in column slices
+DENSE_STEPS = 3  # steps of each dense training setting
+DENSE_KERNELS = ("pair_first_add", "pair_train_prod", "pair_side_sums", "pair_train_dw_prod",
+                 "bn_relu_dropout_forward", "bn_relu_dropout_backward",
+                 "bias_relu_dropout_forward", "bias_relu_dropout_backward")
 
 
 def bound(nbytes: float = 0.0, ops: float = 0.0, peak: float = BF16_FLOPS) -> dict:
@@ -433,7 +463,7 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_time_ms(fn, reps: int) -> float:
+def cuda_time_ms(fn, reps: int = 1) -> float:
     import torch
 
     fn()  # warm-up
@@ -5045,6 +5075,603 @@ def phase_streamed_training(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# the dense scorer (phases 24-27)
+
+
+def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
+    """K5's dense form (``bn``: centred BN; else the bias) with dropout at
+    full width against its plain version in column slices (each column's
+    work is independent; the mask's columns placed by ``col0``): y and (BN)
+    the moments from the forward; dz and dscale/dbias (or dbias) from the
+    backward, the plain backward on the kernel's statistics as phase 8 does
+    for K5 (a pre-activation within an ulp of 0 would otherwise gate
+    differently); the kernels' times beside the plain version's (its slices
+    in turn) and the bytes bound (z in, y out; z and dy in, dz out)."""
+    import torch
+
+    from protnote_tpu_torch.ops import dense_scorer as ds
+
+    dev = z.device
+    N, Hh = z.shape
+    gen = torch.Generator().manual_seed(77)
+    scale = (0.5 + torch.rand(Hh, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(Hh, generator=gen)).to(dev)
+    layer, rate, step = 0, DENSE_RATE, DENSE_PLAIN_COLS
+    cols = range(0, Hh, step)
+    with torch.no_grad():
+        if bn:
+            fwd = lambda: ds._bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed,  # noqa: E731
+                                                       layer, rate)
+            out = fwd()
+            stats = (out[1], *out[3:])  # mean, istd, inv, shift of the kernel
+            bwd = lambda: ds._bn_relu_dropout_grads_cuda(  # noqa: E731
+                z, dy, rows, n, scale, *stats, seed, layer, rate)
+            pf = lambda j: ds._bn_relu_dropout_fwd_plain(  # noqa: E731
+                z[:, j:j + step], rows, n, scale[j:j + step], bias[j:j + step], seed, layer,
+                rate, j)
+            pb = lambda j: ds._bn_relu_dropout_grads_plain(  # noqa: E731
+                z[:, j:j + step], dy[:, j:j + step], rows, n, scale[j:j + step],
+                *(t[j:j + step] for t in stats), seed, layer, rate, j)
+            fwd_names, bwd_names = ("y", "mean", "var"), ("dz", "dscale", "dbias")
+        else:
+            fwd = lambda: (ds._bias_relu_dropout_fwd_cuda(z, bias, seed, layer, rate),)  # noqa: E731
+            out = fwd()
+            bwd = lambda: ds._bias_relu_dropout_grads_cuda(  # noqa: E731
+                z, dy, bias, seed, layer, rate)
+            pf = lambda j: (ds._bias_relu_dropout_fwd_plain(  # noqa: E731
+                z[:, j:j + step], bias[j:j + step], seed, layer, rate, j),)
+            pb = lambda j: ds._bias_relu_dropout_grads_plain(  # noqa: E731
+                z[:, j:j + step], dy[:, j:j + step], bias[j:j + step], seed, layer, rate, j)
+            fwd_names, bwd_names = ("y",), ("dz", "dbias")
+        grads = bwd()
+        deltas = {k: [] for k in fwd_names + bwd_names}
+        for j in cols:
+            sl = slice(j, j + step)
+            for k, got, want in zip(fwd_names, out, pf(j)):
+                deltas[k].append(delta(got[:, sl] if got.dim() == 2 else got[sl], want))
+            for k, got, want in zip(bwd_names, grads, pb(j)):
+                deltas[k].append(delta(got[:, sl] if got.dim() == 2 else got[sl], want))
+        rel = {k: merge_deltas(v)[1] for k, v in deltas.items()}
+        errs = {k: merge_deltas(v)[0] for k, v in deltas.items()}
+        del out, grads
+        fwd_ms, bwd_ms = cuda_time_ms(fwd, 3), cuda_time_ms(bwd, 3)
+        plain_ms = cuda_time_ms(lambda: [pf(j) for j in cols])
+        plain_bwd_ms = cuda_time_ms(lambda: [pb(j) for j in cols])
+    nb = N * Hh * 2
+    name = "bn_relu_dropout" if bn else "bias_relu_dropout"
+    log(f"dense_{name}", rows=N, width=Hh, rate=rate, rel_errs=rel, rel_tol=K45_REL_TOL,
+        fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
+        fwd_bound_ms=bound(nbytes=2 * nb)["bound_ms"],
+        bwd_bound_ms=bound(nbytes=3 * nb)["bound_ms"], card=card)
+    if max(rel.values()) > K45_REL_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version: {rel}")
+    return {f"{name}_forward": {"max_abs_err": errs["y"], "ms": fwd_ms, "plain_ms": plain_ms,
+                                **bound(nbytes=2 * nb), "library_ms": None},
+            f"{name}_backward": {"max_abs_err": errs["dz"], "ms": bwd_ms,
+                                 "plain_ms": plain_bwd_ms, **bound(nbytes=3 * nb),
+                                 "library_ms": None}}
+
+
+def phase_dense_kernels(card: str) -> dict:
+    """Phase 24: the dense scorer's kernels alone at full width (32
+    sequences x 32,102 labels, d 1024, H 3072) against their plain versions
+    on the same device tensors: K5's centred BN + ReLU + dropout and the
+    bias form, forward and backward (2^-6 of each tensor's largest |value|,
+    in column slices), the keep mask the same bits as the plain hash; the
+    first layer (``pair_first_add``: the same bits; ``pair_train_prod``:
+    2^-6); its backward (``pair_side_sums`` 1e-3, ``pair_train_dw_prod``
+    2^-6, the weighted side sums of dJ 1e-3); each kernel's time, the plain
+    version's, its bound and the library call's: ``torch.add`` into a bf16
+    out for the first add (the same bits), cuBLAS on the materialised prod
+    rows."""
+    import torch
+
+    from protnote_tpu_torch.ops import dense_scorer as ds
+
+    dev = torch.device("cuda")
+    Bq, L, d, Hh = TRAIN_B, NUM_LABELS, D_LATENT, H
+    N = Bq * L
+    gen = torch.Generator().manual_seed(71)
+    seed = torch.tensor([1234567, 7654321], dtype=torch.int64, device=dev)
+    times = {}
+    z = (torch.randn(N, Hh, generator=gen, dtype=torch.float32).to(dev) + 0.3).to(torch.bfloat16)
+    dy = torch.randn(N, Hh, generator=gen, dtype=torch.float32).to(dev).to(torch.bfloat16)
+    em = torch.ones(Bq, device=dev)
+    em[-1] = 0
+    lm = (torch.rand(L, generator=gen) < 0.98).float().to(dev)
+    rows = (em[:, None] * lm[None, :]).reshape(N, 1)
+    n = rows.sum()
+    for bn in (True, False):
+        times.update(dense_act_check(card, bn, z, dy, rows, n, seed))
+        torch.cuda.empty_cache()
+    del z
+    torch.cuda.empty_cache()
+
+    # the keep mask, bit for bit: the bias form on z = 1 keeps bf16(1 / keep)
+    # exactly where the hash keeps
+    with torch.no_grad():
+        ones = torch.ones(N, Hh, dtype=torch.bfloat16, device=dev)
+        yk = ds._bias_relu_dropout_fwd_cuda(ones, torch.zeros(Hh, device=dev), seed, 1,
+                                            DENSE_RATE)
+        del ones
+        wrong = kept = 0
+        rix = torch.arange(N, device=dev)[:, None]
+        for j in range(0, Hh, DENSE_PLAIN_COLS):
+            m = ds.keep_mask(seed, 1, DENSE_RATE, rix,
+                             torch.arange(j, j + DENSE_PLAIN_COLS, device=dev)[None, :])
+            wrong += int(((yk[:, j:j + DENSE_PLAIN_COLS] != 0) != m).sum())
+            kept += int(m.sum())
+        del yk, m
+    log("dense_keep_mask", elements=N * Hh, mismatches=wrong, keep_rate=kept / (N * Hh),
+        rate=DENSE_RATE)
+    if wrong:
+        raise AssertionError(f"the kernels' keep mask differs from the hash in {wrong} places")
+    torch.cuda.empty_cache()
+
+    # the first layer and its backward
+    a = torch.randn(Bq, Hh, generator=gen).to(dev)
+    c = torch.randn(L, Hh, generator=gen).to(dev)
+    P_e = torch.randn(Bq, d, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(L, d, generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn(d, Hh, generator=gen) * (2.0 / d) ** 0.5).to(dev, torch.bfloat16)
+    chunk = 2048
+    with torch.no_grad():
+        z1 = ds._first_fwd_cuda(a, c, P_e, L_e, None).view(Bq, L, Hh)
+        err = max(int((z1[:, l0:l0 + chunk] != (a[:, None] + c[None, l0:l0 + chunk])
+                       .to(torch.bfloat16)).sum()) for l0 in range(0, L, chunk))
+        add_ms = cuda_time_ms(lambda: ds._first_fwd_cuda(a, c, P_e, L_e, None), 3)
+        add_plain_ms = cuda_time_ms(lambda: (a[:, None] + c[None]).to(torch.bfloat16))
+        # one PyTorch call: the float32 sum rounded once into a bf16 out
+        z_lib = torch.empty(Bq, L, Hh, dtype=torch.bfloat16, device=dev)
+        torch.add(a[:, None], c[None], out=z_lib)
+        lib_same = bool(torch.equal(z_lib, z1))
+        add_lib_ms = cuda_time_ms(lambda: torch.add(a[:, None], c[None], out=z_lib), 3)
+        del z1, z_lib
+        log("dense_first_add", mismatched_elements=err, ms=add_ms, plain_ms=add_plain_ms,
+            library_ms=add_lib_ms, library_same_bits=lib_same, card=card)
+        if err or not lib_same:
+            raise AssertionError(f"pair_first_add differs from bf16(a + c) in {err} places "
+                                 f"(torch.add into bf16 the same bits: {lib_same})")
+        times["pair_first_add"] = {"max_abs_err": 0.0, "ms": add_ms, "plain_ms": add_plain_ms,
+                                   **bound(nbytes=N * Hh * 2 + (Bq + L) * Hh * 4),
+                                   "library_ms": add_lib_ms}
+
+        zp = ds.pair_prod_cuda(a, c, P_e, L_e, w).view(Bq, L, Hh)
+
+        def prod_plain(l0, l1):
+            prod = (P_e[:, None] * L_e[None, l0:l1]).reshape(-1, d)
+            pre = (a[:, None] + c[None, l0:l1]).reshape(-1, Hh) + prod.float() @ w.float()
+            return pre.to(torch.bfloat16).view(Bq, -1, Hh)
+
+        p_err = p_big = 0.0
+        for l0 in range(0, L, chunk):
+            want = prod_plain(l0, min(l0 + chunk, L)).float()
+            p_err = max(p_err, float((zp[:, l0:l0 + chunk].float() - want).abs().max()))
+            p_big = max(p_big, float(want.abs().max()))
+        del zp
+        prod_ms = cuda_time_ms(lambda: ds.pair_prod_cuda(a, c, P_e, L_e, w), 3)
+        prod_plain_ms = cuda_time_ms(lambda: [prod_plain(l0, min(l0 + chunk, L))
+                                          for l0 in range(0, L, chunk)])
+        rows_p = (P_e[:, None] * L_e[None]).reshape(N, d)
+        lib_ms = cuda_time_ms(lambda: rows_p @ w, 3)
+    flop = 2.0 * N * d * Hh
+    log("dense_prod_first_layer", rel_err=p_err / p_big, rel_tol=K45_REL_TOL, ms=prod_ms,
+        plain_ms=prod_plain_ms, cublas_prod_ms=lib_ms, tflops=flop / prod_ms / 1e9, card=card)
+    if p_err > K45_REL_TOL * p_big:
+        raise AssertionError(f"pair_train_prod disagrees with its plain version: {p_err}")
+    times["pair_train_prod"] = {"max_abs_err": p_err, "ms": prod_ms, "plain_ms": prod_plain_ms,
+                                **bound(nbytes=N * Hh * 2, ops=flop), "library_ms": lib_ms}
+
+    with torch.no_grad():
+        dz = dy
+        sb, sl = ds.side_sums_cuda(dz, Bq, L)
+        sb2, sl2 = ds.side_sums_cuda(dz, Bq, L)
+        same = bool(torch.equal(sb, sb2) and torch.equal(sl, sl2))
+        del sb2, sl2
+        dz3 = dz.view(Bq, L, Hh)
+        want_b = torch.stack([dz3[b].float().sum(0) for b in range(Bq)])
+        want_l = torch.zeros(L, Hh, device=dev)
+        for b in range(Bq):
+            want_l += dz3[b].float()
+        s_rel = max(rel_err(sb, want_b), rel_err(sl, want_l))
+        s_abs = max(float((sb - want_b).abs().max()), float((sl - want_l).abs().max()))
+        del want_l
+        side_ms = cuda_time_ms(lambda: ds.side_sums_cuda(dz, Bq, L), 3)
+        side_plain_ms = cuda_time_ms(lambda: (dz3.float().sum(1), dz3.float().sum(0)))
+        dw = ds.dw_prod_cuda(P_e, L_e, dz)
+        want_w = torch.zeros(d, Hh, device=dev)
+        for l0 in range(0, L, chunk):
+            pr = (P_e[:, None] * L_e[None, l0:l0 + chunk]).reshape(-1, d)
+            want_w += pr.float().t() @ dz3[:, l0:l0 + chunk].reshape(-1, Hh).float()
+        w_rel = rel_err(dw, want_w)
+        w_abs = float((dw.float() - want_w).abs().max())
+        dw_ms = cuda_time_ms(lambda: ds.dw_prod_cuda(P_e, L_e, dz), 3)
+        dw_plain_ms = cuda_time_ms(lambda: [(P_e[:, None] * L_e[None, l0:l0 + chunk])
+                                        .reshape(-1, d).float().t() @
+                                        dz3[:, l0:l0 + chunk].reshape(-1, Hh).float()
+                                        for l0 in range(0, L, chunk)])
+        dw_lib_ms = cuda_time_ms(lambda: rows_p.t() @ dz, 3)
+        dJ = dz @ w.t()
+        wb, wl = ds.side_sums_cuda(dJ, Bq, L, u=P_e, v=L_e)
+        dJ3 = dJ.view(Bq, L, d)
+        want_b = torch.stack([(dJ3[b].float() * L_e.float()).sum(0) for b in range(Bq)])
+        want_l = torch.zeros(L, d, device=dev)
+        for b in range(Bq):
+            want_l += dJ3[b].float() * P_e[b].float()
+        ws_rel = max(rel_err(wb, want_b), rel_err(wl, want_l))
+        del dJ, dJ3, want_l, rows_p
+    log("dense_first_backward", side_sums_rel_err=s_rel, side_sums_same_bits=same,
+        dw_prod_rel_err=w_rel, weighted_side_sums_rel_err=ws_rel, side_sums_ms=side_ms,
+        side_sums_plain_ms=side_plain_ms, dw_prod_ms=dw_ms, dw_prod_plain_ms=dw_plain_ms,
+        cublas_dw_ms=dw_lib_ms, dw_tflops=flop / dw_ms / 1e9, card=card)
+    if not (s_rel <= K7_SUMS_REL_TOL and ws_rel <= K7_SUMS_REL_TOL and w_rel <= K45_REL_TOL
+            and same):
+        raise AssertionError(f"the first layer's backward disagrees: side sums {s_rel}, "
+                             f"weighted {ws_rel}, dW_prod {w_rel}, same bits {same}")
+    times["pair_side_sums"] = {"max_abs_err": s_abs, "ms": side_ms, "plain_ms": side_plain_ms,
+                               **bound(nbytes=N * Hh * 2 + (Bq + L) * Hh * 4),
+                               "library_ms": None}
+    times["pair_train_dw_prod"] = {"max_abs_err": w_abs, "ms": dw_ms, "plain_ms": dw_plain_ms,
+                                   **bound(nbytes=N * Hh * 2, ops=flop), "library_ms": dw_lib_ms}
+    del dy, dz, dz3
+    torch.cuda.empty_cache()
+    times.update(dense_k1_check(card))
+    return times
+
+
+def plain_head(a, c, w_out):
+    """The one-layer head's plain version: ``bf16(relu(a[b] + c[l])) . w_out``
+    in float32, (B, L) without b_out, in label tiles."""
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    out = torch.empty(a.shape[0], c.shape[0], dtype=torch.float32, device=a.device)
+    for l0 in range(0, c.shape[0], LABEL_TILE):
+        h = torch.relu(a[:, None] + c[None, l0:l0 + LABEL_TILE]).to(torch.bfloat16)
+        out[:, l0:l0 + h.shape[1]] = ps._f32_product(h, w_out[:, None], torch.bfloat16)[..., 0]
+    return out
+
+
+def dense_k1_check(card: str) -> dict:
+    """K1's two new forms at full serving width (32 sequences x 64,204 label
+    rows): ``w1_prod`` (``pair_train_prod``'s ReLU'd first layer, then the
+    two hidden layers) and no hidden layer (``pair_mlp_head``), each against
+    the plain scorer: logits to 5e-2; the head also alone against
+    :func:`plain_head` on the same a and c."""
+    import torch
+
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    gen = torch.Generator().manual_seed(72)
+    dev = torch.device("cuda")
+    P_e = torch.randn(B, D_LATENT, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(NUM_LABELS * K_DESCRIPTIONS, D_LATENT, generator=gen).to(dev,
+                                                                               torch.bfloat16)
+    Lr = L_e.shape[0]
+    out = {}
+    for form, n_hidden, prod in (("prod", 2, True), ("one_layer", 0, False),
+                                 ("one_layer_prod", 0, True)):
+        folded = random_folded(gen, D_LATENT, H, n_hidden, dev)
+        if prod:
+            folded.w1_prod = ((torch.rand(D_LATENT, H, generator=gen) * 2 - 1) *
+                              (6.0 / (3 * D_LATENT)) ** 0.5).to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            got = ps.pair_logits_tiled_cuda(folded, P_e, L_e, LABEL_TILE)
+            want = ps.pair_logits_tiled_reference(folded, P_e, L_e, LABEL_TILE)
+            err = float((got - want).abs().max())
+            ms = cuda_time_ms(lambda: ps.pair_logits_tiled_cuda(folded, P_e, L_e, LABEL_TILE), 2)
+            plain_ms = cuda_time_ms(lambda: ps.pair_logits_tiled_reference(folded, P_e, L_e,
+                                                                       LABEL_TILE))
+            if form == "one_layer":  # the head alone, kernel and plain, on one call's a, c
+                kern = ps._K1Kernel(folded, P_e, L_e, torch.bfloat16)
+                logits = kern.new_logits()
+                kern.head(logits)
+                head_want = plain_head(kern.a, kern.c, kern.w_out) + folded.b_out
+                head_err = float((logits - head_want).abs().max())
+                head_ms = cuda_time_ms(lambda: kern.head(logits), 3)
+                head_plain_ms = cuda_time_ms(lambda: plain_head(kern.a, kern.c, kern.w_out))
+                del kern, logits, head_want
+        flop = 2.0 * B * Lr * (D_LATENT * H * prod + n_hidden * H * H)
+        log(f"dense_k1_{form}", max_abs_logit_err=err, logit_atol=LOGIT_ATOL,
+            logit_std=float(want.std()), ms=ms, plain_ms=plain_ms,
+            tflops=flop / ms / 1e9 if flop else None,
+            launches_a_call=len(ps.launch_plan(B, Lr, H, max(n_hidden, 1)).chunks), card=card)
+        if not (bool(torch.isfinite(got).all()) and err <= LOGIT_ATOL):
+            raise AssertionError(f"K1 {form} disagrees with the plain scorer: {err}")
+        if form == "one_layer":
+            # reads a, c and w_out and writes the logits; a + c and the
+            # multiply-add are 3 float32 operations a pair and column
+            log("dense_k1_head", max_abs_logit_err=head_err, ms=head_ms,
+                plain_ms=head_plain_ms, card=card)
+            if head_err > LOGIT_ATOL:
+                raise AssertionError(f"pair_mlp_head disagrees with the plain head: {head_err}")
+            out["pair_mlp_head"] = {
+                "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
+                **bound(nbytes=(B + Lr) * H * 4 + H * 2 + B * Lr * 4, ops=3.0 * B * Lr * H,
+                        peak=F32_FLOPS),
+                "library_ms": None}
+        del got, want, folded
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_models(**params):
+    """Full-width configs as :func:`random_models` with config keys
+    ``params`` (FEATURE_FUSION, OUTPUT_MLP_BATCHNORM, OUTPUT_MLP_NUM_LAYERS,
+    PAIR_BACKEND, OUTPUT_MLP_DROPOUT, GRADIENT_CHECKPOINTING) and seeded
+    random weights, the ProtNote linears He-scaled."""
+    import torch
+
+    from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
+    from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
+
+    pi_cfg = ProteInferConfig(compute_dtype=torch.bfloat16)
+    pn_cfg = ProtNoteConfig.from_params(
+        params, protein_embedding_dim=pi_cfg.output_channels, label_embedding_dim=D_LATENT,
+        inference_descriptions_per_label=K_DESCRIPTIONS, label_tile=LABEL_TILE,
+        compute_dtype=torch.bfloat16)
+    pi_params, pi_state = init_proteinfer(torch.Generator().manual_seed(0), pi_cfg)
+    pn_params, pn_state = init_protnote(torch.Generator().manual_seed(1), pn_cfg)
+    he_scale_linears(pn_params)
+    return pi_cfg, pn_cfg, {"trainable": {"protnote": pn_params}, "model_state": pn_state,
+                            "enc_params": pi_params, "enc_state": pi_state}
+
+
+def reset_dense_launches() -> None:
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    for counts in (ds.LAUNCHES, st.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    ps.LAUNCHES = ps.HEAD_LAUNCHES = 0
+
+
+def dense_launch_counts() -> dict:
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    return {**ds.LAUNCHES, "pair_mlp_layer": ps.LAUNCHES, "pair_mlp_head": ps.HEAD_LAUNCHES,
+            **{k: v for k, v in st.LAUNCHES.items() if v}}
+
+
+DENSE_SETTINGS = (
+    ("dense_dropout", {}),
+    ("prod", {"FEATURE_FUSION": "concatenation_prod"}),
+    ("no_bn", {"OUTPUT_MLP_BATCHNORM": False}),
+    ("remat", {"GRADIENT_CHECKPOINTING": True}),
+)
+
+
+def phase_dense_training(card: str) -> dict:
+    """Phase 25: ``Trainer.train`` through the materialised dense scorer at
+    full width (32 sequences a step against all 32,102 labels), one epoch of
+    ``DENSE_STEPS`` steps for each setting of ``DENSE_SETTINGS``, each with
+    ``PAIR_BACKEND dense`` and ``OUTPUT_MLP_DROPOUT`` 0.1: the per-step
+    losses (finite), median warm step ms, seqs/s, peak memory, the launches
+    (each the schedule's, ``dense_launches`` a step; none of K4, K5 or K6),
+    and a ``torch.profiler`` pass of two steps (idle share, device ms a step
+    by kernel).  Returns the launches summed over the settings."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.data.dataset import DatasetConfig
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    types = ("name", "label")
+    cfg = DatasetConfig(dataset_type="train", label_augmentation_descriptions=types,
+                        inference_go_descriptions=types,
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds = fasta_dataset(tmp, "dense.fasta", TRAIN_B * (DENSE_STEPS + 2), 23, cfg)
+
+        def batcher(seed=42):
+            return BucketBatcher(train_ds, TRAIN_B, buckets=(256, 512, 1024), shuffle=True,
+                                 drop_last=True, seed=seed, device_label_gather=True)
+
+        for name, extra in DENSE_SETTINGS:
+            params = {"PAIR_BACKEND": "dense", "OUTPUT_MLP_DROPOUT": DENSE_RATE, **extra}
+            pi_cfg, pn_cfg, ts = dense_models(**params)
+            opt = Optimizer(TRAIN_PARAMS)
+            ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
+                                   ts["enc_params"], ts["enc_state"], opt)
+            trainer = Trainer(ts0, pi_cfg, pn_cfg, TrainerConfig(
+                num_epochs=1, decision_threshold=THRESHOLD), device=dev,
+                loss_fn=get_loss_fn(TRAIN_PARAMS), optimizer=opt)
+            steps, step_fn = [], trainer._train_step
+
+            def timed_step(ts_, batch, gen, steps=steps, step_fn=step_fn):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts_, m = step_fn(ts_, batch, gen)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t, float(m["loss"]),
+                              float(m["grad_norm"])))
+                return ts_, m
+
+            trainer._train_step = timed_step
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_dense_launches()
+            b = batcher()
+            trainer.train(b, None)
+            torch.cuda.synchronize()
+            launches = dense_launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            trainer._train_step = step_fn
+            losses = [x[1] for x in steps]
+            per_step = ds.dense_launches(
+                pn_cfg.output_mlp_num_layers, True, pn_cfg.output_mlp_batchnorm,
+                pn_cfg.feature_fusion == "concatenation_prod",
+                remat=pn_cfg.gradient_checkpointing)
+            want = {k: v * len(steps) for k, v in per_step.items()}
+            got = {k: launches[k] for k in want}
+            others = {k: v for k, v in launches.items() if k not in want and v}
+            if not steps or not all(math.isfinite(x) for x in losses) or got != want or \
+                    others or not any(v for v in got.values()):
+                raise AssertionError(f"dense training {name}: losses {losses}, launches {got} "
+                                     f"(schedule {want}), others {others}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
+            # two profiled steps on batches of the same data
+            placed = []
+            matrix = trainer._label_matrix_for(train_ds)
+            for batch in batcher(seed=7):
+                placed.append(trainer._place(batch_to_device_dict(batch, dev), matrix))
+                if len(placed) == 2:
+                    break
+            gen = torch.Generator(device=dev).manual_seed(1)
+            it = iter(placed)
+
+            def one_step(trainer=trainer, it=it, gen=gen, step_fn=step_fn):
+                trainer.ts, _ = step_fn(trainer.ts, next(it), gen)
+
+            wall, busy, top = device_profile(one_step, len(placed))
+            log(f"dense_train_{name}", settings=params, sequences_per_step=TRAIN_B,
+                labels=NUM_LABELS, steps=len(steps), step_losses=losses,
+                grad_norms=[x[2] for x in steps], first_step_ms=steps[0][0] * 1e3,
+                median_warm_step_ms=med * 1e3, seqs_per_s=TRAIN_B / med, peak_mem_gb=peak,
+                launches=got, profiled_wall_ms_per_step=wall * 1e3 / len(placed),
+                device_busy_ms_per_step=None if busy is None else busy * 1e3 / len(placed),
+                idle_share=None if busy is None else 1.0 - busy / wall,
+                top_kernels_ms_per_step=top, card=card)
+            del trainer, ts0, ts, placed, it, one_step
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_dense_eval(card: str) -> dict:
+    """Phase 26: ``Trainer.evaluate`` with ``PAIR_BACKEND dense`` on phase
+    7's 256-sequence FASTA: the materialised chain in label chunks (the
+    first layer through ``pair_first_add``, eval BN + ReLU through K6's
+    ``affine_relu``, the hidden products and the head in ``torch.matmul``),
+    then K3.  Its seqs/s (a second, warm pass), launches and finite metrics;
+    the first batch's logits against the same eval step with the plain dense
+    scorer (5e-2)."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.models import fusion
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.step import batch_to_device_dict
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = eval_dataset(tmp)
+        batcher = eval_batcher(data)
+    pi_cfg, pn_cfg, ts = dense_models(PAIR_BACKEND="dense")
+    trainer = Trainer(ts, pi_cfg, pn_cfg,
+                      TrainerConfig(decision_threshold=THRESHOLD, estimate_map=True),
+                      device="cuda")
+    trainer.evaluate(batcher)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_dense_launches()
+    for k in k3.LAUNCHES:
+        k3.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(batcher)["metrics"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {**{k: v for k, v in dense_launch_counts().items() if v},
+                "affine_relu": st.LAUNCHES["affine_relu"],
+                **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+    if not (launches.get("pair_first_add", 0) > 0 and launches["affine_relu"] > 0 and
+            launches["eval_acc_update"] > 0 and not launches.get("pair_mlp_layer")):
+        raise AssertionError(f"dense evaluation skipped a kernel: {launches}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"dense evaluation: non-finite metrics {metrics}")
+    batch = next(iter(batcher))
+    matrix = trainer._label_matrix_for(data)
+    arrays = trainer._place(batch_to_device_dict(batch, trainer.device), matrix)
+    arrays = trainer._swap_in_latents(arrays, trainer._label_latents(arrays))
+    got = trainer._eval_step(trainer.ts, arrays)["logits"]
+    with mock.patch.object(fusion, "pair_logits_dense", ds.pair_logits_dense_reference):
+        want = trainer._eval_step(trainer.ts, arrays)["logits"]
+    err = float((got - want).abs().max())
+    log("dense_eval", sequences=len(data), seconds=sec, seqs_per_s=len(data) / sec,
+        batch_ms=sec * 1e3 / len(batcher), chunk_rows=ds.EVAL_CHUNK_ROWS, launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, max_abs_logit_err=err,
+        logit_atol=LOGIT_ATOL, logit_std=float(want.std()), metrics=metrics, card=card)
+    if not (bool(torch.isfinite(got).all()) and err <= LOGIT_ATOL):
+        raise AssertionError(f"dense evaluation disagrees with the plain dense scorer: {err}")
+    return {k: v for k, v in launches.items() if k in DENSE_KERNELS}
+
+
+def phase_dense_serving(card: str) -> dict:
+    """Phase 27: ``ServingEngine`` with ``FEATURE_FUSION concatenation_prod``
+    (K1's prod form: ``pair_train_prod`` a chunk, then the hidden layers)
+    and with ``OUTPUT_MLP_NUM_LAYERS 1`` (``pair_mlp_head``): scores against
+    the plain forward (probabilities 1e-2, as phase 5), then three full
+    batches of 32 sequences (one bucket) timed, with their launches: the
+    first-layer launch once a label chunk of each batch."""
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(9)
+    matrix = random_label_matrix()
+    vocab = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
+    total = {}
+    for name, params, needed in (
+            ("prod", {"FEATURE_FUSION": "concatenation_prod"}, ("pair_train_prod",
+                                                                 "pair_mlp_layer")),
+            ("one_layer", {"OUTPUT_MLP_NUM_LAYERS": 1}, ("pair_mlp_head",))):
+        pi_cfg, pn_cfg, ts = dense_models(**params)
+        engine = ServingEngine(ts, pi_cfg, pn_cfg, matrix, vocab, buckets=(512, 1024),
+                               max_batch=B, device="cuda")
+        seqs, _ = phase_parity(engine, rng, name=f"dense_serving_{name}_parity")
+        full = random_sequences(rng, rng.integers(100, 500, B))  # one batch, bucket 512
+        engine.score(full)
+        torch.cuda.synchronize()
+        reset_dense_launches()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            probs = engine.score(full)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        launches = {k: v for k, v in dense_launch_counts().items() if v}
+        # the prod layer once a label chunk; the one-layer head once a batch
+        chunks = len(ps.launch_plan(B, NUM_LABELS * K_DESCRIPTIONS, H, 1).chunks)
+        first = launches.get("pair_train_prod" if name == "prod" else "pair_mlp_head", 0)
+        if not np.isfinite(probs).all() or any(launches.get(k, 0) <= 0 for k in needed) or \
+                first != 3 * (chunks if name == "prod" else 1):
+            raise AssertionError(f"dense serving {name}: launches {launches}, {chunks} chunks "
+                                 "a batch")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"dense_serving_{name}", settings=params, batch=B, labels=NUM_LABELS,
+            label_rows=NUM_LABELS * K_DESCRIPTIONS, batch_ms=ms, seqs_per_s=B * 1e3 / ms,
+            launches_3_batches=launches, card=card)
+        del engine, ts
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -5105,6 +5732,14 @@ def main() -> None:
     phase_streamed_scorer(card)
     torch.cuda.empty_cache()
     stream_launches = phase_streamed_training(card)
+    torch.cuda.empty_cache()
+    dense_times = phase_dense_kernels(card)
+    torch.cuda.empty_cache()
+    dense_launches = phase_dense_training(card)
+    torch.cuda.empty_cache()
+    for counts in (phase_dense_eval(card), phase_dense_serving(card)):
+        for k, v in counts.items():
+            dense_launches[k] = dense_launches.get(k, 0) + v
     if "jax" in sys.modules or any(m == "protnote_tpu" or m.startswith("protnote_tpu.")
                                    for m in sys.modules):
         raise AssertionError("the port's serving, inference CLIs, evaluation, training or "
@@ -5184,7 +5819,21 @@ def main() -> None:
         "name": k, "route": "cuda", "source": "protnote_tpu_torch/csrc/streamed_bn.cu",
         "replaces": "protnote_tpu/ops/streaming_train.py:270", "launches": stream_launches[k],
         **{f: k6_times[k][f] for f in KERNEL_FIELDS},
-    } for k in K6_KERNELS]}), flush=True)
+    } for k in K6_KERNELS] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": dense_launches.get(k, 0),
+        **{f: dense_times[k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep in (
+        ("pair_first_add", "pair_dense", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("pair_train_prod", "pair_train", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("pair_side_sums", "pair_dense", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("pair_train_dw_prod", "pair_train_bwd", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("bn_relu_dropout_forward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("bn_relu_dropout_backward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("bias_relu_dropout_forward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("bias_relu_dropout_backward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("pair_mlp_head", "pair_scorer", "protnote_tpu/ops/pair_scorer.py:197"))]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,11 +36,89 @@
 // elementwise affine + ReLU live in bn_columns.cuh, which the streamed
 // scorer's kernels (streamed_bn.cu) share.
 
+//
+// The dense scorer's forms (ops/dense_scorer.py, the TPU chain
+// protnote_tpu/ops/pair_scorer.py:56 output_mlp_apply with
+// models/layers.py:76 batchnorm_apply's train branch and :151 dropout):
+//   bn_relu_dropout_forward: the JAX dense BatchNorm's centred moments in
+//     two passes (mean = sum(rows * z) / n; var = sum(rows * (z - mean)^2)
+//     / n: the moment kernel with shift 0, then with shift mean), then
+//     y = dropout(bf16(relu(f32(z) * inv + shift)));
+//   bn_relu_dropout_backward: K5's backward with dy first sent through
+//     dropout's transpose;
+//   bias_relu_dropout_forward: y = dropout(relu(bf16(f32(z) + bias))), the
+//     output MLP without BatchNorm;
+//   bias_relu_dropout_backward: dz = gate * dropout^T(dy) and dbias = its
+//     column sums, in one pass over (z, dy) and a fixed-order tail.
+// dropout(y) = keep ? bf16(f32(y) / keep_f) : 0, with keep_f the compute
+// dtype's 1 - rate and keep a counter hash of (seed, layer, row, column)
+// (keep_bit): nothing stores the mask, the backward draws it again, and
+// ops/dense_scorer.py:keep_mask computes the same bits on the CPU.  A
+// threshold of 2^24 keeps every element (no dropout).
+
 #include "bn_columns.cuh"
 
 namespace {
 
 constexpr float EPS = 1e-5f;      // BN_EPS of the JAX package
+constexpr uint32_t KEEP_ALL = 1u << 24;  // a threshold past every 24-bit draw
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// The per-layer keys of the dropout hash from the seed's two words, and
+// the divisor of a kept element with its correctly rounded reciprocal.
+struct DropKey {
+  uint32_t k0, k1, threshold;
+  float keep, rkeep;
+};
+
+__device__ __forceinline__ DropKey drop_key(const long long* seed, int layer, uint32_t threshold,
+                                            float keep) {
+  DropKey d;
+  d.k0 = fmix32((uint32_t)seed[0] ^ ((uint32_t)(layer + 1) * 0x9E3779B1u));
+  d.k1 = fmix32((uint32_t)seed[1] + d.k0);
+  d.threshold = threshold;
+  d.keep = keep;
+  d.rkeep = __frcp_rn(keep);
+  return d;
+}
+
+// The row's half of the hash (the same for all its columns) and the
+// column's (the same for all its rows): a thread keeps its 8 columns'.
+__device__ __forceinline__ uint32_t row_hash(const DropKey& d, long long row) {
+  return fmix32((uint32_t)row * 0x9E3779B1u ^ d.k0);
+}
+
+__device__ __forceinline__ uint32_t col_key(const DropKey& d, int col) {
+  return (uint32_t)col * 0x85EBCA77u ^ d.k1;
+}
+
+__device__ __forceinline__ void col_keys(const DropKey& d, int col, uint32_t (&ck)[VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) ck[e] = col_key(d, col + e);
+}
+
+__device__ __forceinline__ bool keep_bit(const DropKey& d, uint32_t rh, uint32_t ck) {
+  return (fmix32(rh ^ ck) >> 8) < d.threshold;
+}
+
+// dropout of one bf16 value v (its own transpose): bf16(v / keep) where
+// kept.  The quotient is q = v r and one correction, q + fma(-q, keep, v) r,
+// with r = rn(1 / keep): for a bf16 v and a bf16 keep it is the correctly
+// rounded float32 quotient (tests/test_torch_dense_scorer.py checks every
+// bf16 v against the true division for the rates it tries), without the
+// division's slow path.
+__device__ __forceinline__ float drop(const DropKey& d, uint32_t rh, uint32_t ck, float v) {
+  if (!keep_bit(d, rh, ck)) return 0.f;
+  const float q = __fmul_rn(v, d.rkeep);
+  return __bfloat162float(__float2bfloat16_rn(__fmaf_rn(__fmaf_rn(-q, d.keep, v), d.rkeep, q)));
+}
 
 // Forward tail: one thread per column adds the chunks in order.
 __global__ void bn_moments_tail_kernel(const float* __restrict__ part1,
@@ -73,13 +151,98 @@ __global__ void bn_moments_tail_kernel(const float* __restrict__ part1,
   shift[c] = __fsub_rn(bias[c], __fmul_rn(m, iv));
 }
 
-// Backward pass 1: per row chunk, column sums of g and g * xhat.
+
+// The centred moments' tails: first mean = sum / n (mode 0), then var and
+// the affine from the second pass's sums (mode 1).
+__global__ void centred_tail_kernel(const float* __restrict__ part, int chunks,
+                                    const float* __restrict__ n_ptr,
+                                    const float* __restrict__ scale,
+                                    const float* __restrict__ bias, float* __restrict__ mean,
+                                    float* __restrict__ var, float* __restrict__ istd,
+                                    float* __restrict__ inv, float* __restrict__ shift, int H,
+                                    int mode) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= H) return;
+  float t = 0.f;
+  for (int k = 0; k < chunks; ++k) t = __fadd_rn(t, part[(size_t)k * H + c]);
+  const float n = *n_ptr;
+  if (mode == 0) {
+    mean[c] = __fdiv_rn(t, n);
+    return;
+  }
+  const float v = __fdiv_rn(t, n);
+  const float is = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(v, EPS)));
+  const float iv = __fmul_rn(is, scale[c]);
+  var[c] = v;
+  istd[c] = is;
+  inv[c] = iv;
+  shift[c] = __fsub_rn(bias[c], __fmul_rn(mean[c], iv));
+}
+
+// y = dropout(bf16(relu(f32(z) * inv + shift))) (BN), or
+// y = dropout(relu(bf16(f32(z) + bias))) (no BN: inv unused, shift = bias).
+// Each thread owns 8 columns (their affine and hash keys in registers) and
+// walks down the rows, as affine_relu_kernel.
+template <bool BN, bool DROP>
+__global__ void __launch_bounds__(EW_THREADS)
+act_dropout_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ inv,
+                   const float* __restrict__ shift, const long long* __restrict__ seed,
+                   int layer, uint32_t threshold, float keep, __nv_bfloat16* __restrict__ y,
+                   long long N, int H) {
+  const int vpr = H / VEC;
+  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
+  if (cv >= vpr) return;
+  float iv[VEC], sh[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    iv[e] = BN ? inv[cv * VEC + e] : 1.f;
+    sh[e] = shift[cv * VEC + e];
+  }
+  DropKey dk;
+  uint32_t ck[VEC];
+  if (DROP) {
+    dk = drop_key(seed, layer, threshold, keep);
+    col_keys(dk, cv * VEC, ck);
+  }
+  const uint4* zv = reinterpret_cast<const uint4*>(z);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+#pragma unroll 4
+  for (long long r = blockIdx.x; r < N; r += gridDim.x) {
+    const long long v = r * vpr + cv;
+    float f[VEC];
+    unpack8(zv[v], f);
+    const uint32_t rh = DROP ? row_hash(dk, r) : 0u;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float pre = BN ? affine(f[e], iv[e], sh[e]) : __fadd_rn(f[e], sh[e]);
+      float a = fmaxf(__bfloat162float(__float2bfloat16_rn(pre)), 0.f);
+      if (DROP) a = drop(dk, rh, ck[e], a);
+      f[e] = a;
+    }
+    yv[v] = pack8(f);
+  }
+}
+
+// The backward's dy through dropout's transpose, in place of dy.
+template <bool DROP>
+__device__ __forceinline__ void dropped_dy(const DropKey& dk, long long row,
+                                           const uint32_t (&ck)[VEC], float (&df)[VEC]) {
+  if (!DROP) return;
+  const uint32_t rh = row_hash(dk, row);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) df[e] = drop(dk, rh, ck[e], df[e]);
+}
+
+// Backward pass 1: per row chunk, column sums of g and g * xhat, with dy
+// first sent through dropout's transpose when DROP.
+template <bool DROP>
 __global__ void __launch_bounds__(RED_WARPS * 32)
 bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
                     const float* __restrict__ mean, const float* __restrict__ istd,
                     const float* __restrict__ inv, const float* __restrict__ shift,
-                    float* __restrict__ part1, float* __restrict__ part2, long long N, int H,
-                    long long rows_per_chunk) {
+                    const long long* __restrict__ seed, int layer, uint32_t threshold,
+                    float keep, float* __restrict__ part1, float* __restrict__ part2, long long N,
+                    int H, long long rows_per_chunk) {
   __shared__ float s[2][RED_WARPS][COLS];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -87,6 +250,12 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
   const int col = c0 + lane * VEC;
   const long long first = (long long)blockIdx.y * rows_per_chunk;
   const long long last = min(first + rows_per_chunk, N);
+  DropKey dk;
+  uint32_t ck[VEC];
+  if (DROP) {
+    dk = drop_key(seed, layer, threshold, keep);
+    col_keys(dk, col, ck);
+  }
   float mu[VEC], is[VEC], iv[VEC], sh[VEC], g[2][VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
@@ -97,11 +266,12 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
     g[0][e] = 0.f;
     g[1][e] = 0.f;
   }
-#pragma unroll 4
+#pragma unroll(DROP ? 2 : 4)
   for (long long i = first + warp; i < last; i += RED_WARPS) {
     float zf[VEC], df[VEC];
     unpack8(*reinterpret_cast<const uint4*>(z + i * H + col), zf);
     unpack8(*reinterpret_cast<const uint4*>(dy + i * H + col), df);
+    dropped_dy<DROP>(dk, i, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float ge = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;
@@ -114,21 +284,29 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
   block_column_sums<2>(s, g, out, blockIdx.y, c0, H);
 }
 
-// Backward pass 2: dz = bf16(istd * scale * (g - rows / n * (G1 + G2 * xhat))).
-// Each thread owns 8 columns, keeps their seven per-column values in
-// registers and walks down the rows.
+// Backward pass 2: dz = bf16(istd * scale * (g - rows / n * (G1 + G2 * xhat))),
+// dy dropped first when DROP.  Each thread owns 8 columns, keeps their seven
+// per-column values in registers and walks down the rows.
+template <bool DROP>
 __global__ void __launch_bounds__(EW_THREADS)
 bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
                   const float* __restrict__ rows, const float* __restrict__ n_ptr,
                   const float* __restrict__ scale, const float* __restrict__ mean,
                   const float* __restrict__ istd, const float* __restrict__ inv,
                   const float* __restrict__ shift, const float* __restrict__ G1,
-                  const float* __restrict__ G2, __nv_bfloat16* __restrict__ dz,
-                  long long N, int H) {
+                  const float* __restrict__ G2, const long long* __restrict__ seed, int layer,
+                  uint32_t threshold, float keep, __nv_bfloat16* __restrict__ dz, long long N,
+                  int H) {
   const int vpr = H / VEC;
   const int cv = blockIdx.y * blockDim.x + threadIdx.x;
   if (cv >= vpr) return;
   const float n = *n_ptr;
+  DropKey dk;
+  uint32_t ck[VEC];
+  if (DROP) {
+    dk = drop_key(seed, layer, threshold, keep);
+    col_keys(dk, cv * VEC, ck);
+  }
   float iv[VEC], sh[VEC], mu[VEC], is[VEC], g1[VEC], g2[VEC], coef[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
@@ -151,6 +329,7 @@ bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __re
     float zf[VEC], df[VEC], out[VEC];
     unpack8(zv[v], zf);
     unpack8(dv[v], df);
+    dropped_dy<DROP>(dk, r, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float g = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;
@@ -160,6 +339,51 @@ bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __re
     }
     out_v[v] = pack8(out);
   }
+}
+
+// No BN, backward: dz = bf16(z + bias) > 0 ? dropout^T(dy) : 0 written,
+// and its column sums per row chunk (dbias), one pass over (z, dy).
+template <bool DROP>
+__global__ void __launch_bounds__(RED_WARPS * 32)
+bias_relu_grad_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
+                      const float* __restrict__ bias, const long long* __restrict__ seed,
+                      int layer, uint32_t threshold, float keep, __nv_bfloat16* __restrict__ dz,
+                      float* __restrict__ part, long long N, int H, long long rows_per_chunk) {
+  __shared__ float s[1][RED_WARPS][COLS];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * COLS;
+  const int col = c0 + lane * VEC;
+  const long long first = (long long)blockIdx.y * rows_per_chunk;
+  const long long last = min(first + rows_per_chunk, N);
+  DropKey dk;
+  uint32_t ck[VEC];
+  if (DROP) {
+    dk = drop_key(seed, layer, threshold, keep);
+    col_keys(dk, col, ck);
+  }
+  float b[VEC], acc[1][VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    b[e] = bias[col + e];
+    acc[0][e] = 0.f;
+  }
+#pragma unroll 2
+  for (long long i = first + warp; i < last; i += RED_WARPS) {
+    float zf[VEC], df[VEC];
+    unpack8(*reinterpret_cast<const uint4*>(z + i * H + col), zf);
+    unpack8(*reinterpret_cast<const uint4*>(dy + i * H + col), df);
+    dropped_dy<DROP>(dk, i, ck, df);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float h = __bfloat162float(__float2bfloat16_rn(__fadd_rn(zf[e], b[e])));
+      df[e] = h > 0.f ? df[e] : 0.f;
+      acc[0][e] = __fadd_rn(acc[0][e], df[e]);
+    }
+    *reinterpret_cast<uint4*>(dz + i * H + col) = pack8(df);
+  }
+  float* const out[1] = {part};
+  block_column_sums<1>(s, acc, out, blockIdx.y, c0, H);
 }
 
 }  // namespace
@@ -195,6 +419,68 @@ extern "C" int bn_relu_forward(const void* z, const void* rows, const void* n,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <bool BN>
+cudaError_t launch_act(const void* z, const float* inv, const float* shift, const void* seed,
+                       int layer, uint32_t threshold, float keep, void* y, long long N, int H,
+                       cudaStream_t s) {
+  const dim3 grid = elementwise_grid(N, H);
+  const int threads = elementwise_threads(H);
+  const __nv_bfloat16* z_ = static_cast<const __nv_bfloat16*>(z);
+  const long long* seed_ = static_cast<const long long*>(seed);
+  __nv_bfloat16* y_ = static_cast<__nv_bfloat16*>(y);
+  if (threshold >= KEEP_ALL && BN)
+    affine_relu_kernel<<<grid, threads, 0, s>>>(z_, inv, shift, y_, N, H);
+  else if (threshold >= KEEP_ALL)
+    act_dropout_kernel<false, false><<<grid, threads, 0, s>>>(z_, inv, shift, seed_, layer,
+                                                              threshold, keep, y_, N, H);
+  else
+    act_dropout_kernel<BN, true><<<grid, threads, 0, s>>>(z_, inv, shift, seed_, layer,
+                                                          threshold, keep, y_, N, H);
+  return cudaGetLastError();
+}
+
+bool drop_ok(int layer, int threshold, float keep) {
+  return layer >= 0 && threshold > 0 && threshold <= (int)KEEP_ALL && keep > 0.f && keep <= 1.f;
+}
+
+// K5's backward: the gradient sums, their tail and dz; dy goes through
+// dropout's transpose unless threshold keeps every element.
+template <bool DROP>
+cudaError_t launch_bn_backward(const void* z, const void* dy, const void* rows, const void* n,
+                               const void* scale, const void* mean, const void* istd,
+                               const void* inv, const void* shift, const void* seed,
+                               void* part1, void* part2, void* G1, void* G2, void* dz,
+                               long long N, int H, int chunks, long long rows_per_chunk,
+                               int layer, uint32_t threshold, float keep, cudaStream_t s) {
+  const __nv_bfloat16* z_ = static_cast<const __nv_bfloat16*>(z);
+  const __nv_bfloat16* dy_ = static_cast<const __nv_bfloat16*>(dy);
+  const long long* seed_ = static_cast<const long long*>(seed);
+  bn_grad_sums_kernel<DROP><<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+      z_, dy_, static_cast<const float*>(mean), static_cast<const float*>(istd),
+      static_cast<const float*>(inv), static_cast<const float*>(shift), seed_, layer, threshold,
+      keep, static_cast<float*>(part1), static_cast<float*>(part2), N, H, rows_per_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  column_sums_tail_kernel<2><<<(H + 255) / 256, 256, 0, s>>>(
+      ChunkSums<2>{{static_cast<const float*>(part1), static_cast<const float*>(part2)},
+                   {static_cast<float*>(G1), static_cast<float*>(G2)}},
+      chunks, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bn_relu_dz_kernel<DROP><<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
+      z_, dy_, static_cast<const float*>(rows), static_cast<const float*>(n),
+      static_cast<const float*>(scale), static_cast<const float*>(mean),
+      static_cast<const float*>(istd), static_cast<const float*>(inv),
+      static_cast<const float*>(shift), static_cast<const float*>(G1),
+      static_cast<const float*>(G2), seed_, layer, threshold, keep,
+      static_cast<__nv_bfloat16*>(dz), N, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // Backward: G1/G2 ((H,) f32 outputs, = dbias/dscale) and dz (N, H) bf16.
 extern "C" int bn_relu_backward(const void* z, const void* dy, const void* rows,
                                 const void* n, const void* scale, const void* mean,
@@ -203,26 +489,100 @@ extern "C" int bn_relu_backward(const void* z, const void* dy, const void* rows,
                                 long long N, int H, int chunks, long long rows_per_chunk,
                                 void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
+  return (int)launch_bn_backward<false>(z, dy, rows, n, scale, mean, istd, inv, shift, nullptr,
+                                        part1, part2, G1, G2, dz, N, H, chunks, rows_per_chunk,
+                                        0, KEEP_ALL, 1.f,
+                                        reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The dense scorer's forward: the centred moments (two moment passes, the
+// first with zero_shift (H,) zeros), the affine, and y with dropout (seed: two
+// int64 words; a row-column's 24-bit draw below threshold keeps it, divided
+// by keep).  Scratch and outputs as bn_relu_forward.
+extern "C" int bn_relu_dropout_forward(const void* z, const void* rows, const void* n,
+                                       const void* zero_shift, const void* scale,
+                                       const void* bias, const void* seed, void* part1,
+                                       void* part2, void* mean, void* var, void* istd, void* inv,
+                                       void* shift, void* y, long long N, int H, int chunks,
+                                       long long rows_per_chunk, int layer, int threshold,
+                                       float keep, void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const __nv_bfloat16* z_ = static_cast<const __nv_bfloat16*>(z);
-  const __nv_bfloat16* dy_ = static_cast<const __nv_bfloat16*>(dy);
-  bn_grad_sums_kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
-      z_, dy_, static_cast<const float*>(mean), static_cast<const float*>(istd),
-      static_cast<const float*>(inv), static_cast<const float*>(shift),
-      static_cast<float*>(part1), static_cast<float*>(part2), N, H, rows_per_chunk);
+  const float* rows_ = static_cast<const float*>(rows);
+  float* p1 = static_cast<float*>(part1);
+  float* p2 = static_cast<float*>(part2);
+  float* mean_ = static_cast<float*>(mean);
+  const dim3 red(H / COLS, chunks);
+  const int tail = (H + 255) / 256;
+  // pass 1: sum(rows * z) (part1; part2 unused), mean
+  moments_kernel<<<red, RED_WARPS * 32, 0, s>>>(z_, rows_, static_cast<const float*>(zero_shift),
+                                                p1, p2, N, H, rows_per_chunk);
+  centred_tail_kernel<<<tail, 256, 0, s>>>(p1, chunks, static_cast<const float*>(n), nullptr,
+                                           nullptr, mean_, nullptr, nullptr, nullptr, nullptr, H,
+                                           0);
+  // pass 2: sum(rows * (z - mean)^2) (part2), var and the affine
+  moments_kernel<<<red, RED_WARPS * 32, 0, s>>>(z_, rows_, mean_, p1, p2, N, H, rows_per_chunk);
+  centred_tail_kernel<<<tail, 256, 0, s>>>(
+      p2, chunks, static_cast<const float*>(n), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), mean_, static_cast<float*>(var), static_cast<float*>(istd),
+      static_cast<float*>(inv), static_cast<float*>(shift), H, 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  column_sums_tail_kernel<2><<<(H + 255) / 256, 256, 0, s>>>(
-      ChunkSums<2>{{static_cast<const float*>(part1), static_cast<const float*>(part2)},
-                   {static_cast<float*>(G1), static_cast<float*>(G2)}},
-      chunks, H);
-  err = cudaGetLastError();
+  return (int)launch_act<true>(z, static_cast<const float*>(inv), static_cast<const float*>(shift),
+                               seed, layer, (uint32_t)threshold, keep, y, N, H, s);
+}
+
+// Its backward: G1/G2 ((H,) f32, = dbias/dscale) and dz, dy sent through
+// dropout's transpose (the mask drawn again from seed and layer).
+extern "C" int bn_relu_dropout_backward(const void* z, const void* dy, const void* rows,
+                                        const void* n, const void* scale, const void* mean,
+                                        const void* istd, const void* inv, const void* shift,
+                                        const void* seed, void* part1, void* part2, void* G1,
+                                        void* G2, void* dz, long long N, int H, int chunks,
+                                        long long rows_per_chunk, int layer, int threshold,
+                                        float keep, void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t thr = (uint32_t)threshold;
+  auto launch = thr >= KEEP_ALL ? launch_bn_backward<false> : launch_bn_backward<true>;
+  return (int)launch(z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1, part2, G1, G2,
+                     dz, N, H, chunks, rows_per_chunk, layer, thr, keep, s);
+}
+
+// No BatchNorm: y = dropout(relu(bf16(f32(z) + bias))), bias (H,) f32 (the
+// compute dtype's values).
+extern "C" int bias_relu_dropout_forward(const void* z, const void* bias, const void* seed,
+                                         void* y, long long N, int H, int layer, int threshold,
+                                         float keep, void* stream) {
+  if (N <= 0 || H <= 0 || H % COLS != 0 || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_act<false>(z, nullptr, static_cast<const float*>(bias), seed, layer,
+                                (uint32_t)threshold, keep, y, N, H,
+                                reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Its backward: dz (N, H) bf16 and dbias (H,) f32, the column sums per row
+// chunk into part (chunks, H) and then added in chunk order.
+extern "C" int bias_relu_dropout_backward(const void* z, const void* dy, const void* bias,
+                                          const void* seed, void* part, void* dbias, void* dz,
+                                          long long N, int H, int chunks,
+                                          long long rows_per_chunk, int layer, int threshold,
+                                          float keep, void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t thr = (uint32_t)threshold;
+  auto kernel = thr >= KEEP_ALL ? bias_relu_grad_kernel<false> : bias_relu_grad_kernel<true>;
+  kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const float*>(bias), static_cast<const long long*>(seed), layer, thr, keep,
+      static_cast<__nv_bfloat16*>(dz), static_cast<float*>(part), N, H, rows_per_chunk);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bn_relu_dz_kernel<<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
-      z_, dy_, static_cast<const float*>(rows), static_cast<const float*>(n),
-      static_cast<const float*>(scale), static_cast<const float*>(mean),
-      static_cast<const float*>(istd), static_cast<const float*>(inv),
-      static_cast<const float*>(shift), static_cast<const float*>(G1),
-      static_cast<const float*>(G2), static_cast<__nv_bfloat16*>(dz), N, H);
+  column_sums_tail_kernel<1><<<(H + 255) / 256, 256, 0, s>>>(
+      ChunkSums<1>{{static_cast<const float*>(part)}, {static_cast<float*>(dbias)}}, chunks, H);
   return (int)cudaGetLastError();
 }

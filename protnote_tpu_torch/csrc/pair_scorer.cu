@@ -397,3 +397,174 @@ extern "C" int pair_mlp_layer_smem_bytes(int block_n, int mode) {
   }
   return -1;
 }
+
+// ---------------------------------------------------------------------------
+// A zero-hidden-layer output MLP (OUTPUT_MLP_NUM_LAYERS 1): the first ReLU
+// straight into the logits (protnote_tpu/ops/pair_scorer.py:232-235 with no
+// hidden layer):
+//
+//   logit[b, l0 + l] += sum_n f32(x1[r, n]) * f32(w_out[n]),
+//   x1 = bf16(relu(a[b] + c[l0 + l]))        (x null), or
+//   x1 = x[b * nl_pad + l]                   (concatenation_prod: the
+//        ReLU'd first layer csrc/pair_train.cu:pair_train_prod wrote)
+//
+// for l < nl, with the logits pre-filled with b_out.  No GEMM is left.
+// From a and c (pair_mlp_head_ac_kernel): a block of 8 warps takes 16
+// labels (two a warp) and up to 32 sequences at a time; for each 256-column
+// slab it stages the sequences' f32 a slab in shared memory (32 KB), and
+// each lane forms its 8 columns of x1 for both labels and every sequence
+// from one read of a and its c and w_out values in registers, keeping 64
+// running sums; then a butterfly sum a (sequence, label).  Each c row comes
+// from device memory once and each a slab from L2 once for 16 labels, where
+// a warp a pair read a's whole row per pair (25 GB of L2 reads at 32 x
+// 64,204 x 3072).  From x (pair_mlp_head_x_kernel): a warp a pair, its
+// lanes 8 columns a step, as x is read once anyway.  What bounds it:
+// reading c (789 MB f32 at 64,204 x 3072, 0.24 ms) or x.
+
+namespace {
+
+constexpr int HEAD_WARPS = 8;
+constexpr int HEAD_LPW = 2;    // labels a warp
+constexpr int HEAD_B = 32;     // sequences a pass
+constexpr int HEAD_SLAB = 256;  // columns a slab: 32 lanes x 8
+
+__device__ __forceinline__ void load8_f32(const float* p, float (&v)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void load8_bf16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+__global__ void __launch_bounds__(HEAD_WARPS * 32)
+pair_mlp_head_ac_kernel(const float* __restrict__ a, const float* __restrict__ c,
+                        const __nv_bfloat16* __restrict__ w_out, float* __restrict__ logits,
+                        int B, int nl, int l0, int L, int K) {
+  __shared__ __align__(16) float a_s[HEAD_B][HEAD_SLAB];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lbase = blockIdx.x * HEAD_WARPS * HEAD_LPW + warp * HEAD_LPW;
+  for (int b0 = 0; b0 < B; b0 += HEAD_B) {
+    const int nb = min(HEAD_B, B - b0);
+    float acc[HEAD_LPW][HEAD_B];
+#pragma unroll
+    for (int li = 0; li < HEAD_LPW; ++li)
+#pragma unroll
+      for (int b = 0; b < HEAD_B; ++b) acc[li][b] = 0.f;
+    for (int n0 = 0; n0 < K; n0 += HEAD_SLAB) {
+      const int width = min(HEAD_SLAB, K - n0);
+      __syncthreads();  // the previous slab's reads are done
+      for (int i = threadIdx.x; i < nb * (HEAD_SLAB / 4); i += blockDim.x) {
+        const int b = i / (HEAD_SLAB / 4);
+        const int q4 = i - b * (HEAD_SLAB / 4);
+        if (4 * q4 < width)
+          *reinterpret_cast<float4*>(&a_s[b][4 * q4]) =
+              __ldg(reinterpret_cast<const float4*>(a + (size_t)(b0 + b) * K + n0) + q4);
+      }
+      __syncthreads();
+      const int col = lane * 8;
+      if (col >= width) continue;
+      float cv[HEAD_LPW][8], wv[8];
+      load8_bf16(w_out + n0 + col, wv);
+#pragma unroll
+      for (int li = 0; li < HEAD_LPW; ++li) {
+        const int l = lbase + li;
+        if (l < nl) {
+          load8_f32(c + (size_t)(l0 + l) * K + n0 + col, cv[li]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) cv[li][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < HEAD_B; ++b) {  // unrolled: acc stays in registers
+        if (b >= nb) continue;
+        const float4 lo = *reinterpret_cast<const float4*>(&a_s[b][col]);
+        const float4 hi = *reinterpret_cast<const float4*>(&a_s[b][col + 4]);
+        const float av[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int li = 0; li < HEAD_LPW; ++li) {
+          float t = acc[li][b];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) t += round_bf16(fmaxf(av[e] + cv[li][e], 0.f)) * wv[e];
+          acc[li][b] = t;
+        }
+      }
+    }
+#pragma unroll
+    for (int li = 0; li < HEAD_LPW; ++li) {
+      const int l = lbase + li;
+#pragma unroll
+      for (int b = 0; b < HEAD_B; ++b) {
+        if (b >= nb) continue;
+        float sum = acc[li][b];
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+        if (lane == 0 && l < nl) logits[(size_t)(b0 + b) * L + l0 + l] += sum;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+pair_mlp_head_x_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_out,
+                       float* __restrict__ logits, int B, int nl, int nl_pad, int l0, int L,
+                       int K) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (blockDim.x / 32);
+  const long long pairs = (long long)B * nl;
+  for (long long i = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32; i < pairs;
+       i += warps) {
+    const int b = (int)(i / nl);
+    const int l = (int)(i - (long long)b * nl);
+    float sum = 0.f;
+    for (int n = lane * 8; n < K; n += 256) {
+      float v[8], w[8];
+      load8_bf16(x + ((size_t)b * nl_pad + l) * K + n, v);
+      load8_bf16(w_out + n, w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[e] * w[e];
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (lane == 0) logits[(size_t)b * L + l0 + l] += sum;
+  }
+}
+
+}  // namespace
+
+// The zero-hidden-layer chain for the label chunk [l0, l0 + nl) of B
+// sequences: a (B, K) and c (L, K) f32, or x (B * nl_pad, K) bf16 (then a and
+// c unused); w_out (K,) bf16; logits (B, L) f32, added into.  K a multiple of
+// 8, all pointers 16-byte aligned.  Returns a CUDA error (0 on success).
+extern "C" int pair_mlp_head(const void* a, const void* c, const void* x, const void* w_out,
+                             void* logits, int B, int nl, int nl_pad, int l0, int L, int K,
+                             void* stream) {
+  if (B <= 0 || nl <= 0 || nl_pad < nl || l0 < 0 || l0 + nl > L || K <= 0 || K % 8 != 0 ||
+      (x == nullptr && (a == nullptr || c == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(w_out);
+  float* out = static_cast<float*>(logits);
+  if (x == nullptr) {
+    const int per_block = HEAD_WARPS * HEAD_LPW;
+    pair_mlp_head_ac_kernel<<<(nl + per_block - 1) / per_block, HEAD_WARPS * 32, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(c), w, out, B, nl, l0, L, K);
+  } else {
+    const long long pairs = (long long)B * nl;
+    const int blocks = (int)((pairs + 7) / 8 < 132 * 16 ? (pairs + 7) / 8 : 132 * 16);
+    pair_mlp_head_x_kernel<<<blocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x), w, out,
+                                                  B, nl, nl_pad, l0, L, K);
+  }
+  return (int)cudaGetLastError();
+}

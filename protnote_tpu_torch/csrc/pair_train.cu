@@ -49,6 +49,21 @@
 //   L = 32,102) never writes into sequence b + 1's rows, which a 2-D store at
 //   row b * L + l would do.  z holds 3.16e9 elements at the default shape:
 //   every offset is TMA's, in 64-bit strides.
+//
+// pair_train_prod: the same mainloop for the concatenation_prod block of
+// the dense scorer's first layer (protnote_tpu/ops/pair_scorer.py:108
+// pair_logits_dense in training, and :217-231, the w1_prod term of
+// _tiled_scaffold, in evaluation):
+//
+//   x[b, l] = bf16(f32(p[b]) * f32(l[l]))                     (bf16 inputs)
+//   z[b * Lz + l, n] = bf16((a[b, n] + c[l, n]) + sum_k x[b, l, k] * W[k, n])
+//
+// with a = P_e @ W1_p and c = L_e @ W1_l (+ b1) the f32 side products, read
+// in the epilogue (c's rows past L as 0), and optionally ReLU before the
+// rounding (evaluation: K1's first layer).  The product of two bf16 values
+// is exact in f32, so x is the JAX chain's bf16 product; the joint (p * l)
+// never reaches memory.  z's rows per sequence Lz >= L lets K1 write a
+// label chunk into its padded workspace.
 
 #include "hopper.cuh"
 
@@ -104,13 +119,15 @@ __device__ __forceinline__ Tile tile_at(int t, int tiles_n, int B) {
   return {u % B, (u / B) * BM, (t - u * tiles_n) * BN};
 }
 
-template <int BN>
+// PROD: A = bf16(a2[b] * c2[l]) and the epilogue adds a + c (+ ReLU)
+template <int BN, bool PROD>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_train_hidden_kernel(const __grid_constant__ CUtensorMap tm_w,
                          const __grid_constant__ CUtensorMap tm_c,
                          const __grid_constant__ CUtensorMap tm_a,
                          const __grid_constant__ CUtensorMap tm_z, int B, int K, int tiles_n,
-                         int tiles) {
+                         int tiles, const float* __restrict__ ea, const float* __restrict__ ec,
+                         int L, int N, int relu) {
   using Lay = Layout<BN>;
   constexpr int STAGES = Lay::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -194,7 +211,9 @@ pair_train_hidden_kernel(const __grid_constant__ CUtensorMap tm_w,
             const int r = row + 8 * rr;
             const float2 cv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
                 cp + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * q));
-            fa[P][kk][rr + 2 * cc] = pack_bf16x2(fmaxf(av.x + cv.x, 0.f), fmaxf(av.y + cv.y, 0.f));
+            fa[P][kk][rr + 2 * cc] =
+                PROD ? pack_bf16x2(av.x * cv.x, av.y * cv.y)
+                     : pack_bf16x2(fmaxf(av.x + cv.x, 0.f), fmaxf(av.y + cv.y, 0.f));
           }
         }
       }
@@ -228,6 +247,29 @@ pair_train_hidden_kernel(const __grid_constant__ CUtensorMap tm_w,
       fence_regs(fa[1]);
       if (lane == 0) mbar_arrive(empty_bar(prev));
 
+      if (PROD) {  // z = (a[b] + c[l]) + sum, ReLU'd for evaluation
+        const int l1 = tl.l0 + wg * 64 + lr;
+        const float* arow = ea + (size_t)tl.b * N + tl.n0 + 2 * q;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 av = *reinterpret_cast<const float2*>(arow + 8 * j);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int l = l1 + 8 * rr;
+            const float2 cv = l < L ? *reinterpret_cast<const float2*>(
+                                          ec + (size_t)l * N + tl.n0 + 8 * j + 2 * q)
+                                    : make_float2(0.f, 0.f);
+            float v0 = __fadd_rn(__fadd_rn(av.x, cv.x), acc[4 * j + 2 * rr]);
+            float v1 = __fadd_rn(__fadd_rn(av.y, cv.y), acc[4 * j + 2 * rr + 1]);
+            if (relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
+            acc[4 * j + 2 * rr] = v0;
+            acc[4 * j + 2 * rr + 1] = v1;
+          }
+        }
+      }
       // ---- epilogue: the raw sums rounded to bf16 ---------------------------
       // acc[4j + 0/1]: row, columns 8j + 2q + 0/1; acc[4j + 2/3]: row + 8.
       // 64-column slices of the warpgroup's 64 rows go through two boxes in
@@ -257,14 +299,21 @@ pair_train_hidden_kernel(const __grid_constant__ CUtensorMap tm_w,
   }
 }
 
-template <int BN>
+struct Epilogue {
+  const float* a = nullptr;
+  const float* c = nullptr;
+  int L = 0, N = 0, relu = 0;
+};
+
+template <int BN, bool PROD>
 cudaError_t launch(const CUtensorMap (&maps)[4], int B, int K, int tiles_n, int tiles, int grid,
-                   cudaStream_t s) {
+                   const Epilogue& e, cudaStream_t s) {
   constexpr int bytes = Layout<BN>::BYTES;
-  auto kernel = pair_train_hidden_kernel<BN>;
+  auto kernel = pair_train_hidden_kernel<BN, PROD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, bytes, s>>>(maps[0], maps[1], maps[2], maps[3], B, K, tiles_n, tiles);
+  kernel<<<grid, THREADS, bytes, s>>>(maps[0], maps[1], maps[2], maps[3], B, K, tiles_n, tiles,
+                                      e.a, e.c, e.L, e.N, e.relu);
   return cudaGetLastError();
 }
 
@@ -294,8 +343,43 @@ extern "C" int pair_train_hidden(const void* a2, const void* c2, const void* wt,
   if (!ok) return (int)cudaErrorInvalidValue;
   const int g = grid < (int)tiles ? grid : (int)tiles;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(block_n == 256 ? launch<256>(maps, B, K, tiles_n, (int)tiles, g, s)
-                              : launch<128>(maps, B, K, tiles_n, (int)tiles, g, s));
+  const Epilogue e;
+  return (int)(block_n == 256 ? launch<256, false>(maps, B, K, tiles_n, (int)tiles, g, e, s)
+                              : launch<128, false>(maps, B, K, tiles_n, (int)tiles, g, e, s));
+}
+
+// z (B * Lz, N) bf16 with rows b * Lz + l (l < L written; Lz >= L):
+// z = bf16(a[b] + c[l] + bf16(pe[b] * le[l]) @ W), ReLU'd first when relu is
+// set.  pe (B, K) and le (L, K) bf16; wt (N, K) bf16, W transposed
+// (K-major); a (B, N) and c (L, N) f32; all row-major, contiguous and
+// 16-byte aligned.  K a multiple of 128, N of block_n.  Returns a CUDA error
+// as pair_train_hidden.
+extern "C" int pair_train_prod(const void* pe, const void* le, const void* wt, const void* a,
+                               const void* c, void* z, int B, int L, int Lz, int K, int N,
+                               int relu, int block_n, int grid, void* stream) {
+  if (B <= 0 || L <= 0 || Lz < L || K <= 0 || K % (2 * BK) != 0 ||
+      (block_n != 128 && block_n != 256) || N <= 0 || N % block_n != 0 || grid <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_n = N / block_n;
+  const uint64_t tiles = (uint64_t)((L + BM - 1) / BM) * B * tiles_n;
+  if (tiles > (uint64_t)INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  const bool ok = make_map(&maps[0], wt, MapType::BF16, N, K, block_n, BK, true) &&
+                  make_map(&maps[1], le, MapType::BF16, L, K, BM, BK, true) &&
+                  make_map(&maps[2], pe, MapType::BF16, B, K, 1, BK, false) &&
+                  make_map_3d(&maps[3], z, MapType::BF16, B, Lz, N, 64, 64, true);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int g = grid < (int)tiles ? grid : (int)tiles;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  Epilogue e;
+  e.a = static_cast<const float*>(a);
+  e.c = static_cast<const float*>(c);
+  e.L = L;
+  e.N = N;
+  e.relu = relu;
+  return (int)(block_n == 256 ? launch<256, true>(maps, B, K, tiles_n, (int)tiles, g, e, s)
+                              : launch<128, true>(maps, B, K, tiles_n, (int)tiles, g, e, s));
 }
 
 // The dynamic shared memory a launch of the given column tile asks for

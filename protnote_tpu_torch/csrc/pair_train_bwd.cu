@@ -81,6 +81,12 @@
 // Pieces are ordered range first, so the blocks in flight read the same dz
 // rows, as the blocks of a whole wave do.
 //
+// pair_train_dw_prod: the same dW kernel for the dense scorer's
+// concatenation_prod block (csrc/pair_train.cu:pair_train_prod), dW_prod =
+// sum_{b, l} x[b, l]^T dz[b * L + l] with x = bf16(p[b] * l[l]) formed in the
+// A registers from the kept fragments of l and the two p[b] scalars, as
+// x1^T is formed here (a2 = P_e, c2 = L_e).
+//
 // Offsets: dz holds 3.16e9 elements; it is read only by TMA (64-bit
 // strides), and every other index is 64-bit where it can pass 2^31.
 
@@ -514,7 +520,7 @@ __device__ __forceinline__ DwItem dw_item(int t, int tiles_n, int bn, int full, 
   return it;
 }
 
-template <int BN>
+template <int BN, bool PROD>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_train_dw_kernel(const __grid_constant__ CUtensorMap tm_c,
                      const __grid_constant__ CUtensorMap tm_dz,
@@ -613,7 +619,8 @@ pair_train_dw_kernel(const __grid_constant__ CUtensorMap tm_c,
         for (int i = 0; i < 4; ++i) {
           const float2 v = unpack_bf16x2(cf[kk][i]);
           const float a = (i & 1) ? av1 : av0;  // a1, a3: row g + 8
-          fa[kk][i] = pack_bf16x2(fmaxf(a + v.x, 0.f), fmaxf(a + v.y, 0.f));
+          fa[kk][i] = PROD ? pack_bf16x2(a * v.x, a * v.y)
+                           : pack_bf16x2(fmaxf(a + v.x, 0.f), fmaxf(a + v.y, 0.f));
         }
       mbar_wait(full_bar(s), phase);
       const uint64_t db = smem_desc_mn(base + s * Lay::D_BYTES, BOX);
@@ -706,12 +713,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int BN>
+template <int BN, bool PROD>
 cudaError_t launch_dw(const CUtensorMap& tm_c, const CUtensorMap& tm_dz, const void* a2,
                       float* partial, void* dw, int B, int K, int N, int tiles_n, int full,
                       int tail, int pieces, int lblocks, int items, int grid, cudaStream_t s) {
   constexpr int bytes = DwLayout<BN>::BYTES;
-  pair_train_dw_kernel<BN><<<grid, THREADS, bytes, s>>>(
+  pair_train_dw_kernel<BN, PROD><<<grid, THREADS, bytes, s>>>(
       tm_c, tm_dz, static_cast<const __nv_bfloat16*>(a2), partial,
       static_cast<__nv_bfloat16*>(dw), B, K, N, tiles_n, full, tail, pieces, lblocks, items);
   cudaError_t err = cudaGetLastError();
@@ -775,18 +782,12 @@ extern "C" int pair_train_dx(const void* dz, const void* w, const void* a2, cons
                                  s);
 }
 
-// dW (K, N) bf16 of z = relu(a2[b] + c2[l]) @ W, from a2 (B, K), c2 (L, K)
-// and dz (B * L, N), all bf16, row-major, contiguous and 16-byte aligned.  K
-// is a multiple of 128, N of block_n (256 or 128).  The plan
-// (ops/streaming_train.py:pair_dw_plan) runs output tiles 0 .. full-1 whole
-// and cuts each of the other `tail` tiles into `pieces` ranges of label
-// blocks (1 <= pieces <= ceil(L / 64)); partial is a float32 scratch of
-// tail x pieces x 128 x block_n when tail > 0 and pieces > 1 (else unused).
-// grid is the number of persistent blocks.  Returns a CUDA error as
-// pair_train_dx.
-extern "C" int pair_train_dw(const void* a2, const void* c2, const void* dz, void* partial,
-                             void* dw, int B, int L, int K, int N, int block_n, int full,
-                             int pieces, int grid, void* stream) {
+namespace {
+
+template <bool PROD>
+int pair_train_dw_form(const void* a2, const void* c2, const void* dz, void* partial, void* dw,
+                       int B, int L, int K, int N, int block_n, int full, int pieces, int grid,
+                       void* stream) {
   if (B <= 0 || L <= 0 || K <= 0 || K % 128 != 0 || (block_n != 128 && block_n != 256) ||
       N <= 0 || N % block_n != 0 || grid <= 0 || pieces <= 0 || full < 0)
     return (int)cudaErrorInvalidValue;
@@ -799,8 +800,9 @@ extern "C" int pair_train_dw(const void* a2, const void* c2, const void* dz, voi
   if (items > (uint64_t)INT_MAX || (tail > 0 && pieces > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   // the runtime call first, as in pair_train_dx
-  cudaError_t err = block_n == 256 ? allow_smem(pair_train_dw_kernel<256>, DwLayout<256>::BYTES)
-                                   : allow_smem(pair_train_dw_kernel<128>, DwLayout<128>::BYTES);
+  cudaError_t err =
+      block_n == 256 ? allow_smem(pair_train_dw_kernel<256, PROD>, DwLayout<256>::BYTES)
+                     : allow_smem(pair_train_dw_kernel<128, PROD>, DwLayout<128>::BYTES);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[2];
   memset(maps, 0, sizeof(maps));
@@ -810,9 +812,36 @@ extern "C" int pair_train_dw(const void* a2, const void* c2, const void* dz, voi
   const int g = grid < (int)items ? grid : (int)items;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
-  auto launch = block_n == 256 ? launch_dw<256> : launch_dw<128>;
+  auto launch = block_n == 256 ? launch_dw<256, PROD> : launch_dw<128, PROD>;
   return (int)launch(maps[0], maps[1], a2, p, dw, B, K, N, tiles_n, full, (int)tail, pieces,
                      lblocks, (int)items, g, s);
+}
+
+}  // namespace
+
+// dW (K, N) bf16 of z = relu(a2[b] + c2[l]) @ W, from a2 (B, K), c2 (L, K)
+// and dz (B * L, N), all bf16, row-major, contiguous and 16-byte aligned.  K
+// is a multiple of 128, N of block_n (256 or 128).  The plan
+// (ops/streaming_train.py:pair_dw_plan) runs output tiles 0 .. full-1 whole
+// and cuts each of the other `tail` tiles into `pieces` ranges of label
+// blocks (1 <= pieces <= ceil(L / 64)); partial is a float32 scratch of
+// tail x pieces x 128 x block_n when tail > 0 and pieces > 1 (else unused).
+// grid is the number of persistent blocks.  Returns a CUDA error as
+// pair_train_dx.
+extern "C" int pair_train_dw(const void* a2, const void* c2, const void* dz, void* partial,
+                             void* dw, int B, int L, int K, int N, int block_n, int full,
+                             int pieces, int grid, void* stream) {
+  return pair_train_dw_form<false>(a2, c2, dz, partial, dw, B, L, K, N, block_n, full, pieces,
+                                   grid, stream);
+}
+
+// dW_prod (K, N) bf16 of z = bf16(pe[b] * le[l]) @ W: pair_train_dw's
+// arguments with a2 = pe (B, K) and c2 = le (L, K).
+extern "C" int pair_train_dw_prod(const void* pe, const void* le, const void* dz, void* partial,
+                                  void* dw, int B, int L, int K, int N, int block_n, int full,
+                                  int pieces, int grid, void* stream) {
+  return pair_train_dw_form<true>(pe, le, dz, partial, dw, B, L, K, N, block_n, full, pieces,
+                                  grid, stream);
 }
 
 // The dynamic shared memory a launch asks for (bytes): which 0 is the dX

@@ -14,14 +14,15 @@ backward.  ``TRAIN_STREAMING_LABEL_TILE > 0`` trains through the streamed
 scorer instead (K4, K4-bwd and K6 over label tiles, the same function in
 O(B * tile * H) memory; ``TRAIN_STREAMING_CACHE`` keeps the first hidden
 GEMM's output), also with ``PAIR_BACKEND`` tiled or tiled_int8, as the JAX
-dispatch does.
+dispatch does.  The rest of training (``OUTPUT_MLP_DROPOUT > 0``,
+``concatenation_prod``, no output-MLP BatchNorm, ``PAIR_BACKEND`` dense or
+tiled without a tile) and evaluation with ``PAIR_BACKEND=dense`` take the
+materialised dense scorer (:mod:`protnote_tpu_torch.ops.dense_scorer`), as
+the JAX dispatch does.
 
 Random draws (noising, dropout) come from an explicit ``torch.Generator``
-on the tensors' device.  Left out, each raising ``NotImplementedError``
-that names its ROADMAP item: the materialised dense scorer
-(``PAIR_BACKEND=dense``, ``OUTPUT_MLP_DROPOUT > 0`` in training, training
-without output-MLP BatchNorm or with ``concatenation_prod``).
-``PAIR_BACKEND=tiled_int8`` evaluates through the int8 scorer (K2) with the
+on the tensors' device; the dense scorer's dropout mask is a counter hash
+of one seed drawn from it a call.  ``PAIR_BACKEND=tiled_int8`` evaluates through the int8 scorer (K2) with the
 config's static activation scales (:func:`calibrate_int8`) or dynamic
 per-row ones, and trains through the decomposed scorer as ``auto`` does.
 """
@@ -44,6 +45,7 @@ from protnote_tpu_torch.models.layers import (
     init_linear,
     linear,
 )
+from protnote_tpu_torch.ops.dense_scorer import draw_seed, pair_logits_dense
 from protnote_tpu_torch.ops.pair_scorer import (
     BN_EPS,
     act_scale_maxes,
@@ -59,13 +61,6 @@ from protnote_tpu_torch.ops.streaming_train import (
     pair_logits_streaming_train,
 )
 
-DENSE_LATER = ("the materialised dense pair scorer (PAIR_BACKEND=dense, tiled in training "
-               "without TRAIN_STREAMING_LABEL_TILE, training without output-MLP BatchNorm or with "
-               "concatenation_prod) is not ported: the training slice trains through the "
-               "decomposed scorer (ROADMAP.md queue 1, item 5f)")
-DROPOUT_LATER = ("OUTPUT_MLP_DROPOUT > 0 in training needs the materialised dense "
-                 "scorer, which the training slice does not port (ROADMAP.md queue 1, "
-                 "item 5f)")
 FUSED_BN_VJP_WITH_TILE = ("TRAIN_FUSED_BN_VJP applies to the decomposed dense training path "
                           "only; the streamed scorer (TRAIN_STREAMING_LABEL_TILE > 0) has its "
                           "own tiled BN handling — unset one of the two")
@@ -91,10 +86,10 @@ class ProtNoteConfig:
     # static activation scales of the int8 scorer, one per hidden layer
     # (INT8_ACT_SCALES, calibrate_int8); None: dynamic per-row scales
     int8_act_scales: Optional[Tuple[float, ...]] = None
-    # auto (eval: tiled, train: decomposed) | tiled (trains only with a
-    # streaming tile) | tiled_int8 (eval: K2, train: decomposed); with
-    # train_label_tile every backend but dense trains streamed; dense raises
-    # until ported
+    # auto (eval: tiled, train: decomposed) | tiled (train: streamed with a
+    # tile, else dense) | tiled_int8 (eval: K2, train: decomposed) | dense
+    # (the materialised scorer in both); with train_label_tile every backend
+    # but dense trains streamed
     pair_backend: str = "auto"
     # training (the JAX fields of the same names)
     label_embedding_noising_alpha: float = 0.0
@@ -373,11 +368,9 @@ def protnote_forward(
     ``label_latents`` (precomputed W_l projections) skips the label tower;
     the state comes back unchanged.  Train: BatchNorm on the masked batch
     (``example_mask`` (B,), ``label_mask`` (L,)), label noising and dropout
-    from ``generator``, the decomposed scorer (K4 + K5) or, with
-    ``cfg.train_label_tile``, the streamed one (K4 + K6), and the new running
-    statistics in the returned state."""
-    if cfg.pair_backend == "dense":
-        raise NotImplementedError(DENSE_LATER)
+    from ``generator``, the decomposed scorer (K4 + K5), with
+    ``cfg.train_label_tile`` the streamed one (K4 + K6), or the dense one,
+    and the new running statistics in the returned state."""
     new_state = dict(state)
     P_e, new_state["W_p"] = projection_head_apply(
         params["W_p"], state["W_p"], sequence_embeddings.to(cfg.compute_dtype), cfg, train,
@@ -404,29 +397,34 @@ def protnote_forward(
         logits = similarity_logits(P_e, L_e, cfg.temperature)
     elif cfg.feature_fusion.startswith("concatenation"):
         om_state = state.get("output_mlp")
-        if train:
+        streamable = (cfg.feature_fusion in ("concatenation", "concatenation_diff")
+                      and cfg.dropout == 0.0 and om_state is not None)
+        if train and streamable and cfg.train_label_tile > 0 and cfg.pair_backend != "dense":
             # the JAX dispatch: the streamed scorer first (any backend but
-            # dense), then the decomposed one (auto, tiled_int8); the rest
-            # is the materialised scorer
-            if cfg.dropout > 0:
-                raise NotImplementedError(DROPOUT_LATER)
-            if om_state is None or cfg.feature_fusion == "concatenation_prod":
-                raise NotImplementedError(DENSE_LATER)
-            if cfg.train_label_tile > 0:
-                if cfg.train_fused_bn_vjp:
-                    raise ValueError(FUSED_BN_VJP_WITH_TILE)
-                logits, new_state["output_mlp"] = pair_logits_streaming_train(
-                    params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
-                    example_mask=example_mask, label_mask=label_mask,
-                    label_tile=cfg.train_label_tile, compute_dtype=cfg.compute_dtype,
-                    cache_first=cfg.train_streaming_cache)
-            elif cfg.pair_backend == "tiled":
-                raise NotImplementedError(DENSE_LATER)
-            else:
-                logits, new_state["output_mlp"] = pair_logits_dense_decomposed(
-                    params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
-                    example_mask=example_mask, label_mask=label_mask,
-                    compute_dtype=cfg.compute_dtype, remat=cfg.gradient_checkpointing)
+            # dense), then the decomposed one (auto, tiled_int8); the rest,
+            # and evaluation with dense, is the materialised scorer
+            if cfg.train_fused_bn_vjp:
+                raise ValueError(FUSED_BN_VJP_WITH_TILE)
+            logits, new_state["output_mlp"] = pair_logits_streaming_train(
+                params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
+                example_mask=example_mask, label_mask=label_mask,
+                label_tile=cfg.train_label_tile, compute_dtype=cfg.compute_dtype,
+                cache_first=cfg.train_streaming_cache)
+        elif train and streamable and cfg.pair_backend in ("auto", "tiled_int8"):
+            logits, new_state["output_mlp"] = pair_logits_dense_decomposed(
+                params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
+                example_mask=example_mask, label_mask=label_mask,
+                compute_dtype=cfg.compute_dtype, remat=cfg.gradient_checkpointing)
+        elif train or cfg.pair_backend == "dense":
+            seed = (draw_seed(generator) if train and cfg.dropout > 0 and generator is not None
+                    else None)
+            logits, om_s = pair_logits_dense(
+                params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion, train=train,
+                dropout=cfg.dropout, seed=seed, example_mask=example_mask,
+                label_mask=label_mask, remat=cfg.gradient_checkpointing,
+                compute_dtype=cfg.compute_dtype)
+            if om_s is not None:
+                new_state["output_mlp"] = om_s
         else:
             folded = fold_output_mlp(params["output_mlp"], om_state, cfg.feature_fusion,
                                      cfg.latent_dim, dtype=cfg.compute_dtype)

@@ -143,8 +143,11 @@ def pair_logits_tiled_reference(
 # CUDA kernel (csrc/pair_scorer.cu)
 
 # Launches of the pair-scorer kernel since the process started (or since a
-# caller last set it to 0): one per hidden layer per label chunk.
+# caller last set it to 0): one per hidden layer per label chunk; and of its
+# zero-hidden-layer head (``pair_mlp_head``): one a call, or with
+# ``concatenation_prod`` one per label chunk.
 LAUNCHES = 0
+HEAD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _BLOCK_N = 128  # the width every hidden layer must be a multiple of (K1, K2, K4)
@@ -249,17 +252,23 @@ def pair_logits_plan_reference(folded: FoldedOutputMLP, P_e: torch.Tensor,
                                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The plain chain over K1's padded chunk layout: per chunk, rows
     ``b * nl_pad + l`` with ``c`` rows past ``L`` zero (as TMA fills them),
-    the hidden layers over all padded rows, and only rows ``l < nl`` taken
-    into the (B, L) float32 logits."""
-    if folded.w1_prod is not None:
-        raise ValueError("the padded chunk layout does not take concatenation_prod")
+    and for ``w1_prod`` the label rows past ``L`` zero too, the hidden layers
+    over all padded rows, and only rows ``l < nl`` taken into the (B, L)
+    float32 logits."""
     B, L = P_e.shape[0], L_e.shape[0]
     a, c = _side_partials(folded, P_e, L_e, compute_dtype)
     logits = torch.empty(B, L, dtype=torch.float32, device=P_e.device)
+
+    def padded(t, ch):
+        t = t[ch.l0 : ch.l0 + ch.nl_pad]
+        return torch.cat([t, t.new_zeros(ch.nl_pad - t.shape[0], t.shape[1])])
+
     for ch in plan.chunks:
-        c_t = c[ch.l0 : ch.l0 + ch.nl_pad]
-        c_t = torch.cat([c_t, c_t.new_zeros(ch.nl_pad - c_t.shape[0], c.shape[1])])
-        h = torch.relu(a[:, None, :] + c_t[None]).reshape(B * ch.nl_pad, -1).to(compute_dtype)
+        pre1 = a[:, None, :] + padded(c, ch)[None]
+        if folded.w1_prod is not None:
+            prod = (P_e[:, None, :] * padded(L_e, ch)[None]).reshape(B * ch.nl_pad, -1)
+            pre1 = pre1 + _f32_product(prod, folded.w1_prod, compute_dtype).view(pre1.shape)
+        h = torch.relu(pre1).reshape(B * ch.nl_pad, -1).to(compute_dtype)
         for W, b in folded.hidden:
             h = torch.relu(_f32_product(h, W, compute_dtype) + b.float()).to(compute_dtype)
         out = _f32_product(h, folded.w_out[:, None], compute_dtype)[:, 0]
@@ -274,16 +283,15 @@ def check_kernel_inputs(folded: FoldedOutputMLP, P_e: torch.Tensor,
     if compute_dtype != torch.bfloat16:
         raise ValueError(
             f"the CUDA pair scorer computes in bfloat16, not {compute_dtype} "
-            "(MIXED_PRECISION: True)"
+            "(MIXED_PRECISION: True; float32 on the card is ROADMAP.md queue 1, item 16)"
         )
-    if folded.w1_prod is not None:
-        raise ValueError("the CUDA pair scorer does not take concatenation_prod")
-    if not folded.hidden:
-        raise ValueError("the CUDA pair scorer needs at least one hidden layer "
-                         "(OUTPUT_MLP_NUM_LAYERS >= 2)")
     H = folded.w1_p.shape[1]
     if H % _BLOCK_N:
         raise ValueError(f"hidden width {H} is not a multiple of {_BLOCK_N}")
+    if folded.w1_prod is not None and (tuple(folded.w1_prod.shape) != tuple(folded.w1_p.shape)
+                                       or folded.w1_p.shape[0] % _BLOCK_N):
+        raise ValueError(f"w1_prod {tuple(folded.w1_prod.shape)} must be (d, {H}) with d a "
+                         f"multiple of {_BLOCK_N}")
     for W, b in folded.hidden:
         if tuple(W.shape) != (H, H) or tuple(b.shape) != (H,):
             raise ValueError(f"hidden layer shapes {tuple(W.shape)}, "
@@ -307,10 +315,36 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def k1_workspaces(i: int, mode: int, prod: bool) -> Tuple[Optional[int], Optional[int]]:
+    """The workspaces (indices, or None) hidden layer ``i`` of a K1 chunk
+    reads and writes: without prod, layer 0 forms its A (mode bit 0) and
+    layer i reads layer i - 1's output from workspace (i - 1) % 2; with
+    prod, ``pair_train_prod`` writes x1 to workspace 0 and layer i reads
+    workspace i % 2.  The last layer (mode bit 1) writes none."""
+    if prod:
+        x_in, x_out = i % 2, (i + 1) % 2
+    else:
+        x_in, x_out = (None if mode & 1 else (i - 1) % 2), i % 2
+    return x_in, None if mode & 2 else x_out
+
+
+def k1_workspace_count(n_hidden: int, prod: bool) -> int:
+    """The workspaces a call needs: prod keeps x1 in one even without a
+    hidden layer."""
+    return max(1, min(n_hidden, 2)) if prod else min(n_hidden - 1, 2)
+
+
 class _K1Kernel:
     """The wrapper's per-call state: the per-side products, the weights
     transposed to K-major (the layout the kernel's TMA loads take, laid out
-    once per call), the launch plan, the workspaces and the C entry point."""
+    once per call), the launch plan, the workspaces and the C entry point.
+
+    ``concatenation_prod`` adds a first launch a chunk, ``pair_train_prod``
+    (K4's mainloop, ``csrc/pair_train.cu``): ``relu(a + c + bf16(p * l) @
+    w1_prod)`` into the first workspace, which the first hidden layer then
+    reads.  With no hidden layer, ``pair_mlp_head`` takes the dot of the
+    first ReLU with ``w_out``: formed from ``a`` and ``c`` for every label in
+    one launch, or read from that workspace a chunk at a time."""
 
     def __init__(self, folded: FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
                  compute_dtype: torch.dtype):
@@ -318,6 +352,8 @@ class _K1Kernel:
         device = P_e.device
         tensors = [P_e, L_e, folded.w1_p, folded.w1_l, folded.b1, folded.w_out,
                    folded.b_out] + [t for pair in folded.hidden for t in pair]
+        if folded.w1_prod is not None:
+            tensors.append(folded.w1_prod)
         if any(t.device != device for t in tensors) or device.type != "cuda":
             raise ValueError("the CUDA pair scorer needs every tensor on one CUDA device")
         self.device = device
@@ -325,15 +361,21 @@ class _K1Kernel:
         self.H = folded.w1_p.shape[1]
         a, c = _side_partials(folded, P_e, L_e, compute_dtype)
         self.a, self.c = a.contiguous(), c.contiguous()
+        self.prod = folded.w1_prod is not None
+        if self.prod:
+            self.P_e = P_e.to(torch.bfloat16).contiguous()
+            self.L_e = L_e.to(torch.bfloat16).contiguous()
+            self.w_prod = folded.w1_prod.to(torch.bfloat16)
+            self.wt_prod = self.w_prod.t().contiguous()
         self.wt = [W.to(torch.bfloat16).t().contiguous() for W, _ in folded.hidden]
         self.bias = [b.float().contiguous() for _, b in folded.hidden]
         self.w_out = folded.w_out.to(torch.bfloat16).contiguous()
         self.b_out = folded.b_out
         n = len(self.wt)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        self.plan = launch_plan(self.B, self.L, self.H, n, sms)
+        self.plan = launch_plan(self.B, self.L, self.H, max(n, 1), sms)
         self.work = [torch.empty(self.plan.workspace_rows, self.H, dtype=torch.bfloat16,
-                                 device=device) for _ in range(min(n - 1, 2))]
+                                 device=device) for _ in range(k1_workspace_count(n, self.prod))]
         self.fn = _kernel_fn()
         self.stream = torch.cuda.current_stream(device).cuda_stream
 
@@ -343,13 +385,21 @@ class _K1Kernel:
         logits = torch.empty(self.B, self.L, dtype=torch.float32, device=self.device)
         return logits.copy_(self.b_out.float().expand(self.B, self.L))
 
+    def modes(self) -> List[Tuple[int, int]]:
+        """Each hidden layer's (layer, mode) in a chunk: mode bit 0, A formed
+        from ``a`` and ``c`` (layer 0 without prod); bit 1, the dot with
+        ``w_out`` (the last layer)."""
+        n = len(self.wt)
+        return [(i, (1 if i == 0 and not self.prod else 0) | (2 if i == n - 1 else 0))
+                for i in range(n)]
+
     def launch(self, ch: ChunkLaunch, i: int, mode: int, logits: torch.Tensor) -> None:
-        """Hidden layer ``i`` of chunk ``ch``: A from ``a``/``c`` or the
-        workspace of layer ``i - 1``, out to the workspace of layer ``i`` or
-        into ``logits``."""
+        """Hidden layer ``i`` of chunk ``ch``: A from ``a``/``c`` or a
+        workspace, out to a workspace or into ``logits``
+        (:func:`k1_workspaces`)."""
         global LAUNCHES
-        x_in = None if mode & 1 else self.work[(i - 1) % 2]
-        x_out = None if mode & 2 else self.work[i % 2]
+        x_in, x_out = (None if j is None else self.work[j]
+                       for j in k1_workspaces(i, mode, self.prod))
         err = self.fn(_ptr(self.a), _ptr(self.c), _ptr(x_in), _ptr(self.wt[i]),
                       _ptr(self.bias[i]), _ptr(x_out), _ptr(self.w_out), _ptr(logits),
                       self.B, ch.nl, ch.nl_pad, ch.l0, self.L, self.H, self.H,
@@ -359,12 +409,49 @@ class _K1Kernel:
         with _launch_lock:
             LAUNCHES += 1
 
+    def first_prod(self, ch: ChunkLaunch) -> None:
+        """x1 of chunk ``ch`` into workspace 0 (rows ``b * nl_pad + l``)."""
+        from protnote_tpu_torch.ops.dense_scorer import pair_prod_cuda
+
+        sl = slice(ch.l0, ch.l0 + ch.nl)
+        pair_prod_cuda(self.a, self.c[sl], self.P_e, self.L_e[sl], self.w_prod, relu=True,
+                       out=self.work[0], rows_per_seq=ch.nl_pad, wt=self.wt_prod)
+
+    def head(self, logits: torch.Tensor, ch: Optional[ChunkLaunch] = None) -> None:
+        """The zero-hidden-layer chain into ``logits``: of chunk ``ch`` from
+        workspace 0 (prod), or of every label from ``a`` and ``c`` in one
+        launch."""
+        global HEAD_LAUNCHES
+        x = self.work[0] if ch is not None else None
+        l0, nl, nl_pad = (0, self.L, self.L) if ch is None else (ch.l0, ch.nl, ch.nl_pad)
+        err = _head_fn()(_ptr(self.a), _ptr(self.c), _ptr(x), _ptr(self.w_out), _ptr(logits),
+                         self.B, nl, nl_pad, l0, self.L, self.H, self.stream)
+        if err != 0:
+            raise RuntimeError(f"pair_mlp_head launch failed: CUDA error {err}")
+        with _launch_lock:
+            HEAD_LAUNCHES += 1
+
     def run(self) -> torch.Tensor:
         logits = self.new_logits()
         with torch.cuda.device(self.device):  # the C launch goes to the thread's device
-            for ch, i, mode in self.plan.launches():
-                self.launch(ch, i, mode, logits)
+            if not self.wt and not self.prod:
+                self.head(logits)
+                return logits
+            for ch in self.plan.chunks:
+                if self.prod:
+                    self.first_prod(ch)
+                if not self.wt:
+                    self.head(logits, ch)
+                for i, mode in self.modes():
+                    self.launch(ch, i, mode, logits)
         return logits
+
+
+def _head_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_scorer", "pair_mlp_head", [ctypes.c_void_p] * 5 +
+                           [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def pair_logits_tiled_cuda(
@@ -381,7 +468,11 @@ def pair_logits_tiled_cuda(
     it launches one kernel per hidden layer: the first forms ``relu(a[b] +
     c[l])`` in registers as its A operand, the last reduces its activations
     against ``w_out`` into the logits (pre-filled with ``b_out``), and any
-    layer between reads and writes bf16 activations in a workspace."""
+    layer between reads and writes bf16 activations in a workspace.  With
+    ``w1_prod`` a first launch (``pair_train_prod``) writes ``relu(a + c +
+    bf16(p * l) @ w1_prod)`` for the first hidden layer to read; with no
+    hidden layer ``pair_mlp_head`` takes the first ReLU's dot with
+    ``w_out``."""
     del label_tile
     return _K1Kernel(folded, P_e, L_e, compute_dtype).run()
 
@@ -729,7 +820,8 @@ def check_int8_kernel_inputs(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: tor
     """Raise on what the int8 CUDA kernel does not take (no fallback)."""
     if compute_dtype != torch.bfloat16:
         raise ValueError(f"the int8 CUDA pair scorer computes its side products in "
-                         f"bfloat16, not {compute_dtype} (MIXED_PRECISION: True)")
+                         f"bfloat16, not {compute_dtype} (MIXED_PRECISION: True; float32 on "
+                         "the card is ROADMAP.md queue 1, item 16)")
     if not q.hidden_q:
         raise ValueError("the int8 CUDA pair scorer needs at least one hidden layer "
                          "(OUTPUT_MLP_NUM_LAYERS >= 2)")
@@ -933,7 +1025,13 @@ def pair_logits_tiled_int8_cuda(
     layer; then one ``pair_int8_layer`` launch per hidden layer, whose
     epilogue writes the next layer's codes (static) or bf16 activations
     (dynamic) to a chunk workspace, or for the last layer reduces against
-    ``w_out`` into the logits (pre-filled with ``b_out``)."""
+    ``w_out`` into the logits (pre-filled with ``b_out``).  With no hidden
+    layer there is no int8 product: the chain is K1's zero-hidden form
+    (``relu(a + c)`` rounded and dotted with ``w_out``), so it runs there."""
+    if not q.hidden_q:
+        return pair_logits_tiled_cuda(
+            FoldedOutputMLP(w1_p=q.w1_p, w1_l=q.w1_l, b1=q.b1, w1_prod=None, hidden=[],
+                            w_out=q.w_out, b_out=q.b_out), P_e, L_e, label_tile, compute_dtype)
     del label_tile
     return _Int8Kernel(q, P_e, L_e, compute_dtype).run()
 

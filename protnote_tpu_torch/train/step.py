@@ -8,7 +8,9 @@ pipeline to the device.
 
 The train step runs the ProteInfer encoder (K7), gathers the label matrix
 rows, runs ``protnote_forward(train=True)`` (heads, the decomposed scorer
-K4 + K5), the loss, autograd and the optimizer, and reports ``loss``,
+K4 + K5, or the streamed or dense one as the config dispatches; the step's
+``generator`` draws the label noise, the heads' dropout and the dense
+scorer's dropout seed), the loss, autograd and the optimizer, and reports ``loss``,
 per-label ``tp``/``fp``/``fn`` at ``probs > threshold`` (strict, as the JAX
 train step; the eval accumulator uses ``>=``), the gradients' global norm
 and the example count.  The encoder is frozen under ``torch.no_grad`` in

@@ -199,6 +199,27 @@ def test_port_cli_int8_matches_jax_cli(checkpoint, env, calibrate):
     assert port_metrics["loss"] == pytest.approx(bf16_metrics["loss"], abs=1e-2)
 
 
+def test_port_cli_dense_matches_jax_cli(checkpoint, env):
+    """``PAIR_BACKEND dense`` on the test set: the materialised scorer with
+    eval BatchNorm on every pair row, through both CLIs; metrics to 1e-6 as
+    the comparisons above, and within 1e-4 of the folded scorer's (the same
+    function, the BatchNorm applied after the rows' product, not folded
+    into the weights)."""
+    import protnote_tpu.cli.main as jmain
+    import protnote_tpu_torch.cli.main as tmain
+
+    dense = ["PAIR_BACKEND", "dense"]
+    jax_metrics = jmain.run(_args(jmain, _cli_args(checkpoint, overrides=dense)))["test"]
+    port_metrics = tmain.run(_args(tmain, _cli_args(checkpoint, overrides=dense,
+                                                    extra=["--device", "cpu"])))["test"]
+    tiled = tmain.run(_args(tmain, _cli_args(checkpoint, extra=["--device", "cpu"])))["test"]
+    assert set(port_metrics) == set(jax_metrics)
+    for k in set(port_metrics) - set(RATES):
+        assert np.isfinite(port_metrics[k]), k
+        assert port_metrics[k] == pytest.approx(jax_metrics[k], abs=1e-6, rel=0), k
+    assert port_metrics["loss"] == pytest.approx(tiled["loss"], abs=1e-4)
+
+
 def _trainers(checkpoint):
     """(config, the port's CPU trainer, the JAX trainer, cache) on the
     checkpoint, at the CLI's toy shapes, with the validation split."""
@@ -350,7 +371,6 @@ def test_logits_match_and_stay_off_bin_edges(checkpoint, env):
 @pytest.mark.parametrize("extra, overrides, match", [
     (["--profile-dir", "prof"], [], "training"),
     (["--use-wandb"], [], "training"),
-    ([], ["PAIR_BACKEND", "dense"], "dense"),
     (["--mesh-label", "2"], [], "multi-GPU"),
 ])
 def test_unported_branches_raise(checkpoint, env, extra, overrides, match):

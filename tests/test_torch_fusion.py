@@ -33,12 +33,14 @@ SMALL = dict(protein_embedding_dim=P_DIM, label_embedding_dim=L_DIM, latent_dim=
              label_tile=4)
 
 
-def _model(fusion="concatenation", k=K, dtype="f32", seed=0):
-    """JAX-initialised ProtNote with random BN statistics, as numpy."""
+def _model(fusion="concatenation", k=K, dtype="f32", seed=0, **change):
+    """JAX-initialised ProtNote with random BN statistics, as numpy;
+    ``change``: other config fields of both sides."""
     jdt, tdt = DTYPES[dtype]
-    jcfg = jfu.ProtNoteConfig(**SMALL, feature_fusion=fusion,
+    fields = {**SMALL, **change}
+    jcfg = jfu.ProtNoteConfig(**fields, feature_fusion=fusion,
                               inference_descriptions_per_label=k, compute_dtype=jdt)
-    tcfg = tfu.ProtNoteConfig(**SMALL, feature_fusion=fusion,
+    tcfg = tfu.ProtNoteConfig(**fields, feature_fusion=fusion,
                               inference_descriptions_per_label=k, compute_dtype=tdt)
     params, state = jfu.init_protnote(jax.random.PRNGKey(seed), jcfg)
     params = jax.tree_util.tree_map(np.asarray, params)
@@ -55,7 +57,8 @@ def _model(fusion="concatenation", k=K, dtype="f32", seed=0):
 
     for head in ("W_p", "W_l", "output_mlp"):
         if head in params:
-            randomize(params[head]["bns"], state[head]["bns"])
+            if head in state:
+                randomize(params[head]["bns"], state[head]["bns"])
             # He-scale the default init, so logits spread over O(1)
             for lin in params[head]["layers"] + [params[head].get("out", {})]:
                 if "kernel" in lin:
@@ -131,24 +134,92 @@ def test_protnote_forward_eval_matches_jax(fusion, k, dtype):
     torch.testing.assert_close(fast, got, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what,match", [
-    ("train", "training slice"), ("dense", "training slice"),
-])
-def test_later_slices_raise(what, match):
-    """What the port leaves out: output-MLP dropout in training (it needs
-    the materialised dense scorer), PAIR_BACKEND=dense."""
+@pytest.mark.parametrize("what", ["train", "dense"])
+def test_later_slices_raise(what, monkeypatch):
+    """What the port once left out now runs as JAX's dispatch does, through
+    the materialised dense scorer: output-MLP dropout in training (the same
+    masks on both sides: the heads' dropout a position mask of its input's
+    shape, the output MLP the port's counter-hash masks of a fixed seed)
+    and ``PAIR_BACKEND=dense`` in evaluation (eval BatchNorm on the
+    materialised rows, the K = 2 ensemble): logits (and in training the new
+    state) at 1e-5 in float32."""
+    from protnote_tpu.ops import pair_scorer as jps
+    from protnote_tpu_torch.ops import dense_scorer as tds
+
     jcfg, tcfg, params, state = _model()
     seqs, labels = _inputs()
     t = from_jax_tree({"p": params, "s": state})
-    kw = {}
+    kw, jkw = {}, {}
     if what == "train":
-        kw["train"] = True
-        tcfg = tfu.ProtNoteConfig(**{**tcfg.__dict__, "dropout": 0.1})
+        rate = 0.1
+        jcfg = jfu.ProtNoteConfig(**{**jcfg.__dict__, "dropout": rate})
+        tcfg = tfu.ProtNoteConfig(**{**tcfg.__dict__, "dropout": rate})
+        seed = torch.tensor([8, 9], dtype=torch.int64)
+        H = 8 * 4
+        rows, cols = torch.arange(B * L * K)[:, None], torch.arange(H)[None, :]
+        masks = [tds.keep_mask(seed, i, rate, rows, cols).numpy() for i in range(2)]
+        calls = []
+
+        def mlp_dropout(x, r, key, train):
+            calls.append(r)
+            return jnp.where(masks[(len(calls) - 1) % 2], x / (1.0 - r), 0.0).astype(x.dtype)
+
+        def position_mask(shape, r):
+            idx = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape)
+            return (idx * 2654435761 % 1000) >= int(r * 1000)
+
+        monkeypatch.setattr(jfu, "dropout_fn", lambda x, r, key, train: jnp.where(
+            position_mask(x.shape, r), x / (1.0 - r), 0.0).astype(x.dtype))
+        monkeypatch.setattr(tfu, "dropout_fn", lambda x, r, gen, train: torch.where(
+            torch.from_numpy(position_mask(tuple(x.shape), r)), x / (1.0 - r),
+            0.0).to(x.dtype))
+        monkeypatch.setattr(tfu, "draw_seed", lambda gen: seed)
+        monkeypatch.setattr(jps, "dropout_fn", mlp_dropout)
+        kw = dict(train=True, generator=torch.Generator().manual_seed(0))
+        jkw = dict(train=True, rng=jax.random.PRNGKey(0))
     else:
+        jcfg = jfu.ProtNoteConfig(**{**jcfg.__dict__, "pair_backend": what})
         tcfg = tfu.ProtNoteConfig(**{**tcfg.__dict__, "pair_backend": what})
-    with pytest.raises(NotImplementedError, match=match):
-        tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
-                             torch.from_numpy(labels), tcfg, **kw)
+    want = jfu.protnote_forward(_jax(params), _jax(state), jnp.asarray(seqs),
+                                jnp.asarray(labels), jcfg, **jkw)
+    got = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs),
+                               torch.from_numpy(labels), tcfg, **kw)
+    assert got[0].shape == ((B, L * K) if what == "train" else (B, L))
+    assert float(np.std(np.asarray(want[0]))) > 0.1
+    a, b = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.float().numpy(), np.asarray(y, np.float32), atol=TOL["f32"],
+                                   rtol=0)
+    if what == "train":
+        assert calls == [0.1, 0.1]
+
+
+@pytest.mark.parametrize("change", [
+    {"feature_fusion": "concatenation_prod"}, {"output_mlp_num_layers": 1},
+    {"feature_fusion": "concatenation_prod", "output_mlp_num_layers": 1},
+    {"feature_fusion": "concatenation_prod", "pair_backend": "dense"},
+    {"output_mlp_batchnorm": False, "pair_backend": "dense"},
+], ids=["prod", "one_layer", "prod_one_layer", "prod_dense", "no_bn_dense"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_eval_forms_match_jax(change, dtype):
+    """Evaluation with ``concatenation_prod``, a one-layer output MLP, both,
+    and ``PAIR_BACKEND=dense`` with prod and without BatchNorm: the whole
+    forward (heads, K1's plain forms or the dense chain, the K = 2
+    ensemble) against the JAX ``protnote_forward``, the module's
+    tolerances."""
+    change = dict(change)
+    jcfg, tcfg, params, state = _model(change.pop("feature_fusion", "concatenation"),
+                                       dtype=dtype, seed=4, **change)
+    seqs, labels = _inputs()
+    want = jfu.protnote_forward(_jax(params), _jax(state), jnp.asarray(seqs),
+                                jnp.asarray(labels), jcfg)[0]
+    t = from_jax_tree({"p": params, "s": state})
+    got = tfu.protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), torch.from_numpy(labels),
+                               tcfg)[0]
+    assert got.shape == (B, L) and float(np.std(np.asarray(want, np.float32))) > 0.1
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=0)
 
 
 @pytest.mark.parametrize("static", [True, False])

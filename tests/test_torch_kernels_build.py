@@ -63,7 +63,7 @@ def test_included_headers_are_shared_headers():
     assert {"pair_scorer", "pair_scorer_int8", "pair_train",
             "text_attention"} <= users["hopper.cuh"]
     assert users["sigmoid.cuh"] == {"eval_accumulator", "threshold_sweep"}
-    assert users["bn_columns.cuh"] == {"bn_relu", "streamed_bn"}
+    assert users["bn_columns.cuh"] == {"bn_relu", "streamed_bn", "pair_dense"}
 
 
 def test_streamed_bn_signatures_match_the_c_entry_points():

@@ -1722,3 +1722,216 @@ def test_proteinfer_forward_f32_runs_the_f32_kernels_on_card():
     assert k7.LAUNCHES["masked_mean_pool_f32"] - before["masked_mean_pool_f32"] == 1
     assert k7.LAUNCHES["masked_conv_fwd"] == before["masked_conv_fwd"]
     _within(got, want, 1e-4, "logits")
+
+
+# ----------------------------------------------------------------------
+# the dense scorer (ops/dense_scorer.py): K5 with dropout and without BN,
+# the first layer (pair_first_add, pair_train_prod), its backward
+# (pair_side_sums, pair_train_dw_prod), and K1's prod and zero-hidden forms
+#
+# Tolerances: bf16 outputs within 2^-6 of the plain output's largest |value|
+# (sums in other orders, then one rounding), float32 sums (moments, column
+# sums, side sums) within 1e-3 of theirs; the keep mask the same bits; the
+# logits of K1's forms to 2e-2 as K1's.
+
+from protnote_tpu_torch.ops import dense_scorer as ds  # noqa: E402
+
+
+def _close(got, want, frac=2.0 ** -6):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= frac * float(want.abs().max()), (err, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_dense_act_kernels_match_plain_on_card(bn, rate):
+    """K5's dense forms (centred BN or bias, ReLU, dropout) and their
+    backward against the plain versions on the same bf16 inputs, 3,001 rows
+    x 512 with masked rows."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(31 + int(bn) + int(10 * rate))
+    N, H = 3001, 512
+    z = (torch.randn(N, H, generator=gen) + 0.5).to(dev, torch.bfloat16)
+    rows = (torch.rand(N, 1, generator=gen) < 0.9).float().to(dev)
+    n = rows.sum()
+    scale = (0.5 + torch.rand(H, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(H, generator=gen)).to(dev)
+    dy = torch.randn(N, H, generator=gen).to(dev, torch.bfloat16)
+    seed = torch.tensor([11, 22], dtype=torch.int64, device=dev)
+    outs = []
+    for fn in ((ds.bn_relu_dropout, ds.bn_relu_dropout_reference) if bn else
+               (ds.bias_relu_dropout, ds.bias_relu_dropout_reference)):
+        zz = z.clone().requires_grad_(True)
+        sc, bi = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        if bn:
+            y, mean, var = fn(zz, rows, n, sc, bi, seed, 1, rate)
+            stats = [mean, var]
+        else:
+            y, stats = fn(zz, bi, seed, 1, rate), []
+            sc = None
+        y.backward(dy)
+        outs.append((y.detach(), stats, zz.grad, None if sc is None else sc.grad, bi.grad))
+    (y, st_k, dz, dsc, dbi), (y0, st_p, dz0, dsc0, dbi0) = outs
+    _close(y, y0)
+    _close(dz, dz0)
+    for a, b in zip(st_k, st_p):
+        _close(a, b, 1e-3)
+    for a, b in ((dsc, dsc0), (dbi, dbi0)):
+        if b is not None:
+            _close(a, b, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 2])
+def test_dropout_mask_same_bits_on_card(layer):
+    """The kernels' keep mask is the plain hash's, bit for bit: the no-BN
+    form on z = 1 keeps bf16(1 / keep) exactly where the mask keeps, forward
+    and backward; the keep rate within 0.5% of 1 - rate."""
+    dev = _card()
+    N, H, rate = 4099, 768, 0.1
+    z = torch.ones(N, H, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    bias = torch.zeros(H, device=dev)
+    seed = torch.tensor([2**31 - 2, 12345], dtype=torch.int64, device=dev)
+    y = ds.bias_relu_dropout(z, bias, seed, layer, rate)
+    y.backward(torch.ones_like(y))
+    mask = ds.keep_mask(seed.cpu(), layer, rate, torch.arange(N)[:, None],
+                        torch.arange(H)[None, :]).to(dev)
+    kept = torch.tensor(1.0 / ds.keep_scale(rate, torch.bfloat16)).to(torch.bfloat16)
+    assert torch.equal(y != 0, mask) and torch.equal(z.grad != 0, mask)
+    assert bool((y[mask] == kept.to(dev)).all()) and bool((z.grad[mask] == kept.to(dev)).all())
+    assert abs(float(mask.float().mean()) - (1 - rate)) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prod", [False, True])
+def test_dense_first_layer_matches_plain_on_card(prod):
+    """The first layer (pair_first_add, or pair_train_prod with its
+    epilogue) and its backward (the side sums, dW_prod, dJ's weighted side
+    sums) against the plain version, 5 sequences x 301 labels, d 256, H 512;
+    the side sums the same bits on a second call."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(41 + int(prod))
+    B, L, d, H = 5, 301, 256, 512
+    a = torch.randn(B, H, generator=gen).to(dev)
+    c = torch.randn(L, H, generator=gen).to(dev)
+    P_e = torch.randn(B, d, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(L, d, generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn(d, H, generator=gen) / 16).to(dev) if prod else None
+    dz = torch.randn(B * L, H, generator=gen).to(dev, torch.bfloat16)
+    outs = []
+    for fn in (ds.pair_first_layer, ds.pair_first_layer_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (a, c, P_e, L_e)]
+        wg = None if w is None else w.clone().requires_grad_(True)
+        z = fn(*leaves, wg)
+        z.backward(dz)
+        outs.append([z.detach()] + [t.grad for t in leaves] + [None if wg is None else wg.grad])
+    for i, (k, p) in enumerate(zip(*outs)):
+        if p is None:
+            assert k is None or not prod
+            continue
+        _close(k, p, 1e-3 if i in (1, 2) else 2.0 ** -6)
+    sb, sl = ds.side_sums_cuda(dz, B, L)
+    sb2, sl2 = ds.side_sums_cuda(dz, B, L)
+    assert torch.equal(sb, sb2) and torch.equal(sl, sl2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prod", [False, True])
+@pytest.mark.parametrize("n_hidden", [0, 1, 2])
+def test_kernel_prod_and_zero_hidden_match_plain_on_card(prod, n_hidden):
+    """K1's refused forms, now run: ``w1_prod`` (pair_train_prod's ReLU'd
+    first layer into the workspace) and no hidden layer (pair_mlp_head),
+    against the plain scorer at 4 sequences x 300 labels (three chunks, the
+    last ragged), d 128, H 256: logits to 2e-2."""
+    dev = _card()
+    rng = np.random.default_rng(7 + 10 * n_hidden + int(prod))
+    folded = _folded(rng, 128, 256, n_hidden, dev)
+    if prod:
+        folded.w1_prod = torch.from_numpy(
+            (rng.normal(size=(128, 256)) / 8).astype(np.float32)).to(dev, torch.bfloat16)
+    P_e = torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+    L_e = torch.from_numpy(rng.normal(size=(300, 128)).astype(np.float32)).to(dev,
+                                                                               torch.bfloat16)
+    got = ps.pair_logits_tiled(folded, P_e, L_e)
+    want = ps.pair_logits_tiled_reference(folded, P_e, L_e)
+    assert float((got - want).abs().max()) <= 2e-2 and float(want.std()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion,bn,rate,remat", [
+    ("concatenation", True, 0.1, False), ("concatenation_prod", False, 0.1, True),
+    ("concatenation_prod", True, 0.0, False),
+])
+def test_dense_scorer_matches_plain_on_card(fusion, bn, rate, remat):
+    """The whole dense training scorer through its kernels against its plain
+    version on the same device tensors, 4 sequences x 300 labels, d 256, H
+    512: logits to 3e-2 and running statistics to 1e-3 (the decomposed
+    scorer's card tolerances).  Gradients: both bf16 chains against the
+    plain chain in float32, the kernels' no farther than twice the plain
+    bf16 chain's distance plus 2^-6 of the leaf's largest |value|.  (Held
+    to each other, a pre-activation that the prod GEMM's other summation
+    order rounds one bf16 step away moves a first-layer gradient, which
+    train-mode BatchNorm's backward leaves as a small difference of large
+    sums, by more than 5% of its largest |value| at this size.)"""
+    dev = _card()
+    cfg = ProtNoteConfig(latent_dim=256, output_mlp_hidden_dim_scale_factor=2,
+                         feature_fusion=fusion, output_mlp_batchnorm=bn,
+                         compute_dtype=torch.bfloat16)
+    p, s = init_protnote(torch.Generator().manual_seed(5), cfg)
+    p, s = p["output_mlp"], s.get("output_mlp")
+    for lin in p["layers"] + [p["out"]]:
+        lin["kernel"] = lin["kernel"] * 6 ** 0.5
+    gen = torch.Generator().manual_seed(6)
+    P_e = torch.randn(4, 256, generator=gen)
+    L_e = torch.randn(300, 256, generator=gen)
+    lm = (torch.arange(300) < 290).float()
+    w = torch.randn(4, 300, generator=gen)
+    seed = torch.tensor([5, 6], dtype=torch.int64)
+    runs = []
+    for fn, dtype in ((ds.pair_logits_dense, torch.bfloat16),
+                      (ds.pair_logits_dense_reference, torch.bfloat16),
+                      (ds.pair_logits_dense_reference, torch.float32)):
+        pp = {k: ([{kk: vv.to(dev).requires_grad_(True) for kk, vv in d.items()} for d in v]
+                  if isinstance(v, list) else
+                  {kk: vv.to(dev).requires_grad_(True) for kk, vv in v.items()})
+              for k, v in p.items()}
+        ss = None if s is None else {"bns": [{k: v.to(dev) for k, v in b.items()}
+                                             for b in s["bns"]]}
+        lg, new = fn(pp, ss, P_e.to(dev), L_e.to(dev), fusion, train=True, dropout=rate,
+                     seed=seed.to(dev), label_mask=lm.to(dev), remat=remat,
+                     compute_dtype=dtype)
+        (lg * w.to(dev)).sum().backward()
+        grads = [t.grad for v in pp.values() for d in (v if isinstance(v, list) else [v])
+                 for t in d.values()]
+        runs.append((lg.detach(), new, grads))
+    (lg, new, grads), (lg0, new0, grads0), (_, _, grads32) = runs
+    assert float((lg - lg0).abs().max()) <= 3e-2 and float(lg0.std()) > 0.3
+    if bn:
+        for a, b in zip(new["bns"], new0["bns"]):
+            for k in ("mean", "var"):
+                _close(a[k], b[k], 1e-3)
+    for a, b, f in zip(grads, grads0, grads32):
+        assert bool(torch.isfinite(a).all())
+        far, near = float((a - f).abs().max()), float((b - f).abs().max())
+        assert far <= 2 * near + 2.0 ** -6 * float(f.abs().max()), (far, near)
+
+
+@pytest.mark.cuda
+def test_int8_zero_hidden_runs_k1_head_on_card():
+    """``PAIR_BACKEND tiled_int8`` with no hidden layer has no int8 product:
+    its wrapper runs K1's head (``pair_mlp_head``), logits to 2e-2 of the
+    plain int8 chain's."""
+    dev = _card()
+    rng = np.random.default_rng(91)
+    q = ps.quantize_folded(_folded(rng, 128, 256, 0, dev))
+    P_e = torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+    L_e = torch.from_numpy(rng.normal(size=(300, 128)).astype(np.float32)).to(dev,
+                                                                               torch.bfloat16)
+    before = ps.HEAD_LAUNCHES
+    got = ps.pair_logits_tiled_int8(q, P_e, L_e)
+    want = ps.pair_logits_tiled_int8_reference(q, P_e, L_e)
+    assert ps.HEAD_LAUNCHES > before
+    assert float((got - want).abs().max()) <= 2e-2 and float(want.std()) > 0.1

@@ -113,8 +113,6 @@ def _folded(rng, hidden_width=128, n_hidden=2, prod=False):
 
 
 @pytest.mark.parametrize("case,match", [
-    (dict(prod=True), "concatenation_prod"),
-    (dict(n_hidden=0), "at least one hidden layer"),
     (dict(hidden_width=96), "multiple of 128"),
     (dict(dtype=torch.float32), "bfloat16"),
 ])

@@ -601,27 +601,66 @@ def test_protnote_forward_streams_like_jax(backend):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"dropout": 0.1}, NotImplementedError, "OUTPUT_MLP_DROPOUT"),
+    ({"dropout": 0.1}, None, None),
     ({"train_fused_bn_vjp": True}, ValueError, "TRAIN_FUSED_BN_VJP"),
 ])
-def test_streaming_dispatch_refusals(change, error, match):
-    """With a tile: dropout falls through to the materialised scorer in
-    JAX, which the port does not have; ``TRAIN_FUSED_BN_VJP`` raises JAX's
-    ``ValueError`` on both sides."""
+def test_streaming_dispatch_refusals(change, error, match, monkeypatch):
+    """With a tile: dropout falls through to the materialised dense scorer
+    on both sides, which then agree (logits and new state to 1e-5) on the
+    same masks: the heads' dropout takes a position mask of its input's
+    shape on both sides, the output MLP the port's counter-hash masks of a
+    fixed seed; ``TRAIN_FUSED_BN_VJP`` raises JAX's ``ValueError`` on both
+    sides."""
+    from protnote_tpu.models import fusion as jfu
     from protnote_tpu.models.fusion import protnote_forward as jax_forward
+    from protnote_tpu.ops import pair_scorer as jps
+    from protnote_tpu_torch.models import fusion as tfu
     from protnote_tpu_torch.models.fusion import protnote_forward
+    from protnote_tpu_torch.ops import dense_scorer as tds
 
     jcfg, tcfg = _forward_configs(**change)
     params, state = jax_init(jax.random.PRNGKey(3), jcfg)
-    seqs, labels = np.ones((B, 20), np.float32), np.ones((L, 20), np.float32)
-    if error is ValueError:
-        with pytest.raises(ValueError, match=match):
-            jax_forward(params, state, jnp.asarray(seqs), jnp.asarray(labels), jcfg, train=True)
+    rng = np.random.default_rng(25)
+    seqs = rng.normal(size=(B, 20)).astype(np.float32)
+    labels = rng.normal(size=(L, 20)).astype(np.float32)
     t = from_jax_tree({"p": jax.tree_util.tree_map(np.asarray, params),
                        "s": jax.tree_util.tree_map(np.asarray, state)})
-    with pytest.raises(error, match=match):
-        protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), torch.from_numpy(labels), tcfg,
-                         train=True, generator=torch.Generator().manual_seed(0))
+    if error is not None:
+        with pytest.raises(ValueError, match=match):
+            jax_forward(params, state, jnp.asarray(seqs), jnp.asarray(labels), jcfg, train=True)
+        with pytest.raises(error, match=match):
+            protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), torch.from_numpy(labels),
+                             tcfg, train=True, generator=torch.Generator().manual_seed(0))
+        return
+
+    def position_mask(shape, r):
+        idx = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape)
+        return (idx * 2654435761 % 1000) >= int(r * 1000)
+
+    seed = torch.tensor([3, 4], dtype=torch.int64)
+    rows, cols = torch.arange(B * L)[:, None], torch.arange(D * H_SCALE)[None, :]
+    masks = [tds.keep_mask(seed, i, 0.1, rows, cols).numpy() for i in range(2)]
+    calls = []
+
+    def mlp_dropout(x, r, key, train):
+        calls.append(r)
+        return jnp.where(masks[(len(calls) - 1) % 2], x / (1.0 - r), 0.0).astype(x.dtype)
+
+    monkeypatch.setattr(jfu, "dropout_fn", lambda x, r, key, train: jnp.where(
+        position_mask(x.shape, r), x / (1.0 - r), 0.0).astype(x.dtype))
+    monkeypatch.setattr(tfu, "dropout_fn", lambda x, r, gen, train: torch.where(
+        torch.from_numpy(position_mask(tuple(x.shape), r)), x / (1.0 - r), 0.0).to(x.dtype))
+    monkeypatch.setattr(tfu, "draw_seed", lambda gen: seed)
+    monkeypatch.setattr(jps, "dropout_fn", mlp_dropout)
+    want = jax_forward(params, state, jnp.asarray(seqs), jnp.asarray(labels), jcfg, train=True,
+                       rng=jax.random.PRNGKey(0))
+    got = protnote_forward(t["p"], t["s"], torch.from_numpy(seqs), torch.from_numpy(labels),
+                           tcfg, train=True, generator=torch.Generator().manual_seed(0))
+    assert calls == [0.1, 0.1]
+    a, b = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(a) == len(b) == 1 + 2 * (1 + 1 + 3) and float(np.std(np.asarray(want[0]))) > 0.1
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.float().numpy(), np.asarray(y, np.float32), atol=TOL, rtol=0)
 
 
 # ----------------------------------------------------------------------

@@ -256,6 +256,8 @@ SETTINGS = {
     "streaming": ["TRAIN_STREAMING_LABEL_TILE", "8"],
     "streaming_cached": ["TRAIN_STREAMING_LABEL_TILE", "8", "TRAIN_STREAMING_CACHE", "True"],
     "streaming_subset": ["TRAIN_STREAMING_LABEL_TILE", "8", "TRAIN_LABEL_SAMPLE_SIZE", "4"],
+    "dense": ["PAIR_BACKEND", "dense"],
+    "tiled": ["PAIR_BACKEND", "tiled"],
 }
 
 
@@ -266,7 +268,8 @@ def test_training_settings_match_jax_cli(start, env, setting, monkeypatch):
     validation metrics), the test metrics, and the trainable parameters and
     Adam moments of the two last checkpoints.  The streaming settings train
     every step of the port through the streamed scorer, with the cache as
-    set."""
+    set; ``dense`` (training and evaluation) and ``tiled`` (training) run
+    the materialised dense scorer on both sides."""
     import protnote_tpu.cli.main as jmain
     import protnote_tpu_torch.cli.main as tmain
     import protnote_tpu_torch.ops.streaming_train as tst

@@ -17,8 +17,6 @@ Tolerances:
   cotangents carry it).
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -62,15 +60,15 @@ def _configs(bf16=False, **change):
     return jpi_cfg, tpi_cfg, jpn, tpn
 
 
-def _jax_state(seed=0, train_sequence_encoder=False):
-    jpi_cfg, _, jpn, _ = _configs()
+def _jax_state(seed=0, train_sequence_encoder=False, **change):
+    jpi_cfg, _, jpn, _ = _configs(**change)
     pi_p, pi_s = jpi.init_proteinfer(jax.random.PRNGKey(seed), jpi_cfg)
     pn_p, pn_s = jfu.init_protnote(jax.random.PRNGKey(seed + 1), jpn)
     rng = np.random.default_rng(seed)
     pn_p = jax.tree_util.tree_map(np.asarray, pn_p)
     pn_s = jax.tree_util.tree_map(np.asarray, pn_s)
     for head in ("W_p", "W_l", "output_mlp"):
-        for st in pn_s[head]["bns"]:
+        for st in pn_s.get(head, {"bns": []})["bns"]:
             st["mean"] = rng.normal(0, 0.2, st["mean"].shape).astype(np.float32)
             st["var"] = rng.uniform(0.5, 2.0, st["var"].shape).astype(np.float32)
         for lin in pn_p[head]["layers"] + [pn_p[head].get("out", {})]:
@@ -139,10 +137,10 @@ def test_streaming_steps_match_jax(cache):
                                    train_streaming_cache=cache))
 
 
-def _assert_steps_close(metrics, jts, tts):
+def _assert_steps_close(metrics, jts, tts, min_leaves=10):
     """Losses, gradient norms (the clip binding), tp/fp/fn exactly, and the
     trainable parameters, running statistics and Adam moments after three
-    steps, float32."""
+    steps, float32 (each tree holds ``min_leaves`` leaves or more)."""
     for jm, tm in metrics:
         np.testing.assert_allclose(tm["loss"], jm["loss"], atol=TOL, rtol=0)
         np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], atol=TOL, rtol=0)
@@ -153,7 +151,7 @@ def _assert_steps_close(metrics, jts, tts):
     assert sum(int(jm["tp"].sum()) for jm, _ in metrics) > 0
     for key in ("trainable", "model_state"):
         got, want = _leaves(tts[key]), _leaves(jts[key])
-        assert len(got) == len(want) >= 10
+        assert len(got) == len(want) >= min_leaves
         for a, b in zip(got, want):
             np.testing.assert_allclose(a, b, atol=TOL, rtol=0, err_msg=key)
     got, want = _leaves(tts["opt_state"]), _leaves(jts["opt_state"])
@@ -275,13 +273,55 @@ def test_label_noise_range_and_scale():
     assert abs(float(noised.mean())) < 0.02 * bound
 
 
-def test_unported_training_settings_raise():
-    jts = _jax_state()
-    _, tpi_cfg, _, tpn = _configs()
-    batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
-    for change, match in (({"pair_backend": "tiled"}, "dense"),
-                          ({"dropout": 0.1}, "OUTPUT_MLP_DROPOUT")):
-        cfg = dataclasses.replace(tpn, **change)
-        step = make_train_step(tpi_cfg, cfg, get_loss_fn(PARAMS), Optimizer(PARAMS))
-        with pytest.raises(NotImplementedError, match=match):
-            step(from_jax_tree(jax.tree_util.tree_map(np.asarray, jts)), batch, None)
+@pytest.mark.parametrize("change", [
+    {"pair_backend": "tiled"}, {"pair_backend": "dense"},
+    {"feature_fusion": "concatenation_prod"}, {"output_mlp_batchnorm": False},
+    {"pair_backend": "dense", "gradient_checkpointing": True},
+], ids=["tiled", "dense", "prod", "no_bn", "dense_remat"])
+def test_dense_training_settings_match_jax(change):
+    """The settings the JAX dispatch trains through the materialised dense
+    scorer (``tiled`` without a label tile, ``dense``, ``concatenation_prod``,
+    no output-MLP BatchNorm, and dense with GRADIENT_CHECKPOINTING): three
+    steps from one JAX state, the checks of
+    ``test_three_steps_match_jax_f32``."""
+    # without output-MLP BatchNorm the running statistics are the heads' 4
+    _assert_steps_close(*_run_both(_jax_state(**change), _batches(3), **change),
+                        min_leaves=4 if change.get("output_mlp_batchnorm") is False else 10)
+
+
+def _position_mask(shape, rate):
+    """A deterministic dropout mask of ``shape`` (about ``rate`` dropped)."""
+    idx = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape)
+    return (idx * 2654435761 % 1000) >= int(rate * 1000)
+
+
+def test_dropout_steps_match_jax(monkeypatch):
+    """OUTPUT_MLP_DROPOUT 0.25 through the dense scorer, three steps, the
+    same masks on both sides: the heads' dropout (the JAX and the port's
+    ``dropout_fn`` of models/fusion.py) takes a position mask of its
+    input's shape, the output MLP takes the port's counter-hash masks of a
+    fixed step seed (the port's ``draw_seed`` returns it; the JAX output
+    MLP's ``dropout_fn`` takes those masks in layer order): the checks of
+    ``test_three_steps_match_jax_f32``."""
+    from protnote_tpu.ops import pair_scorer as jps
+    from protnote_tpu_torch.ops import dense_scorer as tds
+
+    rate = 0.25
+    seed = torch.tensor([17, 29], dtype=torch.int64)
+    monkeypatch.setattr(jfu, "dropout_fn", lambda x, r, rng, train: jnp.where(
+        _position_mask(x.shape, r), x / (1.0 - r), 0.0).astype(x.dtype))
+    monkeypatch.setattr(tfu, "dropout_fn", lambda x, r, gen, train: torch.where(
+        torch.from_numpy(_position_mask(tuple(x.shape), r)), x / (1.0 - r), 0.0).to(x.dtype))
+    monkeypatch.setattr(tfu, "draw_seed", lambda gen: seed)
+    H = PN["latent_dim"] * PN["output_mlp_hidden_dim_scale_factor"]
+    rows, cols = torch.arange(B * L)[:, None], torch.arange(H)[None, :]
+    masks = [tds.keep_mask(seed, i, rate, rows, cols).numpy() for i in range(2)]
+    calls = []
+
+    def mlp_dropout(x, r, rng, train):
+        calls.append(r)
+        return jnp.where(masks[(len(calls) - 1) % 2], x / (1.0 - r), 0.0).astype(x.dtype)
+
+    monkeypatch.setattr(jps, "dropout_fn", mlp_dropout)
+    _assert_steps_close(*_run_both(_jax_state(dropout=rate), _batches(3), dropout=rate))
+    assert calls == [rate, rate]  # traced once: two dropout layers

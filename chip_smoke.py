@@ -244,7 +244,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
     logits against the plain dense scorer's;
 27. dense serving (``dense_serving_*``): ``ServingEngine`` with
     ``concatenation_prod`` and with ``OUTPUT_MLP_NUM_LAYERS 1`` against the
-    plain forward, batch ms and launches.
+    plain forward, batch ms and launches;
+28. (run after phase 23) ``MIXED_PRECISION False``'s kernels at full width
+    (``f32_*``: 32 sequences x 64,204 label rows, d 1024, H 3072, float32
+    weights): K1 in float32 (``csrc/pair_scorer_f32.cu``: a bf16x3 split on
+    the tensor cores), its prod form, its one-layer head
+    (``pair_mlp_head_f32``, also alone) and K2's float32 form (static and
+    dynamic), each within 1e-5 of its plain float32 version's largest
+    |logit| (cuBLAS with TF32 off), the split's error a layer on one chunk,
+    times beside the bound at the split's rate and the FMA pipe's, the plain
+    version's, and cuBLAS float32 on the bare products;
+29. float32 end to end (``f32_paths``): serving (two full batches over
+    HTTP, a ``/v1/reload`` of the same weights, parity with the plain
+    float32 chain; one batch with ``concatenation_prod`` and one with a
+    one-layer output MLP), evaluation of 64 sequences through K3 and the K9
+    sweep (and int8 with dynamic scales), ``predict`` on 64 sequences (bf16
+    and int8 backends in float32, the first batch against the plain chain);
+    every float32 form launched, no bf16 K1, K2 layer or K7 conv.
 Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
 ``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
 doubled (those leaves doubled, the others and nothing else the same, the
@@ -262,7 +278,8 @@ run; K8a-bwd and K8b-bwd summed over the three tower-training runs, each
 K8b-bwd call two kernel launches and each K8a-bwd call at 128 tokens one,
 all counted; K7's forward and pool
 in the training run, its float32 forward and pool in phase 23's
-``test_proteinfer`` run, its backward and BN kernels in phase 19's
+``test_proteinfer`` run, K1's and K2's float32 forms in phase 29's runs,
+its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
 32-sequence streamed run; the dense scorer's kernels summed over phases
 25-27's runs; each count set to 0 just
@@ -305,7 +322,7 @@ LOGIT_ATOL = 5e-2
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
                   "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
-                  "streamed_bn", "masked_pool", "masked_conv_f32", "pair_dense")
+                  "streamed_bn", "masked_pool", "masked_conv_f32", "pair_dense", "pair_scorer_f32")
 # first designs that a phase holds a redesigned kernel against
 # (csrc/variants/): K9's update, whose histogram must be the same
 FIRST_DESIGNS = ("threshold_sweep_v1",)
@@ -5672,6 +5689,503 @@ def phase_dense_serving(card: str) -> dict:
     return total
 
 
+# float32 inference on the card (MIXED_PRECISION False): K1 in float32
+# (csrc/pair_scorer_f32.cu), its prod form, the float32 head and K2's
+# float32 form, each within F32_REL_TOL of its plain float32 version's
+# largest |logit| (the split product leaves out terms below 2^-24 of each
+# product; the rest is float32 summation in other orders); then serving,
+# evaluation and predict end to end in float32 on F32_SEQUENCES sequences
+F32_REL_TOL = 1e-5
+SPLIT_FLOPS = BF16_FLOPS / 6  # six bf16 products a float32 product (bf16x3)
+F32_SEQUENCES = 64
+F32_FORMS = ("pair_mlp_layer_f32", "pair_mlp_layer_f32_prod", "pair_mlp_head_f32",
+             "pair_int8_layer_f32", "pair_int8_layer_f32_dynamic")
+
+
+def random_folded_f32(gen, n_hidden: int, prod: bool, device):
+    """:func:`random_folded`'s He-uniform scales in float32 (no bf16
+    rounding: every weight uses float32's bits), with a float32 w1_prod."""
+    import torch
+
+    from protnote_tpu_torch.ops.pair_scorer import FoldedOutputMLP
+
+    def u(shape, fan_in):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * (6.0 / fan_in) ** 0.5).to(device)
+
+    d = D_LATENT
+    return FoldedOutputMLP(
+        w1_p=u((d, H), 2 * d), w1_l=u((d, H), 2 * d), b1=0.1 * u((H,), 2 * d),
+        w1_prod=u((d, H), 3 * d) if prod else None,
+        hidden=[(u((H, H), H), 0.1 * u((H,), H)) for _ in range(n_hidden)],
+        w_out=u((H,), H), b_out=torch.tensor(-0.5, device=device))
+
+
+def event_ms(fn):
+    """``(fn(), ms)``: one call timed by CUDA events (after an earlier call)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def f32_close(name: str, got, want) -> dict:
+    """Raise unless ``got`` is finite and within F32_REL_TOL of ``want``'s
+    largest |value|; the error and the scale."""
+    import torch
+
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= F32_REL_TOL * scale):
+        raise AssertionError(f"{name} disagrees with its plain float32 version: {err} against "
+                             f"{F32_REL_TOL} x {scale}")
+    return {"max_abs_err": err, "max_abs_value": scale, "rel_err": err / scale}
+
+
+def bf16_launches() -> tuple:
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    return ps.LAUNCHES, ps.HEAD_LAUNCHES, ps.INT8_LAUNCHES["pair_int8_layer"]
+
+
+def plain_head_f32(a, c, w_out):
+    """The float32 head's plain version: ``relu(a[b] + c[l]) . w_out`` in
+    float32 (TF32 off), (B, L) without b_out, in label tiles."""
+    import torch
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+
+    gemm_precision(torch.float32)
+    out = torch.empty(a.shape[0], c.shape[0], dtype=torch.float32, device=a.device)
+    for l0 in range(0, c.shape[0], LABEL_TILE):
+        h = torch.relu(a[:, None] + c[None, l0:l0 + LABEL_TILE])
+        out[:, l0:l0 + h.shape[1]] = h @ w_out
+    return out
+
+
+def f32_layer_errors(folded, P_e, L_e) -> dict:
+    """The split's error a layer on the plan's first chunk (8,192 rows): the
+    prod layer's and the first hidden layer's float32 outputs from one
+    launch each, against the plain float32 layer on the same rows, within
+    F32_REL_TOL of its largest |value|."""
+    import torch
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    gemm_precision(torch.float32)
+    k = ps._K1Kernel(folded, P_e, L_e, torch.float32)
+    ch = k.plan.chunks[0]
+    rows = B * ch.nl_pad
+    a, c = k.a, k.c[ch.l0:ch.l0 + ch.nl_pad]
+    pre = (a[:, None] + c[None]).reshape(rows, H)
+    out = {}
+    with torch.cuda.device(k.device):
+        if k.prod:
+            k.first_prod(ch)
+            prod = (P_e[:, None] * L_e[None, ch.l0:ch.l0 + ch.nl_pad]).reshape(rows, -1)
+            x = torch.relu(pre + prod @ folded.w1_prod)
+            out["prod_layer"] = f32_close("the prod layer", k.work[0][:rows], x)
+        else:
+            x = torch.relu(pre)
+        i, mode = k.modes()[0]
+        stored = ps.k1_workspaces(i, mode & ~2, k.prod)[1]
+        k.launch(ch, i, mode & ~2, None)  # the first hidden layer, stored
+        torch.cuda.synchronize()
+        W, b = folded.hidden[0]
+        out["hidden_layer_1"] = f32_close("the first hidden layer", k.work[stored][:rows],
+                                          torch.relu(x @ W + b))
+    del k
+    return out
+
+
+def phase_f32_kernels(card: str, k2: dict) -> dict:
+    """Phase 28: K1 in float32 at the full serving width (32 sequences x
+    64,204 label rows, d 1024, H 3072, two hidden layers; float32 weights
+    and inputs), its prod form and its one-layer head, and K2's float32
+    form (static and dynamic scales), each against its plain float32
+    version (``pair_logits_tiled_reference`` / ``_int8_reference`` at
+    ``compute_dtype`` float32, cuBLAS with TF32 off) within F32_REL_TOL of
+    the largest |logit|; the split's error a layer on one chunk; times by
+    CUDA events beside the bound at the split's rate (989 / 6 TFLOP/s) and
+    at the FMA pipe's 67, the plain version's, and ``gemm_ms``: cuBLAS
+    float32 on the two bare H x H products of one 8,192-row chunk times the
+    call's chunks (a yardstick, not the same function).  No bf16 K1 or K2
+    layer launches."""
+    import torch
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    gen = torch.Generator().manual_seed(220)
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    P_e = torch.randn(B, D_LATENT, generator=gen).to(dev)
+    L_e = torch.randn(NUM_LABELS * K_DESCRIPTIONS, D_LATENT, generator=gen).to(dev)
+    Lr = L_e.shape[0]
+    before = bf16_launches()
+    out = {}
+    with torch.inference_mode():
+        for form, prod in (("pair_mlp_layer_f32", False), ("pair_mlp_layer_f32_prod", True)):
+            folded = random_folded_f32(gen, 2, prod, dev)
+            ps.pair_logits_tiled_cuda(folded, P_e, L_e, LABEL_TILE, f32)
+            got, ms = event_ms(lambda: ps.pair_logits_tiled_cuda(folded, P_e, L_e, LABEL_TILE,
+                                                                 f32))
+            want, plain_ms = event_ms(lambda: ps.pair_logits_tiled_reference(
+                folded, P_e, L_e, LABEL_TILE, f32))
+            close = f32_close(form, got, want)
+            layers = f32_layer_errors(folded, P_e, L_e)
+            flop = 2.0 * B * Lr * (2 * H * H + (D_LATENT * H if prod else 0))
+            fields = {"ms": ms, "plain_ms": plain_ms, **bound(ops=flop, peak=SPLIT_FLOPS),
+                      "library_ms": None}
+            extra = {"bound_fma_ms": flop / F32_FLOPS * 1e3, "tflops": flop / ms / 1e9}
+            if not prod:
+                plan = ps.launch_plan(B, Lr, H, 2)
+                x = torch.rand(plan.workspace_rows, H, generator=gen).to(dev)
+                gemm_precision(f32)
+                Ws = [W for W, _ in folded.hidden]
+                chunk_ms = cuda_time_ms(lambda: [x @ W for W in Ws], 3)
+                extra.update(gemm_chunk_ms=chunk_ms, gemm_ms=chunk_ms * len(plan.chunks),
+                             chunks=len(plan.chunks))
+                del x
+                two_hidden = folded
+            out[form] = {**fields, "max_abs_err": close["max_abs_err"]}
+            log(f"f32_{form}", **close, **fields, **extra, split_error_by_layer=layers,
+                logit_std=float(want.std()), rel_tol=F32_REL_TOL, card=card)
+            del got, want
+            torch.cuda.empty_cache()
+        # the one-layer head: the call, then the head alone on its a and c
+        head = random_folded_f32(gen, 0, False, dev)
+        got = ps.pair_logits_tiled_cuda(head, P_e, L_e, LABEL_TILE, f32)
+        want = ps.pair_logits_tiled_reference(head, P_e, L_e, LABEL_TILE, f32)
+        call = f32_close("the float32 one-layer scorer", got, want)
+        kern = ps._K1Kernel(head, P_e, L_e, f32)
+        logits = kern.new_logits()
+        kern.head(logits)
+        head_want = plain_head_f32(kern.a, kern.c, kern.w_out) + head.b_out
+        alone = f32_close("pair_mlp_head_f32", logits, head_want)
+        head_ms = cuda_time_ms(lambda: kern.head(logits), 3)
+        head_plain_ms = cuda_time_ms(lambda: plain_head_f32(kern.a, kern.c, kern.w_out))
+        nbytes = (B + Lr) * H * 4 + H * 4 + B * Lr * 4
+        out["pair_mlp_head_f32"] = {
+            "max_abs_err": alone["max_abs_err"], "ms": head_ms, "plain_ms": head_plain_ms,
+            **bound(nbytes=nbytes, ops=3.0 * B * Lr * H, peak=F32_FLOPS), "library_ms": None}
+        log("f32_pair_mlp_head_f32", call=call, alone=alone, **out["pair_mlp_head_f32"],
+            bytes=nbytes, card=card)
+        del kern, logits, head_want, got, want
+        # K2's float32 form on the two-hidden-layer weights of K1's check
+        for form, static in (("pair_int8_layer_f32", True), ("pair_int8_layer_f32_dynamic", False)):
+            scales = ps.calibrate_act_scales(two_hidden, P_e, L_e) if static else None
+            q = ps.quantize_folded(two_hidden, act_scales=scales)
+            got = ps.pair_logits_tiled_int8_cuda(q, P_e, L_e, LABEL_TILE, f32)
+            want, plain_ms = event_ms(lambda: ps.pair_logits_tiled_int8_reference(
+                q, P_e, L_e, LABEL_TILE, f32))
+            close = f32_close(form, got, want)
+            ms = cuda_time_ms(lambda: ps.pair_logits_tiled_int8_cuda(q, P_e, L_e, LABEL_TILE,
+                                                                     f32), 3)
+            out[form] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                         **bound(ops=2.0 * 2 * H * H * B * Lr, peak=INT8_OPS),
+                         "library_ms": k2["pair_int8_layer"]["library_ms"]}
+            log(f"f32_{form}", **close, **{k: v for k, v in out[form].items() if k not in close},
+                scales=scales,
+                bf16_form_ms=k2["pair_int8_layer"]["ms"] if static else None, card=card)
+            del got, want, q
+    if bf16_launches() != before:
+        raise AssertionError(f"a float32 call launched a bf16 K1 or K2 layer: {before} -> "
+                             f"{bf16_launches()}")
+    return out
+
+
+def f32_models(**params):
+    """Full-width configs with ``MIXED_PRECISION False`` and config keys
+    ``params``: the encoder and the scorer in float32 (ProteInfer 1100
+    channels x 5 blocks, latent 1024, output MLP 3 x 3072), seeded random
+    weights, the ProtNote linears He-scaled."""
+    import torch
+
+    from protnote_tpu_torch.models.fusion import ProtNoteConfig, init_protnote
+    from protnote_tpu_torch.models.proteinfer import ProteInferConfig, init_proteinfer
+
+    pi_cfg = ProteInferConfig()
+    pn_cfg = ProtNoteConfig.from_params(
+        params, protein_embedding_dim=pi_cfg.output_channels, label_embedding_dim=D_LATENT,
+        inference_descriptions_per_label=K_DESCRIPTIONS, label_tile=LABEL_TILE,
+        compute_dtype=torch.float32)
+    pi_params, pi_state = init_proteinfer(torch.Generator().manual_seed(0), pi_cfg)
+    pn_params, pn_state = init_protnote(torch.Generator().manual_seed(1), pn_cfg)
+    he_scale_linears(pn_params)
+    return pi_cfg, pn_cfg, {"trainable": {"protnote": pn_params}, "model_state": pn_state,
+                            "enc_params": pi_params, "enc_state": pi_state}
+
+
+def reset_f32_path_counts() -> None:
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import threshold_sweep as k9
+
+    for counts in (ps.F32_LAUNCHES, k3.LAUNCHES, k9.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    ps.LAUNCHES = ps.HEAD_LAUNCHES = 0
+    reset_int8_launches()
+    reset_k7_launches()
+
+
+def f32_serving(rng, card: str) -> dict:
+    """Float32 serving: a full-width engine behind the HTTP front end, two
+    full batches, a ``/v1/reload`` of its own weights (the same bits, the
+    probabilities within two float16 steps), its probabilities against the
+    plain float32 chain; then one batch with ``concatenation_prod`` and one
+    with ``OUTPUT_MLP_NUM_LAYERS 1``."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.cli.serve import make_reload_fn
+    from protnote_tpu_torch.core.checkpoint import save_checkpoint
+    from protnote_tpu_torch.models.convert import to_jax_tree
+    from protnote_tpu_torch.serving import ServingEngine, make_http_server
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    matrix = random_label_matrix()
+    vocab = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
+    pi_cfg, pn_cfg, ts = f32_models()
+    t0 = time.perf_counter()
+    engine = ServingEngine(ts, pi_cfg, pn_cfg, matrix, vocab, buckets=(512, 1024),
+                           max_batch=B, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if engine.latents.dtype != torch.float32:
+        raise AssertionError(f"float32 serving's label latents are {engine.latents.dtype}")
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(tmp.name, "engine.ckpt")
+    save_checkpoint(ckpt, to_jax_tree(engine.ts), epoch=0)
+    trainer = Trainer(engine.ts, engine.pi_cfg, engine.pn_cfg, TrainerConfig(), device="cuda")
+    server, batcher = make_http_server(engine, port=0, host="127.0.0.1",
+                                       reload_fn=make_reload_fn(engine, trainer))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    small = random_sequences(rng, [120, 333, 480, 77])
+    try:
+        batch_ms = []
+        for _ in range(2):  # two full batches of one bucket
+            seqs = random_sequences(rng, rng.integers(100, 500, B))
+            body, ms = post(url + "/v1/predict", {"sequences": seqs, "top_k": 10})
+            batch_ms.append(ms)
+            probs = np.array([p for row in body["predictions"] for _, p in row])
+            if len(body["predictions"]) != B or not np.isfinite(probs).all():
+                raise AssertionError("float32 serving: top-k wrong")
+        before = engine.score(small)
+        old = named_tensors(engine.ts)
+        t0 = time.perf_counter()
+        reload_body, _ = post(url + "/v1/reload", {"model_file": ckpt})
+        reload_s = time.perf_counter() - t0
+        after = engine.score(small)
+        new = named_tensors(engine.ts)
+        same_bits = old.keys() == new.keys() and all(torch.equal(new[k], v)
+                                                     for k, v in old.items())
+        reload_err = float(np.abs(after - before).max())
+        del old, new
+    finally:
+        batcher.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        tmp.cleanup()
+    want = plain_probs(engine, small)
+    parity = float(np.abs(after - want).max())
+    log("f32_serving", batch=B, labels=NUM_LABELS, build_seconds=build_s, request_ms=batch_ms,
+        seqs_per_s=B * 1e3 / float(np.mean(batch_ms)), reload_seconds=reload_s,
+        reload_same_bits=same_bits, reload_max_abs_prob_change=reload_err,
+        max_abs_prob_err=parity, prob_atol=RELOAD_PROB_ATOL, card=card)
+    if reload_body.get("status") != "reloaded" or not same_bits or reload_err > RELOAD_PROB_ATOL:
+        raise AssertionError(f"float32 /v1/reload changed the model: {reload_body}, "
+                             f"{same_bits}, {reload_err}")
+    if not parity <= RELOAD_PROB_ATOL:
+        raise AssertionError(f"float32 serving disagrees with the plain chain: {parity}")
+    del engine, trainer
+    torch.cuda.empty_cache()
+    out = {"seqs_per_s": B * 1e3 / float(np.mean(batch_ms))}
+    for name, params in (("prod", {"FEATURE_FUSION": "concatenation_prod"}),
+                         ("one_layer", {"OUTPUT_MLP_NUM_LAYERS": 1})):
+        pi_cfg, pn_cfg, ts = f32_models(**params)
+        engine = ServingEngine(ts, pi_cfg, pn_cfg, matrix, vocab, buckets=(512, 1024),
+                               max_batch=B, device="cuda")
+        full = random_sequences(rng, rng.integers(100, 500, B))
+        probs, ms = event_ms(lambda: engine.score(full))
+        want = plain_probs(engine, small)
+        err = float(np.abs(engine.score(small) - want).max())
+        log(f"f32_serving_{name}", settings=params, batch_ms=ms, seqs_per_s=B * 1e3 / ms,
+            max_abs_prob_err=err, prob_atol=RELOAD_PROB_ATOL, card=card)
+        if not (np.isfinite(probs).all() and err <= RELOAD_PROB_ATOL):
+            raise AssertionError(f"float32 serving ({name}) disagrees with the plain chain: "
+                                 f"{err}")
+        out[f"{name}_seqs_per_s"] = B * 1e3 / ms
+        del engine, ts
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_eval(card: str) -> dict:
+    """Float32 evaluation of a 64-sequence FASTA through ``Trainer.evaluate``:
+    K7 f32 + K1 f32, then K3 and the K9 sweep of the CLI's 99 thresholds;
+    then ``PAIR_BACKEND tiled_int8`` with ``INT8_CALIBRATE`` off (K2's
+    float32 form, dynamic scales)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.data.dataset import DatasetConfig
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import threshold_sweep as k9
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = DatasetConfig(dataset_type="test", inference_go_descriptions=("name", "label"),
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = fasta_dataset(tmp, "eval_f32.fasta", F32_SEQUENCES, 41, cfg)
+    pi_cfg, pn_cfg, ts = f32_models()
+    out = {}
+    for name, pn, sweep, calibrate in (("sweep", pn_cfg, True, True),
+                                       ("int8_dynamic", dataclasses.replace(
+                                           pn_cfg, pair_backend="tiled_int8"), False, False)):
+        trainer = Trainer(ts, pi_cfg, pn, TrainerConfig(
+            decision_threshold=THRESHOLD, estimate_map=True, int8_calibrate=calibrate),
+            device="cuda")
+        batcher = eval_batcher(ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batcher, threshold_sweep=sweep_thresholds() if sweep else None)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        metrics = res["metrics"]
+        if not all(np.isfinite(v) for v in metrics.values()) or \
+                (sweep and not np.isfinite(res["threshold"][1])):
+            raise AssertionError(f"float32 evaluation ({name}): non-finite {metrics}")
+        out[name] = len(ds) / sec
+        log(f"f32_eval_{name}", sequences=len(ds), batches=len(batcher), seconds=sec,
+            seqs_per_s=len(ds) / sec, threshold=res.get("threshold"),
+            map_micro=metrics["map_micro"], k3=dict(k3.LAUNCHES), k9=dict(k9.LAUNCHES),
+            card=card)
+        del trainer, batcher
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_predict(card: str) -> dict:
+    """``cli/predict.py`` with ``--override MIXED_PRECISION False`` on a
+    64-sequence FASTA (half unlabeled), the default config with the
+    32,102 x 2 label cache file: ``build_predictor``, the int8 calibration
+    step and the scoring generator (``predict.main``'s window less its
+    parquet writes, which phase 22 times), ``auto`` (K1 f32) and
+    ``tiled_int8`` (K2's float32 form, static scales calibrated on the first
+    batch); the first batch's float32 logits within 1e-4 of the plain
+    chain's largest |logit| (``K7_F32_CHAIN_REL_TOL``: the encoder's float32
+    chain and the scorer's split), the int8 form's on the kernels' encoder
+    output (an int8 code flips with its input's last bit)."""
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.cli import predict
+    from protnote_tpu_torch.core.config import (
+        generate_label_embedding_path,
+        load_config,
+        resolve_paths,
+    )
+    from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu_torch.train.step import batch_to_device_dict
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, protnote_env(tmp):
+        config = resolve_paths(load_config())
+        emb_path = generate_label_embedding_path(
+            config["params"], config["paths_resolved"]["GO_BASE_LABEL_EMBEDDING_PATH"])
+        _, _, cache = label_cache()
+        LabelEmbeddingCache.save(emb_path, cache.embeddings, cache.ids, cache.description_types,
+                                 cache.descriptions, cache.token_counts)
+        del cache
+        fasta = write_fasta(os.path.join(tmp, "query.fasta"), F32_SEQUENCES, 43, labeled=False)
+        for backend in ("auto", "tiled_int8"):
+            out_dir = os.path.join(tmp, f"shards_{backend}")
+            args = predict.build_argparser().parse_args(
+                ["--fasta", fasta, "--name", f"f32_{backend}", "--output-dir", out_dir,
+                 "--rows-per-shard", "128", "--override", "PAIR_BACKEND", backend,
+                 "MIXED_PRECISION", "False"])
+            _, _, _, ds, trainer, batcher, label_matrix, _ = predict.build_predictor(args)
+            if trainer.pn_cfg.compute_dtype != torch.float32:
+                raise AssertionError("predict with MIXED_PRECISION False is not float32")
+            t0 = time.perf_counter()
+            trainer.ensure_int8_calibrated(batcher)
+            written = sum(len(ids) for _, ids, _ in
+                          predict.score_batches(trainer, batcher, label_matrix))
+            sec = time.perf_counter() - t0  # the generator reads every batch back
+            batch = next(iter(batcher))
+            arrays = trainer._place(batch_to_device_dict(batch, trainer.device), label_matrix,
+                                    batch)
+            latents = trainer._label_latents(arrays)
+            got = trainer._eval_step(trainer.ts, trainer._swap_in_latents(arrays, latents))
+            want = plain_logits(trainer.ts, trainer.pi_cfg, trainer.pn_cfg, arrays["aa_ids"],
+                                arrays["lengths"], latents, plain_encoder=backend == "auto")
+            keep = arrays["example_mask"] > 0
+            scale = float(want[keep].abs().max())
+            err = float((got["logits"][keep] - want[keep]).abs().max())
+            out[backend] = written / sec
+            log("f32_predict", backend=backend, sequences=written, seconds=sec,
+                seqs_per_s=written / sec,
+                scales=trainer.pn_cfg.int8_act_scales, max_abs_logit_err=err,
+                max_abs_logit=scale, rel_tol=K7_F32_CHAIN_REL_TOL,
+                latents_dtype=str(latents.dtype), card=card)
+            if written != F32_SEQUENCES or not err <= K7_F32_CHAIN_REL_TOL * scale:
+                raise AssertionError(f"float32 predict ({backend}): {written} sequences, "
+                                     f"logits {err} against the plain chain")
+            del trainer, batcher, label_matrix, latents, got, want, arrays
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_f32_paths(card: str) -> dict:
+    """Phase 29: ``MIXED_PRECISION False`` end to end through the entry
+    points' own code: serving (two batches, a ``/v1/reload``, the prod and
+    one-layer forms), evaluation (K3 and the K9 sweep; int8 dynamic) and
+    ``predict`` (bf16-free: K7 f32, K1 f32, K2's float32 form).  Every count
+    is set to 0 just before and read just after; each float32 form must
+    have launched, and no bf16 K1, K2 layer or K7 conv."""
+    import numpy as np
+
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import threshold_sweep as k9
+
+    rng = np.random.default_rng(22)
+    reset_f32_path_counts()
+    rates = {"serving": f32_serving(rng, card), "eval": f32_eval(card),
+             "predict": f32_predict(card)}
+    launches = {**ps.F32_LAUNCHES, **{f"k7_{k}": v for k, v in k7.LAUNCHES.items() if v},
+                "eval_acc_update": k3.LAUNCHES["update"],
+                "threshold_sweep_update": k9.LAUNCHES["update"],
+                "pair_int8_codes": ps.INT8_LAUNCHES["pair_int8_codes"],
+                "pair_int8_row_scale": ps.INT8_LAUNCHES["pair_int8_row_scale"]}
+    bf16 = {"pair_mlp_layer": ps.LAUNCHES, "pair_mlp_head": ps.HEAD_LAUNCHES,
+            "pair_int8_layer": ps.INT8_LAUNCHES["pair_int8_layer"],
+            "masked_conv_fwd": k7.LAUNCHES["masked_conv_fwd"]}
+    log("f32_paths", rates=rates, launches=launches, bf16_launches=bf16, card=card)
+    if any(launches[k] <= 0 for k in F32_FORMS + ("eval_acc_update", "threshold_sweep_update")) \
+            or k7.LAUNCHES["masked_conv_fwd_f32"] <= 0 or any(bf16.values()):
+        raise AssertionError(f"the float32 paths skipped a float32 kernel or ran a bf16 one: "
+                             f"{launches}, {bf16}")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -5696,6 +6210,10 @@ def main() -> None:
     phase_predict(card)
     torch.cuda.empty_cache()
     f32_launches = phase_test_proteinfer(card)["launches"]
+    torch.cuda.empty_cache()
+    f32_times = phase_f32_kernels(card, k2)
+    torch.cuda.empty_cache()
+    f32_paths = phase_f32_paths(card)
     torch.cuda.empty_cache()
     k3_times = phase_k3(card)
     bf16_metrics = phase_eval(card, k3_times)
@@ -5832,8 +6350,16 @@ def main() -> None:
         ("bn_relu_dropout_backward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
         ("bias_relu_dropout_forward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
         ("bias_relu_dropout_backward", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
-        ("pair_mlp_head", "pair_scorer", "protnote_tpu/ops/pair_scorer.py:197"))]}),
-        flush=True)
+        ("pair_mlp_head", "pair_scorer", "protnote_tpu/ops/pair_scorer.py:197"))] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": f32_paths[k], **{f: f32_times[k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep in (
+        ("pair_mlp_layer_f32", "pair_scorer_f32", "protnote_tpu/ops/pair_scorer.py:197"),
+        ("pair_mlp_layer_f32_prod", "pair_scorer_f32", "protnote_tpu/ops/pair_scorer.py:226"),
+        ("pair_mlp_head_f32", "pair_scorer", "protnote_tpu/ops/pair_scorer.py:233"),
+        ("pair_int8_layer_f32", "pair_scorer_int8", "protnote_tpu/ops/pair_scorer.py:375"),
+        ("pair_int8_layer_f32_dynamic", "pair_scorer_int8",
+         "protnote_tpu/ops/pair_scorer.py:375"))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,6 +149,37 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
     return ts, meta
 
 
+# what MIXED_PRECISION False still refuses on the card (those kernels take
+# bfloat16), by ROADMAP item
+FLOAT32_ON_CARD = {
+    "train": "training in float32 on the card (K4, K4-bwd, K5, K6 and the dense scorer's "
+             "kernels take bfloat16) is ROADMAP.md queue 1, item 16b: train with "
+             "MIXED_PRECISION True, or with --device cpu",
+    "dense": "PAIR_BACKEND dense in float32 on the card (the dense scorer's kernels take "
+             "bfloat16) is ROADMAP.md queue 1, item 16b: evaluate with PAIR_BACKEND auto, "
+             "tiled or tiled_int8",
+    "tower": "the label tower in float32 on the card (K8a, K8b and their backward take "
+             "bfloat16) is ROADMAP.md queue 1, item 16d: run it with MIXED_PRECISION True",
+}
+
+
+def refuse_float32_on_card(params: dict, device, train: bool = False,
+                           tower: bool = False) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for what
+    ``MIXED_PRECISION False`` does not run on the card, before any data or
+    weights are read: training, the dense scorer and (``tower``: a caller
+    that runs it) the label tower.  Its evaluation, serving and ``predict``
+    run (K7, K1 and K2 in float32)."""
+    if not str(device).startswith("cuda") or params.get("MIXED_PRECISION", True):
+        return
+    if train:
+        raise NotImplementedError(FLOAT32_ON_CARD["train"])
+    if params.get("PAIR_BACKEND") == "dense":
+        raise NotImplementedError(FLOAT32_ON_CARD["dense"])
+    if tower and (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
+        raise NotImplementedError(FLOAT32_ON_CARD["tower"])
+
+
 def build_inference_model(config: dict, params: dict, paths: dict, cache, run_name: str,
                           model_file: Optional[str], mesh, log, loss_fn=None,
                           device="cuda") -> Tuple:
@@ -163,6 +194,7 @@ def build_inference_model(config: dict, params: dict, paths: dict, cache, run_na
     if mesh is not None:
         raise NotImplementedError("label-sharded inference over several cards comes with "
                                   "the multi-GPU slice (ROADMAP.md queue 1, item 9)")
+    refuse_float32_on_card(params, device)
     pi_cfg, pn_cfg, ts = build_models(config, cache.dim, log=log)
     trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig.from_params(params, run_name=run_name),
                       device=device, loss_fn=loss_fn,

@@ -52,6 +52,10 @@ encoder (``trainable["encoder"]``, through K7's backward kernels on the
 card) and ``ENCODER_BN_TRAIN_MODE`` runs the frozen encoder's BatchNorm on
 batch statistics, as the JAX CLI does.  Profiler traces, wandb and a mesh
 raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``MIXED_PRECISION False`` evaluates in float32 on the card (K7, K1 and K2
+in float32); training, ``PAIR_BACKEND dense`` and the label tower in
+float32 on the card raise before any work, naming ROADMAP items 16b and
+16d (``cli/_model_setup.py:refuse_float32_on_card``).
 """
 
 from __future__ import annotations
@@ -112,6 +116,9 @@ def refuse_unported(args, params: Dict) -> None:
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "
                                   "slice (ROADMAP.md queue 1, item 9)")
+    from protnote_tpu_torch.cli._model_setup import refuse_float32_on_card
+
+    refuse_float32_on_card(params, args.device, train=bool(args.train_path_name), tower=True)
 
 
 def load_setup(args):
@@ -160,7 +167,8 @@ def build_label_tower(params: Dict, cache, pn_params, device, seed: int):
     if device.type == "cuda":
         if not params.get("MIXED_PRECISION", True):
             raise ValueError("the label tower's kernels (K8a, K8b and their backward) take "
-                             "bfloat16: train it on the card with MIXED_PRECISION True")
+                             "bfloat16: train it on the card with MIXED_PRECISION True "
+                             "(float32 on the card is ROADMAP.md queue 1, item 16d)")
         text_cfg = dataclasses.replace(text_cfg, dtype=torch.bfloat16)
     label_tokens = tokenize_descriptions(tokenizer, cache.descriptions)
     lora_params = mask = None

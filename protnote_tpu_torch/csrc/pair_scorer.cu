@@ -409,6 +409,9 @@ extern "C" int pair_mlp_layer_smem_bytes(int block_n, int mode) {
 //        ReLU'd first layer csrc/pair_train.cu:pair_train_prod wrote)
 //
 // for l < nl, with the logits pre-filled with b_out.  No GEMM is left.
+// pair_mlp_head_f32 is the float32 form (compute_dtype float32, MIXED_PRECISION
+// False): x1 = relu(a[b] + c[l0 + l]) unrounded, or the float32 x of
+// pair_mlp_layer_f32's prod layer, dotted with a float32 w_out.
 // From a and c (pair_mlp_head_ac_kernel): a block of 8 warps takes 16
 // labels (two a warp) and up to 32 sequences at a time; for each 256-column
 // slab it stages the sequences' f32 a slab in shared memory (32 KB), and
@@ -419,7 +422,10 @@ extern "C" int pair_mlp_layer_smem_bytes(int block_n, int mode) {
 // a warp a pair read a's whole row per pair (25 GB of L2 reads at 32 x
 // 64,204 x 3072).  From x (pair_mlp_head_x_kernel): a warp a pair, its
 // lanes 8 columns a step, as x is read once anyway.  What bounds it:
-// reading c (789 MB f32 at 64,204 x 3072, 0.24 ms) or x.
+// reading c (789 MB f32 at 64,204 x 3072, 0.24 ms) or x, and the float32
+// operations (an add, a max and a multiply-add a pair and column: 0.28 ms
+// at 67 TFLOP/s for 32 x 64,204 x 3072); the float32 form reads the same c
+// and a w_out of 12 KB instead of 6 KB.
 
 namespace {
 
@@ -446,9 +452,20 @@ __device__ __forceinline__ void load8_bf16(const __nv_bfloat16* p, float (&v)[8]
   }
 }
 
+// F32: x1 is not rounded to bf16 and w_out is float32
+template <bool F32>
+__device__ __forceinline__ void load8_w(const void* w, size_t n, float (&v)[8]) {
+  if (F32) {
+    load8_f32(static_cast<const float*>(w) + n, v);
+  } else {
+    load8_bf16(static_cast<const __nv_bfloat16*>(w) + n, v);
+  }
+}
+
+template <bool F32>
 __global__ void __launch_bounds__(HEAD_WARPS * 32)
 pair_mlp_head_ac_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                        const __nv_bfloat16* __restrict__ w_out, float* __restrict__ logits,
+                        const void* __restrict__ w_out, float* __restrict__ logits,
                         int B, int nl, int l0, int L, int K) {
   __shared__ __align__(16) float a_s[HEAD_B][HEAD_SLAB];
   const int lane = threadIdx.x & 31;
@@ -475,7 +492,7 @@ pair_mlp_head_ac_kernel(const float* __restrict__ a, const float* __restrict__ c
       const int col = lane * 8;
       if (col >= width) continue;
       float cv[HEAD_LPW][8], wv[8];
-      load8_bf16(w_out + n0 + col, wv);
+      load8_w<F32>(w_out, n0 + col, wv);
 #pragma unroll
       for (int li = 0; li < HEAD_LPW; ++li) {
         const int l = lbase + li;
@@ -496,7 +513,10 @@ pair_mlp_head_ac_kernel(const float* __restrict__ a, const float* __restrict__ c
         for (int li = 0; li < HEAD_LPW; ++li) {
           float t = acc[li][b];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) t += round_bf16(fmaxf(av[e] + cv[li][e], 0.f)) * wv[e];
+          for (int e = 0; e < 8; ++e) {
+            const float h = fmaxf(av[e] + cv[li][e], 0.f);
+            t += (F32 ? h : round_bf16(h)) * wv[e];
+          }
           acc[li][b] = t;
         }
       }
@@ -516,8 +536,9 @@ pair_mlp_head_ac_kernel(const float* __restrict__ a, const float* __restrict__ c
   }
 }
 
+template <bool F32>
 __global__ void __launch_bounds__(256)
-pair_mlp_head_x_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_out,
+pair_mlp_head_x_kernel(const void* __restrict__ x, const void* __restrict__ w_out,
                        float* __restrict__ logits, int B, int nl, int nl_pad, int l0, int L,
                        int K) {
   const int lane = threadIdx.x & 31;
@@ -530,8 +551,8 @@ pair_mlp_head_x_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
     float sum = 0.f;
     for (int n = lane * 8; n < K; n += 256) {
       float v[8], w[8];
-      load8_bf16(x + ((size_t)b * nl_pad + l) * K + n, v);
-      load8_bf16(w_out + n, w);
+      load8_w<F32>(x, ((size_t)b * nl_pad + l) * K + n, v);
+      load8_w<F32>(w_out, n, w);
 #pragma unroll
       for (int e = 0; e < 8; ++e) sum += v[e] * w[e];
     }
@@ -539,6 +560,26 @@ pair_mlp_head_x_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
     for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
     if (lane == 0) logits[(size_t)b * L + l0 + l] += sum;
   }
+}
+
+template <bool F32>
+int head(const void* a, const void* c, const void* x, const void* w_out, void* logits, int B,
+         int nl, int nl_pad, int l0, int L, int K, void* stream) {
+  if (B <= 0 || nl <= 0 || nl_pad < nl || l0 < 0 || l0 + nl > L || K <= 0 || K % 8 != 0 ||
+      (x == nullptr && (a == nullptr || c == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(logits);
+  if (x == nullptr) {
+    const int per_block = HEAD_WARPS * HEAD_LPW;
+    pair_mlp_head_ac_kernel<F32><<<(nl + per_block - 1) / per_block, HEAD_WARPS * 32, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(c), w_out, out, B, nl, l0, L, K);
+  } else {
+    const long long pairs = (long long)B * nl;
+    const int blocks = (int)((pairs + 7) / 8 < 132 * 16 ? (pairs + 7) / 8 : 132 * 16);
+    pair_mlp_head_x_kernel<F32><<<blocks, 256, 0, s>>>(x, w_out, out, B, nl, nl_pad, l0, L, K);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -550,21 +591,13 @@ pair_mlp_head_x_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
 extern "C" int pair_mlp_head(const void* a, const void* c, const void* x, const void* w_out,
                              void* logits, int B, int nl, int nl_pad, int l0, int L, int K,
                              void* stream) {
-  if (B <= 0 || nl <= 0 || nl_pad < nl || l0 < 0 || l0 + nl > L || K <= 0 || K % 8 != 0 ||
-      (x == nullptr && (a == nullptr || c == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(w_out);
-  float* out = static_cast<float*>(logits);
-  if (x == nullptr) {
-    const int per_block = HEAD_WARPS * HEAD_LPW;
-    pair_mlp_head_ac_kernel<<<(nl + per_block - 1) / per_block, HEAD_WARPS * 32, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(c), w, out, B, nl, l0, L, K);
-  } else {
-    const long long pairs = (long long)B * nl;
-    const int blocks = (int)((pairs + 7) / 8 < 132 * 16 ? (pairs + 7) / 8 : 132 * 16);
-    pair_mlp_head_x_kernel<<<blocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x), w, out,
-                                                  B, nl, nl_pad, l0, L, K);
-  }
-  return (int)cudaGetLastError();
+  return head<false>(a, c, x, w_out, logits, B, nl, nl_pad, l0, L, K, stream);
+}
+
+// pair_mlp_head in float32: x1 = relu(a + c) not rounded, or x (B * nl_pad,
+// K) f32; w_out (K,) f32.
+extern "C" int pair_mlp_head_f32(const void* a, const void* c, const void* x, const void* w_out,
+                                 void* logits, int B, int nl, int nl_pad, int l0, int L, int K,
+                                 void* stream) {
+  return head<true>(a, c, x, w_out, logits, B, nl, nl_pad, l0, L, K, stream);
 }

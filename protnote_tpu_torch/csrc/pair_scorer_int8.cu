@@ -163,14 +163,14 @@ __device__ __forceinline__ uint32_t quantize4(const float (&v)[4], float s, floa
          (quantize<DIV>(v[2], s, r, lo) << 16) | (quantize<DIV>(v[3], s, r, lo) << 24);
 }
 
-template <int BN, int EPI, bool DYN>
+template <int BN, int EPI, bool DYN, bool W32>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_int8_layer_kernel(const __grid_constant__ CUtensorMap tm_w,
                        const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_o,
                        const float* __restrict__ s_w, const float* __restrict__ bias,
                        const float* __restrict__ row_scale,
-                       const __nv_bfloat16* __restrict__ w_out, float* __restrict__ logits,
+                       const void* __restrict__ w_out, float* __restrict__ logits,
                        float s_in, float inv_next, int nl, int nl_pad, int l0, int L, int K,
                        int tiles_n, int tiles) {
   using Lay = Layout<BN, EPI != E_DOT>;
@@ -279,10 +279,15 @@ pair_int8_layer_kernel(const __grid_constant__ CUtensorMap tm_w,
         float p0 = 0.f, p1 = 0.f;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
-          const float2 wv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(w_out + n0 + 8 * j + 2 * q));
+          // w_out in bf16, or in float32 (W32: compute_dtype float32, where
+          // JAX dots bf16 h, widened, with the float32 w_out)
+          const int col = n0 + 8 * j + 2 * q;
+          const float2 wv =
+              W32 ? *reinterpret_cast<const float2*>(static_cast<const float*>(w_out) + col)
+                  : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        static_cast<const __nv_bfloat16*>(w_out) + col));
           const float2 h0 = hpair(j, 0), h1 = hpair(j, 1);
-          p0 += h0.x * wv.x + h0.y * wv.y;  // bf16 x bf16 products are exact in f32
+          p0 += h0.x * wv.x + h0.y * wv.y;
           p1 += h1.x * wv.x + h1.y * wv.y;
         }
         p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
@@ -699,16 +704,16 @@ pair_int8_later_kernel(const __nv_bfloat16* __restrict__ x_in, float* __restrict
 struct Args {
   CUtensorMap tm_w, tm_x, tm_o;
   const float *s_w, *bias, *row_scale;
-  const __nv_bfloat16* w_out;
+  const void* w_out;
   float* logits;
   float s_in, inv_next;
   int nl, nl_pad, l0, L, K, tiles_n, tiles, grid;
 };
 
-template <int BN, int EPI, bool DYN>
+template <int BN, int EPI, bool DYN, bool W32 = false>
 cudaError_t launch(const Args& p, cudaStream_t s) {
   constexpr int bytes = Layout<BN, EPI != E_DOT>::BYTES;
-  auto kernel = pair_int8_layer_kernel<BN, EPI, DYN>;
+  auto kernel = pair_int8_layer_kernel<BN, EPI, DYN, W32>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<p.grid, THREADS, bytes, s>>>(p.tm_w, p.tm_x, p.tm_o, p.s_w, p.bias, p.row_scale,
@@ -717,6 +722,8 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+constexpr int W32_OUT = 8;  // mode bit: w_out is float32
+
 template <int BN>
 cudaError_t launch_mode(int mode, const Args& p, cudaStream_t s) {
   switch (mode) {
@@ -724,6 +731,8 @@ cudaError_t launch_mode(int mode, const Args& p, cudaStream_t s) {
     case E_DOT: return launch<BN, E_DOT, false>(p, s);
     case E_BF16 | 4: return launch<BN, E_BF16, true>(p, s);
     case E_DOT | 4: return launch<BN, E_DOT, true>(p, s);
+    case E_DOT | W32_OUT: return launch<BN, E_DOT, false, true>(p, s);
+    case E_DOT | 4 | W32_OUT: return launch<BN, E_DOT, true, true>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -768,8 +777,9 @@ int first_codes(const void* a, const void* c, const void* row_scale, void* codes
 //   wt (N, K) int8: the layer's Wq transposed (K-major); s_w, bias (N,) f32;
 //   row_scale (M,) f32: the dynamic scales (unused with static ones);
 //   x_out (M, N): int8 codes (quantized with inv_next = 1 / s_{i+1}) or bf16
-//   activations; w_out (N,) bf16; logits (B, L) f32, added into.
-// mode = epilogue | (dynamic << 2): epilogue 0 stores the next layer's codes
+//   activations; w_out (N,) bf16, or f32 with mode bit 8; logits (B, L)
+//   f32, added into.
+// mode = epilogue | (dynamic << 2) | (f32 w_out << 3): epilogue 0 stores the next layer's codes
 // (static), 1 its bf16 activations (dynamic), 2 takes the dot with w_out into
 // the logits (the last layer); dynamic: alpha is row_scale[row] * s_w[col],
 // else s_in * s_w[col].  block_n (256 or 128) is the column tile, grid the
@@ -784,7 +794,7 @@ extern "C" int pair_int8_layer(const void* x_in, const void* wt, const void* s_w
   const int epi = mode & 3;
   if (B <= 0 || nl <= 0 || nl_pad < nl || nl_pad % BM != 0 || K <= 0 || K % BK != 0 ||
       (block_n != 128 && block_n != 256) || N <= 0 || N % block_n != 0 || epi > E_DOT ||
-      mode > 7 || grid <= 0)
+      mode > 15 || ((mode & W32_OUT) && epi != E_DOT) || grid <= 0)
     return (int)cudaErrorInvalidValue;
   Args p;
   memset(&p, 0, sizeof(p));
@@ -797,7 +807,7 @@ extern "C" int pair_int8_layer(const void* x_in, const void* wt, const void* s_w
   p.s_w = static_cast<const float*>(s_w);
   p.bias = static_cast<const float*>(bias);
   p.row_scale = static_cast<const float*>(row_scale);
-  p.w_out = static_cast<const __nv_bfloat16*>(w_out);
+  p.w_out = w_out;
   p.logits = static_cast<float*>(logits);
   p.s_in = s_in;
   p.inv_next = inv_next;

@@ -457,7 +457,8 @@ def _check_first_cuda(a, c, P_e, L_e, w_prod) -> None:
         raise ValueError("the CUDA first layer takes float32 side products a and c")
     if P_e.dtype != torch.bfloat16 or L_e.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA first layer computes in bfloat16 (MIXED_PRECISION: True; "
-                         f"float32 on the card is ROADMAP.md queue 1, item 16), not {P_e.dtype}")
+                         f"the dense scorer in float32 on the card is ROADMAP.md queue 1, "
+                         f"item 16b), not {P_e.dtype}")
     H = a.shape[1]
     if c.shape[1] != H or H % 128:
         raise ValueError(f"side products {tuple(a.shape)}, {tuple(c.shape)}: the width must "

@@ -59,7 +59,7 @@ PyTorch versions (the ``*_reference`` functions, which also run on the card
 as the yardstick), CUDA tensors the kernels, through ``autograd.Function``s
 when a gradient is wanted.  On the card the forward takes bfloat16 or
 float32 (eval mode: a float32 gradient or train-mode BatchNorm raises,
-ROADMAP.md queue 1 item 16, formerly item 5i) and any other dtype raises; nothing falls back
+ROADMAP.md queue 1 item 16c, formerly item 5i) and any other dtype raises; nothing falls back
 to cuDNN.
 
 Rounding points in the backward: each gradient is rounded to bf16 once,
@@ -489,8 +489,8 @@ def _launch(library: str, symbol: str, counter: str, device: torch.device, *args
 
 FLOAT32_GRADIENTS = ("the CUDA encoder kernels (K7) run float32 in eval mode only: a float32 "
                      "gradient or train-mode BatchNorm of the encoder on the card comes with "
-                     "ROADMAP.md queue 1, item 16 (the MIXED_PRECISION False configuration on "
-                     "the card, which took over item 5i); train it with MIXED_PRECISION True")
+                     "ROADMAP.md queue 1, item 16c (the encoder's training in float32, which "
+                     "took over item 5i); train it with MIXED_PRECISION True")
 
 
 def check_compute_dtype(dtype: torch.dtype, grad: bool = False) -> None:

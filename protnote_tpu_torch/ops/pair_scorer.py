@@ -8,8 +8,11 @@ ReLU layers and a dot with ``w_out``.
 
 :func:`pair_logits_tiled` is the entry point.  For tensors on the CPU it runs
 the plain PyTorch version, :func:`pair_logits_tiled_reference`; for CUDA
-tensors it launches the hand-written kernel ``csrc/pair_scorer.cu`` and never
-falls back to the plain version: input the kernel does not take raises.
+tensors it launches the hand-written kernel ``csrc/pair_scorer.cu`` (bf16) or
+``csrc/pair_scorer_f32.cu`` (float32, ``MIXED_PRECISION: False``: every
+product at float32's precision through a split into three bf16 pieces, see
+:func:`split_bf16x3`) and never falls back to the plain version: input the
+kernel does not take raises.
 
 Cast points follow the JAX path exactly: the per-side products ``a`` and
 ``c`` are float32 products of operands rounded to the compute dtype
@@ -107,6 +110,51 @@ def _side_partials(folded: FoldedOutputMLP, P_e: torch.Tensor,
     return a, c
 
 
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``x`` (float32) as three bf16 tensors whose sum is ``x`` exactly:
+    each the previous remainder rounded to nearest (the remainders are exact
+    in float32, the last has at most 8 significant bits).  The float32
+    kernel splits its A operand so in registers and takes W's pieces from
+    here, once a call."""
+    x = x.float()
+    x0 = x.to(torch.bfloat16)
+    r1 = x - x0.float()
+    x1 = r1.to(torch.bfloat16)
+    return x0, x1, (r1 - x1.float()).to(torch.bfloat16)
+
+
+# the six products of the split that keep float32's precision, (A piece, W
+# piece), in the order the kernel issues them: a stage's five small cross
+# products for each k-step, then its x0 w0 products
+BF16X3_TERMS = ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+K_STAGE = 64  # the kernel's reduction depth a stage
+K_STEP = 16  # wgmma's depth
+
+
+def bf16x3_product_emulation(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (float32) as ``pair_mlp_layer_f32`` computes it, emulated on
+    the CPU: both operands split by :func:`split_bf16x3`; per stage of
+    ``K_STAGE`` a fresh float32 partial sum takes, k-step by k-step, the five
+    small products of :data:`BF16X3_TERMS`, then the stage's ``x0 w0``
+    products (each a float32 product of bf16 values, exact, summed in
+    float32), and is added into the result.  The tensor cores' own
+    summation, whose adds are not float32's rounded ones, is not modelled:
+    the kernel keeps it to a stage."""
+    xs = [t.float() for t in split_bf16x3(x)]
+    ws = [t.float() for t in split_bf16x3(w)]
+    out = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32)
+    for k0 in range(0, x.shape[1], K_STAGE):
+        steps = range(k0, min(k0 + K_STAGE, x.shape[1]), K_STEP)
+        part = torch.zeros_like(out)
+        for k in steps:
+            for i, j in BF16X3_TERMS:
+                part += xs[i][:, k : k + K_STEP] @ ws[j][k : k + K_STEP]
+        for k in steps:
+            part += xs[0][:, k : k + K_STEP] @ ws[0][k : k + K_STEP]
+        out += part
+    return out
+
+
 def pair_logits_tiled_reference(
     folded: FoldedOutputMLP,
     P_e: torch.Tensor,
@@ -148,7 +196,20 @@ def pair_logits_tiled_reference(
 # ``concatenation_prod`` one per label chunk.
 LAUNCHES = 0
 HEAD_LAUNCHES = 0
+# The float32 forms' launches, counted alike: K1's float32 layers
+# (``pair_mlp_layer_f32``), its prod layer (the same entry point, once per
+# label chunk), its head (``pair_mlp_head_f32``), and K2's layers in a
+# float32 call (``pair_int8_layer`` with a float32 ``w_out``) with static and
+# with dynamic scales.
+F32_LAUNCHES = {"pair_mlp_layer_f32": 0, "pair_mlp_layer_f32_prod": 0, "pair_mlp_head_f32": 0,
+                "pair_int8_layer_f32": 0, "pair_int8_layer_f32_dynamic": 0}
 _launch_lock = threading.Lock()
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        F32_LAUNCHES[name] += 1
 
 _BLOCK_N = 128  # the width every hidden layer must be a multiple of (K1, K2, K4)
 BLOCK_M = 128  # K1's, K2's and K4's pair rows a tile (BM in the kernels)
@@ -280,11 +341,9 @@ def pair_logits_plan_reference(folded: FoldedOutputMLP, P_e: torch.Tensor,
 def check_kernel_inputs(folded: FoldedOutputMLP, P_e: torch.Tensor,
                         L_e: torch.Tensor, compute_dtype: torch.dtype) -> None:
     """Raise on what the CUDA kernel does not take (there is no fallback)."""
-    if compute_dtype != torch.bfloat16:
-        raise ValueError(
-            f"the CUDA pair scorer computes in bfloat16, not {compute_dtype} "
-            "(MIXED_PRECISION: True; float32 on the card is ROADMAP.md queue 1, item 16)"
-        )
+    if compute_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the CUDA pair scorer computes in bfloat16 or float32, not "
+                         f"{compute_dtype}")
     H = folded.w1_p.shape[1]
     if H % _BLOCK_N:
         raise ValueError(f"hidden width {H} is not a multiple of {_BLOCK_N}")
@@ -309,6 +368,19 @@ def _kernel_fn():
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _f32_layer_fn():
+    """``pair_mlp_layer_f32`` (``csrc/pair_scorer_f32.cu``) with its ctypes
+    signature."""
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_scorer_f32", "pair_mlp_layer_f32",
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+# pair_mlp_layer_f32's modes: where A comes from, and the dot bit
+F32_A_X, F32_A_PAIR, F32_A_PROD, F32_DOT = 0, 1, 2, 4
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -344,7 +416,15 @@ class _K1Kernel:
     w1_prod)`` into the first workspace, which the first hidden layer then
     reads.  With no hidden layer, ``pair_mlp_head`` takes the dot of the
     first ReLU with ``w_out``: formed from ``a`` and ``c`` for every label in
-    one launch, or read from that workspace a chunk at a time."""
+    one launch, or read from that workspace a chunk at a time.
+
+    In float32 (``compute_dtype`` float32) every launch is
+    ``csrc/pair_scorer_f32.cu``'s: ``pair_mlp_layer_f32`` for each layer (the
+    prod layer too, from float32 ``P_e`` and ``L_e``), with each weight laid
+    out as its three bf16 pieces (:func:`split_bf16x3`, stacked K-major),
+    float32 workspaces, a float32 ``w_out``, and ``pair_mlp_head_f32`` with
+    no hidden layer.  Nothing is rounded to bf16 but the split's exact
+    pieces."""
 
     def __init__(self, folded: FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
                  compute_dtype: torch.dtype):
@@ -357,27 +437,39 @@ class _K1Kernel:
         if any(t.device != device for t in tensors) or device.type != "cuda":
             raise ValueError("the CUDA pair scorer needs every tensor on one CUDA device")
         self.device = device
+        self.f32 = compute_dtype == torch.float32
         self.B, self.L = P_e.shape[0], L_e.shape[0]
         self.H = folded.w1_p.shape[1]
         a, c = _side_partials(folded, P_e, L_e, compute_dtype)
         self.a, self.c = a.contiguous(), c.contiguous()
         self.prod = folded.w1_prod is not None
+        if self.f32:
+            wdt = torch.float32
+            self.wt = [self.pieces(W) for W, _ in folded.hidden]
+        else:
+            wdt = torch.bfloat16
+            self.wt = [W.to(wdt).t().contiguous() for W, _ in folded.hidden]
         if self.prod:
-            self.P_e = P_e.to(torch.bfloat16).contiguous()
-            self.L_e = L_e.to(torch.bfloat16).contiguous()
-            self.w_prod = folded.w1_prod.to(torch.bfloat16)
-            self.wt_prod = self.w_prod.t().contiguous()
-        self.wt = [W.to(torch.bfloat16).t().contiguous() for W, _ in folded.hidden]
+            self.P_e = P_e.to(wdt).contiguous()
+            self.L_e = L_e.to(wdt).contiguous()
+            self.w_prod = folded.w1_prod.to(wdt)
+            self.wt_prod = self.pieces(self.w_prod) if self.f32 else self.w_prod.t().contiguous()
         self.bias = [b.float().contiguous() for _, b in folded.hidden]
-        self.w_out = folded.w_out.to(torch.bfloat16).contiguous()
+        self.w_out = folded.w_out.to(wdt).contiguous()
         self.b_out = folded.b_out
         n = len(self.wt)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         self.plan = launch_plan(self.B, self.L, self.H, max(n, 1), sms)
-        self.work = [torch.empty(self.plan.workspace_rows, self.H, dtype=torch.bfloat16,
-                                 device=device) for _ in range(k1_workspace_count(n, self.prod))]
-        self.fn = _kernel_fn()
+        self.work = [torch.empty(self.plan.workspace_rows, self.H, dtype=wdt, device=device)
+                     for _ in range(k1_workspace_count(n, self.prod))]
+        self.fn = _f32_layer_fn() if self.f32 else _kernel_fn()
         self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    @staticmethod
+    def pieces(W: torch.Tensor) -> torch.Tensor:
+        """W (K, N) as its three bf16 pieces, each transposed to K-major and
+        stacked: (3N, K), the layout ``pair_mlp_layer_f32`` loads."""
+        return torch.cat([p.t() for p in split_bf16x3(W)]).contiguous()
 
     def new_logits(self) -> torch.Tensor:
         """(B, L) float32 logits pre-filled with ``b_out``: the kernel adds
@@ -400,6 +492,12 @@ class _K1Kernel:
         global LAUNCHES
         x_in, x_out = (None if j is None else self.work[j]
                        for j in k1_workspaces(i, mode, self.prod))
+        if self.f32:
+            fmode = (F32_A_PAIR if mode & 1 else F32_A_X) | (F32_DOT if mode & 2 else 0)
+            row, tile = (self.a, self.c) if mode & 1 else (None, x_in)
+            self._f32_layer(row, tile, self.wt[i], self.bias[i], None, None, x_out, logits,
+                            ch, self.H, fmode, "pair_mlp_layer_f32")
+            return
         err = self.fn(_ptr(self.a), _ptr(self.c), _ptr(x_in), _ptr(self.wt[i]),
                       _ptr(self.bias[i]), _ptr(x_out), _ptr(self.w_out), _ptr(logits),
                       self.B, ch.nl, ch.nl_pad, ch.l0, self.L, self.H, self.H,
@@ -409,8 +507,21 @@ class _K1Kernel:
         with _launch_lock:
             LAUNCHES += 1
 
+    def _f32_layer(self, row, tile, wt3, bias, ea, ec, x_out, logits, ch: ChunkLaunch, K: int,
+                   mode: int, name: str) -> None:
+        err = self.fn(_ptr(row), _ptr(tile), _ptr(wt3), _ptr(bias), _ptr(ea), _ptr(ec),
+                      _ptr(x_out), _ptr(self.w_out), _ptr(logits), self.B, ch.nl, ch.nl_pad,
+                      ch.l0, self.L, K, self.H, mode, ch.grid, self.stream)
+        if err != 0:
+            raise RuntimeError(f"pair_mlp_layer_f32 launch failed: CUDA error {err}")
+        _count(name)
+
     def first_prod(self, ch: ChunkLaunch) -> None:
         """x1 of chunk ``ch`` into workspace 0 (rows ``b * nl_pad + l``)."""
+        if self.f32:
+            self._f32_layer(self.P_e, self.L_e, self.wt_prod, None, self.a, self.c, self.work[0],
+                            None, ch, self.P_e.shape[1], F32_A_PROD, "pair_mlp_layer_f32_prod")
+            return
         from protnote_tpu_torch.ops.dense_scorer import pair_prod_cuda
 
         sl = slice(ch.l0, ch.l0 + ch.nl)
@@ -424,10 +535,15 @@ class _K1Kernel:
         global HEAD_LAUNCHES
         x = self.work[0] if ch is not None else None
         l0, nl, nl_pad = (0, self.L, self.L) if ch is None else (ch.l0, ch.nl, ch.nl_pad)
-        err = _head_fn()(_ptr(self.a), _ptr(self.c), _ptr(x), _ptr(self.w_out), _ptr(logits),
-                         self.B, nl, nl_pad, l0, self.L, self.H, self.stream)
+        err = _head_fn(self.f32)(_ptr(self.a), _ptr(self.c), _ptr(x), _ptr(self.w_out),
+                                 _ptr(logits), self.B, nl, nl_pad, l0, self.L, self.H,
+                                 self.stream)
+        name = "pair_mlp_head_f32" if self.f32 else "pair_mlp_head"
         if err != 0:
-            raise RuntimeError(f"pair_mlp_head launch failed: CUDA error {err}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        if self.f32:
+            _count(name)
+            return
         with _launch_lock:
             HEAD_LAUNCHES += 1
 
@@ -447,11 +563,11 @@ class _K1Kernel:
         return logits
 
 
-def _head_fn():
+def _head_fn(f32: bool = False):
     from protnote_tpu_torch.ops.kernels import kernel_function
 
-    return kernel_function("pair_scorer", "pair_mlp_head", [ctypes.c_void_p] * 5 +
-                           [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return kernel_function("pair_scorer", "pair_mlp_head_f32" if f32 else "pair_mlp_head",
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def pair_logits_tiled_cuda(
@@ -472,7 +588,8 @@ def pair_logits_tiled_cuda(
     ``w1_prod`` a first launch (``pair_train_prod``) writes ``relu(a + c +
     bf16(p * l) @ w1_prod)`` for the first hidden layer to read; with no
     hidden layer ``pair_mlp_head`` takes the first ReLU's dot with
-    ``w_out``."""
+    ``w_out``.  In float32 the same launches go to ``pair_mlp_layer_f32``
+    (the prod layer too) and ``pair_mlp_head_f32`` (:class:`_K1Kernel`)."""
     del label_tile
     return _K1Kernel(folded, P_e, L_e, compute_dtype).run()
 
@@ -813,15 +930,15 @@ def code_plan(B: int, nl_pad: int, K: int) -> CodePlan:
 # dynamic scales
 _E_CODES, _E_BF16, _E_DOT = 0, 1, 2
 _DYNAMIC = 4
+_W32 = 8  # the last layer's w_out is float32 (compute_dtype float32)
 
 
 def check_int8_kernel_inputs(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
                              compute_dtype: torch.dtype) -> None:
     """Raise on what the int8 CUDA kernel does not take (no fallback)."""
-    if compute_dtype != torch.bfloat16:
+    if compute_dtype not in KERNEL_DTYPES:
         raise ValueError(f"the int8 CUDA pair scorer computes its side products in "
-                         f"bfloat16, not {compute_dtype} (MIXED_PRECISION: True; float32 on "
-                         "the card is ROADMAP.md queue 1, item 16)")
+                         f"bfloat16 or float32, not {compute_dtype}")
     if not q.hidden_q:
         raise ValueError("the int8 CUDA pair scorer needs at least one hidden layer "
                          "(OUTPUT_MLP_NUM_LAYERS >= 2)")
@@ -841,7 +958,13 @@ def check_int8_kernel_inputs(q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: tor
 class _Int8Kernel:
     """The wrapper's per-call state: the per-side products, the weights laid
     out for the kernel (K-major, as its TMA loads take them), the launch
-    plan, the chunk workspaces and the C entry points."""
+    plan, the chunk workspaces and the C entry points.
+
+    In float32 (``compute_dtype`` float32) the side products are float32
+    products of float32 operands and the last layer's epilogue dots its bf16
+    activations with a float32 ``w_out`` (mode bit ``_W32``), as the JAX
+    ``_tiled_scaffold`` does; the int8 chain between is the bf16 one, as JAX
+    runs it whatever the compute dtype."""
 
     def __init__(self, q: Int8FoldedOutputMLP, P_e: torch.Tensor, L_e: torch.Tensor,
                  compute_dtype: torch.dtype, plan: Optional[LaunchPlan] = None):
@@ -861,7 +984,8 @@ class _Int8Kernel:
         self.wt = [Wq.t().contiguous() for Wq, _, _ in q.hidden_q]
         self.s_w = [s_w.float().contiguous() for _, s_w, _ in q.hidden_q]
         self.bias = [b.float().contiguous() for _, _, b in q.hidden_q]
-        self.w_out = q.w_out.to(torch.bfloat16).contiguous()
+        self.f32 = compute_dtype == torch.float32
+        self.w_out = q.w_out.to(compute_dtype).contiguous()
         self.b_out = q.b_out
         self.static = q.act_scales
         # the dynamic scales' sampled columns and margin (_row_scales' rule)
@@ -940,10 +1064,15 @@ class _Int8Kernel:
         start = self.B * (ch.l0 - self.plan.chunks[0].l0)
         return self.scales1[start : start + self.B * ch.nl_pad]
 
-    @staticmethod
-    def _counted(name: str, err: int) -> None:
+    def _counted(self, name: str, err: int) -> None:
+        """Raise on a failed launch, else count it: a float32 call's layers
+        in ``F32_LAUNCHES`` (its code passes are the bf16 call's)."""
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        if self.f32 and name == "pair_int8_layer":
+            _count("pair_int8_layer_f32" if self.static is not None
+                   else "pair_int8_layer_f32_dynamic")
+            return
         with _launch_lock:
             INT8_LAUNCHES[name] += 1
 
@@ -981,6 +1110,8 @@ class _Int8Kernel:
             # quantized with (as XLA runs the division by a constant)
             s_in = self.static[i]
             inv_next = 0.0 if last else self.inv[i + 1]
+        if last and self.f32:
+            mode |= _W32
         err = self.layer_fn(_ptr(x_in), _ptr(self.wt[i]), _ptr(self.s_w[i]), _ptr(self.bias[i]),
                             self.scale_ptrs[ch][i > 0], _ptr(x_out), _ptr(self.w_out), _ptr(logits),
                             s_in, inv_next, self.B, ch.nl, ch.nl_pad, ch.l0, self.L, self.H,

@@ -187,7 +187,8 @@ def _check_bn_cuda(z: torch.Tensor, rows: Optional[torch.Tensor], n: Optional[to
         raise ValueError(f"the CUDA BN kernels need CUDA tensors, not {z.device}")
     if z.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA BN kernels take bfloat16 pre-activations, not "
-                         f"{z.dtype} (MIXED_PRECISION: True)")
+                         f"{z.dtype} (MIXED_PRECISION: True; training's scorer in float32 "
+                         f"on the card is ROADMAP.md queue 1, item 16b)")
     if z.dim() != 2 or z.shape[1] % _BN_COLS:
         raise ValueError(f"pre-activations {tuple(z.shape)}: the width must be a "
                          f"multiple of {_BN_COLS}")
@@ -416,7 +417,8 @@ def _check_pair_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> Non
         raise ValueError("the CUDA pair-train kernel needs a2, c2 and w on one CUDA device")
     if {a2.dtype, c2.dtype, w.dtype} != {torch.bfloat16}:
         raise ValueError("the CUDA pair-train kernel computes in bfloat16 "
-                         f"(MIXED_PRECISION: True), not {a2.dtype}/{c2.dtype}/{w.dtype}")
+                         f"(MIXED_PRECISION: True; training's scorer in float32 on the card is "
+                         f"ROADMAP.md queue 1, item 16b), not {a2.dtype}/{c2.dtype}/{w.dtype}")
     if a2.dim() != 2 or c2.dim() != 2 or w.dim() != 2 or a2.shape[1] != c2.shape[1] or \
             w.shape[0] != a2.shape[1]:
         raise ValueError(f"a2 {tuple(a2.shape)}, c2 {tuple(c2.shape)}, w {tuple(w.shape)} "

@@ -498,8 +498,9 @@ def test_k1_plan_layout_with_prod_and_zero_hidden_matches_jax(fusion, n_layers):
 @pytest.mark.parametrize("prod,n_hidden", [(True, 2), (False, 0), (True, 0)])
 def test_kernel_inputs_take_prod_and_zero_hidden(prod, n_hidden):
     """``check_kernel_inputs`` takes w1_prod and an MLP with no hidden layer
-    (the kernels run them); it still raises for float32 (item 16) and for a
-    w1_prod of another shape."""
+    (the kernels run them), in bfloat16 and in float32 (the float32 kernel's
+    prod layer and head); it raises for another dtype and for a w1_prod of
+    another shape."""
     rng = np.random.default_rng(0)
     t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))  # noqa: E731
     folded = tps.FoldedOutputMLP(w1_p=t(128, 256), w1_l=t(128, 256), b1=t(256),
@@ -508,12 +509,14 @@ def test_kernel_inputs_take_prod_and_zero_hidden(prod, n_hidden):
                                  w_out=t(256), b_out=torch.tensor(0.0))
     P_e, L_e = torch.zeros(2, 128), torch.zeros(5, 128)
     tps.check_kernel_inputs(folded, P_e, L_e, torch.bfloat16)
+    tps.check_kernel_inputs(folded, P_e, L_e, torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
-        tps.check_kernel_inputs(folded, P_e, L_e, torch.float32)
+        tps.check_kernel_inputs(folded, P_e, L_e, torch.float16)
     if prod:
         folded.w1_prod = t(128, 128)
-        with pytest.raises(ValueError, match="w1_prod"):
-            tps.check_kernel_inputs(folded, P_e, L_e, torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="w1_prod"):
+                tps.check_kernel_inputs(folded, P_e, L_e, dtype)
 
 
 @pytest.mark.parametrize("rate", [0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.5, 0.7])

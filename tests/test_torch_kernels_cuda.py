@@ -56,6 +56,11 @@ running statistics to 1e-5 and dscale/dbias to 1e-3 of their largest
 |value|; the pool to 1e-5 (its transpose bit for bit); the encoder (3 blocks at
 112 channels) through K7
 within 5e-2 of the plain chain's largest pooled |value|.
+K1 and K2 in float32 (csrc/pair_scorer_f32.cu, pair_mlp_head_f32, K2's
+float32 w_out) on the same float32 inputs: logits within 1e-5 of the plain
+float32 chain's largest |logit| (the split product leaves out terms below
+2^-24 of each product; the rest is float32 summation in other orders), and
+no bf16 kernel launched.
 K7 in float32 (eval mode) on the same float32 inputs: the conv within 1e-5
 of the plain conv's largest |value| (cuDNN with TF32 off; only the order of
 the float32 sums differs), masked rows exactly 0 (or the residual), the same
@@ -155,7 +160,7 @@ def test_kernel_raises_on_what_it_does_not_take_on_card():
         ps.pair_logits_tiled(_folded(rng, 16, 96, 2, dev), P_e, L_e)
     with pytest.raises(ValueError, match="bfloat16"):
         ps.pair_logits_tiled(_folded(rng, 16, 128, 2, dev), P_e, L_e,
-                             compute_dtype=torch.float32)
+                             compute_dtype=torch.float16)
 
 
 @pytest.mark.cuda
@@ -803,7 +808,7 @@ def test_int8_kernel_raises_on_what_it_does_not_take():
     L_e = torch.randn(40, 16, device=dev).to(torch.bfloat16)
     q = ps.quantize_folded(folded)
     with pytest.raises(ValueError, match="bfloat16"):
-        ps.pair_logits_tiled_int8(q, P_e, L_e, compute_dtype=torch.float32)
+        ps.pair_logits_tiled_int8(q, P_e, L_e, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="CUDA device"):
         ps.pair_logits_tiled_int8_cuda(q, P_e.cpu(), L_e)
 
@@ -1935,3 +1940,102 @@ def test_int8_zero_hidden_runs_k1_head_on_card():
     want = ps.pair_logits_tiled_int8_reference(q, P_e, L_e)
     assert ps.HEAD_LAUNCHES > before
     assert float((got - want).abs().max()) <= 2e-2 and float(want.std()) > 0.1
+
+
+# ----------------------------------------------------------------------
+# K1 and K2 in float32 (MIXED_PRECISION False)
+
+F32_REL_TOL = 1e-5
+
+
+def _f32_folded(rng, d, width, n_hidden, device, prod=False):
+    """:func:`_folded`'s weights in float32 (b_out float32), with a w1_prod."""
+    f = _folded(rng, d, width, n_hidden, device)
+    f32 = lambda t: t.float()  # noqa: E731
+    w1_prod = None
+    if prod:
+        w1_prod = torch.from_numpy(rng.uniform(-1, 1, (d, width)).astype(np.float32)
+                                   * np.float32(np.sqrt(6.0 / (3 * d)))).to(device)
+    return ps.FoldedOutputMLP(w1_p=f32(f.w1_p), w1_l=f32(f.w1_l), b1=f32(f.b1), w1_prod=w1_prod,
+                              hidden=[(f32(W), f32(b)) for W, b in f.hidden],
+                              w_out=f32(f.w_out), b_out=f.b_out)
+
+
+def _f32_close(got, want):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= F32_REL_TOL * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("width", [128, 384])
+@pytest.mark.parametrize("n_hidden", [0, 1, 2, 3])
+@pytest.mark.parametrize("prod", [False, True])
+def test_f32_kernel_matches_plain_on_card(monkeypatch, prod, n_hidden, width, batch):
+    """K1 in float32: every launch mode of ``pair_mlp_layer_f32`` (the first
+    layer from a and c or the prod layer from P_e and L_e, workspaces
+    between, the dot with w_out) and ``pair_mlp_head_f32`` with no hidden
+    layer, at d 128, on 3 chunks of 300 labels (the last ragged), against
+    ``pair_logits_tiled_reference`` in float32; no bf16 kernel runs."""
+    dev = _card()
+    monkeypatch.setattr(ps, "TARGET_ROWS", 128 * batch)
+    rng = np.random.default_rng(1000 + 100 * n_hidden + width + batch + prod)
+    folded = _f32_folded(rng, 128, width, n_hidden, dev, prod)
+    P_e = torch.from_numpy(rng.normal(size=(batch, 128)).astype(np.float32)).to(dev)
+    L_e = torch.from_numpy(rng.normal(size=(300, 128)).astype(np.float32)).to(dev)
+    before = dict(ps.F32_LAUNCHES), ps.LAUNCHES, ps.HEAD_LAUNCHES
+    got = ps.pair_logits_tiled(folded, P_e, L_e, label_tile=128, compute_dtype=torch.float32)
+    want = ps.pair_logits_tiled_reference(folded, P_e, L_e, label_tile=128,
+                                          compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    counts = {k: v - before[0][k] for k, v in ps.F32_LAUNCHES.items()}
+    chunks = len(ps.launch_plan(batch, 300, width, max(n_hidden, 1)).chunks)
+    assert counts["pair_mlp_layer_f32"] == chunks * n_hidden
+    assert counts["pair_mlp_layer_f32_prod"] == (chunks if prod else 0)
+    assert counts["pair_mlp_head_f32"] == (0 if n_hidden else (chunks if prod else 1))
+    assert (ps.LAUNCHES, ps.HEAD_LAUNCHES) == before[1:]  # no bf16 kernel
+    assert float(want.std()) > 0.1
+    _f32_close(got, want)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_at_full_width_on_card():
+    """K1 in float32 at the default widths (d 1024, H 3072, two hidden
+    layers) on 5 sequences x 300 labels, the plain chain's workspaces over
+    the kernel's plan too (``pair_logits_plan_reference``)."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    folded = _f32_folded(rng, 1024, 3072, 2, dev)
+    P_e = torch.from_numpy(rng.normal(size=(5, 1024)).astype(np.float32)).to(dev)
+    L_e = torch.from_numpy(rng.normal(size=(300, 1024)).astype(np.float32)).to(dev)
+    got = ps.pair_logits_tiled(folded, P_e, L_e, compute_dtype=torch.float32)
+    plan = ps.launch_plan(5, 300, 3072, 2)
+    want = ps.pair_logits_plan_reference(folded, P_e, L_e, plan, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _f32_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_f32_matches_plain_on_card(monkeypatch, static):
+    """K2's float32 form (float32 side products, the last layer's dot with a
+    float32 w_out) against ``pair_logits_tiled_int8_reference`` in float32
+    on 3 chunks: the logits to 1e-5 of their largest |value| where every
+    carried code agrees (the same codes as the bf16 form's tests check)."""
+    dev = _card()
+    monkeypatch.setattr(ps, "TARGET_ROWS", 128 * 5)
+    rng = np.random.default_rng(7 + static)
+    folded = _f32_folded(rng, 128, 256, 2, dev)
+    P_e = torch.from_numpy(rng.normal(size=(5, 128)).astype(np.float32)).to(dev)
+    L_e = torch.from_numpy(rng.normal(size=(300, 128)).astype(np.float32)).to(dev)
+    scales = ps.calibrate_act_scales(folded, P_e, L_e) if static else None
+    q = ps.quantize_folded(folded, act_scales=scales)
+    before = dict(ps.F32_LAUNCHES), ps.INT8_LAUNCHES["pair_int8_layer"]
+    got = ps.pair_logits_tiled_int8(q, P_e, L_e, compute_dtype=torch.float32)
+    want = ps.pair_logits_tiled_int8_reference(q, P_e, L_e, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    name = "pair_int8_layer_f32" if static else "pair_int8_layer_f32_dynamic"
+    assert ps.F32_LAUNCHES[name] - before[0][name] == 3 * 2
+    assert ps.INT8_LAUNCHES["pair_int8_layer"] == before[1]
+    _f32_close(got, want)

@@ -117,12 +117,18 @@ def _folded(rng, hidden_width=128, n_hidden=2, prod=False):
     (dict(dtype=torch.float32), "bfloat16"),
 ])
 def test_kernel_refuses_what_it_does_not_take(case, match):
-    """The CUDA wrapper raises on unsupported input; it never falls back."""
+    """The CUDA wrapper raises on unsupported input; it never falls back.
+    The kernels take bfloat16 (``csrc/pair_scorer.cu``) and float32
+    (``csrc/pair_scorer_f32.cu``): the float32 case is taken, and a third
+    dtype (float16) raises naming the two."""
     rng = np.random.default_rng(0)
     case = dict(case)
     dtype = case.pop("dtype", torch.bfloat16)
     folded = _folded(rng, **case)
     P_e, L_e = torch.zeros(B, D), torch.zeros(L, D)
+    if dtype == torch.float32:
+        tps.check_kernel_inputs(folded, P_e, L_e, torch.float32)
+        dtype = torch.float16
     with pytest.raises(ValueError, match=match):
         tps.check_kernel_inputs(folded, P_e, L_e, dtype)
     tps.check_kernel_inputs(_folded(rng), P_e, L_e, torch.bfloat16)

@@ -309,11 +309,14 @@ def test_dynamic_outlier_clip_matches_jax():
 
 def test_kernel_path_refuses_what_it_does_not_take():
     """The CUDA wrapper checks before it builds anything; the dispatcher has
-    no path for other devices."""
+    no path for other devices.  The kernel takes side products in bfloat16
+    and in float32 (its float32 form: a float32 w_out); another dtype
+    raises."""
     _, tq, P_e, L_e = _pair("static", "bf16", 256)
     P, Lt = torch.from_numpy(P_e), torch.from_numpy(L_e)
+    tps.check_int8_kernel_inputs(tq, P, Lt, torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
-        tps.check_int8_kernel_inputs(tq, P, Lt, torch.float32)
+        tps.check_int8_kernel_inputs(tq, P, Lt, torch.float16)
     with pytest.raises(ValueError, match="hidden layer"):
         tps.check_int8_kernel_inputs(tps.Int8FoldedOutputMLP(**{**tq.__dict__, "hidden_q": []}),
                                      P, Lt, torch.bfloat16)

@@ -260,7 +260,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
     one-layer output MLP), evaluation of 64 sequences through K3 and the K9
     sweep (and int8 with dynamic scales), ``predict`` on 64 sequences (bf16
     and int8 backends in float32, the first batch against the plain chain);
-    every float32 form launched, no bf16 K1, K2 layer or K7 conv.
+    every float32 form launched, no bf16 K1, K2 layer or K7 conv;
+30. (run after phase 29) float32 training's kernels alone at the training
+    width (``f32_train_*``: 32 sequences x 32,102 labels, H 3072, float32
+    tensors): K4 in float32 (``pair_scorer_f32.cu:pair_train_hidden_f32``),
+    K4-bwd's dX (with ``da2``, ``dc2``) and dW (``pair_train_bwd_f32.cu``)
+    and K5's float32 forward and backward, each against its plain float32
+    version (cuBLAS, TF32 off; K5's in column slices, its backward on the
+    kernel's statistics) within 1e-5 of the plain tensor's largest |value|
+    (dW within its depth's figure, 1.5e-5), the same bits twice; times
+    beside the bound (165 TFLOP/s for the products, 3.35 TB/s for K5) and
+    the FMA pipe's, the plain version's, cuBLAS float32 on the bare
+    products; no bf16 K4, K4-bwd or K5 launched;
+31. float32 training (``f32_train``): ``Trainer.train`` with
+    ``MIXED_PRECISION False`` at full width for at least 5 steps of 32
+    sequences and a validation pass (K7 f32, K1 f32): step ms, seqs/s, peak
+    memory, the float32 kernels' launches against the schedule and none of
+    the bf16 K4, K4-bwd or K5; two profiled steps (idle share, kernel ms by
+    name); one step's gradients and new running statistics against the
+    plain float32 chain on a 16-sequence batch, leaf by leaf within 1e-4 of
+    the leaf's L2 norm; a PNTPU1 checkpoint written and read back; then 3
+    steps with ``GRADIENT_CHECKPOINTING``.
 Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
 ``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
 doubled (those leaves doubled, the others and nothing else the same, the
@@ -279,6 +299,7 @@ K8b-bwd call two kernel launches and each K8a-bwd call at 128 tokens one,
 all counted; K7's forward and pool
 in the training run, its float32 forward and pool in phase 23's
 ``test_proteinfer`` run, K1's and K2's float32 forms in phase 29's runs,
+K4's, K4-bwd's and K5's float32 forms in phase 31's two runs,
 its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
 32-sequence streamed run; the dense scorer's kernels summed over phases
@@ -322,7 +343,8 @@ LOGIT_ATOL = 5e-2
 KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_bwd", "bn_relu",
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
                   "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
-                  "streamed_bn", "masked_pool", "masked_conv_f32", "pair_dense", "pair_scorer_f32")
+                  "streamed_bn", "masked_pool", "masked_conv_f32", "pair_dense", "pair_scorer_f32",
+                  "pair_train_bwd_f32")
 # first designs that a phase holds a redesigned kernel against
 # (csrc/variants/): K9's update, whose histogram must be the same
 FIRST_DESIGNS = ("threshold_sweep_v1",)
@@ -6186,6 +6208,524 @@ def phase_f32_paths(card: str) -> dict:
     return launches
 
 
+
+# float32 training on the card (MIXED_PRECISION False): K4 in float32
+# (pair_scorer_f32.cu:pair_train_hidden_f32), K4-bwd's float32 kernels
+# (pair_train_bwd_f32.cu) and K5's float32 entry points at the training
+# width, each against its plain float32 version (cuBLAS, TF32 off) within
+# F32_REL_TOL of the plain tensor's largest |value|, and the float32 sums
+# over the pair rows (K5's moments, dscale and dbias; dW) within the
+# depth's figure of tests/test_torch_pair_train_f32.py (float32 additions
+# of partial sums in a fixed order drift as a random walk: 2 x 2^-24 x
+# sqrt(rows / 64), 1.5e-5 at 1,027,264 pair rows).  dW is held to that
+# figure against a float64 truth on four 128 x 128 tiles: cuBLAS float32 at
+# this depth is itself 2.9e-4 of the largest |value| from float64 on K5's
+# dz (2.2e-4 from the kernel, whose own distance was 6.7e-6, on an H100
+# 80GB HBM3 at 700 W), so against the plain version it is held to
+# DW_PLAIN_REL_TOL; then
+# Trainer.train in float32 at full width:
+# F32_TRAIN_STEPS steps and a validation pass, F32_REMAT_STEPS with
+# GRADIENT_CHECKPOINTING, and one step's gradients and running statistics
+# against the plain float32 chain on a batch of F32_GRAD_B sequences (the
+# plain chain's temporaries do not fit beside 32 sequences' activations),
+# each output-MLP leaf within F32_GRAD_L2_TOL of its L2 norm (the step's
+# float32 sums over half a million pair rows in other orders), every leaf
+# of the backward kernels alone likewise; the projection heads' leaves, whose
+# gradient through the first layer's analytic BatchNorm moves ~1e3 times as
+# far as a rounding-level change of z, within twice the distance that a
+# relative F32_Z_NOISE on z moves them (f32_grad_check)
+F32_TRAIN_KERNELS = ("pair_train_hidden_f32", "pair_train_dx_f32", "pair_train_dw_f32",
+                     "bn_relu_forward_f32", "bn_relu_backward_f32")
+F32_TRAIN_STEPS, F32_REMAT_STEPS = 5, 3
+F32_GRAD_B = 16
+F32_GRAD_L2_TOL = 1e-4
+F32_Z_NOISE = 1e-6
+DW_PLAIN_REL_TOL = 1e-3
+DW_TRUTH_TILE = 128
+
+
+def depth_tol(rows: int) -> float:
+    """The figure of a float32 sum over ``rows`` pair rows
+    (tests/test_torch_pair_train_f32.py), at least F32_REL_TOL."""
+    return max(F32_REL_TOL, 2 * 2.0 ** -24 * math.sqrt(rows / 64))
+
+
+def dw_truth(a2, c2, dz, got, want, tiles) -> dict:
+    """dW's kernel (``got``) and plain (``want``) values against float64 on
+    the 128 x 128 ``tiles`` (k0, n0): each one's largest |error| over the
+    plain dW's largest |value|."""
+    import torch
+
+    T = DW_TRUTH_TILE
+    scale = float(want.abs().max())
+    out = {"kernel": 0.0, "plain": 0.0}
+    for k0, n0 in tiles:
+        x1 = torch.relu(a2[:, None, k0:k0 + T] + c2[None, :, k0:k0 + T]).reshape(-1, T).double()
+        truth = x1.T @ dz[:, n0:n0 + T].double()
+        del x1
+        for name, t in (("kernel", got), ("plain", want)):
+            err = float((t[k0:k0 + T, n0:n0 + T].double() - truth).abs().max()) / scale
+            out[name] = max(out[name], err)
+        del truth
+    return out
+
+
+def f32_train_schedule(steps: int, remat: bool) -> dict:
+    """The float32 training kernels' launches over ``steps`` decomposed
+    steps (3 output-MLP layers): K4 and the two K5 BatchNorms forward once
+    a step and once more under remat (the backward recomputes them), their
+    backward once."""
+    again = 2 if remat else 1
+    return {"pair_train_hidden_f32": again * steps, "pair_train_dx_f32": steps,
+            "pair_train_dw_f32": steps, "bn_relu_forward_f32": 2 * again * steps,
+            "bn_relu_backward_f32": 2 * steps}
+
+
+def phase_f32_train_kernels(card: str) -> dict:
+    """Phase 30: K4, K4-bwd and K5 in float32 alone at the training path's
+    32-sequence shapes (a2 (32, 3072), c2 (32,102, 3072), W (3072, 3072), z
+    and dz (1,027,264 x 3072) float32: 12.6 GB each), each against its plain
+    float32 version on the same device tensors (K5's in column slices): the
+    error over the plain tensor's largest |value|, the same bits on a second
+    call, CUDA-event times beside the bound (the products at the split's 165
+    TFLOP/s, K5's bytes at 3.35 TB/s) and the FMA pipe's bound, the plain
+    version's time, and cuBLAS float32 on the bare products (x1
+    materialised: a yardstick, not the same function).  K4-bwd's dz is K5's
+    backward output (zero at masked pairs)."""
+    import torch
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    gemm_precision(f32)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for the float32 plain versions")
+    p, s = random_output_mlp(dev)
+    gen = torch.Generator().manual_seed(30)
+    dgen = torch.Generator(device=dev).manual_seed(31)
+    before = {k: st.LAUNCHES[k] for k in DECOMPOSED_KERNELS}
+    out, extra, same = {}, {}, {}
+    with torch.no_grad():
+        a2 = torch.randn(TRAIN_B, H, generator=gen).to(dev)
+        c2 = torch.randn(NUM_LABELS, H, generator=gen).to(dev)
+        W = (torch.randn(H, H, generator=gen) * (2.0 / H) ** 0.5).to(dev)
+        N = TRAIN_B * NUM_LABELS
+        # K4
+        z = st._pair_hidden_fwd_cuda(a2, c2, W)
+        same["pair_train_hidden_f32"] = bool(torch.equal(z, st._pair_hidden_fwd_cuda(a2, c2, W)))
+        torch.cuda.empty_cache()
+        k4 = delta(z, st._pair_hidden_fwd_plain(a2, c2, W))
+        torch.cuda.empty_cache()
+        x1 = st._pair_x1(a2, c2)
+        cublas_fwd = cuda_time_ms(lambda: torch.matmul(x1, W), 2)
+        del x1
+        torch.cuda.empty_cache()
+        times = {"pair_train_hidden_f32": (
+            cuda_time_ms(lambda: st._pair_hidden_fwd_cuda(a2, c2, W), 3),
+            cuda_time_ms(lambda: st._pair_hidden_fwd_plain(a2, c2, W), 1))}
+        torch.cuda.empty_cache()
+        # K5 on K4's output
+        em = torch.ones(TRAIN_B, device=dev)
+        em[-1] = 0.0
+        lm = (torch.rand(NUM_LABELS, generator=gen) < 0.98).float().to(dev)
+        rows = (em[:, None] * lm[None, :]).reshape(-1, 1)
+        n = rows.sum()
+        bn = (p["bns"][1]["scale"], p["bns"][1]["bias"], s["bns"][1]["mean"])
+        f = st._bn_relu_fwd_cuda(z, rows, n, *bn)
+        same["bn_relu_forward_f32"] = all(torch.equal(x, y) for x, y in zip(
+            f, st._bn_relu_fwd_cuda(z, rows, n, *bn)))
+        torch.cuda.empty_cache()
+        dy = torch.randn(z.shape, device=dev, generator=dgen)
+        stats = (f[1], f[3], f[4], f[5])  # mean, istd, inv, shift of the kernel
+        g = st._bn_relu_grads_cuda(z, dy, rows, n, bn[0], *stats)
+        same["bn_relu_backward_f32"] = all(torch.equal(x, y) for x, y in zip(
+            g, st._bn_relu_grads_cuda(z, dy, rows, n, bn[0], *stats)))
+        torch.cuda.empty_cache()
+        cols = [slice(j, j + K5_PLAIN_COLS) for j in range(0, H, K5_PLAIN_COLS)]
+
+        def fwd_plain(c):
+            return st._bn_relu_fwd_plain(z[:, c], rows, n, *(t[c] for t in bn))
+
+        def bwd_plain(c):
+            return st._bn_relu_grads(z[:, c], dy[:, c], rows, n, bn[0][c], *(t[c] for t in stats))
+
+        k5f = {"y": [], "mean": [], "var": []}
+        k5b = {"dz": [], "dscale": [], "dbias": []}
+        for c in cols:
+            y0, mean0, var0 = fwd_plain(c)[:3]
+            for parts, got, want in zip(k5f.values(), (f[0][:, c], f[1][c], f[2][c]),
+                                        (y0, mean0, var0)):
+                parts.append(delta(got, want))
+            del y0
+            for parts, got, want in zip(k5b.values(), (g[0][:, c], g[1][c], g[2][c]),
+                                        bwd_plain(c)):
+                parts.append(delta(got, want))
+        del f
+        torch.cuda.empty_cache()
+        times["bn_relu_forward_f32"] = (
+            cuda_time_ms(lambda: st._bn_relu_fwd_cuda(z, rows, n, *bn), 5),
+            cuda_time_ms(lambda: [fwd_plain(c) for c in cols], 1))
+        torch.cuda.empty_cache()
+        times["bn_relu_backward_f32"] = (
+            cuda_time_ms(lambda: st._bn_relu_grads_cuda(z, dy, rows, n, bn[0], *stats), 5),
+            cuda_time_ms(lambda: [bwd_plain(c) for c in cols], 1))
+        dz = g[0]
+        del g, z, dy
+        torch.cuda.empty_cache()
+        # K4-bwd on K5's dz
+        got = st._pair_hidden_backward_cuda(a2, c2, W, dz)
+        again = st._pair_hidden_backward_cuda(a2, c2, W, dz)
+        same["pair_train_dx_f32"] = bool(torch.equal(got[0], again[0])
+                                         and torch.equal(got[1], again[1]))
+        same["pair_train_dw_f32"] = bool(torch.equal(got[2], again[2]))
+        del again
+        want = st._pair_hidden_backward_plain(a2, c2, W, dz)
+        k4b = {k: delta(x, y) for k, x, y in zip(("da2", "dc2", "dw"), got, want)}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        dxp = st.pair_dx_f32_plan(TRAIN_B, NUM_LABELS, H, H, sms)
+        dwp = st.pair_dw_plan(TRAIN_B, NUM_LABELS, H, H, sms, block_n=st.F32_TILE)
+        T = DW_TRUTH_TILE
+        worst = int((got[2] - want[2]).abs().view(H // T, T, H // T, T).amax(dim=(1, 3)).argmax())
+        piece = dwp.item(dwp.full)[:2] if dwp.tail else (0, 0)
+        truth_tiles = [(0, 0), (worst // (H // T) * T, worst % (H // T) * T), piece,
+                       (H - T, H - T)]
+        truth = dw_truth(a2, c2, dz, got[2], want[2], truth_tiles)
+        del got, want
+        torch.cuda.empty_cache()
+        w3 = ps.stacked_pieces(W, transpose=False)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def plain_dx():
+            x1 = st._pair_x1(a2, c2)
+            gate = x1 > 0
+            del x1
+            dx1 = dz @ W.T
+            dx1.mul_(gate)
+            del gate
+            dx1 = dx1.view(TRAIN_B, NUM_LABELS, -1)
+            return dx1.sum(1), dx1.sum(0)
+
+        times["pair_train_dx_f32"] = (
+            cuda_time_ms(lambda: st._pair_dx_f32_cuda(a2, c2, w3, dz, dxp, stream), 3),
+            cuda_time_ms(plain_dx, 1))
+        times["pair_train_dw_f32"] = (
+            cuda_time_ms(lambda: st._pair_dw_f32_cuda(a2, c2, dz, dwp, stream), 3),
+            cuda_time_ms(lambda: st._pair_x1(a2, c2).T @ dz, 1))
+        cublas_dx = cuda_time_ms(lambda: torch.matmul(dz, W.t()), 2)
+        x1 = st._pair_x1(a2, c2)
+        cublas_dw = cuda_time_ms(lambda: torch.matmul(x1.t(), dz), 2)
+        del x1, dz
+        torch.cuda.empty_cache()
+    launches = {k: st.LAUNCHES[k] - before[k] for k in DECOMPOSED_KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"a float32 call launched a bf16 K4, K4-bwd or K5: {launches}")
+    rel = {"pair_train_hidden_f32": {"z": merge_deltas([k4])},
+           "bn_relu_forward_f32": {k: merge_deltas(v) for k, v in k5f.items()},
+           "bn_relu_backward_f32": {k: merge_deltas(v) for k, v in k5b.items()},
+           "pair_train_dx_f32": {k: merge_deltas([k4b[k]]) for k in ("da2", "dc2")},
+           "pair_train_dw_f32": {"dw": merge_deltas([k4b["dw"]])}}
+    sums = {"mean", "var", "dscale", "dbias"}  # float32 sums over the N pair rows
+    tol = {k: {o: depth_tol(N) if o in sums else DW_PLAIN_REL_TOL if o == "dw" else F32_REL_TOL
+               for o in v} for k, v in rel.items()}
+    rel["pair_train_dw_f32"]["dw_kernel_vs_float64"] = (0.0, truth["kernel"])
+    tol["pair_train_dw_f32"]["dw_kernel_vs_float64"] = depth_tol(N)
+    ops = 2.0 * N * H * H
+    nbytes = {"bn_relu_forward_f32": 8.0 * N * H + 4 * N + 32 * H,
+              "bn_relu_backward_f32": 12.0 * N * H + 4 * N + 28 * H}
+    cublas = {"pair_train_hidden_f32": cublas_fwd, "pair_train_dx_f32": cublas_dx,
+              "pair_train_dw_f32": cublas_dw}
+    abs_err = {"pair_train_hidden_f32": k4[0], "bn_relu_forward_f32": rel["bn_relu_forward_f32"]
+               ["y"][0], "bn_relu_backward_f32": rel["bn_relu_backward_f32"]["dz"][0],
+               "pair_train_dx_f32": max(k4b["da2"][0], k4b["dc2"][0]),
+               "pair_train_dw_f32": k4b["dw"][0]}
+    for k in F32_TRAIN_KERNELS:
+        ms, plain_ms = times[k]
+        b = bound(nbytes=nbytes[k]) if k in nbytes else bound(ops=ops, peak=SPLIT_FLOPS)
+        out[k] = {"max_abs_err": abs_err[k], "ms": ms, "plain_ms": plain_ms, **b,
+                  "library_ms": None}
+        fields = {"cublas_bare_product_ms": cublas[k], "tflops": ops / ms / 1e9,
+                  "bound_fma_ms": ops / F32_FLOPS * 1e3} if k in cublas else {}
+        extra[k] = {"rel_errs": {o: d[1] for o, d in rel[k].items()}, "rel_tol": tol[k],
+                    "same_bits": same[k], "bound_share": b["bound_ms"] / ms, **fields}
+        if k == "pair_train_dw_f32":
+            extra[k].update(truth_tiles=truth_tiles, plain_vs_float64=truth["plain"])
+        log(f"f32_train_{k}", **out[k], **extra[k], card=card)
+    bad = {k: v["rel_errs"] for k, v in extra.items()
+           if any(e > tol[k][o] for o, e in v["rel_errs"].items()) or not v["same_bits"]}
+    if bad:
+        raise AssertionError(f"a float32 training kernel disagrees with its plain version or "
+                             f"gave other bits on a second call: {bad}")
+    log("f32_train_kernels", batch=TRAIN_B, labels=NUM_LABELS, width=H, rows=N,
+        dx_plan={"units": dxp.units, "grid": dxp.grid},
+        dw_plan={"full": dwp.full, "pieces": dwp.pieces, "items": dwp.items, "grid": dwp.grid},
+        smem_bytes=st.f32_train_smem_bytes(), card=card)
+    return out
+
+
+def f32_grad_check(trainer, ds, card: str) -> dict:
+    """One float32 step's gradients and new running statistics on one batch
+    of F32_GRAD_B sequences from the same weights and generator seed, through
+    four chains: the kernels; the plain float32 chain
+    (``pair_logits_dense_decomposed_reference``); that chain with K4-bwd's
+    kernels for its backward (the backward alone: the same forward); and
+    that chain with K4's output perturbed by a relative F32_Z_NOISE (seeded
+    normal noise, the kernel's own forward error at this width: the noise
+    floor).  Held, each in L2 over the plain chain's leaf norm: every leaf of
+    the backward alone within F32_GRAD_L2_TOL; every output-MLP leaf and
+    running statistic of the kernels within F32_GRAD_L2_TOL; every leaf of
+    the kernels within F32_GRAD_L2_TOL or twice the noise floor's distance.
+    The projection heads reach the loss through the first layer's analytic
+    BatchNorm, whose gradient is a small difference of sums over the labels:
+    a rounding-level change of z moves them ~1e3 times as far (on an H100
+    80GB HBM3 at 700 W, 1e-6 of z moved W_l's gradients 1.0e-3)."""
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.models import fusion
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import tree_leaves
+    from protnote_tpu_torch.train.step import batch_to_device_dict, make_train_step
+
+    class KeepGrads:
+        def update(self, grads, trainable, state):
+            self.grads = grads
+            return state
+
+    dev = torch.device("cuda")
+    batch = next(iter(BucketBatcher(ds, F32_GRAD_B, buckets=(256, 512, 1024), shuffle=True,
+                                    drop_last=True, seed=5, device_label_gather=True)))
+    arrays = trainer._place(batch_to_device_dict(batch, dev), trainer._label_matrix_for(ds))
+    names = {id(t): n for n, t in named_tensors(trainer.ts["trainable"]).items()}
+    leaf_names = [names[id(t)] for t in tree_leaves(trainer.ts["trainable"])]
+    plain_fwd = st._pair_hidden_fwd_plain
+
+    def noisy_fwd(a2, c2, w):
+        z = plain_fwd(a2, c2, w)
+        noise = torch.randn(z.shape, device=z.device,
+                            generator=torch.Generator(device=z.device).manual_seed(9))
+        return z.mul_(noise.mul_(F32_Z_NOISE).add_(1.0))
+
+    plain = st.pair_logits_dense_decomposed_reference
+    chains = (("kernels", st.pair_logits_dense_decomposed, {}),
+              ("plain", plain, {}),
+              ("backward_kernels", plain,
+               {"_pair_hidden_backward_plain": st._pair_hidden_backward_cuda}),
+              ("z_noise", plain, {"_pair_hidden_fwd_plain": noisy_fwd}))
+    runs = {}
+    for name, scorer, patch in chains:
+        keeper = KeepGrads()
+        step = make_train_step(trainer.pi_cfg, trainer.pn_cfg, get_loss_fn(TRAIN_PARAMS), keeper,
+                               decision_threshold=THRESHOLD)
+        saved = [(fusion, "pair_logits_dense_decomposed", fusion.pair_logits_dense_decomposed)]
+        saved += [(st, k, getattr(st, k)) for k in patch]
+        fusion.pair_logits_dense_decomposed = scorer
+        for k, v in patch.items():
+            setattr(st, k, v)
+        try:
+            before = dict(st.LAUNCHES)
+            ts, m = step(trainer.ts, arrays, torch.Generator(device=dev).manual_seed(3))
+            torch.cuda.synchronize()
+        finally:
+            for mod, k, v in saved:
+                setattr(mod, k, v)
+        launched = {k: st.LAUNCHES[k] - before[k] for k in st.LAUNCHES
+                    if st.LAUNCHES[k] != before[k]}
+        stats = tree_leaves(ts["model_state"]["output_mlp"])
+        runs[name] = ([g.float() for g in keeper.grads], [t.float() for t in stats],
+                      float(m["loss"]), launched)
+        del ts, keeper
+        torch.cuda.empty_cache()
+    want = {"kernels": f32_train_schedule(1, trainer.pn_cfg.gradient_checkpointing),
+            "plain": {}, "backward_kernels": {"pair_train_dx_f32": 1, "pair_train_dw_f32": 1},
+            "z_noise": {}}
+    if any(runs[k][3] != v for k, v in want.items()):
+        raise AssertionError("the gradient check's launches: "
+                             f"{({k: r[3] for k, r in runs.items()})}")
+
+    def l2(a, b):
+        na = float(b.norm())
+        return float((a - b).norm()) / na if na > 0 else float((a - b).norm())
+
+    gp = runs["plain"][0]
+    rows = [{"leaf": n, **{k: l2(runs[k][0][i], gp[i])
+                           for k in ("kernels", "backward_kernels", "z_noise")}}
+            for i, n in enumerate(leaf_names)]
+    stat_rel = [l2(a, b) for a, b in zip(runs["kernels"][1], runs["plain"][1])]
+    mlp = [r for r in rows if r["leaf"].startswith("/protnote/output_mlp")]
+    bad = [r for r in rows if r["backward_kernels"] > F32_GRAD_L2_TOL or
+           (r in mlp and r["kernels"] > F32_GRAD_L2_TOL) or
+           r["kernels"] > max(F32_GRAD_L2_TOL, 2 * r["z_noise"])]
+    out = {"sequences": F32_GRAD_B, "leaves": len(rows), "output_mlp_leaves": len(mlp),
+           "max_output_mlp_l2_rel": max(r["kernels"] for r in mlp),
+           "max_l2_rel": max(r["kernels"] for r in rows),
+           "max_backward_kernels_l2_rel": max(r["backward_kernels"] for r in rows),
+           "max_z_noise_l2_rel": max(r["z_noise"] for r in rows), "z_noise": F32_Z_NOISE,
+           "max_stat_l2_rel": max(stat_rel), "loss_kernels": runs["kernels"][2],
+           "loss_plain": runs["plain"][2], "l2_tol": F32_GRAD_L2_TOL}
+    log("f32_train_grad_check", **out, by_leaf=rows, card=card)
+    if bad or max(stat_rel) > F32_GRAD_L2_TOL or not math.isfinite(out["loss_kernels"]):
+        raise AssertionError(f"a float32 step's gradients or running statistics through the "
+                             f"kernels differ from the plain chain's: {out}, {bad}")
+    return out
+
+
+def f32_train_run(card: str, ds, val_ds, steps: int, remat: bool, checks: bool) -> dict:
+    """``Trainer.train`` with MIXED_PRECISION False on ``ds`` (one epoch of
+    at least ``steps`` steps of TRAIN_B sequences, and a validation pass on
+    ``val_ds`` when given): per-step losses, median warm step ms, seqs/s,
+    peak memory, the launches against the schedule (none of the bf16 K4,
+    K4-bwd or K5; K7 f32 on every step and K1 f32 in validation), and with
+    ``checks`` two profiled steps, the gradient check and a PNTPU1
+    checkpoint written and read back."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer, tree_leaves
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    pi_cfg, pn_cfg, ts = f32_models(GRADIENT_CHECKPOINTING=remat)
+    opt = Optimizer(TRAIN_PARAMS)
+    ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"], ts["enc_params"],
+                           ts["enc_state"], opt)
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainerConfig(num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True,
+                             checkpoint_dir=tmp, run_name="f32")
+        trainer = Trainer(ts0, pi_cfg, pn_cfg, tcfg, device=dev,
+                          loss_fn=get_loss_fn(TRAIN_PARAMS), optimizer=opt)
+        steps_, step_fn = [], trainer._train_step
+
+        def timed_step(ts_, batch, gen):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ts_, m = step_fn(ts_, batch, gen)
+            torch.cuda.synchronize()
+            steps_.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"])))
+            return ts_, m
+
+        def batcher(seed=42):
+            return BucketBatcher(ds, TRAIN_B, buckets=(256, 512, 1024), shuffle=True,
+                                 drop_last=True, seed=seed, device_label_gather=True)
+
+        val_b = None if val_ds is None else BucketBatcher(
+            val_ds, TRAIN_B, buckets=(256, 512, 1024), descriptions_per_label=K_DESCRIPTIONS,
+            device_label_gather=True)
+        trainer._train_step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for counts in (st.LAUNCHES, ps.F32_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        ps.LAUNCHES = ps.HEAD_LAUNCHES = 0
+        reset_k7_launches()
+        summary = trainer.train(batcher(), val_b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer._train_step = step_fn
+        train_launches = {k: v for k, v in st.LAUNCHES.items() if v}
+        want = f32_train_schedule(len(steps_), remat)
+        others = {"pair_mlp_layer": ps.LAUNCHES, "masked_conv_fwd": k7.LAUNCHES["masked_conv_fwd"]}
+        losses = [x[1] for x in steps_]
+        if len(steps_) < steps or not all(math.isfinite(x) for x in losses) or \
+                train_launches != want or any(others.values()) or \
+                k7.LAUNCHES["masked_conv_fwd_f32"] <= 0 or \
+                (val_b is not None and ps.F32_LAUNCHES["pair_mlp_layer_f32"] <= 0):
+            raise AssertionError(f"float32 training (remat {remat}): {len(steps_)} steps, losses "
+                                 f"{losses}, launches {train_launches} (schedule {want}), bf16 "
+                                 f"{others}, f32 {dict(ps.F32_LAUNCHES)}")
+        med = statistics.median([x[0] for x in steps_[1:]])
+        hist = summary["history"][0]
+        result = {"steps": len(steps_), "median_warm_step_ms": med * 1e3,
+                  "seqs_per_s": TRAIN_B / med, "peak_mem_gb": peak, "launches": train_launches}
+        log(f"f32_train{'_remat' if remat else ''}", sequences_per_step=TRAIN_B,
+            labels=NUM_LABELS, step_losses=losses, grad_norms=[x[2] for x in steps_],
+            first_step_ms=steps_[0][0] * 1e3, **result, k1_f32_launches=dict(ps.F32_LAUNCHES),
+            val_map_micro=hist.get("val_map_micro"), val_loss=hist.get("val_loss"), card=card)
+        if checks:
+            placed = []
+            matrix = trainer._label_matrix_for(ds)
+            for batch in batcher(seed=7):
+                placed.append(trainer._place(batch_to_device_dict(batch, dev), matrix))
+                if len(placed) == 2:
+                    break
+            gen = torch.Generator(device=dev).manual_seed(1)
+            it = iter(placed)
+
+            def one_step():
+                trainer.ts, _ = step_fn(trainer.ts, next(it), gen)
+
+            wall, busy, top = device_profile(one_step, len(placed))
+            result["idle_share"] = None if busy is None else 1.0 - busy / wall
+            log("f32_train_profile", steps=len(placed), wall_ms_per_step=wall * 1e3 / 2,
+                device_busy_ms_per_step=None if busy is None else busy * 1e3 / 2,
+                idle_share=result["idle_share"], top_kernels_ms_per_step=top, card=card)
+            del placed, it
+            torch.cuda.empty_cache()
+            result["grad_check"] = f32_grad_check(trainer, ds, card)
+            trainer.save("f32")
+            path = os.path.join(tmp, "f32_f32.ckpt")
+            restored = Trainer(ts0, pi_cfg, pn_cfg, tcfg, device=dev,
+                               loss_fn=get_loss_fn(TRAIN_PARAMS), optimizer=Optimizer(TRAIN_PARAMS))
+            restored.load(path)
+            a = [x for x in tree_leaves(trainer.ts) if isinstance(x, torch.Tensor)]
+            b = [x for x in tree_leaves(restored.ts) if isinstance(x, torch.Tensor)]
+            if len(a) != len(b) or not all(x.dtype == y.dtype and torch.equal(x, y)
+                                           for x, y in zip(a, b)) or \
+                    trainer.ts["step"] != restored.ts["step"]:
+                raise AssertionError("the float32 checkpoint read back differs from the state")
+            log("f32_train_checkpoint", leaves=len(a), step=int(restored.ts["step"]),
+                bytes=os.path.getsize(path), card=card)
+            del restored
+        del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_f32_training(card: str) -> dict:
+    """Phase 31: ``Trainer.train`` with MIXED_PRECISION False at full width
+    (the default config: 32 sequences a step against all 32,102 labels, H
+    3072; seeded random weights and label embeddings), F32_TRAIN_STEPS steps
+    and a validation pass (K1 f32), two profiled steps, the gradient check
+    and a checkpoint round trip; then F32_REMAT_STEPS steps with
+    GRADIENT_CHECKPOINTING.  Returns the launches of the float32 kernels
+    summed over both runs."""
+    import tempfile
+
+    from protnote_tpu_torch.data.dataset import DatasetConfig
+
+    types = ("name", "label")
+    train_cfg = DatasetConfig(dataset_type="train", label_augmentation_descriptions=types,
+                              inference_go_descriptions=types,
+                              inference_descriptions_per_label=K_DESCRIPTIONS)
+    val_cfg = DatasetConfig(dataset_type="validation", inference_go_descriptions=types,
+                            inference_descriptions_per_label=K_DESCRIPTIONS)
+    with tempfile.TemporaryDirectory() as tmp:
+        # lengths 100-1000 over three buckets, whole batches only: two
+        # batches' more sequences than the steps wanted
+        ds = fasta_dataset(tmp, "f32_train.fasta", TRAIN_B * (F32_TRAIN_STEPS + 2), 31,
+                           train_cfg)
+        remat_ds = fasta_dataset(tmp, "f32_remat.fasta", TRAIN_B * (F32_REMAT_STEPS + 2), 33,
+                                 train_cfg)
+        val_ds = fasta_dataset(tmp, "f32_val.fasta", F32_SEQUENCES, 32, val_cfg)
+    run = f32_train_run(card, ds, val_ds, F32_TRAIN_STEPS, remat=False, checks=True)
+    remat = f32_train_run(card, remat_ds, None, F32_REMAT_STEPS, remat=True, checks=False)
+    log("f32_training", default=run, remat=remat, card=card)
+    return {k: run["launches"].get(k, 0) + remat["launches"].get(k, 0) for k in F32_TRAIN_KERNELS}
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -6214,6 +6754,10 @@ def main() -> None:
     f32_times = phase_f32_kernels(card, k2)
     torch.cuda.empty_cache()
     f32_paths = phase_f32_paths(card)
+    torch.cuda.empty_cache()
+    f32_train_times = phase_f32_train_kernels(card)
+    torch.cuda.empty_cache()
+    f32_train_launches = phase_f32_training(card)
     torch.cuda.empty_cache()
     k3_times = phase_k3(card)
     bf16_metrics = phase_eval(card, k3_times)
@@ -6359,7 +6903,17 @@ def main() -> None:
         ("pair_mlp_head_f32", "pair_scorer", "protnote_tpu/ops/pair_scorer.py:233"),
         ("pair_int8_layer_f32", "pair_scorer_int8", "protnote_tpu/ops/pair_scorer.py:375"),
         ("pair_int8_layer_f32_dynamic", "pair_scorer_int8",
-         "protnote_tpu/ops/pair_scorer.py:375"))]}), flush=True)
+         "protnote_tpu/ops/pair_scorer.py:375"))] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": f32_train_launches[k],
+        **{f: f32_train_times[k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep in (
+        ("pair_train_hidden_f32", "pair_scorer_f32", "protnote_tpu/ops/streaming_train.py:238"),
+        ("pair_train_dx_f32", "pair_train_bwd_f32", "protnote_tpu/ops/streaming_train.py:238"),
+        ("pair_train_dw_f32", "pair_train_bwd_f32", "protnote_tpu/ops/streaming_train.py:238"),
+        ("bn_relu_forward_f32", "bn_relu", "protnote_tpu/ops/streaming_train.py:98"),
+        ("bn_relu_backward_f32", "bn_relu", "protnote_tpu/ops/streaming_train.py:115"))]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-// Column passes over (N, H) bf16 pair-row tensors, shared by the masked
+// Column passes over (N, H) pair-row tensors, shared by the masked
 // BatchNorm kernels of the training scorer: bn_relu.cu (K5) and
-// streamed_bn.cu (K6).
+// streamed_bn.cu (K6).  The element type is bf16 or float32 (K5's float32
+// form, MIXED_PRECISION False): every value is computed in float32 and
+// stored in the element type.
 //
 // Layout: a reduction block is RED_WARPS warps over COLS = 256 consecutive
 // columns; lane l of a warp owns columns 8l..8l+7 of the block (one 16-byte
-// access a row) and keeps its sums in registers while its warp walks down
+// access a row in bf16, two in float32) and keeps its sums in registers while its warp walks down
 // every RED_WARPS-th row of one row chunk.  block_column_sums adds the
 // warps' sums in warp order into one partial row of a (chunks, H) buffer,
 // and column_sums_tail_kernel adds the chunks in chunk order: no atomics,
@@ -50,6 +52,25 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
+// 8 consecutive elements as float32, and back in the element type (bf16
+// rounded to nearest)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) = pack8(f);
+}
+__device__ __forceinline__ void store8(float* p, const float* f) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
 // The forward's pre-activation f32(z) * inv + shift, rounded in two steps.
 __device__ __forceinline__ float affine(float z, float inv, float shift) {
   return __fadd_rn(__fmul_rn(z, inv), shift);
@@ -82,8 +103,9 @@ __device__ __forceinline__ void block_column_sums(float (*s)[RED_WARPS][COLS],
 
 // Per row chunk, column sums of rows * zc and rows * zc^2 with
 // zc = f32(z) - r: the shifted moments of K5's forward and K6's statistics.
+template <typename T>
 __global__ void __launch_bounds__(RED_WARPS * 32)
-moments_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ rows,
+moments_kernel(const T* __restrict__ z, const float* __restrict__ rows,
                const float* __restrict__ shift_r, float* __restrict__ part1,
                float* __restrict__ part2, long long N, int H, long long rows_per_chunk) {
   __shared__ float s[2][RED_WARPS][COLS];
@@ -102,10 +124,9 @@ moments_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ ro
   }
 #pragma unroll 4
   for (long long i = first + warp; i < last; i += RED_WARPS) {
-    const uint4 u = *reinterpret_cast<const uint4*>(z + i * H + col);
     const float m = rows[i];
     float f[VEC];
-    unpack8(u, f);
+    load8(z + i * H + col, f);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float zc = __fsub_rn(f[e], r[e]);
@@ -137,13 +158,13 @@ __global__ void column_sums_tail_kernel(ChunkSums<NA> a, int chunks, int H) {
   }
 }
 
-// y = bf16(relu(f32(z) * inv + shift)): K5's forward pass 2 and K6's
+// y = T(relu(f32(z) * inv + shift)): K5's forward pass 2 and K6's
 // affine_relu.  Each thread owns 8 columns, keeps their affine in registers
 // and walks down the rows.
+template <typename T>
 __global__ void __launch_bounds__(EW_THREADS)
-affine_relu_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ inv,
-                   const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
-                   long long N, int H) {
+affine_relu_kernel(const T* __restrict__ z, const float* __restrict__ inv,
+                   const float* __restrict__ shift, T* __restrict__ y, long long N, int H) {
   const int vpr = H / VEC;
   const int cv = blockIdx.y * blockDim.x + threadIdx.x;
   if (cv >= vpr) return;
@@ -153,16 +174,14 @@ affine_relu_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict_
     iv[e] = inv[cv * VEC + e];
     sh[e] = shift[cv * VEC + e];
   }
-  const uint4* zv = reinterpret_cast<const uint4*>(z);
-  uint4* yv = reinterpret_cast<uint4*>(y);
 #pragma unroll 4
   for (long long r = blockIdx.x; r < N; r += gridDim.x) {
-    const long long v = r * vpr + cv;
+    const long long v = (r * vpr + cv) * VEC;
     float f[VEC];
-    unpack8(zv[v], f);
+    load8(z + v, f);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) f[e] = fmaxf(affine(f[e], iv[e], sh[e]), 0.f);
-    yv[v] = pack8(f);
+    store8(y + v, f);
   }
 }
 

@@ -35,6 +35,12 @@
 // down the rows.  The moment pass, the fixed-order column sums and the
 // elementwise affine + ReLU live in bn_columns.cuh, which the streamed
 // scorer's kernels (streamed_bn.cu) share.
+//
+// The float32 forms (bn_relu_forward_f32, bn_relu_backward_f32: z, y, dy
+// and dz float32, MIXED_PRECISION False) are the same kernels on float32
+// elements, nothing rounded to bf16: 8 columns a thread in two 16-byte
+// accesses, so every pass moves twice the bytes, ~7.5 ms forward and ~11.3
+// ms backward a layer at the default width.
 
 //
 // The dense scorer's forms (ops/dense_scorer.py, the TPU chain
@@ -235,9 +241,9 @@ __device__ __forceinline__ void dropped_dy(const DropKey& dk, long long row,
 
 // Backward pass 1: per row chunk, column sums of g and g * xhat, with dy
 // first sent through dropout's transpose when DROP.
-template <bool DROP>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(RED_WARPS * 32)
-bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
+bn_grad_sums_kernel(const T* __restrict__ z, const T* __restrict__ dy,
                     const float* __restrict__ mean, const float* __restrict__ istd,
                     const float* __restrict__ inv, const float* __restrict__ shift,
                     const long long* __restrict__ seed, int layer, uint32_t threshold,
@@ -269,8 +275,8 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
 #pragma unroll(DROP ? 2 : 4)
   for (long long i = first + warp; i < last; i += RED_WARPS) {
     float zf[VEC], df[VEC];
-    unpack8(*reinterpret_cast<const uint4*>(z + i * H + col), zf);
-    unpack8(*reinterpret_cast<const uint4*>(dy + i * H + col), df);
+    load8(z + i * H + col, zf);
+    load8(dy + i * H + col, df);
     dropped_dy<DROP>(dk, i, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
@@ -284,19 +290,18 @@ bn_grad_sums_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __
   block_column_sums<2>(s, g, out, blockIdx.y, c0, H);
 }
 
-// Backward pass 2: dz = bf16(istd * scale * (g - rows / n * (G1 + G2 * xhat))),
+// Backward pass 2: dz = T(istd * scale * (g - rows / n * (G1 + G2 * xhat))),
 // dy dropped first when DROP.  Each thread owns 8 columns, keeps their seven
 // per-column values in registers and walks down the rows.
-template <bool DROP>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(EW_THREADS)
-bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
+bn_relu_dz_kernel(const T* __restrict__ z, const T* __restrict__ dy,
                   const float* __restrict__ rows, const float* __restrict__ n_ptr,
                   const float* __restrict__ scale, const float* __restrict__ mean,
                   const float* __restrict__ istd, const float* __restrict__ inv,
                   const float* __restrict__ shift, const float* __restrict__ G1,
                   const float* __restrict__ G2, const long long* __restrict__ seed, int layer,
-                  uint32_t threshold, float keep, __nv_bfloat16* __restrict__ dz, long long N,
-                  int H) {
+                  uint32_t threshold, float keep, T* __restrict__ dz, long long N, int H) {
   const int vpr = H / VEC;
   const int cv = blockIdx.y * blockDim.x + threadIdx.x;
   if (cv >= vpr) return;
@@ -319,16 +324,13 @@ bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __re
     g2[e] = G2[c];
     coef[e] = __fmul_rn(istd[c], scale[c]);
   }
-  const uint4* zv = reinterpret_cast<const uint4*>(z);
-  const uint4* dv = reinterpret_cast<const uint4*>(dy);
-  uint4* out_v = reinterpret_cast<uint4*>(dz);
 #pragma unroll 2
   for (long long r = blockIdx.x; r < N; r += gridDim.x) {
-    const long long v = r * vpr + cv;
+    const long long v = (r * vpr + cv) * VEC;
     const float mn = __fdiv_rn(rows[r], n);
     float zf[VEC], df[VEC], out[VEC];
-    unpack8(zv[v], zf);
-    unpack8(dv[v], df);
+    load8(z + v, zf);
+    load8(dy + v, df);
     dropped_dy<DROP>(dk, r, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
@@ -337,7 +339,7 @@ bn_relu_dz_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __re
       const float inner = __fadd_rn(g1[e], __fmul_rn(g2[e], xhat));
       out[e] = __fmul_rn(coef[e], __fsub_rn(g, __fmul_rn(mn, inner)));
     }
-    out_v[v] = pack8(out);
+    store8(dz + v, out);
   }
 }
 
@@ -388,23 +390,21 @@ bias_relu_grad_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* 
 
 }  // namespace
 
-// Forward: moments, the affine, and y.  part1/part2 are (chunks, H) f32
-// scratch; mean/var/istd/inv/shift are (H,) f32 outputs.  Returns a CUDA error
-// code (0 on success).
-extern "C" int bn_relu_forward(const void* z, const void* rows, const void* n,
-                               const void* running_mean, const void* scale,
-                               const void* bias, void* part1, void* part2, void* mean,
-                               void* var, void* istd, void* inv, void* shift, void* y,
-                               long long N,
-                               int H, int chunks, long long rows_per_chunk, void* stream) {
-  if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+namespace {
+
+// K5's forward on elements of type T: moments, their tail, y.
+template <typename T>
+cudaError_t bn_forward(const void* z, const void* rows, const void* n, const void* running_mean,
+                       const void* scale, const void* bias, void* part1, void* part2,
+                       void* mean, void* var, void* istd, void* inv, void* shift, void* y,
+                       long long N, int H, int chunks, long long rows_per_chunk,
+                       cudaStream_t s) {
   moments_kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(rows),
+      static_cast<const T*>(z), static_cast<const float*>(rows),
       static_cast<const float*>(running_mean), static_cast<float*>(part1),
       static_cast<float*>(part2), N, H, rows_per_chunk);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   bn_moments_tail_kernel<<<(H + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part1), static_cast<const float*>(part2), chunks,
       static_cast<const float*>(n), static_cast<const float*>(running_mean),
@@ -412,11 +412,41 @@ extern "C" int bn_relu_forward(const void* z, const void* rows, const void* n,
       static_cast<float*>(mean), static_cast<float*>(var), static_cast<float*>(istd),
       static_cast<float*>(inv), static_cast<float*>(shift), H);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   affine_relu_kernel<<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
-      static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(inv),
-      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(y), N, H);
-  return (int)cudaGetLastError();
+      static_cast<const T*>(z), static_cast<const float*>(inv),
+      static_cast<const float*>(shift), static_cast<T*>(y), N, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Forward: moments, the affine, and y.  z and y (N, H) bf16; part1/part2
+// are (chunks, H) f32 scratch; mean/var/istd/inv/shift are (H,) f32
+// outputs.  Returns a CUDA error code (0 on success).
+extern "C" int bn_relu_forward(const void* z, const void* rows, const void* n,
+                               const void* running_mean, const void* scale,
+                               const void* bias, void* part1, void* part2, void* mean,
+                               void* var, void* istd, void* inv, void* shift, void* y,
+                               long long N,
+                               int H, int chunks, long long rows_per_chunk, void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
+  return (int)bn_forward<__nv_bfloat16>(z, rows, n, running_mean, scale, bias, part1, part2,
+                                        mean, var, istd, inv, shift, y, N, H, chunks,
+                                        rows_per_chunk, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Its float32 form: z and y (N, H) float32, the rest as bn_relu_forward.
+extern "C" int bn_relu_forward_f32(const void* z, const void* rows, const void* n,
+                                   const void* running_mean, const void* scale,
+                                   const void* bias, void* part1, void* part2, void* mean,
+                                   void* var, void* istd, void* inv, void* shift, void* y,
+                                   long long N, int H, int chunks, long long rows_per_chunk,
+                                   void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
+  return (int)bn_forward<float>(z, rows, n, running_mean, scale, bias, part1, part2, mean, var,
+                                istd, inv, shift, y, N, H, chunks, rows_per_chunk,
+                                reinterpret_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -445,19 +475,20 @@ bool drop_ok(int layer, int threshold, float keep) {
   return layer >= 0 && threshold > 0 && threshold <= (int)KEEP_ALL && keep > 0.f && keep <= 1.f;
 }
 
-// K5's backward: the gradient sums, their tail and dz; dy goes through
-// dropout's transpose unless threshold keeps every element.
-template <bool DROP>
+// K5's backward on elements of type T: the gradient sums, their tail and
+// dz; dy goes through dropout's transpose unless threshold keeps every
+// element.
+template <typename T, bool DROP>
 cudaError_t launch_bn_backward(const void* z, const void* dy, const void* rows, const void* n,
                                const void* scale, const void* mean, const void* istd,
                                const void* inv, const void* shift, const void* seed,
                                void* part1, void* part2, void* G1, void* G2, void* dz,
                                long long N, int H, int chunks, long long rows_per_chunk,
                                int layer, uint32_t threshold, float keep, cudaStream_t s) {
-  const __nv_bfloat16* z_ = static_cast<const __nv_bfloat16*>(z);
-  const __nv_bfloat16* dy_ = static_cast<const __nv_bfloat16*>(dy);
+  const T* z_ = static_cast<const T*>(z);
+  const T* dy_ = static_cast<const T*>(dy);
   const long long* seed_ = static_cast<const long long*>(seed);
-  bn_grad_sums_kernel<DROP><<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+  bn_grad_sums_kernel<T, DROP><<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
       z_, dy_, static_cast<const float*>(mean), static_cast<const float*>(istd),
       static_cast<const float*>(inv), static_cast<const float*>(shift), seed_, layer, threshold,
       keep, static_cast<float*>(part1), static_cast<float*>(part2), N, H, rows_per_chunk);
@@ -469,13 +500,12 @@ cudaError_t launch_bn_backward(const void* z, const void* dy, const void* rows, 
       chunks, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bn_relu_dz_kernel<DROP><<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
+  bn_relu_dz_kernel<T, DROP><<<elementwise_grid(N, H), elementwise_threads(H), 0, s>>>(
       z_, dy_, static_cast<const float*>(rows), static_cast<const float*>(n),
       static_cast<const float*>(scale), static_cast<const float*>(mean),
       static_cast<const float*>(istd), static_cast<const float*>(inv),
       static_cast<const float*>(shift), static_cast<const float*>(G1),
-      static_cast<const float*>(G2), seed_, layer, threshold, keep,
-      static_cast<__nv_bfloat16*>(dz), N, H);
+      static_cast<const float*>(G2), seed_, layer, threshold, keep, static_cast<T*>(dz), N, H);
   return cudaGetLastError();
 }
 
@@ -489,10 +519,23 @@ extern "C" int bn_relu_backward(const void* z, const void* dy, const void* rows,
                                 long long N, int H, int chunks, long long rows_per_chunk,
                                 void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
-  return (int)launch_bn_backward<false>(z, dy, rows, n, scale, mean, istd, inv, shift, nullptr,
-                                        part1, part2, G1, G2, dz, N, H, chunks, rows_per_chunk,
-                                        0, KEEP_ALL, 1.f,
-                                        reinterpret_cast<cudaStream_t>(stream));
+  return (int)launch_bn_backward<__nv_bfloat16, false>(
+      z, dy, rows, n, scale, mean, istd, inv, shift, nullptr, part1, part2, G1, G2, dz, N, H,
+      chunks, rows_per_chunk, 0, KEEP_ALL, 1.f, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Its float32 form: z, dy and dz (N, H) float32, the rest as
+// bn_relu_backward.
+extern "C" int bn_relu_backward_f32(const void* z, const void* dy, const void* rows,
+                                    const void* n, const void* scale, const void* mean,
+                                    const void* istd, const void* inv, const void* shift,
+                                    void* part1, void* part2, void* G1, void* G2, void* dz,
+                                    long long N, int H, int chunks, long long rows_per_chunk,
+                                    void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
+  return (int)launch_bn_backward<float, false>(
+      z, dy, rows, n, scale, mean, istd, inv, shift, nullptr, part1, part2, G1, G2, dz, N, H,
+      chunks, rows_per_chunk, 0, KEEP_ALL, 1.f, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The dense scorer's forward: the centred moments (two moment passes, the
@@ -547,7 +590,8 @@ extern "C" int bn_relu_dropout_backward(const void* z, const void* dy, const voi
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uint32_t thr = (uint32_t)threshold;
-  auto launch = thr >= KEEP_ALL ? launch_bn_backward<false> : launch_bn_backward<true>;
+  auto launch = thr >= KEEP_ALL ? launch_bn_backward<__nv_bfloat16, false>
+                                : launch_bn_backward<__nv_bfloat16, true>;
   return (int)launch(z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1, part2, G1, G2,
                      dz, N, H, chunks, rows_per_chunk, layer, thr, keep, s);
 }

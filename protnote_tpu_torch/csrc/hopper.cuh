@@ -8,7 +8,8 @@
 // masked_conv.cuh (K7's conv and its dX) takes the pitched 3-D map and the
 // register-A Mma<184>; K4-bwd's and K7-bwd's dW (pair_train_bwd.cu,
 // masked_conv_bwd.cu) the MN-major descriptor and the register-A products
-// with B transposed (MmaRsT).
+// with B transposed (MmaRsT); the float32 pair kernels (pair_scorer_f32.cu,
+// pair_train_bwd_f32.cu) the register-A Mma<128> and Mma<64>.
 // text_attention.cu and text_attention_bwd.cu take the descriptors, the
 // wgmma instructions, the async-proxy fence, the transposed ldmatrix and
 // those helpers.
@@ -262,6 +263,23 @@ struct Mma<128> {
         " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
         "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
         : D64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// N = 64, register A only (K4-bwd's float32 dX, csrc/pair_train_bwd_f32.cu)
+template <>
+struct Mma<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };

@@ -60,7 +60,13 @@
 // chunk of 8,192 rows at H 3072, twice K1's bf16 one: it no longer stays in
 // L2, and is written and read once a layer from device memory (200 MB a
 // chunk, ~15 ms of the call at 3.35 TB/s).
+//
+// The same mainloop is K4's float32 forward (pair_train_hidden_f32, at the
+// end of the file): the A_PAIR layer over every pair of a training batch,
+// its sums stored as they are (EPI_RAW) through a 3-D map over z as (B, L,
+// N).  Bound: 19.4 TFLOP at the default width, 117.6 ms at the split's rate.
 
+#include "bf16x3.cuh"
 #include "hopper.cuh"
 
 #include <string.h>
@@ -80,6 +86,10 @@ constexpr int EPI_BOX = 64 * 128;  // one 64-row x 32-column float32 box of the 
 
 // where the A operand comes from
 enum AMode { A_X = 0, A_PAIR = 1, A_PROD = 2 };
+// what the epilogue does with the sums: bias (or a + c) and ReLU stored to a
+// workspace, the dot with w_out into the logits, or the sums stored as they
+// are through a 3-D map over (B, L, N) (K4's float32 forward)
+enum Epi { EPI_RELU = 0, EPI_DOT = 1, EPI_RAW = 2 };
 
 // Shared memory of one variant: a ring of STAGES stages, each the three W^T
 // piece tiles (BN rows of BK bf16) and the A side's float32 tile as two
@@ -106,30 +116,11 @@ struct Layout {
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x (two columns) as three packed bf16 pieces, x = x0 + x1 + x2 exactly:
-// each piece the previous remainder rounded to nearest, each remainder an
-// exact float32 subtraction
-__device__ __forceinline__ void split3(float2 x, uint32_t& p0, uint32_t& p1, uint32_t& p2) {
-  const __nv_bfloat162 b0 = __floats2bfloat162_rn(x.x, x.y);
-  const float2 f0 = __bfloat1622float2(b0);
-  const float2 r1 = make_float2(__fsub_rn(x.x, f0.x), __fsub_rn(x.y, f0.y));
-  const __nv_bfloat162 b1 = __floats2bfloat162_rn(r1.x, r1.y);
-  const float2 f1 = __bfloat1622float2(b1);
-  const __nv_bfloat162 b2 = __floats2bfloat162_rn(__fsub_rn(r1.x, f1.x), __fsub_rn(r1.y, f1.y));
-  p0 = bits_of(b0);
-  p1 = bits_of(b1);
-  p2 = bits_of(b2);
-}
-
 __device__ __forceinline__ void st_shared_f2(uint32_t addr, float2 v) {
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y) : "memory");
 }
 
-template <int AMODE, bool DOT_OUT>
+template <int AMODE, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_mlp_layer_f32_kernel(const __grid_constant__ CUtensorMap tm_w,
                           const __grid_constant__ CUtensorMap tm_t,
@@ -139,6 +130,7 @@ pair_mlp_layer_f32_kernel(const __grid_constant__ CUtensorMap tm_w,
                           const float* __restrict__ ec, const float* __restrict__ w_out,
                           float* __restrict__ logits, int nl, int nl_pad, int l0, int L, int K,
                           int N, int tiles_n, int tiles) {
+  constexpr bool DOT_OUT = EPI == EPI_DOT;
   using Lay = Layout<AMODE, !DOT_OUT>;
   constexpr int STAGES = Lay::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -332,6 +324,13 @@ pair_mlp_layer_f32_kernel(const __grid_constant__ CUtensorMap tm_w,
             const int j = 4 * part + jj;
             const int col = n0 + 8 * j + 2 * q;
             float2 e0, e1;
+            if (EPI == EPI_RAW) {
+              const uint32_t off = (((2 * jj + (q >> 1)) ^ (lr & 7)) << 4) + 8 * (q & 1);
+              st_shared_f2(box + lr * 128 + off, make_float2(sum[4 * j], sum[4 * j + 1]));
+              st_shared_f2(box + (lr + 8) * 128 + off,
+                           make_float2(sum[4 * j + 2], sum[4 * j + 3]));
+              continue;
+            }
             if (AMODE == A_PROD) {
               const float2 av = *reinterpret_cast<const float2*>(arow + col);
               const float2 c0 =
@@ -355,7 +354,14 @@ pair_mlp_layer_f32_kernel(const __grid_constant__ CUtensorMap tm_w,
           fence_async_smem();
           warpgroup_barrier(1 + wg);
           if (tid == 0) {
-            tma_store(&tm_o, box, n0 + 32 * part, m0 + wg * 64);
+            if (EPI == EPI_RAW) {
+              // rows b * nl_pad + l of the tile are labels l of sequence b;
+              // the map clips them at L, and a box wholly past L is left out
+              const int lw = m0 - b * nl_pad + wg * 64;
+              if (lw < L) tma_store_3d(&tm_o, box, n0 + 32 * part, lw, b);
+            } else {
+              tma_store(&tm_o, box, n0 + 32 * part, m0 + wg * 64);
+            }
             bulk_commit();
           }
         }
@@ -372,10 +378,10 @@ struct Args {
   int nl, nl_pad, l0, L, K, N, tiles_n, tiles, grid;
 };
 
-template <int AMODE, bool DOT_OUT>
+template <int AMODE, int EPI>
 cudaError_t launch(const Args& p, cudaStream_t s) {
-  constexpr int bytes = Layout<AMODE, !DOT_OUT>::BYTES;
-  auto kernel = pair_mlp_layer_f32_kernel<AMODE, DOT_OUT>;
+  constexpr int bytes = Layout<AMODE, EPI != EPI_DOT>::BYTES;
+  auto kernel = pair_mlp_layer_f32_kernel<AMODE, EPI>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<p.grid, THREADS, bytes, s>>>(p.tm_w, p.tm_t, p.tm_r, p.tm_o, p.bias, p.ea, p.ec,
@@ -441,10 +447,55 @@ extern "C" int pair_mlp_layer_f32(const void* row, const void* tile, const void*
   p.grid = grid < p.tiles ? grid : p.tiles;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (mode) {
-    case A_X: return (int)launch<A_X, false>(p, s);
-    case A_PAIR: return (int)launch<A_PAIR, false>(p, s);
-    case A_PROD: return (int)launch<A_PROD, false>(p, s);
-    case A_X | DOT: return (int)launch<A_X, true>(p, s);
-    default: return (int)launch<A_PAIR, true>(p, s);
+    case A_X: return (int)launch<A_X, EPI_RELU>(p, s);
+    case A_PAIR: return (int)launch<A_PAIR, EPI_RELU>(p, s);
+    case A_PROD: return (int)launch<A_PROD, EPI_RELU>(p, s);
+    case A_X | DOT: return (int)launch<A_X, EPI_DOT>(p, s);
+    default: return (int)launch<A_PAIR, EPI_DOT>(p, s);
   }
+}
+
+// K4's forward in float32 (the first hidden GEMM of the decomposed training
+// scorer, protnote_tpu/ops/streaming_train.py:238-240 at compute_dtype
+// float32): z[b * L + l] = relu(a2[b] + c2[l]) @ W for every pair, float32,
+// with no bias and no ReLU (the caller adds the bias).  The A_PAIR mainloop
+// above on rows padded to nl_pad = ceil(L / 128) * 128 a sequence (c2's rows
+// past L arrive as zeros), its sums stored through a 3-D map over z as (B,
+// L, N) that clips each sequence's last tile at L, so z has no padding rows
+// and no tile writes another sequence's labels.  a2 (B, K), c2 (L, K) and z
+// (B * L, N) float32, wt3 (3N, K) bf16 W's pieces as pair_mlp_layer_f32
+// takes them; K and N multiples of 128.
+extern "C" int pair_train_hidden_f32(const void* a2, const void* c2, const void* wt3, void* z,
+                                     int B, int L, int K, int N, int grid, void* stream) {
+  if (B <= 0 || L <= 0 || K <= 0 || K % (2 * BK) != 0 || N <= 0 || N % BN != 0 || grid <= 0 ||
+      a2 == nullptr || c2 == nullptr || wt3 == nullptr || z == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // a runtime call first: it makes the device's context current on this
+  // thread (autograd's backward thread, which reruns this forward under
+  // GRADIENT_CHECKPOINTING, may have none yet), which cuTensorMapEncodeTiled
+  // needs
+  cudaError_t err = cudaFuncSetAttribute(pair_mlp_layer_f32_kernel<A_PAIR, EPI_RAW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Layout<A_PAIR, true>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  Args p;
+  memset(&p, 0, sizeof(p));
+  const int nl_pad = (L + BM - 1) / BM * BM;
+  const uint64_t M = (uint64_t)B * nl_pad;
+  if (M / BM * (N / BN) > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  if (!(make_map(&p.tm_w, wt3, MapType::BF16, (uint64_t)PIECES * N, K, BN, BK, true) &&
+        make_map(&p.tm_t, c2, MapType::F32, L, K, BM, 32, true) &&
+        make_map(&p.tm_r, a2, MapType::F32, B, K, 1, BK, false) &&
+        make_map_3d(&p.tm_o, z, MapType::F32, B, L, N, 64, 32, true)))
+    return (int)cudaErrorInvalidValue;
+  p.nl = L;
+  p.nl_pad = nl_pad;
+  p.l0 = 0;
+  p.L = L;
+  p.K = K;
+  p.N = N;
+  p.tiles_n = N / BN;
+  p.tiles = (int)(M / BM) * p.tiles_n;
+  p.grid = grid < p.tiles ? grid : p.tiles;
+  return (int)launch<A_PAIR, EPI_RAW>(p, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -347,6 +347,26 @@ def calibrate_int8(params: Params, state: Params, sequence_embeddings: torch.Ten
     return tuple(float(m) * margin / 127.0 for m in maxes.cpu().tolist())
 
 
+def train_scorer(cfg: ProtNoteConfig, bn_state: Optional[bool] = None) -> str:
+    """The scorer that training dispatches to, as the JAX dispatch chooses
+    it: ``"similarity"`` (no pair MLP), ``"streamed"`` (the streamed scorer:
+    a label tile, any backend but dense), ``"decomposed"`` (``auto`` or
+    ``tiled_int8``) or ``"dense"`` (the materialised scorer: the rest, and
+    whatever dropout, ``concatenation_prod`` or an output MLP without
+    BatchNorm asks for).  ``bn_state``: whether the output MLP has BatchNorm
+    state (default: the config's ``output_mlp_batchnorm``)."""
+    if not cfg.feature_fusion.startswith("concatenation"):
+        return "similarity"
+    bn = cfg.output_mlp_batchnorm if bn_state is None else bn_state
+    streamable = (cfg.feature_fusion in ("concatenation", "concatenation_diff")
+                  and cfg.dropout == 0.0 and bn)
+    if streamable and cfg.train_label_tile > 0 and cfg.pair_backend != "dense":
+        return "streamed"
+    if streamable and cfg.pair_backend in ("auto", "tiled_int8"):
+        return "decomposed"
+    return "dense"
+
+
 def protnote_forward(
     params: Params,
     state: Params,
@@ -397,12 +417,8 @@ def protnote_forward(
         logits = similarity_logits(P_e, L_e, cfg.temperature)
     elif cfg.feature_fusion.startswith("concatenation"):
         om_state = state.get("output_mlp")
-        streamable = (cfg.feature_fusion in ("concatenation", "concatenation_diff")
-                      and cfg.dropout == 0.0 and om_state is not None)
-        if train and streamable and cfg.train_label_tile > 0 and cfg.pair_backend != "dense":
-            # the JAX dispatch: the streamed scorer first (any backend but
-            # dense), then the decomposed one (auto, tiled_int8); the rest,
-            # and evaluation with dense, is the materialised scorer
+        scorer = train_scorer(cfg, om_state is not None) if train else None
+        if scorer == "streamed":
             if cfg.train_fused_bn_vjp:
                 raise ValueError(FUSED_BN_VJP_WITH_TILE)
             logits, new_state["output_mlp"] = pair_logits_streaming_train(
@@ -410,7 +426,7 @@ def protnote_forward(
                 example_mask=example_mask, label_mask=label_mask,
                 label_tile=cfg.train_label_tile, compute_dtype=cfg.compute_dtype,
                 cache_first=cfg.train_streaming_cache)
-        elif train and streamable and cfg.pair_backend in ("auto", "tiled_int8"):
+        elif scorer == "decomposed":
             logits, new_state["output_mlp"] = pair_logits_dense_decomposed(
                 params["output_mlp"], om_state, P_e, L_e, cfg.feature_fusion,
                 example_mask=example_mask, label_mask=label_mask,

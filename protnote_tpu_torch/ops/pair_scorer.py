@@ -123,6 +123,13 @@ def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     return x0, x1, (r1 - x1.float()).to(torch.bfloat16)
 
 
+def stacked_pieces(w: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """W (K, N) float32 as its three bf16 pieces (:func:`split_bf16x3`),
+    stacked: (3N, K), each piece transposed to K-major (the B operand of K1's
+    and K4's float32 forms), or (3K, N), W's own rows (K4-bwd's float32 dX)."""
+    return torch.cat([p.t() if transpose else p for p in split_bf16x3(w)]).contiguous()
+
+
 # the six products of the split that keep float32's precision, (A piece, W
 # piece), in the order the kernel issues them: a stage's five small cross
 # products for each k-step, then its x0 w0 products
@@ -469,7 +476,7 @@ class _K1Kernel:
     def pieces(W: torch.Tensor) -> torch.Tensor:
         """W (K, N) as its three bf16 pieces, each transposed to K-major and
         stacked: (3N, K), the layout ``pair_mlp_layer_f32`` loads."""
-        return torch.cat([p.t() for p in split_bf16x3(W)]).contiguous()
+        return stacked_pieces(W, transpose=True)
 
     def new_logits(self) -> torch.Tensor:
         """(B, L) float32 logits pre-filled with ``b_out``: the kernel adds

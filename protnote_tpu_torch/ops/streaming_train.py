@@ -28,6 +28,18 @@ Two hand-written kernels carry the (B * L, H) tensors:
   one for ``dz`` (the JAX ``_bn_relu`` custom VJP).  It serves every layer
   after the first.
 
+In float32 (``MIXED_PRECISION False``) the same chain runs through the
+float32 forms: K4 is ``csrc/pair_scorer_f32.cu:pair_train_hidden_f32`` (K1's
+float32 mainloop, the products split into bf16 pieces, :func:`stacked_pieces`),
+K4-bwd ``csrc/pair_train_bwd_f32.cu`` (``pair_train_dx_f32``: a block a
+(label tile, 64 input columns) walking every sequence, dc2's sums in
+registers, da2's partials a label tile and an ordered sum;
+``pair_train_dw_f32``: ``dW^T = dz^T @ x1`` with x1's pieces formed in shared
+memory, on :func:`pair_dw_plan`'s 128-column tiles), and K5
+``bn_relu_forward_f32`` / ``bn_relu_backward_f32`` (K5's kernels on float32
+elements).  Nothing is rounded to bf16 but the split's exact pieces.  The
+streamed scorer's kernels (K6) still take bfloat16 only.
+
 The streamed scorer (:func:`pair_logits_streaming_train`,
 ``TRAIN_STREAMING_LABEL_TILE``) computes the same function in O(B * tile *
 H) memory: the labels are cut into tiles and each later layer's statistics
@@ -80,6 +92,7 @@ from protnote_tpu_torch.ops.pair_scorer import (
     BN_EPS,
     _block_n,
     _f32_product,
+    stacked_pieces,
 )
 
 BN_MOMENTUM = 0.1  # torch BatchNorm1d default, as the JAX package
@@ -88,6 +101,8 @@ BN_MOMENTUM = 0.1  # torch BatchNorm1d default, as the JAX package
 # caller last set them to 0).
 LAUNCHES = {"pair_train_hidden": 0, "pair_train_dx": 0, "pair_train_dw": 0,
             "bn_relu_forward": 0, "bn_relu_backward": 0,
+            "pair_train_hidden_f32": 0, "pair_train_dx_f32": 0, "pair_train_dw_f32": 0,
+            "bn_relu_forward_f32": 0, "bn_relu_backward_f32": 0,
             "stream_moments": 0, "stream_moments_backward": 0, "affine_relu": 0,
             "affine_relu_backward": 0, "stream_head": 0, "stream_head_backward": 0}
 _launch_lock = threading.Lock()
@@ -178,17 +193,20 @@ _BN_COLS = 256  # columns per reduction block (csrc/bn_relu.cu COLS)
 
 
 def _check_bn_cuda(z: torch.Tensor, rows: Optional[torch.Tensor], n: Optional[torch.Tensor],
-                   vectors) -> None:
-    """The inputs that K5's and K6's column kernels take: (N, H) bf16 ``z``
-    with H a multiple of 256, ``rows`` (N, 1) and ``n`` one value where the
-    kernel reads them, (H,) float32 ``vectors``, all contiguous on z's CUDA
-    device."""
+                   vectors, f32: bool = False) -> None:
+    """The inputs that K5's and K6's column kernels take: (N, H) ``z`` with
+    H a multiple of 256, bfloat16 (or float32 where ``f32``: K5's float32
+    form), ``rows`` (N, 1) and ``n`` one value where the kernel reads them,
+    (H,) float32 ``vectors``, all contiguous on z's CUDA device."""
     if z.device.type != "cuda":
         raise ValueError(f"the CUDA BN kernels need CUDA tensors, not {z.device}")
-    if z.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA BN kernels take bfloat16 pre-activations, not "
-                         f"{z.dtype} (MIXED_PRECISION: True; training's scorer in float32 "
-                         f"on the card is ROADMAP.md queue 1, item 16b)")
+    if f32 and z.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K5's CUDA kernels take bfloat16 or float32 pre-activations, not "
+                         f"{z.dtype}")
+    if not f32 and z.dtype != torch.bfloat16:
+        raise ValueError(f"the streamed scorer's (K6) and the dense scorer's CUDA BN kernels "
+                         f"take bfloat16 pre-activations, not {z.dtype} (MIXED_PRECISION: "
+                         f"True; their float32 forms are ROADMAP.md queue 1, item 16b)")
     if z.dim() != 2 or z.shape[1] % _BN_COLS:
         raise ValueError(f"pre-activations {tuple(z.shape)}: the width must be a "
                          f"multiple of {_BN_COLS}")
@@ -225,13 +243,19 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _bn_symbol(z: torch.Tensor, name: str) -> str:
+    """K5's entry point for z's dtype: ``name``, or its float32 form."""
+    return f"{name}_f32" if z.dtype == torch.float32 else name
+
+
 def _bn_relu_fwd_cuda(z, rows, n, scale, bias, running_mean):
-    """K5's forward kernels (``bn_relu_forward``), the outputs of
-    :func:`_bn_relu_fwd_plain`; scale/istd/inv/shift come back float32."""
+    """K5's forward kernels (``bn_relu_forward``, or ``bn_relu_forward_f32``
+    for float32 z), the outputs of :func:`_bn_relu_fwd_plain`;
+    scale/istd/inv/shift come back float32."""
     n = n.reshape(1).float().contiguous()
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
     r = running_mean.detach().float().contiguous()
-    _check_bn_cuda(z, rows, n, (scale, bias, r))
+    _check_bn_cuda(z, rows, n, (scale, bias, r), f32=True)
     N, H = z.shape
     chunks, per = _chunks(N)
     f32 = dict(dtype=torch.float32, device=z.device)
@@ -239,23 +263,25 @@ def _bn_relu_fwd_cuda(z, rows, n, scale, bias, running_mean):
     mean, var, istd, inv, shift = (torch.empty(H, **f32) for _ in range(5))
     y = torch.empty_like(z)
     stream = torch.cuda.current_stream(z.device).cuda_stream
+    symbol = _bn_symbol(z, "bn_relu_forward")
     with torch.cuda.device(z.device):
-        _raise_on(_bn_fn("bn_relu_forward")(
+        _raise_on(_bn_fn(symbol)(
             z.data_ptr(), rows.data_ptr(), n.data_ptr(), r.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), part1.data_ptr(), part2.data_ptr(), mean.data_ptr(),
             var.data_ptr(), istd.data_ptr(), inv.data_ptr(), shift.data_ptr(), y.data_ptr(),
-            N, H, chunks, per, stream), "bn_relu_forward")
-        _count("bn_relu_forward")
+            N, H, chunks, per, stream), symbol)
+        _count(symbol)
     return y, mean, var, istd, inv, shift
 
 
 def _bn_relu_grads_cuda(z, dy, rows, n, scale, mean, istd, inv, shift):
-    """K5's backward kernels (``bn_relu_backward``): ``(dz, dscale,
-    dbias)`` as :func:`_bn_relu_grads`."""
+    """K5's backward kernels (``bn_relu_backward``, or
+    ``bn_relu_backward_f32`` for float32 z): ``(dz, dscale, dbias)`` as
+    :func:`_bn_relu_grads`."""
     dy = dy.to(z.dtype).contiguous()
     n = n.reshape(1).float().contiguous()
     scale_f = scale.float().contiguous()
-    _check_bn_cuda(z, rows, n, (scale_f, mean, istd, inv, shift))
+    _check_bn_cuda(z, rows, n, (scale_f, mean, istd, inv, shift), f32=True)
     if dy.shape != z.shape or dy.device != z.device:
         raise ValueError(f"dy {tuple(dy.shape)} does not match z {tuple(z.shape)}")
     N, H = z.shape
@@ -265,13 +291,14 @@ def _bn_relu_grads_cuda(z, dy, rows, n, scale, mean, istd, inv, shift):
     G1, G2 = torch.empty(H, **f32), torch.empty(H, **f32)
     dz = torch.empty_like(z)
     stream = torch.cuda.current_stream(z.device).cuda_stream
+    symbol = _bn_symbol(z, "bn_relu_backward")
     with torch.cuda.device(z.device):
-        _raise_on(_bn_fn("bn_relu_backward")(
+        _raise_on(_bn_fn(symbol)(
             z.data_ptr(), dy.data_ptr(), rows.data_ptr(), n.data_ptr(), scale_f.data_ptr(),
             mean.data_ptr(), istd.data_ptr(), inv.data_ptr(), shift.data_ptr(),
             part1.data_ptr(), part2.data_ptr(), G1.data_ptr(), G2.data_ptr(), dz.data_ptr(),
-            N, H, chunks, per, stream), "bn_relu_backward")
-        _count("bn_relu_backward")
+            N, H, chunks, per, stream), symbol)
+        _count(symbol)
     return dz, G2.to(scale.dtype), G1.to(scale.dtype)
 
 
@@ -413,12 +440,13 @@ def pair_train_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) ->
 
 
 def _check_pair_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> None:
+    """K4's and K4-bwd's operands: on one CUDA device, all bfloat16 or all
+    float32 (the float32 forms)."""
     if a2.device.type != "cuda" or c2.device != a2.device or w.device != a2.device:
         raise ValueError("the CUDA pair-train kernel needs a2, c2 and w on one CUDA device")
-    if {a2.dtype, c2.dtype, w.dtype} != {torch.bfloat16}:
-        raise ValueError("the CUDA pair-train kernel computes in bfloat16 "
-                         f"(MIXED_PRECISION: True; training's scorer in float32 on the card is "
-                         f"ROADMAP.md queue 1, item 16b), not {a2.dtype}/{c2.dtype}/{w.dtype}")
+    if {a2.dtype, c2.dtype, w.dtype} not in ({torch.bfloat16}, {torch.float32}):
+        raise ValueError("the CUDA pair-train kernels compute in bfloat16 or in float32, all "
+                         f"operands alike, not {a2.dtype}/{c2.dtype}/{w.dtype}")
     if a2.dim() != 2 or c2.dim() != 2 or w.dim() != 2 or a2.shape[1] != c2.shape[1] or \
             w.shape[0] != a2.shape[1]:
         raise ValueError(f"a2 {tuple(a2.shape)}, c2 {tuple(c2.shape)}, w {tuple(w.shape)} "
@@ -431,12 +459,159 @@ def _pair_fn():
     return kernel_function("pair_train", "pair_train_hidden", [_P] * 4 + [_I] * 6 + [_P])
 
 
+def _pair_f32_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_scorer_f32", "pair_train_hidden_f32", [_P] * 4 + [_I] * 5 + [_P])
+
+
+# K4's float32 forms (csrc/pair_scorer_f32.cu, csrc/pair_train_bwd_f32.cu):
+# tiles and the shared memory each launch asks for, as the sources lay it out
+F32_TILE = 128  # rows and columns of a forward tile; the dW tile; a dX label tile
+F32_DX_COLS = 64  # input columns of a dX tile
+F32_STORE_ROWS, F32_STORE_COLS = 64, 32  # one float32 TMA store box of the forward
+SMEM_LIMIT = 232448  # the shared memory a block may use on an H100
+
+
+def f32_train_smem_bytes() -> Dict[str, int]:
+    """The dynamic shared memory of the float32 K4 forward (K1's A_PAIR
+    layout with store boxes: two 80 KB stages), dX (three 56 KB stages and
+    the da2 reduction's two slots) and dW (two 64 KB stages and two piece
+    buffers of 48 KB), each with its 1 KB alignment slack and mbarriers."""
+    stage = 3 * F32_TILE * 64 * 2 + 2 * F32_TILE * 32 * 4
+    epi = 2 * 2 * F32_STORE_ROWS * 128
+    fit = (SMEM_LIMIT - 1024 - 256 - epi) // (stage + 256)
+    stages = min(fit, 4)
+    forward = 1024 + stages * stage + epi + stages * 256 + 2 * stages * 8
+    dx_stage = 3 * F32_DX_COLS * 64 * 2 + 2 * F32_TILE * 32 * 4
+    dx = 1024 + 3 * dx_stage + 2 * 8 * F32_DX_COLS * 4 + 2 * 3 * 8
+    dw = 1024 + 2 * (8 * 64 * 32 * 4) + 2 * 3 * F32_TILE * 64 * 2 + 2 * 2 * 8
+    return {"forward": forward, "dx": dx, "dw": dw}
+
+
+@dataclass(frozen=True)
+class PairTrainF32Plan:
+    """The float32 K4 forward's launch geometry: each sequence's labels
+    padded to ``nl_pad`` (a multiple of 128), ``tiles`` 128 x 128 tiles of
+    one sequence's labels walked by ``grid`` persistent blocks, column tiles
+    fastest (tile t is row tile ``t // tiles_n``: sequence ``r // tiles_l``,
+    labels ``(r % tiles_l) * 128``)."""
+
+    batch: int
+    labels: int
+    width_in: int  # K
+    width_out: int  # N
+    tiles_l: int
+    tiles_n: int
+    grid: int
+
+    @property
+    def nl_pad(self) -> int:
+        return self.tiles_l * F32_TILE
+
+    @property
+    def tiles(self) -> int:
+        return self.batch * self.tiles_l * self.tiles_n
+
+    def tile(self, t: int) -> Tuple[int, int, int]:
+        """(sequence b, first label l0, first column n0) of tile t."""
+        r, nt = divmod(t, self.tiles_n)
+        b, lt = divmod(r, self.tiles_l)
+        return b, lt * F32_TILE, nt * F32_TILE
+
+    def stores(self, t: int) -> List[Tuple[int, int, int, int, int]]:
+        """The z elements tile t writes, as (b, l_start, l_stop, n_start,
+        n_stop): a 64-row x 32-column box for each warpgroup and 32 columns,
+        through the 3-D map over (B, L, N) that clips rows at L (a box wholly
+        past L is left out)."""
+        b, l0, n0 = self.tile(t)
+        return [(b, r0, min(r0 + F32_STORE_ROWS, self.labels), c0, c0 + F32_STORE_COLS)
+                for r0 in range(l0, min(l0 + F32_TILE, self.labels), F32_STORE_ROWS)
+                for c0 in range(n0, n0 + F32_TILE, F32_STORE_COLS)]
+
+
+def pair_train_f32_plan(B: int, L: int, K: int, N: int,
+                        num_sms: int = _H100_SMS) -> PairTrainF32Plan:
+    """The float32 K4 forward's plan for a2 (B, K), c2 (L, K), W (K, N).
+    Raises for widths the kernel does not take: K and N multiples of 128."""
+    if B <= 0 or L <= 0 or num_sms <= 0:
+        raise ValueError(f"no float32 K4 plan for B {B}, L {L} on {num_sms} SMs")
+    if K <= 0 or N <= 0 or K % F32_TILE or N % F32_TILE:
+        raise ValueError(f"the float32 pair-train kernels take widths (in {K}, out {N}) that "
+                         f"are multiples of {F32_TILE}")
+    tiles_l, tiles_n = -(-L // F32_TILE), N // F32_TILE
+    if B * tiles_l * tiles_n > 2**31 - 1:
+        raise ValueError(f"B {B} x L {L} x N {N}: more tiles than the kernel counts")
+    return PairTrainF32Plan(B, L, K, N, tiles_l, tiles_n, min(num_sms, B * tiles_l * tiles_n))
+
+
+@dataclass(frozen=True)
+class PairDxF32Plan:
+    """The float32 dX kernel's schedule (``pair_train_dx_f32``): ``units``
+    (label tile of 128, 64 input columns) walked by ``grid`` persistent
+    blocks, column tiles fastest; each unit runs every sequence in order and
+    writes its dc2 rows and one da2 partial a sequence, which a second
+    kernel adds over the ``tiles_l`` label tiles in order."""
+
+    batch: int
+    labels: int
+    width_in: int  # K
+    width_out: int  # N
+    tiles_l: int
+    tiles_k: int
+    grid: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles_l * self.tiles_k
+
+    def unit(self, u: int) -> Tuple[int, int]:
+        """(first label l0, first input column k0) of unit u."""
+        lt, kt = divmod(u, self.tiles_k)
+        return lt * F32_TILE, kt * F32_DX_COLS
+
+
+def pair_dx_f32_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairDxF32Plan:
+    """The float32 dX kernel's plan: K a multiple of 128, N of 64."""
+    if B <= 0 or L <= 0 or num_sms <= 0:
+        raise ValueError(f"no float32 K4-bwd plan for B {B}, L {L} on {num_sms} SMs")
+    if K <= 0 or N <= 0 or K % F32_TILE or N % F32_DX_COLS:
+        raise ValueError(f"the float32 pair-train kernels take widths (in {K}, out {N}) that "
+                         f"are multiples of {F32_TILE}")
+    tiles_l, tiles_k = -(-L // F32_TILE), K // F32_DX_COLS
+    if tiles_l * tiles_k > 2**31 - 1:
+        raise ValueError(f"L {L} x K {K}: more units than the kernel counts")
+    return PairDxF32Plan(B, L, K, N, tiles_l, tiles_k, min(num_sms, tiles_l * tiles_k))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _pair_hidden_fwd_f32_cuda(a2, c2, w):
+    """K4's float32 form (``pair_train_hidden_f32``), one launch over all
+    pairs: W split into its bf16 pieces once a call."""
+    B, K = a2.shape
+    L, N = c2.shape[0], w.shape[1]
+    plan = pair_train_f32_plan(B, L, K, N, _sms(a2.device))
+    wt3 = stacked_pieces(w, transpose=True)
+    z = torch.empty(B * L, N, dtype=torch.float32, device=a2.device)
+    stream = torch.cuda.current_stream(a2.device).cuda_stream
+    with torch.cuda.device(a2.device):
+        _raise_on(_pair_f32_fn()(a2.data_ptr(), c2.data_ptr(), wt3.data_ptr(), z.data_ptr(), B,
+                                 L, K, N, plan.grid, stream), "pair_train_hidden_f32")
+        _count("pair_train_hidden_f32")
+    return z
+
+
 def _pair_hidden_fwd_cuda(a2: torch.Tensor, c2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K4's kernel (``csrc/pair_train.cu``), one launch over all pairs.  W is
     transposed once a call into the K-major layout of the kernel's TMA box
     (18 MB at H 3072, a few microseconds; W changes every step)."""
     a2, c2 = a2.contiguous(), c2.contiguous()
     _check_pair_cuda(a2, c2, w)
+    if a2.dtype == torch.float32:
+        return _pair_hidden_fwd_f32_cuda(a2, c2, w)
     B, K = a2.shape
     L, N = c2.shape[0], w.shape[1]
     plan = pair_train_plan(B, L, K, N,
@@ -605,20 +780,22 @@ class PairDwPlan:
         return (self.block_n * _DW_ROWS * 2 + _DW_C_BYTES / self.batch) / (step_flop / 1e3)
 
 
-def pair_dw_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS) -> PairDwPlan:
+def pair_dw_plan(B: int, L: int, K: int, N: int, num_sms: int = _H100_SMS,
+                 block_n: Optional[int] = None) -> PairDwPlan:
     """The dW kernel's plan for a2 (B, K), c2 (L, K) and dz (B * L, N): the
-    column tile is 256 where N allows it, else 128.  The whole waves run
-    whole; the last wave's ``tail`` tiles are cut into as many label-block
-    ranges as fill the SMs that they leave (at the training shape 288 tiles
-    on 132 SMs: 264 whole, 24 x 5 pieces in one wave, 2.2 tile times a block
-    where whole tiles take 3).  Raises for widths it does not take: K and N
-    multiples of 128."""
+    column tile is 256 where N allows it, else 128 (``block_n`` 128: the
+    float32 kernel's).  The whole waves run whole; the last wave's ``tail``
+    tiles are cut into as many label-block ranges as fill the SMs that they
+    leave (at the training shape 288 tiles on 132 SMs: 264 whole, 24 x 5
+    pieces in one wave, 2.2 tile times a block where whole tiles take 3; in
+    float32 576 tiles: 528 whole, 48 x 2 pieces).  Raises for widths it does
+    not take: K and N multiples of 128."""
     if B <= 0 or L <= 0 or num_sms <= 0:
         raise ValueError(f"no K4-bwd plan for B {B}, L {L} on {num_sms} SMs")
     if K <= 0 or N <= 0 or K % _BLOCK_N or N % _BLOCK_N:
         raise ValueError(f"the CUDA pair-train backward takes widths (in {K}, out {N}) that "
                          f"are multiples of {_BLOCK_N}")
-    block_n = _block_n(N)
+    block_n = block_n or _block_n(N)
     tiles_m, tiles_n = K // BLOCK_M, N // block_n
     tiles, lblocks = tiles_m * tiles_n, -(-L // _DW_ROWS)
     full = tiles // num_sms * num_sms
@@ -674,18 +851,82 @@ def _pair_dw_cuda(a2, c2, dz, plan: PairDwPlan, stream: int):
     return dw
 
 
+def _dx_f32_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_train_bwd_f32", "pair_train_dx_f32",
+                           [_P] * 7 + [_I] * 5 + [_P])
+
+
+def _dw_f32_fn():
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
+    return kernel_function("pair_train_bwd_f32", "pair_train_dw_f32",
+                           [_P] * 5 + [_I] * 7 + [_P])
+
+
+def _pair_dx_f32_cuda(a2, c2, w3, dz, plan: PairDxF32Plan, stream: int):
+    """The float32 dX kernel on its plan: (da2, dc2) float32, with the
+    (label tiles, B, K) partials of da2."""
+    B, K = a2.shape
+    L = c2.shape[0]
+    f32 = dict(dtype=torch.float32, device=a2.device)
+    da2_part = torch.empty(plan.tiles_l, B, K, **f32)
+    da2, dc2 = torch.empty(B, K, **f32), torch.empty(L, K, **f32)
+    _raise_on(_dx_f32_fn()(dz.data_ptr(), w3.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+                           da2_part.data_ptr(), da2.data_ptr(), dc2.data_ptr(), B, L, K,
+                           plan.width_out, plan.grid, stream), "pair_train_dx_f32")
+    return da2, dc2
+
+
+def _pair_dw_f32_cuda(a2, c2, dz, plan: PairDwPlan, stream: int):
+    """The float32 dW kernel on its plan (128-column tiles): dW float32,
+    with the float32 slots of its pieces."""
+    K, N = a2.shape[1], plan.width_out
+    partial = (torch.empty(plan.slots, F32_TILE, F32_TILE, dtype=torch.float32,
+                           device=a2.device) if plan.slots else None)
+    dw = torch.empty(K, N, dtype=torch.float32, device=a2.device)
+    _raise_on(_dw_f32_fn()(a2.data_ptr(), c2.data_ptr(), dz.data_ptr(),
+                           None if partial is None else partial.data_ptr(), dw.data_ptr(),
+                           a2.shape[0], c2.shape[0], K, N, plan.full, plan.pieces, plan.grid,
+                           stream), "pair_train_dw_f32")
+    return dw
+
+
+def _pair_hidden_backward_f32_cuda(a2, c2, w, dz):
+    """K4-bwd's float32 kernels (``csrc/pair_train_bwd_f32.cu``): ``(da2,
+    dc2, dw)`` float32, each sum in a fixed order; W split into its pieces
+    once a call."""
+    B, K = a2.shape
+    L, N = c2.shape[0], w.shape[1]
+    sms = _sms(a2.device)
+    dx_plan = pair_dx_f32_plan(B, L, K, N, sms)
+    dw_plan = pair_dw_plan(B, L, K, N, sms, block_n=F32_TILE)
+    w3 = stacked_pieces(w, transpose=False)
+    stream = torch.cuda.current_stream(a2.device).cuda_stream
+    with torch.cuda.device(a2.device):
+        da2, dc2 = _pair_dx_f32_cuda(a2, c2, w3, dz, dx_plan, stream)
+        _count("pair_train_dx_f32")
+        dw = _pair_dw_f32_cuda(a2, c2, dz, dw_plan, stream)
+        _count("pair_train_dw_f32")
+    return da2, dc2, dw
+
+
 def _pair_hidden_backward_cuda(a2, c2, w, dz):
-    """K4-bwd's two kernels (``csrc/pair_train_bwd.cu``): ``(da2, dc2, dw)``
-    in bfloat16 as :func:`_pair_hidden_backward_plain`, each sum in a fixed
-    order (the same bits every call)."""
+    """K4-bwd's two kernels (``csrc/pair_train_bwd.cu``, or their float32
+    forms for float32 operands): ``(da2, dc2, dw)`` in the operands' dtype
+    as :func:`_pair_hidden_backward_plain`, each sum in a fixed order (the
+    same bits every call)."""
     a2, c2, dz = a2.contiguous(), c2.contiguous(), dz.contiguous()
     w = w.contiguous()
     _check_pair_cuda(a2, c2, w)
     B, K = a2.shape
     L, N = c2.shape[0], w.shape[1]
-    if tuple(dz.shape) != (B * L, N) or dz.dtype != torch.bfloat16 or dz.device != a2.device:
+    if tuple(dz.shape) != (B * L, N) or dz.dtype != a2.dtype or dz.device != a2.device:
         raise ValueError(f"dz {tuple(dz.shape)} {dz.dtype} does not match z ({B * L}, {N}) "
-                         "bfloat16 on the inputs' device")
+                         f"{a2.dtype} on the inputs' device")
+    if a2.dtype == torch.float32:
+        return _pair_hidden_backward_f32_cuda(a2, c2, w, dz)
     sms = torch.cuda.get_device_properties(a2.device).multi_processor_count
     dx_plan = pair_dx_plan(B, L, K, N, sms)
     dw_plan = pair_dw_plan(B, L, K, N, sms)
@@ -1172,7 +1413,8 @@ def streamed_launches(n_layers: int, num_tiles: int, cache_first: bool) -> Dict[
     """The kernel launches of one forward and backward of the streamed
     scorer, from its schedule: each tile's forward runs once in the forward
     and once more when the backward recomputes it, and each kernel's
-    backward runs once for each forward call.  Per tile: sweep A (with the
+    backward runs once for each forward call, over every key of
+    ``LAUNCHES`` (K5 and the float32 forms never).  Per tile: sweep A (with the
     cache) one K4 and one moment sum; the statistics sweep of hidden layer
     li its pre-activation (K4 unless it starts from z1, li - 1 affines and
     products) and one moment sum; the loss pass every layer again (from z1
@@ -1196,6 +1438,8 @@ def streamed_launches(n_layers: int, num_tiles: int, cache_first: bool) -> Dict[
                 if k != "pair_train_hidden"})
     out.update(pair_train_dx=k4 * num_tiles, pair_train_dw=k4 * num_tiles, bn_relu_forward=0,
                bn_relu_backward=0)
+    # the streamed scorer runs in bfloat16 only: none of the float32 forms
+    out.update({k: 0 for k in LAUNCHES if k.endswith("_f32")})
     return out
 
 

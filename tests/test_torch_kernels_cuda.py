@@ -56,6 +56,18 @@ running statistics to 1e-5 and dscale/dbias to 1e-3 of their largest
 |value|; the pool to 1e-5 (its transpose bit for bit); the encoder (3 blocks at
 112 channels) through K7
 within 5e-2 of the plain chain's largest pooled |value|.
+K4, K4-bwd and K5 in float32 (pair_train_hidden_f32, csrc/pair_train_bwd_f32.cu,
+bn_relu_forward_f32 / bn_relu_backward_f32) on the same float32 inputs: z,
+da2, dc2, y, dz and the moments within 1e-5 of the plain float32 tensor's
+largest |value| (the split's products, float32 sums in other orders); dW
+within 2 x 2^-24 x sqrt(pair rows / 64) of its largest |value| where that
+is more (the float32 additions of its 64-row stages, a random walk over the
+depth: tests/test_torch_pair_train_f32.py holds the figure against float64),
+against float64 on its 128 x 128 tiles (at full width four of them), and
+past 65,536 pair rows within 1e-3 of the plain version's (cuBLAS float32 at
+a million rows is itself up to 2.9e-4 of the largest |value| from float64);
+K5's backward on the kernel's own statistics (a pre-activation within an
+ulp of 0 gates differently under an inverse square root an ulp apart).
 K1 and K2 in float32 (csrc/pair_scorer_f32.cu, pair_mlp_head_f32, K2's
 float32 w_out) on the same float32 inputs: logits within 1e-5 of the plain
 float32 chain's largest |logit| (the split product leaves out terms below
@@ -437,10 +449,13 @@ def test_pair_train_kernel_matches_plain_on_card(K, N):
 @pytest.mark.cuda
 def test_pair_train_kernel_raises_on_what_it_does_not_take():
     dev = _card()
-    a2, c2 = torch.zeros(2, 64, device=dev), torch.zeros(3, 64, device=dev)
-    w = torch.zeros(64, 128, device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+    f16 = torch.float16
+    a2, c2 = torch.zeros(2, 64, device=dev, dtype=f16), torch.zeros(3, 64, device=dev, dtype=f16)
+    w = torch.zeros(64, 128, device=dev, dtype=f16)
+    with pytest.raises(ValueError, match="bfloat16 or in float32"):
         st.pair_hidden(a2, c2, w)
+    with pytest.raises(ValueError, match="all operands alike"):
+        st.pair_hidden(a2.float(), c2.float(), w.to(torch.bfloat16))
     bf16 = torch.bfloat16
     with pytest.raises(ValueError, match="multiples of 128"):
         st.pair_hidden(a2.to(bf16), c2.to(bf16), w.to(bf16))
@@ -2039,3 +2054,153 @@ def test_int8_f32_matches_plain_on_card(monkeypatch, static):
     assert ps.F32_LAUNCHES[name] - before[0][name] == 3 * 2
     assert ps.INT8_LAUNCHES["pair_int8_layer"] == before[1]
     _f32_close(got, want)
+
+
+# ----------------------------------------------------------------------
+# K4, K4-bwd and K5 in float32 (MIXED_PRECISION False)
+
+
+def _f32t(rng, *shape, scale=1.0):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to("cuda")
+
+
+def _dw_f32_tol(rows: int) -> float:
+    """dW's figure at a pair depth of ``rows``: 2 x 2^-24 x sqrt(rows / 64),
+    at least F32_REL_TOL."""
+    return max(F32_REL_TOL, 2 * 2.0 ** -24 * float(np.sqrt(rows / 64)))
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+DW_PLAIN_REL_TOL = 1e-3
+
+
+def _dw_vs_float64(a2, c2, dz, dw, tiles) -> float:
+    """dW's largest |error| against float64 on the 128 x 128 ``tiles`` (k0,
+    n0), over its largest |value|."""
+    err = 0.0
+    for k0, n0 in tiles:
+        x1 = torch.relu(a2[:, None, k0:k0 + 128] + c2[None, :, k0:k0 + 128]).reshape(-1, 128)
+        truth = x1.double().T @ dz[:, n0:n0 + 128].double()
+        err = max(err, float((dw[k0:k0 + 128, n0:n0 + 128].double() - truth).abs().max()))
+    return err / float(dw.abs().max())
+
+
+F32_TRAIN_KERNELS = ("pair_train_hidden_f32", "pair_train_dx_f32", "pair_train_dw_f32")
+
+
+def _pair_train_f32_check(B, L, K, N, seed):
+    from protnote_tpu_torch.models.layers import gemm_precision
+
+    gemm_precision(torch.float32)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(seed)
+    a2, c2 = _f32t(rng, B, K), _f32t(rng, L, K)
+    w = _f32t(rng, K, N, scale=(2.0 / K) ** 0.5)
+    rows = torch.from_numpy((rng.random((B * L, 1)) < 0.9).astype(np.float32)).cuda()
+    dz = _f32t(rng, B * L, N) * rows  # zero at masked pairs, as K5's backward leaves it
+    leaves = [t.clone().requires_grad_(True) for t in (a2, c2, w)]
+    before = dict(st.LAUNCHES)
+    z = st.pair_hidden(*leaves)
+    z.backward(dz)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in st.LAUNCHES.items() if v != before[k]}
+    assert counts == {k: 1 for k in F32_TRAIN_KERNELS}, counts
+    z = z.detach()
+    assert z.dtype == torch.float32 and z.shape == (B * L, N)
+    assert _rel(z, st._pair_hidden_fwd_plain(a2, c2, w)) <= F32_REL_TOL
+    assert torch.equal(st._pair_hidden_fwd_cuda(a2, c2, w), z)
+    del z
+    want = st._pair_hidden_backward_plain(a2, c2, w, dz)
+    grads = [t.grad for t in leaves]
+    for name, got, ref in zip(("da2", "dc2", "dw"), grads, want):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert float(ref.abs().max()) > 0
+        tol = F32_REL_TOL
+        if name == "dw":
+            tol = _dw_f32_tol(B * L) if B * L <= 65536 else DW_PLAIN_REL_TOL
+        assert _rel(got, ref) <= tol, (name, _rel(got, ref), tol)
+    del want
+    tiles = [(k0, n0) for k0 in range(0, K, 128) for n0 in range(0, N, 128)]
+    if B * L > 65536:
+        tiles = [(0, 0), (K - 128, 0), (0, N - 128), (K - 128, N - 128)]
+    assert _dw_vs_float64(a2, c2, dz, grads[2], tiles) <= _dw_f32_tol(B * L)
+    again = st._pair_hidden_backward_cuda(a2, c2, w, dz)
+    for got, second in zip(grads, again):
+        assert torch.equal(got, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,K,N", [(5, 301, 128, 256), (1, 301, 256, 384), (3, 1, 128, 128),
+                                     (4, 200, 384, 512), (2, 130, 256, 128), (7, 129, 128, 256),
+                                     (32, 40, 512, 256)])
+def test_pair_train_f32_kernels_match_plain_on_card(B, L, K, N):
+    """K4's float32 forward and both float32 backward kernels through
+    ``pair_hidden`` (one launch each, no bf16 K4) against the plain float32
+    versions (TF32 off): L not a multiple of 128 (each sequence's last label
+    tile ragged, a store of it must not reach the next sequence's rows), one
+    sequence, one label, K an odd multiple of 128, small L with many
+    sequences, dz zero at masked pairs; the same bits on a second call."""
+    _card()
+    _pair_train_f32_check(B, L, K, N, seed=B * 1000 + L)
+
+
+@pytest.mark.cuda
+def test_pair_train_f32_kernels_at_full_width_on_card():
+    """The same at the training path's width: 32 sequences x 32,102 labels,
+    K = N = 3072 (dW's depth 1,027,264 pair rows)."""
+    _card()
+    _pair_train_f32_check(32, 32102, 3072, 3072, seed=23)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_pair_train_f32_shared_memory_matches_the_sources_on_card():
+    """The shared memory each float32 launch asks for, as
+    ``f32_train_smem_bytes`` lays it out from the sources, within the 227 KB
+    a block may use."""
+    import ctypes
+
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    _card()
+    fn = load_kernel_library("pair_train_bwd_f32").lib.pair_train_bwd_f32_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    want = st.f32_train_smem_bytes()
+    assert (fn(0), fn(1)) == (want["dx"], want["dw"])
+    assert max(want.values()) <= st.SMEM_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(1505, 512), (40001, 256)])
+def test_bn_relu_f32_kernels_match_plain_on_card(N, H):
+    """K5's float32 forward (y, mean, var) and backward (dz, dscale, dbias)
+    against the plain versions on the same float32 inputs, with masked rows
+    and a running mean far from the batch mean; the backward on the kernel's
+    own statistics on both sides; no bf16 K5 launch."""
+    _card()
+    rng = np.random.default_rng(N + H)
+    z = _f32t(rng, N, H) + 3.0
+    rows = torch.from_numpy((rng.random((N, 1)) < 0.9).astype(np.float32)).cuda()
+    n = rows.sum()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.normal(0, 0.1, H).astype(np.float32)).cuda()
+    running = torch.full((H,), 2.5, device="cuda")
+    dy = _f32t(rng, N, H)
+    before = dict(st.LAUNCHES)
+    y, mean, var, istd, inv, shift = st._bn_relu_fwd_cuda(z, rows, n, scale, bias, running)
+    y0, mean0, var0 = st._bn_relu_fwd_plain(z, rows, n, scale, bias, running)[:3]
+    stats = (mean, istd, inv, shift)
+    dz, ds, db = st._bn_relu_grads_cuda(z, dy, rows, n, scale, *stats)
+    dz0, ds0, db0 = st._bn_relu_grads(z, dy, rows, n, scale, *stats)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in st.LAUNCHES.items() if v != before[k]}
+    assert counts == {"bn_relu_forward_f32": 1, "bn_relu_backward_f32": 1}, counts
+    assert y.dtype == dz.dtype == torch.float32
+    for got, want in ((y, y0), (mean, mean0), (var, var0), (dz, dz0), (ds, ds0), (db, db0)):
+        assert _rel(got, want) <= F32_REL_TOL
+    assert float((y > 0).float().mean()) > 0.2
+    again = st._bn_relu_grads_cuda(z, dy, rows, n, scale, *stats)
+    assert all(torch.equal(a, b) for a, b in zip((dz, ds, db), again))

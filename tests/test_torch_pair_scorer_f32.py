@@ -228,16 +228,21 @@ def test_kernel_layout_of_the_pieces():
 
 
 @pytest.mark.parametrize("setting,match", [
-    (dict(train=True), "item 16b"),
+    (dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048), "item 16b"),
     (dict(PAIR_BACKEND="dense"), "item 16b"),
     (dict(LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2), "item 16d"),
+    (dict(train=True, PAIR_BACKEND="dense"), "item 16b"),
+    (dict(train=True, OUTPUT_MLP_DROPOUT=0.1), "item 16b"),
+    (dict(train=True, TRAIN_SEQUENCE_ENCODER=True), "item 16c"),
 ])
 def test_cli_refuses_float32_on_the_card_before_any_work(setting, match, tmp_path, monkeypatch):
     """``cli/main.py`` with ``MIXED_PRECISION False`` on the card raises
     before it reads the label cache, a dataset or a weight, naming the
-    ROADMAP item: training (16b), the dense scorer (16b), the label tower
-    (16d).  The same settings on the CPU, and evaluation in float32 on the
-    card, pass the check."""
+    ROADMAP item: training through the streamed scorer (16b), the dense
+    scorer in evaluation (16b) and in training (``PAIR_BACKEND dense``,
+    dropout: 16b), training the encoder (16c), the label tower (16d).  The
+    same settings on the CPU, and evaluation in float32 on the card, pass
+    the check."""
     from protnote_tpu_torch.cli import _model_setup
     from protnote_tpu_torch.cli import main as tmain
     from protnote_tpu_torch.data import label_cache
@@ -264,3 +269,32 @@ def test_cli_refuses_float32_on_the_card_before_any_work(setting, match, tmp_pat
     _model_setup.refuse_float32_on_card({"MIXED_PRECISION": False}, "cuda", tower=True)
     if not train and "PAIR_BACKEND" not in setting:  # serve and predict run no tower
         _model_setup.refuse_float32_on_card(params, "cuda")
+
+
+def test_cli_passes_default_float32_training_on_the_card(tmp_path, monkeypatch):
+    """Default training (``PAIR_BACKEND auto``, BatchNorm, no dropout, no
+    label tile: the decomposed scorer, K4, K4-bwd and K5 in float32) with
+    ``MIXED_PRECISION False`` on ``cuda`` passes the check and goes on to
+    read the label cache; so do ``concatenation_diff``, ``tiled_int8`` and
+    ``GRADIENT_CHECKPOINTING``, which take the same scorer."""
+    from protnote_tpu_torch.cli import _model_setup
+    from protnote_tpu_torch.cli import main as tmain
+    from protnote_tpu_torch.data import label_cache
+
+    monkeypatch.setenv("PROTNOTE_DATA_DIR", str(tmp_path / "data"))
+    monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(tmp_path / "outputs"))
+
+    class CacheRead(Exception):
+        pass
+
+    def first_read(*args, **kwargs):
+        raise CacheRead
+
+    monkeypatch.setattr(label_cache.LabelEmbeddingCache, "load", first_read)
+    with pytest.raises(CacheRead):
+        tmain.main(["--train-path-name", "TRAIN_DATA_PATH", "--test-paths-names",
+                    "TEST_DATA_PATH", "--override", "MIXED_PRECISION", "False"])
+    for extra in ({}, {"FEATURE_FUSION": "concatenation_diff"}, {"PAIR_BACKEND": "tiled_int8"},
+                  {"GRADIENT_CHECKPOINTING": True}):
+        _model_setup.refuse_float32_on_card({"MIXED_PRECISION": False, **extra}, "cuda",
+                                            train=True)

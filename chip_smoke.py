@@ -280,7 +280,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
     name); one step's gradients and new running statistics against the
     plain float32 chain on a 16-sequence batch, leaf by leaf within 1e-4 of
     the leaf's L2 norm; a PNTPU1 checkpoint written and read back; then 3
-    steps with ``GRADIENT_CHECKPOINTING``.
+    steps with ``GRADIENT_CHECKPOINTING``;
+32. (run after phase 31) the streamed and dense scorers' float32 kernels
+    alone (``k6_f32_kernels_alone``, ``dense_*_f32``,
+    ``dense_f32_first_layer``): K6's ``_f32`` forms on one 32-sequence x
+    2,048-label tile, and at 16 sequences x 32,102 labels K5's dense float32
+    forms with dropout (the mask and kept values the same bits),
+    ``pair_first_add_f32``, ``pair_train_prod_f32``, ``pair_side_sums_f32``
+    and ``pair_train_dw_prod_f32``, each against its plain float32 version
+    within 1e-5 of its largest |value| (sums over pair rows within their
+    depth's figure, dW_prod against float64 on four tiles), times beside
+    the bound, the plain version's and the library call's;
+33. float32 streamed training (``f32_train_streamed_*``): ``Trainer.train``
+    with ``MIXED_PRECISION False`` and ``TRAIN_STREAMING_LABEL_TILE 2048``
+    at 32 sequences, the z1 cache by the rule and off: step ms, seqs/s,
+    peak memory, idle share, kernel ms by name, launches against
+    ``streamed_launches(..., float32)``; one step's loss, gradients and
+    running statistics against the decomposed float32 scorer's (1e-4 in L2,
+    the heads within twice a measured noise floor);
+34. float32 dense training (``f32_train_dense_*``): ``PAIR_BACKEND dense``
+    at 16 sequences with dropout 0.1 and BatchNorm, then with dropout,
+    ``concatenation_prod``, no BatchNorm and ``GRADIENT_CHECKPOINTING``:
+    the same figures against ``dense_launches(..., float32)``; one step at
+    8 sequences against the plain float32 dense scorer (the same masks);
+35. float32 dense evaluation (``f32_dense_eval``): ``Trainer.evaluate``
+    with ``PAIR_BACKEND dense`` on 64 sequences, seqs/s, launches, a
+    batch's logits against the plain float32 dense scorer's.
 Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
 ``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
 doubled (those leaves doubled, the others and nothing else the same, the
@@ -299,7 +324,9 @@ K8b-bwd call two kernel launches and each K8a-bwd call at 128 tokens one,
 all counted; K7's forward and pool
 in the training run, its float32 forward and pool in phase 23's
 ``test_proteinfer`` run, K1's and K2's float32 forms in phase 29's runs,
-K4's, K4-bwd's and K5's float32 forms in phase 31's two runs,
+K4's, K4-bwd's and K5's float32 forms in phase 31's two runs, K6's float32
+forms in phase 33's two runs, the dense scorer's float32 forms summed over
+phases 34-35,
 its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
 32-sequence streamed run; the dense scorer's kernels summed over phases
@@ -4734,7 +4761,7 @@ def phase_encoder_training(card: str) -> dict:
     return result, summary
 
 
-def phase_k6(card: str) -> dict:
+def phase_k6(card: str, f32: bool = False) -> dict:
     """Phase 20a: each K6 kernel alone at the streamed path's shape (32
     sequences x a 2,048-label tile = 65,536 pair rows, H 3072), on random
     bf16 pre-activations around the running mean with a masked sequence and
@@ -4745,26 +4772,29 @@ def phase_k6(card: str) -> dict:
     single PyTorch call computes any of the six functions (``batch_norm``
     takes its own or the running statistics and no pair mask, and none
     fuses the ReLU, the rounding or the output dot), so ``library_ms`` is
-    None."""
+    None.  ``f32`` (phase 32): the ``_f32`` forms on float32 tensors (w
+    too), every output within F32_REL_TOL of the plain float32 version's
+    largest |value| (the column sums within the tile depth's figure)."""
     import torch
 
     from protnote_tpu_torch.ops import streaming_train as st
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    dev = torch.device("cuda")
+    dt = torch.float32 if f32 else torch.bfloat16
     N = TRAIN_B * STREAM_TILE
     g = torch.Generator(device=dev).manual_seed(13)
     with torch.no_grad():
         r = 0.3 * torch.randn(H, device=dev, generator=g)
-        z = (torch.randn(N, H, device=dev, generator=g) + r).to(bf16)
+        z = (torch.randn(N, H, device=dev, generator=g) + r).to(dt)
         em = torch.ones(TRAIN_B, device=dev)
         em[-1] = 0.0
         lm = (torch.rand(STREAM_TILE, device=dev, generator=g) < 0.98).float()
         rows = (em[:, None] * lm[None, :]).reshape(N, 1)
         inv = 0.5 + torch.rand(H, device=dev, generator=g)
         shift = 0.3 * torch.randn(H, device=dev, generator=g)
-        w = (torch.randn(H, device=dev, generator=g) * (6.0 / H) ** 0.5).to(bf16)
+        w = (torch.randn(H, device=dev, generator=g) * (6.0 / H) ** 0.5).to(dt)
         b = torch.tensor(0.1, device=dev)
-        dy = torch.randn(N, H, device=dev, generator=g).to(bf16)
+        dy = torch.randn(N, H, device=dev, generator=g).to(dt)
         g1 = torch.randn(H, device=dev, generator=g) / N
         g2 = torch.randn(H, device=dev, generator=g) / N
         dout = torch.randn(N, device=dev, generator=g) * 1e-2
@@ -4785,36 +4815,49 @@ def phase_k6(card: str) -> dict:
                                      lambda: st._stream_head_grads_plain(z, inv, shift, w, dout),
                                      ("dz", "dinv", "dshift", "dw", "db")),
         }
+        sums = {"s1", "s2", "dinv", "dshift", "dw", "db"}
         errs, rel, times = {}, {}, {}
+        before = dict(st.LAUNCHES)
         for name, (kern, plain, outs) in calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             errs[name] = {o: delta(a, b_) for o, a, b_ in zip(outs, got, want)}
             rel[name] = {o: d[0] / max(d[1], 1e-30) for o, d in errs[name].items()}
-            tols = {o: K45_REL_TOL if a.dtype == bf16 else K6_SUMS_REL_TOL
-                    for o, a in zip(outs, got)}
-            if any(rel[name][o] > tols[o] for o in outs):
+            if f32:
+                tols = {o: depth_tol(N) if o in sums else F32_REL_TOL for o in outs}
+            else:
+                tols = {o: K45_REL_TOL if a.dtype == torch.bfloat16 else K6_SUMS_REL_TOL
+                        for o, a in zip(outs, got)}
+            if any(rel[name][o] > tols[o] for o in outs) or \
+                    any(a.dtype != b_.dtype for a, b_ in zip(got, want)):
                 raise AssertionError(f"{name} disagrees with its plain version: {errs[name]}")
             del got, want
             times[name] = (cuda_time_ms(kern, 20), cuda_time_ms(plain, 3))
-    nh = float(N) * H
-    f32 = {  # bytes: each input read once, each output written once; f32 operations
-        "stream_moments": bound(2 * nh + 4 * N + 12 * H, 5 * nh, F32_FLOPS),
-        "stream_moments_backward": bound(4 * nh + 4 * N + 12 * H, 4 * nh, F32_FLOPS),
-        "affine_relu": bound(4 * nh + 8 * H, 3 * nh, F32_FLOPS),
-        "affine_relu_backward": bound(6 * nh + 16 * H, 6 * nh, F32_FLOPS),
-        "stream_head": bound(2 * nh + 4 * N + 10 * H, 5 * nh, F32_FLOPS),
-        "stream_head_backward": bound(4 * nh + 4 * N + 18 * H + 4, 11 * nh, F32_FLOPS),
+        sfx = "_f32" if f32 else ""
+        launched = {k for k in st.LAUNCHES if st.LAUNCHES[k] != before[k]}
+        if launched != {k + sfx for k in calls}:
+            raise AssertionError(f"K6's wrappers launched {launched}")
+    nh, e = float(N) * H, z.element_size()
+    ops = {  # bytes: each input read once, each output written once; f32 operations
+        "stream_moments": bound(e * nh + 4 * N + 12 * H, 5 * nh, F32_FLOPS),
+        "stream_moments_backward": bound(2 * e * nh + 4 * N + 12 * H, 4 * nh, F32_FLOPS),
+        "affine_relu": bound(2 * e * nh + 8 * H, 3 * nh, F32_FLOPS),
+        "affine_relu_backward": bound(3 * e * nh + 16 * H, 6 * nh, F32_FLOPS),
+        "stream_head": bound(e * nh + 4 * N + (8 + e) * H, 5 * nh, F32_FLOPS),
+        "stream_head_backward": bound(2 * e * nh + 4 * N + (16 + e) * H + 4, 11 * nh,
+                                      F32_FLOPS),
     }
-    log("k6_kernels_alone", rows=N, width=H, tile=STREAM_TILE,
+    log(f"k6{sfx}_kernels_alone", rows=N, width=H, tile=STREAM_TILE, dtype=str(dt),
         max_abs_errs={k: {o: d[0] for o, d in v.items()} for k, v in errs.items()},
-        rel_errs=rel, bf16_rel_tol=K45_REL_TOL, sums_rel_tol=K6_SUMS_REL_TOL,
+        rel_errs=rel, bf16_rel_tol=None if f32 else K45_REL_TOL,
+        sums_rel_tol=depth_tol(N) if f32 else K6_SUMS_REL_TOL,
+        f32_rel_tol=F32_REL_TOL if f32 else None,
         ms={k: v[0] for k, v in times.items()}, plain_ms={k: v[1] for k, v in times.items()},
-        bound_ms={k: v["bound_ms"] for k, v in f32.items()},
+        bound_ms={k: v["bound_ms"] for k, v in ops.items()},
         library="none: no single PyTorch call computes these functions", card=card)
     first = {k: next(iter(v.values()))[0] for k, v in errs.items()}  # the main output's
-    return {k: {"max_abs_err": first[k], "ms": times[k][0], "plain_ms": times[k][1], **f32[k],
-                "library_ms": None} for k in calls}
+    return {k + sfx: {"max_abs_err": first[k], "ms": times[k][0], "plain_ms": times[k][1],
+                      **ops[k], "library_ms": None} for k in calls}
 
 
 def phase_streamed_scorer(card: str) -> None:
@@ -5126,12 +5169,17 @@ def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
     backward, the plain backward on the kernel's statistics as phase 8 does
     for K5 (a pre-activation within an ulp of 0 would otherwise gate
     differently); the kernels' times beside the plain version's (its slices
-    in turn) and the bytes bound (z in, y out; z and dy in, dz out)."""
+    in turn) and the bytes bound (z in, y out; z and dy in, dz out).  On
+    float32 z the ``_f32`` forms, held within F32_REL_TOL (the moments and
+    the column sums within the pair depth's figure), and the kept values
+    and the mask the same bits as the plain version's: y of the bias form
+    and its dz whole, y of the BN form on the kernel's own affine."""
     import torch
 
     from protnote_tpu_torch.ops import dense_scorer as ds
 
     dev = z.device
+    f32 = z.dtype == torch.float32
     N, Hh = z.shape
     gen = torch.Generator().manual_seed(77)
     scale = (0.5 + torch.rand(Hh, generator=gen)).to(dev)
@@ -5173,21 +5221,34 @@ def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
                 deltas[k].append(delta(got[:, sl] if got.dim() == 2 else got[sl], want))
         rel = {k: merge_deltas(v)[1] for k, v in deltas.items()}
         errs = {k: merge_deltas(v)[0] for k, v in deltas.items()}
+        exact = None
+        if f32:  # the mask and the kept values, bit for bit
+            if bn:
+                exact = sum(int((out[0][:, j:j + step] != ds._drop_plain(
+                    torch.relu(z[:, j:j + step] * out[4][j:j + step] + out[5][j:j + step]),
+                    seed, layer, rate, j)).sum()) for j in cols)
+            else:
+                exact = int(errs["y"] != 0.0) + int(errs["dz"] != 0.0)
         del out, grads
         fwd_ms, bwd_ms = cuda_time_ms(fwd, 3), cuda_time_ms(bwd, 3)
         plain_ms = cuda_time_ms(lambda: [pf(j) for j in cols])
         plain_bwd_ms = cuda_time_ms(lambda: [pb(j) for j in cols])
-    nb = N * Hh * 2
+    nb = N * Hh * z.element_size()
     name = "bn_relu_dropout" if bn else "bias_relu_dropout"
-    log(f"dense_{name}", rows=N, width=Hh, rate=rate, rel_errs=rel, rel_tol=K45_REL_TOL,
-        fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
-        fwd_bound_ms=bound(nbytes=2 * nb)["bound_ms"],
+    sums = {"mean", "var", "dscale", "dbias"}
+    tol = {k: (depth_tol(N) if k in sums else F32_REL_TOL) if f32 else K45_REL_TOL
+           for k in rel}
+    log(f"dense_{name}{'_f32' if f32 else ''}", rows=N, width=Hh, rate=rate, rel_errs=rel,
+        rel_tol=tol, mismatched_bits=exact, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_ms,
+        plain_bwd_ms=plain_bwd_ms, fwd_bound_ms=bound(nbytes=2 * nb)["bound_ms"],
         bwd_bound_ms=bound(nbytes=3 * nb)["bound_ms"], card=card)
-    if max(rel.values()) > K45_REL_TOL:
-        raise AssertionError(f"{name} disagrees with its plain version: {rel}")
-    return {f"{name}_forward": {"max_abs_err": errs["y"], "ms": fwd_ms, "plain_ms": plain_ms,
+    if any(rel[k] > tol[k] for k in rel) or exact:
+        raise AssertionError(f"{name} disagrees with its plain version: {rel}, mismatched "
+                             f"bits {exact}")
+    sfx = "_f32" if f32 else ""
+    return {f"{name}_forward{sfx}": {"max_abs_err": errs["y"], "ms": fwd_ms, "plain_ms": plain_ms,
                                 **bound(nbytes=2 * nb), "library_ms": None},
-            f"{name}_backward": {"max_abs_err": errs["dz"], "ms": bwd_ms,
+            f"{name}_backward{sfx}": {"max_abs_err": errs["dz"], "ms": bwd_ms,
                                  "plain_ms": plain_bwd_ms, **bound(nbytes=3 * nb),
                                  "library_ms": None}}
 
@@ -6726,6 +6787,557 @@ def phase_f32_training(card: str) -> dict:
     return {k: run["launches"].get(k, 0) + remat["launches"].get(k, 0) for k in F32_TRAIN_KERNELS}
 
 
+# ----------------------------------------------------------------------
+# the streamed and dense scorers in float32 (phases 32-35)
+
+DENSE_F32_B = 16  # dense float32 training: 8 (B x L, 3072) float32 tensors fit at 16
+# the dense gradient check's batch: the plain chain's int64 mask hashing
+# takes (B x L, 3072) int64 temporaries, which do not fit at 16
+DENSE_F32_GRAD_B = 8
+F32_STREAM_STEPS = 3  # float32 streamed training steps, cache by the rule and off
+F32_DENSE_STEPS = 3  # float32 dense training steps a setting
+STREAM_F32_KERNELS = tuple(f"{k}_f32" for k in K6_KERNELS)
+DENSE_F32_KERNELS = tuple(f"{k}_f32" for k in DENSE_KERNELS)
+F32_DENSE_SETTINGS = (
+    ("bn_dropout", {"OUTPUT_MLP_DROPOUT": DENSE_RATE}),
+    ("prod_no_bn_remat", {"OUTPUT_MLP_DROPOUT": DENSE_RATE, "OUTPUT_MLP_BATCHNORM": False,
+                          "FEATURE_FUSION": "concatenation_prod",
+                          "GRADIENT_CHECKPOINTING": True}),
+)
+
+
+def phase_stream_dense_f32_kernels(card: str) -> dict:
+    """Phase 32: the streamed and dense scorers' float32 kernels alone at
+    their paths' shapes, each against its plain float32 version on the same
+    device tensors (TF32 off), CUDA-event times beside the bound, the plain
+    version's and (where one call computes the function) the library's:
+    K6's ``_f32`` forms on one 32-sequence x 2,048-label tile (phase 20a's
+    check on float32); at DENSE_F32_B sequences x 32,102 labels, d 1024, H
+    3072, K5's dense float32 forms (dropout 0.1; their mask and kept values
+    the same bits), ``pair_first_add_f32`` (the same bits as ``torch.add``),
+    ``pair_train_prod_f32`` (F32_REL_TOL of the plain version's largest
+    |value|; the bound at the split's 165 TFLOP/s), ``pair_side_sums_f32``
+    plain and weighted (the label depth's figure; the same bits twice) and
+    ``pair_train_dw_prod_f32`` (within 1e-3 of cuBLAS float32, within the
+    pair depth's figure of float64 on four 128 x 128 tiles, the same bits
+    twice); no bf16 form launched."""
+    import torch
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import dense_scorer as ds
+
+    times = phase_k6(card, f32=True)
+    torch.cuda.empty_cache()
+    gemm_precision(torch.float32)
+    dev = torch.device("cuda")
+    Bq, L, d, Hh = DENSE_F32_B, NUM_LABELS, D_LATENT, H
+    N = Bq * L
+    g = torch.Generator(device=dev).manual_seed(91)
+    seed = torch.tensor([7654321, 1234567], dtype=torch.int64, device=dev)
+    before = dict(ds.LAUNCHES)
+    with torch.no_grad():
+        z = torch.randn(N, Hh, device=dev, generator=g).add_(0.3)
+        dy = torch.randn(N, Hh, device=dev, generator=g)
+        em = torch.ones(Bq, device=dev)
+        em[-1] = 0
+        lm = (torch.rand(L, device=dev, generator=g) < 0.98).float()
+        rows = (em[:, None] * lm[None, :]).reshape(N, 1)
+        n = rows.sum()
+    for bn in (True, False):
+        times.update(dense_act_check(card, bn, z, dy, rows, n, seed))
+        torch.cuda.empty_cache()
+    del z
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        a = torch.randn(Bq, Hh, device=dev, generator=g)
+        c = torch.randn(L, Hh, device=dev, generator=g)
+        P_e = torch.randn(Bq, d, device=dev, generator=g)
+        L_e = torch.randn(L, d, device=dev, generator=g)
+        w = torch.randn(d, Hh, device=dev, generator=g) * (2.0 / d) ** 0.5
+        # the first add: the same bits as one torch.add into a float32 out
+        z1 = ds._first_fwd_cuda(a, c, P_e, L_e, None)
+        z_lib = torch.empty(Bq, L, Hh, device=dev)
+        torch.add(a[:, None], c[None], out=z_lib)
+        add_same = bool(torch.equal(z1, z_lib.view(N, Hh)))
+        del z1
+        add_ms = cuda_time_ms(lambda: ds._first_fwd_cuda(a, c, P_e, L_e, None), 3)
+        add_plain_ms = cuda_time_ms(lambda: ds._first_fwd_plain(a, c, P_e, L_e, None))
+        add_lib_ms = cuda_time_ms(lambda: torch.add(a[:, None], c[None], out=z_lib), 3)
+        del z_lib
+        torch.cuda.empty_cache()
+        if not add_same:
+            raise AssertionError("pair_first_add_f32 differs from a[b] + c[l]")
+        times["pair_first_add_f32"] = {"max_abs_err": 0.0, "ms": add_ms,
+                                       "plain_ms": add_plain_ms,
+                                       **bound(nbytes=N * Hh * 4 + (Bq + L) * Hh * 4),
+                                       "library_ms": add_lib_ms}
+        # the prod first layer
+        chunk = 2048
+        zp = ds.pair_prod_cuda(a, c, P_e, L_e, w).view(Bq, L, Hh)
+
+        def prod_plain(l0, l1):
+            return ds._first_fwd_plain(a, c[l0:l1], P_e, L_e[l0:l1], w).view(Bq, -1, Hh)
+
+        p_err = p_big = 0.0
+        for l0 in range(0, L, chunk):
+            want = prod_plain(l0, min(l0 + chunk, L))
+            p_err = max(p_err, float((zp[:, l0:l0 + chunk] - want).abs().max()))
+            p_big = max(p_big, float(want.abs().max()))
+        del zp, want
+        prod_ms = cuda_time_ms(lambda: ds.pair_prod_cuda(a, c, P_e, L_e, w), 3)
+        prod_plain_ms = cuda_time_ms(lambda: [prod_plain(l0, min(l0 + chunk, L))
+                                              for l0 in range(0, L, chunk)])
+        rows_p = (P_e[:, None] * L_e[None]).reshape(N, d)
+        prod_lib_ms = cuda_time_ms(lambda: rows_p @ w, 3)
+        torch.cuda.empty_cache()
+        # the backward: the side sums, dW_prod, the weighted side sums of dJ
+        dz = dy
+        dz3 = dz.view(Bq, L, Hh)
+        sb, sl = ds.side_sums_cuda(dz, Bq, L)
+        sb2, sl2 = ds.side_sums_cuda(dz, Bq, L)
+        side_same = bool(torch.equal(sb, sb2) and torch.equal(sl, sl2))
+        del sb2, sl2
+        s_rel = max(rel_err(sb, dz3.sum(1)), rel_err(sl, dz3.sum(0)))
+        s_abs = max(float((sb - dz3.sum(1)).abs().max()), float((sl - dz3.sum(0)).abs().max()))
+        side_ms = cuda_time_ms(lambda: ds.side_sums_cuda(dz, Bq, L), 3)
+        side_plain_ms = cuda_time_ms(lambda: (dz3.sum(1), dz3.sum(0)))
+        dw = ds.dw_prod_cuda(P_e, L_e, dz)
+        dw_same = bool(torch.equal(dw, ds.dw_prod_cuda(P_e, L_e, dz)))
+        want_w = rows_p.t() @ dz
+        w_rel = rel_err(dw, want_w)
+        w_abs = float((dw - want_w).abs().max())
+        T = DW_TRUTH_TILE
+        truth_err = 0.0
+        for k0, n0 in ((0, 0), (d - T, 0), (0, Hh - T), (d - T, Hh - T)):
+            truth = rows_p[:, k0:k0 + T].double().t() @ dz[:, n0:n0 + T].double()
+            truth_err = max(truth_err, float((dw[k0:k0 + T, n0:n0 + T].double() - truth)
+                                             .abs().max()))
+        truth_rel = truth_err / float(want_w.abs().max())
+        del want_w, truth
+        dw_ms = cuda_time_ms(lambda: ds.dw_prod_cuda(P_e, L_e, dz), 3)
+        dw_plain_ms = cuda_time_ms(lambda: ds._prod_rows(P_e, L_e).t() @ dz)
+        dw_lib_ms = cuda_time_ms(lambda: rows_p.t() @ dz, 3)
+        del rows_p
+        torch.cuda.empty_cache()
+        dJ = dz @ w.t()
+        wb, wl = ds.side_sums_cuda(dJ, Bq, L, u=P_e, v=L_e)
+        dJ3 = dJ.view(Bq, L, d)
+        want_b = torch.stack([(dJ3[b] * L_e).sum(0) for b in range(Bq)])
+        want_l = torch.zeros(L, d, device=dev)
+        for b in range(Bq):
+            want_l += dJ3[b] * P_e[b]
+        ws_rel = max(rel_err(wb, want_b), rel_err(wl, want_l))
+        del dJ, dJ3, want_l, dz3
+    torch.cuda.empty_cache()
+    launched = {k for k in ds.LAUNCHES if ds.LAUNCHES[k] != before[k]}
+    flop = 2.0 * N * d * Hh
+    tols = {"prod": F32_REL_TOL, "side_sums": depth_tol(L), "dw_prod": DW_PLAIN_REL_TOL,
+            "dw_prod_vs_float64": depth_tol(N)}
+    errs = {"prod": p_err / p_big, "side_sums": s_rel, "weighted_side_sums": ws_rel,
+            "dw_prod": w_rel, "dw_prod_vs_float64": truth_rel}
+    log("dense_f32_first_layer", batch=Bq, labels=L, rows=N, latent=d, width=Hh,
+        rel_errs=errs, rel_tol=tols, first_add_same_bits_as_torch_add=add_same,
+        side_sums_same_bits=side_same, dw_prod_same_bits=dw_same, prod_ms=prod_ms,
+        prod_plain_ms=prod_plain_ms, cublas_prod_ms=prod_lib_ms,
+        prod_tflops=flop / prod_ms / 1e9, dw_prod_ms=dw_ms, dw_prod_plain_ms=dw_plain_ms,
+        cublas_dw_ms=dw_lib_ms, dw_tflops=flop / dw_ms / 1e9, side_sums_ms=side_ms,
+        side_sums_plain_ms=side_plain_ms, launched=sorted(launched), card=card)
+    if errs["prod"] > tols["prod"] or max(s_rel, ws_rel) > tols["side_sums"] or \
+            w_rel > tols["dw_prod"] or truth_rel > tols["dw_prod_vs_float64"] or \
+            not (side_same and dw_same):
+        raise AssertionError(f"the dense first layer in float32 disagrees: {errs}, same bits "
+                             f"{side_same} {dw_same}")
+    if launched != set(DENSE_F32_KERNELS):
+        raise AssertionError(f"the dense float32 kernels launched {sorted(launched)}")
+    times["pair_train_prod_f32"] = {"max_abs_err": p_err, "ms": prod_ms,
+                                    "plain_ms": prod_plain_ms,
+                                    **bound(nbytes=N * Hh * 4, ops=flop, peak=SPLIT_FLOPS),
+                                    "library_ms": prod_lib_ms}
+    times["pair_side_sums_f32"] = {"max_abs_err": s_abs, "ms": side_ms,
+                                   "plain_ms": side_plain_ms,
+                                   **bound(nbytes=N * Hh * 4 + (Bq + L) * Hh * 4),
+                                   "library_ms": None}
+    times["pair_train_dw_prod_f32"] = {"max_abs_err": w_abs, "ms": dw_ms,
+                                       "plain_ms": dw_plain_ms,
+                                       **bound(nbytes=N * Hh * 4, ops=flop, peak=SPLIT_FLOPS),
+                                       "library_ms": dw_lib_ms}
+    for k in DENSE_F32_KERNELS:
+        b_ = times[k]
+        log(f"f32_kernel_{k}", **b_, bound_share=b_["bound_ms"] / b_["ms"], card=card)
+    return times
+
+
+def reset_scorer_launches() -> None:
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    reset_dense_launches()
+    for k in ps.F32_LAUNCHES:
+        ps.F32_LAUNCHES[k] = 0
+    reset_k7_launches()
+
+
+def scorer_launch_counts() -> dict:
+    """Every kernel count of the scorers (K1, K4, K4-bwd, K5, K6, the dense
+    scorer's; each form) that is not 0."""
+    from protnote_tpu_torch.ops import pair_scorer as ps
+
+    return {**{k: v for k, v in dense_launch_counts().items() if v},
+            **{k: v for k, v in ps.F32_LAUNCHES.items() if v}}
+
+
+def f32_scorer_run(card: str, name: str, ds, batch: int, steps: int, params: dict,
+                   schedule, grad_check=None) -> dict:
+    """``Trainer.train`` with MIXED_PRECISION False and config keys
+    ``params`` on the first ``steps`` batches of ``batch`` sequences of
+    ``ds``: per-step losses (finite), median warm step ms, seqs/s, peak
+    memory, the scorers' launches against ``schedule(steps)`` (every count
+    not 0, and no other), two profiled steps (idle share, device ms a step
+    by kernel); then ``grad_check(trainer)`` where given.  Returns the run's
+    fields with its launches."""
+    import statistics
+
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    pi_cfg, pn_cfg, ts = f32_models(**params)
+    opt = Optimizer(TRAIN_PARAMS)
+    ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"], ts["enc_params"],
+                           ts["enc_state"], opt)
+    trainer = Trainer(ts0, pi_cfg, pn_cfg, TrainerConfig(num_epochs=1,
+                                                         decision_threshold=THRESHOLD),
+                      device=dev, loss_fn=get_loss_fn(TRAIN_PARAMS), optimizer=opt)
+    steps_, step_fn = [], trainer._train_step
+
+    def timed_step(ts_, b, gen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ts_, m = step_fn(ts_, b, gen)
+        torch.cuda.synchronize()
+        steps_.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"])))
+        return ts_, m
+
+    def batcher(seed=42):
+        return BucketBatcher(ds, batch, buckets=(256, 512, 1024), shuffle=True,
+                             drop_last=True, seed=seed, device_label_gather=True)
+
+    trainer._train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_scorer_launches()
+    trainer.train(FirstBatches(batcher(), steps), None)
+    torch.cuda.synchronize()
+    launches = scorer_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer._train_step = step_fn
+    losses = [x[1] for x in steps_]
+    want = {k: v for k, v in schedule(len(steps_)).items() if v}
+    if len(steps_) != steps or not all(math.isfinite(x) for x in losses) or \
+            launches != want or k7.LAUNCHES["masked_conv_fwd_f32"] <= 0:
+        raise AssertionError(f"float32 training {name}: {len(steps_)} steps, losses {losses}, "
+                             f"launches {launches} (schedule {want}), K7 f32 "
+                             f"{k7.LAUNCHES['masked_conv_fwd_f32']}")
+    med = statistics.median([x[0] for x in steps_[1:]] or [steps_[0][0]])
+    placed = []
+    matrix = trainer._label_matrix_for(ds)
+    for b in batcher(seed=7):
+        placed.append(trainer._place(batch_to_device_dict(b, dev), matrix))
+        if len(placed) == 2:
+            break
+    gen = torch.Generator(device=dev).manual_seed(1)
+    it = iter(placed)
+
+    def one_step():
+        trainer.ts, _ = step_fn(trainer.ts, next(it), gen)
+
+    wall, busy, top = device_profile(one_step, len(placed))
+    result = {"steps": len(steps_), "sequences_per_step": batch, "labels": NUM_LABELS,
+              "settings": params, "step_losses": losses, "grad_norms": [x[2] for x in steps_],
+              "first_step_ms": steps_[0][0] * 1e3, "median_warm_step_ms": med * 1e3,
+              "seqs_per_s": batch / med, "peak_mem_gb": peak, "launches": launches,
+              "profiled_wall_ms_per_step": wall * 1e3 / len(placed),
+              "device_busy_ms_per_step": None if busy is None else busy * 1e3 / len(placed),
+              "idle_share": None if busy is None else 1.0 - busy / wall,
+              "top_kernels_ms_per_step": top}
+    log(f"f32_train_{name}", **result, card=card)
+    del placed, it
+    torch.cuda.empty_cache()
+    if grad_check is not None:
+        result["grad_check"] = grad_check(trainer)
+    del trainer, ts0, ts
+    torch.cuda.empty_cache()
+    return result
+
+
+def f32_step_grads(trainer, ds, batch: int, chains, card: str, run: str) -> dict:
+    """One float32 step's gradients, new running statistics and loss on one
+    batch of ``batch`` sequences from the same weights and generator seed
+    through each of ``chains`` (name, ProtNote config, {(module, name):
+    replacement} patched for the step); the first chain is the one under
+    test, the second its reference and the third the reference with its
+    first layer's output perturbed by a relative F32_Z_NOISE (the noise
+    floor).  Held, each in L2 over the reference's leaf norm: every
+    output-MLP leaf and running statistic within F32_GRAD_L2_TOL, every
+    leaf within F32_GRAD_L2_TOL or twice the noise floor's distance, the
+    loss within F32_GRAD_L2_TOL."""
+    import torch
+
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import tree_leaves
+    from protnote_tpu_torch.train.step import batch_to_device_dict, make_train_step
+
+    class KeepGrads:
+        def update(self, grads, trainable, state):
+            self.grads = grads
+            return state
+
+    dev = torch.device("cuda")
+    b0 = next(iter(BucketBatcher(ds, batch, buckets=(256, 512, 1024), shuffle=True,
+                                 drop_last=True, seed=5, device_label_gather=True)))
+    arrays = trainer._place(batch_to_device_dict(b0, dev), trainer._label_matrix_for(ds))
+    names = {id(t): n for n, t in named_tensors(trainer.ts["trainable"]).items()}
+    leaf_names = [names[id(t)] for t in tree_leaves(trainer.ts["trainable"])]
+    runs = {}
+    for name, cfg, patch in chains:
+        keeper = KeepGrads()
+        step = make_train_step(trainer.pi_cfg, cfg, get_loss_fn(TRAIN_PARAMS), keeper,
+                               decision_threshold=THRESHOLD)
+        saved = [(mod, k, getattr(mod, k)) for mod, k in patch]
+        for (mod, k), v in patch.items():
+            setattr(mod, k, v)
+        try:
+            ts, m = step(trainer.ts, arrays, torch.Generator(device=dev).manual_seed(3))
+            torch.cuda.synchronize()
+        finally:
+            for mod, k, v in saved:
+                setattr(mod, k, v)
+        stats = tree_leaves(ts["model_state"]["output_mlp"])
+        runs[name] = ([g.float() for g in keeper.grads], [t.float() for t in stats],
+                      float(m["loss"]))
+        del ts, keeper
+        torch.cuda.empty_cache()
+    test, ref, noise = (c[0] for c in chains)
+
+    def l2(a, b):
+        nb = float(b.norm())
+        return float((a - b).norm()) / nb if nb > 0 else float((a - b).norm())
+
+    rows = [{"leaf": n, test: l2(runs[test][0][i], runs[ref][0][i]),
+             noise: l2(runs[noise][0][i], runs[ref][0][i])} for i, n in enumerate(leaf_names)]
+    stat_rel = [l2(a, b) for a, b in zip(runs[test][1], runs[ref][1])]
+    loss_rel = abs(runs[test][2] - runs[ref][2]) / abs(runs[ref][2])
+    mlp = [r for r in rows if r["leaf"].startswith("/protnote/output_mlp")]
+    bad = [r for r in rows if (r in mlp and r[test] > F32_GRAD_L2_TOL) or
+           r[test] > max(F32_GRAD_L2_TOL, 2 * r[noise])]
+    out = {"sequences": batch, "leaves": len(rows), "output_mlp_leaves": len(mlp),
+           "max_output_mlp_l2_rel": max(r[test] for r in mlp),
+           "max_l2_rel": max(r[test] for r in rows),
+           "max_noise_floor_l2_rel": max(r[noise] for r in rows), "z_noise": F32_Z_NOISE,
+           "max_stat_l2_rel": max(stat_rel) if stat_rel else 0.0, "loss_rel": loss_rel,
+           "loss": runs[test][2], "loss_reference": runs[ref][2], "l2_tol": F32_GRAD_L2_TOL}
+    log(f"f32_grad_check_{run}", **out, by_leaf=rows, card=card)
+    if bad or max(stat_rel, default=0.0) > F32_GRAD_L2_TOL or loss_rel > F32_GRAD_L2_TOL or \
+            not math.isfinite(out["loss"]):
+        raise AssertionError(f"{run}: a float32 step's gradients, running statistics or loss "
+                             f"differ from the reference chain's: {out}, {bad}")
+    return out
+
+
+def noisy(fn):
+    """``fn`` with its (first) output perturbed by a relative F32_Z_NOISE of
+    seeded normal noise."""
+    import torch
+
+    def f(*args):
+        z = fn(*args)
+        noise = torch.randn(z.shape, device=z.device,
+                            generator=torch.Generator(device=z.device).manual_seed(9))
+        return z.mul_(noise.mul_(F32_Z_NOISE).add_(1.0))
+
+    return f
+
+
+def phase_f32_streamed_training(card: str) -> dict:
+    """Phase 33: ``Trainer.train`` with MIXED_PRECISION False and
+    ``TRAIN_STREAMING_LABEL_TILE`` 2048 at full width (32 sequences x 32,102
+    labels, H 3072), F32_STREAM_STEPS steps with the z1 cache by the rule
+    and with ``TRAIN_STREAMING_CACHE False``: step ms, seqs/s, peak memory,
+    idle share and kernel ms by name, the launches against
+    ``streamed_launches(..., float32)`` a step (K4 f32, K4-bwd f32 and K6
+    f32; no bf16 form, no K5); then one step on a 16-sequence batch through
+    the streamed scorer against the decomposed float32 scorer (the same
+    function) by :func:`f32_step_grads`, K4 f32's output perturbed for the
+    noise floor.  Returns the launches summed over both runs."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.dataset import DatasetConfig
+    from protnote_tpu_torch.ops import streaming_train as st
+
+    types = ("name", "label")
+    cfg = DatasetConfig(dataset_type="train", label_augmentation_descriptions=types,
+                        inference_go_descriptions=types,
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    tiles = -(-NUM_LABELS // STREAM_TILE)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = fasta_dataset(tmp, "f32_stream.fasta", TRAIN_B * (F32_STREAM_STEPS + 2), 35, cfg)
+    cache_rule = st.streaming_cache_first(TRAIN_B, tiles * STREAM_TILE, STREAM_TILE, H, 4, 3,
+                                          torch.device("cuda"))
+
+    def grad_check(trainer):
+        dec = dataclasses.replace(trainer.pn_cfg, train_label_tile=0)
+        return f32_step_grads(trainer, ds, F32_GRAD_B, (
+            ("streamed", trainer.pn_cfg, {}), ("decomposed", dec, {}),
+            ("z_noise", dec, {(st, "_pair_hidden_fwd_cuda"): noisy(st._pair_hidden_fwd_cuda)})),
+            card, "streamed_vs_decomposed")
+
+    for name, cache in (("streamed_cache_rule", None), ("streamed_cache_off", False)):
+        on = cache_rule if cache is None else cache
+        per_step = st.streamed_launches(3, tiles, on, torch.float32)
+        run = f32_scorer_run(
+            card, name, ds, TRAIN_B, F32_STREAM_STEPS,
+            {"TRAIN_STREAMING_LABEL_TILE": STREAM_TILE, "TRAIN_STREAMING_CACHE": cache},
+            lambda n, per_step=per_step: {k: v * n for k, v in per_step.items()},
+            grad_check if cache is None else None)
+        log(f"f32_streamed_{name}", cache_first=on, launches_per_step=per_step,
+            median_warm_step_ms=run["median_warm_step_ms"], peak_mem_gb=run["peak_mem_gb"],
+            card=card)
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_f32_dense_training(card: str) -> dict:
+    """Phase 34: ``Trainer.train`` with MIXED_PRECISION False and
+    ``PAIR_BACKEND dense`` at DENSE_F32_B sequences x 32,102 labels (the
+    batch whose eight (B x L, 3072) float32 tensors the card holds),
+    F32_DENSE_STEPS steps of each of ``F32_DENSE_SETTINGS`` (dropout 0.1
+    with BatchNorm; dropout, ``concatenation_prod``, no BatchNorm and
+    ``GRADIENT_CHECKPOINTING``): step ms, seqs/s, peak memory, idle share,
+    kernel ms by name, the launches against ``dense_launches(...,
+    float32)`` a step and no other scorer kernel; after the first setting,
+    one step on a DENSE_F32_GRAD_B-sequence batch through the kernels
+    against the plain
+    float32 dense scorer (the same dropout masks) by
+    :func:`f32_step_grads`, the plain first layer's output perturbed for
+    the noise floor.  Returns the launches summed over the settings."""
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.data.dataset import DatasetConfig
+    from protnote_tpu_torch.models import fusion
+    from protnote_tpu_torch.ops import dense_scorer as ds
+
+    types = ("name", "label")
+    cfg = DatasetConfig(dataset_type="train", label_augmentation_descriptions=types,
+                        inference_go_descriptions=types,
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = fasta_dataset(tmp, "f32_dense.fasta", DENSE_F32_B * (F32_DENSE_STEPS + 2), 37, cfg)
+
+    def grad_check(trainer):
+        return f32_step_grads(trainer, data, DENSE_F32_GRAD_B, (
+            ("kernels", trainer.pn_cfg, {}),
+            ("plain", trainer.pn_cfg, {(fusion, "pair_logits_dense"):
+                                       ds.pair_logits_dense_reference}),
+            ("z_noise", trainer.pn_cfg, {(fusion, "pair_logits_dense"):
+                                         ds.pair_logits_dense_reference,
+                                         (ds, "_first_fwd_plain"): noisy(ds._first_fwd_plain)})),
+            card, "dense_vs_plain")
+
+    total = {}
+    for i, (name, extra) in enumerate(F32_DENSE_SETTINGS):
+        params = {"PAIR_BACKEND": "dense", **extra}
+        _, pn_cfg, _ = f32_models(**params)
+        per_step = ds.dense_launches(
+            pn_cfg.output_mlp_num_layers, True, pn_cfg.output_mlp_batchnorm,
+            pn_cfg.feature_fusion == "concatenation_prod",
+            remat=pn_cfg.gradient_checkpointing, dtype=torch.float32)
+        run = f32_scorer_run(card, f"dense_{name}", data, DENSE_F32_B, F32_DENSE_STEPS, params,
+                             lambda n, per_step=per_step: {k: v * n for k, v in per_step.items()},
+                             grad_check if i == 0 else None)
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_f32_dense_eval(card: str) -> dict:
+    """Phase 35: ``Trainer.evaluate`` with MIXED_PRECISION False and
+    ``PAIR_BACKEND dense`` on an F32_SEQUENCES-sequence FASTA: the first layer
+    through ``pair_first_add_f32``, eval BN + ReLU through K6's
+    ``affine_relu_f32``, K3 after; seqs/s of a second (warm) pass,
+    launches (no K1), finite metrics, and the first batch's logits against
+    the plain float32 dense scorer's within F32_REL_TOL of their largest
+    |value|.  Returns its dense-scorer launches."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.data.dataset import DatasetConfig
+    from protnote_tpu_torch.models import fusion
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import eval_accumulator as k3
+    from protnote_tpu_torch.train.step import batch_to_device_dict
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = DatasetConfig(dataset_type="test", inference_go_descriptions=("name", "label"),
+                        inference_descriptions_per_label=K_DESCRIPTIONS)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = fasta_dataset(tmp, "eval_f32_dense.fasta", F32_SEQUENCES, 43, cfg)
+        batcher = eval_batcher(data)
+    pi_cfg, pn_cfg, ts = f32_models(PAIR_BACKEND="dense")
+    trainer = Trainer(ts, pi_cfg, pn_cfg,
+                      TrainerConfig(decision_threshold=THRESHOLD, estimate_map=True),
+                      device="cuda")
+    trainer.evaluate(batcher)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_scorer_launches()
+    for k in k3.LAUNCHES:
+        k3.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(batcher)["metrics"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {**scorer_launch_counts(),
+                **{f"eval_acc_{k}": v for k, v in k3.LAUNCHES.items()}}
+    if set(k for k in launches if not k.startswith("eval_acc")) != \
+            {"pair_first_add_f32", "affine_relu_f32"} or launches["eval_acc_update"] <= 0:
+        raise AssertionError(f"float32 dense evaluation launched {launches}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"float32 dense evaluation: non-finite metrics {metrics}")
+    batch = next(iter(batcher))
+    arrays = trainer._place(batch_to_device_dict(batch, trainer.device),
+                            trainer._label_matrix_for(data))
+    arrays = trainer._swap_in_latents(arrays, trainer._label_latents(arrays))
+    got = trainer._eval_step(trainer.ts, arrays)["logits"]
+    with mock.patch.object(fusion, "pair_logits_dense", ds.pair_logits_dense_reference):
+        want = trainer._eval_step(trainer.ts, arrays)["logits"]
+    err = f32_close("dense_eval_logits", got, want)
+    log("f32_dense_eval", sequences=len(data), seconds=sec, seqs_per_s=len(data) / sec,
+        batch_ms=sec * 1e3 / len(batcher), chunk_rows=ds.EVAL_CHUNK_ROWS, launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, logits=err,
+        logit_std=float(want.std()), metrics=metrics, card=card)
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if k in DENSE_F32_KERNELS}
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -6758,6 +7370,14 @@ def main() -> None:
     f32_train_times = phase_f32_train_kernels(card)
     torch.cuda.empty_cache()
     f32_train_launches = phase_f32_training(card)
+    torch.cuda.empty_cache()
+    f32_sd_times = phase_stream_dense_f32_kernels(card)
+    torch.cuda.empty_cache()
+    f32_sd_launches = phase_f32_streamed_training(card)
+    torch.cuda.empty_cache()
+    for counts in (phase_f32_dense_training(card), phase_f32_dense_eval(card)):
+        for k, v in counts.items():
+            f32_sd_launches[k] = f32_sd_launches.get(k, 0) + v
     torch.cuda.empty_cache()
     k3_times = phase_k3(card)
     bf16_metrics = phase_eval(card, k3_times)
@@ -6912,7 +7532,21 @@ def main() -> None:
         ("pair_train_dx_f32", "pair_train_bwd_f32", "protnote_tpu/ops/streaming_train.py:238"),
         ("pair_train_dw_f32", "pair_train_bwd_f32", "protnote_tpu/ops/streaming_train.py:238"),
         ("bn_relu_forward_f32", "bn_relu", "protnote_tpu/ops/streaming_train.py:98"),
-        ("bn_relu_backward_f32", "bn_relu", "protnote_tpu/ops/streaming_train.py:115"))]}),
+        ("bn_relu_backward_f32", "bn_relu", "protnote_tpu/ops/streaming_train.py:115"))] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": f32_sd_launches.get(k, 0),
+        **{f: f32_sd_times[k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep in [
+        (k, "streamed_bn", "protnote_tpu/ops/streaming_train.py:270") for k in STREAM_F32_KERNELS
+    ] + [
+        ("pair_first_add_f32", "pair_dense", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("pair_train_prod_f32", "pair_scorer_f32", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("pair_side_sums_f32", "pair_dense", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("pair_train_dw_prod_f32", "pair_train_bwd_f32", "protnote_tpu/ops/pair_scorer.py:108"),
+        ("bn_relu_dropout_forward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("bn_relu_dropout_backward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("bias_relu_dropout_forward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
+        ("bias_relu_dropout_backward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56")]]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -152,18 +152,6 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
 # what MIXED_PRECISION False still refuses on the card (those kernels take
 # bfloat16), by ROADMAP item
 FLOAT32_ON_CARD = {
-    "streamed": "training through the streamed scorer (TRAIN_STREAMING_LABEL_TILE > 0) in "
-                "float32 on the card (K6's kernels take bfloat16) is ROADMAP.md queue 1, item "
-                "16b: train with TRAIN_STREAMING_LABEL_TILE 0, with MIXED_PRECISION True, or "
-                "with --device cpu",
-    "dense_train": "training through the dense scorer (PAIR_BACKEND dense, or tiled without a "
-                   "label tile; OUTPUT_MLP_DROPOUT > 0; OUTPUT_MLP_BATCHNORM False; "
-                   "concatenation_prod) in float32 on the card (its kernels take bfloat16) is "
-                   "ROADMAP.md queue 1, item 16b: train with MIXED_PRECISION True, or with "
-                   "--device cpu",
-    "dense": "PAIR_BACKEND dense in float32 on the card (the dense scorer's kernels take "
-             "bfloat16) is ROADMAP.md queue 1, item 16b: evaluate with PAIR_BACKEND auto, "
-             "tiled or tiled_int8",
     "encoder": "training the encoder or its BatchNorm (TRAIN_SEQUENCE_ENCODER, "
                "ENCODER_BN_TRAIN_MODE) in float32 on the card (K7's backward and train-mode "
                "kernels take bfloat16) is ROADMAP.md queue 1, item 16c: train it with "
@@ -177,26 +165,14 @@ def refuse_float32_on_card(params: dict, device, train: bool = False,
                            tower: bool = False) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what
     ``MIXED_PRECISION False`` does not run on the card, before any data or
-    weights are read: training the encoder (16c) or through the streamed or
-    the dense scorer (16b), the dense scorer in evaluation (16b) and
-    (``tower``: a caller that runs it) the label tower (16d).  The scorer is
-    the one ``models/fusion.py:train_scorer`` dispatches to.  Training
-    through the decomposed scorer (K4, K4-bwd and K5 in float32), evaluation,
-    serving and ``predict`` run."""
+    weights are read: training the encoder (16c) and (``tower``: a caller
+    that runs it) the label tower (16d).  Training through every scorer
+    (decomposed, streamed and dense), evaluation (``PAIR_BACKEND dense``
+    too), serving and ``predict`` run."""
     if not str(device).startswith("cuda") or params.get("MIXED_PRECISION", True):
         return
-    if train:
-        from protnote_tpu_torch.models.fusion import ProtNoteConfig, train_scorer
-
-        if params.get("TRAIN_SEQUENCE_ENCODER") or params.get("ENCODER_BN_TRAIN_MODE"):
-            raise NotImplementedError(FLOAT32_ON_CARD["encoder"])
-        scorer = train_scorer(ProtNoteConfig.from_params(params))
-        if scorer == "streamed":
-            raise NotImplementedError(FLOAT32_ON_CARD["streamed"])
-        if scorer == "dense":
-            raise NotImplementedError(FLOAT32_ON_CARD["dense_train"])
-    if params.get("PAIR_BACKEND") == "dense":
-        raise NotImplementedError(FLOAT32_ON_CARD["dense"])
+    if train and (params.get("TRAIN_SEQUENCE_ENCODER") or params.get("ENCODER_BN_TRAIN_MODE")):
+        raise NotImplementedError(FLOAT32_ON_CARD["encoder"])
     if tower and (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
         raise NotImplementedError(FLOAT32_ON_CARD["tower"])
 

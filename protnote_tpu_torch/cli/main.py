@@ -53,11 +53,12 @@ card) and ``ENCODER_BN_TRAIN_MODE`` runs the frozen encoder's BatchNorm on
 batch statistics, as the JAX CLI does.  Profiler traces, wandb and a mesh
 raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 ``MIXED_PRECISION False`` evaluates in float32 on the card (K7, K1 and K2
-in float32) and trains through the decomposed scorer (K4, K4-bwd and K5 in
-float32); training through the streamed or the dense scorer, the dense
-scorer in evaluation, training the encoder and the label tower in float32
-on the card raise before any work, naming ROADMAP items 16b, 16c and 16d
-(``cli/_model_setup.py:refuse_float32_on_card``).
+in float32; ``PAIR_BACKEND dense`` through the dense scorer's float32
+kernels) and trains through every scorer (the decomposed one: K4, K4-bwd
+and K5 in float32; the streamed one: K6 in float32 too; the dense one: its
+first layer, prod GEMMs and K5 forms in float32); training the encoder and
+the label tower in float32 on the card raise before any work, naming
+ROADMAP items 16c and 16d (``cli/_model_setup.py:refuse_float32_on_card``).
 """
 
 from __future__ import annotations

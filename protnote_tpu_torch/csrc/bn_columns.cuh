@@ -1,7 +1,7 @@
 // Column passes over (N, H) pair-row tensors, shared by the masked
-// BatchNorm kernels of the training scorer: bn_relu.cu (K5) and
-// streamed_bn.cu (K6).  The element type is bf16 or float32 (K5's float32
-// form, MIXED_PRECISION False): every value is computed in float32 and
+// BatchNorm kernels of the training scorer: bn_relu.cu (K5), streamed_bn.cu
+// (K6) and pair_dense.cu.  The element type is bf16 or float32 (the float32
+// forms, MIXED_PRECISION False): every value is computed in float32 and
 // stored in the element type.
 //
 // Layout: a reduction block is RED_WARPS warps over COLS = 256 consecutive
@@ -69,6 +69,19 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
 __device__ __forceinline__ void store8(float* p, const float* f) {
   reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// A float32 value rounded to the element type (to nearest for bf16; float32
+// keeps it), where the plain versions cast to z's dtype.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
 }
 
 // The forward's pre-activation f32(z) * inv + shift, rounded in two steps.

@@ -61,6 +61,11 @@
 // (keep_bit): nothing stores the mask, the backward draws it again, and
 // ops/dense_scorer.py:keep_mask computes the same bits on the CPU.  A
 // threshold of 2^24 keeps every element (no dropout).
+//
+// Their float32 forms (the same names with _f32, MIXED_PRECISION False) run
+// the same kernels on float32 elements: nothing is rounded to bf16, and a
+// kept element is the correctly rounded float32 quotient y / keep_f
+// (__fdiv_rn, JAX's float32 x / keep).  Each pass moves twice the bytes.
 
 #include "bn_columns.cuh"
 
@@ -114,16 +119,26 @@ __device__ __forceinline__ bool keep_bit(const DropKey& d, uint32_t rh, uint32_t
   return (fmix32(rh ^ ck) >> 8) < d.threshold;
 }
 
-// dropout of one bf16 value v (its own transpose): bf16(v / keep) where
-// kept.  The quotient is q = v r and one correction, q + fma(-q, keep, v) r,
-// with r = rn(1 / keep): for a bf16 v and a bf16 keep it is the correctly
-// rounded float32 quotient (tests/test_torch_dense_scorer.py checks every
-// bf16 v against the true division for the rates it tries), without the
-// division's slow path.
-__device__ __forceinline__ float drop(const DropKey& d, uint32_t rh, uint32_t ck, float v) {
+// dropout of one value v of type T (its own transpose): T(v / keep) where
+// kept.  In bf16 the quotient is q = v r and one correction, q + fma(-q,
+// keep, v) r, with r = rn(1 / keep): for a bf16 v and a bf16 keep it is the
+// correctly rounded float32 quotient (tests/test_torch_dense_scorer.py
+// checks every bf16 v against the true division for the rates it tries),
+// without the division's slow path.  No such proof covers every float32 v,
+// so float32 takes the true division.
+template <typename T>
+__device__ __forceinline__ float drop(const DropKey& d, uint32_t rh, uint32_t ck, float v);
+template <>
+__device__ __forceinline__ float drop<__nv_bfloat16>(const DropKey& d, uint32_t rh, uint32_t ck,
+                                                     float v) {
   if (!keep_bit(d, rh, ck)) return 0.f;
   const float q = __fmul_rn(v, d.rkeep);
-  return __bfloat162float(__float2bfloat16_rn(__fmaf_rn(__fmaf_rn(-q, d.keep, v), d.rkeep, q)));
+  return round_to<__nv_bfloat16>(__fmaf_rn(__fmaf_rn(-q, d.keep, v), d.rkeep, q));
+}
+template <>
+__device__ __forceinline__ float drop<float>(const DropKey& d, uint32_t rh, uint32_t ck,
+                                             float v) {
+  return keep_bit(d, rh, ck) ? __fdiv_rn(v, d.keep) : 0.f;
 }
 
 // Forward tail: one thread per column adds the chunks in order.
@@ -185,15 +200,15 @@ __global__ void centred_tail_kernel(const float* __restrict__ part, int chunks,
   shift[c] = __fsub_rn(bias[c], __fmul_rn(mean[c], iv));
 }
 
-// y = dropout(bf16(relu(f32(z) * inv + shift))) (BN), or
-// y = dropout(relu(bf16(f32(z) + bias))) (no BN: inv unused, shift = bias).
+// y = dropout(T(relu(f32(z) * inv + shift))) (BN), or
+// y = dropout(relu(T(f32(z) + bias))) (no BN: inv unused, shift = bias).
 // Each thread owns 8 columns (their affine and hash keys in registers) and
 // walks down the rows, as affine_relu_kernel.
-template <bool BN, bool DROP>
+template <typename T, bool BN, bool DROP>
 __global__ void __launch_bounds__(EW_THREADS)
-act_dropout_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ inv,
+act_dropout_kernel(const T* __restrict__ z, const float* __restrict__ inv,
                    const float* __restrict__ shift, const long long* __restrict__ seed,
-                   int layer, uint32_t threshold, float keep, __nv_bfloat16* __restrict__ y,
+                   int layer, uint32_t threshold, float keep, T* __restrict__ y,
                    long long N, int H) {
   const int vpr = H / VEC;
   const int cv = blockIdx.y * blockDim.x + threadIdx.x;
@@ -210,33 +225,31 @@ act_dropout_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict_
     dk = drop_key(seed, layer, threshold, keep);
     col_keys(dk, cv * VEC, ck);
   }
-  const uint4* zv = reinterpret_cast<const uint4*>(z);
-  uint4* yv = reinterpret_cast<uint4*>(y);
 #pragma unroll 4
   for (long long r = blockIdx.x; r < N; r += gridDim.x) {
-    const long long v = r * vpr + cv;
+    const long long v = (r * vpr + cv) * VEC;
     float f[VEC];
-    unpack8(zv[v], f);
+    load8(z + v, f);
     const uint32_t rh = DROP ? row_hash(dk, r) : 0u;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float pre = BN ? affine(f[e], iv[e], sh[e]) : __fadd_rn(f[e], sh[e]);
-      float a = fmaxf(__bfloat162float(__float2bfloat16_rn(pre)), 0.f);
-      if (DROP) a = drop(dk, rh, ck[e], a);
+      float a = fmaxf(round_to<T>(pre), 0.f);
+      if (DROP) a = drop<T>(dk, rh, ck[e], a);
       f[e] = a;
     }
-    yv[v] = pack8(f);
+    store8(y + v, f);
   }
 }
 
 // The backward's dy through dropout's transpose, in place of dy.
-template <bool DROP>
+template <typename T, bool DROP>
 __device__ __forceinline__ void dropped_dy(const DropKey& dk, long long row,
                                            const uint32_t (&ck)[VEC], float (&df)[VEC]) {
   if (!DROP) return;
   const uint32_t rh = row_hash(dk, row);
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) df[e] = drop(dk, rh, ck[e], df[e]);
+  for (int e = 0; e < VEC; ++e) df[e] = drop<T>(dk, rh, ck[e], df[e]);
 }
 
 // Backward pass 1: per row chunk, column sums of g and g * xhat, with dy
@@ -277,7 +290,7 @@ bn_grad_sums_kernel(const T* __restrict__ z, const T* __restrict__ dy,
     float zf[VEC], df[VEC];
     load8(z + i * H + col, zf);
     load8(dy + i * H + col, df);
-    dropped_dy<DROP>(dk, i, ck, df);
+    dropped_dy<T, DROP>(dk, i, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float ge = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;
@@ -331,7 +344,7 @@ bn_relu_dz_kernel(const T* __restrict__ z, const T* __restrict__ dy,
     float zf[VEC], df[VEC], out[VEC];
     load8(z + v, zf);
     load8(dy + v, df);
-    dropped_dy<DROP>(dk, r, ck, df);
+    dropped_dy<T, DROP>(dk, r, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float g = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;
@@ -343,13 +356,13 @@ bn_relu_dz_kernel(const T* __restrict__ z, const T* __restrict__ dy,
   }
 }
 
-// No BN, backward: dz = bf16(z + bias) > 0 ? dropout^T(dy) : 0 written,
-// and its column sums per row chunk (dbias), one pass over (z, dy).
-template <bool DROP>
+// No BN, backward: dz = T(z + bias) > 0 ? dropout^T(dy) : 0 written, and
+// its column sums per row chunk (dbias), one pass over (z, dy).
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(RED_WARPS * 32)
-bias_relu_grad_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
+bias_relu_grad_kernel(const T* __restrict__ z, const T* __restrict__ dy,
                       const float* __restrict__ bias, const long long* __restrict__ seed,
-                      int layer, uint32_t threshold, float keep, __nv_bfloat16* __restrict__ dz,
+                      int layer, uint32_t threshold, float keep, T* __restrict__ dz,
                       float* __restrict__ part, long long N, int H, long long rows_per_chunk) {
   __shared__ float s[1][RED_WARPS][COLS];
   const int warp = threadIdx.x >> 5;
@@ -373,16 +386,16 @@ bias_relu_grad_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* 
 #pragma unroll 2
   for (long long i = first + warp; i < last; i += RED_WARPS) {
     float zf[VEC], df[VEC];
-    unpack8(*reinterpret_cast<const uint4*>(z + i * H + col), zf);
-    unpack8(*reinterpret_cast<const uint4*>(dy + i * H + col), df);
-    dropped_dy<DROP>(dk, i, ck, df);
+    load8(z + i * H + col, zf);
+    load8(dy + i * H + col, df);
+    dropped_dy<T, DROP>(dk, i, ck, df);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      const float h = __bfloat162float(__float2bfloat16_rn(__fadd_rn(zf[e], b[e])));
+      const float h = round_to<T>(__fadd_rn(zf[e], b[e]));
       df[e] = h > 0.f ? df[e] : 0.f;
       acc[0][e] = __fadd_rn(acc[0][e], df[e]);
     }
-    *reinterpret_cast<uint4*>(dz + i * H + col) = pack8(df);
+    store8(dz + i * H + col, df);
   }
   float* const out[1] = {part};
   block_column_sums<1>(s, acc, out, blockIdx.y, c0, H);
@@ -451,23 +464,23 @@ extern "C" int bn_relu_forward_f32(const void* z, const void* rows, const void* 
 
 namespace {
 
-template <bool BN>
+template <typename T, bool BN>
 cudaError_t launch_act(const void* z, const float* inv, const float* shift, const void* seed,
                        int layer, uint32_t threshold, float keep, void* y, long long N, int H,
                        cudaStream_t s) {
   const dim3 grid = elementwise_grid(N, H);
   const int threads = elementwise_threads(H);
-  const __nv_bfloat16* z_ = static_cast<const __nv_bfloat16*>(z);
+  const T* z_ = static_cast<const T*>(z);
   const long long* seed_ = static_cast<const long long*>(seed);
-  __nv_bfloat16* y_ = static_cast<__nv_bfloat16*>(y);
+  T* y_ = static_cast<T*>(y);
   if (threshold >= KEEP_ALL && BN)
-    affine_relu_kernel<<<grid, threads, 0, s>>>(z_, inv, shift, y_, N, H);
+    affine_relu_kernel<T><<<grid, threads, 0, s>>>(z_, inv, shift, y_, N, H);
   else if (threshold >= KEEP_ALL)
-    act_dropout_kernel<false, false><<<grid, threads, 0, s>>>(z_, inv, shift, seed_, layer,
-                                                              threshold, keep, y_, N, H);
+    act_dropout_kernel<T, false, false><<<grid, threads, 0, s>>>(z_, inv, shift, seed_, layer,
+                                                                 threshold, keep, y_, N, H);
   else
-    act_dropout_kernel<BN, true><<<grid, threads, 0, s>>>(z_, inv, shift, seed_, layer,
-                                                          threshold, keep, y_, N, H);
+    act_dropout_kernel<T, BN, true><<<grid, threads, 0, s>>>(z_, inv, shift, seed_, layer,
+                                                             threshold, keep, y_, N, H);
   return cudaGetLastError();
 }
 
@@ -538,21 +551,21 @@ extern "C" int bn_relu_backward_f32(const void* z, const void* dy, const void* r
       chunks, rows_per_chunk, 0, KEEP_ALL, 1.f, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The dense scorer's forward: the centred moments (two moment passes, the
-// first with zero_shift (H,) zeros), the affine, and y with dropout (seed: two
-// int64 words; a row-column's 24-bit draw below threshold keeps it, divided
-// by keep).  Scratch and outputs as bn_relu_forward.
-extern "C" int bn_relu_dropout_forward(const void* z, const void* rows, const void* n,
-                                       const void* zero_shift, const void* scale,
-                                       const void* bias, const void* seed, void* part1,
-                                       void* part2, void* mean, void* var, void* istd, void* inv,
-                                       void* shift, void* y, long long N, int H, int chunks,
-                                       long long rows_per_chunk, int layer, int threshold,
-                                       float keep, void* stream) {
+namespace {
+
+// The dense scorer's entry points on elements of type T (bf16, or float32
+// for the _f32 forms).
+
+template <typename T>
+int dense_bn_forward(const void* z, const void* rows, const void* n, const void* zero_shift,
+                     const void* scale, const void* bias, const void* seed, void* part1,
+                     void* part2, void* mean, void* var, void* istd, void* inv, void* shift,
+                     void* y, long long N, int H, int chunks, long long rows_per_chunk,
+                     int layer, int threshold, float keep, void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* z_ = static_cast<const __nv_bfloat16*>(z);
+  const T* z_ = static_cast<const T*>(z);
   const float* rows_ = static_cast<const float*>(rows);
   float* p1 = static_cast<float*>(part1);
   float* p2 = static_cast<float*>(part2);
@@ -573,12 +586,92 @@ extern "C" int bn_relu_dropout_forward(const void* z, const void* rows, const vo
       static_cast<float*>(inv), static_cast<float*>(shift), H, 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_act<true>(z, static_cast<const float*>(inv), static_cast<const float*>(shift),
-                               seed, layer, (uint32_t)threshold, keep, y, N, H, s);
+  return (int)launch_act<T, true>(z, static_cast<const float*>(inv),
+                                  static_cast<const float*>(shift), seed, layer,
+                                  (uint32_t)threshold, keep, y, N, H, s);
+}
+
+template <typename T>
+int dense_bn_backward(const void* z, const void* dy, const void* rows, const void* n,
+                      const void* scale, const void* mean, const void* istd, const void* inv,
+                      const void* shift, const void* seed, void* part1, void* part2, void* G1,
+                      void* G2, void* dz, long long N, int H, int chunks,
+                      long long rows_per_chunk, int layer, int threshold, float keep,
+                      void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t thr = (uint32_t)threshold;
+  auto launch = thr >= KEEP_ALL ? launch_bn_backward<T, false> : launch_bn_backward<T, true>;
+  return (int)launch(z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1, part2, G1, G2,
+                     dz, N, H, chunks, rows_per_chunk, layer, thr, keep, s);
+}
+
+template <typename T>
+int dense_bias_forward(const void* z, const void* bias, const void* seed, void* y, long long N,
+                       int H, int layer, int threshold, float keep, void* stream) {
+  if (N <= 0 || H <= 0 || H % COLS != 0 || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_act<T, false>(z, nullptr, static_cast<const float*>(bias), seed, layer,
+                                   (uint32_t)threshold, keep, y, N, H,
+                                   reinterpret_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int dense_bias_backward(const void* z, const void* dy, const void* bias, const void* seed,
+                        void* part, void* dbias, void* dz, long long N, int H, int chunks,
+                        long long rows_per_chunk, int layer, int threshold, float keep,
+                        void* stream) {
+  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t thr = (uint32_t)threshold;
+  auto kernel = thr >= KEEP_ALL ? bias_relu_grad_kernel<T, false> : bias_relu_grad_kernel<T, true>;
+  kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+      static_cast<const T*>(z), static_cast<const T*>(dy), static_cast<const float*>(bias),
+      static_cast<const long long*>(seed), layer, thr, keep, static_cast<T*>(dz),
+      static_cast<float*>(part), N, H, rows_per_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  column_sums_tail_kernel<1><<<(H + 255) / 256, 256, 0, s>>>(
+      ChunkSums<1>{{static_cast<const float*>(part)}, {static_cast<float*>(dbias)}}, chunks, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The dense scorer's forward: the centred moments (two moment passes, the
+// first with zero_shift (H,) zeros), the affine, and y with dropout (seed: two
+// int64 words; a row-column's 24-bit draw below threshold keeps it, divided
+// by keep).  Scratch and outputs as bn_relu_forward; z and y bf16.
+extern "C" int bn_relu_dropout_forward(const void* z, const void* rows, const void* n,
+                                       const void* zero_shift, const void* scale,
+                                       const void* bias, const void* seed, void* part1,
+                                       void* part2, void* mean, void* var, void* istd, void* inv,
+                                       void* shift, void* y, long long N, int H, int chunks,
+                                       long long rows_per_chunk, int layer, int threshold,
+                                       float keep, void* stream) {
+  return dense_bn_forward<__nv_bfloat16>(z, rows, n, zero_shift, scale, bias, seed, part1, part2,
+                                         mean, var, istd, inv, shift, y, N, H, chunks,
+                                         rows_per_chunk, layer, threshold, keep, stream);
+}
+
+// Its float32 form: z and y float32.
+extern "C" int bn_relu_dropout_forward_f32(const void* z, const void* rows, const void* n,
+                                           const void* zero_shift, const void* scale,
+                                           const void* bias, const void* seed, void* part1,
+                                           void* part2, void* mean, void* var, void* istd,
+                                           void* inv, void* shift, void* y, long long N, int H,
+                                           int chunks, long long rows_per_chunk, int layer,
+                                           int threshold, float keep, void* stream) {
+  return dense_bn_forward<float>(z, rows, n, zero_shift, scale, bias, seed, part1, part2, mean,
+                                 var, istd, inv, shift, y, N, H, chunks, rows_per_chunk, layer,
+                                 threshold, keep, stream);
 }
 
 // Its backward: G1/G2 ((H,) f32, = dbias/dscale) and dz, dy sent through
-// dropout's transpose (the mask drawn again from seed and layer).
+// dropout's transpose (the mask drawn again from seed and layer); z, dy and
+// dz bf16.
 extern "C" int bn_relu_dropout_backward(const void* z, const void* dy, const void* rows,
                                         const void* n, const void* scale, const void* mean,
                                         const void* istd, const void* inv, const void* shift,
@@ -586,26 +679,38 @@ extern "C" int bn_relu_dropout_backward(const void* z, const void* dy, const voi
                                         void* G2, void* dz, long long N, int H, int chunks,
                                         long long rows_per_chunk, int layer, int threshold,
                                         float keep, void* stream) {
-  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const uint32_t thr = (uint32_t)threshold;
-  auto launch = thr >= KEEP_ALL ? launch_bn_backward<__nv_bfloat16, false>
-                                : launch_bn_backward<__nv_bfloat16, true>;
-  return (int)launch(z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1, part2, G1, G2,
-                     dz, N, H, chunks, rows_per_chunk, layer, thr, keep, s);
+  return dense_bn_backward<__nv_bfloat16>(z, dy, rows, n, scale, mean, istd, inv, shift, seed,
+                                          part1, part2, G1, G2, dz, N, H, chunks, rows_per_chunk,
+                                          layer, threshold, keep, stream);
+}
+
+// Its float32 form: z, dy and dz float32.
+extern "C" int bn_relu_dropout_backward_f32(const void* z, const void* dy, const void* rows,
+                                            const void* n, const void* scale, const void* mean,
+                                            const void* istd, const void* inv, const void* shift,
+                                            const void* seed, void* part1, void* part2, void* G1,
+                                            void* G2, void* dz, long long N, int H, int chunks,
+                                            long long rows_per_chunk, int layer, int threshold,
+                                            float keep, void* stream) {
+  return dense_bn_backward<float>(z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1,
+                                  part2, G1, G2, dz, N, H, chunks, rows_per_chunk, layer,
+                                  threshold, keep, stream);
 }
 
 // No BatchNorm: y = dropout(relu(bf16(f32(z) + bias))), bias (H,) f32 (the
-// compute dtype's values).
+// compute dtype's values); z and y bf16.
 extern "C" int bias_relu_dropout_forward(const void* z, const void* bias, const void* seed,
                                          void* y, long long N, int H, int layer, int threshold,
                                          float keep, void* stream) {
-  if (N <= 0 || H <= 0 || H % COLS != 0 || !drop_ok(layer, threshold, keep))
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_act<false>(z, nullptr, static_cast<const float*>(bias), seed, layer,
-                                (uint32_t)threshold, keep, y, N, H,
-                                reinterpret_cast<cudaStream_t>(stream));
+  return dense_bias_forward<__nv_bfloat16>(z, bias, seed, y, N, H, layer, threshold, keep,
+                                           stream);
+}
+
+// Its float32 form: y = dropout(relu(z + bias)), z and y float32.
+extern "C" int bias_relu_dropout_forward_f32(const void* z, const void* bias, const void* seed,
+                                             void* y, long long N, int H, int layer,
+                                             int threshold, float keep, void* stream) {
+  return dense_bias_forward<float>(z, bias, seed, y, N, H, layer, threshold, keep, stream);
 }
 
 // Its backward: dz (N, H) bf16 and dbias (H,) f32, the column sums per row
@@ -615,18 +720,16 @@ extern "C" int bias_relu_dropout_backward(const void* z, const void* dy, const v
                                           long long N, int H, int chunks,
                                           long long rows_per_chunk, int layer, int threshold,
                                           float keep, void* stream) {
-  if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const uint32_t thr = (uint32_t)threshold;
-  auto kernel = thr >= KEEP_ALL ? bias_relu_grad_kernel<false> : bias_relu_grad_kernel<true>;
-  kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const float*>(bias), static_cast<const long long*>(seed), layer, thr, keep,
-      static_cast<__nv_bfloat16*>(dz), static_cast<float*>(part), N, H, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  column_sums_tail_kernel<1><<<(H + 255) / 256, 256, 0, s>>>(
-      ChunkSums<1>{{static_cast<const float*>(part)}, {static_cast<float*>(dbias)}}, chunks, H);
-  return (int)cudaGetLastError();
+  return dense_bias_backward<__nv_bfloat16>(z, dy, bias, seed, part, dbias, dz, N, H, chunks,
+                                            rows_per_chunk, layer, threshold, keep, stream);
+}
+
+// Its float32 form: z, dy and dz float32.
+extern "C" int bias_relu_dropout_backward_f32(const void* z, const void* dy, const void* bias,
+                                              const void* seed, void* part, void* dbias,
+                                              void* dz, long long N, int H, int chunks,
+                                              long long rows_per_chunk, int layer,
+                                              int threshold, float keep, void* stream) {
+  return dense_bias_backward<float>(z, dy, bias, seed, part, dbias, dz, N, H, chunks,
+                                    rows_per_chunk, layer, threshold, keep, stream);
 }

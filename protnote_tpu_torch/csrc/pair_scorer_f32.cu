@@ -65,6 +65,10 @@
 // end of the file): the A_PAIR layer over every pair of a training batch,
 // its sums stored as they are (EPI_RAW) through a 3-D map over z as (B, L,
 // N).  Bound: 19.4 TFLOP at the default width, 117.6 ms at the split's rate.
+// And the dense training scorer's concatenation_prod first layer
+// (pair_train_prod_f32): the A_PROD layer over every pair, a[b] + c[l] added
+// to the raw sums and stored through the same 3-D map (6.4 TFLOP at 32
+// sequences, d 1024: 39.2 ms at the split's rate).
 
 #include "bf16x3.cuh"
 #include "hopper.cuh"
@@ -87,8 +91,9 @@ constexpr int EPI_BOX = 64 * 128;  // one 64-row x 32-column float32 box of the 
 // where the A operand comes from
 enum AMode { A_X = 0, A_PAIR = 1, A_PROD = 2 };
 // what the epilogue does with the sums: bias (or a + c) and ReLU stored to a
-// workspace, the dot with w_out into the logits, or the sums stored as they
-// are through a 3-D map over (B, L, N) (K4's float32 forward)
+// workspace, the dot with w_out into the logits, or the sums stored through
+// a 3-D map over (B, L, N) with no ReLU: as they are (K4's float32 forward),
+// or with a[b] + c[l] added (A_PROD: the dense scorer's prod first layer)
 enum Epi { EPI_RELU = 0, EPI_DOT = 1, EPI_RAW = 2 };
 
 // Shared memory of one variant: a ring of STAGES stages, each the three W^T
@@ -324,7 +329,7 @@ pair_mlp_layer_f32_kernel(const __grid_constant__ CUtensorMap tm_w,
             const int j = 4 * part + jj;
             const int col = n0 + 8 * j + 2 * q;
             float2 e0, e1;
-            if (EPI == EPI_RAW) {
+            if (EPI == EPI_RAW && AMODE != A_PROD) {
               const uint32_t off = (((2 * jj + (q >> 1)) ^ (lr & 7)) << 4) + 8 * (q & 1);
               st_shared_f2(box + lr * 128 + off, make_float2(sum[4 * j], sum[4 * j + 1]));
               st_shared_f2(box + (lr + 8) * 128 + off,
@@ -344,6 +349,14 @@ pair_mlp_layer_f32_kernel(const __grid_constant__ CUtensorMap tm_w,
             }
             // bytes 32 jj + 8 q of the 128-byte row: 16-byte chunk 2 jj + q / 2
             const uint32_t off = (((2 * jj + (q >> 1)) ^ (lr & 7)) << 4) + 8 * (q & 1);
+            if (EPI == EPI_RAW) {  // the prod layer's z = sums + (a[b] + c[l]), no ReLU
+              st_shared_f2(box + lr * 128 + off, make_float2(__fadd_rn(sum[4 * j], e0.x),
+                                                             __fadd_rn(sum[4 * j + 1], e0.y)));
+              st_shared_f2(box + (lr + 8) * 128 + off,
+                           make_float2(__fadd_rn(sum[4 * j + 2], e1.x),
+                                       __fadd_rn(sum[4 * j + 3], e1.y)));
+              continue;
+            }
             st_shared_f2(box + lr * 128 + off,
                          make_float2(fmaxf(__fadd_rn(sum[4 * j], e0.x), 0.f),
                                      fmaxf(__fadd_rn(sum[4 * j + 1], e0.y), 0.f)));
@@ -498,4 +511,50 @@ extern "C" int pair_train_hidden_f32(const void* a2, const void* c2, const void*
   p.tiles = (int)(M / BM) * p.tiles_n;
   p.grid = grid < p.tiles ? grid : p.tiles;
   return (int)launch<A_PAIR, EPI_RAW>(p, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The dense training scorer's concatenation_prod first layer in float32
+// (protnote_tpu/ops/pair_scorer.py:108 pair_logits_dense: the prod block of
+// :92 joint_embeddings through the first Linear at Precision.HIGHEST):
+// z[b * L + l] = (P_e[b] * L_e[l]) @ W_prod + (a[b] + c[l]) for every pair,
+// float32, no ReLU.  The A_PROD mainloop on rows padded to nl_pad = ceil(L /
+// 128) * 128 a sequence, the sums stored through the 3-D map over z as (B,
+// L, N) as pair_train_hidden_f32 stores them.  P_e (B, K), L_e (L, K), a (B,
+// N), c (L, N) and z (B * L, N) float32; wt3 (3N, K) bf16 W_prod's pieces;
+// K and N multiples of 128.
+extern "C" int pair_train_prod_f32(const void* P_e, const void* L_e, const void* wt3,
+                                   const void* a, const void* c, void* z, int B, int L, int K,
+                                   int N, int grid, void* stream) {
+  if (B <= 0 || L <= 0 || K <= 0 || K % (2 * BK) != 0 || N <= 0 || N % BN != 0 || grid <= 0 ||
+      P_e == nullptr || L_e == nullptr || wt3 == nullptr || a == nullptr || c == nullptr ||
+      z == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // a runtime call first, for the context cuTensorMapEncodeTiled needs (as
+  // pair_train_hidden_f32)
+  cudaError_t err = cudaFuncSetAttribute(pair_mlp_layer_f32_kernel<A_PROD, EPI_RAW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Layout<A_PROD, true>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  Args p;
+  memset(&p, 0, sizeof(p));
+  const int nl_pad = (L + BM - 1) / BM * BM;
+  const uint64_t M = (uint64_t)B * nl_pad;
+  if (M / BM * (N / BN) > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  if (!(make_map(&p.tm_w, wt3, MapType::BF16, (uint64_t)PIECES * N, K, BN, BK, true) &&
+        make_map(&p.tm_t, L_e, MapType::F32, L, K, BM, 32, true) &&
+        make_map(&p.tm_r, P_e, MapType::F32, B, K, 1, BK, false) &&
+        make_map_3d(&p.tm_o, z, MapType::F32, B, L, N, 64, 32, true)))
+    return (int)cudaErrorInvalidValue;
+  p.ea = static_cast<const float*>(a);
+  p.ec = static_cast<const float*>(c);
+  p.nl = L;
+  p.nl_pad = nl_pad;
+  p.l0 = 0;
+  p.L = L;
+  p.K = K;
+  p.N = N;
+  p.tiles_n = N / BN;
+  p.tiles = (int)(M / BM) * p.tiles_n;
+  p.grid = grid < p.tiles ? grid : p.tiles;
+  return (int)launch<A_PROD, EPI_RAW>(p, reinterpret_cast<cudaStream_t>(stream));
 }

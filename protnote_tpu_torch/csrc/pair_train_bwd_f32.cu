@@ -59,6 +59,12 @@
 // 117.6 ms at 989 / 6 = 165 TFLOP/s (289 ms on the 67 TFLOP/s FMA pipe).
 // The first design keeps to simple schedules: the split and the piece
 // writes run between the products, not under them.
+//
+// pair_train_dw_prod_f32 is the dW kernel with x1's pieces formed from the
+// dense scorer's prod block, x1 = P_e[b] * L_e[l] (one float32 product), in
+// place of relu(a2[b] + c2[l]): dW_prod = (p * l)^T @ dz, the first Linear's
+// prod rows of protnote_tpu/ops/pair_scorer.py:108 pair_logits_dense in
+// float32 (6.4 TFLOP at 32 sequences, d 1024: 39.2 ms at the split's rate).
 
 #include "bf16x3.cuh"
 #include "hopper.cuh"
@@ -340,6 +346,8 @@ __global__ void ordered_parts_kernel(const float* __restrict__ part, float* __re
   out[i] = t;
 }
 
+// PROD: x1 = a2[b] * c2[l] (a2, c2 = P_e, L_e), else relu(a2[b] + c2[l])
+template <bool PROD>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_train_dw_f32_kernel(const __grid_constant__ CUtensorMap tm_dz,
                          const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ a2,
@@ -453,8 +461,9 @@ pair_train_dw_f32_kernel(const __grid_constant__ CUtensorMap tm_dz,
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
                 const int m = mc * 8 + 2 * e;
-                const float2 x = make_float2(pair_relu(ak, ch[swz(m, cc)]),
-                                             pair_relu(ak, ch[swz(m + 1, cc)]));
+                const float c0 = ch[swz(m, cc)], c1 = ch[swz(m + 1, cc)];
+                const float2 x = PROD ? make_float2(__fmul_rn(ak, c0), __fmul_rn(ak, c1))
+                                      : make_float2(pair_relu(ak, c0), pair_relu(ak, c1));
                 split3(x, w[0][e], w[1][e], w[2][e]);
               }
               const uint32_t off = kr * 128 + ((mc ^ (kr & 7)) << 4);
@@ -574,13 +583,11 @@ extern "C" int pair_train_dx_f32(const void* dz, const void* w3, const void* a2,
   return (int)cudaGetLastError();
 }
 
-// dW in float32: a2 (B, K), c2 (L, K), dz (B * L, N) float32; dw (K, N)
-// float32 out; partial (tail * pieces, 128, 128) float32 scratch when pieces
-// > 1.  The plan's (ops/streaming_train.py:pair_dw_plan with 128-column
-// tiles) full, pieces and grid; K and N multiples of 128.
-extern "C" int pair_train_dw_f32(const void* a2, const void* c2, const void* dz, void* partial,
-                                 void* dw, int B, int L, int K, int N, int full, int pieces,
-                                 int grid, void* stream) {
+namespace {
+
+template <bool PROD>
+int dw_f32(const void* a2, const void* c2, const void* dz, void* partial, void* dw, int B, int L,
+           int K, int N, int full, int pieces, int grid, void* stream) {
   if (B <= 0 || L <= 0 || K <= 0 || K % DW_BN != 0 || N <= 0 || N % DW_BM != 0 || grid <= 0 ||
       pieces <= 0 || full < 0 || a2 == nullptr || c2 == nullptr || dz == nullptr || dw == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -593,7 +600,7 @@ extern "C" int pair_train_dw_f32(const void* a2, const void* c2, const void* dz,
   const long long items = full + (long long)tail * pieces;
   if (items > INT_MAX || (long long)lblocks * B > INT_MAX) return (int)cudaErrorInvalidValue;
   constexpr int bytes = DwLayout::BYTES;
-  cudaError_t err = allow_smem(pair_train_dw_f32_kernel, bytes);
+  cudaError_t err = allow_smem(pair_train_dw_f32_kernel<PROD>, bytes);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[2];
   memset(maps, 0, sizeof(maps));
@@ -601,7 +608,7 @@ extern "C" int pair_train_dw_f32(const void* a2, const void* c2, const void* dz,
         make_map(&maps[1], c2, MapType::F32, L, K, DW_ROWS, 32, true)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  pair_train_dw_f32_kernel<<<grid < items ? grid : (int)items, THREADS, bytes, s>>>(
+  pair_train_dw_f32_kernel<PROD><<<grid < items ? grid : (int)items, THREADS, bytes, s>>>(
       maps[0], maps[1], static_cast<const float*>(a2), static_cast<float*>(partial),
       static_cast<float*>(dw), B, K, N, tiles_n, full, tail, pieces, lblocks, (int)items);
   err = cudaGetLastError();
@@ -610,6 +617,26 @@ extern "C" int pair_train_dw_f32(const void* a2, const void* c2, const void* dz,
                                                   static_cast<float*>(dw), N, tiles_n, full,
                                                   tail, pieces);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dW in float32: a2 (B, K), c2 (L, K), dz (B * L, N) float32; dw (K, N)
+// float32 out; partial (tail * pieces, 128, 128) float32 scratch when pieces
+// > 1.  The plan's (ops/streaming_train.py:pair_dw_plan with 128-column
+// tiles) full, pieces and grid; K and N multiples of 128.
+extern "C" int pair_train_dw_f32(const void* a2, const void* c2, const void* dz, void* partial,
+                                 void* dw, int B, int L, int K, int N, int full, int pieces,
+                                 int grid, void* stream) {
+  return dw_f32<false>(a2, c2, dz, partial, dw, B, L, K, N, full, pieces, grid, stream);
+}
+
+// dW_prod in float32: (P_e * L_e)^T @ dz with P_e (B, K) and L_e (L, K) in
+// place of a2 and c2, the rest as pair_train_dw_f32.
+extern "C" int pair_train_dw_prod_f32(const void* P_e, const void* L_e, const void* dz,
+                                      void* partial, void* dw, int B, int L, int K, int N,
+                                      int full, int pieces, int grid, void* stream) {
+  return dw_f32<true>(P_e, L_e, dz, partial, dw, B, L, K, N, full, pieces, grid, stream);
 }
 
 // The dynamic shared memory a launch asks for (bytes): 0 the dX kernel, 1

@@ -41,6 +41,12 @@ Evaluation (``PAIR_BACKEND=dense``, ``train=False``) runs the chain in label
 chunks (pair rows are independent there), its BatchNorm from the running
 statistics through K6's ``affine_relu``.
 
+In float32 (``MIXED_PRECISION False``) each kernel has its float32 form,
+named with ``_f32``: nothing is rounded to bf16, a kept dropout element is
+the true float32 quotient, and the prod block's GEMMs run on the float32
+split of ``csrc/pair_scorer_f32.cu`` (``pair_train_prod_f32``) and
+``csrc/pair_train_bwd_f32.cu`` (``pair_train_dw_prod_f32``).
+
 The hidden H x H products and the output linear are ``torch.matmul`` on the
 materialised activations, as JAX computes them.  For tensors on the CPU each
 wrapper runs its plain version; for CUDA tensors it launches its kernel or
@@ -57,9 +63,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from protnote_tpu_torch.models.layers import Params, gemm_precision, linear
-from protnote_tpu_torch.ops.pair_scorer import _f32_product
+from protnote_tpu_torch.ops.pair_scorer import _f32_product, stacked_pieces
 from protnote_tpu_torch.ops.streaming_train import (
     BN_EPS,
+    F32_TILE,
     _BN_COLS,
     _affine,
     _bn_relu_grads,
@@ -67,19 +74,22 @@ from protnote_tpu_torch.ops.streaming_train import (
     _chunks,
     _masked_moments,
     _raise_on,
+    _symbol,
     _update_running,
     affine_relu,
     affine_relu_reference,
     pair_dw_plan,
+    pair_train_f32_plan,
     pair_train_plan,
 )
 
+# the kernels' entry points (each with its float32 form, ``_f32``)
+KERNELS = ("pair_first_add", "pair_train_prod", "pair_side_sums", "pair_train_dw_prod",
+           "bn_relu_dropout_forward", "bn_relu_dropout_backward", "bias_relu_dropout_forward",
+           "bias_relu_dropout_backward")
 # Launches of each kernel entry point since the process started (or since a
 # caller last set them to 0): one a wrapper call.
-LAUNCHES = {"pair_first_add": 0, "pair_train_prod": 0, "pair_side_sums": 0,
-            "pair_train_dw_prod": 0, "bn_relu_dropout_forward": 0,
-            "bn_relu_dropout_backward": 0, "bias_relu_dropout_forward": 0,
-            "bias_relu_dropout_backward": 0}
+LAUNCHES = {k: 0 for k in KERNELS + tuple(f"{k}_f32" for k in KERNELS)}
 _launch_lock = threading.Lock()
 
 # pair rows of an evaluation chunk (B x labels): a (rows, H) bf16 tensor is
@@ -229,6 +239,14 @@ SIGNATURES = {
     ("pair_train", "pair_train_prod"): [_P] * 6 + [_I] * 8 + [_P],
     ("pair_train_bwd", "pair_train_dw_prod"): [_P] * 5 + [_I] * 8 + [_P],
 }
+# the float32 forms: K5's and the first layer's in the same libraries, the
+# prod GEMMs' in the float32 K4 libraries
+SIGNATURES.update({(lib, f"{sym}_f32"): sig for (lib, sym), sig in list(SIGNATURES.items())
+                   if lib in ("bn_relu", "pair_dense")})
+SIGNATURES.update({
+    ("pair_scorer_f32", "pair_train_prod_f32"): [_P] * 6 + [_I] * 5 + [_P],
+    ("pair_train_bwd_f32", "pair_train_dw_prod_f32"): [_P] * 5 + [_I] * 7 + [_P],
+})
 
 
 def _launch(library: str, symbol: str, device, *args) -> None:
@@ -255,7 +273,7 @@ def _bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed, layer, rate):
     zeros = torch.zeros(H, **f32)
     mean, var, istd, inv, shift = (torch.empty(H, **f32) for _ in range(5))
     y = torch.empty_like(z)
-    _launch("bn_relu", "bn_relu_dropout_forward", z.device,
+    _launch("bn_relu", _symbol(z, "bn_relu_dropout_forward"), z.device,
             z.data_ptr(), rows.data_ptr(), n.data_ptr(), zeros.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), seed_t.data_ptr(), part1.data_ptr(), part2.data_ptr(),
             mean.data_ptr(), var.data_ptr(), istd.data_ptr(), inv.data_ptr(),
@@ -281,7 +299,7 @@ def _bn_relu_dropout_grads_cuda(z, dy, rows, n, scale, mean, istd, inv, shift, s
     part1, part2 = torch.empty(chunks, H, **f32), torch.empty(chunks, H, **f32)
     G1, G2 = torch.empty(H, **f32), torch.empty(H, **f32)
     dz = torch.empty_like(z)
-    _launch("bn_relu", "bn_relu_dropout_backward", z.device,
+    _launch("bn_relu", _symbol(z, "bn_relu_dropout_backward"), z.device,
             z.data_ptr(), dy.data_ptr(), rows.data_ptr(), n.data_ptr(), scale_f.data_ptr(),
             mean.data_ptr(), istd.data_ptr(), inv.data_ptr(), shift.data_ptr(),
             seed_t.data_ptr(), part1.data_ptr(), part2.data_ptr(), G1.data_ptr(),
@@ -297,7 +315,8 @@ def _bias_relu_dropout_fwd_cuda(z, bias, seed, layer, rate):
     seed_t, thr = _drop_args(seed, rate, z.device)
     N, H = z.shape
     y = torch.empty_like(z)
-    _launch("bn_relu", "bias_relu_dropout_forward", z.device, z.data_ptr(), bias_r.data_ptr(),
+    _launch("bn_relu", _symbol(z, "bias_relu_dropout_forward"), z.device, z.data_ptr(),
+            bias_r.data_ptr(),
             seed_t.data_ptr(), y.data_ptr(), N, H, layer, thr, keep_scale(rate, z.dtype))
     return y
 
@@ -316,7 +335,8 @@ def _bias_relu_dropout_grads_cuda(z, dy, bias, seed, layer, rate):
     part = torch.empty(chunks, H, dtype=torch.float32, device=z.device)
     dbias = torch.empty(H, dtype=torch.float32, device=z.device)
     dz = torch.empty_like(z)
-    _launch("bn_relu", "bias_relu_dropout_backward", z.device, z.data_ptr(), dy.data_ptr(),
+    _launch("bn_relu", _symbol(z, "bias_relu_dropout_backward"), z.device, z.data_ptr(),
+            dy.data_ptr(),
             bias_r.data_ptr(), seed_t.data_ptr(), part.data_ptr(), dbias.data_ptr(),
             dz.data_ptr(), N, H, chunks, per, layer, thr, keep_scale(rate, z.dtype))
     return dz, dbias
@@ -455,10 +475,9 @@ def _check_first_cuda(a, c, P_e, L_e, w_prod) -> None:
         raise ValueError("the CUDA first layer needs every tensor on one CUDA device")
     if a.dtype != torch.float32 or c.dtype != torch.float32:
         raise ValueError("the CUDA first layer takes float32 side products a and c")
-    if P_e.dtype != torch.bfloat16 or L_e.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA first layer computes in bfloat16 (MIXED_PRECISION: True; "
-                         f"the dense scorer in float32 on the card is ROADMAP.md queue 1, "
-                         f"item 16b), not {P_e.dtype}")
+    if P_e.dtype not in (torch.bfloat16, torch.float32) or L_e.dtype != P_e.dtype:
+        raise ValueError(f"the CUDA first layer computes in bfloat16 or in float32, P_e and "
+                         f"L_e alike, not {P_e.dtype} and {L_e.dtype}")
     H = a.shape[1]
     if c.shape[1] != H or H % 128:
         raise ValueError(f"side products {tuple(a.shape)}, {tuple(c.shape)}: the width must "
@@ -477,12 +496,28 @@ def pair_prod_cuda(a, c, P_e, L_e, w_prod, relu: bool = False, out: Optional[tor
     mainloop with A formed in registers.  Row ``b * rows_per_seq + l`` of
     ``out`` (default a new (B * L, H) tensor, ``rows_per_seq`` = L); rows in
     [L, rows_per_seq) of a sequence's block hold ``a[b]`` (the padding of
-    K1's chunks).  ``wt``: W_prod already transposed to (H, d) bf16."""
+    K1's chunks).  ``wt``: W_prod already transposed to (H, d) bf16.
+
+    For float32 P_e and L_e, ``pair_train_prod_f32`` (``csrc/pair_scorer_
+    f32.cu``): ``(p[b] * l[l]) @ W_prod + (a[b] + c[l])`` in float32 through
+    the split of W_prod into bf16 pieces, (B * L, H) float32, no ReLU; it
+    takes none of the options."""
     a, c = a.contiguous(), c.contiguous()
     P_e, L_e = P_e.contiguous(), L_e.contiguous()
     _check_first_cuda(a, c, P_e, L_e, w_prod)
     B, K = P_e.shape
     L, N = L_e.shape[0], a.shape[1]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    if P_e.dtype == torch.float32:
+        if relu or out is not None or rows_per_seq is not None or wt is not None:
+            raise ValueError("pair_train_prod_f32 takes no ReLU, out, rows_per_seq or wt")
+        plan = pair_train_f32_plan(B, L, K, N, sms)
+        wt3 = stacked_pieces(w_prod.float(), transpose=True)
+        z = torch.empty(B * L, N, dtype=torch.float32, device=a.device)
+        _launch("pair_scorer_f32", "pair_train_prod_f32", a.device, P_e.data_ptr(),
+                L_e.data_ptr(), wt3.data_ptr(), a.data_ptr(), c.data_ptr(), z.data_ptr(), B, L,
+                K, N, plan.grid)
+        return z
     Lz = L if rows_per_seq is None else rows_per_seq
     if Lz < L:
         raise ValueError(f"{Lz} rows a sequence cannot hold {L} labels")
@@ -490,8 +525,7 @@ def pair_prod_cuda(a, c, P_e, L_e, w_prod, relu: bool = False, out: Optional[tor
         out = torch.empty(B * Lz, N, dtype=torch.bfloat16, device=a.device)
     if out.dtype != torch.bfloat16 or out.numel() < B * Lz * N or not out.is_contiguous():
         raise ValueError("out must be a contiguous bf16 tensor of B * rows_per_seq rows")
-    plan = pair_train_plan(B, L, K, N,
-                           torch.cuda.get_device_properties(a.device).multi_processor_count)
+    plan = pair_train_plan(B, L, K, N, sms)
     if wt is None:
         wt = w_prod.to(torch.bfloat16).t().contiguous()
     _launch("pair_train", "pair_train_prod", a.device, P_e.data_ptr(), L_e.data_ptr(),
@@ -502,38 +536,39 @@ def pair_prod_cuda(a, c, P_e, L_e, w_prod, relu: bool = False, out: Optional[tor
 
 def _first_fwd_cuda(a, c, P_e, L_e, w_prod):
     """The first layer on the card: ``pair_first_add`` for concat/diff,
-    ``pair_train_prod`` for prod."""
+    ``pair_train_prod`` for prod (their float32 forms for float32 P_e)."""
     if w_prod is not None:
         return pair_prod_cuda(a, c, P_e, L_e, w_prod)
     a, c = a.contiguous(), c.contiguous()
     _check_first_cuda(a, c, P_e, L_e, None)
     B, L, H = a.shape[0], c.shape[0], a.shape[1]
-    z = torch.empty(B * L, H, dtype=torch.bfloat16, device=a.device)
-    _launch("pair_dense", "pair_first_add", a.device, a.data_ptr(), c.data_ptr(), z.data_ptr(),
-            B, L, H)
+    z = torch.empty(B * L, H, dtype=P_e.dtype, device=a.device)
+    _launch("pair_dense", _symbol(z, "pair_first_add"), a.device, a.data_ptr(), c.data_ptr(),
+            z.data_ptr(), B, L, H)
     return z
 
 
 def side_sums_cuda(x: torch.Tensor, B: int, L: int, u: Optional[torch.Tensor] = None,
                    v: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``pair_side_sums`` (``csrc/pair_dense.cu``): for x (B * L, K) bf16,
-    ``sb[b] = sum_l x[b, l] * v[l]`` (B, K) and ``sl[l] = sum_b x[b, l] *
-    u[b]`` (L, K), float32, each in a fixed order (a missing ``u``/``v`` is
-    ones)."""
+    """``pair_side_sums`` (``csrc/pair_dense.cu``): for x (B * L, K) bf16
+    (or float32: ``pair_side_sums_f32``), ``sb[b] = sum_l x[b, l] * v[l]``
+    (B, K) and ``sl[l] = sum_b x[b, l] * u[b]`` (L, K), float32, each in a
+    fixed order (a missing ``u``/``v`` is ones; u and v in x's dtype)."""
     x = x.contiguous()
     K = x.shape[1]
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.shape[0] != B * L or K % 256:
-        raise ValueError(f"the side sums take ({B * L}, K) bfloat16 on the card, K a multiple "
-                         f"of 256, not {tuple(x.shape)} {x.dtype}")
+    if x.device.type != "cuda" or x.dtype not in (torch.bfloat16, torch.float32) or \
+            x.shape[0] != B * L or K % 256:
+        raise ValueError(f"the side sums take ({B * L}, K) bfloat16 or float32 on the card, K "
+                         f"a multiple of 256, not {tuple(x.shape)} {x.dtype}")
     for t, rows in ((u, B), (v, L)):
-        if t is not None and (tuple(t.shape) != (rows, K) or t.dtype != torch.bfloat16 or
+        if t is not None and (tuple(t.shape) != (rows, K) or t.dtype != x.dtype or
                               t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"side rows must be ({rows}, {K}) contiguous bfloat16")
+            raise ValueError(f"side rows must be ({rows}, {K}) contiguous {x.dtype}")
     chunks, per = _chunks(L)
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty(chunks, B * K, **f32)
     sb, sl = torch.empty(B, K, **f32), torch.empty(L, K, **f32)
-    _launch("pair_dense", "pair_side_sums", x.device, x.data_ptr(),
+    _launch("pair_dense", _symbol(x, "pair_side_sums"), x.device, x.data_ptr(),
             None if u is None else u.data_ptr(), None if v is None else v.data_ptr(),
             part.data_ptr(), sb.data_ptr(), sl.data_ptr(), B, L, K, chunks, per)
     return sb, sl
@@ -542,14 +577,27 @@ def side_sums_cuda(x: torch.Tensor, B: int, L: int, u: Optional[torch.Tensor] = 
 def dw_prod_cuda(P_e: torch.Tensor, L_e: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     """``pair_train_dw_prod`` (``csrc/pair_train_bwd.cu``): ``bf16(sum_{b, l}
     bf16(p[b] * l[l])^T dz[b, l])`` (d, H), K4-bwd's dW with A formed in
-    registers."""
+    registers.  For float32 operands ``pair_train_dw_prod_f32``
+    (``csrc/pair_train_bwd_f32.cu``): ``(p * l)^T dz`` in float32 through
+    the split, on :func:`pair_dw_plan`'s 128-column tiles."""
     P_e, L_e, dz = P_e.contiguous(), L_e.contiguous(), dz.contiguous()
     B, K = P_e.shape
     L, N = L_e.shape[0], dz.shape[1]
-    if tuple(dz.shape) != (B * L, N) or dz.dtype != torch.bfloat16:
-        raise ValueError(f"dz {tuple(dz.shape)} {dz.dtype} must be ({B * L}, N) bfloat16")
-    plan = pair_dw_plan(B, L, K, N, torch.cuda.get_device_properties(dz.device)
-                        .multi_processor_count)
+    if tuple(dz.shape) != (B * L, N) or dz.dtype not in (torch.bfloat16, torch.float32) or \
+            P_e.dtype != dz.dtype or L_e.dtype != dz.dtype:
+        raise ValueError(f"dz {tuple(dz.shape)} {dz.dtype} must be ({B * L}, N) bfloat16 or "
+                         f"float32, P_e and L_e alike")
+    sms = torch.cuda.get_device_properties(dz.device).multi_processor_count
+    if dz.dtype == torch.float32:
+        plan = pair_dw_plan(B, L, K, N, sms, block_n=F32_TILE)
+        partial = (torch.empty(plan.slots, F32_TILE, F32_TILE, dtype=torch.float32,
+                               device=dz.device) if plan.slots else None)
+        dw = torch.empty(K, N, dtype=torch.float32, device=dz.device)
+        _launch("pair_train_bwd_f32", "pair_train_dw_prod_f32", dz.device, P_e.data_ptr(),
+                L_e.data_ptr(), dz.data_ptr(), None if partial is None else partial.data_ptr(),
+                dw.data_ptr(), B, L, K, N, plan.full, plan.pieces, plan.grid)
+        return dw
+    plan = pair_dw_plan(B, L, K, N, sms)
     partial = (torch.empty(plan.slots, 128, plan.block_n, dtype=torch.float32,
                            device=dz.device) if plan.slots else None)
     dw = torch.empty(K, N, dtype=torch.bfloat16, device=dz.device)
@@ -562,14 +610,16 @@ def dw_prod_cuda(P_e: torch.Tensor, L_e: torch.Tensor, dz: torch.Tensor) -> torc
 def _first_bwd_cuda(a, c, P_e, L_e, w_prod, dz):
     """The first layer's backward on the card, the plain version's outputs:
     the side sums of dz (``pair_side_sums``); for prod dW_prod
-    (``pair_train_dw_prod``) and dJ's weighted side sums."""
+    (``pair_train_dw_prod``) and dJ's weighted side sums; their float32
+    forms for float32 P_e."""
     B, L = a.shape[0], c.shape[0]
-    dz = dz.to(torch.bfloat16).contiguous()
+    dz = dz.to(P_e.dtype).contiguous()
     da, dc = side_sums_cuda(dz, B, L)
     if w_prod is None:
         return da, dc, None, None, None
     dw = dw_prod_cuda(P_e, L_e, dz).to(w_prod.dtype)
-    dJ = dz @ w_prod.to(torch.bfloat16).t()
+    gemm_precision(dz.dtype)
+    dJ = dz @ w_prod.to(dz.dtype).t()
     dP, dL = side_sums_cuda(dJ, B, L, u=P_e.contiguous(), v=L_e.contiguous())
     return da, dc, dP.to(P_e.dtype), dL.to(L_e.dtype), dw
 
@@ -756,10 +806,11 @@ def _dense(p, s, P_e, L_e, feature_fusion, train, rate, seed, example_mask, labe
 
 
 def dense_launches(n_layers: int, train: bool, batchnorm: bool, prod: bool, chunks: int = 1,
-                   remat: bool = False) -> Dict[str, int]:
+                   remat: bool = False, dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
     """The kernel launches of one call of the scorer on the card (with its
     backward when ``train``), from its schedule: evaluation runs ``chunks``
-    label chunks; ``remat`` runs the training forward twice."""
+    label chunks; ``remat`` runs the training forward twice.  In float32
+    the ``_f32`` forms launch, in bfloat16 the bf16 forms."""
     calls = (2 if remat else 1) if train else chunks
     out = {k: 0 for k in LAUNCHES}
     out["pair_train_prod" if prod else "pair_first_add"] = calls
@@ -771,4 +822,6 @@ def dense_launches(n_layers: int, train: bool, batchnorm: bool, prod: bool, chun
         out["pair_side_sums"] = 2 if prod else 1
         out["pair_train_dw_prod"] = int(prod)
         out["bn_relu_dropout_backward" if batchnorm else "bias_relu_dropout_backward"] = n_layers
+    if dtype == torch.float32:
+        out = {k: out[k[:-4]] if k.endswith("_f32") else 0 for k in LAUNCHES}
     return out

@@ -38,7 +38,9 @@ registers, da2's partials a label tile and an ordered sum;
 memory, on :func:`pair_dw_plan`'s 128-column tiles), and K5
 ``bn_relu_forward_f32`` / ``bn_relu_backward_f32`` (K5's kernels on float32
 elements).  Nothing is rounded to bf16 but the split's exact pieces.  The
-streamed scorer's kernels (K6) still take bfloat16 only.
+streamed scorer's kernels (K6) have their float32 forms too (the ``_f32``
+entry points of ``csrc/streamed_bn.cu``), with the head's h, w and ``dh =
+dout * w`` kept in float32.
 
 The streamed scorer (:func:`pair_logits_streaming_train`,
 ``TRAIN_STREAMING_LABEL_TILE``) computes the same function in O(B * tile *
@@ -84,7 +86,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from protnote_tpu_torch.models.layers import Params, linear
+from protnote_tpu_torch.models.layers import Params, gemm_precision, linear
 from protnote_tpu_torch.ops.pair_scorer import (
     _BLOCK_N,
     _H100_SMS,
@@ -104,7 +106,10 @@ LAUNCHES = {"pair_train_hidden": 0, "pair_train_dx": 0, "pair_train_dw": 0,
             "pair_train_hidden_f32": 0, "pair_train_dx_f32": 0, "pair_train_dw_f32": 0,
             "bn_relu_forward_f32": 0, "bn_relu_backward_f32": 0,
             "stream_moments": 0, "stream_moments_backward": 0, "affine_relu": 0,
-            "affine_relu_backward": 0, "stream_head": 0, "stream_head_backward": 0}
+            "affine_relu_backward": 0, "stream_head": 0, "stream_head_backward": 0,
+            "stream_moments_f32": 0, "stream_moments_backward_f32": 0, "affine_relu_f32": 0,
+            "affine_relu_backward_f32": 0, "stream_head_f32": 0,
+            "stream_head_backward_f32": 0}
 _launch_lock = threading.Lock()
 
 
@@ -193,20 +198,16 @@ _BN_COLS = 256  # columns per reduction block (csrc/bn_relu.cu COLS)
 
 
 def _check_bn_cuda(z: torch.Tensor, rows: Optional[torch.Tensor], n: Optional[torch.Tensor],
-                   vectors, f32: bool = False) -> None:
+                   vectors) -> None:
     """The inputs that K5's and K6's column kernels take: (N, H) ``z`` with
-    H a multiple of 256, bfloat16 (or float32 where ``f32``: K5's float32
-    form), ``rows`` (N, 1) and ``n`` one value where the kernel reads them,
-    (H,) float32 ``vectors``, all contiguous on z's CUDA device."""
+    H a multiple of 256, bfloat16 (or float32: the ``_f32`` forms), ``rows``
+    (N, 1) and ``n`` one value where the kernel reads them, (H,) float32
+    ``vectors``, all contiguous on z's CUDA device."""
     if z.device.type != "cuda":
         raise ValueError(f"the CUDA BN kernels need CUDA tensors, not {z.device}")
-    if f32 and z.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"K5's CUDA kernels take bfloat16 or float32 pre-activations, not "
+    if z.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA BN kernels take bfloat16 or float32 pre-activations, not "
                          f"{z.dtype}")
-    if not f32 and z.dtype != torch.bfloat16:
-        raise ValueError(f"the streamed scorer's (K6) and the dense scorer's CUDA BN kernels "
-                         f"take bfloat16 pre-activations, not {z.dtype} (MIXED_PRECISION: "
-                         f"True; their float32 forms are ROADMAP.md queue 1, item 16b)")
     if z.dim() != 2 or z.shape[1] % _BN_COLS:
         raise ValueError(f"pre-activations {tuple(z.shape)}: the width must be a "
                          f"multiple of {_BN_COLS}")
@@ -243,8 +244,8 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _bn_symbol(z: torch.Tensor, name: str) -> str:
-    """K5's entry point for z's dtype: ``name``, or its float32 form."""
+def _symbol(z: torch.Tensor, name: str) -> str:
+    """A kernel's entry point for z's dtype: ``name``, or its float32 form."""
     return f"{name}_f32" if z.dtype == torch.float32 else name
 
 
@@ -255,7 +256,7 @@ def _bn_relu_fwd_cuda(z, rows, n, scale, bias, running_mean):
     n = n.reshape(1).float().contiguous()
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
     r = running_mean.detach().float().contiguous()
-    _check_bn_cuda(z, rows, n, (scale, bias, r), f32=True)
+    _check_bn_cuda(z, rows, n, (scale, bias, r))
     N, H = z.shape
     chunks, per = _chunks(N)
     f32 = dict(dtype=torch.float32, device=z.device)
@@ -263,7 +264,7 @@ def _bn_relu_fwd_cuda(z, rows, n, scale, bias, running_mean):
     mean, var, istd, inv, shift = (torch.empty(H, **f32) for _ in range(5))
     y = torch.empty_like(z)
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    symbol = _bn_symbol(z, "bn_relu_forward")
+    symbol = _symbol(z, "bn_relu_forward")
     with torch.cuda.device(z.device):
         _raise_on(_bn_fn(symbol)(
             z.data_ptr(), rows.data_ptr(), n.data_ptr(), r.data_ptr(), scale.data_ptr(),
@@ -281,7 +282,7 @@ def _bn_relu_grads_cuda(z, dy, rows, n, scale, mean, istd, inv, shift):
     dy = dy.to(z.dtype).contiguous()
     n = n.reshape(1).float().contiguous()
     scale_f = scale.float().contiguous()
-    _check_bn_cuda(z, rows, n, (scale_f, mean, istd, inv, shift), f32=True)
+    _check_bn_cuda(z, rows, n, (scale_f, mean, istd, inv, shift))
     if dy.shape != z.shape or dy.device != z.device:
         raise ValueError(f"dy {tuple(dy.shape)} does not match z {tuple(z.shape)}")
     N, H = z.shape
@@ -291,7 +292,7 @@ def _bn_relu_grads_cuda(z, dy, rows, n, scale, mean, istd, inv, shift):
     G1, G2 = torch.empty(H, **f32), torch.empty(H, **f32)
     dz = torch.empty_like(z)
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    symbol = _bn_symbol(z, "bn_relu_backward")
+    symbol = _symbol(z, "bn_relu_backward")
     with torch.cuda.device(z.device):
         _raise_on(_bn_fn(symbol)(
             z.data_ptr(), dy.data_ptr(), rows.data_ptr(), n.data_ptr(), scale_f.data_ptr(),
@@ -1006,6 +1007,7 @@ def _stream_head_plain(z, inv, shift, w, b):
     """K6's ``stream_head`` in plain PyTorch: ``h @ w`` with ``h =
     relu(f32(z) * inv + shift)`` in z's dtype, the products summed in
     float32 (w in z's dtype), plus ``b``: (N,) float32."""
+    gemm_precision(z.dtype)
     h = torch.relu(z.float() * inv + shift).to(z.dtype)
     return h.float() @ w.float() + b
 
@@ -1015,6 +1017,7 @@ def _stream_head_grads_plain(z, inv, shift, w, dout):
     float32 result): ``dh = (dout * w)`` rounded to z's dtype, ``dz = g *
     inv`` with g the gated dh, ``dw = dout @ h`` rounded to w's dtype, ``db
     = sum dout``: ``(dz, dinv, dshift, dw, db)``."""
+    gemm_precision(z.dtype)
     zf = z.float()
     x = zf * inv + shift
     h = torch.relu(x).to(z.dtype)
@@ -1025,7 +1028,8 @@ def _stream_head_grads_plain(z, inv, shift, w, dout):
 
 
 # the ctypes signatures of csrc/streamed_bn.cu's entry points (pointers,
-# then N, H and for the reductions their row chunks, then the stream)
+# then N, H and for the reductions their row chunks, then the stream); each
+# float32 form (``_f32``) takes its bf16 form's
 _K6_REDUCE = [_LL, _I, _I, _LL, _P]
 K6_SIGNATURES = {
     "stream_moments": [_P] * 7 + _K6_REDUCE,
@@ -1035,11 +1039,15 @@ K6_SIGNATURES = {
     "stream_head": [_P] * 6 + [_LL, _I, _P],
     "stream_head_backward": [_P] * 11 + _K6_REDUCE,
 }
+K6_SIGNATURES.update({f"{k}_f32": v for k, v in list(K6_SIGNATURES.items())})
 
 
-def _launch_k6(symbol: str, z: torch.Tensor, *args) -> None:
+def _launch_k6(name: str, z: torch.Tensor, *args) -> None:
+    """K6's entry point ``name`` (its float32 form for float32 z) on z's
+    device and current stream, counted."""
     from protnote_tpu_torch.ops.kernels import kernel_function
 
+    symbol = _symbol(z, name)
     fn = kernel_function("streamed_bn", symbol, K6_SIGNATURES[symbol])
     with torch.cuda.device(z.device):
         _raise_on(fn(*args, torch.cuda.current_stream(z.device).cuda_stream), symbol)
@@ -1105,8 +1113,8 @@ def _affine_relu_grads_cuda(z, dy, inv, shift):
 
 
 def _check_head(z, w, b: Optional[torch.Tensor] = None) -> None:
-    if w.dtype != torch.bfloat16 or tuple(w.shape) != (z.shape[1],) or w.device != z.device:
-        raise ValueError(f"the head takes w ({z.shape[1]},) bfloat16 on z's device, not "
+    if w.dtype != z.dtype or tuple(w.shape) != (z.shape[1],) or w.device != z.device:
+        raise ValueError(f"the head takes w ({z.shape[1]},) {z.dtype} on z's device, not "
                          f"{tuple(w.shape)} {w.dtype}")
     if b is not None and (b.numel() != 1 or b.dtype != torch.float32 or b.device != z.device):
         raise ValueError(f"the head takes one float32 b on z's device, not {b.dtype}")
@@ -1128,7 +1136,7 @@ def _stream_head_cuda(z, inv, shift, w, b):
 def _stream_head_grads_cuda(z, inv, shift, w, dout):
     """``stream_head_backward``: ``(dz, dinv, dshift, dw, db)`` as
     :func:`_stream_head_grads_plain`, one sweep over z; dw's float32 sum is
-    rounded to bfloat16 here."""
+    rounded to w's dtype here."""
     w, dout = w.contiguous(), dout.float().contiguous()
     _check_bn_cuda(z, None, None, (inv, shift))
     _check_head(z, w)
@@ -1409,12 +1417,14 @@ def streaming_cache_first(batch: int, labels: int, label_tile: int, width: int,
     return 2 * z1_bytes + 4 * tile_bytes <= budget
 
 
-def streamed_launches(n_layers: int, num_tiles: int, cache_first: bool) -> Dict[str, int]:
+def streamed_launches(n_layers: int, num_tiles: int, cache_first: bool,
+                      dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
     """The kernel launches of one forward and backward of the streamed
     scorer, from its schedule: each tile's forward runs once in the forward
     and once more when the backward recomputes it, and each kernel's
     backward runs once for each forward call, over every key of
-    ``LAUNCHES`` (K5 and the float32 forms never).  Per tile: sweep A (with the
+    ``LAUNCHES`` (K5 never; in float32 the ``_f32`` forms of K4, K4-bwd and
+    K6, in bfloat16 their bf16 forms).  Per tile: sweep A (with the
     cache) one K4 and one moment sum; the statistics sweep of hidden layer
     li its pre-activation (K4 unless it starts from z1, li - 1 affines and
     products) and one moment sum; the loss pass every layer again (from z1
@@ -1436,11 +1446,10 @@ def streamed_launches(n_layers: int, num_tiles: int, cache_first: bool) -> Dict[
     out = {k: 2 * v * num_tiles for k, v in calls.items()}
     out.update({f"{k}_backward": v * num_tiles for k, v in calls.items()
                 if k != "pair_train_hidden"})
-    out.update(pair_train_dx=k4 * num_tiles, pair_train_dw=k4 * num_tiles, bn_relu_forward=0,
-               bn_relu_backward=0)
-    # the streamed scorer runs in bfloat16 only: none of the float32 forms
-    out.update({k: 0 for k in LAUNCHES if k.endswith("_f32")})
-    return out
+    out.update(pair_train_dx=k4 * num_tiles, pair_train_dw=k4 * num_tiles)
+    if dtype == torch.float32:
+        out = {f"{k}_f32": v for k, v in out.items()}
+    return {k: out.get(k, 0) for k in LAUNCHES}
 
 
 def pair_logits_streaming_train(

@@ -68,6 +68,14 @@ past 65,536 pair rows within 1e-3 of the plain version's (cuBLAS float32 at
 a million rows is itself up to 2.9e-4 of the largest |value| from float64);
 K5's backward on the kernel's own statistics (a pre-activation within an
 ulp of 0 gates differently under an inverse square root an ulp apart).
+K6 and the dense scorer's kernels in float32 (the _f32 entries of
+streamed_bn.cu, bn_relu.cu and pair_dense.cu, pair_train_prod_f32,
+pair_train_dw_prod_f32) on the same float32 inputs: every output within
+1e-5 of the plain float32 tensor's largest |value|, dW_prod against float64
+at dW's figure; the dropout mask and kept values the same bits as the plain
+version's on the kernel's own affine; the streamed and dense scorers'
+logits and running statistics within 1e-5, their gradients within 1e-4
+(train-mode BatchNorm's backward over float32 sums in other orders).
 K1 and K2 in float32 (csrc/pair_scorer_f32.cu, pair_mlp_head_f32, K2's
 float32 w_out) on the same float32 inputs: logits within 1e-5 of the plain
 float32 chain's largest |logit| (the split product leaves out terms below
@@ -669,9 +677,9 @@ def test_streamed_bn_kernels_raise_on_what_they_do_not_take():
     v = torch.zeros(200, device="cuda")
     with pytest.raises(ValueError, match="multiple of 256"):
         st._affine_relu_cuda(z, v, v)
-    z = torch.zeros(4, 256, device="cuda")
+    z = torch.zeros(4, 256, dtype=torch.float16, device="cuda")
     v = torch.zeros(256, device="cuda")
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         st._affine_relu_cuda(z, v, v)
 
 
@@ -2204,3 +2212,286 @@ def test_bn_relu_f32_kernels_match_plain_on_card(N, H):
     assert float((y > 0).float().mean()) > 0.2
     again = st._bn_relu_grads_cuda(z, dy, rows, n, scale, *stats)
     assert all(torch.equal(a, b) for a, b in zip((dz, ds, db), again))
+
+
+# ----------------------------------------------------------------------
+# K6, the dense scorer's first layer and prod GEMMs, and K5's dense forms in
+# float32 (MIXED_PRECISION False)
+
+
+def _f32_launched(module, before):
+    return {k: v - before[k] for k, v in module.LAUNCHES.items() if v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1505, 8])
+def test_streamed_bn_f32_kernels_match_plain_on_card(N):
+    """K6's float32 forms, forward and backward through autograd, against
+    their plain float32 versions on the same inputs (masked rows, a shift
+    far from the mean, a quarter of the gates shut, the head's w float32):
+    every output within 1e-5 of its largest |value|, one launch of each
+    ``_f32`` entry and none of the bf16 forms; the sums the same bits on a
+    second call."""
+    _card()
+    rng = np.random.default_rng(20 + N)
+    H = 512
+    z = _f32t(rng, N, H) + 1.0
+    rows = torch.from_numpy((rng.random((N, 1)) < 0.9).astype(np.float32)).cuda()
+    vec = lambda lo, hi: torch.from_numpy(rng.uniform(lo, hi, H).astype(np.float32)).cuda()  # noqa
+    r, inv, shift = vec(2.0, 3.0), vec(0.5, 1.5), vec(-1.2, 0.2)
+    w = _f32t(rng, H)
+    b = torch.tensor(0.3, device="cuda")
+    cts = [_f32t(rng, H) for _ in range(2)]
+    dy, dout = _f32t(rng, N, H), _f32t(rng, N)
+    outs = {}
+    before = dict(st.LAUNCHES)
+    for ref in (False, True):
+        sfx = "_reference" if ref else ""
+        leaves = [t.clone().requires_grad_(True) for t in (z, inv, shift, w, b)]
+        s1, s2 = getattr(st, "stream_moments" + sfx)(leaves[0], rows, r)
+        y = getattr(st, "affine_relu" + sfx)(leaves[0], leaves[1], leaves[2])
+        logits = getattr(st, "stream_head" + sfx)(*leaves)
+        torch.autograd.backward((s1, s2, y, logits), (cts[0], cts[1], dy, dout))
+        outs[ref] = [s1, s2, y, logits] + [t.grad for t in leaves]
+        if not ref:
+            counts = _f32_launched(st, before)
+    torch.cuda.synchronize()
+    assert counts == {f"{k}_f32": 1 for k in ("stream_moments", "stream_moments_backward",
+                                              "affine_relu", "affine_relu_backward",
+                                              "stream_head", "stream_head_backward")}, counts
+    again = st._stream_moments_cuda(z, rows, r)
+    assert torch.equal(again[0], outs[False][0]) and torch.equal(again[1], outs[False][1])
+    for k, (a, b_) in enumerate(zip(outs[False], outs[True])):
+        assert a.dtype == torch.float32 and a.shape == b_.shape
+        assert _rel(a, b_) <= F32_REL_TOL, (k, _rel(a, b_))
+    assert float((outs[False][2] > 0).float().mean()) > 0.2
+
+
+@pytest.mark.cuda
+def test_streamed_head_f32_takes_w_of_z_dtype_on_card():
+    """The head's w has z's dtype: a bf16 w beside float32 z raises."""
+    _card()
+    z, v = torch.zeros(4, 256, device="cuda"), torch.zeros(256, device="cuda")
+    with pytest.raises(ValueError, match="the head takes w"):
+        st._stream_head_cuda(z, v, v, v.to(torch.bfloat16), torch.tensor(0.0, device="cuda"))
+
+
+def _f32_output_mlp(d, H, seed, fusion="concatenation", bn=True):
+    cfg = ProtNoteConfig(protein_embedding_dim=24, label_embedding_dim=16, latent_dim=d,
+                         projection_head_num_layers=2, output_mlp_num_layers=3,
+                         output_mlp_hidden_dim_scale_factor=H // d, feature_fusion=fusion,
+                         output_mlp_batchnorm=bn)
+    p, s = init_protnote(torch.Generator().manual_seed(seed), cfg)
+    from protnote_tpu_torch.models.layers import tree_to
+
+    p = tree_to(p["output_mlp"], "cuda")
+    s = tree_to(s["output_mlp"], "cuda") if bn else None
+    for lin in p["layers"] + [p["out"]]:
+        lin["kernel"] = lin["kernel"] * 6 ** 0.5
+    return p, s
+
+
+def _f32_grads_close(grads, grads0, tol=1e-4):
+    """Each gradient within ``tol`` of its plain float32 gradient's largest
+    |value| (float32 sums in other orders, through train-mode BatchNorm's
+    backward)."""
+    for i, (a, b) in enumerate(zip(grads, grads0)):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= tol, (i, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", [False, True])
+def test_streamed_scorer_f32_matches_plain_on_card(cache):
+    """``pair_logits_streaming_train`` in float32 through K4 f32, K4-bwd f32
+    and K6 f32 against its plain float32 version (tiles of 64 over 203
+    labels, a masked sequence and masked labels, H 256): logits and new
+    running statistics within 1e-5 of their largest |value|, gradients
+    within 1e-4; the launches ``streamed_launches(..., float32)`` says and
+    no bf16 kernel."""
+    _card()
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.train.optim import tree_leaves, tree_map
+
+    gemm_precision(torch.float32)
+    rng = np.random.default_rng(12)
+    d, H, B, L, tile = 32, 256, 6, 203, 64
+    p, s = _f32_output_mlp(d, H, 3)
+    P_e, L_e = _f32t(rng, B, d), _f32t(rng, L, d)
+    em = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.float32, device="cuda")
+    lm = (torch.arange(L, device="cuda") < 190).float()
+    res = {}
+    for ref in (False, True):
+        before = dict(st.LAUNCHES)
+        pp = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        Pg, Lg = P_e.clone().requires_grad_(True), L_e.clone().requires_grad_(True)
+        fn = st.pair_logits_streaming_train_reference if ref else st.pair_logits_streaming_train
+        logits, new = fn(pp, s, Pg, Lg, example_mask=em, label_mask=lm, label_tile=tile,
+                         compute_dtype=torch.float32, cache_first=cache)
+        (torch.sigmoid(logits) * em[:, None] * lm[None, :]).square().sum().backward()
+        torch.cuda.synchronize()
+        res[ref] = (logits, new, [Pg.grad, Lg.grad] + [t.grad for t in tree_leaves(pp)],
+                    _f32_launched(st, before))
+    (lg, new, grads, launches), (lg0, new0, grads0, launches0) = res[False], res[True]
+    assert not launches0
+    want = st.streamed_launches(3, -(-L // tile), cache, torch.float32)
+    assert launches == {k: v for k, v in want.items() if v}, launches
+    assert lg.dtype == torch.float32 and _rel(lg, lg0) <= F32_REL_TOL
+    for a, b in zip(new["bns"], new0["bns"]):
+        for k in ("mean", "var"):
+            assert _rel(a[k], b[k]) <= F32_REL_TOL
+    _f32_grads_close(grads, grads0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_dense_act_f32_kernels_match_plain_on_card(bn, rate):
+    """K5's dense float32 forms against their plain float32 versions on the
+    same inputs, 3,001 rows x 512 with masked rows: y (and the moments), dz
+    and dscale/dbias within 1e-5 of their largest |value|; the kept values
+    and the mask the same bits as the plain version's on the kernel's own
+    affine (the true float32 division), forward and backward."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(61 + int(bn) + int(10 * rate))
+    N, H = 3001, 512
+    z = (torch.randn(N, H, generator=gen) + 0.5).to(dev)
+    rows = (torch.rand(N, 1, generator=gen) < 0.9).float().to(dev)
+    n = rows.sum()
+    scale = (0.5 + torch.rand(H, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(H, generator=gen)).to(dev)
+    dy = torch.randn(N, H, generator=gen).to(dev)
+    seed = torch.tensor([11, 22], dtype=torch.int64, device=dev)
+    before = dict(ds.LAUNCHES)
+    outs = []
+    for fn in ((ds.bn_relu_dropout, ds.bn_relu_dropout_reference) if bn else
+               (ds.bias_relu_dropout, ds.bias_relu_dropout_reference)):
+        zz = z.clone().requires_grad_(True)
+        sc, bi = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        if bn:
+            y, mean, var = fn(zz, rows, n, sc, bi, seed, 1, rate)
+            stats = [mean, var]
+        else:
+            y, stats = fn(zz, bi, seed, 1, rate), []
+            sc = None
+        y.backward(dy)
+        outs.append((y.detach(), stats, zz.grad, None if sc is None else sc.grad, bi.grad))
+        if len(outs) == 1:
+            counts = _f32_launched(ds, before)
+    name = "bn_relu_dropout" if bn else "bias_relu_dropout"
+    assert counts == {f"{name}_forward_f32": 1, f"{name}_backward_f32": 1}, counts
+    (y, st_k, dz, dsc, dbi), (y0, st_p, dz0, dsc0, dbi0) = outs
+    assert y.dtype == dz.dtype == torch.float32
+    for a, b in [(y, y0), (dz, dz0)] + list(zip(st_k, st_p)) + [(dsc, dsc0), (dbi, dbi0)]:
+        if b is not None:
+            assert _rel(a, b) <= F32_REL_TOL
+    # the mask and the kept values, bit for bit, on the kernel's own affine
+    if bn:
+        f = ds._bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed, 1, rate)
+        plain = ds._drop_plain(torch.relu(z * f[4] + f[5]), seed, 1, rate)
+        assert torch.equal(f[0], plain)
+    else:
+        assert torch.equal(y, y0)
+        dz1 = ds._bias_relu_dropout_grads_cuda(z, dy, bias, seed, 1, rate)[0]
+        assert torch.equal(dz1, ds._bias_relu_dropout_grads_plain(z, dy, bias, seed, 1, rate)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prod", [False, True])
+def test_dense_first_layer_f32_matches_plain_on_card(prod):
+    """The float32 first layer (pair_first_add_f32, or pair_train_prod_f32)
+    and its backward (pair_side_sums_f32, pair_train_dw_prod_f32, dJ's
+    weighted side sums) against the plain float32 version, 5 sequences x
+    301 labels, d 256, H 512: each within 1e-5 of its largest |value|;
+    dW_prod against float64; the side sums and dW_prod the same bits on a
+    second call; no bf16 form launched."""
+    dev = _card()
+    from protnote_tpu_torch.models.layers import gemm_precision
+
+    gemm_precision(torch.float32)
+    gen = torch.Generator().manual_seed(71 + int(prod))
+    B, L, d, H = 5, 301, 256, 512
+    a = torch.randn(B, H, generator=gen).to(dev)
+    c = torch.randn(L, H, generator=gen).to(dev)
+    P_e = torch.randn(B, d, generator=gen).to(dev)
+    L_e = torch.randn(L, d, generator=gen).to(dev)
+    w = (torch.randn(d, H, generator=gen) / 16).to(dev) if prod else None
+    dz = torch.randn(B * L, H, generator=gen).to(dev)
+    before = dict(ds.LAUNCHES)
+    outs = []
+    for fn in (ds.pair_first_layer, ds.pair_first_layer_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (a, c, P_e, L_e)]
+        wg = None if w is None else w.clone().requires_grad_(True)
+        z = fn(*leaves, wg)
+        z.backward(dz)
+        outs.append([z.detach()] + [t.grad for t in leaves] + [None if wg is None else wg.grad])
+        if len(outs) == 1:
+            counts = _f32_launched(ds, before)
+    want = ({"pair_train_prod_f32": 1, "pair_side_sums_f32": 2, "pair_train_dw_prod_f32": 1}
+            if prod else {"pair_first_add_f32": 1, "pair_side_sums_f32": 1})
+    assert counts == want, counts
+    for i, (k, p) in enumerate(zip(*outs)):
+        if p is None:
+            assert k is None or not prod
+            continue
+        assert k.dtype == torch.float32 and _rel(k, p) <= F32_REL_TOL, (i, _rel(k, p))
+    sb, sl = ds.side_sums_cuda(dz, B, L)
+    sb2, sl2 = ds.side_sums_cuda(dz, B, L)
+    assert torch.equal(sb, sb2) and torch.equal(sl, sl2)
+    if prod:
+        dw = outs[0][5]
+        truth = (P_e.double()[:, None] * L_e.double()[None]).reshape(B * L, d).T @ dz.double()
+        assert float((dw.double() - truth).abs().max() / truth.abs().max()) <= _dw_f32_tol(B * L)
+        assert torch.equal(ds.dw_prod_cuda(P_e, L_e, dz), ds.dw_prod_cuda(P_e, L_e, dz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion,bn,rate,remat", [
+    ("concatenation", True, 0.1, False), ("concatenation_prod", False, 0.1, True),
+    ("concatenation_prod", True, 0.0, False), ("concatenation_diff", True, 0.0, True),
+])
+def test_dense_scorer_f32_matches_plain_on_card(fusion, bn, rate, remat):
+    """The whole dense scorer in float32 through its kernels against its
+    plain float32 version on the same device tensors, 4 sequences x 300
+    labels, d 256, H 512: logits and running statistics within 1e-5 of
+    their largest |value|, gradients within 1e-4; the launches
+    ``dense_launches(..., float32)`` says; evaluation (BN from the running
+    statistics through K6 f32, or the bias form) within 1e-5."""
+    dev = _card()
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.train.optim import tree_leaves, tree_map
+
+    gemm_precision(torch.float32)
+    p, s = _f32_output_mlp(256, 512, 5, fusion, bn)
+    gen = torch.Generator().manual_seed(6)
+    P_e = torch.randn(4, 256, generator=gen).to(dev)
+    L_e = torch.randn(300, 256, generator=gen).to(dev)
+    lm = (torch.arange(300) < 290).float().to(dev)
+    w = torch.randn(4, 300, generator=gen).to(dev)
+    seed = torch.tensor([5, 6], dtype=torch.int64, device=dev)
+    runs = []
+    for fn in (ds.pair_logits_dense, ds.pair_logits_dense_reference):
+        before = dict(ds.LAUNCHES)
+        pp = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        lg, new = fn(pp, s, P_e, L_e, fusion, train=True, dropout=rate, seed=seed,
+                     label_mask=lm, remat=remat, compute_dtype=torch.float32)
+        (lg * w).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((lg.detach(), new, [t.grad for t in tree_leaves(pp)],
+                     _f32_launched(ds, before)))
+    (lg, new, grads, counts), (lg0, new0, grads0, counts0) = runs
+    want = ds.dense_launches(3, True, bn, fusion == "concatenation_prod", remat=remat,
+                             dtype=torch.float32)
+    assert not counts0 and counts == {k: v for k, v in want.items() if v}, counts
+    assert lg.dtype == torch.float32 and float(lg0.std()) > 0.3
+    assert _rel(lg, lg0) <= F32_REL_TOL
+    if bn:
+        for a, b in zip(new["bns"], new0["bns"]):
+            for k in ("mean", "var"):
+                assert _rel(a[k], b[k]) <= F32_REL_TOL
+    _f32_grads_close(grads, grads0)
+    with torch.no_grad():
+        ev = ds.pair_logits_dense(p, s, P_e, L_e, fusion, compute_dtype=torch.float32)[0]
+        ev0 = ds.pair_logits_dense_reference(p, s, P_e, L_e, fusion,
+                                             compute_dtype=torch.float32)[0]
+    assert _rel(ev, ev0) <= F32_REL_TOL

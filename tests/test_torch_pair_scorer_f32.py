@@ -228,19 +228,13 @@ def test_kernel_layout_of_the_pieces():
 
 
 @pytest.mark.parametrize("setting,match", [
-    (dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048), "item 16b"),
-    (dict(PAIR_BACKEND="dense"), "item 16b"),
     (dict(LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2), "item 16d"),
-    (dict(train=True, PAIR_BACKEND="dense"), "item 16b"),
-    (dict(train=True, OUTPUT_MLP_DROPOUT=0.1), "item 16b"),
     (dict(train=True, TRAIN_SEQUENCE_ENCODER=True), "item 16c"),
 ])
 def test_cli_refuses_float32_on_the_card_before_any_work(setting, match, tmp_path, monkeypatch):
     """``cli/main.py`` with ``MIXED_PRECISION False`` on the card raises
     before it reads the label cache, a dataset or a weight, naming the
-    ROADMAP item: training through the streamed scorer (16b), the dense
-    scorer in evaluation (16b) and in training (``PAIR_BACKEND dense``,
-    dropout: 16b), training the encoder (16c), the label tower (16d).  The
+    ROADMAP item: training the encoder (16c), the label tower (16d).  The
     same settings on the CPU, and evaluation in float32 on the card, pass
     the check."""
     from protnote_tpu_torch.cli import _model_setup
@@ -267,8 +261,55 @@ def test_cli_refuses_float32_on_the_card_before_any_work(setting, match, tmp_pat
     _model_setup.refuse_float32_on_card(dict(params, MIXED_PRECISION=True), "cuda",
                                         train=train, tower=True)
     _model_setup.refuse_float32_on_card({"MIXED_PRECISION": False}, "cuda", tower=True)
-    if not train and "PAIR_BACKEND" not in setting:  # serve and predict run no tower
+    if not train:  # serve and predict run no tower
         _model_setup.refuse_float32_on_card(params, "cuda")
+
+
+@pytest.mark.parametrize("setting", [
+    dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048),
+    dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048, TRAIN_STREAMING_CACHE=False),
+    dict(PAIR_BACKEND="dense"),
+    dict(train=True, PAIR_BACKEND="dense"),
+    dict(train=True, PAIR_BACKEND="tiled"),
+    dict(train=True, OUTPUT_MLP_DROPOUT=0.1),
+    dict(train=True, OUTPUT_MLP_BATCHNORM=False),
+    dict(train=True, FEATURE_FUSION="concatenation_prod"),
+    dict(train=True, OUTPUT_MLP_DROPOUT=0.1, GRADIENT_CHECKPOINTING=True),
+])
+def test_cli_passes_float32_scorers_on_the_card_and_reads_the_label_cache(setting, tmp_path,
+                                                                          monkeypatch):
+    """``cli/main.py`` with ``MIXED_PRECISION False`` on ``cuda`` passes the
+    check and goes on to read the label cache for the streamed scorer (with
+    and without its z1 cache), the dense scorer in evaluation and in
+    training (``PAIR_BACKEND dense``, ``tiled`` without a tile, dropout, no
+    BatchNorm, ``concatenation_prod``, remat): their float32 kernels run on
+    the card.  So does ``refuse_float32_on_card`` alone, with and without
+    the tower's caller flag."""
+    from protnote_tpu_torch.cli import _model_setup
+    from protnote_tpu_torch.cli import main as tmain
+    from protnote_tpu_torch.data import label_cache
+
+    monkeypatch.setenv("PROTNOTE_DATA_DIR", str(tmp_path / "data"))
+    monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(tmp_path / "outputs"))
+
+    class CacheRead(Exception):
+        pass
+
+    def first_read(*args, **kwargs):
+        raise CacheRead
+
+    monkeypatch.setattr(label_cache.LabelEmbeddingCache, "load", first_read)
+    setting = dict(setting)
+    train = setting.pop("train", False)
+    override = ["MIXED_PRECISION", "False"] + [str(x) for kv in setting.items() for x in kv]
+    argv = ["--test-paths-names", "TEST_DATA_PATH", "--override", *override]
+    if train:
+        argv = ["--train-path-name", "TRAIN_DATA_PATH", *argv]
+    with pytest.raises(CacheRead):
+        tmain.main(argv)
+    params = {"MIXED_PRECISION": False, **setting}
+    _model_setup.refuse_float32_on_card(params, "cuda", train=train, tower=True)
+    _model_setup.refuse_float32_on_card(params, "cuda", train=train)
 
 
 def test_cli_passes_default_float32_training_on_the_card(tmp_path, monkeypatch):

@@ -110,12 +110,18 @@ def k4_dx(a2, c2, w, dz):
     return da2, dc2
 
 
-def k4_dw(a2, c2, dz, plan):
+def _pair_relu(a, c):
+    return torch.relu(a + c)
+
+
+def k4_dw(a2, c2, dz, plan, x1_of=_pair_relu):
     """``pair_train_dw_f32`` on ``plan`` (``pair_dw_plan`` with 128-column
     tiles): each item's tile of dW^T = dz^T @ x1 over its label blocks, 64
     pair rows a step (every sequence inside a label block; rows past L read
     dz and c2 as zeros), each step's split product added in float32; whole
-    tiles stored, cut tiles' pieces added in order by the second pass."""
+    tiles stored, cut tiles' pieces added in order by the second pass.
+    ``x1_of(a2[b], c2 rows)`` forms x1 (``pair_train_dw_prod_f32``: the
+    product)."""
     B, K = a2.shape
     L, N = c2.shape[0], dz.shape[1]
     lblocks = -(-L // STEP)
@@ -132,7 +138,7 @@ def k4_dw(a2, c2, dz, plan):
         for lb in range(lb0, lb1):
             ls = slice(lb * STEP, (lb + 1) * STEP)
             for b in range(B):
-                x1 = torch.relu(a2[b, k0:k0 + TILE] + cp[ls, k0:k0 + TILE])
+                x1 = x1_of(a2[b, k0:k0 + TILE], cp[ls, k0:k0 + TILE])
                 acc = acc + bf16x3_product_emulation(dzp[b, ls, n0:n0 + TILE].t(), x1)
         if slot is None:
             dw[k0:k0 + TILE, n0:n0 + TILE] = acc.t()
@@ -531,8 +537,8 @@ SCORER_SETTINGS = [
 def test_train_scorer_is_the_dispatch(params, scorer, monkeypatch):
     """``train_scorer`` names the scorer ``protnote_forward`` trains
     through (each scorer patched to record its call), and float32 training
-    on the card is refused exactly where it is not the decomposed one (or
-    no pair MLP at all)."""
+    on the card passes the check whichever scorer it takes (each has its
+    float32 kernels); the encoder beside it is still refused (item 16c)."""
     from protnote_tpu_torch.cli._model_setup import refuse_float32_on_card
     from protnote_tpu_torch.models import fusion
 
@@ -559,8 +565,6 @@ def test_train_scorer_is_the_dispatch(params, scorer, monkeypatch):
                             train=True, generator=torch.Generator().manual_seed(1))
     assert calls == ([] if scorer == "similarity" else [scorer])
     card = dict(params, MIXED_PRECISION=False)
-    if scorer in ("decomposed", "similarity"):
-        refuse_float32_on_card(card, "cuda", train=True)
-    else:
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            refuse_float32_on_card(card, "cuda", train=True)
+    refuse_float32_on_card(card, "cuda", train=True)
+    with pytest.raises(NotImplementedError, match="item 16c"):
+        refuse_float32_on_card(dict(card, TRAIN_SEQUENCE_ENCODER=True), "cuda", train=True)

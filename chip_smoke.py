@@ -305,7 +305,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
     8 sequences against the plain float32 dense scorer (the same masks);
 35. float32 dense evaluation (``f32_dense_eval``): ``Trainer.evaluate``
     with ``PAIR_BACKEND dense`` on 64 sequences, seqs/s, launches, a
-    batch's logits against the plain float32 dense scorer's.
+    batch's logits against the plain float32 dense scorer's;
+36. (run after phase 35) K7's float32 training kernels alone at full width
+    (``k7_f32_train``: 32 sequences at bucket 512, lengths 30-512, one row
+    dropped by the example mask): ``masked_conv_dx_f32`` on the 10 block
+    convs and K7-BN's float32 forward and backward on the 10 BatchNorms,
+    each within 1e-5 of its plain float32 version's largest |value| (the
+    BN's backward on the kernel's statistics), ``masked_conv_dw_f32`` (dW,
+    dbias) on all 11 against float64 within 1e-5, the float32 pool
+    transpose bit for bit, each the same bits twice; times beside the bound
+    (67 TFLOP/s for the convs, 3.35 TB/s for the rest), the plain versions'
+    and cuDNN's float32 ``conv1d_input`` / ``conv1d_weight`` (TF32 off);
+37. float32 encoder training (``f32_encoder_train``): ``Trainer.train``
+    with ``MIXED_PRECISION False`` and ``train_sequence_encoder`` for 5
+    steps of 32 sequences at bucket 512 (step ms, seqs/s, peak memory,
+    launches against 11 forward, 10 dX, 11 dW, 10 + 10 BN and 1 + 1 pool
+    kernels a step and no bf16 K7 kernel), two profiled steps (idle share,
+    kernel ms by name), the encoder's gradients and running statistics on
+    16 sequences against the plain float32 chain (1e-4 in L2 by leaf,
+    statistics 1e-5); ``cli/main.py`` training with ``--override
+    MIXED_PRECISION False TRAIN_SEQUENCE_ENCODER True``; 3 steps of
+    ``ENCODER_BN_TRAIN_MODE`` alone (statistics moved, weights not).
 Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
 ``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
 doubled (those leaves doubled, the others and nothing else the same, the
@@ -326,7 +346,8 @@ in the training run, its float32 forward and pool in phase 23's
 ``test_proteinfer`` run, K1's and K2's float32 forms in phase 29's runs,
 K4's, K4-bwd's and K5's float32 forms in phase 31's two runs, K6's float32
 forms in phase 33's two runs, the dense scorer's float32 forms summed over
-phases 34-35,
+phases 34-35, K7's float32 training kernels in phase 37's
+``TRAIN_SEQUENCE_ENCODER`` run,
 its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
 32-sequence streamed run; the dense scorer's kernels summed over phases
@@ -474,6 +495,10 @@ TOWER_VAL_LABELS = 1024
 # |value|
 K7_FORWARD = ("masked_conv_fwd", "masked_mean_pool")
 K7_F32 = ("masked_conv_fwd_f32", "masked_mean_pool_f32")  # eval mode, test_proteinfer's path
+# training the encoder in float32 (phases 36-37): the backward kernels and
+# the train-mode BatchNorm
+K7_F32_TRAIN = ("masked_conv_dx_f32", "masked_conv_dw_f32", "masked_bn_relu_fwd_f32",
+                "masked_bn_relu_bwd_f32", "masked_mean_pool_bwd_f32")
 KERNEL_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K7_POOLED_REL_TOL = 5e-2
 K7_F32_REL_TOL = 1e-5
@@ -4516,20 +4541,23 @@ def k7_bn(card: str, params, state, lengths, act) -> dict:
     return out
 
 
-def encoder_grad_check(trainer, batch, cfg) -> dict:
+def encoder_grad_check(trainer, batch, cfg, dtype=None, grad_tol: float = GRAD_REL_TOL,
+                       stats_tol: float = STATS_REL_TOL, noise: float = 0.0) -> dict:
     """One batch through the trainable encoder (``trainable["encoder"]``,
-    float32 masters, bf16 compute) with train-mode BatchNorm, through K7's
-    kernels and through the plain chain, under one fixed cotangent on the
-    pooled embeddings: each trained leaf's gradient through the kernels
-    within GRAD_REL_TOL of the plain chain's in L2, and the new running
-    statistics within STATS_REL_TOL of the plain chain's largest |value|."""
+    float32 masters, bf16 compute, or float32 with ``dtype`` float32) with
+    train-mode BatchNorm, through K7's kernels and through the plain chain,
+    under one fixed cotangent on the pooled embeddings: each trained leaf's
+    gradient through the kernels within ``grad_tol`` of the plain chain's in
+    L2, and the new running statistics within ``stats_tol`` of the plain
+    chain's largest |value|.  With ``noise``, a third run of the plain chain
+    with each conv's output multiplied by 1 + ``noise`` x N(0, 1) (seeded)
+    gives each leaf's noise floor, and a leaf may also lie within twice its
+    floor: in float32 a rounding-level change of an activation flips the
+    ReLU gates that lie within it of 0, and each flipped gate moves the
+    leaves upstream by far more than a rounding."""
     import torch
 
-    from protnote_tpu_torch.models.proteinfer import (
-        embed_from_ids,
-        one_hot_sequences,
-        proteinfer_embed_reference,
-    )
+    from protnote_tpu_torch.models import proteinfer as tpi
     from protnote_tpu_torch.train.optim import tree_leaves
 
     enc, state = trainer.ts["trainable"]["encoder"], trainer.ts["enc_state"]
@@ -4538,33 +4566,53 @@ def encoder_grad_check(trainer, batch, cfg) -> dict:
               for n in ("bn1", "bn2") for k in ("scale", "bias")]
     leaves = [t for _, t in named]
     aa, lengths, em = batch["aa_ids"], batch["lengths"], batch["example_mask"]
-    onehot = one_hot_sequences(aa, cfg.input_channels, torch.bfloat16)
+    onehot = tpi.one_hot_sequences(aa, cfg.input_channels, dtype or torch.bfloat16)
+    dev = aa.device
     cot = torch.randn(aa.shape[0], cfg.output_channels,
-                      generator=torch.Generator(device=aa.device).manual_seed(7), device=aa.device)
+                      generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    conv_plain = tpi.masked_conv_reference
+    gen = torch.Generator(device=dev)
+
+    def noisy_conv(*args, **kwargs):
+        y = conv_plain(*args, **kwargs)
+        return y * (1.0 + noise * torch.randn(y.shape, generator=gen, device=dev))
+
     runs = {}
-    for plain in (False, True):
+    for name in ("kernels", "plain") + (("noise",) if noise else ()):
         for t in leaves:
             t.requires_grad_(True)
+        gen.manual_seed(9)
+        tpi.masked_conv_reference = noisy_conv if name == "noise" else conv_plain
         try:
-            if plain:
-                P, new = proteinfer_embed_reference(enc, state, onehot, lengths, cfg, True, em)
+            if name == "kernels":
+                P, new = tpi.embed_from_ids(enc, state, aa, lengths, cfg, train=True,
+                                            example_mask=em)
             else:
-                P, new = embed_from_ids(enc, state, aa, lengths, cfg, train=True, example_mask=em)
-            runs[plain] = (torch.autograd.grad((P * cot).sum(), leaves), new)
+                P, new = tpi.proteinfer_embed_reference(enc, state, onehot, lengths, cfg, True, em)
+            runs[name] = (torch.autograd.grad((P * cot).sum(), leaves), new)
         finally:
+            tpi.masked_conv_reference = conv_plain
             for t in leaves:
                 t.requires_grad_(False)
-    (gk, new_k), (gp, new_p) = runs[False], runs[True]
-    rel = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
-           for (name, _), a, b in zip(named, gk, gp)}
-    stats = max(rel_max(a, b)[1] for a, b in zip(tree_leaves(new_k), tree_leaves(new_p)))
-    worst = max(rel.values())
-    if worst > GRAD_REL_TOL or stats > STATS_REL_TOL:
+    gp = runs["plain"][0]
+
+    def l2(run):
+        return {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for (n, _), a, b in zip(named, runs[run][0], gp)}
+
+    rel = l2("kernels")
+    floor = l2("noise") if noise else {n: 0.0 for n in rel}
+    stats = max(rel_max(a, b)[1] for a, b in zip(tree_leaves(runs["kernels"][1]),
+                                                 tree_leaves(runs["plain"][1])))
+    bad = {n: v for n, v in rel.items() if v > max(grad_tol, 2 * floor[n])}
+    if bad or stats > stats_tol:
         raise AssertionError(f"the encoder's gradients or statistics through K7 differ from "
-                             f"the plain chain's: {rel}, stats {stats}")
-    return {"leaves": len(named), "max_leaf_rel_l2": worst,
-            "worst_leaf": max(rel, key=rel.get), "stats_rel_err": stats,
-            "leaf_rel_l2": {k: round(v, 6) for k, v in rel.items()}}
+                             f"the plain chain's: {bad} (floor {floor}), stats {stats}")
+    return {"sequences": int(aa.shape[0]), "leaves": len(named),
+            "max_leaf_rel_l2": max(rel.values()), "worst_leaf": max(rel, key=rel.get),
+            "stats_rel_err": stats, "noise": noise, "max_noise_floor": max(floor.values()),
+            "leaves_within_tol": sum(v <= grad_tol for v in rel.values()),
+            "leaf_rel_l2": {k: [round(v, 8), round(floor[k], 8)] for k, v in rel.items()}}
 
 
 def phase_encoder_training(card: str) -> dict:
@@ -4666,7 +4714,7 @@ def phase_encoder_training(card: str) -> dict:
         # TRAIN_SEQUENCE_ENCODER at bucket 512
         ts0, tcfg, trainer = make(True, False)
         fields = run("train_sequence_encoder", trainer, 512, ENCODER_TRAIN_STEPS, True)
-        if any((v > 0) == (k in K7_F32) for k, v in fields["launches"].items()):
+        if any((v > 0) == (k in K7_F32 + K7_F32_TRAIN) for k, v in fields["launches"].items()):
             raise AssertionError(f"encoder training skipped a kernel or ran a float32 one: "
                                  f"{fields['launches']}")
         result = {k: fields["launches"][k] for k in k7.LAUNCHES}
@@ -7338,6 +7386,446 @@ def phase_f32_dense_eval(card: str) -> dict:
     return {k: v for k, v in launches.items() if k in DENSE_F32_KERNELS}
 
 
+# ----------------------------------------------------------------------
+# training the encoder in float32 (phases 36-37)
+
+F32_ENC_STEPS = 5  # float32 encoder-training steps at bucket 512 (the first warms up)
+F32_ENC_BN_STEPS = 3  # ENCODER_BN_TRAIN_MODE steps
+F32_ENC_GRAD_B = 16  # the gradient check's batch
+F32_ENC_PROFILE_STEPS = 2
+F32_ENC_CLI_SEQUENCES = 128  # the CLI run's training FASTA (lengths 100-1000)
+
+
+def k7_f32_schedule(steps: int, cfg) -> dict:
+    """K7's launches over ``steps`` float32 encoder-training steps: each conv
+    forward and dW once (11), dX on all but conv1 (10), each BatchNorm
+    forward and backward once (10 + 10), the pool and its transpose once;
+    nothing else of K7."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    convs, bns = 1 + 2 * cfg.num_resnet_blocks, 2 * cfg.num_resnet_blocks
+    want = {"masked_conv_fwd_f32": convs, "masked_conv_dx_f32": convs - 1,
+            "masked_conv_dw_f32": convs, "masked_bn_relu_fwd_f32": bns,
+            "masked_bn_relu_bwd_f32": bns, "masked_mean_pool_f32": 1,
+            "masked_mean_pool_bwd_f32": 1}
+    return {k: steps * want.get(k, 0) for k in k7.LAUNCHES}
+
+
+def dw_float64(x, dy, lengths, taps: int, dilation: int):
+    """A masked conv's dW and dbias in float64 on the card: a tap's dW the
+    product of the masked input shifted by the tap with the masked output
+    gradient over every (b, t)."""
+    import torch
+
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    T = x.shape[1]
+    mask = k7.valid_mask(lengths, T).double()
+    xm, gm = x.double() * mask, dy.double() * mask
+    g2 = gm.reshape(-1, gm.shape[2])
+    dw = []
+    for j in range(taps):
+        s = dilation * (j - (taps - 1) // 2)
+        shifted = torch.zeros_like(xm)
+        if abs(s) < T:
+            if s >= 0:
+                shifted[:, :T - s] = xm[:, s:]
+            else:
+                shifted[:, -s:] = xm[:, :T + s]
+        dw.append(shifted.reshape(-1, xm.shape[2]).T @ g2)
+    return torch.stack(dw), g2.sum(0)
+
+
+def phase_k7_f32_train_kernels(card: str) -> dict:
+    """Phase 36: K7's float32 training kernels alone at full width (1,100
+    channels, 5 blocks, 32 sequences at bucket 512, lengths 30-512, one row
+    dropped by the example mask), on random float32 activations and
+    cotangents at the chain's padded pitch: ``masked_conv_dx_f32`` on the 10
+    block convs against the plain float32 autograd (cuDNN, TF32 off) within
+    1e-5 of its largest |value|, zero past each length; ``masked_conv_dw_f32``
+    (dW and dbias) on all 11 against float64 (:func:`dw_float64`) within
+    1e-5; K7-BN's float32 forward and backward on the 10 BatchNorms against
+    the plain float32 BatchNorm (y, running statistics) and the plain
+    backward on the kernel's statistics (dx, dscale, dbias), within 1e-5;
+    the float32 pool transpose bit for bit.  Each the same bits
+    twice.  Times from CUDA events of a step's calls beside the bound (the
+    products these lengths need over the 67 TFLOP/s float32 peak; the BN's
+    and the transpose's bytes over the memory rate), the plain versions'
+    (the backward alone, on a retained graph) and cuDNN's float32
+    ``conv1d_input`` / ``conv1d_weight`` (TF32 off; the library time, never
+    called by the port)."""
+    import numpy as np
+    import torch
+
+    from protnote_tpu_torch.models.layers import gemm_precision, tree_to
+    from protnote_tpu_torch.models.proteinfer import (
+        BN_EPS,
+        BN_MOMENTUM,
+        ProteInferConfig,
+        init_proteinfer,
+        one_hot_sequences,
+    )
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    dev, f32, T = torch.device("cuda"), torch.float32, 512
+    gemm_precision(f32)
+    cfg = ProteInferConfig()
+    params, state = init_proteinfer(torch.Generator().manual_seed(0), cfg)
+    params, state = tree_to(params, dev), tree_to(state, dev)
+    rng = np.random.default_rng(36)
+    lens = k7_lengths(rng, T)
+    lengths = torch.from_numpy(lens).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def act(c, shift=0.0):
+        return k7.pad_pitch(torch.randn(B, T, c, generator=gen, device=dev) + shift)
+
+    ids = torch.from_numpy(rng.integers(0, 21, (B, T))).to(dev)
+    pad_rows = torch.arange(T, device=dev)[None, :] >= lengths[:, None].long()
+    errs = {"dx": [], "dw": [], "db": []}
+    same, dx_zero = True, True
+    dx_calls, dw_calls, plain_dx, plain_dw, lib_dx, lib_dw = [], [], [], [], [], []
+    for name, p, d in k7_convs(params, cfg):
+        w, b = p["kernel"].contiguous(), p["bias"]
+        taps, cin, cout = w.shape
+        pad = d * (taps - 1) // 2
+        x = (k7.pad_pitch(one_hot_sequences(ids, cfg.input_channels, f32)) if name == "conv1"
+             else k7.pad_pitch(torch.relu(act(cin))))
+        dy = act(cout)
+        dw, db = k7.masked_conv_dw_f32_cuda(x, dy, lengths, taps, d)
+        dw2, db2 = k7.masked_conv_dw_f32_cuda(x, dy, lengths, taps, d)
+        same = same and torch.equal(dw, dw2) and torch.equal(db, db2)
+        truth_w, truth_b = dw_float64(x, dy, lengths, taps, d)
+        errs["dw"].append(rel_max(dw, truth_w))
+        errs["db"].append(rel_max(db, truth_b))
+        del truth_w, truth_b, dw2, db2
+        xg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+        y = k7.masked_conv_reference(xg, wg, bg, lengths, d)
+        x_t, dy_t = (t.contiguous().transpose(1, 2).contiguous() for t in (x, dy))
+        w_t = w.permute(2, 1, 0).contiguous()
+        plain_dw.append(lambda y=y, wg=wg, bg=bg, dy=dy: torch.autograd.grad(
+            y, [wg, bg], dy, retain_graph=True))
+        lib_dw.append(lambda x_t=x_t, w_t=w_t, dy_t=dy_t, pad=pad, d=d:
+                      torch.nn.grad.conv1d_weight(x_t, w_t.shape, dy_t, padding=pad, dilation=d))
+        dw_calls.append((x, dy, taps, d))
+        if name != "conv1":
+            dx = k7.masked_conv_dx_f32_cuda(dy, w, lengths, d)
+            same = same and torch.equal(dx, k7.masked_conv_dx_f32_cuda(dy, w, lengths, d))
+            dx_zero = dx_zero and not bool(dx[pad_rows].any())
+            (gx,) = torch.autograd.grad(y, [xg], dy, retain_graph=True)
+            errs["dx"].append(rel_max(dx, gx))
+            del dx, gx
+            plain_dx.append(lambda y=y, xg=xg, dy=dy: torch.autograd.grad(
+                y, [xg], dy, retain_graph=True))
+            lib_dx.append(lambda x_t=x_t, w_t=w_t, dy_t=dy_t, pad=pad, d=d:
+                          torch.nn.grad.conv1d_input(x_t.shape, w_t, dy_t, padding=pad,
+                                                     dilation=d))
+            dx_calls.append((dy, w, d))
+    dx_ms = cuda_time_ms(lambda: [k7.masked_conv_dx_f32_cuda(dy, w, lengths, d)
+                                  for dy, w, d in dx_calls], 3)
+    layouts = [k7.conv_weight_layout_f32(w, dx=True) for _, w, _ in dx_calls]
+    dx_kernel_ms = cuda_time_ms(lambda: [
+        k7.masked_conv_dx_f32_cuda(dy, w, lengths, d, layout=lay)
+        for (dy, w, d), lay in zip(dx_calls, layouts)], 3)
+    dw_ms = cuda_time_ms(lambda: [k7.masked_conv_dw_f32_cuda(x, dy, lengths, taps, d)
+                                  for x, dy, taps, d in dw_calls], 3)
+    dw_plans = [k7._dw_plan_on(lengths, T, taps, d, x.shape[2], dy.shape[2], dev, f32=True)
+                for x, dy, taps, d in dw_calls]
+    flop_dx = k7_flops(lens, T, params, cfg, skip_conv1=True)
+    flop_dw = k7_flops(lens, T, params, cfg)
+    out = {}
+    for key, ms, plain, lib, flop, names in (
+            ("masked_conv_dx_f32", dx_ms, plain_dx, lib_dx, flop_dx, ("dx",)),
+            ("masked_conv_dw_f32", dw_ms, plain_dw, lib_dw, flop_dw, ("dw", "db"))):
+        out[key] = {"max_abs_err": max(e for n in names for e, _ in errs[n]),
+                    "max_rel_err": max(r for n in names for _, r in errs[n]), "ms": ms,
+                    "plain_ms": cuda_time_ms(lambda: [f() for f in plain], 2),
+                    **bound(ops=flop, peak=F32_FLOPS),
+                    "library_ms": cuda_time_ms(lambda: [f() for f in lib], 2),
+                    "tflops": flop / ms / 1e9, "calls": len(plain)}
+        out[key]["share_of_bound"] = out[key]["bound_ms"] / ms
+    out["masked_conv_dx_f32"]["kernel_only_ms"] = dx_kernel_ms
+    out["masked_conv_dx_f32"]["zero_past_lengths"] = dx_zero
+    out["masked_conv_dw_f32"].update(splits=[pl.splits for pl in dw_plans],
+                                     items=[pl.items for pl in dw_plans],
+                                     against="float64")
+    del plain_dx, plain_dw, lib_dx, lib_dw, dx_calls, dw_calls, layouts
+    torch.cuda.empty_cache()
+
+    # K7-BN in float32 on the 10 BatchNorms, one row dropped by the example mask
+    em = torch.ones(B, device=dev)
+    em[3] = 0.0
+    bn_errs = {"y": [], "stats": [], "dx": [], "sums": []}
+    items = []
+    for bp, bs in zip(params["blocks"], state["blocks"]):
+        for n in ("bn1", "bn2"):
+            p, s = bp[n], bs[n]
+            C = p["scale"].shape[0]
+            x, g = act(C, 0.3), act(C)
+            fwd = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                                 lengths, em, BN_EPS, BN_MOMENTUM)
+            y, mean, var, stats, counts = fwd
+            bwd = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+            fwd2 = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"],
+                                                  s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
+            bwd2 = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+            same = same and all(torch.equal(a, c) for a, c in zip(fwd + bwd, fwd2 + bwd2))
+            y0, new0 = k7.masked_bn_relu_reference(x, p, s, lengths, em, BN_EPS, BN_MOMENTUM)
+            dx0, ds0, db0 = k7.masked_bn_relu_backward_reference(x, g, p["scale"], stats, counts,
+                                                                 lengths, em)
+            bn_errs["y"].append(rel_max(y, y0))
+            bn_errs["stats"] += [rel_max(mean, new0["mean"]), rel_max(var, new0["var"])]
+            bn_errs["dx"].append(rel_max(bwd[0], dx0))
+            bn_errs["sums"] += [rel_max(bwd[1], ds0), rel_max(bwd[2], db0)]
+            same = same and not any(bool(padding_channels(t).any()) for t in (y, bwd[0]))
+            items.append((p, s, x, g, stats, counts))
+            del fwd, fwd2, bwd, bwd2, y0, dx0
+    elems = sum(B * T * p["scale"].shape[0] for p, *_ in items)
+    fwd_calls = lambda: [k7.masked_bn_relu_forward_cuda(  # noqa: E731
+        x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, BN_EPS, BN_MOMENTUM)
+        for p, s, x, *_ in items]
+    bwd_calls = lambda: [k7.masked_bn_relu_backward_cuda(  # noqa: E731
+        x, g, p["scale"], stats, counts, lengths, em) for p, s, x, g, stats, counts in items]
+    for key, calls, plain, nbytes, names in (
+            ("masked_bn_relu_fwd_f32", fwd_calls,
+             lambda: [k7.masked_bn_relu_reference(x, p, s, lengths, em, BN_EPS, BN_MOMENTUM)
+                      for p, s, x, *_ in items], 4.0 * 2 * elems, ("y", "stats")),
+            ("masked_bn_relu_bwd_f32", bwd_calls,
+             lambda: [k7.masked_bn_relu_backward_reference(x, g, p["scale"], stats, counts,
+                                                           lengths, em)
+                      for p, s, x, g, stats, counts in items], 4.0 * 3 * elems,
+             ("dx", "sums"))):
+        out[key] = {"max_abs_err": max(e for n in names for e, _ in bn_errs[n]),
+                    "max_rel_err": max(r for n in names for _, r in bn_errs[n]),
+                    "ms": cuda_time_ms(calls, 5), "plain_ms": cuda_time_ms(plain, 3),
+                    **bound(nbytes=nbytes), "library_ms": None, "calls": len(items)}
+        out[key]["device_ms"], out[key]["host_ms"] = device_and_host_ms(calls, 3)
+        out[key]["share_of_bound"] = out[key]["bound_ms"] / out[key]["ms"]
+    del items
+    torch.cuda.empty_cache()
+
+    # the pool's transpose in float32
+    C = cfg.output_channels
+    g = torch.randn(B, C, generator=gen, device=dev)
+    got = k7.masked_mean_pool_backward_cuda(g, lengths, T, f32)
+    again = k7.masked_mean_pool_backward_cuda(g, lengths, T, f32)
+    want = k7.masked_mean_pool_backward_reference(g, lengths, T, f32)
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    pool_equal = torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+    pool_equal = pool_equal and not bool(padding_channels(got).any())
+    kernel = lambda: k7.masked_mean_pool_backward_cuda(g, lengths, T, f32)  # noqa: E731
+    out["masked_mean_pool_bwd_f32"] = {
+        "max_abs_err": float((got - want).abs().max()), "ms": cuda_time_ms(kernel, 20),
+        "plain_ms": cuda_time_ms(lambda: k7.masked_mean_pool_backward_reference(
+            g, lengths, T, f32), 20),
+        **bound(nbytes=4.0 * B * C + 4.0 * B + 4.0 * B * T * got.stride(1)),
+        "library_ms": None, "bit_equal": pool_equal}
+    out["masked_mean_pool_bwd_f32"]["device_ms"], out["masked_mean_pool_bwd_f32"]["host_ms"] = \
+        device_and_host_ms(kernel, 20)
+    ptxas = ptxas_by_kernel(load_kernel_library("masked_conv_f32").build_log,
+                            r"(conv_f32_kernel|conv_dw_f32_kernel)")
+    log("k7_f32_train", batch=B, bucket=T, lengths=[int(n) for n in lens], kernels=out,
+        same_bits=same, ptxas=ptxas, rel_tol=K7_F32_REL_TOL, card=card)
+    worst = {k: max(r for _, r in v) for k, v in {**errs, **bn_errs}.items()}
+    if any(v > K7_F32_REL_TOL for v in worst.values()) or not same or not dx_zero or \
+            not pool_equal:
+        raise AssertionError(f"K7's float32 training kernels disagree with their plain "
+                             f"versions: {worst}, same bits {same}, dX zero past the lengths "
+                             f"{dx_zero}, pool transpose equal {pool_equal}")
+    return out
+
+
+def phase_f32_encoder_training(card: str) -> dict:
+    """Phase 37: training the encoder in float32 (MIXED_PRECISION False) at
+    full width through ``Trainer.train``: ``train_sequence_encoder`` for
+    F32_ENC_STEPS steps of 32 sequences at bucket 512 through the decomposed
+    float32 scorer (step ms, seqs/s, peak memory, the launches against
+    :func:`k7_f32_schedule` and no bf16 K7 kernel, the scorer's float32
+    kernels against ``f32_train_schedule``), two profiled steps (idle share,
+    kernel ms by name), the encoder's gradients and new running statistics
+    on a 16-sequence batch with one row dropped by the example mask against
+    the plain float32 chain under one fixed cotangent (1e-4 in L2 by leaf,
+    statistics 1e-5); then ``cli/main.py --train-path-name`` with
+    ``--override MIXED_PRECISION False TRAIN_SEQUENCE_ENCODER True`` on a
+    128-sequence FASTA (one epoch, K7's float32 training kernels launched);
+    then ``encoder_bn_train_mode`` alone for F32_ENC_BN_STEPS steps (the
+    running statistics move, the weights do not, no backward kernel of K7).
+    Returns the first run's launches of K7's float32 kernels."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from protnote_tpu_torch.cli import main as train_cli
+    from protnote_tpu_torch.core.config import (
+        generate_label_embedding_path,
+        load_config,
+        resolve_paths,
+    )
+    from protnote_tpu_torch.data.batching import BucketBatcher
+    from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.ops import streaming_train as st
+    from protnote_tpu_torch.train.losses import get_loss_fn
+    from protnote_tpu_torch.train.optim import Optimizer, tree_leaves
+    from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
+    from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, _ = train_datasets(tmp)
+        pi_cfg, pn_cfg, ts = f32_models()
+
+        def make(train_encoder: bool, bn_train: bool):
+            opt = Optimizer(TRAIN_PARAMS)
+            ts0 = init_train_state(ts["trainable"]["protnote"], ts["model_state"],
+                                   ts["enc_params"], ts["enc_state"], opt,
+                                   train_sequence_encoder=train_encoder)
+            tcfg = TrainerConfig(num_epochs=1, decision_threshold=THRESHOLD, estimate_map=True,
+                                 checkpoint_dir=tmp, run_name="f32_encoder")
+            return Trainer(ts0, pi_cfg, pn_cfg, tcfg, device=dev,
+                           loss_fn=get_loss_fn(TRAIN_PARAMS), optimizer=opt,
+                           train_sequence_encoder=train_encoder, encoder_bn_train_mode=bn_train)
+
+        def batcher(seed=42):
+            return BucketBatcher(train_ds, TRAIN_B, buckets=(512,), shuffle=True,
+                                 drop_last=True, seed=seed, device_label_gather=True)
+
+        def run(name, trainer, steps_n):
+            steps, step_fn = [], trainer._train_step
+
+            def timed_step(ts_, batch, g):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts_, m = step_fn(ts_, batch, g)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t, float(m["loss"]), float(m["grad_norm"])))
+                return ts_, m
+
+            trainer._train_step = timed_step
+            reset_k7_launches()
+            for k in st.LAUNCHES:
+                st.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train(FirstBatches(batcher(), steps_n), None)
+            torch.cuda.synchronize()
+            trainer._train_step = step_fn
+            losses = [x[1] for x in steps]
+            med = statistics.median([x[0] for x in steps[1:]] or [steps[0][0]])
+            fields = dict(steps=len(steps), sequences_per_step=TRAIN_B, bucket=512,
+                          step_losses=losses, grad_norms=[x[2] for x in steps],
+                          first_step_ms=steps[0][0] * 1e3, median_warm_step_ms=med * 1e3,
+                          seqs_per_s=TRAIN_B / med,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                          k7_launches=dict(k7.LAUNCHES),
+                          scorer_launches={k: v for k, v in st.LAUNCHES.items() if v})
+            if len(steps) != steps_n or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"float32 encoder training {name}: {fields}")
+            return fields
+
+        # TRAIN_SEQUENCE_ENCODER in float32
+        trainer = make(True, False)
+        fields = run("train_sequence_encoder", trainer, F32_ENC_STEPS)
+        want = k7_f32_schedule(F32_ENC_STEPS, pi_cfg)
+        if fields["k7_launches"] != want or \
+                fields["scorer_launches"] != f32_train_schedule(F32_ENC_STEPS, False):
+            raise AssertionError(f"float32 encoder training's launches {fields['k7_launches']}"
+                                 f" (schedule {want}), scorer {fields['scorer_launches']}")
+        result = {k: fields["k7_launches"][k] for k in K7_F32 + K7_F32_TRAIN}
+        placed = []
+        matrix = trainer._label_matrix_for(train_ds)
+        for b in batcher(seed=7):
+            placed.append(trainer._place(batch_to_device_dict(b, dev), matrix))
+            if len(placed) == F32_ENC_PROFILE_STEPS:
+                break
+        gen = torch.Generator(device=dev).manual_seed(1)
+        it = iter(placed)
+        step_fn = trainer._train_step
+
+        def one_step():
+            trainer.ts, _ = step_fn(trainer.ts, next(it), gen)
+
+        wall, busy, top = device_profile(one_step, F32_ENC_PROFILE_STEPS)
+        n = F32_ENC_PROFILE_STEPS
+        fields.update(profile_wall_ms_per_step=wall * 1e3 / n,
+                      profile_device_busy_ms_per_step=None if busy is None else busy * 1e3 / n,
+                      idle_share=None if busy is None else 1.0 - busy / wall,
+                      top_kernels_ms_per_step=top)
+        grad_batch = {k: placed[0][k][:F32_ENC_GRAD_B].clone()
+                      for k in ("aa_ids", "lengths", "example_mask")}
+        grad_batch["example_mask"][3] = 0.0
+        del placed, it
+        torch.cuda.empty_cache()
+        fields["grad_check"] = encoder_grad_check(trainer, grad_batch, pi_cfg, torch.float32,
+                                                  F32_GRAD_L2_TOL, K7_F32_REL_TOL, F32_Z_NOISE)
+        log("f32_encoder_train", run="train_sequence_encoder", **fields, card=card)
+        summary["train_sequence_encoder"] = {
+            k: fields[k] for k in ("median_warm_step_ms", "seqs_per_s", "peak_mem_gb",
+                                   "idle_share")}
+        summary["grad_check_worst"] = fields["grad_check"]["max_leaf_rel_l2"]
+        summary["stats_rel_err"] = fields["grad_check"]["stats_rel_err"]
+        del trainer, grad_batch
+        torch.cuda.empty_cache()
+
+        # ENCODER_BN_TRAIN_MODE alone: the encoder frozen, its BatchNorm on batch statistics
+        trainer = make(False, True)
+        fields = run("encoder_bn_train_mode", trainer, F32_ENC_BN_STEPS)
+        launches = fields["k7_launches"]
+        moved = max(float((x - y.to(dev)).abs().max())
+                    for x, y in zip(tree_leaves(trainer.ts["enc_state"]),
+                                    tree_leaves(ts["enc_state"])))
+        frozen = all(torch.equal(x, y.to(dev)) for x, y in zip(
+            tree_leaves(trainer.ts["enc_params"]), tree_leaves(ts["enc_params"])))
+        bn_want = {k: F32_ENC_BN_STEPS * v for k, v in (
+            ("masked_conv_fwd_f32", 1 + 2 * pi_cfg.num_resnet_blocks),
+            ("masked_bn_relu_fwd_f32", 2 * pi_cfg.num_resnet_blocks),
+            ("masked_mean_pool_f32", 1))}
+        if launches != {k: bn_want.get(k, 0) for k in launches} or moved == 0.0 or not frozen:
+            raise AssertionError(f"float32 ENCODER_BN_TRAIN_MODE: launches {launches}, running "
+                                 f"statistics moved {moved}, weights frozen {frozen}")
+        log("f32_encoder_train", run="encoder_bn_train_mode", **fields, stats_moved=moved,
+            card=card)
+        summary["bn_train_mode_step_ms"] = fields["median_warm_step_ms"]
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the CLI: cli/main.py training with the encoder in float32
+    with tempfile.TemporaryDirectory() as tmp, protnote_env(tmp):
+        config = resolve_paths(load_config())
+        paths = config["paths_resolved"]
+        emb_path = generate_label_embedding_path(config["params"],
+                                                 paths["GO_BASE_LABEL_EMBEDDING_PATH"])
+        _, _, cache = label_cache()
+        LabelEmbeddingCache.save(emb_path, cache.embeddings, cache.ids, cache.description_types,
+                                 cache.descriptions, cache.token_counts)
+        del cache
+        write_fasta(paths["TRAIN_DATA_PATH"], F32_ENC_CLI_SEQUENCES, 38, labeled=True)
+        reset_k7_launches()
+        t0 = time.perf_counter()
+        metrics = train_cli.main(["--train-path-name", "TRAIN_DATA_PATH", "--override",
+                                  "MIXED_PRECISION", "False", "TRAIN_SEQUENCE_ENCODER", "True",
+                                  "NUM_EPOCHS", "1", "EXTRACT_VOCABULARIES_FROM", "null"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(k7.LAUNCHES)
+        history = metrics["train_summary"]["history"]
+        cli = {"seconds": cli_s, "sequences": F32_ENC_CLI_SEQUENCES, "epochs": len(history),
+               "train_loss": history[-1].get("loss") if history else None,
+               "launches": {k: v for k, v in launches.items() if v}}
+        log("f32_encoder_train_cli", **cli, card=card)
+        if len(history) != 1 or any(launches[k] <= 0 for k in K7_F32_TRAIN) or any(
+                launches[k] for k in launches if k not in K7_F32 + K7_F32_TRAIN):
+            raise AssertionError(f"cli/main.py float32 encoder training: {cli}")
+        summary["cli_seconds"] = cli_s
+    log("f32_encoder_training", **summary, card=card)
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     phase_device()
@@ -7378,6 +7866,10 @@ def main() -> None:
     for counts in (phase_f32_dense_training(card), phase_f32_dense_eval(card)):
         for k, v in counts.items():
             f32_sd_launches[k] = f32_sd_launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    k7_f32_train_times = phase_k7_f32_train_kernels(card)
+    torch.cuda.empty_cache()
+    f32_enc_launches = phase_f32_encoder_training(card)
     torch.cuda.empty_cache()
     k3_times = phase_k3(card)
     bf16_metrics = phase_eval(card, k3_times)
@@ -7546,7 +8038,16 @@ def main() -> None:
         ("bn_relu_dropout_forward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
         ("bn_relu_dropout_backward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
         ("bias_relu_dropout_forward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56"),
-        ("bias_relu_dropout_backward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56")]]}),
+        ("bias_relu_dropout_backward_f32", "bn_relu", "protnote_tpu/ops/pair_scorer.py:56")]] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": f32_enc_launches[k],
+        **{f: k7_f32_train_times[k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep in (
+        ("masked_conv_dx_f32", "masked_conv_f32", "protnote_tpu/models/proteinfer.py:127"),
+        ("masked_conv_dw_f32", "masked_conv_f32", "protnote_tpu/models/proteinfer.py:127"),
+        ("masked_bn_relu_fwd_f32", "masked_bn", "protnote_tpu/models/layers.py:102"),
+        ("masked_bn_relu_bwd_f32", "masked_bn", "protnote_tpu/models/layers.py:102"),
+        ("masked_mean_pool_bwd_f32", "masked_pool", "protnote_tpu/models/proteinfer.py:208"))]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -152,27 +152,22 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
 # what MIXED_PRECISION False still refuses on the card (those kernels take
 # bfloat16), by ROADMAP item
 FLOAT32_ON_CARD = {
-    "encoder": "training the encoder or its BatchNorm (TRAIN_SEQUENCE_ENCODER, "
-               "ENCODER_BN_TRAIN_MODE) in float32 on the card (K7's backward and train-mode "
-               "kernels take bfloat16) is ROADMAP.md queue 1, item 16c: train it with "
-               "MIXED_PRECISION True, or with --device cpu",
     "tower": "the label tower in float32 on the card (K8a, K8b and their backward take "
              "bfloat16) is ROADMAP.md queue 1, item 16d: run it with MIXED_PRECISION True",
 }
 
 
-def refuse_float32_on_card(params: dict, device, train: bool = False,
-                           tower: bool = False) -> None:
+def refuse_float32_on_card(params: dict, device, tower: bool = False) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what
     ``MIXED_PRECISION False`` does not run on the card, before any data or
-    weights are read: training the encoder (16c) and (``tower``: a caller
-    that runs it) the label tower (16d).  Training through every scorer
-    (decomposed, streamed and dense), evaluation (``PAIR_BACKEND dense``
-    too), serving and ``predict`` run."""
+    weights are read: (``tower``: a caller that runs it) the label tower
+    (16d).  Training through every scorer (decomposed, streamed and dense),
+    training the encoder and its BatchNorm (``TRAIN_SEQUENCE_ENCODER``,
+    ``ENCODER_BN_TRAIN_MODE``: K7's float32 backward and train-mode
+    kernels), evaluation (``PAIR_BACKEND dense`` too), serving and
+    ``predict`` run."""
     if not str(device).startswith("cuda") or params.get("MIXED_PRECISION", True):
         return
-    if train and (params.get("TRAIN_SEQUENCE_ENCODER") or params.get("ENCODER_BN_TRAIN_MODE")):
-        raise NotImplementedError(FLOAT32_ON_CARD["encoder"])
     if tower and (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
         raise NotImplementedError(FLOAT32_ON_CARD["tower"])
 
@@ -191,7 +186,6 @@ def build_inference_model(config: dict, params: dict, paths: dict, cache, run_na
     if mesh is not None:
         raise NotImplementedError("label-sharded inference over several cards comes with "
                                   "the multi-GPU slice (ROADMAP.md queue 1, item 9)")
-    refuse_float32_on_card(params, device)
     pi_cfg, pn_cfg, ts = build_models(config, cache.dim, log=log)
     trainer = Trainer(ts, pi_cfg, pn_cfg, TrainerConfig.from_params(params, run_name=run_name),
                       device=device, loss_fn=loss_fn,

@@ -56,9 +56,11 @@ raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 in float32; ``PAIR_BACKEND dense`` through the dense scorer's float32
 kernels) and trains through every scorer (the decomposed one: K4, K4-bwd
 and K5 in float32; the streamed one: K6 in float32 too; the dense one: its
-first layer, prod GEMMs and K5 forms in float32); training the encoder and
-the label tower in float32 on the card raise before any work, naming
-ROADMAP items 16c and 16d (``cli/_model_setup.py:refuse_float32_on_card``).
+first layer, prod GEMMs and K5 forms in float32) and, with
+``TRAIN_SEQUENCE_ENCODER`` or ``ENCODER_BN_TRAIN_MODE``, the encoder (K7's
+float32 dX, dW and dbias, train-mode BatchNorm and pool transpose);
+training the label tower in float32 on the card raises before any work,
+naming ROADMAP item 16d (``cli/_model_setup.py:refuse_float32_on_card``).
 """
 
 from __future__ import annotations
@@ -121,7 +123,7 @@ def refuse_unported(args, params: Dict) -> None:
                                   "slice (ROADMAP.md queue 1, item 9)")
     from protnote_tpu_torch.cli._model_setup import refuse_float32_on_card
 
-    refuse_float32_on_card(params, args.device, train=bool(args.train_path_name), tower=True)
+    refuse_float32_on_card(params, args.device, tower=True)
 
 
 def load_setup(args):

@@ -1,6 +1,7 @@
-// K7's forward in float32 for Hopper (sm_90a): the ProteInfer encoder's
-// masked dilated conv at full float32 precision (its pool is
-// csrc/masked_pool.cu's masked_mean_pool_f32).
+// K7 in float32 for Hopper (sm_90a): the ProteInfer encoder's masked
+// dilated conv at full float32 precision, forward, dX and dW (its pool is
+// csrc/masked_pool.cu's masked_mean_pool_f32, its train-mode BatchNorm
+// csrc/masked_bn.cu's _f32 entry points).
 //
 // Replaces the TPU op chain protnote_tpu/models/proteinfer.py:_masked_conv
 // (line 127) as proteinfer_embed (line 147) chains it when the encoder
@@ -8,7 +9,11 @@
 // evaluation, protnote_tpu/cli/test_proteinfer.py, and MIXED_PRECISION
 // False), where XLA runs the conv at Precision.HIGHEST: `x * mask`, a "same"
 // dilated conv summed in float32, `+ bias`, `* mask`, eval-mode BatchNorm +
-// ReLU in front of the block convs, the residual add.
+// ReLU in front of the block convs, the residual add; and, when the encoder
+// trains in float32 (TRAIN_SEQUENCE_ENCODER with MIXED_PRECISION False), the
+// conv's vjp: with G = mask * dy,
+//   dX = mask * sum_j sum_n G[t - d (j - half), n] W[j, c, n],
+//   dW[j] = sum_{b, t} (mask x)[t + d (j - half)]^T G[t],  dbias = sum G.
 //
 // masked_conv_forward_f32 is an implicit GEMM on the FP32 FMA pipe, not the
 // tensor cores: wgmma takes no full-float32 input, and TF32 keeps about
@@ -33,11 +38,36 @@
 // at their row pitch (a multiple of 8 channels, 16-byte aligned), the
 // output written at its own.
 //
-// What bounds it: operations.  32 sequences at bucket 512 of the default
-// encoder need 478 GFLOP for these lengths: 7.1 ms at the H100 SXM's 67
-// TFLOP/s of float32 FMA.  Whole 128-row tiles, whole taps and K rounded up
-// to 16 channels add work (the 550-channel convs' last column tile is 422
-// columns short of its 128 x 5).
+// masked_conv_dx_f32 is the same kernel: with the taps reversed (j' = taps
+// - 1 - j), t - d (j - half) = t + d (j' - half), so dX is the forward conv
+// of G with the weights W'[j'] = W[j]^T re-laid (taps, C_out rounded up to
+// 16, C_in rounded up to 128) (ops/masked_conv.py:conv_weight_layout_f32
+// with dx), no bias, no prologue: the input mask is the A tile's zeroing,
+// the output mask the epilogue's.  It writes dX at the padded pitch the
+// BatchNorm's float32 backward reads.
+//
+// masked_conv_dw_f32 is a second FMA-pipe kernel, conv_dw_f32_kernel: dW[j]
+// is a GEMM with M = C_in, N = C_out and K = the positions (b, t) whose
+// output row t and input row t + s (s = d (j - half)) are both valid.  A
+// block owns a 128 x 128 tile of one tap and one split of its K steps (an
+// item of ops/masked_conv.py:dw_step_plan at this kernel's tile and 16
+// positions a step, one sequence a step); each step stages 16 positions of
+// x (rows t + s) and of dy (rows t) in shared memory, the positions past the
+// step's valid count zeroed, two buffers deep, and each thread keeps an 8 x
+// 8 register tile as the forward does.  With one split the block writes dW;
+// with more each writes float32 partials that dw_reduce_f32_kernel adds in
+// split order.  dbias: per-sequence column sums (four interleaved
+// accumulators a column, added in a fixed order), then the sequences added
+// in order.  Every sum runs in one fixed order: two calls give the same
+// bits.
+//
+// What bounds them: operations.  32 sequences at bucket 512 of the default
+// encoder need 478 GFLOP for these lengths in the forward (7.1 ms at the
+// H100 SXM's 67 TFLOP/s of float32 FMA) and about as much for dX (all but
+// conv1) and for dW.  Whole 128-row tiles, whole taps and K rounded up to
+// 16 channels add work to the forward and dX (the 550-channel convs' last
+// column tile is 422 columns short of its 128 x 5); dW's steps follow the
+// valid positions, its tiles are whole.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -215,14 +245,190 @@ __global__ void __launch_bounds__(THREADS, 2) conv_f32_kernel(const Args a) {
     for (int j = 0; j < 8; ++j) {
       const int c = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
       if (c >= a.cout) continue;
-      float v = __fmul_rn(__fadd_rn(acc[i][j], __ldg(a.bias + c)), keep);
+      float v = a.bias == nullptr ? acc[i][j] : __fadd_rn(acc[i][j], __ldg(a.bias + c));
+      v = __fmul_rn(v, keep);
       if (rr != nullptr) v = __fadd_rn(__ldg(rr + c), v);
       yr[c] = v;
     }
   }
 }
 
+// ------------------------------------------------------------------ dW
+
+constexpr int DW_BM = 128;  // input channels of a dW tile
+constexpr int DW_BN = 128;  // output channels of a dW tile
+constexpr int DW_BK = 16;   // positions of a dW K step (ops/masked_conv.py F32_DW_STEP)
+constexpr int SUM_COLS = 128;  // columns of a dbias block
+
+struct DwArgs {
+  const float* x;
+  const float* dy;
+  const int* items;    // ((j * splits + sp) * mtiles + mt) * ntiles + nt
+  const int* offsets;  // (taps * splits + 1): steps of (j, sp) are [offsets[j * splits + sp], next)
+  const int* steps;    // two words a step: b, then t0 | rows << 16 (rows valid from t0)
+  float* partial;      // (splits, taps, cin, cout), splits > 1
+  float* dw;           // (taps, cin, cout)
+  int T, cin, cout, x_pitch, dy_pitch, taps, dilation, mtiles, ntiles, splits;
+};
+
+// Channels c..c+3 of row t of sequence b of a (B, T) float32 tensor at
+// `pitch` (a multiple of 4, on 16 bytes): 0 past C.
+__device__ __forceinline__ float4 load4(const float* base, int pitch, int T, int b, int t, int c,
+                                        int C) {
+  const float* p = base + (static_cast<size_t>(b) * T + t) * pitch + c;
+  if (c + 4 <= C) return __ldg(reinterpret_cast<const float4*>(p));
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (c + e < C) v[e] = __ldg(p + e);
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Block = item: dW[j][m0.., n0..] (or split sp's partial) over its steps.
+__global__ void __launch_bounds__(THREADS, 2) conv_dw_f32_kernel(const DwArgs a) {
+  __shared__ __align__(16) float As[2][DW_BK][DW_BM];  // As[p][c] = x[t0 + p + s, m0 + c]
+  __shared__ __align__(16) float Bs[2][DW_BK][DW_BN];  // Bs[p][n] = dy[t0 + p, n0 + n]
+  const int tid = threadIdx.x;
+  const int code = a.items[blockIdx.x];
+  const int u = code / a.ntiles, v = u / a.mtiles;
+  const int n0 = (code - u * a.ntiles) * DW_BN, m0 = (u - v * a.mtiles) * DW_BM;
+  const int j = v / a.splits, sp = v - j * a.splits;
+  const int k0 = a.offsets[v], steps = a.offsets[v + 1] - k0;
+  const int s = a.dilation * (j - (a.taps - 1) / 2);
+
+  // staging: float4 f = tid + THREADS q is position f / 32, channels 4 (f % 32)
+  float4 ra[2], rb[2];
+  auto load = [&](int step) {
+    const int b = a.steps[2 * (k0 + step)];
+    const int w = a.steps[2 * (k0 + step) + 1];
+    const int t0 = w & 0xffff, rows = w >> 16;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int f = tid + THREADS * q;
+      const int p = f >> 5, c = 4 * (f & 31);
+      const bool in = p < rows;
+      ra[q] = in ? load4(a.x, a.x_pitch, a.T, b, t0 + p + s, m0 + c, a.cin)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      rb[q] = in ? load4(a.dy, a.dy_pitch, a.T, b, t0 + p, n0 + c, a.cout)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int f = tid + THREADS * q;
+      *reinterpret_cast<float4*>(&As[buf][f >> 5][4 * (f & 31)]) = ra[q];
+      *reinterpret_cast<float4*>(&Bs[buf][f >> 5][4 * (f & 31)]) = rb[q];
+    }
+  };
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+
+  if (steps > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int st = 0; st < steps; ++st) {
+    const int cur = st & 1;
+    if (st + 1 < steps) load(st + 1);
+#pragma unroll
+    for (int kk = 0; kk < DW_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + 4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+    }
+    if (st + 1 < steps) store(cur ^ 1);
+    __syncthreads();
+  }
+
+  float* out = a.splits == 1
+                   ? a.dw + static_cast<size_t>(j) * a.cin * a.cout
+                   : a.partial + (static_cast<size_t>(sp) * a.taps + j) * a.cin * a.cout;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (c >= a.cin) continue;
+    float* row = out + static_cast<size_t>(c) * a.cout;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int n = n0 + (jj < 4 ? 4 * tx + jj : 64 + 4 * tx + jj - 4);
+      if (n < a.cout) row[n] = acc[i][jj];
+    }
+  }
+}
+
+// dW = the splits' partials added in split order.
+__global__ void dw_reduce_f32_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                                     long long total, int splits) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float acc = partial[i];
+    for (int sp = 1; sp < splits; ++sp) acc += partial[sp * total + i];
+    dw[i] = acc;
+  }
+}
+
+// Block (column group, b): column n's sum over sequence b's valid rows of
+// dy at `pitch`, four accumulators taking rows t = 0, 1, 2, 3 mod 4, added
+// (a0 + a1) + (a2 + a3).
+__global__ void __launch_bounds__(SUM_COLS)
+seq_col_sums_f32_kernel(const float* __restrict__ dy, const int* __restrict__ lengths,
+                        float* __restrict__ part, int T, int C, int pitch) {
+  const int b = blockIdx.y, n = blockIdx.x * SUM_COLS + threadIdx.x;
+  if (n >= C) return;
+  const int L = valid_length(lengths, b, T);
+  const float* p = dy + static_cast<size_t>(b) * T * pitch + n;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int t = 0;
+  for (; t + 4 <= L; t += 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += __ldg(p + static_cast<size_t>(t + e) * pitch);
+  }
+  for (int e = 0; t + e < L; ++e) acc[e] += __ldg(p + static_cast<size_t>(t + e) * pitch);
+  part[static_cast<size_t>(b) * C + n] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// dbias = the sequences' column sums added in sequence order.
+__global__ void dbias_f32_kernel(const float* __restrict__ part, float* __restrict__ db, int B,
+                                 int C) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= C) return;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) acc += part[static_cast<size_t>(b) * C + n];
+  db[n] = acc;
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+
+// One launch of conv_f32_kernel: `tiles` blocks of the plan after
+// `fill_blocks` blocks for the rows it skips.
+int conv_launch(const Args& a, void* stream) {
+  if (a.B <= 0 || a.T <= 0 || a.cin <= 0 || a.cout <= 0 || a.x_pitch < a.cin ||
+      a.x_pitch % 4 != 0 || a.y_pitch < a.cout || a.k_pad < a.cin || a.k_pad % BK != 0 ||
+      a.n_pad < a.cout || a.n_pad % BN != 0 || a.taps <= 0 || a.dilation <= 0 || a.tiles < 0 ||
+      a.fill_blocks < 0 || (a.bn_inv == nullptr) != (a.bn_shift == nullptr) ||
+      (a.residual != nullptr && a.res_pitch < a.cout) || !aligned16(a.x) || !aligned16(a.wt) ||
+      static_cast<long long>(a.B) * a.T * ((a.cout + 3) / 4) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = a.tiles + a.fill_blocks;
+  if (grid == 0) return 0;
+  conv_f32_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -241,13 +447,7 @@ extern "C" int masked_conv_forward_f32(const void* x, const void* wt, const void
                                        int cout, int x_pitch, int y_pitch, int res_pitch,
                                        int k_pad, int n_pad, int taps, int dilation, int tiles,
                                        int fill_blocks, void* stream) {
-  if (B <= 0 || T <= 0 || cin <= 0 || cout <= 0 || x_pitch < cin || x_pitch % 4 != 0 ||
-      y_pitch < cout || k_pad < cin || k_pad % BK != 0 || n_pad < cout || n_pad % BN != 0 ||
-      taps <= 0 || dilation <= 0 || tiles < 0 || fill_blocks < 0 ||
-      (bn_inv == nullptr) != (bn_shift == nullptr) || (residual != nullptr && res_pitch < cout) ||
-      !aligned16(x) || !aligned16(wt) ||
-      static_cast<long long>(B) * T * ((cout + 3) / 4) > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.x = static_cast<const float*>(x);
   a.wt = static_cast<const float*>(wt);
@@ -261,8 +461,76 @@ extern "C" int masked_conv_forward_f32(const void* x, const void* wt, const void
   a.B = B, a.T = T, a.cin = cin, a.cout = cout, a.x_pitch = x_pitch, a.y_pitch = y_pitch;
   a.res_pitch = res_pitch, a.k_pad = k_pad, a.n_pad = n_pad, a.taps = taps;
   a.dilation = dilation, a.tiles = tiles, a.fill_blocks = fill_blocks;
-  const int grid = tiles + fill_blocks;
-  if (grid == 0) return 0;
-  conv_f32_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return conv_launch(a, stream);
+}
+
+// dX (B, T) rows at dx_pitch, float32, from dy (B, T) rows at dy_pitch (a
+// multiple of 4 channels, dy on 16 bytes), the dX weights wt (taps, k_pad,
+// n_pad): W[taps - 1 - j]^T zero-padded, k_pad (C_out) a multiple of 16,
+// n_pad (C_in) of 128, the plan's `tiles` tile codes over C_in columns and
+// `fill_blocks` blocks for the rows it skips.  Returns a CUDA error.
+extern "C" int masked_conv_dx_f32(const void* dy, const void* wt, const void* lengths,
+                                  const void* plan, void* dx, int B, int T, int cin, int cout,
+                                  int dy_pitch, int dx_pitch, int k_pad, int n_pad, int taps,
+                                  int dilation, int tiles, int fill_blocks, void* stream) {
+  Args a{};
+  a.x = static_cast<const float*>(dy);
+  a.wt = static_cast<const float*>(wt);
+  a.lengths = static_cast<const int*>(lengths);
+  a.plan = static_cast<const int*>(plan);
+  a.y = static_cast<float*>(dx);
+  a.B = B, a.T = T, a.cin = cout, a.cout = cin, a.x_pitch = dy_pitch, a.y_pitch = dx_pitch;
+  a.k_pad = k_pad, a.n_pad = n_pad, a.taps = taps, a.dilation = dilation, a.tiles = tiles;
+  a.fill_blocks = fill_blocks;
+  return conv_launch(a, stream);
+}
+
+// dW (taps, cin, cout) and dbias (cout,) float32 from the conv input x (B,
+// T) rows at x_pitch and dy (B, T) rows at dy_pitch (both multiples of 4
+// channels, on 16 bytes), the plan of ops/masked_conv.py:dw_step_plan at
+// 128 x 128 tiles and 16 positions a step (its n_items item codes, then
+// taps * splits + 1 offsets, then the steps), one block an item; partial is
+// (splits, taps, cin, cout) float32 scratch (unused with one split) and
+// bias_part (B, cout).  Returns a CUDA error.
+extern "C" int masked_conv_dw_f32(const void* x, const void* dy, const void* lengths,
+                                  const void* plan, void* partial, void* bias_part, void* dw,
+                                  void* db, int B, int T, int cin, int cout, int x_pitch,
+                                  int dy_pitch, int taps, int dilation, int splits, int n_items,
+                                  void* stream) {
+  const int mtiles = (cin + DW_BM - 1) / DW_BM, ntiles = (cout + DW_BN - 1) / DW_BN;
+  if (B <= 0 || B > 65535 || T <= 0 || T > 0xffff || cin <= 0 || cout <= 0 || taps <= 0 ||
+      dilation <= 0 || splits <= 0 || x_pitch < cin || x_pitch % 4 != 0 || dy_pitch < cout ||
+      dy_pitch % 4 != 0 || n_items != taps * splits * mtiles * ntiles || plan == nullptr ||
+      (splits > 1 && partial == nullptr) || !aligned16(x) || !aligned16(dy))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DwArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.dy = static_cast<const float*>(dy);
+  a.items = static_cast<const int*>(plan);
+  a.offsets = a.items + n_items;
+  a.steps = a.offsets + taps * splits + 1;
+  a.partial = static_cast<float*>(partial);
+  a.dw = static_cast<float*>(dw);
+  a.T = T, a.cin = cin, a.cout = cout, a.x_pitch = x_pitch, a.dy_pitch = dy_pitch;
+  a.taps = taps, a.dilation = dilation, a.mtiles = mtiles, a.ntiles = ntiles;
+  a.splits = splits;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  conv_dw_f32_kernel<<<n_items, THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1) {
+    const long long total = static_cast<long long>(taps) * cin * cout;
+    const long long blocks = (total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096;
+    dw_reduce_f32_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+        static_cast<const float*>(partial), a.dw, total, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  seq_col_sums_f32_kernel<<<dim3((cout + SUM_COLS - 1) / SUM_COLS, B), SUM_COLS, 0, s>>>(
+      a.dy, static_cast<const int*>(lengths), static_cast<float*>(bias_part), T, cout, dy_pitch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dbias_f32_kernel<<<(cout + 255) / 256, 256, 0, s>>>(static_cast<const float*>(bias_part),
+                                                      static_cast<float*>(db), B, cout);
   return static_cast<int>(cudaGetLastError());
 }

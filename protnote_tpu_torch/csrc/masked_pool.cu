@@ -47,6 +47,16 @@
 // times 0 on the rows past it (the plain version's `* mask` in bf16, a
 // signed zero), and 0 in the padding channels.  The thread forms its two
 // 16-byte words once and stores one of them a row.
+//
+// masked_mean_pool_backward_f32, one launch: the same transpose in float32
+// (the encoder training in float32, MIXED_PRECISION False), where nothing is
+// rounded: __fdiv_rn(g, max(length, 1)) on the valid rows, that value times
+// 0 past them, 0 in the padding channels, at the padded pitch the last
+// float32 conv's backward (csrc/masked_conv_f32.cu:masked_conv_dx_f32 and
+// masked_conv_dw_f32) reads.  A thread 8 channels as two float4 words, each
+// formed once and stored a row.  Bound by bytes: every row of the (B, T, C)
+// float32 gradient at the padded pitch written once (72.4 MB at pitch
+// 1,104 for 32 sequences at bucket 512: 0.0216 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,6 +259,41 @@ pool_backward_kernel(const float* __restrict__ g, const int* __restrict__ length
     if (r0 + u < T) o[static_cast<size_t>(u) * step] = r0 + u < L ? val : zero;
 }
 
+// Block (chunk, b) of the float32 transpose: the bf16 kernel's rows and
+// lanes, a lane's 8 channels stored as two float4 words a row.
+__global__ void __launch_bounds__(MAX_THREADS)
+pool_backward_f32_kernel(const float* __restrict__ g, const int* __restrict__ lengths,
+                         float* __restrict__ dx, int T, int C, int pitch, int lanes) {
+  const int b = blockIdx.y;
+  const int grp = threadIdx.x / lanes, lane = threadIdx.x - grp * lanes;
+  if (grp >= GROUPS) return;
+  const int c0 = lane * LANE_CHANNELS;
+  const int L = valid_length(lengths, b, T);
+  const float d = fmaxf(static_cast<float>(lengths[b]), 1.f);
+  const float* gb = g + static_cast<size_t>(b) * C;
+  float v[8], z[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool in = c0 + j < C;
+    v[j] = in ? __fdiv_rn(__ldg(gb + c0 + j), d) : 0.f;
+    z[j] = in ? __fmul_rn(v[j], 0.f) : 0.f;
+  }
+  const float4 val0 = make_float4(v[0], v[1], v[2], v[3]);
+  const float4 val1 = make_float4(v[4], v[5], v[6], v[7]);
+  const float4 zero0 = make_float4(z[0], z[1], z[2], z[3]);
+  const float4 zero1 = make_float4(z[4], z[5], z[6], z[7]);
+  const int r0 = blockIdx.x * BWD_ROWS + grp * BWD_GROUP_ROWS;
+  float4* o = reinterpret_cast<float4*>(dx + (static_cast<size_t>(b) * T + r0) * pitch + c0);
+  const int step = pitch / 4;
+#pragma unroll
+  for (int u = 0; u < BWD_GROUP_ROWS; ++u) {
+    if (r0 + u >= T) continue;
+    const bool in = r0 + u < L;
+    o[static_cast<size_t>(u) * step] = in ? val0 : zero0;
+    o[static_cast<size_t>(u) * step + 1] = in ? val1 : zero1;
+  }
+}
+
 // The widest load of 8 channels that every row start allows: 8 elements
 // (16 bytes) where the base and the pitch are multiples of them, else 4, 2,
 // 1.
@@ -316,5 +361,23 @@ extern "C" int masked_mean_pool_backward(const void* g, const void* lengths, voi
                                                 static_cast<const int*>(lengths),
                                                 static_cast<__nv_bfloat16*>(dx), T, C, pitch,
                                                 pitch / LANE_CHANNELS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx (B, T, C) float32 at `pitch` (a multiple of 8 channels, dx on 16
+// bytes; the padding channels are written too) from g (B, C) float32 and
+// lengths (B,) int32.  One launch; returns a CUDA error.
+extern "C" int masked_mean_pool_backward_f32(const void* g, const void* lengths, void* dx, int B,
+                                             int T, int C, int pitch, void* stream) {
+  const int lanes = (C + LANE_CHANNELS - 1) / LANE_CHANNELS;
+  if (B <= 0 || B > 65535 || T <= 0 || C <= 0 || pitch < C || pitch % LANE_CHANNELS != 0 ||
+      lanes > MAX_LANES || reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (GROUPS * (pitch / LANE_CHANNELS) + 31) / 32 * 32;
+  if (threads > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + BWD_ROWS - 1) / BWD_ROWS, B);
+  pool_backward_f32_kernel<<<grid, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const int*>(lengths), static_cast<float*>(dx), T,
+      C, pitch, pitch / LANE_CHANNELS);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,8 +14,9 @@ before the mask)
 and followed by a residual add in the compute dtype.  The embedding is the
 masked mean pool of the last block's output over ``max(length, 1)``.
 
-Five hand-written CUDA sources carry it on the card (bf16; the eval
-forward also in float32):
+Five hand-written CUDA sources carry it on the card, in bf16 and in
+float32 (``MIXED_PRECISION False``: the forward, its backward and the
+train-mode BatchNorm):
 
 * ``csrc/masked_conv.cu``: ``masked_conv_forward``, an implicit GEMM on
   TMA + wgmma (``csrc/masked_conv.cuh``: persistent, warp-specialised, A
@@ -25,11 +26,16 @@ forward also in float32):
   in float32 on the FMA pipe (128 x 128 tiles of the host plan, 16-channel
   K steps staged in shared memory, an 8 x 8 register tile a thread), for an
   encoder that computes in float32 as JAX does at ``Precision.HIGHEST``;
+  ``masked_conv_dx_f32``, the same kernel with the taps reversed over the
+  dX layout (:func:`conv_weight_layout_f32` with ``dx``); and
+  ``masked_conv_dw_f32`` (dW a tap on the FMA pipe over 16-position K
+  steps of :func:`dw_step_plan` at its 128 x 128 tile, the splits summed in
+  order; dbias);
 * ``csrc/masked_pool.cu``: ``masked_mean_pool`` (a block a sequence's
   valid rows over 128 channels, 64 rows at once; :func:`pool_plan`), its
-  float32 form ``masked_mean_pool_f32`` and its transpose
-  ``masked_mean_pool_backward``, which writes the gradient at the padded
-  pitch the last conv's backward reads;
+  float32 form ``masked_mean_pool_f32`` and its transposes
+  ``masked_mean_pool_backward`` and ``_f32``, which write the gradient at
+  the padded pitch the last conv's backward reads;
 * ``csrc/masked_conv_bwd.cu``: ``masked_conv_dx`` (the transposed dilated
   conv on the forward's mainloop, masks on both sides) and
   ``masked_conv_dw`` (dW a tap on TMA + wgmma over the K steps of a
@@ -37,7 +43,8 @@ forward also in float32):
 * ``csrc/masked_bn.cu``: the train-mode masked BN + ReLU of the JAX
   ``batchnorm_apply(train=True, reduce_axes=(0, 1), mask, count)`` with its
   count rule (:func:`bn_mask_and_count`), forward and backward, two
-  launches each on the grids of :func:`bn_plan`.
+  launches each on the grids of :func:`bn_plan`, in bf16 and float32
+  (``_f32``: the same kernels on float32 rows, nothing rounded to bf16).
 
 The conv kernels read their input through TMA, which takes rows that start
 on 16 bytes: an activation is a strided ``(B, T, C)`` tensor whose rows lie
@@ -57,17 +64,17 @@ read back once a tensor).
 :func:`masked_mean_pool` dispatch on the device: CPU tensors take the plain
 PyTorch versions (the ``*_reference`` functions, which also run on the card
 as the yardstick), CUDA tensors the kernels, through ``autograd.Function``s
-when a gradient is wanted.  On the card the forward takes bfloat16 or
-float32 (eval mode: a float32 gradient or train-mode BatchNorm raises,
-ROADMAP.md queue 1 item 16c, formerly item 5i) and any other dtype raises; nothing falls back
-to cuDNN.
+when a gradient is wanted.  On the card they take bfloat16 or float32 and
+any other dtype raises; nothing falls back to cuDNN.
 
-Rounding points in the backward: each gradient is rounded to bf16 once,
-after its float32 sum (dX, dW and dbias of a conv; dx of the BN), and the
-master weights receive the bf16 value cast to float32.  JAX's own bf16
+Rounding points in the bf16 backward: each gradient is rounded to bf16
+once, after its float32 sum (dX, dW and dbias of a conv; dx of the BN), and
+the master weights receive the bf16 value cast to float32.  JAX's own bf16
 ``_masked_conv`` cannot be differentiated (its conv's transpose mixes a
 float32 cotangent with a bf16 operand and raises); the port rounds where
-its transposed convs would with the cotangent cast to bf16.
+its transposed convs would with the cotangent cast to bf16.  The float32
+backward rounds nothing to bf16: it is JAX's float32 vjp in another order
+of sums.
 """
 
 from __future__ import annotations
@@ -89,7 +96,9 @@ from protnote_tpu_torch.ops.kernels import call_on_stream, kernel_function
 # caller last set them to 0); one a call of its wrapper.
 LAUNCHES = {"masked_conv_fwd": 0, "masked_mean_pool": 0, "masked_conv_dx": 0,
             "masked_conv_dw": 0, "masked_bn_relu_fwd": 0, "masked_bn_relu_bwd": 0,
-            "masked_mean_pool_bwd": 0, "masked_conv_fwd_f32": 0, "masked_mean_pool_f32": 0}
+            "masked_mean_pool_bwd": 0, "masked_conv_fwd_f32": 0, "masked_mean_pool_f32": 0,
+            "masked_conv_dx_f32": 0, "masked_conv_dw_f32": 0, "masked_bn_relu_fwd_f32": 0,
+            "masked_bn_relu_bwd_f32": 0, "masked_mean_pool_bwd_f32": 0}
 _launch_lock = threading.Lock()
 
 _H100_SMS = 132
@@ -125,6 +134,18 @@ def masked_conv_reference(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
     return y if residual is None else residual + y
 
 
+def masked_conv_backward_reference(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                                   dy: torch.Tensor, lengths: torch.Tensor,
+                                   dilation: int) -> Tuple[torch.Tensor, ...]:
+    """``(dx, dkernel, dbias)``: the vjp of :func:`masked_conv_reference` (no
+    prologue, no residual) at ``dy`` by its autograd, in ``x``'s dtype --
+    the plain version of the conv's backward kernels."""
+    with torch.enable_grad():
+        xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, kernel, bias))
+        y = masked_conv_reference(xg, wg, bg, lengths, dilation)
+        return torch.autograd.grad(y, [xg, wg, bg], dy)
+
+
 def bn_mask_and_count(lengths: torch.Tensor, example_mask: Optional[torch.Tensor],
                       T: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX count rule (``proteinfer_embed``): the (B, T, 1) statistics
@@ -156,6 +177,27 @@ def masked_bn_relu_reference(x: torch.Tensor, p: Params, s: Params, lengths: tor
     return torch.relu(y), new_state
 
 
+def masked_bn_relu_backward_reference(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                                      stats: torch.Tensor, counts: torch.Tensor,
+                                      lengths: torch.Tensor,
+                                      example_mask: Optional[torch.Tensor]
+                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The function of ``masked_bn_relu_backward`` in eager PyTorch, on the
+    same inputs: ``(dx in x's dtype, dscale, dbias)`` from the forward's
+    ``stats`` (5, C) = mean, var, rstd, inv, shift and ``counts`` (n,
+    n_valid), with the ReLU's gate the forward's ``x.dtype(x * inv + shift)
+    > 0`` (the autodiff of the BatchNorm, whose variance's derivative through
+    the mean is zero under the count rule)."""
+    mean, _, rstd, inv, shift = stats
+    xf, g = x.float(), dy.float()
+    gz = torch.where((xf * inv + shift).to(x.dtype) > 0, g, torch.zeros_like(g))
+    xc = xf - mean
+    G, Gx = gz.sum((0, 1)), (gz * xc).sum((0, 1))
+    m, _ = bn_mask_and_count(lengths, example_mask, x.shape[1])
+    dx = inv * gz + m / counts[0] * (-inv * G - scale * rstd * rstd * rstd * Gx * xc)
+    return dx.to(x.dtype), Gx * rstd, G
+
+
 def masked_mean_pool_reference(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, C) float32: the sum of the valid rows over ``max(length, 1)``,
     summed in a row-major copy (the same bits at any row pitch)."""
@@ -167,7 +209,7 @@ def masked_mean_pool_reference(feats: torch.Tensor, lengths: torch.Tensor) -> to
 
 def masked_mean_pool_backward_reference(g: torch.Tensor, lengths: torch.Tensor, T: int,
                                         dtype: torch.dtype) -> torch.Tensor:
-    """The pool's transpose: (B, T, C) ``dtype``, ``bf16(g / max(length,
+    """The pool's transpose: (B, T, C) ``dtype``, ``dtype(g / max(length,
     1))`` on the valid rows and that value times 0 past them (the JAX vjp
     of ``feats * mask``, the cast to float32 and the division)."""
     mask = valid_mask(lengths, T).to(dtype)
@@ -186,6 +228,9 @@ F32_BLOCK_M = 128  # positions of a float32 conv tile (csrc/masked_conv_f32.cu B
 F32_BLOCK_N = 128  # columns of a float32 conv tile (BN)
 F32_BLOCK_K = 16  # channels of a float32 K step (BK)
 F32_FILL_BLOCKS = 132  # the most blocks writing the rows a float32 plan skips
+F32_DW_BLOCK = 128  # input and output channels of a float32 dW tile (csrc/masked_conv_f32.cu)
+F32_DW_STEP = 16  # positions of a float32 dW K step (DW_BK)
+F32_DW_BLOCKS_PER_SM = 2  # float32 dW blocks resident an SM (__launch_bounds__)
 
 
 def row_pitch(channels: int) -> int:
@@ -235,13 +280,19 @@ def conv_weight_layout(kernel: torch.Tensor, dx: bool) -> torch.Tensor:
                  (0, -(-k // BLOCK_K) * BLOCK_K - k, 0, -(-n // BLOCK_N) * BLOCK_N - n))
 
 
-def conv_weight_layout_f32(kernel: torch.Tensor) -> torch.Tensor:
+def conv_weight_layout_f32(kernel: torch.Tensor, dx: bool = False) -> torch.Tensor:
     """The float32 conv kernel's B operand from a JAX-layout kernel (taps,
-    C_in, C_out): ``(taps, k_pad, n_pad)`` float32, W[j] as it is (C_out
-    contiguous), zero-padded to C_in rounded up to 16 and C_out to 128."""
-    taps, cin, cout = kernel.shape
-    return F.pad(kernel.float(), (0, -(-cout // F32_BLOCK_N) * F32_BLOCK_N - cout,
-                                  0, -(-cin // F32_BLOCK_K) * F32_BLOCK_K - cin)).contiguous()
+    C_in, C_out): ``(taps, k_pad, n_pad)`` float32 with N contiguous,
+    zero-padded to K rounded up to 16 and N to 128 -- W[j] as it is for the
+    forward (K = C_in, N = C_out), W[taps - 1 - j] transposed for dX (K =
+    C_out, N = C_in: the forward conv of the output gradient with the taps
+    reversed)."""
+    w = kernel.float()
+    if dx:
+        w = w.flip(0).transpose(1, 2)
+    _, k, n = w.shape
+    return F.pad(w, (0, -(-n // F32_BLOCK_N) * F32_BLOCK_N - n,
+                     0, -(-k // F32_BLOCK_K) * F32_BLOCK_K - k)).contiguous()
 
 
 def _version(t: torch.Tensor) -> int:
@@ -269,7 +320,8 @@ def weight_layout(kernel: torch.Tensor, dtype: torch.dtype, dx: bool) -> torch.T
     :func:`conv_weight_layout_f32`), cached on the kernel tensor
     (:func:`_cached`)."""
     if dtype == torch.float32:
-        return _cached(kernel, ("layout_f32",), lambda: conv_weight_layout_f32(kernel.detach()))
+        return _cached(kernel, ("layout_f32", dx),
+                       lambda: conv_weight_layout_f32(kernel.detach(), dx))
     return _cached(kernel, ("layout", dx, dtype),
                    lambda: conv_weight_layout(kernel.detach().to(dtype), dx))
 
@@ -333,22 +385,26 @@ DW_BLOCK_N = 192  # output channels of a dW tile (DW_BN): 550 -> 3 x 192, 1100 -
 DW_STEP = 64  # positions of a dW K step (DW_BK), all of one sequence
 
 
-def dw_tiles(taps: int, cin: int, cout: int) -> int:
+def dw_tiles(taps: int, cin: int, cout: int, bm: int = DW_BLOCK_M, bn: int = DW_BLOCK_N) -> int:
     """dW's output tiles: one a (tap, row tile, column tile)."""
-    return taps * -(-cin // DW_BLOCK_M) * -(-cout // DW_BLOCK_N)
+    return taps * -(-cin // bm) * -(-cout // bn)
 
 
-def dw_splits(taps: int, cin: int, cout: int, sms: int = _H100_SMS) -> int:
+def dw_splits(taps: int, cin: int, cout: int, sms: int = _H100_SMS, bm: int = DW_BLOCK_M,
+              bn: int = DW_BLOCK_N) -> int:
     """How many ranges ``masked_conv_dw`` cuts each tap's K steps into: the
     most that keep its work items within one wave of ``sms`` blocks, at
     least one (a step's full width: 9 x 1,100 x 550 has 243 tiles, 1;
     1 x 550 x 1,100 has 30, 4; conv1's 9 x 20 x 1,100 has 54, 2).  Each
-    split past the first costs float32 partials of the whole dW."""
-    return max(1, sms // dw_tiles(taps, cin, cout))
+    split past the first costs float32 partials of the whole dW.  The
+    float32 kernel passes its 128 x 128 tile and the blocks resident at once
+    (two an SM) as ``sms``."""
+    return max(1, sms // dw_tiles(taps, cin, cout, bm, bn))
 
 
 def dw_step_plan(lengths, T: int, taps: int, dilation: int, cin: int, cout: int,
-                 sms: int = _H100_SMS) -> Tuple[np.ndarray, int, int]:
+                 sms: int = _H100_SMS, bm: int = DW_BLOCK_M, bn: int = DW_BLOCK_N,
+                 step: int = DW_STEP) -> Tuple[np.ndarray, int, int]:
     """``masked_conv_dw``'s schedule: ``(plan, splits, n_items)``, plan an
     int32 array of
 
@@ -364,23 +420,24 @@ def dw_step_plan(lengths, T: int, taps: int, dilation: int, cin: int, cout: int,
 
     Tap j (shift s = dilation * (j - (taps - 1) // 2)) needs the positions t
     of sequence b with t < L and 0 <= t + s < L, i.e. [max(0, -s), min(L, L
-    - s)); its steps cover them in (b, t) order, 64 positions at most and
-    never two sequences a step (``rows`` of them valid from t0), and split
-    sp takes steps [floor(sp n / splits), floor((sp + 1) n / splits)) of the
-    tap's n."""
+    - s)); its steps cover them in (b, t) order, ``step`` positions at most
+    (64 for the bf16 kernel, 16 for the float32 one) and never two sequences
+    a step (``rows`` of them valid from t0), and split sp takes steps
+    [floor(sp n / splits), floor((sp + 1) n / splits)) of the tap's n.
+    ``bm`` x ``bn`` is the kernel's tile (input x output channels)."""
     lens = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, T)
     if T > 0xFFFF:
         raise ValueError(f"dW's plan packs a position in 16 bits: T {T} is too long")
-    splits = dw_splits(taps, cin, cout, sms)
-    mtiles, ntiles = -(-cin // DW_BLOCK_M), -(-cout // DW_BLOCK_N)
+    splits = dw_splits(taps, cin, cout, sms, bm, bn)
+    mtiles, ntiles = -(-cin // bm), -(-cout // bn)
     shift = dilation * (np.arange(taps) - (taps - 1) // 2)
     lo = np.maximum(0, -shift)[:, None]  # (taps, 1)
     hi = np.minimum(lens[None, :], lens[None, :] - shift[:, None])  # (taps, B)
-    n = np.maximum(0, -(-(hi - lo) // DW_STEP)).reshape(-1)  # steps of each (tap, sequence)
+    n = np.maximum(0, -(-(hi - lo) // step)).reshape(-1)  # steps of each (tap, sequence)
     pair = np.repeat(np.arange(n.size), n)  # each step's (tap, sequence)
-    t0 = np.repeat(lo, len(lens), axis=1).reshape(-1)[pair] + DW_STEP * (
+    t0 = np.repeat(lo, len(lens), axis=1).reshape(-1)[pair] + step * (
         np.arange(pair.size) - np.repeat(np.cumsum(n) - n, n))
-    rows = np.minimum(DW_STEP, hi.reshape(-1)[pair] - t0)
+    rows = np.minimum(step, hi.reshape(-1)[pair] - t0)
     steps = np.stack([pair % len(lens), t0 | (rows << 16)], axis=1)
     counts = n.reshape(taps, -1).sum(axis=1)  # steps of each tap
     starts = np.concatenate([[0], np.cumsum(counts)])
@@ -398,20 +455,22 @@ def dw_step_plan(lengths, T: int, taps: int, dilation: int, cin: int, cout: int,
 
 
 def _dw_plan_on(lengths: torch.Tensor, T: int, taps: int, dilation: int, cin: int, cout: int,
-                device) -> torch.Tensor:
+                device, f32: bool = False) -> torch.Tensor:
     """:func:`dw_step_plan` as an int32 tensor on ``device`` (``.splits``,
     ``.items``), kept on the lengths tensor as :func:`_plan_on` keeps the
-    conv plans (the same read-back of the lengths)."""
+    conv plans (the same read-back of the lengths); ``f32``: the float32
+    kernel's (128 x 128 tiles, 16-position steps, two blocks an SM)."""
     def make():
         host = (lengths if lengths.device.type == "cpu"
                 else _cached(lengths, "host", lambda: lengths.cpu()))
-        plan, splits, items = dw_step_plan(host.numpy(), T, taps, dilation, cin, cout,
-                                           _num_sms(device))
+        shape = ((F32_DW_BLOCKS_PER_SM * _num_sms(device), F32_DW_BLOCK, F32_DW_BLOCK,
+                  F32_DW_STEP) if f32 else (_num_sms(device),))
+        plan, splits, items = dw_step_plan(host.numpy(), T, taps, dilation, cin, cout, *shape)
         out = torch.from_numpy(plan).pin_memory().to(device, non_blocking=True)
         out.splits, out.items = splits, items
         return out
 
-    return _cached(lengths, ("dw_plan", T, taps, dilation, cin, cout, str(device)), make)
+    return _cached(lengths, ("dw_plan", T, taps, dilation, cin, cout, f32, str(device)), make)
 
 
 @functools.lru_cache(maxsize=None)
@@ -467,11 +526,18 @@ _ARGS = {
     ("masked_pool", "masked_mean_pool"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_pool", "masked_mean_pool_f32"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_pool", "masked_mean_pool_backward"): [_P] * 3 + [_I] * 4 + [_P],
+    ("masked_pool", "masked_mean_pool_backward_f32"): [_P] * 3 + [_I] * 4 + [_P],
     ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
     ("masked_conv_bwd", "masked_conv_dw"): [_P] * 8 + [_I] * 11 + [_P],
+    ("masked_conv_f32", "masked_conv_dx_f32"): [_P] * 5 + [_I] * 12 + [_P],
+    ("masked_conv_f32", "masked_conv_dw_f32"): [_P] * 8 + [_I] * 10 + [_P],
     ("masked_bn", "masked_bn_relu_forward"): [_P, _I] + [_P] * 6 + [_F] * 3 + [_P] * 7
                                              + [_I] * 5 + [_P],
+    ("masked_bn", "masked_bn_relu_forward_f32"): [_P, _I] + [_P] * 6 + [_F] * 3 + [_P] * 7
+                                                 + [_I] * 5 + [_P],
     ("masked_bn", "masked_bn_relu_backward"): [_P, _I, _P, _I] + [_P] * 9 + [_I] * 5 + [_P],
+    ("masked_bn", "masked_bn_relu_backward_f32"): [_P, _I, _P, _I] + [_P] * 9 + [_I] * 5
+                                                  + [_P],
     ("masked_bn", "masked_bn_kernels_launched"): [],
 }
 
@@ -487,19 +553,9 @@ def _launch(library: str, symbol: str, counter: str, device: torch.device, *args
         LAUNCHES[counter] += 1
 
 
-FLOAT32_GRADIENTS = ("the CUDA encoder kernels (K7) run float32 in eval mode only: a float32 "
-                     "gradient or train-mode BatchNorm of the encoder on the card comes with "
-                     "ROADMAP.md queue 1, item 16c (the encoder's training in float32, which "
-                     "took over item 5i); train it with MIXED_PRECISION True")
-
-
-def check_compute_dtype(dtype: torch.dtype, grad: bool = False) -> None:
-    """What the card's K7 kernels take: bfloat16, and float32 without a
-    gradient (``grad``: a gradient, or train-mode BatchNorm, is wanted);
-    float32 with one raises ``NotImplementedError``, any other dtype
-    ``ValueError``."""
-    if dtype == torch.float32 and grad:
-        raise NotImplementedError(FLOAT32_GRADIENTS)
+def check_compute_dtype(dtype: torch.dtype) -> None:
+    """What the card's K7 kernels take, forward, backward and train-mode
+    BatchNorm: bfloat16 or float32; any other dtype raises ``ValueError``."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the CUDA encoder kernels (K7) compute in bfloat16 or float32, "
                          f"not {dtype}")
@@ -661,9 +717,10 @@ def masked_mean_pool_cuda(feats: torch.Tensor, lengths: torch.Tensor) -> torch.T
     return out
 
 
-def masked_mean_pool_backward_cuda(g: torch.Tensor, lengths: torch.Tensor,
-                                   T: int) -> torch.Tensor:
-    """``masked_mean_pool_backward``: the pool's transpose (B, T, C) bf16 at
+def masked_mean_pool_backward_cuda(g: torch.Tensor, lengths: torch.Tensor, T: int,
+                                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``masked_mean_pool_backward`` (bf16) or ``masked_mean_pool_backward_f32``
+    (float32 ``dtype``): the pool's transpose (B, T, C) ``dtype`` at
     :func:`row_pitch` (C), padding channels 0, from float32 ``g`` (B, C),
     every row written once (the last conv's backward reads it as it is)."""
     dev = g.device
@@ -675,10 +732,13 @@ def masked_mean_pool_backward_cuda(g: torch.Tensor, lengths: torch.Tensor,
     B, C = g.shape
     if row_pitch(C) > POOL_MAX_CHANNELS:
         raise ValueError(f"the pool kernels take at most {POOL_MAX_CHANNELS} channels, not {C}")
-    dx = padded_empty(B, T, C, torch.bfloat16, dev)
-    _launch("masked_pool", "masked_mean_pool_backward", "masked_mean_pool_bwd", dev,
-            g.data_ptr(), _lengths_on(lengths, dev).data_ptr(), dx.data_ptr(), B, T, C,
-            dx.stride(1))
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the pool's transpose writes bfloat16 or float32, not {dtype}")
+    f32 = dtype == torch.float32
+    dx = padded_empty(B, T, C, dtype, dev)
+    _launch("masked_pool", "masked_mean_pool_backward" + ("_f32" if f32 else ""),
+            "masked_mean_pool_bwd" + ("_f32" if f32 else ""), dev, g.data_ptr(),
+            _lengths_on(lengths, dev).data_ptr(), dx.data_ptr(), B, T, C, dx.stride(1))
     return dx
 
 
@@ -742,6 +802,75 @@ def masked_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Tensor
     return dw, db
 
 
+def masked_conv_dx_f32_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: torch.Tensor,
+                            dilation: int, layout: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``masked_conv_dx_f32``: the input gradient (B, T, C_in) float32 at
+    :func:`row_pitch` (C_in) (its padding channels not written), where the
+    float32 BatchNorm's backward reads it, of a masked conv from its output
+    gradient ``dy`` (B, T, C_out) float32 at any row pitch (one that is not
+    a multiple of 8 is copied into a padded buffer first) and ``kernel``
+    (taps, C_in, C_out) (or only its shape, with ``layout`` its
+    :func:`conv_weight_layout_f32` with ``dx``).  One launch: the forward's
+    kernel on the dX plan, up to 132 blocks for the rows it skips."""
+    dev, f32 = dy.device, torch.float32
+    if dev.type != "cuda":
+        raise ValueError(f"masked_conv_dx_f32 needs CUDA tensors, not {dev}")
+    B, T, cout = dy.shape
+    taps, cin = kernel.shape[0], kernel.shape[1]
+    if dy.dtype != f32:
+        raise ValueError(f"dy must be float32, not {dy.dtype}")
+    if tuple(kernel.shape) != (taps, cin, cout):
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not take dy {tuple(dy.shape)}")
+    if layout is None:
+        _check("kernel", kernel, (taps, cin, cout), f32, dev)
+        layout = conv_weight_layout_f32(kernel, dx=True)
+    k_pad = -(-cout // F32_BLOCK_K) * F32_BLOCK_K
+    n_pad = -(-cin // F32_BLOCK_N) * F32_BLOCK_N
+    _check("weight layout", layout, (taps, k_pad, n_pad), f32, dev)
+    dyp = pad_pitch(dy)
+    plan = _plan_on(lengths, T, taps, dilation, cin, True, dev, F32_BLOCK_M, F32_BLOCK_N)
+    fill = min(F32_FILL_BLOCKS, -(-plan.skipped * -(-cin // 4) // 256))
+    lengths = _lengths_on(lengths, dev)
+    dx = padded_empty(B, T, cin, f32, dev)
+    _launch("masked_conv_f32", "masked_conv_dx_f32", "masked_conv_dx_f32", dev, dyp.data_ptr(),
+            layout.data_ptr(), lengths.data_ptr(), plan.data_ptr(), dx.data_ptr(), B, T, cin,
+            cout, dyp.stride(1), dx.stride(1), k_pad, n_pad, taps, dilation, plan.tiles, fill)
+    return dx
+
+
+def masked_conv_dw_f32_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Tensor,
+                            taps: int, dilation: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``masked_conv_dw_f32``: ``(dW (taps, C_in, C_out), dbias (C_out,))``
+    float32 from the conv's input ``x`` (B, T, C_in) and output gradient
+    ``dy``, both float32 at any row pitch (one that is not a multiple of 8
+    is copied into a padded buffer first); one block an item of
+    :func:`dw_step_plan` at the float32 kernel's tile, kept on the lengths
+    tensor, then (with more than one split) the ordered sum of the splits
+    and the dbias sums."""
+    B, T, cin = x.shape
+    cout = dy.shape[2]
+    dev, f32 = x.device, torch.float32
+    if dev.type != "cuda":
+        raise ValueError(f"masked_conv_dw_f32 needs CUDA tensors, not {dev}")
+    for name, t, c in (("x", x, cin), ("dy", dy, cout)):
+        if t.device != dev or t.dtype != f32 or tuple(t.shape) != (B, T, c):
+            raise ValueError(f"{name} must be float32 {(B, T, c)} on {dev}, not {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    xp, dyp = pad_pitch(x), pad_pitch(dy)
+    plan = _dw_plan_on(lengths, T, taps, dilation, cin, cout, dev, f32=True)
+    lengths = _lengths_on(lengths, dev)
+    partial = (torch.empty(plan.splits, taps, cin, cout, dtype=f32, device=dev)
+               if plan.splits > 1 else None)
+    bias_part = torch.empty(B, cout, dtype=f32, device=dev)
+    dw = torch.empty(taps, cin, cout, dtype=f32, device=dev)
+    db = torch.empty(cout, dtype=f32, device=dev)
+    _launch("masked_conv_f32", "masked_conv_dw_f32", "masked_conv_dw_f32", dev, xp.data_ptr(),
+            dyp.data_ptr(), lengths.data_ptr(), plan.data_ptr(), _ptr(partial),
+            bias_part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, T, cin, cout, xp.stride(1),
+            dyp.stride(1), taps, dilation, plan.splits, plan.items)
+    return dw, db
+
+
 BN_SLICE = 64  # channels of a BN block's column slice (csrc/masked_bn.cu GROUP)
 BN_MAX_B = 1024  # sequences of the statistics kernel's table (MAX_B)
 BN_SUM_BLOCKS_PER_SM = 2  # the statistics' and gradient sums' blocks an SM
@@ -795,13 +924,14 @@ def _em_on(example_mask: Optional[torch.Tensor], device) -> Optional[torch.Tenso
     return example_mask.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _bn_activation(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
-    """A bf16 ``(B, T, C)`` activation as the BN kernels read it: ``t``
-    itself at a pitch of 8 channels with rows on 16 bytes whose storage
-    holds the last row's padding (the chain's, :func:`padded_empty`), else a
-    copy at :func:`row_pitch` (C)."""
-    if t.device != device or t.dtype != torch.bfloat16 or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be bf16 {tuple(shape)} on {device}, not {t.dtype} "
+def _bn_activation(name: str, t: torch.Tensor, shape, device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A ``dtype`` (bf16 or float32) ``(B, T, C)`` activation as the BN
+    kernels read it: ``t`` itself at a pitch of 8 channels with rows on 16
+    bytes whose storage holds the last row's padding (the chain's,
+    :func:`padded_empty`), else a copy at :func:`row_pitch` (C)."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {device}, not {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
     t = pad_pitch(t)
     B, T, C = t.shape
@@ -814,9 +944,14 @@ def _bn_activation(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
     return t
 
 
-def _bn_shape(B: int, C: int) -> None:
+def _bn_suffix(B: int, dtype: torch.dtype) -> str:
+    """The BN entry points' suffix for ``dtype`` ("" for bf16, "_f32"),
+    after checking the batch and the dtype the kernels take."""
     if B > BN_MAX_B:
         raise ValueError(f"the BN kernels take at most {BN_MAX_B} sequences, not {B}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the BN kernels take bfloat16 or float32, not {dtype}")
+    return "_f32" if dtype == torch.float32 else ""
 
 
 def _f32_vector(name: str, t: torch.Tensor, C: int, device) -> torch.Tensor:
@@ -843,8 +978,9 @@ def masked_bn_relu_forward_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torc
                                 run_mean: torch.Tensor, run_var: torch.Tensor,
                                 lengths: torch.Tensor, example_mask: Optional[torch.Tensor],
                                 eps: float, momentum: float):
-    """``masked_bn_relu_forward``: ``(y, new_mean, new_var, stats, counts)``,
-    y bf16 at :func:`row_pitch` (C) (padding channels 0), ``stats`` (5, C) =
+    """``masked_bn_relu_forward`` (bf16 x) or ``masked_bn_relu_forward_f32``
+    (float32 x): ``(y, new_mean, new_var, stats, counts)``, y in x's dtype
+    at :func:`row_pitch` (C) (padding channels 0), ``stats`` (5, C) =
     mean, var, rstd, inv, shift and ``counts`` (2,) = n, n_valid (float32),
     for the backward.  x at any row pitch (copied unless the pitch is a
     multiple of 8).  The statistics, running statistics, counts and the
@@ -852,8 +988,8 @@ def masked_bn_relu_forward_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torc
     views of it); two launches."""
     B, T, C = x.shape
     dev = x.device
-    _bn_shape(B, C)
-    xp = _bn_activation("x", x, (B, T, C), dev)
+    sfx = _bn_suffix(B, x.dtype)
+    xp = _bn_activation("x", x, (B, T, C), dev, x.dtype)
     vec = [_f32_vector(n, t, C, dev) for n, t in (("scale", scale), ("bias", bias),
                                                   ("running mean", run_mean),
                                                   ("running var", run_var))]
@@ -866,9 +1002,9 @@ def masked_bn_relu_forward_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torc
         (5 * C, C, C, 2, k * (plan.slices + 2 * C)))
     base = scratch.data_ptr()
     chunk_n = base + 4 * (7 * C + 2)  # (slices, chunks), then part (chunks, 2, C)
-    y = padded_empty(B, T, C, torch.bfloat16, dev)
-    _launch("masked_bn", "masked_bn_relu_forward", "masked_bn_relu_fwd", dev, xp.data_ptr(),
-            xp.stride(1), lengths.data_ptr(), _ptr(em), *[t.data_ptr() for t in vec],
+    y = padded_empty(B, T, C, x.dtype, dev)
+    _launch("masked_bn", "masked_bn_relu_forward" + sfx, "masked_bn_relu_fwd" + sfx, dev,
+            xp.data_ptr(), xp.stride(1), lengths.data_ptr(), _ptr(em), *[t.data_ptr() for t in vec],
             float(momentum), float(1.0 - momentum), float(eps), chunk_n + 4 * k * plan.slices,
             chunk_n, counts.data_ptr(), base, new_mean.data_ptr(), new_var.data_ptr(),
             y.data_ptr(), B, T, C, k, plan.apply_rows)
@@ -878,17 +1014,18 @@ def masked_bn_relu_forward_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torc
 def masked_bn_relu_backward_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                                  stats: torch.Tensor, counts: torch.Tensor,
                                  lengths: torch.Tensor, example_mask: Optional[torch.Tensor]):
-    """``masked_bn_relu_backward``: ``(dx bf16 at`` :func:`row_pitch` ``(C),
-    dscale, dbias float32)`` from x and dy at any row pitch (each copied
+    """``masked_bn_relu_backward`` (bf16) or ``_f32`` (float32): ``(dx in x's
+    dtype at`` :func:`row_pitch` ``(C), dscale, dbias float32)`` from x and
+    dy of one dtype at any row pitch (each copied
     unless its pitch is a multiple of 8) and the forward's ``stats`` and
     ``counts``; the ReLU's gate is recomputed from x, y is not read.  dscale,
     dbias and the gradient sums' partials share one allocation; two
     launches."""
     B, T, C = x.shape
     dev = x.device
-    _bn_shape(B, C)
-    xp = _bn_activation("x", x, (B, T, C), dev)
-    dyp = _bn_activation("dy", dy, (B, T, C), dev)
+    sfx = _bn_suffix(B, x.dtype)
+    xp = _bn_activation("x", x, (B, T, C), dev, x.dtype)
+    dyp = _bn_activation("dy", dy, (B, T, C), dev, x.dtype)
     scale = _f32_vector("scale", scale, C, dev)
     _check("stats", stats, (5, C), torch.float32, dev)
     _check("counts", counts, (2,), torch.float32, dev)
@@ -898,10 +1035,10 @@ def masked_bn_relu_backward_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch
     scratch = torch.empty((2 + 2 * plan.sum_chunks) * C, dtype=torch.float32, device=dev)
     dscale, dbias, _ = scratch.split_with_sizes((C, C, 2 * plan.sum_chunks * C))
     base = scratch.data_ptr()  # dscale, dbias, part (chunks, 2, C)
-    dx = padded_empty(B, T, C, torch.bfloat16, dev)
-    _launch("masked_bn", "masked_bn_relu_backward", "masked_bn_relu_bwd", dev, xp.data_ptr(),
-            xp.stride(1), dyp.data_ptr(), dyp.stride(1), lengths.data_ptr(), _ptr(em),
-            scale.data_ptr(), stats.data_ptr(), counts.data_ptr(), base + 8 * C, base,
+    dx = padded_empty(B, T, C, x.dtype, dev)
+    _launch("masked_bn", "masked_bn_relu_backward" + sfx, "masked_bn_relu_bwd" + sfx, dev,
+            xp.data_ptr(), xp.stride(1), dyp.data_ptr(), dyp.stride(1), lengths.data_ptr(),
+            _ptr(em), scale.data_ptr(), stats.data_ptr(), counts.data_ptr(), base + 8 * C, base,
             base + 4 * C, dx.data_ptr(), B, T, C, plan.sum_rows, plan.apply_rows)
     return dx, dscale, dbias
 
@@ -914,33 +1051,38 @@ class _MaskedConv(torch.autograd.Function):
     # The weights are re-laid at every call (they change every step): for the
     # forward here, for dX in the backward.  The input is saved at the padded
     # pitch (the copy the forward reads anyway) and dy is copied to it once,
-    # for dX and dW, which both read them through TMA.
+    # for dX and dW, which both read them at that pitch.  bf16 tensors take
+    # the TMA + wgmma kernels, float32 ones the FMA-pipe kernels.
     @staticmethod
     def forward(ctx, x, kernel, bias, residual, lengths, dilation):
         x = pad_pitch(x)
         ctx.save_for_backward(x, kernel, lengths)
         ctx.dilation = dilation
-        return masked_conv_cuda(x, kernel, bias, lengths, dilation, residual=residual)
+        conv = masked_conv_f32_cuda if x.dtype == torch.float32 else masked_conv_cuda
+        return conv(x, kernel, bias, lengths, dilation, residual=residual)
 
     @staticmethod
     def backward(ctx, g):
         x, kernel, lengths = ctx.saved_tensors
+        f32 = x.dtype == torch.float32
         dx = dw = db = None
         dy = pad_pitch(g)
         if ctx.needs_input_grad[0]:
-            dx = masked_conv_dx_cuda(dy, kernel, lengths, ctx.dilation)
+            dx = (masked_conv_dx_f32_cuda if f32 else masked_conv_dx_cuda)(
+                dy, kernel, lengths, ctx.dilation)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw, db = masked_conv_dw_cuda(x, dy, lengths, kernel.shape[0], ctx.dilation)
+            dw, db = (masked_conv_dw_f32_cuda if f32 else masked_conv_dw_cuda)(
+                x, dy, lengths, kernel.shape[0], ctx.dilation)
         return dx, dw, db, (g if ctx.needs_input_grad[3] else None), None, None
 
 
 class _MaskedBNRelu(torch.autograd.Function):
     # x is saved as the kernels read it (the chain's conv output is, with
     # no copy); y is not saved: the backward recomputes the ReLU's gate
-    # from x.
+    # from x.  The wrappers pick the bf16 or float32 kernels by x's dtype.
     @staticmethod
     def forward(ctx, x, scale, bias, run_mean, run_var, lengths, example_mask, eps, momentum):
-        x = _bn_activation("x", x, x.shape, x.device)
+        x = _bn_activation("x", x, x.shape, x.device, x.dtype)
         y, new_mean, new_var, stats, counts = masked_bn_relu_forward_cuda(
             x, scale, bias, run_mean, run_var, lengths, example_mask, eps, momentum)
         ctx.save_for_backward(x, scale, stats, counts, lengths, example_mask)
@@ -956,9 +1098,10 @@ class _MaskedBNRelu(torch.autograd.Function):
 
 
 class _MaskedPool(torch.autograd.Function):
-    # The pool and its transpose: the kernels on the card, the plain
-    # versions on the CPU.  On the card the gradient comes at the padded
-    # pitch, which the last conv's backward takes without a copy.
+    # The pool and its transpose: the kernels on the card (bf16 or float32
+    # by the activation's dtype), the plain versions on the CPU.  On the
+    # card the gradient comes at the padded pitch, which the last conv's
+    # backward takes without a copy.
     @staticmethod
     def forward(ctx, feats, lengths):
         ctx.save_for_backward(lengths)
@@ -972,7 +1115,7 @@ class _MaskedPool(torch.autograd.Function):
         (lengths,) = ctx.saved_tensors
         if g.device.type == "cpu":
             return masked_mean_pool_backward_reference(g, lengths, ctx.T, ctx.dtype), None
-        return masked_mean_pool_backward_cuda(g, lengths, ctx.T), None
+        return masked_mean_pool_backward_cuda(g, lengths, ctx.T, ctx.dtype), None
 
 
 # ----------------------------------------------------------------------
@@ -988,10 +1131,10 @@ def masked_conv(x: torch.Tensor, p: Params, lengths: torch.Tensor, dilation: int
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One masked conv of the encoder with the parameters ``p`` (``kernel``
     (taps, C_in, C_out), ``bias``), in ``x``'s dtype: the plain version on
-    the CPU, ``masked_conv_forward`` on the card (its backward kernels when a
-    gradient is wanted; without, the weights' layout cached on the kernel
-    tensor), ``masked_conv_forward_f32`` for float32 ``x`` (no gradient).
-    ``bn`` is eval mode only.  The result's rows lie
+    the CPU, ``masked_conv_forward`` on the card (``masked_conv_forward_f32``
+    for float32 ``x``; its backward kernels when a gradient is wanted,
+    without one the weights' layout cached on the kernel tensor).  ``bn`` is
+    eval mode only.  The result's rows lie
     :func:`row_pitch` (C_out) apart on both (the CPU copies the plain
     version's); on the card pass ``lengths`` as an int32 tensor there, the
     same tensor to every conv of a chain, so that its plans are built
@@ -1001,27 +1144,24 @@ def masked_conv(x: torch.Tensor, p: Params, lengths: torch.Tensor, dilation: int
                                                residual))
     if x.device.type != "cuda":
         raise ValueError(f"no masked conv for device {x.device}")
-    grad = _wants_grad(x, p["kernel"], p["bias"], residual)
-    check_compute_dtype(x.dtype, grad)
-    if x.dtype == torch.float32:
-        bias = _cached(p["bias"], ("cast", x.dtype), lambda: p["bias"].detach().float())
-        return masked_conv_f32_cuda(x, p["kernel"], bias, lengths, dilation, bn, residual,
-                                    layout=weight_layout(p["kernel"], x.dtype, dx=False))
-    if grad:
+    check_compute_dtype(x.dtype)
+    if _wants_grad(x, p["kernel"], p["bias"], residual):
         if bn is not None:
             raise ValueError("the conv's BatchNorm prologue is eval mode: no gradient")
         return _MaskedConv.apply(x, p["kernel"].to(x.dtype).contiguous(), p["bias"].to(x.dtype),
                                  residual, lengths, dilation)
+    conv = masked_conv_f32_cuda if x.dtype == torch.float32 else masked_conv_cuda
     bias = _cached(p["bias"], ("cast", x.dtype), lambda: p["bias"].detach().to(x.dtype))
-    return masked_conv_cuda(x, p["kernel"], bias, lengths, dilation, bn, residual,
-                            layout=weight_layout(p["kernel"], x.dtype, dx=False))
+    return conv(x, p["kernel"], bias, lengths, dilation, bn, residual,
+                layout=weight_layout(p["kernel"], x.dtype, dx=False))
 
 
 def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.Tensor,
                          example_mask: Optional[torch.Tensor], eps: float,
                          momentum: float) -> Tuple[torch.Tensor, Params]:
     """``(relu(BN(x)), new_state)``, train-mode masked BN under the count
-    rule: the plain version on the CPU, the K7-BN kernels on the card.  x at
+    rule: the plain version on the CPU, the K7-BN kernels (bf16 or float32)
+    on the card.  x at
     any row pitch; the result's rows lie :func:`row_pitch` (C) apart on both
     (the CPU copies the plain version's), where the next conv reads them."""
     if x.device.type == "cpu":
@@ -1029,7 +1169,7 @@ def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.T
         return pad_pitch(y), new_state
     if x.device.type != "cuda":
         raise ValueError(f"no masked BatchNorm for device {x.device}")
-    check_compute_dtype(x.dtype, grad=True)
+    check_compute_dtype(x.dtype)
     lengths = _lengths_on(lengths, x.device)
     em = _em_on(example_mask, x.device)
     if _wants_grad(x, p["scale"], p["bias"]):
@@ -1043,17 +1183,17 @@ def masked_bn_relu_train(x: torch.Tensor, p: Params, s: Params, lengths: torch.T
 
 def masked_mean_pool(feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, C) float32 masked mean pool: the plain version on the CPU,
-    ``masked_mean_pool`` (``masked_mean_pool_f32`` for float32, no gradient)
-    on the card; when a gradient is wanted, through
-    :class:`_MaskedPool` (the plain transpose on the CPU,
-    ``masked_mean_pool_backward`` on the card)."""
+    ``masked_mean_pool`` (``masked_mean_pool_f32`` for float32) on the card;
+    when a gradient is wanted, through :class:`_MaskedPool` (the plain
+    transpose on the CPU, ``masked_mean_pool_backward`` or its ``_f32`` form
+    on the card)."""
     if feats.device.type == "cpu":
         if _wants_grad(feats):
             return _MaskedPool.apply(feats, lengths)
         return masked_mean_pool_reference(feats, lengths)
     if feats.device.type != "cuda":
         raise ValueError(f"no masked pool for device {feats.device}")
-    check_compute_dtype(feats.dtype, _wants_grad(feats))
+    check_compute_dtype(feats.dtype)
     if _wants_grad(feats):
         return _MaskedPool.apply(feats, _lengths_on(lengths, feats.device))
     return masked_mean_pool_cuda(feats, lengths)

@@ -1544,15 +1544,30 @@ def test_masked_conv_kernels_raise_on_what_they_do_not_take():
                             lengths, 1)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         k7.masked_conv(x.half(), {"kernel": w.half(), "bias": b.half()}, lengths, 1)
-    with pytest.raises(NotImplementedError, match="item 5i"):  # float32 is eval mode only
-        k7.masked_conv(x.float(), {"kernel": w.float().requires_grad_(), "bias": b.float()},
-                       lengths, 1)
-    with pytest.raises(NotImplementedError, match="item 5i"):
-        k7.masked_bn_relu_train(torch.zeros(2, 16, 6, device=dev),
-                                {"scale": torch.ones(6, device=dev),
-                                 "bias": torch.ones(6, device=dev)},
-                                {"mean": torch.ones(6, device=dev),
-                                 "var": torch.ones(6, device=dev)}, lengths, None, 1e-3, 0.01)
+    # float32 with a gradient and train-mode BatchNorm in float32 run their
+    # kernels (item 16c), held to the plain versions
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xf = torch.randn(2, 16, 8, generator=gen, device=dev)
+    pf = {"kernel": torch.randn(3, 8, 6, generator=gen, device=dev).requires_grad_(),
+          "bias": torch.randn(6, generator=gen, device=dev).requires_grad_()}
+    before = dict(k7.LAUNCHES)
+    y = k7.masked_conv(xf, pf, lengths, 1)
+    gk = torch.autograd.grad(y.sum(), [pf["kernel"], pf["bias"]])
+    yr = k7.masked_conv_reference(xf, pf["kernel"], pf["bias"], lengths, 1)
+    gr = torch.autograd.grad(yr.sum(), [pf["kernel"], pf["bias"]])
+    assert k7.LAUNCHES["masked_conv_fwd_f32"] == before["masked_conv_fwd_f32"] + 1
+    assert k7.LAUNCHES["masked_conv_dw_f32"] == before["masked_conv_dw_f32"] + 1
+    _within(y, yr, 1e-5, "f32 y")
+    for got, want, name in zip(gk, gr, ("dW", "dbias")):
+        _within(got, want, 1e-5, f"f32 {name}")
+    sp = {"scale": torch.ones(6, device=dev), "bias": torch.ones(6, device=dev)}
+    ss = {"mean": torch.ones(6, device=dev), "var": torch.ones(6, device=dev)}
+    xb = torch.randn(2, 16, 6, generator=gen, device=dev)
+    yb, new = k7.masked_bn_relu_train(xb, sp, ss, lengths, None, 1e-3, 0.01)
+    yb0, new0 = k7.masked_bn_relu_reference(xb, sp, ss, lengths, None, 1e-3, 0.01)
+    assert k7.LAUNCHES["masked_bn_relu_fwd_f32"] == before["masked_bn_relu_fwd_f32"] + 1
+    _within(yb, yb0, 1e-5, "f32 BN y")
+    _within(new["var"], new0["var"], 1e-5, "f32 BN running var")
     ones = torch.ones(7, device=dev)
     with pytest.raises(ValueError, match="scale"):  # any C; a scale of another width raises
         k7.masked_bn_relu_train(torch.zeros(2, 16, 7, device=dev, dtype=torch.bfloat16),
@@ -1720,6 +1735,166 @@ def test_masked_mean_pool_f32_kernel_matches_plain_on_card(T, C, layout):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     assert torch.equal(got, again)
     assert float(got[-1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [40, 512])
+@pytest.mark.parametrize("dilation,taps,cin,cout", [(1, 9, 21, 110), (27, 9, 110, 56),
+                                                     (1, 1, 56, 110), (81, 9, 1100, 550),
+                                                     (1, 1, 550, 1100), (1, 9, 20, 1100)])
+def test_masked_conv_f32_backward_kernels_match_plain_on_card(T, dilation, taps, cin, cout):
+    """``masked_conv_dx_f32`` against the plain float32 autograd (TF32 off)
+    within 1e-5 of its largest |value|, zero past each length; ``masked_conv
+    _dw_f32`` (dW, dbias) against float64 within 1e-5 (its depth's sums in
+    another order), the same bits on a second call, from contiguous and from
+    padded inputs alike."""
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    gemm_precision(torch.float32)
+    rng = np.random.default_rng(dilation + taps + T + cin)
+    p = _k7_conv(rng, taps, cin, cout, dev)
+    x = torch.from_numpy(rng.normal(size=(len(K7_LENGTHS), T, cin)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(size=(len(K7_LENGTHS), T, cout)).astype(np.float32)).to(dev)
+    lengths = _k7_lengths(T, dev)
+    before = dict(k7.LAUNCHES)
+    dx = k7.masked_conv_dx_f32_cuda(dy, p["kernel"], lengths, dilation)
+    dw, db = k7.masked_conv_dw_f32_cuda(x, dy, lengths, taps, dilation)
+    dw2, db2 = k7.masked_conv_dw_f32_cuda(k7.pad_pitch(x), k7.pad_pitch(dy), lengths, taps,
+                                          dilation)
+    want = k7.masked_conv_backward_reference(x, p["kernel"], p["bias"], dy, lengths, dilation)
+    truth = k7.masked_conv_backward_reference(x.double(), p["kernel"].double(),
+                                              p["bias"].double(), dy.double(), lengths, dilation)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_conv_dx_f32"] == before["masked_conv_dx_f32"] + 1
+    assert k7.LAUNCHES["masked_conv_dw_f32"] == before["masked_conv_dw_f32"] + 2
+    assert dx.stride(1) == k7.row_pitch(cin)
+    _within(dx, want[0], 1e-5, "dx")
+    _within(dx, truth[0], 1e-5, "dx f64")
+    pad = torch.arange(T, device=dev)[None, :] >= lengths[:, None].long()
+    assert not bool(dx[pad].any())
+    _within(dw, truth[1], 1e-5, "dw f64")
+    _within(db, truth[2], 1e-5, "db f64")
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("example_mask", [False, True])
+@pytest.mark.parametrize("C", [1100, 550])
+def test_masked_bn_relu_f32_kernels_match_plain_on_card(example_mask, C):
+    """K7-BN's float32 forms at the padded pitch against the plain float32
+    BatchNorm + ReLU and its autograd: y and dx within 1e-5 of their largest
+    |value| (the closed form against autodiff; no bf16 rounding), the
+    running statistics within 1e-5, dscale and dbias within 1e-4 (sums over
+    the rows in another order); the same bits twice; padding channels 0."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(C)
+    B_, T_ = 8, 300
+    lengths = torch.tensor([300, 255, 129, 64, 31, 1, 0, 200], dtype=torch.int32, device=dev)
+    em = torch.ones(B_, device=dev)
+    em[3] = 0.0
+    em = em if example_mask else None
+    x = k7.pad_pitch(torch.randn(B_, T_, C, generator=gen, device=dev) + 0.3)
+    g = k7.pad_pitch(torch.randn(B_, T_, C, generator=gen, device=dev))
+    p = {"scale": torch.rand(C, generator=gen, device=dev) + 0.5,
+         "bias": 0.3 * torch.randn(C, generator=gen, device=dev)}
+    s = {"mean": torch.zeros(C, device=dev), "var": torch.ones(C, device=dev)}
+    before = dict(k7.LAUNCHES)
+    y, mean, var, stats, counts = k7.masked_bn_relu_forward_cuda(
+        x, p["scale"], p["bias"], s["mean"], s["var"], lengths, em, 1e-3, 0.01)
+    dx, ds, db = k7.masked_bn_relu_backward_cuda(x, g, p["scale"], stats, counts, lengths, em)
+    again = k7.masked_bn_relu_forward_cuda(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                           lengths, em, 1e-3, 0.01)
+    xg = x.clone().requires_grad_(True)
+    pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    y0, new0 = k7.masked_bn_relu_reference(xg, pg, s, lengths, em, 1e-3, 0.01)
+    dx0, ds0, db0 = torch.autograd.grad(y0, [xg, pg["scale"], pg["bias"]], g)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["masked_bn_relu_fwd_f32"] == before["masked_bn_relu_fwd_f32"] + 2
+    assert k7.LAUNCHES["masked_bn_relu_bwd_f32"] == before["masked_bn_relu_bwd_f32"] + 1
+    assert y.dtype == dx.dtype == torch.float32
+    _within(y, y0, 1e-5, "y")
+    _within(mean, new0["mean"], 1e-5, "mean")
+    _within(var, new0["var"], 1e-5, "var")
+    _within(dx, dx0, 1e-5, "dx")
+    _within(ds, ds0, 1e-4, "dscale")
+    _within(db, db0, 1e-4, "dbias")
+    assert torch.equal(y, again[0]) and torch.equal(mean, again[1])
+    for t in (y, dx):
+        assert not bool(_padding(t, C).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [110, 1100])
+def test_masked_mean_pool_backward_f32_matches_plain_on_card(C):
+    """``masked_mean_pool_backward_f32``: the plain float32 transpose bit for
+    bit (signed zeros too), padding channels 0, at ``row_pitch(C)``."""
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    dev = _card()
+    g = torch.randn(5, C, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    lengths = torch.tensor([512, 300, 40, 1, 0], dtype=torch.int32, device=dev)
+    got = k7.masked_mean_pool_backward_cuda(g, lengths, 512, torch.float32)
+    want = k7.masked_mean_pool_backward_reference(g, lengths, 512, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.stride(1) == k7.row_pitch(C)
+    assert torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
+    assert not bool(_padding(got, C).any())
+
+
+@pytest.mark.cuda
+def test_encoder_f32_training_chain_matches_plain_on_card():
+    """The float32 encoder (3 blocks at 112 channels) in train mode with an
+    example mask through K7's float32 kernels: every trained leaf's gradient
+    under one cotangent within 1e-4 (L2) of the plain chain's, the running
+    statistics within 1e-5; every float32 training kernel launched and no
+    bf16 K7 kernel."""
+    from protnote_tpu_torch.models import proteinfer as tpi
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import masked_conv as k7
+    from protnote_tpu_torch.train.optim import tree_leaves, tree_map
+
+    dev = _card()
+    gemm_precision(torch.float32)
+    cfg = ProteInferConfig(output_channels=112, num_resnet_blocks=3, num_labels=300)
+    params, state = init_proteinfer(torch.Generator().manual_seed(5), cfg)
+    params, state = tree_map(lambda t: t.to(dev), params), tree_map(lambda t: t.to(dev), state)
+    rng = np.random.default_rng(5)
+    lens = np.array([512, 300, 77, 1, 0, 129], np.int32)
+    aa = rng.integers(0, 20, size=(6, 512))
+    aa[np.arange(512)[None, :] >= lens[:, None]] = 20
+    aa, lengths = torch.from_numpy(aa).to(dev), torch.from_numpy(lens).to(dev)
+    em = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.float32, device=dev)
+    leaves = [t for k, v in params.items() if k != "output" for t in tree_leaves(v)]
+    cot = torch.randn(6, 112, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    before = dict(k7.LAUNCHES)
+    runs = []
+    for embed in (tpi.embed_from_ids, None):
+        for t in leaves:
+            t.requires_grad_(True)
+        if embed is None:
+            onehot = tpi.one_hot_sequences(aa, 20)
+            P, new = tpi.proteinfer_embed_reference(params, state, onehot, lengths, cfg, True, em)
+        else:
+            P, new = embed(params, state, aa, lengths, cfg, train=True, example_mask=em)
+        runs.append((torch.autograd.grad((P * cot).sum(), leaves), tree_leaves(new)))
+        for t in leaves:
+            t.requires_grad_(False)
+    torch.cuda.synchronize()
+    launched = {k: k7.LAUNCHES[k] - before[k] for k in k7.LAUNCHES}
+    assert launched == {**{k: 0 for k in k7.LAUNCHES}, "masked_conv_fwd_f32": 7,
+                        "masked_conv_dx_f32": 6, "masked_conv_dw_f32": 7,
+                        "masked_bn_relu_fwd_f32": 6, "masked_bn_relu_bwd_f32": 6,
+                        "masked_mean_pool_f32": 1, "masked_mean_pool_bwd_f32": 1}
+    (gk, sk), (gp, sp) = runs
+    for a, b in zip(gk, gp):
+        if float(b.norm()) > 0:
+            assert float((a - b).norm() / b.norm()) <= 1e-4
+    for a, b in zip(sk, sp):
+        _within(a, b, 1e-5, "running statistics")
 
 
 @pytest.mark.cuda

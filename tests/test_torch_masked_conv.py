@@ -421,16 +421,22 @@ def test_masked_mean_pool_matches_jax():
 
 
 @pytest.mark.parametrize("call", ["conv", "bn", "pool"])
-def test_cuda_call_in_float32_raises(call):
+def test_cuda_call_in_float32_raises(call, monkeypatch):
     """A float32 CUDA tensor that wants a gradient (train-mode BatchNorm
-    always does) raises and names ROADMAP item 5i before anything runs: the
-    card's float32 kernels are eval mode only.  Another dtype than bfloat16
-    and float32 raises too; nothing falls back to cuDNN.  The tensor is a
-    stub: only its device, dtype and ``requires_grad`` are read."""
+    always does) takes the card's float32 training path: the conv's,
+    BatchNorm's or pool's ``autograd.Function`` (recorded here, not run),
+    whose wrappers launch the float32 kernels.  Another dtype than bfloat16
+    and float32 raises; nothing falls back to cuDNN.  The tensor is a stub:
+    only its device, dtype and ``requires_grad`` are read."""
     rng = np.random.default_rng(0)
     lengths = torch.from_numpy(LENGTHS)
     p = {k: _t(v) for k, v in _conv_params(rng).items()}
     bp, bs = (jax.tree_util.tree_map(_t, t) for t in _bn_params(rng, CIN))
+    seen = []
+    for name in ("_MaskedConv", "_MaskedBNRelu", "_MaskedPool"):
+        monkeypatch.setattr(k7, name, types.SimpleNamespace(
+            apply=lambda *a, _n=name: seen.append(_n) or (torch.zeros(CIN),) * 3))
+    monkeypatch.setattr(k7, "_lengths_on", lambda lengths, device: lengths)
 
     def run(stub):
         if call == "conv":
@@ -440,9 +446,9 @@ def test_cuda_call_in_float32_raises(call):
         else:
             k7.masked_mean_pool(stub, lengths)
 
-    with pytest.raises(NotImplementedError, match="item 5i"):
-        run(types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
-                                  requires_grad=True))
+    run(types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
+                              requires_grad=True))
+    assert seen == [{"conv": "_MaskedConv", "bn": "_MaskedBNRelu", "pool": "_MaskedPool"}[call]]
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         run(types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float16,
                                   requires_grad=False))

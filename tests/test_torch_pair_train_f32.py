@@ -538,7 +538,9 @@ def test_train_scorer_is_the_dispatch(params, scorer, monkeypatch):
     """``train_scorer`` names the scorer ``protnote_forward`` trains
     through (each scorer patched to record its call), and float32 training
     on the card passes the check whichever scorer it takes (each has its
-    float32 kernels); the encoder beside it is still refused (item 16c)."""
+    float32 kernels), as does the encoder trained beside it (K7's float32
+    training kernels, item 16c); the label tower in float32 is still
+    refused (item 16d)."""
     from protnote_tpu_torch.cli._model_setup import refuse_float32_on_card
     from protnote_tpu_torch.models import fusion
 
@@ -565,6 +567,9 @@ def test_train_scorer_is_the_dispatch(params, scorer, monkeypatch):
                             train=True, generator=torch.Generator().manual_seed(1))
     assert calls == ([] if scorer == "similarity" else [scorer])
     card = dict(params, MIXED_PRECISION=False)
-    refuse_float32_on_card(card, "cuda", train=True)
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        refuse_float32_on_card(dict(card, TRAIN_SEQUENCE_ENCODER=True), "cuda", train=True)
+    refuse_float32_on_card(card, "cuda", tower=True)
+    for encoder in ("TRAIN_SEQUENCE_ENCODER", "ENCODER_BN_TRAIN_MODE"):
+        refuse_float32_on_card(dict(card, **{encoder: True}), "cuda", tower=True)
+    with pytest.raises(NotImplementedError, match="item 16d"):
+        refuse_float32_on_card(dict(card, TRAIN_SEQUENCE_ENCODER=True,
+                                    LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2), "cuda", tower=True)

@@ -397,24 +397,29 @@ def test_wrapper_constants_match_the_sources(source, name, value):
 
 
 def _prototypes(source: str) -> dict:
-    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int}
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
     text = (kernels.CSRC_DIR / source).read_text()
     out = {}
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
         out[name] = [kinds[" ".join(p.replace("const ", "").split()[:-1]).replace(" *", "*")]
-                     for p in params.split(",")]
+                     for p in params.split(",") if p.strip()]
     return out
 
 
 @pytest.mark.parametrize("source,tables", [
     ("masked_pool.cu", {n: k7._ARGS[("masked_pool", n)]
                         for n in ("masked_mean_pool", "masked_mean_pool_backward",
-                                  "masked_mean_pool_f32")}),
+                                  "masked_mean_pool_f32", "masked_mean_pool_backward_f32")}),
     ("threshold_sweep.cu", {"threshold_sweep_codes": k9._CODES_ARGS,
                             "threshold_sweep_flush": k9._FLUSH_ARGS,
                             "threshold_sweep_finalize": k9._FINALIZE_ARGS}),
-    ("masked_conv_f32.cu", {"masked_conv_forward_f32":
-                            k7._ARGS[("masked_conv_f32", "masked_conv_forward_f32")]}),
+    ("masked_conv_f32.cu", {n: k7._ARGS[("masked_conv_f32", n)]
+                            for n in ("masked_conv_forward_f32", "masked_conv_dx_f32",
+                                      "masked_conv_dw_f32")}),
+    ("masked_bn.cu", {n: k7._ARGS[("masked_bn", n)]
+                      for n in ("masked_bn_relu_forward", "masked_bn_relu_forward_f32",
+                                "masked_bn_relu_backward", "masked_bn_relu_backward_f32",
+                                "masked_bn_kernels_launched")}),
 ])
 def test_wrapper_signatures_match_the_c_entry_points(source, tables):
     """Each ctypes table against its ``extern "C"`` prototype, parameter by

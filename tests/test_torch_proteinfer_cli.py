@@ -21,6 +21,7 @@ the same files, float16 logits to one float16 step, labels exactly.
 import json
 import os
 import pickle
+import types
 
 import numpy as np
 import pytest
@@ -94,18 +95,32 @@ def test_proteinfer_forward_matches_jax(dtype, tol):
 
 @pytest.mark.parametrize("grad", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
-def test_card_dispatch_dtypes(dtype, grad):
-    """What the card's K7 dispatch takes: bf16 always, float32 without a
-    gradient (the eval chain of ``test_proteinfer``); a float32 gradient
-    raises naming ROADMAP item 5i, another dtype raises."""
+def test_card_dispatch_dtypes(dtype, grad, monkeypatch):
+    """What the card's K7 dispatch takes: bf16 and float32, with a gradient
+    (training: the conv's ``autograd.Function``, whose backward launches the
+    dtype's dX and dW kernels) or without (the dtype's forward wrapper, as
+    the eval chain of ``test_proteinfer`` runs it); another dtype raises.
+    The input is a stub of a CUDA tensor (device, dtype, requires_grad); the
+    routes taken are recorded, nothing runs."""
+    seen = []
+    monkeypatch.setattr(k7, "_MaskedConv", types.SimpleNamespace(
+        apply=lambda *a: seen.append("autograd")))
+    for name in ("masked_conv_cuda", "masked_conv_f32_cuda"):
+        monkeypatch.setattr(k7, name, lambda *a, _n=name, **kw: seen.append(_n))
+    rng = np.random.default_rng(0)
+    p = {"kernel": torch.from_numpy(rng.normal(size=(3, 8, 6)).astype(np.float32)),
+         "bias": torch.zeros(6)}
+    stub = types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype, requires_grad=grad)
     if dtype == torch.float16:
         with pytest.raises(ValueError, match="bfloat16 or float32"):
-            k7.check_compute_dtype(dtype, grad)
-    elif dtype == torch.float32 and grad:
-        with pytest.raises(NotImplementedError, match="item 5i"):
-            k7.check_compute_dtype(dtype, grad)
-    else:
-        k7.check_compute_dtype(dtype, grad)
+            k7.masked_conv(stub, p, torch.tensor([4, 2]), 1)
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            k7.check_compute_dtype(dtype)
+        return
+    k7.check_compute_dtype(dtype)
+    k7.masked_conv(stub, p, torch.tensor([4, 2]), 1)
+    forward = "masked_conv_f32_cuda" if dtype == torch.float32 else "masked_conv_cuda"
+    assert seen == ["autograd" if grad else forward]
 
 
 def test_float32_kernel_layout_and_plan():

@@ -325,7 +325,34 @@ Phases, each printing one line (any failure raises and exits non-zero):
     16 sequences against the plain float32 chain (1e-4 in L2 by leaf,
     statistics 1e-5); ``cli/main.py`` training with ``--override
     MIXED_PRECISION False TRAIN_SEQUENCE_ENCODER True``; 3 steps of
-    ``ENCODER_BN_TRAIN_MODE`` alone (statistics moved, weights not).
+    ``ENCODER_BN_TRAIN_MODE`` alone (statistics moved, weights not);
+38. (run after phase 17) the tower's float32 kernels alone (``k8_f32``:
+    ``csrc/text_attention_f32.cu``'s forward and two-kernel backward, the
+    ``_f32`` entries of ``csrc/layer_norm.cu``) at phase 13's three shapes
+    against their plain float32 versions (cuBLAS with TF32 off): ctx, dq,
+    dk, dv, y, the saved statistics, dx, dscale and dbias within 1e-5 of
+    the plain tensor's largest |value|, the backward the same bits twice,
+    the float32 counts moved and the bf16 ones not; times by CUDA events
+    beside the bound (67 TFLOP/s for attention, 3.35 TB/s for the
+    LayerNorm), the plain versions' and float32 SDPA with a boolean mask
+    and ``F.layer_norm`` after a float32 add (and their backward);
+39. the float32 tower (``tower_f32``): E5-large and BioGPT on phase 14's
+    random weights, not rounded, against the plain float32 tower on one
+    chunk each (pooled rows within 1e-4), then phase 14's 64 chunks through
+    ``NativeLabelEncoder.embed_ids`` in float32 (the native label-embedding
+    generator's path): descriptions/s, ms a chunk, peak memory, launches, a
+    2-chunk profile, and the drift of phase 14's bf16 rows from these
+    (the largest and the mean relative L2 distance of a row);
+40. float32 tower training (``tower_train_f32``): phase 17's three runs
+    with ``MIXED_PRECISION False``'s configuration (the tower, encoder and
+    scorer in float32) for 4, 4 and 3 steps: step ms, seqs/s, peak memory,
+    idle share of 2 profiled steps, kernel ms by name, the launches (the
+    scorer's against ``f32_train_schedule``, no bf16 form), a validation
+    pass through the tower, and one step's tower gradients against the
+    plain float32 chain within 1e-4 (L2): the tower alone, and the whole
+    step with the plain chain's scorer fed the kernels' values (no ReLU
+    gate can flip); the whole step with each chain's own values beside its
+    noise floor (reported).
 Phase 4 also serves two ``POST /v1/reload`` (``cli/serve.py``'s reload:
 ``Trainer.load``, then ``engine.reload``): first a checkpoint with ``W_l``
 doubled (those leaves doubled, the others and nothing else the same, the
@@ -347,7 +374,8 @@ in the training run, its float32 forward and pool in phase 23's
 K4's, K4-bwd's and K5's float32 forms in phase 31's two runs, K6's float32
 forms in phase 33's two runs, the dense scorer's float32 forms summed over
 phases 34-35, K7's float32 training kernels in phase 37's
-``TRAIN_SEQUENCE_ENCODER`` run,
+``TRAIN_SEQUENCE_ENCODER`` run, K8a and K8b in float32 in phase 39's
+64-chunk run and their backward summed over phase 40's three runs,
 its backward and BN kernels in phase 19's
 ``TRAIN_SEQUENCE_ENCODER`` run, one a wrapper call; K6's in phase 20's
 32-sequence streamed run; the dense scorer's kernels summed over phases
@@ -392,7 +420,7 @@ KERNEL_SOURCES = ("pair_scorer", "eval_accumulator", "pair_train", "pair_train_b
                   "pair_scorer_int8", "text_attention", "text_attention_bwd", "layer_norm",
                   "threshold_sweep", "masked_conv", "masked_conv_bwd", "masked_bn",
                   "streamed_bn", "masked_pool", "masked_conv_f32", "pair_dense", "pair_scorer_f32",
-                  "pair_train_bwd_f32")
+                  "pair_train_bwd_f32", "text_attention_f32")
 # first designs that a phase holds a redesigned kernel against
 # (csrc/variants/): K9's update, whose histogram must be the same
 FIRST_DESIGNS = ("threshold_sweep_v1",)
@@ -484,6 +512,20 @@ TOWER_TRAIN_LENGTHS = (16, 128)
 TOWER_TRAIN_LAYERS = 2
 TOWER_LORA_RANK, TOWER_LORA_ALPHA = 4, 8.0
 TOWER_VAL_LABELS = 1024
+# the tower in float32 (phases 38-40, MIXED_PRECISION False): each kernel
+# within 1e-5 of its plain float32 version's largest |value| (FMA chains and
+# float32 sums in other orders); the whole tower's pooled rows within 1e-4
+# (such differences pass through 24 layers); training runs of 4, 4 and 3
+# steps (E5 LoRA, E5 last 2 layers, BioGPT LoRA), 2 of them profiled, each
+# trained leaf's gradient within F32_GRAD_L2_TOL (1e-4, L2) of the plain
+# float32 chain's, for the tower alone and for the whole step with the
+# scorer fed the same values on both sides (no ReLU gate can flip); the step
+# with each chain's own values is reported beside its noise floor (the
+# plain chain with the tower's output moved by F32_Z_NOISE)
+K8_F32_REL_TOL = 1e-5
+TOWER_F32_REL_TOL = 1e-4
+TOWER_F32_STEPS = (4, 4, 3)
+TOWER_F32_PROFILE_STEPS = 2
 # K7 (the encoder's masked dilated conv chain): each kernel against its
 # plain version on the same bf16 inputs within 2^-6 of the plain output's
 # largest |value| (K45_REL_TOL: the conv sums in another order and the bias
@@ -3536,15 +3578,36 @@ def phase_k8(card: str):
     return out
 
 
-def k8b_ptxas() -> dict:
+def k8b_ptxas(f32: bool = False) -> dict:
     """K8b's ptxas registers and spills at the tower's width (H 1024, four
-    16-byte chunks a lane), with and without the residual."""
+    chunks of 8 elements a lane), with and without the residual, for bf16
+    elements (or float32)."""
     from protnote_tpu_torch.ops.kernels import load_kernel_library
 
+    elem = "f" if f32 else "13__nv_bfloat16"
     return {"residual" if residual == "1" else "no_residual": {"ptxas": ptxas, "spills": spills}
             for (chunks, residual), ptxas, spills in ptxas_by_kernel(
                 load_kernel_library("layer_norm").build_log,
-                r"add_layer_norm_kernelILi(\d+)ELb([01])E") if chunks == "4"}
+                rf"add_layer_norm_kernelI{elem}Li(\d+)ELb([01])E") if chunks == "4"}
+
+
+def tower_chunks():
+    """The tower phases' token ids (phases 14 and 39), from one seeded
+    generator in this order: one chunk of shape (a) for E5-large and one
+    for BioGPT, then TOWER_CHUNKS chunks of (a) for E5-large with one
+    all-masked filler row, in the last chunk."""
+    import torch
+
+    from protnote_tpu_torch.models.text_transformer import TextEncoderConfig
+
+    gen = torch.Generator().manual_seed(32)
+    _, Ba, Ta, lo, hi, _ = K8_SHAPES[0]
+    e5, gpt = TextEncoderConfig.e5_large(), TextEncoderConfig.biogpt()
+    one = {arch: token_batch(gen, Ba, Ta, lo, hi, cfg.vocab_size, cfg.pad_token_id)
+           for arch, cfg in (("e5_large", e5), ("biogpt", gpt))}
+    chunks = [token_batch(gen, Ba, Ta, lo, hi, e5.vocab_size, e5.pad_token_id,
+                          filler=i == TOWER_CHUNKS - 1) for i in range(TOWER_CHUNKS)]
+    return one, chunks
 
 
 def random_tower(cfg, seed: int):
@@ -3585,8 +3648,8 @@ def phase_tower(card: str):
     from protnote_tpu_torch.ops import text_attention as k8a
 
     bf16 = torch.bfloat16
-    gen = torch.Generator().manual_seed(32)
     _, Ba, Ta, lo, hi, _ = K8_SHAPES[0]
+    one_chunk, chunks = tower_chunks()
     whole = {}
     for arch, cfg, seed in (("e5_large", TextEncoderConfig.e5_large(dtype=bf16), 33),
                             ("biogpt", TextEncoderConfig.biogpt(dtype=bf16), 34)):
@@ -3594,7 +3657,7 @@ def phase_tower(card: str):
         params = random_tower(cfg, seed)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        ids, mask = token_batch(gen, Ba, Ta, lo, hi, cfg.vocab_size, cfg.pad_token_id)
+        ids, mask = one_chunk[arch]
         with torch.inference_mode():
             got = pool_hidden_states(text_encoder_forward(params, ids, mask, cfg), mask, "mean")
             hidden = text_encoder_forward_reference(params, ids, mask, cfg)
@@ -3619,9 +3682,6 @@ def phase_tower(card: str):
 
     # descriptions/s: 64 chunks of (a) through the encoder's forward and pool
     encoder = NativeLabelEncoder(e5_cfg, e5_params, device="cuda")
-    chunks = [token_batch(gen, Ba, Ta, lo, hi, e5_cfg.vocab_size, e5_cfg.pad_token_id,
-                          filler=i == TOWER_CHUNKS - 1)  # one filler row, in the last chunk
-              for i in range(TOWER_CHUNKS)]
     encoder.embed_ids(*chunks[0])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3873,13 +3933,17 @@ def tower_token_table(gen, rows: int, vocab: int, pad: int):
     return ids.numpy(), mask.numpy()
 
 
-def phase_tower_training(card: str):
+def phase_tower_training(card: str, f32: bool = False):
     """Training the label tower at full width through ``Trainer.train``:
     E5-large with LoRA and with the last two layers unfrozen, BioGPT with
     LoRA (K8a-bwd causal); per run the steps' times, rates, peak memory, a
     profiled idle share, the kernels' launches and a validation pass through
     the tower; one step's gradients through the kernels against the plain
-    chain.  Returns the backward kernels' launches over the three runs."""
+    chain.  Returns the backward kernels' launches over the three runs.
+    ``f32`` (phase 40): ``MIXED_PRECISION False``'s configuration, the
+    tower and the scorer in float32 (``f32_models``), fewer steps, the
+    float32 kernels' counts (and none of the bf16 forms) and
+    ``tower_grad_check_f32``."""
     import dataclasses
     import statistics
     import tempfile
@@ -3895,6 +3959,7 @@ def phase_tower_training(card: str):
         trainable_mask,
     )
     from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import pair_scorer as ps
     from protnote_tpu_torch.ops import streaming_train as st
     from protnote_tpu_torch.ops import text_attention as k8a
     from protnote_tpu_torch.train import step as step_mod
@@ -3903,14 +3968,15 @@ def phase_tower_training(card: str):
     from protnote_tpu_torch.train.step import batch_to_device_dict, init_train_state
     from protnote_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    dev, dtype = torch.device("cuda"), torch.float32 if f32 else torch.bfloat16
     buckets = (256, 512, 1024)
-    totals = {"text_attention_bwd": 0, "add_layer_norm_bwd": 0}
+    sfx = "_f32" if f32 else ""
+    totals = {f"text_attention_bwd{sfx}": 0, f"add_layer_norm_bwd{sfx}": 0}
     with tempfile.TemporaryDirectory() as tmp:
         train_ds, val_ds = train_datasets(tmp)
         weights = train_ds.calculate_sequence_weights(
             train_ds.calculate_label_weights(power=0.5), "sum")
-        pi_cfg, pn_cfg, ts = random_models()
+        pi_cfg, pn_cfg, ts = f32_models() if f32 else random_models()
         loss_fn = get_loss_fn(TRAIN_PARAMS)
         gen = torch.Generator().manual_seed(41)
         rows = NUM_LABELS * K_DESCRIPTIONS
@@ -3963,17 +4029,33 @@ def phase_tower_training(card: str):
 
             trainer._train_step = timed_step
             k8a.LAUNCHES = k8a.BWD_LAUNCHES = k8b.LAUNCHES = k8b.BWD_LAUNCHES = 0
-            for k in st.LAUNCHES:
-                st.LAUNCHES[k] = 0
+            k8a.F32_LAUNCHES = k8a.F32_BWD_LAUNCHES = k8b.F32_LAUNCHES = k8b.F32_BWD_LAUNCHES = 0
+            for counts in (st.LAUNCHES, ps.F32_LAUNCHES):
+                for k in counts:
+                    counts[k] = 0
+            ps.LAUNCHES = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             summary = trainer.train(FirstBatches(train_batcher(), steps_n), val_batcher())
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            launches = {"text_attention": k8a.LAUNCHES, "text_attention_bwd": k8a.BWD_LAUNCHES,
-                        "add_layer_norm": k8b.LAUNCHES, "add_layer_norm_bwd": k8b.BWD_LAUNCHES,
-                        **decomposed_launches()}
+            tower = {"text_attention": k8a.LAUNCHES, "text_attention_bwd": k8a.BWD_LAUNCHES,
+                     "add_layer_norm": k8b.LAUNCHES, "add_layer_norm_bwd": k8b.BWD_LAUNCHES}
+            if f32:  # the float32 forms, and none of the bf16 ones
+                bf16_forms = {**tower, "pair_mlp_layer": ps.LAUNCHES, **decomposed_launches()}
+                launches = {"text_attention_f32": k8a.F32_LAUNCHES,
+                            "text_attention_bwd_f32": k8a.F32_BWD_LAUNCHES,
+                            "add_layer_norm_f32": k8b.F32_LAUNCHES,
+                            "add_layer_norm_bwd_f32": k8b.F32_BWD_LAUNCHES,
+                            "pair_mlp_layer_f32": ps.F32_LAUNCHES["pair_mlp_layer_f32"],
+                            **{k: v for k, v in st.LAUNCHES.items() if v}}
+                schedule = f32_train_schedule(steps_n, False)
+                wrong = any(bf16_forms.values()) or \
+                    any(launches.get(k) != v for k, v in schedule.items())
+            else:
+                launches = {**tower, **decomposed_launches()}
+                bf16_forms, schedule, wrong = {}, {}, False
             peak = torch.cuda.max_memory_allocated() / 2**30
             trainer._train_step = step_fn
             losses = [x[1] for x in steps]
@@ -3981,12 +4063,13 @@ def phase_tower_training(card: str):
             descs = statistics.median([x[3] for x in steps])
             hist = summary["history"][0]
             if len(steps) != steps_n or not all(math.isfinite(x) for x in losses) or \
-                    any(v <= 0 for v in launches.values()) or \
+                    any(v <= 0 for v in launches.values()) or wrong or \
                     not math.isfinite(hist.get("val_map_micro", float("nan"))):
                 raise AssertionError(f"tower training {name}: losses {losses}, launches "
-                                     f"{launches}, history {hist}")
-            totals["text_attention_bwd"] += launches["text_attention_bwd"]
-            totals["add_layer_norm_bwd"] += launches["add_layer_norm_bwd"]
+                                     f"{launches} (schedule {schedule}, bf16 {bf16_forms}), "
+                                     f"history {hist}")
+            for k in totals:
+                totals[k] += launches[k]
 
             # three profiled steps, and one step's gradients against the plain chain
             inner = train_batcher()
@@ -3994,7 +4077,7 @@ def phase_tower_training(card: str):
             batches = []
             for batch in inner:
                 batches.append(batch)
-                if len(batches) == PROFILE_STEPS:
+                if len(batches) == (TOWER_F32_PROFILE_STEPS if f32 else PROFILE_STEPS):
                     break
             matrix = trainer._label_matrix_for(train_ds)
             placed = [trainer._place(batch_to_device_dict(b, dev), matrix, b) for b in batches]
@@ -4005,8 +4088,8 @@ def phase_tower_training(card: str):
                 trainer.ts, _ = step_fn(trainer.ts, next(it), g_prof)
 
             wall, busy, top = device_profile(one_step, len(placed))
-            grads = tower_grad_check(trainer, placed[0], cfg, lora, step_mod,
-                                     text_encoder_forward_reference)
+            check = tower_grad_check_f32 if f32 else tower_grad_check
+            grads = check(trainer, placed[0], cfg, lora, step_mod, text_encoder_forward_reference)
             fields = dict(arch=cfg.arch, layers=cfg.num_layers, width=cfg.hidden_size,
                           lora=lora, lora_rank=TOWER_LORA_RANK if lora else None,
                           trained_layers=TOWER_TRAIN_LAYERS, steps=len(steps),
@@ -4023,13 +4106,14 @@ def phase_tower_training(card: str):
                           else busy * 1e3 / len(placed),
                           idle_share=None if busy is None else 1.0 - busy / wall,
                           top_kernels_ms_per_step=top, grad_check=grads)
-            log("tower_train", run=name, **fields, card=card)
+            log(f"tower_train{sfx}", run=name, **fields, card=card)
             del trainer, ts0, text, adapters, placed, batches
             torch.cuda.empty_cache()
 
-        run("e5_large_lora", TextEncoderConfig.e5_large(dtype=bf16), 42, True, 9)
-        run("e5_large_last2", TextEncoderConfig.e5_large(dtype=bf16), 43, False, 9)
-        run("biogpt_lora", TextEncoderConfig.biogpt(dtype=bf16), 44, True, 3)
+        steps_of = TOWER_F32_STEPS if f32 else (9, 9, 3)
+        run("e5_large_lora", TextEncoderConfig.e5_large(dtype=dtype), 42, True, steps_of[0])
+        run("e5_large_last2", TextEncoderConfig.e5_large(dtype=dtype), 43, False, steps_of[1])
+        run("biogpt_lora", TextEncoderConfig.biogpt(dtype=dtype), 44, True, steps_of[2])
     return totals
 
 
@@ -4210,6 +4294,380 @@ def tower_grad_check(trainer, batch, cfg, lora: bool, step_mod, plain_forward) -
         raise AssertionError(f"tower gradients through the kernels disagree with the plain "
                              f"chain: {result}")
     return result
+
+
+def tower_grad_check_f32(trainer, batch, cfg, lora: bool, step_mod, plain_forward) -> dict:
+    """One float32 step's tower gradients on the run's weights and one batch
+    of its label text, through the kernels and through the plain float32
+    chain (K8a's and K8b's plain versions, plain autograd).  Held, each
+    trained leaf (the LoRA adapters or the unfrozen layers) in L2 over the
+    plain leaf's norm, within F32_GRAD_L2_TOL (1e-4):
+
+    * the tower alone, one fixed cotangent on the pooled label embeddings
+      (no ReLU on the way);
+    * the whole train step with no ReLU gate free to flip: the plain chain's
+      tower hands the scorer the kernels' hidden states, bit for bit, and
+      differentiates through its own graph (``hk + (hp - hp.detach())``),
+      so both steps run the same scorer forward; ``grad_norm`` too.
+
+    Reported beside them: the whole step with each chain's own hidden
+    states, where a scorer pre-activation within a rounding of 0 flips its
+    ReLU gate, with phases 31 and 37's noise floor (the plain chain with the
+    tower's hidden states moved by a relative F32_Z_NOISE), leaf by leaf.
+
+    Leaves whose gradient is 0 in exact arithmetic are float32 noise on
+    both sides and left out of the comparisons: the key bias (a softmax
+    does not see a constant added to a row of scores) and, in the step,
+    bert's last LayerNorm bias (the W_l head's BatchNorm removes its
+    shift)."""
+    import torch
+
+    from protnote_tpu_torch.models.text_transformer import pool_hidden_states
+    from protnote_tpu_torch.train.optim import tree_leaves
+    from protnote_tpu_torch.train.step import make_train_step
+
+    class KeepGrads:
+        def update(self, grads, trainable, state):
+            self.grads = grads
+            return state
+
+    trainable, kw = trainer.ts["trainable"], trainer._tower_kwargs
+    text_params = trainable.get("text", trainer.ts.get("text_params"))
+    adapters = trainable.get("lora")
+    wrt = tree_leaves(trainable["lora" if lora else "text"])
+    first = cfg.num_layers - TOWER_TRAIN_LAYERS
+    sub = adapters if lora else text_params["layers"][first:]
+    names = {id(t): n for n, t in named_tensors(sub).items()}
+    ids, am = batch["label_input_ids"], batch["label_attention_mask"]
+    cot = torch.randn(ids.shape[0], cfg.hidden_size, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    kernel_forward = step_mod.text_encoder_forward
+
+    def tower_grads(forward):
+        for t in wrt:
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                hidden = forward(text_params, ids, am, cfg, lora=adapters,
+                                 lora_alpha=kw["lora_alpha"], lora_rank=kw["lora_rank"])
+                pooled = pool_hidden_states(hidden, am, kw["pooling_method"])
+                grads = torch.autograd.grad((pooled * cot).sum(), wrt)
+        finally:
+            for t in wrt:
+                t.requires_grad_(False)
+        return {names[id(t)]: g for t, g in zip(wrt, grads) if id(t) in names}
+
+    def step_grads(forward):
+        keep = KeepGrads()
+        step = make_train_step(trainer.pi_cfg, trainer.pn_cfg, trainer.loss_fn, keep,
+                               decision_threshold=THRESHOLD, **kw)
+        step_mod.text_encoder_forward = forward
+        try:
+            _, m = step(trainer.ts, batch, torch.Generator(device="cuda").manual_seed(7))
+        finally:
+            step_mod.text_encoder_forward = kernel_forward
+        grads = {names[id(t)]: g for t, g in zip(tree_leaves(trainer.ts["trainable"]),
+                                                 keep.grads) if id(t) in names}
+        return grads, float(m["grad_norm"])
+
+    def pinned_forward(*args, **kwargs):  # the kernels' values, the plain chain's graph
+        hp = plain_forward(*args, **kwargs)
+        with torch.no_grad():
+            hk = kernel_forward(*args, **kwargs)
+        return hk + (hp - hp.detach())
+
+    def noisy_forward(*args, **kwargs):  # the plain tower, its output moved by F32_Z_NOISE
+        h = plain_forward(*args, **kwargs)
+        noise = torch.randn(h.shape, device=h.device,
+                            generator=torch.Generator(device=h.device).manual_seed(9))
+        return h * (1.0 + F32_Z_NOISE * noise)
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    tower = {"kernels": tower_grads(kernel_forward), "plain": tower_grads(plain_forward)}
+    steps = {"kernels": step_grads(kernel_forward), "pinned": step_grads(pinned_forward),
+             "plain": step_grads(plain_forward), "noise_floor": step_grads(noisy_forward)}
+    scale = max(float(g.abs().max()) for g in tower["plain"].values())
+    noise = {n: max(float(tower["kernels"][n].abs().max()),
+                    float(tower["plain"][n].abs().max())) / scale
+             for n in tower["plain"] if n.endswith("/k/bias")}
+    last_ln = f"/{TOWER_TRAIN_LAYERS - 1}/ffn_ln/bias" if cfg.arch == "bert" and not lora \
+        else None
+    kept = [n for n in tower["plain"] if n not in noise]
+    step_kept = [n for n in kept if n != last_ln]
+    kernels_step = steps["kernels"][0]
+    tower_l2 = {n: l2(tower["kernels"][n], tower["plain"][n]) for n in kept}
+    pinned_l2 = {n: l2(kernels_step[n], steps["pinned"][0][n]) for n in step_kept}
+    raw = [{"leaf": n, "kernels": l2(kernels_step[n], steps["plain"][0][n]),
+            "noise_floor": l2(steps["noise_floor"][0][n], steps["plain"][0][n])}
+           for n in step_kept]
+    norms = {k: v[1] for k, v in steps.items()}
+    pinned_norm = abs(norms["kernels"] - norms["pinned"]) / norms["pinned"]
+
+    def worst(errs: dict) -> list:
+        n = max(errs, key=errs.get)
+        return [errs[n], n]
+
+    result = {"leaves": len(kept), "tower_l2_rel_err": worst(tower_l2),
+              "step_l2_rel_err": worst(pinned_l2), "grad_norm_rel_err": pinned_norm,
+              "raw_step_l2_rel_err": worst({r["leaf"]: r["kernels"] for r in raw}),
+              "raw_step_leaves_within_tol": sum(r["kernels"] <= F32_GRAD_L2_TOL for r in raw),
+              "raw_step_leaves_within_twice_floor": sum(
+                  r["kernels"] <= max(F32_GRAD_L2_TOL, 2 * r["noise_floor"]) for r in raw),
+              "raw_step_worst_floor_ratio": max(r["kernels"] / r["noise_floor"] for r in raw),
+              "max_noise_floor_l2_rel": max(r["noise_floor"] for r in raw),
+              "step_leaves": len(raw), "z_noise": F32_Z_NOISE, "grad_norm": norms,
+              "zero_gradient_leaves": len(noise),
+              "zero_gradient_max_share": max(noise.values()) if noise else None,
+              "l2_tol": F32_GRAD_L2_TOL}
+    log("tower_grad_check_f32", arch=cfg.arch, lora=lora, **result, raw_by_leaf=raw)
+    if max(list(tower_l2.values()) + list(pinned_l2.values()) + [pinned_norm]) > \
+            F32_GRAD_L2_TOL or max(noise.values(), default=0.0) > 1e-3 or \
+            not math.isfinite(pinned_norm):
+        raise AssertionError(f"float32 tower gradients through the kernels disagree with the "
+                             f"plain chain: {result}")
+    return result
+
+
+def phase_k8_f32(card: str) -> dict:
+    """Phase 38: K8a f32, K8a-bwd f32, K8b f32 and K8b-bwd f32 alone at
+    phase 13's three shapes against their plain float32 versions on the same
+    device tensors; float32 SDPA with a boolean mask and ``F.layer_norm``
+    after a float32 add (and their backward) as yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import text_attention as k8a
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    nh, hd, Hd = 16, 64, 1024
+    gen = torch.Generator().manual_seed(50)
+    dev = torch.device("cuda")
+    gemm_precision(torch.float32)
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    def counts(mod):
+        return (mod.LAUNCHES, mod.BWD_LAUNCHES, mod.F32_LAUNCHES, mod.F32_BWD_LAUNCHES)
+
+    out = {}
+    for name, Bq, T, lo, hi, causal in K8_SHAPES:
+        _, mask = token_batch(gen, Bq, T, lo, hi, 100, 1)
+        q, k, v, g = (torch.randn(Bq, nh, T, hd, generator=gen).to(dev) for _ in range(4))
+        before = counts(k8a)
+        got = k8a.masked_attention_cuda(q, k, v, mask, causal)
+        grads = k8a.masked_attention_backward_cuda(q, k, v, mask, causal, g)
+        again = k8a.masked_attention_backward_cuda(q, k, v, mask, causal, g)
+        a_launches = [x - y for x, y in zip(counts(k8a), before)]
+        want = k8a.masked_attention_reference(q, k, v, mask, causal)
+        want_g = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+        torch.cuda.synchronize()
+        a_errs = {"ctx": rel(got, want),
+                  **{n: rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, want_g)}}
+        finite = all(bool(torch.isfinite(t).all()) for t in (got, *grads))
+        deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
+        f_err = float((got - want).abs().max())
+        b_err = max(float((a - b).abs().max()) for a, b in zip(grads, want_g))
+        del got, grads, again, want, want_g
+        keep = (mask > 0)[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        ctx = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
+        frac = 0.5 if causal else 1.0  # the products a causal row needs
+        attn = {"ms": cuda_time_ms(lambda: k8a.masked_attention_cuda(q, k, v, mask, causal), 10),
+                "plain_ms": cuda_time_ms(lambda: k8a.masked_attention_reference(
+                    q, k, v, mask, causal), 3),
+                "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=keep), 10),
+                "max_abs_err": f_err, "rel_err": a_errs["ctx"],
+                **bound(nbytes=4.0 * q.numel() * 4 + 4.0 * mask.numel(),
+                        ops=4.0 * Bq * nh * T * T * hd * frac, peak=F32_FLOPS)}
+        attn_bwd = {"ms": cuda_time_ms(lambda: k8a.masked_attention_backward_cuda(
+                        q, k, v, mask, causal, g), 5),
+                    "plain_ms": cuda_time_ms(lambda: k8a.masked_attention_backward_reference(
+                        q, k, v, mask, causal, g), 2),
+                    "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                        ctx, (ql, kl, vl), g, retain_graph=True), 5),
+                    "max_abs_err": b_err, "rel_err": {n: a_errs[n] for n in ("dq", "dk", "dv")},
+                    "deterministic": deterministic,
+                    **bound(nbytes=7.0 * q.numel() * 4 + 4.0 * mask.numel(),
+                            ops=10.0 * Bq * nh * T * T * hd * frac, peak=F32_FLOPS)}
+        for entry in (attn, attn_bwd):
+            entry["tflops"] = entry["bound_ms"] / entry["ms"] * F32_FLOPS / 1e12 \
+                if entry["bound_by"] == "operations" else None
+        del ctx, ql, kl, vl, keep, q, k, v, g
+        torch.cuda.empty_cache()
+
+        rows = Bq * T
+        x = torch.randn(rows, Hd, generator=gen).to(dev)
+        r = None if causal else torch.randn(rows, Hd, generator=gen).to(dev)
+        gy = torch.randn(rows, Hd, generator=gen).to(dev)
+        scale = (0.5 + torch.rand(Hd, generator=gen)).to(dev)
+        bias = (0.1 * torch.randn(Hd, generator=gen)).to(dev)
+        stats = torch.empty(rows, 2, device=dev)
+        before = counts(k8b)
+        y = k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5, stats)
+        dn = k8b.add_layer_norm_backward_cuda(x, r, scale, stats, gy)
+        dn_again = k8b.add_layer_norm_backward_cuda(x, r, scale, stats, gy)
+        n_launches = [a - b for a, b in zip(counts(k8b), before)]
+        want_y, plain_stats = k8b._reference_with_stats(x, r, scale, bias, 1e-5)
+        want_dn = k8b.add_layer_norm_backward_reference(x, r, scale, plain_stats, gy)
+        torch.cuda.synchronize()
+        n_errs = {"y": rel(y, want_y), "stats": rel(stats, plain_stats),
+                  **{n: rel(a, b) for n, a, b in zip(("dx", "dscale", "dbias"), dn, want_dn)}}
+        finite = finite and all(bool(torch.isfinite(t).all()) for t in (y, *dn))
+        deterministic = deterministic and all(torch.equal(a, b) for a, b in zip(dn, dn_again))
+        ny_err = float((y - want_y).abs().max())
+        nb_err = max(float((a - b).abs().max()) for a, b in zip(dn, want_dn))
+        del y, dn, dn_again, want_y, want_dn
+        xl = x.detach().clone().requires_grad_(True)
+        rl = None if r is None else r.detach().clone().requires_grad_(True)
+        sl, bl = (t.detach().clone().requires_grad_(True) for t in (scale, bias))
+        yl = F.layer_norm(xl if rl is None else xl + rl, (Hd,), sl, bl, 1e-5)
+        wrt = [t for t in (xl, rl, sl, bl) if t is not None]
+
+        def n_kernel():
+            return k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5, stats)
+
+        def n_bwd():
+            return k8b.add_layer_norm_backward_cuda(x, r, scale, stats, gy)
+
+        norm = {"ms": cuda_time_ms(n_kernel, 20),
+                "plain_ms": cuda_time_ms(lambda: k8b.add_layer_norm_reference(
+                    x, r, scale, bias, 1e-5), 5),
+                "library_ms": cuda_time_ms(lambda: F.layer_norm(
+                    x if r is None else x + r, (Hd,), scale, bias, 1e-5), 20),
+                "max_abs_err": ny_err, "rel_err": {n: n_errs[n] for n in ("y", "stats")},
+                **bound(nbytes=4.0 * rows * Hd * (2 if r is None else 3) + 8.0 * Hd)}
+        norm_bwd = {"ms": cuda_time_ms(n_bwd, 20),
+                    "plain_ms": cuda_time_ms(lambda: k8b.add_layer_norm_backward_reference(
+                        x, r, scale, stats, gy), 5),
+                    "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                        yl, wrt, gy, retain_graph=True), 20),
+                    "max_abs_err": nb_err,
+                    "rel_err": {n: n_errs[n] for n in ("dx", "dscale", "dbias")},
+                    **bound(nbytes=4.0 * rows * Hd * (3 if r is None else 4) + 8.0 * rows
+                            + 12.0 * Hd)}
+        norm["device_ms"], norm["host_ms"] = device_and_host_ms(n_kernel, 20)
+        norm_bwd["device_ms"], norm_bwd["host_ms"] = device_and_host_ms(n_bwd, 20)
+        del x, r, gy, yl, xl, rl, sl, bl, wrt, stats, plain_stats
+        torch.cuda.empty_cache()
+        out[name] = {"text_attention_f32": attn, "text_attention_bwd_f32": attn_bwd,
+                     "add_layer_norm_f32": norm, "add_layer_norm_bwd_f32": norm_bwd}
+        log("k8_f32_check", shape=name, batch=Bq, tokens=T, lengths=[lo, hi], causal=causal,
+            heads=nh, head_dim=hd, width=Hd, finite=finite, rel_tol=K8_F32_REL_TOL,
+            attention_launches=a_launches, layer_norm_launches=n_launches, **out[name],
+            card=card)
+        worst = max(list(a_errs.values()) + list(n_errs.values()))
+        if not finite or not deterministic or worst > K8_F32_REL_TOL or \
+                a_launches != [0, 0, 1, 4] or n_launches != [0, 0, 1, 4]:
+            raise AssertionError(f"K8 float32 ({name}) disagrees with its plain version: "
+                                 f"{a_errs} {n_errs} (rel tol {K8_F32_REL_TOL}), finite "
+                                 f"{finite}, deterministic {deterministic}, launches "
+                                 f"{a_launches} {n_launches}")
+    log("k8_f32_ptxas", layer_norm=k8b_ptxas(f32=True),
+        text_attention_f32=[{"kernel": n[0], "ptxas": p, "spills": s} for n, p, s in
+                            ptxas_by_kernel(load_kernel_library("text_attention_f32").build_log,
+                                            r"(attn_\w+_f32)")], card=card)
+    return out
+
+
+def phase_tower_f32(card: str, bf16_rows) -> dict:
+    """Phase 39: the tower in float32 (``MIXED_PRECISION False`` and the
+    native label-embedding generator): E5-large and BioGPT on phase 14's
+    random weights (the same seeds, not rounded to bf16) against the plain
+    float32 tower on one chunk each; then phase 14's 64 chunks through
+    ``NativeLabelEncoder.embed_ids`` with a float32 config (descriptions/s,
+    ms a chunk, peak memory, the float32 kernels' launches and none of the
+    bf16 forms, a profile of 2 chunks), and the drift of phase 14's bf16
+    rows (``bf16_rows``) from these float32 rows: each row's relative L2
+    distance, its largest and mean.  Returns the launches of the 64-chunk
+    run."""
+    import torch
+
+    from protnote_tpu_torch.models.label_encoder import NativeLabelEncoder
+    from protnote_tpu_torch.models.text_transformer import (
+        TextEncoderConfig,
+        pool_hidden_states,
+        text_encoder_forward,
+        text_encoder_forward_reference,
+    )
+    from protnote_tpu_torch.ops import layer_norm as k8b
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    f32 = torch.float32
+    one_chunk, chunks = tower_chunks()
+
+    def reset():
+        k8a.LAUNCHES = k8b.LAUNCHES = k8a.F32_LAUNCHES = k8b.F32_LAUNCHES = 0
+
+    def launches():
+        return ({"text_attention_f32": k8a.F32_LAUNCHES, "add_layer_norm_f32": k8b.F32_LAUNCHES},
+                {"text_attention": k8a.LAUNCHES, "add_layer_norm": k8b.LAUNCHES})
+
+    for arch, cfg, seed in (("e5_large", TextEncoderConfig.e5_large(dtype=f32), 33),
+                            ("biogpt", TextEncoderConfig.biogpt(dtype=f32), 34)):
+        params = random_tower(cfg, seed)
+        ids, mask = one_chunk[arch]
+        reset()
+        with torch.inference_mode():
+            got = pool_hidden_states(text_encoder_forward(params, ids, mask, cfg), mask, "mean")
+            ran, bf16_forms = launches()
+            want = pool_hidden_states(text_encoder_forward_reference(params, ids, mask, cfg),
+                                      mask, "mean")
+        torch.cuda.synchronize()
+        err, finite = pooled_err(got, want)
+        log("tower_f32_check", arch=arch, layers=cfg.num_layers, width=cfg.hidden_size,
+            rel_err=err, rel_tol=TOWER_F32_REL_TOL, finite=finite, launches=ran,
+            bf16_launches=bf16_forms, card=card)
+        if not finite or err > TOWER_F32_REL_TOL or any(v <= 0 for v in ran.values()) or \
+                any(bf16_forms.values()):
+            raise AssertionError(f"the float32 {arch} tower disagrees with the plain float32 "
+                                 f"tower: {err} (rel tol {TOWER_F32_REL_TOL}), finite {finite}, "
+                                 f"launches {ran}, bf16 {bf16_forms}")
+        del got, want
+        if arch == "e5_large":
+            e5_cfg, e5_params = cfg, params
+        del params
+        torch.cuda.empty_cache()
+
+    encoder = NativeLabelEncoder(e5_cfg, e5_params, device="cuda")
+    del e5_params
+    encoder.embed_ids(*chunks[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    rows = torch.cat([encoder.embed_ids(ids, mask) for ids, mask in chunks])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ran, bf16_forms = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall, busy, top = device_profile(lambda: encoder.embed_ids(*chunks[0]), 2)
+    real = rows.norm(dim=1) > 0  # the filler row pools to zeros on both sides
+    drift = ((bf16_rows.float() - rows).norm(dim=1)[real] / rows.norm(dim=1)[real])
+    n = rows.shape[0]
+    result = {"chunks": TOWER_CHUNKS, "rows": n, "seconds": sec, "descriptions_per_s": n / sec,
+              "ms_per_chunk": sec * 1e3 / TOWER_CHUNKS, "peak_mem_gb": peak, "launches": ran,
+              "bf16_launches": bf16_forms,
+              "launches_per_chunk": {k: v / TOWER_CHUNKS for k, v in ran.items()},
+              "profile_wall_ms_per_chunk": wall * 1e3 / 2,
+              "idle_share": None if busy is None else 1.0 - busy / wall,
+              "top_kernels_ms_per_chunk": top,
+              "bf16_drift_max_row_rel": float(drift.max()),
+              "bf16_drift_mean_row_rel": float(drift.mean()), "drift_rows": int(real.sum())}
+    log("tower_f32", arch="e5_large", **result, card=card)
+    if any(v <= 0 for v in ran.values()) or any(bf16_forms.values()) or \
+            not bool(torch.isfinite(rows).all()) or int(real.sum()) != n - 1:
+        raise AssertionError(f"the float32 tower run: {result}")
+    del encoder, rows
+    torch.cuda.empty_cache()
+    return ran
 
 
 def k7_lengths(rng, T: int):
@@ -7892,10 +8350,16 @@ def main() -> None:
     k8_times = phase_k8(card)
     tower_launches, rows, plain_rows = phase_tower(card)
     phase_zero_shot(rows, plain_rows, card)
-    del rows, plain_rows
+    del plain_rows
     torch.cuda.empty_cache()
     k8_bwd_times = phase_k8_bwd(card)
     bwd_launches = phase_tower_training(card)
+    torch.cuda.empty_cache()
+    k8_f32_times = phase_k8_f32(card)
+    tower_f32_launches = phase_tower_f32(card, rows)
+    del rows
+    torch.cuda.empty_cache()
+    tower_f32_bwd = phase_tower_training(card, f32=True)
     torch.cuda.empty_cache()
     k7_bwd = phase_k7_bwd(card)
     torch.cuda.empty_cache()
@@ -8047,7 +8511,18 @@ def main() -> None:
         ("masked_conv_dw_f32", "masked_conv_f32", "protnote_tpu/models/proteinfer.py:127"),
         ("masked_bn_relu_fwd_f32", "masked_bn", "protnote_tpu/models/layers.py:102"),
         ("masked_bn_relu_bwd_f32", "masked_bn", "protnote_tpu/models/layers.py:102"),
-        ("masked_mean_pool_bwd_f32", "masked_pool", "protnote_tpu/models/proteinfer.py:208"))]}),
+        ("masked_mean_pool_bwd_f32", "masked_pool", "protnote_tpu/models/proteinfer.py:208"))] + [{
+        "name": k, "route": "cuda", "source": f"protnote_tpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": runs[k], **{f: k8_f32_times["a"][k][f] for f in KERNEL_FIELDS},
+    } for k, src, rep, runs in (
+        ("text_attention_f32", "text_attention_f32", "protnote_tpu/models/text_transformer.py:167",
+         tower_f32_launches),
+        ("text_attention_bwd_f32", "text_attention_f32",
+         "protnote_tpu/models/text_transformer.py:182", tower_f32_bwd),
+        ("add_layer_norm_f32", "layer_norm", "protnote_tpu/models/text_transformer.py:159",
+         tower_f32_launches),
+        ("add_layer_norm_bwd_f32", "layer_norm", "protnote_tpu/models/text_transformer.py:159",
+         tower_f32_bwd))]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

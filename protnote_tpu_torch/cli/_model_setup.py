@@ -149,29 +149,6 @@ def load_model_file(ts: Dict[str, Any], path: str, pi_cfg, pn_cfg, optimizer=Non
     return ts, meta
 
 
-# what MIXED_PRECISION False still refuses on the card (those kernels take
-# bfloat16), by ROADMAP item
-FLOAT32_ON_CARD = {
-    "tower": "the label tower in float32 on the card (K8a, K8b and their backward take "
-             "bfloat16) is ROADMAP.md queue 1, item 16d: run it with MIXED_PRECISION True",
-}
-
-
-def refuse_float32_on_card(params: dict, device, tower: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for what
-    ``MIXED_PRECISION False`` does not run on the card, before any data or
-    weights are read: (``tower``: a caller that runs it) the label tower
-    (16d).  Training through every scorer (decomposed, streamed and dense),
-    training the encoder and its BatchNorm (``TRAIN_SEQUENCE_ENCODER``,
-    ``ENCODER_BN_TRAIN_MODE``: K7's float32 backward and train-mode
-    kernels), evaluation (``PAIR_BACKEND dense`` too), serving and
-    ``predict`` run."""
-    if not str(device).startswith("cuda") or params.get("MIXED_PRECISION", True):
-        return
-    if tower and (params.get("LABEL_ENCODER_NUM_TRAINABLE_LAYERS") or 0) > 0:
-        raise NotImplementedError(FLOAT32_ON_CARD["tower"])
-
-
 def build_inference_model(config: dict, params: dict, paths: dict, cache, run_name: str,
                           model_file: Optional[str], mesh, log, loss_fn=None,
                           device="cuda") -> Tuple:

@@ -7,8 +7,10 @@ optionally prefix the E5 instruction, embed with the frozen text encoder,
 and save embeddings + index with ``LabelEmbeddingCache.save``.
 
 ``--backend native`` runs the port's own tower (the JAX CLI's ``jax``
-backend), ``torch`` HF transformers' AutoModel; both read the HF checkpoint
-from local files.  ``--encoder hash`` needs no checkpoint.
+backend), in float32 on every device as the JAX CLI computes it (on the
+card through the float32 attention and LayerNorm kernels), ``torch`` HF
+transformers' AutoModel; both read the HF checkpoint from local files.
+``--encoder hash`` needs no checkpoint.
 
 Usage:
   python -m protnote_tpu_torch.cli.generate_label_embeddings \\

@@ -45,9 +45,10 @@ every step: with ``LORA`` the adapters of the last n layers train
 (``LORA_RANK``, ``LORA_ALPHA``) and the tower stays frozen; without it the
 whole tower joins the trainable tree and the optimizer's trainable mask
 updates its last n layers only (the clip still sees every gradient).  The
-tower computes in float32 on the CPU (as the JAX CLI trains it) and in
-bfloat16 on the card under ``MIXED_PRECISION`` (its kernels take bf16);
-its weights stay float32.  ``TRAIN_SEQUENCE_ENCODER`` trains the ProteInfer
+tower computes in float32 on the CPU and, with ``MIXED_PRECISION False``,
+on the card (as the JAX CLI trains it: K8a, K8b and their backward in
+float32), and in bfloat16 on the card under ``MIXED_PRECISION``; its
+weights stay float32.  ``TRAIN_SEQUENCE_ENCODER`` trains the ProteInfer
 encoder (``trainable["encoder"]``, through K7's backward kernels on the
 card) and ``ENCODER_BN_TRAIN_MODE`` runs the frozen encoder's BatchNorm on
 batch statistics, as the JAX CLI does.  Profiler traces, wandb and a mesh
@@ -58,9 +59,9 @@ kernels) and trains through every scorer (the decomposed one: K4, K4-bwd
 and K5 in float32; the streamed one: K6 in float32 too; the dense one: its
 first layer, prod GEMMs and K5 forms in float32) and, with
 ``TRAIN_SEQUENCE_ENCODER`` or ``ENCODER_BN_TRAIN_MODE``, the encoder (K7's
-float32 dX, dW and dbias, train-mode BatchNorm and pool transpose);
-training the label tower in float32 on the card raises before any work,
-naming ROADMAP item 16d (``cli/_model_setup.py:refuse_float32_on_card``).
+float32 dX, dW and dbias, train-mode BatchNorm and pool transpose), and
+with ``LABEL_ENCODER_NUM_TRAINABLE_LAYERS`` the label tower (K8a, K8b and
+their backward in float32).
 """
 
 from __future__ import annotations
@@ -121,9 +122,6 @@ def refuse_unported(args, params: Dict) -> None:
     if mesh or params.get("DISTRIBUTE_LABELS") or args.distributed:
         raise NotImplementedError("meshes and several cards come with the multi-GPU "
                                   "slice (ROADMAP.md queue 1, item 9)")
-    from protnote_tpu_torch.cli._model_setup import refuse_float32_on_card
-
-    refuse_float32_on_card(params, args.device, tower=True)
 
 
 def load_setup(args):
@@ -149,7 +147,9 @@ def build_label_tower(params: Dict, cache, pn_params, device, seed: int):
     """The trainable label tower of ``LABEL_ENCODER_NUM_TRAINABLE_LAYERS``
     (the JAX ``cli/main.py:216-267``): ``(text_cfg, text_params,
     lora_params, label_tokens, trainable_mask)``, the weights float32 on the
-    CPU, ``label_tokens`` the tokenized ``cache.descriptions``."""
+    CPU, ``label_tokens`` the tokenized ``cache.descriptions``.  The tower
+    computes in float32 (``load_pretrained_tower``'s dtype, the JAX CLI's),
+    on the card in bfloat16 under ``MIXED_PRECISION``."""
     import dataclasses
 
     import torch
@@ -169,11 +169,7 @@ def build_label_tower(params: Dict, cache, pn_params, device, seed: int):
         raise SystemExit(f"LABEL_ENCODER_NUM_TRAINABLE_LAYERS={n_layers} requires the "
                          f"{checkpoint!r} weights locally (pre-seed the HF cache in offline "
                          f"environments): {e}") from e
-    if device.type == "cuda":
-        if not params.get("MIXED_PRECISION", True):
-            raise ValueError("the label tower's kernels (K8a, K8b and their backward) take "
-                             "bfloat16: train it on the card with MIXED_PRECISION True "
-                             "(float32 on the card is ROADMAP.md queue 1, item 16d)")
+    if device.type == "cuda" and params.get("MIXED_PRECISION", True):
         text_cfg = dataclasses.replace(text_cfg, dtype=torch.bfloat16)
     label_tokens = tokenize_descriptions(tokenizer, cache.descriptions)
     lora_params = mask = None

@@ -4,12 +4,13 @@
 // with the residual add in front of it (x + a at lines 245 and 255, the
 // post-LN layers of bert), and the plain LayerNorm of the embeddings (226),
 // of the pre-LN branches (258, 260) and the final LN (271), where there is no
-// residual.  Per row of H bf16 values:
+// residual.  Per row of H values of the element type E (bf16 or float32):
 //
-//   v    = f32(bf16(x + r))          (the add rounded to bf16, as JAX adds)
+//   v    = f32(E(x + r))             (the add in E, as JAX adds: bf16
+//                                     rounds it, float32 is exact f32)
 //   mu   = sum(v) / H
 //   var  = sum((v - mu)^2) / H       (two passes, not E[v^2] - mu^2)
-//   y    = bf16(((v - mu) * rsqrt(var + eps)) * scale + bias)
+//   y    = E(((v - mu) * rsqrt(var + eps)) * scale + bias)
 //
 // every product and sum rounded on its own (no FMA), as the plain PyTorch
 // version computes it.  The sums run in this order (the plain version's
@@ -19,9 +20,16 @@
 // in order, then ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)), then a
 // butterfly over the lanes (xor 16, 8, 4, 2, 1).
 //
+// Every kernel is a template on E: the bf16 forms (the entry points without
+// a suffix) and the float32 forms (`_f32`, MIXED_PRECISION False) run the
+// same code and the same order of sums; a lane's 16-byte chunk of bf16 is
+// two 16-byte words of float32 (Row8<E>), so lane l holds the same columns
+// in both.  In float32 nothing is rounded but the float32 ops themselves.
+//
 // What bounds it: bytes.  x and r are read once and y written once, 3 * N * H
-// * 2 bytes with a residual: at 16,384 rows of 1024 that is 101 MB, 0.030 ms
-// at 3.35 TB/s (67 MB, 0.020 ms without).  The first design (one warp a row,
+// * sizeof(E) bytes with a residual: at 16,384 rows of 1024 that is 101 MB in
+// bf16, 0.030 ms at 3.35 TB/s (67 MB, 0.020 ms without); 201 MB, 0.060 ms in
+// float32 (0.040 without).  The first design (one warp a row,
 // one row a warp) lost ~0.025 ms a call that did not scale with the bytes:
 // each lane reloaded its 64 scale and bias values for every row, as scalar
 // loads whose 32 lanes touch 1 KB apiece (~512 L1 wavefronts a row, more than
@@ -33,9 +41,10 @@
 // * The next row's x (and r) are loaded into a second register buffer before
 //   the current row's reductions, so each warp keeps a row in flight.
 // * scale and bias are loaded once a warp as float4 and kept in registers up
-//   to H 1024 (64 a lane); wider rows read them as float4 per row (L1).
+//   to H 1024 in bf16 (64 a lane), up to H 512 in float32 (whose rows take
+//   twice the registers); wider rows read them as float4 per row (L1).
 // * Eight independent partial sums a lane in place of one serial chain.
-// * v is kept as packed bf16 (the residual add is rounded to bf16, so v is
+// * v is kept in E as loaded (the residual add is rounded to E, so v is
 //   exact in it) and widened once a pass.
 
 #include <cuda_runtime.h>
@@ -45,16 +54,10 @@
 namespace {
 
 constexpr int WARPS = 4;       // warps (rows in flight) a block
-constexpr int MAX_CHUNKS = 8;  // 16-byte chunks a lane: H up to 2048
-constexpr int REG_CHUNKS = 4;  // scale and bias in registers up to H 1024
+constexpr int MAX_CHUNKS = 8;  // chunks of 8 elements a lane: H up to 2048
 
 __device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-// element e (< 8) of a 16-byte chunk of bf16
-__device__ __forceinline__ float elem(const uint4& u, int e) {
-  const uint32_t w = e < 2 ? u.x : e < 4 ? u.y : e < 6 ? u.z : u.w;
-  return (e & 1) ? hi_bf16(w) : lo_bf16(w);
-}
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -62,6 +65,61 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
   return pack_bf16x2(__fadd_rn(lo_bf16(a), lo_bf16(b)), __fadd_rn(hi_bf16(a), hi_bf16(b)));
 }
+__device__ __forceinline__ float comp(const float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+
+// A lane's 8 elements of a chunk as loaded: one 16-byte word of bf16, two
+// of float32.
+template <typename E>
+struct Row8;
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 u;
+};
+template <>
+struct Row8<float> {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ Row8<__nv_bfloat16> load8(const __nv_bfloat16* p) {
+  return {__ldg(reinterpret_cast<const uint4*>(p))};
+}
+__device__ __forceinline__ Row8<float> load8(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return {__ldg(q), __ldg(q + 1)};
+}
+// element e (< 8)
+__device__ __forceinline__ float elem(const Row8<__nv_bfloat16>& r, int e) {
+  const uint32_t w = e < 2 ? r.u.x : e < 4 ? r.u.y : e < 6 ? r.u.z : r.u.w;
+  return (e & 1) ? hi_bf16(w) : lo_bf16(w);
+}
+__device__ __forceinline__ float elem(const Row8<float>& r, int e) {
+  return e < 4 ? comp(r.lo, e) : comp(r.hi, e - 4);
+}
+// E(a + b), element by element
+__device__ __forceinline__ Row8<__nv_bfloat16> add8(const Row8<__nv_bfloat16>& a,
+                                                    const Row8<__nv_bfloat16>& b) {
+  return {make_uint4(add_bf16x2(a.u.x, b.u.x), add_bf16x2(a.u.y, b.u.y),
+                     add_bf16x2(a.u.z, b.u.z), add_bf16x2(a.u.w, b.u.w))};
+}
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ Row8<float> add8(const Row8<float>& a, const Row8<float>& b) {
+  return {add4(a.lo, b.lo), add4(a.hi, b.hi)};
+}
+// 8 outputs, rounded to E
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&o)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]),
+                                            pack_bf16x2(o[4], o[5]), pack_bf16x2(o[6], o[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&o)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
 // the lane's eight partial sums in a fixed tree, then over the warp
 __device__ __forceinline__ float row_sum(const float (&p)[8]) {
   float v = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
@@ -71,10 +129,12 @@ __device__ __forceinline__ float row_sum(const float (&p)[8]) {
   return v;
 }
 
-// scale and bias of the lane's columns: in registers (REGS) or read per row
-template <int CH>
+// scale and bias of the lane's columns: in registers (REGS: up to 4 chunks
+// in bf16, 2 in float32, whose rows take twice the registers) or read per
+// row
+template <int CH, typename E>
 struct Affine {
-  static constexpr bool REGS = CH <= REG_CHUNKS;
+  static constexpr bool REGS = CH <= (sizeof(E) == 2 ? 4 : 2);
   float4 s[REGS ? 2 * CH : 1], b[REGS ? 2 * CH : 1];
   const float4 *sp, *bp;
   __device__ __forceinline__ Affine(const float* scale, const float* bias, int lane)
@@ -99,46 +159,39 @@ struct Affine {
   }
 };
 
-__device__ __forceinline__ float comp(const float4& f, int i) {
-  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
-}
-
-// CH 16-byte chunks a lane: H = 256 * CH; lane l holds columns
+// CH chunks of 8 elements a lane: H = 256 * CH; lane l holds columns
 // (c * 32 + l) * 8 .. + 7 of chunk c, so a warp's loads are contiguous
-template <int CH, bool RESIDUAL>
+template <typename E, int CH, bool RESIDUAL>
 __global__ void __launch_bounds__(WARPS * 32)
-add_layer_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ r,
+add_layer_norm_kernel(const E* __restrict__ x, const E* __restrict__ r,
                       const float* __restrict__ scale, const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ y, float* __restrict__ stats, long long N,
-                      float eps) {
+                      E* __restrict__ y, float* __restrict__ stats, long long N, float eps) {
   constexpr int H = 256 * CH;
   constexpr int RC = RESIDUAL ? CH : 1;
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)gridDim.x * WARPS;
   long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= N) return;
-  const Affine<CH> aff(scale, bias, lane);
+  const Affine<CH, E> aff(scale, bias, lane);
 
-  uint4 xc[CH], rc[RC];
-  auto load = [&](long long rw, uint4 (&xd)[CH], uint4 (&rd)[RC]) {
+  Row8<E> xc[CH], rc[RC];
+  auto load = [&](long long rw, Row8<E> (&xd)[CH], Row8<E> (&rd)[RC]) {
     const size_t off = (size_t)rw * H + lane * 8;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      xd[c] = __ldg(reinterpret_cast<const uint4*>(x + off + c * 256));
-      if constexpr (RESIDUAL) rd[c] = __ldg(reinterpret_cast<const uint4*>(r + off + c * 256));
+      xd[c] = load8(x + off + c * 256);
+      if constexpr (RESIDUAL) rd[c] = load8(r + off + c * 256);
     }
   };
   load(row, xc, rc);
   for (; row < N; row += stride) {
     const long long next = row + stride;
-    uint4 xn[CH], rn[RC];
+    Row8<E> xn[CH], rn[RC];
     if (next < N) load(next, xn, rn);  // in flight under this row's work
 
-    if constexpr (RESIDUAL) {  // v = bf16(x + r), in place
+    if constexpr (RESIDUAL) {  // v = E(x + r), in place
 #pragma unroll
-      for (int c = 0; c < CH; ++c)
-        xc[c] = make_uint4(add_bf16x2(xc[c].x, rc[c].x), add_bf16x2(xc[c].y, rc[c].y),
-                           add_bf16x2(xc[c].z, rc[c].z), add_bf16x2(xc[c].w, rc[c].w));
+      for (int c = 0; c < CH; ++c) xc[c] = add8(xc[c], rc[c]);
     }
     float p[8];
 #pragma unroll
@@ -177,9 +230,7 @@ add_layer_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
                            comp(bv, i));
         }
       }
-      *reinterpret_cast<uint4*>(y + off + c * 256) =
-          make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]), pack_bf16x2(o[4], o[5]),
-                     pack_bf16x2(o[6], o[7]));
+      store8(y + off + c * 256, o);
     }
     if (next < N) {
 #pragma unroll
@@ -191,11 +242,10 @@ add_layer_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
 }
 
-template <int CH, bool RESIDUAL>
-cudaError_t launch_variant(const __nv_bfloat16* x, const __nv_bfloat16* r, const float* scale,
-                   const float* bias, __nv_bfloat16* y, float* stats, long long N, float eps,
-                   cudaStream_t s) {
-  auto kernel = add_layer_norm_kernel<CH, RESIDUAL>;
+template <typename E, int CH, bool RESIDUAL>
+cudaError_t launch_variant(const E* x, const E* r, const float* scale, const float* bias, E* y,
+                           float* stats, long long N, float eps, cudaStream_t s) {
+  auto kernel = add_layer_norm_kernel<E, CH, RESIDUAL>;
   static int per_sm = 0;  // resident blocks an SM: one query a variant
   if (per_sm == 0) {
     const cudaError_t err =
@@ -213,12 +263,34 @@ cudaError_t launch_variant(const __nv_bfloat16* x, const __nv_bfloat16* r, const
   return cudaGetLastError();
 }
 
-template <int CH>
-cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* r, const float* scale,
-                   const float* bias, __nv_bfloat16* y, float* stats, long long N, float eps,
-                   cudaStream_t s) {
-  return r != nullptr ? launch_variant<CH, true>(x, r, scale, bias, y, stats, N, eps, s)
-                      : launch_variant<CH, false>(x, r, scale, bias, y, stats, N, eps, s);
+template <typename E, int CH>
+cudaError_t launch(const E* x, const E* r, const float* scale, const float* bias, E* y,
+                   float* stats, long long N, float eps, cudaStream_t s) {
+  return r != nullptr ? launch_variant<E, CH, true>(x, r, scale, bias, y, stats, N, eps, s)
+                      : launch_variant<E, CH, false>(x, r, scale, bias, y, stats, N, eps, s);
+}
+
+template <typename E>
+int forward(const void* x, const void* r, const void* scale, const void* bias, void* y,
+            void* stats, long long N, int H, float eps, void* stream) {
+  if (N < 1 || H < 256 || H % 256 != 0 || H / 256 > MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const E* x_ = static_cast<const E*>(x);
+  const E* r_ = static_cast<const E*>(r);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  E* y_ = static_cast<E*>(y);
+  float* st = static_cast<float*>(stats);
+  switch (H / 256) {
+    case 1: return (int)launch<E, 1>(x_, r_, sc, bi, y_, st, N, eps, s);
+    case 2: return (int)launch<E, 2>(x_, r_, sc, bi, y_, st, N, eps, s);
+    case 3: return (int)launch<E, 3>(x_, r_, sc, bi, y_, st, N, eps, s);
+    case 4: return (int)launch<E, 4>(x_, r_, sc, bi, y_, st, N, eps, s);
+    case 5: return (int)launch<E, 5>(x_, r_, sc, bi, y_, st, N, eps, s);
+    case 6: return (int)launch<E, 6>(x_, r_, sc, bi, y_, st, N, eps, s);
+    case 7: return (int)launch<E, 7>(x_, r_, sc, bi, y_, st, N, eps, s);
+    default: return (int)launch<E, 8>(x_, r_, sc, bi, y_, st, N, eps, s);
+  }
 }
 
 }  // namespace
@@ -231,32 +303,22 @@ cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* r, const float* 
 extern "C" int add_layer_norm(const void* x, const void* r, const void* scale, const void* bias,
                               void* y, void* stats, long long N, int H, float eps,
                               void* stream) {
-  if (N < 1 || H < 256 || H % 256 != 0 || H / 256 > MAX_CHUNKS) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* x_ = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* r_ = static_cast<const __nv_bfloat16*>(r);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  __nv_bfloat16* y_ = static_cast<__nv_bfloat16*>(y);
-  float* st = static_cast<float*>(stats);
-  switch (H / 256) {
-    case 1: return (int)launch<1>(x_, r_, sc, bi, y_, st, N, eps, s);
-    case 2: return (int)launch<2>(x_, r_, sc, bi, y_, st, N, eps, s);
-    case 3: return (int)launch<3>(x_, r_, sc, bi, y_, st, N, eps, s);
-    case 4: return (int)launch<4>(x_, r_, sc, bi, y_, st, N, eps, s);
-    case 5: return (int)launch<5>(x_, r_, sc, bi, y_, st, N, eps, s);
-    case 6: return (int)launch<6>(x_, r_, sc, bi, y_, st, N, eps, s);
-    case 7: return (int)launch<7>(x_, r_, sc, bi, y_, st, N, eps, s);
-    default: return (int)launch<8>(x_, r_, sc, bi, y_, st, N, eps, s);
-  }
+  return forward<__nv_bfloat16>(x, r, scale, bias, y, stats, N, H, eps, stream);
+}
+
+// The same with x, r and y float32 (MIXED_PRECISION False).
+extern "C" int add_layer_norm_f32(const void* x, const void* r, const void* scale,
+                                  const void* bias, void* y, void* stats, long long N, int H,
+                                  float eps, void* stream) {
+  return forward<float>(x, r, scale, bias, y, stats, N, H, eps, stream);
 }
 
 // ---------------------------------------------------------------------------
 // Backward (K8b-bwd): what JAX derives by autodiff from _layer_norm(x + r).
-// With g the bf16 cotangent of y, mu and rstd from the forward's stats:
+// With g the cotangent of y (in E), mu and rstd from the forward's stats:
 //
-//   v   = f32(bf16(x + r)),  xh = (v - mu) * rstd,  gh = f32(g) * scale
-//   dx  = bf16((gh - mean(gh) - xh * mean(gh * xh)) * rstd)    (= d r)
+//   v   = f32(E(x + r)),  xh = (v - mu) * rstd,  gh = f32(g) * scale
+//   dx  = E((gh - mean(gh) - xh * mean(gh * xh)) * rstd)    (= d r)
 //   dscale = sum over rows of f32(g) * xh,   dbias = sum over rows of f32(g)
 //
 // dx is one tensor: the add's two operands share its cotangent.  A warp
@@ -265,19 +327,17 @@ extern "C" int add_layer_norm(const void* x, const void* r, const void* scale, c
 // a fixed order into one row of `partial` (blocks, 2, H), and a second
 // launch sums those rows in block order: no float atomics, so a step gives
 // the same bits every time.  Bytes bound it: x, r, g read and dx written,
-// 4 * N * H * 2 bytes (134 MB at 16,384 rows of 1024: 0.040 ms at 3.35
-// TB/s), plus the partial rows.
+// 4 * N * H * sizeof(E) bytes (134 MB in bf16 at 16,384 rows of 1024: 0.040
+// ms at 3.35 TB/s; 268 MB, 0.080 ms in float32), plus the partial rows.
 
 namespace {
 
-template <int CH, bool RESIDUAL>
+template <typename E, int CH, bool RESIDUAL>
 __global__ void __launch_bounds__(WARPS * 32)
-add_layer_norm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ r,
-                          const __nv_bfloat16* __restrict__ g,
-                          const float* __restrict__ scale, const float* __restrict__ stats,
-                          __nv_bfloat16* __restrict__ dx, float* __restrict__ partial,
-                          long long N) {
+add_layer_norm_bwd_kernel(const E* __restrict__ x, const E* __restrict__ r,
+                          const E* __restrict__ g, const float* __restrict__ scale,
+                          const float* __restrict__ stats, E* __restrict__ dx,
+                          float* __restrict__ partial, long long N) {
   constexpr int H = 256 * CH;
   __shared__ float red[WARPS * H];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -289,16 +349,12 @@ add_layer_norm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
 
   for (long long row = (long long)blockIdx.x * WARPS + warp; row < N; row += stride) {
     const size_t off = (size_t)row * H + lane * 8;
-    uint4 xc[CH], gc[CH];
+    Row8<E> xc[CH], gc[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      xc[c] = __ldg(reinterpret_cast<const uint4*>(x + off + c * 256));
-      gc[c] = __ldg(reinterpret_cast<const uint4*>(g + off + c * 256));
-      if constexpr (RESIDUAL) {
-        const uint4 rc = __ldg(reinterpret_cast<const uint4*>(r + off + c * 256));
-        xc[c] = make_uint4(add_bf16x2(xc[c].x, rc.x), add_bf16x2(xc[c].y, rc.y),
-                           add_bf16x2(xc[c].z, rc.z), add_bf16x2(xc[c].w, rc.w));
-      }
+      xc[c] = load8(x + off + c * 256);
+      gc[c] = load8(g + off + c * 256);
+      if constexpr (RESIDUAL) xc[c] = add8(xc[c], load8(r + off + c * 256));
     }
     const float mu = stats[2 * row], rs = stats[2 * row + 1];
     float a[8], b[8];
@@ -337,9 +393,7 @@ add_layer_norm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
           o[e] = __fmul_rn(__fsub_rn(__fsub_rn(gh, ma), __fmul_rn(xh, mb)), rs);
         }
       }
-      *reinterpret_cast<uint4*>(dx + off + c * 256) =
-          make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]), pack_bf16x2(o[4], o[5]),
-                     pack_bf16x2(o[6], o[7]));
+      store8(dx + off + c * 256, o);
     }
   }
 
@@ -374,23 +428,49 @@ __global__ void add_layer_norm_bwd_reduce(const float* __restrict__ partial, int
   out[col] = s;
 }
 
-template <int CH>
-cudaError_t launch_bwd(const __nv_bfloat16* x, const __nv_bfloat16* r, const __nv_bfloat16* g,
-                       const float* scale, const float* stats, __nv_bfloat16* dx,
-                       float* partial, float* dscale_dbias, int blocks, long long N,
-                       cudaStream_t s) {
+template <typename E, int CH>
+cudaError_t launch_bwd(const E* x, const E* r, const E* g, const float* scale,
+                       const float* stats, E* dx, float* partial, float* dscale_dbias, int blocks,
+                       long long N, cudaStream_t s) {
   constexpr int H = 256 * CH;
   if (r != nullptr)
-    add_layer_norm_bwd_kernel<CH, true><<<blocks, WARPS * 32, 0, s>>>(x, r, g, scale, stats, dx,
-                                                                    partial, N);
+    add_layer_norm_bwd_kernel<E, CH, true><<<blocks, WARPS * 32, 0, s>>>(x, r, g, scale, stats,
+                                                                       dx, partial, N);
   else
-    add_layer_norm_bwd_kernel<CH, false><<<blocks, WARPS * 32, 0, s>>>(x, r, g, scale, stats,
-                                                                     dx, partial, N);
+    add_layer_norm_bwd_kernel<E, CH, false><<<blocks, WARPS * 32, 0, s>>>(x, r, g, scale, stats,
+                                                                        dx, partial, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   add_layer_norm_bwd_reduce<<<(2 * H + 255) / 256, 256, 0, s>>>(partial, blocks, 2 * H,
                                                                dscale_dbias);
   return cudaGetLastError();
+}
+
+template <typename E>
+int backward(const void* x, const void* r, const void* g, const void* scale, const void* stats,
+             void* dx, void* partial, void* dscale_dbias, int blocks, long long N, int H,
+             void* stream) {
+  if (N < 1 || blocks < 1 || H < 256 || H % 256 != 0 || H / 256 > MAX_CHUNKS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const E* x_ = static_cast<const E*>(x);
+  const E* r_ = static_cast<const E*>(r);
+  const E* g_ = static_cast<const E*>(g);
+  const float* sc = static_cast<const float*>(scale);
+  const float* st = static_cast<const float*>(stats);
+  E* dx_ = static_cast<E*>(dx);
+  float* pa = static_cast<float*>(partial);
+  float* out = static_cast<float*>(dscale_dbias);
+  switch (H / 256) {
+    case 1: return (int)launch_bwd<E, 1>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    case 2: return (int)launch_bwd<E, 2>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    case 3: return (int)launch_bwd<E, 3>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    case 4: return (int)launch_bwd<E, 4>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    case 5: return (int)launch_bwd<E, 5>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    case 6: return (int)launch_bwd<E, 6>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    case 7: return (int)launch_bwd<E, 7>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+    default: return (int)launch_bwd<E, 8>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
+  }
 }
 
 }  // namespace
@@ -405,25 +485,14 @@ extern "C" int add_layer_norm_backward(const void* x, const void* r, const void*
                                        const void* scale, const void* stats, void* dx,
                                        void* partial, void* dscale_dbias, int blocks,
                                        long long N, int H, void* stream) {
-  if (N < 1 || blocks < 1 || H < 256 || H % 256 != 0 || H / 256 > MAX_CHUNKS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* x_ = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* r_ = static_cast<const __nv_bfloat16*>(r);
-  const __nv_bfloat16* g_ = static_cast<const __nv_bfloat16*>(g);
-  const float* sc = static_cast<const float*>(scale);
-  const float* st = static_cast<const float*>(stats);
-  __nv_bfloat16* dx_ = static_cast<__nv_bfloat16*>(dx);
-  float* pa = static_cast<float*>(partial);
-  float* out = static_cast<float*>(dscale_dbias);
-  switch (H / 256) {
-    case 1: return (int)launch_bwd<1>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    case 2: return (int)launch_bwd<2>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    case 3: return (int)launch_bwd<3>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    case 4: return (int)launch_bwd<4>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    case 5: return (int)launch_bwd<5>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    case 6: return (int)launch_bwd<6>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    case 7: return (int)launch_bwd<7>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-    default: return (int)launch_bwd<8>(x_, r_, g_, sc, st, dx_, pa, out, blocks, N, s);
-  }
+  return backward<__nv_bfloat16>(x, r, g, scale, stats, dx, partial, dscale_dbias, blocks, N, H,
+                                 stream);
+}
+
+// The same with x, r, g and dx float32 (MIXED_PRECISION False).
+extern "C" int add_layer_norm_backward_f32(const void* x, const void* r, const void* g,
+                                           const void* scale, const void* stats, void* dx,
+                                           void* partial, void* dscale_dbias, int blocks,
+                                           long long N, int H, void* stream) {
+  return backward<float>(x, r, g, scale, stats, dx, partial, dscale_dbias, blocks, N, H, stream);
 }

@@ -184,8 +184,10 @@ class NativeLabelEncoder:
     ``device`` once, with the embedding and Linear weights cast to
     ``cfg.dtype`` (what the forward casts them to at use).  ``tokenizer`` is
     an HF tokenizer, needed by :meth:`token_counts` and :meth:`embed`;
-    :meth:`embed_ids` takes token ids as they are.  On the card the tower
-    runs in bfloat16 (the attention and LayerNorm kernels take bf16).
+    :meth:`embed_ids` takes token ids as they are.  The tower computes in
+    ``cfg.dtype`` on every device: float32 (as ``JaxLabelEncoder``), or
+    bfloat16 when a caller asks for it; on the card the attention and
+    LayerNorm kernels run in either.
     """
 
     # bucketed token widths, as the JAX encoder pads them: a handful of
@@ -207,11 +209,12 @@ class NativeLabelEncoder:
                         local_files_only: bool = True, dtype: Optional[torch.dtype] = None,
                         device="cuda") -> "NativeLabelEncoder":
         """Tokenizer, config and weights of an HF checkpoint (read through
-        ``transformers``).  ``dtype`` None: bfloat16 on the card, float32
-        elsewhere."""
+        ``transformers``).  ``dtype`` None: float32 on every device, as the
+        JAX ``JaxLabelEncoder`` computes (``torch.bfloat16`` still runs the
+        bf16 tower)."""
         device = torch.device(device)
         if dtype is None:
-            dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+            dtype = torch.float32
         cfg, params, tokenizer = load_pretrained_tower(checkpoint, dtype, local_files_only)
         return cls(cfg, params, tokenizer, device=device, pooling_method=pooling_method,
                    checkpoint=checkpoint)

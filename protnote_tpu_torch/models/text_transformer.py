@@ -20,7 +20,8 @@ LayerNorm, GELU is the exact (erf) one, and the Linear products go through
 in :mod:`protnote_tpu_torch.ops.text_attention` (K8a) and every LayerNorm,
 with its residual add where there is one, in
 :mod:`protnote_tpu_torch.ops.layer_norm` (K8b): their CUDA kernels on the
-card, their plain versions on the CPU.  :func:`text_encoder_forward_reference`
+card, in bf16 or float32 (``cfg.dtype``; the ops pick the kernel by dtype),
+their plain versions on the CPU.  :func:`text_encoder_forward_reference`
 runs the plain versions on any device.
 
 Training: when a parameter of the tree or of the LoRA adapters requires a

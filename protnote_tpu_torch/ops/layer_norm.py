@@ -13,9 +13,11 @@ branches and the final LN.
 
 :func:`add_layer_norm` dispatches on the device: CPU tensors take the plain
 PyTorch version (:func:`add_layer_norm_reference`), CUDA tensors the
-hand-written kernel of ``csrc/layer_norm.cu`` (bf16, a width that is a
-multiple of 256 up to 2048: persistent warps that walk rows, each with the
-next row's loads in flight, scale and bias kept in registers); input the
+hand-written kernel of ``csrc/layer_norm.cu`` (a width that is a multiple
+of 256 up to 2048: persistent warps that walk rows, each with the next
+row's loads in flight, scale and bias kept in registers), in bf16 or, with
+``MIXED_PRECISION False``, in float32: one kernel template on the element
+type, the entry point chosen by x's dtype (:func:`entry_points`); input the
 kernel does not take raises, and nothing falls back.
 
 **Backward (K8b-bwd).**  When a gradient is wanted, :func:`add_layer_norm`
@@ -46,9 +48,25 @@ MAX_WIDTH = 2048  # a lane keeps its H / 32 values in registers
 # Launches of the kernel since the process started (or since a caller last
 # set it to 0); BWD_LAUNCHES counts the backward kernels' launches (two a
 # call: the row kernel and the reduction of the scale and bias sums).
+# F32_LAUNCHES and F32_BWD_LAUNCHES count the float32 forms' the same way.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+F32_LAUNCHES = 0
+F32_BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
+
+# the C entry points of csrc/layer_norm.cu by element type: (forward, backward)
+_ENTRY_POINTS = {torch.bfloat16: ("add_layer_norm", "add_layer_norm_backward"),
+                 torch.float32: ("add_layer_norm_f32", "add_layer_norm_backward_f32")}
+
+
+def entry_points(dtype: torch.dtype):
+    """``(forward, backward)``: the kernel entry points that take elements
+    of ``dtype`` (bf16, or float32 under ``MIXED_PRECISION False``); raises
+    on any other dtype."""
+    if dtype not in _ENTRY_POINTS:
+        raise ValueError(f"the LayerNorm kernel takes bfloat16 or float32 tensors, not {dtype}")
+    return _ENTRY_POINTS[dtype]
 
 
 def add_layer_norm_reference(x: torch.Tensor, residual: Optional[torch.Tensor],
@@ -94,7 +112,7 @@ _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_i
 _BWD_BLOCKS_PER_SM = 8  # the backward's row-kernel grid: 8 blocks of 4 warps an SM
 
 
-def _fn(symbol: str = "add_layer_norm", args=None):
+def _fn(symbol: str, args=None):
     from protnote_tpu_torch.ops.kernels import kernel_function
 
     return kernel_function("layer_norm", symbol, _ARGS if args is None else args)
@@ -102,8 +120,12 @@ def _fn(symbol: str = "add_layer_norm", args=None):
 
 def _check_cuda(x: torch.Tensor, residual: Optional[torch.Tensor], scale: torch.Tensor,
                 bias: torch.Tensor) -> None:
-    """What the forward and backward kernels take; raises on anything else."""
+    """What the forward and backward kernels take: x and the residual of one
+    dtype that :func:`entry_points` takes; raises on anything else."""
     device, H = x.device, x.shape[-1]
+    entry_points(x.dtype)
+    if residual is not None and residual.dtype != x.dtype:
+        raise ValueError(f"residual must be {x.dtype} as x is, not {residual.dtype}")
     if device.type != "cuda":
         raise ValueError(f"the LayerNorm kernel needs CUDA tensors, not {device}")
     if H % 256 or not 256 <= H <= MAX_WIDTH:
@@ -112,8 +134,8 @@ def _check_cuda(x: torch.Tensor, residual: Optional[torch.Tensor], scale: torch.
     for name, t in (("x", x), ("residual", residual)):
         if t is None:
             continue
-        if t.device != device or t.dtype != torch.bfloat16 or t.shape != x.shape:
-            raise ValueError(f"{name} must be bfloat16 {tuple(x.shape)} on {device}, not "
+        if t.device != device or t.shape != x.shape:
+            raise ValueError(f"{name} must be {x.dtype} {tuple(x.shape)} on {device}, not "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -127,10 +149,11 @@ def _check_cuda(x: torch.Tensor, residual: Optional[torch.Tensor], scale: torch.
 def add_layer_norm_cuda(x: torch.Tensor, residual: Optional[torch.Tensor],
                         scale: torch.Tensor, bias: torch.Tensor, eps: float,
                         stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's wrapper: checks what the kernel takes, launches it on the
-    current stream and counts the launch.  ``stats`` (rows, 2) float32, when
-    given, receives each row's mu and rstd."""
-    global LAUNCHES
+    """The kernel's wrapper: checks what the kernel takes, launches its form
+    for x's dtype on the current stream and counts the launch (float32 in
+    ``F32_LAUNCHES``).  ``stats`` (rows, 2) float32, when given, receives
+    each row's mu and rstd."""
+    global LAUNCHES, F32_LAUNCHES
     _check_cuda(x, residual, scale, bias)
     device, H = x.device, x.shape[-1]
     if stats is not None and (stats.dtype != torch.float32 or not stats.is_contiguous()
@@ -139,28 +162,31 @@ def add_layer_norm_cuda(x: torch.Tensor, residual: Optional[torch.Tensor],
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the C launch goes to the thread's device
-        err = _fn()(x.data_ptr(), None if residual is None else residual.data_ptr(),
-                    scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                    None if stats is None else stats.data_ptr(), x.numel() // H, H,
-                    float(eps), stream)
+        err = _fn(entry_points(x.dtype)[0])(
+            x.data_ptr(), None if residual is None else residual.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), None if stats is None else stats.data_ptr(),
+            x.numel() // H, H, float(eps), stream)
         if err != 0:
             raise RuntimeError(f"add_layer_norm launch failed: CUDA error {err}")
         with _launch_lock:
-            LAUNCHES += 1
+            if x.dtype == torch.float32:
+                F32_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
     return y
 
 
 def add_layer_norm_backward_cuda(x: torch.Tensor, residual: Optional[torch.Tensor],
                                  scale: torch.Tensor, stats: torch.Tensor, g: torch.Tensor):
     """The backward kernels' wrapper: ``(dx, dscale, dbias)`` from the row
-    kernel and the fixed-order reduction on the current stream; counts both
-    launches in ``BWD_LAUNCHES``."""
-    global BWD_LAUNCHES
+    kernel and the fixed-order reduction of x's dtype on the current stream;
+    counts both launches in ``BWD_LAUNCHES`` (float32: ``F32_BWD_LAUNCHES``)."""
+    global BWD_LAUNCHES, F32_BWD_LAUNCHES
     _check_cuda(x, residual, scale, scale)
     device, H = x.device, x.shape[-1]
-    if g.shape != x.shape or g.dtype != torch.bfloat16 or not g.is_contiguous() \
-            or g.data_ptr() % 16:
-        raise ValueError("g must be a contiguous bfloat16 tensor shaped like x")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != device \
+            or not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError(f"g must be a contiguous {x.dtype} tensor shaped like x")
     rows = x.numel() // H
     if stats.dtype != torch.float32 or not stats.is_contiguous() or stats.numel() != 2 * rows:
         raise ValueError("stats must be the forward's contiguous float32 (rows, 2) tensor")
@@ -171,14 +197,17 @@ def add_layer_norm_backward_cuda(x: torch.Tensor, residual: Optional[torch.Tenso
     out = torch.empty(2, H, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = _fn("add_layer_norm_backward", _BWD_ARGS)(
+        err = _fn(entry_points(x.dtype)[1], _BWD_ARGS)(
             x.data_ptr(), None if residual is None else residual.data_ptr(), g.data_ptr(),
             scale.data_ptr(), stats.data_ptr(), dx.data_ptr(), partial.data_ptr(),
             out.data_ptr(), blocks, rows, H, stream)
         if err != 0:
             raise RuntimeError(f"add_layer_norm_backward launch failed: CUDA error {err}")
-        with _launch_lock:
-            BWD_LAUNCHES += 2  # the row kernel and the reduction
+        with _launch_lock:  # the row kernel and the reduction
+            if x.dtype == torch.float32:
+                F32_BWD_LAUNCHES += 2
+            else:
+                BWD_LAUNCHES += 2
     return dx, out[0], out[1]
 
 

@@ -18,8 +18,11 @@ uniform softmax JAX gives it, not 0/0.
 
 :func:`masked_attention` dispatches on the device: CPU tensors take the
 plain PyTorch version (:func:`masked_attention_reference`), CUDA tensors the
-hand-written kernel of ``csrc/text_attention.cu`` (bf16, hd 64, T <= 512);
-input the kernel does not take raises, and nothing falls back.
+hand-written kernel of ``csrc/text_attention.cu`` (bf16, hd 64, T <= 512)
+or, for float32 tensors (``MIXED_PRECISION False``), of
+``csrc/text_attention_f32.cu``: the core at ``Precision.HIGHEST``, nothing
+rounded to bf16, on the FMA pipe (:func:`entry_points` picks the form by
+dtype); input the kernels do not take raises, and nothing falls back.
 
 **Backward (K8a-bwd).**  When a gradient is wanted (the tower trains),
 :func:`masked_attention` goes through an ``autograd.Function`` whose
@@ -44,6 +47,10 @@ its descriptions to 128 tokens) one wgmma kernel a call with a (b, h)'s
 whole score matrix in the block, above it two mma.sync kernels
 (:func:`backward_launches`, by shape only).  A row whose keys are all masked
 has y = 1 on every key: the gradient of JAX's uniform softmax, not NaN.
+In float32 every ``.to(q.dtype)`` above is a no-op, and
+``csrc/text_attention_f32.cu`` computes that chain in two kernels at any T
+(dQ with each row's m, z and D, then dK and dV from them): it never falls
+back to the bf16 kernels.
 """
 
 from __future__ import annotations
@@ -63,10 +70,21 @@ MASKED = -1e9  # the JAX package's additive mask value
 
 # Launches of the kernel since the process started (or since a caller last
 # set it to 0); BWD_LAUNCHES counts the backward kernels' launches
-# (:func:`backward_launches` a call).
+# (:func:`backward_launches` a call).  F32_LAUNCHES and F32_BWD_LAUNCHES
+# count the float32 forms' the same way.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+F32_LAUNCHES = 0
+F32_BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
+
+# the kernels by element type: (library under protnote_tpu_torch/csrc, entry point)
+_ENTRY_POINTS = {
+    torch.bfloat16: {"forward": ("text_attention", "masked_attention"),
+                     "backward": ("text_attention_bwd", "masked_attention_backward")},
+    torch.float32: {"forward": ("text_attention_f32", "masked_attention_f32"),
+                    "backward": ("text_attention_f32", "masked_attention_backward_f32")},
+}
 
 
 def scale_for(head_dim: int) -> float:
@@ -75,10 +93,20 @@ def scale_for(head_dim: int) -> float:
     return float(1.0 / torch.tensor(math.sqrt(head_dim), dtype=torch.float32))
 
 
-def backward_launches(T: int) -> int:
-    """Kernel launches of one backward call at T tokens: the one-pass kernel
-    up to :data:`ONE_PASS_T`, two above (dQ, then dK and dV)."""
-    return 1 if T <= ONE_PASS_T else 2
+def entry_points(dtype: torch.dtype) -> dict:
+    """The kernels that take q, k, v of ``dtype`` (bf16, or float32 under
+    ``MIXED_PRECISION False``): ``forward`` and ``backward``, each a
+    ``(library, symbol)`` of ``csrc/``; raises on any other dtype."""
+    if dtype not in _ENTRY_POINTS:
+        raise ValueError(f"the attention kernel takes bfloat16 or float32 tensors, not {dtype}")
+    return _ENTRY_POINTS[dtype]
+
+
+def backward_launches(T: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Kernel launches of one backward call at T tokens: in bf16 the
+    one-pass kernel up to :data:`ONE_PASS_T`, two above (dQ, then dK and
+    dV); in float32 always the two."""
+    return 1 if dtype == torch.bfloat16 and T <= ONE_PASS_T else 2
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,20 +136,17 @@ def masked_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return (probs.float() @ v.float()).to(q.dtype)
 
 
-def _lib():
-    from protnote_tpu_torch.ops.kernels import load_kernel_library
-
-    lib = load_kernel_library("text_attention").lib
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_attention.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
-    lib.masked_attention.restype = ctypes.c_int
-    return lib
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_mask: torch.Tensor) -> None:
-    """What the forward and backward kernels take; raises on anything else."""
+    """What the forward and backward kernels take: q, k and v of one dtype
+    that :func:`entry_points` takes; raises on anything else."""
     check_inputs(q, k, v, key_mask)
+    entry_points(q.dtype)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share a dtype, not {q.dtype}, {k.dtype}, {v.dtype}")
     T, hd = q.shape[2], q.shape[3]
     device = q.device
     if device.type != "cuda":
@@ -132,8 +157,8 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd != HEAD_DIM:
         raise ValueError(f"the attention kernel takes head width {HEAD_DIM}, not {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != device or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16 on {device}, not {t.dtype} on {t.device}")
+        if t.device != device:
+            raise ValueError(f"{name} must be on {device}, not {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if key_mask.device != device or key_mask.dtype != torch.int32 or \
@@ -143,22 +168,28 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
-    """The kernel's wrapper: checks what the kernel takes, launches it on the
-    current stream and counts the launch."""
-    global LAUNCHES
+    """The kernel's wrapper: checks what the kernel takes, launches its form
+    for q's dtype on the current stream and counts the launch (float32 in
+    ``F32_LAUNCHES``)."""
+    global LAUNCHES, F32_LAUNCHES
+    from protnote_tpu_torch.ops.kernels import kernel_function
+
     _check_cuda(q, k, v, key_mask)
     B, nh, T, hd = q.shape
     device = q.device
     ctx = torch.empty_like(q)
+    fn = kernel_function(*entry_points(q.dtype)["forward"], _FWD_ARGS)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the C launch goes to the thread's device
-        err = _lib().masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      key_mask.data_ptr(), ctx.data_ptr(), B, nh, T, hd,
-                                      int(bool(causal)), scale_for(hd), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), ctx.data_ptr(),
+                 B, nh, T, hd, int(bool(causal)), scale_for(hd), stream)
         if err != 0:
             raise RuntimeError(f"masked_attention launch failed: CUDA error {err}")
         with _launch_lock:
-            LAUNCHES += 1
+            if q.dtype == torch.float32:
+                F32_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
     return ctx
 
 
@@ -196,21 +227,22 @@ def masked_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: tor
     return (ds @ k.float()).to(q.dtype), (ds.transpose(-1, -2) @ q.float()).to(k.dtype), dv
 
 
-def _backward_launch(symbol: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor, stats: bool):
-    """``(dq, dk, dv)`` bf16 from the entry point ``symbol`` of
-    ``csrc/text_attention_bwd.cu`` on the current stream (``stats``: with the
-    two-kernel form's per-row scratch)."""
+def _backward_launch(library: str, symbol: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor,
+                     stats: bool):
+    """``(dq, dk, dv)`` in q's dtype from the entry point ``symbol`` of
+    ``csrc/<library>.cu`` on the current stream (``stats``: with the
+    two-kernel forms' per-row scratch)."""
     from protnote_tpu_torch.ops.kernels import kernel_function
 
     _check_cuda(q, k, v, key_mask)
-    if dctx.shape != q.shape or dctx.dtype != torch.bfloat16 or dctx.device != q.device \
+    if dctx.shape != q.shape or dctx.dtype != q.dtype or dctx.device != q.device \
             or not dctx.is_contiguous() or dctx.data_ptr() % 16:
-        raise ValueError("dctx must be a contiguous bfloat16 tensor shaped like q")
+        raise ValueError(f"dctx must be a contiguous {q.dtype} tensor shaped like q")
     B, nh, T, hd = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     scratch = torch.empty(3, B * nh * T, dtype=torch.float32, device=q.device) if stats else None
-    fn = kernel_function("text_attention_bwd", symbol, _BWD_ARGS)
+    fn = kernel_function(library, symbol, _BWD_ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the C launch goes to the thread's device
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dctx.data_ptr(), key_mask.data_ptr(),
@@ -224,15 +256,19 @@ def _backward_launch(symbol: str, q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 def masked_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    key_mask: torch.Tensor, causal: bool, dctx: torch.Tensor):
-    """The backward kernels' wrapper: ``(dq, dk, dv)`` bf16, the form chosen
-    by T alone (:func:`backward_launches`), its launches counted in
-    ``BWD_LAUNCHES``."""
-    global BWD_LAUNCHES
-    T = q.shape[2]
-    out = _backward_launch("masked_attention_backward", q, k, v, key_mask, causal, dctx,
-                           stats=backward_launches(T) == 2)
+    """The backward kernels' wrapper: ``(dq, dk, dv)`` in q's dtype, the
+    form chosen by dtype and T alone (:func:`backward_launches`), its
+    launches counted in ``BWD_LAUNCHES`` (float32: ``F32_BWD_LAUNCHES``)."""
+    global BWD_LAUNCHES, F32_BWD_LAUNCHES
+    T, dtype = q.shape[2], q.dtype
+    n = backward_launches(T, dtype)
+    out = _backward_launch(*entry_points(dtype)["backward"], q, k, v, key_mask, causal, dctx,
+                           stats=n == 2)
     with _launch_lock:
-        BWD_LAUNCHES += backward_launches(T)
+        if dtype == torch.float32:
+            F32_BWD_LAUNCHES += n
+        else:
+            BWD_LAUNCHES += n
     return out
 
 
@@ -242,8 +278,10 @@ def two_kernel_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``chip_variants.py`` compare the one-pass kernel with at T <= 128.
     The port's paths reach the two kernels only through
     :func:`masked_attention_backward_cuda` above 128 tokens."""
-    return _backward_launch("masked_attention_backward_two_kernels", q, k, v, key_mask, causal,
-                            dctx, stats=True)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the two-kernel bf16 backward takes bfloat16, not {q.dtype}")
+    return _backward_launch("text_attention_bwd", "masked_attention_backward_two_kernels", q, k,
+                            v, key_mask, causal, dctx, stats=True)
 
 
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]

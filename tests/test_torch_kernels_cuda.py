@@ -86,6 +86,12 @@ of the plain conv's largest |value| (cuDNN with TF32 off; only the order of
 the float32 sums differs), masked rows exactly 0 (or the residual), the same
 bits on a second call; the pool to 1e-5; the encoder with its float32 head
 within 1e-4 of the plain chain's largest |value|.
+K8a, K8a-bwd, K8b and K8b-bwd in float32 (csrc/text_attention_f32.cu, the
+_f32 entries of csrc/layer_norm.cu) on the same float32 inputs: ctx, dq,
+dk, dv, y, the saved statistics, dx, dscale and dbias within 1e-5 of the
+plain float32 tensor's largest |value| (FMA chains and float32 sums in
+other orders; the plain products cuBLAS with TF32 off), the backward the
+same bits on a second call, and no bf16 form launched.
 """
 
 import numpy as np
@@ -885,8 +891,10 @@ def test_text_attention_kernel_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="at most 512"):
         k8a.masked_attention(q, k, v, mask, False)
     q, k, v, mask = _attention_inputs(rng, 1, 2, 16, 64, [16], dev)
-    with pytest.raises(ValueError, match="bfloat16"):
-        k8a.masked_attention(q.float(), k.float(), v.float(), mask, False)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        k8a.masked_attention(q.half(), k.half(), v.half(), mask, False)
+    with pytest.raises(ValueError, match="share a dtype"):
+        k8a.masked_attention(q.float(), k, v, mask, False)
     with pytest.raises(ValueError, match="int32"):
         k8a.masked_attention(q, k, v, mask.long(), False)
     q, k, v, mask = _attention_inputs(rng, 1, 2, 16, 48, [16], dev)
@@ -952,8 +960,10 @@ def test_layer_norm_kernel_raises_on_what_it_does_not_take():
     ones = torch.ones(1024, device=dev)
     with pytest.raises(ValueError, match="multiples of 256"):
         k8b.add_layer_norm(x[:, :100].contiguous(), None, ones[:100], ones[:100], 1e-5)
-    with pytest.raises(ValueError, match="bfloat16"):
-        k8b.add_layer_norm(x.float(), None, ones, ones, 1e-5)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        k8b.add_layer_norm(x.half(), None, ones, ones, 1e-5)
+    with pytest.raises(ValueError, match="residual"):
+        k8b.add_layer_norm(x.float(), x, ones, ones, 1e-5)
     with pytest.raises(ValueError, match="float32"):
         k8b.add_layer_norm(x, None, ones.to(torch.bfloat16), ones, 1e-5)
 
@@ -1102,6 +1112,122 @@ def test_backward_kernels_raise_on_what_they_do_not_take():
     ones = torch.ones(1024, device=dev)
     with pytest.raises(ValueError, match="stats"):
         k8b.add_layer_norm_backward(x, None, ones, torch.zeros(3, 2, device=dev), x)
+
+
+def _f32_attention_inputs(rng, T, dev):
+    """B 3, nh 2, hd 64 float32: a full row, one whose first 70 keys (and
+    last 9) are masked, and an all-masked filler row."""
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(3, 2, T, 64)).astype(np.float32) * s).to(dev)
+                  for s in (1.5, 1.5, 1.0, 0.5))
+    mask = torch.zeros(3, T, dtype=torch.int32, device=dev)
+    mask[0] = 1
+    mask[1, 70 : T - 9] = 1
+    return q, k, v, g, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [128, 200])
+def test_text_attention_f32_kernels_match_plain_on_card(T, causal):
+    """K8a f32 (``masked_attention_f32``) and K8a-bwd f32 (its dQ and dK/dV
+    kernels) on float32 tensors against the plain float32 version
+    (``Precision.HIGHEST``: cuBLAS with TF32 off): ctx, dq, dk, dv within
+    1e-5 of the plain tensor's largest |value|; the float32 counts move and
+    the bf16 counts do not; the same bits on a second call."""
+    dev = _card()
+    rng = np.random.default_rng(T + 2 * causal)
+    q, k, v, g, mask = _f32_attention_inputs(rng, T, dev)
+    before = (k8a.LAUNCHES, k8a.BWD_LAUNCHES, k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES)
+    got = k8a.masked_attention(q, k, v, mask, causal)
+    grads = k8a.masked_attention_backward(q, k, v, mask, causal, g)
+    again = k8a.masked_attention_backward(q, k, v, mask, causal, g)
+    want = k8a.masked_attention_reference(q, k, v, mask, causal)
+    want_grads = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+    torch.cuda.synchronize()
+    after = (k8a.LAUNCHES, k8a.BWD_LAUNCHES, k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 1, 4]
+    for name, a, b in (("ctx", got, want), *zip(("dq", "dk", "dv"), grads, want_grads)):
+        assert a.dtype == torch.float32 and a.shape == q.shape, name
+        _within(a, b, 1e-5, name)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    uniform = v[2].mean(1, keepdim=True).expand(-1, T, -1)
+    _within(got[2], uniform, 1e-5, "filler row")
+
+
+@pytest.mark.cuda
+def test_text_attention_f32_autograd_runs_the_f32_kernels_on_card():
+    """With a gradient wanted on float32 tensors, ``masked_attention``
+    launches K8a f32 and, on the way back, K8a-bwd f32's two kernels."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    q, k, v, _, mask = _f32_attention_inputs(rng, 128, dev)
+    q.requires_grad_(True)
+    before = (k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES, k8a.LAUNCHES, k8a.BWD_LAUNCHES)
+    out = k8a.masked_attention(q, k, v, mask, True)
+    (dq,) = torch.autograd.grad(out.sum(), [q])
+    torch.cuda.synchronize()
+    after = (k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES, k8a.LAUNCHES, k8a.BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0]
+    want = k8a.masked_attention_backward_reference(q.detach(), k, v, mask, True,
+                                                   torch.ones_like(out))[0]
+    _within(dq, want, 1e-5, "dq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("N", [3, 2049])
+def test_layer_norm_f32_kernels_match_plain_on_card(residual, N):
+    """K8b f32 and K8b-bwd f32 at H 1024 on float32 rows with a large
+    offset: y, the saved mu and rstd, dx, dscale and dbias within 1e-5 of
+    the plain float32 tensor's largest |value|; the float32 counts move,
+    the bf16 counts do not; the backward the same bits on a second call."""
+    dev = _card()
+    rng = np.random.default_rng(N + int(residual))
+    H = 1024
+
+    def t(shift=0.0):
+        return torch.from_numpy((rng.normal(size=(N, H)) * 2 + shift).astype(np.float32)).to(dev)
+
+    x, r, g = t(shift=20.0), t() if residual else None, t()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(size=H).astype(np.float32) * 0.1).to(dev)
+    stats = torch.empty(N, 2, device=dev)
+    before = (k8b.LAUNCHES, k8b.BWD_LAUNCHES, k8b.F32_LAUNCHES, k8b.F32_BWD_LAUNCHES)
+    y = k8b.add_layer_norm_cuda(x, r, scale, bias, 1e-5, stats)
+    got = k8b.add_layer_norm_backward(x, r, scale, stats, g)
+    again = k8b.add_layer_norm_backward(x, r, scale, stats, g)
+    want_y, want_stats = k8b._reference_with_stats(x, r, scale, bias, 1e-5)
+    want = k8b.add_layer_norm_backward_reference(x, r, scale, want_stats, g)
+    torch.cuda.synchronize()
+    after = (k8b.LAUNCHES, k8b.BWD_LAUNCHES, k8b.F32_LAUNCHES, k8b.F32_BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 1, 4]
+    assert y.dtype == got[0].dtype == torch.float32 and y.shape == got[0].shape == x.shape
+    _within(y, want_y, 1e-5, "y")
+    _within(stats, want_stats, 1e-5, "stats")
+    for name, a, b in zip(("dx", "dscale", "dbias"), got, want):
+        _within(a, b, 1e-5, name)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_layer_norm_f32_autograd_runs_the_f32_kernels_on_card():
+    dev = _card()
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(64, 1024)).astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.normal(size=(64, 1024)).astype(np.float32)).to(dev)
+    x.requires_grad_(True)
+    scale = torch.ones(1024, device=dev, requires_grad=True)
+    bias = torch.zeros(1024, device=dev, requires_grad=True)
+    before = (k8b.F32_LAUNCHES, k8b.F32_BWD_LAUNCHES, k8b.LAUNCHES, k8b.BWD_LAUNCHES)
+    y = k8b.add_layer_norm(x, r, scale, bias, 1e-5)
+    dx, ds, db = torch.autograd.grad(y.sum(), [x, scale, bias])
+    torch.cuda.synchronize()
+    after = (k8b.F32_LAUNCHES, k8b.F32_BWD_LAUNCHES, k8b.LAUNCHES, k8b.BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0]
+    assert dx.dtype == ds.dtype == db.dtype == torch.float32
+    assert float(db.sub(64.0).abs().max()) == 0.0
 
 
 # ----------------------------------------------------------------------

@@ -227,77 +227,32 @@ def test_kernel_layout_of_the_pieces():
     assert torch.equal(back, W.double())
 
 
-@pytest.mark.parametrize("setting,match", [
-    (dict(LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2), "item 16d"),
-    # item 16c, training the encoder in float32, runs on the card now
-    pytest.param(dict(train=True, TRAIN_SEQUENCE_ENCODER=True, ENCODER_BN_TRAIN_MODE=True), None,
-                 id="setting1-item 16c"),
-])
-def test_cli_refuses_float32_on_the_card_before_any_work(setting, match, tmp_path, monkeypatch):
-    """``cli/main.py`` with ``MIXED_PRECISION False`` on the card raises
-    before it reads the label cache, a dataset or a weight, naming the
-    ROADMAP item, for the label tower (16d); training the encoder and its
-    BatchNorm in float32 (16c, ported) passes the check and goes on to read
-    the label cache.  The same settings on the CPU, and evaluation in
-    float32 on the card, pass the check."""
-    from protnote_tpu_torch.cli import _model_setup
+def _refuse_unported(argv, device):
+    """``cli/main.py:refuse_unported`` on the CLI's parsed ``argv`` and the
+    overrides it names, on ``device``: raises for what the port does not
+    run."""
     from protnote_tpu_torch.cli import main as tmain
-    from protnote_tpu_torch.data import label_cache
 
-    monkeypatch.setenv("PROTNOTE_DATA_DIR", str(tmp_path / "data"))
-    monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(tmp_path / "outputs"))
-
-    class CacheRead(Exception):
-        pass
-
-    def first_read(*args, **kwargs):
-        if match is not None:
-            raise AssertionError("the label cache was read before the refusal")
-        raise CacheRead
-
-    monkeypatch.setattr(label_cache.LabelEmbeddingCache, "load", first_read)
-    setting = dict(setting)
-    train = setting.pop("train", False)
-    override = ["MIXED_PRECISION", "False"] + [str(x) for kv in setting.items() for x in kv]
-    argv = ["--test-paths-names", "TEST_DATA_PATH", "--override", *override]
-    if train:
-        argv = ["--train-path-name", "TRAIN_DATA_PATH", *argv]
-    if match is None:
-        with pytest.raises(CacheRead):
-            tmain.main(argv)
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            tmain.main(argv)
-    params = {"MIXED_PRECISION": False, **setting}
-    _model_setup.refuse_float32_on_card(params, "cpu", tower=True)
-    _model_setup.refuse_float32_on_card(dict(params, MIXED_PRECISION=True), "cuda", tower=True)
-    _model_setup.refuse_float32_on_card({"MIXED_PRECISION": False}, "cuda", tower=True)
-    _model_setup.refuse_float32_on_card(params, "cuda")  # serve and predict run no tower
-    if match is None:
-        _model_setup.refuse_float32_on_card(params, "cuda", tower=True)
+    args = tmain.build_argparser().parse_args([*argv, "--device", device])
+    over = args.override or []
+    tmain.refuse_unported(args, dict(zip(over[::2], over[1::2])))
 
 
 @pytest.mark.parametrize("setting", [
-    dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048),
-    dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048, TRAIN_STREAMING_CACHE=False),
-    dict(PAIR_BACKEND="dense"),
-    dict(train=True, PAIR_BACKEND="dense"),
-    dict(train=True, PAIR_BACKEND="tiled"),
-    dict(train=True, OUTPUT_MLP_DROPOUT=0.1),
-    dict(train=True, OUTPUT_MLP_BATCHNORM=False),
-    dict(train=True, FEATURE_FUSION="concatenation_prod"),
-    dict(train=True, OUTPUT_MLP_DROPOUT=0.1, GRADIENT_CHECKPOINTING=True),
+    # item 16d, the label tower in float32, runs on the card since its kernels took float32
+    pytest.param(dict(LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2), id="setting0-item 16d"),
+    # item 16c, training the encoder in float32, runs on the card now
+    pytest.param(dict(train=True, TRAIN_SEQUENCE_ENCODER=True, ENCODER_BN_TRAIN_MODE=True),
+                 id="setting1-item 16c"),
 ])
-def test_cli_passes_float32_scorers_on_the_card_and_reads_the_label_cache(setting, tmp_path,
-                                                                          monkeypatch):
-    """``cli/main.py`` with ``MIXED_PRECISION False`` on ``cuda`` passes the
-    check and goes on to read the label cache for the streamed scorer (with
-    and without its z1 cache), the dense scorer in evaluation and in
-    training (``PAIR_BACKEND dense``, ``tiled`` without a tile, dropout, no
-    BatchNorm, ``concatenation_prod``, remat): their float32 kernels run on
-    the card.  So does ``refuse_float32_on_card`` alone, with and without
-    the tower's caller flag."""
-    from protnote_tpu_torch.cli import _model_setup
+def test_cli_refuses_float32_on_the_card_before_any_work(setting, tmp_path, monkeypatch):
+    """``cli/main.py`` with ``MIXED_PRECISION False`` on the card once
+    refused, before any work, the settings whose float32 kernels were not
+    ported: the label tower (16d) and training the encoder and its
+    BatchNorm (16c).  Both are ported: each passes the check and goes on to
+    read the label cache, and ``refuse_unported`` passes them on the card,
+    on the CPU, with ``MIXED_PRECISION True``, and beside the encoder
+    settings."""
     from protnote_tpu_torch.cli import main as tmain
     from protnote_tpu_torch.data import label_cache
 
@@ -319,9 +274,56 @@ def test_cli_passes_float32_scorers_on_the_card_and_reads_the_label_cache(settin
         argv = ["--train-path-name", "TRAIN_DATA_PATH", *argv]
     with pytest.raises(CacheRead):
         tmain.main(argv)
-    params = {"MIXED_PRECISION": False, **setting}
-    _model_setup.refuse_float32_on_card(params, "cuda", tower=True)
-    _model_setup.refuse_float32_on_card(params, "cuda")
+    for device in ("cuda", "cpu"):
+        _refuse_unported(argv, device)
+    _refuse_unported([*argv, "MIXED_PRECISION", "True"], "cuda")
+    _refuse_unported([*argv, "TRAIN_SEQUENCE_ENCODER", "True", "LABEL_ENCODER_NUM_TRAINABLE_LAYERS",
+                      "2"], "cuda")
+
+
+@pytest.mark.parametrize("setting", [
+    dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048),
+    dict(train=True, TRAIN_STREAMING_LABEL_TILE=2048, TRAIN_STREAMING_CACHE=False),
+    dict(PAIR_BACKEND="dense"),
+    dict(train=True, PAIR_BACKEND="dense"),
+    dict(train=True, PAIR_BACKEND="tiled"),
+    dict(train=True, OUTPUT_MLP_DROPOUT=0.1),
+    dict(train=True, OUTPUT_MLP_BATCHNORM=False),
+    dict(train=True, FEATURE_FUSION="concatenation_prod"),
+    dict(train=True, OUTPUT_MLP_DROPOUT=0.1, GRADIENT_CHECKPOINTING=True),
+])
+def test_cli_passes_float32_scorers_on_the_card_and_reads_the_label_cache(setting, tmp_path,
+                                                                          monkeypatch):
+    """``cli/main.py`` with ``MIXED_PRECISION False`` on ``cuda`` passes the
+    check and goes on to read the label cache for the streamed scorer (with
+    and without its z1 cache), the dense scorer in evaluation and in
+    training (``PAIR_BACKEND dense``, ``tiled`` without a tile, dropout, no
+    BatchNorm, ``concatenation_prod``, remat): their float32 kernels run on
+    the card.  So does ``refuse_unported`` alone on the same arguments, with
+    and without the label tower."""
+    from protnote_tpu_torch.cli import main as tmain
+    from protnote_tpu_torch.data import label_cache
+
+    monkeypatch.setenv("PROTNOTE_DATA_DIR", str(tmp_path / "data"))
+    monkeypatch.setenv("PROTNOTE_OUTPUT_DIR", str(tmp_path / "outputs"))
+
+    class CacheRead(Exception):
+        pass
+
+    def first_read(*args, **kwargs):
+        raise CacheRead
+
+    monkeypatch.setattr(label_cache.LabelEmbeddingCache, "load", first_read)
+    setting = dict(setting)
+    train = setting.pop("train", False)
+    override = ["MIXED_PRECISION", "False"] + [str(x) for kv in setting.items() for x in kv]
+    argv = ["--test-paths-names", "TEST_DATA_PATH", "--override", *override]
+    if train:
+        argv = ["--train-path-name", "TRAIN_DATA_PATH", *argv]
+    with pytest.raises(CacheRead):
+        tmain.main(argv)
+    _refuse_unported(argv, "cuda")
+    _refuse_unported([*argv, "LABEL_ENCODER_NUM_TRAINABLE_LAYERS", "2"], "cuda")
 
 
 def test_cli_passes_default_float32_training_on_the_card(tmp_path, monkeypatch):
@@ -329,8 +331,8 @@ def test_cli_passes_default_float32_training_on_the_card(tmp_path, monkeypatch):
     label tile: the decomposed scorer, K4, K4-bwd and K5 in float32) with
     ``MIXED_PRECISION False`` on ``cuda`` passes the check and goes on to
     read the label cache; so do ``concatenation_diff``, ``tiled_int8`` and
-    ``GRADIENT_CHECKPOINTING``, which take the same scorer."""
-    from protnote_tpu_torch.cli import _model_setup
+    ``GRADIENT_CHECKPOINTING``, which take the same scorer; ``refuse_unported``
+    passes each, and the label tower beside them."""
     from protnote_tpu_torch.cli import main as tmain
     from protnote_tpu_torch.data import label_cache
 
@@ -347,6 +349,7 @@ def test_cli_passes_default_float32_training_on_the_card(tmp_path, monkeypatch):
     with pytest.raises(CacheRead):
         tmain.main(["--train-path-name", "TRAIN_DATA_PATH", "--test-paths-names",
                     "TEST_DATA_PATH", "--override", "MIXED_PRECISION", "False"])
-    for extra in ({}, {"FEATURE_FUSION": "concatenation_diff"}, {"PAIR_BACKEND": "tiled_int8"},
-                  {"GRADIENT_CHECKPOINTING": True}):
-        _model_setup.refuse_float32_on_card({"MIXED_PRECISION": False, **extra}, "cuda")
+    argv = ["--train-path-name", "TRAIN_DATA_PATH", "--override", "MIXED_PRECISION", "False"]
+    for extra in ([], ["FEATURE_FUSION", "concatenation_diff"], ["PAIR_BACKEND", "tiled_int8"],
+                  ["GRADIENT_CHECKPOINTING", "True"], ["LABEL_ENCODER_NUM_TRAINABLE_LAYERS", "2"]):
+        _refuse_unported([*argv, *extra], "cuda")

@@ -538,10 +538,10 @@ def test_train_scorer_is_the_dispatch(params, scorer, monkeypatch):
     """``train_scorer`` names the scorer ``protnote_forward`` trains
     through (each scorer patched to record its call), and float32 training
     on the card passes the check whichever scorer it takes (each has its
-    float32 kernels), as does the encoder trained beside it (K7's float32
-    training kernels, item 16c); the label tower in float32 is still
-    refused (item 16d)."""
-    from protnote_tpu_torch.cli._model_setup import refuse_float32_on_card
+    float32 kernels), as do the encoder trained beside it (K7's float32
+    training kernels, item 16c) and the label tower (K8a, K8b and their
+    backward in float32, item 16d)."""
+    from protnote_tpu_torch.cli import main as tmain
     from protnote_tpu_torch.models import fusion
 
     cfg = fusion.ProtNoteConfig.from_params(
@@ -566,10 +566,11 @@ def test_train_scorer_is_the_dispatch(params, scorer, monkeypatch):
     fusion.protnote_forward(params_t, state, torch.randn(3, 16), torch.randn(4, 16), cfg,
                             train=True, generator=torch.Generator().manual_seed(1))
     assert calls == ([] if scorer == "similarity" else [scorer])
+    args = tmain.build_argparser().parse_args(["--train-path-name", "TRAIN_DATA_PATH",
+                                               "--device", "cuda"])
     card = dict(params, MIXED_PRECISION=False)
-    refuse_float32_on_card(card, "cuda", tower=True)
+    tmain.refuse_unported(args, card)
     for encoder in ("TRAIN_SEQUENCE_ENCODER", "ENCODER_BN_TRAIN_MODE"):
-        refuse_float32_on_card(dict(card, **{encoder: True}), "cuda", tower=True)
-    with pytest.raises(NotImplementedError, match="item 16d"):
-        refuse_float32_on_card(dict(card, TRAIN_SEQUENCE_ENCODER=True,
-                                    LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2), "cuda", tower=True)
+        tmain.refuse_unported(args, dict(card, **{encoder: True}))
+    tmain.refuse_unported(args, dict(card, TRAIN_SEQUENCE_ENCODER=True,
+                                     LABEL_ENCODER_NUM_TRAINABLE_LAYERS=2))

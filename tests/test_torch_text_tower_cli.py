@@ -313,10 +313,13 @@ def _write(path, tree):
 
 
 def test_tower_cli_refuses_float32_on_the_card(env, monkeypatch):
-    """The tower's kernels take bfloat16: a CUDA device with
-    ``MIXED_PRECISION False`` is refused before anything runs on it; a
-    checkpoint that is not there locally exits as in the JAX CLI; on the CPU
-    the tower computes in float32, the descriptions tokenized."""
+    """The tower's kernels once took bfloat16 only, and a CUDA device with
+    ``MIXED_PRECISION False`` was refused.  They take float32 now: on
+    ``cuda`` the tower keeps ``load_pretrained_tower``'s float32 (as the JAX
+    CLI trains it), and computes in bfloat16 under ``MIXED_PRECISION``
+    (nothing is put on the card while the tower is built); a checkpoint that
+    is not there locally exits as in the JAX CLI; on the CPU the tower
+    computes in float32, the descriptions tokenized."""
     import protnote_tpu_torch.cli.main as tmain
     from protnote_tpu_torch.data.label_cache import LabelEmbeddingCache
 
@@ -325,8 +328,13 @@ def test_tower_cli_refuses_float32_on_the_card(env, monkeypatch):
     cache = LabelEmbeddingCache.load(str(root / "data" / "embeddings" / _cache_name(TOWERS[True])))
     params = {"LABEL_ENCODER_NUM_TRAINABLE_LAYERS": 1, "LABEL_ENCODER_CHECKPOINT": hf_dir,
               "MIXED_PRECISION": False, "LORA": True}
-    with pytest.raises(ValueError, match="bfloat16"):
-        tmain.build_label_tower(params, cache, {}, torch.device("cuda"), 0)
+    text_cfg, _, lora, (ids, _), _ = tmain.build_label_tower(params, cache, {},
+                                                            torch.device("cuda"), 0)
+    assert text_cfg.dtype == torch.float32 and set(lora) == {"1"}
+    assert ids.shape[0] == len(cache.descriptions)
+    text_cfg = tmain.build_label_tower(dict(params, MIXED_PRECISION=True), cache, {},
+                                       torch.device("cuda"), 0)[0]
+    assert text_cfg.dtype == torch.bfloat16
     with pytest.raises(SystemExit, match="weights locally"):  # as the JAX CLI exits
         tmain.build_label_tower(dict(params, LABEL_ENCODER_CHECKPOINT=str(root / "missing")),
                                 cache, {}, torch.device("cpu"), 0)

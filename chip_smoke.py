@@ -327,15 +327,18 @@ Phases, each printing one line (any failure raises and exits non-zero):
     MIXED_PRECISION False TRAIN_SEQUENCE_ENCODER True``; 3 steps of
     ``ENCODER_BN_TRAIN_MODE`` alone (statistics moved, weights not);
 38. (run after phase 17) the tower's float32 kernels alone (``k8_f32``:
-    ``csrc/text_attention_f32.cu``'s forward and two-kernel backward, the
-    ``_f32`` entries of ``csrc/layer_norm.cu``) at phase 13's three shapes
-    against their plain float32 versions (cuBLAS with TF32 off): ctx, dq,
-    dk, dv, y, the saved statistics, dx, dscale and dbias within 1e-5 of
-    the plain tensor's largest |value|, the backward the same bits twice,
-    the float32 counts moved and the bf16 ones not; times by CUDA events
-    beside the bound (67 TFLOP/s for attention, 3.35 TB/s for the
-    LayerNorm), the plain versions' and float32 SDPA with a boolean mask
-    and ``F.layer_norm`` after a float32 add (and their backward);
+    ``csrc/text_attention_f32.cu``'s forward and backward, one kernel at
+    128 tokens and two above, the ``_f32`` entries of
+    ``csrc/layer_norm.cu``) at phase 13's three shapes against their plain
+    float32 versions (cuBLAS with TF32 off): ctx, dq, dk, dv, y, the saved
+    statistics, dx, dscale and dbias within 1e-5 of the plain tensor's
+    largest |value|, the backward the same bits twice, the float32 counts
+    moved as ``backward_launches`` says and the bf16 ones not; times by
+    CUDA events beside the bound (attention: the bytes at 3.35 TB/s or its
+    products at the 3xTF32 split's 165 TFLOP/s, and beside it at the FMA
+    pipe's 67; the LayerNorm's bytes), the plain versions' and float32 SDPA
+    with a boolean mask and ``F.layer_norm`` after a float32 add (and their
+    backward);
 39. the float32 tower (``tower_f32``): E5-large and BioGPT on phase 14's
     random weights, not rounded, against the plain float32 tower on one
     chunk each (pooled rows within 1e-4), then phase 14's 64 chunks through
@@ -430,6 +433,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3  # float32 products as three TF32 products (3xTF32)
 
 # K2 (int8): the carried layer-1 rows of these label chunks are compared
 # element by element (the first and the ragged last of 126), and must be
@@ -4479,14 +4483,18 @@ def phase_k8_f32(card: str) -> dict:
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         ctx = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
         frac = 0.5 if causal else 1.0  # the products a causal row needs
+        # (bytes, operations): q, k, v read and ctx written, two products;
+        # q, k, v, dctx read and dq, dk, dv written, five products
+        work = {"fwd": (4.0 * q.numel() * 4 + 4.0 * mask.numel(),
+                        4.0 * Bq * nh * T * T * hd * frac),
+                "bwd": (7.0 * q.numel() * 4 + 4.0 * mask.numel(),
+                        10.0 * Bq * nh * T * T * hd * frac)}
         attn = {"ms": cuda_time_ms(lambda: k8a.masked_attention_cuda(q, k, v, mask, causal), 10),
                 "plain_ms": cuda_time_ms(lambda: k8a.masked_attention_reference(
                     q, k, v, mask, causal), 3),
                 "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=keep), 10),
-                "max_abs_err": f_err, "rel_err": a_errs["ctx"],
-                **bound(nbytes=4.0 * q.numel() * 4 + 4.0 * mask.numel(),
-                        ops=4.0 * Bq * nh * T * T * hd * frac, peak=F32_FLOPS)}
+                "max_abs_err": f_err, "rel_err": a_errs["ctx"]}
         attn_bwd = {"ms": cuda_time_ms(lambda: k8a.masked_attention_backward_cuda(
                         q, k, v, mask, causal, g), 5),
                     "plain_ms": cuda_time_ms(lambda: k8a.masked_attention_backward_reference(
@@ -4494,12 +4502,11 @@ def phase_k8_f32(card: str) -> dict:
                     "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
                         ctx, (ql, kl, vl), g, retain_graph=True), 5),
                     "max_abs_err": b_err, "rel_err": {n: a_errs[n] for n in ("dq", "dk", "dv")},
-                    "deterministic": deterministic,
-                    **bound(nbytes=7.0 * q.numel() * 4 + 4.0 * mask.numel(),
-                            ops=10.0 * Bq * nh * T * T * hd * frac, peak=F32_FLOPS)}
-        for entry in (attn, attn_bwd):
-            entry["tflops"] = entry["bound_ms"] / entry["ms"] * F32_FLOPS / 1e12 \
-                if entry["bound_by"] == "operations" else None
+                    "deterministic": deterministic}
+        for entry, (nbytes, ops) in ((attn, work["fwd"]), (attn_bwd, work["bwd"])):
+            entry.update(bound(nbytes, ops, peak=TF32X3_FLOPS))
+            entry["fma_bound_ms"] = bound(nbytes, ops, peak=F32_FLOPS)["bound_ms"]
+            entry["tflops"] = ops / entry["ms"] / 1e9
         del ctx, ql, kl, vl, keep, q, k, v, g
         torch.cuda.empty_cache()
 
@@ -4565,7 +4572,8 @@ def phase_k8_f32(card: str) -> dict:
             card=card)
         worst = max(list(a_errs.values()) + list(n_errs.values()))
         if not finite or not deterministic or worst > K8_F32_REL_TOL or \
-                a_launches != [0, 0, 1, 4] or n_launches != [0, 0, 1, 4]:
+                a_launches != [0, 0, 1, 2 * k8a.backward_launches(T, torch.float32)] or \
+                n_launches != [0, 0, 1, 4]:
             raise AssertionError(f"K8 float32 ({name}) disagrees with its plain version: "
                                  f"{a_errs} {n_errs} (rel tol {K8_F32_REL_TOL}), finite "
                                  f"{finite}, deterministic {deterministic}, launches "

@@ -174,6 +174,24 @@ three TMA output stores, without expf and the divisions), in turns over 7
 rounds (medians; SDPA's time is noisy from run to run), each against the
 plain backward, with ptxas's registers and spills.
 
+    python3 chip_variants.py --k8a-f32
+
+times K8a f32 and K8a-bwd f32 (``csrc/text_attention_f32.cu``: 3xTF32 on
+mma.sync, scores in registers at T <= 128, cp.async tiles) against their
+first design (``csrc/variants/text_attention_f32_v1.cu``: the FMA pipe, the
+score rows in shared memory, two backward kernels) in turns (kept, first,
+first, kept; 5 rounds, medians) at ``chip_smoke.py``'s shapes (a) 128 x
+128, (b) 32 x 512 and (c) causal 128 x 128, through their C entry points,
+after holding both to the plain float32 version; then the kept source with
+parts taken out (timing only: the results are wrong; ``K8AF32_SUBS``):
+without the split's cross products (1xTF32), every product kept but the
+split's instructions gone, the pieces rounded by ``cvt.rna.tf32`` instead
+of integer operations, without the tile loads, without expf and the
+divisions; each timed twice (the list forward, then
+backward); float32 SDPA with a boolean mask and its backward, and the plain
+versions, beside; the bytes bound and the operations' bound at the split's
+165 TFLOP/s and at the FMA pipe's 67.
+
     python3 chip_variants.py --qk-noise
 
 finds where the bf16 noise of the tower's q and k gradients enters:
@@ -2149,6 +2167,168 @@ def k8a_bwd_turns(build_dir: str, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# text replaced in text_attention_f32.cu: (old, new), each old found exactly
+# once (timing only: the results are wrong)
+K8AF32_SUBS = {
+    # 1xTF32: the hi products alone (the split's cross products and lo pieces gone)
+    "no_cross_products": [(
+        "    mma_tf32(d, a.l[ks], bh[ks][0], bh[ks][1]);\n"
+        "    mma_tf32(d, a.h[ks], bl[ks][0], bl[ks][1]);\n", "    (void)ks;\n")],
+    # every product kept, the split's instructions gone (hi = lo = x)
+    "no_split_instructions": [(
+        "  hi = tf32_rna(x);\n  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));\n",
+        "  hi = lo = __float_as_uint(x);\n")],
+    # the pieces rounded by cvt.rna.tf32.f32 instead of integer operations
+    "cvt_split": [(
+        "  hi = tf32_rna(x);\n  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));\n",
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));\n')],
+    # no tile reaches shared memory
+    "no_loads": [(
+        '  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(dst), "l"(src),\n'
+        '               "r"(valid ? 16 : 0));  // 0: fill the 16 bytes with zeros\n',
+        "  (void)dst; (void)src; (void)valid;\n")],
+    # expf and the divisions (of p and of dS) out: a subtraction, a multiply
+    "no_softmax": [(
+        "s[kt][j][e] = expf(__fsub_rn(s[kt][j][e], m[e >> 1]));",
+        "s[kt][j][e] = __fsub_rn(s[kt][j][e], m[e >> 1]);"), (
+        "s[kt][j][e] = div_rn(s[kt][j][e], z[e >> 1], r[e >> 1]);",
+        "s[kt][j][e] = __fmul_rn(s[kt][j][e], r[e >> 1]);"), (
+        "s[j][e] = div_rn(expf(__fsub_rn(s[j][e], m[e >> 1])), l[e >> 1], r[e >> 1]);",
+        "s[j][e] = __fmul_rn(__fsub_rn(s[j][e], m[e >> 1]), r[e >> 1]);"), (
+        "y[j][e] = expf(__fsub_rn(s[j][e], m[e >> 1]));",
+        "y[j][e] = __fsub_rn(s[j][e], m[e >> 1]);"), (
+        "s[j][e] = expf(__fsub_rn(s[j][e], m[e >> 1]));  // y\n",
+        "s[j][e] = __fsub_rn(s[j][e], m[e >> 1]);  // y\n"), (
+        "s[j][e] = expf(__fsub_rn(s[j][e], m[e >> 1]));  // y of the final m\n",
+        "s[j][e] = __fsub_rn(s[j][e], m[e >> 1]);\n"), (
+        "make_float2(div_rn(s[j][2 * r], z[r], rz[r]), div_rn(s[j][2 * r + 1], z[r], rz[r]));",
+        "make_float2(__fmul_rn(s[j][2 * r], rz[r]), __fmul_rn(s[j][2 * r + 1], rz[r]));"), (
+        "__fadd_rn(div_rn(dp[j][2 * r], z[r], rz[r]), -D[r])",
+        "__fadd_rn(__fmul_rn(dp[j][2 * r], rz[r]), -D[r])"), (
+        "__fadd_rn(div_rn(dp[j][2 * r + 1], z[r], rz[r]), -D[r])",
+        "__fadd_rn(__fmul_rn(dp[j][2 * r + 1], rz[r]), -D[r])"), (
+        "__fadd_rn(div_rn(dp[j][e], z[e >> 1], rz[e >> 1]),",
+        "__fadd_rn(__fmul_rn(dp[j][e], rz[e >> 1]),")],
+}
+
+
+def k8a_f32_turns(build_dir: str, card: str) -> None:
+    """``--k8a-f32``: K8a f32 and K8a-bwd f32 against their first design in
+    turns (kept, first, first, kept) at the three K8 shapes, with the kept
+    source's parts taken out, float32 SDPA and its backward beside."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import text_attention as k8a
+
+    base = (kernels.CSRC_DIR / "text_attention_f32.cu").read_text()
+    libs = build_subs(build_dir, "text_attention_f32", base, K8AF32_SUBS,
+                      {"first": os.path.join(VARIANT_DIR, "text_attention_f32_v1.cu")})
+    fns = {}
+    for name, lib in libs.items():
+        fwd_fn, bwd_fn = lib.masked_attention_f32, lib.masked_attention_backward_f32
+        fwd_fn.argtypes, fwd_fn.restype = k8a._FWD_ARGS, ctypes.c_int
+        bwd_fn.argtypes, bwd_fn.restype = k8a._BWD_ARGS, ctypes.c_int
+        fns[name] = (fwd_fn, bwd_fn)
+    nh, hd, rounds = 16, 64, 5
+    gen = torch.Generator().manual_seed(50)
+    dev = torch.device("cuda")
+    gemm_precision(torch.float32)
+    scale = k8a.scale_for(hd)
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    for shape, Bq, T, lo, hi, causal in cs.K8_SHAPES:
+        _, mask = cs.token_batch(gen, Bq, T, lo, hi, 100, 1)
+        q, k, v, g = (torch.randn(Bq, nh, T, hd, generator=gen).to(dev) for _ in range(4))
+        ctx = torch.empty_like(q)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        stats = torch.empty(3, Bq * nh * T, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def forward(fn):
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                         ctx.data_ptr(), Bq, nh, T, hd, int(causal), scale, stream)
+                if err != 0:
+                    raise RuntimeError(f"masked_attention_f32 variant: CUDA error {err}")
+                return ctx
+            return call
+
+        def backward(fn):
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                         mask.data_ptr(), *(x.data_ptr() for x in grads), stats.data_ptr(),
+                         Bq, nh, T, hd, int(causal), scale, stream)
+                if err != 0:
+                    raise RuntimeError(f"masked_attention_backward_f32 variant: CUDA error {err}")
+                return grads
+            return call
+
+        want = k8a.masked_attention_reference(q, k, v, mask, causal)
+        want_g = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
+        errs = {}
+        for name, (fwd_fn, bwd_fn) in fns.items():
+            errs[name] = {"ctx": rel(forward(fwd_fn)(), want),
+                          **{n: rel(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                             backward(bwd_fn)(), want_g)}}
+        keep = (mask > 0)[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
+        turns = {"forward": {"kept": [], "first": []}, "backward": {"kept": [], "first": []}}
+        for _ in range(rounds):
+            for name in ("kept", "first", "first", "kept"):
+                turns["forward"][name].append(cs.cuda_time_ms(forward(fns[name][0]), 10))
+                turns["backward"][name].append(cs.cuda_time_ms(backward(fns[name][1]), 5))
+        parts = {"forward": {}, "backward": {}}
+        names = ["kept"] + list(K8AF32_SUBS)
+        for order in (names, names[::-1]):
+            for name in order:
+                parts["forward"].setdefault(name, []).append(
+                    cs.cuda_time_ms(forward(fns[name][0]), 10))
+                parts["backward"].setdefault(name, []).append(
+                    cs.cuda_time_ms(backward(fns[name][1]), 5))
+        library = {"forward": cs.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=keep), 10),
+                   "backward": cs.cuda_time_ms(lambda: torch.autograd.grad(
+                       out, (ql, kl, vl), g, retain_graph=True), 5)}
+        plain = {"forward": cs.cuda_time_ms(lambda: k8a.masked_attention_reference(
+                     q, k, v, mask, causal), 3),
+                 "backward": cs.cuda_time_ms(lambda: k8a.masked_attention_backward_reference(
+                     q, k, v, mask, causal, g), 2)}
+        frac = 0.5 if causal else 1.0  # the products a causal row needs
+        ops = {"forward": 4.0 * Bq * nh * T * T * hd * frac,
+               "backward": 10.0 * Bq * nh * T * T * hd * frac}
+        nbytes = {"forward": 4.0 * q.numel() * 4 + 4.0 * mask.numel(),
+                  "backward": 7.0 * q.numel() * 4 + 4.0 * mask.numel()}
+        for direction in ("forward", "backward"):
+            med = {n: statistics.median(r) for n, r in turns[direction].items()}
+            cs.log("k8a_f32_turns", shape=shape, direction=direction, batch=Bq, tokens=T,
+                   causal=causal, median_ms=med, readings=turns[direction],
+                   kept_over_first=med["kept"] / med["first"],
+                   parts_ms={n: statistics.mean(r) for n, r in parts[direction].items()},
+                   library_ms=library[direction], plain_ms=plain[direction],
+                   kept_over_library=med["kept"] / library[direction],
+                   split_bound=cs.bound(nbytes=nbytes[direction], ops=ops[direction],
+                                        peak=cs.TF32X3_FLOPS),
+                   fma_bound=cs.bound(nbytes=nbytes[direction], ops=ops[direction],
+                                      peak=cs.F32_FLOPS),
+                   rel_err={n: {k_: v_ for k_, v_ in e.items()
+                                if (k_ == "ctx") == (direction == "forward")}
+                            for n, e in errs.items()}, card=card)
+        del q, k, v, g, ql, kl, vl, out, ctx, grads, stats, want, want_g, keep
+        torch.cuda.empty_cache()
+
+
 # the rounding points of the tower's bf16 chain that --qk-noise raises one
 # at a time ("probs" rounds P, "dprobs" its gradient dP)
 QK_POINTS = ("weights", "qkv", "lora", "probs", "dprobs", "ctx", "o_proj", "residual", "ln",
@@ -2357,6 +2537,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--k8a-bwd"]:
         with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
             k8a_bwd_turns(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k8a-f32"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k8a_f32_turns(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--qk-noise"]:

@@ -21,8 +21,9 @@ plain PyTorch version (:func:`masked_attention_reference`), CUDA tensors the
 hand-written kernel of ``csrc/text_attention.cu`` (bf16, hd 64, T <= 512)
 or, for float32 tensors (``MIXED_PRECISION False``), of
 ``csrc/text_attention_f32.cu``: the core at ``Precision.HIGHEST``, nothing
-rounded to bf16, on the FMA pipe (:func:`entry_points` picks the form by
-dtype); input the kernels do not take raises, and nothing falls back.
+rounded to bf16, its products on the tensor cores through a 3xTF32 split
+held to float32 (:func:`entry_points` picks the form by dtype); input the
+kernels do not take raises, and nothing falls back.
 
 **Backward (K8a-bwd).**  When a gradient is wanted (the tower trains),
 :func:`masked_attention` goes through an ``autograd.Function`` whose
@@ -48,9 +49,10 @@ whole score matrix in the block, above it two mma.sync kernels
 (:func:`backward_launches`, by shape only).  A row whose keys are all masked
 has y = 1 on every key: the gradient of JAX's uniform softmax, not NaN.
 In float32 every ``.to(q.dtype)`` above is a no-op, and
-``csrc/text_attention_f32.cu`` computes that chain in two kernels at any T
-(dQ with each row's m, z and D, then dK and dV from them): it never falls
-back to the bf16 kernels.
+``csrc/text_attention_f32.cu`` computes that chain with the same counts: up
+to :data:`ONE_PASS_T` one kernel a (b, h) that forms s and dP once, above
+it a dQ kernel writing each row's m, z and D, then a dK/dV kernel from
+them; it never falls back to the bf16 kernels.
 """
 
 from __future__ import annotations
@@ -103,10 +105,11 @@ def entry_points(dtype: torch.dtype) -> dict:
 
 
 def backward_launches(T: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Kernel launches of one backward call at T tokens: in bf16 the
-    one-pass kernel up to :data:`ONE_PASS_T`, two above (dQ, then dK and
-    dV); in float32 always the two."""
-    return 1 if dtype == torch.bfloat16 and T <= ONE_PASS_T else 2
+    """Kernel launches of one backward call at T tokens, in bf16 and in
+    float32 alike: one kernel up to :data:`ONE_PASS_T`, two above (dQ,
+    then dK and dV)."""
+    entry_points(dtype)
+    return 1 if T <= ONE_PASS_T else 2
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

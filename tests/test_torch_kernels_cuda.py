@@ -89,9 +89,10 @@ within 1e-4 of the plain chain's largest |value|.
 K8a, K8a-bwd, K8b and K8b-bwd in float32 (csrc/text_attention_f32.cu, the
 _f32 entries of csrc/layer_norm.cu) on the same float32 inputs: ctx, dq,
 dk, dv, y, the saved statistics, dx, dscale and dbias within 1e-5 of the
-plain float32 tensor's largest |value| (FMA chains and float32 sums in
-other orders; the plain products cuBLAS with TF32 off), the backward the
-same bits on a second call, and no bf16 form launched.
+plain float32 tensor's largest |value| (attention's products as 3xTF32 on
+the tensor cores, K8b's FMA chains, float32 sums in other orders; the plain
+products cuBLAS with TF32 off), also at attention scores of about +-27,
+each kernel the same bits on a second call, and no bf16 form launched.
 """
 
 import numpy as np
@@ -1114,41 +1115,54 @@ def test_backward_kernels_raise_on_what_they_do_not_take():
         k8b.add_layer_norm_backward(x, None, ones, torch.zeros(3, 2, device=dev), x)
 
 
-def _f32_attention_inputs(rng, T, dev):
-    """B 3, nh 2, hd 64 float32: a full row, one whose first 70 keys (and
-    last 9) are masked, and an all-masked filler row."""
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(3, 2, T, 64)).astype(np.float32) * s).to(dev)
+def _f32_attention_inputs(rng, T, dev, large=False):
+    """B 4, nh 2, hd 64 float32: a full row, one whose first keys (70, or
+    half of them) and last 9 are masked, an all-masked filler row and a
+    ragged row.  ``large``: q and k rows of norm 15.4 around eight shared
+    directions, so that scores reach about +-27 (inside +-29.7)."""
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(4, 2, T, 64)).astype(np.float32) * s).to(dev)
                   for s in (1.5, 1.5, 1.0, 0.5))
-    mask = torch.zeros(3, T, dtype=torch.int32, device=dev)
+    if large:
+        u = rng.normal(size=(8, 64))
+
+        def rows(sign):
+            x = u[rng.integers(0, 8, size=(4, 2, T))] * sign + 0.3 * rng.normal(size=(4, 2, T, 64))
+            x = 15.4 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+            return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+        q, k = rows(1.0), rows(rng.choice([-1.0, 1.0], size=(4, 2, T, 1)))
+    mask = torch.zeros(4, T, dtype=torch.int32, device=dev)
     mask[0] = 1
-    mask[1, 70 : T - 9] = 1
+    mask[1, min(70, T // 2): T - 9] = 1
+    mask[3, : int(rng.integers(1, T + 1))] = 1
     return q, k, v, g, mask
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T", [128, 200])
-def test_text_attention_f32_kernels_match_plain_on_card(T, causal):
-    """K8a f32 (``masked_attention_f32``) and K8a-bwd f32 (its dQ and dK/dV
-    kernels) on float32 tensors against the plain float32 version
-    (``Precision.HIGHEST``: cuBLAS with TF32 off): ctx, dq, dk, dv within
-    1e-5 of the plain tensor's largest |value|; the float32 counts move and
-    the bf16 counts do not; the same bits on a second call."""
+def _f32_attention_check(T, causal, large, seed):
+    """K8a f32 and K8a-bwd f32 against their plain float32 versions: ctx,
+    dq, dk, dv within 1e-5 of the plain tensor's largest |value|, the
+    float32 counts moved by one forward and ``backward_launches`` a
+    backward, the bf16 counts not; the same bits on a second call of each;
+    the filler row JAX's uniform softmax."""
     dev = _card()
-    rng = np.random.default_rng(T + 2 * causal)
-    q, k, v, g, mask = _f32_attention_inputs(rng, T, dev)
+    rng = np.random.default_rng(seed)
+    q, k, v, g, mask = _f32_attention_inputs(rng, T, dev, large)
     before = (k8a.LAUNCHES, k8a.BWD_LAUNCHES, k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES)
     got = k8a.masked_attention(q, k, v, mask, causal)
     grads = k8a.masked_attention_backward(q, k, v, mask, causal, g)
+    torch.cuda.synchronize()
+    after = (k8a.LAUNCHES, k8a.BWD_LAUNCHES, k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == \
+        [0, 0, 1, k8a.backward_launches(T, torch.float32)]
+    got_again = k8a.masked_attention(q, k, v, mask, causal)
     again = k8a.masked_attention_backward(q, k, v, mask, causal, g)
     want = k8a.masked_attention_reference(q, k, v, mask, causal)
     want_grads = k8a.masked_attention_backward_reference(q, k, v, mask, causal, g)
     torch.cuda.synchronize()
-    after = (k8a.LAUNCHES, k8a.BWD_LAUNCHES, k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES)
-    assert [a - b for a, b in zip(after, before)] == [0, 0, 1, 4]
     for name, a, b in (("ctx", got, want), *zip(("dq", "dk", "dv"), grads, want_grads)):
         assert a.dtype == torch.float32 and a.shape == q.shape, name
         _within(a, b, 1e-5, name)
+    assert torch.equal(got, got_again)
     for a, b in zip(grads, again):
         assert torch.equal(a, b)
     uniform = v[2].mean(1, keepdim=True).expand(-1, T, -1)
@@ -1156,9 +1170,30 @@ def test_text_attention_f32_kernels_match_plain_on_card(T, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [64, 128, 129, 200, 512])
+def test_text_attention_f32_kernels_match_plain_on_card(T, causal):
+    """K8a f32 (``masked_attention_f32``) and K8a-bwd f32 (one kernel up to
+    128 tokens, the dQ and dK/dV kernels above) on float32 tensors against
+    the plain float32 version (``Precision.HIGHEST``: cuBLAS with TF32
+    off), full, ragged and all-masked rows (``_f32_attention_check``)."""
+    _f32_attention_check(T, causal, False, T + 2 * causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [128, 512])
+def test_text_attention_f32_kernels_at_large_scores_on_card(T, causal):
+    """The same with scores of about +-27, where the split's error in a
+    score reaches expf at 27 times its size."""
+    _f32_attention_check(T, causal, True, 7 * T + causal)
+
+
+@pytest.mark.cuda
 def test_text_attention_f32_autograd_runs_the_f32_kernels_on_card():
     """With a gradient wanted on float32 tensors, ``masked_attention``
-    launches K8a f32 and, on the way back, K8a-bwd f32's two kernels."""
+    launches K8a f32 and, on the way back, K8a-bwd f32 (one kernel at 128
+    tokens)."""
     dev = _card()
     rng = np.random.default_rng(12)
     q, k, v, _, mask = _f32_attention_inputs(rng, 128, dev)
@@ -1168,7 +1203,8 @@ def test_text_attention_f32_autograd_runs_the_f32_kernels_on_card():
     (dq,) = torch.autograd.grad(out.sum(), [q])
     torch.cuda.synchronize()
     after = (k8a.F32_LAUNCHES, k8a.F32_BWD_LAUNCHES, k8a.LAUNCHES, k8a.BWD_LAUNCHES)
-    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == \
+        [1, k8a.backward_launches(128, torch.float32), 0, 0]
     want = k8a.masked_attention_backward_reference(q.detach(), k, v, mask, True,
                                                    torch.ones_like(out))[0]
     _within(dq, want, 1e-5, "dq")

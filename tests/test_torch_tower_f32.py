@@ -7,20 +7,24 @@ against the JAX package on the CPU; the dispatch that picks them by dtype;
 and ``NativeLabelEncoder.from_pretrained``'s float32 default.
 
 The CUDA kernels cannot run here.  Each emulation computes what its kernel
-computes, in its order: a dot product one float32 FMA chain over its depth
-in order (an FMA emulated as the float64 product plus the float64 sum,
-rounded to float32: the product is exact, and the rare double rounding is
-far below the tolerance); a row's softmax sums and D as lane partial sums
-over the keys j = lane + 32 t, then a butterfly over 32 lanes; K8b's eight
-partial sums a lane over its 256-column chunks, a fixed tree, a butterfly,
-and dscale / dbias over the rows in the backward grid's walk.
+computes, in its order.  Attention's products run on the tensor cores as
+3xTF32: each operand split into tf32 pieces as ``cvt.rna`` rounds them,
+a_lo b_hi + a_hi b_lo + a_hi b_hi over each 16-deep stage of the depth,
+the stage's sum rounded to float32 (the tensor cores' own sum of a stage is
+taken exactly here: theirs truncates, a few ulps of the stage, far below
+the tolerance) and the stages added in order; a row's z and D as per-tile
+sums (lane t adds its keys 8 j + 2 t, 8 j + 2 t + 1 in order, the four
+lanes pairwise), the tiles added in order, and above 128 tokens z as the
+running sum over 64-key tiles.  K8b: eight partial sums a lane over its
+256-column chunks, a fixed tree, a butterfly, and dscale / dbias over the
+rows in the backward grid's walk.
 
 Tolerance: 1e-5 of each output's largest |value| against the JAX function
 in float32 (the `TOL` of tests/test_reference_parity.py, relative): both
 sides round at the same points and sum in other orders.  Sizes are small:
-hd 64, 1-2 heads, 3 rows of ragged, full and all-masked keys.
+hd 64, 1-2 heads, 3 rows of ragged, full and all-masked keys, and rows of
+q and k whose scores reach about +-27.
 """
-
 import math
 import re
 
@@ -54,16 +58,6 @@ def _close(got, want, name=""):
 # the kernels' arithmetic
 
 
-def _chain(a, b):
-    """``out[..., m, n]`` = the FMA chain over r in order of a[..., m, r] *
-    b[..., n, r], from 0, in float32."""
-    a64, b64 = a.astype(np.float64), b.astype(np.float64)
-    acc = np.zeros(a.shape[:-1] + (b.shape[-2],), F32)
-    for r in range(a.shape[-1]):
-        acc = (a64[..., :, None, r] * b64[..., None, :, r] + acc).astype(F32)
-    return acc
-
-
 def _butterfly(p):
     """A warp's butterfly over its last axis of 32 lanes (xor 16 ... 1);
     every lane ends with the same bits."""
@@ -73,58 +67,109 @@ def _butterfly(p):
     return p[..., 0]
 
 
-def _lane_sum(x):
-    """A row's sum over its last axis as a warp takes it: lane l adds the
-    keys l + 32 t in order, then the butterfly."""
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 fraction bits, ties away from
+    zero (the low 13 bits of the float32 pattern cleared)."""
+    bits = np.asarray(x, F32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(F32)
+
+
+def _split(x):
+    """The kernels' 3xTF32 pieces: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32((x - hi).astype(F32))
+
+
+def _tc(a, b):
+    """``out[..., m, n]`` = a[..., m, :] . b[..., n, :] as the kernels form it
+    on the tensor cores: a_lo b_hi + a_hi b_lo + a_hi b_hi of the 3xTF32
+    pieces, each 16-deep stage of the depth summed exactly (the tensor
+    cores' own sum of a stage, exact here) and rounded to float32, the
+    stages added in order in float32, from 0."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = np.zeros(a.shape[:-1] + (b.shape[-2],), F32)
+    for d in range(0, a.shape[-1], 16):
+        x = [t[..., d:d + 16].astype(np.float64) for t in (ah, al, bh, bl)]
+        st = sum(np.einsum("...mk,...nk->...mn", u, w) for u, w in
+                 ((x[1], x[2]), (x[0], x[3]), (x[0], x[2])))
+        acc = (acc + st.astype(F32)).astype(F32)
+    return acc
+
+
+def _tile_sums(x):
+    """A row's sum over its last axis (keys) as the kernels take it: in each
+    64-key tile lane t adds keys 8 j + 2 t and 8 j + 2 t + 1 for j = 0..7 in
+    order, from 0; the four lanes as (t0 + t1) + (t2 + t3); the tiles' sums
+    in order, from 0."""
     T = x.shape[-1]
-    width = -(-T // 32) * 32
-    xp = np.zeros(x.shape[:-1] + (width,), F32)
+    n = -(-T // 64)
+    xp = np.zeros(x.shape[:-1] + (64 * n,), F32)
     xp[..., :T] = x
-    xp = xp.reshape(x.shape[:-1] + (width // 32, 32))
-    p = xp[..., 0, :]
-    for t in range(1, width // 32):
-        p = p + xp[..., t, :]
-    return _butterfly(p)
+    xp = xp.reshape(x.shape[:-1] + (n, 8, 4, 2))  # tile, j, lane t, pair e
+    lane = np.zeros(x.shape[:-1] + (n, 4), F32)
+    for j in range(8):
+        for e in range(2):
+            lane = lane + xp[..., j, :, e]
+    tile = (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+    total = np.zeros(x.shape[:-1], F32)
+    for i in range(n):
+        total = total + tile[..., i]
+    assert total.dtype == F32
+    return total[..., None]
 
 
 def _softmax_rows(q, k, mask, causal):
-    """The forward's and the dQ kernel's scores and exact softmax: ``(y, z)``
-    with s = (q.k * scale) + bias, m the row max, y = exp(s - m), z the
-    lanes' sum."""
+    """The scores and the row statistics of the forward and of the backward
+    at the same T: ``(y, z)`` with s = (q.k * scale) + bias, m the row max,
+    y = exp(s - m); at T <= 128 z is the tiles' sum of y, above it the
+    running sum over 64-key tiles (each step l * exp(m_old - m_new) + the
+    tile's sum of exp(s - m_new))."""
     T, hd = q.shape[-2], q.shape[-1]
     keep = (mask > 0)[:, None, None, :]
     if causal:
         keep = keep & np.tril(np.ones((T, T), bool))[None, None]
     bias = np.where(keep, F32(0), F32(k8a.MASKED)).astype(F32)
-    s = _chain(q, k) * F32(k8a.scale_for(hd)) + bias
+    s = _tc(q, k) * F32(k8a.scale_for(hd)) + bias
     assert s.dtype == F32
-    y = np.exp(s - s.max(-1, keepdims=True))
-    return y, _lane_sum(y)[..., None]
+    m = s.max(-1, keepdims=True)
+    y = np.exp(s - m)
+    if T <= k8a.ONE_PASS_T:
+        return y, _tile_sums(y)
+    mr = np.full(s.shape[:-1] + (1,), -np.inf, F32)
+    z = np.zeros_like(mr)
+    for t0 in range(0, T, 64):
+        st = s[..., t0:t0 + 64]
+        mn = np.maximum(mr, st.max(-1, keepdims=True))
+        z = z * np.exp(mr - mn)
+        mr = mn
+        z = z + _tile_sums(np.exp(st - mr))
+    assert (mr == m).all() and z.dtype == F32
+    return y, z
 
 
 def _k8a_f32(q, k, v, mask, causal):
-    """``attn_fwd_f32``: p = y / z (a correctly rounded division), ctx the
-    FMA chain over the keys in order of p . v."""
+    """``attn_fwd_f32``: p = y / z (a correctly rounded division), ctx = p . v
+    on the tensor cores over the keys."""
     y, z = _softmax_rows(q, k, mask, causal)
-    return _chain(y / z, np.swapaxes(v, -1, -2))
+    return _tc(y / z, np.swapaxes(v, -1, -2))
 
 
 def _k8a_bwd_f32(q, k, v, mask, causal, g):
-    """``attn_bwd_dq_f32`` then ``attn_bwd_dkdv_f32``: dP = dctx . v^T, D the
-    lanes' sum of (dP * (1 / (z * z))) * y, dS = ((dP / z) + (-D)) * y *
-    scale, dQ = dS . k over the keys; from the same y, z: dV = p^T . dctx and
-    dK = dS^T . q over the queries, each an FMA chain in order."""
+    """The backward's order of work (``attn_bwd_f32`` at T <= 128;
+    ``attn_bwd_dq_f32`` and the key-block kernel above): dP = dctx . v^T, D
+    the tiles' sum of (dP * (1 / (z * z))) * y, dS = ((dP / z) + (-D)) * y *
+    scale; dQ = dS . k over the keys, dK = dS^T . q and dV = p^T . dctx over
+    the queries, each on the tensor cores."""
     y, z = _softmax_rows(q, k, mask, causal)
     scale = F32(k8a.scale_for(q.shape[-1]))
-    dp = _chain(g, v)
+    dp = _tc(g, v)
     rz2 = F32(1) / (z * z)
-    D = _lane_sum((dp * rz2) * y)[..., None]
+    D = _tile_sums((dp * rz2) * y)
     ds = ((dp / z) + (-D)) * y * scale
     assert ds.dtype == F32
     kT, qT, gT = (np.swapaxes(t, -1, -2) for t in (k, q, g))
     p = y / z
-    return (_chain(ds, kT), _chain(np.swapaxes(ds, -1, -2), qT),
-            _chain(np.swapaxes(p, -1, -2), gT))
+    return (_tc(ds, kT), _tc(np.swapaxes(ds, -1, -2), qT), _tc(np.swapaxes(p, -1, -2), gT))
 
 
 def _jax_core(q, k, v, bias):
@@ -138,13 +183,25 @@ def _jax_core(q, k, v, bias):
                       precision=jax_gemm_precision(v.dtype)).astype(q.dtype)
 
 
-def _attention_inputs(T, causal, seed):
+def _attention_inputs(T, causal, seed, large=False):
     """hd 64, 2 heads (one at 512 tokens); rows: every key kept, the first
     keys masked and the rest ragged, all keys masked (a padded chunk's
-    filler row)."""
+    filler row).  ``large``: q and k rows of norm 15.4 drawn around eight
+    shared directions (each key's sign at random), so that scores reach
+    about +-27 and stay inside +-29.7, below the 32 past which -1e9 + s on
+    a masked key would no longer round to -1e9."""
     rng = np.random.default_rng(seed)
     nh = 1 if T > 256 else 2
     q, k, v, g = (rng.normal(size=(3, nh, T, 64)).astype(F32) * s for s in (1.5, 1.5, 1.0, 0.5))
+    if large:
+        u = rng.normal(size=(8, 64))
+
+        def rows(sign):
+            x = u[rng.integers(0, 8, size=(3, nh, T))] * sign + \
+                0.3 * rng.normal(size=(3, nh, T, 64))
+            return (15.4 * x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(F32)
+
+        q, k = rows(1.0), rows(rng.choice([-1.0, 1.0], size=(3, nh, T, 1)))
     mask = np.zeros((3, T), np.int32)
     mask[0] = 1
     mask[1, min(3, T - 1): max(T * 2 // 3, 4)] = 1
@@ -157,29 +214,55 @@ def _attention_inputs(T, causal, seed):
 CASES = [(T, causal) for T in (16, 128, 200, 512) for causal in (False, True)]
 
 
-@pytest.mark.parametrize("T,causal", CASES)
-def test_attention_f32_kernel_algorithm_matches_jax(T, causal):
-    """``attn_fwd_f32``'s order of work against the JAX core in float32;
-    the all-masked row is JAX's uniform softmax over all T keys."""
-    q, k, v, _, mask, bias = _attention_inputs(T, causal, seed=T + causal)
+def _check_forward(T, causal, seed, large=False):
+    q, k, v, _, mask, bias = _attention_inputs(T, causal, seed, large)
+    if large:
+        s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) / 8
+        assert 25 < np.abs(s).max() < 30
     want = np.asarray(jax.jit(_jax_core)(*(jnp.asarray(t) for t in (q, k, v, bias))))
     got = _k8a_f32(q, k, v, mask, causal)
     _close(got, want, "ctx")
     _close(got[2], np.broadcast_to(v[2].mean(1, keepdims=True), v[2].shape), "filler row")
 
 
-@pytest.mark.parametrize("T,causal", CASES)
-def test_attention_backward_f32_kernel_algorithm_matches_jax_vjp(T, causal):
-    """The two backward kernels' order of work (the dQ kernel's m, z, D and
-    dS; the dK/dV kernel's y recomputed from them) against ``jax.vjp`` of
-    the JAX core in float32."""
-    q, k, v, g, mask, bias = _attention_inputs(T, causal, seed=3 * T + causal)
+def _check_backward(T, causal, seed, large=False):
+    q, k, v, g, mask, bias = _attention_inputs(T, causal, seed, large)
     _, vjp = jax.vjp(lambda a, b, c: _jax_core(a, b, c, jnp.asarray(bias)),
                      *(jnp.asarray(t) for t in (q, k, v)))
     want = vjp(jnp.asarray(g))
     got = _k8a_bwd_f32(q, k, v, mask, causal, g)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close(a, np.asarray(b), name)
+
+
+@pytest.mark.parametrize("T,causal", CASES)
+def test_attention_f32_kernel_algorithm_matches_jax(T, causal):
+    """``attn_fwd_f32``'s order of work (one pass at T <= 128, the running
+    sum above) against the JAX core in float32; the all-masked row is
+    JAX's uniform softmax over all T keys."""
+    _check_forward(T, causal, seed=T + causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_f32_kernel_algorithm_matches_jax_at_large_scores(causal):
+    """The same at 128 tokens with scores of about +-27: the split's error in
+    each score reaches expf at 27 times its size."""
+    _check_forward(128, causal, seed=70 + causal, large=True)
+
+
+@pytest.mark.parametrize("T,causal", CASES)
+def test_attention_backward_f32_kernel_algorithm_matches_jax_vjp(T, causal):
+    """The backward's order of work (one kernel at T <= 128 with the row
+    statistics from its two key halves; above 128 the dQ kernel's three
+    passes and the key-block kernel) against ``jax.vjp`` of the JAX core in
+    float32."""
+    _check_backward(T, causal, seed=3 * T + causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_backward_f32_kernel_algorithm_matches_jax_vjp_at_large_scores(causal):
+    """The same at 128 tokens with scores of about +-27."""
+    _check_backward(128, causal, seed=80 + causal, large=True)
 
 
 def _k8b_f32(x, r, scale, bias, eps):
@@ -282,9 +365,9 @@ def _exported(library: str) -> dict:
 
 
 def test_attention_dispatch_picks_the_f32_kernels_by_dtype():
-    """float32 q, k, v take ``csrc/text_attention_f32.cu``'s forward and its
-    two-kernel backward at every T; bf16 keeps its kernels (one pass up to
-    128 tokens); the entry points exist in the sources with as many
+    """float32 q, k, v take ``csrc/text_attention_f32.cu``'s forward and
+    backward (one kernel up to 128 tokens, two above), bf16 its own (the
+    same counts); the entry points exist in the sources with as many
     parameters as the wrappers' ctypes signatures; float16 and mixed dtypes
     raise before the device is looked at."""
     f32 = k8a.entry_points(torch.float32)
@@ -300,7 +383,8 @@ def test_attention_dispatch_picks_the_f32_kernels_by_dtype():
                                                    len(k8a._BWD_ARGS)}
     assert _exported("text_attention")["masked_attention"] == len(k8a._FWD_ARGS)
     assert _exported("text_attention_bwd")["masked_attention_backward"] == len(k8a._BWD_ARGS)
-    assert [k8a.backward_launches(T, torch.float32) for T in (16, 128, 512)] == [2, 2, 2]
+    assert [k8a.backward_launches(T, torch.float32) for T in (1, 16, 128, 129, 512)] == \
+        [1, 1, 1, 2, 2]
     assert [k8a.backward_launches(T) for T in (16, 128, 129, 512)] == [1, 1, 2, 2]
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         k8a.entry_points(torch.float16)

@@ -574,6 +574,7 @@ DECOMPOSED_KERNELS = ("pair_train_hidden", "pair_train_dx", "pair_train_dw", "bn
 MEMORY_TOP = 12  # the largest allocations printed at a step's peak
 DENSE_RATE = 0.1  # OUTPUT_MLP_DROPOUT of the dense runs
 DENSE_PLAIN_COLS = 256  # the dense K5 forms' plain versions, in column slices
+DENSE_OFFSET = 1e3  # the BN check's last column slice sits this many spreads from 0
 DENSE_STEPS = 3  # steps of each dense training setting
 DENSE_KERNELS = ("pair_first_add", "pair_train_prod", "pair_side_sums", "pair_train_dw_prod",
                  "bn_relu_dropout_forward", "bn_relu_dropout_backward",
@@ -5687,7 +5688,20 @@ def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
     float32 z the ``_f32`` forms, held within F32_REL_TOL (the moments and
     the column sums within the pair depth's figure), and the kept values
     and the mask the same bits as the plain version's: y of the bias form
-    and its dz whole, y of the BN form on the kernel's own affine."""
+    and its dz whole, y of the BN form on the kernel's own affine.
+
+    The BN check moves z's last DENSE_PLAIN_COLS columns DENSE_OFFSET times
+    their spread (1) from 0 for its run (put back after) and holds that
+    slice on its own (the ``*_offset`` errors) at the same tolerances, where
+    one-pass moments lose their bits; in float32 that slice's y is held on
+    the kernel's own affine (its bits, as above): at |mean| / std = 1e3,
+    float32's z * inv + shift cancels ten bits, so moments an ulp apart (the
+    plain version's own sums against any other order's) move y by ~1e-5 of
+    its largest value, and the error from the plain version's own moments is
+    logged beside.  Logged too: the bytes a call moves and the standalone
+    floor (forward: 2 reads + 1 write; backward: 4 reads + 1 write) beside
+    the bound (the kernels line's: each input read once, each output written
+    once)."""
     import torch
 
     from protnote_tpu_torch.ops import dense_scorer as ds
@@ -5700,8 +5714,12 @@ def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
     bias = (0.2 * torch.randn(Hh, generator=gen)).to(dev)
     layer, rate, step = 0, DENSE_RATE, DENSE_PLAIN_COLS
     cols = range(0, Hh, step)
+    off = Hh - step  # the offset slice (BN)
+    saved = None
     with torch.no_grad():
         if bn:
+            saved = z[:, off:].clone()
+            z[:, off:] = (saved.float() + DENSE_OFFSET).to(z.dtype)
             fwd = lambda: ds._bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed,  # noqa: E731
                                                        layer, rate)
             out = fwd()
@@ -5729,10 +5747,17 @@ def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
         deltas = {k: [] for k in fwd_names + bwd_names}
         for j in cols:
             sl = slice(j, j + step)
-            for k, got, want in zip(fwd_names, out, pf(j)):
-                deltas[k].append(delta(got[:, sl] if got.dim() == 2 else got[sl], want))
-            for k, got, want in zip(bwd_names, grads, pb(j)):
-                deltas[k].append(delta(got[:, sl] if got.dim() == 2 else got[sl], want))
+            tag = "_offset" if bn and j == off else ""
+            for k, got, want in list(zip(fwd_names, out, pf(j))) + list(zip(bwd_names, grads,
+                                                                            pb(j))):
+                deltas.setdefault(k + tag, []).append(
+                    delta(got[:, sl] if got.dim() == 2 else got[sl], want))
+        y_own = None
+        if bn and f32:  # the offset slice's y on the kernel's own affine
+            deltas["y_offset_from_own_moments"] = deltas.pop("y_offset")
+            deltas["y_offset"] = [delta(out[0][:, off:], ds._drop_plain(
+                torch.relu(z[:, off:] * out[4][off:] + out[5][off:]), seed, layer, rate, off))]
+            y_own = merge_deltas(deltas.pop("y_offset_from_own_moments"))[1]
         rel = {k: merge_deltas(v)[1] for k, v in deltas.items()}
         errs = {k: merge_deltas(v)[0] for k, v in deltas.items()}
         exact = None
@@ -5744,18 +5769,31 @@ def dense_act_check(card: str, bn: bool, z, dy, rows, n, seed) -> dict:
             else:
                 exact = int(errs["y"] != 0.0) + int(errs["dz"] != 0.0)
         del out, grads
+        if saved is not None:
+            z[:, off:] = saved
+            del saved
         fwd_ms, bwd_ms = cuda_time_ms(fwd, 3), cuda_time_ms(bwd, 3)
         plain_ms = cuda_time_ms(lambda: [pf(j) for j in cols])
         plain_bwd_ms = cuda_time_ms(lambda: [pb(j) for j in cols])
     nb = N * Hh * z.element_size()
     name = "bn_relu_dropout" if bn else "bias_relu_dropout"
     sums = {"mean", "var", "dscale", "dbias"}
-    tol = {k: (depth_tol(N) if k in sums else F32_REL_TOL) if f32 else K45_REL_TOL
-           for k in rel}
+    tol = {k: (depth_tol(N) if k.removesuffix("_offset") in sums else F32_REL_TOL) if f32
+           else K45_REL_TOL for k in rel}
+    # bytes a call moves: BN forward z twice + y, backward z, dy twice + dz;
+    # the bias forms one pass each
+    fwd_bytes, bwd_bytes = (3 * nb, 5 * nb) if bn else (2 * nb, 3 * nb)
     log(f"dense_{name}{'_f32' if f32 else ''}", rows=N, width=Hh, rate=rate, rel_errs=rel,
-        rel_tol=tol, mismatched_bits=exact, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_ms,
-        plain_bwd_ms=plain_bwd_ms, fwd_bound_ms=bound(nbytes=2 * nb)["bound_ms"],
-        bwd_bound_ms=bound(nbytes=3 * nb)["bound_ms"], card=card)
+        rel_tol=tol, offset_spreads=DENSE_OFFSET if bn else None,
+        y_offset_rel_err_from_own_moments=y_own, mismatched_bits=exact, fwd_ms=fwd_ms,
+        bwd_ms=bwd_ms, plain_fwd_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
+        fwd_bound_ms=bound(nbytes=2 * nb)["bound_ms"],
+        bwd_bound_ms=bound(nbytes=3 * nb)["bound_ms"],
+        fwd_gb_moved=fwd_bytes / 1e9, bwd_gb_moved=bwd_bytes / 1e9,
+        fwd_floor_ms=bound(nbytes=3 * nb)["bound_ms"] if bn else None,
+        bwd_floor_ms=bound(nbytes=5 * nb)["bound_ms"] if bn else None,
+        fwd_share_of_floor=bound(nbytes=3 * nb)["bound_ms"] / fwd_ms if bn else None,
+        bwd_share_of_floor=bound(nbytes=5 * nb)["bound_ms"] / bwd_ms if bn else None, card=card)
     if any(rel[k] > tol[k] for k in rel) or exact:
         raise AssertionError(f"{name} disagrees with its plain version: {rel}, mismatched "
                              f"bits {exact}")

@@ -222,6 +222,35 @@ runs ``chip_smoke.py``'s training phase alone (one epoch at full width,
 32 sequences a step) on DIR's package and on this one, in the same turns,
 and prints the median step, seqs/s, peak memory and idle share of each
 and the change's mean over DIR's.
+
+    python3 chip_variants.py --k5-dense
+
+times K5's dense BatchNorm forms (``csrc/bn_relu.cu``: the forward's
+moments in one read of z; the backward's sums pass at two blocks an SM)
+against their first design (``csrc/variants/bn_relu_dense_v1.cu``: two
+centred moment passes; the same backward arithmetic with no bound on the
+sums blocks) in turns (3 rounds of the list forward and then backward,
+medians) at phase 24's shape (bf16, 32 x 32,102 pair rows, H
+3072) and phase 32's (float32, 16 x 32,102), dropout 0.1, through the C
+entry points with their scratch made once, after checking that the two
+backwards give the same bits (on the first design's statistics) and the
+two forwards agree; by CUDA events and device time, with each kernel's
+device time (the passes apart) beside the bytes bound and the standalone
+floor.  Then each source with parts taken out or one choice changed
+(timing only where the results are wrong; ``K5DENSE_SUBS``): the first
+design without the hash (a kept bit from one xor) and with its backward's
+loads alone (no gate, hash or arithmetic); the kept source without the
+hash, with 4- and 16-row moment tiles, with the apply pass held at 8 blocks an SM, and its backward with 4 rows
+in flight in the sums pass (not 2), 3 or 4 sums blocks an SM (not 2), 4
+rows unrolled in the dz pass (not 2) and the dz pass at 8 blocks an SM.
+
+    python3 chip_variants.py --dense-train-against DIR
+
+runs ``chip_smoke.py``'s dense training phase alone for its
+``dense_dropout`` setting (``PAIR_BACKEND dense``, ``OUTPUT_MLP_DROPOUT``
+0.1, 32 sequences a step, 8 steps) on DIR's package and on this one, in
+the same turns, and prints the median warm step, seqs/s, peak memory and
+idle share of each and the change's mean over DIR's.
 """
 
 from __future__ import annotations
@@ -1294,6 +1323,188 @@ K7POOL_SUBS = {
 K7POOL_RUN = 32  # rows of a run of the runs form (csrc/variants/masked_pool_runs.cu RUN)
 
 
+# text replaced in bn_relu.cu ("kept_*") or csrc/variants/bn_relu_dense_v1.cu
+# ("first_*"): (old, new), each old found exactly once
+_HASH = ("  return (fmix32(rh ^ ck) >> 8) < d.threshold;\n",
+         "  return ((rh ^ ck) >> 8) < d.threshold;\n")
+_SUM_BLOCKS = "constexpr int DENSE_SUM_BLOCKS = {};"
+_DZ_LOOP = ("#pragma unroll {}\n  for (long long r = blockIdx.x; r < N; r += gridDim.x) {{\n"
+            "    const long long v = (r * vpr + cv) * VEC;\n    const float mn")
+K5DENSE_SUBS = {
+    "first_no_hash": [_HASH],
+    "first_loads_only": [
+        ("    dropped_dy<T, DROP>(dk, i, ck, df);\n", ""),
+        ("      const float ge = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;\n"
+         "      const float xhat = __fmul_rn(__fsub_rn(zf[e], mu[e]), is[e]);\n"
+         "      g[0][e] = __fadd_rn(g[0][e], ge);\n"
+         "      g[1][e] = __fadd_rn(g[1][e], __fmul_rn(ge, xhat));\n",
+         "      g[0][e] = __fadd_rn(g[0][e], zf[e]);\n"
+         "      g[1][e] = __fadd_rn(g[1][e], df[e]);\n"),
+        ("    dropped_dy<T, DROP>(dk, r, ck, df);\n", ""),
+        ("      const float g = affine(zf[e], iv[e], sh[e]) > 0.f ? df[e] : 0.f;\n"
+         "      const float xhat = __fmul_rn(__fsub_rn(zf[e], mu[e]), is[e]);\n"
+         "      const float inner = __fadd_rn(g1[e], __fmul_rn(g2[e], xhat));\n"
+         "      out[e] = __fmul_rn(coef[e], __fsub_rn(g, __fmul_rn(mn, inner)));\n",
+         "      out[e] = __fadd_rn(zf[e], df[e]);\n")],
+    "kept_no_hash": [_HASH],
+    "kept_mom_rows_4": [("constexpr int MOM_ROWS = 8;", "constexpr int MOM_ROWS = 4;")],
+    "kept_mom_rows_16": [("constexpr int MOM_ROWS = 8;", "constexpr int MOM_ROWS = 16;")],
+    "kept_sums_unroll_4": [("#pragma unroll(DROP ? 2 : 4)\n", "#pragma unroll 4\n")],
+    "kept_sums_3_blocks": [(_SUM_BLOCKS.format(2), _SUM_BLOCKS.format(3))],
+    "kept_sums_4_blocks": [(_SUM_BLOCKS.format(2), _SUM_BLOCKS.format(4))],
+    "kept_dz_8_blocks": [("__launch_bounds__(EW_THREADS)\nbn_relu_dz_kernel(",
+                          "__launch_bounds__(EW_THREADS, 8)\nbn_relu_dz_kernel(")],
+    "kept_act_8_blocks": [("__launch_bounds__(EW_THREADS)\nact_dropout_kernel(",
+                           "__launch_bounds__(EW_THREADS, 8)\nact_dropout_kernel(")],
+    "kept_dz_unroll_4": [(_DZ_LOOP.format(2), _DZ_LOOP.format(4))],
+}
+
+
+def k5_dense_variants(build_dir: str, card: str) -> None:
+    """``--k5-dense``: K5's dense BN forms against their first design in
+    turns at phases 24's and 32's shapes, then with parts taken out."""
+    from concurrent.futures import ThreadPoolExecutor
+    import statistics
+
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops.streaming_train import _chunks
+
+    texts = {"kept": (kernels.CSRC_DIR / "bn_relu.cu").read_text(),
+             "first": open(os.path.join(VARIANT_DIR, "bn_relu_dense_v1.cu")).read()}
+    jobs = {}
+    for name, subs in [("kept", []), ("first", [])] + list(K5DENSE_SUBS.items()):
+        text = texts[name.split("_")[0]]
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"K5 dense variant {name}: {text.count(old)} matches")
+            text = text.replace(old, new)
+        src = os.path.join(build_dir, f"bn_relu_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        jobs[name] = (src, os.path.join(build_dir, f"libbn_relu_{name}.so"))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        logs = dict(zip(jobs, ex.map(lambda j: nvcc(*j), jobs.values())))
+    P = ctypes.c_void_p
+    tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, P]
+    libs = {}
+    for name, (_, out) in jobs.items():
+        cs.log("k5_dense_variant_ptxas", variant=name, ptxas=logs[name])
+        lib = ctypes.CDLL(out)
+        first = name.startswith("first")
+        for sfx in ("", "_f32"):
+            getattr(lib, f"bn_relu_dropout_forward{sfx}").argtypes = [P] * (15 if first else 13) \
+                + tail
+            getattr(lib, f"bn_relu_dropout_backward{sfx}").argtypes = [P] * 15 + tail
+        libs[name] = lib
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    layer, rate = 0, cs.DENSE_RATE
+    for dtype, seqs in ((torch.bfloat16, cs.TRAIN_B), (torch.float32, cs.DENSE_F32_B)):
+        N, H = seqs * cs.NUM_LABELS, cs.H
+        gen = torch.Generator(device=dev).manual_seed(5)
+        z = (torch.randn(N, H, device=dev, generator=gen) + 0.3).to(dtype)
+        dy = torch.randn(N, H, device=dev, generator=gen).to(dtype)
+        em = torch.ones(seqs, device=dev)
+        em[-1] = 0
+        lm = (torch.rand(cs.NUM_LABELS, device=dev, generator=gen) < 0.98).float()
+        rows = (em[:, None] * lm[None, :]).reshape(N, 1).contiguous()
+        n = rows.sum().reshape(1)
+        scale = 0.5 + torch.rand(H, device=dev, generator=gen)
+        bias = 0.2 * torch.randn(H, device=dev, generator=gen)
+        seed = torch.tensor([1234567, 7654321], dtype=torch.int64, device=dev)
+        thr, keep = ds.keep_threshold(rate), ds.keep_scale(rate, dtype)
+        chunks, per = _chunks(N)
+        f32 = dict(dtype=torch.float32, device=dev)
+        sfx = "_f32" if dtype == torch.float32 else ""
+        part = torch.empty(3 * chunks * H + chunks, **f32)
+        part1, part2 = torch.empty(chunks, H, **f32), torch.empty(chunks, H, **f32)
+        zeros = torch.zeros(H, **f32)
+        y, dz = torch.empty_like(z), torch.empty_like(z)
+        outs = {k: [torch.empty(H, **f32) for _ in range(5)] for k in ("kept", "first")}
+        grads = {k: [torch.empty(H, **f32) for _ in range(2)] for k in ("kept", "first")}
+        ptr = lambda ts: [t.data_ptr() for t in ts]  # noqa: E731
+
+        def fwd(name):
+            lib = libs[name]
+            stats = outs["first" if name.startswith("first") else "kept"]
+            if name.startswith("first"):
+                args = ptr((z, rows, n, zeros, scale, bias, seed, part1, part2, *stats, y))
+            else:
+                args = ptr((z, rows, n, scale, bias, seed, part, *stats, y))
+            fn = getattr(lib, f"bn_relu_dropout_forward{sfx}")
+            return lambda: cs_raise(fn(*args, N, H, chunks, per, layer, thr, keep, stream))
+
+        def bwd(name):
+            lib = libs[name]
+            mean, _, istd, inv, shift = outs["first"]  # the first design's statistics
+            G = grads["first" if name.startswith("first") else "kept"]
+            args = ptr((z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1, part2, *G,
+                        dz))
+            fn = getattr(lib, f"bn_relu_dropout_backward{sfx}")
+            return lambda: cs_raise(fn(*args, N, H, chunks, per, layer, thr, keep, stream))
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+        # the forwards agree, the backwards give the same bits
+        fwd("first")()
+        y_first = y.clone()
+        fwd("kept")()
+        bwd("first")()
+        dz_first, g_first = dz.clone(), [t.clone() for t in grads["first"]]
+        bwd("kept")()
+        torch.cuda.synchronize()
+        same = torch.equal(dz, dz_first) and all(torch.equal(a, b) for a, b in
+                                                 zip(grads["kept"], g_first))
+        agree = {"y": rel(y, y_first), "mean": rel(outs["kept"][0], outs["first"][0]),
+                 "var": rel(outs["kept"][1], outs["first"][1])}
+        del y_first, dz_first
+        cs.log("k5_dense_check", dtype=str(dtype), rows=N, width=H, backward_same_bits=same,
+               forward_rel_errs=agree, card=card)
+        if not same or agree["y"] > (cs.F32_REL_TOL if sfx else cs.K45_REL_TOL):
+            raise AssertionError(f"K5 dense: backward same bits {same}, forward {agree}")
+        nb = N * H * z.element_size()
+        bounds = {"fwd": {"bound_ms": cs.bound(nbytes=2 * nb)["bound_ms"],
+                          "floor_ms": cs.bound(nbytes=3 * nb)["bound_ms"]},
+                  "bwd": {"bound_ms": cs.bound(nbytes=3 * nb)["bound_ms"],
+                          "floor_ms": cs.bound(nbytes=5 * nb)["bound_ms"]}}
+        calls = [(f"fwd:{k}", fwd(k)) for k in ("kept", "first")] + \
+            [(f"bwd:{k}", bwd(k)) for k in ("kept", "first")]
+        rounds = [timed_turns(calls, 5) for _ in range(3)]
+        for label, _ in calls:
+            kind, variant = label.split(":")
+            ms = [x for r in rounds for x in r[label]["ms"]]
+            dev_ms = [x for r in rounds for x in r[label]["device_ms"] if x is not None]
+            cs.log("k5_dense_turns", kind=kind, variant=variant, dtype=str(dtype), rows=N,
+                   ms=ms, median_ms=statistics.median(ms), device_ms=dev_ms,
+                   median_device_ms=statistics.median(dev_ms) if dev_ms else None,
+                   kernels_ms=rounds[-1][label]["kernels_ms"], **bounds[kind],
+                   share_of_floor=bounds[kind]["floor_ms"] / statistics.median(ms), card=card)
+        parts = [(f"fwd:{k}", fwd(k)) for k in ("kept", "first", "first_no_hash", "kept_no_hash",
+                                                "kept_mom_rows_4", "kept_mom_rows_16",
+                                                "kept_act_8_blocks")]
+        parts += [(f"bwd:{k}", bwd(k)) for k in ("kept", "first", "first_no_hash",
+                                                 "first_loads_only", "kept_sums_unroll_4",
+                                                 "kept_sums_3_blocks", "kept_sums_4_blocks",
+                                                 "kept_dz_unroll_4", "kept_dz_8_blocks")]
+        for label, t in timed_turns(parts, 5).items():
+            kind, variant = label.split(":")
+            cs.log("k5_dense_variant", kind=kind, variant=variant, dtype=str(dtype), **t,
+                   **bounds[kind], card=card)
+        del z, dy, y, dz, part, part1, part2
+        torch.cuda.empty_cache()
+
+
+def cs_raise(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"a K5 dense entry point returned CUDA error {rc}")
+
+
 def build_subs(build_dir: str, stem: str, base: str, subs: dict, extra: dict) -> dict:
     """The kept source ``base`` as ``kept`` and with each entry of ``subs``
     (exact text, found once) replaced, plus ``extra`` {name: source path},
@@ -1593,7 +1804,7 @@ def k9_update_variants(build_dir: str, card: str) -> None:
 
 def nvcc(src: str, out: str) -> str:
     """Build ``src`` into ``out`` with the port's flags; returns ptxas's
-    register and spill lines."""
+    lines naming each kernel and giving its registers and spills."""
     from protnote_tpu_torch.ops import kernels
 
     proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC_DIR),
@@ -1601,7 +1812,8 @@ def nvcc(src: str, out: str) -> str:
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
-    return "\n".join(x.strip() for x in log.splitlines() if "registers" in x or "spill" in x)
+    keep = ("registers", "spill", "Compiling entry function")
+    return "\n".join(x.strip() for x in log.splitlines() if any(k in x for k in keep))
 
 
 def build(build_dir: str):
@@ -1832,6 +2044,30 @@ def train_turn(tree: str) -> None:
     cs.phase_training(cs.card_line())
 
 
+def dense_train_turn(tree: str) -> None:
+    """One turn of ``--dense-train-against``: ``chip_smoke.py``'s dense
+    training phase for its ``dense_dropout`` setting alone (8 steps) in a
+    fresh process, on the package in ``tree``; prints its lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import protnote_tpu_torch
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
+    names = ("pair_scorer", "eval_accumulator", "bn_relu", "pair_dense", "masked_conv",
+             "masked_pool", "streamed_bn")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_kernel_library, names))
+    cs.DENSE_SETTINGS = tuple(s for s in cs.DENSE_SETTINGS if s[0] == "dense_dropout")
+    cs.DENSE_STEPS = 8
+    cs.phase_dense_training(cs.card_line())
+
+
 def encoder_train_turn(tree: str) -> None:
     """One turn of ``--encoder-train-against``: ``chip_smoke.py``'s
     encoder-training phase alone in a fresh process, on the package in
@@ -1948,6 +2184,23 @@ def train_against(parent: str, card: str) -> None:
                         "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
                         "idle_share": prof["idle_share"]})
     cs.log("train_against", parent=parent, turns=results, card=card,
+           **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
+
+
+def dense_train_against(parent: str, card: str) -> None:
+    """``--dense-train-against``: the dense ``dense_dropout`` training step
+    alone in DIR and in this checkout, in turns."""
+    import chip_smoke as cs
+
+    parent = os.path.abspath(parent)
+    results = []
+    for r in turns(parent, "--dense-train-turn", card):
+        t = r["dense_train_dense_dropout"]
+        results.append({"tree": r["tree"], "median_warm_step_ms": t["median_warm_step_ms"],
+                        "seqs_per_s": t["seqs_per_s"], "peak_mem_gb": t["peak_mem_gb"],
+                        "profiled_wall_ms_per_step": t["profiled_wall_ms_per_step"],
+                        "idle_share": t["idle_share"]})
+    cs.log("dense_train_against", parent=parent, turns=results, card=card,
            **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
 
 
@@ -2493,6 +2746,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--encoder-train-turn"]:
         encoder_train_turn(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--dense-train-turn"]:
+        dense_train_turn(sys.argv[2])
+        return
     sys.path.insert(0, ROOT)
     import torch
 
@@ -2516,6 +2772,15 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--encoder-train-against"]:
         encoder_train_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--dense-train-against"]:
+        dense_train_against(sys.argv[2], card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k5-dense"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k5_dense_variants(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--k7-bn"]:

@@ -46,12 +46,22 @@
 // The dense scorer's forms (ops/dense_scorer.py, the TPU chain
 // protnote_tpu/ops/pair_scorer.py:56 output_mlp_apply with
 // models/layers.py:76 batchnorm_apply's train branch and :151 dropout):
-//   bn_relu_dropout_forward: the JAX dense BatchNorm's centred moments in
-//     two passes (mean = sum(rows * z) / n; var = sum(rows * (z - mean)^2)
-//     / n: the moment kernel with shift 0, then with shift mean), then
-//     y = dropout(bf16(relu(f32(z) * inv + shift)));
+//   bn_relu_dropout_forward: the JAX dense BatchNorm's centred moments
+//     (mean = sum(rows * z) / n; var = sum(rows * (z - mean)^2) / n) in one
+//     read of z: each lane's register tiles of 8 rows x 8 columns give their
+//     own centred statistics, merged by Chan's formula (a compensated mean,
+//     warps in order, then the row chunks' partials in a fixed order); then
+//     y = dropout(bf16(relu(f32(z) * inv + shift))).  Three launches; z read
+//     twice and y written: 3 x 6.3 GB at the default width, a 5.65 ms floor
+//     at 3.35 TB/s (the first design's two centred passes read z three
+//     times: csrc/variants/bn_relu_dense_v1.cu);
 //   bn_relu_dropout_backward: K5's backward with dy first sent through
-//     dropout's transpose;
+//     dropout's transpose, two passes that each draw the hash, the sums
+//     pass held at two blocks an SM (a sums pass that left gate-and-keep
+//     as one bit an element for the dz pass ran slower: the dz pass is
+//     bound by its memory traffic): z and dy read twice, dz written, 5 x
+//     6.3 GB, a 9.42 ms floor, the floor of any form that completes the
+//     column sums before dz;
 //   bias_relu_dropout_forward: y = dropout(relu(bf16(f32(z) + bias))), the
 //     output MLP without BatchNorm;
 //   bias_relu_dropout_backward: dz = gate * dropout^T(dy) and dbias = its
@@ -173,33 +183,6 @@ __global__ void bn_moments_tail_kernel(const float* __restrict__ part1,
 }
 
 
-// The centred moments' tails: first mean = sum / n (mode 0), then var and
-// the affine from the second pass's sums (mode 1).
-__global__ void centred_tail_kernel(const float* __restrict__ part, int chunks,
-                                    const float* __restrict__ n_ptr,
-                                    const float* __restrict__ scale,
-                                    const float* __restrict__ bias, float* __restrict__ mean,
-                                    float* __restrict__ var, float* __restrict__ istd,
-                                    float* __restrict__ inv, float* __restrict__ shift, int H,
-                                    int mode) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= H) return;
-  float t = 0.f;
-  for (int k = 0; k < chunks; ++k) t = __fadd_rn(t, part[(size_t)k * H + c]);
-  const float n = *n_ptr;
-  if (mode == 0) {
-    mean[c] = __fdiv_rn(t, n);
-    return;
-  }
-  const float v = __fdiv_rn(t, n);
-  const float is = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(v, EPS)));
-  const float iv = __fmul_rn(is, scale[c]);
-  var[c] = v;
-  istd[c] = is;
-  inv[c] = iv;
-  shift[c] = __fsub_rn(bias[c], __fmul_rn(mean[c], iv));
-}
-
 // y = dropout(T(relu(f32(z) * inv + shift))) (BN), or
 // y = dropout(relu(T(f32(z) + bias))) (no BN: inv unused, shift = bias).
 // Each thread owns 8 columns (their affine and hash keys in registers) and
@@ -253,9 +236,12 @@ __device__ __forceinline__ void dropped_dy(const DropKey& dk, long long row,
 }
 
 // Backward pass 1: per row chunk, column sums of g and g * xhat, with dy
-// first sent through dropout's transpose when DROP.
-template <typename T, bool DROP>
-__global__ void __launch_bounds__(RED_WARPS * 32)
+// first sent through dropout's transpose when DROP.  MIN_BLOCKS: the blocks
+// an SM must hold (the dense forms ask for 2, a budget of 128 registers a
+// thread: faster than leaving it open (93-98 registers) or asking for 3 (85,
+// spilling in float32) or 4 in chip_variants.py --k5-dense's turns).
+template <typename T, bool DROP, int MIN_BLOCKS>
+__global__ void __launch_bounds__(RED_WARPS * 32, MIN_BLOCKS)
 bn_grad_sums_kernel(const T* __restrict__ z, const T* __restrict__ dy,
                     const float* __restrict__ mean, const float* __restrict__ istd,
                     const float* __restrict__ inv, const float* __restrict__ shift,
@@ -401,6 +387,206 @@ bias_relu_grad_kernel(const T* __restrict__ z, const T* __restrict__ dy,
   block_column_sums<1>(s, acc, out, blockIdx.y, c0, H);
 }
 
+// ---------------------------------------------------------------------------
+// The dense BatchNorm's moments in one read of z.
+//
+// A lane owns 8 columns; its warp takes tiles of MOM_ROWS consecutive rows of
+// its row chunk (tile k of warp w starts at row first + (k * RED_WARPS + w) *
+// MOM_ROWS) and the lane holds a tile's 8 x 8 values in registers.  Its
+// running state is the count n (a scalar: the mask is per row), the mean as
+// an unevaluated sum hi + lo (lo keeps what float32's hi cannot, so the mean
+// stays exact to float32's width relative to the spread, whatever |mean| /
+// std is), and M2, the masked sum of squared deviations from the mean.  A
+// tile's own statistics are centred in registers about a shift p: with
+// u = z - p, c = sum(m u) / w (w = sum m) and q = sum(m (u - c)^2).  The
+// lane's first tile with a valid row takes p = its first valid row's value
+// and becomes the state: n = w, hi + lo = p + c exactly (TwoSum, so hi is
+// the tile's mean rounded), M2 = q.  Every later tile takes p = hi and
+// merges by Chan's formula: a = w / (n + w), d = c - lo, mean += d a (hi
+// and lo by an exact TwoSum), M2 += q + d^2 n a.  A tile with no valid row
+// is skipped.  The warps' states merge in warp order through shared memory
+// and each block writes one (n, hi, lo, M2) partial a column; the tail's
+// TAIL_LANES lanes of a column each merge every TAIL_LANES-th chunk in
+// order, then the lanes merge in a fixed tree.  No atomics, so two runs
+// give the same bits; ops/dense_scorer.py:dense_moments_emulation performs
+// the same operations in the same order on the CPU.
+
+constexpr int MOM_ROWS = 8;     // rows of a lane's register tile
+constexpr int TAIL_LANES = 16;  // the tail's lanes a column
+constexpr int TAIL_COLS = 32;   // the tail's columns a block
+
+// s + e = a + b exactly, s = a + b rounded (Knuth's TwoSum).
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  const float v = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, v)), __fsub_rn(b, v));
+}
+
+// Chan's merge into the state (hi, lo, m2) of one column of a part whose
+// mean is (hi + lo) + d and whose M2 is m2b, with a = nb / (na + nb) and
+// b = na a from the counts.
+__device__ __forceinline__ void chan_merge(float a, float b, float d, float m2b, float& hi,
+                                           float& lo, float& m2) {
+  float e;
+  two_sum(hi, __fmul_rn(d, a), hi, e);
+  lo = __fadd_rn(lo, e);
+  m2 = __fadd_rn(__fadd_rn(m2, m2b), __fmul_rn(__fmul_rn(d, d), b));
+}
+
+// The merge of a whole state (nb; hb, lb, mb) into (na; hi, lo, m2): an
+// empty part is skipped, an empty state replaced.
+__device__ __forceinline__ void merge_state(float& na, float nb, float hb, float lb, float mb,
+                                            float& hi, float& lo, float& m2) {
+  if (nb == 0.f) return;
+  if (na == 0.f) {
+    na = nb, hi = hb, lo = lb, m2 = mb;
+    return;
+  }
+  const float a = __fdiv_rn(nb, __fadd_rn(na, nb));
+  chan_merge(a, __fmul_rn(na, a), __fadd_rn(__fsub_rn(hb, hi), __fsub_rn(lb, lo)), mb, hi, lo,
+             m2);
+  na = __fadd_rn(na, nb);
+}
+
+// A tile's centred statistics for one column e: u[r][e] -= p, then c and q.
+__device__ __forceinline__ void tile_stats(const float (&m)[MOM_ROWS],
+                                           float (&u)[MOM_ROWS][VEC], int e, float p, float rw,
+                                           float& c, float& q) {
+  float sum = 0.f;
+#pragma unroll
+  for (int r = 0; r < MOM_ROWS; ++r) {
+    u[r][e] = __fsub_rn(u[r][e], p);
+    sum = __fadd_rn(sum, __fmul_rn(m[r], u[r][e]));
+  }
+  c = __fmul_rn(sum, rw);
+  q = 0.f;
+#pragma unroll
+  for (int r = 0; r < MOM_ROWS; ++r) {
+    const float v = __fsub_rn(u[r][e], c);
+    q = __fadd_rn(q, __fmul_rn(__fmul_rn(v, v), m[r]));
+  }
+}
+
+// Per row chunk (blockIdx.y) and 256-column block, the (n, hi, lo, M2)
+// partial of each column: pn (chunks,), ph / pl / pm (chunks, H).
+template <typename T>
+__global__ void __launch_bounds__(RED_WARPS * 32)
+dense_moments_kernel(const T* __restrict__ z, const float* __restrict__ rows,
+                     float* __restrict__ pn, float* __restrict__ ph, float* __restrict__ pl,
+                     float* __restrict__ pm, long long N, int H, long long rows_per_chunk) {
+  __shared__ float s_n[RED_WARPS];
+  __shared__ float s[3][RED_WARPS][COLS];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * COLS;
+  const int col = c0 + lane * VEC;
+  const long long first = (long long)blockIdx.y * rows_per_chunk;
+  const long long last = min(first + rows_per_chunk, N);
+  float n = 0.f, hi[VEC], lo[VEC], m2[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) hi[e] = lo[e] = m2[e] = 0.f;
+  for (long long r0 = first + (long long)warp * MOM_ROWS; r0 < last;
+       r0 += (long long)RED_WARPS * MOM_ROWS) {
+    float m[MOM_ROWS], u[MOM_ROWS][VEC];
+#pragma unroll
+    for (int r = 0; r < MOM_ROWS; ++r) {  // rows past the chunk: the last row's, mask 0
+      const long long i = min(r0 + r, last - 1);
+      m[r] = r0 + r < last ? rows[i] : 0.f;
+      load8(z + i * H + col, u[r]);
+    }
+    float w = 0.f;
+#pragma unroll
+    for (int r = 0; r < MOM_ROWS; ++r) w = __fadd_rn(w, m[r]);
+    if (w == 0.f) continue;  // the same rows for every lane: no divergence
+    const float rw = __frcp_rn(w);
+    if (n == 0.f) {  // the lane's first tile: centred about its first valid row
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float p = 0.f, c, q;
+#pragma unroll
+        for (int r = MOM_ROWS - 1; r >= 0; --r) p = m[r] != 0.f ? u[r][e] : p;
+        tile_stats(m, u, e, p, rw, c, q);
+        two_sum(p, c, hi[e], lo[e]);
+        m2[e] = q;
+      }
+    } else {
+      const float a = __fdiv_rn(w, __fadd_rn(n, w));
+      const float b = __fmul_rn(n, a);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float c, q;
+        tile_stats(m, u, e, hi[e], rw, c, q);
+        chan_merge(a, b, __fsub_rn(c, lo[e]), q, hi[e], lo[e], m2[e]);
+      }
+    }
+    n = __fadd_rn(n, w);
+  }
+  if (lane == 0) s_n[warp] = n;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    s[0][warp][lane * VEC + e] = hi[e];
+    s[1][warp][lane * VEC + e] = lo[e];
+    s[2][warp][lane * VEC + e] = m2[e];
+  }
+  __syncthreads();
+  const int c = threadIdx.x;  // one column a thread (blockDim.x == COLS)
+  float bn = s_n[0], bh = s[0][0][c], bl = s[1][0][c], bm = s[2][0][c];
+#pragma unroll
+  for (int w = 1; w < RED_WARPS; ++w) merge_state(bn, s_n[w], s[0][w][c], s[1][w][c], s[2][w][c],
+                                                  bh, bl, bm);
+  const size_t o = (size_t)blockIdx.y * H + c0 + c;
+  ph[o] = bh;
+  pl[o] = bl;
+  pm[o] = bm;
+  if (blockIdx.x == 0 && c == 0) pn[blockIdx.y] = bn;
+}
+
+// The chunks' partials merged: block (TAIL_COLS, TAIL_LANES) over TAIL_COLS
+// columns; lane j of a column merges chunks j, j + TAIL_LANES, ... in order,
+// then lane j merges lane j + h for h = TAIL_LANES / 2, ..., 1.  Lane 0 then
+// forms mean = hi + lo, var = M2 / n (n the clamped count), and the affine.
+__global__ void __launch_bounds__(TAIL_COLS * TAIL_LANES)
+dense_moments_tail_kernel(const float* __restrict__ pn, const float* __restrict__ ph,
+                          const float* __restrict__ pl, const float* __restrict__ pm, int chunks,
+                          const float* __restrict__ n_ptr, const float* __restrict__ scale,
+                          const float* __restrict__ bias, float* __restrict__ mean,
+                          float* __restrict__ var, float* __restrict__ istd,
+                          float* __restrict__ inv, float* __restrict__ shift, int H) {
+  __shared__ float s[4][TAIL_LANES][TAIL_COLS];
+  const int tx = threadIdx.x, j = threadIdx.y;
+  const int c = blockIdx.x * TAIL_COLS + tx;  // H is a multiple of TAIL_COLS
+  float n = 0.f, hi = 0.f, lo = 0.f, m2 = 0.f;
+  for (int k0 = j; k0 < chunks; k0 += 4 * TAIL_LANES) {
+    float kn[4], kh[4], kl[4], km[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {  // four chunks' loads in flight
+      const int k = k0 + t * TAIL_LANES;
+      const size_t o = (size_t)min(k, chunks - 1) * H + c;
+      kn[t] = k < chunks ? pn[k] : 0.f;
+      kh[t] = ph[o], kl[t] = pl[o], km[t] = pm[o];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) merge_state(n, kn[t], kh[t], kl[t], km[t], hi, lo, m2);
+  }
+  for (int h = TAIL_LANES / 2; h > 0; h >>= 1) {
+    s[0][j][tx] = n, s[1][j][tx] = hi, s[2][j][tx] = lo, s[3][j][tx] = m2;
+    __syncthreads();
+    if (j < h) merge_state(n, s[0][j + h][tx], s[1][j + h][tx], s[2][j + h][tx], s[3][j + h][tx],
+                           hi, lo, m2);
+    __syncthreads();
+  }
+  if (j != 0) return;
+  const float mu = __fadd_rn(hi, lo);
+  const float v = __fdiv_rn(m2, *n_ptr);
+  const float is = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(v, EPS)));
+  const float iv = __fmul_rn(is, scale[c]);
+  mean[c] = mu;
+  var[c] = v;
+  istd[c] = is;
+  inv[c] = iv;
+  shift[c] = __fsub_rn(bias[c], __fmul_rn(mu, iv));
+}
+
 }  // namespace
 
 namespace {
@@ -491,7 +677,7 @@ bool drop_ok(int layer, int threshold, float keep) {
 // K5's backward on elements of type T: the gradient sums, their tail and
 // dz; dy goes through dropout's transpose unless threshold keeps every
 // element.
-template <typename T, bool DROP>
+template <typename T, bool DROP, int MIN_BLOCKS>
 cudaError_t launch_bn_backward(const void* z, const void* dy, const void* rows, const void* n,
                                const void* scale, const void* mean, const void* istd,
                                const void* inv, const void* shift, const void* seed,
@@ -501,7 +687,7 @@ cudaError_t launch_bn_backward(const void* z, const void* dy, const void* rows, 
   const T* z_ = static_cast<const T*>(z);
   const T* dy_ = static_cast<const T*>(dy);
   const long long* seed_ = static_cast<const long long*>(seed);
-  bn_grad_sums_kernel<T, DROP><<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+  bn_grad_sums_kernel<T, DROP, MIN_BLOCKS><<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
       z_, dy_, static_cast<const float*>(mean), static_cast<const float*>(istd),
       static_cast<const float*>(inv), static_cast<const float*>(shift), seed_, layer, threshold,
       keep, static_cast<float*>(part1), static_cast<float*>(part2), N, H, rows_per_chunk);
@@ -532,7 +718,7 @@ extern "C" int bn_relu_backward(const void* z, const void* dy, const void* rows,
                                 long long N, int H, int chunks, long long rows_per_chunk,
                                 void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
-  return (int)launch_bn_backward<__nv_bfloat16, false>(
+  return (int)launch_bn_backward<__nv_bfloat16, false, 1>(
       z, dy, rows, n, scale, mean, istd, inv, shift, nullptr, part1, part2, G1, G2, dz, N, H,
       chunks, rows_per_chunk, 0, KEEP_ALL, 1.f, reinterpret_cast<cudaStream_t>(stream));
 }
@@ -546,7 +732,7 @@ extern "C" int bn_relu_backward_f32(const void* z, const void* dy, const void* r
                                     long long N, int H, int chunks, long long rows_per_chunk,
                                     void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk)) return (int)cudaErrorInvalidValue;
-  return (int)launch_bn_backward<float, false>(
+  return (int)launch_bn_backward<float, false, 1>(
       z, dy, rows, n, scale, mean, istd, inv, shift, nullptr, part1, part2, G1, G2, dz, N, H,
       chunks, rows_per_chunk, 0, KEEP_ALL, 1.f, reinterpret_cast<cudaStream_t>(stream));
 }
@@ -557,39 +743,36 @@ namespace {
 // for the _f32 forms).
 
 template <typename T>
-int dense_bn_forward(const void* z, const void* rows, const void* n, const void* zero_shift,
-                     const void* scale, const void* bias, const void* seed, void* part1,
-                     void* part2, void* mean, void* var, void* istd, void* inv, void* shift,
-                     void* y, long long N, int H, int chunks, long long rows_per_chunk,
-                     int layer, int threshold, float keep, void* stream) {
+int dense_bn_forward(const void* z, const void* rows, const void* n, const void* scale,
+                     const void* bias, const void* seed, void* part, void* mean, void* var,
+                     void* istd, void* inv, void* shift, void* y, long long N, int H, int chunks,
+                     long long rows_per_chunk, int layer, int threshold, float keep,
+                     void* stream) {
   if (!shapes_ok(N, H, chunks, rows_per_chunk) || !drop_ok(layer, threshold, keep))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const T* z_ = static_cast<const T*>(z);
-  const float* rows_ = static_cast<const float*>(rows);
-  float* p1 = static_cast<float*>(part1);
-  float* p2 = static_cast<float*>(part2);
-  float* mean_ = static_cast<float*>(mean);
-  const dim3 red(H / COLS, chunks);
-  const int tail = (H + 255) / 256;
-  // pass 1: sum(rows * z) (part1; part2 unused), mean
-  moments_kernel<<<red, RED_WARPS * 32, 0, s>>>(z_, rows_, static_cast<const float*>(zero_shift),
-                                                p1, p2, N, H, rows_per_chunk);
-  centred_tail_kernel<<<tail, 256, 0, s>>>(p1, chunks, static_cast<const float*>(n), nullptr,
-                                           nullptr, mean_, nullptr, nullptr, nullptr, nullptr, H,
-                                           0);
-  // pass 2: sum(rows * (z - mean)^2) (part2), var and the affine
-  moments_kernel<<<red, RED_WARPS * 32, 0, s>>>(z_, rows_, mean_, p1, p2, N, H, rows_per_chunk);
-  centred_tail_kernel<<<tail, 256, 0, s>>>(
-      p2, chunks, static_cast<const float*>(n), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), mean_, static_cast<float*>(var), static_cast<float*>(istd),
-      static_cast<float*>(inv), static_cast<float*>(shift), H, 1);
+  const size_t ch = (size_t)chunks * H;
+  float* ph = static_cast<float*>(part);
+  float* pl = ph + ch;
+  float* pm = pl + ch;
+  float* pn = pm + ch;
+  dense_moments_kernel<<<dim3(H / COLS, chunks), RED_WARPS * 32, 0, s>>>(
+      static_cast<const T*>(z), static_cast<const float*>(rows), pn, ph, pl, pm, N, H,
+      rows_per_chunk);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dense_moments_tail_kernel<<<H / TAIL_COLS, dim3(TAIL_COLS, TAIL_LANES), 0, s>>>(
+      pn, ph, pl, pm, chunks, static_cast<const float*>(n), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<float*>(mean), static_cast<float*>(var),
+      static_cast<float*>(istd), static_cast<float*>(inv), static_cast<float*>(shift), H);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_act<T, true>(z, static_cast<const float*>(inv),
                                   static_cast<const float*>(shift), seed, layer,
                                   (uint32_t)threshold, keep, y, N, H, s);
 }
+
+constexpr int DENSE_SUM_BLOCKS = 2;  // the dense backward's sums blocks an SM
 
 template <typename T>
 int dense_bn_backward(const void* z, const void* dy, const void* rows, const void* n,
@@ -602,7 +785,8 @@ int dense_bn_backward(const void* z, const void* dy, const void* rows, const voi
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uint32_t thr = (uint32_t)threshold;
-  auto launch = thr >= KEEP_ALL ? launch_bn_backward<T, false> : launch_bn_backward<T, true>;
+  auto launch = thr >= KEEP_ALL ? launch_bn_backward<T, false, DENSE_SUM_BLOCKS>
+                                 : launch_bn_backward<T, true, DENSE_SUM_BLOCKS>;
   return (int)launch(z, dy, rows, n, scale, mean, istd, inv, shift, seed, part1, part2, G1, G2,
                      dz, N, H, chunks, rows_per_chunk, layer, thr, keep, s);
 }
@@ -640,33 +824,32 @@ int dense_bias_backward(const void* z, const void* dy, const void* bias, const v
 
 }  // namespace
 
-// The dense scorer's forward: the centred moments (two moment passes, the
-// first with zero_shift (H,) zeros), the affine, and y with dropout (seed: two
-// int64 words; a row-column's 24-bit draw below threshold keeps it, divided
-// by keep).  Scratch and outputs as bn_relu_forward; z and y bf16.
+// The dense scorer's forward: the centred moments in one read of z
+// (dense_moments_kernel and its tail), the affine, and y with dropout (seed:
+// two int64 words; a row-column's 24-bit draw below threshold keeps it,
+// divided by keep).  part: (3 * chunks * H + chunks) f32 scratch;
+// mean/var/istd/inv/shift (H,) f32 outputs; z and y bf16.
 extern "C" int bn_relu_dropout_forward(const void* z, const void* rows, const void* n,
-                                       const void* zero_shift, const void* scale,
-                                       const void* bias, const void* seed, void* part1,
-                                       void* part2, void* mean, void* var, void* istd, void* inv,
+                                       const void* scale, const void* bias, const void* seed,
+                                       void* part, void* mean, void* var, void* istd, void* inv,
                                        void* shift, void* y, long long N, int H, int chunks,
                                        long long rows_per_chunk, int layer, int threshold,
                                        float keep, void* stream) {
-  return dense_bn_forward<__nv_bfloat16>(z, rows, n, zero_shift, scale, bias, seed, part1, part2,
-                                         mean, var, istd, inv, shift, y, N, H, chunks,
-                                         rows_per_chunk, layer, threshold, keep, stream);
+  return dense_bn_forward<__nv_bfloat16>(z, rows, n, scale, bias, seed, part, mean, var, istd,
+                                         inv, shift, y, N, H, chunks, rows_per_chunk, layer,
+                                         threshold, keep, stream);
 }
 
 // Its float32 form: z and y float32.
 extern "C" int bn_relu_dropout_forward_f32(const void* z, const void* rows, const void* n,
-                                           const void* zero_shift, const void* scale,
-                                           const void* bias, const void* seed, void* part1,
-                                           void* part2, void* mean, void* var, void* istd,
+                                           const void* scale, const void* bias, const void* seed,
+                                           void* part, void* mean, void* var, void* istd,
                                            void* inv, void* shift, void* y, long long N, int H,
                                            int chunks, long long rows_per_chunk, int layer,
                                            int threshold, float keep, void* stream) {
-  return dense_bn_forward<float>(z, rows, n, zero_shift, scale, bias, seed, part1, part2, mean,
-                                 var, istd, inv, shift, y, N, H, chunks, rows_per_chunk, layer,
-                                 threshold, keep, stream);
+  return dense_bn_forward<float>(z, rows, n, scale, bias, seed, part, mean, var, istd, inv,
+                                 shift, y, N, H, chunks, rows_per_chunk, layer, threshold, keep,
+                                 stream);
 }
 
 // Its backward: G1/G2 ((H,) f32, = dbias/dscale) and dz, dy sent through

@@ -13,8 +13,8 @@ first layer's product is the sum of per-side products, ``z1 = bf16(a[b] +
 c[l] (+ (p[b] * l[l]) @ W_prod))`` with ``a = P_e @ W1_p`` and ``c = L_e @
 W1_l`` (the diff block folded into both), one bf16 rounding of the float32
 sum that the JAX chain rounds once in another order.  Each later layer is the
-JAX chain: a bf16 product, train-mode BatchNorm with centred two-pass masked
-moments (or the bf16 bias add), ReLU and dropout.
+JAX chain: a bf16 product, train-mode BatchNorm with centred masked moments
+(or the bf16 bias add), ReLU and dropout.
 
 Hand-written kernels carry the (B * L, H) tensors on the card:
 
@@ -28,9 +28,13 @@ Hand-written kernels carry the (B * L, H) tensors on the card:
   reduces ``dJ = dz1 @ W_prod^T`` against the other side's rows
   (``pair_side_sums``, weighted).  Every sum runs in a fixed order.
 * :func:`bn_relu_dropout` and :func:`bias_relu_dropout` (K5, ``csrc/
-  bn_relu.cu``): masked BN (centred moments, as the JAX dense BatchNorm
-  takes them) or the bias add, ReLU and dropout as one output; the backward
-  regenerates the keep mask instead of storing it.
+  bn_relu.cu``): masked BN or the bias add, ReLU and dropout as one output.
+  The BN forward takes the centred moments in one read of z (register tiles
+  of 8 rows, each tile's own centred statistics merged by Chan's formula in
+  a fixed order: :func:`dense_moments_emulation`), then writes y: z read
+  twice, y written.  Its backward (column sums, then dz) reads z and dy
+  twice and writes dz, regenerating the keep mask in each pass instead of
+  storing it.
 
 The keep mask is a counter hash of (seed, layer, row, column)
 (:func:`keep_mask`): the seed is drawn once a step from the step's
@@ -211,6 +215,116 @@ def _bn_relu_dropout_grads_plain(z, dy, rows, n, scale, mean, istd, inv, shift, 
     return _bn_relu_grads(z, dy, rows, n, scale, mean, istd, inv, shift)
 
 
+# the forward's moment kernel: rows of a lane's register tile, warps of a
+# block, the tail's lanes a column (csrc/bn_relu.cu MOM_ROWS, TAIL_LANES;
+# csrc/bn_columns.cuh RED_WARPS)
+MOM_ROWS, RED_WARPS, TAIL_LANES = 8, 8, 16
+
+
+def _two_sum(a, b):
+    """``csrc/bn_relu.cu:two_sum``: ``(s, e)``, s = a + b rounded and s + e
+    = a + b exactly."""
+    s = a + b
+    v = s - a
+    return s, (a - (s - v)) + (b - v)
+
+
+def _chan_merge(na, nb, d, m2b, hi, lo, m2):
+    """``csrc/bn_relu.cu:chan_merge`` on float32 tensors, each operation
+    rounded on its own, with a = nb / (na + nb) and b = na a: the state
+    (na; hi, lo, m2) with a part of count nb, mean (hi + lo) + d and M2 m2b
+    merged in; ``(hi, lo, m2)``."""
+    a = nb / (na + nb)
+    b = na * a
+    s, e = _two_sum(hi, d * a)
+    return s, lo + e, (m2 + m2b) + (d * d) * b
+
+
+def _merge_state(na, hi, lo, m2, nb, hb, lb, mb):
+    """``csrc/bn_relu.cu:merge_state``: (nb; hb, lb, mb) merged into (na;
+    hi, lo, m2), an empty part skipped, an empty state replaced."""
+    merged = _chan_merge(na, nb, (hb - hi) + (lb - lo), mb, hi, lo, m2)
+    skip, take = nb == 0, (na == 0) & (nb != 0)
+    return (torch.where(skip, na, na + nb),
+            *(torch.where(skip, old, torch.where(take, part, new))
+              for old, part, new in zip((hi, lo, m2), (hb, lb, mb), merged)))
+
+
+def dense_moments_emulation(z: torch.Tensor, rows: torch.Tensor,
+                            n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, var)`` (H,) float32 as ``bn_relu_dropout_forward``'s moment
+    kernel and tail compute them, the same float32 operations in the same
+    order, on any device: the row chunks of :func:`_chunks`; in each, warp
+    w's tile k holds rows ``first + (k * RED_WARPS + w) * MOM_ROWS`` and
+    the next MOM_ROWS - 1 (past the chunk: mask 0); a lane's first tile
+    with a valid row, centred about that row, is its state, and each later
+    tile, centred about the lane's ``hi``, merges in by Chan's formula (a
+    tile with no valid row skipped); the warps' states merged in warp order;
+    the tail's lane j merging chunks j, j + TAIL_LANES, ... in order, then
+    lane j merging lane j + h for h = TAIL_LANES / 2, ..., 1; mean = hi +
+    lo, var = M2 / n.  Vectorised over the columns and over the lanes that
+    run the same steps."""
+    f32 = torch.float32
+    dev = z.device
+    z, rows = z.to(f32), rows.to(f32).reshape(-1)
+    N, H = z.shape
+    chunks, per = _chunks(N)
+    W, R = RED_WARPS, MOM_ROWS
+    zero = torch.zeros((), dtype=f32, device=dev)
+    cnt = torch.zeros(chunks, W, 1, dtype=f32, device=dev)
+    hi, lo, m2 = (torch.zeros(chunks, W, H, dtype=f32, device=dev) for _ in range(3))
+    first = torch.arange(chunks, device=dev)[:, None, None] * per
+    last = torch.clamp(first + per, max=N)
+    for k in range(-(-per // (W * R))):
+        r = first + (k * W + torch.arange(W, device=dev)[None, :, None]) * R + \
+            torch.arange(R, device=dev)[None, None, :]
+        inside = r < last
+        r = torch.where(inside, r, torch.zeros_like(r))
+        m = torch.where(inside, rows[r], zero)  # (chunks, W, R)
+        u = torch.where(inside[..., None], z[r], zero)  # (chunks, W, R, H)
+        w = zero
+        for i in range(R):
+            w = w + m[..., i : i + 1]
+        p = zero
+        for i in reversed(range(R)):
+            p = torch.where(m[..., i : i + 1] != 0, u[..., i, :], p)
+        fresh = cnt == 0
+        p = torch.where(fresh, p, hi)
+        u = u - p[:, :, None, :]
+        total = zero
+        for i in range(R):
+            total = total + m[..., i : i + 1] * u[..., i, :]
+        c = total * (1.0 / w)
+        q = zero
+        for i in range(R):
+            v = u[..., i, :] - c
+            q = q + (v * v) * m[..., i : i + 1]
+        h, l, mm = _chan_merge(cnt, w, c - lo, q, hi, lo, m2)
+        h, l, mm = (torch.where(fresh, init, merged)
+                    for init, merged in zip((*_two_sum(p, c), q), (h, l, mm)))
+        live = w != 0
+        hi, lo, m2 = (torch.where(live, new, old) for new, old in ((h, hi), (l, lo), (mm, m2)))
+        cnt = torch.where(live, cnt + w, cnt)
+    state = (cnt[:, 0], hi[:, 0], lo[:, 0], m2[:, 0])
+    for j in range(1, W):
+        state = _merge_state(*state, cnt[:, j], hi[:, j], lo[:, j], m2[:, j])
+    # the tail: chunk k to lane k % TAIL_LANES, padded with empty chunks
+    pad = -chunks % TAIL_LANES
+    bn, bh, bl, bm = (torch.cat([t, torch.zeros(pad, *t.shape[1:], dtype=f32, device=dev)])
+                      .reshape(-1, TAIL_LANES, *t.shape[1:]) for t in state)
+    lanes = (bn[0], bh[0], bl[0], bm[0])
+    for k in range(1, bn.shape[0]):
+        lanes = _merge_state(*lanes, bn[k], bh[k], bl[k], bm[k])
+    h = TAIL_LANES // 2
+    while h:
+        lanes = tuple(torch.cat([x, y[h:]]) for x, y in
+                      zip(_merge_state(*(t[:h] for t in lanes), *(t[h : 2 * h] for t in lanes)),
+                          lanes))
+        h //= 2
+    return lanes[1][0] + lanes[2][0], \
+        lanes[3][0] / torch.as_tensor(n, dtype=f32, device=dev).reshape(())
+
+
 def _bias_relu_dropout_fwd_plain(z, bias, seed, layer, rate, col0=0):
     """``dropout(relu(bf16(z + bias)))`` in z's dtype (the JAX ``linear``'s
     bias added in the compute dtype, then ReLU)."""
@@ -230,7 +344,7 @@ def _bias_relu_dropout_grads_plain(z, dy, bias, seed, layer, rate, col0=0):
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # the ctypes signatures of the dense scorer's entry points
 SIGNATURES = {
-    ("bn_relu", "bn_relu_dropout_forward"): [_P] * 15 + [_LL, _I, _I, _LL, _I, _I, _F, _P],
+    ("bn_relu", "bn_relu_dropout_forward"): [_P] * 13 + [_LL, _I, _I, _LL, _I, _I, _F, _P],
     ("bn_relu", "bn_relu_dropout_backward"): [_P] * 15 + [_LL, _I, _I, _LL, _I, _I, _F, _P],
     ("bn_relu", "bias_relu_dropout_forward"): [_P] * 4 + [_LL, _I, _I, _I, _F, _P],
     ("bn_relu", "bias_relu_dropout_backward"): [_P] * 7 + [_LL, _I, _I, _LL, _I, _I, _F, _P],
@@ -260,8 +374,9 @@ def _launch(library: str, symbol: str, device, *args) -> None:
 
 
 def _bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed, layer, rate):
-    """``bn_relu_dropout_forward``: the centred moments (two passes over z),
-    then y with the mask drawn in place."""
+    """``bn_relu_dropout_forward``: the centred moments in one read of z
+    (:func:`dense_moments_emulation`'s operations), then y with the mask
+    drawn in place."""
     n = n.reshape(1).float().contiguous()
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
     _check_bn_cuda(z, rows, n, (scale, bias))
@@ -269,16 +384,15 @@ def _bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed, layer, rate):
     N, H = z.shape
     chunks, per = _chunks(N)
     f32 = dict(dtype=torch.float32, device=z.device)
-    part1, part2 = torch.empty(chunks, H, **f32), torch.empty(chunks, H, **f32)
-    zeros = torch.zeros(H, **f32)
+    # each chunk's (hi, lo, M2) partial a column, then its count
+    part = torch.empty(3 * chunks * H + chunks, **f32)
     mean, var, istd, inv, shift = (torch.empty(H, **f32) for _ in range(5))
     y = torch.empty_like(z)
     _launch("bn_relu", _symbol(z, "bn_relu_dropout_forward"), z.device,
-            z.data_ptr(), rows.data_ptr(), n.data_ptr(), zeros.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), seed_t.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), istd.data_ptr(), inv.data_ptr(),
-            shift.data_ptr(), y.data_ptr(), N, H, chunks, per, layer, thr,
-            keep_scale(rate, z.dtype))
+            z.data_ptr(), rows.data_ptr(), n.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            seed_t.data_ptr(), part.data_ptr(), mean.data_ptr(), var.data_ptr(),
+            istd.data_ptr(), inv.data_ptr(), shift.data_ptr(), y.data_ptr(), N, H, chunks, per,
+            layer, thr, keep_scale(rate, z.dtype))
     return y, mean, var, istd, inv, shift
 
 

@@ -2734,6 +2734,63 @@ def test_dense_act_f32_kernels_match_plain_on_card(bn, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_dense_bn_offset_columns_on_card(dtype, rate):
+    """K5's dense BN forms on 3,001 rows x 512 whose second 256-column block
+    sits 1e3 times its spread from 0 (either sign), with masked rows and a
+    masked run covering whole tiles: the forward's moments the bits of
+    ``dense_moments_emulation`` (the kernel's order of work on the CPU) and
+    within 1e-5 of the plain version's largest |mean| (each var of its own
+    column's); y, dz, dscale and dbias against the plain versions as
+    ``test_dense_act*`` hold them (bf16 2^-6, the sums 1e-3; float32 1e-5,
+    y on the kernel's own affine, the same bits: at |mean| / std = 1e3
+    float32's z * inv + shift cancels ten bits, so the plain version's own
+    moments, an ulp from any other sum's, move its y by ~1e-5 of its largest
+    value); every output the same bits on a second run."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(71 + int(dtype == torch.float32) + int(10 * rate))
+    N, H = 3001, 512
+    z = torch.randn(N, H, generator=gen) + 0.3
+    spread = 10.0 ** (4 * torch.rand(256, generator=gen) - 2)
+    sign = torch.where(torch.arange(256) % 2 == 0, 1.0, -1.0)
+    z[:, 256:] = z[:, 256:] * spread + 1e3 * spread * sign
+    z = z.to(dev, dtype)
+    rows = (torch.rand(N, 1, generator=gen) < 0.9).float()
+    rows[1000:1200] = 0.0
+    rows = rows.to(dev)
+    n = rows.sum()
+    scale = (0.5 + torch.rand(H, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(H, generator=gen)).to(dev)
+    dy = torch.randn(N, H, generator=gen).to(dev, dtype)
+    seed = torch.tensor([5, 6], dtype=torch.int64, device=dev)
+    fwd = [ds._bn_relu_dropout_fwd_cuda(z, rows, n, scale, bias, seed, 1, rate) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    y, mean, var, istd, inv, shift = fwd[0]
+    em, ev = ds.dense_moments_emulation(z.cpu(), rows.cpu(), n.cpu())
+    assert torch.equal(mean.cpu(), em) and torch.equal(var.cpu(), ev)
+    y0, mean0, var0 = ds._bn_relu_dropout_fwd_plain(z, rows, n, scale, bias, seed, 1, rate)[:3]
+    for sl in (slice(0, 256), slice(256, 512)):
+        assert float((mean[sl] - mean0[sl]).abs().max()) <= F32_REL_TOL * float(
+            mean0[sl].abs().max())
+        assert bool(((var[sl] - var0[sl]).abs() <= F32_REL_TOL * var0[sl]).all())
+    if dtype == torch.bfloat16:
+        _close(y, y0)
+    else:
+        assert torch.equal(y, ds._drop_plain(torch.relu(z * inv + shift), seed, 1, rate))
+    stats = (mean, istd, inv, shift)
+    bwd = [ds._bn_relu_dropout_grads_cuda(z, dy, rows, n, scale, *stats, seed, 1, rate)
+           for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    want = ds._bn_relu_dropout_grads_plain(z, dy, rows, n, scale, *stats, seed, 1, rate)
+    for got, ref, frac in zip(bwd[0], want, (2.0 ** -6, 1e-3, 1e-3)):
+        if dtype == torch.bfloat16:
+            _close(got, ref, frac)
+        else:
+            assert _rel(got, ref) <= F32_REL_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("prod", [False, True])
 def test_dense_first_layer_f32_matches_plain_on_card(prod):
     """The float32 first layer (pair_first_add_f32, or pair_train_prod_f32)

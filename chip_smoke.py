@@ -548,6 +548,9 @@ K7_F32_TRAIN = ("masked_conv_dx_f32", "masked_conv_dw_f32", "masked_bn_relu_fwd_
 KERNEL_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K7_POOLED_REL_TOL = 5e-2
 K7_F32_REL_TOL = 1e-5
+# the float32 conv kernels' names in ptxas's log: the forward and dX (with
+# and without the prologue), dW and dy's split
+K7_F32_PTXAS = r"(conv_f32_kernelILb[01]E|conv_dw_f32_kernel|split_rows_kernel)"
 # K7 in float32 (phase k7_f32): each conv within 1e-5 of its tensor's largest
 # |value| (the same float32 arithmetic, the sums in another order), the pool
 # 1e-5, the chain's pooled embedding, where such differences pass through 11
@@ -1353,19 +1356,24 @@ def random_batch(rng, lens, T: int):
 
 def phase_k7_f32(card: str) -> dict:
     """K7's float32 forward (``masked_conv_forward_f32``, ``csrc/
-    masked_conv_f32.cu``, and ``masked_mean_pool_f32``) at full width, 32
-    sequences at bucket 512: each of the chain's 11 conv calls (the stem 9
-    taps x 20 -> 1,100, the dilated 9 taps x 1,100 -> 550 at dilations 1, 3,
-    9, 27, 81 with the eval BN prologue, the 1 x 1 550 -> 1,100 with the
-    prologue and the residual) and the pool, each against its plain version
-    on the recorded inputs (the conv through cuDNN with TF32 off: 1e-5 of
-    the tensor's largest |value|, only the order of the float32 sums
-    differs; the pool 1e-5), and the chain's pooled embedding against the
-    plain chain's (1e-4).  Times by CUDA events: each conv shape, the 11
-    together beside the plain convs and cuDNN's float32 conv1d alone (TF32
-    off; the library time, never called by the port), TFLOP/s and share of
-    the bound (the products these lengths need over the 67 TFLOP/s float32
-    peak); the pool beside its bytes bound."""
+    masked_conv_f32.cu``: the bf16x3 split on wgmma, and
+    ``masked_mean_pool_f32``) at full width, 32 sequences at bucket 512:
+    each of the chain's 11 conv calls (the stem 9 taps x 20 -> 1,100, the
+    dilated 9 taps x 1,100 -> 550 at dilations 1, 3, 9, 27, 81 with the eval
+    BN prologue, the 1 x 1 550 -> 1,100 with the prologue and the residual)
+    and the pool, each against its plain version on the recorded inputs (the
+    conv through cuDNN with TF32 off: 1e-5 of the tensor's largest |value|,
+    only the order of the float32 sums differs; the pool 1e-5), and the
+    chain's pooled embedding against the plain chain's (1e-4); a wide-range
+    case (the first dilated conv's input offset by 300, so that every third
+    piece of the split carries bits, and its prologue's shift at 40 against
+    x * inv of about 0.02), 1e-5 and the same bits twice.  Times by CUDA
+    events: each conv shape, the 11 together beside the plain convs and
+    cuDNN's float32 conv1d alone (TF32 off; the library time, never called
+    by the port), TFLOP/s and share of the bound (the products these lengths
+    need over the split's 165 TFLOP/s, and beside it over the FMA pipe's
+    67); the pool beside its bytes bound; the kernels' ptxas registers and
+    spills."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1407,7 +1415,8 @@ def phase_k7_f32(card: str) -> dict:
                 "library_ms": cuda_time_ms(
                     lambda: F.conv1d(x, w, padding=pad, dilation=dilation), 5),
                 **bound(nbytes=4.0 * (x.numel() + w.numel() + B * T * cout), ops=flop,
-                        peak=F32_FLOPS),
+                        peak=SPLIT_FLOPS),
+                "fma_bound_ms": bound(ops=flop, peak=F32_FLOPS)["bound_ms"],
                 "tflops": flop / ms / 1e9})
         flop = sum(2.0 * s["cin"] * s["cout"] * conv_rows(lens, T, s["taps"], s["dilation"])
                    for s in shapes)
@@ -1417,11 +1426,26 @@ def phase_k7_f32(card: str) -> dict:
                                             for a, kw in calls], 3),
                 "plain_ms": cuda_time_ms(lambda: [k7.masked_conv_reference(*a)
                                                   for a, _ in calls], 3),
-                "library_ms": sum(s["library_ms"] for s in shapes), **bound(ops=flop,
-                                                                            peak=F32_FLOPS),
-                "tflops": None}
+                "library_ms": sum(s["library_ms"] for s in shapes),
+                **bound(ops=flop, peak=SPLIT_FLOPS),
+                "fma_bound_ms": bound(ops=flop, peak=F32_FLOPS)["bound_ms"], "tflops": None}
         conv["tflops"] = flop / conv["ms"] / 1e9
         conv["share_of_bound"] = conv["bound_ms"] / conv["ms"]
+        # the wide-range case on the first dilated conv's recorded call
+        args, kw = calls[1]
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        x_wide = k7.pad_pitch(args[0] + 300.0)
+        inv, shift = args[5]
+        bn_wide = (0.01 + 0.02 * torch.rand(inv.shape, generator=gen, device="cuda"),
+                   39.0 + 2.0 * torch.rand(shift.shape, generator=gen, device="cuda"))
+        wide = {}
+        for case, a in (("offset", (x_wide, *args[1:5], None, args[6])),
+                        ("shift", (*args[:5], bn_wide, args[6]))):
+            got = k7.masked_conv_f32_cuda(*a, **kw)
+            err, rel = rel_max(got, k7.masked_conv_reference(*a))
+            wide[case] = {"max_abs_err": err, "max_rel_err": rel,
+                          "same_bits": torch.equal(got, k7.masked_conv_f32_cuda(*a, **kw))}
+        del x_wide, got
         pool_got = k7.masked_mean_pool_cuda(feats, lengths)
         pool_err = rel_max(pool_got, k7.masked_mean_pool_reference(feats, lengths))
         valid = int(np.minimum(lens, T).sum())
@@ -1442,11 +1466,13 @@ def phase_k7_f32(card: str) -> dict:
     out = {"masked_conv_fwd_f32": conv, "masked_mean_pool_f32": pool}
     log("k7_f32", batch=B, bucket=T, valid_rows=valid, shapes=shapes, **out,
         chain={"ms": chain_ms, "plain_ms": chain_plain_ms, "max_abs_err": chain_err[0],
-               "max_rel_err": chain_err[1]},
+               "max_rel_err": chain_err[1]}, wide_range=wide,
         rel_tol={"conv": K7_F32_REL_TOL, "pool": K7_F32_REL_TOL, "chain": K7_F32_CHAIN_REL_TOL},
         ptxas=ptxas_by_kernel(load_kernel_library("masked_conv_f32").build_log,
-                              r"(conv_f32_kernel)"), card=card)
+                              K7_F32_PTXAS), card=card)
     bad = [s["conv"] for s in shapes if s["max_rel_err"] > K7_F32_REL_TOL or not s["same_bits"]]
+    bad += [f"wide {c}" for c, v in wide.items()
+            if v["max_rel_err"] > K7_F32_REL_TOL or not v["same_bits"]]
     if bad or pool_err[1] > K7_F32_REL_TOL or not pool["same_bits"] \
             or chain_err[1] > K7_F32_CHAIN_REL_TOL:
         raise AssertionError(f"K7's float32 forward disagrees with its plain version: convs "
@@ -7952,12 +7978,17 @@ def phase_k7_f32_train_kernels(card: str) -> dict:
     the plain float32 BatchNorm (y, running statistics) and the plain
     backward on the kernel's statistics (dx, dscale, dbias), within 1e-5;
     the float32 pool transpose bit for bit.  Each the same bits
-    twice.  Times from CUDA events of a step's calls beside the bound (the
-    products these lengths need over the 67 TFLOP/s float32 peak; the BN's
-    and the transpose's bytes over the memory rate), the plain versions'
-    (the backward alone, on a retained graph) and cuDNN's float32
-    ``conv1d_input`` / ``conv1d_weight`` (TF32 off; the library time, never
-    called by the port)."""
+    twice.  A wide-range case: the first dilated conv's x and dy offset by
+    300 (every third piece of the split carries bits), dX and dW within
+    1e-5 as above.  Times from CUDA events of a step's calls beside the
+    bound (the products these lengths need over the split's 165 TFLOP/s,
+    and over the FMA pipe's 67 beside it; the BN's and the transpose's
+    bytes over the memory rate), the plain versions' (the backward alone,
+    on a retained graph) and cuDNN's float32 ``conv1d_input`` /
+    ``conv1d_weight`` (TF32 off; the library time, never called by the
+    port); the transpose's device time (``torch.profiler``, taken again
+    where a profile holds no device event); the kernels' ptxas registers
+    and spills."""
     import numpy as np
     import torch
 
@@ -8026,6 +8057,19 @@ def phase_k7_f32_train_kernels(card: str) -> dict:
                           torch.nn.grad.conv1d_input(x_t.shape, w_t, dy_t, padding=pad,
                                                      dilation=d))
             dx_calls.append((dy, w, d))
+    # the wide-range case on the first dilated conv
+    x0, dy0, _, d0 = dw_calls[1]
+    w0 = dx_calls[0][1]
+    xw, dyw = k7.pad_pitch(x0 + 300.0), k7.pad_pitch(dy0 + 300.0)
+    dx = k7.masked_conv_dx_f32_cuda(dyw, w0, lengths, d0)
+    dw, db = k7.masked_conv_dw_f32_cuda(xw, dyw, lengths, w0.shape[0], d0)
+    same = same and torch.equal(dx, k7.masked_conv_dx_f32_cuda(dyw, w0, lengths, d0))
+    xg = xw.detach().clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(k7.masked_conv_reference(xg, w0, torch.zeros_like(dyw[0, 0]),
+                                                         lengths, d0), [xg], dyw)
+    truth_w, truth_b = dw_float64(xw, dyw, lengths, w0.shape[0], d0)
+    wide = {"dx": rel_max(dx, gx), "dw": rel_max(dw, truth_w), "db": rel_max(db, truth_b)}
+    del xw, dyw, dx, dw, db, xg, gx, truth_w, truth_b
     dx_ms = cuda_time_ms(lambda: [k7.masked_conv_dx_f32_cuda(dy, w, lengths, d)
                                   for dy, w, d in dx_calls], 3)
     layouts = [k7.conv_weight_layout_f32(w, dx=True) for _, w, _ in dx_calls]
@@ -8045,7 +8089,8 @@ def phase_k7_f32_train_kernels(card: str) -> dict:
         out[key] = {"max_abs_err": max(e for n in names for e, _ in errs[n]),
                     "max_rel_err": max(r for n in names for _, r in errs[n]), "ms": ms,
                     "plain_ms": cuda_time_ms(lambda: [f() for f in plain], 2),
-                    **bound(ops=flop, peak=F32_FLOPS),
+                    **bound(ops=flop, peak=SPLIT_FLOPS),
+                    "fma_bound_ms": bound(ops=flop, peak=F32_FLOPS)["bound_ms"],
                     "library_ms": cuda_time_ms(lambda: [f() for f in lib], 2),
                     "tflops": flop / ms / 1e9, "calls": len(plain)}
         out[key]["share_of_bound"] = out[key]["bound_ms"] / ms
@@ -8125,13 +8170,17 @@ def phase_k7_f32_train_kernels(card: str) -> dict:
             g, lengths, T, f32), 20),
         **bound(nbytes=4.0 * B * C + 4.0 * B + 4.0 * B * T * got.stride(1)),
         "library_ms": None, "bit_equal": pool_equal}
-    out["masked_mean_pool_bwd_f32"]["device_ms"], out["masked_mean_pool_bwd_f32"]["host_ms"] = \
-        device_and_host_ms(kernel, 20)
-    ptxas = ptxas_by_kernel(load_kernel_library("masked_conv_f32").build_log,
-                            r"(conv_f32_kernel|conv_dw_f32_kernel)")
+    for reps in (20, 100, 400):  # a profile that held no device event is taken again
+        device_ms, host_ms = device_and_host_ms(kernel, reps)
+        if device_ms is not None:
+            break
+    out["masked_mean_pool_bwd_f32"].update(device_ms=device_ms, host_ms=host_ms,
+                                           device_reps=reps)
+    ptxas = ptxas_by_kernel(load_kernel_library("masked_conv_f32").build_log, K7_F32_PTXAS)
     log("k7_f32_train", batch=B, bucket=T, lengths=[int(n) for n in lens], kernels=out,
-        same_bits=same, ptxas=ptxas, rel_tol=K7_F32_REL_TOL, card=card)
+        same_bits=same, ptxas=ptxas, wide_range=wide, rel_tol=K7_F32_REL_TOL, card=card)
     worst = {k: max(r for _, r in v) for k, v in {**errs, **bn_errs}.items()}
+    worst.update({f"wide {k}": r for k, (_, r) in wide.items()})
     if any(v > K7_F32_REL_TOL for v in worst.values()) or not same or not dx_zero or \
             not pool_equal:
         raise AssertionError(f"K7's float32 training kernels disagree with their plain "

@@ -192,6 +192,30 @@ backward); float32 SDPA with a boolean mask and its backward, and the plain
 versions, beside; the bytes bound and the operations' bound at the split's
 165 TFLOP/s and at the FMA pipe's 67.
 
+    python3 chip_variants.py --k7-f32
+
+times K7's float32 convs (``csrc/masked_conv_f32.cu``: the bf16x3 split
+on wgmma, the forward and dX at 128 x 112, dW at 128 x 128 over dy's
+pieces) against their first design (``csrc/variants/masked_conv_f32_v1.cu``:
+the FMA pipe, 128 x 128 tiles, its own float32 layouts and plans) and
+cuDNN float32 (TF32 off: ``conv1d``, ``conv1d_input``, ``conv1d_weight``)
+in turns (kept, first, cuDNN, cuDNN, first, kept; 6 rounds, medians; dW
+also against ``csrc/variants/masked_conv_f32_dw_smem.cu``, dy's pieces made
+in shared memory by the consumers in place of a split pass a call) at
+the chain's shapes, 32 sequences at bucket 512 (``chip_smoke.k7_lengths``):
+the stem (9 x 20 -> 1,100), the dilated convs (9 x 1,100 -> 550 with the
+BN prologue) at dilations 1-81 and the 1 x 1 (550 -> 1,100 with the
+prologue and the residual), the forward, dX (not the stem's) and dW with
+dbias, through the C entry points, after holding both designs to the plain
+float32 version (dW to float64); a step's sums (the forward's and dW's 11
+calls, dX's 10); then at the stem, dilation 9 and the 1 x 1 the kept
+source with parts taken out (timing only: the results are wrong;
+``K7F32_SUBS``): without the split's cross products, without the stage
+adds, every product kept but the split gone, the loads alone, without
+the prologue, without dW's pass splitting dy; each timed twice (the list
+forward, then backward); the operations' bound at the split's 165 TFLOP/s
+and at the FMA pipe's 67.
+
     python3 chip_variants.py --qk-noise
 
 finds where the bf16 noise of the tower's q and k gradients enters:
@@ -2582,6 +2606,284 @@ def k8a_f32_turns(build_dir: str, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# text replaced in masked_conv_f32.cu: (old, new), each old found exactly once
+K7F32_SUBS = {
+    # one product a k-step (x0 w0, from zero): the split's five cross
+    # products gone (their pieces are still formed: split_products keeps
+    # every fragment register live)
+    "no_cross_products": [(
+        "  for (int kk = 0; kk < 4; ++kk) {\n"
+        "    const uint64_t o = kstep * kk;\n"
+        "    MMA::rs(acc, fa[0][kk], d[1] + o, kk > 0);\n"
+        "    MMA::rs(acc, fa[1][kk], d[0] + o, 1);\n"
+        "    MMA::rs(acc, fa[0][kk], d[2] + o, 1);\n"
+        "    MMA::rs(acc, fa[1][kk], d[1] + o, 1);\n"
+        "    MMA::rs(acc, fa[2][kk], d[0] + o, 1);\n"
+        "  }\n"
+        "#pragma unroll\n"
+        "  for (int kk = 0; kk < 4; ++kk) MMA::rs(acc, fa[0][kk], d[0] + kstep * kk, 1);\n",
+        "  for (int kk = 0; kk < 4; ++kk) MMA::rs(acc, fa[0][kk], d[0] + kstep * kk, kk > 0);\n")],
+    # each stage's sums moved, not added into the float32 sums
+    "no_stage_adds": [
+        ("(int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);",
+         "(int i = 0; i < BN / 2; ++i) sum[i] = acc[i];"),
+        ("(int i = 0; i < DW_BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);",
+         "(int i = 0; i < DW_BN / 2; ++i) sum[i] = acc[i];")],
+    # every product kept, the split's instructions gone (one xor a pair)
+    "no_split": [
+        ("split3(x, fa[0][kk][e], fa[1][kk][e], fa[2][kk][e]);",
+         "fa[0][kk][e] = fa[1][kk][e] = fa[2][kk][e] = __float_as_uint(x.x) ^ "
+         "__float_as_uint(x.y);"),
+        ("split3(xt, fa[0][kk][e], fa[1][kk][e], fa[2][kk][e]);",
+         "fa[0][kk][e] = fa[1][kk][e] = fa[2][kk][e] = __float_as_uint(xt.x) ^ "
+         "__float_as_uint(xt.y);")],
+    # the loads alone: no products, so A is neither read nor split
+    "loads_only": [
+        ("        split_products<Mma<BN>>(acc, fa, d, 2);\n", "        (void)d;\n"),
+        ("        split_products<MmaRsT<DW_BN>>(acc, fa, d, 128);  "
+         "// a k-step: 16 rows of 128 bytes\n", "        (void)d;\n")],
+    # the forward without the BN prologue's arithmetic
+    "no_prologue": [(
+        "              if (PRO)\n"
+        "                x = make_float2(fmaxf(__fadd_rn(__fmul_rn(x.x, iv.x), sh.x), 0.f),\n"
+        "                                fmaxf(__fadd_rn(__fmul_rn(x.y, iv.y), sh.y), 0.f));\n",
+        "              (void)iv; (void)sh;\n")],
+    # dW without its pass splitting dy (the pieces left from the last call)
+    "no_split_pass": [(
+        "  split_rows_kernel<<<static_cast<unsigned>(split_blocks), 256, 0, s>>>(\n"
+        "      dy_, dy_pitch, static_cast<__nv_bfloat16*>(pieces), ppitch, rows, cout);\n",
+        "  (void)split_blocks;\n")],
+}
+K7F32_ROUNDS = 6  # turns (kept, first, cuDNN, cuDNN, first, kept) a shape
+
+
+def first_f32_layout(w, dx: bool):
+    """The first design's float32 B operand (csrc/variants/masked_conv_f32_v1
+    .cu): (taps, K up to 16, N up to 128), N contiguous; W[j] for the
+    forward, W[taps - 1 - j]^T for dX."""
+    import torch.nn.functional as F
+
+    w = w.flip(0).transpose(1, 2) if dx else w
+    _, k, n = w.shape
+    return F.pad(w, (0, -(-n // 128) * 128 - n, 0, -(-k // 16) * 16 - k)).contiguous()
+
+
+def k7_f32_turns(build_dir: str, card: str) -> None:
+    """``--k7-f32``: K7's float32 forward, dX and dW against their first
+    design and cuDNN float32 in turns at the chain's three shapes, then the
+    kept source with parts taken out."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.models.layers import gemm_precision
+    from protnote_tpu_torch.models.proteinfer import one_hot_sequences
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import masked_conv as k7
+
+    base = (kernels.CSRC_DIR / "masked_conv_f32.cu").read_text()
+    libs = build_subs(build_dir, "masked_conv_f32", base, K7F32_SUBS,
+                      {"first": os.path.join(VARIANT_DIR, "masked_conv_f32_v1.cu"),
+                       "dw_smem": os.path.join(VARIANT_DIR, "masked_conv_f32_dw_smem.cu")})
+    P, I = ctypes.c_void_p, ctypes.c_int
+    first_args = {"masked_conv_forward_f32": [P] * 9 + [I] * 13 + [P],
+                  "masked_conv_dx_f32": [P] * 5 + [I] * 12 + [P],
+                  "masked_conv_dw_f32": [P] * 8 + [I] * 10 + [P]}
+    fns = {}
+    for name, lib in libs.items():
+        fns[name] = {}
+        for sym, args in first_args.items():
+            fn = getattr(lib, sym)
+            fn.argtypes = args if name == "first" else k7._ARGS[("masked_conv_f32", sym)]
+            fn.restype = ctypes.c_int
+            fns[name][sym] = fn
+    smem_dw = libs["dw_smem"].masked_conv_dw_f32_smem
+    smem_dw.argtypes = k7._ARGS[("masked_conv_f32", "masked_conv_dw_f32")]
+    smem_dw.restype = ctypes.c_int
+    dev, f32, T, B = torch.device("cuda"), torch.float32, 512, cs.B
+    gemm_precision(f32)
+    rng = np.random.default_rng(29)
+    lens = cs.k7_lengths(rng, T)
+    lengths = torch.from_numpy(lens).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(29)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bind(fn, *args):
+        def run():
+            err = fn(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"a K7 f32 entry point returned CUDA error {err}")
+        return run
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def rel(got, want) -> float:
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    def fill(n: int) -> int:  # the first design's blocks for the rows its plan skips
+        return min(132, -(-k7.skipped_rows(lens, T, 128) * -(-n // 4) // 256))
+
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    shapes = [("stem", 9, 20, 1100, 1, False)] + [
+        (f"dilated_{d}", 9, 1100, 550, d, True) for d in (1, 3, 9, 27, 81)] + [
+        ("1x1", 1, 550, 1100, 1, True)]
+    medians = {}
+    for shape, taps, cin, cout, d, pro in shapes:
+        if shape == "stem":
+            ids = torch.from_numpy(rng.integers(0, 21, (B, T))).to(dev)
+            x = k7.pad_pitch(one_hot_sequences(ids, cin, f32))
+        else:
+            x = k7.pad_pitch(torch.relu(torch.randn(B, T, cin, generator=gen, device=dev)))
+        w = torch.randn(taps, cin, cout, generator=gen, device=dev) / float(np.sqrt(cin * taps))
+        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        inv, shift = ((0.5 + torch.rand(cin, generator=gen, device=dev),
+                       0.5 * torch.randn(cin, generator=gen, device=dev)) if pro else (None, None))
+        res = (k7.pad_pitch(torch.randn(B, T, cout, generator=gen, device=dev)) if taps == 1
+               else None)
+        dy = k7.pad_pitch(torch.randn(B, T, cout, generator=gen, device=dev))
+        xp, rp = x.stride(1), 0 if res is None else res.stride(1)
+        y, y1 = (k7.padded_empty(B, T, cout, f32, dev) for _ in range(2))
+        dx, dx1 = (k7.padded_empty(B, T, cin, f32, dev) for _ in range(2))
+        # the kept design: pieces, 128 x 112 plans, persistent blocks
+        pf, pd = k7.conv_weight_layout_f32(w), k7.conv_weight_layout_f32(w, dx=True)
+        plan_f = on_dev(k7.conv_tile_plan(lens, T, taps, d, cout, False, 128, 112))
+        plan_d = on_dev(k7.conv_tile_plan(lens, T, taps, d, cin, True, 128, 112))
+        dwp, splits, items = k7.dw_step_plan(lens, T, taps, d, cin, cout, sms, 128, 128,
+                                               k7.F32_DW_STEP)
+        dwp = on_dev(dwp)
+        pieces = torch.empty(3 * B * T * k7.row_pitch(cout), dtype=torch.bfloat16, device=dev)
+        partial = torch.empty(max(splits, 1), taps, cin, cout, device=dev)
+        bias_part = torch.empty(B, cout, device=dev)
+        dw, db = torch.empty(taps, cin, cout, device=dev), torch.empty(cout, device=dev)
+        dw_s, db_s = torch.empty(taps, cin, cout, device=dev), torch.empty(cout, device=dev)
+        dw_smem = bind(smem_dw, x.data_ptr(), dy.data_ptr(), pieces.data_ptr(),
+                       lengths.data_ptr(), dwp.data_ptr(), partial.data_ptr(),
+                       bias_part.data_ptr(), dw_s.data_ptr(), db_s.data_ptr(), B, T, cin, cout,
+                       xp, dy.stride(1), taps, d, splits, items, sms)
+        # the first design: float32 layouts, 128 x 128 plans, a block a tile
+        lf, ld = first_f32_layout(w, False), first_f32_layout(w, True)
+        plan_f1 = on_dev(k7.conv_tile_plan(lens, T, taps, d, cout, False, 128, 128))
+        plan_d1 = on_dev(k7.conv_tile_plan(lens, T, taps, d, cin, True, 128, 128))
+        dwp1, splits1, items1 = k7.dw_step_plan(lens, T, taps, d, cin, cout, 2 * sms, 128, 128,
+                                                16)
+        dwp1 = on_dev(dwp1)
+        partial1 = torch.empty(max(splits1, 1), taps, cin, cout, device=dev)
+        dw1, db1 = torch.empty(taps, cin, cout, device=dev), torch.empty(cout, device=dev)
+
+        def kept(name, kind):
+            f = fns[name]
+            if kind == "fwd":
+                return bind(f["masked_conv_forward_f32"], x.data_ptr(), pf.data_ptr(),
+                            bias.data_ptr(), ptr(inv), ptr(shift), ptr(res), lengths.data_ptr(),
+                            plan_f.data_ptr(), y.data_ptr(), B, T, cin, cout, xp, y.stride(1), rp,
+                            pf.shape[3], pf.shape[2], taps, d, len(plan_f), sms)
+            if kind == "dx":
+                return bind(f["masked_conv_dx_f32"], dy.data_ptr(), pd.data_ptr(),
+                            lengths.data_ptr(), plan_d.data_ptr(), dx.data_ptr(), B, T, cin, cout,
+                            dy.stride(1), dx.stride(1), pd.shape[3], pd.shape[2], taps, d,
+                            len(plan_d), sms)
+            return bind(f["masked_conv_dw_f32"], x.data_ptr(), dy.data_ptr(), pieces.data_ptr(),
+                        lengths.data_ptr(), dwp.data_ptr(), partial.data_ptr(),
+                        bias_part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, T, cin, cout, xp,
+                        dy.stride(1), taps, d, splits, items, sms)
+
+        f1 = fns["first"]
+        first = {
+            "fwd": bind(f1["masked_conv_forward_f32"], x.data_ptr(), lf.data_ptr(),
+                        bias.data_ptr(), ptr(inv), ptr(shift), ptr(res), lengths.data_ptr(),
+                        plan_f1.data_ptr(), y1.data_ptr(), B, T, cin, cout, xp, y1.stride(1), rp,
+                        lf.shape[1], lf.shape[2], taps, d, len(plan_f1), fill(cout)),
+            "dx": bind(f1["masked_conv_dx_f32"], dy.data_ptr(), ld.data_ptr(), lengths.data_ptr(),
+                       plan_d1.data_ptr(), dx1.data_ptr(), B, T, cin, cout, dy.stride(1),
+                       dx1.stride(1), ld.shape[1], ld.shape[2], taps, d, len(plan_d1), fill(cin)),
+            "dw": bind(f1["masked_conv_dw_f32"], x.data_ptr(), dy.data_ptr(), lengths.data_ptr(),
+                       dwp1.data_ptr(), partial1.data_ptr(), bias_part.data_ptr(),
+                       dw1.data_ptr(), db1.data_ptr(), B, T, cin, cout, xp, dy.stride(1), taps, d,
+                       splits1, items1)}
+        pad = d * (taps - 1) // 2
+        x_t, dy_t = (t.contiguous().transpose(1, 2).contiguous() for t in (x, dy))
+        w_t = w.permute(2, 1, 0).contiguous()
+        cudnn = {"fwd": lambda: F.conv1d(x_t, w_t, padding=pad, dilation=d),
+                 "dx": lambda: torch.nn.grad.conv1d_input(x_t.shape, w_t, dy_t, padding=pad,
+                                                          dilation=d),
+                 "dw": lambda: torch.nn.grad.conv1d_weight(x_t, w_t.shape, dy_t, padding=pad,
+                                                           dilation=d)}
+        # both designs against the plain float32 version (dW against float64)
+        kinds = ("fwd", "dw") if shape == "stem" else ("fwd", "dx", "dw")
+        errs = {}
+        for kind in kinds:
+            kept("kept", kind)()
+            first[kind]()
+        dw_smem()
+        want_y = k7.masked_conv_reference(x, w, bias, lengths, d,
+                                          None if inv is None else (inv, shift), res)
+        errs["fwd"] = {"kept": rel(y, want_y), "first": rel(y1, want_y)}
+        if "dx" in kinds:
+            want_dx = k7.masked_conv_backward_reference(x, w, bias, dy, lengths, d)[0]
+            errs["dx"] = {"kept": rel(dx, want_dx), "first": rel(dx1, want_dx)}
+        truth_w, truth_b = cs.dw_float64(x, dy, lengths, taps, d)
+        errs["dw"] = {"kept": max(rel(dw, truth_w), rel(db, truth_b)),
+                      "first": max(rel(dw1, truth_w), rel(db1, truth_b)),
+                      "dw_smem": max(rel(dw_s, truth_w), rel(db_s, truth_b))}
+        torch.cuda.synchronize()
+        del want_y, truth_w, truth_b
+        flop = 2.0 * cin * cout * cs.conv_rows(lens, T, taps, d)
+        for kind in kinds:
+            entries = {"kept": kept("kept", kind), "first": first[kind], "cudnn": cudnn[kind]}
+            if kind == "dw":
+                entries["dw_smem"] = dw_smem
+            readings = {n: [] for n in entries}
+            for _ in range(K7F32_ROUNDS):
+                for name in list(entries) + list(entries)[::-1]:
+                    readings[name].append(cs.cuda_time_ms(entries[name], 5))
+            med = {n: statistics.median(r) for n, r in readings.items()}
+            medians[(shape, kind)] = med
+            cs.log("k7_f32_turns", shape=shape, kind=kind, taps=taps, cin=cin, cout=cout,
+                   dilation=d, prologue=pro, residual=res is not None, median_ms=med,
+                   readings=readings, kept_over_first=med["kept"] / med["first"],
+                   kept_over_cudnn=med["kept"] / med["cudnn"],
+                   tflops=flop / med["kept"] / 1e9,
+                   split_bound=cs.bound(ops=flop, peak=cs.SPLIT_FLOPS),
+                   fma_bound=cs.bound(ops=flop, peak=cs.F32_FLOPS), rel_err=errs[kind],
+                   dw_splits=(splits, splits1) if kind == "dw" else None, card=card)
+            if errs[kind]["kept"] > cs.K7_F32_REL_TOL:
+                raise AssertionError(f"K7 f32 {kind} at {shape}: {errs[kind]}")
+        if shape in ("dilated_9", "1x1", "stem"):
+            names = ["kept"] + list(K7F32_SUBS)
+            parts = {kind: {} for kind in kinds}
+            for order in (names, names[::-1]):
+                for name in order:
+                    for kind in kinds:
+                        parts[kind].setdefault(name, []).append(
+                            cs.cuda_time_ms(kept(name, kind), 5))
+            for kind in kinds:
+                cs.log("k7_f32_parts", shape=shape, kind=kind,
+                       parts_ms={n: statistics.mean(r) for n, r in parts[kind].items()},
+                       split_bound_ms=cs.bound(ops=flop, peak=cs.SPLIT_FLOPS)["bound_ms"],
+                       card=card)
+        del x, dy, y, y1, dx, dx1, pieces, partial, partial1, dw, dw1, dw_s, x_t, dy_t, res
+        torch.cuda.empty_cache()
+    # a step's calls: the forward's 11 (the stem, 5 dilated, 5 1 x 1), dX's
+    # 10 (no stem), dW's 11
+    for kind in ("fwd", "dx", "dw"):
+        total = {n: 0.0 for n in ("kept", "first", "cudnn") + (("dw_smem",) if kind == "dw"
+                                                                 else ())}
+        for shape, taps, cin, cout, d, pro in shapes:
+            if (shape, kind) not in medians:
+                continue
+            count = 5 if shape == "1x1" else 1
+            for n in total:
+                total[n] += count * medians[(shape, kind)][n]
+        cs.log("k7_f32_step", kind=kind, median_sum_ms=total,
+               kept_over_first=total["kept"] / total["first"],
+               kept_over_cudnn=total["kept"] / total["cudnn"], card=card)
+
+
 # the rounding points of the tower's bf16 chain that --qk-noise raises one
 # at a time ("probs" rounds P, "dprobs" its gradient dP)
 QK_POINTS = ("weights", "qkv", "lora", "probs", "dprobs", "ctx", "o_proj", "residual", "ln",
@@ -2807,6 +3109,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--k8a-f32"]:
         with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
             k8a_f32_turns(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--k7-f32"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            k7_f32_turns(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--qk-noise"]:

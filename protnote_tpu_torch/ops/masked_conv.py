@@ -23,14 +23,16 @@ train-mode BatchNorm):
   formed in registers) with the BN prologue and the bias/mask/residual
   epilogue;
 * ``csrc/masked_conv_f32.cu``: ``masked_conv_forward_f32``, the same conv
-  in float32 on the FMA pipe (128 x 128 tiles of the host plan, 16-channel
-  K steps staged in shared memory, an 8 x 8 register tile a thread), for an
-  encoder that computes in float32 as JAX does at ``Precision.HIGHEST``;
-  ``masked_conv_dx_f32``, the same kernel with the taps reversed over the
-  dX layout (:func:`conv_weight_layout_f32` with ``dx``); and
-  ``masked_conv_dw_f32`` (dW a tap on the FMA pipe over 16-position K
-  steps of :func:`dw_step_plan` at its 128 x 128 tile, the splits summed in
-  order; dbias);
+  in float32 on the bf16 tensor cores by the bf16x3 split (the bf16
+  kernel's TMA + wgmma frame at 128 x 112 tiles, float32 rows split into
+  three bf16 pieces in registers against W's pieces, six products a k-step,
+  each 64-deep stage added into float32 sums), for an encoder that computes
+  in float32 as JAX does at ``Precision.HIGHEST``; ``masked_conv_dx_f32``,
+  the same kernel with the taps reversed over the dX pieces
+  (:func:`conv_weight_layout_f32` with ``dx``); and ``masked_conv_dw_f32``
+  (dy split once a call, then dW a tap on wgmma over 64-position K steps of
+  :func:`dw_step_plan` at its 128 x 128 tile, the splits summed in order;
+  dbias);
 * ``csrc/masked_pool.cu``: ``masked_mean_pool`` (a block a sequence's
   valid rows over 128 channels, 64 rows at once; :func:`pool_plan`), its
   float32 form ``masked_mean_pool_f32`` and its transposes
@@ -54,8 +56,10 @@ chain keeps its activations so; a wrapper copies an input of another pitch
 into such a buffer (the copy is part of its time), and the conv, its dX and
 the BatchNorm's forward and backward write their outputs at that pitch, so
 that the next kernel reads them as they are.  The weights are re-laid once a version
-(:func:`conv_weight_layout`, cached on the parameter tensor by
-:func:`weight_layout`; re-laid every call under autograd), and each call
+(:func:`conv_weight_layout`, or for float32 split into bf16 pieces by
+:func:`conv_weight_layout_f32`, cached on the parameter tensor by
+:func:`weight_layout`; under autograd laid once a call, the version each
+training step reads once, and not kept), and each call
 runs the tiles of a plan built on the host from the lengths
 (:func:`conv_tile_plan`, and for dW :func:`dw_step_plan`; the lengths are
 read back once a tensor).
@@ -91,6 +95,7 @@ import torch.nn.functional as F
 
 from protnote_tpu_torch.models.layers import Params, batchnorm_train, gemm_precision
 from protnote_tpu_torch.ops.kernels import call_on_stream, kernel_function
+from protnote_tpu_torch.ops.pair_scorer import split_bf16x3
 
 # Launches of each kernel entry point since the process started (or since a
 # caller last set them to 0); one a call of its wrapper.
@@ -225,12 +230,10 @@ BLOCK_N = 184  # columns of a conv tile (BN): 552 = 3 x 184, 1104 = 6 x 184
 BLOCK_K = 64  # channels of a K step (BK): one 128-byte swizzled row
 PITCH_CHANNELS = 8  # a row pitch is a multiple of 8 bf16 channels: 16 bytes
 F32_BLOCK_M = 128  # positions of a float32 conv tile (csrc/masked_conv_f32.cu BM)
-F32_BLOCK_N = 128  # columns of a float32 conv tile (BN)
-F32_BLOCK_K = 16  # channels of a float32 K step (BK)
-F32_FILL_BLOCKS = 132  # the most blocks writing the rows a float32 plan skips
+F32_BLOCK_N = 112  # columns of a float32 conv tile (BN): 550 -> 5 x 112, 1,100 -> 10 x 112
+F32_BLOCK_K = 64  # channels of a float32 K stage (BK)
 F32_DW_BLOCK = 128  # input and output channels of a float32 dW tile (csrc/masked_conv_f32.cu)
-F32_DW_STEP = 16  # positions of a float32 dW K step (DW_BK)
-F32_DW_BLOCKS_PER_SM = 2  # float32 dW blocks resident an SM (__launch_bounds__)
+F32_DW_STEP = 64  # positions of a float32 dW K step (DW_BK)
 
 
 def row_pitch(channels: int) -> int:
@@ -281,18 +284,20 @@ def conv_weight_layout(kernel: torch.Tensor, dx: bool) -> torch.Tensor:
 
 
 def conv_weight_layout_f32(kernel: torch.Tensor, dx: bool = False) -> torch.Tensor:
-    """The float32 conv kernel's B operand from a JAX-layout kernel (taps,
-    C_in, C_out): ``(taps, k_pad, n_pad)`` float32 with N contiguous,
-    zero-padded to K rounded up to 16 and N to 128 -- W[j] as it is for the
-    forward (K = C_in, N = C_out), W[taps - 1 - j] transposed for dX (K =
-    C_out, N = C_in: the forward conv of the output gradient with the taps
-    reversed)."""
+    """The float32 conv kernels' B operand from a JAX-layout kernel (taps,
+    C_in, C_out): ``(3, taps, n_pad, k_pad)`` bf16, the three pieces of
+    :func:`~protnote_tpu_torch.ops.pair_scorer.split_bf16x3` (their sum is
+    the float32 weight exactly) with K contiguous, zero-padded to N rounded
+    up to 112 and K to 64 -- W[j] transposed for the forward (N = C_out, K
+    = C_in), W[taps - 1 - j] itself for dX (N = C_in, K = C_out: the forward
+    conv of the output gradient with the taps reversed).  Made where the
+    kernel lies (on the card for the card's kernels)."""
     w = kernel.float()
-    if dx:
-        w = w.flip(0).transpose(1, 2)
-    _, k, n = w.shape
-    return F.pad(w, (0, -(-n // F32_BLOCK_N) * F32_BLOCK_N - n,
-                     0, -(-k // F32_BLOCK_K) * F32_BLOCK_K - k)).contiguous()
+    w = w.flip(0) if dx else w.transpose(1, 2)
+    _, n, k = w.shape
+    w = F.pad(w, (0, -(-k // F32_BLOCK_K) * F32_BLOCK_K - k,
+                  0, -(-n // F32_BLOCK_N) * F32_BLOCK_N - n))
+    return torch.stack(split_bf16x3(w)).contiguous()
 
 
 def _version(t: torch.Tensor) -> int:
@@ -317,8 +322,8 @@ def _cached(t: torch.Tensor, key, make):
 
 def weight_layout(kernel: torch.Tensor, dtype: torch.dtype, dx: bool) -> torch.Tensor:
     """:func:`conv_weight_layout` of ``kernel`` cast to ``dtype`` (for float32
-    :func:`conv_weight_layout_f32`), cached on the kernel tensor
-    (:func:`_cached`)."""
+    the pieces of :func:`conv_weight_layout_f32`), cached on the kernel
+    tensor (:func:`_cached`): made once a weight version."""
     if dtype == torch.float32:
         return _cached(kernel, ("layout_f32", dx),
                        lambda: conv_weight_layout_f32(kernel.detach(), dx))
@@ -330,13 +335,12 @@ def conv_tile_plan(lengths, T: int, taps: int, dilation: int, n: int, dx: bool,
                    bm: int = BLOCK_M, bn: int = BLOCK_N) -> np.ndarray:
     """The conv kernels' schedule: int32 tile codes ``(b * mtiles + row tile)
     * ntiles + column tile`` (``mtiles`` = ceil(T / bm), ``ntiles`` =
-    ceil(n / bn); bf16 tiles 128 x 184, float32 tiles 128 x 128) of every
+    ceil(n / bn); bf16 tiles 128 x 184, float32 tiles 128 x 112) of every
     tile whose first row is valid (t0 < min(L, T)), the most taps first
     (ties in code order).  A tile runs the taps whose shifted rows meet [0,
-    L) for its rows [t0, t0 + bm) (the kernels' tap range).  The bf16
-    kernel's persistent blocks take tiles i, i + grid, ...; the float32
-    kernel runs a block a tile.  The rows of the other row tiles are written
-    besides (zeros, or the residual)."""
+    L) for its rows [t0, t0 + bm) (the kernels' tap range).  The kernels'
+    persistent blocks take tiles i, i + grid, ...  The rows of the other row
+    tiles are written besides (zeros, or the residual)."""
     lens = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, T)
     mtiles, ntiles = -(-T // bm), -(-n // bn)
     step = -dilation if dx else dilation
@@ -397,8 +401,8 @@ def dw_splits(taps: int, cin: int, cout: int, sms: int = _H100_SMS, bm: int = DW
     least one (a step's full width: 9 x 1,100 x 550 has 243 tiles, 1;
     1 x 550 x 1,100 has 30, 4; conv1's 9 x 20 x 1,100 has 54, 2).  Each
     split past the first costs float32 partials of the whole dW.  The
-    float32 kernel passes its 128 x 128 tile and the blocks resident at once
-    (two an SM) as ``sms``."""
+    float32 kernel passes its 128 x 128 tile (9 x 1,100 x 550: 405 tiles, 1
+    split; 1 x 550 x 1,100: 45, 2; conv1: 81, 1)."""
     return max(1, sms // dw_tiles(taps, cin, cout, bm, bn))
 
 
@@ -421,7 +425,7 @@ def dw_step_plan(lengths, T: int, taps: int, dilation: int, cin: int, cout: int,
     Tap j (shift s = dilation * (j - (taps - 1) // 2)) needs the positions t
     of sequence b with t < L and 0 <= t + s < L, i.e. [max(0, -s), min(L, L
     - s)); its steps cover them in (b, t) order, ``step`` positions at most
-    (64 for the bf16 kernel, 16 for the float32 one) and never two sequences
+    (64 for both kernels) and never two sequences
     a step (``rows`` of them valid from t0), and split sp takes steps
     [floor(sp n / splits), floor((sp + 1) n / splits)) of the tap's n.
     ``bm`` x ``bn`` is the kernel's tile (input x output channels)."""
@@ -459,12 +463,12 @@ def _dw_plan_on(lengths: torch.Tensor, T: int, taps: int, dilation: int, cin: in
     """:func:`dw_step_plan` as an int32 tensor on ``device`` (``.splits``,
     ``.items``), kept on the lengths tensor as :func:`_plan_on` keeps the
     conv plans (the same read-back of the lengths); ``f32``: the float32
-    kernel's (128 x 128 tiles, 16-position steps, two blocks an SM)."""
+    kernel's (128 x 128 tiles, 64-position steps, one block an SM)."""
     def make():
         host = (lengths if lengths.device.type == "cpu"
                 else _cached(lengths, "host", lambda: lengths.cpu()))
-        shape = ((F32_DW_BLOCKS_PER_SM * _num_sms(device), F32_DW_BLOCK, F32_DW_BLOCK,
-                  F32_DW_STEP) if f32 else (_num_sms(device),))
+        shape = ((_num_sms(device), F32_DW_BLOCK, F32_DW_BLOCK, F32_DW_STEP) if f32
+                 else (_num_sms(device),))
         plan, splits, items = dw_step_plan(host.numpy(), T, taps, dilation, cin, cout, *shape)
         out = torch.from_numpy(plan).pin_memory().to(device, non_blocking=True)
         out.splits, out.items = splits, items
@@ -530,7 +534,7 @@ _ARGS = {
     ("masked_conv_bwd", "masked_conv_dx"): [_P] * 5 + [_I] * 12 + [_P],
     ("masked_conv_bwd", "masked_conv_dw"): [_P] * 8 + [_I] * 11 + [_P],
     ("masked_conv_f32", "masked_conv_dx_f32"): [_P] * 5 + [_I] * 12 + [_P],
-    ("masked_conv_f32", "masked_conv_dw_f32"): [_P] * 8 + [_I] * 10 + [_P],
+    ("masked_conv_f32", "masked_conv_dw_f32"): [_P] * 9 + [_I] * 11 + [_P],
     ("masked_bn", "masked_bn_relu_forward"): [_P, _I] + [_P] * 6 + [_F] * 3 + [_P] * 7
                                              + [_I] * 5 + [_P],
     ("masked_bn", "masked_bn_relu_forward_f32"): [_P, _I] + [_P] * 6 + [_F] * 3 + [_P] * 7
@@ -642,14 +646,15 @@ def masked_conv_f32_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tens
                          residual: Optional[torch.Tensor] = None,
                          layout: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``masked_conv_forward_f32``: :func:`masked_conv_cuda` in float32 on
-    the FMA pipe.  ``x`` (B, T, C_in) at any row pitch (one that is not a
-    multiple of 8 channels is copied into a padded buffer first), ``kernel``
-    (taps, C_in, C_out) (or only its shape, with ``layout`` its
-    :func:`conv_weight_layout_f32`), ``bias`` (C_out,), optional ``bn``
+    the tensor cores by the bf16x3 split.  ``x`` (B, T, C_in) at any row
+    pitch (one that is not a multiple of 8 channels is copied into a padded
+    buffer first), ``kernel`` (taps, C_in, C_out) (its pieces,
+    :func:`conv_weight_layout_f32`, kept on it once a version; or only its
+    shape, with ``layout`` the pieces), ``bias`` (C_out,), optional ``bn``
     (inv, shift) (C_in,) and ``residual`` (B, T, C_out), all float32;
-    returns (B, T, C_out) at :func:`row_pitch` (C_out).  One launch: a block
-    a tile of the 128 x 128 plan, and up to 132 blocks for the rows it
-    skips."""
+    returns (B, T, C_out) at :func:`row_pitch` (C_out).  One launch of one
+    persistent block an SM over the 128 x 112 plan; the blocks then write
+    the rows it skips."""
     if x.device.type != "cuda":
         raise ValueError(f"masked_conv_forward_f32 needs CUDA tensors, not {x.device}")
     dev, f32 = x.device, torch.float32
@@ -661,16 +666,18 @@ def masked_conv_f32_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tens
         raise ValueError(f"kernel {tuple(kernel.shape)} does not take x {tuple(x.shape)}")
     if layout is None:
         _check("kernel", kernel, (taps, cin, cout), f32, dev)
-        layout = conv_weight_layout_f32(kernel)
+        layout = weight_layout(kernel, f32, dx=False)
     k_pad = -(-cin // F32_BLOCK_K) * F32_BLOCK_K
     n_pad = -(-cout // F32_BLOCK_N) * F32_BLOCK_N
-    _check("weight layout", layout, (taps, k_pad, n_pad), f32, dev)
+    _check("weight pieces", layout, (3, taps, n_pad, k_pad), torch.bfloat16, dev)
     _check("bias", bias, (cout,), f32, dev)
     xp = pad_pitch(x)
     inv, shift = bn if bn is not None else (None, None)
     if bn is not None:
         for name, t in zip(("bn inv", "bn shift"), bn):
             _check(name, t, (cin,), f32, dev)
+        # TMA reads the vectors a chunk at a time: they start on 16 bytes
+        inv, shift = (t if t.data_ptr() % 16 == 0 else t.clone() for t in bn)
     res_pitch = 0
     if residual is not None:
         if residual.device != dev or residual.dtype != f32 or \
@@ -680,14 +687,13 @@ def masked_conv_f32_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tens
         residual = pad_pitch(residual)
         res_pitch = residual.stride(1)
     plan = _plan_on(lengths, T, taps, dilation, cout, False, dev, F32_BLOCK_M, F32_BLOCK_N)
-    fill = min(F32_FILL_BLOCKS, -(-plan.skipped * -(-cout // 4) // 256))
     lengths = _lengths_on(lengths, dev)
     y = padded_empty(B, T, cout, f32, dev)
     _launch("masked_conv_f32", "masked_conv_forward_f32", "masked_conv_fwd_f32", dev,
             xp.data_ptr(), layout.data_ptr(), bias.data_ptr(), _ptr(inv), _ptr(shift),
             _ptr(residual), lengths.data_ptr(), plan.data_ptr(), y.data_ptr(), B, T, cin, cout,
             xp.stride(1), y.stride(1), res_pitch, k_pad, n_pad, taps, dilation, plan.tiles,
-            fill)
+            _num_sms(dev))
     return y
 
 
@@ -809,9 +815,9 @@ def masked_conv_dx_f32_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: tor
     float32 BatchNorm's backward reads it, of a masked conv from its output
     gradient ``dy`` (B, T, C_out) float32 at any row pitch (one that is not
     a multiple of 8 is copied into a padded buffer first) and ``kernel``
-    (taps, C_in, C_out) (or only its shape, with ``layout`` its
-    :func:`conv_weight_layout_f32` with ``dx``).  One launch: the forward's
-    kernel on the dX plan, up to 132 blocks for the rows it skips."""
+    (taps, C_in, C_out) (its dX pieces, :func:`conv_weight_layout_f32` with
+    ``dx``, kept on it once a version; or only its shape, with ``layout``
+    the pieces).  One launch: the forward's kernel on the dX plan."""
     dev, f32 = dy.device, torch.float32
     if dev.type != "cuda":
         raise ValueError(f"masked_conv_dx_f32 needs CUDA tensors, not {dev}")
@@ -823,18 +829,18 @@ def masked_conv_dx_f32_cuda(dy: torch.Tensor, kernel: torch.Tensor, lengths: tor
         raise ValueError(f"kernel {tuple(kernel.shape)} does not take dy {tuple(dy.shape)}")
     if layout is None:
         _check("kernel", kernel, (taps, cin, cout), f32, dev)
-        layout = conv_weight_layout_f32(kernel, dx=True)
+        layout = weight_layout(kernel, f32, dx=True)
     k_pad = -(-cout // F32_BLOCK_K) * F32_BLOCK_K
     n_pad = -(-cin // F32_BLOCK_N) * F32_BLOCK_N
-    _check("weight layout", layout, (taps, k_pad, n_pad), f32, dev)
+    _check("weight pieces", layout, (3, taps, n_pad, k_pad), torch.bfloat16, dev)
     dyp = pad_pitch(dy)
     plan = _plan_on(lengths, T, taps, dilation, cin, True, dev, F32_BLOCK_M, F32_BLOCK_N)
-    fill = min(F32_FILL_BLOCKS, -(-plan.skipped * -(-cin // 4) // 256))
     lengths = _lengths_on(lengths, dev)
     dx = padded_empty(B, T, cin, f32, dev)
     _launch("masked_conv_f32", "masked_conv_dx_f32", "masked_conv_dx_f32", dev, dyp.data_ptr(),
             layout.data_ptr(), lengths.data_ptr(), plan.data_ptr(), dx.data_ptr(), B, T, cin,
-            cout, dyp.stride(1), dx.stride(1), k_pad, n_pad, taps, dilation, plan.tiles, fill)
+            cout, dyp.stride(1), dx.stride(1), k_pad, n_pad, taps, dilation, plan.tiles,
+            _num_sms(dev))
     return dx
 
 
@@ -843,10 +849,11 @@ def masked_conv_dw_f32_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Te
     """``masked_conv_dw_f32``: ``(dW (taps, C_in, C_out), dbias (C_out,))``
     float32 from the conv's input ``x`` (B, T, C_in) and output gradient
     ``dy``, both float32 at any row pitch (one that is not a multiple of 8
-    is copied into a padded buffer first); one block an item of
-    :func:`dw_step_plan` at the float32 kernel's tile, kept on the lengths
-    tensor, then (with more than one split) the ordered sum of the splits
-    and the dbias sums."""
+    is copied into a padded buffer first): dy's split into its three bf16
+    pieces (a (3, B, T) scratch at :func:`row_pitch` (C_out)), then one
+    persistent block an SM over the items of :func:`dw_step_plan` at the
+    float32 kernel's tile, kept on the lengths tensor, then (with more than
+    one split) the ordered sum of the splits and the dbias sums."""
     B, T, cin = x.shape
     cout = dy.shape[2]
     dev, f32 = x.device, torch.float32
@@ -861,13 +868,14 @@ def masked_conv_dw_f32_cuda(x: torch.Tensor, dy: torch.Tensor, lengths: torch.Te
     lengths = _lengths_on(lengths, dev)
     partial = (torch.empty(plan.splits, taps, cin, cout, dtype=f32, device=dev)
                if plan.splits > 1 else None)
+    pieces = torch.empty(3 * B * T * row_pitch(cout), dtype=torch.bfloat16, device=dev)
     bias_part = torch.empty(B, cout, dtype=f32, device=dev)
     dw = torch.empty(taps, cin, cout, dtype=f32, device=dev)
     db = torch.empty(cout, dtype=f32, device=dev)
     _launch("masked_conv_f32", "masked_conv_dw_f32", "masked_conv_dw_f32", dev, xp.data_ptr(),
-            dyp.data_ptr(), lengths.data_ptr(), plan.data_ptr(), _ptr(partial),
-            bias_part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, T, cin, cout, xp.stride(1),
-            dyp.stride(1), taps, dilation, plan.splits, plan.items)
+            dyp.data_ptr(), pieces.data_ptr(), lengths.data_ptr(), plan.data_ptr(),
+            _ptr(partial), bias_part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, T, cin, cout,
+            xp.stride(1), dyp.stride(1), taps, dilation, plan.splits, plan.items, _num_sms(dev))
     return dw, db
 
 
@@ -1048,18 +1056,25 @@ def masked_bn_relu_backward_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch
 
 
 class _MaskedConv(torch.autograd.Function):
-    # The weights are re-laid at every call (they change every step): for the
-    # forward here, for dX in the backward.  The input is saved at the padded
-    # pitch (the copy the forward reads anyway) and dy is copied to it once,
-    # for dX and dW, which both read them at that pitch.  bf16 tensors take
-    # the TMA + wgmma kernels, float32 ones the FMA-pipe kernels.
+    # The weights are laid out once a step, the version each step trains: for
+    # the forward here, for dX in the backward (bf16: a new cast; float32: W's
+    # pieces), and not kept on the tensor, which the optimizer changes before
+    # they would be read again; kept, a float32 chain's pieces (0.36 GiB at
+    # the default width) would stay resident through the scorer's backward,
+    # where a float32 encoder-training step runs out of memory on an 80 GB
+    # card.  The input is saved at the padded pitch (the copy the forward
+    # reads anyway) and dy is copied to it once, for dX and dW, which both
+    # read them at that pitch.  bf16 tensors take the bf16 kernels, float32
+    # ones the bf16x3 split kernels.
     @staticmethod
     def forward(ctx, x, kernel, bias, residual, lengths, dilation):
         x = pad_pitch(x)
         ctx.save_for_backward(x, kernel, lengths)
         ctx.dilation = dilation
-        conv = masked_conv_f32_cuda if x.dtype == torch.float32 else masked_conv_cuda
-        return conv(x, kernel, bias, lengths, dilation, residual=residual)
+        if x.dtype == torch.float32:
+            return masked_conv_f32_cuda(x, kernel, bias, lengths, dilation, residual=residual,
+                                        layout=conv_weight_layout_f32(kernel.detach()))
+        return masked_conv_cuda(x, kernel, bias, lengths, dilation, residual=residual)
 
     @staticmethod
     def backward(ctx, g):
@@ -1068,8 +1083,9 @@ class _MaskedConv(torch.autograd.Function):
         dx = dw = db = None
         dy = pad_pitch(g)
         if ctx.needs_input_grad[0]:
-            dx = (masked_conv_dx_f32_cuda if f32 else masked_conv_dx_cuda)(
-                dy, kernel, lengths, ctx.dilation)
+            dx = (masked_conv_dx_f32_cuda(dy, kernel, lengths, ctx.dilation,
+                                          layout=conv_weight_layout_f32(kernel, dx=True))
+                  if f32 else masked_conv_dx_cuda(dy, kernel, lengths, ctx.dilation))
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = (masked_conv_dw_f32_cuda if f32 else masked_conv_dw_cuda)(
                 x, dy, lengths, kernel.shape[0], ctx.dilation)

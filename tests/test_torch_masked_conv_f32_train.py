@@ -10,13 +10,16 @@ branches (the CUDA wrappers replaced by their plain versions; the routing
 of a float32 card tensor to those branches is
 tests/test_torch_masked_conv.py::test_cuda_call_in_float32_raises).
 
-The emulations follow the kernels:
-* dX is the forward's kernel with the taps reversed over the dX layout
-  (``conv_weight_layout_f32(w, dx=True)``): each tile of the dX plan runs
-  the taps its rows need, 16 channels of C_out a K step, a float32
-  accumulator; rows outside [0, length) read as 0 and written as 0;
-* dW runs each item of ``dw_step_plan`` at the float32 kernel's 128 x 128
-  tile and 16 positions a step, a float32 accumulator over its steps in
+The emulations follow the kernels, whose products take the bf16x3 split
+(each 64-deep stage's six products from zero, added into float32 sums:
+``test_torch_masked_conv_plan.split_stage``):
+* dX is the forward's kernel with the taps reversed over the dX pieces
+  (``conv_weight_layout_f32(w, dx=True)``): each tile of the dX plan at 128
+  x 112 runs the taps its rows need, 64 channels of C_out a stage; rows
+  outside [0, length) read as 0 and written as 0;
+* dW splits dy once into its three bf16 pieces, then runs each item of
+  ``dw_step_plan`` at the float32 kernel's 128 x 128 tile and 64 positions
+  a step, A = (mask x)^T split, a stage a step added into float32 sums in
   order; the splits' partials are added in split order; dbias adds each
   sequence's rows in four interleaved sums, then the sequences in order;
 * K7-BN's float32 forms are the bf16 kernels' arithmetic without the bf16
@@ -27,10 +30,12 @@ The emulations follow the kernels:
   value times 0 past them.
 
 Inputs are drawn with numpy from fixed seeds: T 64, C 24-40, dilations 1, 3
-and 9 with 9 taps and a 1 x 1 conv, lengths 0, 1, 16, 17 (the dW steps'
-edge), 33 and 64.  Tolerances: float32 within 1e-5 of each tensor's
-largest |value| of JAX's float32 result and of float64 (only the order of
-the sums differs); the pool's transpose bit for bit.
+and 9 with 9 taps and a 1 x 1 conv, lengths 0, 1, 16, 17, 33 and 64 (the
+dW steps' edges at 64 positions), and a wide-range case (activations and
+cotangents offset by 300: every third piece carries bits).  Tolerances:
+float32 within 1e-5 of each tensor's largest |value| of JAX's float32
+result and of float64 (only the order of the sums differs); the pool's
+transpose bit for bit.
 """
 
 import numpy as np
@@ -44,13 +49,16 @@ import test_torch_masked_bn_plan as bnp
 from protnote_tpu.models import layers as jlayers
 from protnote_tpu.models import proteinfer as jpi
 from protnote_tpu_torch.ops import masked_conv as k7
+from protnote_tpu_torch.ops.pair_scorer import split_bf16x3
+from test_torch_masked_conv_plan import _emulate_f32_kernel, split_stage
 
 T = 64
 LENGTHS = np.array([64, 33, 17, 16, 1, 0], np.int32)
 B = len(LENGTHS)
 F32_REL = 1e-5
-F32_SLOTS = k7.F32_DW_BLOCKS_PER_SM * 132  # an H100's resident float32 dW blocks
+F32_SLOTS = 132  # an H100's persistent float32 dW blocks: one an SM
 CONVS = [(9, 40, 24, 1), (9, 24, 40, 3), (9, 40, 24, 9), (1, 24, 40, 1)]  # taps, cin, cout, d
+WIDE = 300.0  # the wide-range case's offset of x and dy
 
 
 def _close(got, want, rel=F32_REL, name=""):
@@ -59,13 +67,13 @@ def _close(got, want, rel=F32_REL, name=""):
     np.testing.assert_allclose(got, want, atol=rel * scale, rtol=0, err_msg=name)
 
 
-def _conv_inputs(seed, taps, cin, cout):
+def _conv_inputs(seed, taps, cin, cout, offset=0.0):
     rng = np.random.default_rng(seed)
     bound = 1.0 / np.sqrt(cin * taps)
     p = {"kernel": rng.uniform(-bound, bound, (taps, cin, cout)).astype(np.float32),
          "bias": rng.uniform(-0.3, 0.3, cout).astype(np.float32)}
-    x = rng.normal(size=(B, T, cin)).astype(np.float32)
-    g = rng.normal(size=(B, T, cout)).astype(np.float32)
+    x = (rng.normal(size=(B, T, cin)) + offset).astype(np.float32)
+    g = (rng.normal(size=(B, T, cout)) + offset).astype(np.float32)
     return p, x, g
 
 
@@ -86,80 +94,58 @@ def _float64_conv_vjp(p, x, g, dilation):
 
 
 def _emulate_dx(g, w, dilation):
-    """``masked_conv_dx_f32``: the float32 forward kernel's loops on the
-    output gradient over the dX layout (taps reversed), the dX plan's tiles,
-    a float32 accumulator a tile over 16-channel K steps, the masks on both
-    sides.  Returns dX and how often each element was written."""
+    """``masked_conv_dx_f32``: the float32 forward kernel's order of work
+    (``_emulate_f32_kernel`` with ``dx``: the dX plan's tiles at 128 x 112
+    over the dX pieces, a stage a tap's 64 channels of C_out, the masks on
+    both sides, no bias).  Returns dX and how often each element was
+    written."""
     taps, cin, cout = w.shape
-    bm, bn = k7.F32_BLOCK_M, k7.F32_BLOCK_N
-    lay = k7.conv_weight_layout_f32(torch.from_numpy(w), dx=True).numpy()
-    k_pad = lay.shape[1]
-    assert lay.shape == (taps, -(-cout // 16) * 16, -(-cin // bn) * bn)
-    a = np.zeros((B, T, k_pad), np.float32)
-    a[..., :cout] = g
-    dx = np.zeros((B, T, cin), np.float32)
-    written = np.zeros(dx.shape, np.int64)
-    lens = np.clip(LENGTHS, 0, T)
-    for b, L in enumerate(lens):  # the fill blocks: rows of the tiles the plan skips
-        written[b, -(-int(L) // bm) * bm:] += 1
-    mtiles, ntiles, half = -(-T // bm), -(-cin // bn), (taps - 1) // 2
-    for code in k7.conv_tile_plan(LENGTHS, T, taps, dilation, cin, True, bm, bn):
-        nt, mt, b = code % ntiles, (code // ntiles) % mtiles, code // ntiles // mtiles
-        t0, n0, L = mt * bm, nt * bn, int(lens[b])
-        js = [j for j in range(taps)
-              if t0 + dilation * (j - half) < L and t0 + bm + dilation * (j - half) > 0]
-        rows = np.arange(t0, t0 + bm)
-        acc = np.zeros((bm, bn), np.float32)
-        for j in js:
-            src = rows + dilation * (j - half)
-            ok = (src >= 0) & (src < L)
-            for k0 in range(0, k_pad, 16):
-                tile = np.where(ok[:, None], a[b, np.clip(src, 0, T - 1), k0:k0 + 16], 0)
-                acc += tile.astype(np.float32) @ lay[j, k0:k0 + 16, n0:n0 + bn]
-        out = acc * (rows < L)[:, None].astype(np.float32)
-        r = rows[rows < T]
-        c = np.arange(n0, min(n0 + bn, cin))
-        dx[b, r[:, None], c[None, :]] = out[:len(r), :len(c)]
-        written[b, r[:, None], c[None, :]] += 1
-    return dx, written
+    lay = k7.conv_weight_layout_f32(torch.from_numpy(w), dx=True)
+    assert lay.shape == (3, taps, -(-cin // 112) * 112, -(-cout // 64) * 64)
+    dx, written = _emulate_f32_kernel(g, w, None, LENGTHS, dilation, dx=True)
+    return dx.astype(np.float32), written
 
 
 def _emulate_dw(x, g, taps, dilation, sms):
-    """``masked_conv_dw_f32``: each item of the float32 dW plan (128 x 128
-    tiles, 16-position steps) summed over its steps in order in float32, the
-    splits' partials added in split order; dbias from four interleaved sums
-    a sequence, the sequences added in order."""
+    """``masked_conv_dw_f32``: dy split once into its three bf16 pieces;
+    each item of the float32 dW plan (128 x 128 tiles, 64-position steps)
+    summed over its steps in order, a step one stage of the split
+    (:func:`split_stage`: A = (mask x)^T, the positions past the step's
+    count zero, against dy's pieces) added into float32 sums; the splits'
+    partials added in split order; dbias from four interleaved sums a
+    sequence, the sequences added in order."""
     _, _, cin = x.shape
     cout = g.shape[2]
     bm = bn = k7.F32_DW_BLOCK
+    step = k7.F32_DW_STEP
     plan, splits, n_items = k7.dw_step_plan(LENGTHS, T, taps, dilation, cin, cout, sms, bm, bn,
-                                            k7.F32_DW_STEP)
+                                            step)
     items = plan[:n_items]
     offsets = plan[n_items:n_items + taps * splits + 1]
     steps = plan[n_items + taps * splits + 1:].reshape(-1, 2)
     mtiles, ntiles = -(-cin // bm), -(-cout // bn)
-    xp = np.zeros((B, T, mtiles * bm), np.float32)
-    xp[..., :cin] = x
-    gp = np.zeros((B, T, ntiles * bn), np.float32)
-    gp[..., :cout] = g
+    xp = torch.zeros(B, T + step, mtiles * bm)  # rows past T read as zeros (TMA)
+    xp[:, :T, :cin] = torch.from_numpy(x)
+    gp = [torch.zeros(B, T + step, ntiles * bn, dtype=torch.bfloat16) for _ in range(3)]
+    for pad, piece in zip(gp, split_bf16x3(torch.from_numpy(g))):
+        pad[:, :T, :cout] = piece
     partial = np.full((splits, taps, mtiles * bm, ntiles * bn), np.nan, np.float32)
     for code in items:
         nt, u = code % ntiles, code // ntiles
         mt, v = u % mtiles, u // mtiles
         j, sp = v // splits, v % splits
         s = dilation * (j - (taps - 1) // 2)
-        acc = np.zeros((bm, bn), np.float32)
+        cols_m, cols_n = slice(mt * bm, (mt + 1) * bm), slice(nt * bn, (nt + 1) * bn)
+        acc = torch.zeros(bm, bn)
         for b, w in steps[offsets[v]:offsets[v + 1]]:
             t0, rows = int(w) & 0xFFFF, int(w) >> 16
-            assert 1 <= rows <= k7.F32_DW_STEP
-            A = np.zeros((k7.F32_DW_STEP, bm), np.float32)
-            Bm = np.zeros((k7.F32_DW_STEP, bn), np.float32)
-            A[:rows] = xp[b, t0 + s:t0 + s + rows, mt * bm:(mt + 1) * bm]
-            Bm[:rows] = gp[b, t0:t0 + rows, nt * bn:(nt + 1) * bn]
-            acc += A.T @ Bm
-        tile = partial[sp, j, mt * bm:(mt + 1) * bm, nt * bn:(nt + 1) * bn]
+            assert 1 <= rows <= step and 0 <= t0 + s and t0 + s + rows <= T
+            a = xp[b, t0 + s:t0 + s + step, cols_m].clone()
+            a[rows:] = 0.0  # the select on the positions past the step's count
+            acc += split_stage(a.t(), [piece[b, t0:t0 + step, cols_n] for piece in gp])
+        tile = partial[sp, j, cols_m, cols_n]
         assert np.isnan(tile).all()  # each item writes its own tile once
-        tile[...] = acc
+        tile[...] = acc.numpy()
     dw = partial[0]
     for sp in range(1, splits):
         dw = dw + partial[sp]
@@ -171,13 +157,14 @@ def _emulate_dw(x, g, taps, dilation, sms):
     return dw[:, :cin, :cout], dbias, splits
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "offset"])
 @pytest.mark.parametrize("taps,cin,cout,dilation", CONVS)
-def test_dx_kernel_algorithm_matches_jax_vjp(taps, cin, cout, dilation):
+def test_dx_kernel_algorithm_matches_jax_vjp(taps, cin, cout, dilation, wide):
     """dX's order of work (the forward's mainloop with the taps reversed
-    over the dX layout) against JAX's float32 vjp of ``_masked_conv`` w.r.t.
-    x and against float64, every element written once, zero past each
-    sequence's length."""
-    p, x, g = _conv_inputs(dilation * 10 + taps + cin, taps, cin, cout)
+    over the dX pieces, the bf16x3 split) against JAX's float32 vjp of
+    ``_masked_conv`` w.r.t. x and against float64, every element written
+    once, zero past each sequence's length; also with dy offset by 300."""
+    p, x, g = _conv_inputs(dilation * 10 + taps + cin, taps, cin, cout, WIDE if wide else 0.0)
     dx, written = _emulate_dx(g, p["kernel"], dilation)
     assert (written == 1).all()
     want, _, _ = _jax_conv_vjp(p, x, g, dilation)
@@ -186,13 +173,15 @@ def test_dx_kernel_algorithm_matches_jax_vjp(taps, cin, cout, dilation):
     assert not dx[np.arange(T)[None, :] >= LENGTHS[:, None]].any()
 
 
-@pytest.mark.parametrize("sms", [F32_SLOTS, 1])
+@pytest.mark.parametrize("sms,wide", [(F32_SLOTS, False), (1, False), (F32_SLOTS, True)],
+                         ids=["slots", "one", "offset"])
 @pytest.mark.parametrize("taps,cin,cout,dilation", CONVS)
-def test_dw_kernel_algorithm_matches_jax_vjp(taps, cin, cout, dilation, sms):
-    """dW and dbias in the kernel's K-step and split order (an H100's 264
-    resident blocks: many splits, some empty; and 1: one) against JAX's
-    float32 vjp w.r.t. the kernel and the bias and against float64."""
-    p, x, g = _conv_inputs(dilation * 10 + taps + cin, taps, cin, cout)
+def test_dw_kernel_algorithm_matches_jax_vjp(taps, cin, cout, dilation, sms, wide):
+    """dW and dbias in the kernel's K-step and split order (an H100's 132
+    persistent blocks: many splits, some empty; and 1: one) against JAX's
+    float32 vjp w.r.t. the kernel and the bias and against float64; also
+    with x and dy offset by 300 (every third piece carries bits)."""
+    p, x, g = _conv_inputs(dilation * 10 + taps + cin, taps, cin, cout, WIDE if wide else 0.0)
     dw, dbias, splits = _emulate_dw(x, g, taps, dilation, sms)
     assert splits == k7.dw_splits(taps, cin, cout, sms, 128, 128)
     assert (splits > 1) == (sms > 1)
@@ -205,13 +194,14 @@ def test_dw_kernel_algorithm_matches_jax_vjp(taps, cin, cout, dilation, sms):
 
 
 def test_dw_f32_split_counts_of_a_full_width_step():
-    """The float32 dW kernel's splits at the default widths on an H100 (two
-    blocks an SM, 128 x 128 tiles): conv1 81 tiles -> 3 splits, the dilated
-    convs 405 -> 1, the 1 x 1 convs 45 -> 5; a full-width plan's items are
-    its splits times its tiles, its steps 16 positions of one sequence."""
+    """The float32 dW kernel's splits at the default widths on an H100 (one
+    persistent block an SM, 128 x 128 tiles): conv1 81 tiles -> 1 split,
+    the dilated convs 405 -> 1, the 1 x 1 convs 45 -> 2; a full-width
+    plan's items are its splits times its tiles, its steps 64 positions of
+    one sequence."""
     shapes = [(9, 20, 1100), (9, 1100, 550), (1, 550, 1100)]
     assert [k7.dw_tiles(*sh, 128, 128) for sh in shapes] == [81, 405, 45]
-    assert [k7.dw_splits(*sh, F32_SLOTS, 128, 128) for sh in shapes] == [3, 1, 5]
+    assert [k7.dw_splits(*sh, F32_SLOTS, 128, 128) for sh in shapes] == [1, 1, 2]
     lens = np.full(32, 512, np.int32)
     lens[-1] = 30
     for taps, cin, cout in shapes:
@@ -219,20 +209,25 @@ def test_dw_f32_split_counts_of_a_full_width_step():
                                                 128, 128, k7.F32_DW_STEP)
         assert n_items == splits * k7.dw_tiles(taps, cin, cout, 128, 128)
         rows = plan[n_items + taps * splits + 1:].reshape(-1, 2)[:, 1] >> 16
-        assert rows.max() == 16 and rows.min() >= 1
+        assert rows.max() == k7.F32_DW_STEP == 64 and rows.min() >= 1
 
 
 def test_dx_layout_is_the_forward_layout_of_the_reversed_transposed_kernel():
-    """The dX layout (taps, C_out up to 16, C_in up to 128) holds W[taps - 1
-    - j]^T, zero-padded; the forward layout is unchanged."""
+    """The dX pieces (3, taps, C_in up to 112, C_out up to 64) sum to W[taps
+    - 1 - j] (N = C_in, K-major: the forward's layout of the reversed,
+    transposed kernel), zero-padded; the forward's pieces sum to W[j]^T."""
     rng = np.random.default_rng(0)
     w = torch.from_numpy(rng.normal(size=(9, 40, 24)).astype(np.float32))
     lay = k7.conv_weight_layout_f32(w, dx=True)
-    assert tuple(lay.shape) == (9, 32, 128) and lay.is_contiguous()
+    assert tuple(lay.shape) == (3, 9, 112, 64) and lay.is_contiguous()
+    total = (lay[0].float() + lay[1].float()) + lay[2].float()
     for j in range(9):
-        assert torch.equal(lay[j, :24, :40], w[8 - j].t())
-    assert not lay[:, 24:].any() and not lay[:, :, 40:].any()
-    assert torch.equal(k7.conv_weight_layout_f32(w), k7.conv_weight_layout_f32(w, dx=False))
+        assert torch.equal(total[j, :40, :24], w[8 - j])
+    assert not total[:, 40:].any() and not total[:, :, 24:].any()
+    fwd = k7.conv_weight_layout_f32(w)
+    assert torch.equal(fwd, k7.conv_weight_layout_f32(w, dx=False))
+    assert torch.equal((fwd[0].float() + fwd[1].float()) + fwd[2].float(),
+                       torch.nn.functional.pad(w.transpose(1, 2), (0, 24, 0, 88)))
 
 
 @pytest.mark.parametrize("C", [24, 40])

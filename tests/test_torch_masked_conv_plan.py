@@ -2,8 +2,10 @@
 masked_conv.py), on the CPU: the padded row pitch of the chain's
 activations, the weights re-laid for the kernels' B operand, the tile plan,
 dW's K-step plan (``dw_step_plan``) and split counts, the kernel's order of
-work at its own 128 x 184 tile, and the encoder chain run on padded-pitch
-buffers against the contiguous chain and JAX's ``proteinfer_embed``.
+work at its own 128 x 184 tile, the float32 kernel's (the bf16x3 split at
+128 x 112, W's pieces kept once a version), and the encoder chain run on
+padded-pitch buffers against the contiguous chain and JAX's
+``proteinfer_embed``.
 
 Inputs are drawn with numpy from fixed seeds.  Tolerances:
 * layouts, pitches and plans: exact (they move or count, nothing is summed);
@@ -25,6 +27,7 @@ from protnote_tpu.models import proteinfer as jpi
 from protnote_tpu_torch.models import proteinfer as tpi
 from protnote_tpu_torch.models.convert import from_jax_tree
 from protnote_tpu_torch.ops import masked_conv as k7
+from protnote_tpu_torch.ops.pair_scorer import BF16X3_TERMS, K_STEP, split_bf16x3
 from test_torch_masked_conv import _emulate_conv_rows, _tap_range
 
 F32_REL = 1e-5
@@ -89,6 +92,36 @@ def test_weight_layout_is_zero_padded_and_round_trips(taps, cin, cout, dx):
     back = lay[:, :cin, :cout] if dx else lay[:, :cout, :cin].transpose(1, 2)
     assert torch.equal(back, w)  # back to the JAX (taps, C_in, C_out)
     assert float(lay[:, n:].abs().sum()) == 0.0 and float(lay[:, :, k:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("dx", [False, True])
+def test_f32_weight_pieces_are_the_split_of_the_layout_and_made_per_version(dx):
+    """The float32 kernels' B operand: three bf16 pieces (3, taps, n_pad,
+    k_pad) whose float32 sum is W[j]^T (forward) or W[taps - 1 - j] (dX)
+    zero-padded to N up to 112 and K up to 64, each piece the
+    ``split_bf16x3`` of that layout; kept on the kernel tensor once a
+    version (the same tensor twice), made again after an in-place update
+    (an optimizer step) and for a new tensor."""
+    rng = np.random.default_rng(3 + dx)
+    w = torch.from_numpy((rng.normal(size=(9, 40, 24)) * 1e3).astype(np.float32))
+    pieces = k7.weight_layout(w, torch.float32, dx)
+    assert pieces.dtype == torch.bfloat16 and pieces.is_contiguous()
+    n, k = (40, 24) if dx else (24, 40)
+    assert tuple(pieces.shape) == (3, 9, 112, 64)
+    lay = torch.zeros(9, 112, 64)
+    lay[:, :n, :k] = w.flip(0) if dx else w.transpose(1, 2)
+    for got, want in zip(pieces, split_bf16x3(lay)):
+        assert torch.equal(got, want)
+    total = (pieces[0].float() + pieces[1].float()) + pieces[2].float()
+    assert torch.equal(total, lay)  # the split is exact
+    assert k7.weight_layout(w, torch.float32, dx) is pieces
+    assert k7.weight_layout(w, torch.float32, not dx) is not pieces
+    w.mul_(0.5).add_(1.0)  # an optimizer's in-place update
+    again = k7.weight_layout(w, torch.float32, dx)
+    assert again is not pieces
+    lay[:, :n, :k] = w.flip(0) if dx else w.transpose(1, 2)
+    assert torch.equal((again[0].float() + again[1].float()) + again[2].float(), lay)
+    assert k7.weight_layout(w.clone(), torch.float32, dx) is not again
 
 
 def test_weight_layout_is_cached_per_version_and_storage():
@@ -309,70 +342,117 @@ def test_kernel_algorithm_at_the_kernel_tile_matches_jax(dilation):
     _close(_emulate_conv_rows(g, w, lengths, dilation, dx=True), want_dx, name="dx")
 
 
-def _emulate_f32_kernel(x, w, bias, lengths, dilation, bn=None, residual=None):
-    """``conv_f32_kernel``'s loops (csrc/masked_conv_f32.cu) in float64: the
-    first blocks write the rows of the row tiles the plan skips (0, or the
-    residual); each tile of ``conv_tile_plan`` at 128 x 128 runs the taps
-    of the kernel's rule in order, K in 16-channel steps of the re-laid,
-    zero-padded weights (``conv_weight_layout_f32``), the prologue relu(x *
-    inv + shift) on each loaded value, zero outside [0, length) and past
-    C_in; then ``(acc + bias) * mask (+ residual)`` for its rows below T and
-    columns below C_out.  Returns the output and how often each element
-    was written."""
-    B, T, cin = x.shape
-    taps, _, cout = w.shape
+def split_stage(a, w_pieces):
+    """One 64-deep stage of the float32 conv kernels (csrc/masked_conv_f32.cu
+    ``split_products``): ``a`` (M, 64) float32 split by ``split_bf16x3``
+    against ``w_pieces``, W's three (64, N) bf16 pieces; from zero, each
+    16-deep k-step's five small cross products (``BF16X3_TERMS``), then the
+    ``x0 w0`` products, each a float32 product of bf16 values summed in
+    float32 (the tensor cores' own adds are not modelled: the kernel keeps
+    them to a stage)."""
+    xs = [v.float() for v in split_bf16x3(a)]
+    ws = [v.float() for v in w_pieces]
+    part = torch.zeros(a.shape[0], ws[0].shape[1])
+    steps = range(0, a.shape[1], K_STEP)
+    for k in steps:
+        for i, j in BF16X3_TERMS:
+            part += xs[i][:, k:k + K_STEP] @ ws[j][k:k + K_STEP]
+    for k in steps:
+        part += xs[0][:, k:k + K_STEP] @ ws[0][k:k + K_STEP]
+    return part
+
+
+def _emulate_f32_kernel(x, w, bias, lengths, dilation, bn=None, residual=None, dx=False):
+    """``conv_f32_kernel``'s order of work (csrc/masked_conv_f32.cu) in
+    float32: the rows of the row tiles the plan skips get 0 (or the
+    residual); each tile of ``conv_tile_plan`` at 128 x 112 runs the taps of
+    the kernel's rule in order and, for each, K in 64-channel stages of W's
+    pieces (``conv_weight_layout_f32``; with ``dx`` the dX pieces, taps
+    reversed), the prologue relu(x * inv + shift) on each loaded value,
+    rows outside [0, length) and channels past K zero; each stage's six
+    products from zero (:func:`split_stage`) added into float32 sums; then
+    ``(sum + bias) * mask (+ residual)`` for its rows below T and columns
+    below N.  ``x`` (B, T, K), ``w`` the JAX kernel (taps, C_in, C_out).
+    Returns the output (float64) and how often each element was written."""
+    B, T, K = x.shape
+    taps = w.shape[0]
+    N = w.shape[1] if dx else w.shape[2]
     bm, bn_ = k7.F32_BLOCK_M, k7.F32_BLOCK_N
-    lay = k7.conv_weight_layout_f32(torch.from_numpy(w)).double().numpy()
-    k_pad = lay.shape[1]
-    a = np.zeros((B, T, k_pad))
-    a[..., :cin] = x if bn is None else np.maximum(
-        np.float32(x) * bn[0].astype(np.float32) + bn[1].astype(np.float32), 0)
-    y = np.zeros((B, T, cout))
+    pieces = k7.conv_weight_layout_f32(torch.from_numpy(w), dx)
+    _, _, n_pad, k_pad = pieces.shape
+    assert (n_pad, k_pad) == (-(-N // bn_) * bn_, -(-K // 64) * 64)
+    a = torch.zeros(B, T, k_pad)
+    xt = torch.from_numpy(x)
+    if bn is not None:
+        xt = torch.relu(xt * torch.from_numpy(bn[0]) + torch.from_numpy(bn[1]))
+    a[..., :K] = xt
+    bias_pad = torch.zeros(n_pad)
+    if bias is not None:
+        bias_pad[:N] = torch.from_numpy(bias)
+    y = np.zeros((B, T, N))
     written = np.zeros(y.shape, np.int64)
     lens = np.clip(lengths, 0, T)
     for b, L in enumerate(lens):
         lo = -(-int(L) // bm) * bm
         y[b, lo:] = 0.0 if residual is None else residual[b, lo:]
         written[b, lo:] += 1
-    mtiles, ntiles = -(-T // bm), -(-cout // bn_)
+    mtiles, ntiles = -(-T // bm), n_pad // bn_
     half = (taps - 1) // 2
-    plan = k7.conv_tile_plan(lengths, T, taps, dilation, cout, False, bm, bn_)
-    for code in plan:
+    for code in k7.conv_tile_plan(lengths, T, taps, dilation, N, dx, bm, bn_):
         nt, mt, b = code % ntiles, (code // ntiles) % mtiles, code // ntiles // mtiles
         t0, n0, L = mt * bm, nt * bn_, int(lens[b])
         js = [j for j in range(taps)
               if t0 + dilation * (j - half) < L and t0 + bm + dilation * (j - half) > 0]
         assert js and js == list(range(js[0], js[-1] + 1))
         rows = np.arange(t0, t0 + bm)
-        acc = np.zeros((bm, bn_))
+        acc = torch.zeros(bm, bn_)
         for j in js:
             src = rows + dilation * (j - half)
-            ok = (src >= 0) & (src < L)
-            for k0 in range(0, k_pad, 16):
-                tile = np.where(ok[:, None], a[b, np.clip(src, 0, T - 1), k0:k0 + 16], 0.0)
-                acc += tile @ lay[j, k0:k0 + 16, n0:n0 + bn_]
-        keep_r, keep_c = rows < T, np.arange(n0, n0 + bn_) < cout
-        out = (acc + np.pad(bias, (0, ntiles * bn_ - cout))[n0:n0 + bn_]) \
-            * (rows < L)[:, None]
+            ok = torch.from_numpy((src >= 0) & (src < L))[:, None]
+            for k0 in range(0, k_pad, 64):
+                tile = torch.where(ok, a[b, np.clip(src, 0, T - 1), k0:k0 + 64], 0.0)
+                acc += split_stage(tile, [pieces[p, j, n0:n0 + bn_, k0:k0 + 64].t()
+                                          for p in range(3)])
+        out = (acc + bias_pad[n0:n0 + bn_]) * torch.from_numpy((rows < L).astype(np.float32))[:, None]
+        keep_r, keep_c = rows < T, np.arange(n0, n0 + bn_) < N
         r, c = rows[keep_r], np.arange(n0, n0 + bn_)[keep_c]
-        y[b, r[:, None], c[None, :]] = out[keep_r][:, keep_c] + (
-            0.0 if residual is None else residual[b, r[:, None], c[None, :]])
+        out = out.numpy()[keep_r][:, keep_c]
+        if residual is not None:
+            out = residual[b, r[:, None], c[None, :]] + out
+        y[b, r[:, None], c[None, :]] = out
         written[b, r[:, None], c[None, :]] += 1
     return y, written
 
 
-@pytest.mark.parametrize("dilation,taps,cin,cout,prologue", [
-    (1, 9, 20, 150, False), (27, 9, 150, 72, True), (81, 9, 150, 72, True),
-    (1, 1, 72, 150, True)])
-def test_f32_kernel_algorithm_matches_the_plain_conv(dilation, taps, cin, cout, prologue):
-    """The float32 kernel's order of work (:func:`_emulate_f32_kernel`) at
-    its 128 x 128 tile against the plain float32 conv: T 300 (a ragged row
-    tile), lengths T, 200, 129, 128, 1 and 0; every element written exactly
-    once (the plan's tiles and the fill blocks), within 1e-5 of the largest
-    |value| (only the order of the sums differs)."""
+def _jax_block_conv(x, w, bias, lengths, dilation, bn=None, residual=None):
+    """The same conv through JAX's float32 ``_masked_conv`` (``Precision.
+    HIGHEST``), the prologue's output and the residual add in float32 around
+    it, as ``proteinfer_embed`` chains them."""
+    if bn is not None:
+        x = np.maximum(x * bn[0] + bn[1], np.float32(0))
+    mask = jpi.length_mask(jnp.asarray(lengths), x.shape[1])
+    y = jpi._masked_conv({"kernel": jnp.asarray(w), "bias": jnp.asarray(bias)}, jnp.asarray(x),
+                         mask, dilation)
+    return np.asarray(y if residual is None else jnp.asarray(residual) + y)
+
+
+@pytest.mark.parametrize("dilation,taps,cin,cout,prologue,wide", [
+    (1, 9, 20, 150, False, False), (27, 9, 150, 72, True, False), (81, 9, 150, 72, True, False),
+    (1, 1, 72, 150, True, False), (3, 9, 150, 72, False, True), (1, 1, 72, 150, True, True)])
+def test_f32_kernel_algorithm_matches_the_plain_conv(dilation, taps, cin, cout, prologue, wide):
+    """The float32 kernel's order of work (:func:`_emulate_f32_kernel`: the
+    bf16x3 split, six products a k-step, each 64-deep stage from zero added
+    into float32) at its 128 x 112 tile against the plain float32 conv, JAX's
+    float32 ``_masked_conv`` and float64: T 300 (a ragged row tile), lengths
+    T, 200, 129, 128, 1 and 0; every element written exactly once (the
+    plan's tiles and the rows it skips), within 1e-5 of the largest |value|
+    (only the order of the sums differs).  ``wide``: activations offset by
+    300 (every third piece carries bits) or, with the prologue, a shift of
+    40 against x * inv of about 0.02, where a bf16 product alone misses by
+    far more than the tolerance."""
     T = 300
     lengths = np.array([T, 200, 129, 128, 1, 0], np.int32)
-    rng = np.random.default_rng(dilation * 7 + cin)
+    rng = np.random.default_rng(dilation * 7 + cin + wide)
     bound = 1.0 / np.sqrt(cin * taps)
     w = rng.uniform(-bound, bound, (taps, cin, cout)).astype(np.float32)
     bias = rng.uniform(-0.3, 0.3, cout).astype(np.float32)
@@ -381,18 +461,36 @@ def test_f32_kernel_algorithm_matches_the_plain_conv(dilation, taps, cin, cout, 
     if prologue:
         bn = (rng.uniform(0.5, 1.5, cin).astype(np.float32),
               rng.normal(0, 0.5, cin).astype(np.float32))
+        if wide:
+            bn = (rng.uniform(0.01, 0.03, cin).astype(np.float32),
+                  rng.uniform(39.0, 41.0, cin).astype(np.float32))
+    elif wide:
+        x = (x + np.float32(300.0)).astype(np.float32)
     if taps == 1:
         residual = rng.normal(size=(len(lengths), T, cout)).astype(np.float32)
     y, written = _emulate_f32_kernel(x, w, bias, lengths, dilation, bn, residual)
     assert (written == 1).all()
     t = torch.from_numpy
-    want = k7.masked_conv_reference(
-        t(x), t(w), t(bias), t(lengths), dilation, None if bn is None else (t(bn[0]), t(bn[1])),
-        None if residual is None else t(residual))
-    _close(y, want.numpy(), name="y")
-    fill = min(k7.F32_FILL_BLOCKS,
-               -(-k7.skipped_rows(lengths, T, 128) * -(-cout // 4) // 256))
-    assert fill == min(132, -(-(0 + 44 + 44 + 172 + 172 + 300) * -(-cout // 4) // 256))
+    args = (t(lengths), dilation, None if bn is None else (t(bn[0]), t(bn[1])),
+            None if residual is None else t(residual))
+    want = k7.masked_conv_reference(t(x), t(w), t(bias), *args).numpy()
+    _close(y, want, name="y")
+    f64 = k7.masked_conv_reference(t(x).double(), t(w).double(), t(bias).double(), args[0],
+                                   dilation, None if bn is None else (t(bn[0]).double(),
+                                                                      t(bn[1]).double()),
+                                   None if residual is None else t(residual).double())
+    _close(y, f64.numpy(), name="y f64")
+    _close(y, _jax_block_conv(x, w, bias, lengths, dilation, bn, residual), name="y jax")
+    if wide:
+        a = x if bn is None else np.maximum(x * bn[0] + bn[1], np.float32(0))
+        assert float((split_bf16x3(t(a))[2] != 0).float().mean()) > 0.5  # the third piece
+        rounded = k7.masked_conv_reference(t(a).to(torch.bfloat16).double(),
+                                           t(w).to(torch.bfloat16).double(), t(bias).double(),
+                                           *args[:2], None,
+                                           None if residual is None else t(residual).double())
+        scale = float(np.abs(f64.numpy()).max())
+        assert float((rounded - f64).abs().max()) > 10 * F32_REL * scale
+    assert k7.skipped_rows(lengths, T, 128) == 0 + 44 + 44 + 172 + 172 + 300
 
 
 # ----------------------------------------------------------------------

@@ -124,14 +124,17 @@ def test_card_dispatch_dtypes(dtype, grad, monkeypatch):
 
 
 def test_float32_kernel_layout_and_plan():
-    """The float32 conv's B operand (taps, C_in rounded up to 16, C_out to
-    128, zero-padded, W[j] as it is) and its plan on 128 x 128 tiles: every
-    tile with a valid first row once, the rows it skips counted."""
+    """The float32 conv's B operand (W[j]^T's three bf16 pieces, (3, taps,
+    C_out rounded up to 112, C_in to 64), zero-padded, summing to the
+    float32 weight exactly) and its plan on 128 x 112 tiles: every tile
+    with a valid first row once, the rows it skips counted."""
     w = torch.randn(9, 550, 1100)
     lay = k7.conv_weight_layout_f32(w)
-    assert lay.shape == (9, 560, 1152) and lay.is_contiguous()
-    assert torch.equal(lay[:, :550, :1100], w) and not lay[:, 550:].any()
-    assert not lay[:, :, 1100:].any()
+    assert lay.shape == (3, 9, 1120, 576) and lay.is_contiguous()
+    assert lay.dtype == torch.bfloat16
+    total = (lay[0].float() + lay[1].float()) + lay[2].float()
+    assert torch.equal(total[:, :1100, :550], w.transpose(1, 2)) and not total[:, 1100:].any()
+    assert not total[:, :, 550:].any()
     lengths = np.array([512, 300, 129, 128, 1, 0])
     plan = k7.conv_tile_plan(lengths, 512, 9, 3, 550, False, k7.F32_BLOCK_M, k7.F32_BLOCK_N)
     ntiles, mtiles = 5, 4

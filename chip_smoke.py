@@ -230,8 +230,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
     the kernel's statistics), their keep mask bit for bit against the
     plain hash over all 3.2e9 elements; ``pair_first_add`` (the same bits),
     ``pair_train_prod`` and ``pair_train_dw_prod`` (2^-6; cuBLAS on the
-    materialised prod rows beside), ``pair_side_sums`` plain and weighted
-    (1e-3, the same bits twice); K1's prod and zero-hidden forms at the
+    materialised prod rows beside; ``pair_train_prod`` also timed on a
+    serving chunk, ReLU'd into K1's padded rows), ``pair_side_sums`` plain
+    and weighted (1e-3, the same bits twice; its partial rows' bytes and
+    floor beside the bound); K1's prod and zero-hidden forms at the
     serving width (``pair_mlp_head``; |dlogit| 5e-2);
 25. dense training (``dense_train_*``): ``Trainer.train`` with
     ``PAIR_BACKEND dense`` and ``OUTPUT_MLP_DROPOUT`` 0.1 at 32 sequences
@@ -5838,14 +5840,16 @@ def phase_dense_kernels(card: str) -> dict:
     bias form, forward and backward (2^-6 of each tensor's largest |value|,
     in column slices), the keep mask the same bits as the plain hash; the
     first layer (``pair_first_add``: the same bits; ``pair_train_prod``:
-    2^-6); its backward (``pair_side_sums`` 1e-3, ``pair_train_dw_prod``
-    2^-6, the weighted side sums of dJ 1e-3); each kernel's time, the plain
-    version's, its bound and the library call's: ``torch.add`` into a bf16
-    out for the first add (the same bits), cuBLAS on the materialised prod
-    rows."""
+    2^-6, and its time on a serving chunk); its backward (``pair_side_sums``
+    1e-3, ``pair_train_dw_prod`` 2^-6, the weighted side sums of dJ 1e-3);
+    each kernel's time, the plain version's, its bound and the library
+    call's: ``torch.add`` into a bf16 out for the first add (the same bits),
+    cuBLAS on the materialised prod rows; the side sums' partial rows'
+    bytes and the floor with them."""
     import torch
 
     from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import pair_scorer as ps
 
     dev = torch.device("cuda")
     Bq, L, d, Hh = TRAIN_B, NUM_LABELS, D_LATENT, H
@@ -5933,13 +5937,26 @@ def phase_dense_kernels(card: str) -> dict:
                                           for l0 in range(0, L, chunk)])
         rows_p = (P_e[:, None] * L_e[None]).reshape(N, d)
         lib_ms = cuda_time_ms(lambda: rows_p @ w, 3)
+        # K1's serving form: a chunk of the serving plan, ReLU'd into its
+        # padded rows (phase 27 runs it once a chunk)
+        sch = ps.launch_plan(Bq, L * K_DESCRIPTIONS, Hh, 2).chunks[0]
+        s_out = torch.empty(Bq * sch.nl_pad, Hh, dtype=torch.bfloat16, device=dev)
+        s_c, s_le, s_wt = c[:sch.nl], L_e[:sch.nl], w.t().contiguous()
+        serve_ms = cuda_time_ms(lambda: ds.pair_prod_cuda(
+            a, s_c, P_e, s_le, w, relu=True, out=s_out, rows_per_seq=sch.nl_pad, wt=s_wt), 10)
+        del s_out
     flop = 2.0 * N * d * Hh
+    serve_bound = bound(ops=2.0 * Bq * sch.nl_pad * d * Hh)["bound_ms"]
     log("dense_prod_first_layer", rel_err=p_err / p_big, rel_tol=K45_REL_TOL, ms=prod_ms,
-        plain_ms=prod_plain_ms, cublas_prod_ms=lib_ms, tflops=flop / prod_ms / 1e9, card=card)
+        plain_ms=prod_plain_ms, cublas_prod_ms=lib_ms, tflops=flop / prod_ms / 1e9,
+        serving_chunk_rows=Bq * sch.nl_pad, serving_chunk_ms=serve_ms,
+        serving_chunk_bound_ms=serve_bound, card=card)
     if p_err > K45_REL_TOL * p_big:
         raise AssertionError(f"pair_train_prod disagrees with its plain version: {p_err}")
     times["pair_train_prod"] = {"max_abs_err": p_err, "ms": prod_ms, "plain_ms": prod_plain_ms,
-                                **bound(nbytes=N * Hh * 2, ops=flop), "library_ms": lib_ms}
+                                **bound(nbytes=N * Hh * 2, ops=flop), "library_ms": lib_ms,
+                                "serving_chunk_ms": serve_ms,
+                                "serving_chunk_bound_ms": serve_bound}
 
     with torch.no_grad():
         dz = dy
@@ -5979,23 +5996,37 @@ def phase_dense_kernels(card: str) -> dict:
             want_l += dJ3[b].float() * P_e[b].float()
         ws_rel = max(rel_err(wb, want_b), rel_err(wl, want_l))
         del dJ, dJ3, want_l, rows_p
+    side_bytes = N * Hh * 2 + (Bq + L) * Hh * 4
+    part_bytes = side_partial_bytes(Bq, L, Hh)
     log("dense_first_backward", side_sums_rel_err=s_rel, side_sums_same_bits=same,
         dw_prod_rel_err=w_rel, weighted_side_sums_rel_err=ws_rel, side_sums_ms=side_ms,
-        side_sums_plain_ms=side_plain_ms, dw_prod_ms=dw_ms, dw_prod_plain_ms=dw_plain_ms,
-        cublas_dw_ms=dw_lib_ms, dw_tflops=flop / dw_ms / 1e9, card=card)
+        side_sums_plain_ms=side_plain_ms, side_sums_partial_bytes=part_bytes,
+        side_sums_floor_ms=bound(nbytes=side_bytes + part_bytes)["bound_ms"], dw_prod_ms=dw_ms,
+        dw_prod_plain_ms=dw_plain_ms, cublas_dw_ms=dw_lib_ms, dw_tflops=flop / dw_ms / 1e9,
+        card=card)
     if not (s_rel <= K7_SUMS_REL_TOL and ws_rel <= K7_SUMS_REL_TOL and w_rel <= K45_REL_TOL
             and same):
         raise AssertionError(f"the first layer's backward disagrees: side sums {s_rel}, "
                              f"weighted {ws_rel}, dW_prod {w_rel}, same bits {same}")
     times["pair_side_sums"] = {"max_abs_err": s_abs, "ms": side_ms, "plain_ms": side_plain_ms,
-                               **bound(nbytes=N * Hh * 2 + (Bq + L) * Hh * 4),
-                               "library_ms": None}
+                               **bound(nbytes=side_bytes), "library_ms": None,
+                               "partial_bytes": part_bytes,
+                               "floor_ms": bound(nbytes=side_bytes + part_bytes)["bound_ms"]}
     times["pair_train_dw_prod"] = {"max_abs_err": w_abs, "ms": dw_ms, "plain_ms": dw_plain_ms,
                                    **bound(nbytes=N * Hh * 2, ops=flop), "library_ms": dw_lib_ms}
     del dy, dz, dz3
     torch.cuda.empty_cache()
     times.update(dense_k1_check(card))
     return times
+
+
+def side_partial_bytes(B: int, L: int, K: int) -> int:
+    """The bytes of ``pair_side_sums``'s partial sb rows (chunks x B x K
+    float32), written and read once: its design's floor beyond the bound."""
+    from protnote_tpu_torch.ops import dense_scorer as ds
+
+    chunks, _ = ds.side_sums_plan(L)
+    return 2 * chunks * B * K * 4
 
 
 def plain_head(a, c, w_out):
@@ -6298,6 +6329,13 @@ def phase_dense_eval(card: str) -> dict:
     return {k: v for k, v in launches.items() if k in DENSE_KERNELS}
 
 
+# phase 27's forms: (name, settings, the kernels each must launch)
+DENSE_SERVING = (
+    ("prod", {"FEATURE_FUSION": "concatenation_prod"}, ("pair_train_prod", "pair_mlp_layer")),
+    ("one_layer", {"OUTPUT_MLP_NUM_LAYERS": 1}, ("pair_mlp_head",)),
+)
+
+
 def phase_dense_serving(card: str) -> dict:
     """Phase 27: ``ServingEngine`` with ``FEATURE_FUSION concatenation_prod``
     (K1's prod form: ``pair_train_prod`` a chunk, then the hidden layers)
@@ -6315,10 +6353,7 @@ def phase_dense_serving(card: str) -> dict:
     matrix = random_label_matrix()
     vocab = [f"GO:{i:07d}" for i in range(NUM_LABELS)]
     total = {}
-    for name, params, needed in (
-            ("prod", {"FEATURE_FUSION": "concatenation_prod"}, ("pair_train_prod",
-                                                                 "pair_mlp_layer")),
-            ("one_layer", {"OUTPUT_MLP_NUM_LAYERS": 1}, ("pair_mlp_head",))):
+    for name, params, needed in DENSE_SERVING:
         pi_cfg, pn_cfg, ts = dense_models(**params)
         engine = ServingEngine(ts, pi_cfg, pn_cfg, matrix, vocab, buckets=(512, 1024),
                                max_batch=B, device="cuda")
@@ -7532,10 +7567,13 @@ def phase_stream_dense_f32_kernels(card: str) -> dict:
                                     "plain_ms": prod_plain_ms,
                                     **bound(nbytes=N * Hh * 4, ops=flop, peak=SPLIT_FLOPS),
                                     "library_ms": prod_lib_ms}
+    part_bytes = side_partial_bytes(Bq, L, Hh)
     times["pair_side_sums_f32"] = {"max_abs_err": s_abs, "ms": side_ms,
                                    "plain_ms": side_plain_ms,
                                    **bound(nbytes=N * Hh * 4 + (Bq + L) * Hh * 4),
-                                   "library_ms": None}
+                                   "library_ms": None, "partial_bytes": part_bytes,
+                                   "floor_ms": bound(nbytes=N * Hh * 4 + (Bq + L) * Hh * 4 +
+                                                     part_bytes)["bound_ms"]}
     times["pair_train_dw_prod_f32"] = {"max_abs_err": w_abs, "ms": dw_ms,
                                        "plain_ms": dw_plain_ms,
                                        **bound(nbytes=N * Hh * 4, ops=flop, peak=SPLIT_FLOPS),

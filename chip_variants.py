@@ -268,13 +268,25 @@ hash, with 4- and 16-row moment tiles, with the apply pass held at 8 blocks an S
 in flight in the sums pass (not 2), 3 or 4 sums blocks an SM (not 2), 4
 rows unrolled in the dz pass (not 2) and the dz pass at 8 blocks an SM.
 
-    python3 chip_variants.py --dense-train-against DIR
+    python3 chip_variants.py --dense-train-against DIR [SETTING]
 
-runs ``chip_smoke.py``'s dense training phase alone for its
-``dense_dropout`` setting (``PAIR_BACKEND dense``, ``OUTPUT_MLP_DROPOUT``
-0.1, 32 sequences a step, 8 steps) on DIR's package and on this one, in
-the same turns, and prints the median warm step, seqs/s, peak memory and
-idle share of each and the change's mean over DIR's.
+runs ``chip_smoke.py``'s dense training phase alone for one setting of its
+``DENSE_SETTINGS`` (``dense_dropout`` unless named, or ``prod``, ``no_bn``,
+``remat``; ``PAIR_BACKEND dense``, ``OUTPUT_MLP_DROPOUT`` 0.1, 32 sequences
+a step, 8 steps) on DIR's package and on this one, in the same turns, and
+prints the median warm step, seqs/s, peak memory and idle share of each and
+the change's mean over DIR's.  ``--dense-serve-against DIR`` does the same
+for the dense serving phase's ``prod`` form (K1 with
+``concatenation_prod``: a ``pair_train_prod`` launch a label chunk): its
+batch ms and seqs/s.
+
+    python3 chip_variants.py --dense-first
+
+times the dense first layer's kernels against their first designs in turns
+(``dense_first_variants``): ``pair_side_sums`` and ``pair_train_prod``, each
+checked first (the same bits where the design keeps the order of work),
+with parts taken out (``DENSE_FIRST_SUBS``), K4 and cuBLAS beside, and the
+L2's read rate.
 """
 
 from __future__ import annotations
@@ -1524,6 +1536,295 @@ def k5_dense_variants(build_dir: str, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# text replaced in csrc/pair_dense.cu ("side_*") or csrc/pair_train.cu
+# ("prod_*"): (old, new), each old found exactly once
+DENSE_FIRST_SUBS = {
+    # x by plain 16-byte loads from global memory, 8 labels' rows a warp in
+    # flight (the ring brings only u); x's pointer passed down to the kernel
+    "side_direct": [
+        ("                 const T* __restrict__ u, const T* __restrict__ v, float* __restrict__ part,\n",
+         "                 const T* __restrict__ x, const T* __restrict__ u, const T* __restrict__ v,\n"
+         "                 float* __restrict__ part,\n"),
+        ("cudaError_t launch_side_sums(const CUtensorMap (&maps)[2], const T* u,",
+         "cudaError_t launch_side_sums(const CUtensorMap (&maps)[2], const T* x, const T* u,"),
+        ("(maps[0], maps[1], u, v, part, sl,", "(maps[0], maps[1], x, u, v, part, sl,"),
+        ("launch_side_sums<T>(maps, static_cast<const T*>(u),",
+         "launch_side_sums<T>(maps, static_cast<const T*>(x), static_cast<const T*>(u),"),
+        ("      const uint32_t tx = weighted_l ? Lay::STAGE : Lay::X_BYTES;\n",
+         "      const uint32_t tx = weighted_l ? Lay::U_BYTES : 0;\n"),
+        ("          tma_load_3d(st, &tm_x, c0, chunk * Lay::M, b, full_bar(s));\n", ""),
+        ("          xr.load(xs + (warp + WARPS * i) * COLS, lane);\n",
+         "          xr.load(x + ((size_t)b * L + l0 + WARPS * i) * K + c0, lane);\n")],
+    # the loads alone: the ring's stages waited for and released, x not read
+    "side_loads_only": [("        if (l0 + WARPS * i < L) {  // the same for every lane of the warp\n",
+                         "        if (false) {\n")],
+    # z not stored (the producer's TMA stores taken out)
+    "prod_no_stores": [
+        ("            tma_store_3d(&tm_z, base + Lay::C_OFF + (w * (BN / 64) + part) * EPI_BOX,\n"
+         "                         it.n0 + 64 * part, it.l0, 2 * it.p + w);\n", "            {}\n")],
+    # the epilogue's c from global memory (no c tile by TMA); c's pointer and
+    # L passed down to the kernel
+    "prod_global_c": [
+        ("const float* __restrict__ ea, int B,\n",
+         "const float* __restrict__ ea, const float* __restrict__ ec, int L, int B,\n"),
+        ("cudaError_t launch_prod(const CUtensorMap (&maps)[5], const float* a, int B,",
+         "cudaError_t launch_prod(const CUtensorMap (&maps)[5], const float* a, const float* ec,\n"
+         "                        int L, int B,"),
+        ("maps[3], maps[4], a, B, K,", "maps[3], maps[4], a, ec, L, B, K,"),
+        ("launch_prod<256>(maps, a_, B,", "launch_prod<256>(maps, a_, static_cast<const float*>(c), L, B,"),
+        ("launch_prod<128>(maps, a_, B,", "launch_prod<128>(maps, a_, static_cast<const float*>(c), L, B,"),
+        ("        mbar_expect_tx(c_full, Lay::C_BYTES);\n#pragma unroll\n"
+         "        for (int j = 0; j < BN / C_BOX_COLS; ++j)\n"
+         "          tma_load(base + Lay::C_OFF + j * PM * 128, &tm_c, it.n0 + j * C_BOX_COLS, "
+         "it.l0,\n                   c_full);\n",
+         "        mbar_expect_tx(c_full, 0);\n        (void)it;\n"),
+        ("        const float2 cv = *reinterpret_cast<const float2*>(\n"
+         "            smem + Lay::C_OFF + (j / 4) * PM * 128 + r * 128 + ((chunk ^ (r & 7)) << 4) +\n"
+         "            8 * (q & 1));\n",
+         "        const float2 cv = it.l0 + r < L ? *reinterpret_cast<const float2*>(\n"
+         "            ec + (size_t)(it.l0 + r) * N + it.n0 + 8 * j + 2 * q) : make_float2(0.f, 0.f);\n"
+         "        (void)chunk;\n")],
+}
+
+
+def dense_first_variants(build_dir: str, card: str) -> None:
+    """``--dense-first``: the dense first layer's kernels against their first
+    designs in turns, then with parts taken out: ``pair_side_sums`` (bf16 at
+    32 sequences, float32 at 16; dz's sums at K 3072 and dJ's weighted sums
+    at K 1024) against ``csrc/variants/pair_dense_v1.cu``, by plain 16-byte
+    loads and with its loads alone; ``pair_train_prod`` (32 x 32,102, d
+    1024, H 3072, and a serving chunk with ReLU into K1's padded rows)
+    against ``csrc/variants/pair_train_prod_v1.cu``, without its stores and
+    with the epilogue's c from global memory, with K4 (``pair_train_hidden``) against its parent form and
+    cuBLAS on the materialised prod rows beside; the L2's read rate
+    (``csrc/variants/l2_read.cu``)."""
+    import statistics
+
+    import torch
+
+    import chip_smoke as cs
+    from protnote_tpu_torch.ops import dense_scorer as ds
+    from protnote_tpu_torch.ops import kernels
+    from protnote_tpu_torch.ops import pair_scorer as ps
+    from protnote_tpu_torch.ops.streaming_train import _chunks, pair_train_plan
+
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    side = build_subs(build_dir, "pair_dense", (kernels.CSRC_DIR / "pair_dense.cu").read_text(),
+                      {k: v for k, v in DENSE_FIRST_SUBS.items() if k.startswith("side")},
+                      {"first": os.path.join(VARIANT_DIR, "pair_dense_v1.cu"),
+                       "l2": os.path.join(VARIANT_DIR, "l2_read.cu")})
+    prod = build_subs(build_dir, "pair_train", (kernels.CSRC_DIR / "pair_train.cu").read_text(),
+                      {k: v for k, v in DENSE_FIRST_SUBS.items() if k.startswith("prod")},
+                      {"first": os.path.join(VARIANT_DIR, "pair_train_prod_v1.cu")})
+    l2 = side.pop("l2")
+    l2.l2_read.argtypes = [P, LL, I, I, I, I, P, P]
+    for lib in side.values():
+        for sym in ("pair_side_sums", "pair_side_sums_f32"):
+            getattr(lib, sym).argtypes = [P] * 6 + [I] * 4 + [LL, P]
+    for lib in prod.values():
+        lib.pair_train_prod.argtypes = [P] * 6 + [I] * 8 + [P]
+        lib.pair_train_hidden.argtypes = [P] * 4 + [I] * 6 + [P]
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = dict(dtype=torch.float32, device=dev)
+    L = cs.NUM_LABELS
+
+    failed = []  # checks that failed, raised once every part has run
+
+    def median(r, label):
+        ms = r[label]["ms"]
+        dv = [x for x in r[label]["device_ms"] if x is not None]
+        return {"ms": ms, "median_ms": statistics.median(ms), "device_ms": dv,
+                "median_device_ms": statistics.median(dv) if dv else None,
+                "kernels_ms": r[label]["kernels_ms"]}
+
+    # ---- pair_side_sums ---------------------------------------------------
+    for dtype, Bq in ((torch.bfloat16, cs.TRAIN_B), (torch.float32, cs.DENSE_F32_B)):
+        sfx = "_f32" if dtype == torch.float32 else ""
+        for K, weighted in ((cs.H, False), (cs.D_LATENT, True)):
+            gen = torch.Generator(device=dev).manual_seed(K)
+            x = torch.randn(Bq * L, K, device=dev, generator=gen).to(dtype)
+            u = torch.randn(Bq, K, device=dev, generator=gen).to(dtype) if weighted else None
+            v = torch.randn(L, K, device=dev, generator=gen).to(dtype) if weighted else None
+            outs, scratch = {}, []
+
+            def call(name, per=64):
+                lib = side[name]
+                chunks = -(-L // per)
+                part = torch.empty(chunks, Bq * K, **f32)
+                sb, sl = torch.empty(Bq, K, **f32), torch.empty(L, K, **f32)
+                outs[name] = (sb, sl)
+                scratch.append(part)  # the launches below keep its pointer
+                args = (x.data_ptr(), None if u is None else u.data_ptr(),
+                        None if v is None else v.data_ptr(), part.data_ptr(), sb.data_ptr(),
+                        sl.data_ptr(), Bq, L, K, chunks, per, stream)
+                fn = getattr(lib, f"pair_side_sums{sfx}")
+                return lambda: cs_raise(fn(*args))
+
+            calls = [("kept", call("kept")), ("first", call("first", _chunks(L)[1]))]
+            for _, fn in calls:
+                fn()
+            sb1, sl1 = outs["first"]
+            sb_k, sl_k = outs["kept"]
+            runs = []
+            for _ in range(3):
+                runs.append((sb_k.clone(), sl_k.clone()))
+                calls[0][1]()
+            torch.cuda.synchronize()
+            x3 = x.view(Bq, L, K)
+            want_b = torch.stack([(x3[b].float() * (1.0 if v is None else v.float())).sum(0)
+                                  for b in range(Bq)])
+            check = {"same_bits_twice": all(torch.equal(sb_k, a) and torch.equal(sl_k, b)
+                                            for a, b in runs)}
+            if not check["same_bits_twice"]:
+                check["runs_differ"] = [
+                    {"sb": int((sb_k != a).sum()), "sl": int((sl_k != b).sum()),
+                     "sl_rows": sorted({int(i) for i in (sl_k != b).any(1).nonzero()[:, 0]})[:12],
+                     "sb_cols": sorted({int(i) for i in (sb_k != a).any(0).nonzero()[:, 0]})[:12],
+                     "sl_vs_first": int((b != sl1).sum())} for a, b in runs]
+            check["sl_first_bits"] = bool(torch.equal(sl_k, sl1))
+            check["sb_rel_first"] = cs.rel_err(sb_k, sb1)
+            check["sb_rel_plain"] = cs.rel_err(sb_k, want_b)
+            del want_b
+            tol = cs.depth_tol(L) if sfx else cs.K7_SUMS_REL_TOL
+            cs.log("dense_first_side_check", dtype=str(dtype), sequences=Bq, width=K,
+                   weighted=weighted, rel_tol=tol, **check, card=card)
+            if not check["same_bits_twice"] or not check["sl_first_bits"] or \
+                    check["sb_rel_plain"] > tol:
+                failed.append(f"pair_side_sums{sfx}: {check}")
+            calls += [("direct", call("side_direct")), ("loads_only", call("side_loads_only"))]
+            nbytes = x.numel() * x.element_size() + L * K * 4 + (
+                0 if u is None else (u.numel() + v.numel()) * x.element_size())
+            rounds = [timed_turns(calls, 5) for _ in range(2)]
+            for label, _ in calls:
+                merged = {k: [y for r in rounds for y in r[label][k]] for k in ("ms", "device_ms")}
+                merged["kernels_ms"] = rounds[-1][label]["kernels_ms"]
+                per = _chunks(L)[1] if label == "first" else 64
+                part_bytes = 2 * (-(-L // per)) * Bq * K * 4
+                cs.log("dense_first_side_turns", variant=label, dtype=str(dtype), sequences=Bq,
+                       width=K, weighted=weighted, **median({label: merged}, label),
+                       **cs.bound(nbytes=nbytes), partial_bytes=part_bytes,
+                       floor_ms=cs.bound(nbytes=nbytes + part_bytes)["bound_ms"], card=card)
+            del x, u, v, outs, scratch, calls
+            torch.cuda.empty_cache()
+
+    # ---- pair_train_prod and K4 ---------------------------------------------
+    Bq, d, Hh = cs.TRAIN_B, cs.D_LATENT, cs.H
+    gen = torch.Generator(device=dev).manual_seed(71)
+    a = torch.randn(Bq, Hh, device=dev, generator=gen)
+    c = torch.randn(L, Hh, device=dev, generator=gen)
+    P_e = torch.randn(Bq, d, device=dev, generator=gen).to(torch.bfloat16)
+    L_e = torch.randn(L, d, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(d, Hh, device=dev, generator=gen) * (2.0 / d) ** 0.5).to(torch.bfloat16)
+    wt = w.t().contiguous()
+    plan = ds.prod_plan(Bq, L, d, Hh, sms)
+    z = {k: torch.empty(Bq * L, Hh, dtype=torch.bfloat16, device=dev) for k in ("kept", "other")}
+
+    def prod_call(name, out, a_=a, c_=c, le=L_e, Lrows=L, Lz=L, relu=0):
+        fn = prod[name].pair_train_prod
+        args = (P_e.data_ptr(), le.data_ptr(), wt.data_ptr(), a_.data_ptr(), c_.data_ptr(),
+                out.data_ptr(), Bq, Lrows, Lz, d, Hh, relu, plan.block_n, plan.grid, stream)
+        return lambda: cs_raise(fn(*args))
+
+    same = {}
+    for name in ("first", "prod_global_c"):
+        prod_call("kept", z["kept"])()
+        prod_call(name, z["other"])()
+        torch.cuda.synchronize()
+        same[name] = bool(torch.equal(z["kept"], z["other"]))
+    # the serving form: ReLU into K1's padded rows, a chunk of each plan
+    kplan = ps.launch_plan(Bq, L * cs.K_DESCRIPTIONS, Hh, 2)
+    crow = torch.randn(L * cs.K_DESCRIPTIONS, Hh, device=dev, generator=gen)
+    lrow = torch.randn(L * cs.K_DESCRIPTIONS, d, device=dev, generator=gen).to(torch.bfloat16)
+    serve = {}
+    for ch in (kplan.chunks[0], kplan.chunks[-1]):
+        outs = []
+        for name in ("kept", "first"):
+            o = torch.full((Bq * ch.nl_pad, Hh), float("nan"), dtype=torch.bfloat16, device=dev)
+            cl, ll = crow[ch.l0:ch.l0 + ch.nl], lrow[ch.l0:ch.l0 + ch.nl]
+            fn = prod[name].pair_train_prod
+            cs_raise(fn(P_e.data_ptr(), ll.data_ptr(), wt.data_ptr(), a.data_ptr(), cl.data_ptr(),
+                        o.data_ptr(), Bq, ch.nl, ch.nl_pad, d, Hh, 1, plan.block_n, plan.grid,
+                        stream))
+            outs.append(o)
+        torch.cuda.synchronize()
+        serve[f"chunk_{ch.l0}_{ch.nl}_{ch.nl_pad}"] = bool(
+            ((outs[0] == outs[1]) | (outs[0].isnan() & outs[1].isnan())).all())
+        del outs
+    ch = kplan.chunks[0]
+    srv = {n: torch.empty(Bq * ch.nl_pad, Hh, dtype=torch.bfloat16, device=dev)
+           for n in ("kept", "first")}
+    cl, ll = crow[:ch.nl].contiguous(), lrow[:ch.nl].contiguous()
+    # K4 on the same frame at its own depth (K 3072), kept and parent forms
+    a2 = torch.randn(Bq, Hh, device=dev, generator=gen).to(torch.bfloat16)
+    c2 = torch.randn(L, Hh, device=dev, generator=gen).to(torch.bfloat16)
+    w2t = (torch.randn(Hh, Hh, device=dev, generator=gen) * Hh ** -0.5).to(torch.bfloat16)
+    k4plan = pair_train_plan(Bq, L, Hh, Hh, sms)
+
+    def k4_call(name, out):
+        fn = prod[name].pair_train_hidden
+        args = (a2.data_ptr(), c2.data_ptr(), w2t.data_ptr(), out.data_ptr(), Bq, L, Hh, Hh,
+                k4plan.block_n, k4plan.grid, stream)
+        return lambda: cs_raise(fn(*args))
+
+    k4_call("kept", z["kept"])()
+    k4_call("first", z["other"])()
+    torch.cuda.synchronize()
+    same["k4_parent"] = bool(torch.equal(z["kept"], z["other"]))
+    cs.log("dense_first_prod_check", same_bits_as_kept=same, serving_same_bits=serve,
+           plan={"grid": plan.grid, "items": plan.items, "block_n": plan.block_n}, card=card)
+    if not all(same.values()) or not all(serve.values()):
+        failed.append(f"pair_train_prod / K4 bits: {same}, serving {serve}")
+    rows_p = (P_e[:, None] * L_e[None]).reshape(Bq * L, d)
+    calls = [("kept", prod_call("kept", z["kept"])),
+             ("first", prod_call("first", z["other"])),
+             ("global_c", prod_call("prod_global_c", z["other"])),
+             ("no_stores", prod_call("prod_no_stores", z["other"])),
+             ("serving_kept", prod_call("kept", srv["kept"], c_=cl, le=ll, Lrows=ch.nl,
+                                        Lz=ch.nl_pad, relu=1)),
+             ("serving_first", prod_call("first", srv["first"], c_=cl, le=ll, Lrows=ch.nl,
+                                         Lz=ch.nl_pad, relu=1)),
+             ("k4_kept", k4_call("kept", z["kept"])),
+             ("k4_first", k4_call("first", z["other"])),
+             ("cublas", lambda: rows_p @ w)]
+    flop = 2.0 * Bq * L * d * Hh
+    rounds = [timed_turns(calls, 5) for _ in range(2)]
+    for label, _ in calls:
+        merged = {k: [y for r in rounds for y in r[label][k]] for k in ("ms", "device_ms")}
+        merged["kernels_ms"] = rounds[-1][label]["kernels_ms"]
+        m = median({label: merged}, label)
+        if label.startswith("serving"):
+            extra = cs.bound(ops=2.0 * Bq * ch.nl_pad * d * Hh)
+        elif label.startswith("k4"):
+            extra = cs.bound(ops=2.0 * Bq * L * Hh * Hh)
+        else:
+            extra = {**cs.bound(nbytes=Bq * L * Hh * 2, ops=flop),
+                     "tflops": flop / m["median_ms"] / 1e9}
+        cs.log("dense_first_prod_turns", variant=label, **m, **extra, card=card)
+    del z, srv, rows_p, a2, c2, w2t
+    torch.cuda.empty_cache()
+
+    # ---- the L2's read rate -------------------------------------------------
+    buf = torch.randn(6 * 2**20 // 4, device=dev)  # W_prod^T's 6 MB
+    out = torch.empty(4 * 2048, dtype=torch.int32, device=dev)
+    for region_kb in (512, 64):
+        n16 = region_kb * 1024 // 16
+        regions = 6 * 1024 // region_kb
+        for grid, threads in ((sms, 512), (2 * sms, 512), (4 * sms, 256)):
+            iters = 20
+
+            def go(n16=n16, regions=regions, grid=grid, threads=threads, iters=iters):
+                cs_raise(l2.l2_read(buf.data_ptr(), n16, regions, iters, grid, threads,
+                                    out.data_ptr(), stream))
+
+            ms = cs.cuda_time_ms(go, 3)
+            cs.log("dense_first_l2_rate", region_kb=region_kb, blocks=grid, threads=threads,
+                   ms=ms, tb_per_s=grid * iters * region_kb * 1024 / ms / 1e9, card=card)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def cs_raise(rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"a K5 dense entry point returned CUDA error {rc}")
@@ -2068,10 +2369,10 @@ def train_turn(tree: str) -> None:
     cs.phase_training(cs.card_line())
 
 
-def dense_train_turn(tree: str) -> None:
+def dense_train_turn(tree: str, setting: str = "dense_dropout") -> None:
     """One turn of ``--dense-train-against``: ``chip_smoke.py``'s dense
-    training phase for its ``dense_dropout`` setting alone (8 steps) in a
-    fresh process, on the package in ``tree``; prints its lines."""
+    training phase for one setting of its ``DENSE_SETTINGS`` alone (8 steps)
+    in a fresh process, on the package in ``tree``; prints its lines."""
     from concurrent.futures import ThreadPoolExecutor
 
     sys.path.insert(0, tree)
@@ -2084,12 +2385,36 @@ def dense_train_turn(tree: str) -> None:
     if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
         raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
     names = ("pair_scorer", "eval_accumulator", "bn_relu", "pair_dense", "masked_conv",
-             "masked_pool", "streamed_bn")
+             "masked_pool", "streamed_bn", "pair_train", "pair_train_bwd")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(load_kernel_library, names))
-    cs.DENSE_SETTINGS = tuple(s for s in cs.DENSE_SETTINGS if s[0] == "dense_dropout")
+    cs.DENSE_SETTINGS = tuple(s for s in cs.DENSE_SETTINGS if s[0] == setting)
+    if not cs.DENSE_SETTINGS:
+        raise ValueError(f"no dense training setting {setting}")
     cs.DENSE_STEPS = 8
     cs.phase_dense_training(cs.card_line())
+
+
+def dense_serve_turn(tree: str) -> None:
+    """One turn of ``--dense-serve-against``: ``chip_smoke.py``'s dense
+    serving phase for its ``prod`` form alone (parity, then three full
+    batches) in a fresh process, on the package in ``tree``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import protnote_tpu_torch
+    from protnote_tpu_torch.ops.kernels import load_kernel_library
+
+    if not protnote_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {protnote_tpu_torch.__file__}, not the package in {tree}")
+    names = ("pair_scorer", "pair_train", "masked_conv", "masked_pool")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_kernel_library, names))
+    cs.DENSE_SERVING = tuple(f for f in cs.DENSE_SERVING if f[0] == "prod")
+    cs.phase_dense_serving(cs.card_line())
 
 
 def encoder_train_turn(tree: str) -> None:
@@ -2149,15 +2474,15 @@ def eval_turn(tree: str) -> None:
     cs.log("eval_turn", seconds=sec, seqs_per_s=len(ds) / sec, map_micro=m["map_micro"])
 
 
-def turns(parent: str, flag: str, card: str) -> list:
-    """``chip_variants.py FLAG TREE`` in DIR, this checkout, this, DIR, one
-    process a turn; the JSON lines each printed, by phase (the last line
-    under "turn")."""
+def turns(parent: str, flag: str, card: str, *extra: str) -> list:
+    """``chip_variants.py FLAG TREE [EXTRA]`` in DIR, this checkout, this,
+    DIR, one process a turn; the JSON lines each printed, by phase (the last
+    line under "turn")."""
     import chip_smoke as cs
 
     out = []
     for tree in (parent, ROOT, ROOT, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree, *extra],
                               capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             raise RuntimeError(f"the turn in {tree} failed:\n{proc.stdout}{proc.stderr}")
@@ -2211,21 +2536,38 @@ def train_against(parent: str, card: str) -> None:
            **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
 
 
-def dense_train_against(parent: str, card: str) -> None:
-    """``--dense-train-against``: the dense ``dense_dropout`` training step
-    alone in DIR and in this checkout, in turns."""
+def dense_train_against(parent: str, card: str, setting: str = "dense_dropout") -> None:
+    """``--dense-train-against DIR [SETTING]``: one dense training setting
+    (``dense_dropout`` unless named: ``prod``, ``no_bn``, ``remat``) alone
+    in DIR and in this checkout, in turns."""
     import chip_smoke as cs
 
     parent = os.path.abspath(parent)
     results = []
-    for r in turns(parent, "--dense-train-turn", card):
-        t = r["dense_train_dense_dropout"]
+    for r in turns(parent, "--dense-train-turn", card, setting):
+        t = r[f"dense_train_{setting}"]
         results.append({"tree": r["tree"], "median_warm_step_ms": t["median_warm_step_ms"],
                         "seqs_per_s": t["seqs_per_s"], "peak_mem_gb": t["peak_mem_gb"],
                         "profiled_wall_ms_per_step": t["profiled_wall_ms_per_step"],
                         "idle_share": t["idle_share"]})
-    cs.log("dense_train_against", parent=parent, turns=results, card=card,
+    cs.log("dense_train_against", parent=parent, setting=setting, turns=results, card=card,
            **mean_over_turns(results, parent, [k for k in results[0] if k != "tree"]))
+
+
+def dense_serve_against(parent: str, card: str) -> None:
+    """``--dense-serve-against DIR``: the prod serving batch (K1's prod form,
+    32 sequences against 64,204 label rows) alone in DIR and in this
+    checkout, in turns."""
+    import chip_smoke as cs
+
+    parent = os.path.abspath(parent)
+    results = []
+    for r in turns(parent, "--dense-serve-turn", card):
+        t = r["dense_serving_prod"]
+        results.append({"tree": r["tree"], "batch_ms": t["batch_ms"],
+                        "seqs_per_s": t["seqs_per_s"]})
+    cs.log("dense_serve_against", parent=parent, turns=results, card=card,
+           **mean_over_turns(results, parent, ["batch_ms", "seqs_per_s"]))
 
 
 def encoder_train_against(parent: str, card: str) -> None:
@@ -3048,8 +3390,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--encoder-train-turn"]:
         encoder_train_turn(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--dense-serve-turn"]:
+        dense_serve_turn(sys.argv[2])
+        return
     if sys.argv[1:2] == ["--dense-train-turn"]:
-        dense_train_turn(sys.argv[2])
+        dense_train_turn(*sys.argv[2:4])
         return
     sys.path.insert(0, ROOT)
     import torch
@@ -3076,13 +3421,22 @@ def main() -> None:
         encoder_train_against(sys.argv[2], card)
         print(card)
         return
+    if sys.argv[1:2] == ["--dense-serve-against"]:
+        dense_serve_against(sys.argv[2], card)
+        print(card)
+        return
     if sys.argv[1:2] == ["--dense-train-against"]:
-        dense_train_against(sys.argv[2], card)
+        dense_train_against(sys.argv[2], card, *sys.argv[3:4])
         print(card)
         return
     if sys.argv[1:2] == ["--k5-dense"]:
         with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
             k5_dense_variants(build_dir, card)
+        print(card)
+        return
+    if sys.argv[1:2] == ["--dense-first"]:
+        with tempfile.TemporaryDirectory(dir=ROOT) as build_dir:
+            dense_first_variants(build_dir, card)
         print(card)
         return
     if sys.argv[1:2] == ["--k7-bn"]:

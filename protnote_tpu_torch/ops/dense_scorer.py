@@ -61,13 +61,14 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 from functools import partial
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from protnote_tpu_torch.models.layers import Params, gemm_precision, linear
-from protnote_tpu_torch.ops.pair_scorer import _f32_product, stacked_pieces
+from protnote_tpu_torch.ops.pair_scorer import _block_n, _f32_product, stacked_pieces
 from protnote_tpu_torch.ops.streaming_train import (
     BN_EPS,
     F32_TILE,
@@ -84,7 +85,6 @@ from protnote_tpu_torch.ops.streaming_train import (
     affine_relu_reference,
     pair_dw_plan,
     pair_train_f32_plan,
-    pair_train_plan,
 )
 
 # the kernels' entry points (each with its float32 form, ``_f32``)
@@ -602,15 +602,85 @@ def _check_first_cuda(a, c, P_e, L_e, w_prod) -> None:
                          "multiple of 128")
 
 
+PROD_ROWS = 64  # label rows of a warpgroup's tile in pair_train_prod (csrc/pair_train.cu PM)
+
+
+@dataclass(frozen=True)
+class ProdPlan:
+    """``pair_train_prod``'s schedule (``csrc/pair_train.cu:pair_prod_kernel``):
+    ``items`` work items of ``PROD_ROWS`` labels x a pair of sequences x
+    ``block_n`` columns, walked by ``grid`` persistent blocks (block i takes
+    items i, i + grid, ...).  Item t is column tile ``t % tiles_n`` of
+    sequence pair ``(t // tiles_n) % pairs`` in label tile ``t // (tiles_n *
+    pairs)``: label tiles outermost, so the blocks in flight share one c and
+    one L_e tile in L2.  Warpgroup w computes sequence ``2p + w`` of each
+    item, both on the item's shared stages.  Label tiles cover
+    ``rows_per_seq`` rows a sequence (K1's padded chunk): rows past L take c
+    and L_e as 0."""
+
+    batch: int
+    labels: int
+    rows_per_seq: int
+    width_out: int
+    block_n: int
+    tiles_l: int
+    pairs: int
+    tiles_n: int
+    grid: int
+
+    @property
+    def items(self) -> int:
+        return self.tiles_l * self.pairs * self.tiles_n
+
+    def item(self, t: int) -> Tuple[int, int, int]:
+        """``(pair, first label, first column)`` of item ``t``."""
+        u = t // self.tiles_n
+        return u % self.pairs, (u // self.pairs) * PROD_ROWS, (t % self.tiles_n) * self.block_n
+
+    def tiles(self, block: int) -> List[Tuple[int, int, int, int, int]]:
+        """Block ``block``'s warpgroup tiles, item by item and warpgroup 0
+        first: ``(warpgroup, sequence, first label, rows stored, first
+        column)``; a sequence past B is computed and not stored (rows 0)."""
+        out = []
+        for t in range(block, self.items, self.grid):
+            p, l0, n0 = self.item(t)
+            for w in (0, 1):
+                b = 2 * p + w
+                rows = min(PROD_ROWS, self.rows_per_seq - l0) if b < self.batch else 0
+                out.append((w, b, l0, rows, n0))
+        return out
+
+
+def prod_plan(B: int, L: int, K: int, N: int, num_sms: int,
+              rows_per_seq: Optional[int] = None) -> ProdPlan:
+    """``pair_train_prod``'s plan for P_e (B, K), L_e (L, K) and W (K, N)
+    into rows ``b * rows_per_seq + l`` (default L).  The column tile is 256
+    where N allows it, else 128.  Raises for widths the kernel does not
+    take: K and N multiples of 128."""
+    Lz = L if rows_per_seq is None else rows_per_seq
+    if B <= 0 or L <= 0 or Lz < L or num_sms <= 0:
+        raise ValueError(f"no pair_train_prod plan for B {B}, L {L}, rows {Lz} on {num_sms} SMs")
+    if K <= 0 or N <= 0 or K % 128 or N % 128:
+        raise ValueError(f"pair_train_prod takes widths (in {K}, out {N}) that are multiples "
+                         "of 128")
+    block_n = _block_n(N)
+    tiles_l, pairs, tiles_n = -(-Lz // PROD_ROWS), -(-B // 2), N // block_n
+    if tiles_l * pairs * tiles_n > 2**31 - 1:
+        raise ValueError(f"B {B} x rows {Lz} x N {N}: more items than the kernel counts")
+    return ProdPlan(B, L, Lz, N, block_n, tiles_l, pairs, tiles_n,
+                    min(num_sms, tiles_l * pairs * tiles_n))
+
+
 def pair_prod_cuda(a, c, P_e, L_e, w_prod, relu: bool = False, out: Optional[torch.Tensor] = None,
                    rows_per_seq: Optional[int] = None,
                    wt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``pair_train_prod`` (``csrc/pair_train.cu``): ``bf16(a[b] + c[l] +
     bf16(p[b] * l[l]) @ W_prod)`` (ReLU'd when ``relu``) over every pair, K4's
-    mainloop with A formed in registers.  Row ``b * rows_per_seq + l`` of
-    ``out`` (default a new (B * L, H) tensor, ``rows_per_seq`` = L); rows in
-    [L, rows_per_seq) of a sequence's block hold ``a[b]`` (the padding of
-    K1's chunks).  ``wt``: W_prod already transposed to (H, d) bf16.
+    mainloop with A formed in registers, on :func:`prod_plan`.  Row ``b *
+    rows_per_seq + l`` of ``out`` (default a new (B * L, H) tensor,
+    ``rows_per_seq`` = L); rows in [L, rows_per_seq) of a sequence's block
+    hold ``a[b]`` (ReLU'd when ``relu``: the padding of K1's chunks).
+    ``wt``: W_prod already transposed to (H, d) bf16.
 
     For float32 P_e and L_e, ``pair_train_prod_f32`` (``csrc/pair_scorer_
     f32.cu``): ``(p[b] * l[l]) @ W_prod + (a[b] + c[l])`` in float32 through
@@ -639,7 +709,7 @@ def pair_prod_cuda(a, c, P_e, L_e, w_prod, relu: bool = False, out: Optional[tor
         out = torch.empty(B * Lz, N, dtype=torch.bfloat16, device=a.device)
     if out.dtype != torch.bfloat16 or out.numel() < B * Lz * N or not out.is_contiguous():
         raise ValueError("out must be a contiguous bf16 tensor of B * rows_per_seq rows")
-    plan = pair_train_plan(B, L, K, N, sms)
+    plan = prod_plan(B, L, K, N, sms, Lz)
     if wt is None:
         wt = w_prod.to(torch.bfloat16).t().contiguous()
     _launch("pair_train", "pair_train_prod", a.device, P_e.data_ptr(), L_e.data_ptr(),
@@ -662,12 +732,24 @@ def _first_fwd_cuda(a, c, P_e, L_e, w_prod):
     return z
 
 
+SIDE_CHUNK = 64  # labels a chunk of the side sums' kernel (csrc/pair_dense.cu: 8 warps of 8)
+
+
+def side_sums_plan(L: int) -> Tuple[int, int]:
+    """``(chunks, SIDE_CHUNK)``: the label chunks of ``pair_side_sums``
+    (the last clipped at L)."""
+    if L <= 0:
+        raise ValueError(f"the side sums take at least one label, not {L}")
+    return -(-L // SIDE_CHUNK), SIDE_CHUNK
+
+
 def side_sums_cuda(x: torch.Tensor, B: int, L: int, u: Optional[torch.Tensor] = None,
                    v: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``pair_side_sums`` (``csrc/pair_dense.cu``): for x (B * L, K) bf16
     (or float32: ``pair_side_sums_f32``), ``sb[b] = sum_l x[b, l] * v[l]``
     (B, K) and ``sl[l] = sum_b x[b, l] * u[b]`` (L, K), float32, each in a
-    fixed order (a missing ``u``/``v`` is ones; u and v in x's dtype)."""
+    fixed order (a missing ``u``/``v`` is ones; u and v in x's dtype), x
+    read once."""
     x = x.contiguous()
     K = x.shape[1]
     if x.device.type != "cuda" or x.dtype not in (torch.bfloat16, torch.float32) or \
@@ -678,7 +760,7 @@ def side_sums_cuda(x: torch.Tensor, B: int, L: int, u: Optional[torch.Tensor] = 
         if t is not None and (tuple(t.shape) != (rows, K) or t.dtype != x.dtype or
                               t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"side rows must be ({rows}, {K}) contiguous {x.dtype}")
-    chunks, per = _chunks(L)
+    chunks, per = side_sums_plan(L)
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty(chunks, B * K, **f32)
     sb, sl = torch.empty(B, K, **f32), torch.empty(L, K, **f32)

@@ -2203,6 +2203,105 @@ def test_dense_first_layer_matches_plain_on_card(prod):
     assert torch.equal(sb, sb2) and torch.equal(sl, sl2)
 
 
+def _first_design(tmp_path, source: str, symbols: dict):
+    """A variant source of ``csrc/variants`` (a kernel's first design),
+    built with the port's nvcc flags: the CDLL, each symbol's argtypes set."""
+    import ctypes
+    import subprocess
+
+    from protnote_tpu_torch.ops import kernels
+
+    out = tmp_path / f"lib{source}.so"
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC_DIR), "-o",
+                    str(out), str(kernels.CSRC_DIR / "variants" / f"{source}.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in symbols.items():
+        getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L", [301, 64, 7])
+def test_side_sums_match_first_design_on_card(tmp_path, dtype, L):
+    """``pair_side_sums`` (x read once) against its first design
+    (``csrc/variants/pair_dense_v1.cu``) and the plain sums, 5 sequences x L
+    labels x 512 columns, plain and weighted: sl the first design's bits, sb
+    within 1e-5 of its largest |value| (float32 sums of the same products in
+    another order), the same bits on a second call."""
+    import ctypes
+
+    from protnote_tpu_torch.ops.streaming_train import _chunks
+
+    dev = _card()
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sym = "pair_side_sums" + ("_f32" if dtype == torch.float32 else "")
+    first = _first_design(tmp_path, "pair_dense_v1", {sym: [P] * 6 + [I] * 4 + [LL, P]})
+    gen = torch.Generator().manual_seed(L)
+    B, K = 5, 512
+    x = torch.randn(B * L, K, generator=gen).to(dev, dtype)
+    u = torch.randn(B, K, generator=gen).to(dev, dtype)
+    v = torch.randn(L, K, generator=gen).to(dev, dtype)
+    for uu, vv in ((None, None), (u, v)):
+        chunks, per = _chunks(L)
+        sb1, sl1 = torch.empty(B, K, device=dev), torch.empty(L, K, device=dev)
+        part = torch.empty(chunks, B * K, device=dev)
+        assert getattr(first, sym)(
+            x.data_ptr(), None if uu is None else uu.data_ptr(),
+            None if vv is None else vv.data_ptr(), part.data_ptr(), sb1.data_ptr(),
+            sl1.data_ptr(), B, L, K, chunks, per, torch.cuda.current_stream().cuda_stream) == 0
+        x3 = x.float().view(B, L, K)
+        want_b = (x3 * (1.0 if vv is None else vv.float()[None])).sum(1)
+        sb, sl = ds.side_sums_cuda(x, B, L, uu, vv)
+        sb2, sl2 = ds.side_sums_cuda(x, B, L, uu, vv)
+        assert torch.equal(sl, sl1) and torch.equal(sb, sb2) and torch.equal(sl, sl2)
+        _close(sb, sb1, 1e-5)
+        _close(sb, want_b, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serving,B", [(False, 5), (True, 5), (False, 2), (True, 1)])
+def test_prod_matches_first_design_on_card(tmp_path, serving, B):
+    """``pair_train_prod`` (64-row tiles a warpgroup, c by TMA) against its
+    first design (``csrc/variants/pair_train_prod_v1.cu``), B sequences (5
+    and 1: an odd pair; 2: one pair) x 301 labels, d 256, H 512: the same
+    bits, in the training form and in K1's serving form (ReLU, 384 rows a
+    sequence: the padded rows hold relu(a[b])); within 2^-6 of the plain
+    version."""
+    import ctypes
+
+    dev = _card()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    first = _first_design(tmp_path, "pair_train_prod_v1",
+                          {"pair_train_prod": [P] * 6 + [I] * 8 + [P]})
+    gen = torch.Generator().manual_seed(43 + int(serving))
+    L, d, H = 301, 256, 512
+    Lz = 384 if serving else L
+    a = torch.randn(B, H, generator=gen).to(dev)
+    c = torch.randn(L, H, generator=gen).to(dev)
+    P_e = torch.randn(B, d, generator=gen).to(dev, torch.bfloat16)
+    L_e = torch.randn(L, d, generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn(d, H, generator=gen) / 16).to(dev, torch.bfloat16)
+    wt = w.t().contiguous()
+    nan = float("nan")
+    got = torch.full((B * Lz, H), nan, dtype=torch.bfloat16, device=dev)
+    ds.pair_prod_cuda(a, c, P_e, L_e, w, relu=serving, out=got, rows_per_seq=Lz, wt=wt)
+    want = torch.full_like(got, nan)
+    assert first.pair_train_prod(P_e.data_ptr(), L_e.data_ptr(), wt.data_ptr(), a.data_ptr(),
+                                 c.data_ptr(), want.data_ptr(), B, L, Lz, d, H, int(serving),
+                                 256, 132, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    z = got.view(B, Lz, H)
+    plain = (a[:, None] + c[None]) + ((P_e[:, None] * L_e[None]).float() @ w.float())
+    if serving:
+        plain = torch.relu(plain)
+        assert torch.equal(z[:, L:], torch.relu(a)[:, None].expand(B, Lz - L, H)
+                           .to(torch.bfloat16))
+    _close(z[:, :L], plain.to(torch.bfloat16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prod", [False, True])
 @pytest.mark.parametrize("n_hidden", [0, 1, 2])

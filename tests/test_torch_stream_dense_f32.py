@@ -375,14 +375,29 @@ def k5_bias_grads(z, dy, bias, seed, layer, rate):
 
 def side_sums(x, B, L, u=None, v=None):
     """``pair_side_sums_f32``: sl[l] = sum_b x[b, l] u[b] over b in order;
-    sb[b] = sum_l x[b, l] v[l] as the column sums over the labels."""
+    sb[b] = sum_l x[b, l] v[l] in the wrapper's label chunks
+    (``side_sums_plan``, 64 labels): in a chunk, warp w of its 8 adds labels
+    w, w + 8, ... below L in order, the warps are added in order, then the
+    chunks in order."""
     x = _np(x).reshape(B, L, -1)
     xu = x if u is None else x * _np(u)[:, None, :]
     sl = np.zeros(x.shape[1:], np.float32)
     for b in range(B):
         sl = sl + xu[b]
     xv = x if v is None else x * _np(v)[None, :, :]
-    sb = np.stack([_kernel_sums([xv[b]], L)[0] for b in range(B)])
+    chunks, per = tds.side_sums_plan(L)
+    warps = per // 8
+    sb = np.zeros((B, x.shape[2]), np.float32)
+    for c in range(chunks):
+        t = np.zeros_like(sb)
+        for w in range(warps):
+            acc = np.zeros_like(sb)
+            for i in range(8):
+                lab = c * per + w + warps * i
+                if lab < L:
+                    acc = acc + xv[:, lab]
+            t = t + acc
+        sb = sb + t
     return _t(sb), _t(sl)
 
 
@@ -610,8 +625,21 @@ def test_dw_prod_emulation_at_depth_against_float64():
 @pytest.mark.parametrize("B,L,K", [(5, 3001, 256), (3, 7, 512)])
 def test_side_sums_emulation_matches_the_plain_sums(B, L, K):
     """``pair_side_sums_f32``'s order of work (over the sequences in order;
-    over the labels in row chunks, warps and chunks) against the plain
-    float32 sums and a float64 truth, weighted and not: within 1e-5."""
+    over the labels in the wrapper's chunks, their warps and the chunks, L
+    not a multiple of the chunk) against the plain float32 sums and a
+    float64 truth, weighted and not: within 1e-5."""
+    _check_side_sums(B, L, K)
+
+
+@pytest.mark.parametrize("B,L,K", [(5, 3001, 256), (2, 200, 256), (3, 64, 512), (2, 63, 256),
+                                   (2, 65, 256), (4, 128, 256)])
+def test_side_sums_emulation_at_chunk_edges(B, L, K):
+    """The same where L is a multiple of the 64-label chunk, one label
+    more or fewer, shorter than a chunk, or none of these."""
+    _check_side_sums(B, L, K)
+
+
+def _check_side_sums(B, L, K):
     rng = np.random.default_rng(L)
     x = rng.normal(size=(B * L, K)).astype(np.float32)
     u, v = rng.normal(size=(B, K)).astype(np.float32), rng.normal(size=(L, K)).astype(np.float32)
@@ -623,6 +651,37 @@ def test_side_sums_emulation_matches_the_plain_sums(B, L, K):
         wb = 1.0 if uu is None else uu.astype(np.float64)[:, None]
         assert _rel(sb, (x3 * wl).sum(1)) <= REL_TOL
         assert _rel(sl, (x3 * wb).sum(0)) <= REL_TOL
+        x3f = torch.from_numpy(x).view(B, L, K)
+        plain_b = (x3f * (1.0 if vv is None else torch.from_numpy(vv)[None])).sum(1)
+        plain_l = (x3f * (1.0 if uu is None else torch.from_numpy(uu)[:, None])).sum(0)
+        assert _rel(sb, plain_b) <= REL_TOL
+        assert _rel(sl, plain_l) <= REL_TOL
+
+
+@pytest.mark.parametrize("B,L", [(4, 301), (3, 64)])
+def test_side_sums_emulation_of_bf16_x_matches_the_plain_version(B, L):
+    """``pair_side_sums`` on bf16 x, u and v (each product exact in float32)
+    in its order of work against the plain version the wrapper takes on the
+    CPU (``_first_bwd_plain``'s float32 sums of dz, and dJ's sums weighted
+    by the other side's rows): within 1e-5; sl is the sum over the
+    sequences in order, so it equals the plain float32 loop's bits."""
+    K = 256
+    rng = np.random.default_rng(L)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    x = bf(rng.normal(size=(B * L, K)))
+    u, v = bf(rng.normal(size=(B, K))), bf(rng.normal(size=(L, K)))
+    sb, sl = side_sums(x.float(), B, L)
+    a, c = torch.zeros(B, K), torch.zeros(L, K)
+    da, dc, *_ = tds._first_bwd_plain(a, c, u, v, None, x)
+    assert _rel(sb, da) <= REL_TOL and _rel(sl, dc) <= REL_TOL
+    wb, wl = side_sums(x.float(), B, L, u.float(), v.float())
+    x3 = x.float().view(B, L, K)
+    assert _rel(wb, (x3 * v.float()[None]).sum(1)) <= REL_TOL
+    assert _rel(wl, (x3 * u.float()[:, None]).sum(0)) <= REL_TOL
+    loop = torch.zeros(L, K)
+    for b in range(B):
+        loop = loop + x3[b] * u.float()[b]
+    assert torch.equal(wl, loop)
 
 
 @pytest.mark.parametrize("rate", [0.05, 0.1, 0.25, 0.5])
